@@ -4,18 +4,22 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from tpu_flash_torch/csrc with nvcc, holds
-each kernel against its plain PyTorch version at the serving path's shapes,
-then serves 16 requests through the port's engine at the full width of the
-repo's canonical decode model (vocab 32000, dim 2048, 16 layers, 16 q / 8 kv
-heads, head_dim 128, bf16 weights from a seed, int8 paged cache) and checks
-the output against a teacher-forced forward. Each phase prints one JSON
-line; any failure raises and the exit code is not 0. Without a CUDA device
-it fails at once and prints no result. Imports torch and the port only.
+each kernel against its plain PyTorch version at its path's shapes, serves
+16 requests through the port's engine at the full width of the repo's
+canonical decode model (vocab 32000, dim 2048, 16 layers, 16 q / 8 kv heads,
+head_dim 128, bf16 weights from a seed, int8 paged cache) and checks the
+output against a teacher-forced forward, then takes three SGD train steps of
+the same model on 4 × 1025 tokens and checks their gradient against the f32
+oracle attention's. Each phase prints one JSON line; any failure raises and
+the exit code is not 0. Without a CUDA device it fails at once and prints no
+result. The train phase ends with a torch.profiler breakdown of one step.
+Imports torch and the port only.
 """
 
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import time
@@ -36,6 +40,23 @@ TOL_F32 = 1e-4
 # teacher-forced logprob drift with an int8 cache: more than twice the
 # reference's measured 0.0627 at this configuration
 TOL_LOGPROB = 0.15
+# backward: B4/B5 vs the plain backward, relative to the largest grad (one
+# bf16 ulp of P or dS is 2⁻⁸; float32 differs by summation order only);
+# the Function's grads vs the f32 oracle's: the reference's backward gate
+# (tpu_flash/bench/sweep.py:396-411) in bf16, tests/test_grad.py's
+# atol/rtol in float32
+TOL_BWD_PLAIN = {torch.bfloat16: 1e-2, torch.float32: 1e-4}
+TOL_BWD_ORACLE = 2.5e-2
+# training: tokens (batch, 1 + positions); lr at which bf16 updates
+# register (PERF.md §4: a bf16 weight near 0.02 has an ulp of 1.2e-4)
+TRAIN_TOKENS = (4, 1025)
+TRAIN_STEPS = 3
+TRAIN_LR = 1.0
+TOL_COSINE = 0.99
+TOL_DLOSS = 2e-2
+# H100 SXM datasheet peaks (dense): bf16 tensor cores, float32 FMA, HBM
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+PEAK_BYTES = 3.35e12
 
 
 def emit(obj) -> None:
@@ -69,6 +90,38 @@ def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
 def check(name: str, err: float, tol: float) -> None:
     if not err <= tol:
         raise AssertionError(f"{name}: error {err} above {tol}")
+
+
+def rel_err(a: torch.Tensor, b: torch.Tensor) -> float:
+    """max |a − b| / max(max |b|, 1): the reference's backward gate."""
+    a, b = a.float(), b.float()
+    return float((a - b).abs().max() / max(float(b.abs().max()), 1.0))
+
+
+def roofline(ops: float, nbytes: float, dtype) -> dict:
+    """Least time the card could take: operations over the peak rate of
+    their type, or bytes (each input read once, each output written once)
+    over the memory rate, whichever is larger."""
+    t_ops = ops / PEAK_FLOPS[dtype] * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    return dict(bound_ms=max(t_ops, t_bytes),
+                bound_by="operations" if t_ops >= t_bytes else "bytes")
+
+
+def visible_pairs(n_q: int, n_kv: int, causal: bool) -> int:
+    """(query, key) pairs a head attends: all, or the right-aligned
+    causal triangle."""
+    if not causal:
+        return n_q * n_kv
+    off = n_kv - n_q
+    return sum(min(n_kv, max(0, i + off + 1)) for i in range(n_q))
+
+
+def sdpa(q, k, v, causal):
+    """The library's fused attention on (B, H, N, D); the yardstick that
+    chip_smoke times beside the port's kernels (the port never calls it)."""
+    return torch.nn.functional.scaled_dot_product_attention(
+        q, k, v, is_causal=causal, enable_gqa=q.shape[1] != k.shape[1])
 
 
 def flash_phase(dev):
@@ -106,13 +159,17 @@ def flash_phase(dev):
         if name == "causal_1024":  # the slice's prefill shape
             row["ms"] = cuda_ms(lambda: flash._flash_fwd_kernel(*args, True))
             row["plain_ms"] = cuda_ms(lambda: flash._flash_fwd_plain(*args))
-            flops = 4 * n_q * n_kv * d // 2 * hq  # causal half of the square
+            row["library_ms"] = cuda_ms(lambda: sdpa(q, k, v, True))
+            flops = 4 * d * hq * visible_pairs(n_q, n_kv, True)
             row["tflops"] = flops / row["ms"] / 1e9
-            timing = (row["ms"], row["plain_ms"])
+            nbytes = 2 * (2 * hq * n_q * d + 2 * hkv * n_kv * d) + 4 * hq * n_q
+            timing = dict(ms=row["ms"], plain_ms=row["plain_ms"],
+                          library_ms=row["library_ms"],
+                          **roofline(flops, nbytes, dt))
         worst = max(worst, errs["o_vs_plain"], errs["lse_vs_plain"])
         rows.append(row)
     emit(dict(phase="flash_fwd", hq=hq, hkv=hkv, d=d, cases=rows))
-    return dict(max_abs_err=worst, ms=timing[0], plain_ms=timing[1])
+    return dict(max_abs_err=worst, **timing)
 
 
 def _decode_cache(dtype, lens, dev, seed):
@@ -181,6 +238,15 @@ def paged_phase(dev):
             attention_plain_ms=cuda_ms(
                 lambda: paged._paged_attention_plain(*att_args(pc))),
             tol=TOL_BF16, **errs)
+        # bytes the two functions must move at these lengths (B2 reads
+        # each lane's length + 1 tokens: the appended one too)
+        esz, ssz = (1, 4) if dtype == "int8" else (2, 0)
+        toks = sum(lens) + b
+        att_bytes = toks * kvh * 2 * (d * esz + ssz) + b * hq * (4 * d + 4)
+        app_bytes = b * kvh * 2 * (2 * d + d * esz + ssz) + 3 * 4 * b
+        row["attention_bound"] = roofline(4 * d * hq * toks, att_bytes,
+                                       torch.bfloat16)
+        row["append_bound"] = roofline(0, app_bytes, torch.bfloat16)
         out[dtype] = dict(row, append_err=app_err)
     emit(dict(phase="paged", caches=[out[k] for k in out]))
     return out
@@ -226,6 +292,223 @@ def engine_phase(dev, model=MODEL, cache=CACHE, max_batch=MAX_BATCH,
     done = {f.rid: f for f in eng.finished[n_done0:]}
     return dict(params=params, mcfg=mcfg, done=done, step_ms=step_ms,
                 wall_s=wall, launches=launches)
+
+
+# (name, batch, n_q, n_kv, d, causal, dtype) at 16 q / 8 kv heads: the
+# training shape first, then ragged, right-aligned causal, d 64 (where the
+# reference's transposed kernels B10a/B10b fold into B4/B5), dense float32
+BWD_CASES = [
+    ("train_4x1024", 4, 1024, 1024, 128, True, torch.bfloat16),
+    ("ragged_causal_1000", 1, 1000, 1000, 128, True, torch.bfloat16),
+    ("right_aligned_256_of_1024", 1, 256, 1024, 128, True, torch.bfloat16),
+    ("d64_causal_1024", 1, 1024, 1024, 64, True, torch.bfloat16),
+    ("dense_f32_300", 1, 300, 300, 128, False, torch.float32),
+]
+
+
+def flash_bwd_phase(dev):
+    """B4/B5 vs the plain backward, the Function's grads vs the f32
+    oracle's, bitwise repeatability; times at the training shape."""
+    from tpu_flash_torch.ops import flash, flash_bwd
+    from tpu_flash_torch.ops.oracle import dense_dpa
+
+    gen = torch.Generator(device=dev).manual_seed(4)
+    hq, hkv = 16, 8
+    g = hq // hkv
+
+    def rand(*shape):
+        return torch.randn(*shape, generator=gen, device=dev)
+
+    rows, worst, timing = [], 0.0, None
+    for name, b, n_q, n_kv, d, causal, dt in BWD_CASES:
+        q, k, v = (rand(b, h, n, d).to(dt) for h, n in
+                   ((hq, n_q), (hkv, n_kv), (hkv, n_kv)))
+        w, wl = rand(b, hq, n_q, d), rand(b, hq, n_q)
+
+        def grads(attn):
+            xs = [x.clone().requires_grad_(True) for x in (q, k, v)]
+            o, lse = attn(*xs)
+            ((o.float() * w).sum() + 0.3 * (lse * wl).sum()).backward()
+            return [x.grad for x in xs]
+
+        got = grads(lambda q_, k_, v_: flash.dense_fa(
+            q_, k_, v_, causal=causal, return_lse=True))
+        want = grads(lambda q_, k_, v_: dense_dpa(
+            q_, k_.repeat_interleave(g, 1), v_.repeat_interleave(g, 1),
+            causal=causal))
+        row = dict(case=name, batch=b, n_q=n_q, n_kv=n_kv, d=d, causal=causal,
+                   dtype=str(dt).replace("torch.", ""))
+        for x, a_, b_ in zip("qkv", got, want):
+            if dt == torch.bfloat16:
+                row[f"d{x}_vs_oracle"] = rel_err(a_, b_)
+                check(f"grad {name} d{x} vs oracle", row[f"d{x}_vs_oracle"],
+                      TOL_BWD_ORACLE)
+            else:  # atol 3e-4 + rtol 1e-3
+                row[f"d{x}_vs_oracle"] = float(
+                    ((a_ - b_).abs() - 1e-3 * b_.abs()).max())
+                check(f"grad {name} d{x} vs oracle", row[f"d{x}_vs_oracle"],
+                      3e-4)
+
+        qf = (q.float() * (d ** -0.5 * flash.LOG2E)).to(dt).reshape(
+            b * hq, n_q, d)
+        kf, vf = k.reshape(b * hkv, n_kv, d), v.reshape(b * hkv, n_kv, d)
+        sched = flash.build_schedule("causal" if causal else "dense", n_q,
+                                     n_kv, 256, 256)
+        o, lse = flash._flash_fwd_kernel(qf, kf, vf, sched, hq, hkv, True)
+        args = (qf, kf, vf, o, lse, rand(b * hq, n_q, d).to(dt),
+                rand(b * hq, n_q), sched, hq, hkv)
+        first = flash_bwd._flash_bwd_kernel(*args)
+        second = flash_bwd._flash_bwd_kernel(*args)
+        plain = flash_bwd._flash_bwd_plain(*args)
+        for x, a_, a2, p_ in zip("qkv", first, second, plain):
+            if not torch.equal(a_, a2):
+                raise AssertionError(f"B4/B5 {name}: d{x} not bitwise "
+                                     "equal between two calls")
+            row[f"d{x}_vs_plain"] = rel_err(a_, p_)
+            check(f"B4/B5 {name} d{x} vs plain", row[f"d{x}_vs_plain"],
+                  TOL_BWD_PLAIN[dt])
+            worst = max(worst, max_err(a_, p_))
+        row.update(bitwise_repeat=True, tol_plain=TOL_BWD_PLAIN[dt])
+
+        if name == "train_4x1024":
+            ops = flash_bwd._kernel_operands(*args)
+            pairs = visible_pairs(n_q, n_kv, causal) * b * hq
+            q_bytes, kv_bytes = 2 * b * hq * n_q * d, 2 * b * hkv * n_kv * d
+            reads = 2 * q_bytes + 2 * kv_bytes + 2 * 4 * b * hq * n_q
+            dq = dict(ms=cuda_ms(lambda: flash_bwd._dq_kernel(
+                *ops, sched, hq, hkv)), **roofline(6 * d * pairs, reads + q_bytes, dt))
+            dkv = dict(ms=cuda_ms(lambda: flash_bwd._dkv_kernel(
+                *ops, sched, hq, hkv)), **roofline(8 * d * pairs, reads + 2 * kv_bytes, dt))
+            plain_ms = cuda_ms(lambda: flash_bwd._flash_bwd_plain(*args),
+                               iters=5)
+            xs = [x.clone().requires_grad_(True) for x in (q, k, v)]
+            do = rand(b, hq, n_q, d).to(dt)
+            fwdbwd_ms = cuda_ms(lambda: flash.dense_fa(
+                *xs, causal=True).backward(do))
+            library_ms = cuda_ms(lambda: sdpa(*xs, True).backward(do))
+            # FA-2's least work: 2 products forward, 5 backward
+            fb_bound = roofline(14 * d * pairs, 2 * (3 * q_bytes + 4 * kv_bytes)
+                             + 4 * b * hq * n_q, dt)
+            timing = dict(dq=dq, dkv=dkv, plain_ms=plain_ms)
+            row.update(dq_ms=dq["ms"], dq_bound_ms=dq["bound_ms"],
+                       dkv_ms=dkv["ms"], dkv_bound_ms=dkv["bound_ms"],
+                       plain_bwd_ms=plain_ms,
+                       dq_tflops=6 * d * pairs / dq["ms"] / 1e9,
+                       dkv_tflops=8 * d * pairs / dkv["ms"] / 1e9,
+                       port_fwd_bwd_ms=fwdbwd_ms,
+                       library_fwd_bwd_ms=library_ms,
+                       fwd_bwd_bound_ms=fb_bound["bound_ms"])
+        rows.append(row)
+    emit(dict(phase="flash_bwd", hq=hq, hkv=hkv, cases=rows))
+    return dict(max_abs_err=worst, **timing)
+
+
+def train_phase(dev):
+    """Three SGD steps at the canonical model's full width and depth, then
+    one step's gradient against the oracle-attention path's."""
+    from tpu_flash_torch import graft_entry, kernels
+    from tpu_flash_torch.models import transformer as tfm
+    from tpu_flash_torch.ops.oracle import dense_dpa
+
+    mcfg = tfm.ModelConfig(**MODEL)
+    params = tfm.init_params(mcfg, torch.Generator(device=dev).manual_seed(0),
+                             dev)
+    tokens = torch.as_tensor(np.random.default_rng(1).integers(
+        0, mcfg.vocab_size, TRAIN_TOKENS), device=dev)
+    leaves = graft_entry.param_leaves(params)
+    n_params = sum(t.numel() for t in leaves)
+    wq0 = params["layers"][0]["wq"].clone()
+    embed0 = params["embed"].clone()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    losses, step_ms = [], []
+    for i in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        params, loss = graft_entry.train_step(params, tokens, mcfg, TRAIN_LR)
+        losses.append(float(loss))  # a host fetch: the step's work is done
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        if i == 0:
+            changed = dict(
+                wq=float((params["layers"][0]["wq"] != wq0).float().mean()),
+                embed=float((params["embed"] != embed0).float().mean()))
+    launches = dict(kernels.LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    dwq = float((params["layers"][0]["wq"].float() - wq0.float()).abs().max())
+    del embed0
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"non-finite loss {losses}")
+    check("first loss vs ln(vocab)", abs(losses[0] - math.log(mcfg.vocab_size)),
+          1.0)
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"loss did not fall: {losses}")
+    if not dwq > 0:
+        raise AssertionError("train step produced no parameter update")
+    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        if launches[name] <= 0:
+            raise AssertionError(f"kernel {name} never launched in the train run")
+
+    loss_k, grads_k = graft_entry.loss_and_grads(params, tokens, mcfg)
+    loss_o, grads_o = graft_entry.loss_and_grads(
+        params, tokens, mcfg,
+        attn_fn=lambda q, k, v: dense_dpa(q, k, v, causal=True)[0])
+    cos = {}
+    for (name, _), a, b in zip(graft_entry.named_leaves(params), grads_k,
+                               grads_o):
+        a, b = a.double().flatten(), b.double().flatten()
+        cos[name] = float(a @ b / (a.norm() * b.norm()).clamp_min(1e-300))
+    worst_cos = min(cos, key=cos.get)
+    dloss = abs(float(loss_k) - float(loss_o))
+    check("loss vs oracle-attention loss", dloss, TOL_DLOSS)
+    if not cos[worst_cos] >= TOL_COSINE:
+        raise AssertionError(f"grad cosine {worst_cos}: {cos[worst_cos]}")
+    median_ms = float(np.median(step_ms[1:]))
+    n_tok = TRAIN_TOKENS[0] * (TRAIN_TOKENS[1] - 1)
+    row = dict(
+        phase="train", tokens=list(TRAIN_TOKENS), steps=TRAIN_STEPS,
+        lr=TRAIN_LR, params=n_params, losses=losses, ln_vocab=math.log(
+            mcfg.vocab_size), max_abs_dwq=dwq, frac_changed_step1=changed,
+        step_ms=step_ms, median_step_ms=median_ms,
+        tokens_per_s=n_tok / median_ms * 1e3, peak_mem_gb=peak_gb,
+        launches=launches, loss_flash=float(loss_k), loss_oracle=float(loss_o),
+        dloss=dloss, min_grad_cosine=cos[worst_cos], min_cosine_param=worst_cos,
+        grad_batch=TRAIN_TOKENS[0],
+        profile=profile_train_step(params, tokens, mcfg, median_ms))
+    emit(row)
+    return launches
+
+
+def profile_train_step(params, tokens, mcfg, step_ms, top=15):
+    """torch.profiler over one train step at lr 0 (weights unchanged):
+    device time by kernel, the kernel count, and the device's busy share
+    of ``step_ms``, the step's unprofiled time (the profiler's own start-up
+    would inflate a profiled wall time)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpu_flash_torch import graft_entry
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        graft_entry.train_step(params, tokens, mcfg, 0.0)
+        torch.cuda.synchronize()
+    kern = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    dev_us = {e.key: e.self_device_time_total for e in kern}
+    total_us = sum(dev_us.values())
+    rows = sorted(dev_us.items(), key=lambda kv: -kv[1])[:top]
+    groups = {"flash kernels": ("flash_",),
+              "matrix products": ("nvjet", "gemm", "cutlass", "sm90_")}
+    by_group = {name: sum(v for k, v in dev_us.items()
+                          if any(m in k for m in marks)) / 1e3
+                for name, marks in groups.items()}
+    by_group["elementwise, copies, reductions"] = (
+        total_us / 1e3 - sum(by_group.values()))
+    return dict(device_ms=total_us / 1e3,
+                device_busy_share=total_us / 1e3 / step_ms,
+                device_kernels=sum(e.count for e in kern),
+                device_ms_by_group=by_group,
+                top=[dict(kernel=k[:80], ms=v / 1e3, share=v / total_us)
+                     for k, v in rows])
 
 
 def teacher_forced_drift(params, mcfg, f) -> float:
@@ -275,7 +558,9 @@ def main() -> int:
                                  f"{len(f.new_tokens)} tokens")
         if not all(np.isfinite(f.logprobs)):
             raise AssertionError(f"request {f.rid}: non-finite logprobs")
-    for name, n in run["launches"].items():
+    engine_launches = {k: run["launches"][k] for k in (
+        "flash_fwd", "paged_attention", "paged_append")}
+    for name, n in engine_launches.items():
         if n <= 0:
             raise AssertionError(f"kernel {name} never launched in the engine run")
     drift = teacher_forced_drift(run["params"], run["mcfg"], done[0])
@@ -287,7 +572,7 @@ def main() -> int:
         finish_reasons=sorted({f.reason for f in done.values()}),
         new_tokens_per_request=sorted({len(f.new_tokens) for f in done.values()}),
         steps=len(step_ms),
-        launches=run["launches"], teacher_forced_drift=drift,
+        launches=engine_launches, teacher_forced_drift=drift,
         drift_tol=TOL_LOGPROB,
         # step 1 admits and prefills all requests, then decodes once
         prefill_ms_per_request=(step_ms[0] - decode_ms) / N_REQUESTS,
@@ -296,28 +581,52 @@ def main() -> int:
         wall_s=run["wall_s"],
         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
     ))
-    launches = run["launches"]
+    b45 = flash_bwd_phase(dev)
+    del run
+    torch.cuda.empty_cache()
+    train = train_phase(dev)
+    # launches: the engine run for the serving kernels, the train run for
+    # the backward ones (the forward kernel runs in both; the train run's
+    # count is reported)
+    launches = dict(engine_launches, **{k: train[k] for k in (
+        "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")})
+    int8 = b23["int8"]
     emit({"kernels": [
         dict(name="flash_fwd", route="cuda",
              source="tpu_flash_torch/csrc/flash_fwd.cu",
              replaces="tpu_flash/ops/flash.py:204",
              launches=launches["flash_fwd"], max_abs_err=b1["max_abs_err"],
-             ms=b1["ms"], plain_ms=b1["plain_ms"]),
+             ms=b1["ms"], plain_ms=b1["plain_ms"], bound_ms=b1["bound_ms"],
+             bound_by=b1["bound_by"], library_ms=b1["library_ms"]),
         dict(name="paged_attention", route="cuda",
              source="tpu_flash_torch/csrc/paged_attention.cu",
              replaces="tpu_flash/ops/paged.py:74",
              launches=launches["paged_attention"],
              max_abs_err=max(r[k] for r in b23.values()
                              for k in ("o_vs_plain", "lse_vs_plain")),
-             ms=b23["int8"]["attention_ms"],
-             plain_ms=b23["int8"]["attention_plain_ms"]),
+             ms=int8["attention_ms"], plain_ms=int8["attention_plain_ms"],
+             **int8["attention_bound"], library_ms=None),
         dict(name="paged_append", route="cuda",
              source="tpu_flash_torch/csrc/paged_append.cu",
              replaces="tpu_flash/ops/paged.py:267",
              launches=launches["paged_append"],
              max_abs_err=max(r["append_err"] for r in b23.values()),
-             ms=b23["int8"]["append_ms"],
-             plain_ms=b23["int8"]["append_plain_ms"]),
+             ms=int8["append_ms"], plain_ms=int8["append_plain_ms"],
+             **int8["append_bound"], library_ms=None),
+        # the plain backward computes dq, dk and dv in one pass: its time
+        # stands in both rows; no one library call computes dq or dk/dv
+        # alone (scaled_dot_product_attention's forward + backward is in
+        # the flash_bwd phase's line)
+        dict(name="flash_bwd_dq", route="cuda",
+             source="tpu_flash_torch/csrc/flash_bwd.cu",
+             replaces="tpu_flash/ops/flash_bwd.py:137",
+             launches=launches["flash_bwd_dq"], max_abs_err=b45["max_abs_err"],
+             plain_ms=b45["plain_ms"], **b45["dq"], library_ms=None),
+        dict(name="flash_bwd_dkv", route="cuda",
+             source="tpu_flash_torch/csrc/flash_bwd.cu",
+             replaces="tpu_flash/ops/flash_bwd.py:252",
+             launches=launches["flash_bwd_dkv"], max_abs_err=b45["max_abs_err"],
+             plain_ms=b45["plain_ms"], **b45["dkv"], library_ms=None),
     ]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

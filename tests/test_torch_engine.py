@@ -38,7 +38,7 @@ _CCFG = dict(num_kv_heads=2, head_dim=32, page_size=16, total_pages=64,
 @pytest.fixture(scope="module")
 def params():
     jp = jtfm.init_params(jax.random.PRNGKey(0), jtfm.ModelConfig(**_MCFG))
-    return jp, params_from_tree(jax.tree.map(np.asarray, jp))
+    return jp, params_from_tree(jax.tree.map(np.asarray, jp), device="cpu")
 
 
 def _requests(mod):

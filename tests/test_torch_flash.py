@@ -33,7 +33,7 @@ def _inputs(seed, b, hq, hkv, n_q, n_kv, d, dtype):
     k = rng.standard_normal((b, hkv, n_kv, d)).astype(np.float32)
     v = rng.standard_normal((b, hkv, n_kv, d)).astype(np.float32)
     jx = [jnp.asarray(x, dtype) for x in (q, k, v)]
-    tx = [to_torch(np.asarray(x)) for x in jx]
+    tx = [to_torch(np.asarray(x), device="cpu") for x in jx]
     return jx, tx
 
 

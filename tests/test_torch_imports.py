@@ -2,11 +2,14 @@
 no library attention or compiler, and CPU tensors never count as kernel
 launches."""
 
+import inspect
 import os
 import re
 import subprocess
 import sys
 
+import numpy as np
+import pytest
 import torch
 
 from tpu_flash_torch import kernels
@@ -55,20 +58,22 @@ def test_port_sources_name_no_forbidden_api():
 
 def test_cpu_tensors_launch_no_kernel():
     """The plain paths that CPU tensors take never touch the launch
-    counters, through every wrapper of the serving path."""
+    counters, through every wrapper of the serving and training paths."""
     from tpu_flash_torch.cache.paged_cache import CacheConfig, PagedKVCache
     from tpu_flash_torch.ops.flash import dense_fa
     from tpu_flash_torch.ops.paged import paged_attention
 
     kernels.reset_launches()
-    g = torch.Generator().manual_seed(0)
+    g = torch.Generator(device="cpu").manual_seed(0)
     q = torch.randn(1, 4, 40, 32, generator=g)
     kv = torch.randn(1, 2, 40, 32, generator=g)
-    dense_fa(q, kv, kv, causal=True)
+    qg = q.clone().requires_grad_(True)
+    dense_fa(qg, kv, kv, causal=True).sum().backward()
+    assert qg.grad is not None and torch.isfinite(qg.grad).all()
     cfg = CacheConfig(num_kv_heads=2, head_dim=32, page_size=16,
                       total_pages=8, max_seqs=2, max_pages_per_seq=4,
                       dtype="int8")
-    cache = PagedKVCache.create(cfg)
+    cache = PagedKVCache.create(cfg, device="cpu")
     cache.page_tables[0] = torch.tensor([1, 2, 3, 4], dtype=torch.int32)
     cache.write_prompt(0, kv[0], kv[0])
     slots = torch.zeros(1, dtype=torch.int32)
@@ -76,5 +81,50 @@ def test_cpu_tensors_launch_no_kernel():
     paged_attention(q[:, :, 0], cache, slots, new_kv=(new, new))
     cache.append(slots, new, new)
     assert kernels.LAUNCHES == {"flash_fwd": 0, "paged_attention": 0,
-                                "paged_append": 0}
+                                "paged_append": 0, "flash_bwd_dq": 0,
+                                "flash_bwd_dkv": 0}
     assert int(cache.lengths[0]) == 42
+
+
+def _entry_points():
+    from tpu_flash_torch.cache.paged_cache import PagedKVCache
+    from tpu_flash_torch.models.transformer import init_params
+    from tpu_flash_torch.utils import convert
+
+    return {"init_params": init_params, "PagedKVCache.create":
+            PagedKVCache.create, "to_torch": convert.to_torch,
+            "params_from_tree": convert.params_from_tree,
+            "cache_from_reference": convert.cache_from_reference}
+
+
+@pytest.mark.parametrize("name", ["init_params", "PagedKVCache.create",
+                                  "to_torch", "params_from_tree",
+                                  "cache_from_reference"])
+def test_entry_points_default_to_the_card(name):
+    """Entry points put their tensors on the card unless the caller asks
+    for the CPU (the CPU tests all pass device="cpu")."""
+    fn = _entry_points()[name]
+    assert inspect.signature(fn).parameters["device"].default == "cuda"
+
+
+def test_default_device_never_falls_back_to_the_cpu():
+    """A call left at the default lands on the card, or raises where there
+    is none; init_params refuses a generator on another device."""
+    from tpu_flash_torch.cache.paged_cache import CacheConfig, PagedKVCache
+    from tpu_flash_torch.models import transformer as tfm
+    from tpu_flash_torch.utils.convert import to_torch
+
+    cfg = CacheConfig(num_kv_heads=1, head_dim=32, page_size=16,
+                      total_pages=2, max_seqs=1, max_pages_per_seq=1)
+    if torch.cuda.is_available():
+        assert PagedKVCache.create(cfg).k_pages.is_cuda
+        assert to_torch(np.zeros(3, np.float32)).is_cuda
+    else:
+        with pytest.raises((RuntimeError, AssertionError)):
+            PagedKVCache.create(cfg)
+        with pytest.raises((RuntimeError, AssertionError)):
+            to_torch(np.zeros(3, np.float32))
+    mcfg = tfm.ModelConfig(vocab_size=64, dim=32, num_layers=1,
+                           num_q_heads=2, num_kv_heads=1, head_dim=16)
+    with pytest.raises(ValueError, match="generator"):
+        tfm.init_params(mcfg, torch.Generator(device="cpu"))

@@ -1,5 +1,6 @@
 """The port's CUDA kernels (B1 flash forward, B2 paged attention, B3 paged
-append) against their plain PyTorch versions, on the card.
+append, B4/B5 flash backward) against their plain PyTorch versions, on the
+card.
 
 Every test here needs an NVIDIA GPU: it carries the ``cuda`` marker and
 skips without one. The file imports only torch and the port, so it also
@@ -14,7 +15,9 @@ import torch
 from tpu_flash_torch import kernels
 from tpu_flash_torch.cache.paged_cache import CacheConfig, PagedKVCache
 from tpu_flash_torch.ops import flash as tflash
+from tpu_flash_torch.ops import flash_bwd as tflash_bwd
 from tpu_flash_torch.ops import paged as tpaged
+from tpu_flash_torch.ops.oracle import dense_dpa
 
 pytestmark = pytest.mark.cuda
 
@@ -109,3 +112,92 @@ def test_kernels_reject_what_they_do_not_take(gen):
         tflash._flash_fwd_kernel(q, q, q, sched, 1, 1, True)
     with pytest.raises(NotImplementedError):
         tflash._flash_fwd_kernel(q.half(), q.half(), q.half(), sched, 1, 1, True)
+
+
+def _rel(a, b):
+    """max |a − b| relative to max |b| (at least 1): the reference's
+    backward gate (``tpu_flash/bench/sweep.py:396-403``)."""
+    return float((a.float() - b.float()).abs().max()
+                 / max(float(b.float().abs().max()), 1.0))
+
+
+# (b, hq, hkv, n_q, n_kv, d, causal, dtype): the training shape, ragged
+# causal, right-aligned causal, d 64 (where the reference's transposed
+# kernels B10a/B10b fold into B4/B5), dense float32.
+_BWD_CASES = [
+    (4, 16, 8, 1024, 1024, 128, True, torch.bfloat16),
+    (1, 16, 8, 1000, 1000, 128, True, torch.bfloat16),
+    (1, 16, 8, 256, 1024, 128, True, torch.bfloat16),
+    (1, 16, 8, 1024, 1024, 64, True, torch.bfloat16),
+    (1, 16, 8, 300, 300, 128, False, torch.float32),
+]
+
+
+def _bwd_args(gen, b, hq, hkv, n_q, n_kv, d, causal, dtype):
+    """Prescaled operands, the forward's o/lse, a random dO and dlse."""
+    q = (torch.randn(b * hq, n_q, d, generator=gen, device="cuda")
+         * (d ** -0.5 * tflash.LOG2E)).to(dtype)
+    k = torch.randn(b * hkv, n_kv, d, generator=gen, device="cuda").to(dtype)
+    v = torch.randn(b * hkv, n_kv, d, generator=gen, device="cuda").to(dtype)
+    sched = tflash.build_schedule("causal" if causal else "dense", n_q, n_kv,
+                                  256, 256)
+    o, lse = tflash._flash_fwd_kernel(q, k, v, sched, hq, hkv, True)
+    do = torch.randn(b * hq, n_q, d, generator=gen, device="cuda").to(dtype)
+    dlse = torch.randn(b * hq, n_q, generator=gen, device="cuda")
+    return (q, k, v, o, lse, do, dlse, sched, hq, hkv)
+
+
+@pytest.mark.parametrize("case", _BWD_CASES,
+                         ids=["train", "ragged", "right_aligned", "d64",
+                              "dense_f32"])
+def test_flash_bwd_kernels_match_plain(gen, case):
+    """B4/B5 vs the plain backward on the same o, lse, dO, dlse; two calls
+    bitwise equal; each counter moves by one a call. bf16 1e-2 of the
+    largest grad: both round P and dS to bf16 at the same points, but
+    from scores summed in another order, so a rounding may fall one ulp
+    (2⁻⁸) apart. float32 1e-4: summation order only."""
+    args = _bwd_args(gen, *case)
+    before = dict(kernels.LAUNCHES)
+    got = tflash_bwd._flash_bwd_kernel(*args)
+    again = tflash_bwd._flash_bwd_kernel(*args)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["flash_bwd_dq"] == before["flash_bwd_dq"] + 2
+    assert kernels.LAUNCHES["flash_bwd_dkv"] == before["flash_bwd_dkv"] + 2
+    want = tflash_bwd._flash_bwd_plain(*args)
+    tol = 1e-2 if case[-1] == torch.bfloat16 else 1e-4
+    for name, a, a2, w in zip("qkv", got, again, want):
+        assert torch.equal(a, a2), f"d{name} differs between two calls"
+        assert a.dtype == w.dtype and a.shape == w.shape
+        assert torch.isfinite(a).all()
+        assert _rel(a, w) <= tol, (name, _rel(a, w))
+
+
+@pytest.mark.parametrize("case", [_BWD_CASES[1], _BWD_CASES[4]],
+                         ids=["ragged_bf16", "dense_f32"])
+def test_flash_grads_match_oracle(gen, case):
+    """Autograd through ``dense_fa`` (B1 then B4/B5) vs autograd through the
+    f32 oracle: bf16 within the reference's gate, 2.5e-2 of the largest
+    grad; float32 atol 3e-4 / rtol 1e-3 (``tests/test_grad.py``)."""
+    b, hq, hkv, n_q, n_kv, d, causal, dtype = case
+    q = torch.randn(b, hq, n_q, d, generator=gen, device="cuda").to(dtype)
+    k = torch.randn(b, hkv, n_kv, d, generator=gen, device="cuda").to(dtype)
+    v = torch.randn(b, hkv, n_kv, d, generator=gen, device="cuda").to(dtype)
+    w = torch.randn(b, hq, n_q, d, generator=gen, device="cuda")
+
+    def grads(fn, g):
+        xs = [x.clone().requires_grad_(True) for x in (q, k, v)]
+        kx = [x.repeat_interleave(g, 1) for x in xs[1:]]
+        (fn(xs[0], *kx).float() * w).sum().backward()
+        return [x.grad for x in xs]
+
+    before = dict(kernels.LAUNCHES)
+    got = grads(lambda q_, k_, v_: tflash.dense_fa(q_, k_, v_, causal=causal),
+                1)
+    assert kernels.LAUNCHES["flash_bwd_dq"] == before["flash_bwd_dq"] + 1
+    want = grads(lambda q_, k_, v_: dense_dpa(q_, k_, v_, causal=causal)[0],
+                 hq // hkv)
+    for name, a, b_ in zip("qkv", got, want):
+        if dtype == torch.bfloat16:
+            assert _rel(a, b_) <= 2.5e-2, (name, _rel(a, b_))
+        else:
+            torch.testing.assert_close(a, b_, atol=3e-4, rtol=1e-3)

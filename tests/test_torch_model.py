@@ -38,7 +38,7 @@ _jprefill = jax.jit(lambda p, t: jtfm.prefill(p, t, JCFG))
 @pytest.fixture(scope="module")
 def params():
     jp = jtfm.init_params(jax.random.PRNGKey(0), JCFG)
-    return jp, params_from_tree(jax.tree.map(np.asarray, jp))
+    return jp, params_from_tree(jax.tree.map(np.asarray, jp), device="cpu")
 
 
 def _tokens(seed, b, n):
@@ -55,7 +55,8 @@ def test_param_conversion_is_exact(params):
 def test_init_params_shapes_and_dtypes():
     """The port's own init has the reference's shapes, dtypes and scales."""
     cfg = ttfm.ModelConfig(**{**_CFG, "dtype": "bfloat16"})
-    tp = ttfm.init_params(cfg, torch.Generator().manual_seed(0))
+    tp = ttfm.init_params(cfg, torch.Generator(device="cpu").manual_seed(0),
+                          device="cpu")
     jp = jax.eval_shape(lambda k: jtfm.init_params(k, jtfm.ModelConfig(
         **{**_CFG, "dtype": "bfloat16"})), jax.random.PRNGKey(0))
     flat_t = {jax.tree_util.keystr(p): v for p, v in
@@ -117,7 +118,7 @@ def test_decode_step_matches_reference(params, dtype):
     n = [20, 13]
     _, kv = _jprefill(jp, jnp.asarray(toks))
     jcaches = _caches(dtype, kv, n)
-    tcaches = [cache_from_reference(c) for c in jcaches]
+    tcaches = [cache_from_reference(c, device="cpu") for c in jcaches]
     slots = np.array([0, 1], np.int32)
     pos = np.array(n, np.int32)
     new = np.array([7, 9], np.int32)
@@ -154,7 +155,8 @@ def test_decode_matches_teacher_forced_forward(params):
     cfg = CacheConfig(num_kv_heads=2, head_dim=32, page_size=16,
                       total_pages=16, max_seqs=2, max_pages_per_seq=4,
                       dtype="float32")
-    caches = [PagedKVCache.create(cfg) for _ in range(TCFG.num_layers)]
+    caches = [PagedKVCache.create(cfg, device="cpu")
+              for _ in range(TCFG.num_layers)]
     logits, kv = ttfm.prefill(tp, torch.tensor([toks]), TCFG)
     for c, (k, v) in zip(caches, kv):
         c.page_tables[0] = torch.tensor([1, 2, 3, 4], dtype=torch.int32)
@@ -173,7 +175,7 @@ def test_decode_matches_teacher_forced_forward(params):
 def test_unported_model_options_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP A3"):
         ttfm.init_params(ttfm.ModelConfig(**{**_CFG, "attention": "sliding"}),
-                         torch.Generator())
+                         torch.Generator(device="cpu"), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP A9"):
         ttfm.init_params(ttfm.ModelConfig(**{**_CFG, "moe_experts": 4}),
-                         torch.Generator())
+                         torch.Generator(device="cpu"), device="cpu")

@@ -74,7 +74,7 @@ def test_write_prompt_and_gather_bit_exact(dtype):
     rng = np.random.default_rng(1)
     k, v = _rand(rng, KVH, 50, D), _rand(rng, KVH, 50, D)
     jc = _make_cache(dtype)
-    tc = cache_from_reference(jc)
+    tc = cache_from_reference(jc, device="cpu")
     jc = jc.write_prompt(1, jnp.asarray(k), jnp.asarray(v))
     tc.write_prompt(1, torch.as_tensor(k), torch.as_tensor(v))
     _assert_cache_equal(tc, jc)
@@ -89,7 +89,7 @@ def _seeded_caches(dtype, lens, rng):
     for s, n in enumerate(lens):
         jc = jc.write_prompt(s, jnp.asarray(_rand(rng, KVH, n, D)),
                              jnp.asarray(_rand(rng, KVH, n, D)))
-    return jc, cache_from_reference(jc)
+    return jc, cache_from_reference(jc, device="cpu")
 
 
 @pytest.mark.parametrize("dtype,new_dtype", [
@@ -124,8 +124,8 @@ def test_append_bit_exact(dtype, new_dtype):
                 want[sc][:, phys, off] = np.asarray(scales)
         want["lengths"][s] += 1
     jc = jc.append(jnp.asarray(slots), k, v)
-    tc.append(torch.as_tensor(slots), to_torch(np.asarray(k)),
-              to_torch(np.asarray(v)))
+    tc.append(torch.as_tensor(slots), to_torch(np.asarray(k), device="cpu"),
+              to_torch(np.asarray(v), device="cpu"))
     for name, w in want.items():
         t = getattr(tc, name)
         if w is None:
@@ -195,7 +195,7 @@ def test_paged_attention_bf16_queries_without_append():
     q = jnp.asarray(_rand(rng, 3, KVH * 2, D), jnp.bfloat16)
     slots = np.array([2, 0, 1], np.int32)
     jo = jpaged.paged_attention(q, jc, jnp.asarray(slots))
-    to = tpaged.paged_attention(to_torch(np.asarray(q)), tc,
+    to = tpaged.paged_attention(to_torch(np.asarray(q), device="cpu"), tc,
                                 torch.as_tensor(slots))
     assert to.dtype == torch.bfloat16
     np.testing.assert_allclose(to_numpy(to), np.asarray(jo, np.float32),

@@ -63,7 +63,7 @@ class PagedKVCache:
     config: CacheConfig
 
     @classmethod
-    def create(cls, config: CacheConfig, device="cpu") -> "PagedKVCache":
+    def create(cls, config: CacheConfig, device="cuda") -> "PagedKVCache":
         shape = (config.num_kv_heads, config.total_pages, config.page_size,
                  config.head_dim)
         sc_shape = shape[:3]

@@ -1,0 +1,75 @@
+"""Training step: the counterpart of ``__graft_entry__.py``'s ``train_step``
+without the mesh (sequence-parallel ring attention and the multi-chip dry
+run are ROADMAP A13; ``entry()`` is A6).
+
+    params, loss = train_step(params, tokens, cfg, lr)
+
+takes the gradient of ``models/transformer.py:loss_fn`` with respect to
+every parameter leaf (attention backward through B4/B5 on the card) and
+applies the reference's update ``p − lr·g.astype(p.dtype)``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from tpu_flash_torch.models import transformer as tfm
+
+
+def named_leaves(params, prefix=""):
+    """(name, tensor) for each leaf of a parameter tree (dicts and lists),
+    in a fixed order; names read like ``layers[3].wq``."""
+    if isinstance(params, dict):
+        return [leaf for key in params
+                for leaf in named_leaves(params[key], f"{prefix}.{key}")]
+    if isinstance(params, (list, tuple)):
+        return [leaf for i, item in enumerate(params)
+                for leaf in named_leaves(item, f"{prefix}[{i}]")]
+    return [(prefix.lstrip("."), params)]
+
+
+def param_leaves(params):
+    """The tensors of a parameter tree, in :func:`named_leaves` order."""
+    return [t for _, t in named_leaves(params)]
+
+
+def _with_leaves(params, leaves):
+    """``params``' tree with its leaves replaced, in :func:`param_leaves`
+    order."""
+    it = iter(leaves)
+
+    def rebuild(node):
+        if isinstance(node, dict):
+            return {key: rebuild(node[key]) for key in node}
+        if isinstance(node, (list, tuple)):
+            return type(node)(rebuild(item) for item in node)
+        return next(it)
+
+    return rebuild(params)
+
+
+def loss_and_grads(params, tokens, cfg: tfm.ModelConfig, attn_fn=None):
+    """``loss_fn`` and its gradient with respect to every leaf of
+    ``params`` → (detached 0-d loss, grads in :func:`param_leaves` order).
+    The caller's tensors keep ``requires_grad`` as they were."""
+    with torch.enable_grad():
+        tracked = [t.detach().requires_grad_(True)
+                   for t in param_leaves(params)]
+        loss = tfm.loss_fn(_with_leaves(params, tracked), tokens, cfg,
+                           attn_fn=attn_fn)
+        grads = torch.autograd.grad(loss, tracked)
+    return loss.detach(), list(grads)
+
+
+def train_step(params, tokens, cfg: tfm.ModelConfig, lr: float):
+    """One SGD step on ``loss_fn(params, tokens, cfg)``; returns
+    ``(params, loss)``, the loss before the step as a 0-d float32 tensor.
+
+    Updates the parameter tensors IN PLACE (and returns the same tree): the
+    gradient of each leaf is cast to the leaf's dtype, scaled by ``lr`` and
+    subtracted, the reference's rule ``p − lr·g.astype(p.dtype)``."""
+    loss, grads = loss_and_grads(params, tokens, cfg)
+    with torch.no_grad():
+        for p, g in zip(param_leaves(params), grads):
+            p.sub_(g.to(p.dtype) * lr)
+    return params, loss

@@ -10,7 +10,8 @@ from __future__ import annotations
 
 import torch
 
-LAUNCHES = {"flash_fwd": 0, "paged_attention": 0, "paged_append": 0}
+LAUNCHES = {"flash_fwd": 0, "paged_attention": 0, "paged_append": 0,
+            "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
 
 # Storage type codes shared with the C entry points.
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}

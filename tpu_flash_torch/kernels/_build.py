@@ -43,6 +43,12 @@ _SIGNATURES = {
     # page_tables, b, kvh, d, page, total_pages, max_pages, in_dtype,
     # cache_dtype, stream
     "tf_paged_append": [_vp] * 9 + [_i32] * 8 + [_vp],
+    # q, k, v, dout, lse2, delta, dq, bh_q, n_q, n_kv, hq, hkv, d, causal,
+    # offset, dtype, stream
+    "tf_flash_bwd_dq": [_vp] * 7 + [_i32] * 9 + [_vp],
+    # q, k, v, dout, lse2, delta, dk, dv, bh_kv, n_q, n_kv, hq, hkv, d,
+    # causal, offset, dtype, stream
+    "tf_flash_bwd_dkv": [_vp] * 8 + [_i32] * 9 + [_vp],
 }
 
 

@@ -1,7 +1,8 @@
 """Llama-style transformer LM: port of ``tpu_flash/models/transformer.py``.
 
-RMSNorm → GQA attention (prefill through the causal flash kernel, decode
-through the paged kernels) → dense SwiGLU, RoPE positions, tied embeddings.
+RMSNorm → GQA attention (prefill and training through the causal flash
+kernels, forward B1 and backward B4/B5; decode through the paged kernels) →
+dense SwiGLU, RoPE positions, tied embeddings.
 Parameters are a plain dict with the reference's tree and layouts
 (``x @ w`` with ``w`` shaped ``(in, out)``), so weights convert one to one
 (``utils/convert.py``). The reference's cast points are kept: norm, RoPE and
@@ -10,7 +11,8 @@ SiLU run in float32 and cast back to ``x``'s dtype; logits are
 
 Not ported yet: sliding attention (ROADMAP A3), MoE (A9), LoRA (A9),
 int8 weights (A6), tensor parallelism (A13), ``prefill_chunk`` and
-``decode_verify`` (A6), the pipelined decode kernel (A5), ``loss_fn`` (A8).
+``decode_verify`` (A6), the pipelined decode kernel (A5), the MoE balance
+loss in ``loss_fn`` (A9).
 """
 
 from __future__ import annotations
@@ -78,12 +80,19 @@ def _check_ported(cfg: ModelConfig) -> None:
         raise NotImplementedError("MoE MLPs are not ported yet (ROADMAP A9)")
 
 
-def init_params(cfg: ModelConfig, generator: torch.Generator, device="cpu"):
+def init_params(cfg: ModelConfig, generator: torch.Generator, device="cuda"):
     """Random weights with the reference's shapes, dtypes and
     distributions: N(0, 1/fan_in) projections, N(0, 0.02²) embeddings,
     float32 ones for the norms. The bits differ from the reference's (a
-    torch generator, not its PRNG)."""
+    torch generator, not its PRNG). The weights land on ``device`` (the
+    card unless the caller asks for the CPU); ``generator`` must live on
+    the same device type."""
     _check_ported(cfg)
+    device = torch.device(device)
+    if generator.device.type != device.type:
+        raise ValueError(
+            f"init_params: generator on {generator.device.type}, weights on "
+            f"{device.type}; pass a torch.Generator(device={device.type!r})")
     dt = cfg.torch_dtype
 
     def normal(shape, std):
@@ -151,13 +160,22 @@ def apply_rope(x, positions, theta):
     return out.to(x.dtype)
 
 
-def _attn_full(q, k, v, cfg: ModelConfig):
-    """Full-sequence causal attention (prefill). q: (B, N, QH, D)."""
-    o = flash.dense_fa(
-        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), causal=True,
-        block_q=cfg.block_q, block_kv=cfg.block_kv,
-        bound_max=cfg.attn_bound_max,
-    )
+def _attn_full(q, k, v, cfg: ModelConfig, attn_fn=None):
+    """Full-sequence causal attention (training / prefill). q: (B, N, QH, D).
+
+    ``attn_fn``, when given, replaces the flash kernels with a custom
+    function on (B, H, N, D) tensors whose k/v heads are repeated to match
+    q's (the reference's contract)."""
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    if attn_fn is not None:
+        g = qt.shape[1] // kt.shape[1]
+        if g > 1:
+            kt = kt.repeat_interleave(g, dim=1)
+            vt = vt.repeat_interleave(g, dim=1)
+        o = attn_fn(qt, kt, vt)
+    else:
+        o = flash.dense_fa(qt, kt, vt, causal=True, block_q=cfg.block_q,
+                           block_kv=cfg.block_kv, bound_max=cfg.attn_bound_max)
     return o.transpose(1, 2)  # (B, N, H, D)
 
 
@@ -178,12 +196,13 @@ def _qkv(params, x, positions, cfg: ModelConfig):
     return q, k, v
 
 
-def _block(params, x, positions, cfg: ModelConfig, collect_kv=None):
+def _block(params, x, positions, cfg: ModelConfig, collect_kv=None,
+           attn_fn=None):
     b, n, _ = x.shape
     q, k, v = _qkv(params, x, positions, cfg)
     if collect_kv is not None:
         collect_kv.append((k, v))
-    o = _attn_full(q, k, v, cfg).reshape(b, n, -1)
+    o = _attn_full(q, k, v, cfg, attn_fn=attn_fn).reshape(b, n, -1)
     x = x + _mm(o, params["wo"])
     return x + _mlp(params, rmsnorm(x, params["ln_mlp"]), cfg)
 
@@ -192,17 +211,29 @@ def _positions(b: int, n: int, device) -> torch.Tensor:
     return torch.arange(n, dtype=torch.int32, device=device).expand(b, n)
 
 
-def forward(params, tokens, cfg: ModelConfig, positions=None):
-    """Full causal forward: tokens (B, N) int → logits (B, N, vocab) f32."""
+def forward(params, tokens, cfg: ModelConfig, positions=None, attn_fn=None):
+    """Full causal forward: tokens (B, N) int → logits (B, N, vocab) f32.
+    ``attn_fn``: see :func:`_attn_full`."""
     _check_ported(cfg)
     b, n = tokens.shape
     if positions is None:
         positions = _positions(b, n, tokens.device)
     x = params["embed"][tokens]
     for layer in params["layers"]:
-        x = _block(layer, x, positions, cfg)
+        x = _block(layer, x, positions, cfg, attn_fn=attn_fn)
     x = rmsnorm(x, params["ln_f"])
     return (x @ params["embed"].T).float()
+
+
+def loss_fn(params, tokens, cfg: ModelConfig, attn_fn=None,
+            moe_aux_coef: float = 0.01):
+    """Next-token cross entropy over tokens (B, N + 1): log_softmax of the
+    float32 logits, mean over the B·N targets. ``moe_aux_coef`` weights the
+    MoE balance loss of the reference; MoE configs raise (ROADMAP A9)."""
+    logits = forward(params, tokens[:, :-1], cfg, attn_fn=attn_fn)
+    logp = torch.log_softmax(logits, dim=-1)
+    nll = -logp.gather(-1, tokens[:, 1:, None].long())
+    return nll.mean()
 
 
 def prefill(params, tokens, cfg: ModelConfig):

@@ -12,6 +12,11 @@ plain PyTorch version :func:`_flash_fwd_plain`; CUDA tensors launch the
 hand-written kernel in ``csrc/flash_fwd.cu`` through
 :func:`_flash_fwd_kernel`, or raise. Only the exact running max is ported:
 ``bound_max=True`` raises (ROADMAP A3).
+
+:class:`_FlashAttention` makes the core differentiable, the counterpart of
+the reference's ``_fa`` custom VJP: its backward is
+``ops/flash_bwd.py:flash_backward`` (B4 + B5 on the card). The prescale of
+q and its cast stay outside it, so autograd puts ``scale·log2(e)`` on dq.
 """
 
 from __future__ import annotations
@@ -161,6 +166,41 @@ def _flash_fwd(q, k, v, sched: Schedule, *, hq: int = 1, hkv: int = 1,
     raise NotImplementedError(f"no attention path for device {q.device}")
 
 
+class _FlashAttention(torch.autograd.Function):
+    """Differentiable core on prescaled ``(B·H, n, d)`` tensors → (o, lse).
+
+    The forward keeps lse as the backward's residual even when the caller
+    asked for none; ``need_lse`` only spares its write when no gradient is
+    needed. An unused lse has no cotangent (no Δ term); an unused o gets a
+    zero one."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, sched, hq, hkv, need_lse):
+        ctx.set_materialize_grads(False)
+        o, lse = _flash_fwd(q, k, v, sched, hq=hq, hkv=hkv, need_lse=need_lse)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.sched, ctx.hq, ctx.hkv = sched, hq, hkv
+        return o, lse
+
+    @staticmethod
+    def backward(ctx, do, dlse):
+        from tpu_flash_torch.ops.flash_bwd import flash_backward
+
+        q, k, v, o, lse = ctx.saved_tensors
+        do = torch.zeros_like(o) if do is None else _aligned(do)
+        dq, dk, dv = flash_backward(q, k, v, o, lse, do, dlse, ctx.sched,
+                                    hq=ctx.hq, hkv=ctx.hkv)
+        return dq, dk, dv, None, None, None, None
+
+
+def _fa(q, k, v, sched: Schedule, hq: int, hkv: int, need_lse: bool):
+    """(o, lse) through :class:`_FlashAttention`; lse is materialised when
+    asked for or when a gradient will need it."""
+    need_lse = need_lse or (torch.is_grad_enabled() and any(
+        t.requires_grad for t in (q, k, v)))
+    return _FlashAttention.apply(q, k, v, sched, hq, hkv, need_lse)
+
+
 def flash_attention(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -213,7 +253,7 @@ def flash_attention(
     qf = (q.float() * (scale * LOG2E)).to(q.dtype).reshape(b * h, n_q, d)
     kf = k.reshape(b * hkv, n_kv, d)
     vf = v.reshape(b * hkv, n_kv, dv)
-    o, lse = _flash_fwd(qf, kf, vf, sched, hq=h, hkv=hkv, need_lse=return_lse)
+    o, lse = _fa(qf, kf, vf, sched, h, hkv, return_lse)
     o = o.reshape(b, h, n_q, dv)
     if return_lse:
         return o, lse.reshape(b, h, n_q)

@@ -3,7 +3,8 @@
 The reference's parameter trees and caches are handed over as numpy arrays
 (``np.asarray`` of each leaf), so this module needs nothing from the
 reference's framework. bfloat16 arrays (ml_dtypes) go through a ``uint16``
-view, because ``torch.from_numpy`` rejects them.
+view, because ``torch.from_numpy`` rejects them. Every converter puts its
+tensors on the card unless the caller passes ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -16,7 +17,7 @@ import torch
 from tpu_flash_torch.cache.paged_cache import CacheConfig, PagedKVCache
 
 
-def to_torch(a, device="cpu") -> torch.Tensor:
+def to_torch(a, device="cuda") -> torch.Tensor:
     """numpy (or array-like) → torch tensor, bit for bit."""
     a = np.asarray(a)
     if a.dtype.name == "bfloat16":
@@ -33,7 +34,7 @@ def to_numpy(t: torch.Tensor) -> np.ndarray:
     return t.numpy()
 
 
-def params_from_tree(tree, device="cpu"):
+def params_from_tree(tree, device="cuda"):
     """The reference's parameter tree (dicts/lists of arrays) → the port's
     parameter dict, same keys and layouts."""
     if isinstance(tree, dict):
@@ -43,7 +44,7 @@ def params_from_tree(tree, device="cpu"):
     return to_torch(tree, device)
 
 
-def cache_from_reference(cache, device="cpu") -> PagedKVCache:
+def cache_from_reference(cache, device="cuda") -> PagedKVCache:
     """A reference ``PagedKVCache`` (any object with its fields; leaves are
     read with ``np.asarray``) → the port's cache, bit for bit."""
     cfg = CacheConfig(**dataclasses.asdict(cache.config))
