@@ -10,7 +10,11 @@ canonical decode model (vocab 32000, dim 2048, 16 layers, 16 q / 8 kv heads,
 head_dim 128, bf16 weights from a seed, int8 paged cache) and checks the
 output against a teacher-forced forward, then takes three SGD train steps of
 the same model on 4 × 1025 tokens and checks their gradient against the f32
-oracle attention's. Each phase prints one JSON line; any failure raises and
+oracle attention's, then runs the quantized headline (bench.py's shape:
+batch 4, 8 heads, n 8192, d 128) through serving_flash_attention (fp8 and
+int8) and quantized_dense_fa (fp8), each gated against the blockwise f32
+oracle, and holds B6/B7 against their plain versions there and at variant
+shapes. Each phase prints one JSON line; any failure raises and
 the exit code is not 0. Without a CUDA device it fails at once and prints no
 result. The train phase ends with a torch.profiler breakdown of one step.
 Imports torch and the port only.
@@ -370,7 +374,7 @@ def flash_bwd_phase(dev):
             worst = max(worst, max_err(a_, p_))
         row.update(bitwise_repeat=True, tol_plain=TOL_BWD_PLAIN[dt])
 
-        if name == "train_4x1024":
+        if name in ("train_4x1024", "d64_causal_1024"):
             ops = flash_bwd._kernel_operands(*args)
             pairs = visible_pairs(n_q, n_kv, causal) * b * hq
             q_bytes, kv_bytes = 2 * b * hq * n_q * d, 2 * b * hkv * n_kv * d
@@ -379,6 +383,12 @@ def flash_bwd_phase(dev):
                 *ops, sched, hq, hkv)), **roofline(6 * d * pairs, reads + q_bytes, dt))
             dkv = dict(ms=cuda_ms(lambda: flash_bwd._dkv_kernel(
                 *ops, sched, hq, hkv)), **roofline(8 * d * pairs, reads + 2 * kv_bytes, dt))
+        if name == "d64_causal_1024":  # B10a/B10b's shape, folded into B4/B5
+            row.update(dq_ms=dq["ms"], dq_bound_ms=dq["bound_ms"],
+                       dkv_ms=dkv["ms"], dkv_bound_ms=dkv["bound_ms"],
+                       plain_bwd_ms=cuda_ms(lambda: flash_bwd._flash_bwd_plain(
+                           *args), iters=5))
+        if name == "train_4x1024":
             plain_ms = cuda_ms(lambda: flash_bwd._flash_bwd_plain(*args),
                                iters=5)
             xs = [x.clone().requires_grad_(True) for x in (q, k, v)]
@@ -511,6 +521,224 @@ def profile_train_step(params, tokens, mcfg, step_ms, top=15):
                      for k, v in rows])
 
 
+# the quantized headline (bench.py's shape): batch, heads, n, d
+QUANT_SHAPE = (4, 8, 8192, 128)
+# (name, dtype, mode): serving fp8 with tensor K scales and serving int8
+# with token K scales (B6), end-to-end fp8 (B7)
+QUANT_RUNS = [("serving_fp8", "float8_e4m3fn", "serving"),
+              ("serving_int8", "int8", "serving"),
+              ("e2e_fp8", "float8_e4m3fn", "e2e")]
+# gate: the matched-bit-width contract (≤ 1e-2 against the f32 oracle on
+# inputs quantized at the same granularity)
+TOL_QUANT_GATE = 1e-2
+# B6/B7 vs their plain versions: each o entry within TOL_Q_ULPS bf16 ulps
+# of its row's max |plain o| (both sides round P and o from float32 sums
+# taken in another order) and within TOL_BF16; lse within TOL_Q_LSE
+# (float32 sums; lse ≲ 10 has an ulp near 1e-6). A kv tile left out or the
+# V scales one channel off must fail: the headline cases plant those faults
+# in the plain version and check.
+TOL_Q_ULPS = 4
+TOL_Q_LSE = 1e-4
+# the planted faults' kv tile: the kernels' 64 keys
+FAULT_TILE = 64
+
+
+def row_ulps(got: torch.Tensor, ref: torch.Tensor) -> float:
+    """max |got − ref| in bf16 ulps of the row's max |ref| (ulp of x in
+    [2^e, 2^(e+1)) is 2^(e−7)); a row of zeros must match exactly."""
+    top = ref.float().abs().amax(-1, keepdim=True)
+    ulp = torch.where(top > 0, torch.exp2(torch.floor(torch.log2(top)) - 7),
+                      torch.finfo(torch.float32).tiny)
+    return float(((got.float() - ref.float()).abs() / ulp).max())
+
+
+def quant_errs(ko, kl, po, pl) -> dict:
+    return dict(o_vs_plain=max_err(ko, po), o_vs_plain_ulps=row_ulps(ko, po),
+                lse_vs_plain=max_err(kl, pl))
+
+
+QUANT_TOL = dict(o_vs_plain=TOL_BF16, o_vs_plain_ulps=TOL_Q_ULPS,
+                 lse_vs_plain=TOL_Q_LSE)
+
+
+def planted_faults(plain_fn, args, ko, kl):
+    """The kernel's (o, lse) against the serving plain version with a fault
+    planted: one kv tile in the middle left out, or the V scales applied
+    one channel off. Each must fail the kernel-vs-plain check; returns the
+    errors it shows."""
+    q, k_vals, v_vals, sk_token, sk_tensor, sv, *rest = args
+    n_kv = k_vals.shape[1]
+    j = n_kv // 2
+    keep = torch.cat([torch.arange(j, device=k_vals.device),
+                      torch.arange(j + FAULT_TILE, n_kv, device=k_vals.device)])
+    faults = {
+        "kv_tile_left_out": (q, k_vals[:, keep], v_vals[:, keep],
+                             None if sk_token is None else sk_token[:, keep],
+                             sk_tensor, sv, *rest),
+        "v_scale_one_channel_off": (q, k_vals, v_vals, sk_token, sk_tensor,
+                                    torch.roll(sv, 1, dims=-1), *rest),
+    }
+    out = {}
+    for fault, fargs in faults.items():
+        errs = quant_errs(ko, kl, *plain_fn(*fargs))
+        if all(errs[key] <= tol for key, tol in QUANT_TOL.items()):
+            raise AssertionError(f"planted fault {fault} passes the "
+                                 f"kernel-vs-plain check: {errs}")
+        out[fault] = errs
+    return out
+
+
+# kernel vs plain at variant shapes, b 1: (name, q_dtype, kv_dtype,
+# kv_scale, pv_quant, hq, hkv, n, d, causal); d 64 is where the
+# reference's transposed B8 runs
+QUANT_VARIANTS = [
+    ("d64_int8_causal_gqa", "int8", "int8", "token", False, 16, 8, 1000, 64,
+     True),
+    ("d64_fp8_causal_gqa", "float8_e4m3fn", "float8_e4m3fn", "tensor", False,
+     16, 8, 1000, 64, True),
+    ("weight_only_int8", None, "int8", "token", False, 16, 8, 1000, 128,
+     True),
+    ("weight_only_fp8", None, "float8_e4m3fn", "tensor", False, 16, 8, 1000,
+     128, False),
+    ("int8_pv_quant", "int8", "int8", "token", True, 16, 8, 1000, 128, False),
+    ("e5m2_cache", "float8_e4m3fn", "float8_e5m2", "tensor", False, 16, 8,
+     1000, 128, False),
+]
+
+
+def quant_attention_phase(dev):
+    """The headline at full shape through the public entry points (the
+    slice's main path, counted), each gated against blockwise_dpa; then
+    B6 and B7 against their plain versions on the same inputs (staged Q
+    bytes equal, o within QUANT_TOL, lse within TOL_Q_LSE; planted faults
+    rejected), timed beside the bound and the
+    library's bf16 attention; then the variant shapes."""
+    from tpu_flash_torch import kernels
+    from tpu_flash_torch.bench import harness, headline
+    from tpu_flash_torch.ops import flash
+    from tpu_flash_torch.quant import flash_q as tfq
+    from tpu_flash_torch.quant import serving_attn as tsa
+
+    b, h, n, d = QUANT_SHAPE
+    q, k, v = headline.make_inputs(b, h, n, d, dev)
+    kernels.reset_launches()
+    runs = {name: headline.run(q, k, v, dt, mode) for name, dt, mode in
+            QUANT_RUNS}
+    torch.cuda.synchronize()
+    launches = {name: kernels.LAUNCHES[name] for name in (
+        "serving_attention", "quant_attention")}
+    for name, r in runs.items():
+        check(f"{name} gate", r["max_abs_err"], TOL_QUANT_GATE)
+    for name, count in launches.items():
+        if count <= 0:
+            raise AssertionError(f"kernel {name} never launched in the "
+                                 "headline runs")
+
+    peaks = harness.device_peaks(dev)
+    c = tfq.f32(d ** -0.5 * flash.LOG2E)
+    flops = harness.attention_flops(b, h, n, n, d)
+    worst = {"serving": 0.0, "quant": 0.0}
+    rows = []
+
+    def held(kind, name, kernel_fn, plain_fn, scale_elems, qk,
+             staged=None, time_it=False, faults=None):
+        ko, kl = kernel_fn()
+        errs = quant_errs(ko, kl, *plain_fn())
+        for key, err in errs.items():
+            check(f"{kind} {name} {key}", err, QUANT_TOL[key])
+        worst[kind] = max(worst[kind], errs["o_vs_plain"],
+                          errs["lse_vs_plain"])
+        row = dict(kernel=kind, case=name, tol=QUANT_TOL, **errs)
+        if staged is not None:
+            row["staged_q_bytes_equal"] = staged
+        if faults is not None:
+            row["planted_faults"] = faults(ko, kl)
+        if time_it:
+            bh, bh_kv = b * h, b * h
+            # q and o in bf16, the cache at one byte, the fp32 scales
+            nbytes = 2 * 2 * bh * n * d + 2 * bh_kv * n * d + 4 * scale_elems
+            row.update(ms=cuda_ms(lambda: kernel_fn(False)),
+                       plain_ms=cuda_ms(plain_fn, iters=3, warmup=1),
+                       **harness.roofline(flops / 2, flops / 2, nbytes, peaks,
+                                          qk, "bf16"))
+            row["tflops"] = flops / row["ms"] / 1e9
+        rows.append(row)
+        return row
+
+    sched = flash.build_schedule("dense", n, n, 1024, 2048)
+    timed = {}
+    for name, dt, kv_scale in (("serving_fp8", "float8_e4m3fn", "tensor"),
+                               ("serving_int8", "int8", "token")):
+        kq, vq = tsa.quantize_kv_cache(k, v, dt, kv_scale=kv_scale)
+        ops = tsa.serving_operands(q, kq, vq, True)
+        mode = "int8" if dt == "int8" else "fp8"
+        args = (*ops, sched, h, h, mode, c, False)
+        _, _, q_op, qs = tsa._serving_attention_kernel(*args, False,
+                                                       staged=True)
+        skf = 1.0 if ops[4] is None else ops[4][:, None, None]
+        p_op, p_qs = tsa._stage_q_plain(ops[0], mode, c, skf)
+        same = torch.equal(q_op.view(torch.int16 if q_op.dtype ==
+                                     torch.bfloat16 else torch.int8),
+                           p_op.view(torch.int16 if p_op.dtype ==
+                                     torch.bfloat16 else torch.int8))
+        same = same and (p_qs is None or torch.equal(qs, p_qs))
+        if not same:
+            raise AssertionError(f"B6 {name}: staged Q differs from the "
+                                 "plain staging")
+        scale_elems = sum(t.numel() for t in ops[3:] if t is not None)
+        timed[name] = held(
+            "serving", name,
+            lambda need=True: tsa._serving_attention_kernel(*args, need),
+            lambda: tsa._serving_plain(*args), scale_elems,
+            "int8" if dt == "int8" else "fp8", staged=True, time_it=True,
+            faults=lambda ko, kl, args=args: planted_faults(
+                tsa._serving_plain, args, ko, kl))
+        del kq, vq, ops, args
+    prep = tfq.prepare_quantized(q, k, v, torch.float8_e4m3fn,
+                                 torch.float8_e4m3fn, False, d ** -0.5)
+    qops = tfq.quant_operands(*prep, False, True)
+    timed["e2e_fp8"] = held(
+        "quant", "e2e_fp8",
+        lambda need=True: tfq._quant_attention_kernel(
+            *qops, sched, h, h, torch.bfloat16, need),
+        lambda: tfq._quant_plain(*qops, sched, h, h, torch.bfloat16),
+        sum(t.numel() for t in qops[4:] if t is not None), "fp8",
+        time_it=True)
+    del prep, qops
+    library_ms = cuda_ms(lambda: sdpa(q, k, v, False))
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    for (name, q_dt, kv_dt, kv_scale, pvq, hq, hkv, nv, dv_,
+         causal) in QUANT_VARIANTS:
+        qv, kv, vv = (torch.randn(1, hh, nv, dv_, generator=gen, device=dev)
+                      .bfloat16() for hh in (hq, hkv, hkv))
+        kq, vq = tsa.quantize_kv_cache(kv, vv, kv_dt, kv_scale=kv_scale)
+        ops = tsa.serving_operands(qv, kq, vq, not pvq)
+        vsched = flash.build_schedule("causal" if causal else "dense", nv,
+                                      nv, 1024, 2048)
+        mode = {"int8": "int8", None: "raw"}.get(q_dt, "fp8")
+        args = (*ops, vsched, hq, hkv, mode, tfq.f32(
+            dv_ ** -0.5 * flash.LOG2E), pvq)
+        held("serving", name,
+             lambda need=True: tsa._serving_attention_kernel(*args, need),
+             lambda: tsa._serving_plain(*args), 0, "bf16")
+        if q_dt is not None and not pvq:  # the same case through B7
+            prep = tfq.prepare_quantized(
+                qv, kv, vv, tfq.as_dtype(q_dt), tfq.as_dtype(kv_dt),
+                kv_scale == "token", dv_ ** -0.5)
+            qops = tfq.quant_operands(*prep, kv_scale == "token", True)
+            held("quant", name,
+                 lambda need=True: tfq._quant_attention_kernel(
+                     *qops, vsched, hq, hkv, torch.bfloat16, need),
+                 lambda: tfq._quant_plain(*qops, vsched, hq, hkv,
+                                          torch.bfloat16), 0, "bf16")
+    emit(dict(phase="quant_attention", shape=dict(batch=b, heads=h, n=n, d=d),
+              headline=runs, launches=launches, library_bf16_sdpa_ms=library_ms,
+              kernels_vs_plain=rows))
+    return dict(launches=launches, worst=worst, timed=timed,
+                library_ms=library_ms)
+
+
 def teacher_forced_drift(params, mcfg, f) -> float:
     """max |engine logprob − logprob of a full forward over the stream|."""
     from tpu_flash_torch.models import transformer as tfm
@@ -523,6 +751,11 @@ def teacher_forced_drift(params, mcfg, f) -> float:
     ref = lp.gather(1, torch.tensor(f.new_tokens, device=lp.device)[:, None])[:, 0]
     got = torch.tensor(f.logprobs, device=lp.device)
     return float((ref - got).abs().max())
+
+
+def _timing(row) -> dict:
+    return {key: row[key] for key in ("ms", "plain_ms", "bound_ms",
+                                      "bound_by")}
 
 
 def main() -> int:
@@ -585,6 +818,9 @@ def main() -> int:
     del run
     torch.cuda.empty_cache()
     train = train_phase(dev)
+    torch.cuda.empty_cache()
+    with torch.no_grad():
+        quant = quant_attention_phase(dev)
     # launches: the engine run for the serving kernels, the train run for
     # the backward ones (the forward kernel runs in both; the train run's
     # count is reported)
@@ -627,6 +863,25 @@ def main() -> int:
              replaces="tpu_flash/ops/flash_bwd.py:252",
              launches=launches["flash_bwd_dkv"], max_abs_err=b45["max_abs_err"],
              plain_ms=b45["plain_ms"], **b45["dkv"], library_ms=None),
+        # times at the headline (b 4, h 8, n 8192, d 128): B6 in serving
+        # fp8 with tensor K scales, B7 in end-to-end fp8; library: bf16
+        # scaled_dot_product_attention at that shape (no library call takes
+        # a quantized cache)
+        dict(name="serving_attention", route="cuda",
+             source="tpu_flash_torch/csrc/quant_attention.cu",
+             replaces="tpu_flash/quant/serving_attn.py:59, "
+                      "tpu_flash/quant/serving_attn.py:349",
+             launches=quant["launches"]["serving_attention"],
+             max_abs_err=quant["worst"]["serving"],
+             **_timing(quant["timed"]["serving_fp8"]),
+             library_ms=quant["library_ms"]),
+        dict(name="quant_attention", route="cuda",
+             source="tpu_flash_torch/csrc/quant_attention.cu",
+             replaces="tpu_flash/quant/flash_q.py:136",
+             launches=quant["launches"]["quant_attention"],
+             max_abs_err=quant["worst"]["quant"],
+             **_timing(quant["timed"]["e2e_fp8"]),
+             library_ms=quant["library_ms"]),
     ]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -126,7 +126,8 @@ def test_flash_plain_matches_oracle_scale():
 
 
 @pytest.mark.parametrize("kw", [dict(bound_max=True), dict(radius=4),
-                                dict(q_dtype="int8"), dict(schedule="local")])
+                                dict(q_dtype="int8", schedule="local"),
+                                dict(schedule="local")])
 def test_flash_unported_options_raise(kw):
     _, (tq, tk, tv) = _inputs(4, 1, 1, 1, 16, 16, 32, jnp.float32)
     with pytest.raises(NotImplementedError, match="ROADMAP"):

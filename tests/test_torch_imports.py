@@ -58,7 +58,8 @@ def test_port_sources_name_no_forbidden_api():
 
 def test_cpu_tensors_launch_no_kernel():
     """The plain paths that CPU tensors take never touch the launch
-    counters, through every wrapper of the serving and training paths."""
+    counters, through every wrapper of the serving, training and quantized
+    attention paths."""
     from tpu_flash_torch.cache.paged_cache import CacheConfig, PagedKVCache
     from tpu_flash_torch.ops.flash import dense_fa
     from tpu_flash_torch.ops.paged import paged_attention
@@ -80,9 +81,22 @@ def test_cpu_tensors_launch_no_kernel():
     new = torch.randn(1, 2, 32, generator=g)
     paged_attention(q[:, :, 0], cache, slots, new_kv=(new, new))
     cache.append(slots, new, new)
+    from tpu_flash_torch.quant.flash_q import quantized_flash_attention
+    from tpu_flash_torch.quant.serving_attn import (
+        quantize_kv_cache,
+        serving_flash_attention,
+    )
+
+    q64 = torch.randn(1, 4, 40, 64, generator=g)
+    kv64 = torch.randn(1, 2, 40, 64, generator=g)
+    quantized_flash_attention(q64, kv64, kv64, q_dtype="float8_e4m3fn",
+                              kv_dtype="float8_e4m3fn")
+    serving_flash_attention(q64, *quantize_kv_cache(kv64, kv64, "int8"),
+                            q_dtype="int8")
     assert kernels.LAUNCHES == {"flash_fwd": 0, "paged_attention": 0,
                                 "paged_append": 0, "flash_bwd_dq": 0,
-                                "flash_bwd_dkv": 0}
+                                "flash_bwd_dkv": 0, "serving_attention": 0,
+                                "quant_attention": 0}
     assert int(cache.lengths[0]) == 42
 
 
@@ -94,12 +108,14 @@ def _entry_points():
     return {"init_params": init_params, "PagedKVCache.create":
             PagedKVCache.create, "to_torch": convert.to_torch,
             "params_from_tree": convert.params_from_tree,
-            "cache_from_reference": convert.cache_from_reference}
+            "cache_from_reference": convert.cache_from_reference,
+            "qarray_from_reference": convert.qarray_from_reference}
 
 
 @pytest.mark.parametrize("name", ["init_params", "PagedKVCache.create",
                                   "to_torch", "params_from_tree",
-                                  "cache_from_reference"])
+                                  "cache_from_reference",
+                                  "qarray_from_reference"])
 def test_entry_points_default_to_the_card(name):
     """Entry points put their tensors on the card unless the caller asks
     for the CPU (the CPU tests all pass device="cpu")."""

@@ -1,6 +1,6 @@
 """The port's CUDA kernels (B1 flash forward, B2 paged attention, B3 paged
-append, B4/B5 flash backward) against their plain PyTorch versions, on the
-card.
+append, B4/B5 flash backward, B6/B8 serving and B7 quantized attention)
+against their plain PyTorch versions, on the card.
 
 Every test here needs an NVIDIA GPU: it carries the ``cuda`` marker and
 skips without one. The file imports only torch and the port, so it also
@@ -201,3 +201,126 @@ def test_flash_grads_match_oracle(gen, case):
             assert _rel(a, b_) <= 2.5e-2, (name, _rel(a, b_))
         else:
             torch.testing.assert_close(a, b_, atol=3e-4, rtol=1e-3)
+
+
+# Quantized attention (B6/B8 serving, B7): (q_dtype, kv_dtype, kv_scale,
+# pv_quant, hq, hkv, n, d, causal). The headline modes at d 128, d 64 with
+# GQA 16/8 and a ragged causal n (where the reference's B8 runs), the
+# weight-only caches, e5m2 and the int8 P·V.
+_SERVING_CASES = {
+    "int8_token": ("int8", "int8", "token", False, 8, 8, 1024, 128, False),
+    "fp8_tensor": ("float8_e4m3fn", "float8_e4m3fn", "tensor", False, 8, 8,
+                   1024, 128, False),
+    "fp8_token_causal": ("float8_e4m3fn", "float8_e4m3fn", "token", False,
+                         16, 8, 1000, 128, True),
+    "d64_int8_causal_gqa": ("int8", "int8", "token", False, 16, 8, 1000, 64,
+                            True),
+    "d64_fp8_tensor_gqa": ("float8_e4m3fn", "float8_e4m3fn", "tensor", False,
+                           16, 8, 1000, 64, True),
+    "weight_only_int8": (None, "int8", "token", False, 8, 8, 1024, 128, False),
+    "weight_only_fp8": (None, "float8_e4m3fn", "tensor", False, 8, 8, 1024,
+                        128, False),
+    "fp8_e5m2_cache": ("float8_e4m3fn", "float8_e5m2", "tensor", False, 8, 8,
+                       1024, 128, False),
+    "int8_pv_quant": ("int8", "int8", "token", True, 8, 8, 1024, 128, False),
+}
+
+
+def _quant_inputs(gen, hq, hkv, n, d, dtype=torch.bfloat16):
+    return [torch.randn(1, h, n, d, generator=gen, device="cuda").to(dtype)
+            for h in (hq, hkv, hkv)]
+
+
+def _assert_quant_close(ko, kl, po, pl):
+    """Quantized kernel vs plain: each o entry within four bf16 ulps of its
+    row's max |plain o| (both round P and o from float32 sums taken in
+    another order; a row of zeros matches exactly) and within 2e-2; lse, in
+    float32, within 1e-4 where finite, with the same -inf rows. A kv tile
+    left out or the V scales one channel off moves o by more than ten such
+    ulps at the headline shape."""
+    ko, po, kl, pl = ko.float().cpu(), po.float().cpu(), kl.cpu(), pl.cpu()
+    top = po.abs().amax(-1, keepdim=True)
+    ulp = torch.exp2(torch.floor(torch.log2(top)) - 7)
+    diff = (ko - po).abs()
+    assert bool((diff <= torch.where(top > 0, 4 * ulp, 0.0)).all())
+    assert float(diff.max()) <= 2e-2
+    fin = torch.isfinite(pl)
+    assert torch.equal(torch.isfinite(kl), fin)
+    assert float((kl[fin] - pl[fin]).abs().max()) <= 1e-4
+
+
+@pytest.mark.parametrize("name", list(_SERVING_CASES))
+def test_serving_kernel_matches_plain(gen, name):
+    """B6 (and the d 64 shapes of B8) vs its plain version: the staged Q
+    bytes (and int8 row scales) equal; o and lse as
+    :func:`_assert_quant_close` (int8 scores are exact on both sides; under
+    pv_quant P's int8 rounding follows the same running max on both
+    sides)."""
+    from tpu_flash_torch.quant import serving_attn as tsa
+    from tpu_flash_torch.quant.flash_q import f32
+
+    q_dtype, kv_dtype, kv_scale, pvq, hq, hkv, n, d, causal = _SERVING_CASES[name]
+    q, k, v = _quant_inputs(gen, hq, hkv, n, d)
+    kq, vq = tsa.quantize_kv_cache(k, v, kv_dtype, kv_scale=kv_scale)
+    ops = tsa.serving_operands(q, kq, vq, bound_max=not pvq)
+    sched = tflash.build_schedule("causal" if causal else "dense", n, n, 1024,
+                                  2048)
+    mode = {"int8": "int8", None: "raw"}.get(q_dtype, "fp8")
+    args = (*ops, sched, hq, hkv, mode, f32(d ** -0.5 * tflash.LOG2E), pvq)
+    before = kernels.LAUNCHES["serving_attention"]
+    ko, kl, q_op, qs = tsa._serving_attention_kernel(*args, True, staged=True)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["serving_attention"] == before + 1
+    skf = 1.0 if ops[4] is None else ops[4].repeat_interleave(
+        hq // hkv)[:, None, None]
+    p_op, p_qs = tsa._stage_q_plain(ops[0], mode, f32(d ** -0.5 * tflash.LOG2E),
+                                    skf)
+    assert torch.equal(q_op.view(torch.uint8) if q_op.dtype == torch.int8
+                       else q_op, p_op.view(torch.uint8)
+                       if p_op.dtype == torch.int8 else p_op)
+    if p_qs is not None:
+        assert torch.equal(qs, p_qs)
+    po, pl = tsa._serving_plain(*args)
+    _assert_quant_close(ko, kl, po, pl)
+
+
+@pytest.mark.parametrize("q_dtype,kv_dtype,kv_scale,causal", [
+    ("int8", "int8", "token", False), ("float8_e4m3fn", "float8_e4m3fn",
+                                       "tensor", False),
+    ("float8_e4m3fn", "float8_e4m3fn", "token", True),
+    (None, "int8", "token", True)])
+def test_quant_kernel_matches_plain(gen, q_dtype, kv_dtype, kv_scale, causal):
+    """B7 through ``quantized_flash_attention`` at d 128, GQA 16/8: the
+    kernel on CUDA tensors vs the plain path on the same tensors moved to
+    the CPU, as :func:`_assert_quant_close`."""
+    from tpu_flash_torch.quant import flash_q as tfq
+
+    q, k, v = _quant_inputs(gen, 16, 8, 1000, 128)
+    kw = dict(q_dtype=q_dtype, kv_dtype=kv_dtype, kv_scale=kv_scale,
+              schedule="causal" if causal else "dense", return_lse=True)
+    before = kernels.LAUNCHES["quant_attention"]
+    ko, kl = tfq.quantized_flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["quant_attention"] == before + 1
+    po, pl = tfq.quantized_flash_attention(q.cpu(), k.cpu(), v.cpu(), **kw)
+    _assert_quant_close(ko, kl, po, pl)
+
+
+def test_quant_kernels_reject_what_they_do_not_take(gen):
+    """Head dim 96 and an fp8 cache under int8 Q raise, never fall back."""
+    from tpu_flash_torch.quant import flash_q as tfq
+    from tpu_flash_torch.quant import serving_attn as tsa
+
+    q, k, v = _quant_inputs(gen, 2, 2, 64, 96)
+    kq, vq = tsa.quantize_kv_cache(k, v, "int8")
+    with pytest.raises(NotImplementedError):
+        tsa.serving_flash_attention(q, kq, vq, q_dtype="int8")
+    q, k, v = _quant_inputs(gen, 2, 2, 64, 128)
+    kq, vq = tsa.quantize_kv_cache(k, v, "float8_e4m3fn")
+    ops = tsa.serving_operands(q, kq, vq, True)
+    sched = tflash.build_schedule("dense", 64, 64, 1024, 2048)
+    with pytest.raises(NotImplementedError):
+        tsa._serving_attention_kernel(*ops, sched, 2, 2, "int8", 0.1, False,
+                                      False)
+    with pytest.raises(NotImplementedError):
+        tfq.quantized_flash_attention(q.half(), k.half(), v.half())

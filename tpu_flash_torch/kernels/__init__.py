@@ -11,10 +11,13 @@ from __future__ import annotations
 import torch
 
 LAUNCHES = {"flash_fwd": 0, "paged_attention": 0, "paged_append": 0,
-            "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+            "flash_bwd_dq": 0, "flash_bwd_dkv": 0, "serving_attention": 0,
+            "quant_attention": 0}
 
 # Storage type codes shared with the C entry points.
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+# Quantized cache codes of csrc/quant_attention.cu.
+KV_CODES = {torch.int8: 0, torch.float8_e4m3fn: 1, torch.float8_e5m2: 2}
 
 
 def reset_launches() -> None:

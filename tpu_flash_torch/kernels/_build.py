@@ -1,8 +1,9 @@
 """Build and load the port's hand-written CUDA kernels.
 
 ``tpu_flash_torch/csrc/*.cu`` compile with ``nvcc`` into one shared library
-with a plain C interface, loaded through ``ctypes``. No source includes
-PyTorch's headers, so a cold build takes seconds. The library lands in
+with a plain C interface, loaded through ``ctypes``: one ``nvcc -c`` per
+source, all started together, then one link. No source includes PyTorch's
+headers, so a cold build takes seconds. The library lands in
 ``build/tpu_flash_torch/<hash>/`` at the repository root, keyed by a hash of
 the sources and flags, and is built on first use — never at import. A failed
 build raises with nvcc's output.
@@ -24,7 +25,7 @@ _BUILD_ROOT = os.path.join(os.path.dirname(_PKG), "build", "tpu_flash_torch")
 # match the host quantizer bit for bit.
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
 ]
 
 _lib = None
@@ -49,6 +50,13 @@ _SIGNATURES = {
     # q, k, v, dout, lse2, delta, dk, dv, bh_kv, n_q, n_kv, hq, hkv, d,
     # causal, offset, dtype, stream
     "tf_flash_bwd_dkv": [_vp] * 8 + [_i32] * 9 + [_vp],
+    # q, k, v, sk_token, sk_tensor, sv, gk, o, lse, q_out, qs_out, bh, n_q,
+    # n_kv, hq, hkv, d, causal, offset, q_mode, q_f32, kv_dtype, pv_quant,
+    # c, stream
+    "tf_serving_attention": [_vp] * 11 + [_i32] * 12 + [ctypes.c_float, _vp],
+    # q, sq, k, v, sk_token, sv, gk, o, lse, bh, n_q, n_kv, hq, hkv, d,
+    # causal, offset, q_int8, kv_dtype, o_f32, c, stream
+    "tf_quant_attention": [_vp] * 9 + [_i32] * 11 + [ctypes.c_float, _vp],
 }
 
 
@@ -80,14 +88,25 @@ def library() -> ctypes.CDLL:
     so = os.path.join(out_dir, "libtpu_flash_torch.so")
     if not os.path.exists(so):
         os.makedirs(out_dir, exist_ok=True)
-        tmp = f"{so}.{os.getpid()}.tmp"
-        proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", tmp, *srcs],
-            capture_output=True, text=True,
-        )
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
+        nvcc, tag = _nvcc(), f"{os.getpid()}.tmp"
+        objs = [os.path.join(out_dir, os.path.basename(p) + f".{tag}.o")
+                for p in srcs]
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", o, p],
+                                  stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for p, o in zip(srcs, objs)]
+        outs = [(p, proc.communicate()[0], proc.returncode)
+                for p, proc in zip(srcs, procs)]
+        failed = [f"{p}:\n{out}" for p, out, rc in outs if rc != 0]
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+        tmp = f"{so}.{tag}"
+        link = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o", tmp, *objs],
+                              capture_output=True, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed:\n{link.stdout}\n{link.stderr}")
+        for o in objs:
+            os.remove(o)
         os.replace(tmp, so)
     lib = ctypes.CDLL(so)
     for name, argtypes in _SIGNATURES.items():

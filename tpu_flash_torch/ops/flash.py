@@ -43,8 +43,7 @@ KERNEL_BLOCK_KV = 64
 # the ROADMAP item that adds them.
 _UNPORTED = {
     "radius": "A3", "section": "A11", "shift": "A13", "wrap_n": "A13",
-    "shifted_causal": "A13", "q_dtype": "A10", "kv_dtype": "A10",
-    "kv_scale": "A10", "bwd_split": "A8", "bwd_quant": "A8",
+    "shifted_causal": "A13", "bwd_split": "A8", "bwd_quant": "A8",
 }
 
 
@@ -212,11 +211,20 @@ def flash_attention(
     block_kv: Optional[int] = None,
     return_lse: bool = False,
     bound_max: Optional[bool] = None,
+    q_dtype=None,
+    kv_dtype=None,
+    kv_scale: str = "token",
     **unported,
 ):
     """Schedule-parameterized fused attention on ``(batch, heads, n, d)``.
 
     ``schedule`` ∈ {"dense", "causal"}; k/v may have fewer heads (GQA).
+    ``q_dtype``/``kv_dtype`` (int8 / float8 names or torch dtypes;
+    ``kv_dtype`` alone is the weight-only mode) route to
+    ``quant/flash_q.py:quantized_flash_attention`` (kernel B7, or B6 at
+    d ≤ 64) with ``kv_scale``, ``bound_max`` defaulting to True and
+    ``block_kv`` capped at 2048; the quantized route has no backward, so
+    ``bwd_split``/``bwd_quant`` raise ``ValueError`` there.
     ``block_q``/``block_kv`` set the schedule's blocks as in the reference
     (its padded lengths and its tile-visit math); the CUDA kernel runs its
     own 64×64 tiles and masks ragged edges, so no input is padded.
@@ -225,6 +233,24 @@ def flash_attention(
     policy would take the norm bound for mask-free dense — both are exact
     softmax and differ only by rounding.
     """
+    if q_dtype is not None or kv_dtype is not None:
+        from tpu_flash_torch.quant.flash_q import quantized_flash_attention
+
+        if any(unported.get(n) is not None for n in ("bwd_split", "bwd_quant")):
+            raise ValueError(
+                "bwd_split/bwd_quant apply to the bf16 backward kernels only; "
+                "the quantized path has no backward")
+        unported = {n: x for n, x in unported.items()
+                    if n not in ("bwd_split", "bwd_quant")}
+        return quantized_flash_attention(
+            q, k, v, q_dtype=q_dtype,
+            kv_dtype=kv_dtype if kv_dtype is not None else q_dtype,
+            schedule=schedule, scale=scale,
+            block_q=1024 if block_q is None else block_q,
+            block_kv=min(2048 if block_kv is None else block_kv, 2048),
+            return_lse=return_lse,
+            bound_max=True if bound_max is None else bound_max,
+            kv_scale=kv_scale, **unported)
     for name in unported:
         if name not in _UNPORTED:
             raise TypeError(f"flash_attention() got an unexpected keyword "

@@ -1,7 +1,10 @@
-"""f32 oracle attention: port of ``dense_dpa`` from ``tpu_flash/ops/oracle.py``.
+"""f32 oracle attention: port of ``dense_dpa`` and ``blockwise_dpa`` from
+``tpu_flash/ops/oracle.py``.
 
-Materialises the full score matrix in float32 with the natural-log softmax,
-so it shares no arithmetic with the flash kernels it checks.
+Both run the natural-log softmax in float32 and share no arithmetic with
+the flash kernels they check: ``dense_dpa`` materialises the full score
+matrix, ``blockwise_dpa`` scans the keys in chunks with the online-softmax
+merge, so it holds full-size shapes in O(n·chunk) memory.
 """
 
 from __future__ import annotations
@@ -44,3 +47,57 @@ def dense_dpa(q, k, v, *, scale: Optional[float] = None, causal: bool = False):
         n, nk = q.shape[-2], k.shape[-2]
         mask = torch.ones(n, nk, dtype=torch.bool, device=q.device).tril(nk - n)
     return _core(q, k, v, scale, mask=mask)
+
+
+def blockwise_dpa(q, k, v, *, scale: Optional[float] = None,
+                  causal: bool = False, chunk: int = 2048, q_start: int = 0,
+                  **unported):
+    """Exact f32 oracle with O(n·chunk) memory on ``(batch, heads, n, d)``;
+    q and k/v must have the same head count.
+
+    Scans the keys in chunks of ``chunk`` with the associative online
+    softmax merge, so it serves as ground truth where ``dense_dpa``'s
+    (n, n) score matrix would not fit. ``causal`` masks key ``j`` for query
+    ``i`` when ``j > q_start + i`` (the reference's left-aligned triangle).
+    ``q_start`` is the global index of q's first row: a row band of q with
+    its ``q_start`` gives exactly those rows of the full result.
+
+    Returns ``(o, lse)``: o in q's dtype, lse in natural-log units. The
+    window and block masks (``window_size``, ``wrap``, ``block_size``) are
+    not ported yet (ROADMAP A11).
+    """
+    for name in unported:
+        if name not in ("window_size", "wrap", "block_size"):
+            raise TypeError(f"blockwise_dpa() got an unexpected keyword "
+                            f"argument {name!r}")
+        if unported[name] not in (None, False):
+            raise NotImplementedError(
+                f"blockwise_dpa({name}=...) is not ported yet (ROADMAP A11)")
+    b, h, n, d = q.shape
+    nk = k.shape[-2]
+    if scale is None:
+        scale = 1.0 / math.sqrt(d)
+    chunk = min(chunk, nk)
+    q32 = q.float()
+    qi = q_start + torch.arange(n, device=q.device)[:, None]
+    m = torch.full((b, h, n, 1), float("-inf"), device=q.device)
+    l = torch.zeros(b, h, n, 1, device=q.device)
+    acc = torch.zeros(b, h, n, v.shape[-1], device=q.device)
+    for c0 in range(0, nk, chunk):
+        kj, vj = k[:, :, c0:c0 + chunk].float(), v[:, :, c0:c0 + chunk].float()
+        s = torch.einsum("bhqd,bhkd->bhqk", q32, kj) * scale
+        if causal:
+            j = c0 + torch.arange(kj.shape[-2], device=q.device)[None, :]
+            s = torch.where(j <= qi, s, float("-inf"))
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        m_safe = torch.where(torch.isfinite(m_new), m_new, 0.0)
+        p = torch.exp(s - m_safe)
+        alpha = torch.where(torch.isfinite(m), torch.exp(m - m_safe), 0.0)
+        l = alpha * l + p.sum(dim=-1, keepdim=True)
+        acc = alpha * acc + torch.einsum("bhqk,bhkd->bhqd", p, vj)
+        m = m_new
+    fin = torch.isfinite(m)
+    o = torch.where(fin, acc / torch.clamp_min(l, 1e-30), 0.0).to(q.dtype)
+    lse = torch.where(fin, m + torch.log(torch.clamp_min(l, 1e-30)),
+                      float("-inf")).squeeze(-1)
+    return o, lse

@@ -1,0 +1,447 @@
+"""Quantized flash-attention forward (B7): port of ``tpu_flash/quant/flash_q.py``
+for the dense and causal schedules.
+
+* **activation-quant** (``q_dtype`` int8): int8 q̂·k̂ with int32
+  accumulation, dequantized on the score matrix (``s = (q̂·k̂)·σq·log2e·σk``).
+* **fp8 Q** (``q_dtype`` e4m3 or e5m2): Q is quantized onto the fp8 grid on
+  the host and handed to the kernel dequantized in bf16, scale and log2e
+  folded in, as the reference does (``flash_q.py:555-566``).
+* **weight-only** (``q_dtype=None``): bf16 Q against K̂ decoded in the
+  kernel, the KV-cache compression mode.
+* V is per-channel quantized, so its dequant is one multiply of the final
+  accumulator. ``kv_scale="tensor"`` folds the per-(batch, kv head) K scale
+  into Q (expanded per q head under GQA).
+
+The cache is decoded exactly: int8 and both fp8 formats are subsets of
+bf16, so the kernel (``csrc/quant_attention.cu``) and the plain version
+decode K̂/V̂ with a type cast. The reference's ``_fp8_upcast`` bit trick,
+which decodes e4m3 subnormals approximately, is not ported; the norm bound
+is computed on the values the port dots (:func:`scaled_k_norms`).
+
+:func:`_quantized_fwd` dispatches on the device: CPU tensors take the plain
+PyTorch version :func:`_quant_plain`, CUDA tensors launch the kernel
+through :func:`_quant_attention_kernel`, or raise. The port masks ragged
+edges in the kernel and pads nothing, so the reference's ``_pad_scales``
+has no counterpart. At d ≤ 64 the reference routes to its transposed
+serving kernel (B8); the port keeps that routing to
+``quant/serving_attn.py`` (one kernel serves both on the card).
+"""
+
+from __future__ import annotations
+
+import math
+import struct
+from typing import Optional
+
+import torch
+
+from tpu_flash_torch import kernels
+from tpu_flash_torch.ops.flash import (
+    DEFAULT_MASK_VALUE,
+    LN2,
+    LOG2E,
+    _UNPORTED,
+    _aligned,
+    _kv_rows,
+    build_schedule,
+)
+from tpu_flash_torch.ops.schedule import CausalSchedule, Schedule
+from tpu_flash_torch.quant.qarray import FP8, QArray, as_dtype, quantize
+
+# The kernel's kv tile: the plain version walks the same tiles, so its
+# running max (and with it every rounding of P) follows the kernel's.
+KERNEL_BLOCK_KV = 64
+
+
+def f32(x: float) -> float:
+    """``x`` rounded to float32, as a Python float: the value the reference
+    multiplies by where it multiplies a float32 array by a Python number."""
+    return struct.unpack("f", struct.pack("f", x))[0]
+
+
+def refuse_unported(**options) -> None:
+    """Raise for a reference option that the port does not take yet."""
+    for name, value in options.items():
+        if value:
+            raise NotImplementedError(
+                f"{name}={value!r} is not ported yet (ROADMAP "
+                f"{_UNPORTED[name]}); dense and causal schedules only")
+
+
+def scaled_k_norms(k_vals: torch.Tensor, sk_row=None) -> torch.Tensor:
+    """Per-token ‖K̂‖·σ_k on ``(bh_kv, n, d)`` int8/fp8/float values (and
+    optional ``(bh_kv, n)`` scales) → ``(bh_kv, n)`` float32: the norm
+    bound's key side, on the values the kernel dots (exact decode)."""
+    kf = k_vals.float()
+    kn = torch.sqrt(torch.sum(kf * kf, dim=-1))
+    if sk_row is not None:
+        kn = kn * sk_row
+    return kn
+
+
+def _attend_plain(q_op, qs, k_vals, v_vals, sk, sv, gk, causal: bool,
+                  hq: int, hkv: int, out_dtype, pv_quant: bool = False):
+    """Plain PyTorch version of the kernel's tile loop → (o, lse).
+
+    ``q_op``: ``(bh, n_q, d)`` bf16 score operand (scale and log2e folded
+    in) or int8 q̂ with ``qs`` ``(bh, n_q)`` its score scales; ``k_vals``/
+    ``v_vals``: ``(bh_kv, n_kv, d)`` int8/fp8; ``sk``: ``(bh_kv, n_kv)``
+    per-token K scales or None; ``sv``: ``(bh_kv, dv)``; ``gk``: ``(bh_kv,)``
+    max scaled key norms (constant bound) or None (exact running max).
+    Walks the keys in the kernel's tiles with the same arithmetic; memory is
+    O(bh·n_q·(d + tile)), so the headline shape fits in a few GB.
+    """
+    bh, n_q, _ = q_op.shape
+    n_kv, dv = k_vals.shape[1], v_vals.shape[-1]
+    dev = q_op.device
+    rows = _kv_rows(bh, hq, hkv, dev)
+    qf = q_op.float()
+    # exact decode: int8 and fp8 values are exact in float32, so int8
+    # products and their sums (< 2²⁴) are exact as well
+    kf, vf = k_vals.float()[rows], v_vals.float()[rows]
+    skr = None if sk is None else sk[rows]
+    if gk is None:
+        m = torch.full((bh, n_q, 1), DEFAULT_MASK_VALUE, device=dev)
+    else:
+        qn = torch.sqrt(torch.sum(qf * qf, dim=-1, keepdim=True))
+        if qs is not None:
+            qn = qn * qs[..., None]
+        m = qn * (gk[rows] * f32(1.0001))[:, None, None]
+    l = torch.zeros(bh, n_q, 1, device=dev)
+    acc = torch.zeros(bh, n_q, dv, device=dev)
+    qpos = torch.arange(n_q, device=dev)[:, None] + (n_kv - n_q)
+    for k0 in range(0, n_kv, KERNEL_BLOCK_KV):
+        k1 = min(k0 + KERNEL_BLOCK_KV, n_kv)
+        s = torch.einsum("bqd,bkd->bqk", qf, kf[:, k0:k1])
+        if qs is not None:
+            s = s * qs[..., None]
+        if skr is not None:
+            s = s * skr[:, None, k0:k1]
+        if causal:
+            kpos = torch.arange(k0, k1, device=dev)[None, :]
+            s = torch.where(kpos <= qpos, s, DEFAULT_MASK_VALUE)
+        if gk is None:
+            m_next = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+            alpha = torch.exp2(m - m_next)
+            l, acc, m = alpha * l, acc * alpha, m_next
+        p = torch.exp2(s - m)
+        l = l + p.sum(dim=-1, keepdim=True)
+        if pv_quant:
+            p8 = torch.clamp(torch.round(p * 127.0), 0, 127)
+            pv = torch.einsum("bqk,bkd->bqd", p8, vf[:, k0:k1]) * f32(1 / 127)
+        else:
+            pv = torch.einsum("bqk,bkd->bqd", p.to(torch.bfloat16).float(),
+                              vf[:, k0:k1])
+        acc = acc + pv
+    valid = (l > 0.0) & (m > DEFAULT_MASK_VALUE * 0.5)
+    l_safe = torch.where(l > 0.0, l, 1.0)
+    l_inv = torch.where(valid, 1.0 / l_safe, 0.0)
+    o = ((acc * l_inv) * sv[rows][:, None, :]).to(out_dtype)
+    lse = torch.where(valid, m * LN2 + torch.log(l_safe), float("-inf"))
+    return o, lse[..., 0]
+
+
+def check_kernel_operands(name: str, q, k_vals, v_vals, hq: int, hkv: int):
+    """Raise on what the quantized-attention kernel does not take."""
+    tensors = (q, k_vals, v_vals)
+    if not all(t.is_cuda and t.device == q.device for t in tensors):
+        raise ValueError(f"{name}: q, k, v must be on one CUDA device")
+    if k_vals.dtype not in kernels.KV_CODES or v_vals.dtype != k_vals.dtype:
+        raise NotImplementedError(
+            f"{name} takes an int8/e4m3/e5m2 cache, got "
+            f"{k_vals.dtype}/{v_vals.dtype}")
+    bh, _, d = q.shape
+    if d not in (64, 128) or k_vals.shape[-1] != d or v_vals.shape[-1] != d:
+        raise NotImplementedError(
+            f"{name} takes d = dv ∈ {{64, 128}}, got {d}/{v_vals.shape[-1]}")
+    if bh % hq or k_vals.shape[0] != bh // hq * hkv or \
+            v_vals.shape[:2] != k_vals.shape[:2]:
+        raise ValueError(f"bad GQA shapes {q.shape} {k_vals.shape} "
+                         f"{v_vals.shape}")
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+def _quant_attention_kernel(q_op, sq, k_vals, v_vals, sk, sv, gk,
+                            sched: Schedule, hq: int, hkv: int, out_dtype,
+                            need_lse: bool):
+    """Launch ``tf_quant_attention`` on CUDA tensors. ``q_op``: bf16 score
+    operand, or int8 q̂ with ``sq`` ``(bh, n_q)`` its scales (log2e is
+    applied in the kernel); the rest as :func:`_attend_plain`."""
+    from tpu_flash_torch.kernels import _build
+
+    check_kernel_operands("quant_attention kernel", q_op, k_vals, v_vals, hq,
+                          hkv)
+    if q_op.dtype not in (torch.int8, torch.bfloat16) or (
+            (q_op.dtype == torch.int8) != (sq is not None)):
+        raise NotImplementedError(
+            f"quant_attention kernel takes bf16 Q or int8 q̂ with scales, got "
+            f"{q_op.dtype}")
+    if q_op.dtype == torch.int8 and k_vals.dtype != torch.int8:
+        raise NotImplementedError("int8 q̂ needs an int8 cache")
+    if out_dtype not in (torch.float32, torch.bfloat16):
+        raise NotImplementedError(f"quant_attention kernel writes f32 or bf16 "
+                                  f"o, not {out_dtype}")
+    bh, n_q, d = q_op.shape
+    n_kv = k_vals.shape[1]
+    q_op, k_vals, v_vals, sv = (_aligned(t) for t in (q_op, k_vals, v_vals,
+                                                      sv.float()))
+    sq = None if sq is None else _aligned(sq.float())
+    sk = None if sk is None else _aligned(sk.float())
+    gk = None if gk is None else _aligned(gk.float())
+    causal = isinstance(sched, CausalSchedule)
+    o = torch.empty(bh, n_q, d, device=q_op.device, dtype=out_dtype)
+    lse = (torch.empty(bh, n_q, device=q_op.device, dtype=torch.float32)
+           if need_lse else None)
+    err = _build.library().tf_quant_attention(
+        q_op.data_ptr(), _ptr(sq), k_vals.data_ptr(), v_vals.data_ptr(),
+        _ptr(sk), sv.data_ptr(), _ptr(gk), o.data_ptr(), _ptr(lse),
+        bh, n_q, n_kv, hq, hkv, d, int(causal), n_kv - n_q if causal else 0,
+        int(q_op.dtype == torch.int8), kernels.KV_CODES[k_vals.dtype],
+        int(out_dtype == torch.float32), f32(LOG2E),
+        kernels.stream_handle(q_op),
+    )
+    _build.check(err, "tf_quant_attention")
+    kernels.LAUNCHES["quant_attention"] += 1
+    if lse is None:
+        lse = torch.zeros(bh, n_q, device=q_op.device, dtype=torch.float32)
+    return o, lse
+
+
+def quant_operands(qq: Optional[QArray], q_raw, kq: QArray, vq: QArray,
+                   k_scaled: bool, bound_max: bool):
+    """Flattened operands → the kernel's: ``(q_op, sq, k̂, v̂, per-token K
+    scales (bh_kv, n_kv) or None, V scales (bh_kv, dv), gk (bh_kv,) or
+    None)``. ``qq``: int8 q̂ with ``(bh, n_q, 1)`` scales, or ``q_raw`` the
+    bf16 operand; ``kq`` values ``(bh_kv, n_kv, d)`` with per-token scales
+    ``(bh_kv, n_kv, 1)`` when ``k_scaled``; ``vq`` per channel."""
+    bh_kv, n_kv = kq.values.shape[:2]
+    sk = kq.scales.reshape(bh_kv, n_kv) if k_scaled else None
+    gk = scaled_k_norms(kq.values, sk).amax(dim=-1) if bound_max else None
+    return (qq.values if qq is not None else q_raw,
+            None if qq is None else qq.scales[..., 0], kq.values, vq.values,
+            sk, vq.scales.reshape(bh_kv, -1), gk)
+
+
+def _quant_plain(q_op, sq, k_vals, v_vals, sk, sv, gk, sched: Schedule,
+                 hq: int, hkv: int, out_dtype):
+    """Plain PyTorch version of the B7 kernel (same contract as
+    :func:`_quant_attention_kernel`)."""
+    qs = None if sq is None else sq * f32(LOG2E)
+    return _attend_plain(q_op, qs, k_vals, v_vals, sk, sv, gk,
+                         isinstance(sched, CausalSchedule), hq, hkv, out_dtype)
+
+
+def _quantized_fwd(qq: Optional[QArray], q_raw, kq: QArray, vq: QArray,
+                   sched: Schedule, *, out_dtype, hq: int = 1, hkv: int = 1,
+                   k_scaled: bool = True, need_lse: bool = True,
+                   bound_max: bool = True):
+    """(o, lse) on flattened ``(B·H, n, d)`` operands (see
+    :func:`quant_operands`): the plain version for CPU tensors, the kernel
+    for CUDA tensors."""
+    ops = quant_operands(qq, q_raw, kq, vq, k_scaled, bound_max)
+    if ops[0].device.type == "cpu":
+        return _quant_plain(*ops, sched, hq, hkv, out_dtype)
+    if ops[0].device.type == "cuda":
+        return _quant_attention_kernel(*ops, sched, hq, hkv, out_dtype,
+                                       need_lse)
+    raise NotImplementedError(f"no attention path for device {ops[0].device}")
+
+
+def quantized_flash_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    q_dtype="int8",
+    kv_dtype="int8",
+    schedule: str = "dense",
+    scale: Optional[float] = None,
+    radius: int = 0,
+    section: int = 0,
+    shift: int = 0,
+    wrap_n: int = 0,
+    shifted_causal: bool = False,
+    block_q: int = 1024,
+    block_kv: int = 2048,
+    kv_scale: str = "token",
+    return_lse: bool = False,
+    bound_max: bool = True,
+    transposed: Optional[bool] = None,
+):
+    """Quantize-and-attend on ``(batch, heads, n, d)`` inputs.
+
+    ``q_dtype``: int8 / float8_e4m3fn / float8_e5m2, or None for the
+    weight-only mode; ``kv_dtype``: int8 / fp8 (torch dtypes or their
+    names). ``kv_scale``: "token" (one K scale per key, applied to the
+    score columns in the kernel) or "tensor" (one per (batch, kv head),
+    folded into Q; fp8 only). ``bound_max=True`` takes the constant
+    Cauchy–Schwarz bound as the softmax max (exact online softmax), False
+    the exact running max. ``block_q``/``block_kv`` only shape the
+    reference's schedule; the kernel runs its own 64×64 tiles. At d ≤ 64
+    the call goes to :func:`~tpu_flash_torch.quant.serving_attn.
+    serving_flash_attention`, as in the reference (``transposed``).
+    Schedules other than dense and causal raise (ROADMAP A3/A11/A13).
+    """
+    refuse_unported(radius=radius, section=section, shift=shift,
+                    wrap_n=wrap_n, shifted_causal=shifted_causal)
+    if q.ndim != 4:
+        raise ValueError(f"expected (batch, heads, n, d), got {tuple(q.shape)}")
+    hq, hkv = q.shape[1], k.shape[1]
+    if hq % hkv:
+        raise ValueError(f"q heads {hq} not a multiple of kv heads {hkv}")
+    kv_dtype = as_dtype(kv_dtype)
+    if q_dtype is not None:
+        q_dtype = as_dtype(q_dtype)
+        if (q_dtype == torch.int8) != (kv_dtype == torch.int8):
+            raise ValueError(
+                f"q_dtype {q_dtype} and kv_dtype {kv_dtype} must share the "
+                "input family (both int8, or both fp8)")
+    b, h, n_q, d = q.shape
+    n_kv, dv = k.shape[2], v.shape[-1]
+    if scale is None:
+        scale = 1.0 / math.sqrt(d)
+    sched = build_schedule(schedule, n_q, n_kv, block_q, block_kv)
+    if kv_scale not in ("token", "tensor"):
+        raise ValueError(
+            f"kv_scale must be 'token' or 'tensor', got {kv_scale!r}")
+    k_scaled = kv_scale == "token"
+    if not k_scaled and (kv_dtype not in FP8 or
+                         (q_dtype is not None and q_dtype not in FP8)):
+        raise ValueError(
+            "kv_scale='tensor' is the fp8 scaling mode (int8 keeps the "
+            "native int8 path with per-token scales)")
+    k_axis = -1 if k_scaled else (-2, -1)
+    if transposed is None:
+        transposed = (d <= 64 and dv <= 64 and q_dtype in (
+            None, torch.int8, torch.float8_e4m3fn))
+    if transposed:
+        from tpu_flash_torch.quant.serving_attn import serving_flash_attention
+
+        return serving_flash_attention(
+            q, quantize(k, kv_dtype, axis=k_axis),
+            quantize(v, kv_dtype, axis=-2), q_dtype=q_dtype,
+            schedule=schedule, scale=scale, block_q=block_q,
+            block_kv=block_kv, bound_max=bound_max, transposed=True,
+            return_lse=return_lse)
+
+    qq, q_raw, kq, vq = prepare_quantized(q, k, v, q_dtype, kv_dtype,
+                                          k_scaled, scale)
+    o, lse = _quantized_fwd(
+        qq, q_raw, kq, vq, sched, out_dtype=q.dtype, hq=h, hkv=hkv,
+        k_scaled=k_scaled, need_lse=return_lse, bound_max=bound_max)
+    o = o.reshape(b, h, n_q, dv)
+    if return_lse:
+        return o, lse.reshape(b, h, n_q)
+    return o
+
+
+def prepare_quantized(q, k, v, q_dtype, kv_dtype, k_scaled: bool,
+                      scale: float):
+    """The host side of :func:`quantized_flash_attention` on
+    ``(b, h, n, d)`` inputs → flattened ``(qq, q_raw, kq, vq)`` for
+    :func:`quant_operands`: K per token (or per (batch, kv head), folded
+    into Q, expanded per q head), V per channel; int8 Q quantized per
+    token; fp8 Q quantized, then handed over dequantized in bf16 with the
+    scale and log2e folded in (bf16 holds every fp8 value); weight-only Q
+    scaled in bf16."""
+    b, h, n_q, d = q.shape
+    hkv, n_kv, dv = k.shape[1], k.shape[2], v.shape[-1]
+    qf = (q.float() * f32(scale)).reshape(b * h, n_q, d)
+    kq = quantize(k.reshape(b * hkv, n_kv, d), kv_dtype,
+                  axis=-1 if k_scaled else (-2, -1))
+    vq = quantize(v.reshape(b * hkv, n_kv, dv), kv_dtype, axis=-2)
+    sk_in_q = 1.0 if k_scaled else torch.repeat_interleave(
+        kq.scales.reshape(b, hkv, 1, 1), h // hkv, dim=1).reshape(b * h, 1, 1)
+    fold = f32(LOG2E) * sk_in_q
+    if q_dtype is None:
+        return None, (qf * fold).to(torch.bfloat16), kq, vq
+    return (*_quantized_q(qf, q_dtype, fold), kq, vq)
+
+
+def _quantized_q(qf, q_dtype, fold):
+    """Scaled float32 Q → ``(qq, q_raw)``: int8 Q as a token-scaled
+    :class:`QArray` (``q_raw`` None); fp8 Q quantized, then dequantized
+    times ``fold`` (log2e, and the K scale under kv_scale="tensor") in
+    bf16 (``qq`` None)."""
+    if q_dtype == torch.int8:
+        return quantize(qf, torch.int8, axis=-1), None
+    qv = quantize(qf, q_dtype, axis=-1)
+    return None, ((qv.values.float() * qv.scales) * fold).to(torch.bfloat16)
+
+
+def quantized_dense_fa(q, k, v, **kw):
+    """Dense quantized attention (see :func:`quantized_flash_attention`)."""
+    return quantized_flash_attention(q, k, v, schedule="dense", **kw)
+
+
+def prepare_ring_operands(q, k, v, *, q_dtype, kv_dtype, scale=None):
+    """Quantize Q, K, V once for :func:`quantized_flash_attention_prequant`.
+
+    Returns ``(q_pre, kq, vq)``: ``kq`` per-token K, ``vq`` per-channel V;
+    ``q_pre`` an int8 token-scaled :class:`QArray` (int8), the bf16
+    dequantized fp8 values with scale and log2e folded in (fp8), or the bf16
+    scaled Q (``q_dtype=None``, weight-only).
+    """
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    kv_dtype = as_dtype(kv_dtype)
+    kq = quantize(k, kv_dtype, axis=-1)
+    vq = quantize(v, kv_dtype, axis=-2)
+    if q_dtype is None:
+        return (q.float() * f32(scale * LOG2E)).to(torch.bfloat16), kq, vq
+    q_dtype = as_dtype(q_dtype)
+    if (q_dtype == torch.int8) != (kv_dtype == torch.int8):
+        raise ValueError("q/kv dtypes must share the input family")
+    qq, q_raw = _quantized_q(q.float() * f32(scale), q_dtype, f32(LOG2E))
+    return (q_raw if qq is None else qq), kq, vq
+
+
+def quantized_flash_attention_prequant(
+    q_pre,
+    kq: QArray,
+    vq: QArray,
+    *,
+    schedule: str = "dense",
+    radius: int = 0,
+    section: int = 0,
+    shift: int = 0,
+    wrap_n: int = 0,
+    shifted_causal: bool = False,
+    block_q: int = 1024,
+    block_kv: int = 2048,
+    out_dtype=torch.bfloat16,
+    return_lse: bool = False,
+    bound_max: bool = True,
+):
+    """Attend with operands from :func:`prepare_ring_operands` — no
+    quantize preamble. ``(batch, heads, n, d)`` values; per-token K scales,
+    per-channel V scales; GQA (kv heads divide q heads)."""
+    refuse_unported(radius=radius, section=section, shift=shift,
+                    wrap_n=wrap_n, shifted_causal=shifted_causal)
+    q_vals = q_pre.values if isinstance(q_pre, QArray) else q_pre
+    b, h, n_q, d = q_vals.shape
+    hkv, n_kv = kq.values.shape[1], kq.values.shape[2]
+    if h % hkv:
+        raise ValueError(f"q heads {h} not a multiple of kv heads {hkv}")
+    dv = vq.values.shape[-1]
+    sched = build_schedule(schedule, n_q, n_kv, block_q, block_kv)
+    kqf = QArray(kq.values.reshape(b * hkv, n_kv, d),
+                 kq.scales.reshape(b * hkv, n_kv, 1), axis=-1)
+    vqf = QArray(vq.values.reshape(b * hkv, n_kv, dv),
+                 vq.scales.reshape(b * hkv, 1, dv), axis=-2)
+    qq = q_raw = None
+    if isinstance(q_pre, QArray):
+        qq = QArray(q_vals.reshape(b * h, n_q, d),
+                    q_pre.scales.reshape(b * h, n_q, 1), axis=-1)
+    else:
+        q_raw = q_vals.reshape(b * h, n_q, d)
+    o, lse = _quantized_fwd(
+        qq, q_raw, kqf, vqf, sched, out_dtype=out_dtype, hq=h, hkv=hkv,
+        k_scaled=True, need_lse=return_lse, bound_max=bound_max)
+    o = o.reshape(b, h, n_q, dv)
+    if return_lse:
+        return o, lse.reshape(b, h, n_q)
+    return o

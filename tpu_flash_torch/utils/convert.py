@@ -15,21 +15,29 @@ import numpy as np
 import torch
 
 from tpu_flash_torch.cache.paged_cache import CacheConfig, PagedKVCache
+from tpu_flash_torch.quant.qarray import QArray
+
+
+# ml_dtypes arrays that torch.from_numpy rejects: (unsigned view, torch type)
+_VIEWS = {"bfloat16": (np.uint16, torch.bfloat16),
+          "float8_e4m3fn": (np.uint8, torch.float8_e4m3fn),
+          "float8_e5m2": (np.uint8, torch.float8_e5m2)}
 
 
 def to_torch(a, device="cuda") -> torch.Tensor:
-    """numpy (or array-like) → torch tensor, bit for bit."""
-    a = np.asarray(a)
-    if a.dtype.name == "bfloat16":
-        t = torch.from_numpy(np.ascontiguousarray(a).view(np.uint16).copy())
-        return t.view(torch.bfloat16).to(device)
-    return torch.from_numpy(np.ascontiguousarray(a).copy()).to(device)
+    """numpy (or array-like) → torch tensor, bit for bit; bfloat16 and fp8
+    go through an unsigned view."""
+    a = np.ascontiguousarray(np.asarray(a))
+    if a.dtype.name in _VIEWS:
+        view, dtype = _VIEWS[a.dtype.name]
+        return torch.from_numpy(a.view(view).copy()).view(dtype).to(device)
+    return torch.from_numpy(a.copy()).to(device)
 
 
 def to_numpy(t: torch.Tensor) -> np.ndarray:
-    """torch tensor → numpy; bfloat16 comes back as float32 (exact)."""
+    """torch tensor → numpy; bfloat16 and fp8 come back as float32 (exact)."""
     t = t.detach().cpu()
-    if t.dtype == torch.bfloat16:
+    if t.dtype in (torch.bfloat16, torch.float8_e4m3fn, torch.float8_e5m2):
         t = t.float()
     return t.numpy()
 
@@ -42,6 +50,13 @@ def params_from_tree(tree, device="cuda"):
     if isinstance(tree, (list, tuple)):
         return [params_from_tree(v, device) for v in tree]
     return to_torch(tree, device)
+
+
+def qarray_from_reference(qa, device="cuda") -> QArray:
+    """A reference ``QArray`` (leaves read with ``np.asarray``) → the
+    port's, bit for bit, with the same ``axis``."""
+    return QArray(values=to_torch(qa.values, device),
+                  scales=to_torch(qa.scales, device), axis=qa.axis)
 
 
 def cache_from_reference(cache, device="cuda") -> PagedKVCache:
