@@ -14,8 +14,12 @@ oracle attention's, then runs the quantized headline (bench.py's shape:
 batch 4, 8 heads, n 8192, d 128) through serving_flash_attention (fp8 and
 int8) and quantized_dense_fa (fp8), each gated against the blockwise f32
 oracle, and holds B6/B7 against their plain versions there and at variant
-shapes. Each phase prints one JSON line; any failure raises and
-the exit code is not 0. Without a CUDA device it fails at once and prints no
+shapes; then serves the canonical model with a sliding window (1025)
+through chunked prefill (chunks of 512) and the pipelined decode, checks it
+against a teacher-forced sliding forward and against an unchunked engine,
+and holds the band, norm-bound and banded paged kernels against their plain
+versions at that path's shapes. Each phase prints one JSON line; any
+failure raises and the exit code is not 0. Without a CUDA device it fails at once and prints no
 result. The train phase ends with a torch.profiler breakdown of one step.
 Imports torch and the port only.
 """
@@ -58,6 +62,15 @@ TRAIN_STEPS = 3
 TRAIN_LR = 1.0
 TOL_COSINE = 0.99
 TOL_DLOSS = 2e-2
+# the sliding serving path: the canonical model with ModelConfig's default
+# window (radius 512); 12 long prompts (chunked, 3–4 chunks each) and 4
+# short ones (prefilled whole), 32 new tokens each
+SLIDING_WINDOW = 1025
+SLIDING_CHUNK = 512
+SLIDING_LONG, SLIDING_SHORT = (1100, 2000), (300, 500)
+N_LONG, N_SHORT = 12, 4
+# lse of a kernel vs its plain version (float32 sums in another order)
+TOL_LSE = 1e-4
 # H100 SXM datasheet peaks (dense): bf16 tensor cores, float32 FMA, HBM
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 PEAK_BYTES = 3.35e12
@@ -121,11 +134,20 @@ def visible_pairs(n_q: int, n_kv: int, causal: bool) -> int:
     return sum(min(n_kv, max(0, i + off + 1)) for i in range(n_q))
 
 
-def sdpa(q, k, v, causal):
-    """The library's fused attention on (B, H, N, D); the yardstick that
-    chip_smoke times beside the port's kernels (the port never calls it)."""
+def band_pairs(n: int, radius: int, causal: bool) -> int:
+    """(query, key) pairs a head attends under the band |i − j| ≤ radius
+    (and j ≤ i when causal), n queries and keys."""
+    return sum(min(i, radius) + 1 + (0 if causal else min(n - 1 - i, radius))
+               for i in range(n))
+
+
+def sdpa(q, k, v, causal, mask=None):
+    """The library's fused attention on (B, H, N, D), causal or under a
+    boolean mask; the yardstick that chip_smoke times beside the port's
+    kernels (the port never calls it)."""
     return torch.nn.functional.scaled_dot_product_attention(
-        q, k, v, is_causal=causal, enable_gqa=q.shape[1] != k.shape[1])
+        q, k, v, attn_mask=mask, is_causal=causal and mask is None,
+        enable_gqa=q.shape[1] != k.shape[1])
 
 
 def flash_phase(dev):
@@ -176,14 +198,13 @@ def flash_phase(dev):
     return dict(max_abs_err=worst, **timing)
 
 
-def _decode_cache(dtype, lens, dev, seed):
+def _decode_cache(dtype, lens, dev, seed, n_pages=CACHE["max_pages_per_seq"] // 4):
     from tpu_flash_torch.cache.paged_cache import CacheConfig, PagedKVCache
 
     cfg = CacheConfig(**{**CACHE, "dtype": dtype})
     gen = torch.Generator(device=dev).manual_seed(seed)
     c = PagedKVCache.create(cfg, dev)
     perm = torch.randperm(cfg.total_pages - 1, generator=gen, device=dev) + 1
-    n_pages = cfg.max_pages_per_seq // 4
     c.page_tables[: len(lens), :n_pages] = perm[: len(lens) * n_pages].reshape(
         len(lens), n_pages).int()
     for s, n in enumerate(lens):
@@ -287,7 +308,7 @@ def engine_phase(dev, model=MODEL, cache=CACHE, max_batch=MAX_BATCH,
     kernels.reset_launches()
     step_ms = []
     t0 = time.perf_counter()
-    while eng.waiting or eng.running:
+    while eng.waiting or eng.running or eng.prefilling:
         ts = time.perf_counter()
         eng.step()  # ends in a host fetch of the sampled tokens
         step_ms.append((time.perf_counter() - ts) * 1e3)
@@ -753,6 +774,317 @@ def teacher_forced_drift(params, mcfg, f) -> float:
     return float((ref - got).abs().max())
 
 
+def sliding_prompts(vocab: int):
+    """The sliding phase's prompts from a seed: N_LONG long ones (chunked),
+    then N_SHORT short ones (prefilled whole); no length is a page
+    multiple."""
+    rng = np.random.default_rng(7)
+    lens = ([int(n) for n in rng.integers(*SLIDING_LONG, N_LONG)]
+            + [int(n) for n in rng.integers(*SLIDING_SHORT, N_SHORT)])
+    lens = [n + 1 if n % CACHE["page_size"] == 0 else n for n in lens]
+    return [rng.integers(1, vocab - 1, n).tolist() for n in lens]
+
+
+def serve(eng, reqs, warm):
+    """Run ``warm`` to the end, then ``reqs`` with the launch counts reset:
+    returns the finished requests by rid, the launches, the wall time, the
+    host-clock ms of each decode (``_decode``) and each prefill chunk
+    (``_advance_prefill`` that ran one), each ending in a synchronise, and
+    each request's first-token logits (its last prompt position)."""
+    from tpu_flash_torch import kernels
+
+    first, times = {}, {"decode": [], "chunk": []}
+    start_running = eng._start_running
+
+    def keep(req, slot, pages, logits):
+        first[req.rid] = logits[0].float().clone()
+        start_running(req, slot, pages, logits)
+
+    def timed(name, fn):
+        def run():
+            busy = name != "chunk" or bool(eng.prefilling)
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            if busy:
+                times[name].append((time.perf_counter() - t0) * 1e3)
+        return run
+
+    eng._start_running = keep
+    eng._decode = timed("decode", eng._decode)
+    eng._advance_prefill = timed("chunk", eng._advance_prefill)
+    for r in warm:
+        eng.submit(r)
+    eng.run()
+    torch.cuda.synchronize()
+    n0 = len(eng.finished)
+    times["decode"].clear()
+    times["chunk"].clear()
+    for r in reqs:
+        eng.submit(r)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    eng.run()
+    wall = time.perf_counter() - t0
+    return dict(done={f.rid: f for f in eng.finished[n0:]},
+                launches=dict(kernels.LAUNCHES), wall_s=wall, first=first,
+                **times)
+
+
+def sliding_serve_phase(dev):
+    """The sliding-window serving path at full width: engine A (chunked
+    prefill in chunks of SLIDING_CHUNK, pipelined decode) serves 12 long and
+    4 short requests; its streams are held against a teacher-forced sliding
+    forward, which a full-history forward must miss; engine B (whole
+    prompts) serves the 12 long prompts, and each one's last-prompt-position
+    logits are held against engine A's; engine C does as B under the norm
+    bound (``prefill_bound_max``), held against B."""
+    from tpu_flash_torch.cache.paged_cache import CacheConfig
+    from tpu_flash_torch.models import transformer as tfm
+    from tpu_flash_torch.serving.engine import Engine, EngineConfig, Request
+
+    mcfg = tfm.ModelConfig(**MODEL, attention="sliding", window=SLIDING_WINDOW)
+    params = tfm.init_params(mcfg, torch.Generator(device=dev).manual_seed(0),
+                             dev)
+    prompts = sliding_prompts(mcfg.vocab_size)
+    hot = len(prompts) - 1
+
+    def reqs(rids):
+        return [Request(rid=i, prompt=prompts[i], max_new_tokens=NEW_TOKENS,
+                        temperature=0.7 if i == hot else 0.0,
+                        top_k=50 if i == hot else 0,
+                        top_p=0.9 if i == hot else 1.0) for i in rids]
+
+    warm = [Request(rid=10_000, prompt=prompts[0][:1100], max_new_tokens=4)]
+    eng_a = Engine(params, mcfg, CacheConfig(**CACHE), EngineConfig(
+        max_batch=MAX_BATCH, chunk_size=SLIDING_CHUNK, pipelined_decode=True))
+    a = serve(eng_a, reqs(range(len(prompts))), warm)
+    del eng_a
+    done = a["done"]
+    if sorted(done) != list(range(len(prompts))):
+        raise AssertionError(f"sliding: finished {sorted(done)}")
+    for f in done.values():
+        if f.reason != "length" or len(f.new_tokens) != NEW_TOKENS:
+            raise AssertionError(f"sliding request {f.rid}: {f.reason}, "
+                                 f"{len(f.new_tokens)} tokens")
+        if not all(np.isfinite(f.logprobs)):
+            raise AssertionError(f"sliding request {f.rid}: non-finite")
+    for name in ("flash_fwd", "paged_attention", "paged_append"):
+        if a["launches"][name] <= 0:
+            raise AssertionError(f"kernel {name} never launched in the "
+                                 "sliding engine run")
+    # every chunked (long, greedy) stream against a sliding forward, and
+    # against a full-history one, which the same check must reject
+    drifts = [teacher_forced_drift(params, mcfg, done[i]) for i in range(N_LONG)]
+    full = tfm.ModelConfig(**MODEL)
+    full_drifts = [teacher_forced_drift(params, full, done[i])
+                   for i in range(N_LONG)]
+    drift, full_history = max(drifts), max(full_drifts)
+    check("sliding teacher-forced drift", drift, TOL_LOGPROB)
+    if not full_history > TOL_LOGPROB:
+        raise AssertionError(f"a full-history forward passes the drift check "
+                             f"({full_history}): it cannot see the band")
+
+    # engine B prefills the long prompts whole; engine C too, under the
+    # norm bound (prefill_bound_max: a tolerance contract)
+    unchunked = {}
+    for name, bound in (("exact", False), ("bound", True)):
+        eng = Engine(params, mcfg, CacheConfig(**CACHE), EngineConfig(
+            max_batch=MAX_BATCH, prefill_bound_max=bound))
+        unchunked[name] = serve(eng, reqs(range(N_LONG)), [Request(
+            rid=10_000, prompt=prompts[-1], max_new_tokens=4)])
+        del eng
+        if sorted(unchunked[name]["done"]) != list(range(N_LONG)):
+            raise AssertionError(f"unchunked engine ({name}): finished "
+                                 f"{sorted(unchunked[name]['done'])}")
+        if unchunked[name]["launches"]["flash_fwd"] <= 0:
+            raise AssertionError("flash_fwd never launched in the unchunked "
+                                 f"run ({name})")
+    b, c = unchunked["exact"], unchunked["bound"]
+
+    def dlogits(x, y):
+        return max(float((x["first"][i] - y["first"][i]).abs().max())
+                   for i in range(N_LONG))
+
+    def same(x, y, first=False):
+        return sum((x["done"][i].new_tokens[0] == y["done"][i].new_tokens[0])
+                   if first else (x["done"][i].tokens == y["done"][i].tokens)
+                   for i in range(N_LONG))
+
+    chunked_vs_whole = dlogits(a, b)
+    bound_vs_exact = dlogits(c, b)
+    check("chunked vs unchunked last-prompt logits", chunked_vs_whole,
+          TOL_LOGPROB)
+    check("norm-bound vs exact-max prefill last-prompt logits",
+          bound_vs_exact, TOL_LOGPROB)
+    decode_ms = float(np.median(a["decode"]))
+    row = dict(
+        phase="sliding_serve", window=SLIDING_WINDOW, chunk=SLIDING_CHUNK,
+        cache=CACHE["dtype"], requests=len(prompts), finished=len(done),
+        prompt_lens=[len(p) for p in prompts], new_tokens=NEW_TOKENS,
+        chunks=len(a["chunk"]), launches=a["launches"],
+        teacher_forced_drift=drift, full_history_drift=full_history,
+        full_history_drift_min=min(full_drifts),
+        drift_tol=TOL_LOGPROB, chunked_vs_unchunked_logits=chunked_vs_whole,
+        identical_greedy_streams=f"{same(a, b)}/{N_LONG}",
+        identical_first_tokens=f"{same(a, b, True)}/{N_LONG}",
+        bound_vs_exact_prefill_logits=bound_vs_exact,
+        bound_identical_greedy_streams=f"{same(c, b)}/{N_LONG}",
+        unchunked_launches=b["launches"], bound_launches=c["launches"],
+        decode_ms_per_step=decode_ms,
+        decode_ms_range=[min(a["decode"]), max(a["decode"])],
+        prefill_ms_per_chunk=float(np.median(a["chunk"])),
+        prefill_chunk_ms_range=[min(a["chunk"]), max(a["chunk"])],
+        warm_e2e_tok_s=len(prompts) * NEW_TOKENS / a["wall_s"],
+        wall_s=a["wall_s"], unchunked_wall_s=b["wall_s"])
+    emit(row)
+    return dict(launches=a["launches"], bound_launches=c["launches"])
+
+
+def sliding_kernels_phase(dev):
+    """B1 (band, norm bound) and B2 (band start, positions, visible
+    lengths, empty prefix; the pipelined decode) against their plain
+    versions at the sliding path's shapes, timed beside their bounds and,
+    for B1, the library's attention under the same mask."""
+    from tpu_flash_torch.ops import flash, paged
+
+    gen = torch.Generator(device=dev).manual_seed(8)
+    hq, hkv = 16, 8
+    r = (SLIDING_WINDOW - 1) // 2
+    rows, timed, worst = [], {}, {"flash_fwd": 0.0, "paged_attention": 0.0}
+
+    def held(kernel, name, got, want, tol):
+        (ko, kl), (po, pl) = got, want
+        errs = dict(o_vs_plain=max_err(ko, po), lse_vs_plain=max_err(kl, pl))
+        check(f"{name} o vs plain", errs["o_vs_plain"], tol)
+        check(f"{name} lse vs plain", errs["lse_vs_plain"], TOL_LSE)
+        worst[kernel] = max(worst[kernel], *errs.values())
+        row = dict(kernel=kernel, case=name, tol=tol, tol_lse=TOL_LSE, **errs)
+        rows.append(row)
+        return row
+
+    # B1: (name, schedule, n, d, bound, dtype, timed as)
+    b1_cases = [
+        ("band_causal_2048", "local_causal", 2048, 128, False, torch.bfloat16,
+         "band"),
+        ("band_1000", "local", 1000, 128, None, torch.bfloat16, None),
+        ("bound_d64_dense_1024", "dense", 1024, 64, True, torch.bfloat16,
+         "bound"),
+        ("bound_d64_dense_f32_1000", "dense", 1000, 64, True, torch.float32,
+         None),
+    ]
+    for name, schedule, n, d, bound, dt, tag in b1_cases:
+        q = torch.randn(1, hq, n, d, generator=gen, device=dev).to(dt)
+        k = torch.randn(1, hkv, n, d, generator=gen, device=dev).to(dt)
+        v = torch.randn(1, hkv, n, d, generator=gen, device=dev).to(dt)
+        radius = r if schedule != "dense" else 0
+        sched = flash.build_schedule(schedule, n, n, 512, 1024, radius=radius)
+        if bound is None:
+            bound = flash.auto_bound_max(sched)
+        qf = (q.float() * (d ** -0.5 * flash.LOG2E)).to(dt)[0]
+        args = (qf, k[0], v[0], sched, hq, hkv)
+        row = held("flash_fwd", name,
+                   flash._flash_fwd_kernel(*args, True, bound),
+                   flash._flash_fwd_plain(*args, bound),
+                   TOL_BF16 if dt == torch.bfloat16 else TOL_F32)
+        row.update(schedule=schedule, n=n, d=d, bound_max=bound,
+                   dtype=str(dt).replace("torch.", ""))
+        if tag is None:
+            continue
+        pos = torch.arange(n, device=dev)
+        mask = None
+        if schedule != "dense":
+            mask = (pos[:, None] - pos[None, :]).abs() <= radius
+            if schedule == "local_causal":
+                mask &= pos[None, :] <= pos[:, None]
+        pairs = (n * n if schedule == "dense"
+                 else band_pairs(n, radius, schedule == "local_causal"))
+        esz = 2 if dt == torch.bfloat16 else 4
+        nbytes = esz * (2 * hq * n * d + 2 * hkv * n * d) + 4 * hq * n
+        row.update(ms=cuda_ms(lambda: flash._flash_fwd_kernel(*args, True,
+                                                               bound)),
+                   plain_ms=cuda_ms(lambda: flash._flash_fwd_plain(*args, bound),
+                                    iters=5),
+                   library_ms=cuda_ms(lambda: sdpa(q, k, v, False, mask)),
+                   pairs=pairs, **roofline(4 * d * hq * pairs, nbytes, dt))
+        timed[tag] = row
+
+    # B2 at the chunk-prefix shape: 512 lanes of one slot (a shared table),
+    # positions 1536..2047 against a 1536-token prefix, radius 512; slot 1
+    # holds nothing (a first chunk's empty prefix)
+    cache = _decode_cache("int8", [1536, 1], dev, 9, n_pages=32)
+    cache.lengths[1] = 0
+    lanes, g, d = SLIDING_CHUNK, hq // hkv, 128
+    qg = (torch.randn(lanes, hkv, g, d, generator=gen, device=dev)
+          * (d ** -0.5 * flash.LOG2E)).bfloat16()
+    pos = torch.arange(1536, 1536 + lanes, dtype=torch.int32, device=dev)
+    steps = min(32, -(-(r + 1) // CACHE["page_size"]) + 1)
+
+    def b2(fn, slots, len_add=0, q=qg, c=cache, **kw):
+        return fn(q, c.k_pages, c.v_pages, c.k_scales, c.v_scales, slots,
+                  c.lengths, c.page_tables, len_add, steps, torch.bfloat16,
+                  True, radius=r, **kw)
+
+    for name, slot in (("chunk_prefix_512_lanes", 0), ("empty_prefix", 1)):
+        slots = torch.full((lanes,), slot, dtype=torch.int32, device=dev)
+        got = b2(paged._paged_attention_kernel, slots, positions=pos)
+        row = held("paged_attention", name, got,
+                   b2(paged._paged_attention_plain, slots, positions=pos),
+                   TOL_BF16)
+        if slot == 1:
+            if not (torch.isneginf(got[1]).all() and (got[0] == 0).all()):
+                raise AssertionError("empty prefix: o must be 0, lse −inf")
+            row["all_lse_neg_inf"] = True
+            continue
+        visible = sum(1536 - max(int(p) - r, 0) for p in pos.tolist())
+        nbytes = 2 * r * hkv * (d + 4) + lanes * hq * (4 * d + 4)
+        row.update(ms=cuda_ms(lambda: b2(paged._paged_attention_kernel, slots,
+                                         positions=pos)),
+                   plain_ms=cuda_ms(lambda: b2(paged._paged_attention_plain,
+                                               slots, positions=pos), iters=5),
+                   visible_pairs=visible * hq,
+                   **roofline(4 * d * hq * visible, nbytes, torch.bfloat16))
+    slots = torch.zeros(64, dtype=torch.int32, device=dev)
+    vis = torch.arange(1536 - 64, 1536, dtype=torch.int32, device=dev) + 1
+    held("paged_attention", "lengths_override_64_lanes",
+         b2(paged._paged_attention_kernel, slots, q=qg[:64],
+            lengths_override=vis, positions=vis - 1),
+         b2(paged._paged_attention_plain, slots, q=qg[:64],
+            lengths_override=vis, positions=vis - 1), TOL_BF16)
+
+    # the pipelined decode: 16 lanes of 1100–2032 tokens, B3 then B2
+    # walking each lane's own band pages (no pages_bound below the band's)
+    lens = (1100 + torch.randint(0, 932, (MAX_BATCH,), generator=gen,
+                                 device=dev)).tolist()
+    kc, pc = (_decode_cache("int8", lens, dev, 10, n_pages=32)
+              for _ in range(2))
+    slots = torch.arange(MAX_BATCH, dtype=torch.int32, device=dev)
+    qd = qg[:MAX_BATCH]
+    kn, vn = (torch.randn(MAX_BATCH, hkv, d, generator=gen, device=dev)
+              .bfloat16() for _ in range(2))
+    for c, fn in ((kc, paged._paged_append_kernel),
+                  (pc, paged._paged_append_plain)):
+        fn(kn, vn, c.k_pages, c.v_pages, c.k_scales, c.v_scales, slots,
+           c.lengths, c.page_tables)
+    for name in ("k_pages", "v_pages", "k_scales", "v_scales"):
+        if not torch.equal(getattr(kc, name), getattr(pc, name)):
+            raise AssertionError(f"pipelined decode: {name} not bit-exact")
+    row = held("paged_attention", "pipelined_decode_16_lanes",
+               b2(paged._paged_attention_kernel, slots, 1, qd, kc),
+               b2(paged._paged_attention_plain, slots, 1, qd, pc), TOL_BF16)
+    toks = MAX_BATCH * (r + 1)
+    nbytes = toks * hkv * 2 * (d + 4) + MAX_BATCH * hq * (4 * d + 4)
+    row.update(lens_min=min(lens), lens_max=max(lens), append_bit_exact=True,
+               ms=cuda_ms(lambda: b2(paged._paged_attention_kernel, slots, 1,
+                                     qd, kc)),
+               plain_ms=cuda_ms(lambda: b2(paged._paged_attention_plain, slots,
+                                           1, qd, pc), iters=5),
+               **roofline(4 * d * hq * toks, nbytes, torch.bfloat16))
+    timed["pipelined"] = row
+    emit(dict(phase="sliding_kernels", hq=hq, hkv=hkv, radius=r, cases=rows))
+    return dict(timed=timed, worst=worst)
+
+
 def _timing(row) -> dict:
     return {key: row[key] for key in ("ms", "plain_ms", "bound_ms",
                                       "bound_by")}
@@ -821,6 +1153,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     with torch.no_grad():
         quant = quant_attention_phase(dev)
+    torch.cuda.empty_cache()
+    with torch.no_grad():
+        sliding = sliding_serve_phase(dev)
+        torch.cuda.empty_cache()
+        sk = sliding_kernels_phase(dev)
     # launches: the engine run for the serving kernels, the train run for
     # the backward ones (the forward kernel runs in both; the train run's
     # count is reported)
@@ -882,6 +1219,31 @@ def main() -> int:
              max_abs_err=quant["worst"]["quant"],
              **_timing(quant["timed"]["e2e_fp8"]),
              library_ms=quant["library_ms"]),
+        # TPU kernels folded into B1 and B2, each with its own measurement
+        # at the sliding path's shapes; launches: the host kernel's in the
+        # sliding engine run (B11, B12: engine A, every B1 launch there is
+        # a band, every B2 launch a band walk; B9: engine C, whose prefill
+        # runs B1 under the norm bound, at d 128)
+        dict(name="flash_fwd (B11 band, folded)", route="cuda",
+             source="tpu_flash_torch/csrc/flash_fwd.cu",
+             replaces="tpu_flash/ops/flash.py:380",
+             launches=sliding["launches"]["flash_fwd"],
+             max_abs_err=sk["worst"]["flash_fwd"],
+             **_timing(sk["timed"]["band"]),
+             library_ms=sk["timed"]["band"]["library_ms"]),
+        dict(name="flash_fwd (B9 norm-bound max, folded)", route="cuda",
+             source="tpu_flash_torch/csrc/flash_fwd.cu",
+             replaces="tpu_flash/ops/flash.py:711",
+             launches=sliding["bound_launches"]["flash_fwd"],
+             max_abs_err=sk["worst"]["flash_fwd"],
+             **_timing(sk["timed"]["bound"]),
+             library_ms=sk["timed"]["bound"]["library_ms"]),
+        dict(name="paged_attention (B12 pipelined decode, folded)",
+             route="cuda", source="tpu_flash_torch/csrc/paged_attention.cu",
+             replaces="tpu_flash/ops/paged.py:663",
+             launches=sliding["launches"]["paged_attention"],
+             max_abs_err=sk["worst"]["paged_attention"],
+             **_timing(sk["timed"]["pipelined"]), library_ms=None),
     ]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

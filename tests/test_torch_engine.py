@@ -131,9 +131,8 @@ def test_temperature_streams_are_batching_invariant(params):
 def test_unported_engine_options_raise(params):
     _, tp = params
     mcfg, ccfg = ttfm.ModelConfig(**_MCFG), CacheConfig(**_CCFG)
-    for kw, item in ((dict(chunk_size=32), "A7"), (dict(prefix_cache=True), "A7"),
-                     (dict(speculate_k=2), "A9"), (dict(decode_steps=4), "A7"),
-                     (dict(pipelined_decode=True), "A5")):
+    for kw, item in ((dict(prefix_cache=True), "A7"),
+                     (dict(speculate_k=2), "A9"), (dict(decode_steps=4), "A7")):
         with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
             teng.Engine(tp, mcfg, ccfg, teng.EngineConfig(**kw))
 

@@ -125,10 +125,28 @@ def test_flash_plain_matches_oracle_scale():
     np.testing.assert_allclose(o.numpy(), ref.numpy(), atol=1e-4)
 
 
-@pytest.mark.parametrize("kw", [dict(bound_max=True), dict(radius=4),
-                                dict(q_dtype="int8", schedule="local"),
-                                dict(schedule="local")])
+@pytest.mark.parametrize("kw", [dict(section=8, _item="A11"),
+                                dict(shift=1, _item="A13"),
+                                dict(q_dtype="int8", schedule="local",
+                                     _item="A10"),
+                                dict(schedule="block", _item="A11")])
 def test_flash_unported_options_raise(kw):
+    """What is still unported raises, naming its ROADMAP item: the block
+    and shifted schedules, and the band on the quantized route."""
     _, (tq, tk, tv) = _inputs(4, 1, 1, 1, 16, 16, 32, jnp.float32)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    kw = dict(kw)
+    with pytest.raises(NotImplementedError, match=f"ROADMAP {kw.pop('_item')}"):
         tflash.flash_attention(tq, tk, tv, **kw)
+
+
+@pytest.mark.parametrize("kw", [dict(bound_max=True),
+                                dict(schedule="local", radius=4),
+                                dict(schedule="local")])
+def test_flash_ported_options_match_reference(kw):
+    """The norm-bound max, a band of radius 4 and the radius-0 band give
+    the reference's o and lse (f32 1e-4)."""
+    (jq, jk, jv), (tq, tk, tv) = _inputs(4, 1, 2, 2, 40, 40, 32, jnp.float32)
+    jo, jl = jflash.flash_attention(jq, jk, jv, return_lse=True, **kw)
+    to, tl = tflash.flash_attention(tq, tk, tv, return_lse=True, **kw)
+    np.testing.assert_allclose(to.numpy(), np.asarray(jo), atol=TOL["float32"])
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=TOL["float32"])

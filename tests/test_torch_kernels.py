@@ -1,5 +1,7 @@
-"""The port's CUDA kernels (B1 flash forward, B2 paged attention, B3 paged
-append, B4/B5 flash backward, B6/B8 serving and B7 quantized attention)
+"""The port's CUDA kernels (B1 flash forward with the band and the norm
+bound, where the reference's B9 and B11 fold in; B2 paged attention with
+the band, positions and visible lengths, where B12 folds in; B3 paged
+append; B4/B5 flash backward; B6/B8 serving and B7 quantized attention)
 against their plain PyTorch versions, on the card.
 
 Every test here needs an NVIDIA GPU: it carries the ``cuda`` marker and
@@ -56,6 +58,61 @@ def test_flash_kernel_matches_plain(gen, causal, n_q, n_kv, dtype):
     assert float((kl[fin] - pl[fin]).abs().max()) <= tol
 
 
+# (schedule, radius, n, d, bound_max, dtype): the sliding serving path's
+# band (window 1025: radius 512) at n 2048 and a ragged n 1000, d 64 and
+# 128; the norm-bound max at d 64 (where the reference's transposed kernel
+# B9 runs) and d 128, dense, bf16 and float32
+_B1_VARIANTS = [
+    ("local_causal", 512, 2048, 128, False, torch.bfloat16),
+    ("local", 512, 1000, 128, None, torch.bfloat16),
+    ("local_causal", 64, 1000, 64, False, torch.bfloat16),
+    ("local", 129, 1024, 64, None, torch.float32),
+    ("dense", 0, 1024, 64, True, torch.bfloat16),
+    ("dense", 0, 1000, 64, True, torch.float32),
+    ("dense", 0, 1024, 128, True, torch.bfloat16),
+    ("causal", 0, 1000, 128, True, torch.bfloat16),
+]
+
+
+@pytest.mark.parametrize("case", _B1_VARIANTS, ids=[
+    f"{c[0]}-r{c[1]}-n{c[2]}-d{c[3]}-{'bound' if c[4] is not False else 'exact'}"
+    f"-{str(c[5])[6:]}" for c in _B1_VARIANTS])
+def test_flash_kernel_band_and_bound_match_plain(gen, case):
+    """B1 with the band schedules and the norm-bound max vs its plain
+    version (16 q / 8 kv heads). None takes the auto policy (the bound for
+    the non-causal band). bf16 2e-2, f32 1e-4, lse 1e-4 where finite (f32)
+    or 2e-2 (bf16), as the dense and causal cases."""
+    schedule, radius, n, d, bound, dtype = case
+    hq, hkv = 16, 8
+    q = (torch.randn(hq, n, d, generator=gen, device="cuda")
+         * (d ** -0.5 * tflash.LOG2E)).to(dtype)
+    k = torch.randn(hkv, n, d, generator=gen, device="cuda").to(dtype)
+    v = torch.randn(hkv, n, d, generator=gen, device="cuda").to(dtype)
+    sched = tflash.build_schedule(schedule, n, n, 512, 1024, radius=radius)
+    if bound is None:
+        bound = tflash.auto_bound_max(sched)
+    before = kernels.LAUNCHES["flash_fwd"]
+    ko, kl = tflash._flash_fwd_kernel(q, k, v, sched, hq, hkv, True, bound)
+    po, pl = tflash._flash_fwd_plain(q, k, v, sched, hq, hkv, bound)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["flash_fwd"] == before + 1
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+    assert float((ko.float() - po.float()).abs().max()) <= tol
+    fin = torch.isfinite(pl)
+    assert torch.equal(torch.isfinite(kl), fin)
+    assert float((kl[fin] - pl[fin]).abs().max()) <= tol
+
+
+def test_band_backward_kernel_raises(gen):
+    """The band's backward has no CUDA kernel yet: it raises, naming its
+    ROADMAP item, instead of falling back."""
+    q, k, v = (torch.randn(1, 2, 128, 64, generator=gen, device="cuda",
+                           requires_grad=True) for _ in range(3))
+    o = tflash.sliding_fa(q, k, v, 33, causal=True)
+    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
+        o.sum().backward()
+
+
 def _cache(dtype, lens, seed):
     cfg = CacheConfig(num_kv_heads=8, head_dim=128, page_size=64,
                       total_pages=1024, max_seqs=32, max_pages_per_seq=64,
@@ -63,7 +120,7 @@ def _cache(dtype, lens, seed):
     g = torch.Generator(device="cuda").manual_seed(seed)
     c = PagedKVCache.create(cfg, "cuda")
     perm = torch.randperm(1023, generator=g, device="cuda") + 1
-    c.page_tables[: len(lens), :16] = perm[: len(lens) * 16].reshape(-1, 16).int()
+    c.page_tables[: len(lens), :32] = perm[: len(lens) * 32].reshape(-1, 32).int()
     for s, n in enumerate(lens):
         c.write_prompt(s, torch.randn(8, n, 128, generator=g, device="cuda"),
                        torch.randn(8, n, 128, generator=g, device="cuda"))
@@ -102,6 +159,102 @@ def test_paged_kernels_match_plain(gen, dtype):
     assert kernels.LAUNCHES["paged_attention"] == before["paged_attention"] + 1
     assert float((ko.float() - po.float()).abs().max()) <= 2e-2
     assert float((kl - pl).abs().max()) <= 2e-2
+
+
+def _paged_pair(cache, q, slots, **kw):
+    """B2 on CUDA tensors and its plain version on the same tensors
+    (o, lse each)."""
+    args = (q, cache.k_pages, cache.v_pages, cache.k_scales, cache.v_scales,
+            slots, cache.lengths, cache.page_tables, 0, 64, torch.bfloat16,
+            True)
+    before = kernels.LAUNCHES["paged_attention"]
+    got = tpaged._paged_attention_kernel(*args, **kw)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["paged_attention"] == before + 1
+    return got, tpaged._paged_attention_plain(*args, **kw)
+
+
+def _assert_paged_close(got, want):
+    """o within 2e-2 (bf16 P either side, summation order); lse within
+    1e-4 where finite, with the same −inf lanes."""
+    (ko, kl), (po, pl) = got, want
+    assert float((ko.float() - po.float()).abs().max()) <= 2e-2
+    fin = torch.isfinite(pl)
+    assert torch.equal(torch.isfinite(kl), fin)
+    if fin.any():
+        assert float((kl[fin] - pl[fin]).abs().max()) <= 1e-4
+
+
+@pytest.mark.parametrize("dtype", ["int8", "bfloat16"])
+def test_paged_kernel_chunk_prefix_matches_plain(gen, dtype):
+    """B2 as chunked prefill calls it: 512 lanes of one slot (the shared
+    page table), per-lane positions 1536..2047, radius 512, a 1536-token
+    prefix; and the empty prefix of a first chunk, where every lane gives
+    o = 0, lse = −inf."""
+    c = _cache(dtype, [1536, 1], 2)
+    c.lengths[1] = 0
+    q = torch.randn(512, 8, 2, 128, generator=gen, device="cuda").bfloat16()
+    pos = torch.arange(1536, 2048, dtype=torch.int32, device="cuda")
+    for slot in (0, 1):
+        slots = torch.full((512,), slot, dtype=torch.int32, device="cuda")
+        got, want = _paged_pair(c, q, slots, positions=pos, radius=512)
+        _assert_paged_close(got, want)
+    assert torch.isneginf(got[1]).all() and (got[0] == 0).all()
+
+
+def test_paged_kernel_lengths_override_and_band_match_plain(gen):
+    """Per-lane visible lengths (with and without a band from their last
+    position), and a band start at or past a lane's keys."""
+    c = _cache("int8", [700, 300], 3)
+    slots = torch.tensor([0, 0, 0, 1], dtype=torch.int32, device="cuda")
+    vis = torch.tensor([640, 641, 700, 257], dtype=torch.int32, device="cuda")
+    q = torch.randn(4, 8, 2, 128, generator=gen, device="cuda").bfloat16()
+    _assert_paged_close(*_paged_pair(c, q, slots, lengths_override=vis))
+    _assert_paged_close(*_paged_pair(c, q, slots, lengths_override=vis,
+                                     positions=vis - 1, radius=100))
+    far = torch.tensor([900, 1000, 2000, 400], dtype=torch.int32,
+                       device="cuda")
+    got, want = _paged_pair(c, q, slots, positions=far, radius=200)
+    _assert_paged_close(got, want)
+    assert torch.isneginf(got[1][1:3]).all()
+
+
+def test_pipelined_decode_kernels_match_plain(gen):
+    """The pipelined decode at 16 lanes of 1100–2032 tokens with the
+    sliding band (radius 512) on the int8 cache: B3 then an uncapped B2 on
+    the card vs the plain path on a CPU copy of the same cache; cache
+    bytes equal."""
+    lens = (1100 + torch.randint(0, 932, (16,), generator=gen,
+                                 device="cuda")).tolist()
+    cfg = CacheConfig(num_kv_heads=8, head_dim=128, page_size=64,
+                      total_pages=1024, max_seqs=32, max_pages_per_seq=64,
+                      dtype="int8")
+    g = torch.Generator(device="cuda").manual_seed(4)
+    c = PagedKVCache.create(cfg, "cuda")
+    perm = torch.randperm(1023, generator=g, device="cuda") + 1
+    c.page_tables[:16, :32] = perm[:512].reshape(16, 32).int()
+    for s, n in enumerate(lens):
+        c.write_prompt(s, torch.randn(8, n, 128, generator=g, device="cuda"),
+                       torch.randn(8, n, 128, generator=g, device="cuda"))
+    cpu = PagedKVCache(*(None if t is None else t.cpu() for t in (
+        c.k_pages, c.v_pages, c.k_scales, c.v_scales, c.page_tables,
+        c.lengths)), config=cfg)
+    slots = torch.arange(16, dtype=torch.int32, device="cuda")
+    q = torch.randn(16, 16, 128, generator=g, device="cuda").bfloat16()
+    kn, vn = (torch.randn(16, 8, 128, generator=g, device="cuda").bfloat16()
+              for _ in range(2))
+    before = dict(kernels.LAUNCHES)
+    ko, kl, _ = tpaged.paged_attention_pipelined(
+        q, c, slots, new_kv=(kn, vn), radius=512, return_lse=True)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["paged_append"] == before["paged_append"] + 1
+    assert kernels.LAUNCHES["paged_attention"] == before["paged_attention"] + 1
+    po, pl, _ = tpaged.paged_attention_pipelined(
+        q.cpu(), cpu, slots.cpu(), new_kv=(kn.cpu(), vn.cpu()), radius=512,
+        return_lse=True)
+    for name in ("k_pages", "v_pages", "k_scales", "v_scales", "lengths"):
+        assert torch.equal(getattr(c, name).cpu(), getattr(cpu, name)), name
+    _assert_paged_close((ko.cpu(), kl.cpu()), (po, pl))
 
 
 def test_kernels_reject_what_they_do_not_take(gen):

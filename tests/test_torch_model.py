@@ -172,10 +172,25 @@ def test_decode_matches_teacher_forced_forward(params):
         toks.append(int(ref.argmax()))
 
 
+def test_sliding_forward_and_prefill_match_reference(params):
+    """attention="sliding" (window 9): forward logits and prefill's logits
+    and K/V within TOL of the reference's."""
+    jp, tp = params
+    jcfg = jtfm.ModelConfig(**{**_CFG, "attention": "sliding", "window": 9})
+    tcfg = ttfm.ModelConfig(**{**_CFG, "attention": "sliding", "window": 9})
+    toks = _tokens(4, 2, 30)
+    jl = jax.jit(lambda p, t: jtfm.forward(p, t, jcfg))(jp, jnp.asarray(toks))
+    tl = ttfm.forward(tp, torch.as_tensor(toks).long(), tcfg)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=TOL)
+    jl, jkv = jax.jit(lambda p, t: jtfm.prefill(p, t, jcfg))(
+        jp, jnp.asarray(toks[:1]))
+    tl, tkv = ttfm.prefill(tp, torch.as_tensor(toks[:1]).long(), tcfg)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=TOL)
+    np.testing.assert_allclose(tkv[1][0].numpy(), np.asarray(jkv[1][0]),
+                               atol=TOL)
+
+
 def test_unported_model_options_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP A3"):
-        ttfm.init_params(ttfm.ModelConfig(**{**_CFG, "attention": "sliding"}),
-                         torch.Generator(device="cpu"), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP A9"):
         ttfm.init_params(ttfm.ModelConfig(**{**_CFG, "moe_experts": 4}),
                          torch.Generator(device="cpu"), device="cpu")

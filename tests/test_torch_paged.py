@@ -203,12 +203,33 @@ def test_paged_attention_bf16_queries_without_append():
 
 
 @pytest.mark.parametrize("kw", [dict(radius=8), dict(shared_page_table=True),
-                                dict(lengths_override=torch.ones(1))])
+                                dict(lengths_override=np.array([3], np.int32))])
 def test_paged_unported_options_raise(kw):
-    _, tc = _seeded_caches("float32", [4], np.random.default_rng(6))
-    with pytest.raises(NotImplementedError, match="ROADMAP A5"):
-        tpaged.paged_attention(torch.zeros(1, KVH, D), tc,
-                               torch.zeros(1, dtype=torch.int32), **kw)
+    """radius, shared_page_table and lengths_override as the reference
+    takes them: the reference's o and lse on a 20-token slot (f32 pages:
+    1e-4), and its ValueError where the option meets new_kv (the band
+    alone has none)."""
+    rng = np.random.default_rng(6)
+    jc, tc = _seeded_caches("float32", [20], rng)
+    q = _rand(rng, 1, KVH, D)
+    slots = np.zeros(1, np.int32)
+    jkw = {k: jnp.asarray(v) if isinstance(v, np.ndarray) else v
+           for k, v in kw.items()}
+    tkw = {k: torch.as_tensor(v) if isinstance(v, np.ndarray) else v
+           for k, v in kw.items()}
+    jo, jl = jpaged.paged_attention(jnp.asarray(q), jc, jnp.asarray(slots),
+                                    return_lse=True, **jkw)
+    to, tl = tpaged.paged_attention(torch.as_tensor(q), tc,
+                                    torch.as_tensor(slots), return_lse=True,
+                                    **tkw)
+    np.testing.assert_allclose(to.numpy(), np.asarray(jo), atol=1e-4)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=1e-4)
+    if "radius" not in kw:
+        new = torch.zeros(1, KVH, D)
+        with pytest.raises(ValueError, match="pre-appended"):
+            tpaged.paged_attention(torch.as_tensor(q), tc,
+                                   torch.as_tensor(slots), new_kv=(new, new),
+                                   **tkw)
 
 
 @pytest.mark.parametrize("force_python", [False, True])

@@ -283,8 +283,8 @@ def test_flash_attention_quantized_route():
 
 
 @pytest.mark.parametrize("kw,err,match", [
-    (dict(schedule="local"), NotImplementedError, "ROADMAP A3"),
-    (dict(radius=8), NotImplementedError, "ROADMAP A3"),
+    (dict(schedule="local"), NotImplementedError, "ROADMAP A10"),
+    (dict(radius=8), NotImplementedError, "ROADMAP A10"),
     (dict(section=8), NotImplementedError, "ROADMAP A11"),
     (dict(kv_dtype="int4"), NotImplementedError, "ROADMAP A4"),
     (dict(q_dtype="float8_e4m3fn"), ValueError, "family"),

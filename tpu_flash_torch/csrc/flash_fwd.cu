@@ -3,8 +3,26 @@
 // Replaces tpu_flash/ops/flash.py:_fwd_kernel (launched by _flash_fwd), the
 // TPU kernel behind prefill: for each (batch·head row, q block) an online
 // base-2 softmax over the visited kv blocks, GQA through the kv-row map
-// (b // hq)·hkv + (b % hq) // g, the exact running max, o = 0 and
-// lse = -inf for fully masked rows, lse in natural-log units.
+// (b // hq)·hkv + (b % hq) // g, o = 0 and lse = -inf for fully masked
+// rows, lse in natural-log units. Two more TPU kernels fold into it:
+// _fwd_kernel_band (flash.py:380, the local band with its kv slab streamed
+// by a manual DMA) is the same band online softmax, kinds 2 and 3 below;
+// _fwd_kernel_t (flash.py:711, the d <= 64 transposed forward whose max IS
+// the norm bound) is the bound mode below at d 64.
+//
+// Schedules (kind): 0 dense; 1 causal, right-aligned (key j visible to
+// query i when j <= i + offset); 2 local, |i - j| <= radius, left-aligned;
+// 3 local_causal, the band and j <= i. A q tile walks the kv tiles from
+// max(0, q0 - radius) / BKV to min(last tile, (q_last + radius) / BKV),
+// stopping at q_last / BKV under local_causal (and at (q_last + offset) /
+// BKV under causal); a tile wholly inside the visible region skips the
+// per-element mask, as the reference's block_unmasked does.
+//
+// Running max: exact, or (kmax != null) the constant norm bound
+// m_i = ||q~_i|| * (max_j ||k_j|| * 1.0001), set once per row: no max pass,
+// alpha = 1, no rescale (the reference's bound_max). kmax holds max_j
+// ||k_j|| per kv row, one torch reduction in the wrapper, as the reference
+// computes it in XLA outside its kernel.
 //
 // Numerics mirror the reference: q arrives prescaled by scale·log2(e) in
 // float32 and cast back to its dtype (the wrapper does it); S = Q·Kᵀ
@@ -15,10 +33,11 @@
 //
 // What bounds it on an H100: at the serving prefill (n = 1024, d = 128,
 // 16 q heads) it is tensor-core FLOPs, 4·n²·d/2·heads ≈ 4.3 GFLOP causal
-// against ~33 MB of q/k/v/o traffic, far right of the ~295 FLOP/B ridge.
+// against ~33 MB of q/k/v/o traffic, far right of the ~295 FLOP/B ridge;
+// a band of radius 512 at n 2048 keeps about half of the causal work.
 // Design: one block of 4 warps per (64-row q tile, bh row); a loop inside
-// the block walks the kv tiles up to the causal limit (the TPU's sequential
-// grid axis). Q, K, V tiles sit in shared memory; bf16 Q·Kᵀ and P·V run on
+// the block walks the kv tiles of its range (the TPU's sequential grid
+// axis). Q, K, V tiles sit in shared memory; bf16 Q·Kᵀ and P·V run on
 // the tensor cores through WMMA 16×16×16 with float32 accumulators. Each
 // warp owns 16 q rows end to end (scores, softmax, accumulator), so the
 // softmax needs no block-wide barrier; the float32 accumulator lives in
@@ -42,15 +61,19 @@ constexpr int NTHREADS = NWARPS * 32;
 // DEFAULT_MASK_VALUE = -0.7 * float32 max, rounded to float32.
 constexpr float MASK = -0x1.666664p+127f;
 constexpr float LN2 = 0.693147180559945309f;
+constexpr float BOUND_SLACK = 1.0001f;  // the reference's factor
+enum Kind { DENSE = 0, CAUSAL = 1, LOCAL = 2, LOCAL_CAUSAL = 3 };
 
 template <typename T> struct Ty;
 template <> struct Ty<__nv_bfloat16> {
   static constexpr int PAD = 8;  // keeps rows 16 B aligned, shifts banks
   static __device__ __nv_bfloat16 t(float x) { return __float2bfloat16_rn(x); }
+  static __device__ float f(__nv_bfloat16 x) { return __bfloat162float(x); }
 };
 template <> struct Ty<float> {
   static constexpr int PAD = 4;
   static __device__ float t(float x) { return x; }
+  static __device__ float f(float x) { return x; }
 };
 
 template <typename T, int HD> struct Smem {
@@ -86,6 +109,19 @@ __device__ void load_tile(T* dst, int ld, const T* src, int row0, int n,
       val = *reinterpret_cast<const uint4*>(src + (size_t)(row0 + r) * HD + c);
     *reinterpret_cast<uint4*>(dst + r * ld + c) = val;
   }
+}
+
+// key kpos visible to query qpos under the schedule
+__device__ bool visible(int kind, int qpos, int kpos, int n_kv, int offset,
+                        int radius) {
+  if (kpos >= n_kv) return false;
+  if (kind == CAUSAL) return kpos <= qpos + offset;
+  if (kind == LOCAL || kind == LOCAL_CAUSAL) {
+    const int dist = qpos - kpos;
+    if (dist > radius || -dist > radius) return false;
+    if (kind == LOCAL_CAUSAL) return kpos <= qpos;
+  }
+  return true;
 }
 
 __device__ float warp_max(float x) {
@@ -166,8 +202,9 @@ template <typename T, int HD>
 __global__ void __launch_bounds__(NTHREADS)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ o,
-                 float* __restrict__ lse, int n_q, int n_kv, int hq, int hkv,
-                 int causal, int offset) {
+                 float* __restrict__ lse, const float* __restrict__ kmax,
+                 int n_q, int n_kv, int hq, int hkv, int kind, int offset,
+                 int radius) {
   using S = Smem<T, HD>;
   extern __shared__ __align__(128) unsigned char smem[];
   T* qs = reinterpret_cast<T*>(smem + S::q_off);
@@ -181,11 +218,13 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int q0 = blockIdx.x * BQ;
+  const int q_last = min(q0 + BQ - 1, n_q - 1);
   const int b = blockIdx.y;
   const int kv_row = (b / hq) * hkv + (b % hq) / (hq / hkv);
   const T* qb = q + (size_t)b * n_q * HD;
   const T* kb = k + (size_t)kv_row * n_kv * HD;
   const T* vb = v + (size_t)kv_row * n_kv * HD;
+  const bool bound = kmax != nullptr;
 
   load_tile<T, HD>(qs, S::LDQ, qb, q0, n_q, BQ);
   for (int i = threadIdx.x; i < BQ * S::LDO; i += NTHREADS) os[i] = 0.0f;
@@ -193,18 +232,42 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     ms[i] = MASK;
     ls[i] = 0.0f;
   }
-
-  // kv tiles to visit: all of them, or up to the last key visible to the
-  // tile's last real query (CausalSchedule._last_step, right-aligned).
-  int steps = (n_kv + BKV - 1) / BKV;
-  if (causal) {
-    int last_q = min(q0 + BQ - 1, n_q - 1);
-    int last_k = last_q + offset;
-    steps = last_k < 0 ? 0 : min(steps, last_k / BKV + 1);
+  if (bound) {
+    // each warp sets its own rows' constant max from the staged q tile
+    __syncthreads();
+    const float kbound = kmax[kv_row] * BOUND_SLACK;
+    for (int r = warp * 16; r < warp * 16 + 16; ++r) {
+      float sq = 0.0f;
+      for (int c = lane; c < HD; c += 32) {
+        const float x = Ty<T>::f(qs[r * S::LDQ + c]);
+        sq = fmaf(x, x, sq);
+      }
+      sq = warp_sum(sq);
+      if (lane == 0) ms[r] = sqrtf(sq) * kbound;
+    }
   }
 
-  for (int s = 0; s < steps; ++s) {
-    const int k0 = s * BKV;
+  // kv tiles [first, last] of this q tile (inclusive; last < first: none)
+  int first = 0, last = (n_kv + BKV - 1) / BKV - 1;
+  if (kind == CAUSAL) {
+    const int last_k = q_last + offset;
+    last = last_k < 0 ? -1 : min(last, last_k / BKV);
+  } else if (kind == LOCAL || kind == LOCAL_CAUSAL) {
+    first = max(0, q0 - radius) / BKV;
+    last = min(last, (q_last + radius) / BKV);
+    if (kind == LOCAL_CAUSAL) last = min(last, q_last / BKV);
+  }
+
+  for (int s = first; s <= last; ++s) {
+    const int k0 = s * BKV, k_hi = k0 + BKV - 1;
+    // tile wholly visible to every real query row: no per-element mask
+    bool full = k_hi < n_kv;
+    if (kind == CAUSAL) {
+      full = full && k_hi <= q0 + offset;
+    } else if (kind == LOCAL || kind == LOCAL_CAUSAL) {
+      full = full && k_hi - q0 <= radius && q_last - k0 <= radius;
+      if (kind == LOCAL_CAUSAL) full = full && k_hi <= q0;
+    }
     __syncthreads();  // previous step done with ks/vs (and init visible)
     load_tile<T, HD>(ks, S::LDQ, kb, k0, n_kv, BKV);
     load_tile<T, HD>(vs, S::LDQ, vb, k0, n_kv, BKV);
@@ -216,14 +279,16 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       float sv[BKV / 32];
       float mx = MASK;
       for (int j = 0; j < BKV / 32; ++j) {
-        const int c = lane + 32 * j, kpos = k0 + c;
-        const bool seen = kpos < n_kv && (!causal || kpos <= qpos + offset);
+        const int c = lane + 32 * j;
+        const bool seen =
+            full || visible(kind, qpos, k0 + c, n_kv, offset, radius);
         sv[j] = seen ? ss[r * S::LDS + c] : MASK;
         mx = fmaxf(mx, sv[j]);
       }
       const float m_prev = ms[r];
-      const float m_next = fmaxf(m_prev, warp_max(mx));
-      const float alpha = exp2f(m_prev - m_next);
+      // the norm bound is constant: no max pass, alpha = 1, no rescale
+      const float m_next = bound ? m_prev : fmaxf(m_prev, warp_max(mx));
+      const float alpha = bound ? 1.0f : exp2f(m_prev - m_next);
       float psum = 0.0f;
       for (int j = 0; j < BKV / 32; ++j) {
         const float p = exp2f(sv[j] - m_next);
@@ -231,7 +296,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
         ps[r * S::LDP + lane + 32 * j] = Ty<T>::t(p);
       }
       psum = warp_sum(psum);
-      for (int c = lane; c < HD; c += 32) os[r * S::LDO + c] *= alpha;
+      if (!bound)
+        for (int c = lane; c < HD; c += 32) os[r * S::LDO + c] *= alpha;
       __syncwarp();
       if (lane == 0) {
         ms[r] = m_next;
@@ -243,7 +309,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     __syncwarp();
   }
 
-  __syncwarp();
+  __syncthreads();  // init visible to every warp also when no tile ran
   for (int r = warp * 16; r < warp * 16 + 16; ++r) {
     const int qpos = q0 + r;
     if (qpos >= n_q) break;
@@ -259,8 +325,9 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 template <typename T, int HD>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   float* lse, int bh, int n_q, int n_kv, int hq, int hkv,
-                   int causal, int offset, cudaStream_t stream) {
+                   float* lse, const float* kmax, int bh, int n_q, int n_kv,
+                   int hq, int hkv, int kind, int offset, int radius,
+                   cudaStream_t stream) {
   auto kern = flash_fwd_kernel<T, HD>;
   const size_t smem = Smem<T, HD>::bytes;
   cudaError_t err =
@@ -269,28 +336,37 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   dim3 grid((n_q + BQ - 1) / BQ, bh);
   kern<<<grid, NTHREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), lse, n_q, n_kv, hq, hkv, causal, offset);
+      static_cast<T*>(o), lse, kmax, n_q, n_kv, hq, hkv, kind, offset, radius);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // q: (bh, n_q, d) prescaled; k, v: (bh / hq · hkv, n_kv, d); o like q;
-// lse: (bh, n_q) float32 or null. All contiguous, 16-byte aligned.
-// dtype: 0 = float32, 1 = bfloat16. d ∈ {64, 128}.
+// lse: (bh, n_q) float32 or null; kmax: (bh / hq · hkv,) float32 max key
+// norm per kv row for the norm-bound max, or null for the exact max. All
+// contiguous, 16-byte aligned. kind: 0 dense, 1 causal (offset), 2 local,
+// 3 local_causal (radius). dtype: 0 = float32, 1 = bfloat16. d ∈ {64, 128}.
 extern "C" cudaError_t tf_flash_fwd(const void* q, const void* k, const void* v,
-                                    void* o, float* lse, int bh, int n_q,
-                                    int n_kv, int hq, int hkv, int d, int causal,
-                                    int offset, int dtype, cudaStream_t stream) {
+                                    void* o, float* lse, const float* kmax,
+                                    int bh, int n_q, int n_kv, int hq, int hkv,
+                                    int d, int kind, int offset, int radius,
+                                    int dtype, cudaStream_t stream) {
   if (bh <= 0 || n_q <= 0) return cudaSuccess;
-  if (hkv <= 0 || hq % hkv != 0) return cudaErrorInvalidValue;
+  if (hkv <= 0 || hq % hkv != 0 || kind < DENSE || kind > LOCAL_CAUSAL ||
+      radius < 0)
+    return cudaErrorInvalidValue;
   if (dtype == 1 && d == 128)
-    return launch<__nv_bfloat16, 128>(q, k, v, o, lse, bh, n_q, n_kv, hq, hkv, causal, offset, stream);
+    return launch<__nv_bfloat16, 128>(q, k, v, o, lse, kmax, bh, n_q, n_kv, hq, hkv,
+                                      kind, offset, radius, stream);
   if (dtype == 1 && d == 64)
-    return launch<__nv_bfloat16, 64>(q, k, v, o, lse, bh, n_q, n_kv, hq, hkv, causal, offset, stream);
+    return launch<__nv_bfloat16, 64>(q, k, v, o, lse, kmax, bh, n_q, n_kv, hq, hkv,
+                                     kind, offset, radius, stream);
   if (dtype == 0 && d == 128)
-    return launch<float, 128>(q, k, v, o, lse, bh, n_q, n_kv, hq, hkv, causal, offset, stream);
+    return launch<float, 128>(q, k, v, o, lse, kmax, bh, n_q, n_kv, hq, hkv, kind,
+                              offset, radius, stream);
   if (dtype == 0 && d == 64)
-    return launch<float, 64>(q, k, v, o, lse, bh, n_q, n_kv, hq, hkv, causal, offset, stream);
+    return launch<float, 64>(q, k, v, o, lse, kmax, bh, n_q, n_kv, hq, hkv, kind,
+                             offset, radius, stream);
   return cudaErrorInvalidValue;
 }

@@ -6,6 +6,18 @@
 // reference's fused append of the new token runs as the separate B3 launch
 // (paged_append.cu) just before this one on the same stream; len_add = 1
 // then makes the new token part of the view, as in the fused kernel.
+// Also replaces tpu_flash/ops/paged.py:_pipe_kernel (launched by
+// paged_attention_pipelined): its hand-pipelined DMA loop walks exactly
+// the lane's own pages, which this walk does when pages_bound does not
+// cap it, and its rank-1 append is the same function as B3 then B2.
+//
+// Each lane sees keys [start, len): len is lengths_override[lane] when
+// given, else lengths[slot] + len_add; start is 0, or under a band
+// (radius >= 0) max(qpos - radius, 0) with qpos = positions[lane] when
+// given, else len - 1. The walk starts at page start / page and covers at
+// most pages_bound pages (the wrapper caps it at the band's page count);
+// a lane with no visible key (an empty chunk prefix, start >= len) gives
+// o = 0 and lse = -inf, the weight-0 partial that merge_partials expects.
 //
 // Numerics mirror the reference: q arrives prescaled by scale·log2(e) and
 // cast to bf16 whatever the model dtype; K/V page values are cast to bf16
@@ -20,17 +32,17 @@
 // per layer for an int8 cache, ~35 MB for bf16) for ~2 FLOP per byte, so
 // the ceiling is 3.35 TB/s and the tensor cores have nothing to do.
 // Design: one block per (lane, kv head) — 128 blocks at the serving batch
-// of 16 and 8 kv heads, about one per SM — so all G = hq/hkv query rows of
-// a kv head share one read of each page. Each page step first stages the
+// of 16 and 8 kv heads, about one per SM; 4096 blocks when a 512-token
+// prefill chunk rides the lanes — so all G = hq/hkv query rows of a kv
+// head share one read of each page. Each page step first stages the
 // page's visible K and V rows in shared memory as bf16, every thread
 // issuing 16-byte loads at once, so a page costs one memory round trip
 // (a first version that let each warp load its own rows serially spent
 // ~0.17 ms on the serving shape). Then one thread per (row, query row)
 // takes a dot product, one warp per query row does the online softmax,
-// and each thread owns one output column of P·V. The walk stops at
-// min(pages of the lane, pages_bound), as the reference's grid does.
-// Overlapping the next page's loads with this page's math (cp.async or a
-// TMA ring) is later work.
+// and each thread owns one output column of P·V. Overlapping the next
+// page's loads with this page's math (cp.async or a TMA ring) is later
+// work.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -63,6 +75,23 @@ size_t smem_bytes(int hd, int page, int g) {
          sizeof(float) * g * (hd + page);
 }
 
+// the launch's operands, passed down the dtype dispatch in one piece
+struct Args {
+  const void* q;
+  const void* kp;
+  const void* vp;
+  const float* ks;
+  const float* vs;
+  const int* slots;
+  const int* lengths;
+  const int* lengths_override;
+  const int* positions;
+  const int* tables;
+  void* out;
+  float* lse;
+  int b, kvh, g, page, total, maxp, bound, len_add, radius;
+};
+
 __device__ float warp_max(float x) {
   for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
   return x;
@@ -81,10 +110,12 @@ paged_attention_kernel(const __nv_bfloat16* __restrict__ q,
                        const float* __restrict__ v_scales,
                        const int* __restrict__ slots,
                        const int* __restrict__ lengths,
+                       const int* __restrict__ lengths_override,
+                       const int* __restrict__ positions,
                        const int* __restrict__ page_tables, TO* __restrict__ out,
                        float* __restrict__ lse, int kvh, int g_rows, int page,
                        int total_pages, int max_pages, int pages_bound,
-                       int len_add) {
+                       int len_add, int radius) {
   constexpr int KP = pitch(HD);
   extern __shared__ __align__(16) unsigned char smem[];
   __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem);  // page × KP
@@ -96,9 +127,13 @@ paged_attention_kernel(const __nv_bfloat16* __restrict__ q,
   const int b = blockIdx.x, h = blockIdx.y;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int slot = slots[b];
-  const int len = lengths[slot] + len_add;
+  const int len = lengths_override != nullptr ? lengths_override[b]
+                                              : lengths[slot] + len_add;
+  const int qpos = positions != nullptr ? positions[b] : len - 1;
+  const int start = radius >= 0 ? max(qpos - radius, 0) : 0;
+  const int start_pg = start / page;
   const int n_pages = (len + page - 1) / page;
-  const int steps = min(n_pages, pages_bound);
+  const int steps = min(n_pages - start_pg, pages_bound);  // <= 0: no key
   const int last = min(max(n_pages, 1) - 1, max_pages - 1);
   const int* table = page_tables + (size_t)slot * max_pages;
   const size_t qrow = ((size_t)b * kvh + h) * g_rows;
@@ -116,16 +151,20 @@ paged_attention_kernel(const __nv_bfloat16* __restrict__ q,
   constexpr int VEC = 16 / sizeof(TC);  // elements per 16-byte load
   constexpr int CH = HD / VEC;          // 16-byte loads per row
   for (int i = 0; i < steps; ++i) {
-    const int phys = table[min(i, last)];
+    const int logical = start_pg + i;
+    const int phys = table[min(logical, last)];
     const size_t row0 = ((size_t)h * total_pages + phys) * page;
-    const int n_seen = min(page, len - i * page);
+    // visible rows [lo, hi) of this page: after the band start, before len
+    const int lo = max(0, start - logical * page);
+    const int hi = min(page, len - logical * page);
+    const int n_rows = max(hi - lo, 0);
     __syncthreads();  // previous step done with ks/vs/ss (and q visible)
     // stage the page's visible K and V rows in shared memory as bf16: every
     // thread issues its 16-byte loads at once, one memory round trip a page
-    for (int idx = tid; idx < 2 * n_seen * CH; idx += NTHREADS) {
-      const bool is_v = idx >= n_seen * CH;
-      const int j = is_v ? idx - n_seen * CH : idx;
-      const int r = j / CH, c = (j % CH) * VEC;
+    for (int idx = tid; idx < 2 * n_rows * CH; idx += NTHREADS) {
+      const bool is_v = idx >= n_rows * CH;
+      const int j = is_v ? idx - n_rows * CH : idx;
+      const int r = lo + j / CH, c = (j % CH) * VEC;
       const uint4 raw = *reinterpret_cast<const uint4*>(
           (is_v ? v_pages : k_pages) + (row0 + r) * HD + c);
       const TC* e = reinterpret_cast<const TC*>(&raw);
@@ -140,7 +179,7 @@ paged_attention_kernel(const __nv_bfloat16* __restrict__ q,
     for (int w = tid; w < page * g_rows; w += NTHREADS) {
       const int r = w % page, g = w / page;
       float sv = MASK;
-      if (r < n_seen) {
+      if (r >= lo && r < hi) {
         const __nv_bfloat16* kr = ks + r * KP;
         const float* qg = qs + g * HD;
         float dot = 0.0f;
@@ -168,8 +207,8 @@ paged_attention_kernel(const __nv_bfloat16* __restrict__ q,
       for (int r = lane; r < page; r += 32) {
         const float p = exp2f(sg[r] - m_next);
         psum += p;
-        const float vsc =
-            (v_scales != nullptr && r < n_seen) ? v_scales[row0 + r] : 1.0f;
+        const float vsc = (v_scales != nullptr && r >= lo && r < hi)
+                              ? v_scales[row0 + r] : 1.0f;
         sg[r] = as_bf16(p * vsc);
       }
       psum = warp_sum(psum);
@@ -186,7 +225,7 @@ paged_attention_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
       for (int g = 0; g < MAX_G; ++g)
         if (g < g_rows) acc[g] *= als[g];
-      for (int r = 0; r < n_seen; ++r) {
+      for (int r = lo; r < hi; ++r) {
         const float vv = __bfloat162float(vs[r * KP + tid]);
 #pragma unroll
         for (int g = 0; g < MAX_G; ++g)
@@ -195,6 +234,7 @@ paged_attention_kernel(const __nv_bfloat16* __restrict__ q,
     }
   }
 
+  __syncthreads();  // m, l visible to every thread (also when no step ran)
   if (tid < HD) {
 #pragma unroll
     for (int g = 0; g < MAX_G; ++g) {
@@ -212,57 +252,36 @@ paged_attention_kernel(const __nv_bfloat16* __restrict__ q,
 }
 
 template <typename TC, typename TO, int HD>
-cudaError_t launch(const void* q, const void* kp, const void* vp,
-                   const float* ks, const float* vs, const int* slots,
-                   const int* lengths, const int* tables, void* out,
-                   float* lse, int b, int kvh, int g, int page, int total,
-                   int maxp, int bound, int len_add, cudaStream_t stream) {
+cudaError_t launch(const Args& a, cudaStream_t stream) {
   auto kern = paged_attention_kernel<TC, TO, HD>;
-  const size_t smem = smem_bytes(HD, page, g);
+  const size_t smem = smem_bytes(HD, a.page, a.g);
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  dim3 grid(b, kvh);
+  dim3 grid(a.b, a.kvh);
   kern<<<grid, NTHREADS, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const TC*>(kp),
-      static_cast<const TC*>(vp), ks, vs, slots, lengths, tables,
-      static_cast<TO*>(out), lse, kvh, g, page, total, maxp, bound, len_add);
+      static_cast<const __nv_bfloat16*>(a.q), static_cast<const TC*>(a.kp),
+      static_cast<const TC*>(a.vp), a.ks, a.vs, a.slots, a.lengths,
+      a.lengths_override, a.positions, a.tables, static_cast<TO*>(a.out),
+      a.lse, a.kvh, a.g, a.page, a.total, a.maxp, a.bound, a.len_add,
+      a.radius);
   return cudaGetLastError();
 }
 
 template <typename TC, typename TO>
-cudaError_t by_dim(int d, const void* q, const void* kp, const void* vp,
-                   const float* ks, const float* vs, const int* slots,
-                   const int* lengths, const int* tables, void* out, float* lse,
-                   int b, int kvh, int g, int page, int total, int maxp,
-                   int bound, int len_add, cudaStream_t stream) {
-  if (d == 128)
-    return launch<TC, TO, 128>(q, kp, vp, ks, vs, slots, lengths, tables, out, lse,
-                               b, kvh, g, page, total, maxp, bound, len_add, stream);
-  if (d == 64)
-    return launch<TC, TO, 64>(q, kp, vp, ks, vs, slots, lengths, tables, out, lse,
-                              b, kvh, g, page, total, maxp, bound, len_add, stream);
+cudaError_t by_dim(int d, const Args& a, cudaStream_t stream) {
+  if (d == 128) return launch<TC, TO, 128>(a, stream);
+  if (d == 64) return launch<TC, TO, 64>(a, stream);
   return cudaErrorInvalidValue;
 }
 
 template <typename TO>
-cudaError_t by_cache(int cache_dtype, int d, const void* q, const void* kp,
-                     const void* vp, const float* ks, const float* vs,
-                     const int* slots, const int* lengths, const int* tables,
-                     void* out, float* lse, int b, int kvh, int g, int page,
-                     int total, int maxp, int bound, int len_add,
+cudaError_t by_cache(int cache_dtype, int d, const Args& a,
                      cudaStream_t stream) {
   switch (cache_dtype) {
-    case 0:
-      return by_dim<float, TO>(d, q, kp, vp, ks, vs, slots, lengths, tables, out, lse,
-                               b, kvh, g, page, total, maxp, bound, len_add, stream);
-    case 1:
-      return by_dim<__nv_bfloat16, TO>(d, q, kp, vp, ks, vs, slots, lengths, tables,
-                                       out, lse, b, kvh, g, page, total, maxp, bound,
-                                       len_add, stream);
-    case 2:
-      return by_dim<int8_t, TO>(d, q, kp, vp, ks, vs, slots, lengths, tables, out, lse,
-                                b, kvh, g, page, total, maxp, bound, len_add, stream);
+    case 0: return by_dim<float, TO>(d, a, stream);
+    case 1: return by_dim<__nv_bfloat16, TO>(d, a, stream);
+    case 2: return by_dim<int8_t, TO>(d, a, stream);
   }
   return cudaErrorInvalidValue;
 }
@@ -272,28 +291,27 @@ cudaError_t by_cache(int cache_dtype, int d, const void* q, const void* kp,
 // q: (b, kvh, g, d) bf16 prescaled; k/v pages: (kvh, total, page, d) of
 // cache_dtype (0 float32, 1 bf16, 2 int8); scales: (kvh, total, page) f32
 // for int8, else null; slots (b,), lengths (max_seqs,), page_tables
-// (max_seqs, max_pages) int32; out: (b, kvh, g, d) of out_dtype (0 float32,
-// 1 bf16); lse: (b, kvh, g) float32 or null. Lane i sees keys
-// [0, lengths[slots[i]] + len_add). All contiguous.
+// (max_seqs, max_pages) int32; lengths_override and positions: (b,) int32
+// or null; radius: the band radius, or -1 for none; out: (b, kvh, g, d) of
+// out_dtype (0 float32, 1 bf16); lse: (b, kvh, g) float32 or null. Lane i
+// sees keys [start_i, len_i) as the kernel's note says. All contiguous.
 extern "C" cudaError_t tf_paged_attention(
     const void* q, const void* k_pages, const void* v_pages,
     const float* k_scales, const float* v_scales, const int* slots,
-    const int* lengths, const int* page_tables, void* out, float* lse, int b,
-    int kvh, int g, int d, int page, int total_pages, int max_pages,
-    int pages_bound, int len_add, int cache_dtype, int out_dtype,
+    const int* lengths, const int* lengths_override, const int* positions,
+    const int* page_tables, void* out, float* lse, int b, int kvh, int g,
+    int d, int page, int total_pages, int max_pages, int pages_bound,
+    int len_add, int radius, int cache_dtype, int out_dtype,
     cudaStream_t stream) {
   if (b <= 0) return cudaSuccess;
   if (g < 1 || g > MAX_G || page < 1 || page > MAX_PAGE || max_pages < 1 ||
+      radius < -1 ||
       (cache_dtype == 2) != (k_scales != nullptr && v_scales != nullptr))
     return cudaErrorInvalidValue;
-  if (out_dtype == 0)
-    return by_cache<float>(cache_dtype, d, q, k_pages, v_pages, k_scales, v_scales,
-                           slots, lengths, page_tables, out, lse, b, kvh, g, page,
-                           total_pages, max_pages, pages_bound, len_add, stream);
-  if (out_dtype == 1)
-    return by_cache<__nv_bfloat16>(cache_dtype, d, q, k_pages, v_pages, k_scales,
-                                   v_scales, slots, lengths, page_tables, out, lse, b,
-                                   kvh, g, page, total_pages, max_pages, pages_bound,
-                                   len_add, stream);
+  const Args a{q, k_pages, v_pages, k_scales, v_scales, slots, lengths,
+               lengths_override, positions, page_tables, out, lse, b, kvh, g,
+               page, total_pages, max_pages, pages_bound, len_add, radius};
+  if (out_dtype == 0) return by_cache<float>(cache_dtype, d, a, stream);
+  if (out_dtype == 1) return by_cache<__nv_bfloat16>(cache_dtype, d, a, stream);
   return cudaErrorInvalidValue;
 }

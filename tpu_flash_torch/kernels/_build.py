@@ -33,13 +33,14 @@ _lib = None
 _vp, _i32 = ctypes.c_void_p, ctypes.c_int
 # Each entry point returns cudaError_t (an int); 0 is success.
 _SIGNATURES = {
-    # q, k, v, o, lse, bh_q, n_q, n_kv, hq, hkv, d, causal, offset,
-    # dtype, stream
-    "tf_flash_fwd": [_vp] * 5 + [_i32] * 9 + [_vp],
-    # q, k_pages, v_pages, k_scales, v_scales, slots, lengths, page_tables,
-    # out, lse, b, kvh, g, d, page, total_pages, max_pages, pages_bound,
-    # len_add, cache_dtype, out_dtype, stream
-    "tf_paged_attention": [_vp] * 10 + [_i32] * 11 + [_vp],
+    # q, k, v, o, lse, kmax, bh_q, n_q, n_kv, hq, hkv, d, kind, offset,
+    # radius, dtype, stream
+    "tf_flash_fwd": [_vp] * 6 + [_i32] * 10 + [_vp],
+    # q, k_pages, v_pages, k_scales, v_scales, slots, lengths,
+    # lengths_override, positions, page_tables, out, lse, b, kvh, g, d,
+    # page, total_pages, max_pages, pages_bound, len_add, radius,
+    # cache_dtype, out_dtype, stream
+    "tf_paged_attention": [_vp] * 12 + [_i32] * 12 + [_vp],
     # k_new, v_new, k_pages, v_pages, k_scales, v_scales, slots, lengths,
     # page_tables, b, kvh, d, page, total_pages, max_pages, in_dtype,
     # cache_dtype, stream

@@ -4,4 +4,5 @@ from tpu_flash_torch.models.transformer import (
     forward,
     init_params,
     prefill,
+    prefill_chunk,
 )

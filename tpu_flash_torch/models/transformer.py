@@ -1,18 +1,19 @@
 """Llama-style transformer LM: port of ``tpu_flash/models/transformer.py``.
 
-RMSNorm → GQA attention (prefill and training through the causal flash
-kernels, forward B1 and backward B4/B5; decode through the paged kernels) →
-dense SwiGLU, RoPE positions, tied embeddings.
+RMSNorm → GQA attention (prefill and training through the flash kernels,
+forward B1 and backward B4/B5; decode and the chunk prefix through the
+paged kernels) → dense SwiGLU, RoPE positions, tied embeddings. Causal or
+sliding-window attention (``attention="sliding"``: the local band of
+``window`` tokens in prefill, decode and chunked prefill alike).
 Parameters are a plain dict with the reference's tree and layouts
 (``x @ w`` with ``w`` shaped ``(in, out)``), so weights convert one to one
 (``utils/convert.py``). The reference's cast points are kept: norm, RoPE and
 SiLU run in float32 and cast back to ``x``'s dtype; logits are
 ``(x @ embed.T)`` in float32.
 
-Not ported yet: sliding attention (ROADMAP A3), MoE (A9), LoRA (A9),
-int8 weights (A6), tensor parallelism (A13), ``prefill_chunk`` and
-``decode_verify`` (A6), the pipelined decode kernel (A5), the MoE balance
-loss in ``loss_fn`` (A9).
+Not ported yet: MoE (ROADMAP A9), LoRA (A9), int8 weights (A6), tensor
+parallelism (A13), ``decode_verify`` (A6), the sliding band's backward
+(A8), the MoE balance loss in ``loss_fn`` (A9).
 """
 
 from __future__ import annotations
@@ -25,7 +26,8 @@ import torch
 import torch.nn.functional as F
 
 from tpu_flash_torch.ops import flash
-from tpu_flash_torch.ops.paged import paged_attention
+from tpu_flash_torch.ops.paged import paged_attention, paged_attention_pipelined
+from tpu_flash_torch.parallel.ring import merge_partials
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -41,14 +43,17 @@ class ModelConfig:
     mlp_hidden: Optional[int] = None
     rope_theta: float = 10000.0
     dtype: str = "bfloat16"
-    attention: str = "causal"  # causal (sliding: ROADMAP A3)
-    window: int = 1025
+    attention: str = "causal"  # causal | sliding
+    window: int = 1025  # odd; used when attention == "sliding"
     block_q: int = 256
     block_kv: int = 256
     moe_experts: int = 0  # >0: ROADMAP A9
     moe_top_k: int = 2
     moe_capacity_factor: float = 1.25
-    # Only the exact running max is ported: True raises (ROADMAP A3).
+    # Attention max: None = the flash kernels' auto policy (causal and the
+    # causal band keep the exact max), True = the norm bound (inference
+    # only). The engine pins False: the bound depends on the kv span each
+    # call sees, and chunked prefill must equal unchunked.
     attn_bound_max: Optional[bool] = None
 
     @property
@@ -72,10 +77,14 @@ class ModelConfig:
         return _DTYPES[self.dtype]
 
 
+def _radius(cfg: ModelConfig) -> Optional[int]:
+    """The sliding band's radius, or None for causal attention."""
+    return (cfg.window - 1) // 2 if cfg.attention == "sliding" else None
+
+
 def _check_ported(cfg: ModelConfig) -> None:
-    if cfg.attention != "causal":
-        raise NotImplementedError(
-            f"attention={cfg.attention!r} is not ported yet (ROADMAP A3)")
+    if cfg.attention not in ("causal", "sliding"):
+        raise ValueError(f"unknown attention {cfg.attention!r}")
     if cfg.moe_experts > 0:
         raise NotImplementedError("MoE MLPs are not ported yet (ROADMAP A9)")
 
@@ -161,7 +170,8 @@ def apply_rope(x, positions, theta):
 
 
 def _attn_full(q, k, v, cfg: ModelConfig, attn_fn=None):
-    """Full-sequence causal attention (training / prefill). q: (B, N, QH, D).
+    """Full-sequence attention (training / prefill), causal or the causal
+    sliding band. q: (B, N, QH, D).
 
     ``attn_fn``, when given, replaces the flash kernels with a custom
     function on (B, H, N, D) tensors whose k/v heads are repeated to match
@@ -173,6 +183,10 @@ def _attn_full(q, k, v, cfg: ModelConfig, attn_fn=None):
             kt = kt.repeat_interleave(g, dim=1)
             vt = vt.repeat_interleave(g, dim=1)
         o = attn_fn(qt, kt, vt)
+    elif cfg.attention == "sliding":
+        o = flash.sliding_fa(qt, kt, vt, cfg.window, causal=True,
+                             block_q=cfg.block_q, block_kv=cfg.block_kv,
+                             bound_max=cfg.attn_bound_max)
     else:
         o = flash.dense_fa(qt, kt, vt, causal=True, block_q=cfg.block_q,
                            block_kv=cfg.block_kv, bound_max=cfg.attn_bound_max)
@@ -212,7 +226,7 @@ def _positions(b: int, n: int, device) -> torch.Tensor:
 
 
 def forward(params, tokens, cfg: ModelConfig, positions=None, attn_fn=None):
-    """Full causal forward: tokens (B, N) int → logits (B, N, vocab) f32.
+    """Full forward: tokens (B, N) int → logits (B, N, vocab) f32.
     ``attn_fn``: see :func:`_attn_full`."""
     _check_ported(cfg)
     b, n = tokens.shape
@@ -253,6 +267,55 @@ def prefill(params, tokens, cfg: ModelConfig):
     return (x[:, -1] @ params["embed"].T).float(), kv
 
 
+def prefill_chunk(params, tokens, offset: int, true_len: int, caches,
+                  slot: int, cfg: ModelConfig, pages_bound=None):
+    """Process ONE page-aligned chunk of a prompt against the paged cache.
+
+    Per layer, the chunk attends the already-cached prefix through the
+    paged kernel (every chunk token rides a lane of the one slot, with its
+    own band start under a sliding window) before its K/V are written, and
+    itself through the flash kernel (causal, or the causal band); the two
+    partials merge with the (o, lse) algebra.
+
+    tokens: ``(1, C)`` ints, padded to the chunk bucket; ``offset`` is the
+    chunk's first position (page-aligned); ``true_len`` the number of real
+    tokens in it. Padded tail rows only attend earlier real keys, and
+    nothing attends them. The caches are updated in place. Returns
+    ``(logits (1, C, vocab) f32, greedy_last, caches)``: ``greedy_last``
+    is the argmax token after the last real position.
+    """
+    _check_ported(cfg)
+    b, c = tokens.shape
+    dev = tokens.device
+    positions = offset + torch.arange(c, dtype=torch.int32, device=dev)[None]
+    x = params["embed"][tokens]
+    radius = _radius(cfg)
+    slot_lanes = torch.full((c,), slot, dtype=torch.int32, device=dev)
+    for layer, cache in zip(params["layers"], caches):
+        q, k, v = _qkv(layer, x, positions, cfg)
+        # the prefix before the write: the slot's length is still
+        # ``offset``, so the paged kernel sees exactly [start, offset)
+        o1, lse1 = paged_attention(
+            q[0], cache, slot_lanes, radius=radius,
+            positions=None if radius is None else positions[0],
+            pages_bound=pages_bound, return_lse=True, shared_page_table=True)
+        o2, lse2 = flash.flash_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            schedule="causal" if radius is None else "local_causal",
+            radius=radius or 0, block_q=cfg.block_q, block_kv=cfg.block_kv,
+            return_lse=True, bound_max=cfg.attn_bound_max)
+        o, _ = merge_partials(o1.transpose(0, 1)[None].float(),
+                              lse1.transpose(0, 1)[None], o2.float(), lse2)
+        o = o.transpose(1, 2).to(x.dtype)  # (1, C, QH, D)
+        cache.write_chunk(slot, k[0].transpose(0, 1), v[0].transpose(0, 1),
+                          offset, valid_n=true_len)
+        x = x + _mm(o.reshape(b, c, -1), layer["wo"])
+        x = x + _mlp(layer, rmsnorm(x, layer["ln_mlp"]), cfg)
+    x = rmsnorm(x, params["ln_f"])
+    logits = (x @ params["embed"].T).float()
+    return logits, torch.argmax(logits[0, true_len - 1]), caches
+
+
 def decode_step(params, tokens, positions, caches, slots, cfg: ModelConfig,
                 pages_bound=None, pipelined=False):
     """One decode step over the paged caches.
@@ -260,23 +323,27 @@ def decode_step(params, tokens, positions, caches, slots, cfg: ModelConfig,
     tokens: (B,) new token ids; positions: (B,) their positions; caches:
     one PagedKVCache per layer; slots: (B,) int32 slot ids. Each layer
     appends the new token's K/V to its cache (in place, B3) before the
-    paged attention (B2), so the token attends to itself.
+    paged attention (B2), so the token attends to itself; a sliding model
+    attends only its band. ``pipelined=True`` takes the reference's
+    pipelined decode (``paged_attention_pipelined``: each lane walks
+    exactly its own pages; ``pages_bound`` is then ignored).
 
     Returns (logits (B, vocab) f32, caches).
     """
     _check_ported(cfg)
-    if pipelined:
-        raise NotImplementedError(
-            "the pipelined decode kernel (B12) is not ported yet (ROADMAP A5)")
     b = tokens.shape[0]
     x = params["embed"][tokens][:, None, :]  # (B, 1, dim)
     pos = positions[:, None]
+    radius = _radius(cfg)
     for layer, cache in zip(params["layers"], caches):
         q, k, v = _qkv(layer, x, pos, cfg)
-        o, _ = paged_attention(
-            q[:, 0], cache, slots, new_kv=(k[:, 0], v[:, 0]),
-            pages_bound=pages_bound,
-        )
+        new_kv = (k[:, 0], v[:, 0])
+        if pipelined:
+            o, _ = paged_attention_pipelined(q[:, 0], cache, slots,
+                                             new_kv=new_kv, radius=radius)
+        else:
+            o, _ = paged_attention(q[:, 0], cache, slots, new_kv=new_kv,
+                                   pages_bound=pages_bound, radius=radius)
         x = x + _mm(o.reshape(b, 1, -1), layer["wo"])
         x = x + _mlp(layer, rmsnorm(x, layer["ln_mlp"]), cfg)
     x = rmsnorm(x, params["ln_f"])

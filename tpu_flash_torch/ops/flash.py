@@ -1,34 +1,44 @@
-"""Fused attention forward (B1): port of ``flash_attention``/``dense_fa`` from
-``tpu_flash/ops/flash.py`` for the dense and causal schedules.
+"""Fused attention forward (B1): port of ``flash_attention``, ``dense_fa``
+and ``sliding_fa`` from ``tpu_flash/ops/flash.py`` for the dense, causal,
+local and local_causal schedules.
 
 Public layout ``(batch, heads, n, d)``, GQA through the kv-row map, lse in
 natural-log units, and a fully masked row gives o = 0, lse = −inf. The
 softmax is base 2: q is prescaled by ``scale·log2(e)`` in float32 and cast
 back to its dtype, scores accumulate in float32, P is cast to V's dtype
-before the PV product.
+before the PV product. The running max is exact, or with ``bound_max`` the
+constant norm bound ``‖q̃_i‖·max_j‖k_j‖·1.0001`` (no max pass, no rescale):
+the reference's B1 bound and its d ≤ 64 transposed kernel B9
+(``_fwd_kernel_t``) both compute that function, so B9 folds into B1 here,
+as the band kernel B11 (``_fwd_kernel_band``, the same local schedules with
+the kv band streamed by a manual DMA) does.
 
 :func:`_flash_fwd` dispatches on the tensors' device: CPU tensors take the
 plain PyTorch version :func:`_flash_fwd_plain`; CUDA tensors launch the
 hand-written kernel in ``csrc/flash_fwd.cu`` through
-:func:`_flash_fwd_kernel`, or raise. Only the exact running max is ported:
-``bound_max=True`` raises (ROADMAP A3).
+:func:`_flash_fwd_kernel`, or raise.
 
 :class:`_FlashAttention` makes the core differentiable, the counterpart of
 the reference's ``_fa`` custom VJP: its backward is
-``ops/flash_bwd.py:flash_backward`` (B4 + B5 on the card). The prescale of
-q and its cast stay outside it, so autograd puts ``scale·log2(e)`` on dq.
+``ops/flash_bwd.py:flash_backward`` (B4 + B5 on the card for the dense and
+causal schedules; the band backward is ROADMAP A8). The prescale of q and
+its cast stay outside it, so autograd puts ``scale·log2(e)`` on dq.
 """
 
 from __future__ import annotations
 
-import dataclasses
 import math
 from typing import Optional
 
 import torch
 
 from tpu_flash_torch import kernels
-from tpu_flash_torch.ops.schedule import CausalSchedule, Schedule, cdiv
+from tpu_flash_torch.ops.schedule import (
+    CausalSchedule,
+    LocalSchedule,
+    Schedule,
+    cdiv,
+)
 
 DEFAULT_MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 LOG2E = math.log2(math.e)
@@ -42,9 +52,14 @@ KERNEL_BLOCK_KV = 64
 # Options of the reference's flash_attention that are not ported yet, with
 # the ROADMAP item that adds them.
 _UNPORTED = {
-    "radius": "A3", "section": "A11", "shift": "A13", "wrap_n": "A13",
+    "section": "A11", "shift": "A13", "wrap_n": "A13",
     "shifted_causal": "A13", "bwd_split": "A8", "bwd_quant": "A8",
 }
+# the norm bound's slack over ‖q̃_i‖·max_j‖k_j‖ (the reference's factor)
+BOUND_SLACK = 1.0001
+# schedule kinds of csrc/flash_fwd.cu
+_KIND = {(Schedule, False): 0, (CausalSchedule, False): 1,
+         (LocalSchedule, False): 2, (LocalSchedule, True): 3}
 
 
 def _round_up(x: int, m: int) -> int:
@@ -56,17 +71,37 @@ def _pick_block(n: int, preferred: int) -> int:
 
 
 def build_schedule(schedule: str, n_q: int, n_kv: int, block_q: int,
-                   block_kv: int) -> Schedule:
-    """Pick blocks and build the Schedule (dense and causal only)."""
+                   block_kv: int, *, radius: int = 0) -> Schedule:
+    """Pick blocks and build the Schedule (dense, causal, local and
+    local_causal; ``radius`` bands the local ones)."""
     common = dict(n_q=n_q, n_kv=n_kv, block_q=_pick_block(n_q, block_q),
                   block_kv=_pick_block(n_kv, block_kv))
     if schedule == "dense":
         return Schedule(**common)
     if schedule == "causal":
         return CausalSchedule(**common)
+    if schedule in ("local", "local_causal"):
+        return LocalSchedule(**common, radius=radius,
+                             causal=schedule == "local_causal")
     raise NotImplementedError(
-        f"schedule {schedule!r} is not ported yet (ROADMAP A3 local/"
-        "local_causal, A11 block/circulant, A13 shifted)")
+        f"schedule {schedule!r} is not ported yet (ROADMAP A11 block/"
+        "circulant, A13 shifted)")
+
+
+def auto_bound_max(sched: Schedule) -> bool:
+    """The reference's default max policy (``ops/flash.py:1005-1007``): the
+    norm bound for mask-free dense and for non-causal bands, the exact
+    running max for causal and local_causal (and ragged dense)."""
+    band = isinstance(sched, LocalSchedule)
+    return (not sched.has_mask) or (band and not sched.causal)
+
+
+def key_norm_max(k: torch.Tensor) -> torch.Tensor:
+    """max_j ‖k_j‖ per kv row of ``(B·HKV, n_kv, d)`` k → ``(B·HKV,)``
+    float32: the key side of the norm bound, one torch reduction outside
+    the kernel as the reference computes it outside its kernel."""
+    kf = k.float()
+    return torch.sqrt(torch.amax(torch.sum(kf * kf, dim=-1), dim=-1))
 
 
 def _kv_rows(bh: int, hq: int, hkv: int, device) -> torch.Tensor:
@@ -75,13 +110,15 @@ def _kv_rows(bh: int, hq: int, hkv: int, device) -> torch.Tensor:
     return (rows // hq) * hkv + (rows % hq) // (hq // hkv)
 
 
-def _flash_fwd_plain(q, k, v, sched: Schedule, hq: int, hkv: int):
+def _flash_fwd_plain(q, k, v, sched: Schedule, hq: int, hkv: int,
+                     bound_max: bool = False):
     """Plain PyTorch forward on prescaled ``(B·HQ, n_q, d)`` q and
     ``(B·HKV, n_kv, d)`` k/v → (o in q's dtype, lse f32 ``(B·HQ, n_q)``).
 
     One full score matrix with the schedule's mask instead of the kernel's
-    online softmax: the max is the row's exact max either way, so the two
-    differ only by rounding.
+    online softmax: the max is the row's exact max either way (or the same
+    constant norm bound under ``bound_max``), so the two differ only by
+    rounding.
     """
     bh, n_q, _ = q.shape
     n_kv = k.shape[1]
@@ -92,7 +129,11 @@ def _flash_fwd_plain(q, k, v, sched: Schedule, hq: int, hkv: int):
                       torch.arange(n_kv, device=q.device)[None, :])
     if mask is not None:
         s = torch.where(mask, s, DEFAULT_MASK_VALUE)
-    m = s.amax(dim=-1, keepdim=True)
+    if bound_max:
+        qn = torch.sqrt(torch.sum(q.float() * q.float(), dim=-1, keepdim=True))
+        m = qn * (key_norm_max(k) * BOUND_SLACK)[rows][:, None, None]
+    else:
+        m = s.amax(dim=-1, keepdim=True)
     p = torch.exp2(s - m)
     l = p.sum(dim=-1, keepdim=True)
     acc = torch.einsum("bqk,bkd->bqd", p.to(v.dtype).float(), vq.float())
@@ -110,13 +151,15 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
 
 
 def _flash_fwd_kernel(q, k, v, sched: Schedule, hq: int, hkv: int,
-                      need_lse: bool):
+                      need_lse: bool, bound_max: bool = False):
     """Launch ``csrc/flash_fwd.cu`` on CUDA tensors (same contract as
     :func:`_flash_fwd_plain`). Ragged edges are masked in the kernel, so
-    nothing is padded."""
+    nothing is padded; the kernel takes the schedule's kind, causal offset
+    and band radius and walks its own 64×64 tiles."""
     from tpu_flash_torch.kernels import _build
 
-    if type(sched) not in (Schedule, CausalSchedule):
+    kind = _KIND.get((type(sched), getattr(sched, "causal", False)))
+    if kind is None:
         raise NotImplementedError(f"no CUDA kernel for {type(sched).__name__}")
     if not (q.is_cuda and k.device == q.device and v.device == q.device):
         raise ValueError("flash kernel: q, k, v must be on one CUDA device")
@@ -133,19 +176,17 @@ def _flash_fwd_kernel(q, k, v, sched: Schedule, hq: int, hkv: int,
     if bh % hq or k.shape[0] != bh // hq * hkv or v.shape[:2] != k.shape[:2]:
         raise ValueError(f"bad GQA shapes {q.shape} {k.shape} {v.shape}")
     q, k, v = _aligned(q), _aligned(k), _aligned(v)
-    # the kernel's grid and causal offset come from the schedule at its tile
-    ksched = dataclasses.replace(sched, block_q=KERNEL_BLOCK_Q,
-                                 block_kv=KERNEL_BLOCK_KV)
-    causal = isinstance(ksched, CausalSchedule)
+    kmax = key_norm_max(k) if bound_max else None
     o = torch.empty_like(q)
     lse = (torch.empty(bh, n_q, device=q.device, dtype=torch.float32)
            if need_lse else None)
     err = _build.library().tf_flash_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         None if lse is None else lse.data_ptr(),
-        bh, n_q, n_kv, hq, hkv, d, int(causal),
-        ksched._offset if causal else 0, kernels.dtype_code(q.dtype),
-        kernels.stream_handle(q),
+        None if kmax is None else kmax.data_ptr(),
+        bh, n_q, n_kv, hq, hkv, d, kind,
+        sched._offset if kind == 1 else 0, getattr(sched, "radius", 0),
+        kernels.dtype_code(q.dtype), kernels.stream_handle(q),
     )
     _build.check(err, "tf_flash_fwd")
     kernels.LAUNCHES["flash_fwd"] += 1
@@ -155,13 +196,13 @@ def _flash_fwd_kernel(q, k, v, sched: Schedule, hq: int, hkv: int,
 
 
 def _flash_fwd(q, k, v, sched: Schedule, *, hq: int = 1, hkv: int = 1,
-               need_lse: bool = True):
+               need_lse: bool = True, bound_max: bool = False):
     """(o, lse) on prescaled ``(B·H, n, d)`` tensors: the plain version for
     CPU tensors, the CUDA kernel for CUDA tensors."""
     if q.device.type == "cpu":
-        return _flash_fwd_plain(q, k, v, sched, hq, hkv)
+        return _flash_fwd_plain(q, k, v, sched, hq, hkv, bound_max)
     if q.device.type == "cuda":
-        return _flash_fwd_kernel(q, k, v, sched, hq, hkv, need_lse)
+        return _flash_fwd_kernel(q, k, v, sched, hq, hkv, need_lse, bound_max)
     raise NotImplementedError(f"no attention path for device {q.device}")
 
 
@@ -174,9 +215,10 @@ class _FlashAttention(torch.autograd.Function):
     zero one."""
 
     @staticmethod
-    def forward(ctx, q, k, v, sched, hq, hkv, need_lse):
+    def forward(ctx, q, k, v, sched, hq, hkv, need_lse, bound_max):
         ctx.set_materialize_grads(False)
-        o, lse = _flash_fwd(q, k, v, sched, hq=hq, hkv=hkv, need_lse=need_lse)
+        o, lse = _flash_fwd(q, k, v, sched, hq=hq, hkv=hkv, need_lse=need_lse,
+                            bound_max=bound_max)
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.sched, ctx.hq, ctx.hkv = sched, hq, hkv
         return o, lse
@@ -189,15 +231,16 @@ class _FlashAttention(torch.autograd.Function):
         do = torch.zeros_like(o) if do is None else _aligned(do)
         dq, dk, dv = flash_backward(q, k, v, o, lse, do, dlse, ctx.sched,
                                     hq=ctx.hq, hkv=ctx.hkv)
-        return dq, dk, dv, None, None, None, None
+        return dq, dk, dv, None, None, None, None, None
 
 
-def _fa(q, k, v, sched: Schedule, hq: int, hkv: int, need_lse: bool):
+def _fa(q, k, v, sched: Schedule, hq: int, hkv: int, need_lse: bool,
+        bound_max: bool = False):
     """(o, lse) through :class:`_FlashAttention`; lse is materialised when
     asked for or when a gradient will need it."""
     need_lse = need_lse or (torch.is_grad_enabled() and any(
         t.requires_grad for t in (q, k, v)))
-    return _FlashAttention.apply(q, k, v, sched, hq, hkv, need_lse)
+    return _FlashAttention.apply(q, k, v, sched, hq, hkv, need_lse, bound_max)
 
 
 def flash_attention(
@@ -207,6 +250,7 @@ def flash_attention(
     *,
     schedule: str = "dense",
     scale: Optional[float] = None,
+    radius: int = 0,
     block_q: Optional[int] = None,
     block_kv: Optional[int] = None,
     return_lse: bool = False,
@@ -218,7 +262,9 @@ def flash_attention(
 ):
     """Schedule-parameterized fused attention on ``(batch, heads, n, d)``.
 
-    ``schedule`` ∈ {"dense", "causal"}; k/v may have fewer heads (GQA).
+    ``schedule`` ∈ {"dense", "causal", "local", "local_causal"}; ``radius``
+    bands the local ones (query ``i`` sees keys ``|i − j| ≤ radius``); k/v
+    may have fewer heads (GQA).
     ``q_dtype``/``kv_dtype`` (int8 / float8 names or torch dtypes;
     ``kv_dtype`` alone is the weight-only mode) route to
     ``quant/flash_q.py:quantized_flash_attention`` (kernel B7, or B6 at
@@ -228,10 +274,12 @@ def flash_attention(
     ``block_q``/``block_kv`` set the schedule's blocks as in the reference
     (its padded lengths and its tile-visit math); the CUDA kernel runs its
     own 64×64 tiles and masks ragged edges, so no input is padded.
-    ``bound_max``: only the exact running max is ported; True raises
-    (ROADMAP A3). None takes the exact max where the reference's auto
-    policy would take the norm bound for mask-free dense — both are exact
-    softmax and differ only by rounding.
+    ``bound_max``: True takes the constant norm bound as the softmax max,
+    False the exact running max, None the reference's auto policy
+    (:func:`auto_bound_max`: the bound for mask-free dense and non-causal
+    bands). Both are exact online softmax; the bound depends on the kv span
+    a call sees, and rows whose bound exceeds their true max by ≳126 base-2
+    units underflow to o = 0, lse = −inf, as in the reference.
     """
     if q_dtype is not None or kv_dtype is not None:
         from tpu_flash_torch.quant.flash_q import quantized_flash_attention
@@ -245,7 +293,7 @@ def flash_attention(
         return quantized_flash_attention(
             q, k, v, q_dtype=q_dtype,
             kv_dtype=kv_dtype if kv_dtype is not None else q_dtype,
-            schedule=schedule, scale=scale,
+            schedule=schedule, scale=scale, radius=radius,
             block_q=1024 if block_q is None else block_q,
             block_kv=min(2048 if block_kv is None else block_kv, 2048),
             return_lse=return_lse,
@@ -258,10 +306,6 @@ def flash_attention(
         raise NotImplementedError(
             f"flash_attention({name}=...) is not ported yet "
             f"(ROADMAP {_UNPORTED[name]})")
-    if bound_max:
-        raise NotImplementedError(
-            "bound_max=True (norm-bound running max) is not ported yet "
-            "(ROADMAP A3)")
     if q.ndim != 4:
         raise ValueError(f"expected (batch, heads, n, d), got {tuple(q.shape)}")
     b, h, n_q, d = q.shape
@@ -275,25 +319,51 @@ def flash_attention(
         block_kv = 1024 if dense else 2048
     if scale is None:
         scale = 1.0 / math.sqrt(d)
-    sched = build_schedule(schedule, n_q, n_kv, block_q, block_kv)
+    sched = build_schedule(schedule, n_q, n_kv, block_q, block_kv,
+                           radius=radius)
+    if bound_max is None:
+        bound_max = auto_bound_max(sched)
     qf = (q.float() * (scale * LOG2E)).to(q.dtype).reshape(b * h, n_q, d)
     kf = k.reshape(b * hkv, n_kv, d)
     vf = v.reshape(b * hkv, n_kv, dv)
-    o, lse = _fa(qf, kf, vf, sched, h, hkv, return_lse)
+    o, lse = _fa(qf, kf, vf, sched, h, hkv, return_lse, bool(bound_max))
     o = o.reshape(b, h, n_q, dv)
     if return_lse:
         return o, lse.reshape(b, h, n_q)
     return o
 
 
-def dense_fa(q, k, v, *, scale=None, causal=False, return_lse=False, **kw):
-    """Dense fused attention on ``(batch, heads, n, d)``; N-d inputs are
-    not ported yet (ROADMAP A11)."""
+def _check_4d(q) -> None:
     if q.ndim != 4:
         raise NotImplementedError(
             "N-d (batch, *spatial, heads, d) inputs are not ported yet "
             "(ROADMAP A11)")
+
+
+def dense_fa(q, k, v, *, scale=None, causal=False, return_lse=False, **kw):
+    """Dense fused attention on ``(batch, heads, n, d)``; N-d inputs are
+    not ported yet (ROADMAP A11)."""
+    _check_4d(q)
     return flash_attention(
         q, k, v, schedule="causal" if causal else "dense", scale=scale,
         return_lse=return_lse, **kw,
+    )
+
+
+def sliding_fa(q, k, v, window_size: int, *, scale=None, causal=False,
+               return_lse=False, **kw):
+    """Sliding-window (local band) fused attention on ``(batch, heads, n,
+    d)``: query ``i`` sees keys ``|i − j| ≤ (window_size − 1)/2`` (and
+    ``j ≤ i`` when ``causal``). The window must be odd; the reference's
+    band tiles (512 × 1024) are the default blocks. N-d inputs are not
+    ported yet (ROADMAP A11)."""
+    if window_size % 2 != 1:
+        raise ValueError("sliding window must be odd")
+    kw.setdefault("block_q", 512)
+    kw.setdefault("block_kv", 1024)
+    _check_4d(q)
+    return flash_attention(
+        q, k, v, schedule="local_causal" if causal else "local",
+        radius=(window_size - 1) // 2, scale=scale, return_lse=return_lse,
+        **kw,
     )

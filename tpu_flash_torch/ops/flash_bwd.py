@@ -1,5 +1,7 @@
 """Flash-attention backward (B4 dQ, B5 dK/dV): port of ``flash_backward``
-from ``tpu_flash/ops/flash_bwd.py`` for the dense and causal schedules.
+from ``tpu_flash/ops/flash_bwd.py`` for the dense and causal schedules (the
+plain version also takes the local band through its mask; the band's CUDA
+backward is ROADMAP A8 and raises).
 
 Recompute-from-lse (FA-2) on prescaled ``(B·H, n, d)`` tensors: q carries
 the forward's ``scale·log2(e)``, so scores are base-2 and no scale appears
@@ -132,7 +134,9 @@ def _kernel_operands(q, k, v, o, lse, do, dlse, sched: Schedule, hq: int,
     """Check what the kernels take (or raise) and return the operands B4
     and B5 read: aligned q, k, v, dO and the float32 lse2 and Δ."""
     if type(sched) not in (Schedule, CausalSchedule):
-        raise NotImplementedError(f"no CUDA kernel for {type(sched).__name__}")
+        raise NotImplementedError(
+            f"no CUDA backward kernel for {type(sched).__name__}: the band "
+            "backward is not ported yet (ROADMAP A8)")
     ts = (q, k, v, o, lse, do)
     if not all(t.is_cuda and t.device == q.device for t in ts):
         raise ValueError("flash backward kernels: all operands must be on one "

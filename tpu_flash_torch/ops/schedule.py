@@ -1,11 +1,11 @@
 """Block schedules: which KV blocks each Q block visits, and in-block masks.
 
-Port of ``tpu_flash/ops/schedule.py`` for the dense and causal schedules.
-The block-visit math is host-side Python on ints; :meth:`Schedule.mask`
-takes torch tensors of global positions. The CUDA forward kernel's launcher
-takes its grid and its causal offset from a schedule built at the kernel's
-own tile sizes, and the plain path takes its mask from the same object, so
-the two cannot disagree on which keys a query sees.
+Port of ``tpu_flash/ops/schedule.py`` for the dense, causal and local
+(sliding-band) schedules. The block-visit math is host-side Python on ints;
+:meth:`Schedule.mask` takes torch tensors of global positions. The CUDA
+forward kernel's launcher takes its kind, causal offset and band radius
+from the schedule, and the plain path takes its mask from the same object,
+so the two cannot disagree on which keys a query sees.
 """
 
 from __future__ import annotations
@@ -148,4 +148,79 @@ class CausalSchedule(Schedule):
     def block_unmasked(self, i: int, s: int) -> bool:
         j = self.kv_block_index(i, s)
         full = (j + 1) * self.block_kv - 1 <= i * self.block_q + self._offset
+        return full and self._kv_pad_ok(j)
+
+
+@dataclasses.dataclass(frozen=True)
+class LocalSchedule(Schedule):
+    """Sliding-window band: query ``i`` sees keys ``|i - j| ≤ radius``
+    (clamped at the sequence edges, no wraparound; left-aligned, so no
+    offset when ``n_q ≠ n_kv``). ``causal=True`` also restricts to
+    ``j ≤ i``."""
+
+    radius: int = 0
+    causal: bool = False
+
+    def __post_init__(self):
+        if self.radius < 0:
+            raise ValueError("radius must be ≥ 0")
+
+    def _first_step(self, i: int) -> int:
+        return max(0, (i * self.block_q - self.radius) // self.block_kv)
+
+    def _last_block(self, i: int) -> int:
+        last_q = min((i + 1) * self.block_q - 1, self.n_q - 1)
+        return min(self.num_kv_blocks - 1,
+                   (last_q + self.radius) // self.block_kv)
+
+    @property
+    def max_kv_steps(self) -> int:
+        # exact: the widest per-block visit, not a cdiv(span) + 1 bound
+        return max([1] + [self._last_block(i) - self._first_step(i) + 1
+                          for i in range(self.num_q_blocks)])
+
+    def kv_block_index(self, i: int, s: int) -> int:
+        return min(self._first_step(i) + s, self._last_block(i))
+
+    def step_needed(self, i: int, s: int) -> bool:
+        return self._first_step(i) + s <= self._last_block(i)
+
+    def _first_q_block(self, j: int) -> int:
+        lo = j * self.block_kv - (0 if self.causal else self.radius)
+        return min(max(lo // self.block_q, 0), self.num_q_blocks - 1)
+
+    def _last_q_block(self, j: int) -> int:
+        hi = (j + 1) * self.block_kv - 1 + self.radius
+        return min(self.num_q_blocks - 1, hi // self.block_q)
+
+    @property
+    def max_q_steps(self) -> int:
+        return max([1] + [self._last_q_block(j) - self._first_q_block(j) + 1
+                          for j in range(self.num_kv_blocks)])
+
+    def q_block_index(self, j: int, s: int) -> int:
+        return min(self._first_q_block(j) + s, self._last_q_block(j))
+
+    def q_step_needed(self, j: int, s: int) -> bool:
+        return self._first_q_block(j) + s <= self._last_q_block(j)
+
+    @property
+    def has_mask(self) -> bool:
+        return True
+
+    def mask(self, q_pos: torch.Tensor, k_pos: torch.Tensor) -> torch.Tensor:
+        m = (q_pos - k_pos).abs() <= self.radius
+        if self.causal:
+            m = m & (k_pos <= q_pos)
+        return self._and_kv_pad(m, k_pos)
+
+    def block_unmasked(self, i: int, s: int) -> bool:
+        # every key of the tile within the band of every real query row
+        j = self.kv_block_index(i, s)
+        q_lo = i * self.block_q
+        q_hi = min((i + 1) * self.block_q - 1, self.n_q - 1)
+        k_lo, k_hi = j * self.block_kv, (j + 1) * self.block_kv - 1
+        full = k_hi - q_lo <= self.radius and q_hi - k_lo <= self.radius
+        if self.causal:
+            full = full and k_hi <= q_lo
         return full and self._kv_pad_ok(j)

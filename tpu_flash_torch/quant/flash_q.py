@@ -59,13 +59,22 @@ def f32(x: float) -> float:
     return struct.unpack("f", struct.pack("f", x))[0]
 
 
-def refuse_unported(**options) -> None:
-    """Raise for a reference option that the port does not take yet."""
+# the quantized route's unported options: B6/B7 take no band yet (A10)
+_UNPORTED_Q = {**_UNPORTED, "radius": "A10"}
+
+
+def refuse_unported(schedule: str = "dense", **options) -> None:
+    """Raise for a reference schedule or option that the quantized route
+    does not take yet."""
+    if schedule in ("local", "local_causal"):
+        raise NotImplementedError(
+            f"schedule {schedule!r} on the quantized route is not ported yet "
+            "(ROADMAP A10); dense and causal schedules only")
     for name, value in options.items():
         if value:
             raise NotImplementedError(
                 f"{name}={value!r} is not ported yet (ROADMAP "
-                f"{_UNPORTED[name]}); dense and causal schedules only")
+                f"{_UNPORTED_Q[name]}); dense and causal schedules only")
 
 
 def scaled_k_norms(k_vals: torch.Tensor, sk_row=None) -> torch.Tensor:
@@ -283,9 +292,9 @@ def quantized_flash_attention(
     reference's schedule; the kernel runs its own 64×64 tiles. At d ≤ 64
     the call goes to :func:`~tpu_flash_torch.quant.serving_attn.
     serving_flash_attention`, as in the reference (``transposed``).
-    Schedules other than dense and causal raise (ROADMAP A3/A11/A13).
+    Schedules other than dense and causal raise (ROADMAP A10/A11/A13).
     """
-    refuse_unported(radius=radius, section=section, shift=shift,
+    refuse_unported(schedule, radius=radius, section=section, shift=shift,
                     wrap_n=wrap_n, shifted_causal=shifted_causal)
     if q.ndim != 4:
         raise ValueError(f"expected (batch, heads, n, d), got {tuple(q.shape)}")
@@ -419,7 +428,7 @@ def quantized_flash_attention_prequant(
     """Attend with operands from :func:`prepare_ring_operands` — no
     quantize preamble. ``(batch, heads, n, d)`` values; per-token K scales,
     per-channel V scales; GQA (kv heads divide q heads)."""
-    refuse_unported(radius=radius, section=section, shift=shift,
+    refuse_unported(schedule, radius=radius, section=section, shift=shift,
                     wrap_n=wrap_n, shifted_causal=shifted_causal)
     q_vals = q_pre.values if isinstance(q_pre, QArray) else q_pre
     b, h, n_q, d = q_vals.shape

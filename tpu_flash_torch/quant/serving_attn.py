@@ -200,7 +200,7 @@ def serving_flash_attention(
         raise NotImplementedError(
             "isolate is the reference's A/B diagnostic (wrong outputs by "
             "design); the port does not carry it (ROADMAP north star)")
-    refuse_unported(radius=radius, section=section, shift=shift,
+    refuse_unported(schedule, radius=radius, section=section, shift=shift,
                     wrap_n=wrap_n, shifted_causal=shifted_causal)
     if q.ndim != 4:
         raise ValueError(f"expected (batch, heads, n, d), got {tuple(q.shape)}")

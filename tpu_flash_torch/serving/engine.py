@@ -1,12 +1,17 @@
 """Continuous-batching inference engine over the paged KV-cache: port of
-``tpu_flash/serving/engine.py`` (the plain, unchunked serving path).
+``tpu_flash/serving/engine.py``.
 
-Requests stream in; each admitted prompt is prefilled whole, padded to a
-bucket, through the causal flash kernel (B1); its K/V land in paged cache
-slots granted by the native allocator; every engine step advances all
-running sequences by one token through the paged kernels (append B3, then
-attention B2) and samples on the device. Finished sequences release their
-pages at once; pool exhaustion preempts a sequence back to the queue.
+Requests stream in; an admitted prompt is prefilled whole, padded to a
+bucket, through the flash kernel (B1), or, when it is longer than
+``chunk_size``, streamed in page-aligned chunks, one chunk per engine step
+interleaved with decode (``models/transformer.py:prefill_chunk``: the
+chunk's prefix through the paged kernel B2, the chunk itself through B1,
+the two partials merged). Its K/V land in paged cache slots granted by the
+native allocator; every engine step advances all running sequences by one
+token through the paged kernels (append B3, then attention B2; with
+``pipelined_decode`` each lane walks exactly its own pages) and samples on
+the device. Finished sequences release their pages at once; pool
+exhaustion preempts a sequence back to the queue.
 
 * Decode runs ``max_batch`` lanes; idle lanes sit on a trash slot
   (``max_seqs − 1``) whose page table points at physical page 0, which is
@@ -18,11 +23,13 @@ pages at once; pool exhaustion preempts a sequence back to the queue.
   structure (``fold_in(fold_in(key(seed), rid), position)``), not its bits.
   Streams are batching-invariant and reproducible; greedy streams match
   the reference token for token.
+* Decode pins the exact running max; ``prefill_bound_max`` lets prefill
+  take the norm bound, which relaxes chunked == unchunked from identical
+  to a tolerance, as in the reference.
 
-Not ported yet (ROADMAP A7 unless named): chunked prefill, the prefix
-cache, speculative decoding, ``decode_steps > 1``/async decode, the
-pipelined decode kernel (A5), prefill's norm-bound max (A3), LoRA (A9),
-tensor parallelism (A13). Each raises ``NotImplementedError``.
+Not ported yet (ROADMAP A7 unless named): the prefix cache, speculative
+decoding (A9), ``decode_steps > 1``/async decode, LoRA (A9), tensor
+parallelism (A13). Each raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -171,11 +178,15 @@ class EngineConfig:
     max_batch: int = 8
     prefill_buckets: tuple = (64, 128, 256, 512, 1024, 2048)
     pages_bound: Optional[int] = None  # static cap for the decode kernel
-    pipelined_decode: bool = False  # ROADMAP A5
-    chunk_size: Optional[int] = None  # ROADMAP A7
+    pipelined_decode: bool = False  # each lane walks exactly its own pages
+    # tokens per prefill chunk (a page multiple): longer prompts stream in
+    # chunks, one per engine step, interleaved with decode
+    chunk_size: Optional[int] = None
     prefix_cache: bool = False  # ROADMAP A7
     prefix_cache_entries: int = 4096
-    prefill_bound_max: bool = False  # ROADMAP A3
+    # prefill (whole or chunked) with the norm-bound max: chunked ==
+    # unchunked then holds to a tolerance, not exactly; decode stays exact
+    prefill_bound_max: bool = False
     metrics_path: Optional[str] = None  # per-step JSONL metrics stream
     speculate_k: int = 0  # ROADMAP A9
     async_decode: bool = True  # applies to decode_steps > 1 only
@@ -185,10 +196,7 @@ class EngineConfig:
 
 def _check_engine_config(ecfg: EngineConfig) -> None:
     unported = dict(
-        pipelined_decode=(ecfg.pipelined_decode, "A5"),
-        chunk_size=(ecfg.chunk_size is not None, "A7"),
         prefix_cache=(ecfg.prefix_cache, "A7"),
-        prefill_bound_max=(ecfg.prefill_bound_max, "A3"),
         speculate_k=(ecfg.speculate_k > 0, "A9"),
         decode_steps=(ecfg.decode_steps > 1, "A7"),
     )
@@ -223,11 +231,18 @@ class Engine:
                 "chunked-vs-unchunked prefill contract; leave it None")
         self.params = params
         self.mcfg = dataclasses.replace(model_cfg, attn_bound_max=False)
+        # prefill may opt into the norm bound (a tolerance contract)
+        self.mcfg_prefill = (
+            dataclasses.replace(model_cfg, attn_bound_max=True)
+            if engine_cfg.prefill_bound_max else self.mcfg)
         self.ccfg = cache_cfg
         self.ecfg = engine_cfg
         self.device = params["embed"].device
         if engine_cfg.max_batch > cache_cfg.max_seqs - 1:
             raise ValueError("max_batch must leave one trash slot free")
+        if (engine_cfg.chunk_size is not None
+                and engine_cfg.chunk_size % cache_cfg.page_size):
+            raise ValueError("chunk_size must be a multiple of page_size")
         # physical page 0 is the trash page; allocator hands out [1, total).
         self._alloc = PageAllocator(
             total_pages=cache_cfg.total_pages - 1,
@@ -242,6 +257,7 @@ class Engine:
             s for s in range(cache_cfg.max_seqs) if s != self._trash_slot)
         self.waiting: deque[Request] = deque()
         self.running: dict[int, _Running] = {}
+        self.prefilling: dict[int, dict] = {}  # slot → chunked-prefill state
         self.finished: List[FinishedRequest] = []
         self._steps = 0
         self._tokens_out = 0
@@ -264,11 +280,12 @@ class Engine:
         self.waiting.append(req)
 
     def step(self) -> None:
-        """Admit + prefill new requests, then advance all running sequences
-        by one decode token."""
+        """Admit + prefill new requests, advance one chunked prefill, then
+        advance all running sequences by one decode token."""
         t0 = time.monotonic()
         tok0 = self._tokens_out
         self._admit()
+        self._advance_prefill()
         if self.running:
             self._decode()
         self._steps += 1
@@ -278,6 +295,7 @@ class Engine:
                 wall_ms=round((time.monotonic() - t0) * 1e3, 3),
                 new_tokens=self._tokens_out - tok0,
                 running=len(self.running),
+                prefilling=len(self.prefilling),
                 waiting=len(self.waiting),
                 free_pages=self._alloc.num_free(),
                 preemptions=self._preemptions,
@@ -308,7 +326,8 @@ class Engine:
 
     def run(self, max_steps: int = 10_000) -> List[FinishedRequest]:
         steps = 0
-        while (self.waiting or self.running) and steps < max_steps:
+        while ((self.waiting or self.running or self.prefilling)
+               and steps < max_steps):
             self.step()
             steps += 1
         return self.finished
@@ -354,18 +373,57 @@ class Engine:
                 c.lengths[slot].fill_(set_length)
 
     def _admit(self) -> None:
+        ps, cs = self.ccfg.page_size, self.ecfg.chunk_size
         while (self.waiting and self._free_slots
-               and len(self.running) < self.ecfg.max_batch):
+               and len(self.running) + len(self.prefilling)
+               < self.ecfg.max_batch):
             req = self.waiting[0]
             slot = self._free_slots[0]
-            bucket = self._bucket(len(req.prompt) + 1)
-            pages_needed = -(-bucket // self.ccfg.page_size)
+            chunked = cs is not None and len(req.prompt) > cs
+            bucket = cs if chunked else self._bucket(len(req.prompt) + 1)
+            # a chunked prompt is page-covered whole, plus one decode token
+            pages_needed = -(-(len(req.prompt) + 1 if chunked else bucket)
+                             // ps)
             if not self._alloc.admit(slot, pages_needed):
                 break  # pool exhausted; retry next step
             self.waiting.popleft()
             self._free_slots.popleft()
+            # a recycled slot's stale length must not leak into the first
+            # chunk's prefix attention
             self._sync_slot_tables(slot, set_length=0)
-            self._prefill(req, slot, bucket, pages_needed)
+            if chunked:
+                self.prefilling[slot] = dict(req=req, done=0,
+                                             pages=pages_needed)
+            else:
+                self._prefill(req, slot, bucket, pages_needed)
+
+    def _advance_prefill(self) -> None:
+        """Process ONE chunk of the oldest in-flight chunked prefill, so a
+        long prompt streams in without stalling the decode batch. The
+        prefix walk's ``pages_bound`` is bucketed to powers of two, as the
+        reference's compiled variants are."""
+        if not self.prefilling:
+            return
+        slot, st = next(iter(self.prefilling.items()))
+        req, done = st["req"], st["done"]
+        cs, ps = self.ecfg.chunk_size, self.ccfg.page_size
+        chunk = req.prompt[done:done + cs]
+        true_n = len(chunk)
+        toks = np.zeros((1, cs), np.int64)
+        toks[0, :true_n] = chunk
+        need = max(1, -(-done // ps))
+        pb = 1
+        while pb < need:
+            pb *= 2
+        logits, _, self.caches = tfm.prefill_chunk(
+            self.params, torch.as_tensor(toks, device=self.device), done,
+            true_n, self.caches, slot, self.mcfg_prefill,
+            pages_bound=min(pb, self.ccfg.max_pages_per_seq))
+        st["done"] = done + true_n
+        if st["done"] < len(req.prompt):
+            return  # intermediate chunks sample nothing
+        del self.prefilling[slot]
+        self._start_running(req, slot, st["pages"], logits[:, true_n - 1])
 
     def _write_prompt_kv(self, kv, slot: int, n: int) -> None:
         """Write a whole prompt's K/V into every layer's cache; the padded
@@ -379,12 +437,19 @@ class Engine:
         toks = np.zeros((1, bucket), np.int64)
         toks[0, :n] = req.prompt
         logits_all, kv = _prefill_all_logits(
-            self.params, torch.as_tensor(toks, device=self.device), self.mcfg)
+            self.params, torch.as_tensor(toks, device=self.device),
+            self.mcfg_prefill)
         self._write_prompt_kv(kv, slot, n)
-        # the first sampled token lands at position n
+        self._start_running(req, slot, pages, logits_all[:, n - 1])
+
+    def _start_running(self, req: Request, slot: int, pages: int,
+                       logits: torch.Tensor) -> None:
+        """Sample a prefilled prompt's first token from its last position's
+        ``(1, vocab)`` logits (it lands at position ``len(prompt)``) and put
+        the request on the decode batch."""
+        n = len(req.prompt)
         tok_lp = _sample_packed(
-            logits_all[:, n - 1],
-            self._samp([req.temperature, req.top_k, req.top_p]),
+            logits, self._samp([req.temperature, req.top_k, req.top_p]),
             [self._seed_for(req, n)]).cpu().numpy()[0]
         self._tokens_out += 1
         tok = int(tok_lp[0])
@@ -506,6 +571,7 @@ class Engine:
             torch.as_tensor(pos_np, device=dev), self.caches,
             torch.as_tensor(slots_np, device=dev), self.mcfg,
             pages_bound=self._pages_bound(),
+            pipelined=self.ecfg.pipelined_decode,
         )
         # idle lanes append to the trash slot every step; reset its length
         # so it never walks off its (all-trash-page) table
