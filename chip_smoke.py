@@ -18,7 +18,13 @@ shapes; then serves the canonical model with a sliding window (1025)
 through chunked prefill (chunks of 512) and the pipelined decode, checks it
 against a teacher-forced sliding forward and against an unchunked engine,
 and holds the band, norm-bound and banded paged kernels against their plain
-versions at that path's shapes. Each phase prints one JSON line; any
+versions at that path's shapes; then runs the primitives (fused_softmax and
+matmul at the sweep's full-size shapes, tpu_flash_torch/bench/sweep.py)
+and the N-d and new-schedule path (circulant_fa and block_fa at n 8192,
+block2d over 256 × 256, N-d dense_fa and windowed_fa), each gated against
+the oracles, and holds the softmax, matmul and B1 circulant and
+block-diagonal kernels against their plain versions, timed beside the
+library calls. Each phase prints one JSON line; any
 failure raises and the exit code is not 0. Without a CUDA device it fails at once and prints no
 result. The train phase ends with a torch.profiler breakdown of one step.
 Imports torch and the port only.
@@ -740,9 +746,22 @@ def quant_attention_phase(dev):
         mode = {"int8": "int8", None: "raw"}.get(q_dt, "fp8")
         args = (*ops, vsched, hq, hkv, mode, tfq.f32(
             dv_ ** -0.5 * flash.LOG2E), pvq)
-        held("serving", name,
-             lambda need=True: tsa._serving_attention_kernel(*args, need),
-             lambda: tsa._serving_plain(*args), 0, "bf16")
+        row = held("serving", name,
+                   lambda need=True: tsa._serving_attention_kernel(*args, need),
+                   lambda: tsa._serving_plain(*args), 0, "bf16")
+        if name == "d64_fp8_causal_gqa":  # B8's shape, folded into B6
+            flops_b8 = 4 * dv_ * hq * visible_pairs(nv, nv, True)
+            # q and o in bf16, the cache at one byte, the fp32 scales
+            nbytes = (2 * 2 * hq * nv * dv_ + 2 * hkv * nv * dv_ + 4 * sum(
+                t.numel() for t in ops[3:] if t is not None))
+            row.update(ms=cuda_ms(lambda: tsa._serving_attention_kernel(
+                           *args, False)),
+                       plain_ms=cuda_ms(lambda: tsa._serving_plain(*args),
+                                        iters=3, warmup=1),
+                       library_ms=cuda_ms(lambda: sdpa(qv, kv, vv, True)),
+                       **harness.roofline(flops_b8 / 2, flops_b8 / 2, nbytes,
+                                          peaks, "fp8", "bf16"))
+            timed["b8_shape"] = row
         if q_dt is not None and not pvq:  # the same case through B7
             prep = tfq.prepare_quantized(
                 qv, kv, vv, tfq.as_dtype(q_dt), tfq.as_dtype(kv_dt),
@@ -1085,6 +1104,215 @@ def sliding_kernels_phase(dev):
     return dict(timed=timed, worst=worst)
 
 
+# the new phases' kernel-vs-plain limits: softmax and matmul take the
+# sweep's gates (sweep.TOL_SOFTMAX; sweep.TOL_MATMUL relative to the largest
+# |plain| entry), lse of the stats pass 1e-5; B1's circulant and block kinds
+# at the bands shape: o 4e-3 (bf16, ~8 ulps at |o| ~ 0.1), lse TOL_LSE
+TOL_STATS = 1e-5
+TOL_B1_NEW = 4e-3
+
+
+def primitives_phase(dev):
+    """fused_softmax and matmul at the sweep's full-size shapes through the
+    public entry points (the path, counted; the sweep gates each case), then
+    each against the library call on the same input, and each kernel alone
+    against its plain version (row and column shapes), timed beside its
+    bound and the library call."""
+    from tpu_flash_torch import kernels
+    from tpu_flash_torch.bench import sweep
+    from tpu_flash_torch.ops import matmul as mm
+    from tpu_flash_torch.ops import softmax as sm
+
+    names = ("softmax_onepass", "softmax_stats", "softmax_norm", "matmul")
+    kernels.reset_launches()
+    soft = sweep.suite_softmax(dev)
+    mat = sweep.suite_matmul(dev)
+    torch.cuda.synchronize()
+    launches = {k: kernels.LAUNCHES[k] for k in names}
+    for name, count in launches.items():
+        if count <= 0:
+            raise AssertionError(f"kernel {name} never launched in the "
+                                 "primitives run")
+    for case, row in zip(sweep.SOFTMAX_CASES, soft):
+        x = sweep.softmax_input(case, dev)
+        axis, dt = case[2], case[3]
+        row["err_vs_torch_softmax"] = max_err(sm.fused_softmax(x, axis=axis),
+                                              torch.softmax(x, dim=axis))
+        check(f"softmax {row['shape']} vs torch.softmax",
+              row["err_vs_torch_softmax"], sweep.TOL_SOFTMAX[dt])
+        row["library_ms"] = cuda_ms(lambda: torch.softmax(x, dim=axis), iters=10)
+        del x
+    for case, row in zip(sweep.MATMUL_CASES, mat):
+        a, b = sweep.matmul_inputs(case, dev)
+        lib = a @ b
+        got = (mm.matvec if b.ndim == 1 else mm.matmul)(a, b)
+        row["rel_err_vs_torch_matmul"] = max_err(got, lib) / float(
+            lib.float().abs().max())
+        check(f"{row['name']} vs torch.matmul", row["rel_err_vs_torch_matmul"],
+              sweep.TOL_MATMUL[case[4]])
+        row["library_ms"] = cuda_ms(lambda: a @ b, iters=10)
+        del a, b, lib, got
+
+    # each kernel alone vs its plain version: row and column shapes
+    timed, worst = {}, {k: 0.0 for k in names}
+
+    def held(kernel, got, want, tol, **extra):
+        err = max_err(got, want)
+        check(f"{kernel} vs plain", err, tol)
+        worst[kernel] = max(worst[kernel], err)
+        return dict(extra, max_abs_err=err, tol=tol)
+
+    def fibers(case):
+        x = sweep.softmax_input(case, dev)
+        return x.reshape(-1, x.shape[-1], 1) if case[2] == -1 else x[None]
+
+    rows = []
+    for case in (sweep.SOFTMAX_CASES[0], sweep.SOFTMAX_CASES[5]):
+        x3 = fibers(case)
+        row = held("softmax_onepass", sm._onepass_kernel(x3),
+                   sm._onepass_plain(x3), sweep.TOL_SOFTMAX[x3.dtype],
+                   shape=list(case[:2]), axis=case[2])
+        nbytes = 2 * 4 * x3.numel()
+        row.update(ms=cuda_ms(lambda: sm._onepass_kernel(x3)),
+                   plain_ms=cuda_ms(lambda: sm._onepass_plain(x3), iters=3),
+                   library_ms=cuda_ms(lambda: torch.softmax(x3, dim=1)),
+                   **roofline(0, nbytes, torch.float32))
+        rows.append(dict(row, kernel="softmax_onepass"))
+        timed.setdefault("softmax_onepass", row)
+        del x3
+    for case in (sweep.SOFTMAX_CASES[2], sweep.SOFTMAX_CASES[4]):
+        x3 = fibers(case)
+        lse = sm._stats_kernel(x3)
+        row = held("softmax_stats", lse, sm._stats_plain(x3), TOL_STATS,
+                   shape=list(case[:2]), axis=case[2])
+        nbytes = 4 * x3.numel() + 4 * lse.numel()
+        row.update(ms=cuda_ms(lambda: sm._stats_kernel(x3)),
+                   plain_ms=cuda_ms(lambda: sm._stats_plain(x3), iters=3),
+                   library_ms=cuda_ms(lambda: torch.logsumexp(x3, dim=1)),
+                   **roofline(0, nbytes, torch.float32))
+        rows.append(dict(row, kernel="softmax_stats"))
+        timed.setdefault("softmax_stats", row)
+        row = held("softmax_norm", sm._norm_kernel(x3, lse),
+                   sm._norm_plain(x3, lse), sweep.TOL_SOFTMAX[x3.dtype],
+                   shape=list(case[:2]), axis=case[2])
+        row.update(ms=cuda_ms(lambda: sm._norm_kernel(x3, lse)),
+                   plain_ms=cuda_ms(lambda: sm._norm_plain(x3, lse), iters=3),
+                   library_ms=None,
+                   **roofline(0, 2 * 4 * x3.numel() + 4 * lse.numel(),
+                              torch.float32))
+        rows.append(dict(row, kernel="softmax_norm"))
+        timed.setdefault("softmax_norm", row)
+        del x3, lse
+    for case in sweep.MATMUL_CASES:
+        a, b = sweep.matmul_inputs(case, dev)
+        b2 = b[:, None] if b.ndim == 1 else b
+        dt = case[4]
+        want = mm._matmul_plain(a, b2, dt)
+        got = mm._matmul_kernel(a, b2, dt)
+        top = float(want.float().abs().max())
+        row = held("matmul", got, want, sweep.TOL_MATMUL[dt] * top,
+                   case=case[0], rel_err=max_err(got, want) / top)
+        if case[0] == "matmul_4096_bf16":
+            m, k = a.shape
+            n = b2.shape[1]
+            row.update(ms=cuda_ms(lambda: mm._matmul_kernel(a, b2, dt)),
+                       plain_ms=cuda_ms(lambda: mm._matmul_plain(a, b2, dt),
+                                        iters=3),
+                       library_ms=cuda_ms(lambda: a @ b2),
+                       **roofline(2 * m * k * n, 2 * (m * k + k * n + m * n),
+                                  dt))
+            timed["matmul"] = row
+        rows.append(dict(row, kernel="matmul"))
+        del a, b, b2, want, got
+    emit(dict(phase="primitives", launches=launches, softmax=soft, matmul=mat,
+              kernels_vs_plain=rows))
+    return dict(launches=launches, timed=timed, worst=worst)
+
+
+def circulant_mask(n: int, radius: int, dev) -> torch.Tensor:
+    pos = torch.arange(n, device=dev)
+    off = torch.remainder(pos[:, None] - pos[None, :], n)
+    return (off <= radius) | (off >= n - radius)
+
+
+def ndim_phase(dev):
+    """The N-d and new-schedule path: the circulant row, the block rows
+    (suite_attention's and block2d) and the other N-d cases through their
+    public calls, each set counted apart (the sweep gates each case
+    against the oracles); then B1's circulant and block-diagonal kinds
+    against their plain version at the bands shape, timed beside their
+    bound and the library attention under the same boolean mask."""
+    from tpu_flash_torch import kernels
+    from tpu_flash_torch.bench import sweep
+    from tpu_flash_torch.ops import flash
+
+    runs, launches = {}, {}
+    for key, fn in (
+            ("circulant", lambda: sweep.suite_bands(dev, names=("circulant",))),
+            ("block", lambda: sweep.suite_bands(dev, names=("block",))
+             + sweep.suite_ndim(dev, names=("block2d",))),
+            ("ndim", lambda: sweep.suite_ndim(
+                dev, names=("dense2d", "dense2d_fp8", "dense3d",
+                            "windowed2d_fp8")))):
+        kernels.reset_launches()
+        runs[key] = fn()
+        torch.cuda.synchronize()
+        launches[key] = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    for key, kernel in (("circulant", "flash_fwd"), ("block", "flash_fwd"),
+                        ("ndim", "flash_fwd"), ("ndim", "serving_attention")):
+        if launches[key].get(kernel, 0) <= 0:
+            raise AssertionError(f"kernel {kernel} never launched in the "
+                                 f"{key} run")
+
+    shape = sweep.BANDS
+    b, h, n, d = shape["b"], shape["h"], shape["n"], shape["d"]
+    params = sweep.band_params(n)
+    q, k, v = sweep.band_inputs(shape, dev)
+    qf = (q.float() * (d ** -0.5 * flash.LOG2E)).bfloat16()[0]
+    timed, rows, worst = {}, [], 0.0
+    for name in ("circulant", "block"):
+        if name == "circulant":
+            r = (params["window"] - 1) // 2
+            sched = flash.build_schedule("circulant", n, n, 512, 1024, radius=r)
+            kf, vf = (torch.cat([x[0, :, -r:], x[0], x[0, :, :r]], dim=1)
+                      for x in (k, v))
+            mask = circulant_mask(n, r, dev)
+            pairs = n * params["window"]
+        else:
+            sec = params["section"]
+            sched = flash.build_schedule("block", n, n, 1024, 2048, section=sec)
+            kf, vf = k[0], v[0]
+            pos = torch.arange(n, device=dev) // sec
+            mask = pos[:, None] == pos[None, :]
+            pairs = n * sec
+        bound = flash.auto_bound_max(sched)
+        args = (qf, kf, vf, sched, h, h)
+        (ko, kl), (po, pl) = (flash._flash_fwd_kernel(*args, True, bound),
+                              flash._flash_fwd_plain(*args, bound))
+        errs = dict(o_vs_plain=max_err(ko, po), lse_vs_plain=max_err(kl, pl))
+        check(f"B1 {name} o vs plain", errs["o_vs_plain"], TOL_B1_NEW)
+        check(f"B1 {name} lse vs plain", errs["lse_vs_plain"], TOL_LSE)
+        worst = max(worst, *errs.values())
+        del ko, kl, po, pl
+        nbytes = 2 * 4 * b * h * n * d + 4 * b * h * n
+        row = dict(kernel="flash_fwd", schedule=name, n=n, h=h, d=d,
+                   bound_max=bound, tol=TOL_B1_NEW, tol_lse=TOL_LSE,
+                   visible_pairs=pairs * h, **errs,
+                   ms=cuda_ms(lambda: flash._flash_fwd_kernel(*args, True, bound)),
+                   plain_ms=cuda_ms(lambda: flash._flash_fwd_plain(*args, bound),
+                                    iters=3),
+                   library_ms=cuda_ms(lambda: sdpa(q, k, v, False, mask)),
+                   **roofline(4 * d * h * pairs, nbytes, torch.bfloat16))
+        row["tflops"] = 4 * d * h * pairs / row["ms"] / 1e9
+        rows.append(row)
+        timed[name] = row
+        del kf, vf, mask
+    emit(dict(phase="ndim", launches=launches, bands=runs["circulant"]
+              + runs["block"][:1], ndim=runs["block"][1:] + runs["ndim"],
+              kernels_vs_plain=rows))
+    return dict(launches=launches, timed=timed, worst=worst)
+
+
 def _timing(row) -> dict:
     return {key: row[key] for key in ("ms", "plain_ms", "bound_ms",
                                       "bound_by")}
@@ -1158,6 +1386,10 @@ def main() -> int:
         sliding = sliding_serve_phase(dev)
         torch.cuda.empty_cache()
         sk = sliding_kernels_phase(dev)
+        torch.cuda.empty_cache()
+        prim = primitives_phase(dev)
+        torch.cuda.empty_cache()
+        nd = ndim_phase(dev)
     # launches: the engine run for the serving kernels, the train run for
     # the backward ones (the forward kernel runs in both; the train run's
     # count is reported)
@@ -1244,6 +1476,64 @@ def main() -> int:
              launches=sliding["launches"]["paged_attention"],
              max_abs_err=sk["worst"]["paged_attention"],
              **_timing(sk["timed"]["pipelined"]), library_ms=None),
+        # B8 (the d <= 64 serving kernel) folded into B6: its shape (d 64,
+        # 16/8 heads, causal, n 1000, fp8, tensor K scales); launches: B6 at
+        # d 64 in the ndim run (dense2d_fp8, windowed2d_fp8); library: bf16
+        # scaled_dot_product_attention at that shape
+        dict(name="serving_attention (B8 d <= 64, folded)", route="cuda",
+             source="tpu_flash_torch/csrc/quant_attention.cu",
+             replaces="tpu_flash/quant/serving_attn.py:349",
+             launches=nd["launches"]["ndim"]["serving_attention"],
+             max_abs_err=quant["worst"]["serving"],
+             **_timing(quant["timed"]["b8_shape"]),
+             library_ms=quant["timed"]["b8_shape"]["library_ms"]),
+        # the primitives run (fused_softmax, matmul at the sweep's shapes);
+        # times at the first row shape of each pass (8192 × 16384 one-pass,
+        # 2048 × 131072 two-pass) and 4096³ bf16; library: torch.softmax,
+        # torch.logsumexp (the stats pass's function), torch.matmul
+        dict(name="softmax_onepass", route="cuda",
+             source="tpu_flash_torch/csrc/softmax.cu",
+             replaces="tpu_flash/ops/softmax.py:59, tpu_flash/ops/softmax.py:158",
+             launches=prim["launches"]["softmax_onepass"],
+             max_abs_err=prim["worst"]["softmax_onepass"],
+             **_timing(prim["timed"]["softmax_onepass"]),
+             library_ms=prim["timed"]["softmax_onepass"]["library_ms"]),
+        dict(name="softmax_stats", route="cuda",
+             source="tpu_flash_torch/csrc/softmax.cu",
+             replaces="tpu_flash/ops/softmax.py:66, tpu_flash/ops/softmax.py:165",
+             launches=prim["launches"]["softmax_stats"],
+             max_abs_err=prim["worst"]["softmax_stats"],
+             **_timing(prim["timed"]["softmax_stats"]),
+             library_ms=prim["timed"]["softmax_stats"]["library_ms"]),
+        dict(name="softmax_norm", route="cuda",
+             source="tpu_flash_torch/csrc/softmax.cu",
+             replaces="tpu_flash/ops/softmax.py:87, tpu_flash/ops/softmax.py:186",
+             launches=prim["launches"]["softmax_norm"],
+             max_abs_err=prim["worst"]["softmax_norm"],
+             **_timing(prim["timed"]["softmax_norm"]), library_ms=None),
+        dict(name="matmul", route="cuda",
+             source="tpu_flash_torch/csrc/matmul.cu",
+             replaces="tpu_flash/ops/matmul.py:37",
+             launches=prim["launches"]["matmul"],
+             max_abs_err=prim["worst"]["matmul"],
+             **_timing(prim["timed"]["matmul"]),
+             library_ms=prim["timed"]["matmul"]["library_ms"]),
+        # B1's new kinds at suite_attention's bands shape (b 1, h 8, n 8192,
+        # d 128; window 1025, section 512); launches: the circulant run, and
+        # the block run (the block row and block2d); library:
+        # scaled_dot_product_attention under the same boolean mask
+        dict(name="flash_fwd (B11 circulant, folded)", route="cuda",
+             source="tpu_flash_torch/csrc/flash_fwd.cu",
+             replaces="tpu_flash/ops/flash.py:380",
+             launches=nd["launches"]["circulant"]["flash_fwd"],
+             max_abs_err=nd["worst"], **_timing(nd["timed"]["circulant"]),
+             library_ms=nd["timed"]["circulant"]["library_ms"]),
+        dict(name="flash_fwd (block-diagonal)", route="cuda",
+             source="tpu_flash_torch/csrc/flash_fwd.cu",
+             replaces="tpu_flash/ops/flash.py:204",
+             launches=nd["launches"]["block"]["flash_fwd"],
+             max_abs_err=nd["worst"], **_timing(nd["timed"]["block"]),
+             library_ms=nd["timed"]["block"]["library_ms"]),
     ]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -1,6 +1,7 @@
-"""The port's bench harness and headline: analytic models equal to the
-reference's, the roofline rule, and the headline run end to end on the CPU
-at a tiny shape (plain paths; its time is no device metric)."""
+"""The port's bench harness, headline and sweep: analytic models equal to
+the reference's, the roofline rule, and the headline and the sweep suites
+run end to end on the CPU at tiny shapes (plain paths; their times are no
+device metric)."""
 
 import json
 
@@ -9,7 +10,7 @@ import torch
 
 from tpu_flash.bench import harness as jh
 from tpu_flash_torch.bench import harness as th
-from tpu_flash_torch.bench import headline
+from tpu_flash_torch.bench import headline, sweep
 
 torch.set_num_threads(2)
 
@@ -77,3 +78,36 @@ def test_headline_runs_on_the_cpu(argv, capsys):
     assert row["unit"] == "TFLOP/s" and row["value"] > 0
     assert "cpu" in row["metric"]
     assert out["max_abs_err"] <= out["tol"]
+
+
+@pytest.mark.parametrize("suite,names", [
+    ("softmax", {"row_onepass", "row_twopass", "column_onepass",
+                 "column_twopass"}),
+    ("matmul", {"matmul_f32", "matmul_ragged_bf16", "matvec_bf16"}),
+    ("ndim", {"dense2d", "dense2d_fp8", "dense3d", "block2d",
+              "windowed2d_fp8"}),
+    ("bands", {"circulant", "block"})])
+def test_sweep_suites_run_on_the_cpu(suite, names, capsys):
+    """Each sweep suite at --tiny --device cpu passes its gates and prints
+    one JSON row per case (every softmax path taken), naming the CPU."""
+    rows = sweep.main(["--suite", suite, "--device", "cpu", "--tiny",
+                       "--iters", "1"])
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert len(lines) == len(rows)
+    printed = [json.loads(line) for line in lines]
+    key = "path" if suite == "softmax" else "name"
+    assert {r[key] for r in printed} == names
+    for r in printed:
+        assert r["device"] == "cpu" and r["ms"] > 0 and r["bound_ms"] is None
+        assert r["rel_err" if suite == "matmul" else "max_abs_err"] <= r["tol"]
+
+
+def test_float32_peak_bounds_a_float32_matmul():
+    """The float32 peak bounds a float32 matmul at 4096³ by operations:
+    137 GFLOP / 67 TFLOP/s = 2.05 ms."""
+    peaks = dict(th.device_peaks("cpu"), f32=67e12, bf16=989e12,
+                 hbm_bytes=3.35e12)
+    b = th.roofline(2 * 4096 ** 3, 0, 3 * 4 * 4096 ** 2, peaks, "f32", "f32")
+    assert b["bound_by"] == "operations"
+    assert b["bound_ms"] == pytest.approx(2 * 4096 ** 3 / 67e12 * 1e3)
+    assert "f32" in th.device_peaks("cpu")

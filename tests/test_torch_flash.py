@@ -125,14 +125,16 @@ def test_flash_plain_matches_oracle_scale():
     np.testing.assert_allclose(o.numpy(), ref.numpy(), atol=1e-4)
 
 
-@pytest.mark.parametrize("kw", [dict(section=8, _item="A11"),
+@pytest.mark.parametrize("kw", [dict(bwd_split=2, _item="A8"),
                                 dict(shift=1, _item="A13"),
                                 dict(q_dtype="int8", schedule="local",
                                      _item="A10"),
-                                dict(schedule="block", _item="A11")])
+                                dict(q_dtype="int8", schedule="block",
+                                     section=8, _item="A10")])
 def test_flash_unported_options_raise(kw):
-    """What is still unported raises, naming its ROADMAP item: the block
-    and shifted schedules, and the band on the quantized route."""
+    """What is still unported raises, naming its ROADMAP item: the backward
+    staging knob, the shifted schedule, and the band and the block-diagonal
+    schedule on the quantized route."""
     _, (tq, tk, tv) = _inputs(4, 1, 1, 1, 16, 16, 32, jnp.float32)
     kw = dict(kw)
     with pytest.raises(NotImplementedError, match=f"ROADMAP {kw.pop('_item')}"):

@@ -59,7 +59,8 @@ def test_port_sources_name_no_forbidden_api():
 def test_cpu_tensors_launch_no_kernel():
     """The plain paths that CPU tensors take never touch the launch
     counters, through every wrapper of the serving, training and quantized
-    attention paths."""
+    attention paths, fused_softmax, matmul and the circulant and
+    block-diagonal attention."""
     from tpu_flash_torch.cache.paged_cache import CacheConfig, PagedKVCache
     from tpu_flash_torch.ops.flash import dense_fa
     from tpu_flash_torch.ops.paged import paged_attention
@@ -93,10 +94,21 @@ def test_cpu_tensors_launch_no_kernel():
                               kv_dtype="float8_e4m3fn")
     serving_flash_attention(q64, *quantize_kv_cache(kv64, kv64, "int8"),
                             q_dtype="int8")
+    from tpu_flash_torch.ops.flash import block_fa, circulant_fa
+    from tpu_flash_torch.ops.matmul import matmul
+    from tpu_flash_torch.ops.softmax import fused_softmax
+
+    fused_softmax(torch.randn(3, 20000, generator=g))  # two-pass
+    fused_softmax(torch.randn(30, 40, generator=g), axis=0)  # one-pass
+    matmul(q[0, 0], kv[0, 0].T)
+    circulant_fa(q, kv, kv, 9)
+    block_fa(q, kv, kv, 8)
     assert kernels.LAUNCHES == {"flash_fwd": 0, "paged_attention": 0,
                                 "paged_append": 0, "flash_bwd_dq": 0,
                                 "flash_bwd_dkv": 0, "serving_attention": 0,
-                                "quant_attention": 0}
+                                "quant_attention": 0, "softmax_onepass": 0,
+                                "softmax_stats": 0, "softmax_norm": 0,
+                                "matmul": 0}
     assert int(cache.lengths[0]) == 42
 
 

@@ -1,8 +1,9 @@
-"""The port's CUDA kernels (B1 flash forward with the band and the norm
-bound, where the reference's B9 and B11 fold in; B2 paged attention with
-the band, positions and visible lengths, where B12 folds in; B3 paged
-append; B4/B5 flash backward; B6/B8 serving and B7 quantized attention)
-against their plain PyTorch versions, on the card.
+"""The port's CUDA kernels (B1 flash forward with the band, the circulant
+band, the block-diagonal schedule and the norm bound, where the reference's
+B9 and B11 fold in; B2 paged attention with the band, positions and
+visible lengths, where B12 folds in; B3 paged append; B4/B5 flash backward;
+B6/B8 serving and B7 quantized attention; B13 softmax; B14 matmul) against
+their plain PyTorch versions, on the card.
 
 Every test here needs an NVIDIA GPU: it carries the ``cuda`` marker and
 skips without one. The file imports only torch and the port, so it also
@@ -477,3 +478,178 @@ def test_quant_kernels_reject_what_they_do_not_take(gen):
                                       False)
     with pytest.raises(NotImplementedError):
         tfq.quantized_flash_attention(q.half(), k.half(), v.half())
+
+
+# (schedule, radius or section, n, d, bound_max, dtype): the circulant band
+# (halo-extended K/V) and the block-diagonal schedule at d 64 and 128, ragged
+# n, sections that are 64-multiples (64, 256), span a 64-row tile boundary
+# (192) or sit several to a tile (16)
+_B1_NEW_KINDS = [
+    ("circulant", 512, 2048, 128, None, torch.bfloat16),
+    ("circulant", 64, 1000, 64, False, torch.bfloat16),
+    ("circulant", 100, 777, 128, True, torch.float32),
+    ("circulant", 0, 300, 64, None, torch.bfloat16),
+    ("block", 64, 1024, 128, None, torch.bfloat16),
+    ("block", 192, 960, 64, None, torch.bfloat16),
+    ("block", 256, 1000, 128, True, torch.float32),
+    ("block", 16, 512, 64, None, torch.bfloat16),
+]
+
+
+@pytest.mark.parametrize("case", _B1_NEW_KINDS, ids=[
+    f"{c[0]}-{c[1]}-n{c[2]}-d{c[3]}-{str(c[5])[6:]}" for c in _B1_NEW_KINDS])
+def test_flash_kernel_circulant_and_block_match_plain(gen, case):
+    """B1's circulant (B11's circulant half) and block-diagonal kinds vs the
+    plain version (16 q / 8 kv heads): bf16 2e-2, f32 1e-4, lse 1e-4 (f32)
+    or 2e-2 (bf16), as the other B1 cases."""
+    schedule, extra, n, d, bound, dtype = case
+    hq, hkv = 16, 8
+    q = (torch.randn(hq, n, d, generator=gen, device="cuda")
+         * (d ** -0.5 * tflash.LOG2E)).to(dtype)
+    k = torch.randn(hkv, n, d, generator=gen, device="cuda").to(dtype)
+    v = torch.randn(hkv, n, d, generator=gen, device="cuda").to(dtype)
+    if schedule == "circulant":
+        sched = tflash.build_schedule("circulant", n, n, 512, 1024, radius=extra)
+        if extra:
+            k = torch.cat([k[:, -extra:], k, k[:, :extra]], dim=1)
+            v = torch.cat([v[:, -extra:], v, v[:, :extra]], dim=1)
+    else:
+        sched = tflash.build_schedule("block", n, n, 1024, 2048, section=extra)
+    if bound is None:
+        bound = tflash.auto_bound_max(sched)
+    before = kernels.LAUNCHES["flash_fwd"]
+    ko, kl = tflash._flash_fwd_kernel(q, k, v, sched, hq, hkv, True, bound)
+    po, pl = tflash._flash_fwd_plain(q, k, v, sched, hq, hkv, bound)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["flash_fwd"] == before + 1
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+    assert float((ko.float() - po.float()).abs().max()) <= tol
+    fin = torch.isfinite(pl)
+    assert torch.equal(torch.isfinite(kl), fin)
+    assert float((kl[fin] - pl[fin]).abs().max()) <= tol
+
+
+def test_circulant_and_block_public_calls_match_oracle(gen):
+    """circulant_fa and 2-D block_fa on the card vs the f32 oracles
+    (circulant_dpa, block_dpa): bf16 2.5e-2, the sweep's gate."""
+    from tpu_flash_torch.ops.oracle import block_dpa, circulant_dpa
+
+    q, k, v = (torch.randn(1, 4, 1000, 64, generator=gen, device="cuda")
+               .bfloat16() for _ in range(3))
+    o, lse = tflash.circulant_fa(q, k, v, 129, return_lse=True)
+    oo, ol = circulant_dpa(q, k, v, 129)
+    assert float((o.float() - oo.float()).abs().max()) <= 2.5e-2
+    assert float((lse - ol).abs().max()) <= 2.5e-2
+    q, k, v = (torch.randn(1, 32, 32, 4, 64, generator=gen, device="cuda")
+               .bfloat16() for _ in range(3))
+    got = tflash.block_fa(q, k, v, (8, 16))
+    assert float((got.float() - block_dpa(q, k, v, (8, 16)).float())
+                 .abs().max()) <= 2.5e-2
+
+
+@pytest.mark.parametrize("fa", ["circulant", "block"])
+def test_circulant_and_block_backward_kernel_raises(gen, fa):
+    """Their backward has no CUDA kernel yet: it raises, naming ROADMAP A8."""
+    q, k, v = (torch.randn(1, 2, 128, 64, generator=gen, device="cuda",
+                           requires_grad=True) for _ in range(3))
+    o = (tflash.circulant_fa(q, k, v, 33) if fa == "circulant"
+         else tflash.block_fa(q, k, v, 64))
+    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
+        o.sum().backward()
+
+
+# (shape, axis, dtype, scale): both sides of the one-pass threshold (rows of
+# 16384 / 16385, columns of 512 / 513), 3-D inputs, bf16, extreme values
+_SOFTMAX_CASES = [
+    ((37, 500), -1, torch.float32, 3.0),
+    ((64, 16384), -1, torch.float32, 3.0),
+    ((64, 16385), -1, torch.float32, 3.0),
+    ((8, 70000), -1, torch.float32, 3.0),
+    ((300, 40), -2, torch.float32, 3.0),
+    ((512, 96), -2, torch.float32, 3.0),
+    ((513, 96), -2, torch.float32, 3.0),
+    ((2, 5000, 130), -2, torch.float32, 3.0),
+    ((3, 5, 300), -1, torch.float32, 3.0),
+    ((4, 7, 9), 0, torch.float32, 3.0),
+    ((64, 3000), -1, torch.bfloat16, 3.0),
+    ((700, 33), -2, torch.bfloat16, 3.0),
+    ((16, 70000), -1, torch.float32, 50.0),
+    ((5000, 200), 0, torch.float32, 50.0),
+]
+
+
+@pytest.mark.parametrize("case", _SOFTMAX_CASES, ids=[
+    f"{'x'.join(map(str, c[0]))}-ax{c[1]}-{str(c[2])[6:]}-s{c[3]:g}"
+    for c in _SOFTMAX_CASES])
+def test_softmax_kernels_match_plain(gen, case):
+    """fused_softmax through the kernels vs its plain versions on the same
+    input (f32 2e-6, bf16 1e-2), each kernel called alone vs its own plain
+    version, fibers summing to 1 (f32 1e-5) and finite at scale 50."""
+    from tpu_flash_torch.ops import softmax as sm
+
+    shape, axis, dtype, scale = case
+    x = (torch.randn(*shape, generator=gen, device="cuda") * scale).to(dtype)
+    counts = {k: kernels.LAUNCHES[k] for k in ("softmax_onepass",
+                                               "softmax_stats", "softmax_norm")}
+    got = sm.fused_softmax(x, axis=axis)
+    torch.cuda.synchronize()
+    assert sum(kernels.LAUNCHES[k] - c for k, c in counts.items()) >= 1
+    tol = 2e-6 if dtype == torch.float32 else 1e-2
+    assert torch.isfinite(got).all()
+    assert float((got.float() - sm._fused_softmax(x, axis, True).float())
+                 .abs().max()) <= tol
+    if dtype == torch.float32:
+        assert float((got.double().sum(dim=axis) - 1).abs().max()) <= 1e-5
+    ax = axis % x.ndim  # the (L, n, m) view fused_softmax takes
+    x3 = (x.reshape(-1, *x.shape[-2:]) if ax == x.ndim - 2
+          else x.movedim(ax, -1).reshape(-1, x.shape[ax], 1))
+    lse = sm._stats_kernel(x3)
+    assert float((lse - sm._stats_plain(x3)).abs().max()) <= 1e-5
+    assert float((sm._norm_kernel(x3, lse).float()
+                  - sm._norm_plain(x3, lse).float()).abs().max()) <= tol
+    if sm.onepass_fits(x3.shape[1], x3.shape[2]):
+        assert float((sm._onepass_kernel(x3).float()
+                      - sm._onepass_plain(x3).float()).abs().max()) <= tol
+
+
+@pytest.mark.parametrize("m,k,n,dtype", [
+    (256, 256, 256, torch.float32), (300, 130, 70, torch.float32),
+    (300, 130, 70, torch.bfloat16), (1024, 512, 256, torch.bfloat16),
+    (4000, 1000, 3000, torch.bfloat16), (257, 129, None, torch.bfloat16),
+    (512, 4096, 512, torch.float32)])
+def test_matmul_kernel_matches_plain(gen, m, k, n, dtype):
+    """B14 vs its plain version (k-chunked float32 products), square and
+    ragged (k and n not multiples of 8 take the element loads), bf16 and
+    float32, and a matvec: relative to the largest |plain| entry, bf16
+    2^-7 (one bf16 ulp of it: two roundings of float32 sums taken in other
+    orders differ by at most that) and float32 1e-5 (summation order)."""
+    from tpu_flash_torch.ops import matmul as mm
+
+    a = torch.randn(m, k, generator=gen, device="cuda").to(dtype)
+    b = torch.randn(*((k,) if n is None else (k, n)), generator=gen,
+                    device="cuda").to(dtype)
+    before = kernels.LAUNCHES["matmul"]
+    got = mm.matvec(a, b) if n is None else mm.matmul(a, b)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["matmul"] == before + 1
+    want = mm._matmul_plain(a, b[:, None] if n is None else b, dtype)
+    want = want[:, 0] if n is None else want
+    tol = 2 ** -7 + 1e-5 if dtype == torch.bfloat16 else 1e-5
+    top = float(want.float().abs().max())
+    assert float((got.float() - want.float()).abs().max()) <= tol * top
+    f32 = mm.matmul(a, b[:, None] if n is None else b, out_dtype=torch.float32)
+    assert f32.dtype == torch.float32
+
+
+def test_primitive_kernels_reject_what_they_do_not_take(gen):
+    from tpu_flash_torch.ops import matmul as mm
+    from tpu_flash_torch.ops import softmax as sm
+
+    with pytest.raises(NotImplementedError):
+        sm._onepass_kernel(torch.zeros(2, 8, 1, device="cuda",
+                                       dtype=torch.float16))
+    with pytest.raises(ValueError, match="one-pass"):
+        sm._onepass_kernel(torch.zeros(1, 20000, 1, device="cuda"))
+    with pytest.raises(NotImplementedError):
+        mm.matmul(torch.zeros(4, 4, device="cuda"),
+                  torch.zeros(4, 4, device="cuda", dtype=torch.bfloat16))

@@ -18,27 +18,28 @@ from typing import Callable, Optional
 
 import torch
 
-# NVIDIA H100 SXM datasheet, dense tensor-core rates and HBM bandwidth
+# NVIDIA H100 SXM datasheet: dense tensor-core rates, float32 outside the
+# tensor cores (a float32 matmul runs there with TF32 off), HBM bandwidth
 _PEAKS = {
     "NVIDIA H100": {"bf16": 989e12, "fp8": 1979e12, "int8": 1979e12,
-                    "hbm_bytes": 3.35e12},
+                    "f32": 67e12, "hbm_bytes": 3.35e12},
 }
+_NO_PEAKS = {"bf16": None, "fp8": None, "int8": None, "f32": None,
+             "hbm_bytes": None}
 
 
 def device_peaks(device=None) -> dict:
-    """{'bf16', 'fp8', 'int8' (operations/s), 'hbm_bytes' (bytes/s),
-    'kind'} of a CUDA device. A device with no datasheet entry (or the
-    CPU) has no peaks: its rates are None."""
+    """{'bf16', 'fp8', 'int8', 'f32' (operations/s), 'hbm_bytes'
+    (bytes/s), 'kind'} of a CUDA device. A device with no datasheet entry
+    (or the CPU) has no peaks: its rates are None."""
     device = torch.device("cuda" if device is None else device)
     if device.type != "cuda":
-        return {"bf16": None, "fp8": None, "int8": None, "hbm_bytes": None,
-                "kind": "cpu"}
+        return dict(_NO_PEAKS, kind="cpu")
     kind = torch.cuda.get_device_name(device)
     for prefix, peaks in _PEAKS.items():
         if kind.startswith(prefix):
             return dict(peaks, kind=kind)
-    return {"bf16": None, "fp8": None, "int8": None, "hbm_bytes": None,
-            "kind": kind}
+    return dict(_NO_PEAKS, kind=kind)
 
 
 def attention_flops(batch: int, heads: int, n_q: int, n_kv: int, d: int,

@@ -6,17 +6,26 @@
 // (b // hq)·hkv + (b % hq) // g, o = 0 and lse = -inf for fully masked
 // rows, lse in natural-log units. Two more TPU kernels fold into it:
 // _fwd_kernel_band (flash.py:380, the local band with its kv slab streamed
-// by a manual DMA) is the same band online softmax, kinds 2 and 3 below;
-// _fwd_kernel_t (flash.py:711, the d <= 64 transposed forward whose max IS
-// the norm bound) is the bound mode below at d 64.
+// by a manual DMA) is the same band online softmax, kinds 2 and 3 below,
+// and its circulant half is kind 4; _fwd_kernel_t (flash.py:711, the d <= 64
+// transposed forward whose max IS the norm bound) is the bound mode below at
+// d 64. The reference's block-diagonal schedule on _fwd_kernel is kind 5.
 //
 // Schedules (kind): 0 dense; 1 causal, right-aligned (key j visible to
 // query i when j <= i + offset); 2 local, |i - j| <= radius, left-aligned;
-// 3 local_causal, the band and j <= i. A q tile walks the kv tiles from
-// max(0, q0 - radius) / BKV to min(last tile, (q_last + radius) / BKV),
-// stopping at q_last / BKV under local_causal (and at (q_last + offset) /
-// BKV under causal); a tile wholly inside the visible region skips the
-// per-element mask, as the reference's block_unmasked does.
+// 3 local_causal, the band and j <= i; 4 circulant, over the halo-extended
+// K/V cat(k[-r:], k, k[:r]) the wrapper builds: 0 <= j - i <= 2·radius (the
+// wraparound band as a contiguous one, CirculantSchedule's _first_step and
+// _last_block); 5 block-diagonal, i / section == j / section. A q tile walks
+// the kv tiles from max(0, q0 - radius) / BKV to min(last tile, (q_last +
+// radius) / BKV) under the local kinds, stopping at q_last / BKV under
+// local_causal (and at (q_last + offset) / BKV under causal); from q0 / BKV
+// to (q_last + 2·radius) / BKV under the circulant; over the sections its
+// rows fall in under the block-diagonal (tiles of other sections are never
+// visited: the block skip, where a section that is not a multiple of 64 or a
+// tile spanning two sections masks per element). A tile wholly inside the
+// visible region skips the per-element mask, as the reference's
+// block_unmasked does.
 //
 // Running max: exact, or (kmax != null) the constant norm bound
 // m_i = ||q~_i|| * (max_j ||k_j|| * 1.0001), set once per row: no max pass,
@@ -34,7 +43,9 @@
 // What bounds it on an H100: at the serving prefill (n = 1024, d = 128,
 // 16 q heads) it is tensor-core FLOPs, 4·n²·d/2·heads ≈ 4.3 GFLOP causal
 // against ~33 MB of q/k/v/o traffic, far right of the ~295 FLOP/B ridge;
-// a band of radius 512 at n 2048 keeps about half of the causal work.
+// a band of radius 512 at n 2048 keeps about half of the causal work; the
+// circulant (n 8192, w 1025) and block-diagonal (section 512) kinds visit
+// about (2r + 64)/64 and section/64 kv tiles a q tile, the same loop.
 // Design: one block of 4 warps per (64-row q tile, bh row); a loop inside
 // the block walks the kv tiles of its range (the TPU's sequential grid
 // axis). Q, K, V tiles sit in shared memory; bf16 Q·Kᵀ and P·V run on
@@ -62,7 +73,8 @@ constexpr int NTHREADS = NWARPS * 32;
 constexpr float MASK = -0x1.666664p+127f;
 constexpr float LN2 = 0.693147180559945309f;
 constexpr float BOUND_SLACK = 1.0001f;  // the reference's factor
-enum Kind { DENSE = 0, CAUSAL = 1, LOCAL = 2, LOCAL_CAUSAL = 3 };
+enum Kind { DENSE = 0, CAUSAL = 1, LOCAL = 2, LOCAL_CAUSAL = 3, CIRCULANT = 4,
+            BLOCK = 5 };
 
 template <typename T> struct Ty;
 template <> struct Ty<__nv_bfloat16> {
@@ -113,9 +125,11 @@ __device__ void load_tile(T* dst, int ld, const T* src, int row0, int n,
 
 // key kpos visible to query qpos under the schedule
 __device__ bool visible(int kind, int qpos, int kpos, int n_kv, int offset,
-                        int radius) {
+                        int radius, int section) {
   if (kpos >= n_kv) return false;
   if (kind == CAUSAL) return kpos <= qpos + offset;
+  if (kind == CIRCULANT) return kpos >= qpos && kpos - qpos <= 2 * radius;
+  if (kind == BLOCK) return kpos / section == qpos / section;
   if (kind == LOCAL || kind == LOCAL_CAUSAL) {
     const int dist = qpos - kpos;
     if (dist > radius || -dist > radius) return false;
@@ -204,7 +218,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ o,
                  float* __restrict__ lse, const float* __restrict__ kmax,
                  int n_q, int n_kv, int hq, int hkv, int kind, int offset,
-                 int radius) {
+                 int radius, int section) {
   using S = Smem<T, HD>;
   extern __shared__ __align__(128) unsigned char smem[];
   T* qs = reinterpret_cast<T*>(smem + S::q_off);
@@ -256,6 +270,12 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     first = max(0, q0 - radius) / BKV;
     last = min(last, (q_last + radius) / BKV);
     if (kind == LOCAL_CAUSAL) last = min(last, q_last / BKV);
+  } else if (kind == CIRCULANT) {
+    first = q0 / BKV;
+    last = min(last, (q_last + 2 * radius) / BKV);
+  } else if (kind == BLOCK) {
+    first = (q0 / section) * section / BKV;
+    last = min(last, ((q_last / section + 1) * section - 1) / BKV);
   }
 
   for (int s = first; s <= last; ++s) {
@@ -267,6 +287,12 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     } else if (kind == LOCAL || kind == LOCAL_CAUSAL) {
       full = full && k_hi - q0 <= radius && q_last - k0 <= radius;
       if (kind == LOCAL_CAUSAL) full = full && k_hi <= q0;
+    } else if (kind == CIRCULANT) {
+      full = full && k0 >= q_last && k_hi - q0 <= 2 * radius;
+    } else if (kind == BLOCK) {
+      const int sec = q0 / section;
+      full = full && q_last / section == sec && k0 / section == sec &&
+             k_hi / section == sec;
     }
     __syncthreads();  // previous step done with ks/vs (and init visible)
     load_tile<T, HD>(ks, S::LDQ, kb, k0, n_kv, BKV);
@@ -281,7 +307,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int j = 0; j < BKV / 32; ++j) {
         const int c = lane + 32 * j;
         const bool seen =
-            full || visible(kind, qpos, k0 + c, n_kv, offset, radius);
+            full || visible(kind, qpos, k0 + c, n_kv, offset, radius, section);
         sv[j] = seen ? ss[r * S::LDS + c] : MASK;
         mx = fmaxf(mx, sv[j]);
       }
@@ -327,7 +353,7 @@ template <typename T, int HD>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    float* lse, const float* kmax, int bh, int n_q, int n_kv,
                    int hq, int hkv, int kind, int offset, int radius,
-                   cudaStream_t stream) {
+                   int section, cudaStream_t stream) {
   auto kern = flash_fwd_kernel<T, HD>;
   const size_t smem = Smem<T, HD>::bytes;
   cudaError_t err =
@@ -336,7 +362,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   dim3 grid((n_q + BQ - 1) / BQ, bh);
   kern<<<grid, NTHREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), lse, kmax, n_q, n_kv, hq, hkv, kind, offset, radius);
+      static_cast<T*>(o), lse, kmax, n_q, n_kv, hq, hkv, kind, offset, radius,
+      section);
   return cudaGetLastError();
 }
 
@@ -346,27 +373,29 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
 // lse: (bh, n_q) float32 or null; kmax: (bh / hq · hkv,) float32 max key
 // norm per kv row for the norm-bound max, or null for the exact max. All
 // contiguous, 16-byte aligned. kind: 0 dense, 1 causal (offset), 2 local,
-// 3 local_causal (radius). dtype: 0 = float32, 1 = bfloat16. d ∈ {64, 128}.
+// 3 local_causal (radius), 4 circulant (radius; k, v halo-extended, n_kv =
+// n + 2·radius), 5 block-diagonal (section). dtype: 0 = float32,
+// 1 = bfloat16. d ∈ {64, 128}.
 extern "C" cudaError_t tf_flash_fwd(const void* q, const void* k, const void* v,
                                     void* o, float* lse, const float* kmax,
                                     int bh, int n_q, int n_kv, int hq, int hkv,
                                     int d, int kind, int offset, int radius,
-                                    int dtype, cudaStream_t stream) {
+                                    int section, int dtype, cudaStream_t stream) {
   if (bh <= 0 || n_q <= 0) return cudaSuccess;
-  if (hkv <= 0 || hq % hkv != 0 || kind < DENSE || kind > LOCAL_CAUSAL ||
-      radius < 0)
+  if (hkv <= 0 || hq % hkv != 0 || kind < DENSE || kind > BLOCK || radius < 0 ||
+      (kind == BLOCK && section <= 0))
     return cudaErrorInvalidValue;
   if (dtype == 1 && d == 128)
     return launch<__nv_bfloat16, 128>(q, k, v, o, lse, kmax, bh, n_q, n_kv, hq, hkv,
-                                      kind, offset, radius, stream);
+                                      kind, offset, radius, section, stream);
   if (dtype == 1 && d == 64)
     return launch<__nv_bfloat16, 64>(q, k, v, o, lse, kmax, bh, n_q, n_kv, hq, hkv,
-                                     kind, offset, radius, stream);
+                                     kind, offset, radius, section, stream);
   if (dtype == 0 && d == 128)
     return launch<float, 128>(q, k, v, o, lse, kmax, bh, n_q, n_kv, hq, hkv, kind,
-                              offset, radius, stream);
+                              offset, radius, section, stream);
   if (dtype == 0 && d == 64)
     return launch<float, 64>(q, k, v, o, lse, kmax, bh, n_q, n_kv, hq, hkv, kind,
-                             offset, radius, stream);
+                             offset, radius, section, stream);
   return cudaErrorInvalidValue;
 }

@@ -12,7 +12,8 @@ import torch
 
 LAUNCHES = {"flash_fwd": 0, "paged_attention": 0, "paged_append": 0,
             "flash_bwd_dq": 0, "flash_bwd_dkv": 0, "serving_attention": 0,
-            "quant_attention": 0}
+            "quant_attention": 0, "softmax_onepass": 0, "softmax_stats": 0,
+            "softmax_norm": 0, "matmul": 0}
 
 # Storage type codes shared with the C entry points.
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}

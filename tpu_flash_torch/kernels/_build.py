@@ -34,8 +34,8 @@ _vp, _i32 = ctypes.c_void_p, ctypes.c_int
 # Each entry point returns cudaError_t (an int); 0 is success.
 _SIGNATURES = {
     # q, k, v, o, lse, kmax, bh_q, n_q, n_kv, hq, hkv, d, kind, offset,
-    # radius, dtype, stream
-    "tf_flash_fwd": [_vp] * 6 + [_i32] * 10 + [_vp],
+    # radius, section, dtype, stream
+    "tf_flash_fwd": [_vp] * 6 + [_i32] * 11 + [_vp],
     # q, k_pages, v_pages, k_scales, v_scales, slots, lengths,
     # lengths_override, positions, page_tables, out, lse, b, kvh, g, d,
     # page, total_pages, max_pages, pages_bound, len_add, radius,
@@ -58,6 +58,14 @@ _SIGNATURES = {
     # q, sq, k, v, sk_token, sv, gk, o, lse, bh, n_q, n_kv, hq, hkv, d,
     # causal, offset, q_int8, kv_dtype, o_f32, c, stream
     "tf_quant_attention": [_vp] * 9 + [_i32] * 11 + [ctypes.c_float, _vp],
+    # x, out, n, fibers, m, dtype, stream
+    "tf_softmax_onepass": [_vp] * 2 + [_i32] * 4 + [_vp],
+    # x, lse, n, fibers, m, dtype, stream
+    "tf_softmax_stats": [_vp] * 2 + [_i32] * 4 + [_vp],
+    # x, lse, out, n, fibers, m, dtype, stream
+    "tf_softmax_norm": [_vp] * 3 + [_i32] * 4 + [_vp],
+    # a, b, out, m, n, k, in_dtype, out_dtype, stream
+    "tf_matmul": [_vp] * 3 + [_i32] * 5 + [_vp],
 }
 
 

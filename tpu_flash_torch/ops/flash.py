@@ -1,6 +1,9 @@
-"""Fused attention forward (B1): port of ``flash_attention``, ``dense_fa``
-and ``sliding_fa`` from ``tpu_flash/ops/flash.py`` for the dense, causal,
-local and local_causal schedules.
+"""Fused attention forward (B1): port of ``flash_attention`` and its public
+wrappers (``dense_fa``, ``sliding_fa``, ``circulant_fa``, ``block_fa``,
+``windowed_fa``, with N-d ``(batch, *spatial, heads, d)`` inputs) from
+``tpu_flash/ops/flash.py`` for the dense, causal, local, local_causal,
+block-diagonal and circulant schedules (the ring-hop schedule is ROADMAP
+A13).
 
 Public layout ``(batch, heads, n, d)``, GQA through the kv-row map, lse in
 natural-log units, and a fully masked row gives o = 0, lse = −inf. The
@@ -10,8 +13,12 @@ before the PV product. The running max is exact, or with ``bound_max`` the
 constant norm bound ``‖q̃_i‖·max_j‖k_j‖·1.0001`` (no max pass, no rescale):
 the reference's B1 bound and its d ≤ 64 transposed kernel B9
 (``_fwd_kernel_t``) both compute that function, so B9 folds into B1 here,
-as the band kernel B11 (``_fwd_kernel_band``, the same local schedules with
-the kv band streamed by a manual DMA) does.
+as the band kernel B11 (``_fwd_kernel_band``, the same local and circulant
+schedules with the kv band streamed by a manual DMA) does. The circulant
+band runs over halo-extended K/V (``cat([k[-r:], k, k[:r]])``, built here as
+the reference builds it), so query ``i`` sees the contiguous extended keys
+``[i, i + 2r]``; the block-diagonal schedule visits only each query tile's
+own section.
 
 :func:`_flash_fwd` dispatches on the tensors' device: CPU tensors take the
 plain PyTorch version :func:`_flash_fwd_plain`; CUDA tensors launch the
@@ -21,8 +28,10 @@ hand-written kernel in ``csrc/flash_fwd.cu`` through
 :class:`_FlashAttention` makes the core differentiable, the counterpart of
 the reference's ``_fa`` custom VJP: its backward is
 ``ops/flash_bwd.py:flash_backward`` (B4 + B5 on the card for the dense and
-causal schedules; the band backward is ROADMAP A8). The prescale of q and
-its cast stay outside it, so autograd puts ``scale·log2(e)`` on dq.
+causal schedules; the band, circulant and block-diagonal backward is
+ROADMAP A8). The prescale of q and its cast, and the circulant halo, stay
+outside it, so autograd puts ``scale·log2(e)`` on dq and folds the halo's
+gradient back.
 """
 
 from __future__ import annotations
@@ -34,10 +43,17 @@ import torch
 
 from tpu_flash_torch import kernels
 from tpu_flash_torch.ops.schedule import (
+    BlockDiagonalSchedule,
     CausalSchedule,
+    CirculantSchedule,
     LocalSchedule,
     Schedule,
     cdiv,
+)
+from tpu_flash_torch.utils.layout import (
+    flatten_spatial,
+    unflatten_spatial,
+    windowed,
 )
 
 DEFAULT_MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
@@ -52,14 +68,15 @@ KERNEL_BLOCK_KV = 64
 # Options of the reference's flash_attention that are not ported yet, with
 # the ROADMAP item that adds them.
 _UNPORTED = {
-    "section": "A11", "shift": "A13", "wrap_n": "A13",
-    "shifted_causal": "A13", "bwd_split": "A8", "bwd_quant": "A8",
+    "shift": "A13", "wrap_n": "A13", "shifted_causal": "A13",
+    "bwd_split": "A8", "bwd_quant": "A8",
 }
 # the norm bound's slack over ‖q̃_i‖·max_j‖k_j‖ (the reference's factor)
 BOUND_SLACK = 1.0001
 # schedule kinds of csrc/flash_fwd.cu
 _KIND = {(Schedule, False): 0, (CausalSchedule, False): 1,
-         (LocalSchedule, False): 2, (LocalSchedule, True): 3}
+         (LocalSchedule, False): 2, (LocalSchedule, True): 3,
+         (CirculantSchedule, False): 4, (BlockDiagonalSchedule, False): 5}
 
 
 def _round_up(x: int, m: int) -> int:
@@ -71,11 +88,26 @@ def _pick_block(n: int, preferred: int) -> int:
 
 
 def build_schedule(schedule: str, n_q: int, n_kv: int, block_q: int,
-                   block_kv: int, *, radius: int = 0) -> Schedule:
-    """Pick blocks and build the Schedule (dense, causal, local and
-    local_causal; ``radius`` bands the local ones)."""
-    common = dict(n_q=n_q, n_kv=n_kv, block_q=_pick_block(n_q, block_q),
-                  block_kv=_pick_block(n_kv, block_kv))
+                   block_kv: int, *, radius: int = 0,
+                   section: int = 0) -> Schedule:
+    """Pick blocks and build the Schedule (dense, causal, local,
+    local_causal, block, circulant; ``radius`` bands the local and circulant
+    ones, ``section`` sizes the block-diagonal chunks). ``n_kv`` is the real
+    key length: the circulant's kv block is picked against its
+    halo-extended length, and the block schedule's blocks shrink until they
+    divide the section, as in the reference."""
+    bq = _pick_block(n_q, block_q)
+    bkv = _pick_block(n_kv + 2 * radius if schedule == "circulant" else n_kv,
+                      block_kv)
+    if schedule == "block":
+        if section <= 0:
+            raise ValueError("block schedule requires section > 0")
+        bq, bkv = min(bq, section), min(bkv, section)
+        while section % bq:
+            bq -= 1
+        while section % bkv:
+            bkv -= 1
+    common = dict(n_q=n_q, n_kv=n_kv, block_q=bq, block_kv=bkv)
     if schedule == "dense":
         return Schedule(**common)
     if schedule == "causal":
@@ -83,17 +115,25 @@ def build_schedule(schedule: str, n_q: int, n_kv: int, block_q: int,
     if schedule in ("local", "local_causal"):
         return LocalSchedule(**common, radius=radius,
                              causal=schedule == "local_causal")
-    raise NotImplementedError(
-        f"schedule {schedule!r} is not ported yet (ROADMAP A11 block/"
-        "circulant, A13 shifted)")
+    if schedule == "block":
+        return BlockDiagonalSchedule(**common, section=section)
+    if schedule == "circulant":
+        return CirculantSchedule(**common, radius=radius)
+    if schedule == "shifted":
+        raise NotImplementedError(
+            "schedule 'shifted' is not ported yet (ROADMAP A13)")
+    raise ValueError(f"unknown schedule {schedule!r}")
 
 
 def auto_bound_max(sched: Schedule) -> bool:
     """The reference's default max policy (``ops/flash.py:1005-1007``): the
-    norm bound for mask-free dense and for non-causal bands, the exact
-    running max for causal and local_causal (and ragged dense)."""
-    band = isinstance(sched, LocalSchedule)
-    return (not sched.has_mask) or (band and not sched.causal)
+    norm bound for mask-free dense and for non-causal bands (local and
+    circulant), the exact running max for causal, local_causal,
+    block-diagonal (even when aligned sections leave it mask-free) and
+    ragged dense."""
+    band = isinstance(sched, (LocalSchedule, CirculantSchedule))
+    return ((not sched.has_mask and not isinstance(sched, BlockDiagonalSchedule))
+            or (band and not getattr(sched, "causal", False)))
 
 
 def key_norm_max(k: torch.Tensor) -> torch.Tensor:
@@ -115,8 +155,8 @@ def _flash_fwd_plain(q, k, v, sched: Schedule, hq: int, hkv: int,
     """Plain PyTorch forward on prescaled ``(B·HQ, n_q, d)`` q and
     ``(B·HKV, n_kv, d)`` k/v → (o in q's dtype, lse f32 ``(B·HQ, n_q)``).
 
-    One full score matrix with the schedule's mask instead of the kernel's
-    online softmax: the max is the row's exact max either way (or the same
+    One full score matrix with the schedule's visibility (``visible``)
+    instead of the kernel's online softmax: the max is the row's exact max either way (or the same
     constant norm bound under ``bound_max``), so the two differ only by
     rounding.
     """
@@ -125,8 +165,8 @@ def _flash_fwd_plain(q, k, v, sched: Schedule, hq: int, hkv: int,
     rows = _kv_rows(bh, hq, hkv, q.device)
     kq, vq = k[rows], v[rows]
     s = torch.einsum("bqd,bkd->bqk", q.float(), kq.float())
-    mask = sched.mask(torch.arange(n_q, device=q.device)[:, None],
-                      torch.arange(n_kv, device=q.device)[None, :])
+    mask = sched.visible(torch.arange(n_q, device=q.device)[:, None],
+                         torch.arange(n_kv, device=q.device)[None, :])
     if mask is not None:
         s = torch.where(mask, s, DEFAULT_MASK_VALUE)
     if bound_max:
@@ -154,8 +194,9 @@ def _flash_fwd_kernel(q, k, v, sched: Schedule, hq: int, hkv: int,
                       need_lse: bool, bound_max: bool = False):
     """Launch ``csrc/flash_fwd.cu`` on CUDA tensors (same contract as
     :func:`_flash_fwd_plain`). Ragged edges are masked in the kernel, so
-    nothing is padded; the kernel takes the schedule's kind, causal offset
-    and band radius and walks its own 64×64 tiles."""
+    nothing is padded; the kernel takes the schedule's kind, causal offset,
+    band radius and section and walks its own 64×64 tiles (k/v of a
+    circulant schedule are the halo-extended ones)."""
     from tpu_flash_torch.kernels import _build
 
     kind = _KIND.get((type(sched), getattr(sched, "causal", False)))
@@ -186,7 +227,8 @@ def _flash_fwd_kernel(q, k, v, sched: Schedule, hq: int, hkv: int,
         None if kmax is None else kmax.data_ptr(),
         bh, n_q, n_kv, hq, hkv, d, kind,
         sched._offset if kind == 1 else 0, getattr(sched, "radius", 0),
-        kernels.dtype_code(q.dtype), kernels.stream_handle(q),
+        getattr(sched, "section", 0), kernels.dtype_code(q.dtype),
+        kernels.stream_handle(q),
     )
     _build.check(err, "tf_flash_fwd")
     kernels.LAUNCHES["flash_fwd"] += 1
@@ -251,6 +293,7 @@ def flash_attention(
     schedule: str = "dense",
     scale: Optional[float] = None,
     radius: int = 0,
+    section: int = 0,
     block_q: Optional[int] = None,
     block_kv: Optional[int] = None,
     return_lse: bool = False,
@@ -262,9 +305,12 @@ def flash_attention(
 ):
     """Schedule-parameterized fused attention on ``(batch, heads, n, d)``.
 
-    ``schedule`` ∈ {"dense", "causal", "local", "local_causal"}; ``radius``
-    bands the local ones (query ``i`` sees keys ``|i − j| ≤ radius``); k/v
-    may have fewer heads (GQA).
+    ``schedule`` ∈ {"dense", "causal", "local", "local_causal", "block",
+    "circulant"}; ``radius`` bands the local ones (query ``i`` sees keys
+    ``|i − j| ≤ radius``) and the circulant (keys ``(i + o) mod n``, ``|o| ≤
+    radius``); ``section`` sizes the block-diagonal chunks (query ``i`` sees
+    keys ``j`` with ``i // section == j // section``); k/v may have fewer
+    heads (GQA).
     ``q_dtype``/``kv_dtype`` (int8 / float8 names or torch dtypes;
     ``kv_dtype`` alone is the weight-only mode) route to
     ``quant/flash_q.py:quantized_flash_attention`` (kernel B7, or B6 at
@@ -293,7 +339,7 @@ def flash_attention(
         return quantized_flash_attention(
             q, k, v, q_dtype=q_dtype,
             kv_dtype=kv_dtype if kv_dtype is not None else q_dtype,
-            schedule=schedule, scale=scale, radius=radius,
+            schedule=schedule, scale=scale, radius=radius, section=section,
             block_q=1024 if block_q is None else block_q,
             block_kv=min(2048 if block_kv is None else block_kv, 2048),
             return_lse=return_lse,
@@ -320,12 +366,15 @@ def flash_attention(
     if scale is None:
         scale = 1.0 / math.sqrt(d)
     sched = build_schedule(schedule, n_q, n_kv, block_q, block_kv,
-                           radius=radius)
+                           radius=radius, section=section)
     if bound_max is None:
         bound_max = auto_bound_max(sched)
     qf = (q.float() * (scale * LOG2E)).to(q.dtype).reshape(b * h, n_q, d)
     kf = k.reshape(b * hkv, n_kv, d)
     vf = v.reshape(b * hkv, n_kv, dv)
+    if schedule == "circulant" and radius > 0:
+        kf = torch.cat([kf[:, -radius:], kf, kf[:, :radius]], dim=1)
+        vf = torch.cat([vf[:, -radius:], vf, vf[:, :radius]], dim=1)
     o, lse = _fa(qf, kf, vf, sched, h, hkv, return_lse, bool(bound_max))
     o = o.reshape(b, h, n_q, dv)
     if return_lse:
@@ -333,37 +382,142 @@ def flash_attention(
     return o
 
 
-def _check_4d(q) -> None:
-    if q.ndim != 4:
-        raise NotImplementedError(
-            "N-d (batch, *spatial, heads, d) inputs are not ported yet "
-            "(ROADMAP A11)")
+def _flatten_nd(q, k, v):
+    """(b, h, n, d) passes; (b, *spatial, h, d) flattens to (b, h, N, d)."""
+    if q.ndim == 4:
+        return q, k, v, None
+    q2, spatial = flatten_spatial(q)
+    return q2, flatten_spatial(k)[0], flatten_spatial(v)[0], spatial
+
+
+def _unflatten(out, spatial, return_lse: bool):
+    if spatial is None:
+        return out
+    if return_lse:
+        return unflatten_spatial(out[0], spatial), out[1]
+    return unflatten_spatial(out, spatial)
 
 
 def dense_fa(q, k, v, *, scale=None, causal=False, return_lse=False, **kw):
-    """Dense fused attention on ``(batch, heads, n, d)``; N-d inputs are
-    not ported yet (ROADMAP A11)."""
-    _check_4d(q)
-    return flash_attention(
+    """Dense fused attention on ``(batch, heads, n, d)`` or N-d
+    ``(batch, *spatial, heads, d)`` (spatial dims flattened; lse comes back
+    as ``(batch, heads, N)``)."""
+    q, k, v, spatial = _flatten_nd(q, k, v)
+    out = flash_attention(
         q, k, v, schedule="causal" if causal else "dense", scale=scale,
         return_lse=return_lse, **kw,
     )
+    return _unflatten(out, spatial, return_lse)
 
 
 def sliding_fa(q, k, v, window_size: int, *, scale=None, causal=False,
                return_lse=False, **kw):
     """Sliding-window (local band) fused attention on ``(batch, heads, n,
-    d)``: query ``i`` sees keys ``|i − j| ≤ (window_size − 1)/2`` (and
-    ``j ≤ i`` when ``causal``). The window must be odd; the reference's
-    band tiles (512 × 1024) are the default blocks. N-d inputs are not
-    ported yet (ROADMAP A11)."""
+    d)`` or N-d inputs (flattened): query ``i`` sees keys ``|i − j| ≤
+    (window_size − 1)/2`` (and ``j ≤ i`` when ``causal``). The window must
+    be odd; the reference's band tiles (512 × 1024) are the default
+    blocks."""
     if window_size % 2 != 1:
         raise ValueError("sliding window must be odd")
     kw.setdefault("block_q", 512)
     kw.setdefault("block_kv", 1024)
-    _check_4d(q)
-    return flash_attention(
+    q, k, v, spatial = _flatten_nd(q, k, v)
+    out = flash_attention(
         q, k, v, schedule="local_causal" if causal else "local",
         radius=(window_size - 1) // 2, scale=scale, return_lse=return_lse,
         **kw,
     )
+    return _unflatten(out, spatial, return_lse)
+
+
+def circulant_fa(q, k, v, window_size: int, *, scale=None, return_lse=False,
+                 **kw):
+    """Circulant-band fused attention: query ``i`` attends keys ``(i + o)
+    mod n``, ``|o| ≤ (window_size − 1)/2``, over the flattened sequence of
+    ``(batch, heads, n, d)`` or N-d inputs, as a contiguous band over
+    halo-extended K/V (no gathers). The window must be odd."""
+    if window_size % 2 != 1:
+        raise ValueError("circulant window must be odd")
+    kw.setdefault("block_q", 512)
+    kw.setdefault("block_kv", 1024)
+    q, k, v, spatial = _flatten_nd(q, k, v)
+    out = flash_attention(
+        q, k, v, schedule="circulant", radius=(window_size - 1) // 2,
+        scale=scale, return_lse=return_lse, **kw,
+    )
+    return _unflatten(out, spatial, return_lse)
+
+
+def _block_major(x, sections):
+    """(b, *spatial, h, d) → (b, h, N, d) with each N-d section contiguous."""
+    b, *spatial, h, d = x.shape
+    nd = len(spatial)
+    shape = [b]
+    for s, sec in zip(spatial, sections):
+        shape += [s // sec, sec]
+    xr = x.reshape(shape + [h, d])
+    perm = ([0] + [1 + 2 * i for i in range(nd)] + [2 + 2 * i for i in range(nd)]
+            + [1 + 2 * nd, 2 + 2 * nd])
+    n = math.prod(spatial)
+    return xr.permute(perm).reshape(b, n, h, d).movedim(1, 2)
+
+
+def _unblock_major(x, spatial, sections):
+    """Inverse of :func:`_block_major` on (b, h, N, d)."""
+    b, h, n, d = x.shape
+    nd = len(spatial)
+    outer = [s // sec for s, sec in zip(spatial, sections)]
+    xr = x.movedim(1, 2).reshape([b] + outer + list(sections) + [h, d])
+    perm = [0]
+    for i in range(nd):
+        perm += [1 + i, 1 + nd + i]
+    return xr.permute(perm + [1 + 2 * nd, 2 + 2 * nd]).reshape(b, *spatial, h, d)
+
+
+def block_fa(q, k, v, block_size, *, scale=None, return_lse=False, **kw):
+    """Disjoint block-diagonal fused attention (windows with stride =
+    window, no padding). 1-D ``(batch, heads, n, d)`` inputs run the
+    block-diagonal schedule directly; N-d ``(batch, *spatial, heads, d)``
+    inputs are permuted block-major (reshapes and transposes, no patch
+    copies) so each N-d block is one contiguous section."""
+    if q.ndim == 4:
+        if isinstance(block_size, (tuple, list)):
+            (block_size,) = block_size
+        if q.shape[2] % block_size:
+            raise ValueError("block_fa requires seq divisible by block_size")
+        return flash_attention(
+            q, k, v, schedule="block", section=block_size, scale=scale,
+            return_lse=return_lse, **kw,
+        )
+    b, *spatial, h, d = q.shape
+    nd = len(spatial)
+    sections = (tuple(block_size) if isinstance(block_size, (tuple, list))
+                else (block_size,) * nd)
+    if any(s % sec for s, sec in zip(spatial, sections)):
+        raise ValueError(f"spatial dims {spatial} must be divisible by {sections}")
+    out = flash_attention(
+        _block_major(q, sections), _block_major(k, sections),
+        _block_major(v, sections), schedule="block",
+        section=math.prod(sections), scale=scale, return_lse=return_lse, **kw,
+    )
+    o = _unblock_major(out[0] if return_lse else out, spatial, sections)
+    return (o, out[1]) if return_lse else o
+
+
+def windowed_fa(q, k, v, window_size, *, stride=None, pad=0, scale=None, **kw):
+    """Overlapping windowed fused attention on ``(batch, *spatial, heads,
+    d)``: windows extracted (``window_size``, ``stride``, ``pad`` per dim),
+    dense flash attention inside each (``**kw`` goes on to
+    :func:`flash_attention`, ``q_dtype``/``kv_dtype`` to the quantized
+    route), the outputs folded back in float32 and averaged where windows
+    overlap. No lse: per-window statistics mean nothing after averaging."""
+    if kw.get("return_lse"):
+        raise NotImplementedError(
+            "windowed_fa cannot return lse: per-window statistics are not "
+            "meaningful after overlap averaging")
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    return windowed(
+        q, k, v, window_size, stride=stride, pad=pad, fold_dtype=torch.float32,
+        attend=lambda qw, kw_, vw: flash_attention(
+            qw, kw_, vw, schedule="dense", scale=scale, **kw))

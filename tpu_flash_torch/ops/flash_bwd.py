@@ -1,7 +1,8 @@
 """Flash-attention backward (B4 dQ, B5 dK/dV): port of ``flash_backward``
 from ``tpu_flash/ops/flash_bwd.py`` for the dense and causal schedules (the
-plain version also takes the local band through its mask; the band's CUDA
-backward is ROADMAP A8 and raises).
+plain version also takes the local band, the circulant band and the
+block-diagonal schedule through their visibility; their CUDA backward is
+ROADMAP A8 and raises).
 
 Recompute-from-lse (FA-2) on prescaled ``(B·H, n, d)`` tensors: q carries
 the forward's ``scale·log2(e)``, so scores are base-2 and no scale appears
@@ -70,8 +71,8 @@ def _flash_bwd_plain(q, k, v, o, lse, do, dlse, sched: Schedule, hq: int,
     kq, vq = k[rows], v[rows]
     delta, lse2 = _delta_lse2(o, lse, do, dlse)
     s = torch.einsum("bqd,bkd->bqk", q.float(), kq.float())
-    mask = sched.mask(torch.arange(n_q, device=q.device)[:, None],
-                      torch.arange(n_kv, device=q.device)[None, :])
+    mask = sched.visible(torch.arange(n_q, device=q.device)[:, None],
+                         torch.arange(n_kv, device=q.device)[None, :])
     if mask is not None:
         s = torch.where(mask, s, DEFAULT_MASK_VALUE)
     p = torch.exp2(s - lse2[..., None])
@@ -135,8 +136,9 @@ def _kernel_operands(q, k, v, o, lse, do, dlse, sched: Schedule, hq: int,
     and B5 read: aligned q, k, v, dO and the float32 lse2 and Δ."""
     if type(sched) not in (Schedule, CausalSchedule):
         raise NotImplementedError(
-            f"no CUDA backward kernel for {type(sched).__name__}: the band "
-            "backward is not ported yet (ROADMAP A8)")
+            f"no CUDA backward kernel for {type(sched).__name__}: the band, "
+            "circulant and block-diagonal backward is not ported yet "
+            "(ROADMAP A8)")
     ts = (q, k, v, o, lse, do)
     if not all(t.is_cuda and t.device == q.device for t in ts):
         raise ValueError("flash backward kernels: all operands must be on one "

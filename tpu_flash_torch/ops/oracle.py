@@ -1,11 +1,12 @@
-"""Oracle attention: port of ``dense_dpa``, ``sliding_dpa`` and
-``blockwise_dpa`` from ``tpu_flash/ops/oracle.py``.
+"""Oracle attention: port of ``tpu_flash/ops/oracle.py`` (``dense_dpa``,
+``sliding_dpa``, ``windowed_dpa``, ``block_dpa``, ``circulant_dpa``,
+``blockwise_dpa``).
 
-They share no arithmetic with the flash kernels they check: ``dense_dpa``
-and ``sliding_dpa`` materialise the full score matrix and run the
-natural-log softmax in float64 (rounding once at the end), ``blockwise_dpa``
-scans the keys in float32 chunks with the online-softmax merge, so it holds
-full-size shapes in O(n·chunk) memory.
+They share no arithmetic with the flash kernels they check: the first five
+materialise the full score matrix (or, circulant, the gathered band) and run
+the natural-log softmax in float64, rounding once at the end;
+``blockwise_dpa`` scans the keys in float32 chunks with the online-softmax
+merge, so it holds full-size shapes in O(n·chunk) memory.
 """
 
 from __future__ import annotations
@@ -14,6 +15,13 @@ import math
 from typing import Optional
 
 import torch
+
+from tpu_flash_torch.utils.layout import (
+    circulant_neighbors,
+    flatten_spatial,
+    unflatten_spatial,
+    windowed,
+)
 
 
 def _core(q, k, v, scale, mask=None):
@@ -40,19 +48,30 @@ def _core(q, k, v, scale, mask=None):
 
 
 def dense_dpa(q, k, v, *, scale: Optional[float] = None, causal: bool = False):
-    """Dense oracle attention on ``(batch, heads, n, d)``; q and k/v must
-    have the same head count. ``causal`` masks with the right-aligned lower
-    triangle (query ``i`` sees keys ``j ≤ i + n_kv − n_q``).
+    """Dense oracle attention on ``(batch, heads, n, d)``, or N-d
+    ``(batch, *spatial, heads, d)`` with the spatial dims flattened; q and
+    k/v must have the same head count. ``causal`` masks with the
+    right-aligned lower triangle (query ``i`` sees keys ``j ≤ i + n_kv −
+    n_q``).
 
-    Returns ``(o, lse)``: o in q's dtype, lse in natural-log units.
+    Returns ``(o, lse)``: o in q's dtype (and layout), lse in natural-log
+    units ``(batch, heads, N)``.
     """
+    spatial = None
+    if q.ndim > 4:
+        q, spatial = flatten_spatial(q)
+        k, _ = flatten_spatial(k)
+        v, _ = flatten_spatial(v)
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     mask = None
     if causal:
         n, nk = q.shape[-2], k.shape[-2]
         mask = torch.ones(n, nk, dtype=torch.bool, device=q.device).tril(nk - n)
-    return _core(q, k, v, scale, mask=mask)
+    o, lse = _core(q, k, v, scale, mask=mask)
+    if spatial is not None:
+        o = unflatten_spatial(o, spatial)
+    return o, lse
 
 
 def sliding_dpa(q, k, v, window_size: int, *, scale: Optional[float] = None,
@@ -73,9 +92,55 @@ def sliding_dpa(q, k, v, window_size: int, *, scale: Optional[float] = None,
     return _core(q, k, v, scale, mask=mask)
 
 
+def windowed_dpa(q, k, v, window_size, *, stride=None, pad=0,
+                 scale: Optional[float] = None):
+    """Windowed oracle over 1-D/2-D/3-D ``(batch, *spatial, heads, d)``:
+    dense attention inside each window (``window_size`` per dim, with
+    ``stride``/``pad``), outputs at positions that several windows cover
+    averaged by their count. Returns o only (lse is per window)."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    return windowed(q, k, v, window_size, stride=stride, pad=pad,
+                    attend=lambda qw, kw, vw: _core(qw, kw, vw, scale)[0])
+
+
+def block_dpa(q, k, v, block_size, *, scale: Optional[float] = None):
+    """Disjoint block-diagonal oracle: windowed with stride = window, no
+    padding."""
+    return windowed_dpa(q, k, v, block_size, stride=block_size, pad=0,
+                        scale=scale)
+
+
+def circulant_dpa(q, k, v, window_size: int, *, scale: Optional[float] = None):
+    """Circulant-band oracle: query ``i`` attends keys ``(i + o) mod n``,
+    ``o ∈ [−(w−1)/2, (w−1)/2]``, on ``(batch, heads, n, d)`` or N-d
+    ``(batch, *spatial, heads, d)`` (flattened). The gathered band runs in
+    float64 and rounds once. Returns ``(o, lse)``."""
+    spatial = None
+    if q.ndim > 4:
+        q, spatial = flatten_spatial(q)
+        k, _ = flatten_spatial(k)
+        v, _ = flatten_spatial(v)
+    n = q.shape[2]
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    idx = circulant_neighbors(n, window_size, q.device)
+    kg, vg = k.double()[:, :, idx], v.double()[:, :, idx]  # (b, h, n, w, ·)
+    s = torch.einsum("bhnd,bhnwd->bhnw", q.double(), kg) * scale
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = p.sum(dim=-1, keepdim=True)
+    o = torch.einsum("bhnw,bhnwd->bhnd", p / l, vg).to(q.dtype)
+    lse = (m + torch.log(l)).squeeze(-1).float()
+    if spatial is not None:
+        o = unflatten_spatial(o, spatial)
+    return o, lse
+
+
 def blockwise_dpa(q, k, v, *, scale: Optional[float] = None,
                   causal: bool = False, window_size: Optional[int] = None,
-                  chunk: int = 2048, q_start: int = 0, **unported):
+                  wrap: bool = False, block_size: Optional[int] = None,
+                  chunk: int = 2048, q_start: int = 0):
     """Exact f32 oracle with O(n·chunk) memory on ``(batch, heads, n, d)``;
     q and k/v must have the same head count.
 
@@ -84,21 +149,16 @@ def blockwise_dpa(q, k, v, *, scale: Optional[float] = None,
     (n, n) score matrix would not fit. ``causal`` masks key ``j`` for query
     ``i`` when ``j > q_start + i`` (the reference's left-aligned triangle).
     ``window_size`` (odd) keeps the sliding band ``|i − j| ≤
-    (window_size − 1)/2`` of :func:`sliding_dpa`.
+    (window_size − 1)/2`` of :func:`sliding_dpa`, or with ``wrap=True`` the
+    circulant band (offsets taken mod n_kv); ``block_size`` keeps the
+    block-diagonal ``i // B == j // B``.
     ``q_start`` is the global index of q's first row: a row band of q with
     its ``q_start`` gives exactly those rows of the full result.
 
-    Returns ``(o, lse)``: o in q's dtype, lse in natural-log units. The
-    circulant and block masks (``wrap``, ``block_size``) are not ported yet
-    (ROADMAP A11).
+    Returns ``(o, lse)``: o in q's dtype, lse in natural-log units.
     """
-    for name in unported:
-        if name not in ("wrap", "block_size"):
-            raise TypeError(f"blockwise_dpa() got an unexpected keyword "
-                            f"argument {name!r}")
-        if unported[name] not in (None, False):
-            raise NotImplementedError(
-                f"blockwise_dpa({name}=...) is not ported yet (ROADMAP A11)")
+    if window_size is not None and block_size is not None:
+        raise ValueError("window_size and block_size are mutually exclusive")
     if window_size is not None and window_size % 2 != 1:
         raise ValueError("sliding/circulant window must be odd")
     b, h, n, d = q.shape
@@ -118,7 +178,15 @@ def blockwise_dpa(q, k, v, *, scale: Optional[float] = None,
         if causal:
             s = torch.where(j <= qi, s, float("-inf"))
         if window_size is not None:
-            s = torch.where((qi - j).abs() <= (window_size - 1) // 2, s,
+            radius = (window_size - 1) // 2
+            if wrap:
+                off = torch.remainder(qi - j, nk)
+                live = (off <= radius) | (off >= nk - radius)
+            else:
+                live = (qi - j).abs() <= radius
+            s = torch.where(live, s, float("-inf"))
+        if block_size is not None:
+            s = torch.where((qi // block_size) == (j // block_size), s,
                             float("-inf"))
         m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
         m_safe = torch.where(torch.isfinite(m_new), m_new, 0.0)

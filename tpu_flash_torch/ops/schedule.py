@@ -1,11 +1,13 @@
 """Block schedules: which KV blocks each Q block visits, and in-block masks.
 
-Port of ``tpu_flash/ops/schedule.py`` for the dense, causal and local
-(sliding-band) schedules. The block-visit math is host-side Python on ints;
-:meth:`Schedule.mask` takes torch tensors of global positions. The CUDA
-forward kernel's launcher takes its kind, causal offset and band radius
-from the schedule, and the plain path takes its mask from the same object,
-so the two cannot disagree on which keys a query sees.
+Port of ``tpu_flash/ops/schedule.py`` for the dense, causal, local
+(sliding-band), block-diagonal and circulant schedules (the ring-hop
+``ShiftedMaskSchedule`` is ROADMAP A13). The block-visit math is host-side
+Python on ints; :meth:`Schedule.mask` takes torch tensors of global
+positions. The CUDA forward kernel's launcher takes its kind, causal
+offset, band radius and section from the schedule, and the plain path
+takes its mask from the same object (:meth:`Schedule.visible`), so the two
+cannot disagree on which keys a query sees.
 """
 
 from __future__ import annotations
@@ -82,6 +84,12 @@ class Schedule:
         if not self.has_mask:
             return None
         return k_pos < self.kv_len
+
+    def visible(self, q_pos: torch.Tensor, k_pos: torch.Tensor) -> Optional[torch.Tensor]:
+        """Which keys each query sees over the whole score matrix (None: all
+        of them). The mask, except where the schedule leaves unvisited tiles
+        unmasked (block-diagonal)."""
+        return self.mask(q_pos, k_pos)
 
     def block_unmasked(self, i: int, s: int) -> Optional[bool]:
         """True when tile (i, s) has no masked element; None when the
@@ -223,4 +231,149 @@ class LocalSchedule(Schedule):
         full = k_hi - q_lo <= self.radius and q_hi - k_lo <= self.radius
         if self.causal:
             full = full and k_hi <= q_lo
+        return full and self._kv_pad_ok(j)
+
+
+@dataclasses.dataclass(frozen=True)
+class BlockDiagonalSchedule(Schedule):
+    """Disjoint block-diagonal attention: query ``i`` sees the keys of its
+    own ``section``-sized chunk. Only the diagonal blocks are visited, so
+    the in-tile :meth:`mask` is needed only for a partial trailing section
+    or kv padding; :meth:`visible` always holds the section rule.
+
+    Requires ``section % block_q == 0 and section % block_kv == 0`` (the
+    wrapper picks conforming block sizes).
+    """
+
+    section: int = 0
+
+    def __post_init__(self):
+        if self.section <= 0:
+            raise ValueError("section must be positive")
+        if self.section % self.block_q or self.section % self.block_kv:
+            raise ValueError(
+                f"section {self.section} must be a multiple of block_q "
+                f"{self.block_q} and block_kv {self.block_kv}")
+
+    @property
+    def max_kv_steps(self) -> int:
+        return self.section // self.block_kv
+
+    def _kv_raw(self, i: int, s: int) -> int:
+        section_idx = (i * self.block_q) // self.section
+        return section_idx * (self.section // self.block_kv) + s
+
+    def kv_block_index(self, i: int, s: int) -> int:
+        return min(self._kv_raw(i, s), self.num_kv_blocks - 1)
+
+    def step_needed(self, i: int, s: int) -> bool:
+        return self._kv_raw(i, s) < self.num_kv_blocks
+
+    @property
+    def max_q_steps(self) -> int:
+        return self.section // self.block_q
+
+    def _q_raw(self, j: int, s: int) -> int:
+        section_idx = (j * self.block_kv) // self.section
+        return section_idx * (self.section // self.block_q) + s
+
+    def q_block_index(self, j: int, s: int) -> int:
+        return min(self._q_raw(j, s), self.num_q_blocks - 1)
+
+    def q_step_needed(self, j: int, s: int) -> bool:
+        return self._q_raw(j, s) < self.num_q_blocks
+
+    @property
+    def has_mask(self) -> bool:
+        # a partial trailing section needs the padding mask
+        return self.kv_len % self.block_kv != 0 or self.n_q % self.section != 0
+
+    def _same_section(self, q_pos, k_pos):
+        return self._and_kv_pad((q_pos // self.section) == (k_pos // self.section),
+                                k_pos)
+
+    def mask(self, q_pos: torch.Tensor, k_pos: torch.Tensor) -> Optional[torch.Tensor]:
+        if not self.has_mask:
+            return None
+        return self._same_section(q_pos, k_pos)
+
+    def visible(self, q_pos: torch.Tensor, k_pos: torch.Tensor) -> torch.Tensor:
+        return self._same_section(q_pos, k_pos)
+
+
+@dataclasses.dataclass(frozen=True)
+class CirculantSchedule(Schedule):
+    """Wraparound band over halo-extended K/V: the kernel runs against
+    ``k_ext = cat([k[-radius:], k, k[:radius]])`` (length ``n_kv + 2·radius``)
+    and query ``i`` attends extended positions ``[i, i + 2·radius]``, a
+    contiguous band, so the mod-n seam never appears inside the kernel."""
+
+    radius: int = 0
+
+    def __post_init__(self):
+        if self.radius < 0:
+            raise ValueError("radius must be ≥ 0")
+        if 2 * self.radius + 1 > self.n_kv:
+            raise ValueError("circulant window larger than sequence")
+
+    @property
+    def kv_len(self) -> int:
+        return self.n_kv + 2 * self.radius
+
+    def _first_step(self, i: int) -> int:
+        return (i * self.block_q) // self.block_kv
+
+    def _last_block(self, i: int) -> int:
+        last_q = min((i + 1) * self.block_q - 1, self.n_q - 1)
+        return min(self.num_kv_blocks - 1,
+                   (last_q + 2 * self.radius) // self.block_kv)
+
+    @property
+    def max_kv_steps(self) -> int:
+        # exact: the widest per-block visit
+        return max([1] + [self._last_block(i) - self._first_step(i) + 1
+                          for i in range(self.num_q_blocks)])
+
+    def kv_block_index(self, i: int, s: int) -> int:
+        return min(self._first_step(i) + s, self._last_block(i))
+
+    def step_needed(self, i: int, s: int) -> bool:
+        return self._first_step(i) + s <= self._last_block(i)
+
+    def _first_q_block(self, j: int) -> int:
+        # extended kv position j is seen by queries i ∈ [j − 2r, j]
+        lo = (j * self.block_kv - 2 * self.radius) // self.block_q
+        return min(max(lo, 0), self.num_q_blocks - 1)
+
+    def _last_q_block(self, j: int) -> int:
+        hi = ((j + 1) * self.block_kv - 1) // self.block_q
+        return min(max(hi, 0), self.num_q_blocks - 1)
+
+    @property
+    def max_q_steps(self) -> int:
+        return max([1] + [self._last_q_block(j) - self._first_q_block(j) + 1
+                          for j in range(self.num_kv_blocks)])
+
+    def q_block_index(self, j: int, s: int) -> int:
+        return min(self._first_q_block(j) + s, self._last_q_block(j))
+
+    def q_step_needed(self, j: int, s: int) -> bool:
+        return self._first_q_block(j) + s <= self._last_q_block(j)
+
+    @property
+    def has_mask(self) -> bool:
+        return True
+
+    def mask(self, q_pos: torch.Tensor, k_pos: torch.Tensor) -> torch.Tensor:
+        delta = k_pos - q_pos
+        return self._and_kv_pad((delta >= 0) & (delta <= 2 * self.radius),
+                                k_pos)
+
+    def block_unmasked(self, i: int, s: int) -> bool:
+        # delta = k − q ∈ [0, 2r] over the whole tile (real q rows only)
+        j = self.kv_block_index(i, s)
+        q_lo = i * self.block_q
+        q_hi = min((i + 1) * self.block_q - 1, self.n_q - 1)
+        k_lo, k_hi = j * self.block_kv, (j + 1) * self.block_kv - 1
+        full = k_lo >= q_hi and k_hi - q_lo <= 2 * self.radius
         return full and self._kv_pad_ok(j)

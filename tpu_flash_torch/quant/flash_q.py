@@ -59,14 +59,16 @@ def f32(x: float) -> float:
     return struct.unpack("f", struct.pack("f", x))[0]
 
 
-# the quantized route's unported options: B6/B7 take no band yet (A10)
-_UNPORTED_Q = {**_UNPORTED, "radius": "A10"}
+# the quantized route's unported options: B6/B7 take no band, circulant or
+# block-diagonal schedule yet (A10; the bf16 route took the last two in A11)
+_UNPORTED_Q = {**_UNPORTED, "radius": "A10",
+               "section": "A10; the bf16 route has it, ROADMAP A11"}
 
 
 def refuse_unported(schedule: str = "dense", **options) -> None:
     """Raise for a reference schedule or option that the quantized route
     does not take yet."""
-    if schedule in ("local", "local_causal"):
+    if schedule in ("local", "local_causal", "block", "circulant"):
         raise NotImplementedError(
             f"schedule {schedule!r} on the quantized route is not ported yet "
             "(ROADMAP A10); dense and causal schedules only")
@@ -292,7 +294,7 @@ def quantized_flash_attention(
     reference's schedule; the kernel runs its own 64×64 tiles. At d ≤ 64
     the call goes to :func:`~tpu_flash_torch.quant.serving_attn.
     serving_flash_attention`, as in the reference (``transposed``).
-    Schedules other than dense and causal raise (ROADMAP A10/A11/A13).
+    Schedules other than dense and causal raise (ROADMAP A10/A13).
     """
     refuse_unported(schedule, radius=radius, section=section, shift=shift,
                     wrap_n=wrap_n, shifted_causal=shifted_causal)
