@@ -561,12 +561,13 @@ TOL_QUANT_GATE = 1e-2
 # B6/B7 vs their plain versions: each o entry within TOL_Q_ULPS bf16 ulps
 # of its row's max |plain o| (both sides round P and o from float32 sums
 # taken in another order) and within TOL_BF16; lse within TOL_Q_LSE
-# (float32 sums; lse ≲ 10 has an ulp near 1e-6). A kv tile left out or the
-# V scales one channel off must fail: the headline cases plant those faults
-# in the plain version and check.
+# (float32 sums; lse ≲ 10 has an ulp near 1e-6; the plain version sums the
+# fp8 products as the card's fp8 units do, flash_q.fp8_scores). A kv tile
+# left out or the V scales one channel off must fail: the headline cases
+# plant those faults in the plain version and check.
 TOL_Q_ULPS = 4
 TOL_Q_LSE = 1e-4
-# the planted faults' kv tile: the kernels' 64 keys
+# the planted faults' gap: 64 keys (half a kernel tile at d 128)
 FAULT_TILE = 64
 
 
@@ -579,9 +580,30 @@ def row_ulps(got: torch.Tensor, ref: torch.Tensor) -> float:
     return float(((got.float() - ref.float()).abs() / ulp).max())
 
 
-def quant_errs(ko, kl, po, pl) -> dict:
-    return dict(o_vs_plain=max_err(ko, po), o_vs_plain_ulps=row_ulps(ko, po),
+def quant_errs(ko, kl, po, pl, exact=None) -> dict:
+    """o and lse against the plain version. Where the scores come from the
+    fp8 products, ``exact`` is the plain version's (o, lse) with exact
+    float32 sums in place of the fp8 units' (:func:`float32_sums`): how far
+    those units move the result, reported and not gated (ROADMAP C)."""
+    errs = dict(o_vs_plain=max_err(ko, po), o_vs_plain_ulps=row_ulps(ko, po),
                 lse_vs_plain=max_err(kl, pl))
+    if exact is not None:
+        errs.update(o_vs_float32_sums=max_err(ko, exact[0]),
+                    lse_vs_float32_sums=max_err(kl, exact[1].reshape(
+                        kl.shape)))
+    return errs
+
+
+def float32_sums(q_op, qs, ops, causal, hq, hkv, out_dtype):
+    """The plain tile loop on e4m3 q̂ handed over in float32: the fp8
+    products then sum exactly in float32, not as the card's fp8 units sum
+    them. ``ops`` as ``serving_operands`` (q, k̂, v̂, σk token, σk tensor,
+    σv, gk); ``qs`` the row factors."""
+    from tpu_flash_torch.quant import flash_q as tfq
+
+    _, k_vals, v_vals, sk, _, sv, gk = ops
+    return tfq._attend_plain(q_op.float(), qs, k_vals, v_vals, sk, sv, gk,
+                             causal, hq, hkv, out_dtype)
 
 
 QUANT_TOL = dict(o_vs_plain=TOL_BF16, o_vs_plain_ulps=TOL_Q_ULPS,
@@ -616,21 +638,37 @@ def planted_faults(plain_fn, args, ko, kl):
 
 
 # kernel vs plain at variant shapes, b 1: (name, q_dtype, kv_dtype,
-# kv_scale, pv_quant, hq, hkv, n, d, causal); d 64 is where the
-# reference's transposed B8 runs
+# kv_scale, pv_quant, hq, hkv, n, d, dv, causal); d 64 is where the
+# reference's transposed B8 runs; d 256 the widest compiled width, d 96 with
+# dv 64 a padded one
 QUANT_VARIANTS = [
     ("d64_int8_causal_gqa", "int8", "int8", "token", False, 16, 8, 1000, 64,
-     True),
+     64, True),
     ("d64_fp8_causal_gqa", "float8_e4m3fn", "float8_e4m3fn", "tensor", False,
-     16, 8, 1000, 64, True),
-    ("weight_only_int8", None, "int8", "token", False, 16, 8, 1000, 128,
+     16, 8, 1000, 64, 64, True),
+    ("weight_only_int8", None, "int8", "token", False, 16, 8, 1000, 128, 128,
      True),
     ("weight_only_fp8", None, "float8_e4m3fn", "tensor", False, 16, 8, 1000,
-     128, False),
-    ("int8_pv_quant", "int8", "int8", "token", True, 16, 8, 1000, 128, False),
+     128, 128, False),
+    ("int8_pv_quant", "int8", "int8", "token", True, 16, 8, 1000, 128, 128,
+     False),
     ("e5m2_cache", "float8_e4m3fn", "float8_e5m2", "tensor", False, 16, 8,
-     1000, 128, False),
+     1000, 128, 128, False),
+    ("d256_fp8_token_causal", "float8_e4m3fn", "float8_e4m3fn", "token",
+     False, 16, 8, 1000, 256, 256, True),
+    ("d256_int8", "int8", "int8", "token", False, 8, 8, 1000, 256, 256,
+     False),
+    ("d96_dv64_fp8_gqa", "float8_e4m3fn", "float8_e4m3fn", "tensor", False,
+     16, 8, 1000, 96, 64, True),
+    ("d96_dv64_int8", "int8", "int8", "token", False, 8, 8, 1000, 96, 64,
+     False),
 ]
+
+
+def staged_bytes(t: torch.Tensor) -> torch.Tensor:
+    """A staged Q operand as raw integers (e4m3 and int8 bytes, bf16
+    words), for an exact comparison."""
+    return t.view(torch.uint8) if t.element_size() == 1 else t.view(torch.int16)
 
 
 def quant_attention_phase(dev):
@@ -668,11 +706,12 @@ def quant_attention_phase(dev):
     rows = []
 
     def held(kind, name, kernel_fn, plain_fn, scale_elems, qk,
-             staged=None, time_it=False, faults=None):
+             staged=None, time_it=False, faults=None, exact_fn=None):
         ko, kl = kernel_fn()
-        errs = quant_errs(ko, kl, *plain_fn())
-        for key, err in errs.items():
-            check(f"{kind} {name} {key}", err, QUANT_TOL[key])
+        errs = quant_errs(ko, kl, *plain_fn(),
+                          None if exact_fn is None else exact_fn())
+        for key, tol in QUANT_TOL.items():
+            check(f"{kind} {name} {key}", errs[key], tol)
         worst[kind] = max(worst[kind], errs["o_vs_plain"],
                           errs["lse_vs_plain"])
         row = dict(kernel=kind, case=name, tol=QUANT_TOL, **errs)
@@ -686,13 +725,16 @@ def quant_attention_phase(dev):
             nbytes = 2 * 2 * bh * n * d + 2 * bh_kv * n * d + 4 * scale_elems
             row.update(ms=cuda_ms(lambda: kernel_fn(False)),
                        plain_ms=cuda_ms(plain_fn, iters=3, warmup=1),
+                       library_ms=library_ms,
                        **harness.roofline(flops / 2, flops / 2, nbytes, peaks,
                                           qk, "bf16"))
             row["tflops"] = flops / row["ms"] / 1e9
+            row["share_of_bound"] = row["bound_ms"] / row["ms"]
         rows.append(row)
         return row
 
     sched = flash.build_schedule("dense", n, n, 1024, 2048)
+    library_ms = cuda_ms(lambda: sdpa(q, k, v, False))
     timed = {}
     for name, dt, kv_scale in (("serving_fp8", "float8_e4m3fn", "tensor"),
                                ("serving_int8", "int8", "token")):
@@ -704,11 +746,8 @@ def quant_attention_phase(dev):
                                                        staged=True)
         skf = 1.0 if ops[4] is None else ops[4][:, None, None]
         p_op, p_qs = tsa._stage_q_plain(ops[0], mode, c, skf)
-        same = torch.equal(q_op.view(torch.int16 if q_op.dtype ==
-                                     torch.bfloat16 else torch.int8),
-                           p_op.view(torch.int16 if p_op.dtype ==
-                                     torch.bfloat16 else torch.int8))
-        same = same and (p_qs is None or torch.equal(qs, p_qs))
+        same = torch.equal(staged_bytes(q_op), staged_bytes(p_op))
+        same = same and torch.equal(qs, p_qs)
         if not same:
             raise AssertionError(f"B6 {name}: staged Q differs from the "
                                  "plain staging")
@@ -719,7 +758,9 @@ def quant_attention_phase(dev):
             lambda: tsa._serving_plain(*args), scale_elems,
             "int8" if dt == "int8" else "fp8", staged=True, time_it=True,
             faults=lambda ko, kl, args=args: planted_faults(
-                tsa._serving_plain, args, ko, kl))
+                tsa._serving_plain, args, ko, kl),
+            exact_fn=None if mode == "int8" else lambda: float32_sums(
+                p_op, p_qs, ops, False, h, h, q.dtype))
         del kq, vq, ops, args
     prep = tfq.prepare_quantized(q, k, v, torch.float8_e4m3fn,
                                  torch.float8_e4m3fn, False, d ** -0.5)
@@ -730,53 +771,224 @@ def quant_attention_phase(dev):
             *qops, sched, h, h, torch.bfloat16, need),
         lambda: tfq._quant_plain(*qops, sched, h, h, torch.bfloat16),
         sum(t.numel() for t in qops[4:] if t is not None), "fp8",
-        time_it=True)
+        time_it=True, exact_fn=lambda: tfq._quant_plain(
+            qops[0].float(), *qops[1:], sched, h, h, torch.bfloat16))
     del prep, qops
-    library_ms = cuda_ms(lambda: sdpa(q, k, v, False))
 
     gen = torch.Generator(device=dev).manual_seed(5)
-    for (name, q_dt, kv_dt, kv_scale, pvq, hq, hkv, nv, dv_,
+    for (name, q_dt, kv_dt, kv_scale, pvq, hq, hkv, nv, d_, dv_,
          causal) in QUANT_VARIANTS:
-        qv, kv, vv = (torch.randn(1, hh, nv, dv_, generator=gen, device=dev)
-                      .bfloat16() for hh in (hq, hkv, hkv))
+        qv, kv, vv = (torch.randn(1, hh, nv, dd, generator=gen, device=dev)
+                      .bfloat16() for hh, dd in ((hq, d_), (hkv, d_),
+                                                 (hkv, dv_)))
         kq, vq = tsa.quantize_kv_cache(kv, vv, kv_dt, kv_scale=kv_scale)
         ops = tsa.serving_operands(qv, kq, vq, not pvq)
         vsched = flash.build_schedule("causal" if causal else "dense", nv,
                                       nv, 1024, 2048)
         mode = {"int8": "int8", None: "raw"}.get(q_dt, "fp8")
         args = (*ops, vsched, hq, hkv, mode, tfq.f32(
-            dv_ ** -0.5 * flash.LOG2E), pvq)
+            d_ ** -0.5 * flash.LOG2E), pvq)
+        staged = exact_fn = None
+        if q_dt is not None:
+            _, _, q_op, qs = tsa._serving_attention_kernel(*args, False,
+                                                           staged=True)
+            skf = 1.0 if ops[4] is None else ops[4].repeat_interleave(
+                hq // hkv)[:, None, None]
+            p_op, p_qs = tsa._stage_q_plain(ops[0], mode, args[-2], skf)
+            staged = (torch.equal(staged_bytes(q_op), staged_bytes(p_op))
+                      and torch.equal(qs, p_qs))
+            if not staged:
+                raise AssertionError(f"B6 {name}: staged Q differs from the "
+                                     "plain staging")
+            if mode == "fp8":
+                exact_fn = (lambda p_op=p_op, p_qs=p_qs, ops=ops, causal=causal,
+                            hq=hq, hkv=hkv, qv=qv: float32_sums(
+                                p_op, p_qs, ops, causal, hq, hkv, qv.dtype))
         row = held("serving", name,
                    lambda need=True: tsa._serving_attention_kernel(*args, need),
-                   lambda: tsa._serving_plain(*args), 0, "bf16")
+                   lambda: tsa._serving_plain(*args), 0, "bf16", staged=staged,
+                   exact_fn=exact_fn)
         if name == "d64_fp8_causal_gqa":  # B8's shape, folded into B6
             flops_b8 = 4 * dv_ * hq * visible_pairs(nv, nv, True)
             # q and o in bf16, the cache at one byte, the fp32 scales
             nbytes = (2 * 2 * hq * nv * dv_ + 2 * hkv * nv * dv_ + 4 * sum(
                 t.numel() for t in ops[3:] if t is not None))
+            # the library's time at this small shape moves from run to
+            # run: the median of five samples, all five reported
+            lib = [cuda_ms(lambda: sdpa(qv, kv, vv, True)) for _ in range(5)]
             row.update(ms=cuda_ms(lambda: tsa._serving_attention_kernel(
                            *args, False)),
                        plain_ms=cuda_ms(lambda: tsa._serving_plain(*args),
                                         iters=3, warmup=1),
-                       library_ms=cuda_ms(lambda: sdpa(qv, kv, vv, True)),
+                       library_ms=sorted(lib)[2], library_ms_samples=lib,
                        **harness.roofline(flops_b8 / 2, flops_b8 / 2, nbytes,
                                           peaks, "fp8", "bf16"))
+            row["tflops"] = flops_b8 / row["ms"] / 1e9
+            row["share_of_bound"] = row["bound_ms"] / row["ms"]
             timed["b8_shape"] = row
         if q_dt is not None and not pvq:  # the same case through B7
             prep = tfq.prepare_quantized(
                 qv, kv, vv, tfq.as_dtype(q_dt), tfq.as_dtype(kv_dt),
-                kv_scale == "token", dv_ ** -0.5)
+                kv_scale == "token", d_ ** -0.5)
             qops = tfq.quant_operands(*prep, kv_scale == "token", True)
             held("quant", name,
                  lambda need=True: tfq._quant_attention_kernel(
                      *qops, vsched, hq, hkv, torch.bfloat16, need),
                  lambda: tfq._quant_plain(*qops, vsched, hq, hkv,
-                                          torch.bfloat16), 0, "bf16")
+                                          torch.bfloat16), 0, "bf16",
+                 exact_fn=None if mode != "fp8" else lambda: tfq._quant_plain(
+                     qops[0].float(), *qops[1:], vsched, hq, hkv,
+                     torch.bfloat16))
     emit(dict(phase="quant_attention", shape=dict(batch=b, heads=h, n=n, d=d),
               headline=runs, launches=launches, library_bf16_sdpa_ms=library_ms,
               kernels_vs_plain=rows))
     return dict(launches=launches, worst=worst, timed=timed,
                 library_ms=library_ms)
+
+
+def headdims_phase(dev):
+    """Head and value dims other than 64 and 128, and a group of 16, on
+    every attention kernel, each against its plain version: B1 then B4/B5
+    (bf16 at d 96, 256, 96/64 and 40/200; float32 at 256, the smaller-tile
+    instantiations), B3 at d 40 (bytes equal) and B2 at d 40 and 96 with
+    G 16, B6 and B7 through their public entry points at d 96, 256 and
+    96/64 (the CPU tensors take the plain versions)."""
+    from tpu_flash_torch import kernels
+    from tpu_flash_torch.cache.paged_cache import CacheConfig, PagedKVCache
+    from tpu_flash_torch.ops import flash, flash_bwd, paged
+    from tpu_flash_torch.quant import flash_q as tfq
+    from tpu_flash_torch.quant import serving_attn as tsa
+
+    gen = torch.Generator(device=dev).manual_seed(11)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev)
+
+    kernels.reset_launches()
+    rows = []
+    hq, hkv, n = 8, 4, 500
+    for d, dv, dt in ((96, 96, torch.bfloat16), (256, 256, torch.bfloat16),
+                      (96, 64, torch.bfloat16), (40, 200, torch.bfloat16),
+                      (256, 256, torch.float32)):
+        q = (randn(hq, n, d) * (d ** -0.5 * flash.LOG2E)).to(dt)
+        k, v = randn(hkv, n, d).to(dt), randn(hkv, n, dv).to(dt)
+        sched = flash.build_schedule("causal", n, n, 256, 256)
+        ko, kl = flash._flash_fwd_kernel(q, k, v, sched, hq, hkv, True)
+        po, pl = flash._flash_fwd_plain(q, k, v, sched, hq, hkv)
+        tol = TOL_BF16 if dt == torch.bfloat16 else TOL_F32
+        errs = dict(o_vs_plain=max_err(ko, po), lse_vs_plain=max_err(kl, pl))
+        do, dlse = randn(hq, n, dv).to(dt), randn(hq, n)
+        bwd = (q, k, v, ko, kl, do, dlse, sched, hq, hkv)
+        for name, a, w in zip(("dq", "dk", "dv"),
+                              flash_bwd._flash_bwd_kernel(*bwd),
+                              flash_bwd._flash_bwd_plain(*bwd)):
+            if a.shape != w.shape:
+                raise AssertionError(f"B4/B5 d {d}/{dv}: {name} shape")
+            errs[f"{name}_vs_plain_rel"] = rel_err(a, w)
+        for key, err in errs.items():
+            check(f"headdims B1/B4/B5 d {d}/{dv} {key}", err,
+                  TOL_BWD_PLAIN[dt] if "rel" in key else tol)
+        rows.append(dict(kernels="flash_fwd, flash_bwd", d=d, dv=dv,
+                         dtype=str(dt).replace("torch.", ""), **errs))
+
+    for d in (40, 96):
+        for dtype in ("int8", "bfloat16"):
+            cfg = CacheConfig(num_kv_heads=2, head_dim=d, page_size=64,
+                              total_pages=64, max_seqs=8, max_pages_per_seq=16,
+                              dtype=dtype)
+            caches = [PagedKVCache.create(cfg, dev) for _ in range(2)]
+            table = (torch.randperm(63, generator=gen, device=dev)[:32] + 1
+                     ).reshape(4, 8).int()
+            lens = [300, 257, 64, 450]
+            prompts = [(randn(2, m, d), randn(2, m, d)) for m in lens]
+            for c in caches:
+                c.page_tables[:4, :8] = table
+                for slot, (kp, vp) in enumerate(prompts):
+                    c.write_prompt(slot, kp, vp)
+            slots = torch.arange(4, dtype=torch.int32, device=dev)
+            kn, vn = randn(4, 2, d).bfloat16(), randn(4, 2, d).bfloat16()
+            kc, pc = caches
+            paged._paged_append_kernel(kn, vn, kc.k_pages, kc.v_pages,
+                                       kc.k_scales, kc.v_scales, slots,
+                                       kc.lengths, kc.page_tables)
+            paged._paged_append_plain(kn, vn, pc.k_pages, pc.v_pages,
+                                      pc.k_scales, pc.v_scales, slots,
+                                      pc.lengths, pc.page_tables)
+            for name in ("k_pages", "v_pages", "k_scales", "v_scales"):
+                x, y = getattr(kc, name), getattr(pc, name)
+                if x is not None and not torch.equal(x, y):
+                    raise AssertionError(f"headdims B3 d {d} {dtype}: {name} "
+                                         "not bit-exact")
+            qg = randn(4, 2, 16, d).bfloat16()  # G 16: two chunks of 8
+            args = (qg, kc.k_pages, kc.v_pages, kc.k_scales, kc.v_scales,
+                    slots, kc.lengths, kc.page_tables, 1, 16, torch.bfloat16,
+                    True)
+            ko, kl = paged._paged_attention_kernel(*args)
+            po, pl = paged._paged_attention_plain(*args)
+            errs = dict(o_vs_plain=max_err(ko, po),
+                        lse_vs_plain=max_err(kl, pl))
+            check(f"headdims B2 d {d} {dtype} o", errs["o_vs_plain"], TOL_BF16)
+            check(f"headdims B2 d {d} {dtype} lse", errs["lse_vs_plain"],
+                  TOL_LSE)
+            rows.append(dict(kernels="paged_append, paged_attention", d=d,
+                             g=16, cache=dtype, append_bit_exact=True, **errs))
+
+    hq, hkv = 16, 8
+    for d, dv, q_dt, kv_scale in ((96, 96, "float8_e4m3fn", "tensor"),
+                                  (256, 256, "int8", "token"),
+                                  (96, 64, "float8_e4m3fn", "token"),
+                                  (256, 128, None, "token")):
+        kv_dt = q_dt or "int8"
+        q, k, v = (randn(1, hq, n, d).bfloat16(), randn(1, hkv, n, d).bfloat16(),
+                   randn(1, hkv, n, dv).bfloat16())
+        kq, vq = tsa.quantize_kv_cache(k, v, kv_dt, kv_scale=kv_scale)
+        cpu = [tfq.QArray(a.values.cpu(), a.scales.cpu(), a.axis)
+               for a in (kq, vq)]
+        kw = dict(q_dtype=q_dt, schedule="causal", return_lse=True)
+        ko, kl = tsa.serving_flash_attention(q, kq, vq, **kw)
+        po, pl = tsa.serving_flash_attention(q.cpu(), *cpu, **kw)
+        exact = None
+        if q_dt == "float8_e4m3fn":  # the fp8 products: the staged operands
+            ops = tsa.serving_operands(q.cpu(), *cpu, True)
+            rows_kv = flash._kv_rows(hq, hq, hkv, "cpu")
+            skf = 1.0 if ops[4] is None else ops[4][rows_kv][:, None, None]
+            q_op, qs = tsa._stage_q_plain(ops[0], "fp8", tfq.f32(
+                d ** -0.5 * flash.LOG2E), skf)
+            eo, el = float32_sums(q_op, qs, ops, True, hq, hkv, q.dtype)
+            exact = (eo[..., :dv].reshape(po.shape), el)
+        errs = quant_errs(ko.cpu(), kl.cpu(), po, pl, exact)
+        for key, tol in QUANT_TOL.items():
+            check(f"headdims B6 d {d}/{dv} {key}", errs[key], tol)
+        rows.append(dict(kernels="serving_attention", d=d, dv=dv,
+                         q_dtype=q_dt, **errs))
+        if q_dt is None or d <= 64:
+            continue
+        kw = dict(q_dtype=q_dt, kv_dtype=kv_dt, kv_scale=kv_scale,
+                  schedule="dense", return_lse=True)
+        ko, kl = tfq.quantized_flash_attention(q, k, v, **kw)
+        po, pl = tfq.quantized_flash_attention(q.cpu(), k.cpu(), v.cpu(), **kw)
+        if exact is not None:
+            prep = tfq.prepare_quantized(
+                q.cpu(), k.cpu(), v.cpu(), tfq.as_dtype(q_dt),
+                tfq.as_dtype(kv_dt), kv_scale == "token", d ** -0.5)
+            qops = tfq.quant_operands(*prep, kv_scale == "token", True)
+            sched = flash.build_schedule("dense", n, n, 1024, 2048)
+            eo, el = tfq._quant_plain(qops[0].float(), *qops[1:], sched, hq,
+                                      hkv, q.dtype)
+            exact = (eo.reshape(po.shape), el)
+        errs = quant_errs(ko.cpu(), kl.cpu(), po, pl, exact)
+        for key, tol in QUANT_TOL.items():
+            check(f"headdims B7 d {d}/{dv} {key}", errs[key], tol)
+        rows.append(dict(kernels="quant_attention", d=d, dv=dv, q_dtype=q_dt,
+                         **errs))
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "paged_append",
+                 "paged_attention", "serving_attention", "quant_attention"):
+        if launches.get(name, 0) <= 0:
+            raise AssertionError(f"headdims: kernel {name} never launched")
+    emit(dict(phase="headdims", launches=launches, cases=rows))
+    return dict(launches=launches, rows=rows)
 
 
 def teacher_forced_drift(params, mcfg, f) -> float:
@@ -1381,6 +1593,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     with torch.no_grad():
         quant = quant_attention_phase(dev)
+        torch.cuda.empty_cache()
+    headdims_phase(dev)
     torch.cuda.empty_cache()
     with torch.no_grad():
         sliding = sliding_serve_phase(dev)

@@ -36,15 +36,16 @@ def gen():
 @pytest.mark.parametrize("causal,n_q,n_kv,dtype", [
     (True, 1024, 1024, torch.bfloat16), (True, 1000, 1000, torch.bfloat16),
     (True, 256, 1024, torch.bfloat16), (False, 300, 300, torch.float32)])
-def test_flash_kernel_matches_plain(gen, causal, n_q, n_kv, dtype):
+def test_flash_kernel_matches_plain(gen, causal, n_q, n_kv, dtype, d=128,
+                                    dv=128):
     """B1 kernel vs plain at the serving head layout (16 q heads, 8 kv
     heads, d 128). bf16 2e-2: P rounds to bf16 against the tile's running
     max in the kernel and the row max in the plain version. f32 1e-4:
     summation order only."""
-    hq, hkv, d = 16, 8, 128
+    hq, hkv = 16, 8
     q = torch.randn(hq, n_q, d, generator=gen, device="cuda").to(dtype)
     k = torch.randn(hkv, n_kv, d, generator=gen, device="cuda").to(dtype)
-    v = torch.randn(hkv, n_kv, d, generator=gen, device="cuda").to(dtype)
+    v = torch.randn(hkv, n_kv, dv, generator=gen, device="cuda").to(dtype)
     sched = tflash.build_schedule("causal" if causal else "dense", n_q, n_kv,
                                   256, 256)
     before = kernels.LAUNCHES["flash_fwd"]
@@ -57,6 +58,21 @@ def test_flash_kernel_matches_plain(gen, causal, n_q, n_kv, dtype):
     fin = torch.isfinite(pl)
     assert torch.equal(torch.isfinite(kl), fin)
     assert float((kl[fin] - pl[fin]).abs().max()) <= tol
+
+
+# (causal, n, d, dv, dtype): head and value dims other than 64 and 128,
+# zero-padded to a compiled width (float32 at 256 takes B1's 32-row q tile)
+_B1_HEAD_DIMS = [(True, 1000, 96, 96, torch.bfloat16),
+                 (True, 1000, 256, 256, torch.bfloat16),
+                 (False, 300, 256, 256, torch.float32),
+                 (True, 1000, 96, 64, torch.bfloat16),
+                 (False, 500, 40, 200, torch.bfloat16)]
+
+
+@pytest.mark.parametrize("causal,n,d,dv,dtype", _B1_HEAD_DIMS)
+def test_flash_kernel_head_dims_match_plain(gen, causal, n, d, dv, dtype):
+    """B1 at other head and value dims vs plain, as the d 128 cases."""
+    test_flash_kernel_matches_plain(gen, causal, n, n, dtype, d, dv)
 
 
 # (schedule, radius, n, d, bound_max, dtype): the sliding serving path's
@@ -258,14 +274,62 @@ def test_pipelined_decode_kernels_match_plain(gen):
     _assert_paged_close((ko.cpu(), kl.cpu()), (po, pl))
 
 
+@pytest.mark.parametrize("d,g", [(96, 16), (40, 16), (256, 3)])
+@pytest.mark.parametrize("dtype", ["int8", "bfloat16"])
+def test_paged_kernels_head_dims_and_groups_match_plain(gen, dtype, d, g):
+    """B3 then B2 at head dims 40, 96 and 256 (read under the compiled
+    widths 64, 128, 256) and groups of 16 (two chunks of 8) and 3: the
+    appended pages and scales bit-exact, o and lse as
+    :func:`_assert_paged_close`."""
+    cfg = CacheConfig(num_kv_heads=2, head_dim=d, page_size=64,
+                      total_pages=64, max_seqs=8, max_pages_per_seq=16,
+                      dtype=dtype)
+    table = (torch.randperm(63, generator=gen, device="cuda")[:32] + 1
+             ).reshape(4, 8).int()
+    lens = [300, 257, 64, 450]
+    prompts = [[torch.randn(2, n, d, generator=gen, device="cuda")
+                for _ in range(2)] for n in lens]
+    kc, pc = (PagedKVCache.create(cfg, "cuda") for _ in range(2))
+    for c in (kc, pc):
+        c.page_tables[:4, :8] = table
+        for slot, (kp, vp) in enumerate(prompts):
+            c.write_prompt(slot, kp, vp)
+    slots = torch.arange(4, dtype=torch.int32, device="cuda")
+    kn, vn = (torch.randn(4, 2, d, generator=gen, device="cuda").bfloat16()
+              for _ in range(2))
+    for c, fn in ((kc, tpaged._paged_append_kernel),
+                  (pc, tpaged._paged_append_plain)):
+        fn(kn, vn, c.k_pages, c.v_pages, c.k_scales, c.v_scales, slots,
+           c.lengths, c.page_tables)
+    for name in ("k_pages", "v_pages", "k_scales", "v_scales"):
+        a, b = getattr(kc, name), getattr(pc, name)
+        assert (a is None and b is None) or torch.equal(a, b), name
+    q = torch.randn(4, 2, g, d, generator=gen, device="cuda").bfloat16()
+    args = (q, kc.k_pages, kc.v_pages, kc.k_scales, kc.v_scales, slots,
+            kc.lengths, kc.page_tables, 1, 16, torch.bfloat16, True)
+    before = kernels.LAUNCHES["paged_attention"]
+    got = tpaged._paged_attention_kernel(*args)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["paged_attention"] == before + 1
+    _assert_paged_close(got, tpaged._paged_attention_plain(*args))
+
+
 def test_kernels_reject_what_they_do_not_take(gen):
-    """Unsupported shapes raise instead of falling back to a plain path."""
-    q = torch.randn(2, 64, 96, device="cuda")  # head_dim 96
+    """Unsupported shapes and types raise instead of falling back to a
+    plain path: head dim 264 (above the widest compiled width) and f16."""
+    q = torch.randn(2, 64, 264, device="cuda")  # head_dim 264
     sched = tflash.build_schedule("causal", 64, 64, 256, 256)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="A15"):
         tflash._flash_fwd_kernel(q, q, q, sched, 1, 1, True)
+    q = q[..., :96]
     with pytest.raises(NotImplementedError):
         tflash._flash_fwd_kernel(q.half(), q.half(), q.half(), sched, 1, 1, True)
+    o, lse = tflash._flash_fwd_kernel(q, q, q, sched, 1, 1, True)
+    with pytest.raises(NotImplementedError, match="A15"):
+        tflash_bwd._flash_bwd_kernel(*(torch.randn(2, 64, 264, device="cuda")
+                                       for _ in range(4)), lse,
+                                     torch.randn(2, 64, 264, device="cuda"),
+                                     None, sched, 1, 1)
 
 
 def _rel(a, b):
@@ -287,16 +351,17 @@ _BWD_CASES = [
 ]
 
 
-def _bwd_args(gen, b, hq, hkv, n_q, n_kv, d, causal, dtype):
+def _bwd_args(gen, b, hq, hkv, n_q, n_kv, d, causal, dtype, dv=None):
     """Prescaled operands, the forward's o/lse, a random dO and dlse."""
+    dv = d if dv is None else dv
     q = (torch.randn(b * hq, n_q, d, generator=gen, device="cuda")
          * (d ** -0.5 * tflash.LOG2E)).to(dtype)
     k = torch.randn(b * hkv, n_kv, d, generator=gen, device="cuda").to(dtype)
-    v = torch.randn(b * hkv, n_kv, d, generator=gen, device="cuda").to(dtype)
+    v = torch.randn(b * hkv, n_kv, dv, generator=gen, device="cuda").to(dtype)
     sched = tflash.build_schedule("causal" if causal else "dense", n_q, n_kv,
                                   256, 256)
     o, lse = tflash._flash_fwd_kernel(q, k, v, sched, hq, hkv, True)
-    do = torch.randn(b * hq, n_q, d, generator=gen, device="cuda").to(dtype)
+    do = torch.randn(b * hq, n_q, dv, generator=gen, device="cuda").to(dtype)
     dlse = torch.randn(b * hq, n_q, generator=gen, device="cuda")
     return (q, k, v, o, lse, do, dlse, sched, hq, hkv)
 
@@ -318,12 +383,28 @@ def test_flash_bwd_kernels_match_plain(gen, case):
     assert kernels.LAUNCHES["flash_bwd_dq"] == before["flash_bwd_dq"] + 2
     assert kernels.LAUNCHES["flash_bwd_dkv"] == before["flash_bwd_dkv"] + 2
     want = tflash_bwd._flash_bwd_plain(*args)
-    tol = 1e-2 if case[-1] == torch.bfloat16 else 1e-4
+    tol = 1e-2 if case[7] == torch.bfloat16 else 1e-4
     for name, a, a2, w in zip("qkv", got, again, want):
         assert torch.equal(a, a2), f"d{name} differs between two calls"
         assert a.dtype == w.dtype and a.shape == w.shape
         assert torch.isfinite(a).all()
         assert _rel(a, w) <= tol, (name, _rel(a, w))
+
+
+# head and value dims other than 64 and 128: d 96 and 256 (B4's 32-row q
+# tile and B5's 32-row kv tile), float32 at 256, dv 64 under d 96
+_BWD_HEAD_DIMS = [(1, 16, 8, 1000, 1000, 96, True, torch.bfloat16),
+                  (1, 16, 8, 1000, 1000, 256, True, torch.bfloat16),
+                  (1, 4, 2, 300, 300, 256, False, torch.float32),
+                  (1, 16, 8, 1000, 1000, 96, True, torch.bfloat16, 64)]
+
+
+@pytest.mark.parametrize("case", _BWD_HEAD_DIMS,
+                         ids=["d96", "d256", "d256_f32", "d96_dv64"])
+def test_flash_bwd_kernels_head_dims_match_plain(gen, case):
+    """B4/B5 at other head and value dims vs the plain backward, as
+    :func:`test_flash_bwd_kernels_match_plain`."""
+    test_flash_bwd_kernels_match_plain(gen, case)
 
 
 @pytest.mark.parametrize("case", [_BWD_CASES[1], _BWD_CASES[4]],
@@ -377,21 +458,35 @@ _SERVING_CASES = {
     "fp8_e5m2_cache": ("float8_e4m3fn", "float8_e5m2", "tensor", False, 8, 8,
                        1024, 128, False),
     "int8_pv_quant": ("int8", "int8", "token", True, 8, 8, 1024, 128, False),
+    # head and value dims other than 64 and 128 (the last entry is dv)
+    "d96_fp8_tensor_gqa": ("float8_e4m3fn", "float8_e4m3fn", "tensor", False,
+                           16, 8, 1000, 96, True, 96),
+    "d256_fp8_token": ("float8_e4m3fn", "float8_e4m3fn", "token", False, 8,
+                       8, 1000, 256, False, 256),
+    "d256_int8_causal": ("int8", "int8", "token", False, 16, 8, 1000, 256,
+                         True, 256),
+    "d96_dv64_int8": ("int8", "int8", "token", False, 8, 8, 1000, 96, False,
+                      64),
+    "d256_dv128_weight_only": (None, "int8", "token", False, 8, 8, 1000, 256,
+                               True, 128),
+    "d40_dv200_pv_quant": ("int8", "int8", "token", True, 8, 8, 500, 40,
+                           False, 200),
 }
 
 
-def _quant_inputs(gen, hq, hkv, n, d, dtype=torch.bfloat16):
-    return [torch.randn(1, h, n, d, generator=gen, device="cuda").to(dtype)
-            for h in (hq, hkv, hkv)]
+def _quant_inputs(gen, hq, hkv, n, d, dtype=torch.bfloat16, dv=None):
+    return [torch.randn(1, h, n, dd, generator=gen, device="cuda").to(dtype)
+            for h, dd in ((hq, d), (hkv, d), (hkv, d if dv is None else dv))]
 
 
 def _assert_quant_close(ko, kl, po, pl):
     """Quantized kernel vs plain: each o entry within four bf16 ulps of its
     row's max |plain o| (both round P and o from float32 sums taken in
     another order; a row of zeros matches exactly) and within 2e-2; lse, in
-    float32, within 1e-4 where finite, with the same -inf rows. A kv tile
-    left out or the V scales one channel off moves o by more than ten such
-    ulps at the headline shape."""
+    float32, within 1e-4 where finite, with the same -inf rows (the plain
+    version sums fp8 products as the card's fp8 units do,
+    ``flash_q.fp8_scores``). A kv tile left out or the V scales one channel
+    off moves o by more than ten such ulps at the headline shape."""
     ko, po, kl, pl = ko.float().cpu(), po.float().cpu(), kl.cpu(), pl.cpu()
     top = po.abs().amax(-1, keepdim=True)
     ulp = torch.exp2(torch.floor(torch.log2(top)) - 7)
@@ -405,16 +500,17 @@ def _assert_quant_close(ko, kl, po, pl):
 
 @pytest.mark.parametrize("name", list(_SERVING_CASES))
 def test_serving_kernel_matches_plain(gen, name):
-    """B6 (and the d 64 shapes of B8) vs its plain version: the staged Q
-    bytes (and int8 row scales) equal; o and lse as
-    :func:`_assert_quant_close` (int8 scores are exact on both sides; under
-    pv_quant P's int8 rounding follows the same running max on both
-    sides)."""
+    """B6 (and the d 64 shapes of B8, and padded head dims) vs its plain
+    version: the staged Q bytes (e4m3, int8, or the bf16 weight-only
+    operand) and row factors equal; o and lse as :func:`_assert_quant_close`
+    (int8 scores are exact on both sides; under pv_quant P's int8 rounding
+    follows the same running max on both sides)."""
     from tpu_flash_torch.quant import serving_attn as tsa
     from tpu_flash_torch.quant.flash_q import f32
 
-    q_dtype, kv_dtype, kv_scale, pvq, hq, hkv, n, d, causal = _SERVING_CASES[name]
-    q, k, v = _quant_inputs(gen, hq, hkv, n, d)
+    (q_dtype, kv_dtype, kv_scale, pvq, hq, hkv, n, d, causal,
+     *dv) = _SERVING_CASES[name]
+    q, k, v = _quant_inputs(gen, hq, hkv, n, d, dv=(dv or [None])[0])
     kq, vq = tsa.quantize_kv_cache(k, v, kv_dtype, kv_scale=kv_scale)
     ops = tsa.serving_operands(q, kq, vq, bound_max=not pvq)
     sched = tflash.build_schedule("causal" if causal else "dense", n, n, 1024,
@@ -429,9 +525,12 @@ def test_serving_kernel_matches_plain(gen, name):
         hq // hkv)[:, None, None]
     p_op, p_qs = tsa._stage_q_plain(ops[0], mode, f32(d ** -0.5 * tflash.LOG2E),
                                     skf)
-    assert torch.equal(q_op.view(torch.uint8) if q_op.dtype == torch.int8
-                       else q_op, p_op.view(torch.uint8)
-                       if p_op.dtype == torch.int8 else p_op)
+    assert q_op.dtype == p_op.dtype and q_op.shape == p_op.shape
+    if q_op.element_size() == 1:
+        assert torch.equal(q_op.view(torch.uint8), p_op.view(torch.uint8))
+    else:
+        assert torch.equal(q_op.view(torch.int16), p_op.view(torch.int16))
+    assert (qs is None) == (p_qs is None)
     if p_qs is not None:
         assert torch.equal(qs, p_qs)
     po, pl = tsa._serving_plain(*args)
@@ -443,13 +542,14 @@ def test_serving_kernel_matches_plain(gen, name):
                                        "tensor", False),
     ("float8_e4m3fn", "float8_e4m3fn", "token", True),
     (None, "int8", "token", True)])
-def test_quant_kernel_matches_plain(gen, q_dtype, kv_dtype, kv_scale, causal):
+def test_quant_kernel_matches_plain(gen, q_dtype, kv_dtype, kv_scale, causal,
+                                    d=128, dv=128):
     """B7 through ``quantized_flash_attention`` at d 128, GQA 16/8: the
     kernel on CUDA tensors vs the plain path on the same tensors moved to
     the CPU, as :func:`_assert_quant_close`."""
     from tpu_flash_torch.quant import flash_q as tfq
 
-    q, k, v = _quant_inputs(gen, 16, 8, 1000, 128)
+    q, k, v = _quant_inputs(gen, 16, 8, 1000, d, dv=dv)
     kw = dict(q_dtype=q_dtype, kv_dtype=kv_dtype, kv_scale=kv_scale,
               schedule="causal" if causal else "dense", return_lse=True)
     before = kernels.LAUNCHES["quant_attention"]
@@ -457,18 +557,34 @@ def test_quant_kernel_matches_plain(gen, q_dtype, kv_dtype, kv_scale, causal):
     torch.cuda.synchronize()
     assert kernels.LAUNCHES["quant_attention"] == before + 1
     po, pl = tfq.quantized_flash_attention(q.cpu(), k.cpu(), v.cpu(), **kw)
-    _assert_quant_close(ko, kl, po, pl)
+    _assert_quant_close(ko, kl.reshape(16, -1), po, pl.reshape(16, -1))
+
+
+@pytest.mark.parametrize("q_dtype,kv_dtype,kv_scale,causal,d,dv", [
+    ("float8_e4m3fn", "float8_e4m3fn", "token", True, 96, 96),
+    ("int8", "int8", "token", False, 256, 256),
+    ("float8_e4m3fn", "float8_e5m2", "tensor", False, 256, 128),
+    (None, "float8_e4m3fn", "token", True, 96, 64)])
+def test_quant_kernel_head_dims_match_plain(gen, q_dtype, kv_dtype, kv_scale,
+                                            causal, d, dv):
+    """B7 at other head and value dims (zero-padded to a compiled width)
+    vs its plain version, as :func:`test_quant_kernel_matches_plain`."""
+    test_quant_kernel_matches_plain(gen, q_dtype, kv_dtype, kv_scale, causal,
+                                    d, dv)
 
 
 def test_quant_kernels_reject_what_they_do_not_take(gen):
-    """Head dim 96 and an fp8 cache under int8 Q raise, never fall back."""
+    """Head dim 264, an fp8 cache under int8 Q and f16 inputs raise,
+    never fall back."""
     from tpu_flash_torch.quant import flash_q as tfq
     from tpu_flash_torch.quant import serving_attn as tsa
 
-    q, k, v = _quant_inputs(gen, 2, 2, 64, 96)
+    q, k, v = _quant_inputs(gen, 2, 2, 64, 264)
     kq, vq = tsa.quantize_kv_cache(k, v, "int8")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="A15"):
         tsa.serving_flash_attention(q, kq, vq, q_dtype="int8")
+    with pytest.raises(NotImplementedError, match="A15"):
+        tfq.quantized_flash_attention(q, k, v)
     q, k, v = _quant_inputs(gen, 2, 2, 64, 128)
     kq, vq = tsa.quantize_kv_cache(k, v, "float8_e4m3fn")
     ops = tsa.serving_operands(q, kq, vq, True)

@@ -129,12 +129,45 @@ def _both(fn_j, fn_t, arrays, jkw=None, **kw):
                                                           tl.numpy())
 
 
-def _assert_close(j, t):
+# With e4m3 Q the port applies the row factor to the float32 score of the
+# fp8 products (summed as the card sums them), where the reference's kernel
+# folds it into a bf16 Q (its TPU has no fp8 unit): the two lse then part
+# by more than 1e-3, and o by up to 2e-2 on causal rows with few keys. The
+# largest gaps the e4m3 cases of this file show (ROADMAP §C, a known
+# deviation) stay under these bounds.
+E4M3_O_TOL, E4M3_LSE_GAP = dict(atol=1e-2, rtol=2e-2), 4e-3
+
+
+def _assert_close(j, t, matched=None):
+    """o and lse against the reference's kernel. With e4m3 Q (``matched``,
+    see :func:`_reference_matched`) o and lse against that oracle at the
+    same tolerances, and within :data:`E4M3_O_TOL` / :data:`E4M3_LSE_GAP` of
+    the reference's kernel."""
     (jo, jl), (to, tl) = j, t
-    np.testing.assert_allclose(to, jo, atol=_ATOL, rtol=_RTOL)
     fin = np.isfinite(jl)
     np.testing.assert_array_equal(np.isfinite(tl), fin)
+    if matched is not None:
+        np.testing.assert_allclose(to, jo, **E4M3_O_TOL)
+        np.testing.assert_allclose(tl[fin], jl[fin], atol=E4M3_LSE_GAP)
+        jo, jl = matched
+        np.testing.assert_array_equal(np.isfinite(jl), fin)
+    np.testing.assert_allclose(to, jo, atol=_ATOL, rtol=_RTOL)
     np.testing.assert_allclose(tl[fin], jl[fin], atol=_LSE_ATOL)
+
+
+def _reference_matched(arrays, q_dtype, kv_dtype, kv_scale, causal):
+    """(o, lse) of the reference's f32 oracle on inputs quantized by the
+    reference at the kernel's granularity (the matched-bit-width
+    contract)."""
+    q, k, v = (jnp.asarray(a) for a in arrays)
+    qf = jq.dequantize(jq.quantize(q * q.shape[-1] ** -0.5, q_dtype, axis=-1))
+    k_axis = -1 if kv_scale == "token" else (-2, -1)
+    kf = jq.dequantize(jq.quantize(k, kv_dtype, axis=k_axis))
+    vf = jq.dequantize(jq.quantize(v, kv_dtype, axis=-2))
+    g = q.shape[1] // k.shape[1]
+    o, lse = joracle.dense_dpa(qf, jnp.repeat(kf, g, 1), jnp.repeat(vf, g, 1),
+                               scale=1.0, causal=causal)
+    return np.asarray(o, np.float32), np.asarray(lse)
 
 
 # (q_dtype, kv_dtype, kv_scale, schedule, hq, hkv, d, bound_max): the
@@ -173,10 +206,14 @@ def test_quantized_flash_attention_matches_reference(name):
     # moves lse by up to 2⁻⁸. The causal d 64 case is held against the
     # reference's float32-l kernel (B7) instead; the dense ones against B8.
     jkw = dict(transposed=False) if d <= 64 and sched == "causal" else None
+    arrays = _qkv(7, hq, hkv, 256, d)
     j, t = _both(jfq.quantized_flash_attention, tfq.quantized_flash_attention,
-                 _qkv(7, hq, hkv, 256, d), jkw, q_dtype=q_dt, kv_dtype=kv_dt,
+                 arrays, jkw, q_dtype=q_dt, kv_dtype=kv_dt,
                  kv_scale=kv_scale, schedule=sched, bound_max=bound)
-    _assert_close(j, t)
+    matched = (_reference_matched(arrays, q_dt, kv_dt, kv_scale,
+                                  sched == "causal")
+               if q_dt == "float8_e4m3fn" else None)
+    _assert_close(j, t, matched)
 
 
 def _matched(q, k, v, q_dtype, kv_dtype, kv_scale, scale, causal):
@@ -297,3 +334,35 @@ def test_quantized_rejects(kw, err, match):
     q, k, v = (torch.from_numpy(a) for a in _qkv(12, 2, 2, 64, 64))
     with pytest.raises(err, match=match):
         tfq.quantized_flash_attention(q, k, v, **kw)
+
+
+# One k32 step next to 448·1.875 = 840 (exponent fields 8 + 0, so E = 9):
+# products truncate toward zero to multiples of 2^(9−14), the sum to 14
+# significant bits (multiples of 2^(9−13) near 840).
+@pytest.mark.parametrize("small,want", [
+    (-0.015625, 840.0),          # −0.0293 → 0
+    (-0.017578125, 839.9375),    # −0.0330 → −0.03125; 839.96875 → 839.9375
+    (0.03515625, 840.0625),      # 0.0659 → 0.0625
+    (1.75, 843.25),              # 3.28125: 843.28125 → 843.25
+])
+def test_fp8_scores_worked_steps(small, want):
+    """``fp8_scores`` (the plain version's model of the card's fp8 sums) on
+    hand-checked steps, exact where nothing truncates, odd in q̂, and
+    unchanged by zero padding; steps add in float32."""
+    q = torch.zeros(1, 1, 32)
+    q[0, 0, 0], q[0, 0, 5] = 448.0, small
+    k = torch.full((1, 1, 32), 1.875)
+    e4 = torch.float8_e4m3fn
+    assert float(tfq.fp8_scores(q, k, e4, e4)) == want
+    assert float(tfq.fp8_scores(-q, k, e4, e4)) == -want
+    wide = torch.cat([q, torch.zeros(1, 1, 40)], -1)
+    assert float(tfq.fp8_scores(wide, torch.full((1, 1, 72), 1.875), e4,
+                                e4)) == want
+    two = torch.cat([q, q], -1)
+    assert float(tfq.fp8_scores(two, torch.cat([k, k], -1), e4,
+                                e4)) == float(torch.tensor(want) * 2)
+    rng = np.random.default_rng(3)
+    qs = torch.from_numpy(rng.integers(-15, 16, (2, 7, 64)).astype(np.float32))
+    ks = torch.from_numpy(rng.integers(-3, 4, (2, 5, 64)).astype(np.float32))
+    torch.testing.assert_close(tfq.fp8_scores(qs, ks, e4, e4), qs @ ks.mT,
+                               atol=0, rtol=0)  # ≤ 9 bits: nothing truncates

@@ -11,6 +11,8 @@ import numpy as np
 import pytest
 import torch
 
+from tpu_flash.ops import oracle as joracle
+from tpu_flash.quant import qarray as jq
 from tpu_flash.quant import serving_attn as jsa
 from tpu_flash_torch import kernels
 from tpu_flash_torch.quant import serving_attn as tsa
@@ -32,20 +34,57 @@ def _caches(seed, hq, hkv, n, d, kv_dtype, kv_scale="token"):
         qarray_from_reference(jvq, "cpu"))
 
 
+# With e4m3 Q the port dots q̂·k̂ on the fp8 products and applies the row
+# factor to the float32 score; the reference's kernel folds that factor
+# into a bf16 Q (its TPU has no fp8 unit), which moves its lse off the
+# matched-bit-width oracle by more than the 1e-3 tolerance here, and its o
+# by up to 2e-2 on causal rows with few keys. The largest port-vs-reference
+# gaps the e4m3 cases of this file show (ROADMAP §C, a known deviation)
+# stay under these bounds.
+E4M3_O_TOL, E4M3_LSE_GAP = dict(atol=1e-2, rtol=2e-2), 4e-3
+
+
 def _run(j, t, jkw=None, **kw):
+    """(reference, port, matched) outputs: matched is the reference's f32
+    oracle on matched-bit-width inputs with e4m3 Q, else None."""
     jo, jl = jsa.serving_flash_attention(*j, return_lse=True, **kw,
                                          **(jkw or {}), **_BLK)
     to, tl = tsa.serving_flash_attention(*t, return_lse=True, **kw)
-    return (np.asarray(jo, np.float32), np.asarray(jl)), (to_numpy(to),
-                                                          tl.numpy())
+    matched = (_matched_oracle(j, kw.get("schedule") == "causal")
+               if kw.get("q_dtype") == "float8_e4m3fn" else None)
+    return (np.asarray(jo, np.float32), np.asarray(jl)), (
+        to_numpy(to), tl.numpy()), matched
 
 
-def _assert_close(j, t, atol=5e-3, rtol=1e-2, lse_atol=1e-3):
+def _matched_oracle(j, causal):
+    """The reference's oracle on Q quantized to e4m3 per token (the
+    kernel's staging) and the reference's dequantized cache."""
+    q, kq, vq = j
+    qf = jq.dequantize(jq.quantize(q * q.shape[-1] ** -0.5, "float8_e4m3fn",
+                                   axis=-1))
+    g = q.shape[1] // kq.values.shape[1]
+    kf, vf = (jnp.repeat(jq.dequantize(a), g, 1) for a in (kq, vq))
+    o, lse = joracle.dense_dpa(qf, kf, vf, scale=1.0, causal=causal)
+    return np.asarray(o, np.float32), np.asarray(lse)
+
+
+def _assert_close(j, t, matched=None, atol=5e-3, rtol=1e-2, lse_atol=1e-3):
+    """o and lse against the reference's kernel. With e4m3 Q (``matched``)
+    o and lse against the oracle at the same tolerances, and within
+    :data:`E4M3_O_TOL` / :data:`E4M3_LSE_GAP` of the kernel."""
     (jo, jl), (to, tl) = j, t
-    np.testing.assert_allclose(to, jo, atol=atol, rtol=rtol)
     fin = np.isfinite(jl)
     np.testing.assert_array_equal(np.isfinite(tl), fin)
-    np.testing.assert_allclose(tl[fin], jl[fin], atol=lse_atol)
+    if matched is None:
+        np.testing.assert_allclose(to, jo, atol=atol, rtol=rtol)
+        np.testing.assert_allclose(tl[fin], jl[fin], atol=lse_atol)
+        return
+    np.testing.assert_allclose(to, jo, **E4M3_O_TOL)
+    np.testing.assert_allclose(tl[fin], jl[fin], atol=E4M3_LSE_GAP)
+    mo, ml = matched
+    np.testing.assert_allclose(to, mo, atol=atol, rtol=rtol)
+    np.testing.assert_array_equal(np.isfinite(ml), fin)
+    np.testing.assert_allclose(tl[fin], ml[fin], atol=lse_atol)
 
 
 def test_quantize_kv_cache_bit_identical():
@@ -171,3 +210,26 @@ def test_serving_plain_path_counts_no_launch():
     kernels.reset_launches()
     tsa.serving_flash_attention(*t, q_dtype="int8", schedule="causal")
     assert all(n == 0 for n in kernels.LAUNCHES.values())
+
+
+@pytest.mark.parametrize("q_mode,dtype", [("fp8", "float8_e4m3fn"),
+                                          ("int8", "int8")])
+@pytest.mark.parametrize("tensor_k_scale", [False, True])
+def test_stage_q_plain_bytes_and_factors(q_mode, dtype, tensor_k_scale):
+    """The kernel's Q staging as the plain path states it: the bytes of the
+    reference's ``quantize(q, dtype, axis=-1)`` and the row factors
+    f = (σq·c)·skf in float32, bit for bit (skf: a per-row K scale of
+    kv_scale="tensor", else 1); e4m3 Q reaches the fp8 products unfolded."""
+    rng = np.random.default_rng(9)
+    q = rng.standard_normal((4, 50, 96)).astype(np.float32)
+    q[1, 3] = 0.0  # the 1e-12 floor
+    skf_np = (rng.uniform(0.5, 2.0, (4, 1, 1)).astype(np.float32)
+              if tensor_k_scale else np.float32(1.0))
+    c = np.float32(96 ** -0.5 * 1.4426950408889634)
+    ja = jq.quantize(jnp.asarray(q), dtype, axis=-1)
+    want_f = (np.asarray(ja.scales) * c) * skf_np
+    skf = torch.from_numpy(skf_np) if tensor_k_scale else 1.0
+    op, f = tsa._stage_q_plain(torch.from_numpy(q), q_mode, float(c), skf)
+    np.testing.assert_array_equal(op.view(torch.uint8).numpy(),
+                                  np.asarray(ja.values).view(np.uint8))
+    np.testing.assert_array_equal(f.numpy(), want_f[..., 0])

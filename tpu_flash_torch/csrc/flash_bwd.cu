@@ -36,7 +36,10 @@
 // plain indexing. bf16 products run on the tensor cores through WMMA
 // 16×16×16 with float32 accumulators; float32 inputs take FMA loops (the
 // reference's f32 dots are full precision), and B5 then steps 32 q rows at a
-// time so its tiles fit in shared memory. Summation order is fixed, so both
+// time so its tiles fit in shared memory. At d 256 the block's own tile is
+// 32 rows of 2 warps (B4's q tile, B5's kv tile) and float32 B4 steps 32
+// kv rows: 154-213 KB of shared memory (Cfg below; the 64-row tiles would
+// need 241-330 KB). Summation order is fixed, so both
 // kernels are bitwise deterministic. wgmma/TMA pipelining is later work.
 
 #include <cuda_bf16.h>
@@ -48,22 +51,28 @@ namespace {
 
 using namespace nvcuda;
 
-constexpr int BQ = 64;     // B4: q rows per block
-constexpr int BKV = 64;    // B4: kv rows per step; B5: kv rows per block
-constexpr int NWARPS = 4;  // each warp owns 16 rows
-constexpr int NTHREADS = NWARPS * 32;
 constexpr float LN2 = 0.693147180559945309f;
 
 template <typename T> struct Ty;
 template <> struct Ty<__nv_bfloat16> {
   static constexpr int PAD = 8;   // keeps rows 16 B aligned, shifts banks
-  static constexpr int BQD = 64;  // B5: q rows per step
   static __device__ __nv_bfloat16 t(float x) { return __float2bfloat16_rn(x); }
 };
 template <> struct Ty<float> {
   static constexpr int PAD = 4;
-  static constexpr int BQD = 32;
   static __device__ float t(float x) { return x; }
+};
+
+// Tiles. B4: BQ q rows per block, BKV kv rows per step; B5: BKV5 kv rows per
+// block, BQD q rows per step. A block has one warp per 16 rows of its own
+// tile (BQ or BKV5). At d 256 the own tile is 32 rows (2 warps), and
+// float32 also steps 32 rows, so that every variant fits in 227 KB.
+template <typename T, int HD> struct Cfg {
+  static constexpr bool F32 = sizeof(T) == 4;
+  static constexpr int BQ = HD == 256 ? 32 : 64;
+  static constexpr int BKV = (F32 && HD == 256) ? 32 : 64;
+  static constexpr int BKV5 = HD == 256 ? 32 : 64;
+  static constexpr int BQD = F32 ? 32 : 64;
 };
 
 // Shared memory of one block: two (RA × HD) and two (RB × HD) operand
@@ -96,7 +105,7 @@ template <typename T, int HD, int RA, int RB, int NP, int NACC> struct Smem {
 
 // rows [row0, row0 + rows) of a (n, HD) matrix into shared memory (pitch
 // ld), zero past n; 16-byte vector copies.
-template <typename T, int HD>
+template <typename T, int HD, int NTHREADS>
 __device__ void load_tile(T* dst, int ld, const T* src, int row0, int n,
                           int rows) {
   constexpr int VEC = 16 / sizeof(T);
@@ -111,6 +120,7 @@ __device__ void load_tile(T* dst, int ld, const T* src, int row0, int n,
 }
 
 // rows [row0, row0 + rows) of a per-row float vector, zero past n.
+template <int NTHREADS>
 __device__ void load_rows(float* dst, const float* src, int row0, int n,
                           int rows) {
   for (int i = threadIdx.x; i < rows; i += NTHREADS)
@@ -175,14 +185,15 @@ __device__ void warp_nn_acc(const T* a, int lda, const T* b, int ldb, float* c,
   }
 }
 
-// B4: dQ for one (64-row q tile, batch·q-head row).
+// B4: dQ for one (BQ-row q tile, batch·q-head row).
 template <typename T, int HD>
-__global__ void __launch_bounds__(NTHREADS)
+__global__ void __launch_bounds__(Cfg<T, HD>::BQ * 2)
 flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, const T* __restrict__ dout,
                     const float* __restrict__ lse2, const float* __restrict__ delta,
                     T* __restrict__ dq, int n_q, int n_kv, int hq, int hkv,
                     int causal, int offset) {
+  constexpr int BQ = Cfg<T, HD>::BQ, BKV = Cfg<T, HD>::BKV, NTHREADS = BQ * 2;
   using S = Smem<T, HD, BQ, BKV, 1, 1>;
   extern __shared__ __align__(128) unsigned char smem[];
   T* qs = reinterpret_cast<T*>(smem + S::a0);
@@ -204,10 +215,10 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const T* kb = k + (size_t)kv_row * n_kv * HD;
   const T* vb = v + (size_t)kv_row * n_kv * HD;
 
-  load_tile<T, HD>(qs, S::LD, q + qoff, q0, n_q, BQ);
-  load_tile<T, HD>(dos, S::LD, dout + qoff, q0, n_q, BQ);
-  load_rows(lses, lse2 + (size_t)b * n_q, q0, n_q, BQ);
-  load_rows(deltas, delta + (size_t)b * n_q, q0, n_q, BQ);
+  load_tile<T, HD, NTHREADS>(qs, S::LD, q + qoff, q0, n_q, BQ);
+  load_tile<T, HD, NTHREADS>(dos, S::LD, dout + qoff, q0, n_q, BQ);
+  load_rows<NTHREADS>(lses, lse2 + (size_t)b * n_q, q0, n_q, BQ);
+  load_rows<NTHREADS>(deltas, delta + (size_t)b * n_q, q0, n_q, BQ);
   for (int i = threadIdx.x; i < BQ * S::LDO; i += NTHREADS) acc[i] = 0.0f;
 
   // kv tiles to visit: all, or up to the last key visible to the tile's
@@ -221,8 +232,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int s = 0; s < steps; ++s) {
     const int k0 = s * BKV;
     __syncthreads();  // previous step done with ks/vs; init visible
-    load_tile<T, HD>(ks, S::LD, kb, k0, n_kv, BKV);
-    load_tile<T, HD>(vs, S::LD, vb, k0, n_kv, BKV);
+    load_tile<T, HD, NTHREADS>(ks, S::LD, kb, k0, n_kv, BKV);
+    load_tile<T, HD, NTHREADS>(vs, S::LD, vb, k0, n_kv, BKV);
     __syncthreads();
     warp_nt<T, BKV, HD>(qs + r0 * S::LD, S::LD, ks, S::LD, ss + r0 * S::LDS, S::LDS, lane);
     warp_nt<T, BKV, HD>(dos + r0 * S::LD, S::LD, vs, S::LD, dps + r0 * S::LDS, S::LDS, lane);
@@ -248,16 +259,16 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-// B5: dK and dV for one (64-row kv tile, batch·kv-head row), summed over
+// B5: dK and dV for one (BKV5-row kv tile, batch·kv-head row), summed over
 // the g query heads of its group.
 template <typename T, int HD>
-__global__ void __launch_bounds__(NTHREADS)
+__global__ void __launch_bounds__(Cfg<T, HD>::BKV5 * 2)
 flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, const T* __restrict__ dout,
                      const float* __restrict__ lse2, const float* __restrict__ delta,
                      T* __restrict__ dk, T* __restrict__ dv, int n_q, int n_kv,
                      int hq, int hkv, int causal, int offset) {
-  constexpr int BQD = Ty<T>::BQD;
+  constexpr int BQD = Cfg<T, HD>::BQD, BKV = Cfg<T, HD>::BKV5, NTHREADS = BKV * 2;
   using S = Smem<T, HD, BKV, BQD, 2, 2>;
   extern __shared__ __align__(128) unsigned char smem[];
   T* ks = reinterpret_cast<T*>(smem + S::a0);
@@ -280,8 +291,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int q_row0 = (kv_row / hkv) * hq + (kv_row % hkv) * g;
   const size_t kvoff = (size_t)kv_row * n_kv * HD;
 
-  load_tile<T, HD>(ks, S::LD, k + kvoff, k0, n_kv, BKV);
-  load_tile<T, HD>(vs, S::LD, v + kvoff, k0, n_kv, BKV);
+  load_tile<T, HD, NTHREADS>(ks, S::LD, k + kvoff, k0, n_kv, BKV);
+  load_tile<T, HD, NTHREADS>(vs, S::LD, v + kvoff, k0, n_kv, BKV);
   for (int i = threadIdx.x; i < 2 * BKV * S::LDO; i += NTHREADS) dkacc[i] = 0.0f;
 
   // q tiles that see a key of this tile: from the one holding query
@@ -295,10 +306,10 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int t = first; t < q_tiles; ++t) {
       const int q0 = t * BQD;
       __syncthreads();  // previous step done with qs/dos; init visible
-      load_tile<T, HD>(qs, S::LD, q + qoff, q0, n_q, BQD);
-      load_tile<T, HD>(dos, S::LD, dout + qoff, q0, n_q, BQD);
-      load_rows(lses, lse2 + (size_t)b * n_q, q0, n_q, BQD);
-      load_rows(deltas, delta + (size_t)b * n_q, q0, n_q, BQD);
+      load_tile<T, HD, NTHREADS>(qs, S::LD, q + qoff, q0, n_q, BQD);
+      load_tile<T, HD, NTHREADS>(dos, S::LD, dout + qoff, q0, n_q, BQD);
+      load_rows<NTHREADS>(lses, lse2 + (size_t)b * n_q, q0, n_q, BQD);
+      load_rows<NTHREADS>(deltas, delta + (size_t)b * n_q, q0, n_q, BQD);
       __syncthreads();
       warp_nt<T, BQD, HD>(ks + r0 * S::LD, S::LD, qs, S::LD, sts + r0 * S::LDS, S::LDS, lane);
       warp_nt<T, BQD, HD>(vs + r0 * S::LD, S::LD, dos, S::LD, dpts + r0 * S::LDS, S::LDS, lane);
@@ -342,12 +353,13 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v,
                       const void* dout, const float* lse2, const float* delta,
                       void* dq, int bh, int n_q, int n_kv, int hq, int hkv,
                       int causal, int offset, cudaStream_t stream) {
+  using C = Cfg<T, HD>;
   auto kern = flash_bwd_dq_kernel<T, HD>;
-  const size_t smem = Smem<T, HD, BQ, BKV, 1, 1>::bytes;
+  const size_t smem = Smem<T, HD, C::BQ, C::BKV, 1, 1>::bytes;
   cudaError_t err = set_smem(kern, smem);
   if (err != cudaSuccess) return err;
-  dim3 grid((n_q + BQ - 1) / BQ, bh);
-  kern<<<grid, NTHREADS, smem, stream>>>(
+  dim3 grid((n_q + C::BQ - 1) / C::BQ, bh);
+  kern<<<grid, C::BQ * 2, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const T*>(dout), lse2, delta, static_cast<T*>(dq), n_q, n_kv,
       hq, hkv, causal, offset);
@@ -359,12 +371,13 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
                        const void* dout, const float* lse2, const float* delta,
                        void* dk, void* dv, int bh_kv, int n_q, int n_kv, int hq,
                        int hkv, int causal, int offset, cudaStream_t stream) {
+  using C = Cfg<T, HD>;
   auto kern = flash_bwd_dkv_kernel<T, HD>;
-  const size_t smem = Smem<T, HD, BKV, Ty<T>::BQD, 2, 2>::bytes;
+  const size_t smem = Smem<T, HD, C::BKV5, C::BQD, 2, 2>::bytes;
   cudaError_t err = set_smem(kern, smem);
   if (err != cudaSuccess) return err;
-  dim3 grid((n_kv + BKV - 1) / BKV, bh_kv);
-  kern<<<grid, NTHREADS, smem, stream>>>(
+  dim3 grid((n_kv + C::BKV5 - 1) / C::BKV5, bh_kv);
+  kern<<<grid, C::BKV5 * 2, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const T*>(dout), lse2, delta, static_cast<T*>(dk),
       static_cast<T*>(dv), n_q, n_kv, hq, hkv, causal, offset);
@@ -376,7 +389,7 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
 // q, dout: (bh, n_q, d), q prescaled; k, v: (bh / hq · hkv, n_kv, d);
 // lse2 = clamped lse · log2(e) and delta: (bh, n_q) float32; dq like q.
 // All contiguous, 16-byte aligned, one dtype (0 = float32, 1 = bfloat16).
-// d ∈ {64, 128}.
+// d ∈ {64, 128, 256} (the wrapper zero-pads other head and value dims).
 extern "C" cudaError_t tf_flash_bwd_dq(const void* q, const void* k, const void* v,
                                        const void* dout, const float* lse2,
                                        const float* delta, void* dq, int bh,
@@ -387,8 +400,10 @@ extern "C" cudaError_t tf_flash_bwd_dq(const void* q, const void* k, const void*
   if (hkv <= 0 || hq % hkv != 0) return cudaErrorInvalidValue;
 #define TF_DQ(T, HD) \
   launch_dq<T, HD>(q, k, v, dout, lse2, delta, dq, bh, n_q, n_kv, hq, hkv, causal, offset, stream)
+  if (dtype == 1 && d == 256) return TF_DQ(__nv_bfloat16, 256);
   if (dtype == 1 && d == 128) return TF_DQ(__nv_bfloat16, 128);
   if (dtype == 1 && d == 64) return TF_DQ(__nv_bfloat16, 64);
+  if (dtype == 0 && d == 256) return TF_DQ(float, 256);
   if (dtype == 0 && d == 128) return TF_DQ(float, 128);
   if (dtype == 0 && d == 64) return TF_DQ(float, 64);
 #undef TF_DQ
@@ -407,8 +422,10 @@ extern "C" cudaError_t tf_flash_bwd_dkv(const void* q, const void* k, const void
 #define TF_DKV(T, HD)                                                          \
   launch_dkv<T, HD>(q, k, v, dout, lse2, delta, dk, dv, bh_kv, n_q, n_kv, hq, \
                     hkv, causal, offset, stream)
+  if (dtype == 1 && d == 256) return TF_DKV(__nv_bfloat16, 256);
   if (dtype == 1 && d == 128) return TF_DKV(__nv_bfloat16, 128);
   if (dtype == 1 && d == 64) return TF_DKV(__nv_bfloat16, 64);
+  if (dtype == 0 && d == 256) return TF_DKV(float, 256);
   if (dtype == 0 && d == 128) return TF_DKV(float, 128);
   if (dtype == 0 && d == 64) return TF_DKV(float, 64);
 #undef TF_DKV

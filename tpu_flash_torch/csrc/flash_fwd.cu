@@ -54,7 +54,10 @@
 // softmax needs no block-wide barrier; the float32 accumulator lives in
 // shared memory so the per-row rescale is plain indexing. float32 inputs
 // take the same structure with FMA loops (no tensor cores: the reference's
-// f32 dots are full precision). wgmma/TMA pipelining is later work.
+// f32 dots are full precision). Head widths 64, 128 and 256 are compiled; at
+// d 256 the bf16 tiles take 195 KB of shared memory and float32 takes a
+// 32-row q tile of 2 warps (217 KB), since its 64-row tiles would need
+// 301 KB. wgmma/TMA pipelining is later work.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -65,10 +68,7 @@ namespace {
 
 using namespace nvcuda;
 
-constexpr int BQ = 64;        // q rows per block
 constexpr int BKV = 64;       // kv rows per step
-constexpr int NWARPS = 4;     // each warp owns 16 q rows
-constexpr int NTHREADS = NWARPS * 32;
 // DEFAULT_MASK_VALUE = -0.7 * float32 max, rounded to float32.
 constexpr float MASK = -0x1.666664p+127f;
 constexpr float LN2 = 0.693147180559945309f;
@@ -88,7 +88,15 @@ template <> struct Ty<float> {
   static __device__ float f(float x) { return x; }
 };
 
+// q rows per block: 64 (4 warps, each owning 16 q rows), or 32 (2 warps)
+// for float32 at d 256, whose 64-row tiles would not fit in 227 KB.
+template <typename T, int HD> struct Cfg {
+  static constexpr int BQ = (sizeof(T) == 4 && HD == 256) ? 32 : 64;
+  static constexpr int NTHREADS = BQ / 16 * 32;
+};
+
 template <typename T, int HD> struct Smem {
+  static constexpr int BQ = Cfg<T, HD>::BQ;
   static constexpr int LDQ = HD + Ty<T>::PAD;  // Q, K, V rows
   static constexpr int LDS = BKV + 4;          // float scores
   static constexpr int LDP = BKV + Ty<T>::PAD; // P in V's dtype
@@ -105,6 +113,7 @@ template <typename T, int HD> struct Smem {
   static_assert(k_off % 32 == 0 && v_off % 32 == 0 && s_off % 32 == 0 &&
                     p_off % 32 == 0 && o_off % 32 == 0,
                 "WMMA tiles need 256-bit aligned bases");
+  static_assert(bytes <= 232448, "above the 227 KB a block may use");
 };
 
 // rows [row0, row0 + rows) of a (n, HD) matrix into shared memory (pitch
@@ -114,7 +123,7 @@ __device__ void load_tile(T* dst, int ld, const T* src, int row0, int n,
                           int rows) {
   constexpr int VEC = 16 / sizeof(T);
   constexpr int CHUNKS = HD / VEC;
-  for (int idx = threadIdx.x; idx < rows * CHUNKS; idx += NTHREADS) {
+  for (int idx = threadIdx.x; idx < rows * CHUNKS; idx += Cfg<T, HD>::NTHREADS) {
     int r = idx / CHUNKS, c = (idx % CHUNKS) * VEC;
     uint4 val = make_uint4(0, 0, 0, 0);
     if (row0 + r < n)
@@ -213,13 +222,14 @@ __device__ void accumulate_pv(const T* ps, const T* vs, float* os, int warp,
 }
 
 template <typename T, int HD>
-__global__ void __launch_bounds__(NTHREADS)
+__global__ void __launch_bounds__(Cfg<T, HD>::NTHREADS)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ o,
                  float* __restrict__ lse, const float* __restrict__ kmax,
                  int n_q, int n_kv, int hq, int hkv, int kind, int offset,
                  int radius, int section) {
   using S = Smem<T, HD>;
+  constexpr int BQ = Cfg<T, HD>::BQ, NTHREADS = Cfg<T, HD>::NTHREADS;
   extern __shared__ __align__(128) unsigned char smem[];
   T* qs = reinterpret_cast<T*>(smem + S::q_off);
   T* ks = reinterpret_cast<T*>(smem + S::k_off);
@@ -359,8 +369,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   cudaError_t err =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  dim3 grid((n_q + BQ - 1) / BQ, bh);
-  kern<<<grid, NTHREADS, smem, stream>>>(
+  dim3 grid((n_q + Cfg<T, HD>::BQ - 1) / Cfg<T, HD>::BQ, bh);
+  kern<<<grid, Cfg<T, HD>::NTHREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<T*>(o), lse, kmax, n_q, n_kv, hq, hkv, kind, offset, radius,
       section);
@@ -375,7 +385,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
 // contiguous, 16-byte aligned. kind: 0 dense, 1 causal (offset), 2 local,
 // 3 local_causal (radius), 4 circulant (radius; k, v halo-extended, n_kv =
 // n + 2·radius), 5 block-diagonal (section). dtype: 0 = float32,
-// 1 = bfloat16. d ∈ {64, 128}.
+// 1 = bfloat16. d ∈ {64, 128, 256} (the wrapper zero-pads other head and
+// value dims up to the next of these).
 extern "C" cudaError_t tf_flash_fwd(const void* q, const void* k, const void* v,
                                     void* o, float* lse, const float* kmax,
                                     int bh, int n_q, int n_kv, int hq, int hkv,
@@ -385,17 +396,15 @@ extern "C" cudaError_t tf_flash_fwd(const void* q, const void* k, const void* v,
   if (hkv <= 0 || hq % hkv != 0 || kind < DENSE || kind > BLOCK || radius < 0 ||
       (kind == BLOCK && section <= 0))
     return cudaErrorInvalidValue;
-  if (dtype == 1 && d == 128)
-    return launch<__nv_bfloat16, 128>(q, k, v, o, lse, kmax, bh, n_q, n_kv, hq, hkv,
-                                      kind, offset, radius, section, stream);
-  if (dtype == 1 && d == 64)
-    return launch<__nv_bfloat16, 64>(q, k, v, o, lse, kmax, bh, n_q, n_kv, hq, hkv,
-                                     kind, offset, radius, section, stream);
-  if (dtype == 0 && d == 128)
-    return launch<float, 128>(q, k, v, o, lse, kmax, bh, n_q, n_kv, hq, hkv, kind,
-                              offset, radius, section, stream);
-  if (dtype == 0 && d == 64)
-    return launch<float, 64>(q, k, v, o, lse, kmax, bh, n_q, n_kv, hq, hkv, kind,
-                             offset, radius, section, stream);
+#define TF_FWD(T, HD)                                                          \
+  launch<T, HD>(q, k, v, o, lse, kmax, bh, n_q, n_kv, hq, hkv, kind, offset, \
+                radius, section, stream)
+  if (dtype == 1 && d == 256) return TF_FWD(__nv_bfloat16, 256);
+  if (dtype == 1 && d == 128) return TF_FWD(__nv_bfloat16, 128);
+  if (dtype == 1 && d == 64) return TF_FWD(__nv_bfloat16, 64);
+  if (dtype == 0 && d == 256) return TF_FWD(float, 256);
+  if (dtype == 0 && d == 128) return TF_FWD(float, 128);
+  if (dtype == 0 && d == 64) return TF_FWD(float, 64);
+#undef TF_FWD
   return cudaErrorInvalidValue;
 }

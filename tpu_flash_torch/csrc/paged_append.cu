@@ -18,7 +18,8 @@
 // layer costs what the launch costs. Design: one block per lane, one warp
 // per (K or V, kv head) row; a warp holds its row in registers (d/32
 // values per lane), reduces amax by shuffles and writes the row with
-// consecutive lanes on consecutive bytes. Idle lanes all sit on the trash
+// consecutive lanes on consecutive bytes; where d is not a multiple of 32
+// the last lanes of the last column group hold zeros and write nothing. Idle lanes all sit on the trash
 // slot, whose table row is all zeros: they race on the same row of the
 // trash page (harmless, nobody reads it) and can never reach a granted
 // page.
@@ -57,7 +58,6 @@ paged_append_kernel(const TI* __restrict__ k_new, const TI* __restrict__ v_new,
   const int tpage = min(pos / page, max_pages - 1);
   const int phys = page_tables[(size_t)slot * max_pages + tpage];
   const int off = pos % page;
-  const int nj = d / 32;
 
   for (int task = warp; task < 2 * kvh; task += NWARPS) {
     const bool is_v = task >= kvh;
@@ -68,18 +68,18 @@ paged_append_kernel(const TI* __restrict__ k_new, const TI* __restrict__ v_new,
     float x[MAX_D / 32];
 #pragma unroll
     for (int j = 0; j < MAX_D / 32; ++j)
-      x[j] = j < nj ? to_f32(src[lane + 32 * j]) : 0.0f;
+      x[j] = lane + 32 * j < d ? to_f32(src[lane + 32 * j]) : 0.0f;
     if constexpr (quantized) {
       float amax = 0.0f;
 #pragma unroll
       for (int j = 0; j < MAX_D / 32; ++j)
-        if (j < nj) amax = fmaxf(amax, fabsf(x[j]));
+        amax = fmaxf(amax, fabsf(x[j]));  // the tail's zeros add nothing
       for (int o = 16; o > 0; o >>= 1)
         amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, o));
       const float sc = fmaxf(amax, 1e-12f) / 127.0f;
 #pragma unroll
       for (int j = 0; j < MAX_D / 32; ++j) {
-        if (j < nj) {
+        if (lane + 32 * j < d) {
           const float qv = fminf(fmaxf(rintf(x[j] / sc), -127.0f), 127.0f);
           dst[lane + 32 * j] = static_cast<int8_t>(static_cast<int>(qv));
         }
@@ -89,7 +89,7 @@ paged_append_kernel(const TI* __restrict__ k_new, const TI* __restrict__ v_new,
     } else {
 #pragma unroll
       for (int j = 0; j < MAX_D / 32; ++j)
-        if (j < nj) store(dst + lane + 32 * j, x[j]);
+        if (lane + 32 * j < d) store(dst + lane + 32 * j, x[j]);
     }
   }
 }
@@ -132,14 +132,14 @@ cudaError_t by_cache(int cache_dtype, const void* kn, const void* vn, void* kp,
 // (kvh, total, page, d) of cache_dtype (0 float32, 1 bf16, 2 int8);
 // scales: (kvh, total, page) float32 for int8, else null; slots (b,),
 // lengths (max_seqs,), page_tables (max_seqs, max_pages) int32. d is a
-// multiple of 32, at most 256. All contiguous.
+// multiple of 8, at most 256. All contiguous.
 extern "C" cudaError_t tf_paged_append(
     const void* k_new, const void* v_new, void* k_pages, void* v_pages,
     float* k_scales, float* v_scales, const int* slots, const int* lengths,
     const int* page_tables, int b, int kvh, int d, int page, int total_pages,
     int max_pages, int in_dtype, int cache_dtype, cudaStream_t stream) {
   if (b <= 0) return cudaSuccess;
-  if (d <= 0 || d % 32 != 0 || d > MAX_D || page < 1 || max_pages < 1)
+  if (d <= 0 || d % 8 != 0 || d > MAX_D || page < 1 || max_pages < 1)
     return cudaErrorInvalidValue;
   if (in_dtype == 0)
     return by_cache<float>(cache_dtype, k_new, v_new, k_pages, v_pages, k_scales,

@@ -8,79 +8,107 @@
 // - tpu_flash/quant/flash_q.py:_q_fwd_kernel (B7, :376): the quantized
 //   forward, Q already quantized on the host; entry point tf_quant_attention.
 //
-// The two entry points differ only in how Q reaches shared memory. B6 stages
-// it once per block, before the kv loop (the reference's s == 0 init,
-// serving_attn.py:155-198): the row amax, sq = max(amax, 1e-12) / qmax (an
-// IEEE divide), q / sq rounded to nearest even onto e4m3
-// (__nv_cvt_float_to_fp8) or onto int8 (rintf, clipped to ±127); in fp8
-// mode the e4m3 values are decoded again (exactly) and multiplied by
-// (sq · scale·log2e) · sk_fold, in the reference's float32 order, then cast
-// to bf16; in weight-only mode q · (scale·log2e · sk_fold) is cast to bf16.
-// sk_fold is the per-(batch, kv head) K scale of kv_scale="tensor", else 1.
-// The host quantizer (quant/serving_attn.py:_stage_q_plain) does the same
-// arithmetic, and the two agree on every staged byte. B7 loads a bf16 Q
-// operand, or int8 q̂ with its row scales (times log2e here).
-//
-// The loop: one block of 4 warps per (64-row q tile, bh row), GQA through
-// the kv-row map, kv tiles of 64 up to B1's causal limit. Q·Kᵀ: int8 q̂
-// against int8 K̂ on WMMA signed-char fragments with int32 accumulators
-// (exact: d·127² < 2²⁴), then × the row's q scale; otherwise bf16 WMMA
-// against K̂ decoded exactly to bf16 in shared memory (int8 and both fp8
-// formats are subsets of bf16). A per-token K scale multiplies the float32
-// score columns. The max is the constant norm bound
-// m = ‖q_row‖·(max_j ‖k̂_j‖·σk_j)·1.0001 when gk is given (the host computes
-// the per-kv-row max on the values the kernel dots; any upper bound keeps
-// the online softmax exact, and no rescale runs), else the exact running
-// max. Base-2 softmax; P in bf16 against V̂ decoded to bf16 on bf16 WMMA, or
-// under pv_quant P → clip(rint(p·127), 0, 127) against int8 V̂ on int8 WMMA,
-// scaled by 1/127. l sums the float32 p (B8 summed bf16 p through a ones
-// row of V̂ᵀ; the card needs no transposed layout, so d 64 runs this loop
-// too). The finish mirrors serving_attn.py:332-346: rows with l = 0 or
-// m <= MASK/2 give o = 0 and lse = -inf, then o × σv per channel.
-//
-// int8 WMMA tiles need 256-bit aligned fragment bases, so int8 tiles are
-// kept k-chunked in shared memory: element (row, col) at
-// ((col / 16) · ROWS + row) · 16 + col % 16, a leading dimension of 16.
+// What it computes. Q staging, once per CTA before the kv loop (the
+// reference's s == 0 init, serving_attn.py:155-198): the row amax,
+// sq = max(amax, 1e-12) / qmax (an IEEE divide), q / sq rounded to nearest
+// even onto e4m3 (__NV_SATFINITE) or int8 (rintf, clipped to ±127), and the
+// row factor f = (sq · scale·log2e) · sk_fold in float32; weight-only Q is
+// q · (scale·log2e · sk_fold) cast to bf16, f = 1. sk_fold is the per-(batch,
+// kv head) K scale of kv_scale="tensor", else 1. The host quantizer
+// (quant/serving_attn.py:_stage_q_plain) does the same arithmetic and agrees
+// on every staged byte and factor. B7 loads a bf16 operand, or int8 / e4m3
+// q̂ with host row factors (times c in here). Scores: s = (Σ q̂·k̂)·f·σk_j
+// with σk_j the per-token K scale (or 1); the fp8 and int8 products run on
+// the card's 8-bit units, int8 exactly (s32). The max is the constant norm
+// bound m = (‖q̂_row‖·f)·(max_j ‖k̂_j‖·σk_j)·1.0001 when gk is given (the host
+// computes the per-kv-row max on the values the kernel dots; any upper bound
+// keeps the online softmax exact, and no rescale runs), else the exact
+// running max. Base-2 softmax; P rounded to bf16 against V̂ decoded exactly
+// to bf16, or under pv_quant P → clip(rint(p·127), 0, 127) against int8 V̂
+// (s32 per tile, then × 1/127). l sums the float32 p. The finish mirrors
+// serving_attn.py:332-346: rows with l = 0 or m <= MASK/2 give o = 0 and
+// lse = -inf, then o × σv per channel. Head widths 64, 128 and 256 are
+// compiled; the wrappers zero-pad other d and dv (K̂/V̂ with byte 0, σv
+// with 1).
 //
 // What bounds it on an H100: at the headline shape (b 4, h 8, n 8192,
-// d 128) it is tensor-core operations, 1.10 TFLOP against ~40 MB of q, K̂, V̂
-// and o, far right of the ridge: Q·Kᵀ at the fp8/int8 peak (1979 TFLOP/s)
-// plus P·V at the bf16 peak (989; 1979 under pv_quant) gives ~0.83 ms. This
-// first version uses the pre-Hopper WMMA path at 64×64 tiles with ~114 KB of
-// shared memory a block (one block per SM) and no pipelining; fp8 runs on
-// bf16 tensor cores after an in-shared-memory decode. Native fp8
-// wgmma / mma.sync, TMA and warp specialisation are later work.
+// d 128) tensor-core operations, 1.10 TFLOP against ~40 MB of q, K̂, V̂ and
+// o, far right of the ridge: Q·Kᵀ at the fp8/int8 peak (1979 TFLOP/s) plus
+// P·V at the bf16 peak (989) gives ~0.83 ms.
+//
+// Design (FA-3 shaped). One CTA of three warpgroups per (128-row q tile,
+// q head); the q heads of a kv head are neighbours in blockIdx.y, and under
+// the causal schedule the heaviest q tiles are launched first.
+// - Warpgroup 2 produces. Its first warp issues TMA (cp.async.bulk.tensor,
+//   tensor maps from cuTensorMapEncodeTiled, 128-byte swizzle, 64-byte at
+//   d 64) for the K̂ and V̂ tiles into a ring of 1-3 stages with full/empty
+//   mbarriers; TMA zero-fills ragged n. Its other three warps decode V̂
+//   exactly to bf16 in place of layout (the P·V product reads it MN-major,
+//   through wgmma's transpose bit: no transpose in shared memory), decode
+//   K̂ in the weight-only mode, and load the σk tile. It gives its
+//   registers to the consumers (setmaxnreg 40 / 232).
+// - Warpgroups 0 and 1 consume, 64 q rows each. Q·Kᵀ: wgmma with both
+//   operands in shared memory, e4m3 × e4m3|e5m2 (f32 accumulators) or
+//   s8 × s8 (s32, exact), straight from the TMA'd K̂ bytes, or bf16 × bf16
+//   against the decoded K̂ in the weight-only mode. fp8 sums each k32 step
+//   on a fresh accumulator and adds the steps in float32 (promotion):
+//   inside a step the fp8 units truncate each product to 2^(E-14), E the
+//   step's largest exponent-field sum + 1, and the sum to 14 significant
+//   bits (measured: bench/fp8_sums.py; the plain version models it,
+//   quant/flash_q.py:fp8_scores). Chained steps would truncate the running
+//   sum too. S, P and the O accumulator stay in registers: the row max and
+//   sum use quad shuffles,
+//   P (bf16) is the register A operand of the P·V wgmma. The bound mode
+//   skips the rescale. pv_quant's int8 P·V runs on mma.sync m16n8k32 with
+//   the kv order permuted so that P's accumulator registers are its A
+//   fragment (V̂'s bytes are gathered to match).
+// - Tiles: BKV 128 kv rows at d <= 128, 64 at d 256; as many ring stages as
+//   fit in 227 KB (Cfg below). Registers (python -m
+//   tpu_flash_torch.kernels._build quant_attention.cu, CUDA 12.8): every
+//   instantiation reports 168; none of the score-product ones spills, d
+//   256 included; the pv_quant ones spill a little in their mma.sync V̂
+//   gather (PERF.md §6 lists the bytes).
+//
+// Where it stands: PERF.md §6 (chip_smoke.py on an NVIDIA H100): about a
+// quarter of the bound at the headline, and still behind bf16 SDPA. In one
+// CTA the V̂ decode, Q·Kᵀ, the softmax and P·V still run mostly one after
+// another (each wgmma is waited for before the next step; a ping-pong of
+// the two consumer warpgroups, tried, gained nothing), and every 128-row q
+// tile streams its head's whole K̂/V̂ from L2 (4.3 GB at the headline). The
+// next steps: TMA multicast of K̂/V̂ to a cluster of q tiles, and Q·Kᵀ of
+// tile t+1 overlapped with the softmax of tile t.
 
+#include <cuda.h>
+#include <cudaTypedefs.h>
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_fp8.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
-using namespace nvcuda;
 using bf16 = __nv_bfloat16;
 
-constexpr int BQ = 64;     // q rows per block
-constexpr int BKV = 64;    // kv rows per step
-constexpr int NWARPS = 4;  // each warp owns 16 q rows
-constexpr int NTHREADS = NWARPS * 32;
 // DEFAULT_MASK_VALUE = -0.7 * float32 max, rounded to float32.
 constexpr float MASK = -0x1.666664p+127f;
 constexpr float LN2 = 0.693147180559945309f;
 constexpr float INV127 = (float)(1.0 / 127.0);
+constexpr int SMEM_LIMIT = 232448;  // the 227 KB a block may use
 
 // Q staging modes (the wrappers pass them).
-enum { Q_RAW = 0, Q_FP8 = 1, Q_INT8 = 2, Q_LOAD_BF16 = 3, Q_LOAD_INT8 = 4 };
+enum { Q_RAW = 0, Q_FP8 = 1, Q_INT8 = 2, Q_LOAD_BF16 = 3, Q_LOAD_INT8 = 4, Q_LOAD_FP8 = 5 };
 // Cache storage codes.
 enum { KV_INT8 = 0, KV_E4M3 = 1, KV_E5M2 = 2 };
+// Score products: bf16 Q · decoded K̂, e4m3 q̂ · e4m3 | e5m2 K̂, int8 · int8.
+enum { S_BF16 = 0, S_E4M3 = 1, S_E5M2 = 2, S_INT8 = 3 };
 
 struct Params {
   const void* q;          // (bh, n_q, d): raw f32/bf16 (modes 0-2), bf16
-                          // operand (3) or int8 q̂ (4)
-  const float* sq;        // (bh, n_q) q̂ scales (mode 4)
+                          // operand (3), int8 (4) or e4m3 (5) q̂
+  const float* sq;        // (bh, n_q) q̂ row factors (modes 4, 5), times c
   const uint8_t* k;       // (bh_kv, n_kv, d) int8 / e4m3 / e5m2
   const uint8_t* v;       // (bh_kv, n_kv, d)
   const float* sk_token;  // (bh_kv, n_kv) per-token K scales, or null
@@ -90,41 +118,321 @@ struct Params {
   void* o;                // (bh, n_q, d) f32 or bf16
   float* lse;             // (bh, n_q) or null
   void* q_out;            // (bh, n_q, d) staged Q operand, or null
-  float* qs_out;          // (bh, n_q) staged q̂ row scales, or null
+  float* qs_out;          // (bh, n_q) staged row factors, or null
   int n_q, n_kv, hq, hkv, causal, offset;
   int q_mode, q_f32, kv_dtype, o_f32;
-  float c;  // staging: float32(scale·log2e); mode 4: float32(log2e)
+  float c;  // staging: float32(scale·log2e); modes 4, 5: the factor's multiplier
 };
 
-template <int HD, bool QI8, bool PVQ> struct Smem {
-  static constexpr int LDQ = HD + 8;   // bf16 rows of Q, K, V
-  static constexpr int LDS = BKV + 4;  // float / int32 scores
-  static constexpr int LDP = BKV + 8;  // bf16 P
-  static constexpr int LDO = HD + 4;   // float accumulator
-  static constexpr size_t q_bytes = QI8 ? BQ * HD : sizeof(bf16) * BQ * LDQ;
-  static constexpr size_t k_bytes = QI8 ? BKV * HD : sizeof(bf16) * BKV * LDQ;
-  static constexpr size_t v_bytes = PVQ ? BKV * HD : sizeof(bf16) * BKV * LDQ;
-  static constexpr size_t p_bytes = PVQ ? BQ * BKV : sizeof(bf16) * BQ * LDP;
-  static constexpr size_t q_off = 0;
-  static constexpr size_t k_off = q_off + q_bytes;
-  static constexpr size_t v_off = k_off + k_bytes;
-  static constexpr size_t s_off = v_off + v_bytes;
-  static constexpr size_t p_off = s_off + sizeof(float) * BQ * LDS;
-  static constexpr size_t o_off = p_off + p_bytes;
-  static constexpr size_t m_off = o_off + sizeof(float) * BQ * LDO;
-  static constexpr size_t l_off = m_off + sizeof(float) * BQ;
-  static constexpr size_t qs_off = l_off + sizeof(float) * BQ;
-  static constexpr size_t sk_off = qs_off + sizeof(float) * BQ;
-  static constexpr size_t bytes = sk_off + sizeof(float) * BKV;
-  static_assert(k_off % 32 == 0 && v_off % 32 == 0 && s_off % 32 == 0 &&
-                    p_off % 32 == 0 && o_off % 32 == 0,
-                "WMMA tiles need 256-bit aligned bases");
-  static_assert(bytes <= 227 * 1024, "above the 227 KB a block may use");
+// Tiles and the shared-memory plan of one instantiation.
+template <int HD, int SP, bool PVQ> struct Cfg {
+  static constexpr int BQ = 128;                    // two consumer warpgroups
+  static constexpr int BKV = HD == 256 ? 64 : 128;  // kv rows a stage
+  static constexpr bool Q8 = SP != S_BF16;          // 8-bit score operands
+  static constexpr int RPB = HD >= 128 ? 128 : 64;  // panel bytes, 8-bit tiles
+  static constexpr int QPB = Q8 ? RPB : 128;        // panel bytes, Q operand
+  static constexpr int QBYTES = BQ * HD * (Q8 ? 1 : 2);
+  static constexpr int RAW = BKV * HD;              // one 8-bit K̂ or V̂ tile
+  static constexpr int KB = Q8 ? 0 : BKV * HD * 2;  // decoded K̂ (bf16)
+  static constexpr int VT = PVQ ? 0 : BKV * HD * 2; // decoded V̂ᵀ (bf16)
+  static constexpr int STAGE = 2 * RAW + KB + VT;
+  static constexpr int bytes(int st) {
+    // 1024 of alignment slack, Q, the stages, σk tiles, row factors and
+    // bounds, three barriers a stage
+    return 1024 + QBYTES + st * STAGE + st * BKV * 4 + BQ * 8 + st * 24;
+  }
+  static constexpr int ST = bytes(3) <= SMEM_LIMIT ? 3 : bytes(2) <= SMEM_LIMIT ? 2 : 1;
+  static constexpr int SMEM = bytes(ST);
+  static_assert(SMEM <= SMEM_LIMIT, "above the 227 KB a block may use");
+  static_assert(QBYTES % 1024 == 0 && STAGE % 1024 == 0 && RAW % 1024 == 0 &&
+                    KB % 1024 == 0, "swizzled tiles need 1024-byte bases");
 };
 
-// index of (row, col) in a k-chunked int8 tile of `rows` rows
-__device__ __forceinline__ int chunked(int row, int col, int rows) {
-  return ((col >> 4) * rows + row) * 16 + (col & 15);
+// Byte offset of (row, byte col) in a panel of PB-byte rows, in the layout
+// TMA writes under CU_TENSOR_MAP_SWIZZLE_128B (PB 128) or _64B (PB 64) and
+// wgmma reads as layout SW128 / SW64: 16-byte chunks XORed with row bits.
+template <int PB>
+__device__ __forceinline__ int swz(int row, int col) {
+  const int chunk = (col >> 4) ^ (PB == 128 ? (row & 7) : ((row >> 1) & 3));
+  return row * PB + (chunk << 4) + (col & 15);
+}
+// (row, byte col) of a ROWS-row tile stored as PB-byte-wide panels
+template <int PB, int ROWS>
+__device__ __forceinline__ int tile_off(int row, int col) {
+  return (col / PB) * (ROWS * PB) + swz<PB>(row, col % PB);
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// wgmma shared-memory descriptor of a K-major swizzled tile at `addr`:
+// 8-row groups PB·8 bytes apart (SBO), layout SW128 (1) or SW64 (2).
+template <int PB>
+__device__ __forceinline__ uint64_t desc(uint32_t addr) {
+  constexpr uint64_t layout = PB == 128 ? 1 : 2;
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
+         ((uint64_t)(8 * PB / 16) << 32) | (layout << 62);
+}
+
+// the same for an MN-major SW128 tile: 128-byte rows along K, 64-element
+// column panels LBO bytes apart, 8-row K groups 1024 bytes apart
+__device__ __forceinline__ uint64_t desc_mn(uint32_t addr, uint32_t lbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_u32(bar)) : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+// wait until the barrier's phase with parity `phase` has completed
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int phase) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(phase)
+        : "memory");
+  } while (!done);
+}
+
+// a (box of the) 3-D tensor map at (c0, c1, c2) into shared memory
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, int c0, int c1,
+                                            int c2, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5}], [%2];" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+__device__ __forceinline__ void wg_barrier(int id) {
+  asm volatile("bar.sync %0, 128;" ::"r"(id) : "memory");
+}
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait0() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+}
+// keep the compiler from moving register reads or writes across an
+// asynchronous wgmma that owns the registers
+template <typename T, int N>
+__device__ __forceinline__ void reg_fence(T (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    if constexpr (sizeof(T) == 4 && std::is_same<T, float>::value)
+      asm volatile("" : "+f"(r[i])::"memory");
+    else
+      asm volatile("" : "+r"(r[i])::"memory");
+  }
+}
+
+// wgmma wrappers, one per operand type and tile width N (m64nNk32 for 8-bit,
+// m64nNk16 for bf16). acc_in 0 overwrites d, else adds to it; the
+// register-A form always adds and reads B MN-major (TB 1, transposed).
+template <int N> __device__ void wgmma_e4m3_e4m3(float (&d)[N / 2], uint64_t a, uint64_t b, int acc_in);
+template <> __device__ __forceinline__ void wgmma_e4m3_e4m3<64>(float (&d)[32], uint64_t a, uint64_t b, int acc_in) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.f32.e4m3.e4m3 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(acc_in));
+}
+template <> __device__ __forceinline__ void wgmma_e4m3_e4m3<128>(float (&d)[64], uint64_t a, uint64_t b, int acc_in) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.f32.e4m3.e4m3 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(acc_in));
+}
+template <int N> __device__ void wgmma_e4m3_e5m2(float (&d)[N / 2], uint64_t a, uint64_t b, int acc_in);
+template <> __device__ __forceinline__ void wgmma_e4m3_e5m2<64>(float (&d)[32], uint64_t a, uint64_t b, int acc_in) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.f32.e4m3.e5m2 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(acc_in));
+}
+template <> __device__ __forceinline__ void wgmma_e4m3_e5m2<128>(float (&d)[64], uint64_t a, uint64_t b, int acc_in) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.f32.e4m3.e5m2 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(acc_in));
+}
+template <int N> __device__ void wgmma_bf16_bf16(float (&d)[N / 2], uint64_t a, uint64_t b, int acc_in);
+template <> __device__ __forceinline__ void wgmma_bf16_bf16<64>(float (&d)[32], uint64_t a, uint64_t b, int acc_in) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(acc_in));
+}
+template <> __device__ __forceinline__ void wgmma_bf16_bf16<128>(float (&d)[64], uint64_t a, uint64_t b, int acc_in) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(acc_in));
+}
+template <int N> __device__ void wgmma_s8_s8(int (&d)[N / 2], uint64_t a, uint64_t b, int acc_in);
+template <> __device__ __forceinline__ void wgmma_s8_s8<64>(int (&d)[32], uint64_t a, uint64_t b, int acc_in) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31])
+      : "l"(a), "l"(b), "r"(acc_in));
+}
+template <> __device__ __forceinline__ void wgmma_s8_s8<128>(int (&d)[64], uint64_t a, uint64_t b, int acc_in) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "l"(a), "l"(b), "r"(acc_in));
+}
+template <int N, int TB> __device__ void wgmma_rs_bf16(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t b);
+template <> __device__ __forceinline__ void wgmma_rs_bf16<64, 1>(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.eq.u32 p, 1, 1;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b));
+}
+template <> __device__ __forceinline__ void wgmma_rs_bf16<128, 1>(float (&d)[64], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.eq.u32 p, 1, 1;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b));
+}
+template <> __device__ __forceinline__ void wgmma_rs_bf16<256, 1>(float (&d)[128], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.eq.u32 p, 1, 1;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63,"
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79,"
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95,"
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111,"
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b));
 }
 
 __device__ __forceinline__ float fp8_to_float(uint8_t b, int kv_dtype) {
@@ -133,46 +441,65 @@ __device__ __forceinline__ float fp8_to_float(uint8_t b, int kv_dtype) {
   return __half2float(__half(h));
 }
 
-// exact decode of one cache byte (every int8 / e4m3 / e5m2 value is a bf16)
-__device__ __forceinline__ bf16 decode(uint8_t b, int kv_dtype) {
-  if (kv_dtype == KV_INT8) return __float2bfloat16_rn((float)(int8_t)b);
-  return __float2bfloat16_rn(fp8_to_float(b, kv_dtype));
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
 }
 
-__device__ float warp_max(float x) {
+// int8 byte i of w as a float, exactly, on the integer and FMA units:
+// 2^23 + (x + 128) built in float32's bits, less 2^23 + 128 (the conversion
+// unit runs at a quarter of the rate; for fp8 the one cvt per pair below
+// was the faster of the two)
+template <int I>
+__device__ __forceinline__ float int8_to_float(uint32_t w) {
+  return __uint_as_float(__byte_perm(w ^ 0x80808080u, 0x4B000000u, 0x7440 | I)) -
+         8388736.0f;
+}
+
+// two fp8 bytes (the low 16 bits of x) through one cvt to f16x2
+__device__ __forceinline__ uint32_t fp8x2_to_bf16x2(uint32_t x, int kv_dtype) {
+  const __half2_raw h = __nv_cvt_fp8x2_to_halfraw2(
+      (__nv_fp8x2_storage_t)(x & 0xffff), kv_dtype == KV_E4M3 ? __NV_E4M3 : __NV_E5M2);
+  const float2 f = __half22float2(__half2(h));
+  return pack_bf16(f.x, f.y);
+}
+
+// exact decode of four cache bytes to two bf16 pairs (bytes 0, 1 and 2, 3):
+// every int8 / e4m3 / e5m2 value is a bf16
+__device__ __forceinline__ void decode4(uint32_t w, int kv_dtype, uint32_t& lo, uint32_t& hi) {
+  if (kv_dtype == KV_INT8) {
+    lo = pack_bf16(int8_to_float<0>(w), int8_to_float<1>(w));
+    hi = pack_bf16(int8_to_float<2>(w), int8_to_float<3>(w));
+  } else {
+    lo = fp8x2_to_bf16x2(w, kv_dtype);
+    hi = fp8x2_to_bf16x2(w >> 16, kv_dtype);
+  }
+}
+
+__device__ __forceinline__ float warp_max(float x) {
   for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
   return x;
 }
-__device__ float warp_sum(float x) {
+__device__ __forceinline__ float warp_sum(float x) {
   for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
   return x;
 }
+// 2^x on the special-function unit (ex2.approx: relative error below 2^-22,
+// results under 2^-126 flushed to 0)
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
 
-// rows [row0, row0 + BKV) of a (n, HD) byte matrix into shared memory, zero
-// past n: kept as int8 in the k-chunked layout (RAW8), else decoded to bf16
-// rows of pitch HD + 8.
-template <int HD, bool RAW8>
-__device__ void load_kv(void* dst, const uint8_t* src, int row0, int n, int kv_dtype) {
-  constexpr int CH = HD / 16;  // 16-byte pieces per row
-  for (int idx = threadIdx.x; idx < BKV * CH; idx += NTHREADS) {
-    // RAW8: neighbouring threads take neighbouring rows, so their 16-byte
-    // stores into the chunked tile are contiguous
-    const int r = RAW8 ? idx % BKV : idx / CH;
-    const int c = (RAW8 ? idx / BKV : idx % CH) * 16;
-    uint4 raw = make_uint4(0, 0, 0, 0);
-    if (row0 + r < n)
-      raw = *reinterpret_cast<const uint4*>(src + (size_t)(row0 + r) * HD + c);
-    if constexpr (RAW8) {
-      *reinterpret_cast<uint4*>(static_cast<uint8_t*>(dst) + chunked(r, c, BKV)) = raw;
-    } else {
-      const uint8_t* b = reinterpret_cast<const uint8_t*>(&raw);
-      __align__(16) bf16 out[16];
-      for (int i = 0; i < 16; ++i) out[i] = decode(b[i], kv_dtype);
-      bf16* d = static_cast<bf16*>(dst) + r * (HD + 8) + c;
-      reinterpret_cast<uint4*>(d)[0] = reinterpret_cast<const uint4*>(out)[0];
-      reinterpret_cast<uint4*>(d)[1] = reinterpret_cast<const uint4*>(out)[1];
-    }
-  }
+// over the four lanes that hold one accumulator row
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
 __device__ __forceinline__ float load_q(const Params& p, size_t row, int col, int hd) {
@@ -180,308 +507,536 @@ __device__ __forceinline__ float load_q(const Params& p, size_t row, int col, in
   return __bfloat162float(static_cast<const bf16*>(p.q)[row * hd + col]);
 }
 
-// Q tile of bh row b into shared memory as the score operand (bf16 rows or
-// chunked int8) plus, for int8, its row scales.
-template <int HD, bool QI8>
-__device__ void stage_q(const Params& p, uint8_t* qbuf, float* qs, int b, int q0,
-                        int kv_row, int warp, int lane) {
-  constexpr int LDQ = HD + 8;
-  if (p.q_mode == Q_LOAD_BF16 || p.q_mode == Q_LOAD_INT8) {
-    constexpr int ESZ = QI8 ? 1 : 2;
-    constexpr int CH = HD * ESZ / 16;
-    const uint8_t* src = static_cast<const uint8_t*>(p.q) + (size_t)b * p.n_q * HD * ESZ;
-    for (int idx = threadIdx.x; idx < BQ * CH; idx += NTHREADS) {
-      const int r = QI8 ? idx % BQ : idx / CH;
-      const int c = (QI8 ? idx / BQ : idx % CH) * 16;  // bytes
-      uint4 raw = make_uint4(0, 0, 0, 0);
-      if (q0 + r < p.n_q)
-        raw = *reinterpret_cast<const uint4*>(src + (size_t)(q0 + r) * HD * ESZ + c);
-      uint8_t* d = QI8 ? qbuf + chunked(r, c, BQ) : qbuf + (r * LDQ) * 2 + c;
-      *reinterpret_cast<uint4*>(d) = raw;
-    }
-    if constexpr (QI8)
-      for (int r = threadIdx.x; r < BQ; r += NTHREADS)
-        qs[r] = q0 + r < p.n_q ? p.sq[(size_t)b * p.n_q + q0 + r] * p.c : 0.0f;
-    return;
-  }
+// One consumer warpgroup's 64 Q rows into shared memory as the score
+// operand (swizzled, K-major), with each row's factor f and softmax start
+// m (the norm bound, or MASK). Each warp stages 16 rows, one at a time.
+template <int HD, int SP, bool PVQ>
+__device__ void stage_q(const Params& p, uint8_t* qs, float* rowf, float* rowm, int b,
+                        int q0, int kv_row, int warp, int lane) {
+  using C = Cfg<HD, SP, PVQ>;
+  constexpr int QPB = C::QPB;
   const float skf = p.sk_tensor != nullptr ? p.sk_tensor[kv_row] : 1.0f;
-  bf16* qb = reinterpret_cast<bf16*>(qbuf);
+  const float gk1 = p.gk != nullptr ? p.gk[kv_row] * 1.0001f : 0.0f;
   for (int r = warp * 16; r < warp * 16 + 16; ++r) {
     const int qpos = q0 + r;
-    const size_t row = (size_t)b * p.n_q + qpos;
+    const bool real = qpos < p.n_q;
+    const size_t row = (size_t)b * p.n_q + (real ? qpos : 0);
     float x[HD / 32];
     float amax = 0.0f;
+#pragma unroll
     for (int i = 0; i < HD / 32; ++i) {
-      x[i] = qpos < p.n_q ? load_q(p, row, lane + 32 * i, HD) : 0.0f;
-      amax = fmaxf(amax, fabsf(x[i]));
+      const int col = lane + 32 * i;
+      float v = 0.0f;
+      if (real) {
+        if (p.q_mode == Q_LOAD_BF16)
+          v = __bfloat162float(static_cast<const bf16*>(p.q)[row * HD + col]);
+        else if (p.q_mode == Q_LOAD_INT8)
+          v = (float)static_cast<const int8_t*>(p.q)[row * HD + col];
+        else if (p.q_mode == Q_LOAD_FP8)
+          v = fp8_to_float(static_cast<const uint8_t*>(p.q)[row * HD + col], KV_E4M3);
+        else
+          v = load_q(p, row, col, HD);
+      }
+      x[i] = v;
+      amax = fmaxf(amax, fabsf(v));
     }
-    if constexpr (QI8) {  // Q_INT8
-      const float sq = fmaxf(warp_max(amax), 1e-12f) / 127.0f;
+    // the operand (exact as a float) into x, its bytes into shared memory
+    float f = 1.0f;
+    if (p.q_mode == Q_FP8 || p.q_mode == Q_INT8) {
+      const float qmax = p.q_mode == Q_FP8 ? 448.0f : 127.0f;
+      const float sq = fmaxf(warp_max(amax), 1e-12f) / qmax;
+      f = (sq * p.c) * skf;
+#pragma unroll
       for (int i = 0; i < HD / 32; ++i) {
-        const float v = fminf(fmaxf(rintf(x[i] / sq), -127.0f), 127.0f);
-        qbuf[chunked(r, lane + 32 * i, BQ)] = (uint8_t)(int8_t)v;
+        uint8_t byte;
+        if (p.q_mode == Q_FP8) {
+          byte = (uint8_t)__nv_cvt_float_to_fp8(x[i] / sq, __NV_SATFINITE, __NV_E4M3);
+          x[i] = fp8_to_float(byte, KV_E4M3);
+        } else {
+          x[i] = fminf(fmaxf(rintf(x[i] / sq), -127.0f), 127.0f);
+          byte = (uint8_t)(int8_t)x[i];
+        }
+        qs[tile_off<QPB, 64>(r, lane + 32 * i)] = byte;
       }
-      if (lane == 0) qs[r] = (sq * p.c) * skf;
-    } else if (p.q_mode == Q_FP8) {
-      const float sq = fmaxf(warp_max(amax), 1e-12f) / 448.0f;
-      const float f = (sq * p.c) * skf;
-      for (int i = 0; i < HD / 32; ++i) {
-        const __nv_fp8_storage_t q8 =
-            __nv_cvt_float_to_fp8(x[i] / sq, __NV_SATFINITE, __NV_E4M3);
-        qb[r * LDQ + lane + 32 * i] = __float2bfloat16_rn(fp8_to_float(q8, KV_E4M3) * f);
-      }
-    } else {  // Q_RAW: weight-only
-      const float f = p.c * skf;
+    } else if (p.q_mode == Q_LOAD_INT8 || p.q_mode == Q_LOAD_FP8) {
+      f = real ? p.sq[row] * p.c : 0.0f;
+#pragma unroll
       for (int i = 0; i < HD / 32; ++i)
-        qb[r * LDQ + lane + 32 * i] = __float2bfloat16_rn(x[i] * f);
+        qs[tile_off<QPB, 64>(r, lane + 32 * i)] =
+            real ? static_cast<const uint8_t*>(p.q)[row * HD + lane + 32 * i] : 0;
+    } else {  // bf16 operand: weight-only staging (Q_RAW) or loaded
+      const float fold = p.c * skf;
+#pragma unroll
+      for (int i = 0; i < HD / 32; ++i) {
+        const bf16 h = __float2bfloat16_rn(p.q_mode == Q_RAW ? x[i] * fold : x[i]);
+        x[i] = __bfloat162float(h);
+        *reinterpret_cast<bf16*>(qs + tile_off<128, 64>(r, 2 * (lane + 32 * i))) = h;
+      }
+    }
+    float sumsq = 0.0f;
+#pragma unroll
+    for (int i = 0; i < HD / 32; ++i) sumsq += x[i] * x[i];
+    const float qn = sqrtf(warp_sum(sumsq)) * f;
+    if (lane == 0) {
+      rowf[r] = f;
+      rowm[r] = p.gk != nullptr ? qn * gk1 : MASK;
+    }
+    if (p.q_out != nullptr && real) {  // the staged operand, for checking
+      const size_t at = row * HD;
+#pragma unroll
+      for (int i = 0; i < HD / 32; ++i) {
+        const int col = lane + 32 * i;
+        if (C::Q8)
+          static_cast<uint8_t*>(p.q_out)[at + col] = qs[tile_off<QPB, 64>(r, col)];
+        else
+          static_cast<bf16*>(p.q_out)[at + col] = __float2bfloat16_rn(x[i]);
+      }
+      if (lane == 0 && p.qs_out != nullptr) p.qs_out[row] = f;
     }
   }
 }
 
-template <int HD, bool QI8, bool PVQ>
-__global__ void __launch_bounds__(NTHREADS) quant_attention_kernel(const Params p) {
-  using S = Smem<HD, QI8, PVQ>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  uint8_t* qbuf = smem + S::q_off;
-  uint8_t* kbuf = smem + S::k_off;
-  uint8_t* vbuf = smem + S::v_off;
-  float* ss = reinterpret_cast<float*>(smem + S::s_off);
-  int* si = reinterpret_cast<int*>(smem + S::s_off);
-  uint8_t* pbuf = smem + S::p_off;
-  float* os = reinterpret_cast<float*>(smem + S::o_off);
-  float* ms = reinterpret_cast<float*>(smem + S::m_off);
-  float* ls = reinterpret_cast<float*>(smem + S::l_off);
-  float* qs = reinterpret_cast<float*>(smem + S::qs_off);
-  float* skt = reinterpret_cast<float*>(smem + S::sk_off);
+// Producer side: decode stage tiles for the consumers. `tid` in [0, 96).
+template <int HD, int SP, bool PVQ>
+__device__ void decode_stage(const Params& p, const uint8_t* kraw, const uint8_t* vraw,
+                             uint8_t* kb, uint8_t* vt, float* skt, int k0, int kv_row,
+                             int tid) {
+  using C = Cfg<HD, SP, PVQ>;
+  constexpr int BKV = C::BKV, RPB = C::RPB, NT = 96;
+  // the cache type, known at compile time except in the weight-only mode
+  const int kv = SP == S_E4M3 ? KV_E4M3 : SP == S_E5M2 ? KV_E5M2 : SP == S_INT8 ? KV_INT8
+                                                                                : p.kv_dtype;
+  if constexpr (!C::Q8) {
+    // K̂ → bf16 K, same rows: 16 bytes in, 32 out
+    for (int u = tid; u < BKV * HD / 16; u += NT) {
+      const int r = u % BKV, cb = (u / BKV) * 16;
+      const uint4 raw = *reinterpret_cast<const uint4*>(kraw + tile_off<RPB, BKV>(r, cb));
+      const uint32_t in[4] = {raw.x, raw.y, raw.z, raw.w};
+      uint32_t w[8];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) decode4(in[i], kv, w[2 * i], w[2 * i + 1]);
+      *reinterpret_cast<uint4*>(kb + tile_off<128, BKV>(r, 2 * cb)) =
+          make_uint4(w[0], w[1], w[2], w[3]);
+      *reinterpret_cast<uint4*>(kb + tile_off<128, BKV>(r, 2 * cb + 16)) =
+          make_uint4(w[4], w[5], w[6], w[7]);
+    }
+  }
+  if constexpr (!PVQ) {
+    // V̂ → bf16 V̂, same rows: the P·V product reads it MN-major
+    for (int u = tid; u < BKV * HD / 16; u += NT) {
+      const int r = u % BKV, cb = (u / BKV) * 16;
+      const uint4 raw = *reinterpret_cast<const uint4*>(vraw + tile_off<RPB, BKV>(r, cb));
+      const uint32_t in[4] = {raw.x, raw.y, raw.z, raw.w};
+      uint32_t w[8];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) decode4(in[i], kv, w[2 * i], w[2 * i + 1]);
+      *reinterpret_cast<uint4*>(vt + tile_off<128, BKV>(r, 2 * cb)) =
+          make_uint4(w[0], w[1], w[2], w[3]);
+      *reinterpret_cast<uint4*>(vt + tile_off<128, BKV>(r, 2 * cb + 16)) =
+          make_uint4(w[4], w[5], w[6], w[7]);
+    }
+  }
+  if (p.sk_token != nullptr)
+    for (int j = tid; j < BKV; j += NT)
+      skt[j] = k0 + j < p.n_kv ? p.sk_token[(size_t)kv_row * p.n_kv + k0 + j] : 0.0f;
+}
 
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int q0 = blockIdx.x * BQ;
+
+template <int HD, int SP, bool PVQ>
+__global__ void __launch_bounds__(384, 1)
+    quant_attention_kernel(const __grid_constant__ CUtensorMap tmap_k,
+                           const __grid_constant__ CUtensorMap tmap_v, const Params p) {
+  using C = Cfg<HD, SP, PVQ>;
+  constexpr int BKV = C::BKV, ST = C::ST, RPB = C::RPB, QPB = C::QPB;
+  using Acc = typename std::conditional<SP == S_INT8, int, float>::type;
+  extern __shared__ unsigned char smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~(uintptr_t)1023);
+  uint8_t* qs = smem;                         // BQ rows of the score operand
+  uint8_t* stages = smem + C::QBYTES;         // ST × (K̂, V̂, K bf16, V̂ᵀ bf16)
+  float* skt = reinterpret_cast<float*>(stages + ST * C::STAGE);  // ST × BKV
+  float* rowf = skt + ST * BKV;               // BQ row factors
+  float* rowm = rowf + C::BQ;                 // BQ softmax starts
+  uint64_t* tma_bar = reinterpret_cast<uint64_t*>(rowm + C::BQ);
+  uint64_t* full_bar = tma_bar + ST;
+  uint64_t* empty_bar = full_bar + ST;
+
+  const int n_tiles = (p.n_q + C::BQ - 1) / C::BQ;
+  // the heaviest causal q tiles first
+  const int qt = p.causal ? n_tiles - 1 - (int)blockIdx.x : (int)blockIdx.x;
+  const int q0 = qt * C::BQ;
   const int b = blockIdx.y;
   const int kv_row = (b / p.hq) * p.hkv + (b % p.hq) / (p.hq / p.hkv);
-  const uint8_t* kb = p.k + (size_t)kv_row * p.n_kv * HD;
-  const uint8_t* vb = p.v + (size_t)kv_row * p.n_kv * HD;
-
-  for (int i = threadIdx.x; i < BQ * S::LDO; i += NTHREADS) os[i] = 0.0f;
-  for (int i = threadIdx.x; i < BQ; i += NTHREADS) {
-    ms[i] = MASK;
-    ls[i] = 0.0f;
-  }
-  stage_q<HD, QI8>(p, qbuf, qs, b, q0, kv_row, warp, lane);
-  __syncthreads();
-
-  const bf16* qb = reinterpret_cast<const bf16*>(qbuf);
-  const int8_t* q8 = reinterpret_cast<const int8_t*>(qbuf);
-  if (p.gk != nullptr) {  // constant bound: m = ‖q‖·(gk·1.0001), set once
-    const float gk1 = p.gk[kv_row] * 1.0001f;
-    for (int r = warp * 16; r < warp * 16 + 16; ++r) {
-      float acc = 0.0f;
-      for (int c = lane; c < HD; c += 32) {
-        const float x = QI8 ? (float)q8[chunked(r, c, BQ)]
-                            : __bfloat162float(qb[r * S::LDQ + c]);
-        acc += x * x;
-      }
-      float qn = sqrtf(warp_sum(acc));
-      if (QI8) qn = qn * qs[r];
-      if (lane == 0) ms[r] = qn * gk1;
-    }
-  }
-  if (p.q_out != nullptr) {  // the staged operand, for checking the staging
-    for (int idx = threadIdx.x; idx < BQ * HD; idx += NTHREADS) {
-      const int r = idx / HD, c = idx % HD;
-      if (q0 + r >= p.n_q) continue;
-      const size_t at = ((size_t)b * p.n_q + q0 + r) * HD + c;
-      if (QI8) {
-        static_cast<int8_t*>(p.q_out)[at] = q8[chunked(r, c, BQ)];
-        if (c == 0 && p.qs_out != nullptr) p.qs_out[(size_t)b * p.n_q + q0 + r] = qs[r];
-      } else {
-        static_cast<bf16*>(p.q_out)[at] = qb[r * S::LDQ + c];
-      }
-    }
-  }
-
   int steps = (p.n_kv + BKV - 1) / BKV;
   if (p.causal) {
-    const int last_k = min(q0 + BQ - 1, p.n_q - 1) + p.offset;
+    const int last_k = min(q0 + C::BQ - 1, p.n_q - 1) + p.offset;
     steps = last_k < 0 ? 0 : min(steps, last_k / BKV + 1);
   }
-  const bool bound = p.gk != nullptr;
 
-  for (int s = 0; s < steps; ++s) {
-    const int k0 = s * BKV;
-    __syncthreads();  // previous step done with the K/V tiles
-    load_kv<HD, QI8>(kbuf, kb, k0, p.n_kv, p.kv_dtype);
-    load_kv<HD, PVQ>(vbuf, vb, k0, p.n_kv, p.kv_dtype);
-    if (p.sk_token != nullptr)
-      for (int i = threadIdx.x; i < BKV; i += NTHREADS)
-        skt[i] = k0 + i < p.n_kv ? p.sk_token[(size_t)kv_row * p.n_kv + k0 + i] : 0.0f;
-    __syncthreads();
-
-    // S[16 rows of this warp][BKV] = Q·Kᵀ
-    if constexpr (QI8) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, int> acc[BKV / 16];
-      for (int j = 0; j < BKV / 16; ++j) wmma::fill_fragment(acc[j], 0);
-      for (int kc = 0; kc < HD / 16; ++kc) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, signed char, wmma::row_major> a;
-        wmma::load_matrix_sync(
-            a, reinterpret_cast<const signed char*>(qbuf) + (kc * BQ + warp * 16) * 16, 16);
-        for (int j = 0; j < BKV / 16; ++j) {
-          // K̂ᵀ as a column-major B: (k, key) at chunk base + key·16 + k
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, signed char, wmma::col_major> bm;
-          wmma::load_matrix_sync(
-              bm, reinterpret_cast<const signed char*>(kbuf) + (kc * BKV + j * 16) * 16, 16);
-          wmma::mma_sync(acc[j], a, bm, acc[j]);
-        }
-      }
-      for (int j = 0; j < BKV / 16; ++j)
-        wmma::store_matrix_sync(si + warp * 16 * S::LDS + j * 16, acc[j], S::LDS,
-                                wmma::mem_row_major);
-    } else {
-      const bf16* kt = reinterpret_cast<const bf16*>(kbuf);
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[BKV / 16];
-      for (int j = 0; j < BKV / 16; ++j) wmma::fill_fragment(acc[j], 0.0f);
-      for (int kk = 0; kk < HD; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-        wmma::load_matrix_sync(a, qb + warp * 16 * S::LDQ + kk, S::LDQ);
-        for (int j = 0; j < BKV / 16; ++j) {
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> bm;
-          wmma::load_matrix_sync(bm, kt + j * 16 * S::LDQ + kk, S::LDQ);
-          wmma::mma_sync(acc[j], a, bm, acc[j]);
-        }
-      }
-      for (int j = 0; j < BKV / 16; ++j)
-        wmma::store_matrix_sync(ss + warp * 16 * S::LDS + j * 16, acc[j], S::LDS,
-                                wmma::mem_row_major);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(&tma_bar[s], 1);
+      mbar_init(&full_bar[s], 96);  // the three decoding warps
+      mbar_init(&empty_bar[s], 8);  // lane 0 of each consumer warp
     }
-    __syncwarp();
-
-    for (int r = warp * 16; r < warp * 16 + 16; ++r) {
-      const int qpos = q0 + r;
-      float sv[BKV / 32];
-      float mx = MASK;
-      for (int j = 0; j < BKV / 32; ++j) {
-        const int c = lane + 32 * j, kpos = k0 + c;
-        float x = QI8 ? (float)si[r * S::LDS + c] * qs[r] : ss[r * S::LDS + c];
-        if (p.sk_token != nullptr) x = x * skt[c];
-        const bool seen = kpos < p.n_kv && (!p.causal || kpos <= qpos + p.offset);
-        sv[j] = seen ? x : MASK;
-        mx = fmaxf(mx, sv[j]);
-      }
-      const float m_prev = ms[r];
-      const float m_next = bound ? m_prev : fmaxf(m_prev, warp_max(mx));
-      const float alpha = bound ? 1.0f : exp2f(m_prev - m_next);
-      float psum = 0.0f;
-      for (int j = 0; j < BKV / 32; ++j) {
-        const int c = lane + 32 * j;
-        const float pr = exp2f(sv[j] - m_next);
-        psum += pr;
-        if constexpr (PVQ)
-          pbuf[chunked(r, c, BQ)] =
-              (uint8_t)(int8_t)fminf(fmaxf(rintf(pr * 127.0f), 0.0f), 127.0f);
-        else
-          reinterpret_cast<bf16*>(pbuf)[r * S::LDP + c] = __float2bfloat16_rn(pr);
-      }
-      psum = warp_sum(psum);
-      if (!bound)
-        for (int c = lane; c < HD; c += 32) os[r * S::LDO + c] *= alpha;
-      __syncwarp();
-      if (lane == 0) {
-        ms[r] = m_next;
-        ls[r] = bound ? ls[r] + psum : alpha * ls[r] + psum;
-      }
-    }
-    __syncwarp();
-
-    // O[16 rows of this warp][HD] += P·V (O already rescaled by alpha)
-    if constexpr (PVQ) {
-      for (int j = 0; j < HD / 16; ++j) {
-        wmma::fragment<wmma::accumulator, 16, 16, 16, int> acc;
-        wmma::fill_fragment(acc, 0);
-        for (int kc = 0; kc < BKV / 16; ++kc) {
-          wmma::fragment<wmma::matrix_a, 16, 16, 16, signed char, wmma::row_major> a;
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, signed char, wmma::row_major> bm;
-          wmma::load_matrix_sync(
-              a, reinterpret_cast<const signed char*>(pbuf) + (kc * BQ + warp * 16) * 16, 16);
-          // V̂ chunked by channel: (key, ch) at chunk j base + key·16 + ch
-          wmma::load_matrix_sync(
-              bm, reinterpret_cast<const signed char*>(vbuf) + (j * BKV + kc * 16) * 16, 16);
-          wmma::mma_sync(acc, a, bm, acc);
-        }
-        // the warp's scores are spent: its rows of S hold the int32 tile
-        wmma::store_matrix_sync(si + warp * 16 * S::LDS, acc, S::LDS, wmma::mem_row_major);
-        __syncwarp();
-        for (int e = lane; e < 256; e += 32) {
-          const int r = warp * 16 + e / 16, c = e % 16;
-          os[r * S::LDO + j * 16 + c] += (float)si[r * S::LDS + c] * INV127;
-        }
-        __syncwarp();
-      }
-    } else {
-      const bf16* pt = reinterpret_cast<const bf16*>(pbuf);
-      const bf16* vt = reinterpret_cast<const bf16*>(vbuf);
-      for (int j = 0; j < HD / 16; ++j) {
-        wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-        float* optr = os + warp * 16 * S::LDO + j * 16;
-        wmma::load_matrix_sync(acc, optr, S::LDO, wmma::mem_row_major);
-        for (int kk = 0; kk < BKV; kk += 16) {
-          wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bm;
-          wmma::load_matrix_sync(a, pt + warp * 16 * S::LDP + kk, S::LDP);
-          wmma::load_matrix_sync(bm, vt + kk * S::LDQ + j * 16, S::LDQ);
-          wmma::mma_sync(acc, a, bm, acc);
-        }
-        wmma::store_matrix_sync(optr, acc, S::LDO, wmma::mem_row_major);
-      }
-    }
-    __syncwarp();
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
+  __syncthreads();
 
-  __syncwarp();
-  for (int r = warp * 16; r < warp * 16 + 16; ++r) {
-    const int qpos = q0 + r;
-    if (qpos >= p.n_q) break;
-    const float l = ls[r], m = ms[r];
-    const bool valid = l > 0.0f && m > MASK * 0.5f;
-    const float l_inv = valid ? 1.0f / l : 0.0f;
-    const size_t row = (size_t)b * p.n_q + qpos;
-    for (int c = lane; c < HD; c += 32) {
-      const float x = (os[r * S::LDO + c] * l_inv) * p.sv[(size_t)kv_row * HD + c];
-      if (p.o_f32)
-        static_cast<float*>(p.o)[row * HD + c] = x;
-      else
-        static_cast<bf16*>(p.o)[row * HD + c] = __float2bfloat16_rn(x);
+  const int wg = threadIdx.x / 128, wtid = threadIdx.x % 128;
+  const int warp = wtid / 32, lane = wtid % 32;
+  if (wg == 2) {
+    // ---------------- producer warpgroup ----------------
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;");
+    if (warp == 0) {
+      if (lane == 0) {
+        for (int t = 0; t < steps; ++t) {
+          const int s = t % ST, ph = (t / ST) & 1;
+          mbar_wait(&empty_bar[s], ph ^ 1);
+          uint8_t* st = stages + s * C::STAGE;
+          mbar_expect_tx(&tma_bar[s], 2 * C::RAW);
+          for (int pn = 0; pn < HD / RPB; ++pn) {
+            tma_load_3d(st + pn * BKV * RPB, &tmap_k, pn * RPB, t * BKV, kv_row, &tma_bar[s]);
+            tma_load_3d(st + C::RAW + pn * BKV * RPB, &tmap_v, pn * RPB, t * BKV, kv_row,
+                        &tma_bar[s]);
+          }
+        }
+      }
+    } else {
+      const int tid = wtid - 32;
+      for (int t = 0; t < steps; ++t) {
+        const int s = t % ST, ph = (t / ST) & 1;
+        uint8_t* st = stages + s * C::STAGE;
+        mbar_wait(&tma_bar[s], ph);
+        decode_stage<HD, SP, PVQ>(p, st, st + C::RAW, st + 2 * C::RAW,
+                                  st + 2 * C::RAW + C::KB, skt + s * BKV, t * BKV, kv_row, tid);
+        fence_async_smem();
+        mbar_arrive(&full_bar[s]);
+      }
     }
-    if (p.lse != nullptr && lane == 0)
-      p.lse[row] = valid ? m * LN2 + logf(l) : -__int_as_float(0x7f800000);
+  } else {
+    // ---------------- consumer warpgroups ----------------
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;");
+    uint8_t* qw = qs + wg * 64 * HD * (C::Q8 ? 1 : 2);
+    const int qw0 = q0 + 64 * wg;  // this warpgroup's first q row
+    stage_q<HD, SP, PVQ>(p, qw, rowf + 64 * wg, rowm + 64 * wg, b, qw0, kv_row, warp, lane);
+    fence_async_smem();
+    wg_barrier(1 + wg);
+
+    // this thread's two accumulator rows
+    const int ra = warp * 16 + lane / 4, rb = ra + 8;
+    const int qa = qw0 + ra, qb = qw0 + rb;
+    const int t4 = lane % 4;
+    const float fa = rowf[64 * wg + ra], fb = rowf[64 * wg + rb];
+    float ma = rowm[64 * wg + ra], mb = rowm[64 * wg + rb];
+    float la = 0.0f, lb = 0.0f;
+    const bool bound = p.gk != nullptr;
+    float o[HD / 2];
+#pragma unroll
+    for (int i = 0; i < HD / 2; ++i) o[i] = 0.0f;
+    const uint32_t q_addr = smem_u32(qw);
+
+    for (int t = 0; t < steps; ++t) {
+      const int s = t % ST, ph = (t / ST) & 1;
+      const int k0 = t * BKV;
+      uint8_t* st = stages + s * C::STAGE;
+      mbar_wait(&tma_bar[s], ph);
+      mbar_wait(&full_bar[s], ph);
+
+      // S = Q·Kᵀ on the tensor cores, operands in shared memory
+      Acc sacc[BKV / 2];
+      {
+        const uint32_t k_addr = smem_u32(C::Q8 ? st : st + 2 * C::RAW);
+        constexpr int KSTEPS = C::Q8 ? HD / 32 : HD / 16;  // 32 bytes a step
+        constexpr bool FP8 = SP == S_E4M3 || SP == S_E5M2;
+        if constexpr (FP8) {
+          // each k32 step into its own accumulator, the steps summed in
+          // float32 (promotion): the fp8 units truncate inside a step
+          // (flash_q.fp8_scores), and chained steps would carry that into
+          // the running sum
+#pragma unroll
+          for (int kk = 0; kk < KSTEPS; ++kk) {
+            const int colb = 32 * kk;
+            const uint64_t da = desc<QPB>(q_addr + (colb / QPB) * 64 * QPB + colb % QPB);
+            const uint64_t db = desc<QPB>(k_addr + (colb / QPB) * BKV * QPB + colb % QPB);
+            float part[BKV / 2];
+            wgmma_fence();
+            if constexpr (SP == S_E4M3) wgmma_e4m3_e4m3<BKV>(part, da, db, 0);
+            else if constexpr (SP == S_E5M2) wgmma_e4m3_e5m2<BKV>(part, da, db, 0);
+            wgmma_commit();
+            wgmma_wait0();
+            reg_fence(part);
+#pragma unroll
+            for (int i = 0; i < BKV / 2; ++i) sacc[i] = kk ? sacc[i] + part[i] : part[i];
+          }
+        } else {
+          wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < KSTEPS; ++kk) {
+            const int colb = 32 * kk;
+            const uint64_t da = desc<QPB>(q_addr + (colb / QPB) * 64 * QPB + colb % QPB);
+            const uint64_t db = desc<QPB>(k_addr + (colb / QPB) * BKV * QPB + colb % QPB);
+            if constexpr (SP == S_INT8) wgmma_s8_s8<BKV>(sacc, da, db, kk);
+            else wgmma_bf16_bf16<BKV>(sacc, da, db, kk);
+          }
+          wgmma_commit();
+          wgmma_wait0();
+          reg_fence(sacc);
+        }
+      }
+
+      // scores, masks and the online softmax, in registers
+      float sc[BKV / 2];
+      float alpha_a = 1.0f, alpha_b = 1.0f;
+      if (p.sk_token != nullptr) {  // per-token K scales: the row's two columns at once
+        const float* sk = skt + s * BKV;
+#pragma unroll
+        for (int j = 0; j < BKV / 8; ++j) {
+          const float2 skj = *reinterpret_cast<const float2*>(sk + 8 * j + 2 * t4);
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            sc[4 * j + e] = ((float)sacc[4 * j + e] * (e < 2 ? fa : fb)) * (e & 1 ? skj.y : skj.x);
+        }
+      } else {
+#pragma unroll
+        for (int i = 0; i < BKV / 2; ++i) sc[i] = (float)sacc[i] * ((i & 2) ? fb : fa);
+      }
+      if (k0 + BKV > p.n_kv || (p.causal && k0 + BKV - 1 > qw0 + p.offset)) {
+#pragma unroll
+        for (int i = 0; i < BKV / 2; ++i) {
+          const int kpos = k0 + 8 * (i / 4) + 2 * t4 + (i & 1), qpos = (i & 2) ? qb : qa;
+          if (kpos >= p.n_kv || (p.causal && kpos > qpos + p.offset)) sc[i] = MASK;
+        }
+      }
+      if (!bound) {  // the exact running max; the bound needs no rescale
+        float mxa = MASK, mxb = MASK;
+#pragma unroll
+        for (int i = 0; i < BKV / 2; ++i) {
+          if (i & 2) mxb = fmaxf(mxb, sc[i]);
+          else mxa = fmaxf(mxa, sc[i]);
+        }
+        const float na = fmaxf(ma, quad_max(mxa)), nb = fmaxf(mb, quad_max(mxb));
+        alpha_a = fast_exp2(ma - na);
+        alpha_b = fast_exp2(mb - nb);
+        ma = na;
+        mb = nb;
+#pragma unroll
+        for (int j = 0; j < HD / 8; ++j) {
+          o[4 * j] *= alpha_a;
+          o[4 * j + 1] *= alpha_a;
+          o[4 * j + 2] *= alpha_b;
+          o[4 * j + 3] *= alpha_b;
+        }
+      }
+      float psa = 0.0f, psb = 0.0f;
+#pragma unroll
+      for (int i = 0; i < BKV / 2; ++i) {
+        const float pr = fast_exp2(sc[i] - ((i & 2) ? mb : ma));
+        if (i & 2) psb += pr;
+        else psa += pr;
+        sc[i] = pr;
+      }
+      la = alpha_a * la + quad_sum(psa);
+      lb = alpha_b * lb + quad_sum(psb);
+
+      if constexpr (!PVQ) {
+        // O += P·V̂: P (bf16) as the register A operand, V̂ in shared memory
+        uint32_t pa[BKV / 16][4];
+#pragma unroll
+        for (int kk = 0; kk < BKV / 16; ++kk)
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            pa[kk][i] = pack_bf16(sc[8 * kk + 2 * i], sc[8 * kk + 2 * i + 1]);
+        const uint32_t v_addr = smem_u32(st + 2 * C::RAW + C::KB);
+        reg_fence(o);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < BKV / 16; ++kk)
+          wgmma_rs_bf16<HD, 1>(o, pa[kk], desc_mn(v_addr + kk * 16 * 128, BKV * 128));
+        wgmma_commit();
+        wgmma_wait0();
+        reg_fence(o);
+      } else {
+        // O += (P8·V̂)/127 on mma.sync m16n8k32. A's k slots 4t..4t+3 and
+        // 16+4t.. hold kv columns {2t, 2t+1, 8+2t, 9+2t} (+16) of the
+        // 32-column chunk: exactly this thread's accumulator columns, so V̂'s
+        // bytes are gathered in that order.
+        const uint8_t* vraw = st + C::RAW;
+        uint32_t pa[BKV / 32][4];
+#pragma unroll
+        for (int kc = 0; kc < BKV / 32; ++kc) {
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            // i: 0 row a, tiles 4kc/4kc+1; 1 row b; 2, 3 tiles 4kc+2/4kc+3
+            const int t0 = 4 * kc + 2 * (i >> 1), e = 2 * (i & 1);
+            uint32_t w = 0;
+#pragma unroll
+            for (int u = 0; u < 4; ++u) {
+              const float pr = sc[4 * (t0 + (u >> 1)) + e + (u & 1)];
+              const uint32_t q8 = (uint32_t)fminf(fmaxf(rintf(pr * 127.0f), 0.0f), 127.0f);
+              w |= q8 << (8 * u);
+            }
+            pa[kc][i] = w;
+          }
+        }
+        // Byte (kv, 8nt + g) of the swizzled tile, kv = 32kc + 16h + 8j +
+        // 2t4 + e: the row's swizzle bits depend on t4 and e alone, so each
+        // address is a per-thread base, a constant and one XOR.
+        const int g = lane / 4;
+        const uint8_t* vrow[2] = {vraw + (2 * t4) * RPB + g, vraw + (2 * t4 + 1) * RPB + g};
+        const int vx[2] = {(RPB == 128 ? 2 * t4 : t4) << 4, (RPB == 128 ? 2 * t4 + 1 : t4) << 4};
+#pragma unroll
+        for (int nt = 0; nt < HD / 8; ++nt) {
+          int cacc[4] = {0, 0, 0, 0};
+          constexpr int PANEL_ROWS = BKV * RPB;
+          const int at = (8 * nt / RPB) * PANEL_ROWS + 8 * (nt & 1);
+          const int c16 = ((8 * nt) % RPB) & ~15;
+#pragma unroll
+          for (int kc = 0; kc < BKV / 32; ++kc) {
+            uint32_t bw[2];
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              uint32_t w = 0;
+#pragma unroll
+              for (int u = 0; u < 4; ++u) {
+                const int e = u & 1, row = 32 * kc + 16 * h + 8 * (u >> 1);
+                w |= (uint32_t)vrow[e][at + row * RPB + (c16 ^ vx[e])] << (8 * u);
+              }
+              bw[h] = w;
+            }
+            asm volatile(
+                "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+                "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+                : "+r"(cacc[0]), "+r"(cacc[1]), "+r"(cacc[2]), "+r"(cacc[3])
+                : "r"(pa[kc][0]), "r"(pa[kc][1]), "r"(pa[kc][2]), "r"(pa[kc][3]),
+                  "r"(bw[0]), "r"(bw[1]));
+          }
+#pragma unroll
+          for (int e = 0; e < 4; ++e) o[4 * nt + e] += (float)cacc[e] * INV127;
+        }
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty_bar[s]);
+    }
+
+    // finish: o = acc / l × σv, lse = m·ln2 + log(l); dead rows give 0, -inf
+    const bool va = la > 0.0f && ma > MASK * 0.5f, vb = lb > 0.0f && mb > MASK * 0.5f;
+    const float ia = va ? 1.0f / la : 0.0f, ib = vb ? 1.0f / lb : 0.0f;
+    const float* sv = p.sv + (size_t)kv_row * HD;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int qpos = half ? qb : qa;
+      if (qpos >= p.n_q) continue;
+      const float inv = half ? ib : ia;
+      const size_t row = (size_t)b * p.n_q + qpos;
+#pragma unroll
+      for (int j = 0; j < HD / 8; ++j) {
+        const int col = 8 * j + 2 * t4;
+        const float x0 = (o[4 * j + 2 * half] * inv) * sv[col];
+        const float x1 = (o[4 * j + 2 * half + 1] * inv) * sv[col + 1];
+        if (p.o_f32)
+          *reinterpret_cast<float2*>(static_cast<float*>(p.o) + row * HD + col) =
+              make_float2(x0, x1);
+        else
+          *reinterpret_cast<__nv_bfloat162*>(static_cast<bf16*>(p.o) + row * HD + col) =
+              __floats2bfloat162_rn(x0, x1);
+      }
+      if (p.lse != nullptr && t4 == 0) {
+        const float l = half ? lb : la, m = half ? mb : ma;
+        p.lse[row] = (half ? vb : va) ? m * LN2 + logf(l) : -__int_as_float(0x7f800000);
+      }
+    }
   }
 }
 
-template <int HD, bool QI8, bool PVQ>
+using EncodeFn = PFN_cuTensorMapEncodeTiled_v12000;
+
+// cuTensorMapEncodeTiled from the driver, found through the runtime, so the
+// build needs no -lcuda
+EncodeFn encode_fn() {
+  static EncodeFn fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult res;
+#if CUDART_VERSION >= 12050
+    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000,
+                                         cudaEnableDefault, &res) != cudaSuccess)
+      return nullptr;
+#else
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &res) !=
+        cudaSuccess)
+      return nullptr;
+#endif
+    if (res != cudaDriverEntryPointSuccess) return nullptr;
+    fn = reinterpret_cast<EncodeFn>(ptr);
+  }
+  return fn;
+}
+
+// (bh_kv, n_kv, HD) bytes as a 3-D tensor map with boxes of RPB bytes ×
+// BKV rows × 1, swizzled as the wgmma descriptors expect
+template <int HD, int BKV, int RPB>
+bool make_map(CUtensorMap* map, const void* base, int n_kv, int bh_kv) {
+  EncodeFn fn = encode_fn();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)HD, (cuuint64_t)n_kv, (cuuint64_t)bh_kv};
+  const cuuint64_t strides[2] = {(cuuint64_t)HD, (cuuint64_t)HD * n_kv};
+  const cuuint32_t box[3] = {RPB, BKV, 1};
+  const cuuint32_t estr[3] = {1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 3, const_cast<void*>(base), dims, strides,
+            box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            RPB == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int HD, int SP, bool PVQ>
 cudaError_t launch(const Params& p, int bh, cudaStream_t stream) {
-  auto kern = quant_attention_kernel<HD, QI8, PVQ>;
-  const size_t smem = Smem<HD, QI8, PVQ>::bytes;
+  using C = Cfg<HD, SP, PVQ>;
+  const int bh_kv = bh / p.hq * p.hkv;
+  CUtensorMap mk, mv;
+  if (!make_map<HD, C::BKV, C::RPB>(&mk, p.k, p.n_kv, bh_kv) ||
+      !make_map<HD, C::BKV, C::RPB>(&mv, p.v, p.n_kv, bh_kv))
+    return cudaErrorInvalidValue;
+  auto kern = quant_attention_kernel<HD, SP, PVQ>;
   cudaError_t err =
-      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
   if (err != cudaSuccess) return err;
-  dim3 grid((p.n_q + BQ - 1) / BQ, bh);
-  kern<<<grid, NTHREADS, smem, stream>>>(p);
+  dim3 grid((p.n_q + C::BQ - 1) / C::BQ, bh);
+  kern<<<grid, 384, C::SMEM, stream>>>(mk, mv, p);
   return cudaGetLastError();
 }
 
 template <int HD>
-cudaError_t dispatch_d(const Params& p, int bh, bool qi8, bool pvq, cudaStream_t stream) {
-  if (qi8) return pvq ? launch<HD, true, true>(p, bh, stream) : launch<HD, true, false>(p, bh, stream);
-  return pvq ? launch<HD, false, true>(p, bh, stream) : launch<HD, false, false>(p, bh, stream);
+cudaError_t dispatch_d(const Params& p, int bh, int sp, bool pvq, cudaStream_t stream) {
+  if (pvq) {
+    if (sp == S_INT8) return launch<HD, S_INT8, true>(p, bh, stream);
+    if (sp == S_BF16) return launch<HD, S_BF16, true>(p, bh, stream);
+    return cudaErrorInvalidValue;
+  }
+  switch (sp) {
+    case S_BF16: return launch<HD, S_BF16, false>(p, bh, stream);
+    case S_E4M3: return launch<HD, S_E4M3, false>(p, bh, stream);
+    case S_E5M2: return launch<HD, S_E5M2, false>(p, bh, stream);
+    case S_INT8: return launch<HD, S_INT8, false>(p, bh, stream);
+  }
+  return cudaErrorInvalidValue;
 }
 
 cudaError_t dispatch(const Params& p, int bh, int d, int pv_quant, cudaStream_t stream) {
   if (bh <= 0 || p.n_q <= 0) return cudaSuccess;
-  if (p.hkv <= 0 || p.hq % p.hkv != 0 || p.n_kv <= 0) return cudaErrorInvalidValue;
+  if (p.hkv <= 0 || p.hq % p.hkv != 0 || bh % p.hq != 0 || p.n_kv <= 0)
+    return cudaErrorInvalidValue;
   if (p.kv_dtype < KV_INT8 || p.kv_dtype > KV_E5M2) return cudaErrorInvalidValue;
   const bool qi8 = p.q_mode == Q_INT8 || p.q_mode == Q_LOAD_INT8;
-  // int8 products need an int8 cache on both sides
+  const bool qf8 = p.q_mode == Q_FP8 || p.q_mode == Q_LOAD_FP8;
+  // 8-bit products need a cache of the same family; pv_quant an int8 one
   if ((qi8 || pv_quant) && p.kv_dtype != KV_INT8) return cudaErrorInvalidValue;
-  if (d == 128) return dispatch_d<128>(p, bh, qi8, pv_quant != 0, stream);
-  if (d == 64) return dispatch_d<64>(p, bh, qi8, pv_quant != 0, stream);
+  if (qf8 && p.kv_dtype == KV_INT8) return cudaErrorInvalidValue;
+  const int sp = qi8 ? S_INT8 : !qf8 ? S_BF16 : p.kv_dtype == KV_E4M3 ? S_E4M3 : S_E5M2;
+  if (d == 128) return dispatch_d<128>(p, bh, sp, pv_quant != 0, stream);
+  if (d == 64) return dispatch_d<64>(p, bh, sp, pv_quant != 0, stream);
+  if (d == 256) return dispatch_d<256>(p, bh, sp, pv_quant != 0, stream);
   return cudaErrorInvalidValue;
 }
 
@@ -492,8 +1047,9 @@ cudaError_t dispatch(const Params& p, int bh, int d, int pv_quant, cudaStream_t 
 // sk_token (bh_kv, n_kv) or sk_tensor (bh_kv), one of them null; sv
 // (bh_kv, d); gk (bh_kv) or null for the exact running max; o like q; lse
 // (bh, n_q) or null; q_out/qs_out null or (bh, n_q, d) / (bh, n_q) for the
-// staged operand. q_mode 0 weight-only, 1 fp8 (e4m3 Q), 2 int8 Q. c is
-// float32(scale·log2e). All contiguous, 16-byte aligned; d ∈ {64, 128}.
+// staged operand (bytes, or bf16 in weight-only mode) and its row factors.
+// q_mode 0 weight-only, 1 fp8 (e4m3 Q), 2 int8 Q. c is float32(scale·log2e).
+// All contiguous, 16-byte aligned; d ∈ {64, 128, 256}.
 extern "C" cudaError_t tf_serving_attention(
     const void* q, const void* k, const void* v, const float* sk_token,
     const float* sk_tensor, const float* sv, const float* gk, void* o, float* lse,
@@ -507,18 +1063,19 @@ extern "C" cudaError_t tf_serving_attention(
   return dispatch(p, bh, d, pv_quant, stream);
 }
 
-// B7. q: (bh, n_q, d) int8 q̂ with sq (bh, n_q) its scales (q_int8 = 1, c =
-// float32(log2e)), or the bf16 score operand (q_int8 = 0, sq null); k, v,
-// sk_token (or null), sv, gk, lse as above; o (bh, n_q, d) float32
-// (o_f32 = 1) or bf16.
+// B7. q: (bh, n_q, d) bf16 score operand (q_kind 0, sq null), or int8
+// (q_kind 1) / e4m3 (q_kind 2) q̂ with sq (bh, n_q) its row factors, which
+// the kernel multiplies by c; k, v, sk_token (or null), sv, gk, lse as
+// above; o (bh, n_q, d) float32 (o_f32 = 1) or bf16.
 extern "C" cudaError_t tf_quant_attention(
     const void* q, const float* sq, const void* k, const void* v,
     const float* sk_token, const float* sv, const float* gk, void* o, float* lse,
     int bh, int n_q, int n_kv, int hq, int hkv, int d, int causal, int offset,
-    int q_int8, int kv_dtype, int o_f32, float c, cudaStream_t stream) {
+    int q_kind, int kv_dtype, int o_f32, float c, cudaStream_t stream) {
+  if (q_kind < 0 || q_kind > 2) return cudaErrorInvalidValue;
+  const int q_mode = q_kind == 0 ? Q_LOAD_BF16 : q_kind == 1 ? Q_LOAD_INT8 : Q_LOAD_FP8;
   const Params p{q, sq, static_cast<const uint8_t*>(k), static_cast<const uint8_t*>(v),
                  sk_token, nullptr, sv, gk, o, lse, nullptr, nullptr,
-                 n_q, n_kv, hq, hkv, causal, offset,
-                 q_int8 ? Q_LOAD_INT8 : Q_LOAD_BF16, 0, kv_dtype, o_f32, c};
+                 n_q, n_kv, hq, hkv, causal, offset, q_mode, 0, kv_dtype, o_f32, c};
   return dispatch(p, bh, d, 0, stream);
 }

@@ -3,10 +3,13 @@
 ``tpu_flash_torch/csrc/*.cu`` compile with ``nvcc`` into one shared library
 with a plain C interface, loaded through ``ctypes``: one ``nvcc -c`` per
 source, all started together, then one link. No source includes PyTorch's
-headers, so a cold build takes seconds. The library lands in
+headers; a cold build takes about a minute on the H100 machine, nearly all
+of it ``quant_attention.cu`` (18 instantiations of its wgmma kernel), the other sources
+finishing within it. The library lands in
 ``build/tpu_flash_torch/<hash>/`` at the repository root, keyed by a hash of
 the sources and flags, and is built on first use — never at import. A failed
-build raises with nvcc's output.
+build raises with nvcc's output. ``python -m tpu_flash_torch.kernels._build
+<source>.cu`` prints each kernel's registers and spill bytes (ptxas).
 """
 
 from __future__ import annotations
@@ -56,7 +59,7 @@ _SIGNATURES = {
     # c, stream
     "tf_serving_attention": [_vp] * 11 + [_i32] * 12 + [ctypes.c_float, _vp],
     # q, sq, k, v, sk_token, sv, gk, o, lse, bh, n_q, n_kv, hq, hkv, d,
-    # causal, offset, q_int8, kv_dtype, o_f32, c, stream
+    # causal, offset, q_kind, kv_dtype, o_f32, c, stream
     "tf_quant_attention": [_vp] * 9 + [_i32] * 11 + [ctypes.c_float, _vp],
     # x, out, n, fibers, m, dtype, stream
     "tf_softmax_onepass": [_vp] * 2 + [_i32] * 4 + [_vp],
@@ -130,3 +133,30 @@ def check(err: int, name: str) -> None:
     """Raise if a kernel entry point reported a CUDA error."""
     if err != 0:
         raise RuntimeError(f"{name}: CUDA error {err} at launch")
+
+
+def ptxas_report(source: str) -> list:
+    """Registers and spill bytes of each kernel in ``csrc/<source>``, from
+    ``nvcc -Xptxas -v`` with the build's flags → [(kernel, line), ...]."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        out = subprocess.run(
+            [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o",
+             os.path.join(tmp, "k.o"), os.path.join(_CSRC, source)],
+            capture_output=True, text=True, check=True)
+    rows = []
+    for line in (out.stdout + out.stderr).splitlines():
+        if "Function properties for" in line:
+            rows.append([line.split("Function properties for")[-1].strip(), ""])
+        elif rows and ("spill" in line or "Used" in line):
+            part = line.split(":", 1)[-1].strip() if "Used" in line else line.strip()
+            rows[-1][1] = f"{rows[-1][1]}; {part}" if rows[-1][1] else part
+    return [tuple(r) for r in rows]
+
+
+if __name__ == "__main__":  # python -m tpu_flash_torch.kernels._build SOURCE
+    import sys
+
+    for kernel, line in ptxas_report(sys.argv[1]):
+        print(f"{kernel}: {line}")

@@ -190,13 +190,55 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
+# Head widths the attention kernels (B1, B4/B5, B6/B7) are compiled for.
+KERNEL_HEAD_DIMS = (64, 128, 256)
+
+
+def kernel_head_dim(d: int, dv: int) -> int:
+    """The compiled width that holds head dim ``d`` and value dim ``dv``:
+    the least of :data:`KERNEL_HEAD_DIMS` ≥ max(d, dv). Wider heads raise
+    (ROADMAP A15)."""
+    w = max(d, dv)
+    for width in KERNEL_HEAD_DIMS:
+        if w <= width:
+            return width
+    raise NotImplementedError(
+        f"the attention kernels take head and value dims up to 256, got "
+        f"d={d} dv={dv} (ROADMAP A15)")
+
+
+def pad_head_dims(width: int, *ts, fill: float = 0.0):
+    """Zero-pad (or ``fill``-pad) the last dim of each tensor to ``width``;
+    None passes through. Zero columns change no dot product and no norm, so
+    a kernel run at ``width`` gives the caller's o in its first dv columns.
+    One-byte float types pad with byte 0 (+0 in e4m3 and e5m2)."""
+    out = []
+    for t in ts:
+        if t is None or t.shape[-1] == width:
+            out.append(t)
+            continue
+        byte_float = t.element_size() == 1 and t.is_floating_point()
+        src = t.view(torch.uint8) if byte_float else t
+        padded = src.new_full((*t.shape[:-1], width), 0 if byte_float else fill)
+        padded[..., : t.shape[-1]] = src
+        out.append(padded.view(t.dtype) if byte_float else padded)
+    return out
+
+
+def slice_head_dims(t: torch.Tensor, dim: int) -> torch.Tensor:
+    """A kernel's output at its compiled width back to the caller's ``dim``
+    columns (the inverse of :func:`pad_head_dims`)."""
+    return t if t.shape[-1] == dim else t[..., :dim].contiguous()
+
+
 def _flash_fwd_kernel(q, k, v, sched: Schedule, hq: int, hkv: int,
                       need_lse: bool, bound_max: bool = False):
     """Launch ``csrc/flash_fwd.cu`` on CUDA tensors (same contract as
-    :func:`_flash_fwd_plain`). Ragged edges are masked in the kernel, so
-    nothing is padded; the kernel takes the schedule's kind, causal offset,
-    band radius and section and walks its own 64×64 tiles (k/v of a
-    circulant schedule are the halo-extended ones)."""
+    :func:`_flash_fwd_plain`). Ragged edges are masked in the kernel; head
+    and value dims are zero-padded to the compiled width
+    (:func:`pad_head_dims`) and o is sliced back to dv. The kernel takes the
+    schedule's kind, causal offset, band radius and section and walks its
+    own tiles (k/v of a circulant schedule are the halo-extended ones)."""
     from tpu_flash_torch.kernels import _build
 
     kind = _KIND.get((type(sched), getattr(sched, "causal", False)))
@@ -210,13 +252,13 @@ def _flash_fwd_kernel(q, k, v, sched: Schedule, hq: int, hkv: int,
             f"flash kernel takes bf16 or f32 q/k/v of one dtype, got "
             f"{q.dtype}/{k.dtype}/{v.dtype}")
     bh, n_q, d = q.shape
-    n_kv = k.shape[1]
-    if d not in (64, 128) or v.shape[-1] != d or k.shape[-1] != d:
-        raise NotImplementedError(f"flash kernel takes d = dv ∈ {{64, 128}}, "
-                                  f"got {d}/{v.shape[-1]}")
+    n_kv, dv = k.shape[1], v.shape[-1]
+    if k.shape[-1] != d:
+        raise ValueError(f"q and k head dims differ: {d} vs {k.shape[-1]}")
+    width = kernel_head_dim(d, dv)
     if bh % hq or k.shape[0] != bh // hq * hkv or v.shape[:2] != k.shape[:2]:
         raise ValueError(f"bad GQA shapes {q.shape} {k.shape} {v.shape}")
-    q, k, v = _aligned(q), _aligned(k), _aligned(v)
+    q, k, v = (_aligned(t) for t in pad_head_dims(width, q, k, v))
     kmax = key_norm_max(k) if bound_max else None
     o = torch.empty_like(q)
     lse = (torch.empty(bh, n_q, device=q.device, dtype=torch.float32)
@@ -225,7 +267,7 @@ def _flash_fwd_kernel(q, k, v, sched: Schedule, hq: int, hkv: int,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         None if lse is None else lse.data_ptr(),
         None if kmax is None else kmax.data_ptr(),
-        bh, n_q, n_kv, hq, hkv, d, kind,
+        bh, n_q, n_kv, hq, hkv, width, kind,
         sched._offset if kind == 1 else 0, getattr(sched, "radius", 0),
         getattr(sched, "section", 0), kernels.dtype_code(q.dtype),
         kernels.stream_handle(q),
@@ -234,7 +276,7 @@ def _flash_fwd_kernel(q, k, v, sched: Schedule, hq: int, hkv: int,
     kernels.LAUNCHES["flash_fwd"] += 1
     if lse is None:
         lse = torch.zeros(bh, n_q, device=q.device, dtype=torch.float32)
-    return o, lse
+    return slice_head_dims(o, dv), lse
 
 
 def _flash_fwd(q, k, v, sched: Schedule, *, hq: int = 1, hkv: int = 1,
@@ -319,7 +361,9 @@ def flash_attention(
     ``bwd_split``/``bwd_quant`` raise ``ValueError`` there.
     ``block_q``/``block_kv`` set the schedule's blocks as in the reference
     (its padded lengths and its tile-visit math); the CUDA kernel runs its
-    own 64×64 tiles and masks ragged edges, so no input is padded.
+    own 64×64 tiles and masks ragged edges, so no sequence is padded. Any
+    head dim d and value dim dv up to 256 runs on the card (zero-padded to
+    64, 128 or 256 there); wider heads raise.
     ``bound_max``: True takes the constant norm bound as the softmax max,
     False the exact running max, None the reference's auto policy
     (:func:`auto_bound_max`: the bound for mask-free dense and non-causal

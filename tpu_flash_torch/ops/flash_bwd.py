@@ -43,6 +43,9 @@ from tpu_flash_torch.ops.flash import (
     LOG2E,
     _aligned,
     _kv_rows,
+    kernel_head_dim,
+    pad_head_dims,
+    slice_head_dims,
 )
 from tpu_flash_torch.ops.schedule import CausalSchedule, Schedule
 
@@ -149,24 +152,29 @@ def _kernel_operands(q, k, v, o, lse, do, dlse, sched: Schedule, hq: int,
             f"flash backward kernels take bf16 or f32 q/k/v/o/do of one "
             f"dtype, got {[str(t.dtype) for t in (q, k, v, o, do)]}")
     bh, _, d = q.shape
-    if d not in (64, 128) or v.shape[-1] != d or k.shape[-1] != d:
-        raise NotImplementedError(f"flash backward kernels take d = dv ∈ "
-                                  f"{{64, 128}}, got {d}/{v.shape[-1]}")
+    if k.shape[-1] != d or do.shape[-1] != v.shape[-1]:
+        raise ValueError(f"bad head dims {q.shape} {k.shape} {v.shape} "
+                         f"{do.shape}")
+    width = kernel_head_dim(d, v.shape[-1])
     if bh % hq or k.shape[0] != bh // hq * hkv or v.shape[:2] != k.shape[:2]:
         raise ValueError(f"bad GQA shapes {q.shape} {k.shape} {v.shape}")
     delta, lse2 = _delta_lse2(o, lse, do, dlse)
-    return tuple(_aligned(t) for t in (q, k, v, do, lse2, delta))
+    return tuple(_aligned(t) for t in (*pad_head_dims(width, q, k, v, do),
+                                       lse2, delta))
 
 
 def _flash_bwd_kernel(q, k, v, o, lse, do, dlse, sched: Schedule, hq: int,
                       hkv: int):
     """Launch B4 then B5 (``csrc/flash_bwd.cu``) on CUDA tensors; same
     contract as :func:`_flash_bwd_plain`. Ragged edges are masked in the
-    kernels, so nothing is padded."""
+    kernels; head and value dims are zero-padded to the compiled width
+    (zero columns change no score and no Δ) and the grads sliced back."""
+    d, dv_dim = q.shape[-1], v.shape[-1]
     ops = _kernel_operands(q, k, v, o, lse, do, dlse, sched, hq, hkv)
     dq = _dq_kernel(*ops, sched, hq, hkv)
     dk, dv = _dkv_kernel(*ops, sched, hq, hkv)
-    return dq, dk, dv
+    return (slice_head_dims(dq, d), slice_head_dims(dk, d),
+            slice_head_dims(dv, dv_dim))
 
 
 def flash_backward(q, k, v, o, lse, do, dlse: Optional[torch.Tensor],

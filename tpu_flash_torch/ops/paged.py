@@ -84,8 +84,9 @@ def _paged_append_kernel(k_new, v_new, k_pages, v_pages, k_scales, v_scales,
     if k_new.dtype not in (torch.bfloat16, torch.float32) or (
             v_new.dtype != k_new.dtype):
         raise NotImplementedError(f"append kernel: new K/V dtype {k_new.dtype}")
-    if stor != d or d % 32 or d > 256:
-        raise NotImplementedError(f"append kernel: head_dim {d}, storage {stor}")
+    if stor != d:
+        raise ValueError(f"append kernel: head_dim {d}, storage {stor}")
+    _check_head_dim("append", d)
     if quantized != (k_pages.dtype == torch.int8):
         raise ValueError("append kernel: scales go with int8 pages only")
     err = _build.library().tf_paged_append(
@@ -228,9 +229,9 @@ def _paged_attention_kernel(qg, k_pages, v_pages, k_scales, v_scales, slots,
                          f"be int32 of shape ({b},)")
     if qg.dtype != torch.bfloat16:
         raise ValueError("paged kernel: q must be prescaled bf16")
-    if d not in (64, 128) or stor != d or g > 8:
-        raise NotImplementedError(
-            f"paged kernel takes d ∈ {{64, 128}} and G ≤ 8, got d={d} G={g}")
+    if stor != d:
+        raise ValueError(f"paged kernel: head_dim {d}, storage {stor}")
+    _check_head_dim("paged", d)
     if quantized != (k_pages.dtype == torch.int8):
         raise ValueError("paged kernel: scales go with int8 pages only")
     o = torch.empty((b, kvh, g, d), dtype=out_dtype, device=qg.device)
@@ -252,6 +253,16 @@ def _paged_attention_kernel(qg, k_pages, v_pages, k_scales, v_scales, slots,
     _build.check(err, "tf_paged_attention")
     kernels.LAUNCHES["paged_attention"] += 1
     return o, lse
+
+
+def _check_head_dim(name: str, d: int) -> None:
+    """B2 and B3 take any head dim that is a multiple of 8 up to 256."""
+    if d > 256:
+        raise NotImplementedError(
+            f"{name} kernel takes head dims up to 256, got {d} (ROADMAP A15)")
+    if d % 8:
+        raise NotImplementedError(
+            f"{name} kernel takes head dims that are multiples of 8, got {d}")
 
 
 def _check_cuda(name: str, slots, lengths, page_tables, *ts) -> None:

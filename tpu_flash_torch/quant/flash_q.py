@@ -3,9 +3,14 @@ for the dense and causal schedules.
 
 * **activation-quant** (``q_dtype`` int8): int8 q̂·k̂ with int32
   accumulation, dequantized on the score matrix (``s = (q̂·k̂)·σq·log2e·σk``).
-* **fp8 Q** (``q_dtype`` e4m3 or e5m2): Q is quantized onto the fp8 grid on
-  the host and handed to the kernel dequantized in bf16, scale and log2e
-  folded in, as the reference does (``flash_q.py:555-566``).
+* **fp8 Q** (``q_dtype`` e4m3): Q is quantized per token onto e4m3 on the
+  host and handed to the kernel as e4m3 q̂ with its row factors
+  f = σq·(log2e·σk_fold); the kernel dots q̂·k̂ on the fp8 units and scales
+  the float32 score by f (the plain version sums those products as the
+  fp8 units do, :func:`fp8_scores`). The reference folds f into a bf16 Q
+  (``flash_q.py:555-566``) only because its TPU has no fp8 unit; e5m2 Q
+  keeps that bf16 fold here (a variant: the card's fp8 products take e4m3
+  Q).
 * **weight-only** (``q_dtype=None``): bf16 Q against K̂ decoded in the
   kernel, the KV-cache compression mode.
 * V is per-channel quantized, so its dequant is one multiply of the final
@@ -21,8 +26,10 @@ is computed on the values the port dots (:func:`scaled_k_norms`).
 :func:`_quantized_fwd` dispatches on the device: CPU tensors take the plain
 PyTorch version :func:`_quant_plain`, CUDA tensors launch the kernel
 through :func:`_quant_attention_kernel`, or raise. The port masks ragged
-edges in the kernel and pads nothing, so the reference's ``_pad_scales``
-has no counterpart. At d ≤ 64 the reference routes to its transposed
+edges in the kernel, so the reference's ``_pad_scales`` has no counterpart;
+on the card head and value dims are zero-padded to the kernel's width
+(``ops/flash.py:pad_head_dims``: K̂/V̂ with byte 0, σv with 1) and o is
+sliced back. At d ≤ 64 the reference routes to its transposed
 serving kernel (B8); the port keeps that routing to
 ``quant/serving_attn.py`` (one kernel serves both on the card).
 """
@@ -44,13 +51,19 @@ from tpu_flash_torch.ops.flash import (
     _aligned,
     _kv_rows,
     build_schedule,
+    kernel_head_dim,
+    pad_head_dims,
+    slice_head_dims,
 )
 from tpu_flash_torch.ops.schedule import CausalSchedule, Schedule
 from tpu_flash_torch.quant.qarray import FP8, QArray, as_dtype, quantize
 
-# The kernel's kv tile: the plain version walks the same tiles, so its
-# running max (and with it every rounding of P) follows the kernel's.
-KERNEL_BLOCK_KV = 64
+
+def kernel_block_kv(d: int, dv: int) -> int:
+    """The kernel's kv tile at head dim d, value dim dv: 128 rows, 64 at
+    the 256 width. The plain version walks the same tiles, so its running
+    max (and with it every rounding of P) follows the kernel's."""
+    return 64 if kernel_head_dim(d, dv) == 256 else 128
 
 
 def f32(x: float) -> float:
@@ -95,18 +108,22 @@ def _attend_plain(q_op, qs, k_vals, v_vals, sk, sv, gk, causal: bool,
     """Plain PyTorch version of the kernel's tile loop → (o, lse).
 
     ``q_op``: ``(bh, n_q, d)`` bf16 score operand (scale and log2e folded
-    in) or int8 q̂ with ``qs`` ``(bh, n_q)`` its score scales; ``k_vals``/
+    in), or int8 / e4m3 q̂ with ``qs`` ``(bh, n_q)`` its row factors (the
+    score is (q̂·k̂)·f·σk); ``k_vals``/
     ``v_vals``: ``(bh_kv, n_kv, d)`` int8/fp8; ``sk``: ``(bh_kv, n_kv)``
     per-token K scales or None; ``sv``: ``(bh_kv, dv)``; ``gk``: ``(bh_kv,)``
     max scaled key norms (constant bound) or None (exact running max).
-    Walks the keys in the kernel's tiles with the same arithmetic; memory is
+    Walks the keys in the kernel's tiles with the same arithmetic: e4m3 q̂
+    dots K̂ as the card's fp8 units sum (:func:`fp8_scores`); memory is
     O(bh·n_q·(d + tile)), so the headline shape fits in a few GB.
     """
-    bh, n_q, _ = q_op.shape
+    bh, n_q, d = q_op.shape
     n_kv, dv = k_vals.shape[1], v_vals.shape[-1]
+    tile = kernel_block_kv(d, dv)
     dev = q_op.device
     rows = _kv_rows(bh, hq, hkv, dev)
     qf = q_op.float()
+    fp8 = q_op.dtype == torch.float8_e4m3fn
     # exact decode: int8 and fp8 values are exact in float32, so int8
     # products and their sums (< 2²⁴) are exact as well
     kf, vf = k_vals.float()[rows], v_vals.float()[rows]
@@ -121,9 +138,10 @@ def _attend_plain(q_op, qs, k_vals, v_vals, sk, sv, gk, causal: bool,
     l = torch.zeros(bh, n_q, 1, device=dev)
     acc = torch.zeros(bh, n_q, dv, device=dev)
     qpos = torch.arange(n_q, device=dev)[:, None] + (n_kv - n_q)
-    for k0 in range(0, n_kv, KERNEL_BLOCK_KV):
-        k1 = min(k0 + KERNEL_BLOCK_KV, n_kv)
-        s = torch.einsum("bqd,bkd->bqk", qf, kf[:, k0:k1])
+    for k0 in range(0, n_kv, tile):
+        k1 = min(k0 + tile, n_kv)
+        s = (fp8_scores(qf, kf[:, k0:k1], q_op.dtype, k_vals.dtype) if fp8
+             else torch.einsum("bqd,bkd->bqk", qf, kf[:, k0:k1]))
         if qs is not None:
             s = s * qs[..., None]
         if skr is not None:
@@ -162,13 +180,75 @@ def check_kernel_operands(name: str, q, k_vals, v_vals, hq: int, hkv: int):
             f"{name} takes an int8/e4m3/e5m2 cache, got "
             f"{k_vals.dtype}/{v_vals.dtype}")
     bh, _, d = q.shape
-    if d not in (64, 128) or k_vals.shape[-1] != d or v_vals.shape[-1] != d:
-        raise NotImplementedError(
-            f"{name} takes d = dv ∈ {{64, 128}}, got {d}/{v_vals.shape[-1]}")
+    if k_vals.shape[-1] != d:
+        raise ValueError(f"{name}: q and k head dims differ: {d} vs "
+                         f"{k_vals.shape[-1]}")
+    kernel_head_dim(d, v_vals.shape[-1])  # raises above 256
     if bh % hq or k_vals.shape[0] != bh // hq * hkv or \
             v_vals.shape[:2] != k_vals.shape[:2]:
         raise ValueError(f"bad GQA shapes {q.shape} {k_vals.shape} "
                          f"{v_vals.shape}")
+
+
+# Least exponent of each fp8 format (its subnormals' exponent field).
+FP8_EMIN = {torch.float8_e4m3fn: -6, torch.float8_e5m2: -14}
+
+
+def _exponents(x: torch.Tensor, emin: int) -> torch.Tensor:
+    """Exponent fields of fp8 values held in float32 (subnormals at
+    ``emin``); zeros at -1000, below any product's."""
+    e = torch.clamp_min(torch.frexp(x).exponent.float() - 1, emin)
+    return torch.where(x != 0, e, -1000.0)
+
+
+def _truncate(x: torch.Tensor, e: torch.Tensor) -> torch.Tensor:
+    """``x`` truncated toward zero to a multiple of 2**e (exact)."""
+    u = torch.exp2(e)
+    return torch.trunc(x / u) * u
+
+
+def _fp8_step(q, k, eq, ek):
+    """One k32 step of :func:`fp8_scores`: q (B, r, 32), k (B, n, 32)."""
+    p = q[:, :, None] * k[:, None]  # exact in float32
+    e = torch.clamp_min((eq[:, :, None] + ek[:, None]).amax(-1) + 1, -100.0)
+    t = _truncate(p, (e - 14)[..., None]).sum(-1)  # exact: < 2^20 units
+    return _truncate(t, torch.frexp(t).exponent.float() - 14)
+
+
+def fp8_scores(q: torch.Tensor, k: torch.Tensor, q_dtype,
+               k_dtype) -> torch.Tensor:
+    """Σ q̂·k̂ of fp8 values held in float32, q (B, n_q, d) and k (B, n_kv,
+    d) → (B, n_q, n_kv) float32, as the kernel sums them on the card's fp8
+    tensor cores: each k32 step on its own, the steps then added in float32
+    in order. Within a step, with E the largest e(q̂ᵢ) + e(k̂ᵢ) + 1 over the
+    nonzero products (e the exponent field), each product is truncated
+    toward zero to a multiple of 2^(E−14), the truncated products add
+    exactly, and their sum is truncated toward zero to 14 significant bits.
+    That reproduces every one of 131072 one-step sums measured on an NVIDIA
+    H100 (``bench/fp8_sums.py``, PERF.md §6); float32 sums would move a
+    single-key lse by up to 3e-4."""
+    eq, ek = _exponents(q, FP8_EMIN[q_dtype]), _exponents(k, FP8_EMIN[k_dtype])
+    b, n_q, d = q.shape
+    # rows a pass, bounding its (B, rows, n_kv, 32) temporaries
+    rows = max(1, (1 << (27 if q.is_cuda else 22)) // (b * k.shape[1] * 32))
+    out = None
+    for c in range(0, d, 32):
+        part = torch.cat([
+            _fp8_step(q[:, r:r + rows, c:c + 32], k[..., c:c + 32],
+                      eq[:, r:r + rows, c:c + 32], ek[..., c:c + 32])
+            for r in range(0, n_q, rows)], dim=1)
+        out = part if out is None else out + part
+    return out
+
+
+# B7's Q operand types (codes of tf_quant_attention)
+_Q_KINDS = {torch.bfloat16: 0, torch.int8: 1, torch.float8_e4m3fn: 2}
+
+
+def q_factor_multiplier(dtype) -> float:
+    """What B7 multiplies a host row factor by: log2e for int8 q̂ (its
+    factor is σq), 1 for e4m3 q̂ (log2e already folded in)."""
+    return f32(LOG2E) if dtype == torch.int8 else 1.0
 
 
 def _ptr(t: Optional[torch.Tensor]):
@@ -179,54 +259,60 @@ def _quant_attention_kernel(q_op, sq, k_vals, v_vals, sk, sv, gk,
                             sched: Schedule, hq: int, hkv: int, out_dtype,
                             need_lse: bool):
     """Launch ``tf_quant_attention`` on CUDA tensors. ``q_op``: bf16 score
-    operand, or int8 q̂ with ``sq`` ``(bh, n_q)`` its scales (log2e is
-    applied in the kernel); the rest as :func:`_attend_plain`."""
+    operand, or int8 / e4m3 q̂ with ``sq`` ``(bh, n_q)`` its row factors
+    (times :func:`q_factor_multiplier` in the kernel); the rest as
+    :func:`_attend_plain`. Head and value dims are zero-padded to the
+    kernel's width and o sliced back."""
     from tpu_flash_torch.kernels import _build
 
     check_kernel_operands("quant_attention kernel", q_op, k_vals, v_vals, hq,
                           hkv)
-    if q_op.dtype not in (torch.int8, torch.bfloat16) or (
-            (q_op.dtype == torch.int8) != (sq is not None)):
+    if q_op.dtype not in _Q_KINDS or (
+            (q_op.dtype != torch.bfloat16) != (sq is not None)):
         raise NotImplementedError(
-            f"quant_attention kernel takes bf16 Q or int8 q̂ with scales, got "
-            f"{q_op.dtype}")
-    if q_op.dtype == torch.int8 and k_vals.dtype != torch.int8:
-        raise NotImplementedError("int8 q̂ needs an int8 cache")
+            f"quant_attention kernel takes bf16 Q, or int8 / e4m3 q̂ with row "
+            f"factors, got {q_op.dtype}")
+    if (q_op.dtype == torch.int8) != (k_vals.dtype == torch.int8) and \
+            q_op.dtype != torch.bfloat16:
+        raise NotImplementedError("8-bit q̂ needs a cache of its family")
     if out_dtype not in (torch.float32, torch.bfloat16):
         raise NotImplementedError(f"quant_attention kernel writes f32 or bf16 "
                                   f"o, not {out_dtype}")
     bh, n_q, d = q_op.shape
-    n_kv = k_vals.shape[1]
+    n_kv, dv = k_vals.shape[1], v_vals.shape[-1]
+    width = kernel_head_dim(d, dv)
+    q_op, k_vals, v_vals = pad_head_dims(width, q_op, k_vals, v_vals)
+    (sv,) = pad_head_dims(width, sv.float(), fill=1.0)
     q_op, k_vals, v_vals, sv = (_aligned(t) for t in (q_op, k_vals, v_vals,
-                                                      sv.float()))
+                                                      sv))
     sq = None if sq is None else _aligned(sq.float())
     sk = None if sk is None else _aligned(sk.float())
     gk = None if gk is None else _aligned(gk.float())
     causal = isinstance(sched, CausalSchedule)
-    o = torch.empty(bh, n_q, d, device=q_op.device, dtype=out_dtype)
+    o = torch.empty(bh, n_q, width, device=q_op.device, dtype=out_dtype)
     lse = (torch.empty(bh, n_q, device=q_op.device, dtype=torch.float32)
            if need_lse else None)
     err = _build.library().tf_quant_attention(
         q_op.data_ptr(), _ptr(sq), k_vals.data_ptr(), v_vals.data_ptr(),
         _ptr(sk), sv.data_ptr(), _ptr(gk), o.data_ptr(), _ptr(lse),
-        bh, n_q, n_kv, hq, hkv, d, int(causal), n_kv - n_q if causal else 0,
-        int(q_op.dtype == torch.int8), kernels.KV_CODES[k_vals.dtype],
-        int(out_dtype == torch.float32), f32(LOG2E),
-        kernels.stream_handle(q_op),
+        bh, n_q, n_kv, hq, hkv, width, int(causal),
+        n_kv - n_q if causal else 0, _Q_KINDS[q_op.dtype],
+        kernels.KV_CODES[k_vals.dtype], int(out_dtype == torch.float32),
+        q_factor_multiplier(q_op.dtype), kernels.stream_handle(q_op),
     )
     _build.check(err, "tf_quant_attention")
     kernels.LAUNCHES["quant_attention"] += 1
     if lse is None:
         lse = torch.zeros(bh, n_q, device=q_op.device, dtype=torch.float32)
-    return o, lse
+    return slice_head_dims(o, dv), lse
 
 
 def quant_operands(qq: Optional[QArray], q_raw, kq: QArray, vq: QArray,
                    k_scaled: bool, bound_max: bool):
     """Flattened operands → the kernel's: ``(q_op, sq, k̂, v̂, per-token K
     scales (bh_kv, n_kv) or None, V scales (bh_kv, dv), gk (bh_kv,) or
-    None)``. ``qq``: int8 q̂ with ``(bh, n_q, 1)`` scales, or ``q_raw`` the
-    bf16 operand; ``kq`` values ``(bh_kv, n_kv, d)`` with per-token scales
+    None)``. ``qq``: int8 q̂ with ``(bh, n_q, 1)`` scales or e4m3 q̂ with
+    row factors, or ``q_raw`` the bf16 operand; ``kq`` values ``(bh_kv, n_kv, d)`` with per-token scales
     ``(bh_kv, n_kv, 1)`` when ``k_scaled``; ``vq`` per channel."""
     bh_kv, n_kv = kq.values.shape[:2]
     sk = kq.scales.reshape(bh_kv, n_kv) if k_scaled else None
@@ -240,7 +326,7 @@ def _quant_plain(q_op, sq, k_vals, v_vals, sk, sv, gk, sched: Schedule,
                  hq: int, hkv: int, out_dtype):
     """Plain PyTorch version of the B7 kernel (same contract as
     :func:`_quant_attention_kernel`)."""
-    qs = None if sq is None else sq * f32(LOG2E)
+    qs = None if sq is None else sq * q_factor_multiplier(q_op.dtype)
     return _attend_plain(q_op, qs, k_vals, v_vals, sk, sv, gk,
                          isinstance(sched, CausalSchedule), hq, hkv, out_dtype)
 
@@ -291,7 +377,9 @@ def quantized_flash_attention(
     folded into Q; fp8 only). ``bound_max=True`` takes the constant
     Cauchy–Schwarz bound as the softmax max (exact online softmax), False
     the exact running max. ``block_q``/``block_kv`` only shape the
-    reference's schedule; the kernel runs its own 64×64 tiles. At d ≤ 64
+    reference's schedule; the kernel runs its own tiles (128 q rows by 128
+    kv rows, 64 at head widths above 128). Any d and dv up to 256 run on
+    the card. At d ≤ 64
     the call goes to :func:`~tpu_flash_torch.quant.serving_attn.
     serving_flash_attention`, as in the reference (``transposed``).
     Schedules other than dense and causal raise (ROADMAP A10/A13).
@@ -355,9 +443,10 @@ def prepare_quantized(q, k, v, q_dtype, kv_dtype, k_scaled: bool,
     ``(b, h, n, d)`` inputs → flattened ``(qq, q_raw, kq, vq)`` for
     :func:`quant_operands`: K per token (or per (batch, kv head), folded
     into Q, expanded per q head), V per channel; int8 Q quantized per
-    token; fp8 Q quantized, then handed over dequantized in bf16 with the
-    scale and log2e folded in (bf16 holds every fp8 value); weight-only Q
-    scaled in bf16."""
+    token; e4m3 Q quantized per token, with row factors σq·log2e·σk_fold
+    as its scales; e5m2 Q quantized, then handed over dequantized in bf16
+    with the scale and log2e folded in (bf16 holds every fp8 value);
+    weight-only Q scaled in bf16."""
     b, h, n_q, d = q.shape
     hkv, n_kv, dv = k.shape[1], k.shape[2], v.shape[-1]
     qf = (q.float() * f32(scale)).reshape(b * h, n_q, d)
@@ -369,6 +458,9 @@ def prepare_quantized(q, k, v, q_dtype, kv_dtype, k_scaled: bool,
     fold = f32(LOG2E) * sk_in_q
     if q_dtype is None:
         return None, (qf * fold).to(torch.bfloat16), kq, vq
+    if q_dtype == torch.float8_e4m3fn:
+        qv = quantize(qf, q_dtype, axis=-1)
+        return QArray(qv.values, qv.scales * fold, axis=-1), None, kq, vq
     return (*_quantized_q(qf, q_dtype, fold), kq, vq)
 
 

@@ -4,8 +4,9 @@
 K/V come pre-quantized (cache residents: int8, e4m3 or e5m2; K per token
 or per tensor, V per channel); only Q is fresh, and the kernel quantizes
 each q tile once, before its kv loop: int8 (native int8 products), e4m3
-(fp8 grid, dotted in bf16) or not at all (weight-only). An e5m2 cache still
-takes e4m3 Q, as in the reference. ``kv_scale="tensor"`` folds the K scale
+(native fp8 products, the row factor applied to the float32 score) or not
+at all (weight-only). An e5m2 cache still takes e4m3 Q, as in the
+reference. ``kv_scale="tensor"`` folds the K scale
 into the Q staging. The reference's d ≤ 64 transposed kernel (B8) exists to
 fill the TPU's 128-lane matrix unit; on the card one kernel
 (``csrc/quant_attention.cu``, ``tf_serving_attention``) serves every head
@@ -25,7 +26,15 @@ from typing import Optional
 import torch
 
 from tpu_flash_torch import kernels
-from tpu_flash_torch.ops.flash import LOG2E, _aligned, _kv_rows, build_schedule
+from tpu_flash_torch.ops.flash import (
+    LOG2E,
+    _aligned,
+    _kv_rows,
+    build_schedule,
+    kernel_head_dim,
+    pad_head_dims,
+    slice_head_dims,
+)
 from tpu_flash_torch.ops.schedule import CausalSchedule, Schedule
 from tpu_flash_torch.quant.flash_q import (
     _attend_plain,
@@ -38,6 +47,8 @@ from tpu_flash_torch.quant.flash_q import (
 from tpu_flash_torch.quant.qarray import QArray, as_dtype, quantize
 
 _Q_MODES = {"raw": 0, "fp8": 1, "int8": 2}
+_STAGED_DTYPES = {"raw": torch.bfloat16, "fp8": torch.float8_e4m3fn,
+                  "int8": torch.int8}
 
 
 def serving_operands(q, kq: QArray, vq: QArray, bound_max: bool):
@@ -62,17 +73,17 @@ def serving_operands(q, kq: QArray, vq: QArray, bound_max: bool):
 
 def _stage_q_plain(q, q_mode: str, c: float, skf):
     """The kernel's Q staging on ``(bh, n_q, d)`` q → (score operand, row
-    scales or None). ``c`` is float32(scale·log2e); ``skf`` 1.0 or the
-    ``(bh, 1, 1)`` K scale folded in (kv_scale="tensor"). The same float32
-    operations in the reference's order: the kernel agrees on every byte."""
+    factors or None). ``c`` is float32(scale·log2e); ``skf`` 1.0 or the
+    ``(bh, 1, 1)`` K scale folded in (kv_scale="tensor"). int8 and e4m3 give
+    q̂ and f = (σq·c)·skf, the factor of the float32 score (q̂·k̂)·f;
+    weight-only gives the bf16 operand q·(c·skf). The same float32
+    operations in the same order: the kernel agrees on every byte and
+    factor."""
     if q_mode == "raw":
         return (q.float() * (c * skf)).to(torch.bfloat16), None
     qq = quantize(q, torch.int8 if q_mode == "int8" else torch.float8_e4m3fn,
                   axis=-1)
-    fold = (qq.scales * c) * skf
-    if q_mode == "int8":
-        return qq.values, fold[..., 0]
-    return (qq.values.float() * fold).to(torch.bfloat16), None
+    return qq.values, ((qq.scales * c) * skf)[..., 0]
 
 
 def _serving_attention_kernel(q, k_vals, v_vals, sk_token, sk_tensor, sv, gk,
@@ -80,8 +91,10 @@ def _serving_attention_kernel(q, k_vals, v_vals, sk_token, sk_tensor, sv, gk,
                               c: float, pv_quant: bool, need_lse: bool,
                               staged: bool = False):
     """Launch ``tf_serving_attention`` on CUDA tensors → (o, lse), and with
-    ``staged`` also the staged Q operand and its row scales (int8), which
-    the kernel then writes out for checking against :func:`_stage_q_plain`.
+    ``staged`` also the staged Q operand and its row factors (int8, e4m3),
+    which the kernel then writes out for checking against
+    :func:`_stage_q_plain`. Head and value dims are zero-padded to the
+    kernel's width (K̂/V̂ with byte 0, σv with 1) and sliced back.
     """
     from tpu_flash_torch.kernels import _build
 
@@ -93,9 +106,11 @@ def _serving_attention_kernel(q, k_vals, v_vals, sk_token, sk_tensor, sv, gk,
     if (q_mode == "int8" or pv_quant) and k_vals.dtype != torch.int8:
         raise NotImplementedError("int8 products need an int8 cache")
     bh, n_q, d = q.shape
-    n_kv = k_vals.shape[1]
-    q, k_vals, v_vals, sv = (_aligned(t) for t in (q, k_vals, v_vals,
-                                                   sv.float()))
+    n_kv, dv = k_vals.shape[1], v_vals.shape[-1]
+    width = kernel_head_dim(d, dv)
+    q, k_vals, v_vals = pad_head_dims(width, q, k_vals, v_vals)
+    (sv,) = pad_head_dims(width, sv.float(), fill=1.0)
+    q, k_vals, v_vals, sv = (_aligned(t) for t in (q, k_vals, v_vals, sv))
     sk_token, sk_tensor, gk = (None if t is None else _aligned(t.float())
                                for t in (sk_token, sk_tensor, gk))
     causal = isinstance(sched, CausalSchedule)
@@ -104,14 +119,14 @@ def _serving_attention_kernel(q, k_vals, v_vals, sk_token, sk_tensor, sv, gk,
            if need_lse else None)
     q_out = qs_out = None
     if staged:
-        q_out = torch.empty(bh, n_q, d, device=q.device, dtype=(
-            torch.int8 if q_mode == "int8" else torch.bfloat16))
-        if q_mode == "int8":
+        q_out = torch.empty(bh, n_q, width, device=q.device,
+                            dtype=_STAGED_DTYPES[q_mode])
+        if q_mode != "raw":
             qs_out = torch.empty(bh, n_q, device=q.device)
     err = _build.library().tf_serving_attention(
         q.data_ptr(), k_vals.data_ptr(), v_vals.data_ptr(), _ptr(sk_token),
         _ptr(sk_tensor), sv.data_ptr(), _ptr(gk), o.data_ptr(), _ptr(lse),
-        _ptr(q_out), _ptr(qs_out), bh, n_q, n_kv, hq, hkv, d, int(causal),
+        _ptr(q_out), _ptr(qs_out), bh, n_q, n_kv, hq, hkv, width, int(causal),
         n_kv - n_q if causal else 0, _Q_MODES[q_mode],
         int(q.dtype == torch.float32), kernels.KV_CODES[k_vals.dtype],
         int(pv_quant), c, kernels.stream_handle(q),
@@ -120,8 +135,9 @@ def _serving_attention_kernel(q, k_vals, v_vals, sk_token, sk_tensor, sv, gk,
     kernels.LAUNCHES["serving_attention"] += 1
     if lse is None:
         lse = torch.zeros(bh, n_q, device=q.device, dtype=torch.float32)
+    o = slice_head_dims(o, dv)
     if staged:
-        return o, lse, q_out, qs_out
+        return o, lse, slice_head_dims(q_out, d), qs_out
     return o, lse
 
 
@@ -192,7 +208,8 @@ def serving_flash_attention(
     combinations raise the reference's ``ValueError``, but on the card
     they change nothing. ``block_q``/``block_kv`` only shape the
     reference's schedule (and ``kv_split``'s check); the kernel runs its
-    own 64×64 tiles. ``isolate`` (an A/B diagnostic that computes wrong
+    own tiles (128 q rows by 128 kv rows, 64 at head widths above 128). Any
+    d and dv up to 256 run on the card. ``isolate`` (an A/B diagnostic that computes wrong
     outputs by design) and schedules other than dense and causal raise
     ``NotImplementedError``.
     """
