@@ -24,19 +24,27 @@ and the N-d and new-schedule path (circulant_fa and block_fa at n 8192,
 block2d over 256 × 256, N-d dense_fa and windowed_fa), each gated against
 the oracles, and holds the softmax, matmul and B1 circulant and
 block-diagonal kernels against their plain versions, timed beside the
-library calls. Each phase prints one JSON line; any
-failure raises and the exit code is not 0. Without a CUDA device it fails at once and prints no
-result. The train phase ends with a torch.profiler breakdown of one step.
-Imports torch and the port only.
+library calls. B1 and B14 rows give two times: the kernel's device time (a
+CUDA graph of 20 wrapper calls replayed under CUDA events, ``ms``, which the
+kernels line reports) and the wrapper call's (``call_ms``), the library call
+timed the same two ways; a planted fault in each one's plain version (a kv
+tile, a k-slab left out) must fail its check. The device phase prints the
+registers and spills of the TMA + wgmma sources (ptxas). Each phase prints
+one JSON line; any failure raises and the exit code is not 0. Without a
+CUDA device it fails at once and prints no result. The train phase ends
+with a torch.profiler breakdown of one step. Imports torch and the port
+only.
 """
 
 from __future__ import annotations
 
 import json
 import math
+import re
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -156,26 +164,40 @@ def sdpa(q, k, v, causal, mask=None):
         enable_gqa=q.shape[1] != k.shape[1])
 
 
+# B1's planted fault: the plain version with one middle kv tile (64 keys)
+# left out must fail the kernel-vs-plain check
+B1_FAULT_TILE = 64
+
+
 def flash_phase(dev):
-    """B1 kernel vs its plain version and vs the f32 dense_dpa oracle."""
+    """B1 kernel vs its plain version and vs the f32 dense_dpa oracle (o and
+    lse vs plain within TOL_BF16 and TOL_LSE); a planted fault (one middle
+    kv tile left out of the plain version) must fail that check. Timed at
+    the serving prefill (b 1) and at the training shape (b 4): the
+    kernel's device time (a CUDA graph of wrapper calls) and the wrapper
+    call's time, beside the library's attention timed the same two ways."""
+    from tpu_flash_torch.bench.harness import device_ms
     from tpu_flash_torch.ops import flash
     from tpu_flash_torch.ops.oracle import dense_dpa
 
     gen = torch.Generator(device=dev).manual_seed(1)
     hq, hkv, d = 16, 8, 128
-    cases = [("causal_1024", 1024, 1024, True, torch.bfloat16),
-             ("ragged_causal_1000", 1000, 1000, True, torch.bfloat16),
-             ("right_aligned_256_of_1024", 256, 1024, True, torch.bfloat16),
-             ("dense_f32_300", 300, 300, False, torch.float32)]
-    worst, timing, rows = 0.0, None, []
-    for name, n_q, n_kv, causal, dt in cases:
-        q = torch.randn(1, hq, n_q, d, generator=gen, device=dev).to(dt)
-        k = torch.randn(1, hkv, n_kv, d, generator=gen, device=dev).to(dt)
-        v = torch.randn(1, hkv, n_kv, d, generator=gen, device=dev).to(dt)
+    # (name, batch, n_q, n_kv, causal, dtype)
+    cases = [("causal_1024", 1, 1024, 1024, True, torch.bfloat16),
+             ("train_causal_1024_b4", 4, 1024, 1024, True, torch.bfloat16),
+             ("ragged_causal_1000", 1, 1000, 1000, True, torch.bfloat16),
+             ("right_aligned_256_of_1024", 1, 256, 1024, True, torch.bfloat16),
+             ("dense_1024", 1, 1024, 1024, False, torch.bfloat16),
+             ("dense_f32_300", 1, 300, 300, False, torch.float32)]
+    worst, timed, rows = 0.0, {}, []
+    for name, b, n_q, n_kv, causal, dt in cases:
+        q = torch.randn(b, hq, n_q, d, generator=gen, device=dev).to(dt)
+        k = torch.randn(b, hkv, n_kv, d, generator=gen, device=dev).to(dt)
+        v = torch.randn(b, hkv, n_kv, d, generator=gen, device=dev).to(dt)
         sched = flash.build_schedule("causal" if causal else "dense", n_q,
                                      n_kv, 256, 256)
-        qf = (q.float() * (d ** -0.5 * flash.LOG2E)).to(dt)[0]
-        args = (qf, k[0], v[0], sched, hq, hkv)
+        qf = (q.float() * (d ** -0.5 * flash.LOG2E)).to(dt).flatten(0, 1)
+        args = (qf, k.flatten(0, 1), v.flatten(0, 1), sched, hq, hkv)
         ko, kl = flash._flash_fwd_kernel(*args, True)
         po, pl = flash._flash_fwd_plain(*args)
         g = hq // hkv
@@ -183,25 +205,47 @@ def flash_phase(dev):
                            causal=causal)
         tol = TOL_BF16 if dt == torch.bfloat16 else TOL_F32
         errs = dict(o_vs_plain=max_err(ko, po), lse_vs_plain=max_err(kl, pl),
-                    o_vs_oracle=max_err(ko, oo[0]), lse_vs_oracle=max_err(kl, ol[0]))
+                    o_vs_oracle=max_err(ko, oo.flatten(0, 1)),
+                    lse_vs_oracle=max_err(kl, ol.flatten(0, 1)))
+        limits = dict(o_vs_plain=tol, lse_vs_plain=min(tol, TOL_LSE),
+                      o_vs_oracle=TOL_BF16, lse_vs_oracle=TOL_BF16)
         for key, err in errs.items():
-            check(f"B1 {name} {key}", err, tol if "plain" in key else TOL_BF16)
-        row = dict(case=name, n_q=n_q, n_kv=n_kv,
-                   dtype=str(dt).replace("torch.", ""), tol=tol, **errs)
-        if name == "causal_1024":  # the slice's prefill shape
-            row["ms"] = cuda_ms(lambda: flash._flash_fwd_kernel(*args, True))
-            row["plain_ms"] = cuda_ms(lambda: flash._flash_fwd_plain(*args))
-            row["library_ms"] = cuda_ms(lambda: sdpa(q, k, v, True))
-            flops = 4 * d * hq * visible_pairs(n_q, n_kv, True)
+            check(f"B1 {name} {key}", err, limits[key])
+        row = dict(case=name, batch=b, n_q=n_q, n_kv=n_kv,
+                   dtype=str(dt).replace("torch.", ""), tol=limits, **errs)
+        if name == "dense_1024":  # the planted fault
+            j = n_kv // 2
+            keep = torch.cat([torch.arange(j, device=dev),
+                              torch.arange(j + B1_FAULT_TILE, n_kv, device=dev)])
+            fsched = flash.build_schedule("dense", n_q, n_kv - B1_FAULT_TILE,
+                                          256, 256)
+            fo, fl = flash._flash_fwd_plain(qf, args[1][:, keep], args[2][:, keep],
+                                            fsched, hq, hkv)
+            fault = dict(o_vs_plain=max_err(ko, fo), lse_vs_plain=max_err(kl, fl))
+            if all(fault[key] <= limits[key] for key in fault):
+                raise AssertionError(f"B1 planted fault kv_tile_left_out passes "
+                                     f"the kernel-vs-plain check: {fault}")
+            row["planted_fault_kv_tile_left_out"] = fault
+        if causal and n_q == n_kv == 1024:  # the serving and training shapes
+            row.update(ms=device_ms(lambda: flash._flash_fwd_kernel(*args, True)),
+                       call_ms=cuda_ms(lambda: flash._flash_fwd_kernel(*args, True)),
+                       plain_ms=cuda_ms(lambda: flash._flash_fwd_plain(*args),
+                                        iters=5),
+                       library_ms=device_ms(lambda: sdpa(q, k, v, True)),
+                       library_call_ms=cuda_ms(lambda: sdpa(q, k, v, True)))
+            flops = 4 * d * b * hq * visible_pairs(n_q, n_kv, True)
             row["tflops"] = flops / row["ms"] / 1e9
-            nbytes = 2 * (2 * hq * n_q * d + 2 * hkv * n_kv * d) + 4 * hq * n_q
-            timing = dict(ms=row["ms"], plain_ms=row["plain_ms"],
-                          library_ms=row["library_ms"],
-                          **roofline(flops, nbytes, dt))
+            nbytes = (2 * b * (2 * hq * n_q * d + 2 * hkv * n_kv * d)
+                      + 4 * b * hq * n_q)
+            row.update(roofline(flops, nbytes, dt))
+            timed[name] = row
         worst = max(worst, errs["o_vs_plain"], errs["lse_vs_plain"])
         rows.append(row)
     emit(dict(phase="flash_fwd", hq=hq, hkv=hkv, d=d, cases=rows))
-    return dict(max_abs_err=worst, **timing)
+    serving = timed["causal_1024"]
+    return dict(max_abs_err=worst,
+                **{key: serving[key] for key in ("ms", "plain_ms", "library_ms",
+                                                 "bound_ms", "bound_by")})
 
 
 def _decode_cache(dtype, lens, dev, seed, n_pages=CACHE["max_pages_per_seq"] // 4):
@@ -533,7 +577,8 @@ def profile_train_step(params, tokens, mcfg, step_ms, top=15):
     dev_us = {e.key: e.self_device_time_total for e in kern}
     total_us = sum(dev_us.values())
     rows = sorted(dev_us.items(), key=lambda kv: -kv[1])[:top]
-    groups = {"flash kernels": ("flash_",),
+    groups = {"flash forward (B1)": ("flash_fwd",),
+              "flash backward (B4, B5)": ("flash_bwd",),
               "matrix products": ("nvjet", "gemm", "cutlass", "sm90_")}
     by_group = {name: sum(v for k, v in dev_us.items()
                           if any(m in k for m in marks)) / 1e3
@@ -1177,6 +1222,7 @@ def sliding_kernels_phase(dev):
     lengths, empty prefix; the pipelined decode) against their plain
     versions at the sliding path's shapes, timed beside their bounds and,
     for B1, the library's attention under the same mask."""
+    from tpu_flash_torch.bench.harness import device_ms
     from tpu_flash_torch.ops import flash, paged
 
     gen = torch.Generator(device=dev).manual_seed(8)
@@ -1232,12 +1278,21 @@ def sliding_kernels_phase(dev):
                  else band_pairs(n, radius, schedule == "local_causal"))
         esz = 2 if dt == torch.bfloat16 else 4
         nbytes = esz * (2 * hq * n * d + 2 * hkv * n * d) + 4 * hq * n
-        row.update(ms=cuda_ms(lambda: flash._flash_fwd_kernel(*args, True,
-                                                               bound)),
+        # the kernel alone (the norm bound's key norms computed before it,
+        # and timed with it apart), and the public call
+        kmax = flash.key_norm_max(args[1]) if bound else None
+        row.update(ms=device_ms(lambda: flash._flash_fwd_kernel(
+                       *args, True, bound, kmax)),
+                   call_ms=cuda_ms(lambda: flash._flash_fwd_kernel(*args, True,
+                                                                    bound)),
                    plain_ms=cuda_ms(lambda: flash._flash_fwd_plain(*args, bound),
                                     iters=5),
-                   library_ms=cuda_ms(lambda: sdpa(q, k, v, False, mask)),
+                   library_ms=device_ms(lambda: sdpa(q, k, v, False, mask)),
+                   library_call_ms=cuda_ms(lambda: sdpa(q, k, v, False, mask)),
                    pairs=pairs, **roofline(4 * d * hq * pairs, nbytes, dt))
+        if bound:
+            row["with_key_norms_ms"] = device_ms(
+                lambda: flash._flash_fwd_kernel(*args, True, bound))
         timed[tag] = row
 
     # B2 at the chunk-prefix shape: 512 lanes of one slot (a shared table),
@@ -1322,6 +1377,9 @@ def sliding_kernels_phase(dev):
 # at the bands shape: o 4e-3 (bf16, ~8 ulps at |o| ~ 0.1), lse TOL_LSE
 TOL_STATS = 1e-5
 TOL_B1_NEW = 4e-3
+# B14's planted fault: the plain product with one 64-deep k-slab left out
+# must fail the kernel-vs-plain check
+MM_FAULT_SLAB = 64
 
 
 def primitives_phase(dev):
@@ -1332,6 +1390,7 @@ def primitives_phase(dev):
     bound and the library call."""
     from tpu_flash_torch import kernels
     from tpu_flash_torch.bench import sweep
+    from tpu_flash_torch.bench.harness import device_ms
     from tpu_flash_torch.ops import matmul as mm
     from tpu_flash_torch.ops import softmax as sm
 
@@ -1419,20 +1478,32 @@ def primitives_phase(dev):
         a, b = sweep.matmul_inputs(case, dev)
         b2 = b[:, None] if b.ndim == 1 else b
         dt = case[4]
+        (m, k), n = a.shape, b2.shape[1]
         want = mm._matmul_plain(a, b2, dt)
         got = mm._matmul_kernel(a, b2, dt)
         top = float(want.float().abs().max())
-        row = held("matmul", got, want, sweep.TOL_MATMUL[dt] * top,
-                   case=case[0], rel_err=max_err(got, want) / top)
+        tol = sweep.TOL_MATMUL[dt] * top
+        row = held("matmul", got, want, tol, case=case[0],
+                   route=mm._matmul_route(m, n, k, dt),
+                   rel_err=max_err(got, want) / top)
+        if case[0] == "matmul_4096_bf16":  # the planted fault
+            j = k // 2
+            keep = torch.cat([torch.arange(j, device=dev),
+                              torch.arange(j + MM_FAULT_SLAB, k, device=dev)])
+            fault = max_err(got, mm._matmul_plain(a[:, keep], b2[keep], dt))
+            if fault <= tol:
+                raise AssertionError(f"B14 planted fault k_slab_left_out passes "
+                                     f"the kernel-vs-plain check: {fault}")
+            row["planted_fault_k_slab_left_out"] = dict(max_abs_err=fault, tol=tol)
+        row.update(ms=device_ms(lambda: mm._matmul_kernel(a, b2, dt)),
+                   call_ms=cuda_ms(lambda: mm._matmul_kernel(a, b2, dt)),
+                   plain_ms=cuda_ms(lambda: mm._matmul_plain(a, b2, dt), iters=3),
+                   library_ms=device_ms(lambda: a @ b2),
+                   library_call_ms=cuda_ms(lambda: a @ b2),
+                   **roofline(2 * m * k * n, a.element_size() * (m * k + k * n)
+                              + got.element_size() * m * n, dt))
+        row["tflops"] = 2 * m * k * n / row["ms"] / 1e9
         if case[0] == "matmul_4096_bf16":
-            m, k = a.shape
-            n = b2.shape[1]
-            row.update(ms=cuda_ms(lambda: mm._matmul_kernel(a, b2, dt)),
-                       plain_ms=cuda_ms(lambda: mm._matmul_plain(a, b2, dt),
-                                        iters=3),
-                       library_ms=cuda_ms(lambda: a @ b2),
-                       **roofline(2 * m * k * n, 2 * (m * k + k * n + m * n),
-                                  dt))
             timed["matmul"] = row
         rows.append(dict(row, kernel="matmul"))
         del a, b, b2, want, got
@@ -1456,6 +1527,7 @@ def ndim_phase(dev):
     bound and the library attention under the same boolean mask."""
     from tpu_flash_torch import kernels
     from tpu_flash_torch.bench import sweep
+    from tpu_flash_torch.bench.harness import device_ms
     from tpu_flash_torch.ops import flash
 
     runs, launches = {}, {}
@@ -1510,10 +1582,13 @@ def ndim_phase(dev):
         row = dict(kernel="flash_fwd", schedule=name, n=n, h=h, d=d,
                    bound_max=bound, tol=TOL_B1_NEW, tol_lse=TOL_LSE,
                    visible_pairs=pairs * h, **errs,
-                   ms=cuda_ms(lambda: flash._flash_fwd_kernel(*args, True, bound)),
+                   ms=device_ms(lambda: flash._flash_fwd_kernel(*args, True, bound)),
+                   call_ms=cuda_ms(lambda: flash._flash_fwd_kernel(*args, True,
+                                                                    bound)),
                    plain_ms=cuda_ms(lambda: flash._flash_fwd_plain(*args, bound),
                                     iters=3),
-                   library_ms=cuda_ms(lambda: sdpa(q, k, v, False, mask)),
+                   library_ms=device_ms(lambda: sdpa(q, k, v, False, mask)),
+                   library_call_ms=cuda_ms(lambda: sdpa(q, k, v, False, mask)),
                    **roofline(4 * d * h * pairs, nbytes, torch.bfloat16))
         row["tflops"] = 4 * d * h * pairs / row["ms"] / 1e9
         rows.append(row)
@@ -1528,6 +1603,15 @@ def ndim_phase(dev):
 def _timing(row) -> dict:
     return {key: row[key] for key in ("ms", "plain_ms", "bound_ms",
                                       "bound_by")}
+
+
+PTXAS_SOURCES = ("flash_fwd.cu", "matmul.cu")
+
+
+def short_kernel_name(mangled: str) -> str:
+    """A kernel's mangled name without its anonymous namespace: the kernel
+    and its template arguments, e.g. flash_fwd_tcILi128ELi2EE..."""
+    return re.sub(r"^_ZN\d+_GLOBAL__N__\w+?_[0-9a-f]{8}\d+", "", mangled)
 
 
 def main() -> int:
@@ -1545,9 +1629,15 @@ def main() -> int:
     ).stdout.strip().splitlines()[0]
     t0 = time.perf_counter()
     _build.library()
+    build_s = time.perf_counter() - t0
+    # registers and spills of the TMA + wgmma kernels (nvcc -Xptxas -v)
+    with ThreadPoolExecutor(len(PTXAS_SOURCES)) as pool:
+        reports = pool.map(_build.ptxas_report, PTXAS_SOURCES)
+    ptxas = {src: [[short_kernel_name(k), line] for k, line in rows]
+             for src, rows in zip(PTXAS_SOURCES, reports)}
     emit(dict(phase="device", nvidia_smi=smi, name=torch.cuda.get_device_name(0),
               torch=torch.__version__, cuda=torch.version.cuda,
-              build_s=time.perf_counter() - t0))
+              build_s=build_s, ptxas=ptxas))
 
     with torch.no_grad():
         b1 = flash_phase(dev)

@@ -112,6 +112,26 @@ def test_cpu_tensors_launch_no_kernel():
     assert int(cache.lengths[0]) == 42
 
 
+def test_build_key_follows_the_headers(tmp_path):
+    """The kernel library's build key hashes csrc's headers with its
+    sources: a byte added to hopper.cuh (which no .cu names in the
+    key's source list) gives another key, so a stale library is never
+    reused; the same bytes give the same key."""
+    import glob
+    import shutil
+
+    from tpu_flash_torch.kernels import _build
+
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build._CSRC, csrc)
+    srcs = sorted(glob.glob(str(csrc / "*.cu")))
+    key = _build.build_key(str(csrc), srcs)
+    assert key == _build.build_key(str(csrc), srcs)
+    header = csrc / "hopper.cuh"
+    header.write_bytes(header.read_bytes() + b"\n")
+    assert _build.build_key(str(csrc), srcs) != key
+
+
 def _entry_points():
     from tpu_flash_torch.cache.paged_cache import PagedKVCache
     from tpu_flash_torch.models.transformer import init_params

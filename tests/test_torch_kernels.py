@@ -39,9 +39,9 @@ def gen():
 def test_flash_kernel_matches_plain(gen, causal, n_q, n_kv, dtype, d=128,
                                     dv=128):
     """B1 kernel vs plain at the serving head layout (16 q heads, 8 kv
-    heads, d 128). bf16 2e-2: P rounds to bf16 against the tile's running
-    max in the kernel and the row max in the plain version. f32 1e-4:
-    summation order only."""
+    heads, d 128). o bf16 2e-2: P rounds to bf16 against the tile's running
+    max in the kernel and the row max in the plain version. f32 1e-4, and
+    lse 1e-4 in both dtypes: summation order only (float32 sums)."""
     hq, hkv = 16, 8
     q = torch.randn(hq, n_q, d, generator=gen, device="cuda").to(dtype)
     k = torch.randn(hkv, n_kv, d, generator=gen, device="cuda").to(dtype)
@@ -53,11 +53,18 @@ def test_flash_kernel_matches_plain(gen, causal, n_q, n_kv, dtype, d=128,
     po, pl = tflash._flash_fwd_plain(q, k, v, sched, hq, hkv)
     torch.cuda.synchronize()
     assert kernels.LAUNCHES["flash_fwd"] == before + 1
+    _assert_b1_close(ko, kl, po, pl, dtype)
+
+
+def _assert_b1_close(ko, kl, po, pl, dtype):
+    """B1's kernel-vs-plain check: o within 2e-2 (bf16) or 1e-4 (f32), the
+    same rows finite in lse, and lse within 1e-4 where finite."""
     tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
     assert float((ko.float() - po.float()).abs().max()) <= tol
     fin = torch.isfinite(pl)
     assert torch.equal(torch.isfinite(kl), fin)
-    assert float((kl[fin] - pl[fin]).abs().max()) <= tol
+    if fin.any():
+        assert float((kl[fin] - pl[fin]).abs().max()) <= 1e-4
 
 
 # (causal, n, d, dv, dtype): head and value dims other than 64 and 128,
@@ -97,8 +104,8 @@ _B1_VARIANTS = [
 def test_flash_kernel_band_and_bound_match_plain(gen, case):
     """B1 with the band schedules and the norm-bound max vs its plain
     version (16 q / 8 kv heads). None takes the auto policy (the bound for
-    the non-causal band). bf16 2e-2, f32 1e-4, lse 1e-4 where finite (f32)
-    or 2e-2 (bf16), as the dense and causal cases."""
+    the non-causal band). o bf16 2e-2, f32 1e-4, lse 1e-4 where finite,
+    as the dense and causal cases."""
     schedule, radius, n, d, bound, dtype = case
     hq, hkv = 16, 8
     q = (torch.randn(hq, n, d, generator=gen, device="cuda")
@@ -113,11 +120,7 @@ def test_flash_kernel_band_and_bound_match_plain(gen, case):
     po, pl = tflash._flash_fwd_plain(q, k, v, sched, hq, hkv, bound)
     torch.cuda.synchronize()
     assert kernels.LAUNCHES["flash_fwd"] == before + 1
-    tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
-    assert float((ko.float() - po.float()).abs().max()) <= tol
-    fin = torch.isfinite(pl)
-    assert torch.equal(torch.isfinite(kl), fin)
-    assert float((kl[fin] - pl[fin]).abs().max()) <= tol
+    _assert_b1_close(ko, kl, po, pl, dtype)
 
 
 def test_band_backward_kernel_raises(gen):
@@ -599,7 +602,8 @@ def test_quant_kernels_reject_what_they_do_not_take(gen):
 # (schedule, radius or section, n, d, bound_max, dtype): the circulant band
 # (halo-extended K/V) and the block-diagonal schedule at d 64 and 128, ragged
 # n, sections that are 64-multiples (64, 256), span a 64-row tile boundary
-# (192) or sit several to a tile (16)
+# (192), sit several to a tile (16), are no multiple of a 128-row kv tile
+# (96, 320) or straddle a 128-row q tile (320)
 _B1_NEW_KINDS = [
     ("circulant", 512, 2048, 128, None, torch.bfloat16),
     ("circulant", 64, 1000, 64, False, torch.bfloat16),
@@ -609,6 +613,8 @@ _B1_NEW_KINDS = [
     ("block", 192, 960, 64, None, torch.bfloat16),
     ("block", 256, 1000, 128, True, torch.float32),
     ("block", 16, 512, 64, None, torch.bfloat16),
+    ("block", 96, 1000, 128, None, torch.bfloat16),
+    ("block", 320, 1000, 64, True, torch.bfloat16),
 ]
 
 
@@ -616,8 +622,8 @@ _B1_NEW_KINDS = [
     f"{c[0]}-{c[1]}-n{c[2]}-d{c[3]}-{str(c[5])[6:]}" for c in _B1_NEW_KINDS])
 def test_flash_kernel_circulant_and_block_match_plain(gen, case):
     """B1's circulant (B11's circulant half) and block-diagonal kinds vs the
-    plain version (16 q / 8 kv heads): bf16 2e-2, f32 1e-4, lse 1e-4 (f32)
-    or 2e-2 (bf16), as the other B1 cases."""
+    plain version (16 q / 8 kv heads): o bf16 2e-2, f32 1e-4, lse 1e-4
+    where finite, as the other B1 cases."""
     schedule, extra, n, d, bound, dtype = case
     hq, hkv = 16, 8
     q = (torch.randn(hq, n, d, generator=gen, device="cuda")
@@ -638,11 +644,57 @@ def test_flash_kernel_circulant_and_block_match_plain(gen, case):
     po, pl = tflash._flash_fwd_plain(q, k, v, sched, hq, hkv, bound)
     torch.cuda.synchronize()
     assert kernels.LAUNCHES["flash_fwd"] == before + 1
-    tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
-    assert float((ko.float() - po.float()).abs().max()) <= tol
-    fin = torch.isfinite(pl)
-    assert torch.equal(torch.isfinite(kl), fin)
-    assert float((kl[fin] - pl[fin]).abs().max()) <= tol
+    _assert_b1_close(ko, kl, po, pl, dtype)
+
+
+# The bf16 TMA + wgmma kernel's edges: every schedule kind at d 64, 128 and
+# 256, both max modes, at (n, batch) = (129, 1) (one partial q tile), (1000,
+# 1) (ragged; 64-row q tiles, since 128-row ones would leave SMs idle) and
+# (1024, 3) (128-row q tiles at d <= 128); bands of radius 129, the
+# circulant's 100, sections of 96 (no multiple of a kv tile)
+_TC_KINDS = [("dense", 0), ("causal", 0), ("local", 129), ("local_causal", 129),
+             ("circulant", 100), ("block", 96)]
+
+
+@pytest.mark.parametrize("n,batch", [(129, 1), (1000, 1), (1024, 3)],
+                         ids=["n129", "n1000", "n1024-b3"])
+@pytest.mark.parametrize("bound", [False, True], ids=["exact", "bound"])
+@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("kind", _TC_KINDS, ids=[k[0] for k in _TC_KINDS])
+def test_flash_kernel_every_kind_matches_plain(gen, kind, d, bound, n, batch):
+    """B1's bf16 kernel vs plain on every kind, width and max mode: o 2e-2,
+    lse 1e-4 where finite, the same rows fully masked."""
+    schedule, extra = kind
+    hq, hkv = 16, 8
+    q = (torch.randn(batch * hq, n, d, generator=gen, device="cuda")
+         * (d ** -0.5 * tflash.LOG2E)).bfloat16()
+    k, v = (torch.randn(batch * hkv, n, d, generator=gen, device="cuda")
+            .bfloat16() for _ in range(2))
+    if schedule == "circulant":
+        extra = min(extra, (n - 1) // 2)  # the window fits the sequence
+        k, v = (torch.cat([x[:, -extra:], x, x[:, :extra]], dim=1) for x in (k, v))
+    sched = tflash.build_schedule(schedule, n, n, 512, 1024, radius=extra
+                                  if schedule != "block" else 0,
+                                  section=extra if schedule == "block" else 0)
+    ko, kl = tflash._flash_fwd_kernel(q, k, v, sched, hq, hkv, True, bound)
+    po, pl = tflash._flash_fwd_plain(q, k, v, sched, hq, hkv, bound)
+    _assert_b1_close(ko, kl, po, pl, torch.bfloat16)
+
+
+@pytest.mark.parametrize("bound", [False, True], ids=["exact", "bound"])
+@pytest.mark.parametrize("d", [64, 128, 256])
+def test_flash_kernel_right_aligned_matches_plain(gen, d, bound):
+    """Causal, right-aligned: the last 256 of 1024 queries, every width and
+    max mode."""
+    hq, hkv = 16, 8
+    q = (torch.randn(hq, 256, d, generator=gen, device="cuda")
+         * (d ** -0.5 * tflash.LOG2E)).bfloat16()
+    k, v = (torch.randn(hkv, 1024, d, generator=gen, device="cuda").bfloat16()
+            for _ in range(2))
+    sched = tflash.build_schedule("causal", 256, 1024, 256, 256)
+    ko, kl = tflash._flash_fwd_kernel(q, k, v, sched, hq, hkv, True, bound)
+    po, pl = tflash._flash_fwd_plain(q, k, v, sched, hq, hkv, bound)
+    _assert_b1_close(ko, kl, po, pl, torch.bfloat16)
 
 
 def test_circulant_and_block_public_calls_match_oracle(gen):
@@ -757,6 +809,60 @@ def test_matmul_kernel_matches_plain(gen, m, k, n, dtype):
     assert f32.dtype == torch.float32
 
 
+# (m, k, n, in dtype, out dtype, route): the wgmma route at 4096 × 512 ×
+# 4096 and the ragged 4000 × 1000 × 3000 (m, k and n no multiples of its
+# 128 × 256 × 64 tiles), bf16 and float32 out, and a small ragged shape; the
+# wmma route at k % 8 != 0; gemv at 16384 × 4096, at ragged m and k (rows
+# that start off 16 bytes) and in float32; the fma route square, at n % 4
+# != 0 and with bf16 out; k = 0 on every route
+_ROUTE_CASES = [
+    (4096, 512, 4096, torch.bfloat16, torch.bfloat16, "wgmma"),
+    (4096, 512, 4096, torch.bfloat16, torch.float32, "wgmma"),
+    (4000, 1000, 3000, torch.bfloat16, torch.bfloat16, "wgmma"),
+    (4000, 1000, 3000, torch.bfloat16, torch.float32, "wgmma"),
+    (333, 200, 136, torch.bfloat16, torch.bfloat16, "wgmma"),
+    (300, 130, 72, torch.bfloat16, torch.bfloat16, "wmma"),
+    (16384, 4096, 1, torch.bfloat16, torch.bfloat16, "gemv"),
+    (1001, 4099, 1, torch.bfloat16, torch.float32, "gemv"),
+    (777, 333, 1, torch.float32, torch.float32, "gemv"),
+    (1000, 500, 300, torch.float32, torch.float32, "fma"),
+    (130, 70, 66, torch.float32, torch.float32, "fma"),
+    (513, 257, 129, torch.float32, torch.bfloat16, "fma"),
+    (64, 0, 64, torch.bfloat16, torch.bfloat16, "wgmma"),
+    (64, 0, 66, torch.bfloat16, torch.float32, "wmma"),
+    (64, 0, 1, torch.bfloat16, torch.bfloat16, "gemv"),
+    (64, 0, 64, torch.float32, torch.float32, "fma"),
+]
+
+
+@pytest.mark.parametrize("m,k,n,dtype,out_dtype,route", _ROUTE_CASES, ids=[
+    f"{c[5]}-{c[0]}x{c[1]}x{c[2]}-{str(c[3])[6:]}-{str(c[4])[6:]}"
+    for c in _ROUTE_CASES])
+def test_matmul_routes_match_plain(gen, m, k, n, dtype, out_dtype, route):
+    """B14 on each route vs its plain version, one launch a call: bf16 out
+    within 2^-7 of the largest |plain| entry (one ulp of it), float32 out
+    within 1e-5 of it (summation order), the sweep's and the smoke's
+    limits; k = 0 gives zeros."""
+    from tpu_flash_torch.bench.sweep import TOL_MATMUL
+    from tpu_flash_torch.ops import matmul as mm
+
+    assert mm._matmul_route(m, n, k, dtype) == route
+    a = torch.randn(m, k, generator=gen, device="cuda").to(dtype)
+    b = torch.randn(k, n, generator=gen, device="cuda").to(dtype)
+    before = kernels.LAUNCHES["matmul"]
+    got = mm.matmul(a, b, out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["matmul"] == before + 1
+    assert got.dtype == out_dtype and got.shape == (m, n)
+    if k == 0:
+        assert torch.equal(got, torch.zeros_like(got))
+        return
+    want = mm._matmul_plain(a, b, out_dtype)
+    tol = TOL_MATMUL[out_dtype]
+    top = float(want.float().abs().max())
+    assert float((got.float() - want.float()).abs().max()) <= tol * top
+
+
 def test_primitive_kernels_reject_what_they_do_not_take(gen):
     from tpu_flash_torch.ops import matmul as mm
     from tpu_flash_torch.ops import softmax as sm
@@ -769,3 +875,16 @@ def test_primitive_kernels_reject_what_they_do_not_take(gen):
     with pytest.raises(NotImplementedError):
         mm.matmul(torch.zeros(4, 4, device="cuda"),
                   torch.zeros(4, 4, device="cuda", dtype=torch.bfloat16))
+    # the C entry refuses a route the shape or dtype does not fit: wgmma
+    # where TMA cannot describe n (130 bf16 is no 16-byte pitch), gemv for
+    # two columns, fma for bf16
+    from tpu_flash_torch.kernels import _build
+
+    a = torch.zeros(8, 16, device="cuda", dtype=torch.bfloat16)
+    b = torch.zeros(16, 130, device="cuda", dtype=torch.bfloat16)
+    out = torch.empty(8, 130, device="cuda", dtype=torch.bfloat16)
+    stream = kernels.stream_handle(a)
+    lib = _build.library()
+    for n, route in ((130, "wgmma"), (2, "gemv"), (2, "fma")):
+        assert lib.tf_matmul(a.data_ptr(), b.data_ptr(), out.data_ptr(), 8, n, 16,
+                             1, 1, mm.MATMUL_ROUTES[route], stream) != 0

@@ -64,6 +64,24 @@ def test_matvec_matches_reference():
     np.testing.assert_allclose(got.numpy(), want, atol=1e-4)
 
 
+@pytest.mark.parametrize("m,n,k,dtype,route", [
+    (4096, 1, 4096, torch.bfloat16, "gemv"),
+    (257, 1, 129, torch.float32, "gemv"),
+    (4096, 4096, 4096, torch.bfloat16, "wgmma"),
+    (4000, 3000, 1000, torch.bfloat16, "wgmma"),
+    (64, 64, 0, torch.bfloat16, "wgmma"),
+    (300, 72, 130, torch.bfloat16, "wmma"),
+    (300, 70, 128, torch.bfloat16, "wmma"),
+    (4096, 4096, 4096, torch.float32, "fma"),
+])
+def test_matmul_route_by_shape_and_dtype(m, n, k, dtype, route):
+    """The kernel route follows shape and dtype alone: one column → gemv;
+    bf16 with k and n multiples of 8 (16-byte TMA row pitches) → wgmma,
+    other bf16 (k = 130, n = 70) → wmma; float32 → fma."""
+    assert tmm._matmul_route(m, n, k, dtype) == route
+    assert route in tmm.MATMUL_ROUTES
+
+
 @pytest.mark.parametrize("cols", [7, None], ids=["matrix", "vector"])
 def test_circulant_matmul_matches_reference(cols):
     n, w = 64, 9

@@ -3,7 +3,8 @@
 
 The models (``attention_flops``, ``attention_bytes``, ``schedule_coverage``)
 are the reference's, unchanged. ``device_peaks`` gives an H100 SXM's
-datasheet rates; :func:`time_fn` times with CUDA events on the card. A
+datasheet rates; :func:`time_fn` times with CUDA events on the card and
+:func:`device_ms` a CUDA graph of calls, which the host cannot slow. A
 quantized call's roofline counts each product at its own type's peak:
 QKᵀ in fp8 or int8 at 1979 TFLOP/s, P·V at the bf16 989 (P is bf16), or
 at 1979 under ``pv_quant``. (The reference's TPU table has no fp8 unit, so
@@ -110,6 +111,36 @@ def time_fn(fn: Callable, *args, iters: int = 10, warmup: int = 2) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters / 1e3
+
+
+def device_ms(fn, calls: int = 20, replays: int = 3) -> float:
+    """Device time of one ``fn`` call in ms, which the host cannot hide:
+    ``calls`` calls captured in a CUDA graph, the graph replayed under CUDA
+    events. Everything a call launches counts (a wrapper's padding copies,
+    the norm bound's key reduction); the host's Python and launch costs do
+    not."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm up off the capture
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    del graph
+    return start.elapsed_time(end) / (calls * replays)
 
 
 def _on_cuda(args) -> bool:

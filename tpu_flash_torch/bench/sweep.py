@@ -54,6 +54,7 @@ MATMUL_CASES = [
     ("matmul_4096_bf16", 4096, 4096, 4096, torch.bfloat16),
     ("matmul_4096_f32", 4096, 4096, 4096, torch.float32),
     ("matmul_ragged_bf16", 4000, 1000, 3000, torch.bfloat16),
+    ("matmul_k4095_bf16", 4096, 4095, 4096, torch.bfloat16),  # wmma route
     ("matvec_16384_bf16", 16384, 16384, None, torch.bfloat16),
 ]
 MATMUL_TINY = [
@@ -191,6 +192,7 @@ def matmul_row(case, a, b, iters: int = 10) -> dict:
     top = float(exact.abs().max())
     got2 = got[:, None] if b.ndim == 1 else got
     row = dict(name=name, m=m, k=k, n=n or 1, dtype=str(dtype)[6:],
+               route=mm._matmul_route(m, n or 1, k, dtype),
                tol=TOL_MATMUL[dtype],
                max_abs_err=_max_err(got2, exact), rel_err=_max_err(got2, exact) / top,
                rel_err_vs_plain=_max_err(got2, plain) / top)

@@ -3,13 +3,15 @@
 ``tpu_flash_torch/csrc/*.cu`` compile with ``nvcc`` into one shared library
 with a plain C interface, loaded through ``ctypes``: one ``nvcc -c`` per
 source, all started together, then one link. No source includes PyTorch's
-headers; a cold build takes about a minute on the H100 machine, nearly all
-of it ``quant_attention.cu`` (18 instantiations of its wgmma kernel), the other sources
-finishing within it. The library lands in
-``build/tpu_flash_torch/<hash>/`` at the repository root, keyed by a hash of
-the sources and flags, and is built on first use — never at import. A failed
-build raises with nvcc's output. ``python -m tpu_flash_torch.kernels._build
-<source>.cu`` prints each kernel's registers and spill bytes (ptxas).
+headers; the TMA + wgmma kernels (B1, B6/B7, B14) share ``csrc/hopper.cuh``.
+A cold build takes under a minute on the H100 machine, nearly all of it
+``quant_attention.cu`` (18 instantiations of its wgmma kernel), the other
+sources finishing within it. The library lands in
+``build/tpu_flash_torch/<key>/`` at the repository root, keyed by a hash of
+the flags, the sources and the headers (:func:`build_key`), and is built on
+first use — never at import. A failed build raises with nvcc's output.
+``python -m tpu_flash_torch.kernels._build <source>.cu`` prints each
+kernel's registers and spill bytes (ptxas).
 """
 
 from __future__ import annotations
@@ -67,8 +69,8 @@ _SIGNATURES = {
     "tf_softmax_stats": [_vp] * 2 + [_i32] * 4 + [_vp],
     # x, lse, out, n, fibers, m, dtype, stream
     "tf_softmax_norm": [_vp] * 3 + [_i32] * 4 + [_vp],
-    # a, b, out, m, n, k, in_dtype, out_dtype, stream
-    "tf_matmul": [_vp] * 3 + [_i32] * 5 + [_vp],
+    # a, b, out, m, n, k, in_dtype, out_dtype, route, stream
+    "tf_matmul": [_vp] * 3 + [_i32] * 6 + [_vp],
 }
 
 
@@ -86,17 +88,25 @@ def _sources():
     return srcs
 
 
+def build_key(csrc: str, sources) -> str:
+    """The build directory's key: a hash of the flags, the named sources
+    and every header (``*.cuh``) of ``csrc``, so that a header's edit
+    rebuilds every source that may include it."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(glob.glob(os.path.join(csrc, "*.cuh")))
+    for path in [*sorted(sources), *headers]:
+        with open(path, "rb") as f:
+            h.update(os.path.basename(path).encode() + f.read())
+    return h.hexdigest()[:16]
+
+
 def library() -> ctypes.CDLL:
     """The loaded kernel library, building it first if needed."""
     global _lib
     if _lib is not None:
         return _lib
     srcs = _sources()
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for path in srcs:
-        with open(path, "rb") as f:
-            h.update(os.path.basename(path).encode() + f.read())
-    out_dir = os.path.join(_BUILD_ROOT, h.hexdigest()[:16])
+    out_dir = os.path.join(_BUILD_ROOT, build_key(_CSRC, srcs))
     so = os.path.join(out_dir, "libtpu_flash_torch.so")
     if not os.path.exists(so):
         os.makedirs(out_dir, exist_ok=True)
@@ -137,7 +147,9 @@ def check(err: int, name: str) -> None:
 
 def ptxas_report(source: str) -> list:
     """Registers and spill bytes of each kernel in ``csrc/<source>``, from
-    ``nvcc -Xptxas -v`` with the build's flags → [(kernel, line), ...]."""
+    ``nvcc -Xptxas -v`` with the build's flags → [(kernel, line), ...];
+    ptxas's warnings and performance notes (a serialized wgmma) come as
+    ("ptxas", line)."""
     import tempfile
 
     with tempfile.TemporaryDirectory() as tmp:
@@ -145,13 +157,16 @@ def ptxas_report(source: str) -> list:
             [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o",
              os.path.join(tmp, "k.o"), os.path.join(_CSRC, source)],
             capture_output=True, text=True, check=True)
-    rows = []
+    rows, kernel = [], None
     for line in (out.stdout + out.stderr).splitlines():
-        if "Function properties for" in line:
-            rows.append([line.split("Function properties for")[-1].strip(), ""])
-        elif rows and ("spill" in line or "Used" in line):
+        if "Performance Loss" in line or "warning" in line:
+            rows.append(["ptxas", line.strip()])  # e.g. serialized wgmma
+        elif "Function properties for" in line:
+            kernel = [line.split("Function properties for")[-1].strip(), ""]
+            rows.append(kernel)
+        elif kernel and ("spill" in line or "Used" in line):
             part = line.split(":", 1)[-1].strip() if "Used" in line else line.strip()
-            rows[-1][1] = f"{rows[-1][1]}; {part}" if rows[-1][1] else part
+            kernel[1] = f"{kernel[1]}; {part}" if kernel[1] else part
     return [tuple(r) for r in rows]
 
 

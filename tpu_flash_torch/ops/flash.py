@@ -23,7 +23,9 @@ own section.
 :func:`_flash_fwd` dispatches on the tensors' device: CPU tensors take the
 plain PyTorch version :func:`_flash_fwd_plain`; CUDA tensors launch the
 hand-written kernel in ``csrc/flash_fwd.cu`` through
-:func:`_flash_fwd_kernel`, or raise.
+:func:`_flash_fwd_kernel`, or raise: bf16 on its TMA + ``wgmma`` kernel
+(64 q rows a consumer warpgroup, S, P and O in registers), float32 on its
+FMA kernel.
 
 :class:`_FlashAttention` makes the core differentiable, the counterpart of
 the reference's ``_fa`` custom VJP: its backward is
@@ -60,10 +62,6 @@ DEFAULT_MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 LOG2E = math.log2(math.e)
 LN2 = math.log(2.0)
 _LANES = 128
-
-# Tile of the CUDA kernel (rows of q, rows of k/v per block step).
-KERNEL_BLOCK_Q = 64
-KERNEL_BLOCK_KV = 64
 
 # Options of the reference's flash_attention that are not ported yet, with
 # the ROADMAP item that adds them.
@@ -138,10 +136,11 @@ def auto_bound_max(sched: Schedule) -> bool:
 
 def key_norm_max(k: torch.Tensor) -> torch.Tensor:
     """max_j ‖k_j‖ per kv row of ``(B·HKV, n_kv, d)`` k → ``(B·HKV,)``
-    float32: the key side of the norm bound, one torch reduction outside
-    the kernel as the reference computes it outside its kernel."""
-    kf = k.float()
-    return torch.sqrt(torch.amax(torch.sum(kf * kf, dim=-1), dim=-1))
+    float32: the key side of the norm bound, torch reductions outside the
+    kernel as the reference computes it outside its kernel (two launches on
+    the card: the norms summed in float32 from k's own dtype, then their
+    max; sqrt is monotone, so max of norms = sqrt of max of squares)."""
+    return torch.linalg.vector_norm(k, dim=-1, dtype=torch.float32).amax(dim=-1)
 
 
 def _kv_rows(bh: int, hq: int, hkv: int, device) -> torch.Tensor:
@@ -232,13 +231,15 @@ def slice_head_dims(t: torch.Tensor, dim: int) -> torch.Tensor:
 
 
 def _flash_fwd_kernel(q, k, v, sched: Schedule, hq: int, hkv: int,
-                      need_lse: bool, bound_max: bool = False):
+                      need_lse: bool, bound_max: bool = False, kmax=None):
     """Launch ``csrc/flash_fwd.cu`` on CUDA tensors (same contract as
     :func:`_flash_fwd_plain`). Ragged edges are masked in the kernel; head
     and value dims are zero-padded to the compiled width
     (:func:`pad_head_dims`) and o is sliced back to dv. The kernel takes the
     schedule's kind, causal offset, band radius and section and walks its
-    own tiles (k/v of a circulant schedule are the halo-extended ones)."""
+    own tiles (k/v of a circulant schedule are the halo-extended ones).
+    Under ``bound_max``, ``kmax`` may hold ``key_norm_max(k)`` computed
+    beforehand (so that the kernel can be timed alone)."""
     from tpu_flash_torch.kernels import _build
 
     kind = _KIND.get((type(sched), getattr(sched, "causal", False)))
@@ -259,7 +260,10 @@ def _flash_fwd_kernel(q, k, v, sched: Schedule, hq: int, hkv: int,
     if bh % hq or k.shape[0] != bh // hq * hkv or v.shape[:2] != k.shape[:2]:
         raise ValueError(f"bad GQA shapes {q.shape} {k.shape} {v.shape}")
     q, k, v = (_aligned(t) for t in pad_head_dims(width, q, k, v))
-    kmax = key_norm_max(k) if bound_max else None
+    if not bound_max:
+        kmax = None
+    elif kmax is None:
+        kmax = key_norm_max(k)
     o = torch.empty_like(q)
     lse = (torch.empty(bh, n_q, device=q.device, dtype=torch.float32)
            if need_lse else None)

@@ -37,8 +37,6 @@ import torch
 from tpu_flash_torch import kernels
 from tpu_flash_torch.ops.flash import (
     DEFAULT_MASK_VALUE,
-    KERNEL_BLOCK_KV,
-    KERNEL_BLOCK_Q,
     LN2,
     LOG2E,
     _aligned,
@@ -49,6 +47,10 @@ from tpu_flash_torch.ops.flash import (
 )
 from tpu_flash_torch.ops.schedule import CausalSchedule, Schedule
 
+# B4/B5's tile (rows of q, rows of k/v per block step): the kernels'
+# causal offset is computed on it
+BWD_BLOCK_Q = 64
+BWD_BLOCK_KV = 64
 # lse of fully masked rows is clamped here, so p = exp2(s − lse·log2e) = 0
 LSE_CLAMP = 3e38
 
@@ -96,8 +98,8 @@ def _flash_bwd_plain(q, k, v, o, lse, do, dlse, sched: Schedule, hq: int,
 def _kernel_args(q, k, sched: Schedule, hq: int, hkv: int):
     """The scalar arguments both kernels share: sizes, the kernel tile's
     causal flag and offset, dtype code and stream."""
-    ksched = dataclasses.replace(sched, block_q=KERNEL_BLOCK_Q,
-                                 block_kv=KERNEL_BLOCK_KV)
+    ksched = dataclasses.replace(sched, block_q=BWD_BLOCK_Q,
+                                 block_kv=BWD_BLOCK_KV)
     causal = isinstance(ksched, CausalSchedule)
     return (q.shape[1], k.shape[1], hq, hkv, q.shape[-1], int(causal),
             ksched._offset if causal else 0, kernels.dtype_code(q.dtype),

@@ -3,11 +3,16 @@
 :func:`matmul` is the tiled product of the reference's ``_mm_kernel`` (B14):
 ``a @ b`` with a float32 sum, rounded once to ``out_dtype`` (a's dtype by
 default). CPU tensors take its plain version (k-chunked products summed in
-float32); CUDA tensors launch ``csrc/matmul.cu`` (bf16 on WMMA, float32 on
-FMA, ragged edges masked in the kernel) or raise. :func:`matvec` is a
-one-column :func:`matmul`, as in the reference. :func:`circulant_matmul`
-is plain PyTorch (halo, gather, einsum), because the reference computes it
-outside any kernel.
+float32); CUDA tensors launch ``csrc/matmul.cu`` on the route that
+:func:`_matmul_route` picks by shape and dtype alone, or raise: ``wgmma``
+(bf16 with k and n multiples of 8: 128 × 256 tiles of a TMA ring and
+``wgmma``), ``wmma`` (other bf16 shapes: 64 × 64 WMMA tiles), ``gemv``
+(n == 1, either dtype: a warp per row, bytes-bound) and ``fma`` (float32:
+128 × 128 tiles of exact float32 FMA); each masks its ragged edges in the
+kernel. :func:`matvec` is a one-column :func:`matmul`, as in the reference,
+and so takes the gemv route. :func:`circulant_matmul` is plain PyTorch
+(halo, gather, einsum), because the reference computes it outside any
+kernel.
 """
 
 from __future__ import annotations
@@ -19,6 +24,23 @@ from tpu_flash_torch.ops.flash import _aligned
 
 # k-chunk of the plain version (the reference's default block_k)
 PLAIN_BLOCK_K = 512
+# route codes of csrc/matmul.cu
+MATMUL_ROUTES = {"wmma": 0, "wgmma": 1, "gemv": 2, "fma": 3}
+
+
+def _matmul_route(m: int, n: int, k: int, dtype) -> str:
+    """The kernel route of an ``(m, k) @ (k, n)`` product of ``dtype``
+    inputs, by shape and dtype alone: ``gemv`` for one column, ``fma`` for
+    float32, ``wgmma`` for bf16 whose k and n give the 16-byte row pitches
+    a TMA tensor map needs, ``wmma`` for other bf16 shapes. ``m`` never
+    decides: every route takes any number of rows."""
+    if n == 1:
+        return "gemv"
+    if dtype == torch.float32:
+        return "fma"
+    if k % 8 == 0 and n % 8 == 0:
+        return "wgmma"
+    return "wmma"
 
 
 def _matmul_plain(a: torch.Tensor, b: torch.Tensor, out_dtype) -> torch.Tensor:
@@ -30,7 +52,8 @@ def _matmul_plain(a: torch.Tensor, b: torch.Tensor, out_dtype) -> torch.Tensor:
 
 
 def _matmul_kernel(a: torch.Tensor, b: torch.Tensor, out_dtype) -> torch.Tensor:
-    """Launch ``tf_matmul`` (B14) on CUDA tensors."""
+    """Launch ``tf_matmul`` (B14) on CUDA tensors, on the route of
+    :func:`_matmul_route`."""
     from tpu_flash_torch.kernels import _build
 
     if not (a.is_cuda and b.device == a.device):
@@ -43,9 +66,10 @@ def _matmul_kernel(a: torch.Tensor, b: torch.Tensor, out_dtype) -> torch.Tensor:
     a, b = _aligned(a), _aligned(b)
     (m, k), n = a.shape, b.shape[1]
     out = torch.empty(m, n, dtype=out_dtype, device=a.device)
+    route = MATMUL_ROUTES[_matmul_route(m, n, k, a.dtype)]
     err = _build.library().tf_matmul(
         a.data_ptr(), b.data_ptr(), out.data_ptr(), m, n, k,
-        kernels.dtype_code(a.dtype), kernels.dtype_code(out_dtype),
+        kernels.dtype_code(a.dtype), kernels.dtype_code(out_dtype), route,
         kernels.stream_handle(a))
     _build.check(err, "tf_matmul")
     kernels.LAUNCHES["matmul"] += 1
@@ -58,7 +82,7 @@ def matmul(a: torch.Tensor, b: torch.Tensor, *, block_m: int = 512,
     """Tiled ``a @ b`` of ``(m, k)`` and ``(k, n)`` with a float32 sum, out
     in ``out_dtype`` (default a's dtype). ``block_m/n/k`` (the reference's
     VMEM tiles) are accepted and checked; they set no tile on the card,
-    whose kernel runs its own 64 × 64 tiles."""
+    whose kernel runs the tiles of its route (:func:`_matmul_route`)."""
     for name, blk in (("block_m", block_m), ("block_n", block_n),
                       ("block_k", block_k)):
         if not isinstance(blk, int) or blk <= 0:
