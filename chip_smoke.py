@@ -24,16 +24,18 @@ and the N-d and new-schedule path (circulant_fa and block_fa at n 8192,
 block2d over 256 × 256, N-d dense_fa and windowed_fa), each gated against
 the oracles, and holds the softmax, matmul and B1 circulant and
 block-diagonal kernels against their plain versions, timed beside the
-library calls. B1 and B14 rows give two times: the kernel's device time (a
-CUDA graph of 20 wrapper calls replayed under CUDA events, ``ms``, which the
-kernels line reports) and the wrapper call's (``call_ms``), the library call
-timed the same two ways; a planted fault in each one's plain version (a kv
-tile, a k-slab left out) must fail its check. The device phase prints the
-registers and spills of the TMA + wgmma sources (ptxas). Each phase prints
-one JSON line; any failure raises and the exit code is not 0. Without a
-CUDA device it fails at once and prints no result. The train phase ends
-with a torch.profiler breakdown of one step. Imports torch and the port
-only.
+library calls. B1, B4/B5 and B14 rows give two times: the kernel's device
+time (a CUDA graph of 20 wrapper calls replayed under CUDA events, ``ms``,
+which the kernels line reports) and the wrapper call's (``call_ms``), the
+library call timed the same two ways (for B4/B5 the library's fused
+backward alone, K/V expanded to the q heads outside the call); planted
+faults in their plain versions (B1 a kv tile, B14 a k-slab, B4/B5 a slab of
+64 keys or of 64 queries left out) must fail their checks. The device
+phase prints the registers and spills of the TMA + wgmma sources (ptxas).
+Each phase prints one JSON line; any failure raises and the exit code is
+not 0. Without a CUDA device it fails at once and prints no result. The
+train phase ends with a torch.profiler breakdown of one step. Imports torch
+and the port only.
 """
 
 from __future__ import annotations
@@ -369,33 +371,90 @@ def engine_phase(dev, model=MODEL, cache=CACHE, max_batch=MAX_BATCH,
                 wall_s=wall, launches=launches)
 
 
-# (name, batch, n_q, n_kv, d, causal, dtype) at 16 q / 8 kv heads: the
-# training shape first, then ragged, right-aligned causal, d 64 (where the
-# reference's transposed kernels B10a/B10b fold into B4/B5), dense float32
+# (name, batch, hq, hkv, n_q, n_kv, d, causal, dtype): the training shape
+# first, then ragged, right-aligned causal, d 64 (where the reference's
+# transposed kernels B10a/B10b fold into B4/B5), dense float32, and G 4
+# (B5 walks four q heads of a group through one CTA's ring)
 BWD_CASES = [
-    ("train_4x1024", 4, 1024, 1024, 128, True, torch.bfloat16),
-    ("ragged_causal_1000", 1, 1000, 1000, 128, True, torch.bfloat16),
-    ("right_aligned_256_of_1024", 1, 256, 1024, 128, True, torch.bfloat16),
-    ("d64_causal_1024", 1, 1024, 1024, 64, True, torch.bfloat16),
-    ("dense_f32_300", 1, 300, 300, 128, False, torch.float32),
+    ("train_4x1024", 4, 16, 8, 1024, 1024, 128, True, torch.bfloat16),
+    ("ragged_causal_1000", 1, 16, 8, 1000, 1000, 128, True, torch.bfloat16),
+    ("right_aligned_256_of_1024", 1, 16, 8, 256, 1024, 128, True, torch.bfloat16),
+    ("d64_causal_1024", 1, 16, 8, 1024, 1024, 64, True, torch.bfloat16),
+    ("dense_f32_300", 1, 16, 8, 300, 300, 128, False, torch.float32),
+    ("gqa4_causal_1000", 1, 32, 8, 1000, 1000, 128, True, torch.bfloat16),
 ]
+# B4/B5's planted faults: the plain backward under the causal rule minus one
+# middle slab of 64 keys (dq, dk and dv must move) or of 64 queries (dk and
+# dv must move) must fail the kernel-vs-plain check at the training shape
+BWD_FAULT_SLAB = 64
+
+
+def slab_fault(sched, axis: str, start: int, size: int = BWD_FAULT_SLAB):
+    """``sched`` with the keys (axis "kv") or queries ("q") in [start,
+    start + size) seeing nothing: a planted fault for the plain backward."""
+    base = sched.visible
+
+    class SlabFault:
+        def visible(self, q_pos, k_pos):
+            pos = k_pos if axis == "kv" else q_pos
+            m = (pos < start) | (pos >= start + size)
+            seen = base(q_pos, k_pos)
+            return m if seen is None else seen & m
+
+    return SlabFault()
+
+
+def library_backward(q, k, v, do, causal):
+    """The library's fused attention backward alone on (B, H, N, D), K/V
+    already expanded to q's heads (so it skips the group sum): a closure
+    over one ``_scaled_dot_product_flash_attention`` forward's outputs, and
+    the name of the call it times. Where that op is missing, autograd of
+    one saved scaled_dot_product_attention graph instead."""
+    if hasattr(torch.ops.aten, "_scaled_dot_product_flash_attention_backward"):
+        out, lse, cq, ck, mq, mk, seed, off = (
+            torch.ops.aten._scaled_dot_product_flash_attention(
+                q, k, v, 0.0, causal, False)[:8])
+        return (lambda: torch.ops.aten._scaled_dot_product_flash_attention_backward(
+            do, q, k, v, out, lse, cq, ck, mq, mk, 0.0, causal, seed, off),
+            "aten._scaled_dot_product_flash_attention_backward")
+    xs = [x.detach().requires_grad_(True) for x in (q, k, v)]
+    o = sdpa(*xs, causal)
+    return (lambda: torch.autograd.grad(o, xs, do, retain_graph=True),
+            "torch.autograd.grad of one saved scaled_dot_product_attention")
+
+
+def device_kernel_names(fn) -> list:
+    """Names of the device kernels one ``fn`` call launches (profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sorted({e.key for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA})
 
 
 def flash_bwd_phase(dev):
     """B4/B5 vs the plain backward, the Function's grads vs the f32
-    oracle's, bitwise repeatability; times at the training shape."""
+    oracle's, bitwise repeatability; two planted faults in the plain
+    backward rejected at the training shape. Timed at the training shape
+    and at d 64: B4's and B5's device time (a CUDA graph of 20 wrapper
+    calls) and call time, beside the library's fused backward alone timed
+    the same two ways."""
+    from tpu_flash_torch.bench.harness import device_ms
     from tpu_flash_torch.ops import flash, flash_bwd
     from tpu_flash_torch.ops.oracle import dense_dpa
 
     gen = torch.Generator(device=dev).manual_seed(4)
-    hq, hkv = 16, 8
-    g = hq // hkv
 
     def rand(*shape):
         return torch.randn(*shape, generator=gen, device=dev)
 
     rows, worst, timing = [], 0.0, None
-    for name, b, n_q, n_kv, d, causal, dt in BWD_CASES:
+    for name, b, hq, hkv, n_q, n_kv, d, causal, dt in BWD_CASES:
+        g = hq // hkv
         q, k, v = (rand(b, h, n, d).to(dt) for h, n in
                    ((hq, n_q), (hkv, n_kv), (hkv, n_kv)))
         w, wl = rand(b, hq, n_q, d), rand(b, hq, n_q)
@@ -411,8 +470,8 @@ def flash_bwd_phase(dev):
         want = grads(lambda q_, k_, v_: dense_dpa(
             q_, k_.repeat_interleave(g, 1), v_.repeat_interleave(g, 1),
             causal=causal))
-        row = dict(case=name, batch=b, n_q=n_q, n_kv=n_kv, d=d, causal=causal,
-                   dtype=str(dt).replace("torch.", ""))
+        row = dict(case=name, batch=b, hq=hq, hkv=hkv, n_q=n_q, n_kv=n_kv,
+                   d=d, causal=causal, dtype=str(dt).replace("torch.", ""))
         for x, a_, b_ in zip("qkv", got, want):
             if dt == torch.bfloat16:
                 row[f"d{x}_vs_oracle"] = rel_err(a_, b_)
@@ -430,57 +489,89 @@ def flash_bwd_phase(dev):
         sched = flash.build_schedule("causal" if causal else "dense", n_q,
                                      n_kv, 256, 256)
         o, lse = flash._flash_fwd_kernel(qf, kf, vf, sched, hq, hkv, True)
-        args = (qf, kf, vf, o, lse, rand(b * hq, n_q, d).to(dt),
-                rand(b * hq, n_q), sched, hq, hkv)
+        do = rand(b * hq, n_q, d).to(dt)
+        args = (qf, kf, vf, o, lse, do, rand(b * hq, n_q), sched, hq, hkv)
         first = flash_bwd._flash_bwd_kernel(*args)
         second = flash_bwd._flash_bwd_kernel(*args)
         plain = flash_bwd._flash_bwd_plain(*args)
+        tol = TOL_BWD_PLAIN[dt]
         for x, a_, a2, p_ in zip("qkv", first, second, plain):
             if not torch.equal(a_, a2):
                 raise AssertionError(f"B4/B5 {name}: d{x} not bitwise "
                                      "equal between two calls")
             row[f"d{x}_vs_plain"] = rel_err(a_, p_)
-            check(f"B4/B5 {name} d{x} vs plain", row[f"d{x}_vs_plain"],
-                  TOL_BWD_PLAIN[dt])
+            check(f"B4/B5 {name} d{x} vs plain", row[f"d{x}_vs_plain"], tol)
             worst = max(worst, max_err(a_, p_))
-        row.update(bitwise_repeat=True, tol_plain=TOL_BWD_PLAIN[dt])
+        row.update(bitwise_repeat=True, tol_plain=tol)
 
+        if name == "train_4x1024":  # the planted faults
+            for fault, axis, must in (("kv_slab_left_out", "kv", "qkv"),
+                                      ("q_slab_left_out", "q", "kv")):
+                start = (n_kv if axis == "kv" else n_q) // 2
+                faulted = flash_bwd._flash_bwd_plain(
+                    *args[:7], slab_fault(sched, axis, start), hq, hkv)
+                errs = {f"d{x}": rel_err(a_, f_)
+                        for x, a_, f_ in zip("qkv", first, faulted)}
+                passed = [x for x in must if errs[f"d{x}"] <= tol]
+                if passed:
+                    raise AssertionError(
+                        f"B4/B5 planted fault {fault} passes the kernel-vs-"
+                        f"plain check on {passed}: {errs}")
+                row[f"planted_fault_{fault}"] = errs
+                del faulted
         if name in ("train_4x1024", "d64_causal_1024"):
             ops = flash_bwd._kernel_operands(*args)
             pairs = visible_pairs(n_q, n_kv, causal) * b * hq
             q_bytes, kv_bytes = 2 * b * hq * n_q * d, 2 * b * hkv * n_kv * d
             reads = 2 * q_bytes + 2 * kv_bytes + 2 * 4 * b * hq * n_q
-            dq = dict(ms=cuda_ms(lambda: flash_bwd._dq_kernel(
-                *ops, sched, hq, hkv)), **roofline(6 * d * pairs, reads + q_bytes, dt))
-            dkv = dict(ms=cuda_ms(lambda: flash_bwd._dkv_kernel(
-                *ops, sched, hq, hkv)), **roofline(8 * d * pairs, reads + 2 * kv_bytes, dt))
-        if name == "d64_causal_1024":  # B10a/B10b's shape, folded into B4/B5
-            row.update(dq_ms=dq["ms"], dq_bound_ms=dq["bound_ms"],
-                       dkv_ms=dkv["ms"], dkv_bound_ms=dkv["bound_ms"],
+
+            def run_dq():
+                return flash_bwd._dq_kernel(*ops, sched, hq, hkv)
+
+            def run_dkv():
+                return flash_bwd._dkv_kernel(*ops, sched, hq, hkv)
+
+            dq = dict(ms=device_ms(run_dq), call_ms=cuda_ms(run_dq),
+                      **roofline(6 * d * pairs, reads + q_bytes, dt))
+            dkv = dict(ms=device_ms(run_dkv), call_ms=cuda_ms(run_dkv),
+                       **roofline(8 * d * pairs, reads + 2 * kv_bytes, dt))
+            # the library's backward alone, K/V expanded to hq heads
+            # outside the timed call (it then skips the group sum)
+            lib_bwd, lib_call = library_backward(
+                q, k.repeat_interleave(g, 1), v.repeat_interleave(g, 1),
+                do.reshape(b, hq, n_q, d), causal)
+            names = device_kernel_names(lib_bwd)
+            if not any("flash" in k_.lower() and "bwd" in k_.lower()
+                       for k_ in names):
+                raise AssertionError(f"the library's backward ran no fused "
+                                     f"flash backward kernel: {names}")
+            row.update(dq_ms=dq["ms"], dq_call_ms=dq["call_ms"],
+                       dq_bound_ms=dq["bound_ms"], dkv_ms=dkv["ms"],
+                       dkv_call_ms=dkv["call_ms"], dkv_bound_ms=dkv["bound_ms"],
+                       library_bwd_ms=device_ms(lib_bwd),
+                       library_bwd_call_ms=cuda_ms(lib_bwd),
+                       library_bwd_call=lib_call,
+                       library_bwd_kernels=[k_[:100] for k_ in names],
+                       dq_tflops=6 * d * pairs / dq["ms"] / 1e9,
+                       dkv_tflops=8 * d * pairs / dkv["ms"] / 1e9,
                        plain_bwd_ms=cuda_ms(lambda: flash_bwd._flash_bwd_plain(
                            *args), iters=5))
         if name == "train_4x1024":
-            plain_ms = cuda_ms(lambda: flash_bwd._flash_bwd_plain(*args),
-                               iters=5)
             xs = [x.clone().requires_grad_(True) for x in (q, k, v)]
-            do = rand(b, hq, n_q, d).to(dt)
+            do4 = rand(b, hq, n_q, d).to(dt)
             fwdbwd_ms = cuda_ms(lambda: flash.dense_fa(
-                *xs, causal=True).backward(do))
-            library_ms = cuda_ms(lambda: sdpa(*xs, True).backward(do))
+                *xs, causal=True).backward(do4))
+            library_ms = cuda_ms(lambda: sdpa(*xs, True).backward(do4))
             # FA-2's least work: 2 products forward, 5 backward
             fb_bound = roofline(14 * d * pairs, 2 * (3 * q_bytes + 4 * kv_bytes)
                              + 4 * b * hq * n_q, dt)
-            timing = dict(dq=dq, dkv=dkv, plain_ms=plain_ms)
-            row.update(dq_ms=dq["ms"], dq_bound_ms=dq["bound_ms"],
-                       dkv_ms=dkv["ms"], dkv_bound_ms=dkv["bound_ms"],
-                       plain_bwd_ms=plain_ms,
-                       dq_tflops=6 * d * pairs / dq["ms"] / 1e9,
-                       dkv_tflops=8 * d * pairs / dkv["ms"] / 1e9,
-                       port_fwd_bwd_ms=fwdbwd_ms,
-                       library_fwd_bwd_ms=library_ms,
+            timing = dict(dq=dict(dq, plain_ms=row["plain_bwd_ms"]),
+                          dkv=dict(dkv, plain_ms=row["plain_bwd_ms"]),
+                          library_ms=row["library_bwd_ms"])
+            row.update(port_fwd_bwd_ms=fwdbwd_ms, library_fwd_bwd_ms=library_ms,
                        fwd_bwd_bound_ms=fb_bound["bound_ms"])
         rows.append(row)
-    emit(dict(phase="flash_bwd", hq=hq, hkv=hkv, cases=rows))
+    emit(dict(phase="flash_bwd", cases=rows))
     return dict(max_abs_err=worst, **timing)
 
 
@@ -1605,7 +1696,7 @@ def _timing(row) -> dict:
                                       "bound_by")}
 
 
-PTXAS_SOURCES = ("flash_fwd.cu", "matmul.cu")
+PTXAS_SOURCES = ("flash_fwd.cu", "matmul.cu", "flash_bwd.cu")
 
 
 def short_kernel_name(mangled: str) -> str:
@@ -1722,20 +1813,22 @@ def main() -> int:
              max_abs_err=max(r["append_err"] for r in b23.values()),
              ms=int8["append_ms"], plain_ms=int8["append_plain_ms"],
              **int8["append_bound"], library_ms=None),
-        # the plain backward computes dq, dk and dv in one pass: its time
-        # stands in both rows; no one library call computes dq or dk/dv
-        # alone (scaled_dot_product_attention's forward + backward is in
-        # the flash_bwd phase's line)
+        # the plain backward and the library's fused backward (K/V expanded
+        # to 16 heads outside the call) each compute dq, dk and dv in one
+        # call: their times stand in both rows; device times at the
+        # training shape
         dict(name="flash_bwd_dq", route="cuda",
              source="tpu_flash_torch/csrc/flash_bwd.cu",
              replaces="tpu_flash/ops/flash_bwd.py:137",
              launches=launches["flash_bwd_dq"], max_abs_err=b45["max_abs_err"],
-             plain_ms=b45["plain_ms"], **b45["dq"], library_ms=None),
+             **_timing(b45["dq"]),
+             library_ms=b45["library_ms"]),
         dict(name="flash_bwd_dkv", route="cuda",
              source="tpu_flash_torch/csrc/flash_bwd.cu",
              replaces="tpu_flash/ops/flash_bwd.py:252",
              launches=launches["flash_bwd_dkv"], max_abs_err=b45["max_abs_err"],
-             plain_ms=b45["plain_ms"], **b45["dkv"], library_ms=None),
+             **_timing(b45["dkv"]),
+             library_ms=b45["library_ms"]),
         # times at the headline (b 4, h 8, n 8192, d 128): B6 in serving
         # fp8 with tensor K scales, B7 in end-to-end fp8; library: bf16
         # scaled_dot_product_attention at that shape (no library call takes

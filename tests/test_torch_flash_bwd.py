@@ -161,3 +161,43 @@ def test_unported_backward_options_raise(kw, item):
     args = [torch.from_numpy(x) for x in (q, k, v, o, lse, do)]
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         tflash_bwd.flash_backward(*args, None, sched, **kw)
+
+
+def _slab_fault(sched, axis, start, size=64):
+    """``sched`` with the keys (axis "kv") or queries ("q") in [start,
+    start + size) seeing nothing: the planted fault that the card's
+    kernel-vs-plain check must reject."""
+    class SlabFault:
+        def visible(self, q_pos, k_pos):
+            pos = k_pos if axis == "kv" else q_pos
+            m = (pos < start) | (pos >= start + size)
+            seen = sched.visible(q_pos, k_pos)
+            return m if seen is None else seen & m
+
+    return SlabFault()
+
+
+@pytest.mark.parametrize("axis,moved", [("kv", "qkv"), ("q", "kv")],
+                         ids=["kv_slab_left_out", "q_slab_left_out"])
+def test_planted_faults_move_the_plain_backward(axis, moved):
+    """The two planted faults of the card's B4/B5 check (one middle slab of
+    64 keys, or of 64 queries, hidden from the causal rule) move the plain
+    backward's grads by more than that check's 1e-2 of the largest grad:
+    the keys' fault dq, dk and dv, the queries' fault dk and dv. So a
+    kernel that dropped such a slab would fail the check."""
+    hq, hkv, n, d = 4, 2, 256, 32
+    rng = np.random.default_rng(5)
+    q, k, v = (torch.from_numpy(rng.standard_normal((b, n, d)).astype(
+        np.float32)) for b in (hq, hkv, hkv))
+    q = q * (d ** -0.5 * tflash.LOG2E)
+    sched = tsched.CausalSchedule(n, n, 128, 128)
+    o, lse = tflash._flash_fwd_plain(q, k, v, sched, hq, hkv)
+    do = torch.from_numpy(rng.standard_normal((hq, n, d)).astype(np.float32))
+    args = (q, k, v, o, lse, do, None)
+    want = tflash_bwd._flash_bwd_plain(*args, sched, hq, hkv)
+    faulted = tflash_bwd._flash_bwd_plain(
+        *args, _slab_fault(sched, axis, n // 2), hq, hkv)
+    for name, a, b in zip("qkv", faulted, want):
+        rel = float((a - b).abs().max() / max(float(b.abs().max()), 1.0))
+        if name in moved:
+            assert rel > 1e-2, (name, rel)

@@ -344,13 +344,15 @@ def _rel(a, b):
 
 # (b, hq, hkv, n_q, n_kv, d, causal, dtype): the training shape, ragged
 # causal, right-aligned causal, d 64 (where the reference's transposed
-# kernels B10a/B10b fold into B4/B5), dense float32.
+# kernels B10a/B10b fold into B4/B5), dense float32, and G 4 (B5 walks
+# four q heads through one CTA's ring).
 _BWD_CASES = [
     (4, 16, 8, 1024, 1024, 128, True, torch.bfloat16),
     (1, 16, 8, 1000, 1000, 128, True, torch.bfloat16),
     (1, 16, 8, 256, 1024, 128, True, torch.bfloat16),
     (1, 16, 8, 1024, 1024, 64, True, torch.bfloat16),
     (1, 16, 8, 300, 300, 128, False, torch.float32),
+    (1, 32, 8, 1000, 1000, 128, True, torch.bfloat16),
 ]
 
 
@@ -369,15 +371,31 @@ def _bwd_args(gen, b, hq, hkv, n_q, n_kv, d, causal, dtype, dv=None):
     return (q, k, v, o, lse, do, dlse, sched, hq, hkv)
 
 
+def _slab_fault(sched, axis, start, size=64):
+    """``sched`` with the keys (axis "kv") or queries ("q") in [start,
+    start + size) seeing nothing: a planted fault for the plain backward."""
+    class SlabFault:
+        def visible(self, q_pos, k_pos):
+            pos = k_pos if axis == "kv" else q_pos
+            m = (pos < start) | (pos >= start + size)
+            seen = sched.visible(q_pos, k_pos)
+            return m if seen is None else seen & m
+
+    return SlabFault()
+
+
 @pytest.mark.parametrize("case", _BWD_CASES,
                          ids=["train", "ragged", "right_aligned", "d64",
-                              "dense_f32"])
+                              "dense_f32", "gqa4"])
 def test_flash_bwd_kernels_match_plain(gen, case):
     """B4/B5 vs the plain backward on the same o, lse, dO, dlse; two calls
     bitwise equal; each counter moves by one a call. bf16 1e-2 of the
     largest grad: both round P and dS to bf16 at the same points, but
     from scores summed in another order, so a rounding may fall one ulp
-    (2⁻⁸) apart. float32 1e-4: summation order only."""
+    (2⁻⁸) apart. float32 1e-4: summation order only. The plain backward
+    with a middle slab of 64 keys (or of 64 queries) hidden must fail the
+    same check on dq, dk and dv (on dk and dv): a kernel that dropped a
+    tile's work would."""
     args = _bwd_args(gen, *case)
     before = dict(kernels.LAUNCHES)
     got = tflash_bwd._flash_bwd_kernel(*args)
@@ -392,6 +410,14 @@ def test_flash_bwd_kernels_match_plain(gen, case):
         assert a.dtype == w.dtype and a.shape == w.shape
         assert torch.isfinite(a).all()
         assert _rel(a, w) <= tol, (name, _rel(a, w))
+    q, k, sched = args[0], args[1], args[7]
+    for axis, moved in (("kv", "qkv"), ("q", "kv")):
+        n = k.shape[1] if axis == "kv" else q.shape[1]
+        faulted = tflash_bwd._flash_bwd_plain(
+            *args[:7], _slab_fault(sched, axis, n // 2), *args[8:])
+        for name, a, f in zip("qkv", got, faulted):
+            if name in moved:
+                assert _rel(a, f) > tol, (axis, name, _rel(a, f))
 
 
 # head and value dims other than 64 and 128: d 96 and 256 (B4's 32-row q

@@ -101,7 +101,7 @@ def test_circulant_builders_match_reference():
     reference's (the sparse ones densified), exactly."""
     for n, w in ((12, 5), (9, 9), (16, 1)):
         np.testing.assert_array_equal(
-            tlayout.circulant_neighbors(n, w).numpy(),
+            tlayout.circulant_neighbors(n, w, device="cpu").numpy(),
             np.asarray(jlayout.circulant_neighbors(n, w)))
     vals = _r(9, 12, 5)
     np.testing.assert_array_equal(
@@ -112,4 +112,4 @@ def test_circulant_builders_match_reference():
         tlayout.batch_circulant(torch.from_numpy(bvals)).to_dense().numpy(),
         np.asarray(jlayout.batch_circulant(jnp.asarray(bvals)).todense()))
     with pytest.raises(ValueError, match="odd"):
-        tlayout.circulant_neighbors(8, 4)
+        tlayout.circulant_neighbors(8, 4, device="cpu")

@@ -1,10 +1,11 @@
 // B4 and B5: flash-attention backward for Hopper, sm_90a.
 //
-// B4 (tf_flash_bwd_dq) replaces tpu_flash/ops/flash_bwd.py:_dq_kernel and,
-// at d = 64, its transposed variant _dq_kernel_t (that layout exists only to
-// fill the TPU's 128-lane matrix unit). B5 (tf_flash_bwd_dkv) replaces
-// _dkv_kernel and _dkv_kernel_t. Both recompute P from the forward's lse
-// (FA-2); neither keeps an O(n²) residual.
+// B4 (tf_flash_bwd_dq) replaces tpu_flash/ops/flash_bwd.py:_dq_kernel and
+// its transposed variant _dq_kernel_t (the d <= 64 layout that exists only
+// to fill the TPU's 128-lane matrix unit; here d 64 is B4 at width 64). B5
+// (tf_flash_bwd_dkv) replaces _dkv_kernel and _dkv_kernel_t. Both
+// recompute P from the forward's lse (FA-2); neither keeps an O(n²)
+// residual.
 //
 // Numerics mirror the reference: q arrives prescaled by scale·log2(e), so
 // s = Q·Kᵀ is in base-2 units; lse2 = lse·log2(e) with lse = ±inf/NaN rows
@@ -14,44 +15,75 @@
 // dq = Σ ds·K·ln2 with ds cast to K's dtype; dv = Σ pᵀ·dO with p cast to
 // dO's dtype; dk = Σ dsᵀ·Q·ln2 with ds cast to Q's dtype. Products
 // accumulate in float32. Masked and padded entries (keys past n_kv, queries
-// past n_q, the right-aligned causal triangle) get p = 0 by index, never by
-// the zero-filled data in shared memory.
+// past n_q, the right-aligned causal triangle, offset = n_kv − n_q) get
+// p = 0 by index, never by the zero-filled data in shared memory. The bf16
+// kernels take 2^x from ex2.approx, as B1 does.
 //
 // What bounds them on an H100: tensor-core FLOPs. At the training shape
-// (64 q rows of n = 1024, d = 128, causal) B4 runs 3 products and B5 4
-// over the causal half: 25.8 and 34.4 GFLOP against ~50 MB of operands,
-// far right of the ~295 FLOP/B ridge.
+// (b 4, 16 q / 8 kv heads, n 1024 causal, d 128) B4 runs 3 products and
+// B5 4 over the causal half: 25.8 and 34.4 GFLOP against ~50 MB of
+// operands, far right of the ~295 FLOP/B ridge. Blocks run in parallel in
+// no order, so every output tile has one writer, and the group's dK/dV sum
+// inside one block: no floating-point atomics, a fixed summation order,
+// bitwise repeatable. That is why this stays two kernels (7 products)
+// where FA-2/FA-3 fuse five with atomics on dQ.
 //
-// Design: blocks run in parallel in no order, so every output tile has one
-// writer and a loop inside the block takes the place of the TPU's
-// sequential grid axis. B4: one block of 4 warps per (64-row q tile,
-// batch·q-head row), looping over kv tiles up to the causal limit (the
-// forward's visit). B5: one block per (64-row kv tile, batch·kv-head row),
-// looping over the g = hq/hkv query heads of its group in a fixed order and,
-// for each, over the q tiles from the first that sees the tile's first key
-// (CausalSchedule._first_q_block). GQA thus needs no copy of K/V and no
-// atomics: the group's dK/dV sum in float32 in the block and round once.
-// Each warp owns 16 rows of the block's output end to end; the float32
-// accumulators live in shared memory so the row-wise elementwise pass is
-// plain indexing. bf16 products run on the tensor cores through WMMA
-// 16×16×16 with float32 accumulators; float32 inputs take FMA loops (the
-// reference's f32 dots are full precision), and B5 then steps 32 q rows at a
-// time so its tiles fit in shared memory. At d 256 the block's own tile is
-// 32 rows of 2 warps (B4's q tile, B5's kv tile) and float32 B4 steps 32
-// kv rows: 154-213 KB of shared memory (Cfg below; the 64-row tiles would
-// need 241-330 KB). Summation order is fixed, so both
-// kernels are bitwise deterministic. wgmma/TMA pipelining is later work.
+// Design, bf16 at compiled widths 64 and 128 (FA-3 shaped, on B1's
+// building blocks in hopper.cuh). A producer warpgroup's first warp issues
+// TMA (tensor maps over (rows, n, d), 64-column panels with the 128-byte
+// swizzle; TMA zero-fills rows past n) into a ring of full/empty mbarriers
+// and gives its registers to the consumers (setmaxnreg). A CTA owns 64 rows
+// of the output; each consumer warpgroup runs its two score products on SS
+// wgmma with both operands K-major, keeps p and ds in registers on the
+// accumulator layout (the per-element mask only on tiles not wholly
+// visible), packs them to bf16 A fragments, and runs the gradient products
+// on RS wgmma with the same shared-memory tiles read MN-major (transpose
+// bit, desc_mn). The gradient sums stay in registers until the finish.
+// - B4: one CTA per (64-row q tile, bh row), the heaviest causal q tiles
+//   first and the q heads of a kv head neighbours, as in B1. Q and dO load
+//   once, K and V stream through the ring; S = Q·Kᵀ, dP = dO·Vᵀ,
+//   dQ += dS·K. lse2 and Δ of a thread's two rows are registers.
+// - B5: one CTA per (64-row kv tile, bh_kv row), the kv tiles with the
+//   most visible q tiles (small k0 under causal) first. K and V load once;
+//   Q, dO and the lse2/Δ of their rows stream through the ring over the
+//   g = hq/hkv heads of the group in a fixed order and, for each, over the
+//   q tiles from CausalSchedule._first_q_block on. The producer warp's
+//   lanes copy lse2/Δ into the stage (plain loads; a row of them need not
+//   be 16-byte aligned for TMA) and arrive on its full barrier beside
+//   TMA's bytes. Sᵀ = K·Qᵀ, dPᵀ = V·dOᵀ, dV += Pᵀ·dO, dK += dSᵀ·Q; each
+//   accumulator column's lse2/Δ comes from the stage.
+// - Consumers (a plain constant, CONSUMERS; chosen by timing, PERF.md
+//   §6): at d 128 one a CTA and two CTAs an SM, so that one CTA's
+//   elementwise pass overlaps the other's products (B5's consumer holds
+//   dK + dV + Sᵀ + dPᵀ, 192 registers, in its 232); at d 64 two a CTA,
+//   sharing its rows and taking the ring's steps in turn, which halves the
+//   longest CTA's chain where the grid is one wave (b 1); their float32
+//   partial sums meet in the drained ring, consumer 1's added to consumer
+//   0's, a fixed order. 64-row K/V steps in B4, 64-row Q/dO steps in B5.
+//
+// bf16 at width 256 (dK + dV alone would need 256 registers a thread) and
+// float32 at every width (no tensor core takes exact float32; the
+// reference's f32 dots are full precision) keep the earlier kernels below
+// the TMA section: one block of warps per 64-row (32 at d 256) output tile,
+// looping in the same order, WMMA 16×16×16 (bf16) or FMA loops (float32)
+// with the float32 accumulators and score tiles in shared memory; float32
+// B5 steps 32 q rows. Cfg below: 154–213 KB of shared memory.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
 
 using namespace nvcuda;
+using bf16 = __nv_bfloat16;
 
 constexpr float LN2 = 0.693147180559945309f;
+
+// ------------------------------------ WMMA (bf16 d 256) and FMA (float32)
 
 template <typename T> struct Ty;
 template <> struct Ty<__nv_bfloat16> {
@@ -384,12 +416,517 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+// ------------------------------------------------------- bf16: TMA + wgmma
+
+constexpr int SMEM_LIMIT = 232448;  // the 227 KB a block may use
+constexpr int SM_SMEM = 233472;     // shared memory of an SM (228 KB)
+
+// Consumer warpgroups a CTA at compiled width HD. A CTA owns 64 output
+// rows (B4's q rows, B5's kv rows); its consumers share them and take the
+// ring's steps in turn, and two consumers' float32 partial sums are added
+// in a fixed order at the finish. One consumer runs two CTAs an SM. Two
+// measured faster at d 64 and slower at d 128 (PERF.md §6).
+template <int HD> constexpr int CONSUMERS = HD == 64 ? 2 : 1;
+
+struct BwdSched {
+  int n_q, n_kv, causal, offset;
+};
+
+struct BwdParams {
+  bf16* dq;  // (bh, n_q, HD)
+  bf16* dk;  // (bh_kv, n_kv, HD)
+  bf16* dv;
+  const float* lse2;   // (bh, n_q)
+  const float* delta;  // (bh, n_q)
+  BwdSched s;
+  int hq, hkv;
+};
+
+// key kpos visible to query qpos (and both inside their sequences)
+__device__ __forceinline__ bool seen(const BwdSched& s, int qpos, int kpos) {
+  return qpos < s.n_q && kpos < s.n_kv && (!s.causal || kpos <= qpos + s.offset);
+}
+
+// Shared memory of a CTA of NC consumers: RESIDENT bytes loaded once, as
+// many ring stages of STAGE bytes as fit (up to 3), a barrier for the
+// resident tiles and two a stage, 1024 bytes of alignment slack. One
+// consumer: two CTAs an SM share its 228 KB.
+template <int NC, int RESIDENT, int STAGE>
+struct Plan {
+  static constexpr int MINB = NC == 1 ? 2 : 1;
+  static constexpr int BUDGET = MINB == 2 ? SM_SMEM / 2 - 1024 : SMEM_LIMIT;
+  static constexpr int bytes(int st) { return 1024 + RESIDENT + st * STAGE + (2 * st + 1) * 8; }
+  static constexpr int ST = bytes(3) <= BUDGET ? 3 : 2;
+  static constexpr int SMEM = bytes(ST);
+  static_assert(SMEM <= BUDGET, "above the shared memory a block may use");
+  static_assert(RESIDENT % 1024 == 0 && STAGE % 1024 == 0,
+                "swizzled tiles need 1024-byte bases");
+};
+
+// B4: 64 q rows of Q and dO resident; a stage holds a K and a V tile.
+template <int HD, int NC> struct DqCfg {
+  static_assert(NC == 1 || NC == 2, "partial sums meet pairwise");
+  static constexpr int BQ = 64, BKV = 64;
+  static constexpr int QBYTES = BQ * HD * 2;
+  static constexpr int TILE = BKV * HD * 2;
+  using P = Plan<NC, 2 * QBYTES, 2 * TILE>;
+  static_assert(NC == 1 || P::ST * 2 * TILE >= 128 * HD / 2 * 4, "the partial sums outgrow the ring");
+  // registers a thread after setmaxnreg: 128·(PRODUCER + NC·CONSUMER)
+  // within the launch's 65536 / MINB
+  static constexpr int PRODUCER = 40, CONSUMER = NC == 1 ? 216 : 232;
+};
+
+// B5: 64 kv rows of K and V resident; a stage holds a Q and a dO tile and
+// the lse2 and Δ of their BQ rows (2·BQ floats in a 1024-byte slot).
+template <int HD, int NC> struct DkvCfg {
+  static_assert(NC == 1 || NC == 2, "partial sums meet pairwise");
+  static constexpr int BKV = 64, BQ = 64;
+  static constexpr int KVBYTES = BKV * HD * 2;
+  static constexpr int TILE = BQ * HD * 2;
+  static constexpr int ROWS = 1024;
+  static_assert(2 * BQ * 4 <= ROWS, "lse2 and Δ outgrow their slot");
+  static constexpr int STAGE = 2 * TILE + ROWS;
+  using P = Plan<NC, 2 * KVBYTES, STAGE>;
+  static_assert(NC == 1 || P::ST * STAGE >= 128 * HD * 4, "the partial sums outgrow the ring");
+  // as DqCfg; dK + dV + Sᵀ + dPᵀ take 192 registers at d 128
+  static constexpr int PRODUCER = 24, CONSUMER = NC == 1 ? 232 : 240;
+};
+
+template <int N> __device__ __forceinline__ void reg_alloc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(N));
+}
+template <int N> __device__ __forceinline__ void reg_dealloc() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(N));
+}
+
+__device__ __forceinline__ uint8_t* align1024(unsigned char* p) {
+  return reinterpret_cast<uint8_t*>((reinterpret_cast<uintptr_t>(p) + 1023) & ~(uintptr_t)1023);
+}
+
+// acc (64 × N) = A · Bᵀ over HD: A a 64-row tile, B an N-row tile, both
+// K-major in 64-column swizzled panels (panel p of a ROWS-row tile at
+// p·ROWS·128 bytes)
+template <int N, int HD>
+__device__ __forceinline__ void ss_gemm(float (&acc)[N / 2], uint32_t a_addr, uint32_t b_addr) {
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk) {
+    const int colb = 32 * kk;
+    wgmma_bf16_bf16<N>(acc, desc<128>(a_addr + (colb / 128) * 64 * 128 + colb % 128),
+                       desc<128>(b_addr + (colb / 128) * N * 128 + colb % 128), kk);
+  }
+}
+
+// acc (64 × HD) += A · B: A (64 × K) as bf16 register fragments, B the
+// K-row tile at b_addr read MN-major (its rows run along K)
+template <int K, int HD>
+__device__ __forceinline__ void rs_gemm(float (&acc)[HD / 2], const uint32_t (&a)[K / 16][4],
+                                        uint32_t b_addr) {
+#pragma unroll
+  for (int kk = 0; kk < K / 16; ++kk)
+    wgmma_rs_bf16<HD, 1>(acc, a[kk], desc_mn(b_addr + kk * 16 * 128, K * 128));
+}
+
+// a (64 × N) accumulator as the bf16 A fragments of a k16 step each: the
+// accumulator's column pairs are the fragment's, so packing is in place
+template <int N>
+__device__ __forceinline__ void to_frags(const float (&x)[N / 2], uint32_t (&a)[N / 16][4]) {
+#pragma unroll
+  for (int kk = 0; kk < N / 16; ++kk)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) a[kk][e] = pack_bf16(x[8 * kk + 2 * e], x[8 * kk + 2 * e + 1]);
+}
+
+// Two consumers' partial sums meet in the drained ring: consumer 1 puts
+// its accumulators into shared memory, consumer 0 adds them to its own.
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 1, 256;" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void put_part(const float (&a)[N], float* at) {
+#pragma unroll
+  for (int e = 0; e < N; ++e) at[e * 128] = a[e];
+}
+template <int N>
+__device__ __forceinline__ void add_part(float (&a)[N], const float* at) {
+#pragma unroll
+  for (int e = 0; e < N; ++e) a[e] += at[e * 128];
+}
+
+// rows ra, rb of a 64 × HD accumulator, times scale, into bf16 rows of out
+template <int HD>
+__device__ __forceinline__ void store_rows(bf16* out, const float (&acc)[HD / 2], int t4,
+                                           long row_a, long row_b, float scale) {
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const long row = half ? row_b : row_a;
+    if (row < 0) continue;
+#pragma unroll
+    for (int j = 0; j < HD / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(out + row * HD + 8 * j + 2 * t4) =
+          __floats2bfloat162_rn(acc[4 * j + 2 * half] * scale, acc[4 * j + 2 * half + 1] * scale);
+  }
+}
+
+// B4: dQ of one (64-row q tile, bh row).
+template <int HD, int NC>
+__global__ void __launch_bounds__(128 * (NC + 1), DqCfg<HD, NC>::P::MINB)
+    flash_bwd_dq_tc(const __grid_constant__ CUtensorMap tmap_q,
+                    const __grid_constant__ CUtensorMap tmap_do,
+                    const __grid_constant__ CUtensorMap tmap_k,
+                    const __grid_constant__ CUtensorMap tmap_v, const BwdParams p) {
+  using C = DqCfg<HD, NC>;
+  constexpr int BQ = C::BQ, BKV = C::BKV, ST = C::P::ST, PANELS = HD / 64;
+  extern __shared__ unsigned char smem_raw[];
+  uint8_t* smem = align1024(smem_raw);
+  uint8_t* qs = smem;                      // 64 rows of Q, PANELS panels
+  uint8_t* dos = smem + C::QBYTES;         // the same rows of dO
+  uint8_t* stages = smem + 2 * C::QBYTES;  // ST × (K, V)
+  uint64_t* q_bar = reinterpret_cast<uint64_t*>(stages + ST * 2 * C::TILE);
+  uint64_t* full_bar = q_bar + 1;
+  uint64_t* empty_bar = full_bar + ST;
+
+  const BwdSched s = p.s;
+  const int n_tiles = (s.n_q + BQ - 1) / BQ;
+  // the heaviest causal q tiles first
+  const int qt = s.causal ? n_tiles - 1 - (int)blockIdx.y : (int)blockIdx.y;
+  const int b = blockIdx.x;
+  const int q0 = qt * BQ;
+  const int kv_row = (b / p.hq) * p.hkv + (b % p.hq) / (p.hq / p.hkv);
+  // kv tiles: all, or up to the last key the tile's last query sees
+  // (CausalSchedule._last_step, right-aligned)
+  int steps = (s.n_kv + BKV - 1) / BKV;
+  if (s.causal) {
+    const int last_k = min(q0 + BQ - 1, s.n_q - 1) + s.offset;
+    steps = last_k < 0 ? 0 : min(steps, last_k / BKV + 1);
+  }
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_bar, 1);
+    for (int i = 0; i < ST; ++i) {
+      mbar_init(&full_bar[i], 1);
+      mbar_init(&empty_bar[i], 4);  // lane 0 of the step's consumer's warps
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128, wtid = threadIdx.x % 128;
+  const int warp = wtid / 32, lane = wtid % 32;
+  if (wg == NC) {
+    // ---------------- producer: one TMA thread ----------------
+    reg_dealloc<C::PRODUCER>();
+    if (wtid == 0) {
+      mbar_expect_tx(q_bar, 2 * C::QBYTES);
+      for (int pn = 0; pn < PANELS; ++pn) {
+        tma_load_3d(qs + pn * 64 * 128, &tmap_q, pn * 128, q0, b, q_bar);
+        tma_load_3d(dos + pn * 64 * 128, &tmap_do, pn * 128, q0, b, q_bar);
+      }
+      for (int t = 0; t < steps; ++t) {
+        const int i = t % ST, ph = (t / ST) & 1;
+        mbar_wait(&empty_bar[i], ph ^ 1);
+        uint8_t* st = stages + i * 2 * C::TILE;
+        mbar_expect_tx(&full_bar[i], 2 * C::TILE);
+        for (int pn = 0; pn < PANELS; ++pn) {
+          tma_load_3d(st + pn * BKV * 128, &tmap_k, pn * 128, t * BKV, kv_row, &full_bar[i]);
+          tma_load_3d(st + C::TILE + pn * BKV * 128, &tmap_v, pn * 128, t * BKV, kv_row,
+                      &full_bar[i]);
+        }
+      }
+    }
+  } else {
+    // ---------------- consumers: the 64 q rows, steps in turn ----------------
+    reg_alloc<C::CONSUMER>();
+    // this thread's two accumulator rows
+    const int ra = warp * 16 + lane / 4, rb = ra + 8, t4 = lane % 4;
+    const int qa = q0 + ra, qb = q0 + rb;
+    const size_t base = (size_t)b * s.n_q;
+    const float lse_a = qa < s.n_q ? p.lse2[base + qa] : 0.0f;
+    const float lse_b = qb < s.n_q ? p.lse2[base + qb] : 0.0f;
+    const float dl_a = qa < s.n_q ? p.delta[base + qa] : 0.0f;
+    const float dl_b = qb < s.n_q ? p.delta[base + qb] : 0.0f;
+    float dq[HD / 2];
+#pragma unroll
+    for (int i = 0; i < HD / 2; ++i) dq[i] = 0.0f;
+    const uint32_t q_addr = smem_u32(qs), do_addr = smem_u32(dos);
+    mbar_wait(q_bar, 0);
+
+    for (int t = wg; t < steps; t += NC) {
+      const int i = t % ST, ph = (t / ST) & 1;
+      const int k0 = t * BKV;
+      uint8_t* st = stages + i * 2 * C::TILE;
+      const uint32_t k_addr = smem_u32(st), v_addr = smem_u32(st + C::TILE);
+      mbar_wait(&full_bar[i], ph);
+      // S = Q·Kᵀ and dP = dO·Vᵀ, operands in shared memory
+      float sc[BKV / 2], dp[BKV / 2];
+      wgmma_fence();
+      ss_gemm<BKV, HD>(sc, q_addr, k_addr);
+      ss_gemm<BKV, HD>(dp, do_addr, v_addr);
+      wgmma_commit();
+      wgmma_wait0();
+      reg_fence(sc);
+      reg_fence(dp);
+      // p and ds in registers; the mask only where a key is hidden
+      const bool full = k0 + BKV - 1 < s.n_kv && (!s.causal || k0 + BKV - 1 <= q0 + s.offset);
+#pragma unroll
+      for (int e = 0; e < BKV / 2; ++e) {
+        const bool hi = e & 2;
+        float pr = fast_exp2(sc[e] - (hi ? lse_b : lse_a));
+        if (!full && !seen(s, hi ? qb : qa, k0 + 8 * (e / 4) + 2 * t4 + (e & 1))) pr = 0.0f;
+        sc[e] = pr * (dp[e] - (hi ? dl_b : dl_a));
+      }
+      // dQ += dS·K: dS (bf16) as the register A operand, K read MN-major
+      uint32_t ds[BKV / 16][4];
+      to_frags<BKV>(sc, ds);
+      reg_fence(dq);
+      wgmma_fence();
+      rs_gemm<BKV, HD>(dq, ds, k_addr);
+      wgmma_commit();
+      wgmma_wait0();
+      reg_fence(dq);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty_bar[i]);
+    }
+    if constexpr (NC == 2) {
+      float* part = reinterpret_cast<float*>(stages) + wtid;
+      consumers_sync();  // both done with the ring
+      if (wg == 1) {
+        fence_async_smem();
+        put_part(dq, part);
+      }
+      consumers_sync();
+      if (wg == 1) return;
+      add_part(dq, part);
+    }
+    store_rows<HD>(p.dq, dq, t4, qa < s.n_q ? (long)(base + qa) : -1,
+                   qb < s.n_q ? (long)(base + qb) : -1, LN2);
+  }
+}
+
+// B5: dK and dV of one (64-row kv tile, bh_kv row), summed over the g
+// query heads of its group.
+template <int HD, int NC>
+__global__ void __launch_bounds__(128 * (NC + 1), DkvCfg<HD, NC>::P::MINB)
+    flash_bwd_dkv_tc(const __grid_constant__ CUtensorMap tmap_q,
+                     const __grid_constant__ CUtensorMap tmap_do,
+                     const __grid_constant__ CUtensorMap tmap_k,
+                     const __grid_constant__ CUtensorMap tmap_v, const BwdParams p) {
+  using C = DkvCfg<HD, NC>;
+  constexpr int BQ = C::BQ, BKV = C::BKV, ST = C::P::ST, PANELS = HD / 64;
+  extern __shared__ unsigned char smem_raw[];
+  uint8_t* smem = align1024(smem_raw);
+  uint8_t* ks = smem;                       // 64 rows of K, PANELS panels
+  uint8_t* vs = smem + C::KVBYTES;          // the same rows of V
+  uint8_t* stages = smem + 2 * C::KVBYTES;  // ST × (Q, dO, lse2 and Δ)
+  uint64_t* kv_bar = reinterpret_cast<uint64_t*>(stages + ST * C::STAGE);
+  uint64_t* full_bar = kv_bar + 1;
+  uint64_t* empty_bar = full_bar + ST;
+
+  const BwdSched s = p.s;
+  const int kv_row = blockIdx.x;
+  const int k0 = blockIdx.y * BKV;  // small k0, the most q tiles, first
+  const int g = p.hq / p.hkv;
+  const int q_row0 = (kv_row / p.hkv) * p.hq + (kv_row % p.hkv) * g;
+  // q tiles that see a key of this tile: from the one holding query
+  // k0 − offset on (CausalSchedule._first_q_block), or all of them
+  const int q_tiles = (s.n_q + BQ - 1) / BQ;
+  const int first = s.causal && k0 - s.offset > 0 ? (k0 - s.offset) / BQ : 0;
+  const int per_head = max(0, q_tiles - first);
+  const int steps = g * per_head;
+
+  if (threadIdx.x == 0) {
+    mbar_init(kv_bar, 1);
+    for (int i = 0; i < ST; ++i) {
+      mbar_init(&full_bar[i], 1 + 32);   // TMA's bytes and the producer warp's lanes
+      mbar_init(&empty_bar[i], 4);       // lane 0 of the step's consumer's warps
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128, wtid = threadIdx.x % 128;
+  const int warp = wtid / 32, lane = wtid % 32;
+  if (wg == NC) {
+    // ---------------- producer: one warp ----------------
+    reg_dealloc<C::PRODUCER>();
+    if (warp == 0) {
+      if (lane == 0) {
+        mbar_expect_tx(kv_bar, 2 * C::KVBYTES);
+        for (int pn = 0; pn < PANELS; ++pn) {
+          tma_load_3d(ks + pn * 64 * 128, &tmap_k, pn * 128, k0, kv_row, kv_bar);
+          tma_load_3d(vs + pn * 64 * 128, &tmap_v, pn * 128, k0, kv_row, kv_bar);
+        }
+      }
+      for (int t = 0; t < steps; ++t) {
+        const int i = t % ST, ph = (t / ST) & 1;
+        const int bq = q_row0 + t / per_head, q0 = (first + t % per_head) * BQ;
+        uint8_t* st = stages + i * C::STAGE;
+        mbar_wait(&empty_bar[i], ph ^ 1);
+        if (lane == 0) {
+          mbar_expect_tx(&full_bar[i], 2 * C::TILE);
+          for (int pn = 0; pn < PANELS; ++pn) {
+            tma_load_3d(st + pn * BQ * 128, &tmap_q, pn * 128, q0, bq, &full_bar[i]);
+            tma_load_3d(st + C::TILE + pn * BQ * 128, &tmap_do, pn * 128, q0, bq, &full_bar[i]);
+          }
+        }
+        float* rows = reinterpret_cast<float*>(st + 2 * C::TILE);
+        const size_t base = (size_t)bq * s.n_q + q0;
+        for (int r = lane; r < BQ; r += 32) {
+          const bool in = q0 + r < s.n_q;
+          rows[r] = in ? p.lse2[base + r] : 0.0f;
+          rows[BQ + r] = in ? p.delta[base + r] : 0.0f;
+        }
+        mbar_arrive(&full_bar[i]);
+      }
+    }
+  } else {
+    // ---------------- consumers: the 64 kv rows, steps in turn ----------------
+    reg_alloc<C::CONSUMER>();
+    // this thread's two accumulator rows
+    const int ra = warp * 16 + lane / 4, rb = ra + 8, t4 = lane % 4;
+    const int ka = k0 + ra, kb = k0 + rb;
+    float dk[HD / 2], dv[HD / 2];
+#pragma unroll
+    for (int i = 0; i < HD / 2; ++i) {
+      dk[i] = 0.0f;
+      dv[i] = 0.0f;
+    }
+    const uint32_t k_addr = smem_u32(ks), v_addr = smem_u32(vs);
+    mbar_wait(kv_bar, 0);
+
+    for (int t = wg; t < steps; t += NC) {
+      const int i = t % ST, ph = (t / ST) & 1;
+      const int q0 = (first + t % per_head) * BQ, q_hi = min(q0 + BQ - 1, s.n_q - 1);
+      uint8_t* st = stages + i * C::STAGE;
+      mbar_wait(&full_bar[i], ph);
+      // some query of the tile sees some key of the tile
+      if (!s.causal || k0 <= q_hi + s.offset) {
+        const uint32_t q_addr = smem_u32(st), do_addr = smem_u32(st + C::TILE);
+        const float* rows = reinterpret_cast<const float*>(st + 2 * C::TILE);
+        // Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ, operands in shared memory
+        float sc[BQ / 2], dp[BQ / 2];
+        wgmma_fence();
+        ss_gemm<BQ, HD>(sc, k_addr, q_addr);
+        ss_gemm<BQ, HD>(dp, v_addr, do_addr);
+        wgmma_commit();
+        wgmma_wait0();
+        reg_fence(sc);
+        reg_fence(dp);
+        // pᵀ and dsᵀ in registers, each column's lse2 and Δ from the stage
+        const bool full = q0 + BQ - 1 < s.n_q && k0 + BKV - 1 < s.n_kv &&
+                          (!s.causal || k0 + BKV - 1 <= q0 + s.offset);
+#pragma unroll
+        for (int j = 0; j < BQ / 8; ++j) {
+          const float2 l = *reinterpret_cast<const float2*>(rows + 8 * j + 2 * t4);
+          const float2 dl = *reinterpret_cast<const float2*>(rows + BQ + 8 * j + 2 * t4);
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            const int e = 4 * j + c;
+            float pr = fast_exp2(sc[e] - ((c & 1) ? l.y : l.x));
+            if (!full && !seen(s, q0 + 8 * j + 2 * t4 + (c & 1), (c & 2) ? kb : ka)) pr = 0.0f;
+            sc[e] = pr;
+            dp[e] = pr * (dp[e] - ((c & 1) ? dl.y : dl.x));
+          }
+        }
+        // dV += Pᵀ·dO and dK += dSᵀ·Q: register A operands, dO and Q read
+        // MN-major
+        uint32_t pa[BQ / 16][4], da[BQ / 16][4];
+        to_frags<BQ>(sc, pa);
+        to_frags<BQ>(dp, da);
+        reg_fence(dv);
+        reg_fence(dk);
+        wgmma_fence();
+        rs_gemm<BQ, HD>(dv, pa, do_addr);
+        rs_gemm<BQ, HD>(dk, da, q_addr);
+        wgmma_commit();
+        wgmma_wait0();
+        reg_fence(dv);
+        reg_fence(dk);
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty_bar[i]);
+    }
+    if constexpr (NC == 2) {
+      float* part = reinterpret_cast<float*>(stages) + wtid;
+      consumers_sync();  // both done with the ring
+      if (wg == 1) {
+        fence_async_smem();
+        put_part(dk, part);
+        put_part(dv, part + HD / 2 * 128);
+      }
+      consumers_sync();
+      if (wg == 1) return;
+      add_part(dk, part);
+      add_part(dv, part + HD / 2 * 128);
+    }
+    const long base = (long)kv_row * s.n_kv;
+    const long row_a = ka < s.n_kv ? base + ka : -1, row_b = kb < s.n_kv ? base + kb : -1;
+    store_rows<HD>(p.dk, dk, t4, row_a, row_b, LN2);
+    store_rows<HD>(p.dv, dv, t4, row_a, row_b, 1.0f);
+  }
+}
+
+template <typename Kern>
+cudaError_t launch_tc(Kern kern, dim3 grid, int threads, int smem, cudaStream_t stream,
+                      const CUtensorMap& mq, const CUtensorMap& mdo, const CUtensorMap& mk,
+                      const CUtensorMap& mv, const BwdParams& p) {
+  if (grid.y > 65535) return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  kern<<<grid, threads, smem, stream>>>(mq, mdo, mk, mv, p);
+  return cudaGetLastError();
+}
+
+// tensor maps of q and dO over (bh, n_q, HD) and of k and v over (bh_kv,
+// n_kv, HD), 64-row boxes; a map over an empty sequence is never read and
+// takes another's place
+template <int HD>
+bool make_maps(CUtensorMap* m, const void* q, const void* dout, const void* k, const void* v,
+               const BwdParams& p, int bh) {
+  const int bh_kv = bh / p.hq * p.hkv;
+  bool ok = true;
+  if (p.s.n_q > 0)
+    ok = make_map<2 * HD, 64, 128>(&m[0], q, p.s.n_q, bh) &&
+         make_map<2 * HD, 64, 128>(&m[1], dout, p.s.n_q, bh);
+  if (ok && p.s.n_kv > 0)
+    ok = make_map<2 * HD, 64, 128>(&m[2], k, p.s.n_kv, bh_kv) &&
+         make_map<2 * HD, 64, 128>(&m[3], v, p.s.n_kv, bh_kv);
+  if (p.s.n_q == 0) m[0] = m[1] = m[2];
+  if (p.s.n_kv == 0) m[2] = m[3] = m[0];
+  return ok;
+}
+
+template <int HD>
+cudaError_t launch_dq_tc(const void* q, const void* k, const void* v, const void* dout,
+                         const BwdParams& p, int bh, cudaStream_t stream) {
+  constexpr int NC = CONSUMERS<HD>;
+  using C = DqCfg<HD, NC>;
+  CUtensorMap m[4];
+  if (!make_maps<HD>(m, q, dout, k, v, p, bh)) return cudaErrorInvalidValue;
+  const dim3 grid(bh, (p.s.n_q + C::BQ - 1) / C::BQ);
+  return launch_tc(flash_bwd_dq_tc<HD, NC>, grid, 128 * (NC + 1), C::P::SMEM, stream, m[0], m[1],
+                   m[2], m[3], p);
+}
+
+template <int HD>
+cudaError_t launch_dkv_tc(const void* q, const void* k, const void* v, const void* dout,
+                          const BwdParams& p, int bh_kv, cudaStream_t stream) {
+  constexpr int NC = CONSUMERS<HD>;
+  using C = DkvCfg<HD, NC>;
+  CUtensorMap m[4];
+  if (!make_maps<HD>(m, q, dout, k, v, p, bh_kv / p.hkv * p.hq)) return cudaErrorInvalidValue;
+  const dim3 grid(bh_kv, (p.s.n_kv + C::BKV - 1) / C::BKV);
+  return launch_tc(flash_bwd_dkv_tc<HD, NC>, grid, 128 * (NC + 1), C::P::SMEM, stream, m[0],
+                   m[1], m[2], m[3], p);
+}
+
 }  // namespace
 
 // q, dout: (bh, n_q, d), q prescaled; k, v: (bh / hq · hkv, n_kv, d);
 // lse2 = clamped lse · log2(e) and delta: (bh, n_q) float32; dq like q.
 // All contiguous, 16-byte aligned, one dtype (0 = float32, 1 = bfloat16).
 // d ∈ {64, 128, 256} (the wrapper zero-pads other head and value dims).
+// bf16 at 64 and 128 takes the TMA + wgmma kernel, the rest the WMMA/FMA
+// one.
 extern "C" cudaError_t tf_flash_bwd_dq(const void* q, const void* k, const void* v,
                                        const void* dout, const float* lse2,
                                        const float* delta, void* dq, int bh,
@@ -397,12 +934,14 @@ extern "C" cudaError_t tf_flash_bwd_dq(const void* q, const void* k, const void*
                                        int causal, int offset, int dtype,
                                        cudaStream_t stream) {
   if (bh <= 0 || n_q <= 0) return cudaSuccess;
-  if (hkv <= 0 || hq % hkv != 0) return cudaErrorInvalidValue;
+  if (hkv <= 0 || hq % hkv != 0 || bh % hq != 0 || n_kv < 0) return cudaErrorInvalidValue;
+  const BwdParams p{static_cast<bf16*>(dq), nullptr, nullptr, lse2, delta,
+                    BwdSched{n_q, n_kv, causal, offset}, hq, hkv};
+  if (dtype == 1 && d == 128) return launch_dq_tc<128>(q, k, v, dout, p, bh, stream);
+  if (dtype == 1 && d == 64) return launch_dq_tc<64>(q, k, v, dout, p, bh, stream);
 #define TF_DQ(T, HD) \
   launch_dq<T, HD>(q, k, v, dout, lse2, delta, dq, bh, n_q, n_kv, hq, hkv, causal, offset, stream)
   if (dtype == 1 && d == 256) return TF_DQ(__nv_bfloat16, 256);
-  if (dtype == 1 && d == 128) return TF_DQ(__nv_bfloat16, 128);
-  if (dtype == 1 && d == 64) return TF_DQ(__nv_bfloat16, 64);
   if (dtype == 0 && d == 256) return TF_DQ(float, 256);
   if (dtype == 0 && d == 128) return TF_DQ(float, 128);
   if (dtype == 0 && d == 64) return TF_DQ(float, 64);
@@ -418,13 +957,15 @@ extern "C" cudaError_t tf_flash_bwd_dkv(const void* q, const void* k, const void
                                         int hkv, int d, int causal, int offset,
                                         int dtype, cudaStream_t stream) {
   if (bh_kv <= 0 || n_kv <= 0) return cudaSuccess;
-  if (hkv <= 0 || hq % hkv != 0) return cudaErrorInvalidValue;
+  if (hkv <= 0 || hq % hkv != 0 || bh_kv % hkv != 0 || n_q < 0) return cudaErrorInvalidValue;
+  const BwdParams p{nullptr, static_cast<bf16*>(dk), static_cast<bf16*>(dv), lse2, delta,
+                    BwdSched{n_q, n_kv, causal, offset}, hq, hkv};
+  if (dtype == 1 && d == 128) return launch_dkv_tc<128>(q, k, v, dout, p, bh_kv, stream);
+  if (dtype == 1 && d == 64) return launch_dkv_tc<64>(q, k, v, dout, p, bh_kv, stream);
 #define TF_DKV(T, HD)                                                          \
   launch_dkv<T, HD>(q, k, v, dout, lse2, delta, dk, dv, bh_kv, n_q, n_kv, hq, \
                     hkv, causal, offset, stream)
   if (dtype == 1 && d == 256) return TF_DKV(__nv_bfloat16, 256);
-  if (dtype == 1 && d == 128) return TF_DKV(__nv_bfloat16, 128);
-  if (dtype == 1 && d == 64) return TF_DKV(__nv_bfloat16, 64);
   if (dtype == 0 && d == 256) return TF_DKV(float, 256);
   if (dtype == 0 && d == 128) return TF_DKV(float, 128);
   if (dtype == 0 && d == 64) return TF_DKV(float, 64);

@@ -29,7 +29,6 @@ then B5 (``csrc/flash_bwd.cu``) through :func:`_flash_bwd_kernel`, or raise.
 
 from __future__ import annotations
 
-import dataclasses
 from typing import Optional
 
 import torch
@@ -47,10 +46,6 @@ from tpu_flash_torch.ops.flash import (
 )
 from tpu_flash_torch.ops.schedule import CausalSchedule, Schedule
 
-# B4/B5's tile (rows of q, rows of k/v per block step): the kernels'
-# causal offset is computed on it
-BWD_BLOCK_Q = 64
-BWD_BLOCK_KV = 64
 # lse of fully masked rows is clamped here, so p = exp2(s − lse·log2e) = 0
 LSE_CLAMP = 3e38
 
@@ -96,13 +91,12 @@ def _flash_bwd_plain(q, k, v, o, lse, do, dlse, sched: Schedule, hq: int,
 
 
 def _kernel_args(q, k, sched: Schedule, hq: int, hkv: int):
-    """The scalar arguments both kernels share: sizes, the kernel tile's
-    causal flag and offset, dtype code and stream."""
-    ksched = dataclasses.replace(sched, block_q=BWD_BLOCK_Q,
-                                 block_kv=BWD_BLOCK_KV)
-    causal = isinstance(ksched, CausalSchedule)
+    """The scalar arguments both kernels share: sizes, the causal flag and
+    the right-aligned offset n_kv − n_q (the kernels pick their own tiles),
+    dtype code and stream."""
+    causal = isinstance(sched, CausalSchedule)
     return (q.shape[1], k.shape[1], hq, hkv, q.shape[-1], int(causal),
-            ksched._offset if causal else 0, kernels.dtype_code(q.dtype),
+            sched._offset if causal else 0, kernels.dtype_code(q.dtype),
             kernels.stream_handle(q))
 
 

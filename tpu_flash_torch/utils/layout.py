@@ -32,9 +32,10 @@ def _as_tuple(x, n: int) -> tuple:
     return (x,) * n
 
 
-def circulant_neighbors(n: int, w: int, device=None) -> torch.Tensor:
+def circulant_neighbors(n: int, w: int, device="cuda") -> torch.Tensor:
     """Neighbour index map of the n×n band-circulant pattern: ``[i, c]`` is
-    key ``(i + c − (w−1)/2) mod n`` (``w`` odd), int64 ``(n, w)``."""
+    key ``(i + c − (w−1)/2) mod n`` (``w`` odd), int64 ``(n, w)``, on
+    ``device`` (the card unless the caller asks for another)."""
     if w % 2 != 1:
         raise ValueError(f"circulant window must be odd, got {w}")
     if w > n:
