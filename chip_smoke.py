@@ -30,8 +30,14 @@ which the kernels line reports) and the wrapper call's (``call_ms``), the
 library call timed the same two ways (for B4/B5 the library's fused
 backward alone, K/V expanded to the q heads outside the call); planted
 faults in their plain versions (B1 a kv tile, B14 a k-slab, B4/B5 a slab of
-64 keys or of 64 queries left out) must fail their checks. The device
-phase prints the registers and spills of the TMA + wgmma sources (ptxas).
+64 keys or of 64 queries left out) must fail their checks. B2 runs on its
+two routes (split and shared table), each held against the plain version
+under the card's split plan, twice bitwise equal, with one page of the walk
+hidden from the plain version as a planted fault; the decode call with B3's
+append fused is one launch, its pages and scales bit-exact to B3's plain
+version. The device
+phase prints the registers and spills of the TMA + wgmma and bulk-copy
+sources (ptxas).
 Each phase prints one JSON line; any failure raises and the exit code is
 not 0. Without a CUDA device it fails at once and prints no result. The
 train phase ends with a torch.profiler breakdown of one step. Imports torch
@@ -265,16 +271,96 @@ def _decode_cache(dtype, lens, dev, seed, n_pages=CACHE["max_pages_per_seq"] // 
     return c
 
 
+def _cache_copy(c):
+    from tpu_flash_torch.cache.paged_cache import PagedKVCache
+
+    return PagedKVCache(*(None if t is None else t.clone() for t in (
+        c.k_pages, c.v_pages, c.k_scales, c.v_scales, c.page_tables,
+        c.lengths)), config=c.config)
+
+
+def _same_cache(name, a, b):
+    for key in ("k_pages", "v_pages", "k_scales", "v_scales"):
+        x, y = getattr(a, key), getattr(b, key)
+        if x is not None and not torch.equal(x, y):
+            raise AssertionError(f"{name}: {key} not bit-exact")
+
+
+def _b2_args(q, c, slots, len_add, bound, out_dtype=torch.bfloat16, tables=None):
+    return (q, c.k_pages, c.v_pages, c.k_scales, c.v_scales, slots, c.lengths,
+            c.page_tables if tables is None else tables, len_add, bound,
+            out_dtype, True)
+
+
+def _card_plan(q, c, bound, shared=False):
+    """The split plan of the card's route for this call (None: one split)."""
+    from tpu_flash_torch.ops import paged
+
+    b, kvh, _, d = q.shape
+    page, dtype = c.k_pages.shape[2], c.k_pages.dtype
+    if paged.paged_route(page, shared) != "split":
+        return None
+    return paged.split_plan(b, kvh, d, page, dtype, bound)
+
+
+def _hidden_page(c, slot, logical, dev):
+    """A copy of the page tables whose entry (slot, logical) points at
+    another lane's page: the planted fault "one page of the walk hidden"
+    for the plain version."""
+    tables = c.page_tables.clone()
+    tables[slot, logical] = c.page_tables[(slot + 1) % 2, logical]
+    return tables
+
+
+def _held_b2(name, got, want, tol_o=TOL_BF16, tol_lse=TOL_BF16):
+    (ko, kl), (po, pl) = got, want
+    errs = dict(o_vs_plain=max_err(ko, po), lse_vs_plain=max_err(kl, pl))
+    check(f"{name} o vs plain", errs["o_vs_plain"], tol_o)
+    check(f"{name} lse vs plain", errs["lse_vs_plain"], tol_lse)
+    return errs
+
+
+def _rejects(name, got, fault, tol=TOL_BF16):
+    """The planted fault must fail the kernel-vs-plain check."""
+    (ko, kl), (fo, fl) = got, fault
+    errs = dict(o_vs_plain=max_err(ko, fo), lse_vs_plain=max_err(kl, fl))
+    if all(e <= tol for e in errs.values()):
+        raise AssertionError(f"{name}: the planted fault passes the check: "
+                             f"{errs}")
+    return errs
+
+
+def _bitwise_repeat(name, fn):
+    a, b = fn(), fn()
+    torch.cuda.synchronize()
+    if not all(torch.equal(x, y) for x, y in zip(a, b)):
+        raise AssertionError(f"{name}: two calls differ")
+    return a
+
+
 def paged_phase(dev):
-    """B3 then B2 kernels vs their plain versions at the decode shape."""
+    """B3, and B2's split route, vs their plain versions at the decode
+    shape (16 lanes, ~540 tokens, bf16 and int8 caches): B3's pages and
+    scales bit-exact; B2 after B3 and the fused call (B2 with the append,
+    one launch) against the plain B3 then B2 under the card's split plan,
+    pages bit-exact, o and lse within TOL_BF16, two calls bitwise equal; a
+    planted fault (one page of lane 0's walk hidden from the plain version)
+    rejected. Timed: device time (a CUDA graph of 20 calls) and call time
+    of B3, the split route and the fused call, and the plain versions;
+    the fused append's own time is the fused call's less the split
+    route's alone."""
+    from tpu_flash_torch.bench.harness import device_ms
     from tpu_flash_torch.ops import paged
 
     gen = torch.Generator(device=dev).manual_seed(2)
     b, hq, kvh, d, bound = 16, 16, 8, 128, 16
+    g = hq // kvh
     lens = (530 + torch.randint(0, 20, (b,), generator=gen, device=dev)).tolist()
     out = {}
+    qscale = d ** -0.5 * paged.LOG2E
     for dtype in ("bfloat16", "int8"):
-        kc, pc = (_decode_cache(dtype, lens, dev, 3) for _ in range(2))
+        kc = _decode_cache(dtype, lens, dev, 3)
+        pc, fc = (_cache_copy(kc) for _ in range(2))
         slots = torch.arange(b, dtype=torch.int32, device=dev)
         kn = torch.randn(b, kvh, d, generator=gen, device=dev).bfloat16()
         vn = torch.randn(b, kvh, d, generator=gen, device=dev).bfloat16()
@@ -285,36 +371,46 @@ def paged_phase(dev):
 
         paged._paged_append_kernel(*app_args(kc))
         paged._paged_append_plain(*app_args(pc))
-        app_err = 0.0
-        for name in ("k_pages", "v_pages", "k_scales", "v_scales"):
-            x, y = getattr(kc, name), getattr(pc, name)
-            if x is None:
-                continue
-            if not torch.equal(x, y):
-                raise AssertionError(f"B3 {dtype}: {name} not bit-exact")
-            app_err = max(app_err, float((x.float() - y.float()).abs().max()))
+        _same_cache(f"B3 {dtype}", kc, pc)
         q = torch.randn(b, hq, d, generator=gen, device=dev).bfloat16()
-        qg = (q.float() * (d ** -0.5 * paged.LOG2E)).bfloat16()
-        qg = qg.reshape(b, kvh, hq // kvh, d)
+        qr = q.reshape(b, kvh, g, d)
+        qg = (q.float() * qscale).bfloat16().reshape(b, kvh, g, d)
+        split = _card_plan(qg, kc, bound)
+        ka = _b2_args(qg, kc, slots, 1, bound)
+        got = _bitwise_repeat(f"B2 split {dtype}",
+                              lambda: paged._paged_attention_kernel(*ka))
+        errs = _held_b2(f"B2 split {dtype}", got, paged._paged_attention_plain(
+            *_b2_args(qg, pc, slots, 1, bound), split_pages=split))
+        fault = _rejects(f"B2 split {dtype}", got, paged._paged_attention_plain(
+            *_b2_args(qg, pc, slots, 1, bound,
+                      tables=_hidden_page(pc, 0, 3, dev)), split_pages=split))
+        # the fused call on an unappended copy: one launch
+        fa = _b2_args(qr, fc, slots, 1, bound)
 
-        def att_args(c):
-            return (qg, c.k_pages, c.v_pages, c.k_scales, c.v_scales, slots,
-                    c.lengths, c.page_tables, 1, bound, torch.bfloat16, True)
+        def fused():
+            return paged._paged_attention_kernel(*fa, new_kv=(kn, vn),
+                                                 q_scale=qscale)
 
-        ko, kl = paged._paged_attention_kernel(*att_args(kc))
-        po, pl = paged._paged_attention_plain(*att_args(pc))
-        errs = dict(o_vs_plain=max_err(ko, po), lse_vs_plain=max_err(kl, pl))
-        for key, err in errs.items():
-            check(f"B2 {dtype} {key}", err, TOL_BF16)
+        fgot = _bitwise_repeat(f"B2 fused {dtype}", fused)
+        _same_cache(f"B2 fused append {dtype}", fc, pc)
+        fused_errs = _held_b2(f"B2 fused {dtype}", fgot,
+                              paged._paged_attention_plain(
+                                  *_b2_args(qg, pc, slots, 1, bound),
+                                  split_pages=split))
+
         row = dict(
-            cache=dtype, lanes=b, lens_min=min(lens),
-            lens_max=max(lens), pages_bound=bound, append_bit_exact=True,
-            append_ms=cuda_ms(lambda: paged._paged_append_kernel(*app_args(kc))),
+            cache=dtype, lanes=b, lens_min=min(lens), lens_max=max(lens),
+            pages_bound=bound, split_pages=split, append_bit_exact=True,
+            fused_append_bit_exact=True, tol=TOL_BF16, **errs,
+            fused=fused_errs, planted_fault_page_hidden=fault,
+            append_ms=device_ms(lambda: paged._paged_append_kernel(*app_args(kc))),
+            append_call_ms=cuda_ms(lambda: paged._paged_append_kernel(*app_args(kc))),
             append_plain_ms=cuda_ms(lambda: paged._paged_append_plain(*app_args(pc))),
-            attention_ms=cuda_ms(lambda: paged._paged_attention_kernel(*att_args(kc))),
-            attention_plain_ms=cuda_ms(
-                lambda: paged._paged_attention_plain(*att_args(pc))),
-            tol=TOL_BF16, **errs)
+            attention_ms=device_ms(lambda: paged._paged_attention_kernel(*ka)),
+            attention_call_ms=cuda_ms(lambda: paged._paged_attention_kernel(*ka)),
+            fused_ms=device_ms(fused), fused_call_ms=cuda_ms(fused),
+            attention_plain_ms=cuda_ms(lambda: paged._paged_attention_plain(
+                *_b2_args(qg, pc, slots, 1, bound), split_pages=split)))
         # bytes the two functions must move at these lengths (B2 reads
         # each lane's length + 1 tokens: the appended one too)
         esz, ssz = (1, 4) if dtype == "int8" else (2, 0)
@@ -322,9 +418,12 @@ def paged_phase(dev):
         att_bytes = toks * kvh * 2 * (d * esz + ssz) + b * hq * (4 * d + 4)
         app_bytes = b * kvh * 2 * (2 * d + d * esz + ssz) + 3 * 4 * b
         row["attention_bound"] = roofline(4 * d * hq * toks, att_bytes,
-                                       torch.bfloat16)
+                                          torch.bfloat16)
         row["append_bound"] = roofline(0, app_bytes, torch.bfloat16)
-        out[dtype] = dict(row, append_err=app_err)
+        row["fused_append_ms"] = row["fused_ms"] - row["attention_ms"]
+        row["fused_bound"] = roofline(4 * d * hq * toks, att_bytes + app_bytes,
+                                      torch.bfloat16)
+        out[dtype] = dict(row, append_err=0.0)
     emit(dict(phase="paged", caches=[out[k] for k in out]))
     return out
 
@@ -987,8 +1086,10 @@ def headdims_phase(dev):
     every attention kernel, each against its plain version: B1 then B4/B5
     (bf16 at d 96, 256, 96/64 and 40/200; float32 at 256, the smaller-tile
     instantiations), B3 at d 40 (bytes equal) and B2 at d 40 and 96 with
-    G 16, B6 and B7 through their public entry points at d 96, 256 and
-    96/64 (the CPU tensors take the plain versions)."""
+    G 16 on its split and shared-table routes (int8, bf16 and float32
+    pages), B6 and B7 through their
+    public entry points at d 96, 256 and 96/64 (the CPU tensors take the
+    plain versions)."""
     from tpu_flash_torch import kernels
     from tpu_flash_torch.cache.paged_cache import CacheConfig, PagedKVCache
     from tpu_flash_torch.ops import flash, flash_bwd, paged
@@ -1028,7 +1129,9 @@ def headdims_phase(dev):
                          dtype=str(dt).replace("torch.", ""), **errs))
 
     for d in (40, 96):
-        for dtype in ("int8", "bfloat16"):
+        # float32 pages: the split route stages them by the threads' own
+        # loads (as bf16), not by bulk copy
+        for dtype in ("int8", "bfloat16", "float32"):
             cfg = CacheConfig(num_kv_heads=2, head_dim=d, page_size=64,
                               total_pages=64, max_seqs=8, max_pages_per_seq=16,
                               dtype=dtype)
@@ -1060,14 +1163,26 @@ def headdims_phase(dev):
                     slots, kc.lengths, kc.page_tables, 1, 16, torch.bfloat16,
                     True)
             ko, kl = paged._paged_attention_kernel(*args)
-            po, pl = paged._paged_attention_plain(*args)
+            po, pl = paged._paged_attention_plain(
+                *args, split_pages=_card_plan(qg, kc, 16))
             errs = dict(o_vs_plain=max_err(ko, po),
                         lse_vs_plain=max_err(kl, pl))
-            check(f"headdims B2 d {d} {dtype} o", errs["o_vs_plain"], TOL_BF16)
-            check(f"headdims B2 d {d} {dtype} lse", errs["lse_vs_plain"],
-                  TOL_LSE)
-            rows.append(dict(kernels="paged_append, paged_attention", d=d,
-                             g=16, cache=dtype, append_bit_exact=True, **errs))
+            # the shared-table route: the four lanes on slot 0
+            one = torch.zeros(4, dtype=torch.int32, device=dev)
+            sargs = (qg, kc.k_pages, kc.v_pages, kc.k_scales, kc.v_scales,
+                     one, kc.lengths, kc.page_tables, 0, 16, torch.bfloat16,
+                     True)
+            so, sl = paged._paged_attention_kernel(*sargs,
+                                                   shared_page_table=True)
+            po, pl = paged._paged_attention_plain(*sargs)
+            errs.update(shared_o_vs_plain=max_err(so, po),
+                        shared_lse_vs_plain=max_err(sl, pl))
+            for key, err in errs.items():
+                check(f"headdims B2 d {d} {dtype} {key}", err,
+                      TOL_LSE if "lse" in key else TOL_BF16)
+            rows.append(dict(kernels="paged_append, paged_attention split "
+                             "and shared", d=d, g=16, cache=dtype,
+                             append_bit_exact=True, **errs))
 
     hq, hkv = 16, 8
     for d, dv, q_dt, kv_scale in ((96, 96, "float8_e4m3fn", "tensor"),
@@ -1120,7 +1235,8 @@ def headdims_phase(dev):
     torch.cuda.synchronize()
     launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
     for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "paged_append",
-                 "paged_attention", "serving_attention", "quant_attention"):
+                 "paged_attention_split", "paged_attention_shared",
+                 "serving_attention", "quant_attention"):
         if launches.get(name, 0) <= 0:
             raise AssertionError(f"headdims: kernel {name} never launched")
     emit(dict(phase="headdims", launches=launches, cases=rows))
@@ -1236,7 +1352,8 @@ def sliding_serve_phase(dev):
                                  f"{len(f.new_tokens)} tokens")
         if not all(np.isfinite(f.logprobs)):
             raise AssertionError(f"sliding request {f.rid}: non-finite")
-    for name in ("flash_fwd", "paged_attention", "paged_append"):
+    for name in ("flash_fwd", "paged_attention_split",
+                 "paged_attention_shared"):
         if a["launches"][name] <= 0:
             raise AssertionError(f"kernel {name} never launched in the "
                                  "sliding engine run")
@@ -1312,14 +1429,19 @@ def sliding_kernels_phase(dev):
     """B1 (band, norm bound) and B2 (band start, positions, visible
     lengths, empty prefix; the pipelined decode) against their plain
     versions at the sliding path's shapes, timed beside their bounds and,
-    for B1, the library's attention under the same mask."""
+    for B1, the library's attention under the same mask. B2's chunk
+    prefix on its two routes (shared table, split), the pipelined decode
+    as one fused call; each B2 call twice, bitwise equal; a planted fault
+    (a page of the walk hidden) rejected."""
     from tpu_flash_torch.bench.harness import device_ms
     from tpu_flash_torch.ops import flash, paged
 
     gen = torch.Generator(device=dev).manual_seed(8)
     hq, hkv = 16, 8
     r = (SLIDING_WINDOW - 1) // 2
-    rows, timed, worst = [], {}, {"flash_fwd": 0.0, "paged_attention": 0.0}
+    rows, timed = [], {}
+    worst = {"flash_fwd": 0.0, "paged_attention_split": 0.0,
+             "paged_attention_shared": 0.0}
 
     def held(kernel, name, got, want, tol):
         (ko, kl), (po, pl) = got, want
@@ -1388,7 +1510,9 @@ def sliding_kernels_phase(dev):
 
     # B2 at the chunk-prefix shape: 512 lanes of one slot (a shared table),
     # positions 1536..2047 against a 1536-token prefix, radius 512; slot 1
-    # holds nothing (a first chunk's empty prefix)
+    # holds nothing (a first chunk's empty prefix). The shared-table route
+    # (what prefill_chunk takes) against the one-split walk; the split
+    # route against the plain version under its plan
     cache = _decode_cache("int8", [1536, 1], dev, 9, n_pages=32)
     cache.lengths[1] = 0
     lanes, g, d = SLIDING_CHUNK, hq // hkv, 128
@@ -1396,66 +1520,97 @@ def sliding_kernels_phase(dev):
           * (d ** -0.5 * flash.LOG2E)).bfloat16()
     pos = torch.arange(1536, 1536 + lanes, dtype=torch.int32, device=dev)
     steps = min(32, -(-(r + 1) // CACHE["page_size"]) + 1)
+    kern, plain = paged._paged_attention_kernel, paged._paged_attention_plain
 
-    def b2(fn, slots, len_add=0, q=qg, c=cache, **kw):
-        return fn(q, c.k_pages, c.v_pages, c.k_scales, c.v_scales, slots,
-                  c.lengths, c.page_tables, len_add, steps, torch.bfloat16,
-                  True, radius=r, **kw)
+    def b2(fn, slots, len_add=0, q=qg, c=cache, tables=None, **kw):
+        return fn(*_b2_args(q, c, slots, len_add, steps, tables=tables),
+                  radius=r, **kw)
 
     for name, slot in (("chunk_prefix_512_lanes", 0), ("empty_prefix", 1)):
         slots = torch.full((lanes,), slot, dtype=torch.int32, device=dev)
-        got = b2(paged._paged_attention_kernel, slots, positions=pos)
-        row = held("paged_attention", name, got,
-                   b2(paged._paged_attention_plain, slots, positions=pos),
-                   TOL_BF16)
+        plan = _card_plan(qg, cache, steps)
+        calls = dict(
+            shared=lambda: b2(kern, slots, positions=pos,
+                              shared_page_table=True),
+            split=lambda: b2(kern, slots, positions=pos))
+        wants = dict(shared=b2(plain, slots, positions=pos),
+                     split=b2(plain, slots, positions=pos, split_pages=plan))
+        got = {}
+        for route, call in calls.items():
+            got[route] = _bitwise_repeat(f"B2 {route} {name}", call)
+            row = held(f"paged_attention_{route}", f"{name}_{route}",
+                       got[route], wants[route], TOL_BF16)
         if slot == 1:
-            if not (torch.isneginf(got[1]).all() and (got[0] == 0).all()):
-                raise AssertionError("empty prefix: o must be 0, lse −inf")
+            for route, (o, lse) in got.items():
+                if not (torch.isneginf(lse).all() and (o == 0).all()):
+                    raise AssertionError(f"empty prefix ({route}): o must be "
+                                         "0, lse −inf")
             row["all_lse_neg_inf"] = True
             continue
+        fault = _rejects("B2 shared chunk prefix", got["shared"], b2(
+            plain, slots, positions=pos,
+            tables=_hidden_page(cache, 0, 20, dev)))
         visible = sum(1536 - max(int(p) - r, 0) for p in pos.tolist())
         nbytes = 2 * r * hkv * (d + 4) + lanes * hq * (4 * d + 4)
-        row.update(ms=cuda_ms(lambda: b2(paged._paged_attention_kernel, slots,
-                                         positions=pos)),
-                   plain_ms=cuda_ms(lambda: b2(paged._paged_attention_plain,
-                                               slots, positions=pos), iters=5),
+        row = dict(case=name, route="shared", planted_fault_page_hidden=fault,
+                   ms=device_ms(calls["shared"]),
+                   call_ms=cuda_ms(calls["shared"]),
+                   split_ms=device_ms(calls["split"]), split_pages=plan,
+                   split_call_ms=cuda_ms(calls["split"]),
+                   plain_ms=cuda_ms(lambda: b2(plain, slots, positions=pos),
+                                    iters=5),
                    visible_pairs=visible * hq,
                    **roofline(4 * d * hq * visible, nbytes, torch.bfloat16))
+        rows.append(row)
+        timed["chunk_prefix"] = row
     slots = torch.zeros(64, dtype=torch.int32, device=dev)
     vis = torch.arange(1536 - 64, 1536, dtype=torch.int32, device=dev) + 1
-    held("paged_attention", "lengths_override_64_lanes",
-         b2(paged._paged_attention_kernel, slots, q=qg[:64],
-            lengths_override=vis, positions=vis - 1),
-         b2(paged._paged_attention_plain, slots, q=qg[:64],
-            lengths_override=vis, positions=vis - 1), TOL_BF16)
+    held("paged_attention_shared", "lengths_override_64_lanes_shared",
+         _bitwise_repeat("B2 shared lengths_override", lambda: b2(
+             kern, slots, q=qg[:64], lengths_override=vis, positions=vis - 1,
+             shared_page_table=True)),
+         b2(plain, slots, q=qg[:64], lengths_override=vis, positions=vis - 1),
+         TOL_BF16)
 
-    # the pipelined decode: 16 lanes of 1100–2032 tokens, B3 then B2
-    # walking each lane's own band pages (no pages_bound below the band's)
+    # the pipelined decode: 16 lanes of 1100–2032 tokens, each walking its
+    # own band pages (no pages_bound below the band's): the fused call (the
+    # split route with the append, one launch) against the plain B3 then
+    # B2 under the card's plan
     lens = (1100 + torch.randint(0, 932, (MAX_BATCH,), generator=gen,
                                  device=dev)).tolist()
-    kc, pc = (_decode_cache("int8", lens, dev, 10, n_pages=32)
-              for _ in range(2))
+    kc = _decode_cache("int8", lens, dev, 10, n_pages=32)
+    pc = _cache_copy(kc)
     slots = torch.arange(MAX_BATCH, dtype=torch.int32, device=dev)
-    qd = qg[:MAX_BATCH]
+    qr = torch.randn(MAX_BATCH, hkv, g, d, generator=gen,
+                     device=dev).bfloat16()
+    qscale = d ** -0.5 * flash.LOG2E
+    qd = (qr.float() * qscale).bfloat16()
     kn, vn = (torch.randn(MAX_BATCH, hkv, d, generator=gen, device=dev)
               .bfloat16() for _ in range(2))
-    for c, fn in ((kc, paged._paged_append_kernel),
-                  (pc, paged._paged_append_plain)):
-        fn(kn, vn, c.k_pages, c.v_pages, c.k_scales, c.v_scales, slots,
-           c.lengths, c.page_tables)
-    for name in ("k_pages", "v_pages", "k_scales", "v_scales"):
-        if not torch.equal(getattr(kc, name), getattr(pc, name)):
-            raise AssertionError(f"pipelined decode: {name} not bit-exact")
-    row = held("paged_attention", "pipelined_decode_16_lanes",
-               b2(paged._paged_attention_kernel, slots, 1, qd, kc),
-               b2(paged._paged_attention_plain, slots, 1, qd, pc), TOL_BF16)
+
+    def app(c):
+        return (kn, vn, c.k_pages, c.v_pages, c.k_scales, c.v_scales, slots,
+                c.lengths, c.page_tables)
+
+    def fused():
+        return b2(kern, slots, 1, qr, kc, new_kv=(kn, vn), q_scale=qscale)
+
+    got = _bitwise_repeat("B2 pipelined fused", fused)
+    paged._paged_append_plain(*app(pc))
+    _same_cache("pipelined decode fused append", kc, pc)
+    plan = _card_plan(qd, kc, steps)
+    row = held("paged_attention_split", "pipelined_decode_16_lanes_fused",
+               got, b2(plain, slots, 1, qd, pc, split_pages=plan), TOL_BF16)
+    fault = _rejects("B2 pipelined fused", got, b2(
+        plain, slots, 1, qd, pc, split_pages=plan,
+        tables=_hidden_page(pc, 0, (lens[0] - 1) // 64 - 1, dev)))
     toks = MAX_BATCH * (r + 1)
     nbytes = toks * hkv * 2 * (d + 4) + MAX_BATCH * hq * (4 * d + 4)
     row.update(lens_min=min(lens), lens_max=max(lens), append_bit_exact=True,
-               ms=cuda_ms(lambda: b2(paged._paged_attention_kernel, slots, 1,
-                                     qd, kc)),
-               plain_ms=cuda_ms(lambda: b2(paged._paged_attention_plain, slots,
-                                           1, qd, pc), iters=5),
+               split_pages=plan, planted_fault_page_hidden=fault,
+               ms=device_ms(fused), call_ms=cuda_ms(fused),
+               plain_ms=cuda_ms(lambda: b2(plain, slots, 1, qd, pc,
+                                           split_pages=plan), iters=5),
                **roofline(4 * d * hq * toks, nbytes, torch.bfloat16))
     timed["pipelined"] = row
     emit(dict(phase="sliding_kernels", hq=hq, hkv=hkv, radius=r, cases=rows))
@@ -1696,7 +1851,8 @@ def _timing(row) -> dict:
                                       "bound_by")}
 
 
-PTXAS_SOURCES = ("flash_fwd.cu", "matmul.cu", "flash_bwd.cu")
+PTXAS_SOURCES = ("flash_fwd.cu", "matmul.cu", "flash_bwd.cu",
+                 "paged_attention.cu")
 
 
 def short_kernel_name(mangled: str) -> str:
@@ -1744,8 +1900,9 @@ def main() -> int:
                                  f"{len(f.new_tokens)} tokens")
         if not all(np.isfinite(f.logprobs)):
             raise AssertionError(f"request {f.rid}: non-finite logprobs")
+    # decode runs B2's split route with B3's append fused (no B3 launch)
     engine_launches = {k: run["launches"][k] for k in (
-        "flash_fwd", "paged_attention", "paged_append")}
+        "flash_fwd", "paged_attention_split", "paged_append_fused")}
     for name, n in engine_launches.items():
         if n <= 0:
             raise AssertionError(f"kernel {name} never launched in the engine run")
@@ -1798,21 +1955,39 @@ def main() -> int:
              launches=launches["flash_fwd"], max_abs_err=b1["max_abs_err"],
              ms=b1["ms"], plain_ms=b1["plain_ms"], bound_ms=b1["bound_ms"],
              bound_by=b1["bound_by"], library_ms=b1["library_ms"]),
-        dict(name="paged_attention", route="cuda",
+        # B2's split route at the int8 decode shape, as the engine's decode
+        # calls it: one launch with B3's append fused (time: the fused
+        # call; plain: B3's then B2's plain versions under the split plan);
+        # launches: the engine run's split launches
+        dict(name="paged_attention (split route, B3 fused)", route="cuda",
+             source="tpu_flash_torch/csrc/paged_attention.cu",
+             replaces="tpu_flash/ops/paged.py:74, tpu_flash/ops/paged.py:267",
+             launches=launches["paged_attention_split"],
+             max_abs_err=max(max(r[k] for k in ("o_vs_plain", "lse_vs_plain"))
+                             for r in b23.values()),
+             ms=int8["fused_ms"],
+             plain_ms=int8["append_plain_ms"] + int8["attention_plain_ms"],
+             **int8["fused_bound"], library_ms=None),
+        # B3's function as the main path runs it: inside the split route's
+        # launch (launches: the engine's fused appends; time: the fused
+        # call's less the split route's alone at the same shape, against
+        # the append's own bytes; pages bit-exact to B3's plain version)
+        dict(name="paged_append", route="cuda",
+             source="tpu_flash_torch/csrc/paged_attention.cu",
+             replaces="tpu_flash/ops/paged.py:267",
+             launches=launches["paged_append_fused"],
+             max_abs_err=max(r["append_err"] for r in b23.values()),
+             ms=int8["fused_append_ms"], plain_ms=int8["append_plain_ms"],
+             **int8["append_bound"], library_ms=None),
+        # B2's shared-table route at the chunk prefix (512 lanes of one
+        # slot, positions 1536..2047, radius 512, int8); launches: sliding
+        # engine A's chunked prefill
+        dict(name="paged_attention (shared-table route)", route="cuda",
              source="tpu_flash_torch/csrc/paged_attention.cu",
              replaces="tpu_flash/ops/paged.py:74",
-             launches=launches["paged_attention"],
-             max_abs_err=max(r[k] for r in b23.values()
-                             for k in ("o_vs_plain", "lse_vs_plain")),
-             ms=int8["attention_ms"], plain_ms=int8["attention_plain_ms"],
-             **int8["attention_bound"], library_ms=None),
-        dict(name="paged_append", route="cuda",
-             source="tpu_flash_torch/csrc/paged_append.cu",
-             replaces="tpu_flash/ops/paged.py:267",
-             launches=launches["paged_append"],
-             max_abs_err=max(r["append_err"] for r in b23.values()),
-             ms=int8["append_ms"], plain_ms=int8["append_plain_ms"],
-             **int8["append_bound"], library_ms=None),
+             launches=sliding["launches"]["paged_attention_shared"],
+             max_abs_err=sk["worst"]["paged_attention_shared"],
+             **_timing(sk["timed"]["chunk_prefix"]), library_ms=None),
         # the plain backward and the library's fused backward (K/V expanded
         # to 16 heads outside the call) each compute dq, dk and dv in one
         # call: their times stand in both rows; device times at the
@@ -1867,11 +2042,12 @@ def main() -> int:
              max_abs_err=sk["worst"]["flash_fwd"],
              **_timing(sk["timed"]["bound"]),
              library_ms=sk["timed"]["bound"]["library_ms"]),
-        dict(name="paged_attention (B12 pipelined decode, folded)",
+        dict(name="paged_attention (B12 pipelined decode, split route, "
+                  "B3 fused)",
              route="cuda", source="tpu_flash_torch/csrc/paged_attention.cu",
              replaces="tpu_flash/ops/paged.py:663",
-             launches=sliding["launches"]["paged_attention"],
-             max_abs_err=sk["worst"]["paged_attention"],
+             launches=sliding["launches"]["paged_attention_split"],
+             max_abs_err=sk["worst"]["paged_attention_split"],
              **_timing(sk["timed"]["pipelined"]), library_ms=None),
         # B8 (the d <= 64 serving kernel) folded into B6: its shape (d 64,
         # 16/8 heads, causal, n 1000, fp8, tensor K scales); launches: B6 at

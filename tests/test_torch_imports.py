@@ -103,8 +103,10 @@ def test_cpu_tensors_launch_no_kernel():
     matmul(q[0, 0], kv[0, 0].T)
     circulant_fa(q, kv, kv, 9)
     block_fa(q, kv, kv, 8)
-    assert kernels.LAUNCHES == {"flash_fwd": 0, "paged_attention": 0,
-                                "paged_append": 0, "flash_bwd_dq": 0,
+    assert kernels.LAUNCHES == {"flash_fwd": 0, "paged_attention_split": 0,
+                                "paged_attention_shared": 0,
+                                "paged_append": 0, "paged_append_fused": 0,
+                                "flash_bwd_dq": 0,
                                 "flash_bwd_dkv": 0, "serving_attention": 0,
                                 "quant_attention": 0, "softmax_onepass": 0,
                                 "softmax_stats": 0, "softmax_norm": 0,

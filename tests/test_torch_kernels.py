@@ -1,7 +1,8 @@
 """The port's CUDA kernels (B1 flash forward with the band, the circulant
 band, the block-diagonal schedule and the norm bound, where the reference's
-B9 and B11 fold in; B2 paged attention with the band, positions and
-visible lengths, where B12 folds in; B3 paged append; B4/B5 flash backward;
+B9 and B11 fold in; B2 paged attention on its split and shared-table
+routes with the band, positions and visible lengths, where B12 folds in,
+and with B3's append fused; B3 paged append; B4/B5 flash backward;
 B6/B8 serving and B7 quantized attention; B13 softmax; B14 matmul) against
 their plain PyTorch versions, on the card.
 
@@ -133,26 +134,48 @@ def test_band_backward_kernel_raises(gen):
         o.sum().backward()
 
 
-def _cache(dtype, lens, seed):
-    cfg = CacheConfig(num_kv_heads=8, head_dim=128, page_size=64,
-                      total_pages=1024, max_seqs=32, max_pages_per_seq=64,
+def _cache(dtype, lens, seed, *, kvh=8, d=128, page=64, total=1024, maxp=64,
+           tables=32):
+    cfg = CacheConfig(num_kv_heads=kvh, head_dim=d, page_size=page,
+                      total_pages=total, max_seqs=32, max_pages_per_seq=maxp,
                       dtype=dtype)
     g = torch.Generator(device="cuda").manual_seed(seed)
     c = PagedKVCache.create(cfg, "cuda")
-    perm = torch.randperm(1023, generator=g, device="cuda") + 1
-    c.page_tables[: len(lens), :32] = perm[: len(lens) * 32].reshape(-1, 32).int()
+    perm = torch.randperm(total - 1, generator=g, device="cuda") + 1
+    c.page_tables[: len(lens), :tables] = perm[: len(lens) * tables].reshape(
+        -1, tables).int()
     for s, n in enumerate(lens):
-        c.write_prompt(s, torch.randn(8, n, 128, generator=g, device="cuda"),
-                       torch.randn(8, n, 128, generator=g, device="cuda"))
+        c.write_prompt(s, torch.randn(kvh, n, d, generator=g, device="cuda"),
+                       torch.randn(kvh, n, d, generator=g, device="cuda"))
     return c
+
+
+def _copy(c):
+    """A second cache with the same bytes."""
+    return PagedKVCache(*(None if t is None else t.clone() for t in (
+        c.k_pages, c.v_pages, c.k_scales, c.v_scales, c.page_tables,
+        c.lengths)), config=c.config)
+
+
+def _plan(q, cache, bound, shared=False):
+    """The split plan the card takes for this call (None: one split)."""
+    b, kvh, _, d = q.shape
+    page, dtype = cache.k_pages.shape[2], cache.k_pages.dtype
+    if tpaged.paged_route(page, shared) != "split":
+        return None
+    return tpaged.split_plan(b, kvh, d, page, dtype, bound)
+
+
+def _route_count(route):
+    return kernels.LAUNCHES[f"paged_attention_{route}"]
 
 
 @pytest.mark.parametrize("dtype", ["bfloat16", "int8", "float32"])
 def test_paged_kernels_match_plain(gen, dtype):
     """B3 then B2 at the serving decode shape (16 lanes, 8 kv heads, G 2,
-    d 128, page 64, ~540 tokens, pages_bound 16). Pages and scales after the
-    append are bit-exact; outputs within 2e-2 (bf16 P either side,
-    summation order)."""
+    d 128, page 64, ~540 tokens, pages_bound 16): B3's pages and scales
+    bit-exact; B2 (the split route) within 2e-2 of the plain version under
+    the same split plan (bf16 P either side, summation order)."""
     lens = (530 + torch.randint(0, 20, (16,), generator=gen, device="cuda")).tolist()
     kc, pc = _cache(dtype, lens, 1), _cache(dtype, lens, 1)
     slots = torch.arange(16, dtype=torch.int32, device="cuda")
@@ -173,93 +196,104 @@ def test_paged_kernels_match_plain(gen, dtype):
     args = (q, kc.k_pages, kc.v_pages, kc.k_scales, kc.v_scales, slots,
             kc.lengths, kc.page_tables, 1, 16, torch.bfloat16, True)
     ko, kl = tpaged._paged_attention_kernel(*args)
-    po, pl = tpaged._paged_attention_plain(*args)
+    po, pl = tpaged._paged_attention_plain(*args,
+                                           split_pages=_plan(q, kc, 16))
     torch.cuda.synchronize()
     assert kernels.LAUNCHES["paged_append"] == before["paged_append"] + 1
-    assert kernels.LAUNCHES["paged_attention"] == before["paged_attention"] + 1
+    assert (kernels.LAUNCHES["paged_attention_split"]
+            == before["paged_attention_split"] + 1)
     assert float((ko.float() - po.float()).abs().max()) <= 2e-2
     assert float((kl - pl).abs().max()) <= 2e-2
 
 
-def _paged_pair(cache, q, slots, **kw):
-    """B2 on CUDA tensors and its plain version on the same tensors
-    (o, lse each)."""
+def _paged_pair(cache, q, slots, bound=64, **kw):
+    """B2 on CUDA tensors and its plain version (under the card's split
+    plan) on the same tensors (o, lse each); the kernel twice, bitwise
+    equal (the split combine is ordered)."""
     args = (q, cache.k_pages, cache.v_pages, cache.k_scales, cache.v_scales,
-            slots, cache.lengths, cache.page_tables, 0, 64, torch.bfloat16,
+            slots, cache.lengths, cache.page_tables, 0, bound, torch.bfloat16,
             True)
-    before = kernels.LAUNCHES["paged_attention"]
+    shared = kw.get("shared_page_table", False)
+    route = tpaged.paged_route(cache.k_pages.shape[2], shared)
+    before = _route_count(route)
     got = tpaged._paged_attention_kernel(*args, **kw)
+    again = tpaged._paged_attention_kernel(*args, **kw)
     torch.cuda.synchronize()
-    assert kernels.LAUNCHES["paged_attention"] == before + 1
-    return got, tpaged._paged_attention_plain(*args, **kw)
+    assert _route_count(route) == before + 2
+    assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
+    plain_kw = {k: v for k, v in kw.items()
+                if k in ("lengths_override", "positions", "radius")}
+    return got, tpaged._paged_attention_plain(
+        *args, **plain_kw, split_pages=_plan(q, cache, bound, shared))
 
 
-def _assert_paged_close(got, want):
-    """o within 2e-2 (bf16 P either side, summation order); lse within
-    1e-4 where finite, with the same −inf lanes."""
+def _assert_paged_close(got, want, tol=2e-2):
+    """o within 2e-2 (bf16 P either side, summation order; float32 out
+    1e-4 where given); lse within 1e-4 where finite, with the same −inf
+    lanes."""
     (ko, kl), (po, pl) = got, want
-    assert float((ko.float() - po.float()).abs().max()) <= 2e-2
+    assert float((ko.float() - po.float()).abs().max()) <= tol
     fin = torch.isfinite(pl)
     assert torch.equal(torch.isfinite(kl), fin)
     if fin.any():
         assert float((kl[fin] - pl[fin]).abs().max()) <= 1e-4
 
 
+@pytest.mark.parametrize("shared", [False, True], ids=["split", "shared"])
 @pytest.mark.parametrize("dtype", ["int8", "bfloat16"])
-def test_paged_kernel_chunk_prefix_matches_plain(gen, dtype):
-    """B2 as chunked prefill calls it: 512 lanes of one slot (the shared
-    page table), per-lane positions 1536..2047, radius 512, a 1536-token
-    prefix; and the empty prefix of a first chunk, where every lane gives
-    o = 0, lse = −inf."""
+def test_paged_kernel_chunk_prefix_matches_plain(gen, dtype, shared):
+    """B2 as chunked prefill calls it: 512 lanes of one slot, per-lane
+    positions 1536..2047, radius 512, a 1536-token prefix, through the
+    shared-table route (a tensor-core q tile) and the split route; and the
+    empty prefix of a first chunk, where every lane gives o = 0,
+    lse = −inf."""
     c = _cache(dtype, [1536, 1], 2)
     c.lengths[1] = 0
     q = torch.randn(512, 8, 2, 128, generator=gen, device="cuda").bfloat16()
     pos = torch.arange(1536, 2048, dtype=torch.int32, device="cuda")
     for slot in (0, 1):
         slots = torch.full((512,), slot, dtype=torch.int32, device="cuda")
-        got, want = _paged_pair(c, q, slots, positions=pos, radius=512)
+        got, want = _paged_pair(c, q, slots, positions=pos, radius=512,
+                                shared_page_table=shared)
         _assert_paged_close(got, want)
     assert torch.isneginf(got[1]).all() and (got[0] == 0).all()
 
 
-def test_paged_kernel_lengths_override_and_band_match_plain(gen):
+@pytest.mark.parametrize("shared", [False, True], ids=["split", "shared"])
+def test_paged_kernel_lengths_override_and_band_match_plain(gen, shared):
     """Per-lane visible lengths (with and without a band from their last
-    position), and a band start at or past a lane's keys."""
+    position), and a band start at or past a lane's keys; under a shared
+    table (every lane on slot 0) through the shared route."""
     c = _cache("int8", [700, 300], 3)
-    slots = torch.tensor([0, 0, 0, 1], dtype=torch.int32, device="cuda")
+    slots = torch.tensor([0, 0, 0, 0 if shared else 1], dtype=torch.int32,
+                         device="cuda")
     vis = torch.tensor([640, 641, 700, 257], dtype=torch.int32, device="cuda")
     q = torch.randn(4, 8, 2, 128, generator=gen, device="cuda").bfloat16()
-    _assert_paged_close(*_paged_pair(c, q, slots, lengths_override=vis))
+    kw = dict(shared_page_table=shared)
+    _assert_paged_close(*_paged_pair(c, q, slots, lengths_override=vis, **kw))
     _assert_paged_close(*_paged_pair(c, q, slots, lengths_override=vis,
-                                     positions=vis - 1, radius=100))
+                                     positions=vis - 1, radius=100, **kw))
     far = torch.tensor([900, 1000, 2000, 400], dtype=torch.int32,
                        device="cuda")
-    got, want = _paged_pair(c, q, slots, positions=far, radius=200)
+    got, want = _paged_pair(c, q, slots, positions=far, radius=200, **kw)
     _assert_paged_close(got, want)
     assert torch.isneginf(got[1][1:3]).all()
 
 
 def test_pipelined_decode_kernels_match_plain(gen):
     """The pipelined decode at 16 lanes of 1100–2032 tokens with the
-    sliding band (radius 512) on the int8 cache: B3 then an uncapped B2 on
-    the card vs the plain path on a CPU copy of the same cache; cache
-    bytes equal."""
+    sliding band (radius 512) on the int8 cache: one fused launch (the
+    split route's append, no B3 launch) on the card vs the plain path on a
+    CPU copy of the same cache; cache bytes equal; o and lse within the
+    B2 bounds of the one-split walk."""
     lens = (1100 + torch.randint(0, 932, (16,), generator=gen,
                                  device="cuda")).tolist()
-    cfg = CacheConfig(num_kv_heads=8, head_dim=128, page_size=64,
-                      total_pages=1024, max_seqs=32, max_pages_per_seq=64,
-                      dtype="int8")
-    g = torch.Generator(device="cuda").manual_seed(4)
-    c = PagedKVCache.create(cfg, "cuda")
-    perm = torch.randperm(1023, generator=g, device="cuda") + 1
-    c.page_tables[:16, :32] = perm[:512].reshape(16, 32).int()
-    for s, n in enumerate(lens):
-        c.write_prompt(s, torch.randn(8, n, 128, generator=g, device="cuda"),
-                       torch.randn(8, n, 128, generator=g, device="cuda"))
+    c = _cache("int8", lens, 4)
     cpu = PagedKVCache(*(None if t is None else t.cpu() for t in (
         c.k_pages, c.v_pages, c.k_scales, c.v_scales, c.page_tables,
-        c.lengths)), config=cfg)
+        c.lengths)), config=c.config)
     slots = torch.arange(16, dtype=torch.int32, device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(4)
     q = torch.randn(16, 16, 128, generator=g, device="cuda").bfloat16()
     kn, vn = (torch.randn(16, 8, 128, generator=g, device="cuda").bfloat16()
               for _ in range(2))
@@ -267,8 +301,9 @@ def test_pipelined_decode_kernels_match_plain(gen):
     ko, kl, _ = tpaged.paged_attention_pipelined(
         q, c, slots, new_kv=(kn, vn), radius=512, return_lse=True)
     torch.cuda.synchronize()
-    assert kernels.LAUNCHES["paged_append"] == before["paged_append"] + 1
-    assert kernels.LAUNCHES["paged_attention"] == before["paged_attention"] + 1
+    assert kernels.LAUNCHES["paged_append"] == before["paged_append"]
+    assert (kernels.LAUNCHES["paged_attention_split"]
+            == before["paged_attention_split"] + 1)
     po, pl, _ = tpaged.paged_attention_pipelined(
         q.cpu(), cpu, slots.cpu(), new_kv=(kn.cpu(), vn.cpu()), radius=512,
         return_lse=True)
@@ -280,23 +315,12 @@ def test_pipelined_decode_kernels_match_plain(gen):
 @pytest.mark.parametrize("d,g", [(96, 16), (40, 16), (256, 3)])
 @pytest.mark.parametrize("dtype", ["int8", "bfloat16"])
 def test_paged_kernels_head_dims_and_groups_match_plain(gen, dtype, d, g):
-    """B3 then B2 at head dims 40, 96 and 256 (read under the compiled
-    widths 64, 128, 256) and groups of 16 (two chunks of 8) and 3: the
-    appended pages and scales bit-exact, o and lse as
-    :func:`_assert_paged_close`."""
-    cfg = CacheConfig(num_kv_heads=2, head_dim=d, page_size=64,
-                      total_pages=64, max_seqs=8, max_pages_per_seq=16,
-                      dtype=dtype)
-    table = (torch.randperm(63, generator=gen, device="cuda")[:32] + 1
-             ).reshape(4, 8).int()
-    lens = [300, 257, 64, 450]
-    prompts = [[torch.randn(2, n, d, generator=gen, device="cuda")
-                for _ in range(2)] for n in lens]
-    kc, pc = (PagedKVCache.create(cfg, "cuda") for _ in range(2))
-    for c in (kc, pc):
-        c.page_tables[:4, :8] = table
-        for slot, (kp, vp) in enumerate(prompts):
-            c.write_prompt(slot, kp, vp)
+    """B3 then B2 at head dims 40, 96 and 256 and groups of 16 (two chunks
+    of 8) and 3: the appended pages and scales bit-exact, o and lse as
+    :func:`_assert_paged_close` against the split plain version."""
+    kc = _cache(dtype, [300, 257, 64, 450], 5, kvh=2, d=d, total=64,
+                maxp=16, tables=8)
+    pc = _copy(kc)
     slots = torch.arange(4, dtype=torch.int32, device="cuda")
     kn, vn = (torch.randn(4, 2, d, generator=gen, device="cuda").bfloat16()
               for _ in range(2))
@@ -310,11 +334,147 @@ def test_paged_kernels_head_dims_and_groups_match_plain(gen, dtype, d, g):
     q = torch.randn(4, 2, g, d, generator=gen, device="cuda").bfloat16()
     args = (q, kc.k_pages, kc.v_pages, kc.k_scales, kc.v_scales, slots,
             kc.lengths, kc.page_tables, 1, 16, torch.bfloat16, True)
-    before = kernels.LAUNCHES["paged_attention"]
+    before = _route_count("split")
     got = tpaged._paged_attention_kernel(*args)
     torch.cuda.synchronize()
-    assert kernels.LAUNCHES["paged_attention"] == before + 1
-    _assert_paged_close(got, tpaged._paged_attention_plain(*args))
+    assert _route_count("split") == before + 1
+    _assert_paged_close(got, tpaged._paged_attention_plain(
+        *args, split_pages=_plan(q, kc, 16)))
+
+
+# (dtype, d, g, page, radius, out): the split route's groups (G 1, 2, 4,
+# 16), widths (64, 96, 256), pages (16, 32, 128), page types and float32
+# out, with and without a band; pages the bulk copies do not take, which
+# the threads' own loads stage: float32 pages (staged as bf16, so that a
+# page of 128 at d 256 fits) and int8 pages off the 16-byte grid (scale
+# rows of 4·18 bytes)
+_B2_CASES = [
+    ("int8", 128, 1, 64, None, "bfloat16"),
+    ("int8", 128, 2, 64, 100, "bfloat16"),
+    ("bfloat16", 64, 4, 16, None, "bfloat16"),
+    ("int8", 96, 16, 32, 40, "bfloat16"),
+    ("float32", 256, 2, 128, None, "float32"),
+    ("bfloat16", 256, 16, 128, 300, "float32"),
+    ("float32", 64, 1, 32, 50, "float32"),
+    ("int8", 8, 2, 18, None, "bfloat16"),
+]
+
+
+@pytest.mark.parametrize("case", _B2_CASES, ids=[
+    f"{c[0]}-d{c[1]}-g{c[2]}-p{c[3]}-r{c[4]}-{c[5]}" for c in _B2_CASES])
+def test_paged_routes_match_split_plain(gen, case):
+    """B2's split route vs the plain version under the same split plan
+    (and the split plain version vs the one-split walk within the bf16
+    bound): o within 2e-2, lse 1e-4, two calls bitwise equal."""
+    dtype, d, g, page, radius, out = case
+    lens = [700, 333, 1, 900, 64, 65]
+    c = _cache(dtype, lens, 6, kvh=2, d=d, page=page, total=512,
+               maxp=-(-1024 // page), tables=-(-1024 // page))
+    b = len(lens)
+    slots = torch.arange(b, dtype=torch.int32, device="cuda")
+    q = (torch.randn(b, 2, g, d, generator=gen, device="cuda")
+         * d ** -0.5).to(getattr(torch, out))
+    bound = c.config.max_pages_per_seq
+    if radius is not None:
+        bound = min(bound, -(-(radius + 1) // page) + 1)
+    args = (q, c.k_pages, c.v_pages, c.k_scales, c.v_scales, slots,
+            c.lengths, c.page_tables, 0, bound, getattr(torch, out), True)
+    kw = dict(radius=radius)
+    before = _route_count("split")
+    ko, kl = tpaged._paged_attention_kernel(*args, **kw)
+    ko2, kl2 = tpaged._paged_attention_kernel(*args, **kw)
+    torch.cuda.synchronize()
+    assert _route_count("split") == before + 2
+    assert torch.equal(ko, ko2) and torch.equal(kl, kl2)
+    split = _plan(q, c, bound)
+    qb = q.to(torch.bfloat16) if out == "float32" else q
+    pargs = (qb, *args[1:])
+    po, pl = tpaged._paged_attention_plain(*pargs, **kw, split_pages=split)
+    _assert_paged_close((ko, kl), (po, pl))
+    one, _ = tpaged._paged_attention_plain(*pargs, **kw)
+    assert float((po.float() - one.float()).abs().max()) <= 2e-2
+
+
+@pytest.mark.parametrize("dtype", ["int8", "bfloat16", "float32"])
+def test_paged_fused_append_matches_b3_then_b2(gen, dtype):
+    """paged_attention(new_kv=...) on the card: one launch (the split
+    route, no B3), pages and scales torch.equal to B3's plain append, o
+    and lse within the bounds of the plain B3-then-B2 under the same
+    plan; with pages_bound below a lane's walk the tail row is still
+    written. Lanes 6–8 sit on the trash slot (a table row of zeros):
+    pages other than the trash page are equal, and the real lanes
+    match."""
+    lens = [530, 64, 127, 1, 300, 2]
+    kc = _cache(dtype, lens, 7, kvh=4, d=64, total=256, maxp=16, tables=16)
+    kc.lengths[5] = 0  # an empty slot
+    trash = 31
+    kc.page_tables[trash] = 0
+    pc = _copy(kc)
+    slots = torch.tensor([0, 1, 2, 3, 4, 5, trash, trash, trash],
+                         dtype=torch.int32, device="cuda")
+    b = slots.shape[0]
+    q = torch.randn(b, 8, 64, generator=gen, device="cuda").bfloat16()
+    kn, vn = (torch.randn(b, 4, 64, generator=gen, device="cuda").bfloat16()
+              for _ in range(2))
+    for bound in (16, 4):
+        before = dict(kernels.LAUNCHES)
+        ko, kl, _ = tpaged.paged_attention(q, kc, slots, new_kv=(kn, vn),
+                                           pages_bound=bound, return_lse=True)
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES["paged_append"] == before["paged_append"]
+        assert (kernels.LAUNCHES["paged_attention_split"]
+                == before["paged_attention_split"] + 1)
+        tpaged._paged_append_plain(kn, vn, pc.k_pages, pc.v_pages,
+                                   pc.k_scales, pc.v_scales, slots,
+                                   pc.lengths, pc.page_tables)
+        qg = (q.float() * (64 ** -0.5 * tpaged.LOG2E)).bfloat16()
+        qg = qg.reshape(b, 4, 2, 64)
+        po, pl = tpaged._paged_attention_plain(
+            qg, pc.k_pages, pc.v_pages, pc.k_scales, pc.v_scales, slots,
+            pc.lengths, pc.page_tables, 1, bound, torch.bfloat16, True,
+            split_pages=_plan(qg, pc, bound))
+        pc.lengths.index_add_(0, slots.long(), torch.ones_like(slots))
+        assert torch.equal(kc.lengths, pc.lengths)
+        for name in ("k_pages", "v_pages", "k_scales", "v_scales"):
+            a, w = getattr(kc, name), getattr(pc, name)
+            if a is not None:
+                assert torch.equal(a[:, 1:], w[:, 1:]), name
+        real = slice(0, 6)
+        _assert_paged_close((ko.reshape(b, 4, 2, 64)[real], kl.reshape(
+            b, 4, 2)[real]), (po[real], pl[real]))
+        assert torch.isfinite(kl).all()
+
+
+def test_paged_split_calls_share_no_state(gen):
+    """The split route's tickets live in each call's workspace, zeroed on
+    the call's stream: calls on two streams at once, and a captured graph
+    replayed beside eager calls on another stream, each give what one
+    call alone gives, bitwise."""
+    lens = (530 + torch.randint(0, 20, (16,), generator=gen,
+                                device="cuda")).tolist()
+    c = _cache("int8", lens, 8)
+    slots = torch.arange(16, dtype=torch.int32, device="cuda")
+    q = torch.randn(16, 8, 2, 128, generator=gen, device="cuda").bfloat16()
+    args = (q, c.k_pages, c.v_pages, c.k_scales, c.v_scales, slots,
+            c.lengths, c.page_tables, 0, 16, torch.bfloat16, True)
+    assert _plan(q, c, 16) < 16  # several splits: the ticket combine runs
+    want = tpaged._paged_attention_kernel(*args)
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream() for _ in range(2)]
+    got = []
+    for s in streams:
+        with torch.cuda.stream(s):
+            got += [tpaged._paged_attention_kernel(*args) for _ in range(8)]
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = tpaged._paged_attention_kernel(*args)
+    graph.replay()
+    with torch.cuda.stream(streams[0]):
+        got += [tpaged._paged_attention_kernel(*args) for _ in range(8)]
+    torch.cuda.synchronize()
+    for o, lse in got + [captured]:
+        assert torch.equal(o, want[0]) and torch.equal(lse, want[1])
 
 
 def test_kernels_reject_what_they_do_not_take(gen):

@@ -398,3 +398,126 @@ def test_merge_partials_matches_reference():
     assert (to[0, 0, 1] == 0).all() and torch.isneginf(tl[0, 0, 1])
     np.testing.assert_allclose(to[0, 0, 0].numpy(), o2[0, 0, 0], atol=1e-6)
 
+
+
+# -- the card's split plan, on the plain version ------------------------------
+
+
+@pytest.mark.parametrize("split_pages", [1, 2])
+@pytest.mark.parametrize("radius", [None, 20])
+@pytest.mark.parametrize("dtype", ["bfloat16", "int8"])
+def test_split_plain_matches_reference(dtype, radius, split_pages):
+    """The plain version under a split plan (each split an online softmax
+    of its own, P rounded against the split's running max, the splits
+    combined in split order: what the card's split route computes) against
+    the reference's paged_attention and its pipelined kernel, with the
+    append and with and without a band: 2e-2, the reference's own bound for
+    a walk that rounds P against another max (see the pipelined test
+    above). A plan whose one split covers every lane's walk is the
+    one-split walk, bit for bit."""
+    lens = [37, 16, 50, 15]
+    jc, tc = _caches(dtype, lens, 21)
+    rng = np.random.default_rng(22)
+    q = rng.standard_normal((4, KVH * 2, D)).astype(np.float32)
+    kn, vn = (rng.standard_normal((4, KVH, D)).astype(np.float32)
+              for _ in range(2))
+    slots = np.arange(4, dtype=np.int32)
+    jnew = (jnp.asarray(kn), jnp.asarray(vn))
+    jo, jl, _ = jpaged.paged_attention(
+        jnp.asarray(q), jc, jnp.asarray(slots), new_kv=jnew, radius=radius,
+        return_lse=True)
+    jp = jpaged.paged_attention_pipelined(
+        jnp.asarray(q), jc, jnp.asarray(slots), new_kv=jnew, radius=radius,
+        chunk_pages=2, interpret=True, return_lse=True)
+    ts = torch.as_tensor(slots)
+    tpaged.fused_append(tc, ts, torch.as_tensor(kn), torch.as_tensor(vn))
+    qg = (torch.as_tensor(q) * (D ** -0.5 * tpaged.LOG2E)).bfloat16()
+    bound = MAXP if radius is None else min(MAXP, -(-(radius + 1) // PAGE) + 1)
+    args = (qg.reshape(4, KVH, 2, D), tc.k_pages, tc.v_pages, tc.k_scales,
+            tc.v_scales, ts, tc.lengths, tc.page_tables, 1, bound,
+            torch.float32, True)
+    kw = dict(radius=radius)
+    to, tl = tpaged._paged_attention_plain(*args, **kw,
+                                           split_pages=split_pages)
+    for ref_o, ref_l in ((jo, jl), (jp[0], jp[1])):
+        _close(to.reshape(4, KVH * 2, D), ref_o, 2e-2)
+        _close(tl.reshape(4, KVH * 2), ref_l, 2e-2)
+    one = tpaged._paged_attention_plain(*args, **kw)
+    whole = tpaged._paged_attention_plain(*args, **kw, split_pages=bound)
+    assert all(torch.equal(a, b) for a, b in zip(one, whole))
+
+
+def test_fused_plain_is_append_then_attention():
+    """paged_attention(new_kv=...) on the CPU is B3's plain version then
+    B2's with len_add 1, bit for bit: pages, scales and lengths equal, o
+    and lse equal."""
+    _, tc = _caches("int8", [37, 16, 50], 23)
+    _, pc = _caches("int8", [37, 16, 50], 23)
+    rng = np.random.default_rng(24)
+    q = torch.as_tensor(rng.standard_normal((3, KVH * 2, D)).astype(np.float32))
+    kn, vn = (torch.as_tensor(rng.standard_normal((3, KVH, D)).astype(
+        np.float32)) for _ in range(2))
+    slots = torch.tensor([0, 1, 2], dtype=torch.int32)
+    to, tl, _ = tpaged.paged_attention(q, tc, slots, new_kv=(kn, vn),
+                                       radius=20, return_lse=True)
+    tpaged._paged_append_plain(kn, vn, pc.k_pages, pc.v_pages, pc.k_scales,
+                               pc.v_scales, slots, pc.lengths, pc.page_tables)
+    qg = (q.float() * (D ** -0.5 * tpaged.LOG2E)).bfloat16()
+    po, pl = tpaged._paged_attention_plain(
+        qg.reshape(3, KVH, 2, D), pc.k_pages, pc.v_pages, pc.k_scales,
+        pc.v_scales, slots, pc.lengths, pc.page_tables, 1,
+        min(MAXP, -(-21 // PAGE) + 1), torch.float32, True, radius=20)
+    pc.lengths.index_add_(0, slots.long(), torch.ones_like(slots))
+    for name in ("k_pages", "v_pages", "k_scales", "v_scales", "lengths"):
+        assert torch.equal(getattr(tc, name), getattr(pc, name)), name
+    assert torch.equal(to, po.reshape(3, KVH * 2, D))
+    assert torch.equal(tl, pl.reshape(3, KVH * 2))
+
+
+def test_shared_slot_keyword_skips_only_the_check():
+    """prefill_chunk's internal slot keyword gives the same call as the
+    public shared-table check; the public check still refuses lanes on two
+    slots."""
+    _, tc = _caches("int8", [96, 20], 25)
+    q = torch.as_tensor(np.random.default_rng(26).standard_normal(
+        (40, KVH * 2, D)).astype(np.float32))
+    slots = torch.zeros(40, dtype=torch.int32)
+    pos = torch.arange(96, 136, dtype=torch.int32)
+    kw = dict(radius=50, positions=pos, pages_bound=8, return_lse=True,
+              shared_page_table=True)
+    a = tpaged.paged_attention(q, tc, slots, **kw)
+    b = tpaged.paged_attention(q, tc, slots, _shared_slot=0, **kw)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    with pytest.raises(ValueError, match="same slot"):
+        tpaged.paged_attention(q, tc, torch.arange(40, dtype=torch.int32) % 2,
+                               **kw)
+
+
+@pytest.mark.parametrize("case,route", [
+    ((128, 2, 64, torch.int8, True), "shared"),
+    ((128, 2, 64, torch.int8, False), "split"),
+    ((128, 2, 64, torch.bfloat16, False), "split"),
+    ((40, 16, 64, torch.bfloat16, True), "shared"),
+    ((96, 16, 32, torch.int8, True), "split"),
+    ((256, 2, 128, torch.float32, False), "split"),
+    ((8, 2, 18, torch.int8, False), "split"),
+    ((8, 2, 20, torch.int8, False), "split"),
+    ((256, 3, 128, torch.bfloat16, False), "split"),
+])
+def test_paged_route_and_split_plan(case, route):
+    """paged_route picks the documented route: the shared table at page 64
+    takes the tensor-core route; every other call, whatever its width,
+    group, page or page type, the split route. split_plan: three int8
+    pages a split at the serving decode (16 lanes × 8 heads × 16 pages),
+    one bf16, one at a single lane; never more than 56 KB of pages a split
+    unless one page is more."""
+    d, g, page, dtype, shared = case
+    assert tpaged.paged_route(page, shared) == route
+    if route == "split":
+        s = tpaged.split_plan(16, 8, d, page, dtype, 16)
+        es = {torch.float32: 4, torch.bfloat16: 2, torch.int8: 1}[dtype]
+        page_bytes = 2 * page * (d * es + (4 if es == 1 else 0))
+        assert 1 <= s <= 4 and (s * page_bytes <= 57344 or s == 1)
+    assert tpaged.split_plan(16, 8, 128, 64, torch.int8, 16) == 3
+    assert tpaged.split_plan(16, 8, 128, 64, torch.bfloat16, 16) == 1
+    assert tpaged.split_plan(1, 8, 128, 64, torch.int8, 16) == 1

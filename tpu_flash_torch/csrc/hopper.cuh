@@ -1,10 +1,12 @@
 // Hopper (sm_90a) building blocks shared by the port's TMA + wgmma kernels:
-// B6/B7 (quant_attention.cu), B1 (flash_fwd.cu) and B14 (matmul.cu).
+// B6/B7 (quant_attention.cu), B1 (flash_fwd.cu), B4/B5 (flash_bwd.cu), B14
+// (matmul.cu) and B2 (paged_attention.cu).
 //
 // - swizzled shared-memory tiles (swz, tile_off) in the layout TMA writes
 //   under CU_TENSOR_MAP_SWIZZLE_128B / _64B and wgmma reads as SW128 / SW64;
 // - wgmma shared-memory descriptors, K-major (desc) and MN-major (desc_mn);
-// - mbarriers, TMA tile loads, the async-proxy fence and warpgroup barriers;
+// - mbarriers, TMA tile loads, 1-D bulk copies, the async-proxy fence and
+//   warpgroup barriers;
 // - the wgmma wrappers (one per operand type and tile width), their
 //   fences and waits;
 // - quad (accumulator-row) reductions and ex2.approx;
@@ -94,6 +96,16 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, i
       "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
       "[%0], [%1, {%3, %4, %5}], [%2];" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// a 1-D bulk copy of `bytes` (a multiple of 16; both addresses 16-byte
+// aligned) from device memory into shared memory, completing on `bar`
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
+      ::"r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar))
       : "memory");
 }
 

@@ -1,15 +1,16 @@
-// B2: paged decode attention for Hopper, sm_90a.
+// B2: paged decode attention for Hopper, sm_90a, with B3's append fused
+// into its decode launch.
 //
 // Replaces tpu_flash/ops/paged.py:_paged_kernel (launched by
 // paged_attention): one query token per lane attends its slot's pages,
-// walked through the page table with an online base-2 softmax. The
-// reference's fused append of the new token runs as the separate B3 launch
-// (paged_append.cu) just before this one on the same stream; len_add = 1
-// then makes the new token part of the view, as in the fused kernel.
-// Also replaces tpu_flash/ops/paged.py:_pipe_kernel (launched by
-// paged_attention_pipelined): its hand-pipelined DMA loop walks exactly
-// the lane's own pages, which this walk does when pages_bound does not
-// cap it, and its rank-1 append is the same function as B3 then B2.
+// walked through the page table with an online base-2 softmax; with the
+// new token's K/V (new_k, new_v) the walk first quantizes and writes them
+// into the slot's tail page and attends them from registers, as the
+// reference's fused append does. Also replaces
+// tpu_flash/ops/paged.py:_pipe_kernel (launched by
+// paged_attention_pipelined): its hand-pipelined DMA loop walks exactly the
+// lane's own pages, which this walk does when pages_bound does not cap it,
+// and its rank-1 append is the same function as the fused append.
 //
 // Each lane sees keys [start, len): len is lengths_override[lane] when
 // given, else lengths[slot] + len_add; start is 0, or under a band
@@ -19,82 +20,96 @@
 // a lane with no visible key (an empty chunk prefix, start >= len) gives
 // o = 0 and lse = -inf, the weight-0 partial that merge_partials expects.
 //
-// Numerics mirror the reference: q arrives prescaled by scale·log2(e) and
-// cast to bf16 whatever the model dtype; K/V page values are cast to bf16
-// before the dots (exact for int8; rounds float32 pages); scores accumulate
-// in float32; int8 pages multiply the score column by the K scale and P by
-// the V scale; P is rounded to bf16 before P·V; l sums the unscaled P;
-// masked keys take DEFAULT_MASK_VALUE; o = acc·(1/l) only for rows with
-// l > 0 and m > DEFAULT_MASK_VALUE/2, else 0 (lse = -inf).
+// Numerics mirror the reference: q is prescaled by scale·log2(e) in
+// float32 (q·qscale) and rounded to bf16 as it is loaded; K/V page values
+// are cast to bf16 before the dots (exact for int8; rounds float32 pages);
+// scores accumulate in float32; int8 pages multiply the score column by
+// the K scale and P by the V scale; P is rounded to bf16 against the
+// running max after each page, before P·V; l sums the unscaled P; masked
+// keys take DEFAULT_MASK_VALUE; o = acc·(1/l) only for rows with l > 0 and
+// m > DEFAULT_MASK_VALUE/2, else 0 (lse = -inf). The fused append encodes
+// the row exactly as paged_append.cu does (IEEE divides, rintf, clip to
+// ±127; never --use_fast_math).
 //
 // What bounds it on an H100: HBM bytes. Decode reads every visible K/V
-// page once (at 16 lanes × ~540 tokens × 8 kv heads × d 128 that is ~17 MB
-// per layer for an int8 cache, ~35 MB for bf16) for ~2 FLOP per byte, so
-// the ceiling is 3.35 TB/s and the tensor cores have nothing to do.
-// Design: one block per (lane, kv head) — 128 blocks at the serving batch
-// of 16 and 8 kv heads, about one per SM; 4096 blocks when a 512-token
-// prefill chunk rides the lanes — so all G = hq/hkv query rows of a kv
-// head share one read of each page. Each page step first stages the
-// page's visible K and V rows in shared memory as bf16, every thread
-// issuing 16-byte loads at once, so a page costs one memory round trip
-// (a first version that let each warp load its own rows serially spent
-// ~0.17 ms on the serving shape). Then one thread per (row, query row)
-// takes a dot product, one warp per query row does the online softmax,
-// and each thread owns one output column of P·V (two at d 256). Overlapping the next
-// page's loads with this page's math (cp.async or a TMA ring) is later
-// work.
+// page once (16 lanes × ~540 tokens × 8 kv heads × d 128 is ~17 MB a layer
+// for an int8 cache, ~35 MB for bf16) at ~2 FLOP a byte: the ceiling is
+// 3.35 TB/s and the tensor cores have nothing to do. The chunk prefix of
+// chunked prefill is the exception: 512 lanes of ONE slot read the same
+// ≤ 9 pages, so there the work is 512 q rows × the prefix, a small GEMM.
 //
-// Head dims: rows hold d elements, any multiple of 8 up to 256, read under a
-// compiled width HD of 64, 128 or 256 whose columns past d stay zero in
-// shared memory (8-byte loads for int8 pages, 16-byte ones otherwise).
-// Groups: the G = hq/hkv query rows of a kv head are walked in chunks of at
-// most 8 inside the block, each chunk walking the lane's pages once. A
-// chunk after the first reads the pages again, from L2 at decode sizes (a
-// lane's pages of one kv head are ~140 KB at 540 int8 tokens); launching
-// once per chunk would read them again just the same and add launches, and
-// keeping more than 8 rows' accumulators in registers would cost every
-// G <= 8 model occupancy.
+// Two routes (ops/paged.py:paged_route picks one from static shapes):
+//
+// - split (route 0), the decode route, any slots, with or without a band:
+//   one CTA of 4 warps per (split, kv head, lane). A split is a run of at
+//   most S consecutive pages of the lane's walk (S from the host's plan,
+//   ops/paged.py:split_plan, which the plain version takes too); all of a
+//   split's pages are in flight at once. Where the 1-D bulk copy takes a
+//   page (each K and V page one contiguous run of (kvh, total, page, d)
+//   storage whose page·d·esize bytes are a multiple of 16, int8 scale rows
+//   of 4·page bytes likewise), two or four bulk copies a page fill an
+//   S-stage shared ring; otherwise (float32 pages, which are staged as the
+//   bf16 the dots read, so that a page of 128 at d 256 fits; int8 pages off
+//   the 16-byte grid) every thread copies the split's pages with 8-byte
+//   loads and the scale rows with 4-byte ones. The launch refuses a plan
+//   whose stages do not fit in shared memory (split_smem, the one account
+//   of the layout). The dots run on the CUDA cores (decode has ~2 FLOP a
+//   byte): LK lanes per key row, each holding 8 columns of the G query rows
+//   of a chunk of at most 8 (the rows of a kv head share every page read),
+//   a shuffle sum per key; one warp per query row does the page's softmax;
+//   P·V runs key row per lane group, and the groups' partial sums add in a
+//   fixed order. A split writes float32 (m, l, acc) partials to the call's
+//   workspace; the last CTA of a (lane, head) to finish, found by an atomic
+//   ticket in that workspace (zeroed on the call's stream before the
+//   launch, so two calls on two streams, or a captured graph beside an
+//   eager call, never share one), combines them in split order, so one
+//   launch does the call and two calls are bitwise equal. A (lane, head)
+//   with one split writes o and lse itself. With new_k/new_v the CTA whose
+//   split holds the tail page (or the walk's last split, when pages_bound
+//   stops the walk before it) encodes the new row in registers, writes it
+//   to the cache, and overwrites the stale row (and scale) of its staged
+//   page once the copy has landed: each CTA merges its own registers, so
+//   idle lanes that share the trash slot never read each other's row.
+// - shared (route 1), the chunk prefix (shared_page_table: every lane on
+//   one slot, one table row): a CTA takes 64 (lane, g) rows, lane-major, of
+//   one kv head and walks the union of their visible pages, one 64-key page
+//   a step, with per-row masks [start_r, end_r). Raw pages come in by bulk
+//   copy into a 1–3 stage ring; the 4 warps decode them to bf16 in the
+//   128-byte swizzled layout wgmma reads; S = Q·Kᵀ and O += P·V are bf16
+//   wgmma (V read MN-major, P from registers), S/P/O in registers. The
+//   running max advances one page a step and a row's keys outside its own
+//   range take p = 0, so every row rounds P where its one-split walk does.
+//   Page 64 only.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <stdint.h>
 
 #include <type_traits>
 
+#include "hopper.cuh"
+
 namespace {
 
-constexpr int NWARPS = 4;
-constexpr int NTHREADS = NWARPS * 32;
-constexpr int MAX_G = 8;
+using bf16 = __nv_bfloat16;
+
+constexpr int NT = 128;         // threads of every route's CTA
 constexpr int MAX_PAGE = 128;
+constexpr int SMEM_LIMIT = 232448;  // the 227 KB a block may use
 constexpr float MASK = -0x1.666664p+127f;  // -0.7 * float32 max
 constexpr float LN2 = 0.693147180559945309f;
-
-// Page value as the reference's kernel sees it: cast to bf16, then float.
-__device__ float as_bf16(float x) { return __bfloat162float(__float2bfloat16_rn(x)); }
-__device__ float page_val(float x) { return as_bf16(x); }
-__device__ float page_val(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ float page_val(int8_t x) { return static_cast<float>(x); }
-
-__device__ void store(float* p, float x) { *p = x; }
-__device__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16_rn(x); }
-
-// bf16 row pitch of the staged pages: HD + 2 puts the rows of one column
-// in different shared-memory banks (the score loop reads down a column).
-__host__ __device__ constexpr int pitch(int hd) { return hd + 2; }
-
-size_t smem_bytes(int hd, int page, int g) {
-  return sizeof(__nv_bfloat16) * 2 * page * pitch(hd) +
-         sizeof(float) * (g < MAX_G ? g : MAX_G) * (hd + page);
-}
+enum Route { SPLIT = 0, SHARED = 1 };
 
 // the launch's operands, passed down the dtype dispatch in one piece
 struct Args {
-  const void* q;
-  const void* kp;
-  const void* vp;
-  const float* ks;
-  const float* vs;
+  const void* q;      // (b, kvh, g, d), float32 or bf16, unscaled
+  const void* new_k;  // (b, kvh, d) or null: the fused append's row
+  const void* new_v;
+  void* kp;
+  void* vp;
+  float* ks;
+  float* vs;
   const int* slots;
   const int* lengths;
   const int* lengths_override;
@@ -102,131 +117,304 @@ struct Args {
   const int* tables;
   void* out;
   float* lse;
+  float* ws_acc;  // (b, kvh, n_splits, g, d): the split route's partials
+  float* ws_ml;   // (b, kvh, n_splits, g, 2): their m and l
+  int* tickets;   // (b, kvh), zeroed before the launch
   int b, kvh, g, d, page, total, maxp, bound, len_add, radius;
+  int q_f32, in_f32, split_pages, n_splits;
+  int bulk;  // the split route's pages come in by bulk copy
+  float qscale;
 };
 
-__device__ float warp_max(float x) {
+// x rounded to bf16, as a float
+__device__ __forceinline__ float as_bf16(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+__device__ __forceinline__ void store(float* p, float x) { *p = x; }
+__device__ __forceinline__ void store(bf16* p, float x) { *p = __float2bfloat16_rn(x); }
+
+// q element i, prescaled in float32 and rounded to bf16 (the reference's
+// (q.float() * scale·log2e).astype(bf16))
+__device__ __forceinline__ float load_q(const Args& a, size_t i) {
+  const float x = a.q_f32 ? static_cast<const float*>(a.q)[i]
+                          : __bfloat162float(static_cast<const bf16*>(a.q)[i]);
+  return as_bf16(x * a.qscale);
+}
+
+// 8 consecutive staged page values (8-element aligned) as floats
+__device__ __forceinline__ void load8(const int8_t* p, float (&v)[8]) {
+  // exact: the float with bits 0x4B000000 | (x ^ 0x80) is 2^23 + 128 + x
+  const uint2 raw = *reinterpret_cast<const uint2*>(p);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const uint32_t w = (i < 4 ? raw.x : raw.y) ^ 0x80808080u;
+    v[i] = __uint_as_float(0x4B000000u | ((w >> (8 * (i % 4))) & 0xffu)) - 8388736.0f;
+  }
+}
+__device__ __forceinline__ void load8(const bf16* p, float (&v)[8]) {
+  const uint4 raw = *reinterpret_cast<const uint4*>(p);
+  const bf16* e = reinterpret_cast<const bf16*>(&raw);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) v[i] = __bfloat162float(e[i]);
+}
+__device__ __forceinline__ float warp_max(float x) {
   for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
   return x;
 }
-__device__ float warp_sum(float x) {
+__device__ __forceinline__ float warp_sum(float x) {
   for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
   return x;
 }
 
-template <typename TC, typename TO, int HD>
-__global__ void __launch_bounds__(NTHREADS)
-paged_attention_kernel(const __nv_bfloat16* __restrict__ q,
-                       const TC* __restrict__ k_pages,
-                       const TC* __restrict__ v_pages,
-                       const float* __restrict__ k_scales,
-                       const float* __restrict__ v_scales,
-                       const int* __restrict__ slots,
-                       const int* __restrict__ lengths,
-                       const int* __restrict__ lengths_override,
-                       const int* __restrict__ positions,
-                       const int* __restrict__ page_tables, TO* __restrict__ out,
-                       float* __restrict__ lse, int kvh, int g_all, int d,
-                       int page, int total_pages, int max_pages,
-                       int pages_bound, int len_add, int radius) {
-  constexpr int KP = pitch(HD);
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem);  // page × KP
-  __nv_bfloat16* vs = ks + page * KP;                           // page × KP
-  float* qs = reinterpret_cast<float*>(vs + page * KP);  // min(G, 8) × HD
-  float* ss = qs + min(g_all, MAX_G) * HD;               // min(G, 8) × page
-  __shared__ float ms[MAX_G], ls[MAX_G], als[MAX_G];
+// ------------------------------------------------------------ split
 
-  const int b = blockIdx.x, h = blockIdx.y;
+// lanes a key row takes in the split route: the power of two that covers
+// its d / 8 chunks of 8 columns
+__host__ __device__ inline int lanes_per_key(int d) {
+  int lk = 1;
+  while (lk < d / 8) lk <<= 1;
+  return lk;
+}
+
+// the type a split stage holds a page in: float32 pages as the bf16 the
+// dots read (the same rounding), int8 and bf16 pages as they are
+template <typename TC>
+using Staged = typename std::conditional<sizeof(TC) == 4, bf16, TC>::type;
+
+// the split route's shared memory, its one account: S stages of a staged
+// K page and V page (ses bytes a value, each padded to 16 bytes) and the K
+// and V scale rows, the stages' barriers, P/scores (GC × page), the lane
+// groups' P·V sums (NG × GC × d), m/l/alpha and the last-CTA flag
+__host__ __device__ inline size_t split_kv(int page, int d, int ses) {
+  return ((size_t)page * d * ses + 15) & ~(size_t)15;
+}
+__host__ __device__ inline size_t split_stage(int page, int d, int ses, bool quant) {
+  return 2 * split_kv(page, d, ses) + (quant ? 8 * (size_t)page : 0);
+}
+__host__ __device__ inline size_t split_smem(int s, int page, int d, int ses, bool quant,
+                                             int gc) {
+  const int ng = NT / lanes_per_key(d);
+  const size_t stage = (split_stage(page, d, ses, quant) + 15) & ~(size_t)15;
+  return s * stage + 8 * (size_t)s + 4 * (size_t)gc * page + 4 * (size_t)ng * gc * d +
+         12 * (size_t)gc + 16;
+}
+
+template <typename TC>
+__device__ __forceinline__ TC to_page(float x) {
+  if constexpr (sizeof(TC) == 1) return static_cast<int8_t>(static_cast<int>(x));
+  else if constexpr (sizeof(TC) == 2) return __float2bfloat16_rn(x);
+  else return x;
+}
+
+template <typename TC, typename TO, int GC>
+__global__ void __launch_bounds__(NT) paged_split_kernel(const Args a) {
+  using SC = Staged<TC>;
+  constexpr int KPI = 4;  // key rows a lane group takes at once
+  constexpr int ES = sizeof(TC);
+  constexpr bool QUANT = ES == 1;
+  const bool bulk = ES != 4 && a.bulk;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int sidx = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int slot = slots[b];
-  const int len = lengths_override != nullptr ? lengths_override[b]
-                                              : lengths[slot] + len_add;
-  const int qpos = positions != nullptr ? positions[b] : len - 1;
-  const int start = radius >= 0 ? max(qpos - radius, 0) : 0;
+  const int page = a.page, d = a.d, S = a.split_pages, G = a.g;
+  const int slot = a.slots[b];
+  const int base_len = a.lengths[slot];
+  const int len = a.lengths_override != nullptr ? a.lengths_override[b]
+                                                : base_len + a.len_add;
+  const int qpos = a.positions != nullptr ? a.positions[b] : len - 1;
+  const int start = a.radius >= 0 ? max(qpos - a.radius, 0) : 0;
   const int start_pg = start / page;
   const int n_pages = (len + page - 1) / page;
-  const int steps = min(n_pages - start_pg, pages_bound);  // <= 0: no key
-  const int last = min(max(n_pages, 1) - 1, max_pages - 1);
-  const int* table = page_tables + (size_t)slot * max_pages;
-
-  // columns [d, HD) of the staged K/V rows stay zero for every page
-  for (int i = tid; i < 2 * page * (HD - d); i += NTHREADS) {
-    const int r = i / (HD - d), c = d + i % (HD - d);
-    ks[r * KP + c] = __float2bfloat16_rn(0.0f);
+  const int n_walk = max(0, min(n_pages - start_pg, a.bound));
+  const int n_work = (n_walk + S - 1) / S;  // splits that walk a page
+  if (sidx >= max(n_work, 1)) return;  // (split 0 of an empty lane writes 0)
+  const int* table = a.tables + (size_t)slot * a.maxp;
+  const int last = min(max(n_pages, 1) - 1, a.maxp - 1);
+  const int first = sidx * S;
+  const int my_n = max(0, min(S, n_walk - first));
+  // the fused append: the split that walks the tail page owns it, or the
+  // walk's last split when pages_bound stops the walk before the tail
+  const bool append = a.new_k != nullptr;
+  const int tail = base_len / page;
+  bool owner = false;
+  if (append) {
+    const int idx = tail - start_pg;
+    owner = sidx == ((idx >= 0 && idx < n_walk) ? idx / S : max(n_work - 1, 0));
   }
-  // 8 elements a load (one d is a multiple of 8: rows stay aligned)
-  constexpr int VEC = sizeof(TC) == 4 ? 4 : 8;
-  using Load = typename std::conditional<sizeof(TC) == 1, uint2, uint4>::type;
-  const int CH = d / VEC;  // loads per row
-  for (int g0 = 0; g0 < g_all; g0 += MAX_G) {
-    const int g_rows = min(g_all - g0, MAX_G);
-    const size_t qrow = ((size_t)b * kvh + h) * g_all + g0;
 
-    __syncthreads();  // the previous chunk is done with qs, ms, ls
-    for (int i = tid; i < g_rows * HD; i += NTHREADS) {
-      const int g = i / HD, c = i % HD;
-      qs[i] = c < d ? __bfloat162float(q[(qrow + g) * d + c]) : 0.0f;
+  const size_t kvb = (size_t)page * d * ES;  // a K (or V) page in the cache
+  const size_t kvs = split_kv(page, d, sizeof(SC));  // and in its stage
+  const size_t stage = (split_stage(page, d, sizeof(SC), QUANT) + 15) & ~(size_t)15;
+  const int C = d / 8, LK = lanes_per_key(d), NG = NT / LK;
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + S * stage);
+  float* ss = reinterpret_cast<float*>(full + S);  // GC × page
+  float* red = ss + GC * page;                     // NG × GC × d
+  float* ms = red + (size_t)NG * GC * d;
+  float* ls = ms + GC;
+  float* als = ls + GC;
+  int* flag = reinterpret_cast<int*>(als + GC);
+
+  if (bulk) {
+    if (tid == 0) {
+      for (int j = 0; j < my_n; ++j) mbar_init(&full[j], 1);
+      asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
     }
-    if (tid < g_rows) {
+    __syncthreads();
+    // every page of the split in flight at once: lane j of warp 0 reads
+    // page j's table entry and issues its copies
+    if (tid < my_n) {
+      const int phys = table[min(start_pg + first + tid, last)];
+      const size_t row0 = ((size_t)h * a.total + phys) * page;
+      unsigned char* st = smem + tid * stage;
+      uint64_t* bar = &full[tid];
+      mbar_expect_tx(bar, (uint32_t)(2 * kvb + (QUANT ? 8 * page : 0)));
+      bulk_load(st, static_cast<const TC*>(a.kp) + row0 * d, (uint32_t)kvb, bar);
+      bulk_load(st + kvs, static_cast<const TC*>(a.vp) + row0 * d, (uint32_t)kvb, bar);
+      if constexpr (QUANT) {
+        bulk_load(st + 2 * kvs, a.ks + row0, 4 * page, bar);
+        bulk_load(st + 2 * kvs + 4 * page, a.vs + row0, 4 * page, bar);
+      }
+    }
+  } else {
+    // pages the bulk copy does not take: every thread copies the split's
+    // pages in 8-byte words (page·d·esize is a multiple of 8), a float32
+    // pair rounded to a bf16 pair, and the scale rows a float at a time
+    const int words = (int)(kvb / 8);
+    for (int j = 0; j < my_n; ++j) {
+      const int phys = table[min(start_pg + first + j, last)];
+      const size_t row0 = ((size_t)h * a.total + phys) * page;
+      unsigned char* st = smem + j * stage;
+      for (int i = tid; i < 2 * words; i += NT) {
+        const int is_v = i >= words, w = i - is_v * words;
+        const uint2 x = reinterpret_cast<const uint2*>(
+            static_cast<const TC*>(is_v ? a.vp : a.kp) + row0 * d)[w];
+        if constexpr (ES == 4)
+          reinterpret_cast<__nv_bfloat162*>(st + is_v * kvs)[w] =
+              __floats2bfloat162_rn(__uint_as_float(x.x), __uint_as_float(x.y));
+        else
+          reinterpret_cast<uint2*>(st + is_v * kvs)[w] = x;
+      }
+      if constexpr (QUANT)
+        for (int i = tid; i < 2 * page; i += NT)
+          reinterpret_cast<float*>(st + 2 * kvs)[i] = (i < page ? a.ks : a.vs)[row0 + i % page];
+    }
+    __syncthreads();  // staged before the append's row overwrites its own
+  }
+
+  // the new row (warp 0: K, warp 1: V), encoded in registers as
+  // paged_append.cu encodes it, and written to the cache
+  constexpr int RJ = 256 / 32;
+  float ax[RJ];
+  float asc = 1.0f;
+  if (owner && warp < 2) {
+    const bool is_v = warp == 1;
+    const size_t src = ((size_t)b * a.kvh + h) * d;
+    const void* nv = is_v ? a.new_v : a.new_k;
+#pragma unroll
+    for (int j = 0; j < RJ; ++j) {
+      const int c = lane + 32 * j;
+      ax[j] = c >= d ? 0.0f
+              : a.in_f32 ? static_cast<const float*>(nv)[src + c]
+                         : __bfloat162float(static_cast<const bf16*>(nv)[src + c]);
+    }
+    if constexpr (QUANT) {
+      float amax = 0.0f;
+#pragma unroll
+      for (int j = 0; j < RJ; ++j) amax = fmaxf(amax, fabsf(ax[j]));
+      amax = warp_max(amax);
+      asc = fmaxf(amax, 1e-12f) / 127.0f;
+#pragma unroll
+      for (int j = 0; j < RJ; ++j) ax[j] = fminf(fmaxf(rintf(ax[j] / asc), -127.0f), 127.0f);
+    }
+    const int phys = table[min(tail, a.maxp - 1)];
+    const size_t arow = ((size_t)h * a.total + phys) * page + base_len % page;
+    TC* dst = static_cast<TC*>(is_v ? a.vp : a.kp) + arow * d;
+#pragma unroll
+    for (int j = 0; j < RJ; ++j)
+      if (lane + 32 * j < d) dst[lane + 32 * j] = to_page<TC>(ax[j]);
+    if (QUANT && lane == 0) (is_v ? a.vs : a.ks)[arow] = asc;
+  }
+
+  const int grp = tid / LK, c = tid % LK;
+  TO* out = static_cast<TO*>(a.out);
+  const bool direct = n_work <= 1;
+  for (int g0 = 0; g0 < G; g0 += GC) {
+    const int gr = min(GC, G - g0);
+    const size_t qrow = ((size_t)b * a.kvh + h) * G + g0;
+    float qr[GC][8], acc[GC][8];
+#pragma unroll
+    for (int g = 0; g < GC; ++g)
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        qr[g][e] = (g < gr && c < C) ? load_q(a, (qrow + g) * d + c * 8 + e) : 0.0f;
+        acc[g][e] = 0.0f;
+      }
+    if (tid < GC) {
       ms[tid] = MASK;
       ls[tid] = 0.0f;
     }
-    constexpr int CPT = (HD + NTHREADS - 1) / NTHREADS;  // columns a thread
-    float acc[CPT][MAX_G];
-#pragma unroll
-    for (int j = 0; j < CPT; ++j)
-#pragma unroll
-      for (int g = 0; g < MAX_G; ++g) acc[j][g] = 0.0f;
-
-    for (int i = 0; i < steps; ++i) {
-      const int logical = start_pg + i;
-      const int phys = table[min(logical, last)];
-      const size_t row0 = ((size_t)h * total_pages + phys) * page;
-      // visible rows [lo, hi) of this page: after the band start, before len
+    for (int j = 0; j < my_n; ++j) {
+      const int logical = start_pg + first + j;
       const int lo = max(0, start - logical * page);
       const int hi = min(page, len - logical * page);
-      const int n_rows = max(hi - lo, 0);
-      __syncthreads();  // previous step done with ks/vs/ss (and q visible)
-      // stage the page's visible K and V rows in shared memory as bf16: every
-      // thread issues its 16-byte loads at once, one memory round trip a page
-      for (int idx = tid; idx < 2 * n_rows * CH; idx += NTHREADS) {
-        const bool is_v = idx >= n_rows * CH;
-        const int j = is_v ? idx - n_rows * CH : idx;
-        const int r = lo + j / CH, c = (j % CH) * VEC;
-        const Load raw = *reinterpret_cast<const Load*>(
-            (is_v ? v_pages : k_pages) + (row0 + r) * d + c);
-        const TC* e = reinterpret_cast<const TC*>(&raw);
-        __nv_bfloat16* dst = (is_v ? vs : ks) + r * KP + c;
+      unsigned char* st = smem + j * stage;
+      const SC* kr = reinterpret_cast<const SC*>(st);
+      const SC* vr = reinterpret_cast<const SC*>(st + kvs);
+      float* sc_row = reinterpret_cast<float*>(st + 2 * kvs);  // K scales, then V's
+      if (bulk) mbar_wait(&full[j], 0);
+      if (g0 == 0 && owner && logical == tail && warp < 2) {
+        // the stale tail row the copy brought: this CTA's own new row
+        const int off = base_len % page;
+        SC* dst = reinterpret_cast<SC*>(st + (warp ? kvs : 0)) + (size_t)off * d;
 #pragma unroll
-        for (int u = 0; u < VEC; u += 2)
-          *reinterpret_cast<__nv_bfloat162*>(dst + u) =
-              __floats2bfloat162_rn(page_val(e[u]), page_val(e[u + 1]));
+        for (int jj = 0; jj < RJ; ++jj)
+          if (lane + 32 * jj < d) dst[lane + 32 * jj] = to_page<SC>(ax[jj]);
+        if (QUANT && lane == 0) sc_row[(warp ? page : 0) + off] = asc;
       }
-      __syncthreads();
-      // scores: one (row, query row) pair per thread
-      for (int w = tid; w < page * g_rows; w += NTHREADS) {
-        const int r = w % page, g = w / page;
-        float sv = MASK;
-        if (r >= lo && r < hi) {
-          const __nv_bfloat16* kr = ks + r * KP;
-          const float* qg = qs + g * HD;
-          float dot = 0.0f;
-#pragma unroll 8
-          for (int c = 0; c < HD; c += 2) {
-            const float2 kf =
-                __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(kr + c));
-            dot = fmaf(qg[c], kf.x, dot);
-            dot = fmaf(qg[c + 1], kf.y, dot);
+      __syncthreads();  // the page (and its merged row) staged; ss free
+      // scores: LK lanes a key row, 8 columns a lane, a shuffle sum; KPI
+      // key rows a lane group at once, so that their loads and shuffle
+      // chains overlap
+      for (int base = 0; base < page; base += NG * KPI) {
+        float dot[KPI][GC];
+#pragma unroll
+        for (int k = 0; k < KPI; ++k) {
+          const int r = base + grp + k * NG;
+#pragma unroll
+          for (int g = 0; g < GC; ++g) dot[k][g] = 0.0f;
+          if (r >= lo && r < hi && c < C) {
+            float kv[8];
+            load8(kr + (size_t)r * d + c * 8, kv);
+#pragma unroll
+            for (int g = 0; g < GC; ++g)
+#pragma unroll
+              for (int e = 0; e < 8; ++e) dot[k][g] = fmaf(qr[g][e], kv[e], dot[k][g]);
           }
-          sv = k_scales != nullptr ? dot * k_scales[row0 + r] : dot;
         }
-        ss[g * page + r] = sv;
+        for (int o = LK >> 1; o > 0; o >>= 1)
+#pragma unroll
+          for (int k = 0; k < KPI; ++k)
+#pragma unroll
+            for (int g = 0; g < GC; ++g)
+              dot[k][g] += __shfl_xor_sync(0xffffffffu, dot[k][g], o);
+        if (c == 0) {
+#pragma unroll
+          for (int k = 0; k < KPI; ++k) {
+            const int r = base + grp + k * NG;
+            if (r >= page) break;
+            const bool vis = r >= lo && r < hi;
+#pragma unroll
+            for (int g = 0; g < GC; ++g)
+              if (g < gr)
+                ss[g * page + r] = vis ? (QUANT ? dot[k][g] * sc_row[r] : dot[k][g]) : MASK;
+          }
+        }
       }
       __syncthreads();
-      // online softmax, one warp per query row; P (V-scaled, bf16-rounded)
+      // the page's softmax, one warp a query row; P (V-scaled, bf16)
       // overwrites the scores
-      for (int g = warp; g < g_rows; g += NWARPS) {
+      for (int g = warp; g < gr; g += NT / 32) {
         float* sg = ss + g * page;
         float mx = MASK;
         for (int r = lane; r < page; r += 32) mx = fmaxf(mx, sg[r]);
@@ -236,8 +424,7 @@ paged_attention_kernel(const __nv_bfloat16* __restrict__ q,
         for (int r = lane; r < page; r += 32) {
           const float p = exp2f(sg[r] - m_next);
           psum += p;
-          const float vsc = (v_scales != nullptr && r >= lo && r < hi)
-                                ? v_scales[row0 + r] : 1.0f;
+          const float vsc = (QUANT && r >= lo && r < hi) ? sc_row[page + r] : 1.0f;
           sg[r] = as_bf16(p * vsc);
         }
         psum = warp_sum(psum);
@@ -249,107 +436,541 @@ paged_attention_kernel(const __nv_bfloat16* __restrict__ q,
         }
       }
       __syncthreads();
-      // P·V: thread t owns output columns t and t + 128 for every query row
+      // P·V: a lane group a key row, 8 columns a lane
 #pragma unroll
-      for (int j = 0; j < CPT; ++j) {
-        const int c = tid + j * NTHREADS;
-        if (c >= d) break;
+      for (int g = 0; g < GC; ++g)
+        if (g < gr) {
+          const float al = als[g];
 #pragma unroll
-        for (int g = 0; g < MAX_G; ++g)
-          if (g < g_rows) acc[j][g] *= als[g];
-        for (int r = lo; r < hi; ++r) {
-          const float vv = __bfloat162float(vs[r * KP + c]);
+          for (int e = 0; e < 8; ++e) acc[g][e] *= al;
+        }
+      if (c < C) {
+        for (int r0 = lo + grp; r0 < hi; r0 += NG * KPI) {
+          float vv[KPI][8];
 #pragma unroll
-          for (int g = 0; g < MAX_G; ++g)
-            if (g < g_rows) acc[j][g] = fmaf(ss[g * page + r], vv, acc[j][g]);
+          for (int k = 0; k < KPI; ++k) {
+            const int r = r0 + k * NG;
+#pragma unroll
+            for (int e = 0; e < 8; ++e) vv[k][e] = 0.0f;
+            if (r < hi) load8(vr + (size_t)r * d + c * 8, vv[k]);
+          }
+#pragma unroll
+          for (int k = 0; k < KPI; ++k) {
+            const int r = r0 + k * NG;
+            if (r >= hi) break;
+#pragma unroll
+            for (int g = 0; g < GC; ++g) {
+              const float p = g < gr ? ss[g * page + r] : 0.0f;
+#pragma unroll
+              for (int e = 0; e < 8; ++e) acc[g][e] = fmaf(p, vv[k][e], acc[g][e]);
+            }
+          }
         }
       }
     }
-
-    __syncthreads();  // m, l visible to every thread (also when no step ran)
+    __syncthreads();  // every group's P·V done; m, l visible
+    if (c < C) {
 #pragma unroll
-    for (int j = 0; j < CPT; ++j) {
-      const int c = tid + j * NTHREADS;
-      if (c >= d) break;
+      for (int g = 0; g < GC; ++g)
 #pragma unroll
-      for (int g = 0; g < MAX_G; ++g) {
-        if (g >= g_rows) break;
+        for (int e = 0; e < 8; ++e) red[((size_t)grp * GC + g) * d + c * 8 + e] = acc[g][e];
+    }
+    __syncthreads();
+    const size_t part = ((size_t)(b * a.kvh + h) * a.n_splits + sidx) * G + g0;
+    for (int idx = tid; idx < gr * d; idx += NT) {
+      const int g = idx / d, col = idx % d;
+      float t = 0.0f;
+      for (int gi = 0; gi < NG; ++gi) t += red[((size_t)gi * GC + g) * d + col];
+      if (direct) {
         const float l = ls[g], m = ms[g];
         const bool valid = l > 0.0f && m > MASK * 0.5f;
-        store(out + (qrow + g) * d + c, acc[j][g] * (valid ? 1.0f / l : 0.0f));
+        store(out + (qrow + g) * d + col, t * (valid ? 1.0f / l : 0.0f));
+      } else {
+        a.ws_acc[(part + g) * d + col] = t;
       }
     }
-    if (lse != nullptr && tid < g_rows) {
+    if (tid < gr) {
       const float l = ls[tid], m = ms[tid];
+      if (direct) {
+        if (a.lse != nullptr)
+          a.lse[qrow + tid] = l > 0.0f && m > MASK * 0.5f ? m * LN2 + logf(l)
+                                                          : -__int_as_float(0x7f800000);
+      } else {
+        a.ws_ml[(part + tid) * 2] = m;
+        a.ws_ml[(part + tid) * 2 + 1] = l;
+      }
+    }
+    __syncthreads();  // the next chunk reuses ms, ls and red
+  }
+  if (direct) return;
+
+  // the last CTA of this (lane, head) combines the partials in split order
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) {
+    const int ticket = atomicAdd(&a.tickets[b * a.kvh + h], 1);
+    *flag = ticket == n_work - 1;
+  }
+  __syncthreads();
+  if (!*flag) return;
+  __threadfence();
+  // every split's (m, l) of this (lane, head) is one contiguous run of
+  // ws_ml: copied at once into the free shared memory (the scores
+  // onward), then one thread a row turns each m into the split's weight
+  // exp2(m_s - m) and sums l; the outputs sum the partials in split order
+  const size_t base = (size_t)(b * a.kvh + h) * a.n_splits * G;
+  const size_t orow = ((size_t)b * a.kvh + h) * G;
+  const int pairs = n_work * G;
+  float* cw = ss;
+  float* cl = reinterpret_cast<float*>(flag) - 2 * G;  // rows' l and m
+  if (2 * (pairs + G) * sizeof(float) <=
+      (size_t)(reinterpret_cast<unsigned char*>(flag) - reinterpret_cast<unsigned char*>(ss))) {
+    for (int i = tid; i < 2 * pairs; i += NT) cw[i] = __ldcg(&a.ws_ml[base * 2 + i]);
+    __syncthreads();
+    for (int g = tid; g < G; g += NT) {
+      float m = MASK;
+      for (int s = 0; s < n_work; ++s) m = fmaxf(m, cw[2 * (s * G + g)]);
+      float l = 0.0f;
+      for (int s = 0; s < n_work; ++s) {
+        const float w = exp2f(cw[2 * (s * G + g)] - m);
+        l += cw[2 * (s * G + g) + 1] * w;
+        cw[2 * (s * G + g)] = w;
+      }
+      cl[g] = l;
+      cl[G + g] = m;
+    }
+    __syncthreads();
+    for (int idx = tid; idx < G * d; idx += NT) {
+      const int g = idx / d, col = idx % d;
+      float t = 0.0f;
+#pragma unroll 4
+      for (int s = 0; s < n_work; ++s)
+        t += __ldcg(&a.ws_acc[(base + s * G + g) * d + col]) * cw[2 * (s * G + g)];
+      const float l = cl[g], m = cl[G + g];
       const bool valid = l > 0.0f && m > MASK * 0.5f;
-      lse[qrow + tid] = valid ? m * LN2 + logf(l) : -__int_as_float(0x7f800000);
+      store(out + (orow + g) * d + col, t * (valid ? 1.0f / l : 0.0f));
+    }
+    if (a.lse != nullptr)
+      for (int g = tid; g < G; g += NT)
+        a.lse[orow + g] = cl[g] > 0.0f && cl[G + g] > MASK * 0.5f
+                              ? cl[G + g] * LN2 + logf(cl[g])
+                              : -__int_as_float(0x7f800000);
+    return;
+  }
+  // (more partials than shared memory holds: read them where they are)
+  for (int idx = tid; idx < G * d; idx += NT) {
+    const int g = idx / d, col = idx % d;
+    float m = MASK;
+    for (int s = 0; s < n_work; ++s) m = fmaxf(m, __ldcg(&a.ws_ml[(base + s * G + g) * 2]));
+    float l = 0.0f, t = 0.0f;
+    for (int s = 0; s < n_work; ++s) {
+      const size_t pr = base + s * G + g;
+      const float w = exp2f(__ldcg(&a.ws_ml[pr * 2]) - m);
+      l += __ldcg(&a.ws_ml[pr * 2 + 1]) * w;
+      t += __ldcg(&a.ws_acc[pr * d + col]) * w;
+    }
+    const bool valid = l > 0.0f && m > MASK * 0.5f;
+    store(out + (orow + g) * d + col, t * (valid ? 1.0f / l : 0.0f));
+  }
+  if (a.lse != nullptr) {
+    for (int g = tid; g < G; g += NT) {
+      float m = MASK;
+      for (int s = 0; s < n_work; ++s) m = fmaxf(m, __ldcg(&a.ws_ml[(base + s * G + g) * 2]));
+      float l = 0.0f;
+      for (int s = 0; s < n_work; ++s) {
+        const size_t pr = base + s * G + g;
+        l += __ldcg(&a.ws_ml[pr * 2 + 1]) * exp2f(__ldcg(&a.ws_ml[pr * 2]) - m);
+      }
+      a.lse[orow + g] = l > 0.0f && m > MASK * 0.5f ? m * LN2 + logf(l)
+                                                    : -__int_as_float(0x7f800000);
     }
   }
 }
 
+// ------------------------------------------------------------ shared
+
+constexpr int SH_PAGE = 64;  // keys a step: one page
+
+// shared bytes of the shared-table route: 1024 of alignment slack, the Q
+// tile and NB pairs of K and V bf16 tiles (64 × HD each), ST raw stages,
+// their barriers, the rows' ranges, two pages' scales and the walk's range
+__host__ __device__ inline size_t shared_stage(int d, int es, bool quant) {
+  return 2 * (size_t)SH_PAGE * d * es + (quant ? 8 * SH_PAGE : 0);
+}
+__host__ __device__ inline size_t shared_smem(int hd, int nb, int st, int d, int es,
+                                              bool quant) {
+  return 1024 + (1 + 2 * (size_t)nb) * SH_PAGE * hd * 2 + st * shared_stage(d, es, quant) +
+         8 * st + 4 * 6 * SH_PAGE + 16;
+}
+
+// 8 page values as 8 bf16 (the kernel's view of them): bf16 as they are,
+// int8 exactly through the 2^23 trick (on the FMA pipe), float32 rounded
+__device__ __forceinline__ uint32_t pack_hi(float a, float b) {
+  return __byte_perm(__float_as_uint(a), __float_as_uint(b), 0x7632);
+}
+__device__ __forceinline__ uint4 bf16x8(const int8_t* p) {
+  const uint2 raw = *reinterpret_cast<const uint2*>(p);
+  float v[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const uint32_t w = (i < 4 ? raw.x : raw.y) ^ 0x80808080u;
+    v[i] = __uint_as_float(0x4B000000u | ((w >> (8 * (i % 4))) & 0xffu)) - 8388736.0f;
+  }
+  return make_uint4(pack_hi(v[0], v[1]), pack_hi(v[2], v[3]), pack_hi(v[4], v[5]),
+                    pack_hi(v[6], v[7]));
+}
+__device__ __forceinline__ uint4 bf16x8(const bf16* p) {
+  return *reinterpret_cast<const uint4*>(p);
+}
+__device__ __forceinline__ uint4 bf16x8(const float* p) {
+  const float4 x = reinterpret_cast<const float4*>(p)[0];
+  const float4 y = reinterpret_cast<const float4*>(p)[1];
+  return make_uint4(pack_bf16(x.x, x.y), pack_bf16(x.z, x.w), pack_bf16(y.x, y.y),
+                    pack_bf16(y.z, y.w));
+}
+
 template <typename TC, typename TO, int HD>
-cudaError_t launch(const Args& a, cudaStream_t stream) {
-  auto kern = paged_attention_kernel<TC, TO, HD>;
-  const size_t smem = smem_bytes(HD, a.page, a.g);
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+__global__ void __launch_bounds__(NT) paged_shared_kernel(const Args a, int NB, int ST) {
+  constexpr int ES = sizeof(TC);
+  constexpr bool QUANT = ES == 1;
+  constexpr int TILE = SH_PAGE * HD * 2, CH = HD / 8;
+  extern __shared__ unsigned char smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~(uintptr_t)1023);
+  uint8_t* qs = smem;
+  uint8_t* tiles = smem + TILE;  // NB × (K, V)
+  uint8_t* raw = tiles + 2 * NB * TILE;
+  const int d = a.d, G = a.g;
+  const size_t kvb = (size_t)SH_PAGE * d * ES;
+  const size_t rstage = shared_stage(d, ES, QUANT);
+  uint64_t* full = reinterpret_cast<uint64_t*>(raw + ST * rstage);
+  int* rs = reinterpret_cast<int*>(full + ST);  // row key ranges [rs, re)
+  int* re = rs + SH_PAGE;
+  float* ksc = reinterpret_cast<float*>(re + SH_PAGE);  // by step parity
+  float* vsc = ksc + 2 * SH_PAGE;
+  int* range = reinterpret_cast<int*>(vsc + 2 * SH_PAGE);
+
+  const int tile = blockIdx.x, h = blockIdx.y, tid = threadIdx.x;
+  const int* table = a.tables + (size_t)a.slots[0] * a.maxp;
+  if (tid == 0) {
+    range[0] = INT_MAX;
+    range[1] = 0;
+    for (int i = 0; i < ST; ++i) mbar_init(&full[i], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  if (tid < SH_PAGE) {  // row tid: (lane, g) = divmod(tile·64 + tid, G)
+    const int row = tile * SH_PAGE + tid, ln = row / G;
+    int s0 = 0, e0 = 0;
+    if (ln < a.b) {
+      const int len = a.lengths_override != nullptr ? a.lengths_override[ln]
+                                                    : a.lengths[a.slots[ln]] + a.len_add;
+      const int qpos = a.positions != nullptr ? a.positions[ln] : len - 1;
+      s0 = a.radius >= 0 ? max(qpos - a.radius, 0) : 0;
+      // the lane's walk covers at most pages_bound pages from its start
+      e0 = min(len, (s0 / SH_PAGE + a.bound) * SH_PAGE);
+      if (s0 < e0) {
+        atomicMin(&range[0], s0 / SH_PAGE);
+        atomicMax(&range[1], (e0 + SH_PAGE - 1) / SH_PAGE);
+      }
+    }
+    rs[tid] = s0;
+    re[tid] = e0;
+  }
+  // the Q tile: prescaled, bf16, 128-byte swizzled panels; zero past d
+  for (int idx = tid; idx < SH_PAGE * CH; idx += NT) {
+    const int r = idx / CH, c8 = idx % CH;
+    const int row = tile * SH_PAGE + r, ln = row / G, g = row % G;
+    uint4 w = make_uint4(0, 0, 0, 0);
+    if (ln < a.b && c8 * 8 < d) {
+      const size_t i = (((size_t)ln * a.kvh + h) * G + g) * d + c8 * 8;
+      w.x = pack_bf16(load_q(a, i), load_q(a, i + 1));
+      w.y = pack_bf16(load_q(a, i + 2), load_q(a, i + 3));
+      w.z = pack_bf16(load_q(a, i + 4), load_q(a, i + 5));
+      w.w = pack_bf16(load_q(a, i + 6), load_q(a, i + 7));
+    }
+    *reinterpret_cast<uint4*>(qs + tile_off<128, 64>(r, 16 * c8)) = w;
+  }
+  __syncthreads();
+  const int first = range[0], steps = max(0, range[1] - range[0]);
+
+  auto issue = [&](int t) {
+    const int phys = table[min(first + t, a.maxp - 1)];
+    const size_t row0 = ((size_t)h * a.total + phys) * SH_PAGE;
+    uint8_t* st = raw + (t % ST) * rstage;
+    uint64_t* bar = &full[t % ST];
+    mbar_expect_tx(bar, (uint32_t)rstage);
+    bulk_load(st, static_cast<const TC*>(a.kp) + row0 * d, (uint32_t)kvb, bar);
+    bulk_load(st + kvb, static_cast<const TC*>(a.vp) + row0 * d, (uint32_t)kvb, bar);
+    if constexpr (QUANT) {
+      bulk_load(st + 2 * kvb, a.ks + row0, 4 * SH_PAGE, bar);
+      bulk_load(st + 2 * kvb + 4 * SH_PAGE, a.vs + row0, 4 * SH_PAGE, bar);
+    }
+  };
+  if (tid == 0)
+    for (int t = 0; t < min(ST, steps); ++t) issue(t);
+  // decode step t's raw page into tile pair t % NB (zero past d), and its
+  // scales into ksc/vsc by the step's parity
+  auto decode = [&](int t) {
+    const uint8_t* st = raw + (t % ST) * rstage;
+    uint8_t* kt = tiles + (t % NB) * 2 * TILE;
+    mbar_wait(&full[t % ST], (t / ST) & 1);
+#pragma unroll 4
+    for (int it = 0; it < SH_PAGE * CH / NT; ++it) {
+      const int idx = tid + it * NT, r = idx / CH, c8 = idx % CH;
+      uint4 wk = make_uint4(0, 0, 0, 0), wv = wk;
+      if (c8 * 8 < d) {
+        wk = bf16x8(reinterpret_cast<const TC*>(st) + (size_t)r * d + c8 * 8);
+        wv = bf16x8(reinterpret_cast<const TC*>(st + kvb) + (size_t)r * d + c8 * 8);
+      }
+      *reinterpret_cast<uint4*>(kt + tile_off<128, 64>(r, 16 * c8)) = wk;
+      *reinterpret_cast<uint4*>(kt + TILE + tile_off<128, 64>(r, 16 * c8)) = wv;
+    }
+    if (QUANT && tid < SH_PAGE) {
+      const float* scl = reinterpret_cast<const float*>(st + 2 * kvb);
+      ksc[(t & 1) * SH_PAGE + tid] = scl[tid];
+      vsc[(t & 1) * SH_PAGE + tid] = scl[SH_PAGE + tid];
+    }
+  };
+  const int warp = tid / 32, lane = tid % 32;
+  const int ra = warp * 16 + lane / 4, rb = ra + 8, t4 = lane % 4;
+  const int sa = rs[ra], ea = re[ra], sb = rs[rb], eb = re[rb];
+  float ma = MASK, mb = MASK, la = 0.0f, lb = 0.0f;
+  float o[HD / 2];
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) o[i] = 0.0f;
+  const uint32_t q_addr = smem_u32(qs);
+
+  if (steps > 0) decode(0);
+  fence_async_smem();
+  __syncthreads();  // Q and the first tiles staged
+  if (tid == 0 && ST < steps) issue(ST);
+  for (int t = 0; t < steps; ++t) {
+    const uint32_t k_addr = smem_u32(tiles + (t % NB) * 2 * TILE), v_addr = k_addr + TILE;
+    const float* ks_t = ksc + (t & 1) * SH_PAGE;
+    const float* vs_t = vsc + (t & 1) * SH_PAGE;
+    // S = Q·Kᵀ on the tensor cores, both operands in shared memory; the
+    // next page decodes into the other tile pair while it runs
+    float sc[SH_PAGE / 2];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk) {
+      const int colb = 32 * kk;
+      const uint64_t da = desc<128>(q_addr + (colb / 128) * 64 * 128 + colb % 128);
+      const uint64_t db = desc<128>(k_addr + (colb / 128) * SH_PAGE * 128 + colb % 128);
+      wgmma_bf16_bf16<SH_PAGE>(sc, da, db, kk);
+    }
+    wgmma_commit();
+    const bool ahead = NB == 2 && t + 1 < steps;
+    if (ahead) decode(t + 1);
+    wgmma_wait0();
+    reg_fence(sc);
+
+    // per-row masks, the K scale, the page's online softmax in registers
+    const int k0 = (first + t) * SH_PAGE;
+    uint32_t vis = 0;
+    float mxa = MASK, mxb = MASK;
+#pragma unroll
+    for (int e = 0; e < SH_PAGE / 2; ++e) {
+      const int kpos = k0 + 8 * (e / 4) + 2 * t4 + (e & 1);
+      const bool v = (e & 2) ? (kpos >= sb && kpos < eb) : (kpos >= sa && kpos < ea);
+      vis |= (uint32_t)v << e;
+      sc[e] = v ? (QUANT ? sc[e] * ks_t[kpos - k0] : sc[e]) : MASK;
+      if (e & 2) mxb = fmaxf(mxb, sc[e]);
+      else mxa = fmaxf(mxa, sc[e]);
+    }
+    const float na = fmaxf(ma, quad_max(mxa)), nb = fmaxf(mb, quad_max(mxb));
+    const float alpha_a = exp2f(ma - na), alpha_b = exp2f(mb - nb);
+    ma = na;
+    mb = nb;
+#pragma unroll
+    for (int j = 0; j < HD / 8; ++j) {
+      o[4 * j] *= alpha_a;
+      o[4 * j + 1] *= alpha_a;
+      o[4 * j + 2] *= alpha_b;
+      o[4 * j + 3] *= alpha_b;
+    }
+    float psa = 0.0f, psb = 0.0f;
+#pragma unroll
+    for (int e = 0; e < SH_PAGE / 2; ++e) {
+      const float p = (vis >> e) & 1 ? exp2f(sc[e] - ((e & 2) ? mb : ma)) : 0.0f;
+      if (e & 2) psb += p;
+      else psa += p;
+      sc[e] = QUANT ? p * vs_t[8 * (e / 4) + 2 * t4 + (e & 1)] : p;
+    }
+    la = alpha_a * la + quad_sum(psa);
+    lb = alpha_b * lb + quad_sum(psb);
+
+    // O += P·V: P (bf16) the register A operand, V read MN-major
+    uint32_t pa[SH_PAGE / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < SH_PAGE / 16; ++kk)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) pa[kk][e] = pack_bf16(sc[8 * kk + 2 * e], sc[8 * kk + 2 * e + 1]);
+    reg_fence(o);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < SH_PAGE / 16; ++kk)
+      wgmma_rs_bf16<HD, 1>(o, pa[kk], desc_mn(v_addr + kk * 16 * 128, SH_PAGE * 128));
+    wgmma_commit();
+    wgmma_wait0();
+    reg_fence(o);
+    if (!ahead && t + 1 < steps) {  // one tile pair: decode after the products
+      __syncthreads();
+      decode(t + 1);
+    }
+    fence_async_smem();
+    __syncthreads();  // the next tiles staged; this raw stage and tile pair free
+    if (tid == 0 && t + 1 + ST < steps) issue(t + 1 + ST);
+  }
+
+  // finish: o = acc·(1/l), lse = m·ln2 + log(l); dead rows give 0, -inf
+  TO* out = static_cast<TO*>(a.out);
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int row = tile * SH_PAGE + (half ? rb : ra), ln = row / G, g = row % G;
+    if (ln >= a.b) continue;
+    const float l = half ? lb : la, m = half ? mb : ma;
+    const bool valid = l > 0.0f && m > MASK * 0.5f;
+    const float inv = valid ? 1.0f / l : 0.0f;
+    const size_t orow = ((size_t)ln * a.kvh + h) * G + g;
+#pragma unroll
+    for (int j = 0; j < HD / 8; ++j) {
+      const int col = 8 * j + 2 * t4;
+      if (col < d) {
+        store(out + orow * d + col, o[4 * j + 2 * half] * inv);
+        store(out + orow * d + col + 1, o[4 * j + 2 * half + 1] * inv);
+      }
+    }
+    if (a.lse != nullptr && t4 == 0)
+      a.lse[orow] = valid ? m * LN2 + logf(l) : -__int_as_float(0x7f800000);
+  }
+}
+
+// ------------------------------------------------------------ launch
+
+template <typename K>
+cudaError_t set_smem(K kern, size_t smem) {
+  if (smem > SMEM_LIMIT) return cudaErrorInvalidValue;
+  return cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+}
+
+template <typename TC, typename TO, int GC>
+cudaError_t launch_split(const Args& a, cudaStream_t stream) {
+  auto kern = paged_split_kernel<TC, TO, GC>;
+  const size_t smem =
+      split_smem(a.split_pages, a.page, a.d, sizeof(Staged<TC>), sizeof(TC) == 1, GC);
+  cudaError_t err = set_smem(kern, smem);
   if (err != cudaSuccess) return err;
-  dim3 grid(a.b, a.kvh);
-  kern<<<grid, NTHREADS, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(a.q), static_cast<const TC*>(a.kp),
-      static_cast<const TC*>(a.vp), a.ks, a.vs, a.slots, a.lengths,
-      a.lengths_override, a.positions, a.tables, static_cast<TO*>(a.out),
-      a.lse, a.kvh, a.g, a.d, a.page, a.total, a.maxp, a.bound, a.len_add,
-      a.radius);
+  kern<<<dim3(a.n_splits, a.kvh, a.b), NT, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
+template <typename TC, typename TO, int HD>
+cudaError_t launch_shared(const Args& a, cudaStream_t stream) {
+  constexpr int ES = sizeof(TC);
+  // two tile pairs (the next page decodes under this one's products) when
+  // two raw stages fit beside them, else one
+  int nb = 2, st = 3;
+  while (st > 0 && shared_smem(HD, nb, st, a.d, ES, ES == 1) > SMEM_LIMIT) {
+    if (--st < 2 && nb == 2) {
+      nb = 1;
+      st = 3;
+    }
+  }
+  if (st == 0) return cudaErrorInvalidValue;
+  auto kern = paged_shared_kernel<TC, TO, HD>;
+  const size_t smem = shared_smem(HD, nb, st, a.d, ES, ES == 1);
+  cudaError_t err = set_smem(kern, smem);
+  if (err != cudaSuccess) return err;
+  const long tiles = ((long)a.b * a.g + SH_PAGE - 1) / SH_PAGE;
+  kern<<<dim3((unsigned)tiles, a.kvh), NT, smem, stream>>>(a, nb, st);
   return cudaGetLastError();
 }
 
 template <typename TC, typename TO>
-cudaError_t by_dim(int d, const Args& a, cudaStream_t stream) {
-  if (d <= 64) return launch<TC, TO, 64>(a, stream);
-  if (d <= 128) return launch<TC, TO, 128>(a, stream);
-  return launch<TC, TO, 256>(a, stream);
+cudaError_t by_route(int route, const Args& a, cudaStream_t stream) {
+  const int d = a.d;
+  if (route == SPLIT) {
+    if (a.g <= 1) return launch_split<TC, TO, 1>(a, stream);
+    if (a.g <= 2) return launch_split<TC, TO, 2>(a, stream);
+    if (a.g <= 4) return launch_split<TC, TO, 4>(a, stream);
+    return launch_split<TC, TO, 8>(a, stream);
+  }
+  if (d <= 64) return launch_shared<TC, TO, 64>(a, stream);
+  if (d <= 128) return launch_shared<TC, TO, 128>(a, stream);
+  return launch_shared<TC, TO, 256>(a, stream);
 }
 
 template <typename TO>
-cudaError_t by_cache(int cache_dtype, int d, const Args& a,
-                     cudaStream_t stream) {
+cudaError_t by_cache(int cache_dtype, int route, const Args& a, cudaStream_t stream) {
   switch (cache_dtype) {
-    case 0: return by_dim<float, TO>(d, a, stream);
-    case 1: return by_dim<__nv_bfloat16, TO>(d, a, stream);
-    case 2: return by_dim<int8_t, TO>(d, a, stream);
+    case 0: return by_route<float, TO>(route, a, stream);
+    case 1: return by_route<bf16, TO>(route, a, stream);
+    case 2: return by_route<int8_t, TO>(route, a, stream);
   }
   return cudaErrorInvalidValue;
 }
 
+bool aligned(const void* p, int n) { return reinterpret_cast<uintptr_t>(p) % n == 0; }
+
 }  // namespace
 
-// q: (b, kvh, g, d) bf16 prescaled; k/v pages: (kvh, total, page, d) of
-// cache_dtype (0 float32, 1 bf16, 2 int8); scales: (kvh, total, page) f32
+// q: (b, kvh, g, d) of q_dtype (0 float32, 1 bf16), unscaled: the kernel
+// rounds q·qscale to bf16; new_k/new_v: (b, kvh, d) of in_dtype (0, 1) for
+// the split route's fused append, else null; k/v pages: (kvh, total, page,
+// d) of cache_dtype (0 float32, 1 bf16, 2 int8), written by the append,
+// 8-byte aligned (16 on the shared route); scales: (kvh, total, page) f32
 // for int8, else null; slots (b,), lengths (max_seqs,), page_tables
 // (max_seqs, max_pages) int32; lengths_override and positions: (b,) int32
 // or null; radius: the band radius, or -1 for none; d: a multiple of 8 up
-// to 256; g: any group size; out: (b, kvh, g, d) of
-// out_dtype (0 float32, 1 bf16); lse: (b, kvh, g) float32 or null. Lane i
-// sees keys [start_i, len_i) as the kernel's note says. All contiguous.
+// to 256; g: any group size; out: (b, kvh, g, d) of out_dtype (0 float32,
+// 1 bf16); lse: (b, kvh, g) float32 or null. route: 0 split (split_pages
+// pages a split, n_splits = the grid's splits; when n_splits > 1, ws_acc
+// (b, kvh, n_splits, g, d) and ws_ml (b, kvh, n_splits, g, 2) float32 and
+// tickets (b, kvh) int32, which this call zeroes on `stream` before its
+// launch), 1 shared (page 64; every lane on slots[0]'s table row). All
+// contiguous. A route that does not take the shape, or a split plan whose
+// stages do not fit in shared memory, returns cudaErrorInvalidValue.
 extern "C" cudaError_t tf_paged_attention(
-    const void* q, const void* k_pages, const void* v_pages,
-    const float* k_scales, const float* v_scales, const int* slots,
-    const int* lengths, const int* lengths_override, const int* positions,
-    const int* page_tables, void* out, float* lse, int b, int kvh, int g,
-    int d, int page, int total_pages, int max_pages, int pages_bound,
-    int len_add, int radius, int cache_dtype, int out_dtype,
-    cudaStream_t stream) {
+    const void* q, const void* new_k, const void* new_v, void* k_pages, void* v_pages,
+    float* k_scales, float* v_scales, const int* slots, const int* lengths,
+    const int* lengths_override, const int* positions, const int* page_tables, void* out,
+    float* lse, float* ws_acc, float* ws_ml, int* tickets, int b, int kvh, int g, int d,
+    int page, int total_pages, int max_pages, int pages_bound, int len_add, int radius,
+    int q_dtype, int in_dtype, int cache_dtype, int out_dtype, int route, int split_pages,
+    int n_splits, float qscale, cudaStream_t stream) {
   if (b <= 0) return cudaSuccess;
+  const bool quant = cache_dtype == 2;
   if (g < 1 || d < 8 || d > 256 || d % 8 != 0 || page < 1 || page > MAX_PAGE ||
-      max_pages < 1 ||
-      radius < -1 ||
-      (cache_dtype == 2) != (k_scales != nullptr && v_scales != nullptr))
+      max_pages < 1 || pages_bound < 1 || radius < -1 || q_dtype < 0 || q_dtype > 1 ||
+      cache_dtype < 0 || cache_dtype > 2 || route < SPLIT || route > SHARED ||
+      quant != (k_scales != nullptr && v_scales != nullptr) ||
+      (new_k != nullptr) != (new_v != nullptr) || (new_k != nullptr && route != SPLIT) ||
+      (new_k != nullptr && (in_dtype < 0 || in_dtype > 1)) || b > 65535 || kvh > 65535 ||
+      !aligned(k_pages, 8) || !aligned(v_pages, 8))
     return cudaErrorInvalidValue;
-  const Args a{q, k_pages, v_pages, k_scales, v_scales, slots, lengths,
-               lengths_override, positions, page_tables, out, lse, b, kvh, g, d,
-               page, total_pages, max_pages, pages_bound, len_add, radius};
-  if (out_dtype == 0) return by_cache<float>(cache_dtype, d, a, stream);
-  if (out_dtype == 1) return by_cache<__nv_bfloat16>(cache_dtype, d, a, stream);
+  const int es = cache_dtype == 0 ? 4 : cache_dtype == 1 ? 2 : 1;
+  // the bulk copies' rules: 16-byte sizes and addresses
+  const bool bulk_ok = aligned(k_pages, 16) && aligned(v_pages, 16) &&
+                       (!quant || (aligned(k_scales, 16) && aligned(v_scales, 16)));
+  const bool bulk = cache_dtype != 0 && bulk_ok && ((size_t)page * d * es) % 16 == 0 &&
+                    (!quant || page % 4 == 0);
+  if (route == SHARED && (page != SH_PAGE || !bulk_ok)) return cudaErrorInvalidValue;
+  if (route == SPLIT &&
+      (split_pages < 1 || n_splits < 1 || n_splits > 65535 ||
+       (long)n_splits * split_pages < pages_bound ||
+       (n_splits > 1 && (ws_acc == nullptr || ws_ml == nullptr || tickets == nullptr))))
+    return cudaErrorInvalidValue;
+  if (route == SPLIT && n_splits > 1) {
+    const cudaError_t err = cudaMemsetAsync(tickets, 0, sizeof(int) * (size_t)b * kvh, stream);
+    if (err != cudaSuccess) return err;
+  }
+  const Args a{q, new_k, new_v, k_pages, v_pages, k_scales, v_scales, slots, lengths,
+               lengths_override, positions, page_tables, out, lse, ws_acc, ws_ml, tickets,
+               b, kvh, g, d, page, total_pages, max_pages, pages_bound, len_add, radius,
+               q_dtype == 0, in_dtype == 0, split_pages, n_splits, bulk, qscale};
+  if (out_dtype == 0) return by_cache<float>(cache_dtype, route, a, stream);
+  if (out_dtype == 1) return by_cache<bf16>(cache_dtype, route, a, stream);
   return cudaErrorInvalidValue;
 }

@@ -1,17 +1,22 @@
 """Hand-written Hopper kernels: build/load (``_build``) and launch counts.
 
-``LAUNCHES`` counts launches per kernel. Each wrapper adds one right after
-its kernel launched, and nowhere else; the plain PyTorch versions never
-touch it. A run that resets the counts and reads them afterwards can so
-show that it went through the kernels.
+``LAUNCHES`` counts launches per kernel, and per route where one kernel
+file has several (B2: ``paged_attention_split`` and ``_shared``,
+``ops/paged.py:paged_route``); ``paged_append_fused`` counts the split
+route's launches that carry B3's append (B3's function on the decode path,
+in the same launch). Each wrapper adds one right after its kernel
+launched, and nowhere else; the plain PyTorch versions never touch it. A
+run that resets the counts and reads them afterwards can so show that it
+went through the kernels.
 """
 
 from __future__ import annotations
 
 import torch
 
-LAUNCHES = {"flash_fwd": 0, "paged_attention": 0, "paged_append": 0,
-            "flash_bwd_dq": 0, "flash_bwd_dkv": 0, "serving_attention": 0,
+LAUNCHES = {"flash_fwd": 0, "paged_attention_split": 0,
+            "paged_attention_shared": 0, "paged_append": 0,
+            "paged_append_fused": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0, "serving_attention": 0,
             "quant_attention": 0, "softmax_onepass": 0, "softmax_stats": 0,
             "softmax_norm": 0, "matmul": 0}
 

@@ -3,7 +3,8 @@
 ``tpu_flash_torch/csrc/*.cu`` compile with ``nvcc`` into one shared library
 with a plain C interface, loaded through ``ctypes``: one ``nvcc -c`` per
 source, all started together, then one link. No source includes PyTorch's
-headers; the TMA + wgmma kernels (B1, B6/B7, B14) share ``csrc/hopper.cuh``.
+headers; the TMA + wgmma and bulk-copy kernels (B1, B2, B4/B5, B6/B7, B14)
+share ``csrc/hopper.cuh``.
 A cold build takes under a minute on the H100 machine, nearly all of it
 ``quant_attention.cu`` (18 instantiations of its wgmma kernel), the other
 sources finishing within it. The library lands in
@@ -41,11 +42,12 @@ _SIGNATURES = {
     # q, k, v, o, lse, kmax, bh_q, n_q, n_kv, hq, hkv, d, kind, offset,
     # radius, section, dtype, stream
     "tf_flash_fwd": [_vp] * 6 + [_i32] * 11 + [_vp],
-    # q, k_pages, v_pages, k_scales, v_scales, slots, lengths,
-    # lengths_override, positions, page_tables, out, lse, b, kvh, g, d,
-    # page, total_pages, max_pages, pages_bound, len_add, radius,
-    # cache_dtype, out_dtype, stream
-    "tf_paged_attention": [_vp] * 12 + [_i32] * 12 + [_vp],
+    # q, new_k, new_v, k_pages, v_pages, k_scales, v_scales, slots,
+    # lengths, lengths_override, positions, page_tables, out, lse, ws_acc,
+    # ws_ml, tickets, b, kvh, g, d, page, total_pages, max_pages,
+    # pages_bound, len_add, radius, q_dtype, in_dtype, cache_dtype,
+    # out_dtype, route, split_pages, n_splits, qscale, stream
+    "tf_paged_attention": [_vp] * 17 + [_i32] * 17 + [ctypes.c_float, _vp],
     # k_new, v_new, k_pages, v_pages, k_scales, v_scales, slots, lengths,
     # page_tables, b, kvh, d, page, total_pages, max_pages, in_dtype,
     # cache_dtype, stream

@@ -298,7 +298,8 @@ def prefill_chunk(params, tokens, offset: int, true_len: int, caches,
         o1, lse1 = paged_attention(
             q[0], cache, slot_lanes, radius=radius,
             positions=None if radius is None else positions[0],
-            pages_bound=pages_bound, return_lse=True, shared_page_table=True)
+            pages_bound=pages_bound, return_lse=True, shared_page_table=True,
+            _shared_slot=slot)
         o2, lse2 = flash.flash_attention(
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
             schedule="causal" if radius is None else "local_causal",
@@ -322,8 +323,9 @@ def decode_step(params, tokens, positions, caches, slots, cfg: ModelConfig,
 
     tokens: (B,) new token ids; positions: (B,) their positions; caches:
     one PagedKVCache per layer; slots: (B,) int32 slot ids. Each layer
-    appends the new token's K/V to its cache (in place, B3) before the
-    paged attention (B2), so the token attends to itself; a sliding model
+    appends the new token's K/V to its cache (in place; on the card inside
+    the paged attention's launch, B2 with B3 fused), so the token attends
+    to itself; a sliding model
     attends only its band. ``pipelined=True`` takes the reference's
     pipelined decode (``paged_attention_pipelined``: each lane walks
     exactly its own pages; ``pages_bound`` is then ignored).

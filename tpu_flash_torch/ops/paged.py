@@ -7,19 +7,23 @@ page by page with an online base-2 softmax. q is cast to bf16 whatever the
 model dtype, and so are the K/V pages before the dots; int8 pages fold their
 per-token K scale into the score column and their V scale into P.
 
+On the card B2 has two routes (:func:`paged_route`, from static shapes
+alone): ``split`` walks each lane's pages in splits of at most
+:func:`split_plan` pages, one CTA a (split, kv head, lane), and combines the
+splits' partials in split order; ``shared`` takes the chunk prefix
+(``shared_page_table`` at page 64) as 64-row q tiles on the tensor cores.
 The reference fuses the new token's quantize+append into the attention
-pass. Here ``paged_attention(new_kv=...)`` launches the append (B3) and then
-the attention (B2) on the same stream: the new token attends its own
-quantized K/V exactly as in the fused kernel. Both update the cache in
-place.
+pass, and so does the split route: ``paged_attention(new_kv=...)`` is one
+launch that writes the new row and attends it. The q prescale is folded
+into the kernels' q load.
 
 The reference's pipelined decode kernel (B12, ``_pipe_kernel``) walks
 each lane's own pages with a hand-pipelined DMA loop; on the card that is
-B2 with an uncapped walk (plus B3 for the append), so B12 folds into them.
+B2 with an uncapped walk and the fused append, so B12 folds into it.
 
 Each wrapper dispatches on the tensors' device: CPU tensors take the plain
-PyTorch version, CUDA tensors launch ``csrc/paged_attention.cu`` or
-``csrc/paged_append.cu``, or raise.
+PyTorch version (one split), CUDA tensors launch ``csrc/paged_attention.cu``
+or ``csrc/paged_append.cu``, or raise.
 """
 
 from __future__ import annotations
@@ -127,6 +131,42 @@ def fused_append(cache, slots: torch.Tensor, k: torch.Tensor,
 
 # -- B2: decode attention --------------------------------------------------------
 
+# SMs of an H100 SXM: the split plan aims at several CTAs an SM
+_SMS = 132
+# pages a split walks at most (all in flight at once), and the K/V page
+# bytes (in the cache's storage) a split CTA may have in flight: with its
+# scores and sums that keeps three CTAs an SM at d 128
+_MAX_SPLIT_PAGES = 4
+_SPLIT_BYTES = 57344
+_SHARED_PAGE = 64
+# B2's routes, in the order of their codes in csrc/paged_attention.cu
+ROUTES = ("split", "shared")
+
+
+def paged_route(page: int, shared_page_table: bool) -> str:
+    """B2's route on the card, from static shapes alone: ``shared`` for
+    the shared page table (the chunk prefix) at page 64, a tensor-core q
+    tile over the prefix; ``split`` for every other call (any head dim,
+    group, page size and cache dtype the kernels take)."""
+    if shared_page_table and page == _SHARED_PAGE:
+        return "shared"
+    return "split"
+
+
+def split_plan(b: int, kvh: int, d: int, page: int, cache_dtype,
+               pages_bound: int) -> int:
+    """Pages a split walks on the card (``S``), from static shapes only:
+    enough splits that ``b·kvh`` (lane, head) walks of up to
+    ``pages_bound`` pages make about 4 CTAs an SM, at most 4 pages, and at
+    most 56 KB of K/V pages (and int8 scale rows) a CTA: int8 pages at d
+    128 take 3, bf16 1. The plain version takes the same plan to round
+    where the kernel does; the launch refuses a plan whose stages do not
+    fit in shared memory (one page always does)."""
+    es = {torch.float32: 4, torch.bfloat16: 2, torch.int8: 1}[cache_dtype]
+    page_bytes = 2 * page * (d * es + (4 if cache_dtype == torch.int8 else 0))
+    want = -(-b * kvh * pages_bound // (4 * _SMS))
+    return max(1, min(want, _MAX_SPLIT_PAGES, _SPLIT_BYTES // page_bytes))
+
 
 def _lane_view(slots, lengths, len_add: int, lengths_override, positions,
                radius):
@@ -148,15 +188,21 @@ def _paged_attention_plain(qg, k_pages, v_pages, k_scales, v_scales, slots,
                            lengths, page_tables, len_add: int,
                            pages_bound: int, out_dtype, want_lse: bool,
                            lengths_override=None, positions=None,
-                           radius: Optional[int] = None):
+                           radius: Optional[int] = None,
+                           split_pages: Optional[int] = None):
     """Plain PyTorch decode attention.
 
     qg: ``(B, kvh, G, d)`` bf16, prescaled by scale·log2(e). Lane b sees
     keys ``[start_b, len_b)`` (:func:`_lane_view`), walked page by page
     from page ``start_b // page`` like the kernel (at most ``pages_bound``
     pages; logical pages past the lane's length clamp to its last page and
-    are masked). A lane with no visible key gives o = 0, lse = −inf.
-    Returns ``(o (B, kvh, G, d) out_dtype, lse (B, kvh, G) f32 | None)``.
+    are masked). ``split_pages``: the card's plan (:func:`split_plan`) —
+    the walk is cut into splits of that many pages, each with its own
+    online softmax from scratch (P rounds against the split's running
+    max), and the splits' (m, l, acc) combine in split order as the split
+    kernel combines them; ``None`` is one split, the reference's walk. A
+    lane with no visible key gives o = 0, lse = −inf. Returns
+    ``(o (B, kvh, G, d) out_dtype, lse (B, kvh, G) f32 | None)``.
     """
     b, kvh, g, d = qg.shape
     page = k_pages.shape[2]
@@ -166,40 +212,59 @@ def _paged_attention_plain(qg, k_pages, v_pages, k_scales, v_scales, slots,
     tables = page_tables[sl].long()  # (B, maxp)
     n_pages = (lens + page - 1) // page
     start_pg = start // page
-    steps = n_pages - start_pg  # pages each lane walks (≤ 0: none)
+    # pages each lane walks
+    n_walk = torch.clamp(n_pages - start_pg, 0, pages_bound)
     last = torch.clamp(torch.clamp_min(n_pages, 1) - 1,
                        max=tables.shape[1] - 1)
     quantized = k_scales is not None
     q = qg.float()
-    m = torch.full((b, kvh, g), DEFAULT_MASK_VALUE, device=qg.device)
-    l = torch.zeros((b, kvh, g), device=qg.device)
-    acc = torch.zeros((b, kvh, g, d), device=qg.device)
     rows = torch.arange(page, device=qg.device)
-    n_iter = min(pages_bound, int(steps.max())) if b else 0
-    for i in range(n_iter):
-        logical = start_pg + i
-        phys = tables.gather(1, torch.minimum(logical, last)[:, None])[:, 0]
-        kf = k_pages[:, phys].transpose(0, 1).to(qg.dtype).float()
-        vf = v_pages[:, phys].transpose(0, 1).to(qg.dtype).float()
-        s = torch.einsum("bhgd,bhpd->bhgp", q, kf)
-        if quantized:
-            s = s * k_scales[:, phys].transpose(0, 1)[:, :, None, :]
-        kpos = (logical * page)[:, None] + rows[None, :]  # (B, page)
-        seen = (kpos >= start[:, None]) & (kpos < lens[:, None])
-        s = torch.where(seen[:, None, None, :], s, DEFAULT_MASK_VALUE)
-        m_next = torch.maximum(m, s.amax(dim=-1))
-        alpha = torch.exp2(m - m_next)
-        p = torch.exp2(s - m_next[..., None])
-        l_next = alpha * l + p.sum(dim=-1)
-        if quantized:
-            p = p * v_scales[:, phys].transpose(0, 1)[:, :, None, :]
-        pv = torch.einsum("bhgp,bhpd->bhgd", p.to(qg.dtype).float(), vf)
-        acc_next = acc * alpha[..., None] + pv
-        # lanes whose pages ran out skip the step, as the kernel does
-        step = (i < steps)[:, None, None]
-        m = torch.where(step, m_next, m)
-        l = torch.where(step, l_next, l)
-        acc = torch.where(step[..., None], acc_next, acc)
+    per = pages_bound if split_pages is None else split_pages
+    most = int(n_walk.max()) if b else 0
+    parts = []
+    for first in range(0, min(pages_bound, max(most, 1)), per):
+        m = torch.full((b, kvh, g), DEFAULT_MASK_VALUE, device=qg.device)
+        l = torch.zeros((b, kvh, g), device=qg.device)
+        acc = torch.zeros((b, kvh, g, d), device=qg.device)
+        for i in range(first, min(first + per, most)):
+            logical = start_pg + i
+            phys = tables.gather(1, torch.minimum(logical, last)[:, None])[:, 0]
+            kf = k_pages[:, phys].transpose(0, 1).to(qg.dtype).float()
+            vf = v_pages[:, phys].transpose(0, 1).to(qg.dtype).float()
+            s = torch.einsum("bhgd,bhpd->bhgp", q, kf)
+            if quantized:
+                s = s * k_scales[:, phys].transpose(0, 1)[:, :, None, :]
+            kpos = (logical * page)[:, None] + rows[None, :]  # (B, page)
+            seen = (kpos >= start[:, None]) & (kpos < lens[:, None])
+            s = torch.where(seen[:, None, None, :], s, DEFAULT_MASK_VALUE)
+            m_next = torch.maximum(m, s.amax(dim=-1))
+            alpha = torch.exp2(m - m_next)
+            p = torch.exp2(s - m_next[..., None])
+            l_next = alpha * l + p.sum(dim=-1)
+            if quantized:
+                p = p * v_scales[:, phys].transpose(0, 1)[:, :, None, :]
+            pv = torch.einsum("bhgp,bhpd->bhgd", p.to(qg.dtype).float(), vf)
+            acc_next = acc * alpha[..., None] + pv
+            # lanes whose pages ran out skip the step, as the kernel does
+            step = (i < n_walk)[:, None, None]
+            m = torch.where(step, m_next, m)
+            l = torch.where(step, l_next, l)
+            acc = torch.where(step[..., None], acc_next, acc)
+        parts.append((first, m, l, acc))
+    if len(parts) == 1:
+        _, m, l, acc = parts[0]
+    else:
+        # the splits that walked a page, combined in split order
+        live = [(first < n_walk)[:, None, None] for first, *_ in parts]
+        m = torch.full((b, kvh, g), DEFAULT_MASK_VALUE, device=qg.device)
+        for on, (_, ms, _, _) in zip(live, parts):
+            m = torch.where(on, torch.maximum(m, ms), m)
+        l = torch.zeros((b, kvh, g), device=qg.device)
+        acc = torch.zeros((b, kvh, g, d), device=qg.device)
+        for on, (_, ms, ls, accs) in zip(live, parts):
+            w = torch.where(on, torch.exp2(ms - m), 0.0)
+            l = l + ls * w
+            acc = acc + accs * w[..., None]
     valid = (l > 0.0) & (m > DEFAULT_MASK_VALUE * 0.5)
     l_safe = torch.where(l > 0.0, l, 1.0)
     o = (acc * torch.where(valid, 1.0 / l_safe, 0.0)[..., None]).to(out_dtype)
@@ -209,49 +274,88 @@ def _paged_attention_plain(qg, k_pages, v_pages, k_scales, v_scales, slots,
     return o, lse
 
 
-def _paged_attention_kernel(qg, k_pages, v_pages, k_scales, v_scales, slots,
+def _paged_attention_kernel(q, k_pages, v_pages, k_scales, v_scales, slots,
                             lengths, page_tables, len_add: int,
                             pages_bound: int, out_dtype, want_lse: bool,
                             lengths_override=None, positions=None,
-                            radius: Optional[int] = None):
-    """Launch ``csrc/paged_attention.cu`` (same contract as the plain
-    version; the kernel computes each lane's view itself)."""
+                            radius: Optional[int] = None, *, new_kv=None,
+                            q_scale: float = 1.0,
+                            shared_page_table: bool = False):
+    """Launch ``csrc/paged_attention.cu`` (the plain version's contract;
+    the kernel computes each lane's view itself).
+
+    q: ``(B, kvh, G, d)`` float32 or bf16; the kernel rounds ``q·q_scale``
+    to bf16 as it loads it (``q_scale`` 1 for a prescaled bf16 q).
+    ``new_kv=(k, v)`` (``(B, kvh, d)`` each): the split route's fused
+    append writes them into each slot's tail page before they are
+    attended (pass ``len_add`` 1). The route is :func:`paged_route`'s and
+    the split plan :func:`split_plan`'s. Returns ``(o, lse | None)``; the
+    cache's lengths are not advanced."""
     from tpu_flash_torch.kernels import _build
 
-    b, kvh, g, d = qg.shape
+    b, kvh, g, d = q.shape
     _, total, page, stor = k_pages.shape
     quantized = k_scales is not None
     lanes = tuple(t for t in (lengths_override, positions) if t is not None)
-    _check_cuda("paged_attention", slots, lengths, page_tables, qg, k_pages,
-                v_pages, *((k_scales, v_scales) if quantized else ()), *lanes)
+    news = tuple(new_kv) if new_kv is not None else ()
+    _check_cuda("paged_attention", slots, lengths, page_tables, q, k_pages,
+                v_pages, *((k_scales, v_scales) if quantized else ()), *lanes,
+                *news)
     if any(t.dtype != torch.int32 or t.shape != (b,) for t in lanes):
         raise ValueError("paged kernel: lengths_override and positions must "
                          f"be int32 of shape ({b},)")
-    if qg.dtype != torch.bfloat16:
-        raise ValueError("paged kernel: q must be prescaled bf16")
+    if q.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"paged kernel: q must be bf16 or float32, got {q.dtype}")
     if stor != d:
         raise ValueError(f"paged kernel: head_dim {d}, storage {stor}")
     _check_head_dim("paged", d)
     if quantized != (k_pages.dtype == torch.int8):
         raise ValueError("paged kernel: scales go with int8 pages only")
-    o = torch.empty((b, kvh, g, d), dtype=out_dtype, device=qg.device)
-    lse = (torch.empty((b, kvh, g), dtype=torch.float32, device=qg.device)
+    if news and (news[0].shape != (b, kvh, d) or news[1].shape != (b, kvh, d)
+                 or news[0].dtype not in (torch.bfloat16, torch.float32)
+                 or news[1].dtype != news[0].dtype):
+        raise ValueError(f"paged kernel: new K/V must be ({b}, {kvh}, {d}) "
+                         "bf16 or float32")
+    route = paged_route(page, shared_page_table)
+    if news and route == "shared":
+        raise ValueError("paged kernel: the shared route takes no append")
+    split_pages, n_splits, ws_ptrs = 1, 1, (None,) * 3
+    if route == "split":
+        split_pages = split_plan(b, kvh, d, page, k_pages.dtype, pages_bound)
+        n_splits = -(-pages_bound // split_pages)
+    if n_splits > 1:
+        # the splits' partials (acc, then m and l) and the (lane, head)
+        # tickets, from the caching allocator on the call's stream; the
+        # launch zeroes the tickets first
+        parts = b * kvh * n_splits * g
+        ws = torch.empty(parts * (d + 2) + b * kvh, dtype=torch.float32,
+                         device=q.device)
+        base = ws.data_ptr()
+        ws_ptrs = (base, base + 4 * parts * d, base + 4 * parts * (d + 2))
+    o = torch.empty((b, kvh, g, d), dtype=out_dtype, device=q.device)
+    lse = (torch.empty((b, kvh, g), dtype=torch.float32, device=q.device)
            if want_lse else None)
 
     def ptr(t):
         return None if t is None else t.data_ptr()
 
     err = _build.library().tf_paged_attention(
-        qg.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-        ptr(k_scales), ptr(v_scales), slots.data_ptr(), lengths.data_ptr(),
-        ptr(lengths_override), ptr(positions), page_tables.data_ptr(),
-        o.data_ptr(), ptr(lse), b, kvh, g, d, page, total,
-        page_tables.shape[1], pages_bound, len_add,
-        -1 if radius is None else radius, kernels.dtype_code(k_pages.dtype),
-        kernels.dtype_code(out_dtype), kernels.stream_handle(qg),
+        q.data_ptr(), *(ptr(t) for t in (news or (None, None))),
+        k_pages.data_ptr(), v_pages.data_ptr(), ptr(k_scales), ptr(v_scales),
+        slots.data_ptr(), lengths.data_ptr(), ptr(lengths_override),
+        ptr(positions), page_tables.data_ptr(), o.data_ptr(), ptr(lse),
+        *ws_ptrs, b, kvh, g, d, page, total, page_tables.shape[1],
+        pages_bound, len_add,
+        -1 if radius is None else radius, kernels.dtype_code(q.dtype),
+        kernels.dtype_code(news[0].dtype) if news else 0,
+        kernels.dtype_code(k_pages.dtype), kernels.dtype_code(out_dtype),
+        ROUTES.index(route), split_pages, n_splits, q_scale,
+        kernels.stream_handle(q),
     )
-    _build.check(err, "tf_paged_attention")
-    kernels.LAUNCHES["paged_attention"] += 1
+    _build.check(err, f"tf_paged_attention ({route})")
+    kernels.LAUNCHES[f"paged_attention_{route}"] += 1
+    if news:
+        kernels.LAUNCHES["paged_append_fused"] += 1
     return o, lse
 
 
@@ -292,18 +396,20 @@ def paged_attention(
     pages_bound: Optional[int] = None,
     return_lse: bool = False,
     shared_page_table: bool = False,
+    _shared_slot: Optional[int] = None,
 ):
     """Decode attention over the paged cache, optionally appending the new
     token first.
 
     q: ``(B, q_heads, head_dim)``; slots: ``(B,)`` int32 slot ids.
     ``new_kv=(k, v)``, each ``(B, kv_heads, head_dim)``: the new token's
-    K/V are quantized and written into each slot's tail page (B3) before
-    the attention (B2) reads it, and lengths advance by one per lane; the
-    call then returns ``(out, cache)`` (or ``(out, lse, cache)``) with the
-    cache updated in place. Without it the K/V must already be appended and
-    the call returns ``out`` (or ``(out, lse)``). lse is in natural-log
-    units; a lane with no visible key gives o = 0, lse = −inf.
+    K/V are quantized and written into each slot's tail page before the
+    attention reads them (on the card one fused launch), and lengths
+    advance by one per lane; the call then returns ``(out, cache)`` (or
+    ``(out, lse, cache)``) with the cache updated in place. Without it the
+    K/V must already be appended and the call returns ``out`` (or ``(out,
+    lse)``). lse is in natural-log units; a lane with no visible key gives
+    o = 0, lse = −inf.
 
     ``radius``: sliding-window band — the query at ``qpos`` sees keys from
     ``max(qpos − radius, 0)``, and the page walk starts there, so at most
@@ -312,7 +418,9 @@ def paged_attention(
     prefill rides the chunk's tokens on the lanes); default ``lengths −
     1``. ``lengths_override`` (``(B,)`` int32): per-lane visible key
     counts instead of the slot lengths. ``shared_page_table``: every lane
-    addresses the same slot (checked on the host). ``lengths_override`` and
+    addresses the same slot (checked on the host, which waits for the
+    device; ``_shared_slot``, the slot as a Python int from a caller that
+    made ``slots`` itself, skips the check). ``lengths_override`` and
     ``shared_page_table`` need pre-appended K/V (no ``new_kv``).
     ``pages_bound`` caps the pages walked (default: the cache's
     max_pages_per_seq).
@@ -336,26 +444,35 @@ def paged_attention(
     if shared_page_table:
         if append:
             raise ValueError("shared_page_table requires pre-appended K/V")
-        if b and not bool((slots == slots[:1]).all()):
+        if (_shared_slot is None and b
+                and not bool((slots == slots[:1]).all())):
             raise ValueError("shared_page_table: every lane must address "
                              "the same slot")
-    if append:
-        fused_append(cache, slots, *new_kv)
-    qg = (q.float() * (scale * LOG2E)).to(torch.bfloat16)
-    qg = qg.reshape(b, kvh, qh // kvh, d)
-    args = (qg, cache.k_pages, cache.v_pages, cache.k_scales, cache.v_scales,
-            slots, cache.lengths, cache.page_tables, int(append), num_steps,
-            q.dtype, return_lse)
+
     def lanes(t):
         return None if t is None else t.to(torch.int32)
 
     lane_kw = dict(lengths_override=lanes(lengths_override),
                    positions=None if radius is None else lanes(positions),
                    radius=radius)
+    g = qh // kvh
     if q.device.type == "cpu":
-        o, lse = _paged_attention_plain(*args, **lane_kw)
+        if append:
+            fused_append(cache, slots, *new_kv)
+        qg = (q.float() * (scale * LOG2E)).to(torch.bfloat16)
+        o, lse = _paged_attention_plain(
+            qg.reshape(b, kvh, g, d), cache.k_pages, cache.v_pages,
+            cache.k_scales, cache.v_scales, slots, cache.lengths,
+            cache.page_tables, int(append), num_steps, q.dtype, return_lse,
+            **lane_kw)
     elif q.device.type == "cuda":
-        o, lse = _paged_attention_kernel(*args, **lane_kw)
+        news = tuple(t.contiguous() for t in new_kv) if append else None
+        o, lse = _paged_attention_kernel(
+            q.contiguous().reshape(b, kvh, g, d), cache.k_pages,
+            cache.v_pages, cache.k_scales, cache.v_scales, slots,
+            cache.lengths, cache.page_tables, int(append), num_steps,
+            q.dtype, return_lse, **lane_kw, new_kv=news,
+            q_scale=scale * LOG2E, shared_page_table=shared_page_table)
     else:
         raise NotImplementedError(f"no paged attention path for {q.device}")
     o = o.reshape(b, qh, d)
@@ -384,14 +501,13 @@ def paged_attention_pipelined(
     function as :func:`paged_attention` minus ``pages_bound``: each lane
     walks exactly its own ⌈visible/page⌉ pages from its band start.
 
-    On the card that is B2 with the walk left uncapped, and the append is
-    split (B3, then B2), as the reference's default is. ``rank1_append``
+    On the card that is B2's split route with the walk left uncapped and
+    the append fused, as the reference's default is. ``rank1_append``
     (the reference's in-register rank-1 update of the new token, which its
     TPU path runs only in interpret mode) computes the same function; here
-    it takes the same split path. ``chunk_pages`` is the TPU's DMA chunk
-    and changes nothing here; it must be a positive int. The reference's
-    limit on VMEM-resident scale bytes is TPU scaffolding and is not
-    ported.
+    it takes the same path. ``chunk_pages`` is the TPU's DMA chunk and
+    changes nothing here; it must be a positive int. The reference's limit
+    on VMEM-resident scale bytes is TPU scaffolding and is not ported.
     """
     if not isinstance(chunk_pages, int) or chunk_pages < 1:
         raise ValueError(f"chunk_pages must be a positive int, got "
