@@ -8,9 +8,10 @@ each kernel against its plain PyTorch version at its path's shapes, serves
 16 requests through the port's engine at the full width of the repo's
 canonical decode model (vocab 32000, dim 2048, 16 layers, 16 q / 8 kv heads,
 head_dim 128, bf16 weights from a seed, int8 paged cache) and checks the
-output against a teacher-forced forward, then takes three SGD train steps of
-the same model on 4 × 1025 tokens and checks their gradient against the f32
-oracle attention's, then runs the quantized headline (bench.py's shape:
+output against a teacher-forced forward, and serves them again from an fp8
+(e4m3) and from an int4 cache, each within its own drift bound, then takes
+three SGD train steps of the same model on 4 × 1025 tokens and checks their
+gradient against the f32 oracle attention's, then runs the quantized headline (bench.py's shape:
 batch 4, 8 heads, n 8192, d 128) through serving_flash_attention (fp8 and
 int8) and quantized_dense_fa (fp8), each gated against the blockwise f32
 oracle, and holds B6/B7 against their plain versions there and at variant
@@ -35,7 +36,8 @@ two routes (split and shared table), each held against the plain version
 under the card's split plan, twice bitwise equal, with one page of the walk
 hidden from the plain version as a planted fault; the decode call with B3's
 append fused is one launch, its pages and scales bit-exact to B3's plain
-version. The device
+version; all of it on bf16, int8, int4 and fp8 pages (the chunk prefix and
+the pipelined decode on the three quantized ones). The device
 phase prints the registers and spills of the TMA + wgmma and bulk-copy
 sources (ptxas).
 Each phase prints one JSON line; any failure raises and the exit code is
@@ -46,6 +48,7 @@ and the port only.
 
 from __future__ import annotations
 
+import functools
 import json
 import math
 import re
@@ -70,6 +73,17 @@ TOL_F32 = 1e-4
 # teacher-forced logprob drift with an int8 cache: more than twice the
 # reference's measured 0.0627 at this configuration
 TOL_LOGPROB = 0.15
+# and from an fp8 (e4m3) cache: more than twice the reference's measured
+# 0.1257 at this configuration (logs/decode.jsonl:4, a drift on its TPU,
+# not a time); from an int4 cache: the reference's own sweep tolerance for
+# it (tpu_flash/bench/sweep.py:551-552)
+TOL_LOGPROB_FP8 = 0.30
+TOL_LOGPROB_INT4 = 2.5
+# the cache types of the paged phase (B2, B3 at the decode shape), and the
+# full-width serving runs beyond the int8 one, with their drift bounds
+PAGED_CACHES = ("bfloat16", "int8", "int4", "fp8")
+QUANT_PAGES = ("int8", "int4", "fp8")
+SERVE_CACHES = (("fp8", TOL_LOGPROB_FP8), ("int4", TOL_LOGPROB_INT4))
 # backward: B4/B5 vs the plain backward, relative to the largest grad (one
 # bf16 ulp of P or dS is 2⁻⁸; float32 differs by summation order only);
 # the Function's grads vs the f32 oracle's: the reference's backward gate
@@ -297,10 +311,10 @@ def _card_plan(q, c, bound, shared=False):
     from tpu_flash_torch.ops import paged
 
     b, kvh, _, d = q.shape
-    page, dtype = c.k_pages.shape[2], c.k_pages.dtype
+    page = c.k_pages.shape[2]
     if paged.paged_route(page, shared) != "split":
         return None
-    return paged.split_plan(b, kvh, d, page, dtype, bound)
+    return paged.split_plan(b, kvh, d, page, c.config.page_type, bound)
 
 
 def _hidden_page(c, slot, logical, dev):
@@ -340,12 +354,12 @@ def _bitwise_repeat(name, fn):
 
 def paged_phase(dev):
     """B3, and B2's split route, vs their plain versions at the decode
-    shape (16 lanes, ~540 tokens, bf16 and int8 caches): B3's pages and
-    scales bit-exact; B2 after B3 and the fused call (B2 with the append,
-    one launch) against the plain B3 then B2 under the card's split plan,
-    pages bit-exact, o and lse within TOL_BF16, two calls bitwise equal; a
-    planted fault (one page of lane 0's walk hidden from the plain version)
-    rejected. Timed: device time (a CUDA graph of 20 calls) and call time
+    shape (16 lanes, ~540 tokens, bf16, int8, int4 and fp8 caches): B3's
+    pages and scales bit-exact; B2 after B3 and the fused call (B2 with the
+    append, one launch) against the plain B3 then B2 under the card's split
+    plan, pages bit-exact, o and lse within TOL_BF16, two calls bitwise
+    equal; a planted fault (one page of lane 0's walk hidden from the plain
+    version) rejected. Timed: device time (a CUDA graph of 20 calls) and call time
     of B3, the split route and the fused call, and the plain versions;
     the fused append's own time is the fused call's less the split
     route's alone."""
@@ -358,9 +372,12 @@ def paged_phase(dev):
     lens = (530 + torch.randint(0, 20, (b,), generator=gen, device=dev)).tolist()
     out = {}
     qscale = d ** -0.5 * paged.LOG2E
-    for dtype in ("bfloat16", "int8"):
+    for dtype in PAGED_CACHES:
         kc = _decode_cache(dtype, lens, dev, 3)
         pc, fc = (_cache_copy(kc) for _ in range(2))
+        pt = kc.config.page_type
+        kern = functools.partial(paged._paged_attention_kernel, page_type=pt)
+        plain = functools.partial(paged._paged_attention_plain, page_type=pt)
         slots = torch.arange(b, dtype=torch.int32, device=dev)
         kn = torch.randn(b, kvh, d, generator=gen, device=dev).bfloat16()
         vn = torch.randn(b, kvh, d, generator=gen, device=dev).bfloat16()
@@ -369,54 +386,58 @@ def paged_phase(dev):
             return (kn, vn, c.k_pages, c.v_pages, c.k_scales, c.v_scales,
                     slots, c.lengths, c.page_tables)
 
-        paged._paged_append_kernel(*app_args(kc))
-        paged._paged_append_plain(*app_args(pc))
+        def app_kernel(c):
+            paged._paged_append_kernel(*app_args(c), page_type=pt)
+
+        def app_plain(c):
+            paged._paged_append_plain(*app_args(c), page_type=pt)
+
+        app_kernel(kc)
+        app_plain(pc)
         _same_cache(f"B3 {dtype}", kc, pc)
         q = torch.randn(b, hq, d, generator=gen, device=dev).bfloat16()
         qr = q.reshape(b, kvh, g, d)
         qg = (q.float() * qscale).bfloat16().reshape(b, kvh, g, d)
         split = _card_plan(qg, kc, bound)
         ka = _b2_args(qg, kc, slots, 1, bound)
-        got = _bitwise_repeat(f"B2 split {dtype}",
-                              lambda: paged._paged_attention_kernel(*ka))
-        errs = _held_b2(f"B2 split {dtype}", got, paged._paged_attention_plain(
+        got = _bitwise_repeat(f"B2 split {dtype}", lambda: kern(*ka))
+        errs = _held_b2(f"B2 split {dtype}", got, plain(
             *_b2_args(qg, pc, slots, 1, bound), split_pages=split))
-        fault = _rejects(f"B2 split {dtype}", got, paged._paged_attention_plain(
+        fault = _rejects(f"B2 split {dtype}", got, plain(
             *_b2_args(qg, pc, slots, 1, bound,
                       tables=_hidden_page(pc, 0, 3, dev)), split_pages=split))
         # the fused call on an unappended copy: one launch
         fa = _b2_args(qr, fc, slots, 1, bound)
 
         def fused():
-            return paged._paged_attention_kernel(*fa, new_kv=(kn, vn),
-                                                 q_scale=qscale)
+            return kern(*fa, new_kv=(kn, vn), q_scale=qscale)
 
         fgot = _bitwise_repeat(f"B2 fused {dtype}", fused)
         _same_cache(f"B2 fused append {dtype}", fc, pc)
-        fused_errs = _held_b2(f"B2 fused {dtype}", fgot,
-                              paged._paged_attention_plain(
-                                  *_b2_args(qg, pc, slots, 1, bound),
-                                  split_pages=split))
+        fused_errs = _held_b2(f"B2 fused {dtype}", fgot, plain(
+            *_b2_args(qg, pc, slots, 1, bound), split_pages=split))
 
         row = dict(
             cache=dtype, lanes=b, lens_min=min(lens), lens_max=max(lens),
             pages_bound=bound, split_pages=split, append_bit_exact=True,
             fused_append_bit_exact=True, tol=TOL_BF16, **errs,
             fused=fused_errs, planted_fault_page_hidden=fault,
-            append_ms=device_ms(lambda: paged._paged_append_kernel(*app_args(kc))),
-            append_call_ms=cuda_ms(lambda: paged._paged_append_kernel(*app_args(kc))),
-            append_plain_ms=cuda_ms(lambda: paged._paged_append_plain(*app_args(pc))),
-            attention_ms=device_ms(lambda: paged._paged_attention_kernel(*ka)),
-            attention_call_ms=cuda_ms(lambda: paged._paged_attention_kernel(*ka)),
+            append_ms=device_ms(lambda: app_kernel(kc)),
+            append_call_ms=cuda_ms(lambda: app_kernel(kc)),
+            append_plain_ms=cuda_ms(lambda: app_plain(pc)),
+            attention_ms=device_ms(lambda: kern(*ka)),
+            attention_call_ms=cuda_ms(lambda: kern(*ka)),
             fused_ms=device_ms(fused), fused_call_ms=cuda_ms(fused),
-            attention_plain_ms=cuda_ms(lambda: paged._paged_attention_plain(
+            attention_plain_ms=cuda_ms(lambda: plain(
                 *_b2_args(qg, pc, slots, 1, bound), split_pages=split)))
         # bytes the two functions must move at these lengths (B2 reads
-        # each lane's length + 1 tokens: the appended one too)
-        esz, ssz = (1, 4) if dtype == "int8" else (2, 0)
+        # each lane's length + 1 tokens: the appended one too); a K or V
+        # row of the cache is paged.row_bytes (its scale included): bf16
+        # 2d, int8 and fp8 d + 4, int4 d/2 + 4
+        rowb = paged.row_bytes(pt, d)
         toks = sum(lens) + b
-        att_bytes = toks * kvh * 2 * (d * esz + ssz) + b * hq * (4 * d + 4)
-        app_bytes = b * kvh * 2 * (2 * d + d * esz + ssz) + 3 * 4 * b
+        att_bytes = toks * kvh * 2 * rowb + b * hq * (4 * d + 4)
+        app_bytes = b * kvh * 2 * (2 * d + rowb) + 3 * 4 * b
         row["attention_bound"] = roofline(4 * d * hq * toks, att_bytes,
                                           torch.bfloat16)
         row["append_bound"] = roofline(0, app_bytes, torch.bfloat16)
@@ -467,7 +488,7 @@ def engine_phase(dev, model=MODEL, cache=CACHE, max_batch=MAX_BATCH,
     launches = dict(kernels.LAUNCHES)
     done = {f.rid: f for f in eng.finished[n_done0:]}
     return dict(params=params, mcfg=mcfg, done=done, step_ms=step_ms,
-                wall_s=wall, launches=launches)
+                wall_s=wall, launches=launches, cache=cache["dtype"])
 
 
 # (name, batch, hq, hkv, n_q, n_kv, d, causal, dtype): the training shape
@@ -1147,12 +1168,14 @@ def headdims_phase(dev):
             slots = torch.arange(4, dtype=torch.int32, device=dev)
             kn, vn = randn(4, 2, d).bfloat16(), randn(4, 2, d).bfloat16()
             kc, pc = caches
+            pt = cfg.page_type
             paged._paged_append_kernel(kn, vn, kc.k_pages, kc.v_pages,
                                        kc.k_scales, kc.v_scales, slots,
-                                       kc.lengths, kc.page_tables)
+                                       kc.lengths, kc.page_tables,
+                                       page_type=pt)
             paged._paged_append_plain(kn, vn, pc.k_pages, pc.v_pages,
                                       pc.k_scales, pc.v_scales, slots,
-                                      pc.lengths, pc.page_tables)
+                                      pc.lengths, pc.page_tables, page_type=pt)
             for name in ("k_pages", "v_pages", "k_scales", "v_scales"):
                 x, y = getattr(kc, name), getattr(pc, name)
                 if x is not None and not torch.equal(x, y):
@@ -1162,9 +1185,9 @@ def headdims_phase(dev):
             args = (qg, kc.k_pages, kc.v_pages, kc.k_scales, kc.v_scales,
                     slots, kc.lengths, kc.page_tables, 1, 16, torch.bfloat16,
                     True)
-            ko, kl = paged._paged_attention_kernel(*args)
+            ko, kl = paged._paged_attention_kernel(*args, page_type=pt)
             po, pl = paged._paged_attention_plain(
-                *args, split_pages=_card_plan(qg, kc, 16))
+                *args, split_pages=_card_plan(qg, kc, 16), page_type=pt)
             errs = dict(o_vs_plain=max_err(ko, po),
                         lse_vs_plain=max_err(kl, pl))
             # the shared-table route: the four lanes on slot 0
@@ -1173,8 +1196,9 @@ def headdims_phase(dev):
                      one, kc.lengths, kc.page_tables, 0, 16, torch.bfloat16,
                      True)
             so, sl = paged._paged_attention_kernel(*sargs,
-                                                   shared_page_table=True)
-            po, pl = paged._paged_attention_plain(*sargs)
+                                                   shared_page_table=True,
+                                                   page_type=pt)
+            po, pl = paged._paged_attention_plain(*sargs, page_type=pt)
             errs.update(shared_o_vs_plain=max_err(so, po),
                         shared_lse_vs_plain=max_err(sl, pl))
             for key, err in errs.items():
@@ -1241,6 +1265,47 @@ def headdims_phase(dev):
             raise AssertionError(f"headdims: kernel {name} never launched")
     emit(dict(phase="headdims", launches=launches, cases=rows))
     return dict(launches=launches, rows=rows)
+
+
+def held_engine_run(phase: str, run, tol: float) -> dict:
+    """Check a serving run of engine_phase and print its line: every
+    request finished with NEW_TOKENS tokens and finite logprobs; B1, and
+    B2's split route with B3's append fused (decode: no B3 launch of its
+    own), launched; the teacher-forced drift of request 0 within ``tol``.
+    Returns the run's launch counts of those kernels."""
+    done, step_ms = run["done"], run["step_ms"]
+    if sorted(done) != list(range(N_REQUESTS)):
+        raise AssertionError(f"{phase}: finished {sorted(done)}")
+    for f in done.values():
+        if f.reason != "length" or len(f.new_tokens) != NEW_TOKENS:
+            raise AssertionError(f"{phase}: request {f.rid}: {f.reason}, "
+                                 f"{len(f.new_tokens)} tokens")
+        if not all(np.isfinite(f.logprobs)):
+            raise AssertionError(f"{phase}: request {f.rid}: non-finite "
+                                 "logprobs")
+    launches = {k: run["launches"][k] for k in (
+        "flash_fwd", "paged_attention_split", "paged_append_fused")}
+    for name, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"{phase}: kernel {name} never launched")
+    drift = teacher_forced_drift(run["params"], run["mcfg"], done[0])
+    check(f"{phase}: teacher-forced logprob drift", drift, tol)
+    decode_ms = float(np.median(step_ms[1:]))
+    emit(dict(
+        phase=phase, requests=N_REQUESTS, prompt_len=PROMPT_LEN,
+        new_tokens=NEW_TOKENS, cache=run["cache"], finished=len(done),
+        finish_reasons=sorted({f.reason for f in done.values()}),
+        new_tokens_per_request=sorted({len(f.new_tokens) for f in done.values()}),
+        steps=len(step_ms),
+        launches=launches, teacher_forced_drift=drift, drift_tol=tol,
+        # step 1 admits and prefills all requests, then decodes once
+        prefill_ms_per_request=(step_ms[0] - decode_ms) / N_REQUESTS,
+        decode_ms_per_step=decode_ms,
+        warm_e2e_tok_s=N_REQUESTS * NEW_TOKENS / run["wall_s"],
+        wall_s=run["wall_s"],
+        peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+    ))
+    return launches
 
 
 def teacher_forced_drift(params, mcfg, f) -> float:
@@ -1431,8 +1496,9 @@ def sliding_kernels_phase(dev):
     versions at the sliding path's shapes, timed beside their bounds and,
     for B1, the library's attention under the same mask. B2's chunk
     prefix on its two routes (shared table, split), the pipelined decode
-    as one fused call; each B2 call twice, bitwise equal; a planted fault
-    (a page of the walk hidden) rejected."""
+    as one fused call, each on int8, int4 and fp8 pages; each B2 call
+    twice, bitwise equal; a planted fault (a page of the walk hidden)
+    rejected."""
     from tpu_flash_torch.bench.harness import device_ms
     from tpu_flash_torch.ops import flash, paged
 
@@ -1512,9 +1578,8 @@ def sliding_kernels_phase(dev):
     # positions 1536..2047 against a 1536-token prefix, radius 512; slot 1
     # holds nothing (a first chunk's empty prefix). The shared-table route
     # (what prefill_chunk takes) against the one-split walk; the split
-    # route against the plain version under its plan
-    cache = _decode_cache("int8", [1536, 1], dev, 9, n_pages=32)
-    cache.lengths[1] = 0
+    # route against the plain version under its plan. On the int8 cache
+    # every case; on int4 and fp8 pages the chunk prefix itself
     lanes, g, d = SLIDING_CHUNK, hq // hkv, 128
     qg = (torch.randn(lanes, hkv, g, d, generator=gen, device=dev)
           * (d ** -0.5 * flash.LOG2E)).bfloat16()
@@ -1522,64 +1587,75 @@ def sliding_kernels_phase(dev):
     steps = min(32, -(-(r + 1) // CACHE["page_size"]) + 1)
     kern, plain = paged._paged_attention_kernel, paged._paged_attention_plain
 
-    def b2(fn, slots, len_add=0, q=qg, c=cache, tables=None, **kw):
+    def b2(fn, slots, len_add=0, q=qg, c=None, tables=None, **kw):
         return fn(*_b2_args(q, c, slots, len_add, steps, tables=tables),
-                  radius=r, **kw)
+                  radius=r, page_type=c.config.page_type, **kw)
 
-    for name, slot in (("chunk_prefix_512_lanes", 0), ("empty_prefix", 1)):
-        slots = torch.full((lanes,), slot, dtype=torch.int32, device=dev)
-        plan = _card_plan(qg, cache, steps)
-        calls = dict(
-            shared=lambda: b2(kern, slots, positions=pos,
-                              shared_page_table=True),
-            split=lambda: b2(kern, slots, positions=pos))
-        wants = dict(shared=b2(plain, slots, positions=pos),
-                     split=b2(plain, slots, positions=pos, split_pages=plan))
-        got = {}
-        for route, call in calls.items():
-            got[route] = _bitwise_repeat(f"B2 {route} {name}", call)
-            row = held(f"paged_attention_{route}", f"{name}_{route}",
-                       got[route], wants[route], TOL_BF16)
-        if slot == 1:
-            for route, (o, lse) in got.items():
-                if not (torch.isneginf(lse).all() and (o == 0).all()):
-                    raise AssertionError(f"empty prefix ({route}): o must be "
-                                         "0, lse −inf")
-            row["all_lse_neg_inf"] = True
-            continue
-        fault = _rejects("B2 shared chunk prefix", got["shared"], b2(
-            plain, slots, positions=pos,
-            tables=_hidden_page(cache, 0, 20, dev)))
-        visible = sum(1536 - max(int(p) - r, 0) for p in pos.tolist())
-        nbytes = 2 * r * hkv * (d + 4) + lanes * hq * (4 * d + 4)
-        row = dict(case=name, route="shared", planted_fault_page_hidden=fault,
-                   ms=device_ms(calls["shared"]),
-                   call_ms=cuda_ms(calls["shared"]),
-                   split_ms=device_ms(calls["split"]), split_pages=plan,
-                   split_call_ms=cuda_ms(calls["split"]),
-                   plain_ms=cuda_ms(lambda: b2(plain, slots, positions=pos),
-                                    iters=5),
-                   visible_pairs=visible * hq,
-                   **roofline(4 * d * hq * visible, nbytes, torch.bfloat16))
-        rows.append(row)
-        timed["chunk_prefix"] = row
-    slots = torch.zeros(64, dtype=torch.int32, device=dev)
-    vis = torch.arange(1536 - 64, 1536, dtype=torch.int32, device=dev) + 1
-    held("paged_attention_shared", "lengths_override_64_lanes_shared",
-         _bitwise_repeat("B2 shared lengths_override", lambda: b2(
-             kern, slots, q=qg[:64], lengths_override=vis, positions=vis - 1,
-             shared_page_table=True)),
-         b2(plain, slots, q=qg[:64], lengths_override=vis, positions=vis - 1),
-         TOL_BF16)
+    for dtype in QUANT_PAGES:
+        cache = _decode_cache(dtype, [1536, 1], dev, 9, n_pages=32)
+        cache.lengths[1] = 0
+        tag = "" if dtype == "int8" else f"_{dtype}"
+        cases = (("chunk_prefix_512_lanes", 0),) + (
+            (("empty_prefix", 1),) if dtype == "int8" else ())
+        for name, slot in cases:
+            slots = torch.full((lanes,), slot, dtype=torch.int32, device=dev)
+            plan = _card_plan(qg, cache, steps)
+            calls = dict(
+                shared=lambda: b2(kern, slots, c=cache, positions=pos,
+                                  shared_page_table=True),
+                split=lambda: b2(kern, slots, c=cache, positions=pos))
+            wants = dict(shared=b2(plain, slots, c=cache, positions=pos),
+                         split=b2(plain, slots, c=cache, positions=pos,
+                                  split_pages=plan))
+            got = {}
+            for route, call in calls.items():
+                got[route] = _bitwise_repeat(f"B2 {route} {name}{tag}", call)
+                row = held(f"paged_attention_{route}", f"{name}_{route}{tag}",
+                           got[route], wants[route], TOL_BF16)
+            if slot == 1:
+                for route, (o, lse) in got.items():
+                    if not (torch.isneginf(lse).all() and (o == 0).all()):
+                        raise AssertionError(f"empty prefix ({route}): o "
+                                             "must be 0, lse −inf")
+                row["all_lse_neg_inf"] = True
+                continue
+            fault = _rejects(f"B2 shared chunk prefix{tag}", got["shared"], b2(
+                plain, slots, c=cache, positions=pos,
+                tables=_hidden_page(cache, 0, 20, dev)))
+            visible = sum(1536 - max(int(p) - r, 0) for p in pos.tolist())
+            nbytes = (2 * r * hkv * paged.row_bytes(cache.config.page_type, d)
+                      + lanes * hq * (4 * d + 4))
+            row = dict(case=name + tag, cache=dtype, route="shared",
+                       planted_fault_page_hidden=fault,
+                       ms=device_ms(calls["shared"]),
+                       call_ms=cuda_ms(calls["shared"]),
+                       split_ms=device_ms(calls["split"]), split_pages=plan,
+                       split_call_ms=cuda_ms(calls["split"]),
+                       plain_ms=cuda_ms(lambda: b2(plain, slots, c=cache,
+                                                   positions=pos), iters=5),
+                       visible_pairs=visible * hq,
+                       **roofline(4 * d * hq * visible, nbytes, torch.bfloat16))
+            rows.append(row)
+            timed["chunk_prefix" + tag] = row
+        if dtype == "int8":
+            slots = torch.zeros(64, dtype=torch.int32, device=dev)
+            vis = torch.arange(1536 - 64, 1536, dtype=torch.int32,
+                               device=dev) + 1
+            held("paged_attention_shared", "lengths_override_64_lanes_shared",
+                 _bitwise_repeat("B2 shared lengths_override", lambda: b2(
+                     kern, slots, q=qg[:64], c=cache, lengths_override=vis,
+                     positions=vis - 1, shared_page_table=True)),
+                 b2(plain, slots, q=qg[:64], c=cache, lengths_override=vis,
+                    positions=vis - 1),
+                 TOL_BF16)
+        del cache
 
     # the pipelined decode: 16 lanes of 1100–2032 tokens, each walking its
     # own band pages (no pages_bound below the band's): the fused call (the
     # split route with the append, one launch) against the plain B3 then
-    # B2 under the card's plan
+    # B2 under the card's plan, on each quantized page type
     lens = (1100 + torch.randint(0, 932, (MAX_BATCH,), generator=gen,
                                  device=dev)).tolist()
-    kc = _decode_cache("int8", lens, dev, 10, n_pages=32)
-    pc = _cache_copy(kc)
     slots = torch.arange(MAX_BATCH, dtype=torch.int32, device=dev)
     qr = torch.randn(MAX_BATCH, hkv, g, d, generator=gen,
                      device=dev).bfloat16()
@@ -1587,32 +1663,39 @@ def sliding_kernels_phase(dev):
     qd = (qr.float() * qscale).bfloat16()
     kn, vn = (torch.randn(MAX_BATCH, hkv, d, generator=gen, device=dev)
               .bfloat16() for _ in range(2))
+    for dtype in QUANT_PAGES:
+        kc = _decode_cache(dtype, lens, dev, 10, n_pages=32)
+        pc = _cache_copy(kc)
+        pt = kc.config.page_type
+        tag = "" if dtype == "int8" else f"_{dtype}"
 
-    def app(c):
-        return (kn, vn, c.k_pages, c.v_pages, c.k_scales, c.v_scales, slots,
-                c.lengths, c.page_tables)
+        def fused():
+            return b2(kern, slots, 1, qr, kc, new_kv=(kn, vn), q_scale=qscale)
 
-    def fused():
-        return b2(kern, slots, 1, qr, kc, new_kv=(kn, vn), q_scale=qscale)
-
-    got = _bitwise_repeat("B2 pipelined fused", fused)
-    paged._paged_append_plain(*app(pc))
-    _same_cache("pipelined decode fused append", kc, pc)
-    plan = _card_plan(qd, kc, steps)
-    row = held("paged_attention_split", "pipelined_decode_16_lanes_fused",
-               got, b2(plain, slots, 1, qd, pc, split_pages=plan), TOL_BF16)
-    fault = _rejects("B2 pipelined fused", got, b2(
-        plain, slots, 1, qd, pc, split_pages=plan,
-        tables=_hidden_page(pc, 0, (lens[0] - 1) // 64 - 1, dev)))
-    toks = MAX_BATCH * (r + 1)
-    nbytes = toks * hkv * 2 * (d + 4) + MAX_BATCH * hq * (4 * d + 4)
-    row.update(lens_min=min(lens), lens_max=max(lens), append_bit_exact=True,
-               split_pages=plan, planted_fault_page_hidden=fault,
-               ms=device_ms(fused), call_ms=cuda_ms(fused),
-               plain_ms=cuda_ms(lambda: b2(plain, slots, 1, qd, pc,
-                                           split_pages=plan), iters=5),
-               **roofline(4 * d * hq * toks, nbytes, torch.bfloat16))
-    timed["pipelined"] = row
+        got = _bitwise_repeat(f"B2 pipelined fused{tag}", fused)
+        paged._paged_append_plain(kn, vn, pc.k_pages, pc.v_pages, pc.k_scales,
+                                  pc.v_scales, slots, pc.lengths,
+                                  pc.page_tables, page_type=pt)
+        _same_cache(f"pipelined decode fused append{tag}", kc, pc)
+        plan = _card_plan(qd, kc, steps)
+        row = held("paged_attention_split",
+                   f"pipelined_decode_16_lanes_fused{tag}", got,
+                   b2(plain, slots, 1, qd, pc, split_pages=plan), TOL_BF16)
+        fault = _rejects(f"B2 pipelined fused{tag}", got, b2(
+            plain, slots, 1, qd, pc, split_pages=plan,
+            tables=_hidden_page(pc, 0, (lens[0] - 1) // 64 - 1, dev)))
+        toks = MAX_BATCH * (r + 1)
+        nbytes = (toks * hkv * 2 * paged.row_bytes(pt, d)
+                  + MAX_BATCH * hq * (4 * d + 4))
+        row.update(cache=dtype, lens_min=min(lens), lens_max=max(lens),
+                   append_bit_exact=True, split_pages=plan,
+                   planted_fault_page_hidden=fault,
+                   ms=device_ms(fused), call_ms=cuda_ms(fused),
+                   plain_ms=cuda_ms(lambda: b2(plain, slots, 1, qd, pc,
+                                               split_pages=plan), iters=5),
+                   **roofline(4 * d * hq * toks, nbytes, torch.bfloat16))
+        timed["pipelined" + tag] = row
+        del kc, pc
     emit(dict(phase="sliding_kernels", hq=hq, hkv=hkv, radius=r, cases=rows))
     return dict(timed=timed, worst=worst)
 
@@ -1874,12 +1957,15 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
+    # the build, and beside it the registers and spills of the TMA + wgmma
+    # kernels (nvcc -Xptxas -v, a compile of their own): both take about
+    # as long as paged_attention.cu's compile
     t0 = time.perf_counter()
-    _build.library()
-    build_s = time.perf_counter() - t0
-    # registers and spills of the TMA + wgmma kernels (nvcc -Xptxas -v)
-    with ThreadPoolExecutor(len(PTXAS_SOURCES)) as pool:
-        reports = pool.map(_build.ptxas_report, PTXAS_SOURCES)
+    with ThreadPoolExecutor(len(PTXAS_SOURCES) + 1) as pool:
+        lib = pool.submit(_build.library)
+        reports = list(pool.map(_build.ptxas_report, PTXAS_SOURCES))
+        lib.result()
+        build_s = time.perf_counter() - t0
     ptxas = {src: [[short_kernel_name(k), line] for k, line in rows]
              for src, rows in zip(PTXAS_SOURCES, reports)}
     emit(dict(phase="device", nvidia_smi=smi, name=torch.cuda.get_device_name(0),
@@ -1890,43 +1976,16 @@ def main() -> int:
         b1 = flash_phase(dev)
         b23 = paged_phase(dev)
         run = engine_phase(dev)
-
-    done, step_ms = run["done"], run["step_ms"]
-    if sorted(done) != list(range(N_REQUESTS)):
-        raise AssertionError(f"finished {sorted(done)}")
-    for f in done.values():
-        if f.reason != "length" or len(f.new_tokens) != NEW_TOKENS:
-            raise AssertionError(f"request {f.rid}: {f.reason}, "
-                                 f"{len(f.new_tokens)} tokens")
-        if not all(np.isfinite(f.logprobs)):
-            raise AssertionError(f"request {f.rid}: non-finite logprobs")
-    # decode runs B2's split route with B3's append fused (no B3 launch)
-    engine_launches = {k: run["launches"][k] for k in (
-        "flash_fwd", "paged_attention_split", "paged_append_fused")}
-    for name, n in engine_launches.items():
-        if n <= 0:
-            raise AssertionError(f"kernel {name} never launched in the engine run")
-    drift = teacher_forced_drift(run["params"], run["mcfg"], done[0])
-    check("teacher-forced logprob drift", drift, TOL_LOGPROB)
-    decode_ms = float(np.median(step_ms[1:]))
-    emit(dict(
-        phase="engine", requests=N_REQUESTS, prompt_len=PROMPT_LEN,
-        new_tokens=NEW_TOKENS, cache=CACHE["dtype"], finished=len(done),
-        finish_reasons=sorted({f.reason for f in done.values()}),
-        new_tokens_per_request=sorted({len(f.new_tokens) for f in done.values()}),
-        steps=len(step_ms),
-        launches=engine_launches, teacher_forced_drift=drift,
-        drift_tol=TOL_LOGPROB,
-        # step 1 admits and prefills all requests, then decodes once
-        prefill_ms_per_request=(step_ms[0] - decode_ms) / N_REQUESTS,
-        decode_ms_per_step=decode_ms,
-        warm_e2e_tok_s=N_REQUESTS * NEW_TOKENS / run["wall_s"],
-        wall_s=run["wall_s"],
-        peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
-    ))
+        engine_launches = held_engine_run("engine", run, TOL_LOGPROB)
+        # the same serving run from an fp8 and from an int4 cache
+        del run
+        torch.cuda.empty_cache()
+        for dtype, tol in SERVE_CACHES:
+            run = engine_phase(dev, cache={**CACHE, "dtype": dtype})
+            held_engine_run(f"engine_{dtype}", run, tol)
+            del run
+            torch.cuda.empty_cache()
     b45 = flash_bwd_phase(dev)
-    del run
-    torch.cuda.empty_cache()
     train = train_phase(dev)
     torch.cuda.empty_cache()
     with torch.no_grad():

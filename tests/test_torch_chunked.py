@@ -63,17 +63,24 @@ def _fresh_caches(dtype="float32"):
     return j, [cache_from_reference(c, device="cpu") for c in j]
 
 
-@pytest.mark.parametrize("attention", ["causal", "sliding"])
-def test_prefill_chunk_matches_reference(params, attention):
+@pytest.mark.parametrize("attention,dtype", [
+    ("causal", "float32"), ("sliding", "float32"), ("causal", "int4"),
+    ("sliding", "fp8")], ids=["causal", "sliding", "causal-int4",
+                              "sliding-fp8"])
+def test_prefill_chunk_matches_reference(params, attention, dtype):
     """A 70-token prompt in chunks of 32 (offsets 0, 32, 64; the last one
     padded) on slot 1: each chunk's logits over its real rows and the
     greedy token agree, and so do the caches after each chunk (f32 pages
     to TOL, lengths exactly). Under the sliding window (33, radius 16) the
-    prefix band starts at each token's own position − 16."""
+    prefix band starts at each token's own position − 16. On int4 and fp8
+    pages (the prefix read through B2's plain version), the same bounds:
+    the caches' dequantized K/V to TOL (the reference's jitted scales may
+    sit an ulp off its eager ones, and its kernel decodes e4m3 subnormals
+    approximately; both move values by far less than TOL)."""
     jp, tp = params
     jcfg, tcfg = _cfgs(attention)
     prompt = _prompt(1, 70)
-    jcaches, tcaches = _fresh_caches()
+    jcaches, tcaches = _fresh_caches(dtype)
     for off in (0, 32, 64):
         chunk = prompt[off:off + 32]
         toks = np.zeros((1, 32), np.int32)
@@ -91,8 +98,13 @@ def test_prefill_chunk_matches_reference(params, attention):
         for jc, tc in zip(jcaches, tcaches):
             np.testing.assert_array_equal(tc.lengths.numpy(),
                                           np.asarray(jc.lengths))
-            np.testing.assert_allclose(tc.k_pages.numpy(),
-                                       np.asarray(jc.k_pages), atol=TOL)
+            if dtype == "float32":
+                np.testing.assert_allclose(tc.k_pages.numpy(),
+                                           np.asarray(jc.k_pages), atol=TOL)
+                continue
+            for t, j in zip(tc.gather_kv(1, off + n),
+                            jc.gather_kv(1, off + n)):
+                np.testing.assert_allclose(t.numpy(), np.asarray(j), atol=TOL)
 
 
 @pytest.mark.parametrize("pipelined", [False, True])
@@ -250,16 +262,20 @@ def test_chunked_prefill_on_recycled_slot():
     assert run(filler + [probe])[3] == run([probe])[0]
 
 
-@pytest.mark.parametrize("dtype", ["float32", "int8"])
+@pytest.mark.parametrize("dtype", ["float32", "int8", "int4", "fp8"])
 @pytest.mark.parametrize("attention", ["causal", "sliding"])
 def test_pipelined_decode_matches_default(params, dtype, attention):
     """pipelined_decode (each lane walks its own pages) gives the default
     decode's tokens (the reference's test_engine.py:227), chunked prefill
-    included."""
+    included. On int4 pages the default decode runs after the same chunked
+    prefill: int4's grid turns the chunked prefill's float32 rounding
+    differences in K/V into other codes, which moves this stream apart
+    from an unchunked prefill's whatever the decode."""
     _, tp = params
     _, tcfg = _cfgs(attention)
     prompts = [_prompt(3, 12), _prompt(5, 50)]
-    base = _engine_run(tp, tcfg, prompts, dtype, max_tokens=8)
+    base = _engine_run(tp, tcfg, prompts, dtype, max_tokens=8,
+                       **(dict(chunk_size=32) if dtype == "int4" else {}))
     pipe = _engine_run(tp, tcfg, prompts, dtype, max_tokens=8,
                        chunk_size=32, pipelined_decode=True)
     for rid in (0, 1):

@@ -70,11 +70,14 @@ def _run_port(tp, dtype, reqs=None, max_batch=3):
     return done
 
 
-@pytest.mark.parametrize("dtype", ["float32", "int8"])
+@pytest.mark.parametrize("dtype", ["float32", "int8", "int4", "fp8"])
 def test_greedy_streams_match_reference(params, dtype):
     """Four greedy requests through three lanes (a queue, a page crossing,
     continuous batching): identical tokens and finish reasons; logprobs
-    within 1e-3."""
+    within 1e-3. On int4 and fp8 caches the codes decode exactly on both
+    sides, but for e4m3 zeros and subnormals, which the reference's kernel
+    decodes approximately (and re-encodes on the page an append writes):
+    values under 2⁻⁶ of a row's scale, far inside 1e-3 here."""
     jp, tp = params
     ref = _run_reference(jp, dtype)
     got = _run_port(tp, dtype)

@@ -160,17 +160,18 @@ def _copy(c):
 def _plan(q, cache, bound, shared=False):
     """The split plan the card takes for this call (None: one split)."""
     b, kvh, _, d = q.shape
-    page, dtype = cache.k_pages.shape[2], cache.k_pages.dtype
+    page = cache.k_pages.shape[2]
     if tpaged.paged_route(page, shared) != "split":
         return None
-    return tpaged.split_plan(b, kvh, d, page, dtype, bound)
+    return tpaged.split_plan(b, kvh, d, page, cache.config.page_type, bound)
 
 
 def _route_count(route):
     return kernels.LAUNCHES[f"paged_attention_{route}"]
 
 
-@pytest.mark.parametrize("dtype", ["bfloat16", "int8", "float32"])
+@pytest.mark.parametrize("dtype", ["bfloat16", "int8", "float32", "int4",
+                                   "fp8"])
 def test_paged_kernels_match_plain(gen, dtype):
     """B3 then B2 at the serving decode shape (16 lanes, 8 kv heads, G 2,
     d 128, page 64, ~540 tokens, pages_bound 16): B3's pages and scales
@@ -186,18 +187,20 @@ def test_paged_kernels_match_plain(gen, dtype):
         return (kn, vn, c.k_pages, c.v_pages, c.k_scales, c.v_scales, slots,
                 c.lengths, c.page_tables)
 
+    pt = kc.config.page_type
     before = dict(kernels.LAUNCHES)
-    tpaged._paged_append_kernel(*append_args(kc))
-    tpaged._paged_append_plain(*append_args(pc))
+    tpaged._paged_append_kernel(*append_args(kc), page_type=pt)
+    tpaged._paged_append_plain(*append_args(pc), page_type=pt)
     for name in ("k_pages", "v_pages", "k_scales", "v_scales"):
         a, b = getattr(kc, name), getattr(pc, name)
         assert (a is None and b is None) or torch.equal(a, b), name
     q = torch.randn(16, 8, 2, 128, generator=gen, device="cuda").bfloat16()
     args = (q, kc.k_pages, kc.v_pages, kc.k_scales, kc.v_scales, slots,
             kc.lengths, kc.page_tables, 1, 16, torch.bfloat16, True)
-    ko, kl = tpaged._paged_attention_kernel(*args)
+    ko, kl = tpaged._paged_attention_kernel(*args, page_type=pt)
     po, pl = tpaged._paged_attention_plain(*args,
-                                           split_pages=_plan(q, kc, 16))
+                                           split_pages=_plan(q, kc, 16),
+                                           page_type=pt)
     torch.cuda.synchronize()
     assert kernels.LAUNCHES["paged_append"] == before["paged_append"] + 1
     assert (kernels.LAUNCHES["paged_attention_split"]
@@ -215,16 +218,18 @@ def _paged_pair(cache, q, slots, bound=64, **kw):
             True)
     shared = kw.get("shared_page_table", False)
     route = tpaged.paged_route(cache.k_pages.shape[2], shared)
+    pt = cache.config.page_type
     before = _route_count(route)
-    got = tpaged._paged_attention_kernel(*args, **kw)
-    again = tpaged._paged_attention_kernel(*args, **kw)
+    got = tpaged._paged_attention_kernel(*args, **kw, page_type=pt)
+    again = tpaged._paged_attention_kernel(*args, **kw, page_type=pt)
     torch.cuda.synchronize()
     assert _route_count(route) == before + 2
     assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
     plain_kw = {k: v for k, v in kw.items()
                 if k in ("lengths_override", "positions", "radius")}
     return got, tpaged._paged_attention_plain(
-        *args, **plain_kw, split_pages=_plan(q, cache, bound, shared))
+        *args, **plain_kw, split_pages=_plan(q, cache, bound, shared),
+        page_type=pt)
 
 
 def _assert_paged_close(got, want, tol=2e-2):
@@ -240,7 +245,7 @@ def _assert_paged_close(got, want, tol=2e-2):
 
 
 @pytest.mark.parametrize("shared", [False, True], ids=["split", "shared"])
-@pytest.mark.parametrize("dtype", ["int8", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["int8", "bfloat16", "int4", "fp8"])
 def test_paged_kernel_chunk_prefix_matches_plain(gen, dtype, shared):
     """B2 as chunked prefill calls it: 512 lanes of one slot, per-lane
     positions 1536..2047, radius 512, a 1536-token prefix, through the
@@ -313,7 +318,7 @@ def test_pipelined_decode_kernels_match_plain(gen):
 
 
 @pytest.mark.parametrize("d,g", [(96, 16), (40, 16), (256, 3)])
-@pytest.mark.parametrize("dtype", ["int8", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["int8", "bfloat16", "int4", "fp8"])
 def test_paged_kernels_head_dims_and_groups_match_plain(gen, dtype, d, g):
     """B3 then B2 at head dims 40, 96 and 256 and groups of 16 (two chunks
     of 8) and 3: the appended pages and scales bit-exact, o and lse as
@@ -324,10 +329,11 @@ def test_paged_kernels_head_dims_and_groups_match_plain(gen, dtype, d, g):
     slots = torch.arange(4, dtype=torch.int32, device="cuda")
     kn, vn = (torch.randn(4, 2, d, generator=gen, device="cuda").bfloat16()
               for _ in range(2))
+    pt = kc.config.page_type
     for c, fn in ((kc, tpaged._paged_append_kernel),
                   (pc, tpaged._paged_append_plain)):
         fn(kn, vn, c.k_pages, c.v_pages, c.k_scales, c.v_scales, slots,
-           c.lengths, c.page_tables)
+           c.lengths, c.page_tables, page_type=pt)
     for name in ("k_pages", "v_pages", "k_scales", "v_scales"):
         a, b = getattr(kc, name), getattr(pc, name)
         assert (a is None and b is None) or torch.equal(a, b), name
@@ -335,19 +341,21 @@ def test_paged_kernels_head_dims_and_groups_match_plain(gen, dtype, d, g):
     args = (q, kc.k_pages, kc.v_pages, kc.k_scales, kc.v_scales, slots,
             kc.lengths, kc.page_tables, 1, 16, torch.bfloat16, True)
     before = _route_count("split")
-    got = tpaged._paged_attention_kernel(*args)
+    got = tpaged._paged_attention_kernel(*args, page_type=pt)
     torch.cuda.synchronize()
     assert _route_count("split") == before + 1
     _assert_paged_close(got, tpaged._paged_attention_plain(
-        *args, split_pages=_plan(q, kc, 16)))
+        *args, split_pages=_plan(q, kc, 16), page_type=pt))
 
 
 # (dtype, d, g, page, radius, out): the split route's groups (G 1, 2, 4,
-# 16), widths (64, 96, 256), pages (16, 32, 128), page types and float32
-# out, with and without a band; pages the bulk copies do not take, which
-# the threads' own loads stage: float32 pages (staged as bf16, so that a
-# page of 128 at d 256 fits) and int8 pages off the 16-byte grid (scale
-# rows of 4·18 bytes)
+# 16), widths (8, 64, 72, 96, 256), pages (16, 17, 18, 32, 64, 128), page
+# types and float32 out, with and without a band; pages the bulk copies do
+# not take, which the threads' own loads stage: float32 pages (staged as
+# bf16, so that a page of 128 at d 256 fits), quantized pages off the
+# 16-byte grid (scale rows of 4·18 bytes; an int4 page of 17 rows at d 8
+# is 68 bytes, copied in 4-byte words); int4 at d 72 (rows of 36 bytes,
+# off the 8-byte grid: decoded byte by byte)
 _B2_CASES = [
     ("int8", 128, 1, 64, None, "bfloat16"),
     ("int8", 128, 2, 64, 100, "bfloat16"),
@@ -357,6 +365,14 @@ _B2_CASES = [
     ("bfloat16", 256, 16, 128, 300, "float32"),
     ("float32", 64, 1, 32, 50, "float32"),
     ("int8", 8, 2, 18, None, "bfloat16"),
+    ("int4", 64, 1, 64, None, "bfloat16"),
+    ("int4", 256, 4, 32, 100, "float32"),
+    ("int4", 72, 4, 18, None, "bfloat16"),
+    ("int4", 72, 2, 64, 40, "bfloat16"),
+    ("int4", 8, 2, 17, None, "bfloat16"),
+    ("fp8", 64, 4, 16, None, "bfloat16"),
+    ("fp8", 256, 1, 128, 300, "float32"),
+    ("fp8", 72, 1, 18, 50, "bfloat16"),
 ]
 
 
@@ -379,7 +395,7 @@ def test_paged_routes_match_split_plain(gen, case):
         bound = min(bound, -(-(radius + 1) // page) + 1)
     args = (q, c.k_pages, c.v_pages, c.k_scales, c.v_scales, slots,
             c.lengths, c.page_tables, 0, bound, getattr(torch, out), True)
-    kw = dict(radius=radius)
+    kw = dict(radius=radius, page_type=c.config.page_type)
     before = _route_count("split")
     ko, kl = tpaged._paged_attention_kernel(*args, **kw)
     ko2, kl2 = tpaged._paged_attention_kernel(*args, **kw)
@@ -395,7 +411,8 @@ def test_paged_routes_match_split_plain(gen, case):
     assert float((po.float() - one.float()).abs().max()) <= 2e-2
 
 
-@pytest.mark.parametrize("dtype", ["int8", "bfloat16", "float32"])
+@pytest.mark.parametrize("dtype", ["int8", "bfloat16", "float32", "int4",
+                                   "fp8"])
 def test_paged_fused_append_matches_b3_then_b2(gen, dtype):
     """paged_attention(new_kv=...) on the card: one launch (the split
     route, no B3), pages and scales torch.equal to B3's plain append, o
@@ -424,15 +441,16 @@ def test_paged_fused_append_matches_b3_then_b2(gen, dtype):
         assert kernels.LAUNCHES["paged_append"] == before["paged_append"]
         assert (kernels.LAUNCHES["paged_attention_split"]
                 == before["paged_attention_split"] + 1)
+        pt = pc.config.page_type
         tpaged._paged_append_plain(kn, vn, pc.k_pages, pc.v_pages,
                                    pc.k_scales, pc.v_scales, slots,
-                                   pc.lengths, pc.page_tables)
+                                   pc.lengths, pc.page_tables, page_type=pt)
         qg = (q.float() * (64 ** -0.5 * tpaged.LOG2E)).bfloat16()
         qg = qg.reshape(b, 4, 2, 64)
         po, pl = tpaged._paged_attention_plain(
             qg, pc.k_pages, pc.v_pages, pc.k_scales, pc.v_scales, slots,
             pc.lengths, pc.page_tables, 1, bound, torch.bfloat16, True,
-            split_pages=_plan(qg, pc, bound))
+            split_pages=_plan(qg, pc, bound), page_type=pt)
         pc.lengths.index_add_(0, slots.long(), torch.ones_like(slots))
         assert torch.equal(kc.lengths, pc.lengths)
         for name in ("k_pages", "v_pages", "k_scales", "v_scales"):
@@ -458,20 +476,22 @@ def test_paged_split_calls_share_no_state(gen):
     args = (q, c.k_pages, c.v_pages, c.k_scales, c.v_scales, slots,
             c.lengths, c.page_tables, 0, 16, torch.bfloat16, True)
     assert _plan(q, c, 16) < 16  # several splits: the ticket combine runs
-    want = tpaged._paged_attention_kernel(*args)
+    kw = dict(page_type="int8")
+    want = tpaged._paged_attention_kernel(*args, **kw)
     torch.cuda.synchronize()
     streams = [torch.cuda.Stream() for _ in range(2)]
     got = []
     for s in streams:
         with torch.cuda.stream(s):
-            got += [tpaged._paged_attention_kernel(*args) for _ in range(8)]
+            got += [tpaged._paged_attention_kernel(*args, **kw)
+                    for _ in range(8)]
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
-        captured = tpaged._paged_attention_kernel(*args)
+        captured = tpaged._paged_attention_kernel(*args, **kw)
     graph.replay()
     with torch.cuda.stream(streams[0]):
-        got += [tpaged._paged_attention_kernel(*args) for _ in range(8)]
+        got += [tpaged._paged_attention_kernel(*args, **kw) for _ in range(8)]
     torch.cuda.synchronize()
     for o, lse in got + [captured]:
         assert torch.equal(o, want[0]) and torch.equal(lse, want[1])

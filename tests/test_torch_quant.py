@@ -30,10 +30,13 @@ from tpu_flash_torch.utils.convert import (
 torch.set_num_threads(2)
 
 _BLK = dict(block_q=128, block_kv=128)
-_QMAX = {"int8": 127.0, "float8_e4m3fn": 448.0, "float8_e5m2": 57344.0}
+_QMAX = {"int8": 127.0, "float8_e4m3fn": 448.0, "float8_e5m2": 57344.0,
+         "int4": 7.0, "int4_halves": 7.0}
 # Exact ties of each grid at scale 1 (round half to even decides them)
 # and values in the fp8 subnormal range.
 _TIES = {"int8": [0.5, 1.5, 2.5, -2.5, 126.5, -0.5],
+         "int4": [0.5, 1.5, 2.5, -2.5, 6.5, -0.5, -6.5],
+         "int4_halves": [0.5, 1.5, 2.5, -2.5, 6.5, -0.5, -6.5],
          "float8_e4m3fn": [1.0625, 1.1875, -1.0625, 1.5 * 2 ** -9,
                            2.5 * 2 ** -9, 3e-4, -2 ** -8],
          "float8_e5m2": [1.125, 1.375, -1.125, 1.5 * 2 ** -16,
@@ -72,18 +75,57 @@ def _planted(dtype, seed=0):
     return x
 
 
+# int4 quantizers and their dequantizers (values packed along the last
+# axis, in pairs or in halves), by the reference's names
+_INT4 = {"int4": ("quantize_int4", "dequantize_int4", "unpack_int4"),
+         "int4_halves": ("quantize_int4_halves", None, "unpack_int4_halves")}
+
+
 @pytest.mark.parametrize("axis", [-1, -2, (-2, -1)], ids=["tok", "chan", "tensor"])
-@pytest.mark.parametrize("dtype", ["int8", "float8_e4m3fn", "float8_e5m2"])
+@pytest.mark.parametrize("dtype", ["int8", "float8_e4m3fn", "float8_e5m2",
+                                   "int4", "int4_halves"])
 def test_quantize_bit_identical(dtype, axis):
     """Values and scales bit-identical to the reference's eager quantize
-    (IEEE divide, round to nearest even), ties and subnormals included."""
+    (IEEE divide, round to nearest even), ties and subnormals included; the
+    int4 quantizers (a zero row, .5 ties, both packings) likewise, their
+    packed bytes and the unpacked values too."""
     x = _planted(dtype)
+    if dtype in _INT4:
+        quant, deq, unpack = _INT4[dtype]
+        ja = getattr(jq, quant)(jnp.asarray(x), axis=axis)
+        ta = getattr(tq, quant)(torch.from_numpy(x), axis=axis)
+        np.testing.assert_array_equal(ta.values.numpy(), np.asarray(ja.values))
+        np.testing.assert_array_equal(ta.scales.numpy(), np.asarray(ja.scales))
+        np.testing.assert_array_equal(
+            getattr(tq, unpack)(ta.values).numpy(),
+            np.asarray(getattr(jq, unpack)(ja.values)))
+        if deq is not None:
+            np.testing.assert_array_equal(getattr(tq, deq)(ta).numpy(),
+                                          np.asarray(getattr(jq, deq)(ja)))
+        return
     ja = jq.quantize(jnp.asarray(x), dtype, axis=axis)
     ta = tq.quantize(torch.from_numpy(x), dtype, axis=axis)
     np.testing.assert_array_equal(_bits(ta.values), _jbits(ja.values))
     np.testing.assert_array_equal(ta.scales.numpy(), np.asarray(ja.scales))
     np.testing.assert_array_equal(tq.dequantize(ta).numpy(),
                                   np.asarray(jq.dequantize(ja)))
+
+
+@pytest.mark.parametrize("layout", ["int4", "int4_halves"])
+def test_int4_pack_unpack_bit_identical(layout):
+    """Every pair of int4 values, −8 … 7, packed as the reference packs
+    them (pairwise, or in halves) into the same bytes, and unpacked back
+    (sign-extended) to the same values."""
+    pack = {"int4": "pack_int4", "int4_halves": "pack_int4_halves"}[layout]
+    unpack = _INT4[layout][2]
+    a, b = np.meshgrid(np.arange(-8, 8), np.arange(-8, 8))
+    x = np.stack([a.ravel(), b.ravel()], -1).reshape(16, 32).astype(np.int8)
+    jp = np.asarray(getattr(jq, pack)(jnp.asarray(x)))
+    tp = getattr(tq, pack)(torch.from_numpy(x))
+    assert tp.dtype == torch.int8
+    np.testing.assert_array_equal(tp.numpy(), jp)
+    np.testing.assert_array_equal(getattr(tq, unpack)(tp).numpy(), x)
+    np.testing.assert_array_equal(np.asarray(getattr(jq, unpack)(jp)), x)
 
 
 @pytest.mark.parametrize("dtype", ["bfloat16", "float8_e4m3fn", "float8_e5m2"])
@@ -323,7 +365,7 @@ def test_flash_attention_quantized_route():
     (dict(schedule="local"), NotImplementedError, "ROADMAP A10"),
     (dict(radius=8), NotImplementedError, "ROADMAP A10"),
     (dict(section=8), NotImplementedError, "ROADMAP A11"),
-    (dict(kv_dtype="int4"), NotImplementedError, "ROADMAP A4"),
+    (dict(kv_dtype="int4"), ValueError, "int4"),
     (dict(q_dtype="float8_e4m3fn"), ValueError, "family"),
     (dict(kv_scale="tensor"), ValueError, "fp8 scaling"),
     (dict(kv_scale="channel"), ValueError, "kv_scale"),

@@ -438,12 +438,14 @@ def test_split_plain_matches_reference(dtype, radius, split_pages):
             torch.float32, True)
     kw = dict(radius=radius)
     to, tl = tpaged._paged_attention_plain(*args, **kw,
-                                           split_pages=split_pages)
+                                           split_pages=split_pages,
+                                           page_type=dtype)
     for ref_o, ref_l in ((jo, jl), (jp[0], jp[1])):
         _close(to.reshape(4, KVH * 2, D), ref_o, 2e-2)
         _close(tl.reshape(4, KVH * 2), ref_l, 2e-2)
-    one = tpaged._paged_attention_plain(*args, **kw)
-    whole = tpaged._paged_attention_plain(*args, **kw, split_pages=bound)
+    one = tpaged._paged_attention_plain(*args, **kw, page_type=dtype)
+    whole = tpaged._paged_attention_plain(*args, **kw, split_pages=bound,
+                                          page_type=dtype)
     assert all(torch.equal(a, b) for a, b in zip(one, whole))
 
 
@@ -461,12 +463,14 @@ def test_fused_plain_is_append_then_attention():
     to, tl, _ = tpaged.paged_attention(q, tc, slots, new_kv=(kn, vn),
                                        radius=20, return_lse=True)
     tpaged._paged_append_plain(kn, vn, pc.k_pages, pc.v_pages, pc.k_scales,
-                               pc.v_scales, slots, pc.lengths, pc.page_tables)
+                               pc.v_scales, slots, pc.lengths, pc.page_tables,
+                               page_type="int8")
     qg = (q.float() * (D ** -0.5 * tpaged.LOG2E)).bfloat16()
     po, pl = tpaged._paged_attention_plain(
         qg.reshape(3, KVH, 2, D), pc.k_pages, pc.v_pages, pc.k_scales,
         pc.v_scales, slots, pc.lengths, pc.page_tables, 1,
-        min(MAXP, -(-21 // PAGE) + 1), torch.float32, True, radius=20)
+        min(MAXP, -(-21 // PAGE) + 1), torch.float32, True, radius=20,
+        page_type="int8")
     pc.lengths.index_add_(0, slots.long(), torch.ones_like(slots))
     for name in ("k_pages", "v_pages", "k_scales", "v_scales", "lengths"):
         assert torch.equal(getattr(tc, name), getattr(pc, name)), name
@@ -494,30 +498,36 @@ def test_shared_slot_keyword_skips_only_the_check():
 
 
 @pytest.mark.parametrize("case,route", [
-    ((128, 2, 64, torch.int8, True), "shared"),
-    ((128, 2, 64, torch.int8, False), "split"),
-    ((128, 2, 64, torch.bfloat16, False), "split"),
-    ((40, 16, 64, torch.bfloat16, True), "shared"),
-    ((96, 16, 32, torch.int8, True), "split"),
-    ((256, 2, 128, torch.float32, False), "split"),
-    ((8, 2, 18, torch.int8, False), "split"),
-    ((8, 2, 20, torch.int8, False), "split"),
-    ((256, 3, 128, torch.bfloat16, False), "split"),
+    ((128, 2, 64, "int8", True), "shared"),
+    ((128, 2, 64, "int8", False), "split"),
+    ((128, 2, 64, "bfloat16", False), "split"),
+    ((40, 16, 64, "bfloat16", True), "shared"),
+    ((96, 16, 32, "int8", True), "split"),
+    ((256, 2, 128, "float32", False), "split"),
+    ((8, 2, 18, "int8", False), "split"),
+    ((8, 2, 20, "int8", False), "split"),
+    ((256, 3, 128, "bfloat16", False), "split"),
+    ((128, 2, 64, "int4", False), "split"),
+    ((72, 4, 64, "fp8", True), "shared"),
 ])
 def test_paged_route_and_split_plan(case, route):
     """paged_route picks the documented route: the shared table at page 64
     takes the tensor-core route; every other call, whatever its width,
-    group, page or page type, the split route. split_plan: three int8
-    pages a split at the serving decode (16 lanes × 8 heads × 16 pages),
-    one bf16, one at a single lane; never more than 56 KB of pages a split
-    unless one page is more."""
+    group, page or page type, the split route. split_plan: three int8,
+    int4 or fp8 pages a split at the serving decode (16 lanes × 8 heads ×
+    16 pages), one bf16, one at a single lane; never more than 56 KB of
+    pages (rows of d·esize bytes, d/2 for int4, and a 4-byte scale for
+    the quantized types) a split unless one page is more."""
     d, g, page, dtype, shared = case
     assert tpaged.paged_route(page, shared) == route
     if route == "split":
         s = tpaged.split_plan(16, 8, d, page, dtype, 16)
-        es = {torch.float32: 4, torch.bfloat16: 2, torch.int8: 1}[dtype]
-        page_bytes = 2 * page * (d * es + (4 if es == 1 else 0))
-        assert 1 <= s <= 4 and (s * page_bytes <= 57344 or s == 1)
-    assert tpaged.split_plan(16, 8, 128, 64, torch.int8, 16) == 3
-    assert tpaged.split_plan(16, 8, 128, 64, torch.bfloat16, 16) == 1
-    assert tpaged.split_plan(1, 8, 128, 64, torch.int8, 16) == 1
+        row = {"float32": 4 * d, "bfloat16": 2 * d, "int8": d + 4,
+               "fp8": d + 4, "int4": d // 2 + 4}[dtype]
+        assert tpaged.row_bytes(dtype, d) == row
+        assert 1 <= s <= 3 and (s * 2 * page * row <= 57344 or s == 1)
+    assert tpaged.split_plan(16, 8, 128, 64, "int8", 16) == 3
+    assert tpaged.split_plan(16, 8, 128, 64, "fp8", 16) == 3
+    assert tpaged.split_plan(16, 8, 128, 64, "int4", 16) == 3
+    assert tpaged.split_plan(16, 8, 128, 64, "bfloat16", 16) == 1
+    assert tpaged.split_plan(1, 8, 128, 64, "int8", 16) == 1

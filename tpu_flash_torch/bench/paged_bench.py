@@ -4,16 +4,19 @@ time with the host's launches (20 calls after 3).
 
     python -m tpu_flash_torch.bench.paged_bench
 
-Shapes (``chip_smoke.py``'s): the int8 and bf16 decode (16 lanes of
-530–549 tokens, 8 kv heads, G 2, d 128, page 64, pages_bound 16), the
-pipelined band (16 lanes of 1100–2031 tokens, radius 512) and the chunk
-prefix (512 lanes of one slot, positions 1536–2047, radius 512). Each is
+Shapes (``chip_smoke.py``'s): the decode (16 lanes of 530–549 tokens, 8
+kv heads, G 2, d 128, page 64, pages_bound 16), the pipelined band (16
+lanes of 1100–2031 tokens, radius 512) and the chunk prefix (512 lanes of
+one slot, positions 1536–2047, radius 512), each on every page type (the
+band and the chunk prefix on the quantized ones). Each is
 timed as the kernel's wrapper alone (q prescaled to bf16) and, for the
 decode and the band, as the public call that appends the new token and
 attends (``paged_attention(new_kv=...)``, ``paged_attention_pipelined``),
 and B3 alone (``fused_append``). It calls only what every checkout of the
-port has had since the chunk prefix came in, so the same script times an
-older checkout on ``PYTHONPATH`` beside this one. Needs a CUDA device.
+port has had since the chunk prefix came in (the page type goes to the
+wrapper where it takes one; a page type the checkout's cache refuses
+prints a ``skipped`` line), so the same script times an older checkout on
+``PYTHONPATH`` beside this one. Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -54,6 +57,10 @@ def _call_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+# the page types, in the order they are timed
+DTYPES = ("int8", "bfloat16", "int4", "fp8")
+
+
 def main() -> int:
     from tpu_flash_torch.bench.harness import device_ms
     from tpu_flash_torch.ops import paged
@@ -61,9 +68,10 @@ def main() -> int:
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(2)
     kern = paged._paged_attention_kernel
+    params = inspect.signature(kern).parameters
     # the chunk prefix's own route, where the checkout has one
-    shared = ({"shared_page_table": True} if "shared_page_table"
-              in inspect.signature(kern).parameters else {})
+    shared = ({"shared_page_table": True} if "shared_page_table" in params
+              else {})
     scale = 128 ** -0.5 * paged.LOG2E
 
     def emit(case, fn):
@@ -75,6 +83,18 @@ def main() -> int:
         return (q, c.k_pages, c.v_pages, c.k_scales, c.v_scales, slots,
                 c.lengths, c.page_tables, len_add, bound, torch.bfloat16, True)
 
+    def page_kw(c):
+        # the page type, where the checkout's wrapper takes one
+        return ({"page_type": c.config.page_type} if "page_type" in params
+                else {})
+
+    def cache(dtype, lens, seed):
+        try:
+            return _cache(dtype, lens, seed, dev)
+        except (NotImplementedError, ValueError) as e:
+            print(json.dumps(dict(case=dtype, skipped=str(e))), flush=True)
+            return None
+
     with torch.no_grad():
         slots = torch.arange(16, dtype=torch.int32, device=dev)
         q = torch.randn(16, 16, 128, generator=gen, device=dev).bfloat16()
@@ -83,28 +103,37 @@ def main() -> int:
                   for _ in range(2))
         lens = (530 + torch.randint(0, 20, (16,), generator=gen,
                                     device=dev)).tolist()
-        for dtype in ("int8", "bfloat16"):
-            c = _cache(dtype, lens, 3, dev)
+        band = (1100 + torch.randint(0, 932, (16,), generator=gen,
+                                     device=dev)).tolist()
+        qp = torch.randn(512, 8, 2, 128, generator=gen, device=dev).bfloat16()
+        pos = torch.arange(1536, 2048, dtype=torch.int32, device=dev)
+        lanes = torch.zeros(512, dtype=torch.int32, device=dev)
+        for dtype in DTYPES:
+            c = cache(dtype, lens, 3)
+            if c is None:
+                continue
             emit(f"decode_{dtype}_kernel",
-                 lambda: kern(*args(qg, c, slots, 1, 16)))
+                 lambda: kern(*args(qg, c, slots, 1, 16), **page_kw(c)))
             emit(f"decode_{dtype}_call", lambda: paged.paged_attention(
                 q, c, slots, new_kv=(kn, vn), pages_bound=16, return_lse=True))
             emit(f"append_{dtype}",
                  lambda: paged.fused_append(c, slots, kn, vn))
-        band = (1100 + torch.randint(0, 932, (16,), generator=gen,
-                                     device=dev)).tolist()
-        c = _cache("int8", band, 10, dev)
-        emit("band_kernel",
-             lambda: kern(*args(qg, c, slots, 1, 10), radius=512))
-        emit("band_call", lambda: paged.paged_attention_pipelined(
-            q, c, slots, new_kv=(kn, vn), radius=512, return_lse=True))
-        c = _cache("int8", [1536], 9, dev)
-        qp = torch.randn(512, 8, 2, 128, generator=gen, device=dev).bfloat16()
-        pos = torch.arange(1536, 2048, dtype=torch.int32, device=dev)
-        lanes = torch.zeros(512, dtype=torch.int32, device=dev)
-        emit("chunk_prefix_kernel",
-             lambda: kern(*args(qp, c, lanes, 0, 10), radius=512,
-                          positions=pos, **shared))
+        for dtype in DTYPES:
+            if dtype == "bfloat16":
+                continue
+            tag = "" if dtype == "int8" else f"_{dtype}"
+            c = cache(dtype, band, 10)
+            if c is None:
+                continue
+            emit(f"band_kernel{tag}",
+                 lambda: kern(*args(qg, c, slots, 1, 10), radius=512,
+                              **page_kw(c)))
+            emit(f"band_call{tag}", lambda: paged.paged_attention_pipelined(
+                q, c, slots, new_kv=(kn, vn), radius=512, return_lse=True))
+            c = cache(dtype, [1536], 9)
+            emit(f"chunk_prefix_kernel{tag}",
+                 lambda: kern(*args(qp, c, lanes, 0, 10), radius=512,
+                              positions=pos, **shared, **page_kw(c)))
     return 0
 
 

@@ -4,11 +4,14 @@ canonical decode model at full width, one JSON line each.
     python -m tpu_flash_torch.bench.paged_profile
 
 The model is ``chip_smoke.py``'s (vocab 32000, dim 2048, 16 layers, 16 q /
-8 kv heads, head_dim 128, bf16 weights from seed 0, int8 paged cache of
-1024 pages × 64). Steps, each warmed up twice before its profiled run:
+8 kv heads, head_dim 128, bf16 weights from seed 0, a paged cache of 1024
+pages × 64, int8 but where said). Steps, each warmed up twice before its
+profiled run:
 
 - ``causal_decode``: ``decode_step`` over 16 lanes of 530–549 cached
-  tokens (the engine's pages_bound 16);
+  tokens (the engine's pages_bound 16), from an int8, an fp8 and an int4
+  cache (a page type the checkout's cache refuses prints a ``skipped``
+  line);
 - ``sliding_decode``: the same with ``attention="sliding", window=1025``
   and the pipelined decode, lanes of 1100–2031 tokens;
 - ``sliding_chunk``: ``prefill_chunk`` of 512 tokens at offset 1536 of a
@@ -41,10 +44,10 @@ GROUPS = {"paged attention (B2)": ("paged_attention", "paged_split",
           "matrix products": ("nvjet", "gemm", "cutlass", "sm90_")}
 
 
-def _caches(lens, dev, n_layers):
+def _caches(lens, dev, n_layers, dtype):
     from tpu_flash_torch.cache.paged_cache import CacheConfig, PagedKVCache
 
-    cfg = CacheConfig(**CACHE)
+    cfg = CacheConfig(**{**CACHE, "dtype": dtype})
     gen = torch.Generator(device=dev).manual_seed(3)
     base = PagedKVCache.create(cfg, dev)
     perm = torch.randperm(cfg.total_pages - 1, generator=gen, device=dev) + 1
@@ -59,7 +62,7 @@ def _caches(lens, dev, n_layers):
         for _ in range(n_layers)]
 
 
-def _profile(name, step, reset):
+def _profile(name, step, reset, cache):
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(2):
@@ -89,7 +92,7 @@ def _profile(name, step, reset):
         by_group.values())
     step_ms = statistics.median(wall)
     print(json.dumps(dict(
-        step=name, step_ms=step_ms, step_ms_range=[min(wall), max(wall)],
+        step=name, cache=cache, step_ms=step_ms, step_ms_range=[min(wall), max(wall)],
         device_ms=total, launches=sum(e.count for e in kern),
         idle_share=1.0 - total / step_ms, device_ms_by_group=by_group,
         device=torch.cuda.get_device_name(0))), flush=True)
@@ -110,22 +113,31 @@ def main() -> int:
                 mcfg, torch.Generator(device=dev).manual_seed(0), dev)
             lo, hi = (530, 550) if attention == "causal" else (1100, 2032)
             lens = rng.integers(lo, hi, 16).tolist()
-            caches = _caches(lens, dev, mcfg.num_layers)
-            start = [c.lengths.clone() for c in caches]
             slots = torch.arange(16, dtype=torch.int32, device=dev)
             tokens = torch.as_tensor(rng.integers(1, 31999, 16), device=dev)
             positions = torch.as_tensor(lens, dtype=torch.int32, device=dev)
+            for dtype in (("int8", "fp8", "int4") if attention == "causal"
+                          else ("int8",)):
+                try:
+                    caches = _caches(lens, dev, mcfg.num_layers, dtype)
+                except (NotImplementedError, ValueError) as e:
+                    print(json.dumps(dict(step=f"{attention}_decode",
+                                          cache=dtype, skipped=str(e))),
+                          flush=True)
+                    continue
+                start = [c.lengths.clone() for c in caches]
 
-            def reset():
-                for c, s in zip(caches, start):
-                    c.lengths.copy_(s)
+                def reset():
+                    for c, s in zip(caches, start):
+                        c.lengths.copy_(s)
 
-            def decode():
-                tfm.decode_step(params, tokens, positions, caches, slots, mcfg,
-                                pages_bound=16 if attention == "causal" else None,
-                                pipelined=attention == "sliding")
+                def decode():
+                    tfm.decode_step(
+                        params, tokens, positions, caches, slots, mcfg,
+                        pages_bound=16 if attention == "causal" else None,
+                        pipelined=attention == "sliding")
 
-            _profile(f"{attention}_decode", decode, reset)
+                _profile(f"{attention}_decode", decode, reset, dtype)
             if attention == "causal":
                 continue
             chunk = torch.as_tensor(rng.integers(1, 31999, (1, 512)), device=dev)
@@ -140,7 +152,7 @@ def main() -> int:
                 tfm.prefill_chunk(params, chunk, 1536, 512, caches, 0, mcfg,
                                   pages_bound=32)
 
-            _profile("sliding_chunk", prefill, reset_chunk)
+            _profile("sliding_chunk", prefill, reset_chunk, "int8")
             del caches, params
             torch.cuda.empty_cache()
     return 0

@@ -1,14 +1,21 @@
 """Paged KV-cache: port of ``tpu_flash/cache/paged_cache.py``.
 
-Pages are stored ``(kv_heads, total_pages, page_size, head_dim)``; quantized
-(int8) pages carry per-token scales ``(kv_heads, total_pages, page_size)``.
-Page allocation is host-side (``cache/allocator.py``); this module does the
-device-side reads and writes.
+Pages are stored ``(kv_heads, total_pages, page_size, storage_head_dim)``.
+Page types: bfloat16 and float32 pages hold the values; quantized pages
+hold int8 (``"int8"``), float8_e4m3fn (``"fp8"`` ≡ ``"float8_e4m3fn"``) or
+int4 codes packed in halves into int8 of width d/2 (``"int4"``: byte j
+holds elements j and j + d/2), with per-token float32 scales
+``(kv_heads, total_pages, page_size)``. Page allocation is host-side
+(``cache/allocator.py``); this module does the device-side reads and
+writes.
+
+An int4 page and an int8 page of twice the head dim have the same shape
+and dtype, so nothing reads the page type off the tensors: the kernels
+and the plain versions take ``CacheConfig.page_type`` explicitly.
 
 Unlike the reference, whose updates are functional, every write here
 updates the cache's tensors IN PLACE: ``write_chunk`` and ``append`` mutate
-``self`` (and return it, so call sites read like the reference's). int4
-and fp8 pages are not ported yet (ROADMAP A4).
+``self`` (and return it, so call sites read like the reference's).
 """
 
 from __future__ import annotations
@@ -19,7 +26,45 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from tpu_flash_torch.quant.qarray import quantize
+from tpu_flash_torch.quant.qarray import (
+    quantize,
+    quantize_int4_halves,
+    unpack_int4_halves,
+)
+
+# page types: their storage dtype, and whether they carry scales
+PAGE_TYPES = {"float32": (torch.float32, False),
+              "bfloat16": (torch.bfloat16, False),
+              "int8": (torch.int8, True), "int4": (torch.int8, True),
+              "fp8": (torch.float8_e4m3fn, True)}
+_ALIASES = {"float8_e4m3fn": "fp8"}
+
+
+def storage_width(page_type: str, head_dim: int) -> int:
+    """Last dim of a page: d, or d/2 for int4 (two codes a byte)."""
+    return head_dim // 2 if page_type == "int4" else head_dim
+
+
+def encode(x: torch.Tensor, page_type: str):
+    """(…, head_dim) → (values (…, storage width), scales (…,) | None):
+    the one encode of the cache's writes and of B3's plain version, shared
+    with the quantizers in quant/qarray.py; the append kernels
+    (csrc/paged_page.cuh) must stay bit-identical to it."""
+    if page_type == "int8":
+        qa = quantize(x, torch.int8, axis=-1)
+    elif page_type == "fp8":
+        qa = quantize(x, torch.float8_e4m3fn, axis=-1)
+    elif page_type == "int4":
+        qa = quantize_int4_halves(x, axis=-1)
+    else:
+        return x.to(PAGE_TYPES[page_type][0]), None
+    return qa.values, qa.scales[..., 0]
+
+
+def decode(pages: torch.Tensor, page_type: str) -> torch.Tensor:
+    """Stored values → one value an element (int4 unpacked; others as
+    they are), unscaled."""
+    return unpack_int4_halves(pages) if page_type == "int4" else pages
 
 
 @dataclasses.dataclass(frozen=True)
@@ -30,20 +75,40 @@ class CacheConfig:
     total_pages: int = 1024
     max_seqs: int = 64
     max_pages_per_seq: int = 128
-    dtype: str = "bfloat16"  # bfloat16 | float32 | int8 (int4, fp8: A4)
+    # bfloat16 | float32 | int8 | int4 | fp8 (≡ float8_e4m3fn)
+    dtype: str = "bfloat16"
+
+    @property
+    def page_type(self) -> str:
+        """The page type the kernels and plain versions take: ``dtype``
+        with ``float8_e4m3fn`` named ``fp8``. Other dtypes raise (the
+        reference casts any other dtype string unscaled, float8_e5m2
+        included; that is not a page type it quantizes, and the port does
+        not take it)."""
+        pt = _ALIASES.get(self.dtype, self.dtype)
+        if pt not in PAGE_TYPES:
+            raise ValueError(
+                f"cache dtype {self.dtype!r} is not a page type: one of "
+                f"{sorted(PAGE_TYPES) + sorted(_ALIASES)} (float8_e5m2 and "
+                "other dtypes are not taken: the reference casts them "
+                "unscaled, an accident of its storage_dtype)")
+        return pt
 
     @property
     def quantized(self) -> bool:
-        return self.dtype == "int8"
+        return PAGE_TYPES[self.page_type][1]
+
+    @property
+    def fp8(self) -> bool:
+        return self.page_type == "fp8"
+
+    @property
+    def storage_head_dim(self) -> int:
+        return storage_width(self.page_type, self.head_dim)
 
     @property
     def storage_dtype(self) -> torch.dtype:
-        dt = {"bfloat16": torch.bfloat16, "float32": torch.float32,
-              "int8": torch.int8}.get(self.dtype)
-        if dt is None:
-            raise NotImplementedError(
-                f"cache dtype {self.dtype!r} is not ported yet (ROADMAP A4)")
-        return dt
+        return PAGE_TYPES[self.page_type][0]
 
 
 @dataclasses.dataclass
@@ -65,7 +130,7 @@ class PagedKVCache:
     @classmethod
     def create(cls, config: CacheConfig, device="cuda") -> "PagedKVCache":
         shape = (config.num_kv_heads, config.total_pages, config.page_size,
-                 config.head_dim)
+                 config.storage_head_dim)
         sc_shape = shape[:3]
         dt = config.storage_dtype
         quant = config.quantized
@@ -85,20 +150,6 @@ class PagedKVCache:
                                 device=device),
             config=config,
         )
-
-    # -- encoding -----------------------------------------------------------
-
-    def _encode(self, x: torch.Tensor):
-        """(…, head_dim) → (values (…, stor_dim), scales (…,) | None).
-
-        Shares the quantizer in quant/qarray.py; the append kernel's copy
-        (csrc/paged_append.cu, ops/paged.py:_encode_row) must stay
-        bit-identical to it.
-        """
-        if self.config.dtype == "int8":
-            qa = quantize(x, torch.int8, axis=-1)
-            return qa.values, qa.scales[..., 0]
-        return x.to(self.k_pages.dtype), None
 
     # -- writes -------------------------------------------------------------
 
@@ -126,8 +177,8 @@ class PagedKVCache:
             k = F.pad(k, (0, 0, 0, n_pad - n))
             v = F.pad(v, (0, 0, 0, n_pad - n))
         num_pages = n_pad // page
-        kv_vals, k_sc = self._encode(k)
-        vv_vals, v_sc = self._encode(v)
+        kv_vals, k_sc = encode(k, self.config.page_type)
+        vv_vals, v_sc = encode(v, self.config.page_type)
         # Pad the table row so a final chunk whose padded tail runs past the
         # slot's allocation (or past max_pages_per_seq) resolves to entry 0
         # = the trash page, never onto earlier real pages.
@@ -165,8 +216,8 @@ class PagedKVCache:
         cfg = self.config
         num_pages = -(-max_len // cfg.page_size)
         ids = self.page_tables[slot, :num_pages].long()
-        k = self.k_pages[:, ids].float()  # (kh, np, page, stor)
-        v = self.v_pages[:, ids].float()
+        k = decode(self.k_pages[:, ids], cfg.page_type).float()
+        v = decode(self.v_pages[:, ids], cfg.page_type).float()
         if cfg.quantized:
             k = k * self.k_scales[:, ids][..., None]
             v = v * self.v_scales[:, ids][..., None]

@@ -20,21 +20,27 @@
 // a lane with no visible key (an empty chunk prefix, start >= len) gives
 // o = 0 and lse = -inf, the weight-0 partial that merge_partials expects.
 //
+// Page types (paged_page.cuh, a code from the host, never read off the
+// storage's byte width): float32, bf16, int8, int4 packed in halves (d/2
+// bytes a row) and e4m3, the last three with a float32 scale a row.
+//
 // Numerics mirror the reference: q is prescaled by scale·log2(e) in
 // float32 (q·qscale) and rounded to bf16 as it is loaded; K/V page values
-// are cast to bf16 before the dots (exact for int8; rounds float32 pages);
-// scores accumulate in float32; int8 pages multiply the score column by
-// the K scale and P by the V scale; P is rounded to bf16 against the
-// running max after each page, before P·V; l sums the unscaled P; masked
-// keys take DEFAULT_MASK_VALUE; o = acc·(1/l) only for rows with l > 0 and
-// m > DEFAULT_MASK_VALUE/2, else 0 (lse = -inf). The fused append encodes
-// the row exactly as paged_append.cu does (IEEE divides, rintf, clip to
-// ±127; never --use_fast_math).
+// are cast to bf16 before the dots (exact for int8, int4 and e4m3 codes,
+// which decode exactly; rounds float32 pages); scores accumulate in
+// float32; quantized pages multiply the score column by the K scale and P
+// by the V scale; P is rounded to bf16 against the running max after each
+// page, before P·V; l sums the unscaled P; masked keys take
+// DEFAULT_MASK_VALUE; o = acc·(1/l) only for rows with l > 0 and m >
+// DEFAULT_MASK_VALUE/2, else 0 (lse = -inf). The fused append encodes the
+// row with paged_page.cuh:encode_row, as paged_append.cu does. (The
+// reference's kernel decodes e4m3 subnormals approximately, through
+// tpu_flash/quant/flash_q.py:_fp8_upcast; here they decode exactly.)
 //
 // What bounds it on an H100: HBM bytes. Decode reads every visible K/V
 // page once (16 lanes × ~540 tokens × 8 kv heads × d 128 is ~17 MB a layer
-// for an int8 cache, ~35 MB for bf16) at ~2 FLOP a byte: the ceiling is
-// 3.35 TB/s and the tensor cores have nothing to do. The chunk prefix of
+// for an int8 or fp8 cache, ~9 MB for int4, ~35 MB for bf16) at ~2 FLOP a
+// byte: the ceiling is 3.35 TB/s and the tensor cores have nothing to do. The chunk prefix of
 // chunked prefill is the exception: 512 lanes of ONE slot read the same
 // ≤ 9 pages, so there the work is 512 q rows × the prefix, a small GEMM.
 //
@@ -45,13 +51,15 @@
 //   most S consecutive pages of the lane's walk (S from the host's plan,
 //   ops/paged.py:split_plan, which the plain version takes too); all of a
 //   split's pages are in flight at once. Where the 1-D bulk copy takes a
-//   page (each K and V page one contiguous run of (kvh, total, page, d)
-//   storage whose page·d·esize bytes are a multiple of 16, int8 scale rows
-//   of 4·page bytes likewise), two or four bulk copies a page fill an
-//   S-stage shared ring; otherwise (float32 pages, which are staged as the
-//   bf16 the dots read, so that a page of 128 at d 256 fits; int8 pages off
+//   page (each K and V page one contiguous run of (kvh, total, page, row)
+//   storage whose page·row_bytes are a multiple of 16, scale rows of
+//   4·page bytes likewise), two or four bulk copies a page fill an S-stage
+//   shared ring; otherwise (float32 pages, which are staged as the bf16 the
+//   dots read, so that a page of 128 at d 256 fits; quantized pages off
 //   the 16-byte grid) every thread copies the split's pages with 8-byte
-//   loads and the scale rows with 4-byte ones. The launch refuses a plan
+//   loads (4-byte ones where an int4 page is not a multiple of 8 bytes)
+//   and the scale rows with 4-byte ones. int4 and e4m3 codes are decoded
+//   where the dots load them (8 values at once, from the staged page). The launch refuses a plan
 //   whose stages do not fit in shared memory (split_smem, the one account
 //   of the layout). The dots run on the CUDA cores (decode has ~2 FLOP a
 //   byte): LK lanes per key row, each holding 8 columns of the G query rows
@@ -89,6 +97,7 @@
 #include <type_traits>
 
 #include "hopper.cuh"
+#include "paged_page.cuh"
 
 namespace {
 
@@ -142,21 +151,63 @@ __device__ __forceinline__ float load_q(const Args& a, size_t i) {
   return as_bf16(x * a.qscale);
 }
 
-// 8 consecutive staged page values (8-element aligned) as floats
-__device__ __forceinline__ void load8(const int8_t* p, float (&v)[8]) {
-  // exact: the float with bits 0x4B000000 | (x ^ 0x80) is 2^23 + 128 + x
-  const uint2 raw = *reinterpret_cast<const uint2*>(p);
+// values 8·c8 … 8·c8 + 7 of row r of a page as the split route stages it
+// (float32 pages as bf16, the others as they are in the cache), as floats;
+// every decode is exact
+template <int PT>
+__device__ __forceinline__ void load8(const unsigned char* pg, int r, int c8, int d,
+                                      float (&v)[8]) {
+  if constexpr (PT == PT_F32 || PT == PT_BF16) {
+    const uint4 raw = *reinterpret_cast<const uint4*>(pg + ((size_t)r * d + 8 * c8) * 2);
+    const bf16* e = reinterpret_cast<const bf16*>(&raw);
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const uint32_t w = (i < 4 ? raw.x : raw.y) ^ 0x80808080u;
-    v[i] = __uint_as_float(0x4B000000u | ((w >> (8 * (i % 4))) & 0xffu)) - 8388736.0f;
+    for (int i = 0; i < 8; ++i) v[i] = __bfloat162float(e[i]);
+  } else if constexpr (PT == PT_I8) {
+    // the float with bits 0x4B000000 | (x ^ 0x80) is 2^23 + 128 + x
+    const uint2 raw = *reinterpret_cast<const uint2*>(pg + (size_t)r * d + 8 * c8);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const uint32_t w = (i < 4 ? raw.x : raw.y) ^ 0x80808080u;
+      v[i] = __uint_as_float(0x4B000000u | ((w >> (8 * (i % 4))) & 0xffu)) - 8388736.0f;
+    }
+  } else if constexpr (PT == PT_E4M3) {
+    // e4m3 → f16 pairs (cvt.rn.f16x2.e4m3x2), then to float: exact
+    const uint2 raw = *reinterpret_cast<const uint2*>(pg + (size_t)r * d + 8 * c8);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const uint32_t w = i < 2 ? raw.x : raw.y;
+      const __half2 h2(__nv_cvt_fp8x2_to_halfraw2(
+          static_cast<__nv_fp8x2_storage_t>(w >> (16 * (i % 2))), __NV_E4M3));
+      const float2 f = __half22float2(h2);
+      v[2 * i] = f.x;
+      v[2 * i + 1] = f.y;
+    }
+  } else {
+    // int4 in halves: element e < d/2 is the low nibble of byte e, element
+    // e >= d/2 the high nibble of byte e - d/2; sign-extended by int32
+    // shifts. With d/2 a multiple of 8 the 8 values are one aligned word
+    // pair of one half; otherwise byte by byte.
+    const int h = d / 2, e0 = 8 * c8;
+    const unsigned char* row = pg + (size_t)r * h;
+    if (h % 8 == 0) {
+      const bool hi = e0 >= h;
+      const uint2 raw = *reinterpret_cast<const uint2*>(row + (hi ? e0 - h : e0));
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const uint32_t w = i < 4 ? raw.x : raw.y;
+        const int sh = 8 * (i % 4);
+        v[i] = static_cast<float>(hi ? static_cast<int>(w << (24 - sh)) >> 28
+                                     : static_cast<int>(w << (28 - sh)) >> 28);
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int e = e0 + i;
+        const int x = static_cast<int8_t>(row[e < h ? e : e - h]);
+        v[i] = static_cast<float>(e < h ? (x << 28) >> 28 : x >> 4);
+      }
+    }
   }
-}
-__device__ __forceinline__ void load8(const bf16* p, float (&v)[8]) {
-  const uint4 raw = *reinterpret_cast<const uint4*>(p);
-  const bf16* e = reinterpret_cast<const bf16*>(&raw);
-#pragma unroll
-  for (int i = 0; i < 8; ++i) v[i] = __bfloat162float(e[i]);
 }
 __device__ __forceinline__ float warp_max(float x) {
   for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
@@ -177,43 +228,45 @@ __host__ __device__ inline int lanes_per_key(int d) {
   return lk;
 }
 
-// the type a split stage holds a page in: float32 pages as the bf16 the
-// dots read (the same rounding), int8 and bf16 pages as they are
-template <typename TC>
-using Staged = typename std::conditional<sizeof(TC) == 4, bf16, TC>::type;
+// the type a split stage holds a storage unit in: float32 pages as the
+// bf16 the dots read (the same rounding), the others as they are; and a
+// staged row's bytes
+template <int PT>
+using Staged = typename std::conditional<PT == PT_F32, bf16, typename Page<PT>::T>::type;
+__host__ __device__ inline int staged_row_bytes(int pt, int d) {
+  return pt == PT_F32 ? 2 * d : row_bytes(pt, d);
+}
+template <int PT>
+__device__ __forceinline__ Staged<PT> to_staged(typename Page<PT>::T u) {
+  if constexpr (PT == PT_F32) return __float2bfloat16_rn(u);
+  else return u;
+}
 
 // the split route's shared memory, its one account: S stages of a staged
-// K page and V page (ses bytes a value, each padded to 16 bytes) and the K
+// K page and V page (srb bytes a row, each padded to 16 bytes) and the K
 // and V scale rows, the stages' barriers, P/scores (GC × page), the lane
 // groups' P·V sums (NG × GC × d), m/l/alpha and the last-CTA flag
-__host__ __device__ inline size_t split_kv(int page, int d, int ses) {
-  return ((size_t)page * d * ses + 15) & ~(size_t)15;
+__host__ __device__ inline size_t split_kv(int page, int srb) {
+  return ((size_t)page * srb + 15) & ~(size_t)15;
 }
-__host__ __device__ inline size_t split_stage(int page, int d, int ses, bool quant) {
-  return 2 * split_kv(page, d, ses) + (quant ? 8 * (size_t)page : 0);
+__host__ __device__ inline size_t split_stage(int page, int srb, bool quant) {
+  return 2 * split_kv(page, srb) + (quant ? 8 * (size_t)page : 0);
 }
-__host__ __device__ inline size_t split_smem(int s, int page, int d, int ses, bool quant,
+__host__ __device__ inline size_t split_smem(int s, int page, int d, int srb, bool quant,
                                              int gc) {
   const int ng = NT / lanes_per_key(d);
-  const size_t stage = (split_stage(page, d, ses, quant) + 15) & ~(size_t)15;
+  const size_t stage = (split_stage(page, srb, quant) + 15) & ~(size_t)15;
   return s * stage + 8 * (size_t)s + 4 * (size_t)gc * page + 4 * (size_t)ng * gc * d +
          12 * (size_t)gc + 16;
 }
 
-template <typename TC>
-__device__ __forceinline__ TC to_page(float x) {
-  if constexpr (sizeof(TC) == 1) return static_cast<int8_t>(static_cast<int>(x));
-  else if constexpr (sizeof(TC) == 2) return __float2bfloat16_rn(x);
-  else return x;
-}
-
-template <typename TC, typename TO, int GC>
+template <int PT, typename TO, int GC>
 __global__ void __launch_bounds__(NT) paged_split_kernel(const Args a) {
-  using SC = Staged<TC>;
+  using TC = typename Page<PT>::T;
+  using SC = Staged<PT>;
   constexpr int KPI = 4;  // key rows a lane group takes at once
-  constexpr int ES = sizeof(TC);
-  constexpr bool QUANT = ES == 1;
-  const bool bulk = ES != 4 && a.bulk;
+  constexpr bool QUANT = Page<PT>::QUANT;
+  const bool bulk = PT != PT_F32 && a.bulk;
   extern __shared__ __align__(128) unsigned char smem[];
   const int sidx = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
@@ -243,9 +296,10 @@ __global__ void __launch_bounds__(NT) paged_split_kernel(const Args a) {
     owner = sidx == ((idx >= 0 && idx < n_walk) ? idx / S : max(n_work - 1, 0));
   }
 
-  const size_t kvb = (size_t)page * d * ES;  // a K (or V) page in the cache
-  const size_t kvs = split_kv(page, d, sizeof(SC));  // and in its stage
-  const size_t stage = (split_stage(page, d, sizeof(SC), QUANT) + 15) & ~(size_t)15;
+  const int units = row_units(PT, d), rb = row_bytes(PT, d), srb = staged_row_bytes(PT, d);
+  const size_t kvb = (size_t)page * rb;    // a K (or V) page in the cache
+  const size_t kvs = split_kv(page, srb);  // and in its stage
+  const size_t stage = (split_stage(page, srb, QUANT) + 15) & ~(size_t)15;
   const int C = d / 8, LK = lanes_per_key(d), NG = NT / LK;
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + S * stage);
   float* ss = reinterpret_cast<float*>(full + S);  // GC × page
@@ -269,8 +323,9 @@ __global__ void __launch_bounds__(NT) paged_split_kernel(const Args a) {
       unsigned char* st = smem + tid * stage;
       uint64_t* bar = &full[tid];
       mbar_expect_tx(bar, (uint32_t)(2 * kvb + (QUANT ? 8 * page : 0)));
-      bulk_load(st, static_cast<const TC*>(a.kp) + row0 * d, (uint32_t)kvb, bar);
-      bulk_load(st + kvs, static_cast<const TC*>(a.vp) + row0 * d, (uint32_t)kvb, bar);
+      bulk_load(st, static_cast<const unsigned char*>(a.kp) + row0 * rb, (uint32_t)kvb, bar);
+      bulk_load(st + kvs, static_cast<const unsigned char*>(a.vp) + row0 * rb, (uint32_t)kvb,
+                bar);
       if constexpr (QUANT) {
         bulk_load(st + 2 * kvs, a.ks + row0, 4 * page, bar);
         bulk_load(st + 2 * kvs + 4 * page, a.vs + row0, 4 * page, bar);
@@ -278,22 +333,30 @@ __global__ void __launch_bounds__(NT) paged_split_kernel(const Args a) {
     }
   } else {
     // pages the bulk copy does not take: every thread copies the split's
-    // pages in 8-byte words (page·d·esize is a multiple of 8), a float32
-    // pair rounded to a bf16 pair, and the scale rows a float at a time
-    const int words = (int)(kvb / 8);
+    // pages in 8-byte words (a float32 pair rounded to a bf16 pair), or
+    // 4-byte ones where the page is not a multiple of 8 bytes (an int4 page
+    // of an odd row count at d/2 ≡ 4 mod 8), and the scale rows a float at
+    // a time
+    const bool w8 = kvb % 8 == 0;
+    const int words = (int)(kvb / (w8 ? 8 : 4));
     for (int j = 0; j < my_n; ++j) {
       const int phys = table[min(start_pg + first + j, last)];
       const size_t row0 = ((size_t)h * a.total + phys) * page;
       unsigned char* st = smem + j * stage;
       for (int i = tid; i < 2 * words; i += NT) {
         const int is_v = i >= words, w = i - is_v * words;
-        const uint2 x = reinterpret_cast<const uint2*>(
-            static_cast<const TC*>(is_v ? a.vp : a.kp) + row0 * d)[w];
-        if constexpr (ES == 4)
+        const unsigned char* src =
+            static_cast<const unsigned char*>(is_v ? a.vp : a.kp) + row0 * rb;
+        if constexpr (PT == PT_F32) {
+          const uint2 x = reinterpret_cast<const uint2*>(src)[w];
           reinterpret_cast<__nv_bfloat162*>(st + is_v * kvs)[w] =
               __floats2bfloat162_rn(__uint_as_float(x.x), __uint_as_float(x.y));
-        else
-          reinterpret_cast<uint2*>(st + is_v * kvs)[w] = x;
+        } else if (w8) {
+          reinterpret_cast<uint2*>(st + is_v * kvs)[w] = reinterpret_cast<const uint2*>(src)[w];
+        } else {
+          reinterpret_cast<uint32_t*>(st + is_v * kvs)[w] =
+              reinterpret_cast<const uint32_t*>(src)[w];
+        }
       }
       if constexpr (QUANT)
         for (int i = tid; i < 2 * page; i += NT)
@@ -303,36 +366,26 @@ __global__ void __launch_bounds__(NT) paged_split_kernel(const Args a) {
   }
 
   // the new row (warp 0: K, warp 1: V), encoded in registers as
-  // paged_append.cu encodes it, and written to the cache
-  constexpr int RJ = 256 / 32;
-  float ax[RJ];
+  // paged_append.cu encodes it (paged_page.cuh:encode_row), and written to
+  // the cache
+  TC au[ROW_J];
   float asc = 1.0f;
   if (owner && warp < 2) {
     const bool is_v = warp == 1;
     const size_t src = ((size_t)b * a.kvh + h) * d;
     const void* nv = is_v ? a.new_v : a.new_k;
-#pragma unroll
-    for (int j = 0; j < RJ; ++j) {
-      const int c = lane + 32 * j;
-      ax[j] = c >= d ? 0.0f
-              : a.in_f32 ? static_cast<const float*>(nv)[src + c]
-                         : __bfloat162float(static_cast<const bf16*>(nv)[src + c]);
-    }
-    if constexpr (QUANT) {
-      float amax = 0.0f;
-#pragma unroll
-      for (int j = 0; j < RJ; ++j) amax = fmaxf(amax, fabsf(ax[j]));
-      amax = warp_max(amax);
-      asc = fmaxf(amax, 1e-12f) / 127.0f;
-#pragma unroll
-      for (int j = 0; j < RJ; ++j) ax[j] = fminf(fmaxf(rintf(ax[j] / asc), -127.0f), 127.0f);
-    }
+    asc = encode_row<PT>(
+        [&](int c) {
+          return a.in_f32 ? static_cast<const float*>(nv)[src + c]
+                          : __bfloat162float(static_cast<const bf16*>(nv)[src + c]);
+        },
+        d, lane, au);
     const int phys = table[min(tail, a.maxp - 1)];
     const size_t arow = ((size_t)h * a.total + phys) * page + base_len % page;
-    TC* dst = static_cast<TC*>(is_v ? a.vp : a.kp) + arow * d;
+    TC* dst = static_cast<TC*>(is_v ? a.vp : a.kp) + arow * units;
 #pragma unroll
-    for (int j = 0; j < RJ; ++j)
-      if (lane + 32 * j < d) dst[lane + 32 * j] = to_page<TC>(ax[j]);
+    for (int j = 0; j < ROW_J; ++j)
+      if (lane + 32 * j < units) dst[lane + 32 * j] = au[j];
     if (QUANT && lane == 0) (is_v ? a.vs : a.ks)[arow] = asc;
   }
 
@@ -359,17 +412,17 @@ __global__ void __launch_bounds__(NT) paged_split_kernel(const Args a) {
       const int lo = max(0, start - logical * page);
       const int hi = min(page, len - logical * page);
       unsigned char* st = smem + j * stage;
-      const SC* kr = reinterpret_cast<const SC*>(st);
-      const SC* vr = reinterpret_cast<const SC*>(st + kvs);
+      const unsigned char* kr = st;
+      const unsigned char* vr = st + kvs;
       float* sc_row = reinterpret_cast<float*>(st + 2 * kvs);  // K scales, then V's
       if (bulk) mbar_wait(&full[j], 0);
       if (g0 == 0 && owner && logical == tail && warp < 2) {
         // the stale tail row the copy brought: this CTA's own new row
         const int off = base_len % page;
-        SC* dst = reinterpret_cast<SC*>(st + (warp ? kvs : 0)) + (size_t)off * d;
+        SC* dst = reinterpret_cast<SC*>(st + (warp ? kvs : 0)) + (size_t)off * units;
 #pragma unroll
-        for (int jj = 0; jj < RJ; ++jj)
-          if (lane + 32 * jj < d) dst[lane + 32 * jj] = to_page<SC>(ax[jj]);
+        for (int jj = 0; jj < ROW_J; ++jj)
+          if (lane + 32 * jj < units) dst[lane + 32 * jj] = to_staged<PT>(au[jj]);
         if (QUANT && lane == 0) sc_row[(warp ? page : 0) + off] = asc;
       }
       __syncthreads();  // the page (and its merged row) staged; ss free
@@ -385,7 +438,7 @@ __global__ void __launch_bounds__(NT) paged_split_kernel(const Args a) {
           for (int g = 0; g < GC; ++g) dot[k][g] = 0.0f;
           if (r >= lo && r < hi && c < C) {
             float kv[8];
-            load8(kr + (size_t)r * d + c * 8, kv);
+            load8<PT>(kr, r, c, d, kv);
 #pragma unroll
             for (int g = 0; g < GC; ++g)
 #pragma unroll
@@ -452,7 +505,7 @@ __global__ void __launch_bounds__(NT) paged_split_kernel(const Args a) {
             const int r = r0 + k * NG;
 #pragma unroll
             for (int e = 0; e < 8; ++e) vv[k][e] = 0.0f;
-            if (r < hi) load8(vr + (size_t)r * d + c * 8, vv[k]);
+            if (r < hi) load8<PT>(vr, r, c, d, vv[k]);
           }
 #pragma unroll
           for (int k = 0; k < KPI; ++k) {
@@ -592,47 +645,43 @@ __global__ void __launch_bounds__(NT) paged_split_kernel(const Args a) {
 constexpr int SH_PAGE = 64;  // keys a step: one page
 
 // shared bytes of the shared-table route: 1024 of alignment slack, the Q
-// tile and NB pairs of K and V bf16 tiles (64 × HD each), ST raw stages,
-// their barriers, the rows' ranges, two pages' scales and the walk's range
-__host__ __device__ inline size_t shared_stage(int d, int es, bool quant) {
-  return 2 * (size_t)SH_PAGE * d * es + (quant ? 8 * SH_PAGE : 0);
+// tile and NB pairs of K and V bf16 tiles (64 × HD each), ST raw stages
+// (rb bytes a page row), their barriers, the rows' ranges, two pages'
+// scales and the walk's range
+__host__ __device__ inline size_t shared_stage(int rb, bool quant) {
+  return 2 * (size_t)SH_PAGE * rb + (quant ? 8 * SH_PAGE : 0);
 }
-__host__ __device__ inline size_t shared_smem(int hd, int nb, int st, int d, int es,
-                                              bool quant) {
-  return 1024 + (1 + 2 * (size_t)nb) * SH_PAGE * hd * 2 + st * shared_stage(d, es, quant) +
+__host__ __device__ inline size_t shared_smem(int hd, int nb, int st, int rb, bool quant) {
+  return 1024 + (1 + 2 * (size_t)nb) * SH_PAGE * hd * 2 + st * shared_stage(rb, quant) +
          8 * st + 4 * 6 * SH_PAGE + 16;
 }
 
-// 8 page values as 8 bf16 (the kernel's view of them): bf16 as they are,
-// int8 exactly through the 2^23 trick (on the FMA pipe), float32 rounded
+// values 8·c8 … 8·c8 + 7 of row r of a raw page as 8 bf16 (the kernel's
+// view of them): bf16 as they are, float32 rounded, the codes of the
+// quantized types decoded exactly (load8) and packed, which is exact
 __device__ __forceinline__ uint32_t pack_hi(float a, float b) {
   return __byte_perm(__float_as_uint(a), __float_as_uint(b), 0x7632);
 }
-__device__ __forceinline__ uint4 bf16x8(const int8_t* p) {
-  const uint2 raw = *reinterpret_cast<const uint2*>(p);
-  float v[8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const uint32_t w = (i < 4 ? raw.x : raw.y) ^ 0x80808080u;
-    v[i] = __uint_as_float(0x4B000000u | ((w >> (8 * (i % 4))) & 0xffu)) - 8388736.0f;
+template <int PT>
+__device__ __forceinline__ uint4 bf16x8(const uint8_t* pg, int r, int c8, int d) {
+  if constexpr (PT == PT_BF16) {
+    return *reinterpret_cast<const uint4*>(pg + ((size_t)r * d + 8 * c8) * 2);
+  } else if constexpr (PT == PT_F32) {
+    const float4* p = reinterpret_cast<const float4*>(pg + ((size_t)r * d + 8 * c8) * 4);
+    const float4 x = p[0], y = p[1];
+    return make_uint4(pack_bf16(x.x, x.y), pack_bf16(x.z, x.w), pack_bf16(y.x, y.y),
+                      pack_bf16(y.z, y.w));
+  } else {
+    float v[8];
+    load8<PT>(pg, r, c8, d, v);
+    return make_uint4(pack_hi(v[0], v[1]), pack_hi(v[2], v[3]), pack_hi(v[4], v[5]),
+                      pack_hi(v[6], v[7]));
   }
-  return make_uint4(pack_hi(v[0], v[1]), pack_hi(v[2], v[3]), pack_hi(v[4], v[5]),
-                    pack_hi(v[6], v[7]));
-}
-__device__ __forceinline__ uint4 bf16x8(const bf16* p) {
-  return *reinterpret_cast<const uint4*>(p);
-}
-__device__ __forceinline__ uint4 bf16x8(const float* p) {
-  const float4 x = reinterpret_cast<const float4*>(p)[0];
-  const float4 y = reinterpret_cast<const float4*>(p)[1];
-  return make_uint4(pack_bf16(x.x, x.y), pack_bf16(x.z, x.w), pack_bf16(y.x, y.y),
-                    pack_bf16(y.z, y.w));
 }
 
-template <typename TC, typename TO, int HD>
+template <int PT, typename TO, int HD>
 __global__ void __launch_bounds__(NT) paged_shared_kernel(const Args a, int NB, int ST) {
-  constexpr int ES = sizeof(TC);
-  constexpr bool QUANT = ES == 1;
+  constexpr bool QUANT = Page<PT>::QUANT;
   constexpr int TILE = SH_PAGE * HD * 2, CH = HD / 8;
   extern __shared__ unsigned char smem_raw[];
   uint8_t* smem = reinterpret_cast<uint8_t*>(
@@ -641,8 +690,9 @@ __global__ void __launch_bounds__(NT) paged_shared_kernel(const Args a, int NB, 
   uint8_t* tiles = smem + TILE;  // NB × (K, V)
   uint8_t* raw = tiles + 2 * NB * TILE;
   const int d = a.d, G = a.g;
-  const size_t kvb = (size_t)SH_PAGE * d * ES;
-  const size_t rstage = shared_stage(d, ES, QUANT);
+  const int rowb = row_bytes(PT, d);
+  const size_t kvb = (size_t)SH_PAGE * rowb;
+  const size_t rstage = shared_stage(rowb, QUANT);
   uint64_t* full = reinterpret_cast<uint64_t*>(raw + ST * rstage);
   int* rs = reinterpret_cast<int*>(full + ST);  // row key ranges [rs, re)
   int* re = rs + SH_PAGE;
@@ -700,8 +750,8 @@ __global__ void __launch_bounds__(NT) paged_shared_kernel(const Args a, int NB, 
     uint8_t* st = raw + (t % ST) * rstage;
     uint64_t* bar = &full[t % ST];
     mbar_expect_tx(bar, (uint32_t)rstage);
-    bulk_load(st, static_cast<const TC*>(a.kp) + row0 * d, (uint32_t)kvb, bar);
-    bulk_load(st + kvb, static_cast<const TC*>(a.vp) + row0 * d, (uint32_t)kvb, bar);
+    bulk_load(st, static_cast<const uint8_t*>(a.kp) + row0 * rowb, (uint32_t)kvb, bar);
+    bulk_load(st + kvb, static_cast<const uint8_t*>(a.vp) + row0 * rowb, (uint32_t)kvb, bar);
     if constexpr (QUANT) {
       bulk_load(st + 2 * kvb, a.ks + row0, 4 * SH_PAGE, bar);
       bulk_load(st + 2 * kvb + 4 * SH_PAGE, a.vs + row0, 4 * SH_PAGE, bar);
@@ -720,8 +770,8 @@ __global__ void __launch_bounds__(NT) paged_shared_kernel(const Args a, int NB, 
       const int idx = tid + it * NT, r = idx / CH, c8 = idx % CH;
       uint4 wk = make_uint4(0, 0, 0, 0), wv = wk;
       if (c8 * 8 < d) {
-        wk = bf16x8(reinterpret_cast<const TC*>(st) + (size_t)r * d + c8 * 8);
-        wv = bf16x8(reinterpret_cast<const TC*>(st + kvb) + (size_t)r * d + c8 * 8);
+        wk = bf16x8<PT>(st, r, c8, d);
+        wv = bf16x8<PT>(st + kvb, r, c8, d);
       }
       *reinterpret_cast<uint4*>(kt + tile_off<128, 64>(r, 16 * c8)) = wk;
       *reinterpret_cast<uint4*>(kt + TILE + tile_off<128, 64>(r, 16 * c8)) = wv;
@@ -855,32 +905,33 @@ cudaError_t set_smem(K kern, size_t smem) {
   return cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
-template <typename TC, typename TO, int GC>
+template <int PT, typename TO, int GC>
 cudaError_t launch_split(const Args& a, cudaStream_t stream) {
-  auto kern = paged_split_kernel<TC, TO, GC>;
-  const size_t smem =
-      split_smem(a.split_pages, a.page, a.d, sizeof(Staged<TC>), sizeof(TC) == 1, GC);
+  auto kern = paged_split_kernel<PT, TO, GC>;
+  const size_t smem = split_smem(a.split_pages, a.page, a.d, staged_row_bytes(PT, a.d),
+                                 Page<PT>::QUANT, GC);
   cudaError_t err = set_smem(kern, smem);
   if (err != cudaSuccess) return err;
   kern<<<dim3(a.n_splits, a.kvh, a.b), NT, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
-template <typename TC, typename TO, int HD>
+template <int PT, typename TO, int HD>
 cudaError_t launch_shared(const Args& a, cudaStream_t stream) {
-  constexpr int ES = sizeof(TC);
+  const int rb = row_bytes(PT, a.d);
+  constexpr bool QUANT = Page<PT>::QUANT;
   // two tile pairs (the next page decodes under this one's products) when
   // two raw stages fit beside them, else one
   int nb = 2, st = 3;
-  while (st > 0 && shared_smem(HD, nb, st, a.d, ES, ES == 1) > SMEM_LIMIT) {
+  while (st > 0 && shared_smem(HD, nb, st, rb, QUANT) > SMEM_LIMIT) {
     if (--st < 2 && nb == 2) {
       nb = 1;
       st = 3;
     }
   }
   if (st == 0) return cudaErrorInvalidValue;
-  auto kern = paged_shared_kernel<TC, TO, HD>;
-  const size_t smem = shared_smem(HD, nb, st, a.d, ES, ES == 1);
+  auto kern = paged_shared_kernel<PT, TO, HD>;
+  const size_t smem = shared_smem(HD, nb, st, rb, QUANT);
   cudaError_t err = set_smem(kern, smem);
   if (err != cudaSuccess) return err;
   const long tiles = ((long)a.b * a.g + SH_PAGE - 1) / SH_PAGE;
@@ -888,26 +939,28 @@ cudaError_t launch_shared(const Args& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-template <typename TC, typename TO>
+template <int PT, typename TO>
 cudaError_t by_route(int route, const Args& a, cudaStream_t stream) {
   const int d = a.d;
   if (route == SPLIT) {
-    if (a.g <= 1) return launch_split<TC, TO, 1>(a, stream);
-    if (a.g <= 2) return launch_split<TC, TO, 2>(a, stream);
-    if (a.g <= 4) return launch_split<TC, TO, 4>(a, stream);
-    return launch_split<TC, TO, 8>(a, stream);
+    if (a.g <= 1) return launch_split<PT, TO, 1>(a, stream);
+    if (a.g <= 2) return launch_split<PT, TO, 2>(a, stream);
+    if (a.g <= 4) return launch_split<PT, TO, 4>(a, stream);
+    return launch_split<PT, TO, 8>(a, stream);
   }
-  if (d <= 64) return launch_shared<TC, TO, 64>(a, stream);
-  if (d <= 128) return launch_shared<TC, TO, 128>(a, stream);
-  return launch_shared<TC, TO, 256>(a, stream);
+  if (d <= 64) return launch_shared<PT, TO, 64>(a, stream);
+  if (d <= 128) return launch_shared<PT, TO, 128>(a, stream);
+  return launch_shared<PT, TO, 256>(a, stream);
 }
 
 template <typename TO>
-cudaError_t by_cache(int cache_dtype, int route, const Args& a, cudaStream_t stream) {
-  switch (cache_dtype) {
-    case 0: return by_route<float, TO>(route, a, stream);
-    case 1: return by_route<bf16, TO>(route, a, stream);
-    case 2: return by_route<int8_t, TO>(route, a, stream);
+cudaError_t by_page(int page_type, int route, const Args& a, cudaStream_t stream) {
+  switch (page_type) {
+    case PT_F32: return by_route<PT_F32, TO>(route, a, stream);
+    case PT_BF16: return by_route<PT_BF16, TO>(route, a, stream);
+    case PT_I8: return by_route<PT_I8, TO>(route, a, stream);
+    case PT_I4: return by_route<PT_I4, TO>(route, a, stream);
+    case PT_E4M3: return by_route<PT_E4M3, TO>(route, a, stream);
   }
   return cudaErrorInvalidValue;
 }
@@ -919,9 +972,10 @@ bool aligned(const void* p, int n) { return reinterpret_cast<uintptr_t>(p) % n =
 // q: (b, kvh, g, d) of q_dtype (0 float32, 1 bf16), unscaled: the kernel
 // rounds q·qscale to bf16; new_k/new_v: (b, kvh, d) of in_dtype (0, 1) for
 // the split route's fused append, else null; k/v pages: (kvh, total, page,
-// d) of cache_dtype (0 float32, 1 bf16, 2 int8), written by the append,
-// 8-byte aligned (16 on the shared route); scales: (kvh, total, page) f32
-// for int8, else null; slots (b,), lengths (max_seqs,), page_tables
+// row_units) of page_type (paged_page.cuh: 0 float32, 1 bf16, 2 int8, 3
+// int4 in halves of d/2 bytes, 4 e4m3), written by the append, 8-byte
+// aligned (16 on the shared route); scales: (kvh, total, page) f32 for the
+// quantized types (2-4), else null; slots (b,), lengths (max_seqs,), page_tables
 // (max_seqs, max_pages) int32; lengths_override and positions: (b,) int32
 // or null; radius: the band radius, or -1 for none; d: a multiple of 8 up
 // to 256; g: any group size; out: (b, kvh, g, d) of out_dtype (0 float32,
@@ -938,23 +992,23 @@ extern "C" cudaError_t tf_paged_attention(
     const int* lengths_override, const int* positions, const int* page_tables, void* out,
     float* lse, float* ws_acc, float* ws_ml, int* tickets, int b, int kvh, int g, int d,
     int page, int total_pages, int max_pages, int pages_bound, int len_add, int radius,
-    int q_dtype, int in_dtype, int cache_dtype, int out_dtype, int route, int split_pages,
+    int q_dtype, int in_dtype, int page_type, int out_dtype, int route, int split_pages,
     int n_splits, float qscale, cudaStream_t stream) {
   if (b <= 0) return cudaSuccess;
-  const bool quant = cache_dtype == 2;
+  const bool quant = page_quantized(page_type);
   if (g < 1 || d < 8 || d > 256 || d % 8 != 0 || page < 1 || page > MAX_PAGE ||
       max_pages < 1 || pages_bound < 1 || radius < -1 || q_dtype < 0 || q_dtype > 1 ||
-      cache_dtype < 0 || cache_dtype > 2 || route < SPLIT || route > SHARED ||
+      !page_type_ok(page_type) || route < SPLIT || route > SHARED ||
       quant != (k_scales != nullptr && v_scales != nullptr) ||
       (new_k != nullptr) != (new_v != nullptr) || (new_k != nullptr && route != SPLIT) ||
       (new_k != nullptr && (in_dtype < 0 || in_dtype > 1)) || b > 65535 || kvh > 65535 ||
       !aligned(k_pages, 8) || !aligned(v_pages, 8))
     return cudaErrorInvalidValue;
-  const int es = cache_dtype == 0 ? 4 : cache_dtype == 1 ? 2 : 1;
   // the bulk copies' rules: 16-byte sizes and addresses
   const bool bulk_ok = aligned(k_pages, 16) && aligned(v_pages, 16) &&
                        (!quant || (aligned(k_scales, 16) && aligned(v_scales, 16)));
-  const bool bulk = cache_dtype != 0 && bulk_ok && ((size_t)page * d * es) % 16 == 0 &&
+  const bool bulk = page_type != PT_F32 && bulk_ok &&
+                    ((size_t)page * row_bytes(page_type, d)) % 16 == 0 &&
                     (!quant || page % 4 == 0);
   if (route == SHARED && (page != SH_PAGE || !bulk_ok)) return cudaErrorInvalidValue;
   if (route == SPLIT &&
@@ -970,7 +1024,7 @@ extern "C" cudaError_t tf_paged_attention(
                lengths_override, positions, page_tables, out, lse, ws_acc, ws_ml, tickets,
                b, kvh, g, d, page, total_pages, max_pages, pages_bound, len_add, radius,
                q_dtype == 0, in_dtype == 0, split_pages, n_splits, bulk, qscale};
-  if (out_dtype == 0) return by_cache<float>(cache_dtype, route, a, stream);
-  if (out_dtype == 1) return by_cache<bf16>(cache_dtype, route, a, stream);
+  if (out_dtype == 0) return by_page<float>(page_type, route, a, stream);
+  if (out_dtype == 1) return by_page<bf16>(page_type, route, a, stream);
   return cudaErrorInvalidValue;
 }

@@ -21,7 +21,12 @@ LAUNCHES = {"flash_fwd": 0, "paged_attention_split": 0,
             "softmax_norm": 0, "matmul": 0}
 
 # Storage type codes shared with the C entry points.
-DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# Page type codes of the paged kernels (csrc/paged_page.cuh:PageType), by
+# CacheConfig.page_type: int4 pages (halves-packed, d/2 bytes a row) are
+# int8 tensors, so a page's type is always passed, never read off its
+# dtype.
+PAGE_CODES = {"float32": 0, "bfloat16": 1, "int8": 2, "int4": 3, "fp8": 4}
 # Quantized cache codes of csrc/quant_attention.cu.
 KV_CODES = {torch.int8: 0, torch.float8_e4m3fn: 1, torch.float8_e5m2: 2}
 

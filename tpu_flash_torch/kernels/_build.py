@@ -45,12 +45,12 @@ _SIGNATURES = {
     # q, new_k, new_v, k_pages, v_pages, k_scales, v_scales, slots,
     # lengths, lengths_override, positions, page_tables, out, lse, ws_acc,
     # ws_ml, tickets, b, kvh, g, d, page, total_pages, max_pages,
-    # pages_bound, len_add, radius, q_dtype, in_dtype, cache_dtype,
+    # pages_bound, len_add, radius, q_dtype, in_dtype, page_type,
     # out_dtype, route, split_pages, n_splits, qscale, stream
     "tf_paged_attention": [_vp] * 17 + [_i32] * 17 + [ctypes.c_float, _vp],
     # k_new, v_new, k_pages, v_pages, k_scales, v_scales, slots, lengths,
     # page_tables, b, kvh, d, page, total_pages, max_pages, in_dtype,
-    # cache_dtype, stream
+    # page_type, stream
     "tf_paged_append": [_vp] * 9 + [_i32] * 8 + [_vp],
     # q, k, v, dout, lse2, delta, dq, bh_q, n_q, n_kv, hq, hkv, d, causal,
     # offset, dtype, stream

@@ -4,8 +4,11 @@
 
 One query token per lane attends its slot's pages, walking the page table
 page by page with an online base-2 softmax. q is cast to bf16 whatever the
-model dtype, and so are the K/V pages before the dots; int8 pages fold their
-per-token K scale into the score column and their V scale into P.
+model dtype, and so are the K/V pages before the dots (int4 codes unpacked
+and e4m3 codes decoded first, both exactly); quantized pages (int8, int4,
+fp8) fold their per-token K scale into the score column and their V scale
+into P. Every function here takes the page type (``CacheConfig.page_type``)
+explicitly: an int4 page is an int8 tensor of width d/2.
 
 On the card B2 has two routes (:func:`paged_route`, from static shapes
 alone): ``split`` walks each lane's pages in splits of at most
@@ -34,65 +37,54 @@ from typing import Optional
 import torch
 
 from tpu_flash_torch import kernels
+from tpu_flash_torch.cache.paged_cache import (
+    PAGE_TYPES,
+    decode,
+    encode,
+    storage_width,
+)
 from tpu_flash_torch.ops.flash import DEFAULT_MASK_VALUE, LN2, LOG2E
 from tpu_flash_torch.ops.schedule import cdiv
-
-
-def _encode_row(x: torch.Tensor, *, quantized: bool, out_dtype):
-    """(…, d) f32 → (storage values (…, d), scales (…, 1) | None).
-    Bit-identical to PagedKVCache._encode (same eps, IEEE divide, round
-    half to even, clip)."""
-    if not quantized:
-        return x.to(out_dtype), None
-    amax = x.abs().amax(dim=-1, keepdim=True)
-    # a tensor divisor keeps the IEEE divide on CUDA (see quant/qarray.py)
-    sc = torch.clamp_min(amax, 1e-12) / torch.full_like(amax, 127.0)
-    qv = torch.clamp(torch.round(x / sc), -127.0, 127.0)
-    return qv.to(torch.int8), sc
 
 
 # -- B3: append ---------------------------------------------------------------
 
 
 def _paged_append_plain(k_new, v_new, k_pages, v_pages, k_scales, v_scales,
-                        slots, lengths, page_tables):
+                        slots, lengths, page_tables, *, page_type: str):
     """Write row ``lengths[slot] % page`` of page
-    ``page_tables[slot, lengths[slot] // page]`` for every lane, in place.
-    Lengths are read, not advanced."""
+    ``page_tables[slot, lengths[slot] // page]`` for every lane, in place,
+    encoded as the cache's writes encode (``paged_cache.encode``: the
+    reference's ``_encode_row``). Lengths are read, not advanced."""
     page = k_pages.shape[2]
     sl = slots.long()
     pos = lengths[sl].long()
     tpage = torch.clamp(pos // page, max=page_tables.shape[1] - 1)
     phys = page_tables[sl, tpage].long()
     off = pos % page
-    quantized = k_scales is not None
     for new, pages, scales in ((k_new, k_pages, k_scales),
                                (v_new, v_pages, v_scales)):
-        vals, sc = _encode_row(new.float(), quantized=quantized,
-                               out_dtype=pages.dtype)  # (B, kvh, d)
+        vals, sc = encode(new.float(), page_type)  # (B, kvh, stor)
         pages[:, phys, off] = vals.transpose(0, 1)
-        if quantized:
-            scales[:, phys, off] = sc[..., 0].transpose(0, 1)
+        if sc is not None:
+            scales[:, phys, off] = sc.transpose(0, 1)
 
 
 def _paged_append_kernel(k_new, v_new, k_pages, v_pages, k_scales, v_scales,
-                         slots, lengths, page_tables):
+                         slots, lengths, page_tables, *, page_type: str):
     """Launch ``csrc/paged_append.cu`` (same contract as the plain version)."""
     from tpu_flash_torch.kernels import _build
 
     b, kvh, d = k_new.shape
-    _, total, page, stor = k_pages.shape
+    _, total, page, _ = k_pages.shape
     quantized = k_scales is not None
     _check_cuda("paged_append", slots, lengths, page_tables, k_new, v_new,
                 k_pages, v_pages, *((k_scales, v_scales) if quantized else ()))
     if k_new.dtype not in (torch.bfloat16, torch.float32) or (
             v_new.dtype != k_new.dtype):
         raise NotImplementedError(f"append kernel: new K/V dtype {k_new.dtype}")
-    if stor != d:
-        raise ValueError(f"append kernel: head_dim {d}, storage {stor}")
     _check_head_dim("append", d)
-    if quantized != (k_pages.dtype == torch.int8):
-        raise ValueError("append kernel: scales go with int8 pages only")
+    _check_pages("append", page_type, d, k_pages, v_pages, quantized)
     err = _build.library().tf_paged_append(
         k_new.data_ptr(), v_new.data_ptr(), k_pages.data_ptr(),
         v_pages.data_ptr(),
@@ -100,7 +92,7 @@ def _paged_append_kernel(k_new, v_new, k_pages, v_pages, k_scales, v_scales,
         v_scales.data_ptr() if quantized else None,
         slots.data_ptr(), lengths.data_ptr(), page_tables.data_ptr(),
         b, kvh, d, page, total, page_tables.shape[1],
-        kernels.dtype_code(k_new.dtype), kernels.dtype_code(k_pages.dtype),
+        kernels.dtype_code(k_new.dtype), kernels.PAGE_CODES[page_type],
         kernels.stream_handle(k_new),
     )
     _build.check(err, "tf_paged_append")
@@ -121,10 +113,11 @@ def fused_append(cache, slots: torch.Tensor, k: torch.Tensor,
     args = (k.contiguous(), v.contiguous(), cache.k_pages, cache.v_pages,
             cache.k_scales, cache.v_scales, slots, cache.lengths,
             cache.page_tables)
+    page_type = cache.config.page_type
     if k.device.type == "cpu":
-        _paged_append_plain(*args)
+        _paged_append_plain(*args, page_type=page_type)
     elif k.device.type == "cuda":
-        _paged_append_kernel(*args)
+        _paged_append_kernel(*args, page_type=page_type)
     else:
         raise NotImplementedError(f"no append path for device {k.device}")
 
@@ -133,10 +126,12 @@ def fused_append(cache, slots: torch.Tensor, k: torch.Tensor,
 
 # SMs of an H100 SXM: the split plan aims at several CTAs an SM
 _SMS = 132
-# pages a split walks at most (all in flight at once), and the K/V page
-# bytes (in the cache's storage) a split CTA may have in flight: with its
-# scores and sums that keeps three CTAs an SM at d 128
-_MAX_SPLIT_PAGES = 4
+# pages a split walks at most (all in flight at once): at the serving
+# decode (16 lanes × 8 heads × 16 pages, d 128) 3 pages a split beat 2 and
+# 4 on int8, int4 and fp8 pages alike (PERF.md §6);
+# and the K/V page bytes (in the cache's storage) a split CTA may have in
+# flight: with its scores and sums that keeps three CTAs an SM at d 128
+_MAX_SPLIT_PAGES = 3
 _SPLIT_BYTES = 57344
 _SHARED_PAGE = 64
 # B2's routes, in the order of their codes in csrc/paged_attention.cu
@@ -153,17 +148,25 @@ def paged_route(page: int, shared_page_table: bool) -> str:
     return "split"
 
 
-def split_plan(b: int, kvh: int, d: int, page: int, cache_dtype,
+def row_bytes(page_type: str, d: int) -> int:
+    """Bytes of one K (or V) row of d values in the cache, and of its
+    scale: float32 4d, bf16 2d, int8 and fp8 d + 4, int4 d/2 + 4."""
+    dtype, quantized = PAGE_TYPES[page_type]
+    return (storage_width(page_type, d) * dtype.itemsize
+            + (4 if quantized else 0))
+
+
+def split_plan(b: int, kvh: int, d: int, page: int, page_type: str,
                pages_bound: int) -> int:
     """Pages a split walks on the card (``S``), from static shapes only:
     enough splits that ``b·kvh`` (lane, head) walks of up to
-    ``pages_bound`` pages make about 4 CTAs an SM, at most 4 pages, and at
-    most 56 KB of K/V pages (and int8 scale rows) a CTA: int8 pages at d
-    128 take 3, bf16 1. The plain version takes the same plan to round
-    where the kernel does; the launch refuses a plan whose stages do not
-    fit in shared memory (one page always does)."""
-    es = {torch.float32: 4, torch.bfloat16: 2, torch.int8: 1}[cache_dtype]
-    page_bytes = 2 * page * (d * es + (4 if cache_dtype == torch.int8 else 0))
+    ``pages_bound`` pages make about 4 CTAs an SM, at most 3 pages, and at
+    most 56 KB of K/V pages (and scale rows, :func:`row_bytes`) a CTA:
+    at d 128, int8, int4 and fp8 pages take 3, bf16 1. The plain version
+    takes the same plan to round where the kernel does; the launch refuses
+    a plan whose stages do not fit in shared memory (one page always
+    does)."""
+    page_bytes = 2 * page * row_bytes(page_type, d)
     want = -(-b * kvh * pages_bound // (4 * _SMS))
     return max(1, min(want, _MAX_SPLIT_PAGES, _SPLIT_BYTES // page_bytes))
 
@@ -189,10 +192,12 @@ def _paged_attention_plain(qg, k_pages, v_pages, k_scales, v_scales, slots,
                            pages_bound: int, out_dtype, want_lse: bool,
                            lengths_override=None, positions=None,
                            radius: Optional[int] = None,
-                           split_pages: Optional[int] = None):
+                           split_pages: Optional[int] = None, *,
+                           page_type: str):
     """Plain PyTorch decode attention.
 
-    qg: ``(B, kvh, G, d)`` bf16, prescaled by scale·log2(e). Lane b sees
+    qg: ``(B, kvh, G, d)`` bf16, prescaled by scale·log2(e); the pages are
+    of ``page_type`` (``CacheConfig.page_type``). Lane b sees
     keys ``[start_b, len_b)`` (:func:`_lane_view`), walked page by page
     from page ``start_b // page`` like the kernel (at most ``pages_bound``
     pages; logical pages past the lane's length clamp to its last page and
@@ -229,8 +234,11 @@ def _paged_attention_plain(qg, k_pages, v_pages, k_scales, v_scales, slots,
         for i in range(first, min(first + per, most)):
             logical = start_pg + i
             phys = tables.gather(1, torch.minimum(logical, last)[:, None])[:, 0]
-            kf = k_pages[:, phys].transpose(0, 1).to(qg.dtype).float()
-            vf = v_pages[:, phys].transpose(0, 1).to(qg.dtype).float()
+            # int4 unpacked, e4m3 decoded, before the cast to q's dtype
+            kf = decode(k_pages[:, phys], page_type).transpose(0, 1).to(
+                qg.dtype).float()
+            vf = decode(v_pages[:, phys], page_type).transpose(0, 1).to(
+                qg.dtype).float()
             s = torch.einsum("bhgd,bhpd->bhgp", q, kf)
             if quantized:
                 s = s * k_scales[:, phys].transpose(0, 1)[:, :, None, :]
@@ -280,7 +288,8 @@ def _paged_attention_kernel(q, k_pages, v_pages, k_scales, v_scales, slots,
                             lengths_override=None, positions=None,
                             radius: Optional[int] = None, *, new_kv=None,
                             q_scale: float = 1.0,
-                            shared_page_table: bool = False):
+                            shared_page_table: bool = False,
+                            page_type: str):
     """Launch ``csrc/paged_attention.cu`` (the plain version's contract;
     the kernel computes each lane's view itself).
 
@@ -294,7 +303,7 @@ def _paged_attention_kernel(q, k_pages, v_pages, k_scales, v_scales, slots,
     from tpu_flash_torch.kernels import _build
 
     b, kvh, g, d = q.shape
-    _, total, page, stor = k_pages.shape
+    _, total, page, _ = k_pages.shape
     quantized = k_scales is not None
     lanes = tuple(t for t in (lengths_override, positions) if t is not None)
     news = tuple(new_kv) if new_kv is not None else ()
@@ -306,11 +315,8 @@ def _paged_attention_kernel(q, k_pages, v_pages, k_scales, v_scales, slots,
                          f"be int32 of shape ({b},)")
     if q.dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"paged kernel: q must be bf16 or float32, got {q.dtype}")
-    if stor != d:
-        raise ValueError(f"paged kernel: head_dim {d}, storage {stor}")
     _check_head_dim("paged", d)
-    if quantized != (k_pages.dtype == torch.int8):
-        raise ValueError("paged kernel: scales go with int8 pages only")
+    _check_pages("paged", page_type, d, k_pages, v_pages, quantized)
     if news and (news[0].shape != (b, kvh, d) or news[1].shape != (b, kvh, d)
                  or news[0].dtype not in (torch.bfloat16, torch.float32)
                  or news[1].dtype != news[0].dtype):
@@ -321,7 +327,7 @@ def _paged_attention_kernel(q, k_pages, v_pages, k_scales, v_scales, slots,
         raise ValueError("paged kernel: the shared route takes no append")
     split_pages, n_splits, ws_ptrs = 1, 1, (None,) * 3
     if route == "split":
-        split_pages = split_plan(b, kvh, d, page, k_pages.dtype, pages_bound)
+        split_pages = split_plan(b, kvh, d, page, page_type, pages_bound)
         n_splits = -(-pages_bound // split_pages)
     if n_splits > 1:
         # the splits' partials (acc, then m and l) and the (lane, head)
@@ -348,7 +354,7 @@ def _paged_attention_kernel(q, k_pages, v_pages, k_scales, v_scales, slots,
         pages_bound, len_add,
         -1 if radius is None else radius, kernels.dtype_code(q.dtype),
         kernels.dtype_code(news[0].dtype) if news else 0,
-        kernels.dtype_code(k_pages.dtype), kernels.dtype_code(out_dtype),
+        kernels.PAGE_CODES[page_type], kernels.dtype_code(out_dtype),
         ROUTES.index(route), split_pages, n_splits, q_scale,
         kernels.stream_handle(q),
     )
@@ -367,6 +373,22 @@ def _check_head_dim(name: str, d: int) -> None:
     if d % 8:
         raise NotImplementedError(
             f"{name} kernel takes head dims that are multiples of 8, got {d}")
+
+
+def _check_pages(name: str, page_type: str, d: int, k_pages, v_pages,
+                 quantized: bool) -> None:
+    """The pages are of ``page_type`` at head dim d, with scales exactly
+    when the type is quantized."""
+    dtype, scaled = PAGE_TYPES[page_type]
+    width = storage_width(page_type, d)
+    for t in (k_pages, v_pages):
+        if t.dtype != dtype or t.shape[-1] != width:
+            raise ValueError(
+                f"{name} kernel: {page_type} pages at head_dim {d} are "
+                f"{dtype} of width {width}, got {t.dtype} of width "
+                f"{t.shape[-1]}")
+    if quantized != scaled:
+        raise ValueError(f"{name} kernel: scales go with quantized pages")
 
 
 def _check_cuda(name: str, slots, lengths, page_tables, *ts) -> None:
@@ -456,6 +478,7 @@ def paged_attention(
                    positions=None if radius is None else lanes(positions),
                    radius=radius)
     g = qh // kvh
+    page_type = cfg.page_type
     if q.device.type == "cpu":
         if append:
             fused_append(cache, slots, *new_kv)
@@ -464,7 +487,7 @@ def paged_attention(
             qg.reshape(b, kvh, g, d), cache.k_pages, cache.v_pages,
             cache.k_scales, cache.v_scales, slots, cache.lengths,
             cache.page_tables, int(append), num_steps, q.dtype, return_lse,
-            **lane_kw)
+            **lane_kw, page_type=page_type)
     elif q.device.type == "cuda":
         news = tuple(t.contiguous() for t in new_kv) if append else None
         o, lse = _paged_attention_kernel(
@@ -472,7 +495,8 @@ def paged_attention(
             cache.v_pages, cache.k_scales, cache.v_scales, slots,
             cache.lengths, cache.page_tables, int(append), num_steps,
             q.dtype, return_lse, **lane_kw, new_kv=news,
-            q_scale=scale * LOG2E, shared_page_table=shared_page_table)
+            q_scale=scale * LOG2E, shared_page_table=shared_page_table,
+            page_type=page_type)
     else:
         raise NotImplementedError(f"no paged attention path for {q.device}")
     o = o.reshape(b, qh, d)

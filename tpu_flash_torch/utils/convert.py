@@ -61,7 +61,9 @@ def qarray_from_reference(qa, device="cuda") -> QArray:
 
 def cache_from_reference(cache, device="cuda") -> PagedKVCache:
     """A reference ``PagedKVCache`` (any object with its fields; leaves are
-    read with ``np.asarray``) → the port's cache, bit for bit."""
+    read with ``np.asarray``) → the port's cache, bit for bit: every page
+    type (int4 pages are the same halves-packed int8; fp8 pages go through
+    their bytes, as :func:`to_torch` takes them)."""
     cfg = CacheConfig(**dataclasses.asdict(cache.config))
 
     def conv(x):
