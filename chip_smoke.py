@@ -11,7 +11,11 @@ head_dim 128, bf16 weights from a seed, int8 paged cache) and checks the
 output against a teacher-forced forward, and serves them again from an fp8
 (e4m3) and from an int4 cache, each within its own drift bound, then takes
 three SGD train steps of the same model on 4 × 1025 tokens and checks their
-gradient against the f32 oracle attention's, then runs the quantized headline (bench.py's shape:
+gradient against the f32 oracle attention's, and three of the same model
+with a sliding window (1025) on 2 × 2049 tokens, its gradient held against
+the sliding oracle's and shown to miss the causal oracle's, then runs the
+backward sweep at its quick shapes (tpu_flash_torch/bench/sweep.py), then
+runs the quantized headline (bench.py's shape:
 batch 4, 8 heads, n 8192, d 128) through serving_flash_attention (fp8 and
 int8) and quantized_dense_fa (fp8), each gated against the blockwise f32
 oracle, and holds B6/B7 against their plain versions there and at variant
@@ -25,7 +29,10 @@ and the N-d and new-schedule path (circulant_fa and block_fa at n 8192,
 block2d over 256 × 256, N-d dense_fa and windowed_fa), each gated against
 the oracles, and holds the softmax, matmul and B1 circulant and
 block-diagonal kernels against their plain versions, timed beside the
-library calls. B1, B4/B5 and B14 rows give two times: the kernel's device
+library calls. B4/B5 are held against their plain version on every
+schedule kind (dense, causal, local, local_causal, circulant, block) in
+each kernel family and under the int8 dp product. B1, B4/B5 and B14 rows
+give two times: the kernel's device
 time (a CUDA graph of 20 wrapper calls replayed under CUDA events, ``ms``,
 which the kernels line reports) and the wrapper call's (``call_ms``), the
 library call timed the same two ways (for B4/B5 the library's fused
@@ -48,6 +55,7 @@ and the port only.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import json
 import math
@@ -59,6 +67,7 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 
 MODEL = dict(vocab_size=32000, dim=2048, num_layers=16, num_q_heads=16,
              num_kv_heads=8, head_dim=128)
@@ -91,6 +100,12 @@ SERVE_CACHES = (("fp8", TOL_LOGPROB_FP8), ("int4", TOL_LOGPROB_INT4))
 # atol/rtol in float32
 TOL_BWD_PLAIN = {torch.bfloat16: 1e-2, torch.float32: 1e-4}
 TOL_BWD_ORACLE = 2.5e-2
+# the int8 dp product vs the f32 oracle: twice the reference's 2.5e-2
+# (tests/test_grad.py:171-190), which its own algorithm misses on these
+# inputs (the plain dp version, which holds the reference's dp grads within
+# 1e-4 on the CPU, misses the oracle by as much as the kernel; PERF.md §6,
+# PR 11); a σv one channel off on the dO side must fail it
+TOL_BWD_DP_ORACLE = 5e-2
 # training: tokens (batch, 1 + positions); lr at which bf16 updates
 # register (PERF.md §4: a bf16 weight near 0.02 has an ulp of 1.2e-4)
 TRAIN_TOKENS = (4, 1025)
@@ -98,6 +113,11 @@ TRAIN_STEPS = 3
 TRAIN_LR = 1.0
 TOL_COSINE = 0.99
 TOL_DLOSS = 2e-2
+# the sliding model's training: 2 × 2049 tokens at window 1025; an oracle of
+# the wrong attention (full causal history) must miss its gradients by at
+# least SEPARATION times the right oracle's 1 − cosine
+SLIDING_TRAIN_TOKENS = (2, 2049)
+SEPARATION = 10.0
 # the sliding serving path: the canonical model with ModelConfig's default
 # window (radius 512); 12 long prompts (chunked, 3–4 chunks each) and 4
 # short ones (prefilled whole), 32 new tokens each
@@ -107,8 +127,10 @@ SLIDING_LONG, SLIDING_SHORT = (1100, 2000), (300, 500)
 N_LONG, N_SHORT = 12, 4
 # lse of a kernel vs its plain version (float32 sums in another order)
 TOL_LSE = 1e-4
-# H100 SXM datasheet peaks (dense): bf16 tensor cores, float32 FMA, HBM
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+# H100 SXM datasheet peaks (dense): bf16 and int8 tensor cores, float32
+# FMA, HBM
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12,
+              torch.int8: 1979e12}
 PEAK_BYTES = 3.35e12
 
 
@@ -151,11 +173,14 @@ def rel_err(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a - b).abs().max() / max(float(b.abs().max()), 1.0))
 
 
-def roofline(ops: float, nbytes: float, dtype) -> dict:
+def roofline(ops, nbytes: float, dtype) -> dict:
     """Least time the card could take: operations over the peak rate of
-    their type, or bytes (each input read once, each output written once)
-    over the memory rate, whichever is larger."""
-    t_ops = ops / PEAK_FLOPS[dtype] * 1e3
+    their type (``ops`` a count of ``dtype`` operations, or {dtype: count}
+    for work of several types), or bytes (each input read once, each output
+    written once) over the memory rate, whichever is larger."""
+    if not isinstance(ops, dict):
+        ops = {dtype: ops}
+    t_ops = sum(n / PEAK_FLOPS[t] for t, n in ops.items()) * 1e3
     t_bytes = nbytes / PEAK_BYTES * 1e3
     return dict(bound_ms=max(t_ops, t_bytes),
                 bound_by="operations" if t_ops >= t_bytes else "bytes")
@@ -491,22 +516,47 @@ def engine_phase(dev, model=MODEL, cache=CACHE, max_batch=MAX_BATCH,
                 wall_s=wall, launches=launches, cache=cache["dtype"])
 
 
-# (name, batch, hq, hkv, n_q, n_kv, d, causal, dtype): the training shape
-# first, then ragged, right-aligned causal, d 64 (where the reference's
-# transposed kernels B10a/B10b fold into B4/B5), dense float32, and G 4
-# (B5 walks four q heads of a group through one CTA's ring)
+# (name, batch, hq, hkv, n_q, n_kv, d, schedule, radius or section, dtype,
+# quant): the training shape first, then ragged, right-aligned causal, d 64
+# (where the reference's transposed kernels B10a/B10b fold into B4/B5),
+# dense float32 and G 4 (B5 walks four q heads of a group through one CTA's
+# ring); the sliding training shape (local_causal, radius 512); the local,
+# local_causal, circulant and block-diagonal kinds in each family (bf16 64
+# and 128 on the TMA + wgmma kernels, bf16 256 on the WMMA one, float32 on
+# the FMA one) at a ragged n with GQA 16/8; the int8 dp product on dense,
+# causal and a band at bf16 128 and 256 and at float32; and the shapes that
+# time bf16 d 256 and float32
+BF16, F32 = torch.bfloat16, torch.float32
 BWD_CASES = [
-    ("train_4x1024", 4, 16, 8, 1024, 1024, 128, True, torch.bfloat16),
-    ("ragged_causal_1000", 1, 16, 8, 1000, 1000, 128, True, torch.bfloat16),
-    ("right_aligned_256_of_1024", 1, 16, 8, 256, 1024, 128, True, torch.bfloat16),
-    ("d64_causal_1024", 1, 16, 8, 1024, 1024, 64, True, torch.bfloat16),
-    ("dense_f32_300", 1, 16, 8, 300, 300, 128, False, torch.float32),
-    ("gqa4_causal_1000", 1, 32, 8, 1000, 1000, 128, True, torch.bfloat16),
+    ("train_4x1024", 4, 16, 8, 1024, 1024, 128, "causal", 0, BF16, None),
+    ("ragged_causal_1000", 1, 16, 8, 1000, 1000, 128, "causal", 0, BF16, None),
+    ("right_aligned_256_of_1024", 1, 16, 8, 256, 1024, 128, "causal", 0, BF16,
+     None),
+    ("d64_causal_1024", 1, 16, 8, 1024, 1024, 64, "causal", 0, BF16, None),
+    ("dense_f32_300", 1, 16, 8, 300, 300, 128, "dense", 0, F32, None),
+    ("gqa4_causal_1000", 1, 32, 8, 1000, 1000, 128, "causal", 0, BF16, None),
+    ("sliding_train_2x2048", 2, 16, 8, 2048, 2048, 128, "local_causal", 512,
+     BF16, None),
+    *[(f"{kind}_{w}_{str(dt)[6:]}_1000", 1, 16, 8, n, n, w, kind, width, dt, None)
+      for w, dt, n in ((64, BF16, 1000), (128, BF16, 1000), (256, BF16, 1000),
+                       (128, F32, 500))
+      for kind, width in (("local", 100), ("local_causal", 100),
+                          ("circulant", 64), ("block", 250 if n == 1000 else 100))],
+    *[(f"dp_{kind}_{w}_{str(dt)[6:]}", 1, 16, 8, n, n, w, kind, width, dt, "dp")
+      for w, dt, n in ((128, BF16, 1000), (256, BF16, 1000), (128, F32, 500))
+      for kind, width in (("dense", 0), ("causal", 0), ("local_causal", 100))],
+    ("d256_causal_1024", 1, 16, 8, 1024, 1024, 256, "causal", 0, BF16, None),
+    ("f32_causal_1024", 1, 16, 8, 1024, 1024, 128, "causal", 0, F32, None),
 ]
-# B4/B5's planted faults: the plain backward under the causal rule minus one
-# middle slab of 64 keys (dq, dk and dv must move) or of 64 queries (dk and
-# dv must move) must fail the kernel-vs-plain check at the training shape
+# the cases whose B4/B5 are timed, beside the library's fused backward
+BWD_TIMED = ("train_4x1024", "d64_causal_1024", "sliding_train_2x2048",
+             "d256_causal_1024", "f32_causal_1024")
+# B4/B5's planted faults: the plain backward under the case's schedule minus
+# one middle slab of 64 keys (dq, dk and dv must move) or of 64 queries (dk
+# and dv must move) must fail the kernel-vs-plain check, at the training
+# shape and at the sliding training shape
 BWD_FAULT_SLAB = 64
+BWD_FAULT_CASES = ("train_4x1024", "sliding_train_2x2048")
 
 
 def slab_fault(sched, axis: str, start: int, size: int = BWD_FAULT_SLAB):
@@ -524,23 +574,60 @@ def slab_fault(sched, axis: str, start: int, size: int = BWD_FAULT_SLAB):
     return SlabFault()
 
 
-def library_backward(q, k, v, do, causal):
+def library_backward(q, k, v, do, causal, window_left=None):
     """The library's fused attention backward alone on (B, H, N, D), K/V
     already expanded to q's heads (so it skips the group sum): a closure
-    over one ``_scaled_dot_product_flash_attention`` forward's outputs, and
-    the name of the call it times. Where that op is missing, autograd of
-    one saved scaled_dot_product_attention graph instead."""
-    if hasattr(torch.ops.aten, "_scaled_dot_product_flash_attention_backward"):
+    over one forward's outputs, the name of the call it times, and whether
+    the call can be captured in a CUDA graph (an autograd call cannot).
+    ``window_left`` bands the causal triangle (keys i − window_left .. i):
+    ``aten._flash_attention_backward`` with ``window_size_left``/``_right``
+    where this torch takes them. Where an op is missing or refuses the
+    inputs (float32), autograd of one saved scaled_dot_product_attention
+    graph (under a boolean band mask for the band) instead."""
+    n = q.shape[2]
+    if window_left is not None:
+        op = getattr(torch.ops.aten, "_flash_attention_backward", None)
+        try:
+            if op is None or "window_size_left" not in str(op.default._schema):
+                raise NotImplementedError("no window_size_left")
+            qt, kt, vt, dot = (x.transpose(1, 2).contiguous()
+                               for x in (q, k, v, do))
+            out, lse, rng, unused = torch.ops.aten._flash_attention_forward(
+                qt, kt, vt, None, None, n, n, 0.0, True, False,
+                window_size_left=window_left, window_size_right=0)[:4]
+            fn = functools.partial(
+                op, dot, qt, kt, vt, out, lse, None, None, n, n, 0.0, True,
+                rng, unused, window_size_left=window_left, window_size_right=0)
+            fn()
+            return (lambda: [g.transpose(1, 2) for g in fn()],
+                    f"aten._flash_attention_backward(window_size_left="
+                    f"{window_left}, window_size_right=0)", True)
+        except (NotImplementedError, RuntimeError, TypeError) as err:
+            i = torch.arange(n, device=q.device)
+            mask = (i[None, :] <= i[:, None]) & (i[:, None] - i[None, :]
+                                                 <= window_left)
+            xs = [x.detach().requires_grad_(True) for x in (q, k, v)]
+            o = sdpa(*xs, False, mask)
+            return (lambda: torch.autograd.grad(o, xs, do, retain_graph=True),
+                    "torch.autograd.grad of one saved scaled_dot_product_"
+                    f"attention under a boolean band mask ({str(err)[:80]})",
+                    False)
+    try:
         out, lse, cq, ck, mq, mk, seed, off = (
             torch.ops.aten._scaled_dot_product_flash_attention(
                 q, k, v, 0.0, causal, False)[:8])
-        return (lambda: torch.ops.aten._scaled_dot_product_flash_attention_backward(
-            do, q, k, v, out, lse, cq, ck, mq, mk, 0.0, causal, seed, off),
-            "aten._scaled_dot_product_flash_attention_backward")
+        fn = functools.partial(
+            torch.ops.aten._scaled_dot_product_flash_attention_backward,
+            do, q, k, v, out, lse, cq, ck, mq, mk, 0.0, causal, seed, off)
+        fn()
+        return fn, "aten._scaled_dot_product_flash_attention_backward", True
+    except (AttributeError, RuntimeError):  # missing, or refuses float32
+        pass
     xs = [x.detach().requires_grad_(True) for x in (q, k, v)]
     o = sdpa(*xs, causal)
     return (lambda: torch.autograd.grad(o, xs, do, retain_graph=True),
-            "torch.autograd.grad of one saved scaled_dot_product_attention")
+            "torch.autograd.grad of one saved scaled_dot_product_attention",
+            False)
 
 
 def device_kernel_names(fn) -> list:
@@ -556,24 +643,132 @@ def device_kernel_names(fn) -> list:
                    if e.device_type == torch.autograd.DeviceType.CUDA})
 
 
+@contextlib.contextmanager
+def plain_backward(flash_bwd):
+    """flash_backward's CUDA tensors take the plain version (float32
+    products on the card) inside the block."""
+    kernel = flash_bwd._flash_bwd_kernel
+    flash_bwd._flash_bwd_kernel = flash_bwd._flash_bwd_plain
+    try:
+        yield
+    finally:
+        flash_bwd._flash_bwd_kernel = kernel
+
+
+@contextlib.contextmanager
+def sv_channel_off(flash_bwd):
+    """dp's operands with σv of channel 0 doubled on the dO side (v̂ kept):
+    dP takes channel 0's products twice. A planted fault."""
+    good = flash_bwd.dp_operands
+
+    def faulted(q, v, do, delta, hq, hkv):
+        off = torch.ones(v.shape[-1], device=v.device)
+        off[0] = 2.0
+        v8 = good(q, v, do, delta, hq, hkv)[0]
+        return (v8, *good(q, v * off, do, delta, hq, hkv)[1:])
+
+    flash_bwd.dp_operands = faulted
+    try:
+        yield
+    finally:
+        flash_bwd.dp_operands = good
+
+
+def band_call(schedule: str, width: int, quant):
+    """The public call of a schedule on (B, H, N, D) → (o, lse), and the
+    f32 oracle's call on K/V expanded to q's heads."""
+    from tpu_flash_torch.ops import flash
+    from tpu_flash_torch.ops.oracle import blockwise_dpa, dense_dpa
+
+    kw = dict(return_lse=True, bwd_quant=quant)
+    if schedule in ("dense", "causal"):
+        causal = schedule == "causal"
+        return (lambda q, k, v: flash.dense_fa(q, k, v, causal=causal, **kw),
+                lambda q, k, v: dense_dpa(q, k, v, causal=causal))
+    if schedule in ("local", "local_causal"):
+        causal = schedule == "local_causal"
+        return (lambda q, k, v: flash.sliding_fa(q, k, v, 2 * width + 1,
+                                                 causal=causal, **kw),
+                lambda q, k, v: blockwise_dpa(q, k, v, window_size=2 * width + 1,
+                                              causal=causal))
+    if schedule == "circulant":
+        return (lambda q, k, v: flash.circulant_fa(q, k, v, 2 * width + 1, **kw),
+                lambda q, k, v: blockwise_dpa(q, k, v, window_size=2 * width + 1,
+                                              wrap=True))
+    return (lambda q, k, v: flash.block_fa(q, k, v, width, **kw),
+            lambda q, k, v: blockwise_dpa(q, k, v, block_size=width))
+
+
+def bwd_pairs(schedule: str, n_q: int, n_kv: int, width: int) -> int:
+    """(query, key) pairs a head attends under the schedule (this run's
+    data: ragged edges, the band's ends, a partial last section)."""
+    if schedule in ("dense", "causal"):
+        return visible_pairs(n_q, n_kv, schedule == "causal")
+    if schedule in ("local", "local_causal"):
+        return band_pairs(n_q, width, schedule == "local_causal")
+    if schedule == "circulant":
+        return n_q * (2 * width + 1)
+    return sum(min(width, n_kv - s) ** 2 for s in range(0, n_kv, width))
+
+
+def bwd_timing(ops, sched, hq, hkv, dt, pairs, d, b, n_q, n_kv, quant):
+    """B4's and B5's device and call times and bounds on prepared operands.
+    Operations: B4 three products, B5 four, 2·d each a visible pair (under
+    dp the dP product at the int8 rate); bytes: q, k, v, dO (dÔ, v̂ and qs
+    under dp) and the row vectors read once, the grads written once."""
+    from tpu_flash_torch.bench.harness import device_ms
+    from tpu_flash_torch.ops import flash_bwd
+
+    def run_dq():
+        return flash_bwd._dq_kernel(*ops, sched, hq, hkv)
+
+    def run_dkv():
+        return flash_bwd._dkv_kernel(*ops, sched, hq, hkv)
+
+    e = 2 if dt == torch.bfloat16 else 4
+    q_bytes, kv_bytes = e * b * hq * n_q * d, e * b * hkv * n_kv * d
+    rows = 4 * b * hq * n_q
+    prod = 2 * d * pairs
+    if quant is None:
+        dq_ops, dkv_ops = {dt: 3 * prod}, {dt: 4 * prod}
+        dq_bytes = 2 * q_bytes + 2 * kv_bytes + 2 * rows + q_bytes
+        dkv_bytes = 2 * q_bytes + 2 * kv_bytes + 2 * rows + 2 * kv_bytes
+    else:
+        dq_ops, dkv_ops = ({dt: 2 * prod, torch.int8: prod},
+                           {dt: 3 * prod, torch.int8: prod})
+        q8, kv8 = q_bytes // e, kv_bytes // e
+        dq_bytes = q_bytes + q8 + kv_bytes + kv8 + 3 * rows + q_bytes
+        dkv_bytes = 3 * q_bytes + q8 + kv_bytes + kv8 + 2 * rows + 2 * kv_bytes
+    dq = dict(ms=device_ms(run_dq), call_ms=cuda_ms(run_dq),
+              **roofline(dq_ops, dq_bytes, dt))
+    dkv = dict(ms=device_ms(run_dkv), call_ms=cuda_ms(run_dkv),
+               **roofline(dkv_ops, dkv_bytes, dt))
+    dq["tflops"] = 3 * prod / dq["ms"] / 1e9
+    dkv["tflops"] = 4 * prod / dkv["ms"] / 1e9
+    return dq, dkv
+
+
 def flash_bwd_phase(dev):
-    """B4/B5 vs the plain backward, the Function's grads vs the f32
-    oracle's, bitwise repeatability; two planted faults in the plain
-    backward rejected at the training shape. Timed at the training shape
-    and at d 64: B4's and B5's device time (a CUDA graph of 20 wrapper
-    calls) and call time, beside the library's fused backward alone timed
-    the same two ways."""
+    """B4/B5 vs the plain backward (under the same quant), the Function's
+    grads vs the f32 oracle's, bitwise repeatability, on every schedule
+    kind of the forward, each family and the int8 dp product; two planted
+    faults in the plain backward rejected at the training shape and at the
+    sliding training shape. Timed at the training shape (and under dp
+    there), at d 64, at the sliding training shape, at bf16 d 256 and in
+    float32: B4's and B5's device time (a CUDA graph of 20 wrapper calls)
+    and call time, beside the library's fused backward alone timed the
+    same two ways (under the band for the sliding shape)."""
     from tpu_flash_torch.bench.harness import device_ms
     from tpu_flash_torch.ops import flash, flash_bwd
-    from tpu_flash_torch.ops.oracle import dense_dpa
 
     gen = torch.Generator(device=dev).manual_seed(4)
 
     def rand(*shape):
         return torch.randn(*shape, generator=gen, device=dev)
 
-    rows, worst, timing = [], 0.0, None
-    for name, b, hq, hkv, n_q, n_kv, d, causal, dt in BWD_CASES:
+    rows, worst, timing = [], 0.0, {}
+    for (name, b, hq, hkv, n_q, n_kv, d, schedule, width, dt,
+         quant) in BWD_CASES:
         g = hq // hkv
         q, k, v = (rand(b, h, n, d).to(dt) for h, n in
                    ((hq, n_q), (hkv, n_kv), (hkv, n_kv)))
@@ -585,46 +780,76 @@ def flash_bwd_phase(dev):
             ((o.float() * w).sum() + 0.3 * (lse * wl).sum()).backward()
             return [x.grad for x in xs]
 
-        got = grads(lambda q_, k_, v_: flash.dense_fa(
-            q_, k_, v_, causal=causal, return_lse=True))
-        want = grads(lambda q_, k_, v_: dense_dpa(
-            q_, k_.repeat_interleave(g, 1), v_.repeat_interleave(g, 1),
-            causal=causal))
+        port_fn, oracle_fn = band_call(schedule, width, quant)
+        got = grads(port_fn)
+        want = grads(lambda q_, k_, v_: oracle_fn(
+            q_, k_.repeat_interleave(g, 1), v_.repeat_interleave(g, 1)))
         row = dict(case=name, batch=b, hq=hq, hkv=hkv, n_q=n_q, n_kv=n_kv,
-                   d=d, causal=causal, dtype=str(dt).replace("torch.", ""))
+                   d=d, schedule=schedule, width=width, quant=quant,
+                   dtype=str(dt).replace("torch.", ""))
         for x, a_, b_ in zip("qkv", got, want):
-            if dt == torch.bfloat16:
+            if dt == torch.bfloat16 or quant == "dp":
                 row[f"d{x}_vs_oracle"] = rel_err(a_, b_)
                 check(f"grad {name} d{x} vs oracle", row[f"d{x}_vs_oracle"],
-                      TOL_BWD_ORACLE)
+                      TOL_BWD_DP_ORACLE if quant == "dp" else TOL_BWD_ORACLE)
             else:  # atol 3e-4 + rtol 1e-3
                 row[f"d{x}_vs_oracle"] = float(
                     ((a_ - b_).abs() - 1e-3 * b_.abs()).max())
                 check(f"grad {name} d{x} vs oracle", row[f"d{x}_vs_oracle"],
                       3e-4)
+        if quant == "dp":
+            # the algorithm's own miss: the plain dp backward (float32, no
+            # kernel) through the same public call, and with σv of one
+            # channel off, which must fail the gate on dq and dk
+            with plain_backward(flash_bwd):
+                plain = grads(port_fn)
+                row.update({f"d{x}_plain_dp_vs_oracle": rel_err(a_, b_)
+                            for x, a_, b_ in zip("qkv", plain, want)})
+                if schedule == "local_causal" and d == 128:
+                    with sv_channel_off(flash_bwd):
+                        bad = grads(port_fn)
+                    errs = {f"d{x}": rel_err(a_, b_)
+                            for x, a_, b_ in zip("qkv", bad, want)}
+                    if min(errs["dq"], errs["dk"]) <= TOL_BWD_DP_ORACLE:
+                        raise AssertionError(
+                            f"dp planted fault sv_channel_off passes the "
+                            f"oracle gate on {name}: {errs}")
+                    row["planted_fault_sv_channel_off"] = errs
+        del got, want
 
         qf = (q.float() * (d ** -0.5 * flash.LOG2E)).to(dt).reshape(
             b * hq, n_q, d)
         kf, vf = k.reshape(b * hkv, n_kv, d), v.reshape(b * hkv, n_kv, d)
-        sched = flash.build_schedule("causal" if causal else "dense", n_q,
-                                     n_kv, 256, 256)
+        sched = flash.build_schedule(schedule, n_q, n_kv, 256, 256,
+                                     radius=0 if schedule == "block" else width,
+                                     section=width if schedule == "block" else 0)
+        if schedule == "circulant":
+            kf, vf = (torch.cat([x[:, -width:], x, x[:, :width]], 1)
+                      for x in (kf, vf))
         o, lse = flash._flash_fwd_kernel(qf, kf, vf, sched, hq, hkv, True)
         do = rand(b * hq, n_q, d).to(dt)
         args = (qf, kf, vf, o, lse, do, rand(b * hq, n_q), sched, hq, hkv)
-        first = flash_bwd._flash_bwd_kernel(*args)
-        second = flash_bwd._flash_bwd_kernel(*args)
-        plain = flash_bwd._flash_bwd_plain(*args)
         tol = TOL_BWD_PLAIN[dt]
-        for x, a_, a2, p_ in zip("qkv", first, second, plain):
-            if not torch.equal(a_, a2):
-                raise AssertionError(f"B4/B5 {name}: d{x} not bitwise "
-                                     "equal between two calls")
-            row[f"d{x}_vs_plain"] = rel_err(a_, p_)
-            check(f"B4/B5 {name} d{x} vs plain", row[f"d{x}_vs_plain"], tol)
-            worst = max(worst, max_err(a_, p_))
+
+        def held(quant_, tag=""):
+            nonlocal worst
+            first = flash_bwd._flash_bwd_kernel(*args, quant_)
+            second = flash_bwd._flash_bwd_kernel(*args, quant_)
+            plain = flash_bwd._flash_bwd_plain(*args, quant_)
+            for x, a_, a2, p_ in zip("qkv", first, second, plain):
+                if not torch.equal(a_, a2):
+                    raise AssertionError(f"B4/B5 {name}{tag}: d{x} not bitwise "
+                                         "equal between two calls")
+                row[f"d{x}_vs_plain{tag}"] = rel_err(a_, p_)
+                check(f"B4/B5 {name}{tag} d{x} vs plain",
+                      row[f"d{x}_vs_plain{tag}"], tol)
+                worst = max(worst, max_err(a_, p_))
+            return first
+
+        first = held(quant)
         row.update(bitwise_repeat=True, tol_plain=tol)
 
-        if name == "train_4x1024":  # the planted faults
+        if name in BWD_FAULT_CASES:  # the planted faults
             for fault, axis, must in (("kv_slab_left_out", "kv", "qkv"),
                                       ("q_slab_left_out", "q", "kv")):
                 start = (n_kv if axis == "kv" else n_q) // 2
@@ -635,78 +860,113 @@ def flash_bwd_phase(dev):
                 passed = [x for x in must if errs[f"d{x}"] <= tol]
                 if passed:
                     raise AssertionError(
-                        f"B4/B5 planted fault {fault} passes the kernel-vs-"
-                        f"plain check on {passed}: {errs}")
+                        f"B4/B5 planted fault {fault} on {name} passes the "
+                        f"kernel-vs-plain check on {passed}: {errs}")
                 row[f"planted_fault_{fault}"] = errs
                 del faulted
-        if name in ("train_4x1024", "d64_causal_1024"):
+        if name in BWD_TIMED:
+            pairs = bwd_pairs(schedule, n_q, n_kv, width) * b * hq
             ops = flash_bwd._kernel_operands(*args)
-            pairs = visible_pairs(n_q, n_kv, causal) * b * hq
-            q_bytes, kv_bytes = 2 * b * hq * n_q * d, 2 * b * hkv * n_kv * d
-            reads = 2 * q_bytes + 2 * kv_bytes + 2 * 4 * b * hq * n_q
-
-            def run_dq():
-                return flash_bwd._dq_kernel(*ops, sched, hq, hkv)
-
-            def run_dkv():
-                return flash_bwd._dkv_kernel(*ops, sched, hq, hkv)
-
-            dq = dict(ms=device_ms(run_dq), call_ms=cuda_ms(run_dq),
-                      **roofline(6 * d * pairs, reads + q_bytes, dt))
-            dkv = dict(ms=device_ms(run_dkv), call_ms=cuda_ms(run_dkv),
-                       **roofline(8 * d * pairs, reads + 2 * kv_bytes, dt))
+            dq, dkv = bwd_timing(ops, sched, hq, hkv, dt, pairs, d, b, n_q,
+                                 n_kv, None)
             # the library's backward alone, K/V expanded to hq heads
             # outside the timed call (it then skips the group sum)
-            lib_bwd, lib_call = library_backward(
+            lib_bwd, lib_call, graphable = library_backward(
                 q, k.repeat_interleave(g, 1), v.repeat_interleave(g, 1),
-                do.reshape(b, hq, n_q, d), causal)
+                do.reshape(b, hq, n_q, d), schedule != "dense",
+                window_left=width if schedule == "local_causal" else None)
             names = device_kernel_names(lib_bwd)
-            if not any("flash" in k_.lower() and "bwd" in k_.lower()
-                       for k_ in names):
+            if lib_call.startswith("aten.") and not any(
+                    "flash" in k_.lower() and "bwd" in k_.lower()
+                    for k_ in names):
                 raise AssertionError(f"the library's backward ran no fused "
                                      f"flash backward kernel: {names}")
+            plain_ms = cuda_ms(lambda: flash_bwd._flash_bwd_plain(*args),
+                               iters=3)
             row.update(dq_ms=dq["ms"], dq_call_ms=dq["call_ms"],
                        dq_bound_ms=dq["bound_ms"], dkv_ms=dkv["ms"],
                        dkv_call_ms=dkv["call_ms"], dkv_bound_ms=dkv["bound_ms"],
-                       library_bwd_ms=device_ms(lib_bwd),
+                       visible_pairs=pairs,
+                       # device time from a CUDA graph where the call can
+                       # be captured, else events around calls
+                       library_bwd_ms=(device_ms(lib_bwd) if graphable
+                                       else cuda_ms(lib_bwd)),
                        library_bwd_call_ms=cuda_ms(lib_bwd),
                        library_bwd_call=lib_call,
                        library_bwd_kernels=[k_[:100] for k_ in names],
-                       dq_tflops=6 * d * pairs / dq["ms"] / 1e9,
-                       dkv_tflops=8 * d * pairs / dkv["ms"] / 1e9,
-                       plain_bwd_ms=cuda_ms(lambda: flash_bwd._flash_bwd_plain(
-                           *args), iters=5))
+                       dq_tflops=dq["tflops"], dkv_tflops=dkv["tflops"],
+                       plain_bwd_ms=plain_ms)
+            timing[name] = dict(dq=dict(dq, plain_ms=plain_ms),
+                                dkv=dict(dkv, plain_ms=plain_ms),
+                                library_ms=row["library_bwd_ms"],
+                                library_call=lib_call)
         if name == "train_4x1024":
+            # the int8 dp product at the training shape, beside the run
+            # without it: held against the plain version, then timed
+            held("dp", "_dp")
+            ops = flash_bwd._kernel_operands(*args, quant="dp")
+            dq, dkv = bwd_timing(ops, sched, hq, hkv, dt, pairs, d, b, n_q,
+                                 n_kv, "dp")
+            row.update(dq_dp_ms=dq["ms"], dq_dp_call_ms=dq["call_ms"],
+                       dq_dp_bound_ms=dq["bound_ms"], dkv_dp_ms=dkv["ms"],
+                       dkv_dp_call_ms=dkv["call_ms"],
+                       dkv_dp_bound_ms=dkv["bound_ms"])
+            timing["train_4x1024_dp"] = dict(dq=dq, dkv=dkv)
             xs = [x.clone().requires_grad_(True) for x in (q, k, v)]
             do4 = rand(b, hq, n_q, d).to(dt)
             fwdbwd_ms = cuda_ms(lambda: flash.dense_fa(
                 *xs, causal=True).backward(do4))
             library_ms = cuda_ms(lambda: sdpa(*xs, True).backward(do4))
             # FA-2's least work: 2 products forward, 5 backward
-            fb_bound = roofline(14 * d * pairs, 2 * (3 * q_bytes + 4 * kv_bytes)
-                             + 4 * b * hq * n_q, dt)
-            timing = dict(dq=dict(dq, plain_ms=row["plain_bwd_ms"]),
-                          dkv=dict(dkv, plain_ms=row["plain_bwd_ms"]),
-                          library_ms=row["library_bwd_ms"])
+            qb, kvb = 2 * b * hq * n_q * d, 2 * b * hkv * n_kv * d
+            fb_bound = roofline(14 * d * pairs, 2 * (3 * qb + 4 * kvb)
+                                + 4 * b * hq * n_q, dt)
             row.update(port_fwd_bwd_ms=fwdbwd_ms, library_fwd_bwd_ms=library_ms,
                        fwd_bwd_bound_ms=fb_bound["bound_ms"])
         rows.append(row)
+        del q, k, v, args, first
     emit(dict(phase="flash_bwd", cases=rows))
     return dict(max_abs_err=worst, **timing)
 
 
-def train_phase(dev):
-    """Three SGD steps at the canonical model's full width and depth, then
-    one step's gradient against the oracle-attention path's."""
+def checkpointed(attn):
+    """``attn`` on (B, H, N, D) → o, recomputed in the backward: the float64
+    oracles' score tensors are not kept across a full-depth model."""
+    return lambda q, k, v: torch.utils.checkpoint.checkpoint(
+        lambda a, b, c: attn(a, b, c)[0], q, k, v, use_reentrant=False)
+
+
+def grad_cosines(params, grads_a, grads_b) -> dict:
+    """Cosine of each parameter's two gradients (float64)."""
+    from tpu_flash_torch import graft_entry
+
+    cos = {}
+    for (name, _), a, b in zip(graft_entry.named_leaves(params), grads_a,
+                               grads_b):
+        a, b = a.double().flatten(), b.double().flatten()
+        cos[name] = float(a @ b / (a.norm() * b.norm()).clamp_min(1e-300))
+    return cos
+
+
+def train_phase(dev, phase="train", model=MODEL, tokens_shape=TRAIN_TOKENS,
+                oracle=None, other=None):
+    """Three SGD steps at the canonical model's full width and depth (with
+    ``model``'s attention), then one step's gradient against the
+    oracle-attention path's (``oracle``: dense_dpa, causal). ``other``
+    (name, attention) is an oracle of another attention that must miss the
+    flash gradients by more than ``oracle`` does: it shows that the check
+    sees the difference."""
     from tpu_flash_torch import graft_entry, kernels
     from tpu_flash_torch.models import transformer as tfm
     from tpu_flash_torch.ops.oracle import dense_dpa
 
-    mcfg = tfm.ModelConfig(**MODEL)
+    if oracle is None:
+        oracle = lambda q, k, v: dense_dpa(q, k, v, causal=True)  # noqa: E731
+    mcfg = tfm.ModelConfig(**model)
     params = tfm.init_params(mcfg, torch.Generator(device=dev).manual_seed(0),
                              dev)
     tokens = torch.as_tensor(np.random.default_rng(1).integers(
-        0, mcfg.vocab_size, TRAIN_TOKENS), device=dev)
+        0, mcfg.vocab_size, tokens_shape), device=dev)
     leaves = graft_entry.param_leaves(params)
     n_params = sum(t.numel() for t in leaves)
     wq0 = params["layers"][0]["wq"].clone()
@@ -729,45 +989,97 @@ def train_phase(dev):
     dwq = float((params["layers"][0]["wq"].float() - wq0.float()).abs().max())
     del embed0
     if not all(np.isfinite(losses)):
-        raise AssertionError(f"non-finite loss {losses}")
-    check("first loss vs ln(vocab)", abs(losses[0] - math.log(mcfg.vocab_size)),
-          1.0)
+        raise AssertionError(f"{phase}: non-finite loss {losses}")
+    check(f"{phase} first loss vs ln(vocab)",
+          abs(losses[0] - math.log(mcfg.vocab_size)), 1.0)
     if not losses[-1] < losses[0]:
-        raise AssertionError(f"loss did not fall: {losses}")
+        raise AssertionError(f"{phase}: loss did not fall: {losses}")
     if not dwq > 0:
-        raise AssertionError("train step produced no parameter update")
+        raise AssertionError(f"{phase}: train step produced no parameter update")
     for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
         if launches[name] <= 0:
-            raise AssertionError(f"kernel {name} never launched in the train run")
+            raise AssertionError(f"kernel {name} never launched in the {phase} "
+                                 "run")
 
     loss_k, grads_k = graft_entry.loss_and_grads(params, tokens, mcfg)
     loss_o, grads_o = graft_entry.loss_and_grads(
-        params, tokens, mcfg,
-        attn_fn=lambda q, k, v: dense_dpa(q, k, v, causal=True)[0])
-    cos = {}
-    for (name, _), a, b in zip(graft_entry.named_leaves(params), grads_k,
-                               grads_o):
-        a, b = a.double().flatten(), b.double().flatten()
-        cos[name] = float(a @ b / (a.norm() * b.norm()).clamp_min(1e-300))
+        params, tokens, mcfg, attn_fn=checkpointed(oracle))
+    cos = grad_cosines(params, grads_k, grads_o)
+    del grads_o
     worst_cos = min(cos, key=cos.get)
     dloss = abs(float(loss_k) - float(loss_o))
-    check("loss vs oracle-attention loss", dloss, TOL_DLOSS)
+    check(f"{phase} loss vs oracle-attention loss", dloss, TOL_DLOSS)
     if not cos[worst_cos] >= TOL_COSINE:
-        raise AssertionError(f"grad cosine {worst_cos}: {cos[worst_cos]}")
+        raise AssertionError(f"{phase} grad cosine {worst_cos}: "
+                             f"{cos[worst_cos]}")
     median_ms = float(np.median(step_ms[1:]))
-    n_tok = TRAIN_TOKENS[0] * (TRAIN_TOKENS[1] - 1)
+    n_tok = tokens_shape[0] * (tokens_shape[1] - 1)
     row = dict(
-        phase="train", tokens=list(TRAIN_TOKENS), steps=TRAIN_STEPS,
+        phase=phase, attention=mcfg.attention,
+        window=mcfg.window if mcfg.attention == "sliding" else None,
+        tokens=list(tokens_shape), steps=TRAIN_STEPS,
         lr=TRAIN_LR, params=n_params, losses=losses, ln_vocab=math.log(
             mcfg.vocab_size), max_abs_dwq=dwq, frac_changed_step1=changed,
         step_ms=step_ms, median_step_ms=median_ms,
         tokens_per_s=n_tok / median_ms * 1e3, peak_mem_gb=peak_gb,
         launches=launches, loss_flash=float(loss_k), loss_oracle=float(loss_o),
         dloss=dloss, min_grad_cosine=cos[worst_cos], min_cosine_param=worst_cos,
-        grad_batch=TRAIN_TOKENS[0],
-        profile=profile_train_step(params, tokens, mcfg, median_ms))
+        grad_batch=tokens_shape[0])
+    if other is not None:
+        # the flash gradients against another attention's oracle must miss
+        # by more: a lower worst cosine (1 − cosine at least SEPARATION
+        # times the right oracle's)
+        other_name, other_attn = other
+        loss_x, grads_x = graft_entry.loss_and_grads(
+            params, tokens, mcfg, attn_fn=checkpointed(other_attn))
+        cos_x = grad_cosines(params, grads_k, grads_x)
+        del grads_x
+        worst_x = min(cos_x, key=cos_x.get)
+        miss, miss_x = 1.0 - cos[worst_cos], 1.0 - cos_x[worst_x]
+        row.update({f"vs_{other_name}": dict(
+            loss_oracle=float(loss_x), dloss=abs(float(loss_k) - float(loss_x)),
+            min_grad_cosine=cos_x[worst_x], min_cosine_param=worst_x,
+            cosine_of_worst_param=cos_x[worst_cos],
+            miss_ratio=miss_x / max(miss, 1e-300))})
+        if not miss_x > SEPARATION * miss:
+            raise AssertionError(
+                f"{phase}: the {other_name} oracle misses the flash gradients "
+                f"by 1 - {cos_x[worst_x]}, not more than {SEPARATION} times "
+                f"the right oracle's 1 - {cos[worst_cos]}")
+    del grads_k
+    row["profile"] = profile_train_step(params, tokens, mcfg, median_ms)
     emit(row)
+    del params
     return launches
+
+
+def train_sliding_phase(dev):
+    """The sliding model's training: the canonical model with
+    ``attention="sliding", window=1025`` on 2 × 2049 tokens (the causal
+    phase's token count at twice its length, so that the band hides most
+    keys of most rows), three SGD steps through B1 and B4/B5 on the
+    local_causal kind; the gradient held against sliding_dpa's (causal) and
+    shown to miss dense_dpa's (causal) by more."""
+    from tpu_flash_torch.ops.oracle import dense_dpa, sliding_dpa
+
+    return train_phase(
+        dev, "train_sliding",
+        dict(MODEL, attention="sliding", window=SLIDING_WINDOW),
+        SLIDING_TRAIN_TOKENS,
+        oracle=lambda q, k, v: sliding_dpa(q, k, v, SLIDING_WINDOW,
+                                           causal=True),
+        other=("causal", lambda q, k, v: dense_dpa(q, k, v, causal=True)))
+
+
+def backward_sweep_phase(dev):
+    """``bench/sweep.py``'s backward suite at its quick shapes: dense,
+    causal, sliding and circulant (n > 1025) fwd + bwd through the public
+    calls, gated against the checkpointed blockwise oracle's grads."""
+    from tpu_flash_torch.bench import sweep
+
+    rows = sweep.suite_backward(dev, quick=True)
+    emit(dict(phase="backward_sweep", rows=rows))
+    return rows
 
 
 def profile_train_step(params, tokens, mcfg, step_ms, top=15):
@@ -1986,7 +2298,12 @@ def main() -> int:
             del run
             torch.cuda.empty_cache()
     b45 = flash_bwd_phase(dev)
+    torch.cuda.empty_cache()
     train = train_phase(dev)
+    torch.cuda.empty_cache()
+    train_sliding = train_sliding_phase(dev)
+    torch.cuda.empty_cache()
+    backward_sweep_phase(dev)
     torch.cuda.empty_cache()
     with torch.no_grad():
         quant = quant_attention_phase(dev)
@@ -2050,19 +2367,28 @@ def main() -> int:
         # the plain backward and the library's fused backward (K/V expanded
         # to 16 heads outside the call) each compute dq, dk and dv in one
         # call: their times stand in both rows; device times at the
-        # training shape
-        dict(name="flash_bwd_dq", route="cuda",
-             source="tpu_flash_torch/csrc/flash_bwd.cu",
-             replaces="tpu_flash/ops/flash_bwd.py:137",
-             launches=launches["flash_bwd_dq"], max_abs_err=b45["max_abs_err"],
-             **_timing(b45["dq"]),
-             library_ms=b45["library_ms"]),
-        dict(name="flash_bwd_dkv", route="cuda",
-             source="tpu_flash_torch/csrc/flash_bwd.cu",
-             replaces="tpu_flash/ops/flash_bwd.py:252",
-             launches=launches["flash_bwd_dkv"], max_abs_err=b45["max_abs_err"],
-             **_timing(b45["dkv"]),
-             library_ms=b45["library_ms"]),
+        # training shape; launches: the causal train run's, and the sliding
+        # train run's beside them
+        *[dict(name=f"flash_bwd_{part}", route="cuda",
+               source="tpu_flash_torch/csrc/flash_bwd.cu", replaces=line,
+               launches=launches[f"flash_bwd_{part}"],
+               launches_train_sliding=train_sliding[f"flash_bwd_{part}"],
+               max_abs_err=b45["max_abs_err"],
+               **_timing(b45["train_4x1024"][part]),
+               library_ms=b45["train_4x1024"]["library_ms"])
+          for part, line in (("dq", "tpu_flash/ops/flash_bwd.py:137"),
+                             ("dkv", "tpu_flash/ops/flash_bwd.py:252"))],
+        # B4/B5 on the local_causal kind at the sliding training shape (b 2,
+        # 16/8 heads, n 2048, radius 512, d 128); launches: the sliding
+        # train run's; library: the fused backward under the same band
+        *[dict(name=f"flash_bwd_{part} (local_causal band)", route="cuda",
+               source="tpu_flash_torch/csrc/flash_bwd.cu", replaces=line,
+               launches=train_sliding[f"flash_bwd_{part}"],
+               max_abs_err=b45["max_abs_err"],
+               **_timing(b45["sliding_train_2x2048"][part]),
+               library_ms=b45["sliding_train_2x2048"]["library_ms"])
+          for part, line in (("dq", "tpu_flash/ops/flash_bwd.py:137"),
+                             ("dkv", "tpu_flash/ops/flash_bwd.py:252"))],
         # times at the headline (b 4, h 8, n 8192, d 128): B6 in serving
         # fp8 with tensor K scales, B7 in end-to-end fp8; library: bf16
         # scaled_dot_product_attention at that shape (no library call takes

@@ -86,7 +86,9 @@ def test_headline_runs_on_the_cpu(argv, capsys):
     ("matmul", {"matmul_f32", "matmul_ragged_bf16", "matvec_bf16"}),
     ("ndim", {"dense2d", "dense2d_fp8", "dense3d", "block2d",
               "windowed2d_fp8"}),
-    ("bands", {"circulant", "block"})])
+    ("bands", {"circulant", "block"}),
+    ("backward", {"dense_fwd_bwd", "dense_fwd_bwd_dpq", "causal_fwd_bwd",
+                  "sliding_fwd_bwd", "circulant_fwd_bwd"})])
 def test_sweep_suites_run_on_the_cpu(suite, names, capsys):
     """Each sweep suite at --tiny --device cpu passes its gates and prints
     one JSON row per case (every softmax path taken), naming the CPU."""

@@ -125,20 +125,51 @@ def test_flash_plain_matches_oracle_scale():
     np.testing.assert_allclose(o.numpy(), ref.numpy(), atol=1e-4)
 
 
-@pytest.mark.parametrize("kw", [dict(bwd_split=2, _item="A8"),
-                                dict(shift=1, _item="A13"),
+@pytest.mark.parametrize("kw", [dict(shift=1, _item="A13"),
                                 dict(q_dtype="int8", schedule="local",
                                      _item="A10"),
                                 dict(q_dtype="int8", schedule="block",
                                      section=8, _item="A10")])
 def test_flash_unported_options_raise(kw):
-    """What is still unported raises, naming its ROADMAP item: the backward
-    staging knob, the shifted schedule, and the band and the block-diagonal
-    schedule on the quantized route."""
+    """What is still unported raises, naming its ROADMAP item: the shifted
+    schedule, and the band and the block-diagonal schedule on the quantized
+    route."""
     _, (tq, tk, tv) = _inputs(4, 1, 1, 1, 16, 16, 32, jnp.float32)
     kw = dict(kw)
     with pytest.raises(NotImplementedError, match=f"ROADMAP {kw.pop('_item')}"):
         tflash.flash_attention(tq, tk, tv, **kw)
+
+
+@pytest.mark.parametrize("kw,error", [
+    (dict(bwd_split=3), "split=3 must divide block_q=128"),
+    (dict(bwd_quant="int4"), "unknown bwd quant mode 'int4'"),
+    (dict(bwd_split=0, schedule="local", radius=4), "split=0 must divide")])
+def test_bwd_options_reach_the_backward(kw, error):
+    """``bwd_split`` and ``bwd_quant`` pass through the autograd Function
+    to flash_backward: the forward takes them, the backward validates them
+    as the reference's does."""
+    _, (tq, tk, tv) = _inputs(4, 1, 1, 1, 16, 16, 32, jnp.float32)
+    q = tq.clone().requires_grad_(True)
+    o = tflash.flash_attention(q, tk, tv, block_q=128, block_kv=128, **kw)
+    with pytest.raises(ValueError, match=error):
+        o.sum().backward()
+
+
+def test_bwd_quant_reaches_the_backward():
+    """``bwd_quant="dp"`` at d 128 gives flash_backward(quant="dp")'s dq,
+    which differs from the unquantized one."""
+    _, (tq, tk, tv) = _inputs(5, 1, 1, 1, 64, 64, 128, jnp.float32)
+
+    def dq(**kw):
+        q = tq.clone().requires_grad_(True)
+        tflash.flash_attention(q, tk, tv, schedule="causal", **kw).sum(
+        ).backward()
+        return q.grad
+
+    plain, dp = dq(), dq(bwd_quant="dp")
+    assert not torch.equal(plain, dp)
+    assert float((plain - dp).abs().max()) <= 2.5e-2 * float(
+        plain.abs().max())
 
 
 @pytest.mark.parametrize("kw", [dict(bound_max=True),

@@ -124,16 +124,6 @@ def test_flash_kernel_band_and_bound_match_plain(gen, case):
     _assert_b1_close(ko, kl, po, pl, dtype)
 
 
-def test_band_backward_kernel_raises(gen):
-    """The band's backward has no CUDA kernel yet: it raises, naming its
-    ROADMAP item, instead of falling back."""
-    q, k, v = (torch.randn(1, 2, 128, 64, generator=gen, device="cuda",
-                           requires_grad=True) for _ in range(3))
-    o = tflash.sliding_fa(q, k, v, 33, causal=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
-        o.sum().backward()
-
-
 def _cache(dtype, lens, seed, *, kvh=8, d=128, page=64, total=1024, maxp=64,
            tables=32):
     cfg = CacheConfig(num_kv_heads=kvh, head_dim=d, page_size=page,
@@ -921,15 +911,101 @@ def test_circulant_and_block_public_calls_match_oracle(gen):
                  .abs().max()) <= 2.5e-2
 
 
-@pytest.mark.parametrize("fa", ["circulant", "block"])
-def test_circulant_and_block_backward_kernel_raises(gen, fa):
-    """Their backward has no CUDA kernel yet: it raises, naming ROADMAP A8."""
-    q, k, v = (torch.randn(1, 2, 128, 64, generator=gen, device="cuda",
-                           requires_grad=True) for _ in range(3))
-    o = (tflash.circulant_fa(q, k, v, 33) if fa == "circulant"
-         else tflash.block_fa(q, k, v, 64))
-    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
-        o.sum().backward()
+# B4/B5's band, circulant and block-diagonal kinds: (schedule, radius or
+# section) at a ragged n 300 (1000 for the wider band) with GQA 4/2, in each
+# family: (width, dtype) = bf16 64 and 128 (TMA + wgmma), bf16 256 (WMMA),
+# float32 (FMA); dp where it applies (widths 128 and 256)
+_BWD_KINDS = [("local", 40), ("local_causal", 40), ("circulant", 20),
+              ("block", 64), ("local_causal", 512)]
+_BWD_FAMILIES = [(64, torch.bfloat16), (128, torch.bfloat16),
+                 (256, torch.bfloat16), (64, torch.float32),
+                 (128, torch.float32), (256, torch.float32)]
+
+
+def _kind_args(gen, schedule, width, n, d, dtype, hq=4, hkv=2):
+    """Prescaled operands under ``schedule`` (circulant K/V halo-extended),
+    the forward kernel's o/lse, a random dO and dlse."""
+    sched = tflash.build_schedule(schedule, n, n, 512, 1024,
+                                  radius=0 if schedule == "block" else width,
+                                  section=width if schedule == "block" else 0)
+    q = (torch.randn(hq, n, d, generator=gen, device="cuda")
+         * (d ** -0.5 * tflash.LOG2E)).to(dtype)
+    k, v = (torch.randn(hkv, n, d, generator=gen, device="cuda").to(dtype)
+            for _ in range(2))
+    if schedule == "circulant":
+        k, v = (torch.cat([x[:, -width:], x, x[:, :width]], 1) for x in (k, v))
+    o, lse = tflash._flash_fwd_kernel(q, k, v, sched, hq, hkv, True)
+    do = torch.randn(hq, n, d, generator=gen, device="cuda").to(dtype)
+    dlse = torch.randn(hq, n, generator=gen, device="cuda")
+    return (q, k, v, o, lse, do, dlse, sched, hq, hkv)
+
+
+@pytest.mark.parametrize("dp", [False, True], ids=["exact", "dp"])
+@pytest.mark.parametrize("family", _BWD_FAMILIES,
+                         ids=[f"{w}_{str(t)[6:]}" for w, t in _BWD_FAMILIES])
+@pytest.mark.parametrize("kind", _BWD_KINDS,
+                         ids=[f"{k}_{w}" for k, w in _BWD_KINDS])
+def test_flash_bwd_kernels_every_kind_match_plain(gen, kind, family, dp):
+    """B4/B5 on the local, local_causal, circulant and block-diagonal kinds
+    in each family, with and without dp, vs the plain backward under the
+    same quant: bf16 1e-2, float32 1e-4 of the largest grad (as
+    :func:`test_flash_bwd_kernels_match_plain`); two calls bitwise equal;
+    each counter moves by one a call. dp at width 64 is the flag ignored:
+    the grads equal the unquantized kernel's."""
+    (schedule, width), (d, dtype) = kind, family
+    n = 1000 if width == 512 else 300
+    args = _kind_args(gen, schedule, width, n, d, dtype)
+    quant = "dp" if dp else None
+    before = dict(kernels.LAUNCHES)
+    got = tflash_bwd._flash_bwd_kernel(*args, quant)
+    again = tflash_bwd._flash_bwd_kernel(*args, quant)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["flash_bwd_dq"] == before["flash_bwd_dq"] + 2
+    assert kernels.LAUNCHES["flash_bwd_dkv"] == before["flash_bwd_dkv"] + 2
+    want = tflash_bwd._flash_bwd_plain(*args, quant)
+    tol = 1e-2 if dtype == torch.bfloat16 else 1e-4
+    for name, a, a2, w in zip("qkv", got, again, want):
+        assert torch.equal(a, a2), f"d{name} differs between two calls"
+        assert a.dtype == w.dtype and a.shape == w.shape
+        assert torch.isfinite(a).all()
+        assert _rel(a, w) <= tol, (name, _rel(a, w))
+    if dp and d == 64:
+        for a, b in zip(got, tflash_bwd._flash_bwd_kernel(*args)):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("fa", ["sliding", "circulant", "block"])
+def test_band_grads_match_oracle(gen, fa):
+    """Autograd through ``sliding_fa`` (causal), ``circulant_fa`` (the halo's
+    gradient folded back by autograd) and ``block_fa`` (B1 then B4/B5) vs
+    autograd through the f32 oracles: bf16 within the reference's gate,
+    2.5e-2 of the largest grad."""
+    from tpu_flash_torch.ops.oracle import block_dpa, circulant_dpa, sliding_dpa
+
+    q, k, v = (torch.randn(1, 4, 1000, 64, generator=gen, device="cuda")
+               .bfloat16() for _ in range(3))
+    w = torch.randn(1, 4, 1000, 64, generator=gen, device="cuda")
+    calls = {
+        "sliding": (lambda a, b, c: tflash.sliding_fa(a, b, c, 129, causal=True),
+                    lambda a, b, c: sliding_dpa(a, b, c, 129, causal=True)[0]),
+        "circulant": (lambda a, b, c: tflash.circulant_fa(a, b, c, 129),
+                      lambda a, b, c: circulant_dpa(a, b, c, 129)[0]),
+        "block": (lambda a, b, c: tflash.block_fa(a, b, c, 200),
+                  lambda a, b, c: block_dpa(
+                      *(x.transpose(1, 2) for x in (a, b, c)), (200,))
+                  .transpose(1, 2)),
+    }
+
+    def grads(fn):
+        xs = [x.clone().requires_grad_(True) for x in (q, k, v)]
+        (fn(*xs).float() * w).sum().backward()
+        return [x.grad for x in xs]
+
+    before = kernels.LAUNCHES["flash_bwd_dkv"]
+    got = grads(calls[fa][0])
+    assert kernels.LAUNCHES["flash_bwd_dkv"] == before + 1
+    for name, a, b in zip("qkv", got, grads(calls[fa][1])):
+        assert _rel(a, b) <= 2.5e-2, (name, _rel(a, b))
 
 
 # (shape, axis, dtype, scale): both sides of the one-pass threshold (rows of

@@ -101,6 +101,29 @@ def test_oracle_attn_fn_gives_the_default_loss(ref):
     assert abs(base - jloss) <= 1e-5 * abs(jloss)
 
 
+_SLIDING = dict(_CFG, attention="sliding", window=17)
+JSCFG, TSCFG = jtfm.ModelConfig(**_SLIDING), ttfm.ModelConfig(**_SLIDING)
+
+
+def test_sliding_loss_and_grads_match_reference(ref):
+    """The sliding model (window 17: a band of radius 8 over 40 positions)
+    through the band's forward and backward: loss and every gradient vs
+    ``jax.value_and_grad(loss_fn)`` of the reference, with the tolerances
+    above. Its loss differs from the causal model's, so the band is seen."""
+    jp, toks, causal_loss, _ = ref
+    jloss, jgrads = jax.jit(jax.value_and_grad(
+        lambda p, t: jtfm.loss_fn(p, t, JSCFG)))(jp, jnp.asarray(toks))
+    tp = _port_params(jp)
+    loss, grads = graft_entry.loss_and_grads(tp, torch.as_tensor(toks), TSCFG)
+    assert abs(float(loss) - float(jloss)) <= 1e-5 * abs(float(jloss))
+    assert abs(float(loss) - causal_loss) > 1e-5 * abs(causal_loss)
+    tflat = _flat(graft_entry._with_leaves(tp, [to_numpy(g) for g in grads]))
+    jflat = _flat(jax.tree.map(np.asarray, jgrads))
+    assert tflat.keys() == jflat.keys()
+    for key, jg in jflat.items():
+        assert _rel(tflat[key], jg) <= 1e-3, key
+
+
 def test_moe_loss_raises():
     cfg = ttfm.ModelConfig(**{**_CFG, "moe_experts": 4})
     with pytest.raises(NotImplementedError, match="ROADMAP A9"):

@@ -1,20 +1,25 @@
 """Full-size sweep suites of the port: counterparts of the reference's
 ``tpu_flash/bench/sweep.py`` ``suite_softmax`` (:425-468), ``suite_ndim``
 (:277-326) and the circulant and block rows of ``suite_attention``
-(:123-129), plus the matmul shapes of the primitives.
+(:123-129) and ``suite_backward`` (:333-422), plus the matmul shapes of
+the primitives.
 
-    python -m tpu_flash_torch.bench.sweep --suite softmax|matmul|ndim|bands
-        [--device cuda] [--tiny] [--iters 10]
+    python -m tpu_flash_torch.bench.sweep
+        --suite softmax|matmul|ndim|bands|backward
+        [--device cuda] [--tiny] [--quick] [--iters 10]
 
 Each case goes through the port's public entry points (``fused_softmax``,
 ``matmul``/``matvec``, N-d ``dense_fa``/``block_fa``/``windowed_fa``,
-``circulant_fa``/``block_fa``), is gated, then timed (CUDA events on the
-card), and prints one JSON row on stdout; details go to stderr. Gates: the
+``circulant_fa``/``block_fa``; the backward suite through autograd of
+``dense_fa``/``sliding_fa``/``circulant_fa``, B1 then B4/B5), is gated,
+then timed (CUDA events on the card), and prints one JSON row on stdout;
+details go to stderr. Gates: the
 softmax against a float64 softmax (2e-6 float32, 1e-2 bf16; each fiber sums
 to 1 within 1e-5) and against its plain version; matmul against its plain
 version and a float64 product, relative to the largest output (one bf16
 ulp of it, 2^-7; 1e-5 float32); attention against the f32 oracles (``blockwise_dpa``,
-``block_dpa``, 2.5e-2 in bf16) and the fp8 rows against the
+``block_dpa``, 2.5e-2 in bf16; the backward's grads against the
+checkpointed ``blockwise_dpa``'s, 2.5e-2 of max(|grad|, 1)) and the fp8 rows against the
 matched-bit-width oracle (inputs quantized as the kernel quantizes them,
 1e-2). Inputs come from ``torch.Generator`` seeds on the device.
 ``--tiny`` runs CPU-sized shapes that check the suites on the plain paths;
@@ -373,8 +378,97 @@ def suite_bands(device, tiny=False, iters=10, names=("circulant", "block")):
     return rows
 
 
+# ------------------------------------------------------------------ backward
+
+# suite_backward's shapes (tpu_flash/bench/sweep.py:333-422): b 1, h 8, the
+# band variants at window 1025 where n exceeds it; quick: n 1024 and 4096
+# at d 64. --tiny: CPU-sized shapes that take every variant
+BACKWARD = dict(b=1, h=8, seqlens=(1024, 4096, 8192, 16384), dims=(64, 128),
+                window=1025)
+BACKWARD_QUICK = dict(BACKWARD, seqlens=(1024, 4096), dims=(64,))
+BACKWARD_TINY = dict(b=1, h=2, seqlens=(128, 300), dims=(32, 96), window=129)
+
+
+def backward_variants(n: int, d: int, window: int):
+    """(name, attention call, the oracle's mask, coverage) of the
+    reference's backward rows at (n, d): dense, dense with the int8 dp
+    product (d > 64; the flag is ignored below), causal, and the sliding
+    and circulant bands where n exceeds the window."""
+    from tpu_flash_torch.ops import flash
+
+    yield "dense_fwd_bwd", (lambda q, k, v: flash.dense_fa(q, k, v)), {}, 1.0
+    if d > 64:
+        yield ("dense_fwd_bwd_dpq",
+               lambda q, k, v: flash.dense_fa(q, k, v, bwd_quant="dp"), {}, 1.0)
+    yield ("causal_fwd_bwd",
+           lambda q, k, v: flash.dense_fa(q, k, v, causal=True),
+           dict(causal=True), 0.5)
+    if n > window:
+        cov = window / n
+        yield ("sliding_fwd_bwd",
+               lambda q, k, v: flash.sliding_fa(q, k, v, window),
+               dict(window_size=window), cov)
+        yield ("circulant_fwd_bwd",
+               lambda q, k, v: flash.circulant_fa(q, k, v, window),
+               dict(window_size=window, wrap=True), cov)
+
+
+def _loss_grads(fn, q, k, v):
+    """Grads of sum(fn(q, k, v)²) in float32, the reference's loss."""
+    xs = [x.detach().requires_grad_(True) for x in (q, k, v)]
+    (fn(*xs).float() ** 2).sum().backward()
+    return [x.grad for x in xs]
+
+
+def backward_row(name, fn, mask, cov, q, k, v, iters=5) -> dict:
+    """Gate one variant's grads against the checkpointed ``blockwise_dpa``
+    oracle's (2.5e-2 of max(|oracle grad|, 1)), then time forward plus
+    backward and report covered-pair TFLOP/s."""
+    from tpu_flash_torch.bench.harness import attention_bytes, attention_flops
+    from tpu_flash_torch.ops.oracle import blockwise_dpa
+
+    b, h, n, d = q.shape
+    got = _loss_grads(fn, q, k, v)
+    want = _loss_grads(lambda *x: blockwise_dpa(*x, chunk=1024, **mask)[0],
+                       q, k, v)
+    err = max(float((g.float() - w.float()).abs().max()
+                    / max(float(w.float().abs().max()), 1.0))
+              for g, w in zip(got, want))
+    del got, want
+    _check(name, err, TOL_BF16)
+    flops = attention_flops(b, h, n, n, d, backward=True, coverage=cov)
+    nbytes = attention_bytes(b, h, n, n, d) * 3
+    row = dict(name=name, b=b, h=h, n=n, d=d, coverage=cov, max_abs_err=err,
+               tol=TOL_BF16)
+    row.update(_timing(lambda *x: _loss_grads(fn, *x), (q, k, v), iters,
+                       flops, nbytes, device_peaks(q.device)))
+    row["tflops"] = flops / row["ms"] / 1e9
+    return row
+
+
+def suite_backward(device, tiny=False, iters=5, quick=False):
+    """The reference's suite_backward: grads of sum(o²) through each
+    variant at each (n, d), gated against the oracle's, timed."""
+    shape = BACKWARD_TINY if tiny else BACKWARD_QUICK if quick else BACKWARD
+    b, h, win = shape["b"], shape["h"], shape["window"]
+    rows = []
+    with torch.enable_grad():
+        for n in shape["seqlens"]:
+            for d in shape["dims"]:
+                q, k, v = (randn(i, (b, h, n, d), torch.bfloat16, device)
+                           for i in range(3))
+                for name, fn, mask, cov in backward_variants(n, d, win):
+                    row = backward_row(name, fn, mask, cov, q, k, v, iters)
+                    rows.append(row)
+                    log(f"  {name:18s} n={n:6d} d={d:4d} {row['ms']:9.3f} ms"
+                        f" {row['tflops']:7.2f} TFLOP/s (covered)"
+                        f"  err {row['max_abs_err']:.2e}")
+    return rows
+
+
 SUITES = {"softmax": suite_softmax, "matmul": suite_matmul,
-          "ndim": suite_ndim, "bands": suite_bands}
+          "ndim": suite_ndim, "bands": suite_bands,
+          "backward": suite_backward}
 
 
 def main(argv=None) -> list:
@@ -384,6 +478,8 @@ def main(argv=None) -> list:
     ap.add_argument("--tiny", action="store_true",
                     help="CPU-sized shapes (checks the suite; no device metric)")
     ap.add_argument("--iters", type=int, default=None)
+    ap.add_argument("--quick", action="store_true",
+                    help="the backward suite's quick shapes")
     args = ap.parse_args(argv)
     dev = torch.device(args.device)
     if dev.type == "cuda" and not torch.cuda.is_available():
@@ -391,6 +487,8 @@ def main(argv=None) -> list:
                          "check the plain paths)")
     log(f"device: {device_peaks(dev)['kind']}  suite: {args.suite}")
     kw = {} if args.iters is None else dict(iters=args.iters)
+    if args.quick:
+        kw["quick"] = True
     with torch.no_grad():
         rows = SUITES[args.suite](dev, tiny=args.tiny, **kw)
     for row in rows:

@@ -7,6 +7,13 @@
 // recompute P from the forward's lse (FA-2); neither keeps an O(n²)
 // residual.
 //
+// Schedules: every kind of B1 (schedule.cuh, the kind codes of
+// ops/flash.py:_KIND): dense, causal (right-aligned), local, local_causal,
+// circulant over the halo-extended K/V the wrapper builds (n_kv = n + 2r),
+// block-diagonal. B4 walks a q tile's kv tiles (kv_range), B5 a kv tile's
+// q tiles (q_range, the transposed visit); a tile wholly visible to the
+// tile's rows skips the per-element mask (tile_full), as B1 does.
+//
 // Numerics mirror the reference: q arrives prescaled by scale·log2(e), so
 // s = Q·Kᵀ is in base-2 units; lse2 = lse·log2(e) with lse = ±inf/NaN rows
 // clamped to 3e38 first (the wrapper does both, in float32), so
@@ -15,9 +22,18 @@
 // dq = Σ ds·K·ln2 with ds cast to K's dtype; dv = Σ pᵀ·dO with p cast to
 // dO's dtype; dk = Σ dsᵀ·Q·ln2 with ds cast to Q's dtype. Products
 // accumulate in float32. Masked and padded entries (keys past n_kv, queries
-// past n_q, the right-aligned causal triangle, offset = n_kv − n_q) get
-// p = 0 by index, never by the zero-filled data in shared memory. The bf16
-// kernels take 2^x from ex2.approx, as B1 does.
+// past n_q, keys the schedule hides from a query) get p = 0 by index, never
+// by the zero-filled data in shared memory. The bf16 kernels take 2^x from
+// ex2.approx, as B1 does.
+//
+// The int8 dP product (quant "dp", the reference's dp_quant): the wrapper
+// quantizes once outside the kernels: V̂ per (kv row, channel) with σv, dÔ
+// per q row from dO·σv with σdo, Δ divided by σdo, and qs = q·σdo in q's
+// dtype. Then dP_raw = dÔ·V̂ᵀ is an exact int8 product with int32 sums (the
+// s8 wgmma, the s8 WMMA, or __dp4a); ds_raw = p∘(dP_raw − Δ/σdo); B4 scales
+// its dq rows by σdo·ln2 in the epilogue, B5 takes dK += ds_rawᵀ·qs and
+// keeps the exact dO for dV = Pᵀ·dO. Only where it applies: widths 128 and
+// 256 (the reference ignores it at d, dv <= 64).
 //
 // What bounds them on an H100: tensor-core FLOPs. At the training shape
 // (b 4, 16 q / 8 kv heads, n 1024 causal, d 128) B4 runs 3 products and
@@ -39,19 +55,19 @@
 // visible), packs them to bf16 A fragments, and runs the gradient products
 // on RS wgmma with the same shared-memory tiles read MN-major (transpose
 // bit, desc_mn). The gradient sums stay in registers until the finish.
-// - B4: one CTA per (64-row q tile, bh row), the heaviest causal q tiles
-//   first and the q heads of a kv head neighbours, as in B1. Q and dO load
-//   once, K and V stream through the ring; S = Q·Kᵀ, dP = dO·Vᵀ,
-//   dQ += dS·K. lse2 and Δ of a thread's two rows are registers.
-// - B5: one CTA per (64-row kv tile, bh_kv row), the kv tiles with the
-//   most visible q tiles (small k0 under causal) first. K and V load once;
-//   Q, dO and the lse2/Δ of their rows stream through the ring over the
-//   g = hq/hkv heads of the group in a fixed order and, for each, over the
-//   q tiles from CausalSchedule._first_q_block on. The producer warp's
-//   lanes copy lse2/Δ into the stage (plain loads; a row of them need not
-//   be 16-byte aligned for TMA) and arrive on its full barrier beside
-//   TMA's bytes. Sᵀ = K·Qᵀ, dPᵀ = V·dOᵀ, dV += Pᵀ·dO, dK += dSᵀ·Q; each
-//   accumulator column's lse2/Δ comes from the stage.
+// - B4: one CTA per (64-row q tile, bh row), under the causal kind the
+//   heaviest q tiles first, and the q heads of a kv head neighbours, as in
+//   B1. Q and dO load once, K and V stream through the ring over the q
+//   tile's kv range; S = Q·Kᵀ, dP = dO·Vᵀ, dQ += dS·K. lse2 and Δ of a
+//   thread's two rows are registers.
+// - B5: one CTA per (64-row kv tile, bh_kv row). K and V load once; Q, dO
+//   and the lse2/Δ of their rows stream through the ring over the g =
+//   hq/hkv heads of the group in a fixed order and, for each, over the kv
+//   tile's q range (producer and consumers walk the same range). The
+//   producer warp's lanes copy lse2/Δ into the stage (plain loads; a row of
+//   them need not be 16-byte aligned for TMA) and arrive on its full
+//   barrier beside TMA's bytes. Sᵀ = K·Qᵀ, dPᵀ = V·dOᵀ, dV += Pᵀ·dO,
+//   dK += dSᵀ·Q; each accumulator column's lse2/Δ comes from the stage.
 // - Consumers (a plain constant, CONSUMERS; chosen by timing, PERF.md
 //   §6): at d 128 one a CTA and two CTAs an SM, so that one CTA's
 //   elementwise pass overlaps the other's products (B5's consumer holds
@@ -60,6 +76,12 @@
 //   longest CTA's chain where the grid is one wave (b 1); their float32
 //   partial sums meet in the drained ring, consumer 1's added to consumer
 //   0's, a fixed order. 64-row K/V steps in B4, 64-row Q/dO steps in B5.
+// - dp (width 128): dÔ and V̂ are int8 tiles of one 128-byte panel, dP on
+//   the m64n64k32 s8 wgmma (both operands K-major), its s32 accumulator in
+//   the float32 layout. B4's resident dO and staged V become dÔ and V̂. B5's
+//   resident V becomes V̂ and its stage carries Q, dO, qs and dÔ (57 KB):
+//   one stage fits beside the resident tiles in half an SM, so B5 under dp
+//   runs a one-stage ring and leans on its second CTA for overlap.
 //
 // bf16 at width 256 (dK + dV alone would need 256 registers a thread) and
 // float32 at every width (no tensor core takes exact float32; the
@@ -67,7 +89,10 @@
 // the TMA section: one block of warps per 64-row (32 at d 256) output tile,
 // looping in the same order, WMMA 16×16×16 (bf16) or FMA loops (float32)
 // with the float32 accumulators and score tiles in shared memory; float32
-// B5 steps 32 q rows. Cfg below: 154–213 KB of shared memory.
+// B5 steps 32 q rows. Under dp their int8 tiles sit in the V (and B4's dO)
+// slots in 16-byte column blocks, dP on the s8 WMMA (bf16) or __dp4a
+// (float32), and B5 loads qs over Q once Sᵀ is taken. Cfg below: 154–227
+// KB of shared memory.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -75,6 +100,7 @@
 #include <stdint.h>
 
 #include "hopper.cuh"
+#include "schedule.cuh"
 
 namespace {
 
@@ -82,6 +108,26 @@ using namespace nvcuda;
 using bf16 = __nv_bfloat16;
 
 constexpr float LN2 = 0.693147180559945309f;
+
+// What both families take: operands, the dp operands (null without dp),
+// outputs, the schedule and the GQA heads.
+struct BwdParams {
+  const void* q;      // (bh, n_q, HD), prescaled
+  const void* k;      // (bh_kv, n_kv, HD)
+  const void* v;
+  const void* dout;   // (bh, n_q, HD)
+  const void* v8;     // dp: V̂ (bh_kv, n_kv, HD) int8
+  const void* do8;    // dp: dÔ (bh, n_q, HD) int8
+  const void* qs;     // dp: q·σdo (bh, n_q, HD)
+  const float* sdo;   // dp: σdo (bh, n_q)
+  const float* lse2;  // (bh, n_q)
+  const float* delta; // (bh, n_q), divided by σdo under dp
+  void* dq;
+  void* dk;
+  void* dv;
+  Sched s;
+  int hq, hkv;
+};
 
 // ------------------------------------ WMMA (bf16 d 256) and FMA (float32)
 
@@ -109,9 +155,12 @@ template <typename T, int HD> struct Cfg {
 
 // Shared memory of one block: two (RA × HD) and two (RB × HD) operand
 // tiles, two (RA × RB) float32 score tiles, NP (RA × RB) tiles in T for the
-// cast P/dS, NACC (RA × HD) float32 accumulators, and RB floats each of
-// lse2 and Δ. B4: RA = q rows, RB = kv rows; B5: RA = kv rows, RB = q rows.
-template <typename T, int HD, int RA, int RB, int NP, int NACC> struct Smem {
+// cast P/dS, NACC (RA × HD) float32 accumulators, RB floats each of lse2
+// and Δ, and X8 (RB × HD) int8 tiles (B5's dÔ under dp). An int8 tile is
+// stored in 16-byte column blocks (element (r, c) at (c / 16)·rows·16 +
+// r·16 + c % 16), so that every s8 WMMA fragment starts 32-byte aligned;
+// under dp B4's dÔ and V̂ and B5's V̂ take the dO and V slots.
+template <typename T, int HD, int RA, int RB, int NP, int NACC, int X8 = 0> struct Smem {
   static constexpr int LD = HD + Ty<T>::PAD;  // operand rows
   static constexpr int LDS = RB + 4;          // float score rows
   static constexpr int LDP = RB + Ty<T>::PAD; // P / dS rows in T
@@ -127,11 +176,13 @@ template <typename T, int HD, int RA, int RB, int NP, int NACC> struct Smem {
   static constexpr size_t acc = p0 + sizeof(T) * NP * RA * LDP;
   static constexpr size_t lse = acc + sizeof(float) * NACC * RA * LDO;
   static constexpr size_t delta = lse + sizeof(float) * RB;
-  static constexpr size_t bytes = delta + sizeof(float) * RB;
+  static constexpr size_t x8 = (delta + sizeof(float) * RB + 31) / 32 * 32;
+  static constexpr size_t bytes = x8 + (size_t)X8 * RB * HD;
   static_assert(a1 % 32 == 0 && b0 % 32 == 0 && b1 % 32 == 0 && s0 % 32 == 0 &&
                     s1 % 32 == 0 && p0 % 32 == 0 && p1 % 32 == 0 &&
                     acc % 32 == 0 && (sizeof(float) * RA * LDO) % 32 == 0,
                 "WMMA tiles need 256-bit aligned bases");
+  static_assert(sizeof(T) * LD >= HD, "an int8 tile outgrows its slot");
   static_assert(bytes <= 232448, "above the 227 KB a block may use");
 };
 
@@ -148,6 +199,19 @@ __device__ void load_tile(T* dst, int ld, const T* src, int row0, int n,
     if (row0 + r < n)
       val = *reinterpret_cast<const uint4*>(src + (size_t)(row0 + r) * HD + c);
     *reinterpret_cast<uint4*>(dst + r * ld + c) = val;
+  }
+}
+
+// the same for an int8 (n, HD) matrix into 16-byte column blocks
+template <int HD, int NTHREADS>
+__device__ void load_tile8(int8_t* dst, const int8_t* src, int row0, int n, int rows) {
+  constexpr int CHUNKS = HD / 16;
+  for (int idx = threadIdx.x; idx < rows * CHUNKS; idx += NTHREADS) {
+    int r = idx / CHUNKS, c = idx % CHUNKS;
+    uint4 val = make_uint4(0, 0, 0, 0);
+    if (row0 + r < n)
+      val = *reinterpret_cast<const uint4*>(src + (size_t)(row0 + r) * HD + 16 * c);
+    *reinterpret_cast<uint4*>(dst + (c * rows + r) * 16) = val;
   }
 }
 
@@ -189,6 +253,44 @@ __device__ void warp_nt(const T* a, int lda, const T* b, int ldb, float* c,
   }
 }
 
+// One warp: C (16 × N, int32, pitch ldc) = A · Bᵀ on int8 tiles in 16-byte
+// column blocks: A is rows [a_row, a_row + 16) of an RA-row tile, B an
+// N-row tile, K int8 columns. TC: the s8 WMMA; else __dp4a.
+template <bool TC, int RA, int N, int K>
+__device__ void warp_nt_s8(const int8_t* a, int a_row, const int8_t* b, int* c, int ldc,
+                           int lane) {
+  if constexpr (TC) {
+    wmma::fragment<wmma::accumulator, 16, 16, 16, int> acc[N / 16];
+    for (int j = 0; j < N / 16; ++j) wmma::fill_fragment(acc[j], 0);
+    for (int kb = 0; kb < K / 16; ++kb) {
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, signed char, wmma::row_major> fa;
+      wmma::load_matrix_sync(fa, reinterpret_cast<const signed char*>(a) +
+                                     (kb * RA + a_row) * 16, 16);
+      for (int j = 0; j < N / 16; ++j) {
+        wmma::fragment<wmma::matrix_b, 16, 16, 16, signed char, wmma::col_major> fb;
+        wmma::load_matrix_sync(fb, reinterpret_cast<const signed char*>(b) +
+                                       (kb * N + j * 16) * 16, 16);
+        wmma::mma_sync(acc[j], fa, fb, acc[j]);
+      }
+    }
+    for (int j = 0; j < N / 16; ++j)
+      wmma::store_matrix_sync(c + j * 16, acc[j], ldc, wmma::mem_row_major);
+  } else {
+    const int* aw = reinterpret_cast<const int*>(a);
+    const int* bw = reinterpret_cast<const int*>(b);
+    for (int r = 0; r < 16; ++r) {
+      for (int col = lane; col < N; col += 32) {
+        int s = 0;
+        for (int kb = 0; kb < K / 16; ++kb)
+#pragma unroll
+          for (int w = 0; w < 4; ++w)
+            s = __dp4a(aw[(kb * RA + a_row + r) * 4 + w], bw[(kb * N + col) * 4 + w], s);
+        c[r * ldc + col] = s;
+      }
+    }
+  }
+}
+
 // One warp: C (16 × N, float, pitch ldc) += A (16 × K) · B with B (K × N).
 template <typename T, int N, int K>
 __device__ void warp_nn_acc(const T* a, int lda, const T* b, int ldb, float* c,
@@ -218,65 +320,74 @@ __device__ void warp_nn_acc(const T* a, int lda, const T* b, int ldb, float* c,
 }
 
 // B4: dQ for one (BQ-row q tile, batch·q-head row).
-template <typename T, int HD>
+template <typename T, int HD, bool DP>
 __global__ void __launch_bounds__(Cfg<T, HD>::BQ * 2)
-flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const T* __restrict__ dout,
-                    const float* __restrict__ lse2, const float* __restrict__ delta,
-                    T* __restrict__ dq, int n_q, int n_kv, int hq, int hkv,
-                    int causal, int offset) {
+flash_bwd_dq_kernel(const BwdParams p) {
   constexpr int BQ = Cfg<T, HD>::BQ, BKV = Cfg<T, HD>::BKV, NTHREADS = BQ * 2;
+  constexpr bool TC = sizeof(T) == 2;
   using S = Smem<T, HD, BQ, BKV, 1, 1>;
   extern __shared__ __align__(128) unsigned char smem[];
   T* qs = reinterpret_cast<T*>(smem + S::a0);
-  T* dos = reinterpret_cast<T*>(smem + S::a1);
+  T* dos = reinterpret_cast<T*>(smem + S::a1);  // dÔ (int8) under dp
   T* ks = reinterpret_cast<T*>(smem + S::b0);
-  T* vs = reinterpret_cast<T*>(smem + S::b1);
+  T* vs = reinterpret_cast<T*>(smem + S::b1);   // V̂ (int8) under dp
   float* ss = reinterpret_cast<float*>(smem + S::s0);
   float* dps = reinterpret_cast<float*>(smem + S::s1);
   T* dss = reinterpret_cast<T*>(smem + S::p0);
   float* acc = reinterpret_cast<float*>(smem + S::acc);
   float* lses = reinterpret_cast<float*>(smem + S::lse);
   float* deltas = reinterpret_cast<float*>(smem + S::delta);
+  int8_t* dos8 = reinterpret_cast<int8_t*>(dos);
+  int8_t* vs8 = reinterpret_cast<int8_t*>(vs);
 
+  const Sched s = p.s;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int q0 = blockIdx.x * BQ;
+  const int q0 = blockIdx.x * BQ, q_last = min(q0 + BQ - 1, s.n_q - 1);
   const int b = blockIdx.y;
-  const int kv_row = (b / hq) * hkv + (b % hq) / (hq / hkv);
-  const size_t qoff = (size_t)b * n_q * HD;
-  const T* kb = k + (size_t)kv_row * n_kv * HD;
-  const T* vb = v + (size_t)kv_row * n_kv * HD;
+  const int kv_row = (b / p.hq) * p.hkv + (b % p.hq) / (p.hq / p.hkv);
+  const size_t qoff = (size_t)b * s.n_q * HD;
+  const size_t kvoff = (size_t)kv_row * s.n_kv * HD;
+  const T* kb = static_cast<const T*>(p.k) + kvoff;
 
-  load_tile<T, HD, NTHREADS>(qs, S::LD, q + qoff, q0, n_q, BQ);
-  load_tile<T, HD, NTHREADS>(dos, S::LD, dout + qoff, q0, n_q, BQ);
-  load_rows<NTHREADS>(lses, lse2 + (size_t)b * n_q, q0, n_q, BQ);
-  load_rows<NTHREADS>(deltas, delta + (size_t)b * n_q, q0, n_q, BQ);
+  load_tile<T, HD, NTHREADS>(qs, S::LD, static_cast<const T*>(p.q) + qoff, q0, s.n_q, BQ);
+  if constexpr (DP)
+    load_tile8<HD, NTHREADS>(dos8, static_cast<const int8_t*>(p.do8) + qoff, q0, s.n_q, BQ);
+  else
+    load_tile<T, HD, NTHREADS>(dos, S::LD, static_cast<const T*>(p.dout) + qoff, q0, s.n_q,
+                               BQ);
+  load_rows<NTHREADS>(lses, p.lse2 + (size_t)b * s.n_q, q0, s.n_q, BQ);
+  load_rows<NTHREADS>(deltas, p.delta + (size_t)b * s.n_q, q0, s.n_q, BQ);
   for (int i = threadIdx.x; i < BQ * S::LDO; i += NTHREADS) acc[i] = 0.0f;
 
-  // kv tiles to visit: all, or up to the last key visible to the tile's
-  // last real query (CausalSchedule._last_step, right-aligned).
-  int steps = (n_kv + BKV - 1) / BKV;
-  if (causal) {
-    const int last_k = min(q0 + BQ - 1, n_q - 1) + offset;
-    steps = last_k < 0 ? 0 : min(steps, last_k / BKV + 1);
-  }
+  int first, last;
+  kv_range(s, q0, q_last, BKV, first, last);
   const int r0 = warp * 16;
-  for (int s = 0; s < steps; ++s) {
-    const int k0 = s * BKV;
+  for (int st = first; st <= last; ++st) {
+    const int k0 = st * BKV;
+    const bool full = tile_full(s, k0, k0 + BKV - 1, q0, q_last);
     __syncthreads();  // previous step done with ks/vs; init visible
-    load_tile<T, HD, NTHREADS>(ks, S::LD, kb, k0, n_kv, BKV);
-    load_tile<T, HD, NTHREADS>(vs, S::LD, vb, k0, n_kv, BKV);
+    load_tile<T, HD, NTHREADS>(ks, S::LD, kb, k0, s.n_kv, BKV);
+    if constexpr (DP)
+      load_tile8<HD, NTHREADS>(vs8, static_cast<const int8_t*>(p.v8) + kvoff, k0, s.n_kv, BKV);
+    else
+      load_tile<T, HD, NTHREADS>(vs, S::LD, static_cast<const T*>(p.v) + kvoff, k0, s.n_kv,
+                                 BKV);
     __syncthreads();
     warp_nt<T, BKV, HD>(qs + r0 * S::LD, S::LD, ks, S::LD, ss + r0 * S::LDS, S::LDS, lane);
-    warp_nt<T, BKV, HD>(dos + r0 * S::LD, S::LD, vs, S::LD, dps + r0 * S::LDS, S::LDS, lane);
+    if constexpr (DP)
+      warp_nt_s8<TC, BQ, BKV, HD>(dos8, r0, vs8, reinterpret_cast<int*>(dps + r0 * S::LDS),
+                                  S::LDS, lane);
+    else
+      warp_nt<T, BKV, HD>(dos + r0 * S::LD, S::LD, vs, S::LD, dps + r0 * S::LDS, S::LDS, lane);
     __syncwarp();
     for (int r = r0; r < r0 + 16; ++r) {
       const int qpos = q0 + r;
       for (int c = lane; c < BKV; c += 32) {
-        const int kpos = k0 + c;
-        const bool seen = qpos < n_q && kpos < n_kv && (!causal || kpos <= qpos + offset);
-        const float p = seen ? exp2f(ss[r * S::LDS + c] - lses[r]) : 0.0f;
-        dss[r * S::LDP + c] = Ty<T>::t(p * (dps[r * S::LDS + c] - deltas[r]));
+        const bool seen = full || (qpos < s.n_q && visible(s, qpos, k0 + c));
+        const float p_ = seen ? exp2f(ss[r * S::LDS + c] - lses[r]) : 0.0f;
+        const float dp = DP ? (float)reinterpret_cast<const int*>(dps)[r * S::LDS + c]
+                            : dps[r * S::LDS + c];
+        dss[r * S::LDP + c] = Ty<T>::t(p_ * (dp - deltas[r]));
       }
     }
     __syncwarp();
@@ -285,27 +396,26 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   __syncthreads();
   for (int r = r0; r < r0 + 16; ++r) {
     const int qpos = q0 + r;
-    if (qpos >= n_q) break;
-    T* row = dq + qoff + (size_t)qpos * HD;
-    for (int c = lane; c < HD; c += 32) row[c] = Ty<T>::t(acc[r * S::LDO + c] * LN2);
+    if (qpos >= s.n_q) break;
+    // dp: the rows carry σdo (ds = σdo·ds_raw), one multiply here
+    const float scale = DP ? p.sdo[(size_t)b * s.n_q + qpos] * LN2 : LN2;
+    T* row = static_cast<T*>(p.dq) + qoff + (size_t)qpos * HD;
+    for (int c = lane; c < HD; c += 32) row[c] = Ty<T>::t(acc[r * S::LDO + c] * scale);
   }
 }
 
 // B5: dK and dV for one (BKV5-row kv tile, batch·kv-head row), summed over
 // the g query heads of its group.
-template <typename T, int HD>
+template <typename T, int HD, bool DP>
 __global__ void __launch_bounds__(Cfg<T, HD>::BKV5 * 2)
-flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, const T* __restrict__ dout,
-                     const float* __restrict__ lse2, const float* __restrict__ delta,
-                     T* __restrict__ dk, T* __restrict__ dv, int n_q, int n_kv,
-                     int hq, int hkv, int causal, int offset) {
+flash_bwd_dkv_kernel(const BwdParams p) {
   constexpr int BQD = Cfg<T, HD>::BQD, BKV = Cfg<T, HD>::BKV5, NTHREADS = BKV * 2;
-  using S = Smem<T, HD, BKV, BQD, 2, 2>;
+  constexpr bool TC = sizeof(T) == 2;
+  using S = Smem<T, HD, BKV, BQD, 2, 2, DP ? 1 : 0>;
   extern __shared__ __align__(128) unsigned char smem[];
   T* ks = reinterpret_cast<T*>(smem + S::a0);
-  T* vs = reinterpret_cast<T*>(smem + S::a1);
-  T* qs = reinterpret_cast<T*>(smem + S::b0);
+  T* vs = reinterpret_cast<T*>(smem + S::a1);   // V̂ (int8) under dp
+  T* qs = reinterpret_cast<T*>(smem + S::b0);   // then qs under dp
   T* dos = reinterpret_cast<T*>(smem + S::b1);
   float* sts = reinterpret_cast<float*>(smem + S::s0);
   float* dpts = reinterpret_cast<float*>(smem + S::s1);
@@ -315,58 +425,80 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float* dvacc = dkacc + BKV * S::LDO;
   float* lses = reinterpret_cast<float*>(smem + S::lse);
   float* deltas = reinterpret_cast<float*>(smem + S::delta);
+  int8_t* vs8 = reinterpret_cast<int8_t*>(vs);
+  int8_t* dos8 = reinterpret_cast<int8_t*>(smem + S::x8);
 
+  const Sched s = p.s;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int k0 = blockIdx.x * BKV;
+  const int k0 = blockIdx.x * BKV, k_hi = min(k0 + BKV - 1, s.n_kv - 1);
   const int kv_row = blockIdx.y;
-  const int g = hq / hkv;
-  const int q_row0 = (kv_row / hkv) * hq + (kv_row % hkv) * g;
-  const size_t kvoff = (size_t)kv_row * n_kv * HD;
+  const int g = p.hq / p.hkv;
+  const int q_row0 = (kv_row / p.hkv) * p.hq + (kv_row % p.hkv) * g;
+  const size_t kvoff = (size_t)kv_row * s.n_kv * HD;
 
-  load_tile<T, HD, NTHREADS>(ks, S::LD, k + kvoff, k0, n_kv, BKV);
-  load_tile<T, HD, NTHREADS>(vs, S::LD, v + kvoff, k0, n_kv, BKV);
+  load_tile<T, HD, NTHREADS>(ks, S::LD, static_cast<const T*>(p.k) + kvoff, k0, s.n_kv, BKV);
+  if constexpr (DP)
+    load_tile8<HD, NTHREADS>(vs8, static_cast<const int8_t*>(p.v8) + kvoff, k0, s.n_kv, BKV);
+  else
+    load_tile<T, HD, NTHREADS>(vs, S::LD, static_cast<const T*>(p.v) + kvoff, k0, s.n_kv, BKV);
   for (int i = threadIdx.x; i < 2 * BKV * S::LDO; i += NTHREADS) dkacc[i] = 0.0f;
 
-  // q tiles that see a key of this tile: from the one holding query
-  // k0 − offset on (CausalSchedule._first_q_block), or all of them.
-  const int q_tiles = (n_q + BQD - 1) / BQD;
-  const int first = causal && k0 - offset > 0 ? (k0 - offset) / BQD : 0;
+  // the q tiles that see a key of this tile (the transposed visit)
+  int first, last;
+  q_range(s, k0, k_hi, BQD, first, last);
   const int r0 = warp * 16;
   for (int h = 0; h < g; ++h) {
     const int b = q_row0 + h;
-    const size_t qoff = (size_t)b * n_q * HD;
-    for (int t = first; t < q_tiles; ++t) {
+    const size_t qoff = (size_t)b * s.n_q * HD;
+    for (int t = first; t <= last; ++t) {
       const int q0 = t * BQD;
+      const bool full = q0 + BQD - 1 < s.n_q && tile_full(s, k0, k0 + BKV - 1, q0, q0 + BQD - 1);
       __syncthreads();  // previous step done with qs/dos; init visible
-      load_tile<T, HD, NTHREADS>(qs, S::LD, q + qoff, q0, n_q, BQD);
-      load_tile<T, HD, NTHREADS>(dos, S::LD, dout + qoff, q0, n_q, BQD);
-      load_rows<NTHREADS>(lses, lse2 + (size_t)b * n_q, q0, n_q, BQD);
-      load_rows<NTHREADS>(deltas, delta + (size_t)b * n_q, q0, n_q, BQD);
+      load_tile<T, HD, NTHREADS>(qs, S::LD, static_cast<const T*>(p.q) + qoff, q0, s.n_q, BQD);
+      load_tile<T, HD, NTHREADS>(dos, S::LD, static_cast<const T*>(p.dout) + qoff, q0, s.n_q,
+                                 BQD);
+      if constexpr (DP)
+        load_tile8<HD, NTHREADS>(dos8, static_cast<const int8_t*>(p.do8) + qoff, q0, s.n_q, BQD);
+      load_rows<NTHREADS>(lses, p.lse2 + (size_t)b * s.n_q, q0, s.n_q, BQD);
+      load_rows<NTHREADS>(deltas, p.delta + (size_t)b * s.n_q, q0, s.n_q, BQD);
       __syncthreads();
       warp_nt<T, BQD, HD>(ks + r0 * S::LD, S::LD, qs, S::LD, sts + r0 * S::LDS, S::LDS, lane);
-      warp_nt<T, BQD, HD>(vs + r0 * S::LD, S::LD, dos, S::LD, dpts + r0 * S::LDS, S::LDS, lane);
+      if constexpr (DP)
+        warp_nt_s8<TC, BKV, BQD, HD>(vs8, r0, dos8, reinterpret_cast<int*>(dpts + r0 * S::LDS),
+                                     S::LDS, lane);
+      else
+        warp_nt<T, BQD, HD>(vs + r0 * S::LD, S::LD, dos, S::LD, dpts + r0 * S::LDS, S::LDS,
+                            lane);
       __syncwarp();
       for (int r = r0; r < r0 + 16; ++r) {
         const int kpos = k0 + r;
         for (int c = lane; c < BQD; c += 32) {
           const int qpos = q0 + c;
-          const bool seen = qpos < n_q && kpos < n_kv && (!causal || kpos <= qpos + offset);
-          const float p = seen ? exp2f(sts[r * S::LDS + c] - lses[c]) : 0.0f;
-          pts[r * S::LDP + c] = Ty<T>::t(p);
-          dsts[r * S::LDP + c] = Ty<T>::t(p * (dpts[r * S::LDS + c] - deltas[c]));
+          const bool seen = full || (qpos < s.n_q && visible(s, qpos, kpos));
+          const float p_ = seen ? exp2f(sts[r * S::LDS + c] - lses[c]) : 0.0f;
+          const float dp = DP ? (float)reinterpret_cast<const int*>(dpts)[r * S::LDS + c]
+                              : dpts[r * S::LDS + c];
+          pts[r * S::LDP + c] = Ty<T>::t(p_);
+          dsts[r * S::LDP + c] = Ty<T>::t(p_ * (dp - deltas[c]));
         }
       }
       __syncwarp();
       warp_nn_acc<T, HD, BQD>(pts + r0 * S::LDP, S::LDP, dos, S::LD, dvacc + r0 * S::LDO, S::LDO, lane);
+      if constexpr (DP) {  // dK takes qs: it replaces Q, which Sᵀ is done with
+        __syncthreads();
+        load_tile<T, HD, NTHREADS>(qs, S::LD, static_cast<const T*>(p.qs) + qoff, q0, s.n_q,
+                                   BQD);
+        __syncthreads();
+      }
       warp_nn_acc<T, HD, BQD>(dsts + r0 * S::LDP, S::LDP, qs, S::LD, dkacc + r0 * S::LDO, S::LDO, lane);
     }
   }
   __syncthreads();
   for (int r = r0; r < r0 + 16; ++r) {
     const int kpos = k0 + r;
-    if (kpos >= n_kv) break;
-    T* dkrow = dk + kvoff + (size_t)kpos * HD;
-    T* dvrow = dv + kvoff + (size_t)kpos * HD;
+    if (kpos >= s.n_kv) break;
+    T* dkrow = static_cast<T*>(p.dk) + kvoff + (size_t)kpos * HD;
+    T* dvrow = static_cast<T*>(p.dv) + kvoff + (size_t)kpos * HD;
     for (int c = lane; c < HD; c += 32) {
       dkrow[c] = Ty<T>::t(dkacc[r * S::LDO + c] * LN2);
       dvrow[c] = Ty<T>::t(dvacc[r * S::LDO + c]);
@@ -380,39 +512,27 @@ cudaError_t set_smem(Kern kern, size_t bytes) {
                               (int)bytes);
 }
 
-template <typename T, int HD>
-cudaError_t launch_dq(const void* q, const void* k, const void* v,
-                      const void* dout, const float* lse2, const float* delta,
-                      void* dq, int bh, int n_q, int n_kv, int hq, int hkv,
-                      int causal, int offset, cudaStream_t stream) {
+template <typename T, int HD, bool DP>
+cudaError_t launch_dq(const BwdParams& p, int bh, cudaStream_t stream) {
   using C = Cfg<T, HD>;
-  auto kern = flash_bwd_dq_kernel<T, HD>;
+  auto kern = flash_bwd_dq_kernel<T, HD, DP>;
   const size_t smem = Smem<T, HD, C::BQ, C::BKV, 1, 1>::bytes;
   cudaError_t err = set_smem(kern, smem);
   if (err != cudaSuccess) return err;
-  dim3 grid((n_q + C::BQ - 1) / C::BQ, bh);
-  kern<<<grid, C::BQ * 2, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const T*>(dout), lse2, delta, static_cast<T*>(dq), n_q, n_kv,
-      hq, hkv, causal, offset);
+  dim3 grid((p.s.n_q + C::BQ - 1) / C::BQ, bh);
+  kern<<<grid, C::BQ * 2, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
-template <typename T, int HD>
-cudaError_t launch_dkv(const void* q, const void* k, const void* v,
-                       const void* dout, const float* lse2, const float* delta,
-                       void* dk, void* dv, int bh_kv, int n_q, int n_kv, int hq,
-                       int hkv, int causal, int offset, cudaStream_t stream) {
+template <typename T, int HD, bool DP>
+cudaError_t launch_dkv(const BwdParams& p, int bh_kv, cudaStream_t stream) {
   using C = Cfg<T, HD>;
-  auto kern = flash_bwd_dkv_kernel<T, HD>;
-  const size_t smem = Smem<T, HD, C::BKV5, C::BQD, 2, 2>::bytes;
+  auto kern = flash_bwd_dkv_kernel<T, HD, DP>;
+  const size_t smem = Smem<T, HD, C::BKV5, C::BQD, 2, 2, DP ? 1 : 0>::bytes;
   cudaError_t err = set_smem(kern, smem);
   if (err != cudaSuccess) return err;
-  dim3 grid((n_kv + C::BKV5 - 1) / C::BKV5, bh_kv);
-  kern<<<grid, C::BKV5 * 2, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const T*>(dout), lse2, delta, static_cast<T*>(dk),
-      static_cast<T*>(dv), n_q, n_kv, hq, hkv, causal, offset);
+  dim3 grid((p.s.n_kv + C::BKV5 - 1) / C::BKV5, bh_kv);
+  kern<<<grid, C::BKV5 * 2, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -428,25 +548,6 @@ constexpr int SM_SMEM = 233472;     // shared memory of an SM (228 KB)
 // measured faster at d 64 and slower at d 128 (PERF.md §6).
 template <int HD> constexpr int CONSUMERS = HD == 64 ? 2 : 1;
 
-struct BwdSched {
-  int n_q, n_kv, causal, offset;
-};
-
-struct BwdParams {
-  bf16* dq;  // (bh, n_q, HD)
-  bf16* dk;  // (bh_kv, n_kv, HD)
-  bf16* dv;
-  const float* lse2;   // (bh, n_q)
-  const float* delta;  // (bh, n_q)
-  BwdSched s;
-  int hq, hkv;
-};
-
-// key kpos visible to query qpos (and both inside their sequences)
-__device__ __forceinline__ bool seen(const BwdSched& s, int qpos, int kpos) {
-  return qpos < s.n_q && kpos < s.n_kv && (!s.causal || kpos <= qpos + s.offset);
-}
-
 // Shared memory of a CTA of NC consumers: RESIDENT bytes loaded once, as
 // many ring stages of STAGE bytes as fit (up to 3), a barrier for the
 // resident tiles and two a stage, 1024 bytes of alignment slack. One
@@ -456,37 +557,48 @@ struct Plan {
   static constexpr int MINB = NC == 1 ? 2 : 1;
   static constexpr int BUDGET = MINB == 2 ? SM_SMEM / 2 - 1024 : SMEM_LIMIT;
   static constexpr int bytes(int st) { return 1024 + RESIDENT + st * STAGE + (2 * st + 1) * 8; }
-  static constexpr int ST = bytes(3) <= BUDGET ? 3 : 2;
+  static constexpr int ST = bytes(3) <= BUDGET ? 3 : bytes(2) <= BUDGET ? 2 : 1;
   static constexpr int SMEM = bytes(ST);
   static_assert(SMEM <= BUDGET, "above the shared memory a block may use");
   static_assert(RESIDENT % 1024 == 0 && STAGE % 1024 == 0,
                 "swizzled tiles need 1024-byte bases");
 };
 
-// B4: 64 q rows of Q and dO resident; a stage holds a K and a V tile.
-template <int HD, int NC> struct DqCfg {
+// B4: 64 q rows of Q and dO (dÔ under dp) resident; a stage holds a K and
+// a V (V̂) tile.
+template <int HD, int NC, bool DP> struct DqCfg {
   static_assert(NC == 1 || NC == 2, "partial sums meet pairwise");
+  static_assert(!DP || (NC == 1 && HD == 128), "dp runs at width 128");
   static constexpr int BQ = 64, BKV = 64;
   static constexpr int QBYTES = BQ * HD * 2;
-  static constexpr int TILE = BKV * HD * 2;
-  using P = Plan<NC, 2 * QBYTES, 2 * TILE>;
-  static_assert(NC == 1 || P::ST * 2 * TILE >= 128 * HD / 2 * 4, "the partial sums outgrow the ring");
+  static constexpr int DOBYTES = BQ * HD * (DP ? 1 : 2);
+  static constexpr int KTILE = BKV * HD * 2;
+  static constexpr int VTILE = BKV * HD * (DP ? 1 : 2);
+  using P = Plan<NC, QBYTES + DOBYTES, KTILE + VTILE>;
+  static_assert(NC == 1 || P::ST * (KTILE + VTILE) >= 128 * HD / 2 * 4,
+                "the partial sums outgrow the ring");
   // registers a thread after setmaxnreg: 128·(PRODUCER + NC·CONSUMER)
   // within the launch's 65536 / MINB
   static constexpr int PRODUCER = 40, CONSUMER = NC == 1 ? 216 : 232;
 };
 
-// B5: 64 kv rows of K and V resident; a stage holds a Q and a dO tile and
-// the lse2 and Δ of their BQ rows (2·BQ floats in a 1024-byte slot).
-template <int HD, int NC> struct DkvCfg {
+// B5: 64 kv rows of K and V (V̂ under dp) resident; a stage holds a Q and a
+// dO tile (and under dp a qs and a dÔ tile) and the lse2 and Δ of their BQ
+// rows (2·BQ floats in a 1024-byte slot).
+template <int HD, int NC, bool DP> struct DkvCfg {
   static_assert(NC == 1 || NC == 2, "partial sums meet pairwise");
+  static_assert(!DP || (NC == 1 && HD == 128), "dp runs at width 128");
   static constexpr int BKV = 64, BQ = 64;
-  static constexpr int KVBYTES = BKV * HD * 2;
+  static constexpr int KBYTES = BKV * HD * 2;
+  static constexpr int VBYTES = BKV * HD * (DP ? 1 : 2);
   static constexpr int TILE = BQ * HD * 2;
+  static constexpr int TILE8 = BQ * HD;
   static constexpr int ROWS = 1024;
   static_assert(2 * BQ * 4 <= ROWS, "lse2 and Δ outgrow their slot");
-  static constexpr int STAGE = 2 * TILE + ROWS;
-  using P = Plan<NC, 2 * KVBYTES, STAGE>;
+  static constexpr int QS_OFF = 2 * TILE, DO8_OFF = 3 * TILE;  // dp only
+  static constexpr int TX = DP ? 3 * TILE + TILE8 : 2 * TILE;  // TMA bytes a stage
+  static constexpr int STAGE = TX + ROWS;
+  using P = Plan<NC, KBYTES + VBYTES, STAGE>;
   static_assert(NC == 1 || P::ST * STAGE >= 128 * HD * 4, "the partial sums outgrow the ring");
   // as DqCfg; dK + dV + Sᵀ + dPᵀ take 192 registers at d 128
   static constexpr int PRODUCER = 24, CONSUMER = NC == 1 ? 232 : 240;
@@ -516,6 +628,17 @@ __device__ __forceinline__ void ss_gemm(float (&acc)[N / 2], uint32_t a_addr, ui
   }
 }
 
+// the same on int8 tiles of HD columns (128-column panels), s32 sums
+template <int N, int HD>
+__device__ __forceinline__ void ss_gemm_s8(int (&acc)[N / 2], uint32_t a_addr, uint32_t b_addr) {
+#pragma unroll
+  for (int kk = 0; kk < HD / 32; ++kk) {
+    const int colb = 32 * kk;
+    wgmma_s8_s8<N>(acc, desc<128>(a_addr + (colb / 128) * 64 * 128 + colb % 128),
+                   desc<128>(b_addr + (colb / 128) * N * 128 + colb % 128), kk);
+  }
+}
+
 // acc (64 × HD) += A · B: A (64 × K) as bf16 register fragments, B the
 // K-row tile at b_addr read MN-major (its rows run along K)
 template <int K, int HD>
@@ -536,6 +659,34 @@ __device__ __forceinline__ void to_frags(const float (&x)[N / 2], uint32_t (&a)[
     for (int e = 0; e < 4; ++e) a[kk][e] = pack_bf16(x[8 * kk + 2 * e], x[8 * kk + 2 * e + 1]);
 }
 
+// S and dP of one step: S = A·Bᵀ in bf16, dP = C·Dᵀ in bf16 or, under dp,
+// on the int8 tiles (s32 sums, converted); one commit group
+template <int N, int HD, bool DP>
+__device__ __forceinline__ void score_products(float (&sc)[N / 2], float (&dp)[N / 2],
+                                               uint32_t a, uint32_t b, uint32_t c,
+                                               uint32_t d) {
+  if constexpr (DP) {
+    int dpi[N / 2];
+    wgmma_fence();
+    ss_gemm<N, HD>(sc, a, b);
+    ss_gemm_s8<N, HD>(dpi, c, d);
+    wgmma_commit();
+    wgmma_wait0();
+    reg_fence(sc);
+    reg_fence(dpi);
+#pragma unroll
+    for (int e = 0; e < N / 2; ++e) dp[e] = (float)dpi[e];
+  } else {
+    wgmma_fence();
+    ss_gemm<N, HD>(sc, a, b);
+    ss_gemm<N, HD>(dp, c, d);
+    wgmma_commit();
+    wgmma_wait0();
+    reg_fence(sc);
+    reg_fence(dp);
+  }
+}
+
 // Two consumers' partial sums meet in the drained ring: consumer 1 puts
 // its accumulators into shared memory, consumer 0 adds them to its own.
 __device__ __forceinline__ void consumers_sync() {
@@ -552,13 +703,16 @@ __device__ __forceinline__ void add_part(float (&a)[N], const float* at) {
   for (int e = 0; e < N; ++e) a[e] += at[e * 128];
 }
 
-// rows ra, rb of a 64 × HD accumulator, times scale, into bf16 rows of out
+// rows ra, rb of a 64 × HD accumulator, times their scales, into bf16 rows
+// of out
 template <int HD>
 __device__ __forceinline__ void store_rows(bf16* out, const float (&acc)[HD / 2], int t4,
-                                           long row_a, long row_b, float scale) {
+                                           long row_a, long row_b, float scale_a,
+                                           float scale_b) {
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
     const long row = half ? row_b : row_a;
+    const float scale = half ? scale_b : scale_a;
     if (row < 0) continue;
 #pragma unroll
     for (int j = 0; j < HD / 8; ++j)
@@ -567,38 +721,39 @@ __device__ __forceinline__ void store_rows(bf16* out, const float (&acc)[HD / 2]
   }
 }
 
+// The tensor maps of both kernels: q, dO and qs over (bh, n_q, HD) bf16,
+// k and v over (bh_kv, n_kv, HD), and under dp dÔ over (bh, n_q) and v (V̂)
+// over (bh_kv, n_kv) rows of HD int8.
+struct Maps {
+  CUtensorMap q, dout, k, v, qs, do8;
+};
+
 // B4: dQ of one (64-row q tile, bh row).
-template <int HD, int NC>
-__global__ void __launch_bounds__(128 * (NC + 1), DqCfg<HD, NC>::P::MINB)
-    flash_bwd_dq_tc(const __grid_constant__ CUtensorMap tmap_q,
-                    const __grid_constant__ CUtensorMap tmap_do,
-                    const __grid_constant__ CUtensorMap tmap_k,
-                    const __grid_constant__ CUtensorMap tmap_v, const BwdParams p) {
-  using C = DqCfg<HD, NC>;
+template <int HD, int NC, bool DP>
+__global__ void __launch_bounds__(128 * (NC + 1), DqCfg<HD, NC, DP>::P::MINB)
+    flash_bwd_dq_tc(const __grid_constant__ Maps m, const BwdParams p) {
+  using C = DqCfg<HD, NC, DP>;
   constexpr int BQ = C::BQ, BKV = C::BKV, ST = C::P::ST, PANELS = HD / 64;
+  constexpr int STAGE = C::KTILE + C::VTILE;
   extern __shared__ unsigned char smem_raw[];
   uint8_t* smem = align1024(smem_raw);
   uint8_t* qs = smem;                      // 64 rows of Q, PANELS panels
-  uint8_t* dos = smem + C::QBYTES;         // the same rows of dO
-  uint8_t* stages = smem + 2 * C::QBYTES;  // ST × (K, V)
-  uint64_t* q_bar = reinterpret_cast<uint64_t*>(stages + ST * 2 * C::TILE);
+  uint8_t* dos = smem + C::QBYTES;         // the same rows of dO (dÔ)
+  uint8_t* stages = dos + C::DOBYTES;      // ST × (K, V)
+  uint64_t* q_bar = reinterpret_cast<uint64_t*>(stages + ST * STAGE);
   uint64_t* full_bar = q_bar + 1;
   uint64_t* empty_bar = full_bar + ST;
 
-  const BwdSched s = p.s;
+  const Sched s = p.s;
   const int n_tiles = (s.n_q + BQ - 1) / BQ;
   // the heaviest causal q tiles first
-  const int qt = s.causal ? n_tiles - 1 - (int)blockIdx.y : (int)blockIdx.y;
+  const int qt = s.kind == CAUSAL ? n_tiles - 1 - (int)blockIdx.y : (int)blockIdx.y;
   const int b = blockIdx.x;
-  const int q0 = qt * BQ;
+  const int q0 = qt * BQ, q_last = min(q0 + BQ - 1, s.n_q - 1);
   const int kv_row = (b / p.hq) * p.hkv + (b % p.hq) / (p.hq / p.hkv);
-  // kv tiles: all, or up to the last key the tile's last query sees
-  // (CausalSchedule._last_step, right-aligned)
-  int steps = (s.n_kv + BKV - 1) / BKV;
-  if (s.causal) {
-    const int last_k = min(q0 + BQ - 1, s.n_q - 1) + s.offset;
-    steps = last_k < 0 ? 0 : min(steps, last_k / BKV + 1);
-  }
+  int first, last;
+  kv_range(s, q0, q_last, BKV, first, last);
+  const int steps = max(0, last - first + 1);
 
   if (threadIdx.x == 0) {
     mbar_init(q_bar, 1);
@@ -616,21 +771,26 @@ __global__ void __launch_bounds__(128 * (NC + 1), DqCfg<HD, NC>::P::MINB)
     // ---------------- producer: one TMA thread ----------------
     reg_dealloc<C::PRODUCER>();
     if (wtid == 0) {
-      mbar_expect_tx(q_bar, 2 * C::QBYTES);
-      for (int pn = 0; pn < PANELS; ++pn) {
-        tma_load_3d(qs + pn * 64 * 128, &tmap_q, pn * 128, q0, b, q_bar);
-        tma_load_3d(dos + pn * 64 * 128, &tmap_do, pn * 128, q0, b, q_bar);
-      }
+      mbar_expect_tx(q_bar, C::QBYTES + C::DOBYTES);
+      for (int pn = 0; pn < PANELS; ++pn)
+        tma_load_3d(qs + pn * 64 * 128, &m.q, pn * 128, q0, b, q_bar);
+      if constexpr (DP)
+        for (int pn = 0; pn < HD / 128; ++pn)
+          tma_load_3d(dos + pn * 64 * 128, &m.do8, pn * 128, q0, b, q_bar);
+      else
+        for (int pn = 0; pn < PANELS; ++pn)
+          tma_load_3d(dos + pn * 64 * 128, &m.dout, pn * 128, q0, b, q_bar);
       for (int t = 0; t < steps; ++t) {
         const int i = t % ST, ph = (t / ST) & 1;
+        const int k0 = (first + t) * BKV;
         mbar_wait(&empty_bar[i], ph ^ 1);
-        uint8_t* st = stages + i * 2 * C::TILE;
-        mbar_expect_tx(&full_bar[i], 2 * C::TILE);
-        for (int pn = 0; pn < PANELS; ++pn) {
-          tma_load_3d(st + pn * BKV * 128, &tmap_k, pn * 128, t * BKV, kv_row, &full_bar[i]);
-          tma_load_3d(st + C::TILE + pn * BKV * 128, &tmap_v, pn * 128, t * BKV, kv_row,
+        uint8_t* st = stages + i * STAGE;
+        mbar_expect_tx(&full_bar[i], STAGE);
+        for (int pn = 0; pn < PANELS; ++pn)
+          tma_load_3d(st + pn * BKV * 128, &m.k, pn * 128, k0, kv_row, &full_bar[i]);
+        for (int pn = 0; pn < C::VTILE / (BKV * 128); ++pn)
+          tma_load_3d(st + C::KTILE + pn * BKV * 128, &m.v, pn * 128, k0, kv_row,
                       &full_bar[i]);
-        }
       }
     }
   } else {
@@ -644,6 +804,10 @@ __global__ void __launch_bounds__(128 * (NC + 1), DqCfg<HD, NC>::P::MINB)
     const float lse_b = qb < s.n_q ? p.lse2[base + qb] : 0.0f;
     const float dl_a = qa < s.n_q ? p.delta[base + qa] : 0.0f;
     const float dl_b = qb < s.n_q ? p.delta[base + qb] : 0.0f;
+    // the keys each of the two rows sees (empty past n_q)
+    int lo_a, hi_a, lo_b, hi_b;
+    key_span(s, qa, lo_a, hi_a);
+    key_span(s, qb, lo_b, hi_b);
     float dq[HD / 2];
 #pragma unroll
     for (int i = 0; i < HD / 2; ++i) dq[i] = 0.0f;
@@ -652,28 +816,25 @@ __global__ void __launch_bounds__(128 * (NC + 1), DqCfg<HD, NC>::P::MINB)
 
     for (int t = wg; t < steps; t += NC) {
       const int i = t % ST, ph = (t / ST) & 1;
-      const int k0 = t * BKV;
-      uint8_t* st = stages + i * 2 * C::TILE;
-      const uint32_t k_addr = smem_u32(st), v_addr = smem_u32(st + C::TILE);
+      const int k0 = (first + t) * BKV;
+      uint8_t* st = stages + i * STAGE;
+      const uint32_t k_addr = smem_u32(st), v_addr = smem_u32(st + C::KTILE);
       mbar_wait(&full_bar[i], ph);
-      // S = Q·Kᵀ and dP = dO·Vᵀ, operands in shared memory
+      // S = Q·Kᵀ and dP = dO·Vᵀ (dÔ·V̂ᵀ), operands in shared memory
       float sc[BKV / 2], dp[BKV / 2];
-      wgmma_fence();
-      ss_gemm<BKV, HD>(sc, q_addr, k_addr);
-      ss_gemm<BKV, HD>(dp, do_addr, v_addr);
-      wgmma_commit();
-      wgmma_wait0();
-      reg_fence(sc);
-      reg_fence(dp);
-      // p and ds in registers; the mask only where a key is hidden
-      const bool full = k0 + BKV - 1 < s.n_kv && (!s.causal || k0 + BKV - 1 <= q0 + s.offset);
+      score_products<BKV, HD, DP>(sc, dp, q_addr, k_addr, do_addr, v_addr);
+      // p and ds in registers; the mask only on a tile not wholly visible
 #pragma unroll
-      for (int e = 0; e < BKV / 2; ++e) {
-        const bool hi = e & 2;
-        float pr = fast_exp2(sc[e] - (hi ? lse_b : lse_a));
-        if (!full && !seen(s, hi ? qb : qa, k0 + 8 * (e / 4) + 2 * t4 + (e & 1))) pr = 0.0f;
-        sc[e] = pr * (dp[e] - (hi ? dl_b : dl_a));
+      for (int e = 0; e < BKV / 2; ++e) sc[e] = fast_exp2(sc[e] - ((e & 2) ? lse_b : lse_a));
+      if (!tile_full(s, k0, k0 + BKV - 1, q0, q_last)) {
+#pragma unroll
+        for (int e = 0; e < BKV / 2; ++e) {
+          const int kpos = k0 + 8 * (e / 4) + 2 * t4 + (e & 1);
+          if ((e & 2) ? (kpos < lo_b || kpos > hi_b) : (kpos < lo_a || kpos > hi_a)) sc[e] = 0.0f;
+        }
       }
+#pragma unroll
+      for (int e = 0; e < BKV / 2; ++e) sc[e] *= dp[e] - ((e & 2) ? dl_b : dl_a);
       // dQ += dS·K: dS (bf16) as the register A operand, K read MN-major
       uint32_t ds[BKV / 16][4];
       to_frags<BKV>(sc, ds);
@@ -697,40 +858,40 @@ __global__ void __launch_bounds__(128 * (NC + 1), DqCfg<HD, NC>::P::MINB)
       if (wg == 1) return;
       add_part(dq, part);
     }
-    store_rows<HD>(p.dq, dq, t4, qa < s.n_q ? (long)(base + qa) : -1,
-                   qb < s.n_q ? (long)(base + qb) : -1, LN2);
+    // dp: the rows carry σdo (ds = σdo·ds_raw), one multiply here
+    const float sc_a = DP && qa < s.n_q ? p.sdo[base + qa] * LN2 : LN2;
+    const float sc_b = DP && qb < s.n_q ? p.sdo[base + qb] * LN2 : LN2;
+    store_rows<HD>(static_cast<bf16*>(p.dq), dq, t4, qa < s.n_q ? (long)(base + qa) : -1,
+                   qb < s.n_q ? (long)(base + qb) : -1, sc_a, sc_b);
   }
 }
 
 // B5: dK and dV of one (64-row kv tile, bh_kv row), summed over the g
 // query heads of its group.
-template <int HD, int NC>
-__global__ void __launch_bounds__(128 * (NC + 1), DkvCfg<HD, NC>::P::MINB)
-    flash_bwd_dkv_tc(const __grid_constant__ CUtensorMap tmap_q,
-                     const __grid_constant__ CUtensorMap tmap_do,
-                     const __grid_constant__ CUtensorMap tmap_k,
-                     const __grid_constant__ CUtensorMap tmap_v, const BwdParams p) {
-  using C = DkvCfg<HD, NC>;
+template <int HD, int NC, bool DP>
+__global__ void __launch_bounds__(128 * (NC + 1), DkvCfg<HD, NC, DP>::P::MINB)
+    flash_bwd_dkv_tc(const __grid_constant__ Maps m, const BwdParams p) {
+  using C = DkvCfg<HD, NC, DP>;
   constexpr int BQ = C::BQ, BKV = C::BKV, ST = C::P::ST, PANELS = HD / 64;
   extern __shared__ unsigned char smem_raw[];
   uint8_t* smem = align1024(smem_raw);
-  uint8_t* ks = smem;                       // 64 rows of K, PANELS panels
-  uint8_t* vs = smem + C::KVBYTES;          // the same rows of V
-  uint8_t* stages = smem + 2 * C::KVBYTES;  // ST × (Q, dO, lse2 and Δ)
+  uint8_t* ks = smem;                      // 64 rows of K, PANELS panels
+  uint8_t* vs = smem + C::KBYTES;          // the same rows of V (V̂)
+  uint8_t* stages = vs + C::VBYTES;        // ST × (Q, dO[, qs, dÔ], lse2 and Δ)
   uint64_t* kv_bar = reinterpret_cast<uint64_t*>(stages + ST * C::STAGE);
   uint64_t* full_bar = kv_bar + 1;
   uint64_t* empty_bar = full_bar + ST;
 
-  const BwdSched s = p.s;
+  const Sched s = p.s;
   const int kv_row = blockIdx.x;
-  const int k0 = blockIdx.y * BKV;  // small k0, the most q tiles, first
+  const int k0 = blockIdx.y * BKV, k_hi = min(k0 + BKV - 1, s.n_kv - 1);
   const int g = p.hq / p.hkv;
   const int q_row0 = (kv_row / p.hkv) * p.hq + (kv_row % p.hkv) * g;
-  // q tiles that see a key of this tile: from the one holding query
-  // k0 − offset on (CausalSchedule._first_q_block), or all of them
-  const int q_tiles = (s.n_q + BQ - 1) / BQ;
-  const int first = s.causal && k0 - s.offset > 0 ? (k0 - s.offset) / BQ : 0;
-  const int per_head = max(0, q_tiles - first);
+  // the q tiles that see a key of this tile (the transposed visit); the
+  // producer and the consumers walk the same range
+  int first, last;
+  q_range(s, k0, k_hi, BQ, first, last);
+  const int per_head = max(0, last - first + 1);
   const int steps = g * per_head;
 
   if (threadIdx.x == 0) {
@@ -750,11 +911,11 @@ __global__ void __launch_bounds__(128 * (NC + 1), DkvCfg<HD, NC>::P::MINB)
     reg_dealloc<C::PRODUCER>();
     if (warp == 0) {
       if (lane == 0) {
-        mbar_expect_tx(kv_bar, 2 * C::KVBYTES);
-        for (int pn = 0; pn < PANELS; ++pn) {
-          tma_load_3d(ks + pn * 64 * 128, &tmap_k, pn * 128, k0, kv_row, kv_bar);
-          tma_load_3d(vs + pn * 64 * 128, &tmap_v, pn * 128, k0, kv_row, kv_bar);
-        }
+        mbar_expect_tx(kv_bar, C::KBYTES + C::VBYTES);
+        for (int pn = 0; pn < PANELS; ++pn)
+          tma_load_3d(ks + pn * 64 * 128, &m.k, pn * 128, k0, kv_row, kv_bar);
+        for (int pn = 0; pn < C::VBYTES / (BKV * 128); ++pn)
+          tma_load_3d(vs + pn * 64 * 128, &m.v, pn * 128, k0, kv_row, kv_bar);
       }
       for (int t = 0; t < steps; ++t) {
         const int i = t % ST, ph = (t / ST) & 1;
@@ -762,13 +923,20 @@ __global__ void __launch_bounds__(128 * (NC + 1), DkvCfg<HD, NC>::P::MINB)
         uint8_t* st = stages + i * C::STAGE;
         mbar_wait(&empty_bar[i], ph ^ 1);
         if (lane == 0) {
-          mbar_expect_tx(&full_bar[i], 2 * C::TILE);
+          mbar_expect_tx(&full_bar[i], C::TX);
           for (int pn = 0; pn < PANELS; ++pn) {
-            tma_load_3d(st + pn * BQ * 128, &tmap_q, pn * 128, q0, bq, &full_bar[i]);
-            tma_load_3d(st + C::TILE + pn * BQ * 128, &tmap_do, pn * 128, q0, bq, &full_bar[i]);
+            tma_load_3d(st + pn * BQ * 128, &m.q, pn * 128, q0, bq, &full_bar[i]);
+            tma_load_3d(st + C::TILE + pn * BQ * 128, &m.dout, pn * 128, q0, bq, &full_bar[i]);
+            if constexpr (DP)
+              tma_load_3d(st + C::QS_OFF + pn * BQ * 128, &m.qs, pn * 128, q0, bq,
+                          &full_bar[i]);
           }
+          if constexpr (DP)
+            for (int pn = 0; pn < HD / 128; ++pn)
+              tma_load_3d(st + C::DO8_OFF + pn * BQ * 128, &m.do8, pn * 128, q0, bq,
+                          &full_bar[i]);
         }
-        float* rows = reinterpret_cast<float*>(st + 2 * C::TILE);
+        float* rows = reinterpret_cast<float*>(st + C::TX);
         const size_t base = (size_t)bq * s.n_q + q0;
         for (int r = lane; r < BQ; r += 32) {
           const bool in = q0 + r < s.n_q;
@@ -784,6 +952,10 @@ __global__ void __launch_bounds__(128 * (NC + 1), DkvCfg<HD, NC>::P::MINB)
     // this thread's two accumulator rows
     const int ra = warp * 16 + lane / 4, rb = ra + 8, t4 = lane % 4;
     const int ka = k0 + ra, kb = k0 + rb;
+    // the queries that see each of the two rows (empty past n_kv)
+    int lo_a, hi_a, lo_b, hi_b;
+    query_span(s, ka, lo_a, hi_a);
+    query_span(s, kb, lo_b, hi_b);
     float dk[HD / 2], dv[HD / 2];
 #pragma unroll
     for (int i = 0; i < HD / 2; ++i) {
@@ -795,53 +967,50 @@ __global__ void __launch_bounds__(128 * (NC + 1), DkvCfg<HD, NC>::P::MINB)
 
     for (int t = wg; t < steps; t += NC) {
       const int i = t % ST, ph = (t / ST) & 1;
-      const int q0 = (first + t % per_head) * BQ, q_hi = min(q0 + BQ - 1, s.n_q - 1);
+      const int q0 = (first + t % per_head) * BQ;
       uint8_t* st = stages + i * C::STAGE;
       mbar_wait(&full_bar[i], ph);
-      // some query of the tile sees some key of the tile
-      if (!s.causal || k0 <= q_hi + s.offset) {
-        const uint32_t q_addr = smem_u32(st), do_addr = smem_u32(st + C::TILE);
-        const float* rows = reinterpret_cast<const float*>(st + 2 * C::TILE);
-        // Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ, operands in shared memory
-        float sc[BQ / 2], dp[BQ / 2];
-        wgmma_fence();
-        ss_gemm<BQ, HD>(sc, k_addr, q_addr);
-        ss_gemm<BQ, HD>(dp, v_addr, do_addr);
-        wgmma_commit();
-        wgmma_wait0();
-        reg_fence(sc);
-        reg_fence(dp);
-        // pᵀ and dsᵀ in registers, each column's lse2 and Δ from the stage
-        const bool full = q0 + BQ - 1 < s.n_q && k0 + BKV - 1 < s.n_kv &&
-                          (!s.causal || k0 + BKV - 1 <= q0 + s.offset);
+      const uint32_t q_addr = smem_u32(st), do_addr = smem_u32(st + C::TILE);
+      const float* rows = reinterpret_cast<const float*>(st + C::TX);
+      // Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ (V̂·dÔᵀ), operands in shared memory
+      float sc[BQ / 2], dp[BQ / 2];
+      score_products<BQ, HD, DP>(sc, dp, k_addr, q_addr, v_addr,
+                                 DP ? smem_u32(st + C::DO8_OFF) : do_addr);
+      // pᵀ and dsᵀ in registers, each column's lse2 and Δ from the stage;
+      // the mask only on a tile not wholly visible
 #pragma unroll
-        for (int j = 0; j < BQ / 8; ++j) {
-          const float2 l = *reinterpret_cast<const float2*>(rows + 8 * j + 2 * t4);
-          const float2 dl = *reinterpret_cast<const float2*>(rows + BQ + 8 * j + 2 * t4);
+      for (int j = 0; j < BQ / 8; ++j) {
+        const float2 l = *reinterpret_cast<const float2*>(rows + 8 * j + 2 * t4);
 #pragma unroll
-          for (int c = 0; c < 4; ++c) {
-            const int e = 4 * j + c;
-            float pr = fast_exp2(sc[e] - ((c & 1) ? l.y : l.x));
-            if (!full && !seen(s, q0 + 8 * j + 2 * t4 + (c & 1), (c & 2) ? kb : ka)) pr = 0.0f;
-            sc[e] = pr;
-            dp[e] = pr * (dp[e] - ((c & 1) ? dl.y : dl.x));
-          }
-        }
-        // dV += Pᵀ·dO and dK += dSᵀ·Q: register A operands, dO and Q read
-        // MN-major
-        uint32_t pa[BQ / 16][4], da[BQ / 16][4];
-        to_frags<BQ>(sc, pa);
-        to_frags<BQ>(dp, da);
-        reg_fence(dv);
-        reg_fence(dk);
-        wgmma_fence();
-        rs_gemm<BQ, HD>(dv, pa, do_addr);
-        rs_gemm<BQ, HD>(dk, da, q_addr);
-        wgmma_commit();
-        wgmma_wait0();
-        reg_fence(dv);
-        reg_fence(dk);
+        for (int c = 0; c < 4; ++c) sc[4 * j + c] = fast_exp2(sc[4 * j + c] - ((c & 1) ? l.y : l.x));
       }
+      if (!(q0 + BQ - 1 < s.n_q && tile_full(s, k0, k0 + BKV - 1, q0, q0 + BQ - 1))) {
+#pragma unroll
+        for (int e = 0; e < BQ / 2; ++e) {
+          const int qpos = q0 + 8 * (e / 4) + 2 * t4 + (e & 1);
+          if ((e & 2) ? (qpos < lo_b || qpos > hi_b) : (qpos < lo_a || qpos > hi_a)) sc[e] = 0.0f;
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < BQ / 8; ++j) {
+        const float2 dl = *reinterpret_cast<const float2*>(rows + BQ + 8 * j + 2 * t4);
+#pragma unroll
+        for (int c = 0; c < 4; ++c) dp[4 * j + c] = sc[4 * j + c] * (dp[4 * j + c] - ((c & 1) ? dl.y : dl.x));
+      }
+      // dV += Pᵀ·dO and dK += dSᵀ·Q (qs under dp): register A operands,
+      // dO and Q read MN-major
+      uint32_t pa[BQ / 16][4], da[BQ / 16][4];
+      to_frags<BQ>(sc, pa);
+      to_frags<BQ>(dp, da);
+      reg_fence(dv);
+      reg_fence(dk);
+      wgmma_fence();
+      rs_gemm<BQ, HD>(dv, pa, do_addr);
+      rs_gemm<BQ, HD>(dk, da, DP ? smem_u32(st + C::QS_OFF) : q_addr);
+      wgmma_commit();
+      wgmma_wait0();
+      reg_fence(dv);
+      reg_fence(dk);
       __syncwarp();
       if (lane == 0) mbar_arrive(&empty_bar[i]);
     }
@@ -860,64 +1029,116 @@ __global__ void __launch_bounds__(128 * (NC + 1), DkvCfg<HD, NC>::P::MINB)
     }
     const long base = (long)kv_row * s.n_kv;
     const long row_a = ka < s.n_kv ? base + ka : -1, row_b = kb < s.n_kv ? base + kb : -1;
-    store_rows<HD>(p.dk, dk, t4, row_a, row_b, LN2);
-    store_rows<HD>(p.dv, dv, t4, row_a, row_b, 1.0f);
+    store_rows<HD>(static_cast<bf16*>(p.dk), dk, t4, row_a, row_b, LN2, LN2);
+    store_rows<HD>(static_cast<bf16*>(p.dv), dv, t4, row_a, row_b, 1.0f, 1.0f);
   }
 }
 
 template <typename Kern>
 cudaError_t launch_tc(Kern kern, dim3 grid, int threads, int smem, cudaStream_t stream,
-                      const CUtensorMap& mq, const CUtensorMap& mdo, const CUtensorMap& mk,
-                      const CUtensorMap& mv, const BwdParams& p) {
+                      const Maps& m, const BwdParams& p) {
   if (grid.y > 65535) return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  kern<<<grid, threads, smem, stream>>>(mq, mdo, mk, mv, p);
+  kern<<<grid, threads, smem, stream>>>(m, p);
   return cudaGetLastError();
 }
 
-// tensor maps of q and dO over (bh, n_q, HD) and of k and v over (bh_kv,
-// n_kv, HD), 64-row boxes; a map over an empty sequence is never read and
-// takes another's place
+// the maps of p's operands with 64-row boxes (128-byte panels); a map over
+// an empty sequence or of an operand the variant does not read is never
+// read and takes another's place
 template <int HD>
-bool make_maps(CUtensorMap* m, const void* q, const void* dout, const void* k, const void* v,
-               const BwdParams& p, int bh) {
+bool make_maps(Maps* m, const BwdParams& p, int bh) {
   const int bh_kv = bh / p.hq * p.hkv;
+  const bool dp = p.v8 != nullptr;
   bool ok = true;
-  if (p.s.n_q > 0)
-    ok = make_map<2 * HD, 64, 128>(&m[0], q, p.s.n_q, bh) &&
-         make_map<2 * HD, 64, 128>(&m[1], dout, p.s.n_q, bh);
-  if (ok && p.s.n_kv > 0)
-    ok = make_map<2 * HD, 64, 128>(&m[2], k, p.s.n_kv, bh_kv) &&
-         make_map<2 * HD, 64, 128>(&m[3], v, p.s.n_kv, bh_kv);
-  if (p.s.n_q == 0) m[0] = m[1] = m[2];
-  if (p.s.n_kv == 0) m[2] = m[3] = m[0];
+  if (p.s.n_q > 0) {
+    ok = make_map<2 * HD, 64, 128>(&m->q, p.q, p.s.n_q, bh);
+    m->dout = m->qs = m->do8 = m->q;
+    if (ok && p.dout != nullptr) ok = make_map<2 * HD, 64, 128>(&m->dout, p.dout, p.s.n_q, bh);
+    if (ok && p.qs != nullptr) ok = make_map<2 * HD, 64, 128>(&m->qs, p.qs, p.s.n_q, bh);
+    if (ok && dp) ok = make_map<HD, 64, 128>(&m->do8, p.do8, p.s.n_q, bh);
+  }
+  if (ok && p.s.n_kv > 0) {
+    ok = make_map<2 * HD, 64, 128>(&m->k, p.k, p.s.n_kv, bh_kv);
+    if (ok)
+      ok = dp ? make_map<HD, 64, 128>(&m->v, p.v8, p.s.n_kv, bh_kv)
+              : make_map<2 * HD, 64, 128>(&m->v, p.v, p.s.n_kv, bh_kv);
+  }
+  if (p.s.n_q == 0) m->q = m->dout = m->qs = m->do8 = m->k;
+  if (p.s.n_kv == 0) m->k = m->v = m->q;
   return ok;
 }
 
-template <int HD>
-cudaError_t launch_dq_tc(const void* q, const void* k, const void* v, const void* dout,
-                         const BwdParams& p, int bh, cudaStream_t stream) {
+template <int HD, bool DP>
+cudaError_t launch_dq_tc(const BwdParams& p, int bh, cudaStream_t stream) {
   constexpr int NC = CONSUMERS<HD>;
-  using C = DqCfg<HD, NC>;
-  CUtensorMap m[4];
-  if (!make_maps<HD>(m, q, dout, k, v, p, bh)) return cudaErrorInvalidValue;
+  using C = DqCfg<HD, NC, DP>;
+  Maps m;
+  if (!make_maps<HD>(&m, p, bh)) return cudaErrorInvalidValue;
   const dim3 grid(bh, (p.s.n_q + C::BQ - 1) / C::BQ);
-  return launch_tc(flash_bwd_dq_tc<HD, NC>, grid, 128 * (NC + 1), C::P::SMEM, stream, m[0], m[1],
-                   m[2], m[3], p);
+  return launch_tc(flash_bwd_dq_tc<HD, NC, DP>, grid, 128 * (NC + 1), C::P::SMEM, stream, m,
+                   p);
 }
 
-template <int HD>
-cudaError_t launch_dkv_tc(const void* q, const void* k, const void* v, const void* dout,
-                          const BwdParams& p, int bh_kv, cudaStream_t stream) {
+template <int HD, bool DP>
+cudaError_t launch_dkv_tc(const BwdParams& p, int bh_kv, cudaStream_t stream) {
   constexpr int NC = CONSUMERS<HD>;
-  using C = DkvCfg<HD, NC>;
-  CUtensorMap m[4];
-  if (!make_maps<HD>(m, q, dout, k, v, p, bh_kv / p.hkv * p.hq)) return cudaErrorInvalidValue;
+  using C = DkvCfg<HD, NC, DP>;
+  Maps m;
+  if (!make_maps<HD>(&m, p, bh_kv / p.hkv * p.hq)) return cudaErrorInvalidValue;
   const dim3 grid(bh_kv, (p.s.n_kv + C::BKV - 1) / C::BKV);
-  return launch_tc(flash_bwd_dkv_tc<HD, NC>, grid, 128 * (NC + 1), C::P::SMEM, stream, m[0],
-                   m[1], m[2], m[3], p);
+  return launch_tc(flash_bwd_dkv_tc<HD, NC, DP>, grid, 128 * (NC + 1), C::P::SMEM, stream, m,
+                   p);
 }
+
+// the schedule's arguments as B1 takes them (flash_fwd.cu:tf_flash_fwd)
+bool bad_sched(int hq, int hkv, int kind, int radius, int section) {
+  return hkv <= 0 || hq % hkv != 0 || kind < DENSE || kind > BLOCK || radius < 0 ||
+         (kind == BLOCK && section <= 0);
+}
+
+// one entry's dispatch over dtype (0 = float32, 1 = bfloat16), width and dp
+template <template <typename, int, bool> class Gen, template <int, bool> class Tc>
+cudaError_t dispatch(const BwdParams& p, int rows, int d, int dtype, bool dp,
+                     cudaStream_t stream) {
+  if (dtype == 1 && d == 128)
+    return dp ? Tc<128, true>::run(p, rows, stream) : Tc<128, false>::run(p, rows, stream);
+  if (dp && d == 64) return cudaErrorInvalidValue;  // the reference ignores dp there
+  if (dtype == 1 && d == 64) return Tc<64, false>::run(p, rows, stream);
+  if (dtype == 1 && d == 256)
+    return dp ? Gen<bf16, 256, true>::run(p, rows, stream)
+              : Gen<bf16, 256, false>::run(p, rows, stream);
+  if (dtype == 0 && d == 256)
+    return dp ? Gen<float, 256, true>::run(p, rows, stream)
+              : Gen<float, 256, false>::run(p, rows, stream);
+  if (dtype == 0 && d == 128)
+    return dp ? Gen<float, 128, true>::run(p, rows, stream)
+              : Gen<float, 128, false>::run(p, rows, stream);
+  if (dtype == 0 && d == 64) return Gen<float, 64, false>::run(p, rows, stream);
+  return cudaErrorInvalidValue;
+}
+
+template <typename T, int HD, bool DP> struct DqGen {
+  static cudaError_t run(const BwdParams& p, int bh, cudaStream_t s) {
+    return launch_dq<T, HD, DP>(p, bh, s);
+  }
+};
+template <int HD, bool DP> struct DqTc {
+  static cudaError_t run(const BwdParams& p, int bh, cudaStream_t s) {
+    return launch_dq_tc<HD, DP>(p, bh, s);
+  }
+};
+template <typename T, int HD, bool DP> struct DkvGen {
+  static cudaError_t run(const BwdParams& p, int bh_kv, cudaStream_t s) {
+    return launch_dkv<T, HD, DP>(p, bh_kv, s);
+  }
+};
+template <int HD, bool DP> struct DkvTc {
+  static cudaError_t run(const BwdParams& p, int bh_kv, cudaStream_t s) {
+    return launch_dkv_tc<HD, DP>(p, bh_kv, s);
+  }
+};
 
 }  // namespace
 
@@ -925,50 +1146,47 @@ cudaError_t launch_dkv_tc(const void* q, const void* k, const void* v, const voi
 // lse2 = clamped lse · log2(e) and delta: (bh, n_q) float32; dq like q.
 // All contiguous, 16-byte aligned, one dtype (0 = float32, 1 = bfloat16).
 // d ∈ {64, 128, 256} (the wrapper zero-pads other head and value dims).
-// bf16 at 64 and 128 takes the TMA + wgmma kernel, the rest the WMMA/FMA
-// one.
+// kind, offset, radius, section: the schedule (schedule.cuh; offset is the
+// causal kind's n_kv − n_q; circulant k/v are the halo-extended ones).
+// dp: v8 (V̂, like v, int8), do8 (dÔ, like dout, int8) and sdo (σdo, like
+// lse2) non-null, delta divided by σdo; v and dout are then not read; not
+// at d 64. bf16 at 64 and 128 takes the TMA + wgmma kernel, the rest the
+// WMMA/FMA one.
 extern "C" cudaError_t tf_flash_bwd_dq(const void* q, const void* k, const void* v,
                                        const void* dout, const float* lse2,
-                                       const float* delta, void* dq, int bh,
-                                       int n_q, int n_kv, int hq, int hkv, int d,
-                                       int causal, int offset, int dtype,
+                                       const float* delta, void* dq, const void* v8,
+                                       const void* do8, const float* sdo, int bh, int n_q,
+                                       int n_kv, int hq, int hkv, int d, int kind, int offset,
+                                       int radius, int section, int dtype,
                                        cudaStream_t stream) {
   if (bh <= 0 || n_q <= 0) return cudaSuccess;
-  if (hkv <= 0 || hq % hkv != 0 || bh % hq != 0 || n_kv < 0) return cudaErrorInvalidValue;
-  const BwdParams p{static_cast<bf16*>(dq), nullptr, nullptr, lse2, delta,
-                    BwdSched{n_q, n_kv, causal, offset}, hq, hkv};
-  if (dtype == 1 && d == 128) return launch_dq_tc<128>(q, k, v, dout, p, bh, stream);
-  if (dtype == 1 && d == 64) return launch_dq_tc<64>(q, k, v, dout, p, bh, stream);
-#define TF_DQ(T, HD) \
-  launch_dq<T, HD>(q, k, v, dout, lse2, delta, dq, bh, n_q, n_kv, hq, hkv, causal, offset, stream)
-  if (dtype == 1 && d == 256) return TF_DQ(__nv_bfloat16, 256);
-  if (dtype == 0 && d == 256) return TF_DQ(float, 256);
-  if (dtype == 0 && d == 128) return TF_DQ(float, 128);
-  if (dtype == 0 && d == 64) return TF_DQ(float, 64);
-#undef TF_DQ
-  return cudaErrorInvalidValue;
+  if (bad_sched(hq, hkv, kind, radius, section) || bh % hq != 0 || n_kv < 0)
+    return cudaErrorInvalidValue;
+  const bool dp = v8 != nullptr;
+  if (dp && (do8 == nullptr || sdo == nullptr)) return cudaErrorInvalidValue;
+  const BwdParams p{q,     k,     v,  dp ? nullptr : dout, v8,      do8,     nullptr,
+                    sdo,   lse2,  delta, dq, nullptr, nullptr,
+                    Sched{n_q, n_kv, kind, offset, radius, section}, hq, hkv};
+  return dispatch<DqGen, DqTc>(p, bh, d, dtype, dp, stream);
 }
 
-// The same operands; dk, dv: like k, v; bh_kv = batch · hkv.
+// The same operands; dk, dv: like k, v; bh_kv = batch · hkv. dp: v8, do8
+// and qs (q·σdo, like q) non-null, delta divided by σdo; v is then not
+// read, dout still is (dV takes the exact dO).
 extern "C" cudaError_t tf_flash_bwd_dkv(const void* q, const void* k, const void* v,
                                         const void* dout, const float* lse2,
-                                        const float* delta, void* dk, void* dv,
-                                        int bh_kv, int n_q, int n_kv, int hq,
-                                        int hkv, int d, int causal, int offset,
-                                        int dtype, cudaStream_t stream) {
+                                        const float* delta, void* dk, void* dv, const void* v8,
+                                        const void* do8, const void* qs, int bh_kv, int n_q,
+                                        int n_kv, int hq, int hkv, int d, int kind, int offset,
+                                        int radius, int section, int dtype,
+                                        cudaStream_t stream) {
   if (bh_kv <= 0 || n_kv <= 0) return cudaSuccess;
-  if (hkv <= 0 || hq % hkv != 0 || bh_kv % hkv != 0 || n_q < 0) return cudaErrorInvalidValue;
-  const BwdParams p{nullptr, static_cast<bf16*>(dk), static_cast<bf16*>(dv), lse2, delta,
-                    BwdSched{n_q, n_kv, causal, offset}, hq, hkv};
-  if (dtype == 1 && d == 128) return launch_dkv_tc<128>(q, k, v, dout, p, bh_kv, stream);
-  if (dtype == 1 && d == 64) return launch_dkv_tc<64>(q, k, v, dout, p, bh_kv, stream);
-#define TF_DKV(T, HD)                                                          \
-  launch_dkv<T, HD>(q, k, v, dout, lse2, delta, dk, dv, bh_kv, n_q, n_kv, hq, \
-                    hkv, causal, offset, stream)
-  if (dtype == 1 && d == 256) return TF_DKV(__nv_bfloat16, 256);
-  if (dtype == 0 && d == 256) return TF_DKV(float, 256);
-  if (dtype == 0 && d == 128) return TF_DKV(float, 128);
-  if (dtype == 0 && d == 64) return TF_DKV(float, 64);
-#undef TF_DKV
-  return cudaErrorInvalidValue;
+  if (bad_sched(hq, hkv, kind, radius, section) || bh_kv % hkv != 0 || n_q < 0)
+    return cudaErrorInvalidValue;
+  const bool dp = v8 != nullptr;
+  if (dp && (do8 == nullptr || qs == nullptr)) return cudaErrorInvalidValue;
+  const BwdParams p{q,     k,       v,  dout,  v8, do8, qs,
+                    nullptr, lse2, delta, nullptr, dk, dv,
+                    Sched{n_q, n_kv, kind, offset, radius, section}, hq, hkv};
+  return dispatch<DkvGen, DkvTc>(p, bh_kv, d, dtype, dp, stream);
 }

@@ -84,6 +84,7 @@
 #include <stdint.h>
 
 #include "hopper.cuh"
+#include "schedule.cuh"
 
 namespace {
 
@@ -95,68 +96,6 @@ constexpr float LN2 = 0.693147180559945309f;
 constexpr float BOUND_SLACK = 1.0001f;  // the reference's factor
 constexpr int SMEM_LIMIT = 232448;      // the 227 KB a block may use
 constexpr int SM_SMEM = 233472;         // shared memory of an SM (228 KB)
-enum Kind { DENSE = 0, CAUSAL = 1, LOCAL = 2, LOCAL_CAUSAL = 3, CIRCULANT = 4,
-            BLOCK = 5 };
-
-struct Sched {
-  int n_q, n_kv, kind, offset, radius, section;
-};
-
-// key kpos visible to query qpos under the schedule
-__device__ __forceinline__ bool visible(const Sched& s, int qpos, int kpos) {
-  if (kpos >= s.n_kv) return false;
-  if (s.kind == CAUSAL) return kpos <= qpos + s.offset;
-  if (s.kind == CIRCULANT) return kpos >= qpos && kpos - qpos <= 2 * s.radius;
-  if (s.kind == BLOCK) return kpos / s.section == qpos / s.section;
-  if (s.kind == LOCAL || s.kind == LOCAL_CAUSAL) {
-    const int dist = qpos - kpos;
-    if (dist > s.radius || -dist > s.radius) return false;
-    if (s.kind == LOCAL_CAUSAL) return kpos <= qpos;
-  }
-  return true;
-}
-
-// kv tiles [first, last] (of bkv rows) that q rows [q0, q_last] visit
-// (inclusive; last < first: none)
-__device__ __forceinline__ void kv_range(const Sched& s, int q0, int q_last, int bkv,
-                                         int& first, int& last) {
-  first = 0;
-  last = (s.n_kv + bkv - 1) / bkv - 1;
-  if (s.kind == CAUSAL) {
-    const int last_k = q_last + s.offset;
-    last = last_k < 0 ? -1 : min(last, last_k / bkv);
-  } else if (s.kind == LOCAL || s.kind == LOCAL_CAUSAL) {
-    first = max(0, q0 - s.radius) / bkv;
-    last = min(last, (q_last + s.radius) / bkv);
-    if (s.kind == LOCAL_CAUSAL) last = min(last, q_last / bkv);
-  } else if (s.kind == CIRCULANT) {
-    first = q0 / bkv;
-    last = min(last, (q_last + 2 * s.radius) / bkv);
-  } else if (s.kind == BLOCK) {
-    first = (q0 / s.section) * s.section / bkv;
-    last = min(last, ((q_last / s.section + 1) * s.section - 1) / bkv);
-  }
-}
-
-// kv rows [k0, k_hi] wholly visible to every query row of [q0, q_last]:
-// no per-element mask
-__device__ __forceinline__ bool tile_full(const Sched& s, int k0, int k_hi, int q0,
-                                          int q_last) {
-  bool full = k_hi < s.n_kv;
-  if (s.kind == CAUSAL) {
-    full = full && k_hi <= q0 + s.offset;
-  } else if (s.kind == LOCAL || s.kind == LOCAL_CAUSAL) {
-    full = full && k_hi - q0 <= s.radius && q_last - k0 <= s.radius;
-    if (s.kind == LOCAL_CAUSAL) full = full && k_hi <= q0;
-  } else if (s.kind == CIRCULANT) {
-    full = full && k0 >= q_last && k_hi - q0 <= 2 * s.radius;
-  } else if (s.kind == BLOCK) {
-    const int sec = q0 / s.section;
-    full = full && q_last / s.section == sec && k0 / s.section == sec &&
-           k_hi / s.section == sec;
-  }
-  return full;
-}
 
 // ------------------------------------------------------- bf16: TMA + wgmma
 

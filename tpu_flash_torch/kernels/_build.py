@@ -5,9 +5,9 @@ with a plain C interface, loaded through ``ctypes``: one ``nvcc -c`` per
 source, all started together, then one link. No source includes PyTorch's
 headers; the TMA + wgmma and bulk-copy kernels (B1, B2, B4/B5, B6/B7, B14)
 share ``csrc/hopper.cuh``.
-A cold build takes under a minute on the H100 machine, nearly all of it
-``quant_attention.cu`` (18 instantiations of its wgmma kernel), the other
-sources finishing within it. The library lands in
+A cold build takes about two minutes on an H100 machine, nearly all of it
+``paged_attention.cu`` (70 instantiations), the other sources finishing
+within it. The library lands in
 ``build/tpu_flash_torch/<key>/`` at the repository root, keyed by a hash of
 the flags, the sources and the headers (:func:`build_key`), and is built on
 first use — never at import. A failed build raises with nvcc's output.
@@ -52,12 +52,12 @@ _SIGNATURES = {
     # page_tables, b, kvh, d, page, total_pages, max_pages, in_dtype,
     # page_type, stream
     "tf_paged_append": [_vp] * 9 + [_i32] * 8 + [_vp],
-    # q, k, v, dout, lse2, delta, dq, bh_q, n_q, n_kv, hq, hkv, d, causal,
-    # offset, dtype, stream
-    "tf_flash_bwd_dq": [_vp] * 7 + [_i32] * 9 + [_vp],
-    # q, k, v, dout, lse2, delta, dk, dv, bh_kv, n_q, n_kv, hq, hkv, d,
-    # causal, offset, dtype, stream
-    "tf_flash_bwd_dkv": [_vp] * 8 + [_i32] * 9 + [_vp],
+    # q, k, v, dout, lse2, delta, dq, v8, do8, sdo, bh_q, n_q, n_kv, hq,
+    # hkv, d, kind, offset, radius, section, dtype, stream
+    "tf_flash_bwd_dq": [_vp] * 10 + [_i32] * 11 + [_vp],
+    # q, k, v, dout, lse2, delta, dk, dv, v8, do8, qs, bh_kv, n_q, n_kv, hq,
+    # hkv, d, kind, offset, radius, section, dtype, stream
+    "tf_flash_bwd_dkv": [_vp] * 11 + [_i32] * 11 + [_vp],
     # q, k, v, sk_token, sk_tensor, sv, gk, o, lse, q_out, qs_out, bh, n_q,
     # n_kv, hq, hkv, d, causal, offset, q_mode, q_f32, kv_dtype, pv_quant,
     # c, stream

@@ -12,8 +12,8 @@ SiLU run in float32 and cast back to ``x``'s dtype; logits are
 ``(x @ embed.T)`` in float32.
 
 Not ported yet: MoE (ROADMAP A9), LoRA (A9), int8 weights (A6), tensor
-parallelism (A13), ``decode_verify`` (A6), the sliding band's backward
-(A8), the MoE balance loss in ``loss_fn`` (A9).
+parallelism (A13), ``decode_verify`` (A6), the MoE balance loss in
+``loss_fn`` (A9).
 """
 
 from __future__ import annotations

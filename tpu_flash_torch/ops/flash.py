@@ -30,10 +30,10 @@ FMA kernel.
 :class:`_FlashAttention` makes the core differentiable, the counterpart of
 the reference's ``_fa`` custom VJP: its backward is
 ``ops/flash_bwd.py:flash_backward`` (B4 + B5 on the card for the dense and
-causal schedules; the band, circulant and block-diagonal backward is
-ROADMAP A8). The prescale of q and its cast, and the circulant halo, stay
-outside it, so autograd puts ``scale·log2(e)`` on dq and folds the halo's
-gradient back.
+every schedule of the forward, with the int8 dp product and ``split``
+through ``bwd_quant`` and ``bwd_split``). The prescale of q and its cast,
+and the circulant halo, stay outside it, so autograd puts ``scale·log2(e)``
+on dq and folds the halo's gradient back.
 """
 
 from __future__ import annotations
@@ -65,10 +65,7 @@ _LANES = 128
 
 # Options of the reference's flash_attention that are not ported yet, with
 # the ROADMAP item that adds them.
-_UNPORTED = {
-    "shift": "A13", "wrap_n": "A13", "shifted_causal": "A13",
-    "bwd_split": "A8", "bwd_quant": "A8",
-}
+_UNPORTED = {"shift": "A13", "wrap_n": "A13", "shifted_causal": "A13"}
 # the norm bound's slack over ‖q̃_i‖·max_j‖k_j‖ (the reference's factor)
 BOUND_SLACK = 1.0001
 # schedule kinds of csrc/flash_fwd.cu
@@ -300,15 +297,18 @@ class _FlashAttention(torch.autograd.Function):
     The forward keeps lse as the backward's residual even when the caller
     asked for none; ``need_lse`` only spares its write when no gradient is
     needed. An unused lse has no cotangent (no Δ term); an unused o gets a
-    zero one."""
+    zero one. ``bwd_split`` and ``bwd_quant`` go to the backward's
+    ``split`` and ``quant``, as the reference's ``_fa_bwd`` passes them."""
 
     @staticmethod
-    def forward(ctx, q, k, v, sched, hq, hkv, need_lse, bound_max):
+    def forward(ctx, q, k, v, sched, hq, hkv, need_lse, bound_max,
+                bwd_split=None, bwd_quant=None):
         ctx.set_materialize_grads(False)
         o, lse = _flash_fwd(q, k, v, sched, hq=hq, hkv=hkv, need_lse=need_lse,
                             bound_max=bound_max)
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.sched, ctx.hq, ctx.hkv = sched, hq, hkv
+        ctx.bwd_split, ctx.bwd_quant = bwd_split, bwd_quant
         return o, lse
 
     @staticmethod
@@ -318,17 +318,19 @@ class _FlashAttention(torch.autograd.Function):
         q, k, v, o, lse = ctx.saved_tensors
         do = torch.zeros_like(o) if do is None else _aligned(do)
         dq, dk, dv = flash_backward(q, k, v, o, lse, do, dlse, ctx.sched,
-                                    hq=ctx.hq, hkv=ctx.hkv)
-        return dq, dk, dv, None, None, None, None, None
+                                    hq=ctx.hq, hkv=ctx.hkv,
+                                    split=ctx.bwd_split, quant=ctx.bwd_quant)
+        return dq, dk, dv, None, None, None, None, None, None, None
 
 
 def _fa(q, k, v, sched: Schedule, hq: int, hkv: int, need_lse: bool,
-        bound_max: bool = False):
+        bound_max: bool = False, bwd_split=None, bwd_quant=None):
     """(o, lse) through :class:`_FlashAttention`; lse is materialised when
     asked for or when a gradient will need it."""
     need_lse = need_lse or (torch.is_grad_enabled() and any(
         t.requires_grad for t in (q, k, v)))
-    return _FlashAttention.apply(q, k, v, sched, hq, hkv, need_lse, bound_max)
+    return _FlashAttention.apply(q, k, v, sched, hq, hkv, need_lse, bound_max,
+                                 bwd_split, bwd_quant)
 
 
 def flash_attention(
@@ -347,6 +349,8 @@ def flash_attention(
     q_dtype=None,
     kv_dtype=None,
     kv_scale: str = "token",
+    bwd_split: Optional[int] = None,
+    bwd_quant: Optional[str] = None,
     **unported,
 ):
     """Schedule-parameterized fused attention on ``(batch, heads, n, d)``.
@@ -362,7 +366,11 @@ def flash_attention(
     ``quant/flash_q.py:quantized_flash_attention`` (kernel B7, or B6 at
     d ≤ 64) with ``kv_scale``, ``bound_max`` defaulting to True and
     ``block_kv`` capped at 2048; the quantized route has no backward, so
-    ``bwd_split``/``bwd_quant`` raise ``ValueError`` there.
+    ``bwd_split``/``bwd_quant`` raise ``ValueError`` there. Elsewhere they
+    reach the backward (``ops/flash_bwd.py:flash_backward``): ``bwd_quant=
+    "dp"`` takes its dp product on int8 operands (not at d, dv ≤ 64),
+    ``bwd_split`` is validated as the reference validates it and stages
+    nothing here.
     ``block_q``/``block_kv`` set the schedule's blocks as in the reference
     (its padded lengths and its tile-visit math); the CUDA kernel runs its
     own 64×64 tiles and masks ragged edges, so no sequence is padded. Any
@@ -378,12 +386,10 @@ def flash_attention(
     if q_dtype is not None or kv_dtype is not None:
         from tpu_flash_torch.quant.flash_q import quantized_flash_attention
 
-        if any(unported.get(n) is not None for n in ("bwd_split", "bwd_quant")):
+        if bwd_split is not None or bwd_quant is not None:
             raise ValueError(
                 "bwd_split/bwd_quant apply to the bf16 backward kernels only; "
                 "the quantized path has no backward")
-        unported = {n: x for n, x in unported.items()
-                    if n not in ("bwd_split", "bwd_quant")}
         return quantized_flash_attention(
             q, k, v, q_dtype=q_dtype,
             kv_dtype=kv_dtype if kv_dtype is not None else q_dtype,
@@ -423,7 +429,8 @@ def flash_attention(
     if schedule == "circulant" and radius > 0:
         kf = torch.cat([kf[:, -radius:], kf, kf[:, :radius]], dim=1)
         vf = torch.cat([vf[:, -radius:], vf, vf[:, :radius]], dim=1)
-    o, lse = _fa(qf, kf, vf, sched, h, hkv, return_lse, bool(bound_max))
+    o, lse = _fa(qf, kf, vf, sched, h, hkv, return_lse, bool(bound_max),
+                 bwd_split, bwd_quant)
     o = o.reshape(b, h, n_q, dv)
     if return_lse:
         return o, lse.reshape(b, h, n_q)

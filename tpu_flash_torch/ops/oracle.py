@@ -15,6 +15,7 @@ import math
 from typing import Optional
 
 import torch
+import torch.utils.checkpoint
 
 from tpu_flash_torch.utils.layout import (
     circulant_neighbors,
@@ -156,6 +157,11 @@ def blockwise_dpa(q, k, v, *, scale: Optional[float] = None,
     its ``q_start`` gives exactly those rows of the full result.
 
     Returns ``(o, lse)``: o in q's dtype, lse in natural-log units.
+
+    Under autograd each chunk's step runs under ``torch.utils.checkpoint``
+    (recomputed in the backward), so the backward also holds O(n·chunk)
+    and not every chunk's scores, as the reference's checkpointed scan does
+    (``tpu_flash/bench/sweep.py:376-379``).
     """
     if window_size is not None and block_size is not None:
         raise ValueError("window_size and block_size are mutually exclusive")
@@ -167,13 +173,13 @@ def blockwise_dpa(q, k, v, *, scale: Optional[float] = None,
         scale = 1.0 / math.sqrt(d)
     chunk = min(chunk, nk)
     q32 = q.float()
-    qi = q_start + torch.arange(n, device=q.device)[:, None]
     m = torch.full((b, h, n, 1), float("-inf"), device=q.device)
     l = torch.zeros(b, h, n, 1, device=q.device)
     acc = torch.zeros(b, h, n, v.shape[-1], device=q.device)
-    for c0 in range(0, nk, chunk):
-        kj, vj = k[:, :, c0:c0 + chunk].float(), v[:, :, c0:c0 + chunk].float()
-        s = torch.einsum("bhqd,bhkd->bhqk", q32, kj) * scale
+
+    def step(c0, q32, kj, vj, m, l, acc):
+        s = torch.einsum("bhqd,bhkd->bhqk", q32, kj.float()) * scale
+        qi = q_start + torch.arange(n, device=q.device)[:, None]
         j = c0 + torch.arange(kj.shape[-2], device=q.device)[None, :]
         if causal:
             s = torch.where(j <= qi, s, float("-inf"))
@@ -193,8 +199,16 @@ def blockwise_dpa(q, k, v, *, scale: Optional[float] = None,
         p = torch.exp(s - m_safe)
         alpha = torch.where(torch.isfinite(m), torch.exp(m - m_safe), 0.0)
         l = alpha * l + p.sum(dim=-1, keepdim=True)
-        acc = alpha * acc + torch.einsum("bhqk,bhkd->bhqd", p, vj)
-        m = m_new
+        acc = alpha * acc + torch.einsum("bhqk,bhkd->bhqd", p, vj.float())
+        return m_new, l, acc
+
+    grad = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (q, k, v))
+    for c0 in range(0, nk, chunk):
+        args = (c0, q32, k[:, :, c0:c0 + chunk], v[:, :, c0:c0 + chunk],
+                m, l, acc)
+        m, l, acc = (torch.utils.checkpoint.checkpoint(
+            step, *args, use_reentrant=False) if grad else step(*args))
     fin = torch.isfinite(m)
     o = torch.where(fin, acc / torch.clamp_min(l, 1e-30), 0.0).to(q.dtype)
     lse = torch.where(fin, m + torch.log(torch.clamp_min(l, 1e-30)),
