@@ -19,7 +19,13 @@ runs the quantized headline (bench.py's shape:
 batch 4, 8 heads, n 8192, d 128) through serving_flash_attention (fp8 and
 int8) and quantized_dense_fa (fp8), each gated against the blockwise f32
 oracle, and holds B6/B7 against their plain versions there and at variant
-shapes; then serves the canonical model with a sliding window (1025)
+shapes; then runs B6/B7 on the band, circulant and block-diagonal
+schedules at the baseline's shapes through the public calls (phase
+quant_bands: sliding_fa, circulant_fa, block_fa, serving_flash_attention
+and the d <= 64 route), each gated against its matched oracle and shown to
+miss the full-history one, with B6/B7 held against their plain versions on
+every kind and four planted faults rejected; then serves the canonical
+model with a sliding window (1025)
 through chunked prefill (chunks of 512) and the pipelined decode, checks it
 against a teacher-forced sliding forward and against an unchunked engine,
 and holds the band, norm-bound and banded paged kernels against their plain
@@ -1162,16 +1168,16 @@ def quant_errs(ko, kl, po, pl, exact=None) -> dict:
     return errs
 
 
-def float32_sums(q_op, qs, ops, causal, hq, hkv, out_dtype):
+def float32_sums(q_op, qs, ops, sched, hq, hkv, out_dtype):
     """The plain tile loop on e4m3 q̂ handed over in float32: the fp8
     products then sum exactly in float32, not as the card's fp8 units sum
     them. ``ops`` as ``serving_operands`` (q, k̂, v̂, σk token, σk tensor,
-    σv, gk); ``qs`` the row factors."""
+    σv, gk); ``qs`` the row factors; ``sched`` the call's schedule."""
     from tpu_flash_torch.quant import flash_q as tfq
 
     _, k_vals, v_vals, sk, _, sv, gk = ops
     return tfq._attend_plain(q_op.float(), qs, k_vals, v_vals, sk, sv, gk,
-                             causal, hq, hkv, out_dtype)
+                             sched, hq, hkv, out_dtype)
 
 
 QUANT_TOL = dict(o_vs_plain=TOL_BF16, o_vs_plain_ulps=TOL_Q_ULPS,
@@ -1328,7 +1334,7 @@ def quant_attention_phase(dev):
             faults=lambda ko, kl, args=args: planted_faults(
                 tsa._serving_plain, args, ko, kl),
             exact_fn=None if mode == "int8" else lambda: float32_sums(
-                p_op, p_qs, ops, False, h, h, q.dtype))
+                p_op, p_qs, ops, sched, h, h, q.dtype))
         del kq, vq, ops, args
     prep = tfq.prepare_quantized(q, k, v, torch.float8_e4m3fn,
                                  torch.float8_e4m3fn, False, d ** -0.5)
@@ -1369,9 +1375,9 @@ def quant_attention_phase(dev):
                 raise AssertionError(f"B6 {name}: staged Q differs from the "
                                      "plain staging")
             if mode == "fp8":
-                exact_fn = (lambda p_op=p_op, p_qs=p_qs, ops=ops, causal=causal,
+                exact_fn = (lambda p_op=p_op, p_qs=p_qs, ops=ops, vs=vsched,
                             hq=hq, hkv=hkv, qv=qv: float32_sums(
-                                p_op, p_qs, ops, causal, hq, hkv, qv.dtype))
+                                p_op, p_qs, ops, vs, hq, hkv, qv.dtype))
         row = held("serving", name,
                    lambda need=True: tsa._serving_attention_kernel(*args, need),
                    lambda: tsa._serving_plain(*args), 0, "bf16", staged=staged,
@@ -1541,7 +1547,8 @@ def headdims_phase(dev):
             skf = 1.0 if ops[4] is None else ops[4][rows_kv][:, None, None]
             q_op, qs = tsa._stage_q_plain(ops[0], "fp8", tfq.f32(
                 d ** -0.5 * flash.LOG2E), skf)
-            eo, el = float32_sums(q_op, qs, ops, True, hq, hkv, q.dtype)
+            eo, el = float32_sums(q_op, qs, ops, flash.build_schedule(
+                "causal", n, n, 1024, 2048), hq, hkv, q.dtype)
             exact = (eo[..., :dv].reshape(po.shape), el)
         errs = quant_errs(ko.cpu(), kl.cpu(), po, pl, exact)
         for key, tol in QUANT_TOL.items():
@@ -1577,6 +1584,360 @@ def headdims_phase(dev):
             raise AssertionError(f"headdims: kernel {name} never launched")
     emit(dict(phase="headdims", launches=launches, cases=rows))
     return dict(launches=launches, rows=rows)
+
+
+# The quant_bands phase: the quantized route on the band, circulant and
+# block-diagonal kinds at the baseline's shapes (BASELINE.json: windowed_fa
+# window 256 at seqlen 4k with FP8 Q/K/V; circulant_fa 8k with an INT8 KV
+# cache; the quantized headline's b 4, h 8, n 8192, d 128), each row a
+# public call gated against its matched-bit-width oracle (TOL_QUANT_GATE)
+# and shown to miss the full-history oracle by SEPARATION times more; then
+# B6/B7 against their plain versions on every kind × Q mode × maximum at
+# QB_SMALL, planted faults rejected; then rows a–e timed.
+QB_FP8 = "float8_e4m3fn"
+QB_SMALL = dict(n=2048, radius=8, section=100)
+# The kernels (the reference's as the port's) round P to bf16 for the P·V
+# product and sum l from the float32 P, so a row whose softmax mass sits on
+# one key carries that rounding in full: o moves by up to 2⁻⁸ of a value of
+# V. The dense headline averages it away over thousands of keys; a band's
+# first rows see a handful (B6 local_causal, 16/8 heads at n 8192: 0.0127
+# against the 1e-2 contract, PERF.md §6; the reference's kernel rounds the
+# same way). So a band row's gate is the contract plus that bound,
+# 2⁻⁸ · max |V|.
+P_ROUNDING = 2.0 ** -8
+# the int8 P·V product (pv_quant) rounds P to multiples of 1/127, which
+# moves o by ~4e-2 on these inputs in the reference as in the port (the
+# plain version matches the reference there, tests/test_torch_quant_bands.py):
+# the reference's own bound for it against the f32 oracle
+# (tests/test_serving_attn.py:99-113)
+TOL_PV_QUANT_GATE = 0.08
+
+
+def qb_pairs(schedule: str, n: int, radius: int = 0, section: int = 0) -> int:
+    """(query, key) pairs a head attends under the schedule, n queries:
+    what this run's kernel must compute (the circulant's over its halo)."""
+    i = np.arange(n)
+    if schedule == "local":
+        return int((np.minimum(n - 1, i + radius) - np.maximum(0, i - radius)
+                    + 1).sum())
+    if schedule == "local_causal":
+        return int((i - np.maximum(0, i - radius) + 1).sum())
+    if schedule == "circulant":
+        return n * (2 * radius + 1)
+    return int((np.minimum(n, (i // section + 1) * section)
+                - i // section * section).sum())
+
+
+def qb_matched(q, k, v, q_dtype, kv_dtype, kv_scale, cache=None):
+    """Inputs of the matched-bit-width oracle, K/V expanded to q's heads:
+    Q quantized per token as the call quantizes it (e4m3 or int8; the
+    weight-only mode's Q as it is): scaled in float32 first
+    (quantized_flash_attention's host), or scaled after (serving's staging,
+    with a ``cache``); K per token or per tensor and V per channel (or the
+    given cache), dequantized."""
+    from tpu_flash_torch.quant import qarray
+
+    scale = q.shape[-1] ** -0.5
+    qf = q.float() if cache is not None else q.float() * scale
+    if q_dtype is not None:
+        qf = qarray.dequantize(qarray.quantize(qf, q_dtype, axis=-1))
+    if cache is not None:
+        qf = qf * scale
+    else:
+        k_axis = -1 if kv_scale == "token" else (-2, -1)
+        cache = (qarray.quantize(k.float(), kv_dtype, axis=k_axis),
+                 qarray.quantize(v.float(), kv_dtype, axis=-2))
+    g = q.shape[1] // k.shape[1]
+    kf, vf = (qarray.dequantize(a).repeat_interleave(g, 1) for a in cache)
+    return qf, kf, vf
+
+
+def qb_gate(o, inputs, mask: dict, full: dict, tol: float) -> dict:
+    """max |o − oracle| against the matched oracle under the schedule's
+    mask and against the full-history one; the first must be within
+    ``tol``, the second SEPARATION times larger."""
+    from tpu_flash_torch.ops.oracle import blockwise_dpa
+
+    want, _ = blockwise_dpa(*inputs, scale=1.0, chunk=2048, **mask)
+    err = max_err(o, want)
+    del want
+    hist, _ = blockwise_dpa(*inputs, scale=1.0, chunk=2048, **full)
+    miss = max_err(o, hist)
+    return dict(max_abs_err=err, tol=tol, full_history_err=miss,
+                separation=miss / max(err, 1e-30))
+
+
+def qb_library(schedule, q, k, v, radius=0, section=0):
+    """One library call of the same function in bf16 (no library call
+    takes a quantized cache): aten._flash_attention_forward with
+    window_size_left/_right for the bands, scaled_dot_product_attention
+    over the sequence cut into its sections for the block-diagonal kind,
+    and under the boolean circulant mask for the circulant. Returns the
+    call and its name."""
+    b, h, n, d = q.shape
+    if schedule == "block":
+        cut = [x.reshape(b, x.shape[1] * (n // section), section, d)
+               for x in (q, k, v)]
+        return (lambda: sdpa(*cut, False),
+                "scaled_dot_product_attention over n/section sections")
+    if schedule == "circulant":
+        mask = circulant_mask(n, radius, q.device)
+        return (lambda: sdpa(q, k, v, False, mask),
+                "scaled_dot_product_attention under the circulant mask")
+    causal = schedule == "local_causal"
+    g = h // k.shape[1]
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (
+        q, k.repeat_interleave(g, 1), v.repeat_interleave(g, 1)))
+    return (lambda: torch.ops.aten._flash_attention_forward(
+        qt, kt, vt, None, None, n, n, 0.0, causal, False,
+        window_size_left=radius, window_size_right=0 if causal else radius),
+        f"aten._flash_attention_forward(window_size_left={radius}, "
+        f"window_size_right={0 if causal else radius}), K/V expanded")
+
+
+def qb_small_checks(dev) -> tuple:
+    """B6 and B7 against their plain versions at QB_SMALL (16/8 heads,
+    d 128) on every kind, Q mode (bf16 weight-only, int8, e4m3) and
+    maximum, B6's staged Q bytes equal; each planted fault of the kind
+    (bench/quant_bands.py) fails QUANT_TOL. Returns (rows, worst error by
+    family)."""
+    from tpu_flash_torch.bench.quant_bands import band_case, faults
+
+    gen = torch.Generator(device=dev).manual_seed(12)
+    n, radius, section = (QB_SMALL[key] for key in ("n", "radius", "section"))
+    q, k, v = (torch.randn(1, h, n, 128, generator=gen, device=dev).bfloat16()
+               for h in (16, 8, 8))
+    rows, worst = [], {"serving": 0.0, "quant": 0.0}
+    modes = [(None, "int8", "token"), ("int8", "int8", "token"),
+             (QB_FP8, QB_FP8, "tensor")]
+    for schedule in ("local", "local_causal", "circulant", "block"):
+        extra = dict(radius=radius) if schedule != "block" else dict(
+            section=section)
+        for family in ("serving", "quant"):
+            for q_dt, kv_dt, kv_scale in modes:
+                for bound in (True, False):
+                    kernel, plain, staged = band_case(
+                        family, schedule, q, k, v, q_dtype=q_dt,
+                        kv_dtype=kv_dt, kv_scale=kv_scale, bound_max=bound,
+                        **extra)
+                    ko, kl = kernel()
+                    errs = quant_errs(ko, kl, *plain())
+                    name = (f"{family} {schedule} {q_dt or 'weight_only'} "
+                            f"{'bound' if bound else 'exact'}")
+                    for key, tol in QUANT_TOL.items():
+                        check(f"quant_bands {name} {key}", errs[key], tol)
+                    worst[family] = max(worst[family], errs["o_vs_plain"],
+                                        errs["lse_vs_plain"])
+                    row = dict(case=name, **errs)
+                    if staged is not None:
+                        row["staged_q_bytes_equal"] = staged()
+                        if not row["staged_q_bytes_equal"]:
+                            raise AssertionError(f"quant_bands {name}: "
+                                                 "staged Q differs")
+                    if q_dt == QB_FP8 and bound:
+                        row["planted_faults"] = {}
+                        for fault in faults(family, schedule):
+                            ferrs = quant_errs(ko, kl, *plain(fault))
+                            if all(ferrs[key] <= tol
+                                   for key, tol in QUANT_TOL.items()):
+                                raise AssertionError(
+                                    f"quant_bands {name}: planted fault "
+                                    f"{fault} passes: {ferrs}")
+                            row["planted_faults"][fault] = ferrs
+                    rows.append(row)
+                    del ko, kl
+    return rows, worst
+
+
+QB_R = (SLIDING_WINDOW - 1) // 2
+# the rows: (row, name, shape (b, hq, hkv, n, d), schedule, radius or
+# section, q_dtype, kv_dtype, kv_scale, entry (serving_flash_attention:
+# "serving", B6; the flash wrappers: "quant", B7, or "routed", B6 through
+# the d <= 64 rule), oracle mask, full-history mask, timed). a: the quantized headline's shape
+# under the sliding model's band; b: the baseline's window 256 (257, odd)
+# at 4k; c: its circulant 8k with an int8 cache; d: block-diagonal; e: the
+# canonical model's attention (16/8 heads) with the sliding window; f: the
+# d <= 64 route (B6 at B8's shape), f': the circulant stays on B7
+QB_ROWS = [
+    ("a", "sliding_causal_fp8", (4, 8, 8, 8192, 128), "local_causal",
+     QB_R, QB_FP8, QB_FP8, "tensor", "quant",
+     dict(window_size=SLIDING_WINDOW, causal=True), dict(causal=True),
+     True),
+    ("a", "sliding_causal_int8", (4, 8, 8, 8192, 128), "local_causal",
+     QB_R, "int8", "int8", "token", "quant",
+     dict(window_size=SLIDING_WINDOW, causal=True), dict(causal=True),
+     True),
+    ("b", "sliding_w257_fp8", (4, 8, 8, 4096, 128), "local", 128, QB_FP8,
+     QB_FP8, "token", "quant", dict(window_size=257), {}, True),
+    ("c", "circulant_int8_weight_only", (4, 8, 8, 8192, 128),
+     "circulant", QB_R, None, "int8", "token", "quant",
+     dict(window_size=SLIDING_WINDOW, wrap=True), {}, True),
+    ("c", "circulant_int8", (4, 8, 8, 8192, 128), "circulant", QB_R,
+     "int8", "int8", "token", "quant",
+     dict(window_size=SLIDING_WINDOW, wrap=True), {}, True),
+    ("d", "block512_fp8", (4, 8, 8, 8192, 128), "block", 512, QB_FP8,
+     QB_FP8, "token", "quant", dict(block_size=512), {}, True),
+    ("e", "serving_local_causal_fp8_gqa", (1, 16, 8, 8192, 128),
+     "local_causal", QB_R, QB_FP8, QB_FP8, "token", "serving",
+     dict(window_size=SLIDING_WINDOW, causal=True), dict(causal=True),
+     True),
+    ("e", "serving_local_causal_int8_pv_quant", (1, 16, 8, 8192, 128),
+     "local_causal", QB_R, "int8", "int8", "token", "serving",
+     dict(window_size=SLIDING_WINDOW, causal=True), dict(causal=True),
+     True),
+    ("f", "sliding_causal_d64_fp8", (1, 16, 8, 1000, 64), "local_causal",
+     128, QB_FP8, QB_FP8, "token", "routed",
+     dict(window_size=257, causal=True), dict(causal=True), False),
+    ("f", "block250_d64_fp8", (1, 16, 8, 1000, 64), "block", 250, QB_FP8,
+     QB_FP8, "token", "routed", dict(block_size=250), {}, False),
+    ("f'", "circulant_d64_fp8", (1, 16, 8, 1000, 64), "circulant", 128,
+     QB_FP8, QB_FP8, "token", "quant", dict(window_size=257, wrap=True),
+     {}, False),
+]
+
+# the kernels line's rows of the phase: (kernel, family, label, row,
+# the TPU kernel it replaces)
+QB_KERNEL_ROWS = [
+    ("quant_attention", "quant", "B7 local_causal band, fp8",
+     "sliding_causal_fp8", "tpu_flash/quant/flash_q.py:136"),
+    ("quant_attention", "quant", "B7 local band, fp8", "sliding_w257_fp8",
+     "tpu_flash/quant/flash_q.py:136"),
+    ("quant_attention", "quant", "B7 circulant, int8", "circulant_int8",
+     "tpu_flash/quant/flash_q.py:136"),
+    ("quant_attention", "quant", "B7 block-diagonal, fp8", "block512_fp8",
+     "tpu_flash/quant/flash_q.py:136"),
+    ("serving_attention", "serving", "B6 local_causal band, fp8, GQA",
+     "serving_local_causal_fp8_gqa", "tpu_flash/quant/serving_attn.py:59"),
+]
+
+
+def quant_bands_phase(dev):
+    """Rows a–f′ through the public entry points, each counted apart
+    (every row must launch its kernel, f′ B7 and not B6), gated against
+    the matched oracle with its separation from the full-history one (the
+    gated call takes and returns float32, whose o the kernels write
+    unrounded: a bf16 o of a row that sees a few keys has an ulp of 2⁻⁶
+    at |o| ≥ 2, near the gate itself); B6/B7
+    against their plain versions (qb_small_checks); rows a–e timed: the
+    kernel alone (a CUDA graph of 20 calls, bench/harness.py:device_ms), the
+    public call, the plain version at the same shape (also held to
+    QUANT_TOL there), the bound over the visible pairs and the library's
+    bf16 call."""
+    from tpu_flash_torch import kernels
+    from tpu_flash_torch.bench.harness import device_ms, device_peaks
+    from tpu_flash_torch.bench.harness import roofline as hroofline
+    from tpu_flash_torch.bench.quant_bands import band_case
+    from tpu_flash_torch.ops import flash
+    from tpu_flash_torch.quant import serving_attn as tsa
+
+    gen = torch.Generator(device=dev).manual_seed(13)
+
+    def inputs(b, hq, hkv, n, d):
+        return [torch.randn(b, h, n, d, generator=gen, device=dev).bfloat16()
+                for h in (hq, hkv, hkv)]
+
+    peaks = device_peaks(dev)
+    runs, timed, worst = [], {}, {"serving": 0.0, "quant": 0.0}
+    for (row_id, name, shape, schedule, extra, q_dt, kv_dt, kv_scale,
+         entry, mask, full, time_it) in QB_ROWS:
+        b, hq, hkv, n, d = shape
+        family = "quant" if entry == "quant" else "serving"
+        q, k, v = inputs(b, hq, hkv, n, d)
+        radius = extra if schedule != "block" else 0
+        section = extra if schedule == "block" else 0
+        pvq = name.endswith("pv_quant")
+        # the cache the serving kernel reads (the d <= 64 route quantizes
+        # K/V the same way inside the call)
+        cache = (None if entry == "quant" else
+                 tsa.quantize_kv_cache(k, v, kv_dt, kv_scale=kv_scale))
+        if entry == "serving":
+
+            def call(q, k, v):
+                return tsa.serving_flash_attention(
+                    q, *cache, q_dtype=q_dt, schedule=schedule,
+                    radius=radius, section=section, pv_quant=pvq,
+                    bound_max=False if pvq else None)
+        else:
+            window = 2 * radius + 1
+            kw = dict(q_dtype=q_dt, kv_dtype=kv_dt, kv_scale=kv_scale)
+            call = {
+                "local_causal": lambda q, k, v: flash.sliding_fa(
+                    q, k, v, window, causal=True, **kw),
+                "local": lambda q, k, v: flash.sliding_fa(q, k, v, window,
+                                                          **kw),
+                "circulant": lambda q, k, v: flash.circulant_fa(
+                    q, k, v, window, **kw),
+                "block": lambda q, k, v: flash.block_fa(q, k, v, section,
+                                                        **kw),
+            }[schedule]
+        kernels.reset_launches()
+        o = call(q.float(), k.float(), v.float())
+        torch.cuda.synchronize()
+        launches = {key: kernels.LAUNCHES[key] for key in (
+            "serving_attention", "quant_attention")}
+        want = f"{family}_attention"
+        if launches[want] <= 0 or (row_id == "f'" and
+                                   launches["serving_attention"]):
+            raise AssertionError(f"quant_bands {name}: launches {launches}")
+        matched = qb_matched(q, k, v, q_dt, kv_dt, kv_scale, cache)
+        gate = qb_gate(o, matched, mask, full, TOL_PV_QUANT_GATE if pvq else
+                       TOL_QUANT_GATE + P_ROUNDING * float(
+                           matched[2].abs().max()))
+        del matched
+        check(f"quant_bands {name} gate", gate["max_abs_err"], gate["tol"])
+        if gate["separation"] < SEPARATION:
+            raise AssertionError(f"quant_bands {name}: the full-history "
+                                 f"oracle is not separated: {gate}")
+        row = dict(row=row_id, case=name, schedule=schedule, radius=radius,
+                   section=section, shape=dict(zip("b hq hkv n d".split(),
+                                                   shape)),
+                   q_dtype=q_dt, kv_dtype=kv_dt, kv_scale=kv_scale,
+                   launches=launches, **gate)
+        del o
+        if time_it:
+            flat = [x.reshape(1, -1, n, d) for x in (q, k, v)]
+            kernel, plain, _ = band_case(
+                family, schedule, *flat, q_dtype=q_dt, kv_dtype=kv_dt,
+                kv_scale=kv_scale, bound_max=not pvq, radius=radius,
+                section=section, pv_quant=pvq)
+            errs = quant_errs(*kernel(), *plain())
+            for key, tol in QUANT_TOL.items():
+                check(f"quant_bands {name} full size {key}", errs[key], tol)
+            worst[family] = max(worst[family], errs["o_vs_plain"],
+                                errs["lse_vs_plain"])
+            pairs = b * hq * qb_pairs(schedule, n, radius, section)
+            lib_fn, lib_name = qb_library(schedule, q, k, v, radius, section)
+            # bytes: q (B6: bf16; B7: bf16, or 8-bit q̂ and its float32
+            # row factors) and o in bf16, K̂/V̂ at one byte (the
+            # circulant's with its halo) and their float32 scales
+            n_kv = n + 2 * radius if schedule == "circulant" else n
+            q8 = family == "quant" and q_dt is not None
+            sk = n_kv if kv_scale == "token" else 1
+            nbytes = (b * hq * n * (d + 4 if q8 else 2 * d)
+                      + 2 * b * hq * n * d + 2 * b * hkv * n_kv * d
+                      + 4 * b * hkv * (sk + d + 1))
+            qk = "bf16" if q_dt is None else "int8" if q_dt == "int8" else "fp8"
+            row.update(
+                kernel_vs_plain=errs, ms=device_ms(lambda: kernel(False)),
+                call_ms=cuda_ms(lambda: call(q, k, v)),
+                plain_ms=cuda_ms(plain, iters=2, warmup=1),
+                library=lib_name, library_ms=device_ms(lib_fn),
+                visible_pairs=pairs,
+                **hroofline(2 * d * pairs, 2 * d * pairs, nbytes, peaks, qk,
+                            "int8" if pvq else "bf16"))
+            row["tflops"] = 4 * d * pairs / row["ms"] / 1e9
+            row["share_of_bound"] = row["bound_ms"] / row["ms"]
+            timed[name] = row
+        runs.append(row)
+        del q, k, v, cache
+        torch.cuda.empty_cache()
+    small, small_worst = qb_small_checks(dev)
+    for fam in worst:
+        worst[fam] = max(worst[fam], small_worst[fam])
+    emit(dict(phase="quant_bands", rows=runs, kernels_vs_plain=small,
+              small_shape=QB_SMALL))
+    return dict(timed=timed, worst=worst,
+                launches={r["case"]: r["launches"] for r in runs})
 
 
 def held_engine_run(phase: str, run, tol: float) -> dict:
@@ -2311,6 +2672,8 @@ def main() -> int:
     headdims_phase(dev)
     torch.cuda.empty_cache()
     with torch.no_grad():
+        qb = quant_bands_phase(dev)
+        torch.cuda.empty_cache()
         sliding = sliding_serve_phase(dev)
         torch.cuda.empty_cache()
         sk = sliding_kernels_phase(dev)
@@ -2408,6 +2771,15 @@ def main() -> int:
              max_abs_err=quant["worst"]["quant"],
              **_timing(quant["timed"]["e2e_fp8"]),
              library_ms=quant["library_ms"]),
+        # B6/B7 on the band, circulant and block-diagonal kinds (the
+        # quant_bands phase's rows a–e); launches: that row's public call;
+        # library: the same function in bf16 (qb_library)
+        *[dict(name=f"{kernel} ({label})", route="cuda",
+               source="tpu_flash_torch/csrc/quant_attention.cu",
+               replaces=line, launches=qb["launches"][case][kernel],
+               max_abs_err=qb["worst"][fam], **_timing(qb["timed"][case]),
+               library_ms=qb["timed"][case]["library_ms"])
+          for kernel, fam, label, case, line in QB_KERNEL_ROWS],
         # TPU kernels folded into B1 and B2, each with its own measurement
         # at the sliding path's shapes; launches: the host kernel's in the
         # sliding engine run (B11, B12: engine A, every B1 launch there is

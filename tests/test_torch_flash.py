@@ -125,15 +125,10 @@ def test_flash_plain_matches_oracle_scale():
     np.testing.assert_allclose(o.numpy(), ref.numpy(), atol=1e-4)
 
 
-@pytest.mark.parametrize("kw", [dict(shift=1, _item="A13"),
-                                dict(q_dtype="int8", schedule="local",
-                                     _item="A10"),
-                                dict(q_dtype="int8", schedule="block",
-                                     section=8, _item="A10")])
+@pytest.mark.parametrize("kw", [dict(shift=1, _item="A13")])
 def test_flash_unported_options_raise(kw):
     """What is still unported raises, naming its ROADMAP item: the shifted
-    schedule, and the band and the block-diagonal schedule on the quantized
-    route."""
+    schedule."""
     _, (tq, tk, tv) = _inputs(4, 1, 1, 1, 16, 16, 32, jnp.float32)
     kw = dict(kw)
     with pytest.raises(NotImplementedError, match=f"ROADMAP {kw.pop('_item')}"):

@@ -117,12 +117,13 @@ def test_quant_plain_on_padded_operands(d, dv, q_dtype, kv_dtype):
     q_op, qs = tsa._stage_q_plain(ops[0], mode, tfq.f32(d ** -0.5 * tflash.LOG2E),
                                   1.0)
     k_vals, v_vals, sk, sv, gk = ops[1], ops[2], ops[3], ops[5], ops[6]
-    o, lse = tfq._attend_plain(q_op, qs, k_vals, v_vals, sk, sv, gk, True, 4,
+    sched = tflash.build_schedule("causal", n, n, 1024, 2048)
+    o, lse = tfq._attend_plain(q_op, qs, k_vals, v_vals, sk, sv, gk, sched, 4,
                                2, torch.float32)
     width = tflash.kernel_head_dim(d, dv)
     pq, pk, pv = tflash.pad_head_dims(width, q_op, k_vals, v_vals)
     (psv,) = tflash.pad_head_dims(width, sv, fill=1.0)
-    po, plse = tfq._attend_plain(pq, qs, pk, pv, sk, psv, gk, True, 4, 2,
+    po, plse = tfq._attend_plain(pq, qs, pk, pv, sk, psv, gk, sched, 4, 2,
                                  torch.float32)
     torch.testing.assert_close(po[..., :dv], o, atol=1e-6, rtol=1e-6)
     assert not po[..., dv:].any()

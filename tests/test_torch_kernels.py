@@ -686,15 +686,27 @@ def _assert_quant_close(ko, kl, po, pl):
     version sums fp8 products as the card's fp8 units do,
     ``flash_q.fp8_scores``). A kv tile left out or the V scales one channel
     off moves o by more than ten such ulps at the headline shape."""
+    missed = _quant_misses(ko, kl, po, pl)
+    assert not missed, missed
+
+
+def _quant_misses(ko, kl, po, pl) -> list:
+    """The rules of :func:`_assert_quant_close` that (ko, kl) break."""
     ko, po, kl, pl = ko.float().cpu(), po.float().cpu(), kl.cpu(), pl.cpu()
     top = po.abs().amax(-1, keepdim=True)
     ulp = torch.exp2(torch.floor(torch.log2(top)) - 7)
     diff = (ko - po).abs()
-    assert bool((diff <= torch.where(top > 0, 4 * ulp, 0.0)).all())
-    assert float(diff.max()) <= 2e-2
     fin = torch.isfinite(pl)
-    assert torch.equal(torch.isfinite(kl), fin)
-    assert float((kl[fin] - pl[fin]).abs().max()) <= 1e-4
+    missed = []
+    if not bool((diff <= torch.where(top > 0, 4 * ulp, 0.0)).all()):
+        missed.append("o beyond 4 row ulps")
+    if float(diff.max()) > 2e-2:
+        missed.append(f"o {float(diff.max())} > 2e-2")
+    if not torch.equal(torch.isfinite(kl), fin):
+        missed.append("lse finite on other rows")
+    elif fin.any() and float((kl[fin] - pl[fin]).abs().max()) > 1e-4:
+        missed.append(f"lse {float((kl[fin] - pl[fin]).abs().max())} > 1e-4")
+    return missed
 
 
 @pytest.mark.parametrize("name", list(_SERVING_CASES))
@@ -793,6 +805,91 @@ def test_quant_kernels_reject_what_they_do_not_take(gen):
                                       False)
     with pytest.raises(NotImplementedError):
         tfq.quantized_flash_attention(q.half(), k.half(), v.half())
+
+
+# (schedule, radius, section) of the quantized route's band kinds: the
+# smoke's small windows (radius 8; sections of 100, several to a kv tile and
+# none aligned to it) and windows wider than a kv tile
+_QUANT_BANDS = [("local", 8, 0), ("local_causal", 8, 0), ("circulant", 8, 0),
+                ("block", 0, 100), ("local", 200, 0), ("local_causal", 300, 0),
+                ("circulant", 150, 0), ("block", 0, 384)]
+# (q_dtype, kv_dtype, kv_scale, bound_max)
+_QUANT_BAND_MODES = [("int8", "int8", "token", True),
+                     ("float8_e4m3fn", "float8_e4m3fn", "tensor", False),
+                     ("float8_e4m3fn", "float8_e4m3fn", "token", True),
+                     (None, "int8", "token", False)]
+
+
+@pytest.mark.parametrize("mode", _QUANT_BAND_MODES, ids=[
+    f"{m[0] or 'weight_only'}-{m[2]}-{'bound' if m[3] else 'exact'}"
+    for m in _QUANT_BAND_MODES])
+@pytest.mark.parametrize("family", ["serving", "quant"])
+@pytest.mark.parametrize("band", _QUANT_BANDS, ids=[
+    f"{b[0]}-{b[1] or b[2]}" for b in _QUANT_BANDS])
+def test_quant_band_kernels_match_plain(gen, band, family, mode):
+    """B6 (serving, the circulant over the cache and its phantom rows) and
+    B7 (the circulant over halo-extended K/V) on the band, circulant and
+    block-diagonal kinds vs their plain versions, at a ragged n (1000) with
+    GQA 16/8, d 128: o and lse as :func:`_assert_quant_close`, B6's staged
+    Q bytes equal."""
+    from tpu_flash_torch.bench.quant_bands import band_case
+
+    schedule, radius, section = band
+    q_dtype, kv_dtype, kv_scale, bound = mode
+    q, k, v = _quant_inputs(gen, 16, 8, 1000, 128)
+    kernel, plain, staged = band_case(
+        family, schedule, q, k, v, q_dtype=q_dtype, kv_dtype=kv_dtype,
+        kv_scale=kv_scale, bound_max=bound, radius=radius, section=section)
+    name = "serving_attention" if family == "serving" else "quant_attention"
+    before = kernels.LAUNCHES[name]
+    ko, kl = kernel()
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES[name] == before + 1
+    if staged is not None:
+        assert staged()
+    _assert_quant_close(ko, kl, *plain())
+
+
+@pytest.mark.parametrize("case", [
+    ("local_causal", 8, 0, dict(q_dtype="float8_e4m3fn", d=64)),
+    ("block", 0, 250, dict(q_dtype="int8", d=64)),
+    ("circulant", 8, 0, dict(q_dtype=None, d=64)),
+    ("local", 8, 0, dict(q_dtype="int8", pv_quant=True, d=128))],
+    ids=["local_causal-d64", "block-d64", "circulant-d64", "local-pv_quant"])
+def test_serving_band_kernel_variants_match_plain(gen, case):
+    """B6 at d 64 (the reference's transposed B8 shape) on the band kinds,
+    and under pv_quant (int8 P·V, exact max), vs its plain version."""
+    from tpu_flash_torch.bench.quant_bands import band_case
+
+    schedule, radius, section, kw = case
+    kw = dict(kw)
+    q_dtype, d, pvq = kw["q_dtype"], kw["d"], kw.get("pv_quant", False)
+    kv_dtype = "int8" if q_dtype in ("int8", None) else q_dtype
+    q, k, v = _quant_inputs(gen, 16, 8, 1000, d)
+    kernel, plain, _ = band_case(
+        "serving", schedule, q, k, v, q_dtype=q_dtype, kv_dtype=kv_dtype,
+        bound_max=not pvq, radius=radius, section=section, pv_quant=pvq)
+    _assert_quant_close(*kernel(), *plain())
+
+
+@pytest.mark.parametrize("family", ["serving", "quant"])
+@pytest.mark.parametrize("band", _QUANT_BANDS[:4], ids=[
+    b[0] for b in _QUANT_BANDS[:4]])
+def test_quant_band_faults_rejected(gen, band, family):
+    """Planted faults in the plain version (the radius one too large, the
+    sections shifted by one row, the circulant without its halo, serving's
+    circulant without its phantom rows) fail the kernel-vs-plain check."""
+    from tpu_flash_torch.bench.quant_bands import band_case, faults
+
+    schedule, radius, section = band
+    q, k, v = _quant_inputs(gen, 16, 8, 1000, 128)
+    kernel, plain, _ = band_case(
+        family, schedule, q, k, v, q_dtype="float8_e4m3fn",
+        kv_dtype="float8_e4m3fn", radius=radius, section=section)
+    ko, kl = kernel()
+    _assert_quant_close(ko, kl, *plain())
+    for fault in faults(family, schedule):
+        assert _quant_misses(ko, kl, *plain(fault)), fault
 
 
 # (schedule, radius or section, n, d, bound_max, dtype): the circulant band

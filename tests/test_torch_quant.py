@@ -362,9 +362,7 @@ def test_flash_attention_quantized_route():
 
 
 @pytest.mark.parametrize("kw,err,match", [
-    (dict(schedule="local"), NotImplementedError, "ROADMAP A10"),
-    (dict(radius=8), NotImplementedError, "ROADMAP A10"),
-    (dict(section=8), NotImplementedError, "ROADMAP A11"),
+    (dict(shift=8), NotImplementedError, "ROADMAP A13"),
     (dict(kv_dtype="int4"), ValueError, "int4"),
     (dict(q_dtype="float8_e4m3fn"), ValueError, "family"),
     (dict(kv_scale="tensor"), ValueError, "fp8 scaling"),

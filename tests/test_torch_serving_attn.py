@@ -179,6 +179,7 @@ _INVALID = [
     dict(transposed=True, kv_split=2),
     dict(kv_split=3),
     dict(kv_resident=True, schedule="causal"),
+    dict(kv_resident=True, schedule="local", radius=8),
     dict(kv_resident=True, pv_quant=True),
 ]
 
@@ -197,8 +198,7 @@ def test_serving_invalid_knobs_raise(kw):
 
 
 @pytest.mark.parametrize("kw,match", [
-    (dict(isolate="noexp"), "north star"), (dict(schedule="local"), "A10"),
-    (dict(radius=4), "A10"), (dict(shift=2), "A13")])
+    (dict(isolate="noexp"), "north star"), (dict(shift=2), "A13")])
 def test_serving_unported_raise(kw, match):
     _, t = _caches(7, 2, 2, 64, 64, "int8")
     with pytest.raises(NotImplementedError, match=match):

@@ -92,7 +92,7 @@ def kernel_lse(q8: torch.Tensor, k8: torch.Tensor) -> torch.Tensor:
     err = _build.library().tf_quant_attention(
         q8.data_ptr(), sq.data_ptr(), k8.data_ptr(), v8.data_ptr(), None,
         sv.data_ptr(), None, o.data_ptr(), lse.data_ptr(), h, r, 1, 1, 1, d,
-        0, 0, 2, kernels.KV_CODES[k8.dtype], 0, 1.0,
+        0, 0, 0, 0, 2, kernels.KV_CODES[k8.dtype], 0, 1.0,
         kernels.stream_handle(q8))
     _build.check(err, "tf_quant_attention")
     torch.cuda.synchronize()

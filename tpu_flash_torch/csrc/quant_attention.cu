@@ -8,6 +8,13 @@
 // - tpu_flash/quant/flash_q.py:_q_fwd_kernel (B7, :376): the quantized
 //   forward, Q already quantized on the host; entry point tf_quant_attention.
 //
+// Schedules: the kinds of schedule.cuh (dense, causal, local, local_causal,
+// circulant over halo-extended K/V, block-diagonal), the kind a runtime
+// argument as in B1 and B4/B5. A CTA's producer and consumers walk the same
+// kv tiles, kv_range's [first, last] for its 128 q rows; a consumer masks a
+// tile only where tile_full says its 64 rows do not see all of it, by each
+// row's key_span.
+//
 // What it computes. Q staging, once per CTA before the kv loop (the
 // reference's s == 0 init, serving_attn.py:155-198): the row amax,
 // sq = max(amax, 1e-12) / qmax (an IEEE divide), q / sq rounded to nearest
@@ -70,7 +77,10 @@
 //   gather (PERF.md §6 lists the bytes).
 //
 // Where it stands: PERF.md §6 (chip_smoke.py on an NVIDIA H100): about a
-// quarter of the bound at the headline, and still behind bf16 SDPA. In one
+// quarter of the bound at the headline, and still behind bf16 SDPA; on the
+// band kinds, where a CTA walks 3-10 kv tiles, 4-11%: its prologue (Q
+// staged row by row, the first stage) and epilogue cost about as much as
+// the steps, with one CTA an SM. In one
 // CTA the V̂ decode, Q·Kᵀ, the softmax and P·V still run mostly one after
 // another (each wgmma is waited for before the next step; a ping-pong of
 // the two consumer warpgroups, tried, gained nothing), and every 128-row q
@@ -89,6 +99,7 @@
 #include <type_traits>
 
 #include "hopper.cuh"
+#include "schedule.cuh"
 
 namespace {
 
@@ -121,7 +132,8 @@ struct Params {
   float* lse;             // (bh, n_q) or null
   void* q_out;            // (bh, n_q, d) staged Q operand, or null
   float* qs_out;          // (bh, n_q) staged row factors, or null
-  int n_q, n_kv, hq, hkv, causal, offset;
+  Sched s;  // n_q, n_kv (the halo-extended length for the circulant), kind
+  int hq, hkv;
   int q_mode, q_f32, kv_dtype, o_f32;
   float c;  // staging: float32(scale·log2e); modes 4, 5: the factor's multiplier
 };
@@ -214,8 +226,8 @@ __device__ void stage_q(const Params& p, uint8_t* qs, float* rowf, float* rowm, 
   const float gk1 = p.gk != nullptr ? p.gk[kv_row] * 1.0001f : 0.0f;
   for (int r = warp * 16; r < warp * 16 + 16; ++r) {
     const int qpos = q0 + r;
-    const bool real = qpos < p.n_q;
-    const size_t row = (size_t)b * p.n_q + (real ? qpos : 0);
+    const bool real = qpos < p.s.n_q;
+    const size_t row = (size_t)b * p.s.n_q + (real ? qpos : 0);
     float x[HD / 32];
     float amax = 0.0f;
 #pragma unroll
@@ -333,7 +345,7 @@ __device__ void decode_stage(const Params& p, const uint8_t* kraw, const uint8_t
   }
   if (p.sk_token != nullptr)
     for (int j = tid; j < BKV; j += NT)
-      skt[j] = k0 + j < p.n_kv ? p.sk_token[(size_t)kv_row * p.n_kv + k0 + j] : 0.0f;
+      skt[j] = k0 + j < p.s.n_kv ? p.sk_token[(size_t)kv_row * p.s.n_kv + k0 + j] : 0.0f;
 }
 
 
@@ -356,17 +368,18 @@ __global__ void __launch_bounds__(384, 1)
   uint64_t* full_bar = tma_bar + ST;
   uint64_t* empty_bar = full_bar + ST;
 
-  const int n_tiles = (p.n_q + C::BQ - 1) / C::BQ;
-  // the heaviest causal q tiles first
-  const int qt = p.causal ? n_tiles - 1 - (int)blockIdx.x : (int)blockIdx.x;
+  const Sched sd = p.s;
+  const int n_tiles = (sd.n_q + C::BQ - 1) / C::BQ;
+  // the heaviest causal q tiles first; the other kinds as the grid gives them
+  const int qt = sd.kind == CAUSAL ? n_tiles - 1 - (int)blockIdx.x : (int)blockIdx.x;
   const int q0 = qt * C::BQ;
   const int b = blockIdx.y;
   const int kv_row = (b / p.hq) * p.hkv + (b % p.hq) / (p.hq / p.hkv);
-  int steps = (p.n_kv + BKV - 1) / BKV;
-  if (p.causal) {
-    const int last_k = min(q0 + C::BQ - 1, p.n_q - 1) + p.offset;
-    steps = last_k < 0 ? 0 : min(steps, last_k / BKV + 1);
-  }
+  // the kv tiles this CTA visits: the producer loads exactly these and the
+  // consumers wait for exactly these
+  int first, last;
+  kv_range(sd, q0, min(q0 + C::BQ - 1, sd.n_q - 1), BKV, first, last);
+  const int steps = max(0, last - first + 1);
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < ST; ++s) {
@@ -389,10 +402,11 @@ __global__ void __launch_bounds__(384, 1)
           const int s = t % ST, ph = (t / ST) & 1;
           mbar_wait(&empty_bar[s], ph ^ 1);
           uint8_t* st = stages + s * C::STAGE;
+          const int k0 = (first + t) * BKV;
           mbar_expect_tx(&tma_bar[s], 2 * C::RAW);
           for (int pn = 0; pn < HD / RPB; ++pn) {
-            tma_load_3d(st + pn * BKV * RPB, &tmap_k, pn * RPB, t * BKV, kv_row, &tma_bar[s]);
-            tma_load_3d(st + C::RAW + pn * BKV * RPB, &tmap_v, pn * RPB, t * BKV, kv_row,
+            tma_load_3d(st + pn * BKV * RPB, &tmap_k, pn * RPB, k0, kv_row, &tma_bar[s]);
+            tma_load_3d(st + C::RAW + pn * BKV * RPB, &tmap_v, pn * RPB, k0, kv_row,
                         &tma_bar[s]);
           }
         }
@@ -403,8 +417,8 @@ __global__ void __launch_bounds__(384, 1)
         const int s = t % ST, ph = (t / ST) & 1;
         uint8_t* st = stages + s * C::STAGE;
         mbar_wait(&tma_bar[s], ph);
-        decode_stage<HD, SP, PVQ>(p, st, st + C::RAW, st + 2 * C::RAW,
-                                  st + 2 * C::RAW + C::KB, skt + s * BKV, t * BKV, kv_row, tid);
+        decode_stage<HD, SP, PVQ>(p, st, st + C::RAW, st + 2 * C::RAW, st + 2 * C::RAW + C::KB,
+                                  skt + s * BKV, (first + t) * BKV, kv_row, tid);
         fence_async_smem();
         mbar_arrive(&full_bar[s]);
       }
@@ -413,7 +427,7 @@ __global__ void __launch_bounds__(384, 1)
     // ---------------- consumer warpgroups ----------------
     asm volatile("setmaxnreg.inc.sync.aligned.u32 232;");
     uint8_t* qw = qs + wg * 64 * HD * (C::Q8 ? 1 : 2);
-    const int qw0 = q0 + 64 * wg;  // this warpgroup's first q row
+    const int qw0 = q0 + 64 * wg, qw_last = min(qw0 + 63, sd.n_q - 1);  // this warpgroup's rows
     stage_q<HD, SP, PVQ>(p, qw, rowf + 64 * wg, rowm + 64 * wg, b, qw0, kv_row, warp, lane);
     fence_async_smem();
     wg_barrier(1 + wg);
@@ -422,6 +436,9 @@ __global__ void __launch_bounds__(384, 1)
     const int ra = warp * 16 + lane / 4, rb = ra + 8;
     const int qa = qw0 + ra, qb = qw0 + rb;
     const int t4 = lane % 4;
+    int lo_a, hi_a, lo_b, hi_b;  // the keys each of the two rows sees
+    key_span(sd, qa, lo_a, hi_a);
+    key_span(sd, qb, lo_b, hi_b);
     const float fa = rowf[64 * wg + ra], fb = rowf[64 * wg + rb];
     float ma = rowm[64 * wg + ra], mb = rowm[64 * wg + rb];
     float la = 0.0f, lb = 0.0f;
@@ -433,7 +450,7 @@ __global__ void __launch_bounds__(384, 1)
 
     for (int t = 0; t < steps; ++t) {
       const int s = t % ST, ph = (t / ST) & 1;
-      const int k0 = t * BKV;
+      const int k0 = (first + t) * BKV;
       uint8_t* st = stages + s * C::STAGE;
       mbar_wait(&tma_bar[s], ph);
       mbar_wait(&full_bar[s], ph);
@@ -496,11 +513,12 @@ __global__ void __launch_bounds__(384, 1)
 #pragma unroll
         for (int i = 0; i < BKV / 2; ++i) sc[i] = (float)sacc[i] * ((i & 2) ? fb : fa);
       }
-      if (k0 + BKV > p.n_kv || (p.causal && k0 + BKV - 1 > qw0 + p.offset)) {
+      if (!tile_full(sd, k0, k0 + BKV - 1, qw0, qw_last)) {
 #pragma unroll
         for (int i = 0; i < BKV / 2; ++i) {
-          const int kpos = k0 + 8 * (i / 4) + 2 * t4 + (i & 1), qpos = (i & 2) ? qb : qa;
-          if (kpos >= p.n_kv || (p.causal && kpos > qpos + p.offset)) sc[i] = MASK;
+          const int kpos = k0 + 8 * (i / 4) + 2 * t4 + (i & 1);
+          const bool seen = (i & 2) ? kpos >= lo_b && kpos <= hi_b : kpos >= lo_a && kpos <= hi_a;
+          if (!seen) sc[i] = MASK;
         }
       }
       if (!bound) {  // the exact running max; the bound needs no rescale
@@ -621,9 +639,9 @@ __global__ void __launch_bounds__(384, 1)
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
       const int qpos = half ? qb : qa;
-      if (qpos >= p.n_q) continue;
+      if (qpos >= p.s.n_q) continue;
       const float inv = half ? ib : ia;
-      const size_t row = (size_t)b * p.n_q + qpos;
+      const size_t row = (size_t)b * p.s.n_q + qpos;
 #pragma unroll
       for (int j = 0; j < HD / 8; ++j) {
         const int col = 8 * j + 2 * t4;
@@ -650,14 +668,14 @@ cudaError_t launch(const Params& p, int bh, cudaStream_t stream) {
   using C = Cfg<HD, SP, PVQ>;
   const int bh_kv = bh / p.hq * p.hkv;
   CUtensorMap mk, mv;
-  if (!make_map<HD, C::BKV, C::RPB>(&mk, p.k, p.n_kv, bh_kv) ||
-      !make_map<HD, C::BKV, C::RPB>(&mv, p.v, p.n_kv, bh_kv))
+  if (!make_map<HD, C::BKV, C::RPB>(&mk, p.k, p.s.n_kv, bh_kv) ||
+      !make_map<HD, C::BKV, C::RPB>(&mv, p.v, p.s.n_kv, bh_kv))
     return cudaErrorInvalidValue;
   auto kern = quant_attention_kernel<HD, SP, PVQ>;
   cudaError_t err =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
   if (err != cudaSuccess) return err;
-  dim3 grid((p.n_q + C::BQ - 1) / C::BQ, bh);
+  dim3 grid((p.s.n_q + C::BQ - 1) / C::BQ, bh);
   kern<<<grid, 384, C::SMEM, stream>>>(mk, mv, p);
   return cudaGetLastError();
 }
@@ -679,8 +697,11 @@ cudaError_t dispatch_d(const Params& p, int bh, int sp, bool pvq, cudaStream_t s
 }
 
 cudaError_t dispatch(const Params& p, int bh, int d, int pv_quant, cudaStream_t stream) {
-  if (bh <= 0 || p.n_q <= 0) return cudaSuccess;
-  if (p.hkv <= 0 || p.hq % p.hkv != 0 || bh % p.hq != 0 || p.n_kv <= 0)
+  if (bh <= 0 || p.s.n_q <= 0) return cudaSuccess;
+  if (p.hkv <= 0 || p.hq % p.hkv != 0 || bh % p.hq != 0 || p.s.n_kv <= 0)
+    return cudaErrorInvalidValue;
+  if (p.s.kind < DENSE || p.s.kind > BLOCK || p.s.radius < 0 ||
+      (p.s.kind == BLOCK && p.s.section <= 0))
     return cudaErrorInvalidValue;
   if (p.kv_dtype < KV_INT8 || p.kv_dtype > KV_E5M2) return cudaErrorInvalidValue;
   const bool qi8 = p.q_mode == Q_INT8 || p.q_mode == Q_LOAD_INT8;
@@ -703,18 +724,21 @@ cudaError_t dispatch(const Params& p, int bh, int d, int pv_quant, cudaStream_t 
 // (bh_kv, d); gk (bh_kv) or null for the exact running max; o like q; lse
 // (bh, n_q) or null; q_out/qs_out null or (bh, n_q, d) / (bh, n_q) for the
 // staged operand (bytes, or bf16 in weight-only mode) and its row factors.
-// q_mode 0 weight-only, 1 fp8 (e4m3 Q), 2 int8 Q. c is float32(scale·log2e).
-// All contiguous, 16-byte aligned; d ∈ {64, 128, 256}.
+// kind, offset, radius, section: the schedule (schedule.cuh; n_kv is the
+// halo-extended length for the circulant). q_mode 0 weight-only, 1 fp8
+// (e4m3 Q), 2 int8 Q. c is float32(scale·log2e). All contiguous, 16-byte
+// aligned; d ∈ {64, 128, 256}.
 extern "C" cudaError_t tf_serving_attention(
     const void* q, const void* k, const void* v, const float* sk_token,
     const float* sk_tensor, const float* sv, const float* gk, void* o, float* lse,
     void* q_out, float* qs_out, int bh, int n_q, int n_kv, int hq, int hkv, int d,
-    int causal, int offset, int q_mode, int q_f32, int kv_dtype, int pv_quant,
-    float c, cudaStream_t stream) {
+    int kind, int offset, int radius, int section, int q_mode, int q_f32, int kv_dtype,
+    int pv_quant, float c, cudaStream_t stream) {
   if (q_mode < Q_RAW || q_mode > Q_INT8) return cudaErrorInvalidValue;
   const Params p{q, nullptr, static_cast<const uint8_t*>(k), static_cast<const uint8_t*>(v),
                  sk_token, sk_tensor, sv, gk, o, lse, q_out, qs_out,
-                 n_q, n_kv, hq, hkv, causal, offset, q_mode, q_f32, kv_dtype, q_f32, c};
+                 Sched{n_q, n_kv, kind, offset, radius, section}, hq, hkv, q_mode, q_f32,
+                 kv_dtype, q_f32, c};
   return dispatch(p, bh, d, pv_quant, stream);
 }
 
@@ -725,12 +749,13 @@ extern "C" cudaError_t tf_serving_attention(
 extern "C" cudaError_t tf_quant_attention(
     const void* q, const float* sq, const void* k, const void* v,
     const float* sk_token, const float* sv, const float* gk, void* o, float* lse,
-    int bh, int n_q, int n_kv, int hq, int hkv, int d, int causal, int offset,
-    int q_kind, int kv_dtype, int o_f32, float c, cudaStream_t stream) {
+    int bh, int n_q, int n_kv, int hq, int hkv, int d, int kind, int offset, int radius,
+    int section, int q_kind, int kv_dtype, int o_f32, float c, cudaStream_t stream) {
   if (q_kind < 0 || q_kind > 2) return cudaErrorInvalidValue;
   const int q_mode = q_kind == 0 ? Q_LOAD_BF16 : q_kind == 1 ? Q_LOAD_INT8 : Q_LOAD_FP8;
   const Params p{q, sq, static_cast<const uint8_t*>(k), static_cast<const uint8_t*>(v),
                  sk_token, nullptr, sv, gk, o, lse, nullptr, nullptr,
-                 n_q, n_kv, hq, hkv, causal, offset, q_mode, 0, kv_dtype, o_f32, c};
+                 Sched{n_q, n_kv, kind, offset, radius, section}, hq, hkv, q_mode, 0, kv_dtype,
+                 o_f32, c};
   return dispatch(p, bh, d, 0, stream);
 }

@@ -59,12 +59,12 @@ _SIGNATURES = {
     # hkv, d, kind, offset, radius, section, dtype, stream
     "tf_flash_bwd_dkv": [_vp] * 11 + [_i32] * 11 + [_vp],
     # q, k, v, sk_token, sk_tensor, sv, gk, o, lse, q_out, qs_out, bh, n_q,
-    # n_kv, hq, hkv, d, causal, offset, q_mode, q_f32, kv_dtype, pv_quant,
-    # c, stream
-    "tf_serving_attention": [_vp] * 11 + [_i32] * 12 + [ctypes.c_float, _vp],
+    # n_kv, hq, hkv, d, kind, offset, radius, section, q_mode, q_f32,
+    # kv_dtype, pv_quant, c, stream
+    "tf_serving_attention": [_vp] * 11 + [_i32] * 14 + [ctypes.c_float, _vp],
     # q, sq, k, v, sk_token, sv, gk, o, lse, bh, n_q, n_kv, hq, hkv, d,
-    # causal, offset, q_kind, kv_dtype, o_f32, c, stream
-    "tf_quant_attention": [_vp] * 9 + [_i32] * 11 + [ctypes.c_float, _vp],
+    # kind, offset, radius, section, q_kind, kv_dtype, o_f32, c, stream
+    "tf_quant_attention": [_vp] * 9 + [_i32] * 13 + [ctypes.c_float, _vp],
     # x, out, n, fibers, m, dtype, stream
     "tf_softmax_onepass": [_vp] * 2 + [_i32] * 4 + [_vp],
     # x, lse, n, fibers, m, dtype, stream

@@ -74,6 +74,26 @@ _KIND = {(Schedule, False): 0, (CausalSchedule, False): 1,
          (CirculantSchedule, False): 4, (BlockDiagonalSchedule, False): 5}
 
 
+def kernel_schedule(sched: Schedule) -> tuple[int, int, int, int]:
+    """The schedule as the kernels take it (``csrc/schedule.cuh:Sched``):
+    kind, causal offset n_kv − n_q, band radius and section; raises for a
+    schedule no kernel walks."""
+    kind = _KIND.get((type(sched), getattr(sched, "causal", False)))
+    if kind is None:
+        raise NotImplementedError(f"no CUDA kernel for {type(sched).__name__}")
+    return (kind, sched._offset if kind == 1 else 0,
+            getattr(sched, "radius", 0), getattr(sched, "section", 0))
+
+
+def halo_extend(x: torch.Tensor, radius: int, dim: int = 2) -> torch.Tensor:
+    """``cat([x[-r:], x, x[:r]])`` along ``dim``: the circulant's K/V."""
+    if radius <= 0:
+        return x
+    n = x.shape[dim]
+    return torch.cat([x.narrow(dim, n - radius, radius), x,
+                      x.narrow(dim, 0, radius)], dim=dim)
+
+
 def _round_up(x: int, m: int) -> int:
     return cdiv(x, m) * m
 
@@ -239,9 +259,7 @@ def _flash_fwd_kernel(q, k, v, sched: Schedule, hq: int, hkv: int,
     beforehand (so that the kernel can be timed alone)."""
     from tpu_flash_torch.kernels import _build
 
-    kind = _KIND.get((type(sched), getattr(sched, "causal", False)))
-    if kind is None:
-        raise NotImplementedError(f"no CUDA kernel for {type(sched).__name__}")
+    sched_args = kernel_schedule(sched)
     if not (q.is_cuda and k.device == q.device and v.device == q.device):
         raise ValueError("flash kernel: q, k, v must be on one CUDA device")
     if q.dtype not in (torch.bfloat16, torch.float32) or not (
@@ -268,9 +286,8 @@ def _flash_fwd_kernel(q, k, v, sched: Schedule, hq: int, hkv: int,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         None if lse is None else lse.data_ptr(),
         None if kmax is None else kmax.data_ptr(),
-        bh, n_q, n_kv, hq, hkv, width, kind,
-        sched._offset if kind == 1 else 0, getattr(sched, "radius", 0),
-        getattr(sched, "section", 0), kernels.dtype_code(q.dtype),
+        bh, n_q, n_kv, hq, hkv, width, *sched_args,
+        kernels.dtype_code(q.dtype),
         kernels.stream_handle(q),
     )
     _build.check(err, "tf_flash_fwd")
@@ -426,9 +443,8 @@ def flash_attention(
     qf = (q.float() * (scale * LOG2E)).to(q.dtype).reshape(b * h, n_q, d)
     kf = k.reshape(b * hkv, n_kv, d)
     vf = v.reshape(b * hkv, n_kv, dv)
-    if schedule == "circulant" and radius > 0:
-        kf = torch.cat([kf[:, -radius:], kf, kf[:, :radius]], dim=1)
-        vf = torch.cat([vf[:, -radius:], vf, vf[:, :radius]], dim=1)
+    if schedule == "circulant":
+        kf, vf = halo_extend(kf, radius, dim=1), halo_extend(vf, radius, dim=1)
     o, lse = _fa(qf, kf, vf, sched, h, hkv, return_lse, bool(bound_max),
                  bwd_split, bwd_quant)
     o = o.reshape(b, h, n_q, dv)

@@ -53,6 +53,7 @@ from tpu_flash_torch.ops.flash import (
     _aligned,
     _kv_rows,
     kernel_head_dim,
+    kernel_schedule,
     pad_head_dims,
     slice_head_dims,
 )
@@ -168,13 +169,11 @@ def _flash_bwd_plain(q, k, v, o, lse, do, dlse, sched: Schedule, hq: int,
 
 
 def _kernel_args(q, k, sched: Schedule, hq: int, hkv: int):
-    """The scalar arguments both kernels share: sizes, the schedule's kind
-    (``ops/flash.py:_KIND``), causal offset n_kv − n_q, band radius and
-    section (the kernels pick their own tiles), dtype code and stream."""
-    kind = _KIND[(type(sched), getattr(sched, "causal", False))]
-    return (q.shape[1], k.shape[1], hq, hkv, q.shape[-1], kind,
-            sched._offset if kind == 1 else 0, getattr(sched, "radius", 0),
-            getattr(sched, "section", 0), kernels.dtype_code(q.dtype),
+    """The scalar arguments both kernels share: sizes, the schedule
+    (``ops/flash.py:kernel_schedule``; the kernels pick their own tiles),
+    dtype code and stream."""
+    return (q.shape[1], k.shape[1], hq, hkv, q.shape[-1],
+            *kernel_schedule(sched), kernels.dtype_code(q.dtype),
             kernels.stream_handle(q))
 
 

@@ -377,3 +377,31 @@ class CirculantSchedule(Schedule):
         k_lo, k_hi = j * self.block_kv, (j + 1) * self.block_kv - 1
         full = k_lo >= q_hi and k_hi - q_lo <= 2 * self.radius
         return full and self._kv_pad_ok(j)
+
+
+def kv_tile_range(sched: Schedule, n_kv: int, q0: int, q_last: int,
+                  bkv: int) -> tuple[int, int]:
+    """The kv tiles ``[first, last]`` (of ``bkv`` rows over ``n_kv`` keys,
+    the kv tensor's length: the halo-extended one for the circulant) that
+    the CUDA kernels visit for q rows ``[q0, q_last]``
+    (``csrc/schedule.cuh:kv_range``); ``last < first``: none. Plain
+    versions that walk the kernels' tiles take their visits from here."""
+    first, last = 0, cdiv(n_kv, bkv) - 1
+    if isinstance(sched, CausalSchedule):
+        last_k = q_last + sched._offset
+        last = -1 if last_k < 0 else min(last, last_k // bkv)
+    elif isinstance(sched, LocalSchedule):
+        first = max(0, q0 - sched.radius) // bkv
+        last = min(last, (q_last + sched.radius) // bkv)
+        if sched.causal:
+            last = min(last, q_last // bkv)
+    elif isinstance(sched, CirculantSchedule):
+        first = q0 // bkv
+        last = min(last, (q_last + 2 * sched.radius) // bkv)
+    elif isinstance(sched, BlockDiagonalSchedule):
+        first = q0 // sched.section * sched.section // bkv
+        last = min(last, ((q_last // sched.section + 1) * sched.section - 1)
+                   // bkv)
+    elif type(sched) is not Schedule:
+        raise NotImplementedError(f"no kernel visit for {type(sched).__name__}")
+    return first, last

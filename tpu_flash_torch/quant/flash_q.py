@@ -1,5 +1,6 @@
 """Quantized flash-attention forward (B7): port of ``tpu_flash/quant/flash_q.py``
-for the dense and causal schedules.
+on the dense, causal, local, local_causal, circulant and block-diagonal
+schedules (the shifted one is ROADMAP A13).
 
 * **activation-quant** (``q_dtype`` int8): int8 q̂·k̂ with int32
   accumulation, dequantized on the score matrix (``s = (q̂·k̂)·σq·log2e·σk``).
@@ -29,9 +30,11 @@ through :func:`_quant_attention_kernel`, or raise. The port masks ragged
 edges in the kernel, so the reference's ``_pad_scales`` has no counterpart;
 on the card head and value dims are zero-padded to the kernel's width
 (``ops/flash.py:pad_head_dims``: K̂/V̂ with byte 0, σv with 1) and o is
-sliced back. At d ≤ 64 the reference routes to its transposed
-serving kernel (B8); the port keeps that routing to
-``quant/serving_attn.py`` (one kernel serves both on the card).
+sliced back. At d ≤ 64 the reference routes every schedule but the
+circulant to its transposed serving kernel (B8); the port keeps that
+routing to ``quant/serving_attn.py`` (one kernel serves both on the card).
+The circulant quantizes halo-extended K/V (``cat([k[-r:], k, k[:r]])``),
+as the reference does, and stays on B7 at any d.
 """
 
 from __future__ import annotations
@@ -51,12 +54,18 @@ from tpu_flash_torch.ops.flash import (
     _aligned,
     _kv_rows,
     build_schedule,
+    halo_extend,
     kernel_head_dim,
+    kernel_schedule,
     pad_head_dims,
     slice_head_dims,
 )
-from tpu_flash_torch.ops.schedule import CausalSchedule, Schedule
+from tpu_flash_torch.ops.schedule import Schedule, cdiv, kv_tile_range
 from tpu_flash_torch.quant.qarray import FP8, QArray, as_dtype, quantize
+
+
+# the kernel's q tile: two consumer warpgroups of 64 rows
+KERNEL_BQ = 128
 
 
 def kernel_block_kv(d: int, dv: int) -> int:
@@ -72,24 +81,14 @@ def f32(x: float) -> float:
     return struct.unpack("f", struct.pack("f", x))[0]
 
 
-# the quantized route's unported options: B6/B7 take no band, circulant or
-# block-diagonal schedule yet (A10; the bf16 route took the last two in A11)
-_UNPORTED_Q = {**_UNPORTED, "radius": "A10",
-               "section": "A10; the bf16 route has it, ROADMAP A11"}
-
-
-def refuse_unported(schedule: str = "dense", **options) -> None:
-    """Raise for a reference schedule or option that the quantized route
-    does not take yet."""
-    if schedule in ("local", "local_causal", "block", "circulant"):
-        raise NotImplementedError(
-            f"schedule {schedule!r} on the quantized route is not ported yet "
-            "(ROADMAP A10); dense and causal schedules only")
+def refuse_unported(**options) -> None:
+    """Raise for the reference's shifted-schedule options, which the
+    quantized route does not take yet (``ops/flash.py:_UNPORTED``)."""
     for name, value in options.items():
         if value:
             raise NotImplementedError(
                 f"{name}={value!r} is not ported yet (ROADMAP "
-                f"{_UNPORTED_Q[name]}); dense and causal schedules only")
+                f"{_UNPORTED[name]}); the shifted schedule goes with the ring")
 
 
 def scaled_k_norms(k_vals: torch.Tensor, sk_row=None) -> torch.Tensor:
@@ -103,18 +102,22 @@ def scaled_k_norms(k_vals: torch.Tensor, sk_row=None) -> torch.Tensor:
     return kn
 
 
-def _attend_plain(q_op, qs, k_vals, v_vals, sk, sv, gk, causal: bool,
+def _attend_plain(q_op, qs, k_vals, v_vals, sk, sv, gk, sched: Schedule,
                   hq: int, hkv: int, out_dtype, pv_quant: bool = False):
     """Plain PyTorch version of the kernel's tile loop → (o, lse).
 
     ``q_op``: ``(bh, n_q, d)`` bf16 score operand (scale and log2e folded
     in), or int8 / e4m3 q̂ with ``qs`` ``(bh, n_q)`` its row factors (the
     score is (q̂·k̂)·f·σk); ``k_vals``/
-    ``v_vals``: ``(bh_kv, n_kv, d)`` int8/fp8; ``sk``: ``(bh_kv, n_kv)``
+    ``v_vals``: ``(bh_kv, n_kv, d)`` int8/fp8 (the circulant's
+    halo-extended); ``sk``: ``(bh_kv, n_kv)``
     per-token K scales or None; ``sv``: ``(bh_kv, dv)``; ``gk``: ``(bh_kv,)``
     max scaled key norms (constant bound) or None (exact running max).
-    Walks the keys in the kernel's tiles with the same arithmetic: e4m3 q̂
-    dots K̂ as the card's fp8 units sum (:func:`fp8_scores`); memory is
+    Each of the kernel's 128-row q tiles walks the kv tiles the kernel
+    visits for it (:func:`~tpu_flash_torch.ops.schedule.kv_tile_range`)
+    with the same arithmetic, masked by ``sched.visible``: the running max,
+    and with it every rounding of P, follows the kernel's. e4m3 q̂ dots K̂
+    as the card's fp8 units sum (:func:`fp8_scores`); memory is
     O(bh·n_q·(d + tile)), so the headline shape fits in a few GB.
     """
     bh, n_q, d = q_op.shape
@@ -122,46 +125,80 @@ def _attend_plain(q_op, qs, k_vals, v_vals, sk, sv, gk, causal: bool,
     tile = kernel_block_kv(d, dv)
     dev = q_op.device
     rows = _kv_rows(bh, hq, hkv, dev)
-    qf = q_op.float()
     fp8 = q_op.dtype == torch.float8_e4m3fn
+    nqt, nkt = cdiv(n_q, KERNEL_BQ), cdiv(n_kv, tile)
+
+    def tiled(x, n_tiles, size):  # (B, n, ...) → (B, n_tiles, size, ...)
+        x = torch.nn.functional.pad(
+            x, (0, 0) * (x.dim() - 2) + (0, n_tiles * size - x.shape[1]))
+        return x.reshape(x.shape[0], n_tiles, size, *x.shape[2:])
+
+    qf = tiled(q_op.float(), nqt, KERNEL_BQ)
+    qsf = None if qs is None else tiled(qs, nqt, KERNEL_BQ)
     # exact decode: int8 and fp8 values are exact in float32, so int8
     # products and their sums (< 2²⁴) are exact as well
-    kf, vf = k_vals.float()[rows], v_vals.float()[rows]
-    skr = None if sk is None else sk[rows]
+    kf = tiled(k_vals.float()[rows], nkt, tile)
+    vf = tiled(v_vals.float()[rows], nkt, tile)
+    skf = None if sk is None else tiled(sk[rows], nkt, tile)
     if gk is None:
-        m = torch.full((bh, n_q, 1), DEFAULT_MASK_VALUE, device=dev)
+        m = torch.full((bh, nqt, KERNEL_BQ, 1), DEFAULT_MASK_VALUE, device=dev)
     else:
         qn = torch.sqrt(torch.sum(qf * qf, dim=-1, keepdim=True))
-        if qs is not None:
-            qn = qn * qs[..., None]
-        m = qn * (gk[rows] * f32(1.0001))[:, None, None]
-    l = torch.zeros(bh, n_q, 1, device=dev)
-    acc = torch.zeros(bh, n_q, dv, device=dev)
-    qpos = torch.arange(n_q, device=dev)[:, None] + (n_kv - n_q)
-    for k0 in range(0, n_kv, tile):
-        k1 = min(k0 + tile, n_kv)
-        s = (fp8_scores(qf, kf[:, k0:k1], q_op.dtype, k_vals.dtype) if fp8
-             else torch.einsum("bqd,bkd->bqk", qf, kf[:, k0:k1]))
-        if qs is not None:
-            s = s * qs[..., None]
-        if skr is not None:
-            s = s * skr[:, None, k0:k1]
-        if causal:
-            kpos = torch.arange(k0, k1, device=dev)[None, :]
-            s = torch.where(kpos <= qpos, s, DEFAULT_MASK_VALUE)
+        if qsf is not None:
+            qn = qn * qsf[..., None]
+        m = qn * (gk[rows] * f32(1.0001))[:, None, None, None]
+    l = torch.zeros(bh, nqt, KERNEL_BQ, 1, device=dev)
+    acc = torch.zeros(bh, nqt, KERNEL_BQ, dv, device=dev)
+    visits = [kv_tile_range(sched, n_kv, i * KERNEL_BQ,
+                            min((i + 1) * KERNEL_BQ, n_q) - 1, tile)
+              for i in range(nqt)]
+    qpos = torch.arange(nqt * KERNEL_BQ, device=dev).reshape(nqt, -1, 1)
+    for step in range(max([last - first + 1 for first, last in visits],
+                          default=0)):
+        # the q tiles still walking, and the kv tile each visits: one
+        # tile for all of them (dense, causal, their early steps) is read
+        # once and broadcast
+        live = [i for i, (first, last) in enumerate(visits)
+                if first + step <= last]
+        js = [visits[i][0] + step for i in live]
+        sel = (slice(None) if len(live) == nqt
+               else torch.tensor(live, device=dev))
+        jt = (slice(js[0], js[0] + 1) if js.count(js[0]) == len(js)
+              else torch.tensor(js, device=dev))
+        q_s, k_s = qf[:, sel], kf[:, jt]
+        if fp8:
+            b_ = bh * len(live)
+            sc = fp8_scores(q_s.reshape(b_, KERNEL_BQ, -1),
+                            k_s.expand(bh, len(live), -1, -1).reshape(
+                                b_, tile, -1), q_op.dtype,
+                            k_vals.dtype).reshape(bh, len(live), KERNEL_BQ,
+                                                  tile)
+        else:
+            sc = q_s @ k_s.transpose(-1, -2)
+        if qsf is not None:
+            sc = sc * qsf[:, sel, :, None]
+        if skf is not None:
+            sc = sc * skf[:, jt, None, :]
+        kpos = (torch.tensor(js, device=dev)[:, None] * tile
+                + torch.arange(tile, device=dev))[:, None]
+        vis = sched.visible(qpos[sel], kpos)
+        vis = kpos < n_kv if vis is None else vis & (kpos < n_kv)
+        sc = torch.where(vis, sc, DEFAULT_MASK_VALUE)
+        m_s, l_s, acc_s = m[:, sel], l[:, sel], acc[:, sel]
         if gk is None:
-            m_next = torch.maximum(m, s.amax(dim=-1, keepdim=True))
-            alpha = torch.exp2(m - m_next)
-            l, acc, m = alpha * l, acc * alpha, m_next
-        p = torch.exp2(s - m)
-        l = l + p.sum(dim=-1, keepdim=True)
+            m_next = torch.maximum(m_s, sc.amax(dim=-1, keepdim=True))
+            alpha = torch.exp2(m_s - m_next)
+            l_s, acc_s, m_s = alpha * l_s, acc_s * alpha, m_next
+        p = torch.exp2(sc - m_s)
+        l_s = l_s + p.sum(dim=-1, keepdim=True)
         if pv_quant:
             p8 = torch.clamp(torch.round(p * 127.0), 0, 127)
-            pv = torch.einsum("bqk,bkd->bqd", p8, vf[:, k0:k1]) * f32(1 / 127)
+            pv = (p8 @ vf[:, jt]) * f32(1 / 127)
         else:
-            pv = torch.einsum("bqk,bkd->bqd", p.to(torch.bfloat16).float(),
-                              vf[:, k0:k1])
-        acc = acc + pv
+            pv = p.to(torch.bfloat16).float() @ vf[:, jt]
+        m[:, sel], l[:, sel], acc[:, sel] = m_s, l_s, acc_s + pv
+    m, l, acc = (x.reshape(bh, nqt * KERNEL_BQ, -1)[:, :n_q]
+                 for x in (m, l, acc))
     valid = (l > 0.0) & (m > DEFAULT_MASK_VALUE * 0.5)
     l_safe = torch.where(l > 0.0, l, 1.0)
     l_inv = torch.where(valid, 1.0 / l_safe, 0.0)
@@ -288,15 +325,14 @@ def _quant_attention_kernel(q_op, sq, k_vals, v_vals, sk, sv, gk,
     sq = None if sq is None else _aligned(sq.float())
     sk = None if sk is None else _aligned(sk.float())
     gk = None if gk is None else _aligned(gk.float())
-    causal = isinstance(sched, CausalSchedule)
     o = torch.empty(bh, n_q, width, device=q_op.device, dtype=out_dtype)
     lse = (torch.empty(bh, n_q, device=q_op.device, dtype=torch.float32)
            if need_lse else None)
     err = _build.library().tf_quant_attention(
         q_op.data_ptr(), _ptr(sq), k_vals.data_ptr(), v_vals.data_ptr(),
         _ptr(sk), sv.data_ptr(), _ptr(gk), o.data_ptr(), _ptr(lse),
-        bh, n_q, n_kv, hq, hkv, width, int(causal),
-        n_kv - n_q if causal else 0, _Q_KINDS[q_op.dtype],
+        bh, n_q, n_kv, hq, hkv, width, *kernel_schedule(sched),
+        _Q_KINDS[q_op.dtype],
         kernels.KV_CODES[k_vals.dtype], int(out_dtype == torch.float32),
         q_factor_multiplier(q_op.dtype), kernels.stream_handle(q_op),
     )
@@ -327,8 +363,8 @@ def _quant_plain(q_op, sq, k_vals, v_vals, sk, sv, gk, sched: Schedule,
     """Plain PyTorch version of the B7 kernel (same contract as
     :func:`_quant_attention_kernel`)."""
     qs = None if sq is None else sq * q_factor_multiplier(q_op.dtype)
-    return _attend_plain(q_op, qs, k_vals, v_vals, sk, sv, gk,
-                         isinstance(sched, CausalSchedule), hq, hkv, out_dtype)
+    return _attend_plain(q_op, qs, k_vals, v_vals, sk, sv, gk, sched, hq, hkv,
+                         out_dtype)
 
 
 def _quantized_fwd(qq: Optional[QArray], q_raw, kq: QArray, vq: QArray,
@@ -379,13 +415,14 @@ def quantized_flash_attention(
     the exact running max. ``block_q``/``block_kv`` only shape the
     reference's schedule; the kernel runs its own tiles (128 q rows by 128
     kv rows, 64 at head widths above 128). Any d and dv up to 256 run on
-    the card. At d ≤ 64
-    the call goes to :func:`~tpu_flash_torch.quant.serving_attn.
+    the card. ``schedule``: dense, causal, local, local_causal (``radius``),
+    circulant (``radius``; K/V halo-extended before they are quantized, as
+    in the reference) or block (``section``); the shifted schedule's
+    options raise (ROADMAP A13). At d ≤ 64 every schedule but the
+    circulant goes to :func:`~tpu_flash_torch.quant.serving_attn.
     serving_flash_attention`, as in the reference (``transposed``).
-    Schedules other than dense and causal raise (ROADMAP A10/A13).
     """
-    refuse_unported(schedule, radius=radius, section=section, shift=shift,
-                    wrap_n=wrap_n, shifted_causal=shifted_causal)
+    refuse_unported(shift=shift, wrap_n=wrap_n, shifted_causal=shifted_causal)
     if q.ndim != 4:
         raise ValueError(f"expected (batch, heads, n, d), got {tuple(q.shape)}")
     hq, hkv = q.shape[1], k.shape[1]
@@ -402,7 +439,8 @@ def quantized_flash_attention(
     n_kv, dv = k.shape[2], v.shape[-1]
     if scale is None:
         scale = 1.0 / math.sqrt(d)
-    sched = build_schedule(schedule, n_q, n_kv, block_q, block_kv)
+    sched = build_schedule(schedule, n_q, n_kv, block_q, block_kv,
+                           radius=radius, section=section)
     if kv_scale not in ("token", "tensor"):
         raise ValueError(
             f"kv_scale must be 'token' or 'tensor', got {kv_scale!r}")
@@ -414,7 +452,9 @@ def quantized_flash_attention(
             "native int8 path with per-token scales)")
     k_axis = -1 if k_scaled else (-2, -1)
     if transposed is None:
-        transposed = (d <= 64 and dv <= 64 and q_dtype in (
+        # the circulant stays here with its halo, as in the reference
+        transposed = (d <= 64 and dv <= 64 and schedule in (
+            "dense", "causal", "local", "local_causal", "block") and q_dtype in (
             None, torch.int8, torch.float8_e4m3fn))
     if transposed:
         from tpu_flash_torch.quant.serving_attn import serving_flash_attention
@@ -422,10 +462,12 @@ def quantized_flash_attention(
         return serving_flash_attention(
             q, quantize(k, kv_dtype, axis=k_axis),
             quantize(v, kv_dtype, axis=-2), q_dtype=q_dtype,
-            schedule=schedule, scale=scale, block_q=block_q,
-            block_kv=block_kv, bound_max=bound_max, transposed=True,
-            return_lse=return_lse)
+            schedule=schedule, scale=scale, radius=radius, section=section,
+            block_q=block_q, block_kv=block_kv, bound_max=bound_max,
+            transposed=True, return_lse=return_lse)
 
+    if schedule == "circulant":  # quantized after the halo extension
+        k, v = halo_extend(k, radius), halo_extend(v, radius)
     qq, q_raw, kq, vq = prepare_quantized(q, k, v, q_dtype, kv_dtype,
                                           k_scaled, scale)
     o, lse = _quantized_fwd(
@@ -475,6 +517,28 @@ def _quantized_q(qf, q_dtype, fold):
     return None, ((qv.values.float() * qv.scales) * fold).to(torch.bfloat16)
 
 
+def phantom_rows(kq: QArray, vq: QArray, rows: int):
+    """``(b, hkv, n, ·)`` K̂/V̂ with ``rows`` zero rows (byte 0) after
+    them, per-token K scales 1.0 there. The reference runs a circulant over
+    K/V that were not halo-extended (the cache of
+    ``serving_flash_attention``, the operands of
+    ``quantized_flash_attention_prequant``) against its padded length
+    n + 2·radius: the padding rows stay visible, as keys of score 0 and
+    value 0 (ROADMAP C). These rows reproduce that."""
+    if rows <= 0:
+        return kq, vq
+
+    def pad(x, fill):
+        tail = torch.full((*x.shape[:2], rows, x.shape[-1]), fill,
+                          dtype=torch.float32, device=x.device).to(x.dtype)
+        return torch.cat([x, tail], dim=2)
+
+    per_token = kq.axis in (-1, kq.values.ndim - 1)
+    k_scales = pad(kq.scales, 1.0) if per_token else kq.scales
+    return (QArray(pad(kq.values, 0.0), k_scales, kq.axis),
+            QArray(pad(vq.values, 0.0), vq.scales, vq.axis))
+
+
 def quantized_dense_fa(q, k, v, **kw):
     """Dense quantized attention (see :func:`quantized_flash_attention`)."""
     return quantized_flash_attention(q, k, v, schedule="dense", **kw)
@@ -521,16 +585,22 @@ def quantized_flash_attention_prequant(
 ):
     """Attend with operands from :func:`prepare_ring_operands` — no
     quantize preamble. ``(batch, heads, n, d)`` values; per-token K scales,
-    per-channel V scales; GQA (kv heads divide q heads)."""
-    refuse_unported(schedule, radius=radius, section=section, shift=shift,
-                    wrap_n=wrap_n, shifted_causal=shifted_causal)
+    per-channel V scales; GQA (kv heads divide q heads). Schedules as
+    :func:`quantized_flash_attention`; the circulant takes the K/V it is
+    given, with 2·radius zero rows after them (:func:`phantom_rows`), as
+    the reference does."""
+    refuse_unported(shift=shift, wrap_n=wrap_n, shifted_causal=shifted_causal)
     q_vals = q_pre.values if isinstance(q_pre, QArray) else q_pre
     b, h, n_q, d = q_vals.shape
     hkv, n_kv = kq.values.shape[1], kq.values.shape[2]
     if h % hkv:
         raise ValueError(f"q heads {h} not a multiple of kv heads {hkv}")
     dv = vq.values.shape[-1]
-    sched = build_schedule(schedule, n_q, n_kv, block_q, block_kv)
+    sched = build_schedule(schedule, n_q, n_kv, block_q, block_kv,
+                           radius=radius, section=section)
+    if schedule == "circulant":
+        kq, vq = phantom_rows(kq, vq, 2 * radius)
+        n_kv += 2 * radius
     kqf = QArray(kq.values.reshape(b * hkv, n_kv, d),
                  kq.scales.reshape(b * hkv, n_kv, 1), axis=-1)
     vqf = QArray(vq.values.reshape(b * hkv, n_kv, dv),

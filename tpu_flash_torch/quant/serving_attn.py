@@ -1,5 +1,10 @@
 """Serving-mode quantized attention (B6, B8): port of
-``tpu_flash/quant/serving_attn.py`` for the dense and causal schedules.
+``tpu_flash/quant/serving_attn.py`` on the dense, causal, local,
+local_causal, circulant and block-diagonal schedules (the shifted one is
+ROADMAP A13). The circulant runs over the cache as given, with 2·radius
+zero rows after it (``flash_q.phantom_rows``): the reference does not
+halo-extend a cache, so those padding keys stay visible to it (score 0,
+value 0; ROADMAP C), and the port reproduces that.
 
 K/V come pre-quantized (cache residents: int8, e4m3 or e5m2; K per token
 or per tensor, V per channel); only Q is fresh, and the kernel quantizes
@@ -32,15 +37,17 @@ from tpu_flash_torch.ops.flash import (
     _kv_rows,
     build_schedule,
     kernel_head_dim,
+    kernel_schedule,
     pad_head_dims,
     slice_head_dims,
 )
-from tpu_flash_torch.ops.schedule import CausalSchedule, Schedule
+from tpu_flash_torch.ops.schedule import Schedule
 from tpu_flash_torch.quant.flash_q import (
     _attend_plain,
     _ptr,
     check_kernel_operands,
     f32,
+    phantom_rows,
     refuse_unported,
     scaled_k_norms,
 )
@@ -113,7 +120,6 @@ def _serving_attention_kernel(q, k_vals, v_vals, sk_token, sk_tensor, sv, gk,
     q, k_vals, v_vals, sv = (_aligned(t) for t in (q, k_vals, v_vals, sv))
     sk_token, sk_tensor, gk = (None if t is None else _aligned(t.float())
                                for t in (sk_token, sk_tensor, gk))
-    causal = isinstance(sched, CausalSchedule)
     o = torch.empty_like(q)
     lse = (torch.empty(bh, n_q, device=q.device, dtype=torch.float32)
            if need_lse else None)
@@ -126,8 +132,8 @@ def _serving_attention_kernel(q, k_vals, v_vals, sk_token, sk_tensor, sv, gk,
     err = _build.library().tf_serving_attention(
         q.data_ptr(), k_vals.data_ptr(), v_vals.data_ptr(), _ptr(sk_token),
         _ptr(sk_tensor), sv.data_ptr(), _ptr(gk), o.data_ptr(), _ptr(lse),
-        _ptr(q_out), _ptr(qs_out), bh, n_q, n_kv, hq, hkv, width, int(causal),
-        n_kv - n_q if causal else 0, _Q_MODES[q_mode],
+        _ptr(q_out), _ptr(qs_out), bh, n_q, n_kv, hq, hkv, width,
+        *kernel_schedule(sched), _Q_MODES[q_mode],
         int(q.dtype == torch.float32), kernels.KV_CODES[k_vals.dtype],
         int(pv_quant), c, kernels.stream_handle(q),
     )
@@ -149,9 +155,8 @@ def _serving_plain(q, k_vals, v_vals, sk_token, sk_tensor, sv, gk,
     if sk_tensor is not None:
         skf = sk_tensor[_kv_rows(q.shape[0], hq, hkv, q.device)][:, None, None]
     q_op, qs = _stage_q_plain(q, q_mode, c, skf)
-    return _attend_plain(q_op, qs, k_vals, v_vals, sk_token, sv, gk,
-                         isinstance(sched, CausalSchedule), hq, hkv, q.dtype,
-                         pv_quant)
+    return _attend_plain(q_op, qs, k_vals, v_vals, sk_token, sv, gk, sched,
+                         hq, hkv, q.dtype, pv_quant)
 
 
 def _serving_attn(q, k_vals, v_vals, sk_token, sk_tensor, sv, gk,
@@ -209,16 +214,19 @@ def serving_flash_attention(
     they change nothing. ``block_q``/``block_kv`` only shape the
     reference's schedule (and ``kv_split``'s check); the kernel runs its
     own tiles (128 q rows by 128 kv rows, 64 at head widths above 128). Any
-    d and dv up to 256 run on the card. ``isolate`` (an A/B diagnostic that computes wrong
-    outputs by design) and schedules other than dense and causal raise
+    d and dv up to 256 run on the card. ``schedule``: dense, causal, local,
+    local_causal (``radius``), circulant (``radius``, over the cache with
+    2·radius phantom zero keys after it, as the reference computes it:
+    :func:`~tpu_flash_torch.quant.flash_q.phantom_rows`) or block
+    (``section``). ``isolate`` (an A/B diagnostic that computes wrong
+    outputs by design) and the shifted schedule's options raise
     ``NotImplementedError``.
     """
     if isolate:
         raise NotImplementedError(
             "isolate is the reference's A/B diagnostic (wrong outputs by "
             "design); the port does not carry it (ROADMAP north star)")
-    refuse_unported(schedule, radius=radius, section=section, shift=shift,
-                    wrap_n=wrap_n, shifted_causal=shifted_causal)
+    refuse_unported(shift=shift, wrap_n=wrap_n, shifted_causal=shifted_causal)
     if q.ndim != 4:
         raise ValueError(f"expected (batch, heads, n, d), got {tuple(q.shape)}")
     b, h, n_q, d = q.shape
@@ -257,7 +265,8 @@ def serving_flash_attention(
     if bound_max is None:
         bound_max = not pv_quant
 
-    sched = build_schedule(schedule, n_q, n_kv, block_q, block_kv)
+    sched = build_schedule(schedule, n_q, n_kv, block_q, block_kv,
+                           radius=radius, section=section)
     g = h // hkv
     if bh_block is None:
         bh_block = 1
@@ -291,6 +300,8 @@ def serving_flash_attention(
         if kv_resident and pv_quant:
             raise ValueError("pv_quant's int8 PV path has no bf16 V staging")
 
+    if schedule == "circulant":
+        kq, vq = phantom_rows(kq, vq, 2 * radius)
     o, lse = _serving_attn(
         *serving_operands(q, kq, vq, bound_max), sched, h, hkv, q_mode,
         f32(scale * LOG2E), pv_quant, return_lse)
