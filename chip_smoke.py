@@ -35,7 +35,14 @@ and the N-d and new-schedule path (circulant_fa and block_fa at n 8192,
 block2d over 256 × 256, N-d dense_fa and windowed_fa), each gated against
 the oracles, and holds the softmax, matmul and B1 circulant and
 block-diagonal kernels against their plain versions, timed beside the
-library calls. B4/B5 are held against their plain version on every
+library calls; then runs ring attention (tpu_flash_torch/parallel/ring.py)
+over virtual ranks on the one card: B1, B4/B5, B6 and B7 against their
+plain versions on the ring hop's shifted kinds (two planted faults
+rejected), the ring at the baseline's attention width (32 heads, d 128,
+N 32768, 8 ranks) in bf16 dense, causal, local and circulant and in three
+quantized local modes against the single-device kernels and the oracles,
+its gradient against the single-device one, and the sequence-parallel
+train step of the canonical model against the plain step. B4/B5 are held against their plain version on every
 schedule kind (dense, causal, local, local_causal, circulant, block) in
 each kernel family and under the int8 dp product. B1, B4/B5 and B14 rows
 give two times: the kernel's device
@@ -62,6 +69,7 @@ and the port only.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import functools
 import json
 import math
@@ -717,11 +725,14 @@ def bwd_pairs(schedule: str, n_q: int, n_kv: int, width: int) -> int:
     return sum(min(width, n_kv - s) ** 2 for s in range(0, n_kv, width))
 
 
-def bwd_timing(ops, sched, hq, hkv, dt, pairs, d, b, n_q, n_kv, quant):
+def bwd_timing(ops, sched, hq, hkv, dt, pairs, d, b, n_q, n_kv, quant,
+               reads=None):
     """B4's and B5's device and call times and bounds on prepared operands.
     Operations: B4 three products, B5 four, 2·d each a visible pair (under
     dp the dP product at the int8 rate); bytes: q, k, v, dO (dÔ, v̂ and qs
-    under dp) and the row vectors read once, the grads written once."""
+    under dp) and the row vectors read once, the grads written once.
+    ``reads``: (query rows, keys) whose operands the schedule needs, where
+    fewer than n_q and n_kv (a ring hop that few rows reach)."""
     from tpu_flash_torch.bench.harness import device_ms
     from tpu_flash_torch.ops import flash_bwd
 
@@ -732,19 +743,22 @@ def bwd_timing(ops, sched, hq, hkv, dt, pairs, d, b, n_q, n_kv, quant):
         return flash_bwd._dkv_kernel(*ops, sched, hq, hkv)
 
     e = 2 if dt == torch.bfloat16 else 4
-    q_bytes, kv_bytes = e * b * hq * n_q * d, e * b * hkv * n_kv * d
-    rows = 4 * b * hq * n_q
+    n_q_in, n_kv_in = (n_q, n_kv) if reads is None else reads
+    # read (the rows and keys the schedule reaches) and written (all)
+    q_in, kv_in = e * b * hq * n_q_in * d, e * b * hkv * n_kv_in * d
+    q_out, kv_out = e * b * hq * n_q * d, e * b * hkv * n_kv * d
+    rows = 4 * b * hq * n_q_in
     prod = 2 * d * pairs
     if quant is None:
         dq_ops, dkv_ops = {dt: 3 * prod}, {dt: 4 * prod}
-        dq_bytes = 2 * q_bytes + 2 * kv_bytes + 2 * rows + q_bytes
-        dkv_bytes = 2 * q_bytes + 2 * kv_bytes + 2 * rows + 2 * kv_bytes
+        dq_bytes = 2 * q_in + 2 * kv_in + 2 * rows + q_out
+        dkv_bytes = 2 * q_in + 2 * kv_in + 2 * rows + 2 * kv_out
     else:
         dq_ops, dkv_ops = ({dt: 2 * prod, torch.int8: prod},
                            {dt: 3 * prod, torch.int8: prod})
-        q8, kv8 = q_bytes // e, kv_bytes // e
-        dq_bytes = q_bytes + q8 + kv_bytes + kv8 + 3 * rows + q_bytes
-        dkv_bytes = 3 * q_bytes + q8 + kv_bytes + kv8 + 2 * rows + 2 * kv_bytes
+        q8, kv8 = q_in // e, kv_in // e
+        dq_bytes = q_in + q8 + kv_in + kv8 + 3 * rows + q_out
+        dkv_bytes = 3 * q_in + q8 + kv_in + kv8 + 2 * rows + 2 * kv_out
     dq = dict(ms=device_ms(run_dq), call_ms=cuda_ms(run_dq),
               **roofline(dq_ops, dq_bytes, dt))
     dkv = dict(ms=device_ms(run_dkv), call_ms=cuda_ms(run_dkv),
@@ -2602,6 +2616,568 @@ def ndim_phase(dev):
     return dict(launches=launches, timed=timed, worst=worst)
 
 
+# The ring phase. (a) the shifted kinds at a hop's shape (b 1, 8 heads,
+# shard 1024, d 128): (name, shift, radius, wrap_n, causal): a band hop from
+# the previous rank, the hop from a later rank (negative shift), the
+# circulant hop whose wrapped band reaches the shard at both ends (two runs
+# of keys), shifted_causal with a band and without one (300 rows see no key)
+RING_HOP_N = 1024
+RING_HOPS = [("band_forward", 1024, 512, 0, False),
+             ("band_from_later_rank", -1024, 512, 0, False),
+             ("two_runs", 0, 300, 1024, False),
+             ("causal_band", 256, 512, 0, True),
+             ("causal_no_band", -300, -1, 0, True)]
+# (b) the ring at the baseline's 7B-proxy attention width over 8 virtual
+# ranks: (batch, heads, N, d), ranks, band radius; the bands of query rows
+# held against the f32 oracle (edges and interior, as tests/test_ring.py's
+# 32k case); (c) the gradient's shape and ranks; (d) the train step's ranks
+RING_SHAPE, RING_RANKS, RING_RADIUS = (1, 32, 32768, 128), 8, 512
+RING_BAND_ROWS = 1024
+RING_GRAD_SHAPE, RING_GRAD_RANKS = (1, 32, 8192, 128), 4
+RING_TRAIN_RANKS = 4
+# the quantized rings (q_dtype, kv_dtype) on the local pattern
+RING_QUANT = [("int8", "int8"), (QB_FP8, QB_FP8), ("int8", "int4")]
+LOG2E_F = math.log2(math.e)
+
+
+def hop_mask(sched, n, dev):
+    """The boolean (n, n) mask of a shifted hop (the library's input)."""
+    pos = torch.arange(n, device=dev)
+    return torch.broadcast_to(sched.visible(pos[:, None], pos[None, :]),
+                              (n, n))
+
+
+def ring_hop_checks(dev):
+    """(a) B1 (bf16 d 64 and 128, float32; B9: d 64 under the norm bound),
+    B4/B5 (bf16 64 and 128 on wgmma, 256 on WMMA, float32 on FMA), B6 (fp8,
+    int8; B8: int8 at d 64) and B7 (fp8, int8, weight-only) against their
+    plain versions on every hop of RING_HOPS, rows seeing no key o 0 and lse
+    −inf; two planted faults in the plain versions (the shift one row off,
+    the wrapped band's second run dropped) must fail B1's and B6/B7's
+    checks. Returns (rows, worst error by kernel)."""
+    from tpu_flash_torch.bench.quant_bands import band_case, faults
+    from tpu_flash_torch.ops import flash, flash_bwd
+
+    gen = torch.Generator(device=dev).manual_seed(14)
+    n, h = RING_HOP_N, 8
+    rows = []
+    worst = dict(flash_fwd=0.0, flash_bwd=0.0, serving=0.0, quant=0.0)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev)
+
+    def empty_rows_zero(name, o, lse):
+        if not bool((o[~torch.isfinite(lse)] == 0).all()):
+            raise AssertionError(f"ring {name}: a row that sees no key "
+                                 "has o != 0")
+
+    for name, shift, radius, wrap, causal in RING_HOPS:
+        sched = flash.build_schedule("shifted", n, n, 512, 1024, shift=shift,
+                                     radius=radius, wrap_n=wrap,
+                                     shifted_causal=causal)
+        row = dict(hop=name, shift=shift, radius=radius, wrap_n=wrap,
+                   causal=causal, rows_seeing_no_key=int(
+                       (~hop_mask(sched, n, dev).any(-1)).sum()))
+        for d, dt, bound in ((64, torch.bfloat16, False),
+                             (64, torch.bfloat16, True),
+                             (128, torch.bfloat16, False),
+                             (128, torch.float32, False)):
+            q = (randn(h, n, d) * (d ** -0.5 * LOG2E_F)).to(dt)
+            k, v = randn(h, n, d).to(dt), randn(h, n, d).to(dt)
+            ko, kl = flash._flash_fwd_kernel(q, k, v, sched, h, h, True, bound)
+            po, pl = flash._flash_fwd_plain(q, k, v, sched, h, h, bound)
+            key = f"b1_d{d}_{str(dt)[6:]}" + ("_bound" if bound else "")
+            errs = dict(o=max_err(ko, po), lse=max_err(kl, pl))
+            check(f"ring {name} {key} o", errs["o"],
+                  TOL_BF16 if dt == torch.bfloat16 else TOL_F32)
+            check(f"ring {name} {key} lse", errs["lse"], TOL_LSE)
+            empty_rows_zero(f"{name} {key}", ko, kl)
+            worst["flash_fwd"] = max(worst["flash_fwd"], errs["o"], errs["lse"])
+            row[key] = errs
+            if d == 128 and dt == torch.bfloat16:
+                row["b1_planted_faults"] = {}
+                for fault in faults("b1", "shifted", wrap):
+                    bad = dataclasses.replace(sched, **(
+                        dict(shift=shift + 1) if fault == "shift"
+                        else dict(wrap_n=0)))
+                    fo, fl = flash._flash_fwd_plain(q, k, v, bad, h, h)
+                    ferrs = dict(o=max_err(ko, fo))
+                    ferrs["lse"] = (max_err(kl, fl) if torch.equal(
+                        torch.isfinite(kl), torch.isfinite(fl))
+                        else "finite/infinite pattern differs")
+                    if ferrs["o"] <= TOL_BF16 and not isinstance(
+                            ferrs["lse"], str) and ferrs["lse"] <= TOL_LSE:
+                        raise AssertionError(f"ring {name}: planted fault "
+                                             f"{fault} passes B1's check")
+                    row["b1_planted_faults"][fault] = ferrs
+        for d, dt in ((64, torch.bfloat16), (128, torch.bfloat16),
+                      (256, torch.bfloat16), (128, torch.float32)):
+            q = (randn(h, n, d) * (d ** -0.5 * LOG2E_F)).to(dt)
+            k, v = randn(h, n, d).to(dt), randn(h, n, d).to(dt)
+            o, lse = flash._flash_fwd_kernel(q, k, v, sched, h, h, True)
+            do, dlse = randn(h, n, d).to(dt), randn(h, n)
+            args = (q, k, v, o, lse, do, dlse, sched, h, h)
+            got = flash_bwd._flash_bwd_kernel(*args)
+            want = flash_bwd._flash_bwd_plain(*args)
+            key = f"b45_d{d}_{str(dt)[6:]}"
+            errs = {f"d{x}": rel_err(a, b) for x, a, b in zip("qkv", got, want)}
+            for x, err in errs.items():
+                check(f"ring {name} {key} {x}", err, TOL_BWD_PLAIN[dt])
+            worst["flash_bwd"] = max(worst["flash_bwd"], *errs.values())
+            row[key] = errs
+        for family, q_dt, kv_dt, d in (
+                ("serving", QB_FP8, QB_FP8, 128), ("serving", "int8", "int8", 128),
+                ("serving", "int8", "int8", 64), ("quant", QB_FP8, QB_FP8, 128),
+                ("quant", "int8", "int8", 128), ("quant", None, "int8", 128)):
+            q, k, v = (randn(1, h, n, d).bfloat16() for _ in range(3))
+            kernel, plain, staged = band_case(
+                family, "shifted", q, k, v, q_dtype=q_dt, kv_dtype=kv_dt,
+                radius=radius, shift=shift, wrap_n=wrap,
+                shifted_causal=causal)
+            ko, kl = kernel()
+            errs = quant_errs(ko, kl, *plain())
+            key = f"{family}_{q_dt or 'weight_only'}_d{d}"
+            for tkey, tol in QUANT_TOL.items():
+                check(f"ring {name} {key} {tkey}", errs[tkey], tol)
+            empty_rows_zero(f"{name} {key}", ko, kl)
+            if staged is not None and not staged():
+                raise AssertionError(f"ring {name} {key}: staged Q differs")
+            worst[family] = max(worst[family], errs["o_vs_plain"],
+                                errs["lse_vs_plain"])
+            if q_dt == QB_FP8:
+                errs["planted_faults"] = {}
+                for fault in faults(family, "shifted", wrap):
+                    fo, fl = plain(fault)
+                    if not torch.equal(torch.isfinite(kl), torch.isfinite(fl)):
+                        errs["planted_faults"][fault] = dict(
+                            o_vs_plain=max_err(ko, fo),
+                            lse_vs_plain="finite/infinite pattern differs")
+                        continue
+                    ferrs = quant_errs(ko, kl, fo, fl)
+                    if all(ferrs[tk] <= tol for tk, tol in QUANT_TOL.items()):
+                        raise AssertionError(f"ring {name} {key}: planted "
+                                             f"fault {fault} passes")
+                    errs["planted_faults"][fault] = ferrs
+            row[key] = errs
+        rows.append(row)
+    return rows, worst
+
+
+def ring_oracle_inputs(q, k, v, p, q_dtype, kv_dtype):
+    """The matched-bit-width oracle's inputs of a quantized ring over p
+    ranks: Q as the ring hands it to its hop kernel (int8 q̂·σq, or the
+    bf16 fold of e4m3 Q with log2e taken out again), K per token and V per
+    channel quantized shard by shard (scales travel with their shard),
+    int4 through its own quantizer, dequantized; the softmax scale is in
+    Q."""
+    from tpu_flash_torch.quant import qarray
+    from tpu_flash_torch.quant.flash_q import prepare_ring_operands
+
+    q_pre, _, _ = prepare_ring_operands(
+        q, k[:, :, :1], v[:, :, :1], q_dtype=q_dtype,
+        kv_dtype="int8" if kv_dtype == "int4" else kv_dtype)
+    qd = (qarray.dequantize(q_pre) if isinstance(q_pre, qarray.QArray)
+          else q_pre.float() / LOG2E_F)
+    nl = k.shape[2] // p
+    if kv_dtype == "int4":
+        quant, deq = qarray.quantize_int4, qarray.dequantize_int4
+    else:
+        def quant(x, axis):
+            return qarray.quantize(x, kv_dtype, axis=axis)
+        deq = qarray.dequantize
+    kd = torch.cat([deq(quant(k[:, :, s * nl:(s + 1) * nl].float(), axis=-1))
+                    for s in range(p)], dim=2)
+    vd = torch.cat([deq(quant(v[:, :, s * nl:(s + 1) * nl].float(), axis=-2))
+                    for s in range(p)], dim=2)
+    return qd, kd, vd
+
+
+def ring_band_errs(o, qd, kd, vd, mask: dict, scale) -> list:
+    """max |o − f32 oracle| on RING_BAND_ROWS query rows at the start, the
+    middle and the end of the sequence (blockwise_dpa with q_start)."""
+    from tpu_flash_torch.ops.oracle import blockwise_dpa
+
+    n, rows = o.shape[2], RING_BAND_ROWS
+    errs = []
+    for a in (0, n // 2 - rows // 2, n - rows):
+        want, _ = blockwise_dpa(qd[:, :, a:a + rows].float(), kd, vd,
+                                scale=scale, q_start=a, **mask)
+        errs.append(max_err(o[:, :, a:a + rows], want))
+    return errs
+
+
+def hull_reads(mask: torch.Tensor) -> tuple:
+    """(query rows that see a key, keys that a row sees) of a hop's (n, n)
+    mask: the rows and keys whose operands the hop must read."""
+    return int(mask.any(-1).sum()), int(mask.any(0).sum())
+
+
+def shift_fault(name, ko, kl, fo, fl, tols: dict, errs_fn):
+    """The planted fault's errors (a plain version with the shift one row
+    off); AssertionError when they pass every limit of ``tols``."""
+    if not torch.equal(torch.isfinite(kl), torch.isfinite(fl)):
+        return dict(lse="finite/infinite pattern differs")
+    errs = errs_fn(ko, kl, fo, fl)
+    if all(errs[key] <= tol for key, tol in tols.items()):
+        raise AssertionError(f"{name}: planted fault shift + 1 passes")
+    return errs
+
+
+def ring_timed_hop(hq_, hk_, hv_, shift: int, r: int, gen, peaks) -> tuple:
+    """One ring hop at full width on ``(1, h, nl, d)`` bf16 q, k, v: shift
+    ``shift``, band radius ``r``, no wrap. B1, B4/B5 and B6/B7 (fp8) are
+    held against their plain versions on the hop's own outputs (TOL_BF16
+    and TOL_LSE, TOL_BWD_PLAIN, QUANT_TOL), a plain version with the shift
+    one row off must fail B1's and B6/B7's checks, and each kernel is timed
+    alone beside its plain version and the library under the hop's boolean
+    mask. Bounds: 2·d operations a visible pair in each product, or the
+    bytes the hop needs: o and lse (B4/B5: the grads) written in full, Q
+    (dO, lse, Δ) read for the rows that see a key and K/V for the keys a
+    row sees. Returns (errors, timed rows)."""
+    from tpu_flash_torch.bench.harness import device_ms
+    from tpu_flash_torch.bench.harness import roofline as hroofline
+    from tpu_flash_torch.bench.quant_bands import band_case
+    from tpu_flash_torch.ops import flash, flash_bwd
+
+    _, h, nl, d = hq_.shape
+    sched = flash.build_schedule("shifted", nl, nl, 512, 512, shift=shift,
+                                 radius=r)
+    bad = dataclasses.replace(sched, shift=shift + 1)
+    mask = hop_mask(sched, nl, dev=hq_.device)
+    pairs = h * int(mask.sum())
+    rows_in, keys_in = hull_reads(mask)
+    label = f"ring hop shift {shift}"
+    qf = (hq_.float() * (d ** -0.5 * LOG2E_F)).bfloat16().reshape(h, nl, d)
+    kf, vf = hk_.reshape(h, nl, d), hv_.reshape(h, nl, d)
+
+    def plain_fwd():
+        return flash._flash_fwd_plain(qf, kf, vf, sched, h, h)
+
+    o, lse = flash._flash_fwd_kernel(qf, kf, vf, sched, h, h, True)
+    po, pl = plain_fwd()
+    errs = dict(rows_seeing_a_key=rows_in, keys_seen=keys_in,
+                flash_fwd=dict(o=max_err(o, po), lse=max_err(lse, pl)))
+    check(f"{label} B1 o", errs["flash_fwd"]["o"], TOL_BF16)
+    check(f"{label} B1 lse", errs["flash_fwd"]["lse"], TOL_LSE)
+    fo, fl = flash._flash_fwd_plain(qf, kf, vf, bad, h, h)
+    errs["flash_fwd"]["planted_fault_shift"] = shift_fault(
+        f"{label} B1", o, lse, fo, fl, dict(o=TOL_BF16, lse=TOL_LSE),
+        lambda a, al, b, bl: dict(o=max_err(a, b), lse=max_err(al, bl)))
+    del po, pl, fo, fl
+    lib_ms = device_ms(lambda: sdpa(hq_, hk_, hv_, False, mask))
+    fwd_bytes = 2 * h * d * (rows_in + 2 * keys_in) + 2 * h * nl * d \
+        + 4 * h * nl
+    timed = dict(flash_fwd=dict(
+        ms=device_ms(lambda: flash._flash_fwd_kernel(qf, kf, vf, sched, h, h,
+                                                     True)),
+        plain_ms=cuda_ms(plain_fwd, iters=2, warmup=1), library_ms=lib_ms,
+        visible_pairs=pairs, **roofline(4 * d * pairs, fwd_bytes,
+                                        torch.bfloat16)))
+
+    do = torch.randn(h, nl, d, generator=gen, device=hq_.device).bfloat16()
+    bwd_args = (qf, kf, vf, o, lse, do, None, sched, h, h)
+    got = flash_bwd._flash_bwd_kernel(*bwd_args)
+    want = flash_bwd._flash_bwd_plain(*bwd_args)
+    errs["flash_bwd"] = {f"d{x}": rel_err(a, b)
+                         for x, a, b in zip("qkv", got, want)}
+    for x, err in errs["flash_bwd"].items():
+        check(f"{label} B4/B5 {x}", err, TOL_BWD_PLAIN[torch.bfloat16])
+    del got, want
+    ops = flash_bwd._kernel_operands(*bwd_args)
+    dq, dkv = bwd_timing(ops, sched, h, h, torch.bfloat16, pairs, d, 1, nl,
+                         nl, None, reads=(rows_in, keys_in))
+    bwd_plain_ms = cuda_ms(lambda: flash_bwd._flash_bwd_plain(*bwd_args),
+                           iters=2, warmup=1)
+    xs = [x.detach().requires_grad_(True) for x in (hq_, hk_, hv_)]
+    lo = sdpa(*xs, False, mask)
+    lib_bwd_ms = cuda_ms(lambda: torch.autograd.grad(
+        lo, xs, do.reshape(1, h, nl, d), retain_graph=True), iters=5)
+    del lo, xs, ops
+    for part in (dq, dkv):
+        part.update(plain_ms=bwd_plain_ms, library_ms=lib_bwd_ms,
+                    visible_pairs=pairs)
+    timed["flash_bwd_dq"], timed["flash_bwd_dkv"] = dq, dkv
+
+    for family in ("serving", "quant"):
+        kernel, plain, _ = band_case(
+            family, "shifted", hq_, hk_, hv_, q_dtype=QB_FP8, kv_dtype=QB_FP8,
+            radius=r, shift=shift)
+        ko, kl = kernel()
+        errs[family] = quant_errs(ko, kl, *plain())
+        for key, tol in QUANT_TOL.items():
+            check(f"{label} {family} fp8 {key}", errs[family][key], tol)
+        errs[family]["planted_fault_shift"] = shift_fault(
+            f"{label} {family} fp8", ko, kl, *plain("shift"), QUANT_TOL,
+            quant_errs)
+        del ko, kl
+        # Q: bf16 (B6 quantizes it in the kernel) or e4m3 and its row
+        # scale; K̂/V̂ one byte, K's per-token and V's per-channel scales
+        q_row = 2 * d if family == "serving" else d + 4
+        nb = h * (q_row * rows_in + 2 * d * keys_in + 2 * d * nl
+                  + 4 * (keys_in + d + 1))
+        timed[family] = dict(
+            ms=device_ms(lambda: kernel(False)),
+            plain_ms=cuda_ms(plain, iters=2, warmup=1), library_ms=lib_ms,
+            visible_pairs=pairs,
+            **hroofline(2 * d * pairs, 2 * d * pairs, nb, peaks, "fp8", "bf16"))
+    return errs, timed
+
+
+def ring_phase(dev):
+    """Ring attention (parallel/ring.py) over virtual ranks on one card:
+    (a) the shifted kinds against the plain versions (ring_hop_checks);
+    (b) the ring at full width over 8 ranks, bf16 dense, causal, local and
+    circulant against the single-device kernels on the whole sequence and
+    the f32 oracle on three row bands, the quantized local rings against
+    their matched oracle; (c) the ring's gradient against the
+    single-device flash gradient; (d) the sequence-parallel train step of
+    the canonical model against the plain one. (b)–(d) are the path: the
+    launch counts are zeroed before (b) and read after (d); the timings
+    come after. On one card no communication is measured: the rotation
+    between virtual ranks moves no data."""
+    from tpu_flash_torch import graft_entry, kernels
+    from tpu_flash_torch.bench.harness import device_ms, device_peaks
+    from tpu_flash_torch.models import transformer as tfm
+    from tpu_flash_torch.ops import flash
+    from tpu_flash_torch.parallel import ring
+    from tpu_flash_torch.quant import serving_attn as tsa
+
+    t_phase = time.perf_counter()
+    hop_rows, worst = ring_hop_checks(dev)
+    emit(dict(phase="ring_hops", shape=dict(b=1, h=8, n=RING_HOP_N, d=128),
+              rows=hop_rows, worst=worst))
+    torch.cuda.empty_cache()
+
+    b, h, n, d = RING_SHAPE
+    p, r, nl = RING_RANKS, RING_RADIUS, RING_SHAPE[2] // RING_RANKS
+    gen = torch.Generator(device=dev).manual_seed(15)
+    q, k, v = (torch.randn(b, h, n, d, generator=gen, device=dev).bfloat16()
+               for _ in range(3))
+    window = 2 * r + 1
+    single = {
+        "dense": (lambda: flash.dense_fa(q, k, v), {}),
+        "causal": (lambda: flash.dense_fa(q, k, v, causal=True),
+                   dict(causal=True)),
+        "local": (lambda: flash.sliding_fa(q, k, v, window),
+                  dict(window_size=window)),
+        "circulant": (lambda: flash.circulant_fa(q, k, v, window),
+                      dict(window_size=window, wrap=True)),
+    }
+
+    def ring_call(pattern, **kw):
+        return lambda: ring.ring_dense_fa(q, k, v, p, pattern=pattern,
+                                          radius=r, **kw)
+
+    def hops(pattern):
+        run = sum(ring.hop_schedule(pattern, r, p, nl, t, rank) is not None
+                  for t in range(p) for rank in range(p))
+        static = sum(ring.hop_needed(pattern, r, p, nl, t) for t in range(p))
+        return dict(hop_calls=run, hop_calls_skipped=p * p - run,
+                    hops_needed=static, hops_skipped=p - static)
+
+    path = dict.fromkeys(kernels.LAUNCHES, 0)
+
+    def counted(fn):
+        """``fn()``, its kernel launches added to the path's counts."""
+        kernels.reset_launches()
+        out = fn()
+        torch.cuda.synchronize()
+        launches = {key: n for key, n in kernels.LAUNCHES.items() if n}
+        for key, n in launches.items():
+            path[key] += n
+        return out, launches
+
+    rings = {}
+    for pattern, (call, mask) in single.items():
+        o, launches = counted(ring_call(pattern))
+        with torch.no_grad():
+            os_ = call()
+        err_single = max_err(o, os_)
+        del os_
+        check(f"ring {pattern} vs single-device", err_single, TOL_BF16)
+        bands = ring_band_errs(o, q.float() * d ** -0.5, k.float(), v.float(),
+                               mask, 1.0)
+        check(f"ring {pattern} vs f32 oracle", max(bands), TOL_BF16)
+        rings[pattern] = dict(vs_single_device=err_single,
+                              vs_f32_oracle_bands=bands, launches=launches,
+                              **hops(pattern))
+        del o
+    for q_dt, kv_dt in RING_QUANT:
+        o, launches = counted(ring_call("local", q_dtype=q_dt, kv_dtype=kv_dt))
+        matched = ring_oracle_inputs(q, k, v, p, q_dt, kv_dt)
+        bands = ring_band_errs(o, *matched, dict(window_size=window), 1.0)
+        del matched
+        check(f"ring local {q_dt}/{kv_dt} vs matched oracle", max(bands),
+              TOL_QUANT_GATE)
+        rings[f"local_{q_dt}_{kv_dt}"] = dict(
+            vs_matched_oracle_bands=bands, launches=launches, **hops("local"))
+        del o
+    torch.cuda.empty_cache()
+
+    # (c) the gradient
+    gb, gh, gn, gd = RING_GRAD_SHAPE
+    gq, gk, gv = (torch.randn(gb, gh, gn, gd, generator=gen, device=dev)
+                  .bfloat16() for _ in range(3))
+    gw = torch.randn(gb, gh, gn, gd, generator=gen, device=dev)
+    grad_single = {
+        "causal": lambda a, b_, c: flash.dense_fa(a, b_, c, causal=True),
+        "local": lambda a, b_, c: flash.sliding_fa(a, b_, c, window),
+        "circulant": lambda a, b_, c: flash.circulant_fa(a, b_, c, window),
+    }
+
+    def grads(fn):
+        xs = [x.clone().requires_grad_(True) for x in (gq, gk, gv)]
+        (fn(*xs).float() * gw).sum().backward()
+        return [x.grad for x in xs]
+
+    grad_rows = {}
+    for pattern, fn in grad_single.items():
+        got, launches = counted(lambda: grads(
+            lambda a, b_, c: ring.ring_dense_fa(a, b_, c, RING_GRAD_RANKS,
+                                                pattern=pattern, radius=r)))
+        want = grads(fn)
+        errs = {f"d{x}": rel_err(a, w) for x, a, w in zip("qkv", got, want)}
+        for x, err in errs.items():
+            check(f"ring grad {pattern} {x}", err, TOL_BWD_ORACLE)
+        grad_rows[pattern] = dict(errs, launches=launches)
+        del got, want
+    del gq, gk, gv, gw
+    torch.cuda.empty_cache()
+
+    # (d) the sequence-parallel train step of the canonical model
+    mcfg = tfm.ModelConfig(**MODEL)
+    params = tfm.init_params(mcfg, torch.Generator(device=dev).manual_seed(0),
+                             dev)
+    tokens = torch.as_tensor(np.random.default_rng(1).integers(
+        0, mcfg.vocab_size, TRAIN_TOKENS), device=dev)
+    ring_fn = ring.ring_attn_fn(RING_TRAIN_RANKS, pattern="causal",
+                                block_q=mcfg.block_q, block_kv=mcfg.block_kv)
+    (loss_r, grads_r), _ = counted(lambda: graft_entry.loss_and_grads(
+        params, tokens, mcfg, attn_fn=ring_fn))
+    loss_p, grads_p = graft_entry.loss_and_grads(params, tokens, mcfg)
+    cos = grad_cosines(params, grads_r, grads_p)
+    del grads_r, grads_p
+    worst_cos = min(cos, key=cos.get)
+    dloss = abs(float(loss_r) - float(loss_p))
+    check("ring train loss vs plain", dloss, TOL_DLOSS)
+    if not cos[worst_cos] >= TOL_COSINE:
+        raise AssertionError(f"ring train grad cosine {worst_cos}: "
+                             f"{cos[worst_cos]}")
+    losses, step_ms = [], []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        (params, loss), _ = counted(lambda: graft_entry.seq_parallel_train_step(
+            params, tokens, mcfg, TRAIN_LR, ranks=RING_TRAIN_RANKS))
+        losses.append(float(loss))
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"ring train: losses {losses}")
+    path_launches = {key: n for key, n in path.items() if n}
+    for key in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
+                "quant_attention"):
+        if path_launches.get(key, 0) <= 0:
+            raise AssertionError(f"kernel {key} never launched on the ring "
+                                 "path")
+    train_row = dict(tokens=list(TRAIN_TOKENS), ranks=RING_TRAIN_RANKS,
+                     loss_ring=float(loss_r), loss_plain=float(loss_p),
+                     dloss=dloss, min_grad_cosine=cos[worst_cos],
+                     min_cosine_param=worst_cos, losses=losses,
+                     step_ms=step_ms,
+                     median_step_ms=float(np.median(step_ms[1:])))
+    del params
+    torch.cuda.empty_cache()
+
+    # timings: each ring beside the single-device kernel on the whole
+    # sequence (all virtual ranks serialized on one card)
+    for pattern, (call, _) in single.items():
+        rings[pattern]["ring_ms"] = cuda_ms(ring_call(pattern), iters=3,
+                                            warmup=1)
+        rings[pattern]["single_device_ms"] = cuda_ms(call, iters=3, warmup=1)
+    for q_dt, kv_dt in RING_QUANT:
+        rings[f"local_{q_dt}_{kv_dt}"]["ring_ms"] = cuda_ms(
+            ring_call("local", q_dtype=q_dt, kv_dtype=kv_dt), iters=3,
+            warmup=1)
+
+    # the kernels line's shifted rows: the ring's hops at full width (b 1,
+    # 32 heads, shard 4096, d 128, radius 512), the kernels held against
+    # their plain versions there and timed alone: hop 0 (shift 0, every row
+    # sees 513–1025 keys; the band rings' work) and the hop from the
+    # previous rank (shift nl: rows 0–511 see keys 3584–4095)
+    peaks = device_peaks(dev)
+    hq_, hk_, hv_ = (x[:, :, :nl].contiguous() for x in (q, k, v))
+    del q, k, v
+    torch.cuda.empty_cache()
+    hop_errs, hop_timed = {}, {}
+    timed_shifts = dict(t0=0, from_previous_rank=nl)
+    for name, shift in timed_shifts.items():
+        hop_errs[name], hop_timed[name] = ring_timed_hop(hq_, hk_, hv_, shift,
+                                                        r, gen, peaks)
+        torch.cuda.empty_cache()
+    timed = hop_timed["t0"]
+    for errs in hop_errs.values():
+        worst["flash_fwd"] = max(worst["flash_fwd"], errs["flash_fwd"]["o"],
+                                 errs["flash_fwd"]["lse"])
+        worst["flash_bwd"] = max(worst["flash_bwd"],
+                                 *errs["flash_bwd"].values())
+        for family in ("serving", "quant"):
+            worst[family] = max(worst[family], errs[family]["o_vs_plain"],
+                                errs[family]["lse_vs_plain"])
+    # the local ring's time split: B1 alone on each of its hop calls (the
+    # shift −nl hop timed too) against the ring's ms; the rest is the float32
+    # merges, the wrapper's work around each launch and the host
+    shifts = [c["shift"] for c in (
+        ring.hop_schedule("local", r, p, nl, t, rank)
+        for t in range(p) for rank in range(p)) if c is not None]
+    qf = (hq_.float() * (d ** -0.5 * LOG2E_F)).bfloat16().reshape(h, nl, d)
+    kf, vf = hk_.reshape(h, nl, d), hv_.reshape(h, nl, d)
+    b1_ms = {}
+    for shift in sorted(set(shifts)):
+        sched = flash.build_schedule("shifted", nl, nl, 512, 512, shift=shift,
+                                     radius=r)
+        b1_ms[shift] = device_ms(lambda: flash._flash_fwd_kernel(
+            qf, kf, vf, sched, h, h, True))
+    b1_sum = sum(b1_ms[s] for s in shifts)
+    rings["local"]["split"] = dict(
+        hop_calls_by_shift={str(s): shifts.count(s) for s in b1_ms},
+        b1_ms_by_shift={str(s): ms for s, ms in b1_ms.items()},
+        b1_sum_ms=b1_sum, rest_ms=rings["local"]["ring_ms"] - b1_sum)
+    del qf, kf, vf
+    # B6 through its public entry point on the same hop (serving_flash_
+    # attention over an fp8 cache of the shard), gated against its matched
+    # oracle: the ring itself runs B7
+    mask = hop_mask(flash.build_schedule("shifted", nl, nl, 512, 512,
+                                         shift=nl, radius=r), nl, dev)
+    cache = tsa.quantize_kv_cache(hk_, hv_, QB_FP8)
+    kernels.reset_launches()
+    so = tsa.serving_flash_attention(hq_.float(), *cache, q_dtype=QB_FP8,
+                                     schedule="shifted", shift=nl, radius=r)
+    torch.cuda.synchronize()
+    serving_launches = kernels.LAUNCHES["serving_attention"]
+    qm, km, vm = qb_matched(hq_, hk_, hv_, QB_FP8, QB_FP8, "token", cache)
+    s_ = torch.einsum("bhqd,bhkd->bhqk", qm, km).masked_fill(~mask, -math.inf)
+    ref = torch.nan_to_num(torch.softmax(s_, -1)) @ vm
+    served = dict(launches=serving_launches, vs_matched_oracle=max_err(so, ref),
+                  tol=TOL_QUANT_GATE + P_ROUNDING * float(vm.abs().max()))
+    check("ring served hop vs matched oracle", served["vs_matched_oracle"],
+          served["tol"])
+    del s_, ref, so
+    emit(dict(phase="ring", shape=dict(zip("b h n d".split(), RING_SHAPE)),
+              ranks=p, radius=r, rings=rings, grad_shape=dict(zip(
+                  "b h n d".split(), RING_GRAD_SHAPE)),
+              grad_ranks=RING_GRAD_RANKS, grads_vs_single_device=grad_rows,
+              train=train_row, path_launches=path_launches,
+              served_hop=served, timed_hops=dict(
+                  radius=r, shard=nl, heads=h, d=d,
+                  hops={name: dict(shift=shift, vs_plain=hop_errs[name],
+                                   timed=hop_timed[name])
+                        for name, shift in timed_shifts.items()}),
+              note="one card: the rotation between virtual ranks moves no "
+                   "data, so no communication is measured",
+              phase_s=time.perf_counter() - t_phase))
+    return dict(launches=path_launches, served_launches=serving_launches,
+                timed=timed, worst=worst)
+
+
 def _timing(row) -> dict:
     return {key: row[key] for key in ("ms", "plain_ms", "bound_ms",
                                       "bound_by")}
@@ -2681,6 +3257,8 @@ def main() -> int:
         prim = primitives_phase(dev)
         torch.cuda.empty_cache()
         nd = ndim_phase(dev)
+        torch.cuda.empty_cache()
+    rg = ring_phase(dev)
     # launches: the engine run for the serving kernels, the train run for
     # the backward ones (the forward kernel runs in both; the train run's
     # count is reported)
@@ -2864,6 +3442,31 @@ def main() -> int:
              launches=nd["launches"]["block"]["flash_fwd"],
              max_abs_err=nd["worst"], **_timing(nd["timed"]["block"]),
              library_ms=nd["timed"]["block"]["library_ms"]),
+        # the ring hop's shifted kinds (ring phase): times at the band
+        # rings' hop 0 at full width (b 1, 32 heads, shard 4096, d 128,
+        # shift 0, radius 512); launches: the ring
+        # path (the bf16 rings, their gradients and the sequence-parallel
+        # train step for B1 and B4/B5, the quantized rings for B7) and for
+        # B6 its public call on that hop; library: scaled_dot_product_
+        # attention under the hop's boolean mask (forward, or autograd's
+        # backward of one saved call)
+        *[dict(name=f"{name} (shifted ring hop)", route="cuda",
+               source=f"tpu_flash_torch/csrc/{src}", replaces=line,
+               launches=(rg["served_launches"] if key == "serving"
+                         else rg["launches"][name]),
+               max_abs_err=rg["worst"][worst], **_timing(rg["timed"][key]),
+               library_ms=rg["timed"][key]["library_ms"])
+          for name, key, worst, src, line in (
+              ("flash_fwd", "flash_fwd", "flash_fwd", "flash_fwd.cu",
+               "tpu_flash/ops/flash.py:204"),
+              ("flash_bwd_dq", "flash_bwd_dq", "flash_bwd", "flash_bwd.cu",
+               "tpu_flash/ops/flash_bwd.py:137"),
+              ("flash_bwd_dkv", "flash_bwd_dkv", "flash_bwd", "flash_bwd.cu",
+               "tpu_flash/ops/flash_bwd.py:252"),
+              ("serving_attention", "serving", "serving",
+               "quant_attention.cu", "tpu_flash/quant/serving_attn.py:59"),
+              ("quant_attention", "quant", "quant", "quant_attention.cu",
+               "tpu_flash/quant/flash_q.py:136"))],
     ]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -125,16 +125,6 @@ def test_flash_plain_matches_oracle_scale():
     np.testing.assert_allclose(o.numpy(), ref.numpy(), atol=1e-4)
 
 
-@pytest.mark.parametrize("kw", [dict(shift=1, _item="A13")])
-def test_flash_unported_options_raise(kw):
-    """What is still unported raises, naming its ROADMAP item: the shifted
-    schedule."""
-    _, (tq, tk, tv) = _inputs(4, 1, 1, 1, 16, 16, 32, jnp.float32)
-    kw = dict(kw)
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {kw.pop('_item')}"):
-        tflash.flash_attention(tq, tk, tv, **kw)
-
-
 @pytest.mark.parametrize("kw,error", [
     (dict(bwd_split=3), "split=3 must divide block_q=128"),
     (dict(bwd_quant="int4"), "unknown bwd quant mode 'int4'"),
@@ -167,14 +157,21 @@ def test_bwd_quant_reaches_the_backward():
         plain.abs().max())
 
 
-@pytest.mark.parametrize("kw", [dict(bound_max=True),
-                                dict(schedule="local", radius=4),
-                                dict(schedule="local")])
+@pytest.mark.parametrize("kw", [
+    dict(bound_max=True), dict(schedule="local", radius=4),
+    dict(schedule="local"), dict(schedule="shifted", shift=1),
+    dict(schedule="shifted", shift=1, radius=-1, shifted_causal=True),
+    dict(schedule="shifted", shift=-30, radius=6, wrap_n=40)])
 def test_flash_ported_options_match_reference(kw):
-    """The norm-bound max, a band of radius 4 and the radius-0 band give
-    the reference's o and lse (f32 1e-4)."""
+    """The norm-bound max, a band of radius 4, the radius-0 band and the
+    shifted schedule's options (``shift`` with the default radius-0 band,
+    ``shifted_causal`` with no band, a band wrapped by ``wrap_n``) give the
+    reference's o and lse (f32 1e-4; the same rows −inf)."""
     (jq, jk, jv), (tq, tk, tv) = _inputs(4, 1, 2, 2, 40, 40, 32, jnp.float32)
     jo, jl = jflash.flash_attention(jq, jk, jv, return_lse=True, **kw)
     to, tl = tflash.flash_attention(tq, tk, tv, return_lse=True, **kw)
     np.testing.assert_allclose(to.numpy(), np.asarray(jo), atol=TOL["float32"])
-    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=TOL["float32"])
+    jl = np.asarray(jl)
+    fin = np.isfinite(jl)
+    np.testing.assert_array_equal(np.isfinite(tl.numpy()), fin)
+    np.testing.assert_allclose(tl.numpy()[fin], jl[fin], atol=TOL["float32"])

@@ -1,6 +1,6 @@
 """The port's CUDA kernels (B1 flash forward with the band, the circulant
-band, the block-diagonal schedule and the norm bound, where the reference's
-B9 and B11 fold in; B2 paged attention on its split and shared-table
+band, the block-diagonal schedule, the ring hop's shifted kinds and the
+norm bound, where the reference's B9 and B11 fold in; B2 paged attention on its split and shared-table
 routes with the band, positions and visible lengths, where B12 folds in,
 and with B3's append fused; B3 paged append; B4/B5 flash backward;
 B6/B8 serving and B7 quantized attention; B13 softmax; B14 matmul) against
@@ -1103,6 +1103,159 @@ def test_band_grads_match_oracle(gen, fa):
     assert kernels.LAUNCHES["flash_bwd_dkv"] == before + 1
     for name, a, b in zip("qkv", got, grads(calls[fa][1])):
         assert _rel(a, b) <= 2.5e-2, (name, _rel(a, b))
+
+
+# The ring hop's shifted kinds at a shard of n (ragged 1000, 1024): (name,
+# shift as (multiple of n, rows), radius, wrap_n as a multiple of n,
+# causal): a forward band hop (rows past the band see no key), the hop from
+# a later rank (negative shift), the circulant ring's wrapped hop, the wrap
+# within one shard (two runs of keys a row), shifted_causal with a band and
+# without one (300 rows see no key)
+_SHIFTED = [("band_forward", (1, 0), 300, 0, False),
+            ("band_backward", (-1, 0), 300, 0, False),
+            ("circulant_wrapped", (3, 0), 300, 4, False),
+            ("two_runs", (0, 0), 200, 1, False),
+            ("causal_band", (0.5, 0), 200, 0, True),
+            ("causal_no_band", (0, -300), -1, 0, True)]
+
+
+def _shifted_sched(hop, n):
+    """The shifted Schedule of a hop in ``_SHIFTED`` over shards of n."""
+    _, (of_n, rows), radius, wrap, causal = hop
+    shift = int(of_n * n) + rows
+    return tflash.build_schedule("shifted", n, n, 512, 1024, shift=shift,
+                                 radius=radius, wrap_n=wrap * n,
+                                 shifted_causal=causal)
+
+
+@pytest.mark.parametrize("n", [1000, 1024])
+@pytest.mark.parametrize("bound", [False, True], ids=["exact", "bound"])
+@pytest.mark.parametrize("d,dtype", [(64, torch.bfloat16),
+                                     (128, torch.bfloat16),
+                                     (256, torch.bfloat16),
+                                     (128, torch.float32)],
+                         ids=["64_bf16", "128_bf16", "256_bf16", "128_f32"])
+@pytest.mark.parametrize("hop", _SHIFTED, ids=[h[0] for h in _SHIFTED])
+def test_flash_kernel_shifted_matches_plain(gen, hop, d, dtype, bound, n):
+    """B1 on the shifted kinds (the norm bound at d 64 is B9's shape) vs
+    the plain version, 16/8 heads: o bf16 2e-2, f32 1e-4, lse 1e-4 where
+    finite, the same rows seeing no key (o 0, lse −inf)."""
+    hq, hkv = 16, 8
+    q = (torch.randn(hq, n, d, generator=gen, device="cuda")
+         * (d ** -0.5 * tflash.LOG2E)).to(dtype)
+    k, v = (torch.randn(hkv, n, d, generator=gen, device="cuda").to(dtype)
+            for _ in range(2))
+    sched = _shifted_sched(hop, n)
+    before = kernels.LAUNCHES["flash_fwd"]
+    ko, kl = tflash._flash_fwd_kernel(q, k, v, sched, hq, hkv, True, bound)
+    po, pl = tflash._flash_fwd_plain(q, k, v, sched, hq, hkv, bound)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["flash_fwd"] == before + 1
+    _assert_b1_close(ko, kl, po, pl, dtype)
+    assert bool((ko[~torch.isfinite(kl)] == 0).all())
+
+
+@pytest.mark.parametrize("family", _BWD_FAMILIES,
+                         ids=[f"{w}_{str(t)[6:]}" for w, t in _BWD_FAMILIES])
+@pytest.mark.parametrize("hop", _SHIFTED, ids=[h[0] for h in _SHIFTED])
+def test_flash_bwd_kernels_shifted_match_plain(gen, hop, family):
+    """B4/B5 on the shifted kinds in each family (bf16 64/128 wgmma, 256
+    WMMA, float32 FMA) with an lse cotangent, GQA 4/2 at a ragged shard of
+    1000, vs the plain backward: bf16 1e-2, float32 1e-4 of the largest
+    grad; two calls bitwise equal."""
+    d, dtype = family
+    n, hq, hkv = 1000, 4, 2
+    sched = _shifted_sched(hop, n)
+    q = (torch.randn(hq, n, d, generator=gen, device="cuda")
+         * (d ** -0.5 * tflash.LOG2E)).to(dtype)
+    k, v = (torch.randn(hkv, n, d, generator=gen, device="cuda").to(dtype)
+            for _ in range(2))
+    o, lse = tflash._flash_fwd_kernel(q, k, v, sched, hq, hkv, True)
+    do = torch.randn(hq, n, d, generator=gen, device="cuda").to(dtype)
+    dlse = torch.randn(hq, n, generator=gen, device="cuda")
+    args = (q, k, v, o, lse, do, dlse, sched, hq, hkv)
+    got = tflash_bwd._flash_bwd_kernel(*args)
+    again = tflash_bwd._flash_bwd_kernel(*args)
+    want = tflash_bwd._flash_bwd_plain(*args)
+    tol = 1e-2 if dtype == torch.bfloat16 else 1e-4
+    for name, a, a2, w in zip("qkv", got, again, want):
+        assert torch.equal(a, a2), f"d{name} differs between two calls"
+        assert torch.isfinite(a).all()
+        assert _rel(a, w) <= tol, (name, _rel(a, w))
+
+
+# (q_dtype, kv_dtype, d): the quantized families on the shifted kinds: B7
+# fp8, int8 and weight-only; B6 (serving) fp8 and int8, and at d 64 (B8)
+_SHIFTED_QUANT = [("quant", "float8_e4m3fn", "float8_e4m3fn", 128),
+                  ("quant", "int8", "int8", 128),
+                  ("quant", None, "int8", 128),
+                  ("serving", "float8_e4m3fn", "float8_e4m3fn", 128),
+                  ("serving", "int8", "int8", 128),
+                  ("serving", "int8", "int8", 64)]
+
+
+@pytest.mark.parametrize("mode", _SHIFTED_QUANT, ids=[
+    f"{m[0]}-{m[1] or 'weight_only'}-d{m[3]}" for m in _SHIFTED_QUANT])
+@pytest.mark.parametrize("hop", _SHIFTED, ids=[h[0] for h in _SHIFTED])
+def test_quant_shifted_kernels_match_plain(gen, hop, mode):
+    """B6/B7 on the shifted kinds under the norm bound (the quantized
+    ring's hop) vs their plain versions, 16/8 heads, a ragged shard of
+    1000: as :func:`_assert_quant_close`, rows seeing no key o 0 and lse
+    −inf; B6's staged Q bytes equal."""
+    from tpu_flash_torch.bench.quant_bands import band_case
+
+    family, q_dtype, kv_dtype, d = mode
+    sched = _shifted_sched(hop, 1000)
+    q, k, v = _quant_inputs(gen, 16, 8, 1000, d)
+    kernel, plain, staged = band_case(
+        family, "shifted", q, k, v, q_dtype=q_dtype, kv_dtype=kv_dtype,
+        radius=sched.radius, shift=sched.shift, wrap_n=sched.wrap_n,
+        shifted_causal=sched.causal)
+    ko, kl = kernel()
+    if staged is not None:
+        assert staged()
+    _assert_quant_close(ko, kl, *plain())
+    assert bool((ko[~torch.isfinite(kl)] == 0).all())
+
+
+@pytest.mark.parametrize("family", ["b1", "serving", "quant"])
+@pytest.mark.parametrize("hop", [_SHIFTED[1], _SHIFTED[3]],
+                         ids=["band_backward", "two_runs"])
+def test_shifted_faults_rejected(gen, hop, family):
+    """Planted faults in the plain versions (the shift one row off; the
+    wrapped band's second run of keys dropped) fail the kernel-vs-plain
+    checks of B1 and of B6/B7."""
+    import dataclasses
+
+    from tpu_flash_torch.bench.quant_bands import band_case, faults
+
+    sched = _shifted_sched(hop, 1024)
+    if family == "b1":
+        hq, hkv, d = 16, 8, 128
+        q = (torch.randn(hq, 1024, d, generator=gen, device="cuda")
+             * (d ** -0.5 * tflash.LOG2E)).bfloat16()
+        k, v = (torch.randn(hkv, 1024, d, generator=gen, device="cuda")
+                .bfloat16() for _ in range(2))
+        ko, kl = tflash._flash_fwd_kernel(q, k, v, sched, hq, hkv, True)
+        _assert_b1_close(ko, kl, *tflash._flash_fwd_plain(q, k, v, sched, hq,
+                                                          hkv), torch.bfloat16)
+        for fault in faults("b1", "shifted", sched.wrap_n):
+            bad = dataclasses.replace(sched, **(
+                dict(shift=sched.shift + 1) if fault == "shift"
+                else dict(wrap_n=0)))
+            with pytest.raises(AssertionError):
+                _assert_b1_close(ko, kl, *tflash._flash_fwd_plain(
+                    q, k, v, bad, hq, hkv), torch.bfloat16)
+        return
+    q, k, v = _quant_inputs(gen, 16, 8, 1024, 128)
+    kernel, plain, _ = band_case(
+        family, "shifted", q, k, v, q_dtype="float8_e4m3fn",
+        kv_dtype="float8_e4m3fn", radius=sched.radius, shift=sched.shift,
+        wrap_n=sched.wrap_n, shifted_causal=sched.causal)
+    ko, kl = kernel()
+    _assert_quant_close(ko, kl, *plain())
+    for fault in faults(family, "shifted", sched.wrap_n):
+        assert _quant_misses(ko, kl, *plain(fault)), fault
 
 
 # (shape, axis, dtype, scale): both sides of the one-pass threshold (rows of

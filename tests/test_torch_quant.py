@@ -362,18 +362,35 @@ def test_flash_attention_quantized_route():
 
 
 @pytest.mark.parametrize("kw,err,match", [
-    (dict(shift=8), NotImplementedError, "ROADMAP A13"),
-    (dict(kv_dtype="int4"), ValueError, "int4"),
-    (dict(q_dtype="float8_e4m3fn"), ValueError, "family"),
-    (dict(kv_scale="tensor"), ValueError, "fp8 scaling"),
-    (dict(kv_scale="channel"), ValueError, "kv_scale"),
+    pytest.param(dict(kv_dtype="int4"), ValueError, "int4",
+                 id="kw1-ValueError-int4"),
+    pytest.param(dict(q_dtype="float8_e4m3fn"), ValueError, "family",
+                 id="kw2-ValueError-family"),
+    pytest.param(dict(kv_scale="tensor"), ValueError, "fp8 scaling",
+                 id="kw3-ValueError-fp8 scaling"),
+    pytest.param(dict(kv_scale="channel"), ValueError, "kv_scale",
+                 id="kw4-ValueError-kv_scale"),
 ])
 def test_quantized_rejects(kw, err, match):
-    """Unported options name their ROADMAP item; invalid ones raise the
-    reference's ValueError."""
+    """Invalid options raise the reference's ValueError."""
     q, k, v = (torch.from_numpy(a) for a in _qkv(12, 2, 2, 64, 64))
     with pytest.raises(err, match=match):
         tfq.quantized_flash_attention(q, k, v, **kw)
+
+
+@pytest.mark.parametrize("q_dtype,kv_dtype", [("int8", "int8"),
+                                              (None, "float8_e4m3fn")])
+def test_quantized_shift_matches_reference(q_dtype, kv_dtype):
+    """``shift`` (with the shifted schedule's default radius-0 band and a
+    band of radius 20) on the quantized route, which refused it before the
+    ring: the reference's o and lse, n 64."""
+    arrays = _qkv(12, 2, 2, 64, 128)
+    for radius in (0, 20):
+        j, t = _both(jfq.quantized_flash_attention,
+                     tfq.quantized_flash_attention, arrays, None,
+                     q_dtype=q_dtype, kv_dtype=kv_dtype, schedule="shifted",
+                     shift=8, radius=radius)
+        _assert_close(j, t)
 
 
 # One k32 step next to 448·1.875 = 840 (exponent fields 8 + 0, so E = 9):

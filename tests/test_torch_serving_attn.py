@@ -198,11 +198,20 @@ def test_serving_invalid_knobs_raise(kw):
 
 
 @pytest.mark.parametrize("kw,match", [
-    (dict(isolate="noexp"), "north star"), (dict(shift=2), "A13")])
+    (dict(isolate="noexp"), "north star")])
 def test_serving_unported_raise(kw, match):
     _, t = _caches(7, 2, 2, 64, 64, "int8")
     with pytest.raises(NotImplementedError, match=match):
         tsa.serving_flash_attention(*t, q_dtype="int8", **kw)
+
+
+@pytest.mark.parametrize("radius", [0, 30])
+def test_serving_shift_matches_reference(radius):
+    """``shift`` (the shifted schedule, radius 0 and 30), refused before
+    the ring, gives the reference's o and lse over the same int8 cache."""
+    j, t = _caches(7, 2, 2, 256, 128, "int8")
+    _assert_close(*_run(j, t, q_dtype="int8", schedule="shifted", shift=2,
+                        radius=radius))
 
 
 def test_serving_plain_path_counts_no_launch():

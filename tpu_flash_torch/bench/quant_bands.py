@@ -1,6 +1,6 @@
-"""B6 and B7 on the band, circulant and block-diagonal schedules, each
-beside its plain version on the same operands, with the planted faults
-that a kernel-vs-plain check must reject.
+"""B6 and B7 on the band, circulant, block-diagonal and shifted (ring-hop)
+schedules, each beside its plain version on the same operands, with the
+planted faults that a kernel-vs-plain check must reject.
 
 :func:`band_case` builds the operands of one call the way the public entry
 points build them (``serving_flash_attention``: the cache quantized once,
@@ -15,7 +15,10 @@ Faults, each a plain version of a different function:
 - ``radius``: the band one key wider on each side;
 - ``section``: the block-diagonal sections shifted by one row;
 - ``halo``: the circulant over K/V that were not halo-extended (B7);
-- ``phantom``: serving circulant without the 2·radius phantom rows (B6).
+- ``phantom``: serving circulant without the 2·radius phantom rows (B6);
+- ``shift``: the shifted schedule one row further along (shift + 1);
+- ``wrap``: the shifted band without its wrap (a wrapped band's second run
+  of keys dropped).
 """
 
 from __future__ import annotations
@@ -32,8 +35,10 @@ from tpu_flash_torch.quant import serving_attn as tsa
 from tpu_flash_torch.quant.qarray import as_dtype
 
 
-def faults(family: str, schedule: str) -> tuple:
+def faults(family: str, schedule: str, wrap_n: int = 0) -> tuple:
     """The planted faults that apply to a family and schedule."""
+    if schedule == "shifted":
+        return ("shift", "wrap") if wrap_n else ("shift",)
     if schedule == "block":
         return ("section",)
     if schedule == "circulant":
@@ -52,7 +57,8 @@ class _ShiftedSections(BlockDiagonalSchedule):
 
 def band_case(family: str, schedule: str, q, k, v, *, q_dtype, kv_dtype,
               kv_scale: str = "token", bound_max: bool = True,
-              radius: int = 0, section: int = 0, pv_quant: bool = False):
+              radius: int = 0, section: int = 0, pv_quant: bool = False,
+              shift: int = 0, wrap_n: int = 0, shifted_causal: bool = False):
     """One call of B6 (``family="serving"``) or B7 (``"quant"``) on
     ``(1, h, n, d)`` q, k, v. Returns ``(kernel, plain, staged)``:
     ``kernel(need_lse=True)`` and ``plain(fault=None)`` give (o, lse) on
@@ -61,16 +67,21 @@ def band_case(family: str, schedule: str, q, k, v, *, q_dtype, kv_dtype,
     factors equal the plain staging's."""
     hq, hkv, n_q, d = q.shape[1], k.shape[1], q.shape[2], q.shape[-1]
     n_kv = k.shape[2]
+    hop = dict(shift=shift, wrap_n=wrap_n, shifted_causal=shifted_causal)
     sched = build_schedule(schedule, n_q, n_kv, 1024, 2048, radius=radius,
-                           section=section)
+                           section=section, **hop)
     circ = schedule == "circulant"
 
     def faulty(fault):
         if fault == "radius":
             return build_schedule(schedule, n_q, n_kv, 1024, 2048,
-                                  radius=radius + 1, section=section)
+                                  radius=radius + 1, section=section, **hop)
         if fault == "section":
             return _ShiftedSections(**dataclasses.asdict(sched))
+        if fault in ("shift", "wrap"):
+            return dataclasses.replace(
+                sched, **(dict(shift=shift + 1) if fault == "shift"
+                          else dict(wrap_n=0)))
         return sched
 
     if family == "serving":
@@ -124,7 +135,8 @@ def band_case(family: str, schedule: str, q, k, v, *, q_dtype, kv_dtype,
                                            torch.bfloat16, need_lse)
 
     def plain(fault: Optional[str] = None):
-        ops = qops if fault in (None, "radius", "section") else operands(fault)
+        ops = qops if fault in (None, "radius", "section", "shift",
+                                "wrap") else operands(fault)
         return tfq._quant_plain(*ops, faulty(fault), hq, hkv, torch.bfloat16)
 
     return kernel, plain, None

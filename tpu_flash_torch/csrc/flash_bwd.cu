@@ -10,7 +10,8 @@
 // Schedules: every kind of B1 (schedule.cuh, the kind codes of
 // ops/flash.py:_KIND): dense, causal (right-aligned), local, local_causal,
 // circulant over the halo-extended K/V the wrapper builds (n_kv = n + 2r),
-// block-diagonal. B4 walks a q tile's kv tiles (kv_range), B5 a kv tile's
+// block-diagonal, and the ring hop's shifted and shifted_causal (offset the
+// shift, radius -1 or the band, section the wrap). B4 walks a q tile's kv tiles (kv_range), B5 a kv tile's
 // q tiles (q_range, the transposed visit); a tile wholly visible to the
 // tile's rows skips the per-element mask (tile_full), as B1 does.
 //
@@ -805,9 +806,7 @@ __global__ void __launch_bounds__(128 * (NC + 1), DqCfg<HD, NC, DP>::P::MINB)
     const float dl_a = qa < s.n_q ? p.delta[base + qa] : 0.0f;
     const float dl_b = qb < s.n_q ? p.delta[base + qb] : 0.0f;
     // the keys each of the two rows sees (empty past n_q)
-    int lo_a, hi_a, lo_b, hi_b;
-    key_span(s, qa, lo_a, hi_a);
-    key_span(s, qb, lo_b, hi_b);
+    const Span span_a = key_span(s, qa), span_b = key_span(s, qb);
     float dq[HD / 2];
 #pragma unroll
     for (int i = 0; i < HD / 2; ++i) dq[i] = 0.0f;
@@ -830,7 +829,7 @@ __global__ void __launch_bounds__(128 * (NC + 1), DqCfg<HD, NC, DP>::P::MINB)
 #pragma unroll
         for (int e = 0; e < BKV / 2; ++e) {
           const int kpos = k0 + 8 * (e / 4) + 2 * t4 + (e & 1);
-          if ((e & 2) ? (kpos < lo_b || kpos > hi_b) : (kpos < lo_a || kpos > hi_a)) sc[e] = 0.0f;
+          if (!in_span((e & 2) ? span_b : span_a, kpos)) sc[e] = 0.0f;
         }
       }
 #pragma unroll
@@ -953,9 +952,7 @@ __global__ void __launch_bounds__(128 * (NC + 1), DkvCfg<HD, NC, DP>::P::MINB)
     const int ra = warp * 16 + lane / 4, rb = ra + 8, t4 = lane % 4;
     const int ka = k0 + ra, kb = k0 + rb;
     // the queries that see each of the two rows (empty past n_kv)
-    int lo_a, hi_a, lo_b, hi_b;
-    query_span(s, ka, lo_a, hi_a);
-    query_span(s, kb, lo_b, hi_b);
+    const Span span_a = query_span(s, ka), span_b = query_span(s, kb);
     float dk[HD / 2], dv[HD / 2];
 #pragma unroll
     for (int i = 0; i < HD / 2; ++i) {
@@ -988,7 +985,7 @@ __global__ void __launch_bounds__(128 * (NC + 1), DkvCfg<HD, NC, DP>::P::MINB)
 #pragma unroll
         for (int e = 0; e < BQ / 2; ++e) {
           const int qpos = q0 + 8 * (e / 4) + 2 * t4 + (e & 1);
-          if ((e & 2) ? (qpos < lo_b || qpos > hi_b) : (qpos < lo_a || qpos > hi_a)) sc[e] = 0.0f;
+          if (!in_span((e & 2) ? span_b : span_a, qpos)) sc[e] = 0.0f;
         }
       }
 #pragma unroll
@@ -1093,9 +1090,8 @@ cudaError_t launch_dkv_tc(const BwdParams& p, int bh_kv, cudaStream_t stream) {
 }
 
 // the schedule's arguments as B1 takes them (flash_fwd.cu:tf_flash_fwd)
-bool bad_sched(int hq, int hkv, int kind, int radius, int section) {
-  return hkv <= 0 || hq % hkv != 0 || kind < DENSE || kind > BLOCK || radius < 0 ||
-         (kind == BLOCK && section <= 0);
+bool bad_sched(int hq, int hkv, const Sched& s) {
+  return hkv <= 0 || hq % hkv != 0 || !sched_ok(s);
 }
 
 // one entry's dispatch over dtype (0 = float32, 1 = bfloat16), width and dp
@@ -1147,7 +1143,8 @@ template <int HD, bool DP> struct DkvTc {
 // All contiguous, 16-byte aligned, one dtype (0 = float32, 1 = bfloat16).
 // d ∈ {64, 128, 256} (the wrapper zero-pads other head and value dims).
 // kind, offset, radius, section: the schedule (schedule.cuh; offset is the
-// causal kind's n_kv − n_q; circulant k/v are the halo-extended ones).
+// causal kind's n_kv − n_q or the shifted kinds' shift, section their wrap;
+// circulant k/v are the halo-extended ones).
 // dp: v8 (V̂, like v, int8), do8 (dÔ, like dout, int8) and sdo (σdo, like
 // lse2) non-null, delta divided by σdo; v and dout are then not read; not
 // at d 64. bf16 at 64 and 128 takes the TMA + wgmma kernel, the rest the
@@ -1160,7 +1157,8 @@ extern "C" cudaError_t tf_flash_bwd_dq(const void* q, const void* k, const void*
                                        int radius, int section, int dtype,
                                        cudaStream_t stream) {
   if (bh <= 0 || n_q <= 0) return cudaSuccess;
-  if (bad_sched(hq, hkv, kind, radius, section) || bh % hq != 0 || n_kv < 0)
+  if (bad_sched(hq, hkv, Sched{n_q, n_kv, kind, offset, radius, section}) || bh % hq != 0 ||
+      n_kv < 0)
     return cudaErrorInvalidValue;
   const bool dp = v8 != nullptr;
   if (dp && (do8 == nullptr || sdo == nullptr)) return cudaErrorInvalidValue;
@@ -1181,7 +1179,8 @@ extern "C" cudaError_t tf_flash_bwd_dkv(const void* q, const void* k, const void
                                         int radius, int section, int dtype,
                                         cudaStream_t stream) {
   if (bh_kv <= 0 || n_kv <= 0) return cudaSuccess;
-  if (bad_sched(hq, hkv, kind, radius, section) || bh_kv % hkv != 0 || n_q < 0)
+  if (bad_sched(hq, hkv, Sched{n_q, n_kv, kind, offset, radius, section}) ||
+      bh_kv % hkv != 0 || n_q < 0)
     return cudaErrorInvalidValue;
   const bool dp = v8 != nullptr;
   if (dp && (do8 == nullptr || qs == nullptr)) return cudaErrorInvalidValue;

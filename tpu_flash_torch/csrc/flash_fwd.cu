@@ -16,7 +16,10 @@
 // 3 local_causal, the band and j <= i; 4 circulant, over the halo-extended
 // K/V cat(k[-r:], k, k[:r]) the wrapper builds: 0 <= j - i <= 2·radius (the
 // wraparound band as a contiguous one, CirculantSchedule's _first_step and
-// _last_block); 5 block-diagonal, i / section == j / section. A q tile walks
+// _last_block); 5 block-diagonal, i / section == j / section; 6 and 7 the
+// ring hop (ShiftedMaskSchedule: query i at i + shift, an optional band,
+// wrapped mod the ring's length, and under 7 j <= i + shift), masked per
+// element by visible, its tiles the hull of the band. A q tile walks
 // the kv tiles from max(0, q0 - radius) / BKV to min(last tile, (q_last +
 // radius) / BKV) under the local kinds, stopping at q_last / BKV under
 // local_causal (and at (q_last + offset) / BKV under causal); from q0 / BKV
@@ -554,7 +557,9 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o, flo
 // norm per kv row for the norm-bound max, or null for the exact max. All
 // contiguous, 16-byte aligned. kind: 0 dense, 1 causal (offset), 2 local,
 // 3 local_causal (radius), 4 circulant (radius; k, v halo-extended, n_kv =
-// n + 2·radius), 5 block-diagonal (section). dtype: 0 = float32,
+// n + 2·radius), 5 block-diagonal (section), 6 shifted and 7
+// shifted_causal (offset the shift, radius -1 or the band, section the
+// wrap, 0 or at least n_q and n_kv). dtype: 0 = float32,
 // 1 = bfloat16. d ∈ {64, 128, 256} (the wrapper zero-pads other head and
 // value dims up to the next of these).
 extern "C" cudaError_t tf_flash_fwd(const void* q, const void* k, const void* v,
@@ -563,10 +568,9 @@ extern "C" cudaError_t tf_flash_fwd(const void* q, const void* k, const void* v,
                                     int d, int kind, int offset, int radius,
                                     int section, int dtype, cudaStream_t stream) {
   if (bh <= 0 || n_q <= 0) return cudaSuccess;
-  if (hkv <= 0 || hq % hkv != 0 || bh % hq != 0 || n_kv < 0 || kind < DENSE ||
-      kind > BLOCK || radius < 0 || (kind == BLOCK && section <= 0))
-    return cudaErrorInvalidValue;
   const Sched sc{n_q, n_kv, kind, offset, radius, section};
+  if (hkv <= 0 || hq % hkv != 0 || bh % hq != 0 || n_kv < 0 || !sched_ok(sc))
+    return cudaErrorInvalidValue;
   if (dtype == 1) {
     const TcParams p{static_cast<bf16*>(o), lse, kmax, sc, hq, hkv};
     if (d == 128) return launch_tc<128>(q, k, v, p, bh, stream);

@@ -9,7 +9,9 @@
 //   forward, Q already quantized on the host; entry point tf_quant_attention.
 //
 // Schedules: the kinds of schedule.cuh (dense, causal, local, local_causal,
-// circulant over halo-extended K/V, block-diagonal), the kind a runtime
+// circulant over halo-extended K/V, block-diagonal, and the ring hop's
+// shifted and shifted_causal, whose wrapped band may reach a row's keys in
+// two runs), the kind a runtime
 // argument as in B1 and B4/B5. A CTA's producer and consumers walk the same
 // kv tiles, kv_range's [first, last] for its 128 q rows; a consumer masks a
 // tile only where tile_full says its 64 rows do not see all of it, by each
@@ -436,9 +438,8 @@ __global__ void __launch_bounds__(384, 1)
     const int ra = warp * 16 + lane / 4, rb = ra + 8;
     const int qa = qw0 + ra, qb = qw0 + rb;
     const int t4 = lane % 4;
-    int lo_a, hi_a, lo_b, hi_b;  // the keys each of the two rows sees
-    key_span(sd, qa, lo_a, hi_a);
-    key_span(sd, qb, lo_b, hi_b);
+    // the keys each of the two rows sees
+    const Span span_a = key_span(sd, qa), span_b = key_span(sd, qb);
     const float fa = rowf[64 * wg + ra], fb = rowf[64 * wg + rb];
     float ma = rowm[64 * wg + ra], mb = rowm[64 * wg + rb];
     float la = 0.0f, lb = 0.0f;
@@ -517,8 +518,7 @@ __global__ void __launch_bounds__(384, 1)
 #pragma unroll
         for (int i = 0; i < BKV / 2; ++i) {
           const int kpos = k0 + 8 * (i / 4) + 2 * t4 + (i & 1);
-          const bool seen = (i & 2) ? kpos >= lo_b && kpos <= hi_b : kpos >= lo_a && kpos <= hi_a;
-          if (!seen) sc[i] = MASK;
+          if (!in_span((i & 2) ? span_b : span_a, kpos)) sc[i] = MASK;
         }
       }
       if (!bound) {  // the exact running max; the bound needs no rescale
@@ -700,9 +700,7 @@ cudaError_t dispatch(const Params& p, int bh, int d, int pv_quant, cudaStream_t 
   if (bh <= 0 || p.s.n_q <= 0) return cudaSuccess;
   if (p.hkv <= 0 || p.hq % p.hkv != 0 || bh % p.hq != 0 || p.s.n_kv <= 0)
     return cudaErrorInvalidValue;
-  if (p.s.kind < DENSE || p.s.kind > BLOCK || p.s.radius < 0 ||
-      (p.s.kind == BLOCK && p.s.section <= 0))
-    return cudaErrorInvalidValue;
+  if (!sched_ok(p.s)) return cudaErrorInvalidValue;
   if (p.kv_dtype < KV_INT8 || p.kv_dtype > KV_E5M2) return cudaErrorInvalidValue;
   const bool qi8 = p.q_mode == Q_INT8 || p.q_mode == Q_LOAD_INT8;
   const bool qf8 = p.q_mode == Q_FP8 || p.q_mode == Q_LOAD_FP8;

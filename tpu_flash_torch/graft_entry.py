@@ -1,12 +1,16 @@
-"""Training step: the counterpart of ``__graft_entry__.py``'s ``train_step``
-without the mesh (sequence-parallel ring attention and the multi-chip dry
-run are ROADMAP A13; ``entry()`` is A6).
+"""Training steps: the counterpart of ``__graft_entry__.py``'s
+``train_step``, and of its multi-chip dry run's sequence-parallel step
+without the tensor- and expert-parallel meshes (the dry run itself and
+those meshes are ROADMAP A13; ``entry()`` is A6).
 
     params, loss = train_step(params, tokens, cfg, lr)
+    params, loss = seq_parallel_train_step(params, tokens, cfg, lr, ranks=4)
 
-takes the gradient of ``models/transformer.py:loss_fn`` with respect to
+take the gradient of ``models/transformer.py:loss_fn`` with respect to
 every parameter leaf (attention backward through B4/B5 on the card) and
-applies the reference's update ``p − lr·g.astype(p.dtype)``.
+apply the reference's update ``p − lr·g.astype(p.dtype)``. The
+sequence-parallel step runs attention as the causal ring over ``ranks``
+virtual ranks (``parallel/ring.py``), K/V heads repeated to the q heads.
 """
 
 from __future__ import annotations
@@ -14,6 +18,7 @@ from __future__ import annotations
 import torch
 
 from tpu_flash_torch.models import transformer as tfm
+from tpu_flash_torch.parallel import ring
 
 
 def named_leaves(params, prefix=""):
@@ -61,15 +66,25 @@ def loss_and_grads(params, tokens, cfg: tfm.ModelConfig, attn_fn=None):
     return loss.detach(), list(grads)
 
 
-def train_step(params, tokens, cfg: tfm.ModelConfig, lr: float):
-    """One SGD step on ``loss_fn(params, tokens, cfg)``; returns
+def train_step(params, tokens, cfg: tfm.ModelConfig, lr: float,
+               attn_fn=None):
+    """One SGD step on ``loss_fn(params, tokens, cfg, attn_fn)``; returns
     ``(params, loss)``, the loss before the step as a 0-d float32 tensor.
 
     Updates the parameter tensors IN PLACE (and returns the same tree): the
     gradient of each leaf is cast to the leaf's dtype, scaled by ``lr`` and
     subtracted, the reference's rule ``p − lr·g.astype(p.dtype)``."""
-    loss, grads = loss_and_grads(params, tokens, cfg)
+    loss, grads = loss_and_grads(params, tokens, cfg, attn_fn=attn_fn)
     with torch.no_grad():
         for p, g in zip(param_leaves(params), grads):
             p.sub_(g.to(p.dtype) * lr)
     return params, loss
+
+
+def seq_parallel_train_step(params, tokens, cfg: tfm.ModelConfig, lr: float,
+                            ranks: int):
+    """:func:`train_step` with attention as the causal ring over ``ranks``
+    virtual ranks (``tokens[:, :-1]`` must split into them): the dry run's
+    ``loss_fn(..., attn_fn=ring)`` step on one device."""
+    return train_step(params, tokens, cfg, lr, attn_fn=ring.ring_attn_fn(
+        ranks, pattern="causal", block_q=cfg.block_q, block_kv=cfg.block_kv))

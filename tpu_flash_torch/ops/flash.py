@@ -2,8 +2,7 @@
 wrappers (``dense_fa``, ``sliding_fa``, ``circulant_fa``, ``block_fa``,
 ``windowed_fa``, with N-d ``(batch, *spatial, heads, d)`` inputs) from
 ``tpu_flash/ops/flash.py`` for the dense, causal, local, local_causal,
-block-diagonal and circulant schedules (the ring-hop schedule is ROADMAP
-A13).
+block-diagonal, circulant and shifted (ring-hop) schedules.
 
 Public layout ``(batch, heads, n, d)``, GQA through the kv-row map, lse in
 natural-log units, and a fully masked row gives o = 0, lse = −inf. The
@@ -50,6 +49,7 @@ from tpu_flash_torch.ops.schedule import (
     CirculantSchedule,
     LocalSchedule,
     Schedule,
+    ShiftedMaskSchedule,
     cdiv,
 )
 from tpu_flash_torch.utils.layout import (
@@ -63,24 +63,25 @@ LOG2E = math.log2(math.e)
 LN2 = math.log(2.0)
 _LANES = 128
 
-# Options of the reference's flash_attention that are not ported yet, with
-# the ROADMAP item that adds them.
-_UNPORTED = {"shift": "A13", "wrap_n": "A13", "shifted_causal": "A13"}
 # the norm bound's slack over ‖q̃_i‖·max_j‖k_j‖ (the reference's factor)
 BOUND_SLACK = 1.0001
 # schedule kinds of csrc/flash_fwd.cu
 _KIND = {(Schedule, False): 0, (CausalSchedule, False): 1,
          (LocalSchedule, False): 2, (LocalSchedule, True): 3,
-         (CirculantSchedule, False): 4, (BlockDiagonalSchedule, False): 5}
+         (CirculantSchedule, False): 4, (BlockDiagonalSchedule, False): 5,
+         (ShiftedMaskSchedule, False): 6, (ShiftedMaskSchedule, True): 7}
 
 
 def kernel_schedule(sched: Schedule) -> tuple[int, int, int, int]:
     """The schedule as the kernels take it (``csrc/schedule.cuh:Sched``):
-    kind, causal offset n_kv − n_q, band radius and section; raises for a
+    kind, offset (the causal n_kv − n_q, or the shifted kinds' shift),
+    band radius and section (the shifted kinds' wrap_n); raises for a
     schedule no kernel walks."""
     kind = _KIND.get((type(sched), getattr(sched, "causal", False)))
     if kind is None:
         raise NotImplementedError(f"no CUDA kernel for {type(sched).__name__}")
+    if isinstance(sched, ShiftedMaskSchedule):
+        return kind, sched.shift, sched.radius, sched.wrap_n
     return (kind, sched._offset if kind == 1 else 0,
             getattr(sched, "radius", 0), getattr(sched, "section", 0))
 
@@ -103,14 +104,19 @@ def _pick_block(n: int, preferred: int) -> int:
 
 
 def build_schedule(schedule: str, n_q: int, n_kv: int, block_q: int,
-                   block_kv: int, *, radius: int = 0,
-                   section: int = 0) -> Schedule:
+                   block_kv: int, *, radius: int = 0, section: int = 0,
+                   shift: int = 0, wrap_n: int = 0,
+                   shifted_causal: bool = False) -> Schedule:
     """Pick blocks and build the Schedule (dense, causal, local,
-    local_causal, block, circulant; ``radius`` bands the local and circulant
-    ones, ``section`` sizes the block-diagonal chunks). ``n_kv`` is the real
-    key length: the circulant's kv block is picked against its
-    halo-extended length, and the block schedule's blocks shrink until they
-    divide the section, as in the reference."""
+    local_causal, block, circulant, shifted; ``radius`` bands the local and
+    circulant ones and the shifted one, where −1 means no band, ``section``
+    sizes the block-diagonal chunks, ``shift``/``wrap_n``/``shifted_causal``
+    place the shifted one). ``n_kv`` is the real key length: the
+    circulant's kv block is picked against its halo-extended length, and
+    the block schedule's blocks shrink until they divide the section, as in
+    the reference. A shifted band wraps only around a ring at least as long
+    as the q and kv lengths (``ValueError`` otherwise): a ring hop's shard
+    never exceeds its ring."""
     bq = _pick_block(n_q, block_q)
     bkv = _pick_block(n_kv + 2 * radius if schedule == "circulant" else n_kv,
                       block_kv)
@@ -135,8 +141,11 @@ def build_schedule(schedule: str, n_q: int, n_kv: int, block_q: int,
     if schedule == "circulant":
         return CirculantSchedule(**common, radius=radius)
     if schedule == "shifted":
-        raise NotImplementedError(
-            "schedule 'shifted' is not ported yet (ROADMAP A13)")
+        if wrap_n < 0 or (wrap_n and max(n_q, n_kv) > wrap_n):
+            raise ValueError(f"wrap_n={wrap_n} must be 0 or at least the q "
+                             f"and kv lengths {n_q}, {n_kv}")
+        return ShiftedMaskSchedule(**common, shift=shift, radius=radius,
+                                   wrap_n=wrap_n, causal=shifted_causal)
     raise ValueError(f"unknown schedule {schedule!r}")
 
 
@@ -144,8 +153,8 @@ def auto_bound_max(sched: Schedule) -> bool:
     """The reference's default max policy (``ops/flash.py:1005-1007``): the
     norm bound for mask-free dense and for non-causal bands (local and
     circulant), the exact running max for causal, local_causal,
-    block-diagonal (even when aligned sections leave it mask-free) and
-    ragged dense."""
+    block-diagonal (even when aligned sections leave it mask-free), shifted
+    (ring hops, held against whole-sequence runs) and ragged dense."""
     band = isinstance(sched, (LocalSchedule, CirculantSchedule))
     return ((not sched.has_mask and not isinstance(sched, BlockDiagonalSchedule))
             or (band and not getattr(sched, "causal", False)))
@@ -359,6 +368,9 @@ def flash_attention(
     scale: Optional[float] = None,
     radius: int = 0,
     section: int = 0,
+    shift: int = 0,
+    wrap_n: int = 0,
+    shifted_causal: bool = False,
     block_q: Optional[int] = None,
     block_kv: Optional[int] = None,
     return_lse: bool = False,
@@ -368,16 +380,19 @@ def flash_attention(
     kv_scale: str = "token",
     bwd_split: Optional[int] = None,
     bwd_quant: Optional[str] = None,
-    **unported,
 ):
     """Schedule-parameterized fused attention on ``(batch, heads, n, d)``.
 
     ``schedule`` ∈ {"dense", "causal", "local", "local_causal", "block",
-    "circulant"}; ``radius`` bands the local ones (query ``i`` sees keys
-    ``|i − j| ≤ radius``) and the circulant (keys ``(i + o) mod n``, ``|o| ≤
-    radius``); ``section`` sizes the block-diagonal chunks (query ``i`` sees
-    keys ``j`` with ``i // section == j // section``); k/v may have fewer
-    heads (GQA).
+    "circulant", "shifted"}; ``radius`` bands the local ones (query ``i``
+    sees keys ``|i − j| ≤ radius``) and the circulant (keys ``(i + o) mod
+    n``, ``|o| ≤ radius``); ``section`` sizes the block-diagonal chunks
+    (query ``i`` sees keys ``j`` with ``i // section == j // section``); the
+    shifted schedule is a ring hop: query ``i`` sits at ``i + shift``,
+    ``radius`` ≥ 0 bands it (−1: no band), mod ``wrap_n`` when that is > 0
+    (at least the q and kv lengths), and ``shifted_causal`` also requires
+    ``j ≤ i + shift``; a row that sees no key gives o = 0, lse = −inf. k/v
+    may have fewer heads (GQA).
     ``q_dtype``/``kv_dtype`` (int8 / float8 names or torch dtypes;
     ``kv_dtype`` alone is the weight-only mode) route to
     ``quant/flash_q.py:quantized_flash_attention`` (kernel B7, or B6 at
@@ -415,14 +430,8 @@ def flash_attention(
             block_kv=min(2048 if block_kv is None else block_kv, 2048),
             return_lse=return_lse,
             bound_max=True if bound_max is None else bound_max,
-            kv_scale=kv_scale, **unported)
-    for name in unported:
-        if name not in _UNPORTED:
-            raise TypeError(f"flash_attention() got an unexpected keyword "
-                            f"argument {name!r}")
-        raise NotImplementedError(
-            f"flash_attention({name}=...) is not ported yet "
-            f"(ROADMAP {_UNPORTED[name]})")
+            kv_scale=kv_scale, shift=shift, wrap_n=wrap_n,
+            shifted_causal=shifted_causal)
     if q.ndim != 4:
         raise ValueError(f"expected (batch, heads, n, d), got {tuple(q.shape)}")
     b, h, n_q, d = q.shape
@@ -437,7 +446,8 @@ def flash_attention(
     if scale is None:
         scale = 1.0 / math.sqrt(d)
     sched = build_schedule(schedule, n_q, n_kv, block_q, block_kv,
-                           radius=radius, section=section)
+                           radius=radius, section=section, shift=shift,
+                           wrap_n=wrap_n, shifted_causal=shifted_causal)
     if bound_max is None:
         bound_max = auto_bound_max(sched)
     qf = (q.float() * (scale * LOG2E)).to(q.dtype).reshape(b * h, n_q, d)

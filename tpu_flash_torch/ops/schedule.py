@@ -1,8 +1,8 @@
 """Block schedules: which KV blocks each Q block visits, and in-block masks.
 
-Port of ``tpu_flash/ops/schedule.py`` for the dense, causal, local
-(sliding-band), block-diagonal and circulant schedules (the ring-hop
-``ShiftedMaskSchedule`` is ROADMAP A13). The block-visit math is host-side
+Port of ``tpu_flash/ops/schedule.py``: the dense, causal, local
+(sliding-band), block-diagonal, circulant and ring-hop (shifted)
+schedules. The block-visit math is host-side
 Python on ints; :meth:`Schedule.mask` takes torch tensors of global
 positions. The CUDA forward kernel's launcher takes its kind, causal
 offset, band radius and section from the schedule, and the plain path
@@ -379,6 +379,80 @@ class CirculantSchedule(Schedule):
         return full and self._kv_pad_ok(j)
 
 
+@dataclasses.dataclass(frozen=True)
+class ShiftedMaskSchedule(Schedule):
+    """Dense iteration with a mask over globally shifted coordinates: the
+    ring-attention hop schedule. Query ``i`` sits at ``qg = i + shift``,
+    key ``j`` at ``j``; ``radius ≥ 0`` keeps the band ``|qg − j| ≤ radius``
+    (mod ``wrap_n`` when ``wrap_n > 0``, the circulant ring), ``radius`` −1
+    no band; ``causal`` also requires ``j ≤ qg``. With ``wrap_n`` the band
+    a query sees in a shard may be two runs of keys (both ends of the
+    circle)."""
+
+    shift: int = 0
+    radius: int = -1
+    wrap_n: int = 0
+    causal: bool = False
+
+    @property
+    def has_mask(self) -> bool:
+        return True
+
+    def mask(self, q_pos: torch.Tensor, k_pos: torch.Tensor) -> torch.Tensor:
+        qg = q_pos + self.shift
+        m = None
+        if self.radius >= 0:
+            if self.wrap_n > 0:
+                delta = torch.remainder(qg - k_pos, self.wrap_n)
+                m = (delta <= self.radius) | (delta >= self.wrap_n - self.radius)
+            else:
+                m = (qg - k_pos).abs() <= self.radius
+        if self.causal:
+            c = k_pos <= qg
+            m = c if m is None else m & c
+        if m is None:
+            m = torch.ones(torch.broadcast_shapes(q_pos.shape, k_pos.shape),
+                           dtype=torch.bool, device=q_pos.device)
+        return self._and_kv_pad(m, k_pos)
+
+    def block_unmasked(self, i: int, s: int) -> bool:
+        j = self.kv_block_index(i, s)
+        q_lo = i * self.block_q + self.shift
+        q_hi = min((i + 1) * self.block_q - 1, self.n_q - 1) + self.shift
+        k_lo, k_hi = j * self.block_kv, (j + 1) * self.block_kv - 1
+        full = self._kv_pad_ok(j)
+        if self.radius >= 0:
+            if self.wrap_n > 0:
+                # the tile's deltas k − qg fill [k_lo − q_hi, that + width];
+                # all inside the wrapped band [−r, r] iff the run shifted to
+                # the band's start stays within it
+                lo = k_lo - q_hi
+                width = (k_hi - k_lo) + (q_hi - q_lo)
+                full = full and (lo + self.radius) % self.wrap_n + width \
+                    <= 2 * self.radius
+            else:
+                full = (full and k_hi - q_lo <= self.radius
+                        and q_hi - k_lo <= self.radius)
+        if self.causal:
+            full = full and k_hi <= q_lo
+        return full
+
+
+def band_hull(lo: int, width: int, wrap_n: int, length: int) -> tuple[int, int]:
+    """Positions of ``[0, length)`` congruent (mod ``wrap_n``; none: equal)
+    to one of ``[lo, lo + width)``, as their hull ``(first, last)``;
+    ``last < first``: none (``csrc/schedule.cuh:band_arcs``)."""
+    if wrap_n <= 0:
+        return max(0, lo), min(length - 1, lo + width - 1)
+    if width >= wrap_n:
+        return 0, length - 1
+    c = lo % wrap_n
+    end = c + width - 1
+    if end < wrap_n:
+        return c, min(end, length - 1)
+    return 0, length - 1 if c < length else min(end - wrap_n, length - 1)
+
+
 def kv_tile_range(sched: Schedule, n_kv: int, q0: int, q_last: int,
                   bkv: int) -> tuple[int, int]:
     """The kv tiles ``[first, last]`` (of ``bkv`` rows over ``n_kv`` keys,
@@ -402,6 +476,17 @@ def kv_tile_range(sched: Schedule, n_kv: int, q0: int, q_last: int,
         first = q0 // sched.section * sched.section // bkv
         last = min(last, ((q_last // sched.section + 1) * sched.section - 1)
                    // bkv)
+    elif isinstance(sched, ShiftedMaskSchedule):
+        lo, hi = 0, n_kv - 1
+        if sched.radius >= 0:
+            lo, hi = band_hull(q0 + sched.shift - sched.radius,
+                               2 * sched.radius + 1 + q_last - q0,
+                               sched.wrap_n, n_kv)
+        if sched.causal:
+            hi = min(hi, q_last + sched.shift)
+        if hi < lo:
+            return 0, -1
+        first, last = lo // bkv, min(last, hi // bkv)
     elif type(sched) is not Schedule:
         raise NotImplementedError(f"no kernel visit for {type(sched).__name__}")
     return first, last

@@ -1,6 +1,6 @@
 """Quantized flash-attention forward (B7): port of ``tpu_flash/quant/flash_q.py``
-on the dense, causal, local, local_causal, circulant and block-diagonal
-schedules (the shifted one is ROADMAP A13).
+on the dense, causal, local, local_causal, circulant, block-diagonal and
+shifted (ring-hop) schedules.
 
 * **activation-quant** (``q_dtype`` int8): int8 q̂·k̂ with int32
   accumulation, dequantized on the score matrix (``s = (q̂·k̂)·σq·log2e·σk``).
@@ -50,7 +50,6 @@ from tpu_flash_torch.ops.flash import (
     DEFAULT_MASK_VALUE,
     LN2,
     LOG2E,
-    _UNPORTED,
     _aligned,
     _kv_rows,
     build_schedule,
@@ -79,16 +78,6 @@ def f32(x: float) -> float:
     """``x`` rounded to float32, as a Python float: the value the reference
     multiplies by where it multiplies a float32 array by a Python number."""
     return struct.unpack("f", struct.pack("f", x))[0]
-
-
-def refuse_unported(**options) -> None:
-    """Raise for the reference's shifted-schedule options, which the
-    quantized route does not take yet (``ops/flash.py:_UNPORTED``)."""
-    for name, value in options.items():
-        if value:
-            raise NotImplementedError(
-                f"{name}={value!r} is not ported yet (ROADMAP "
-                f"{_UNPORTED[name]}); the shifted schedule goes with the ring")
 
 
 def scaled_k_norms(k_vals: torch.Tensor, sk_row=None) -> torch.Tensor:
@@ -417,12 +406,13 @@ def quantized_flash_attention(
     kv rows, 64 at head widths above 128). Any d and dv up to 256 run on
     the card. ``schedule``: dense, causal, local, local_causal (``radius``),
     circulant (``radius``; K/V halo-extended before they are quantized, as
-    in the reference) or block (``section``); the shifted schedule's
-    options raise (ROADMAP A13). At d ≤ 64 every schedule but the
-    circulant goes to :func:`~tpu_flash_torch.quant.serving_attn.
-    serving_flash_attention`, as in the reference (``transposed``).
+    in the reference), block (``section``) or shifted (``shift``,
+    ``radius``, ``wrap_n``, ``shifted_causal``: the ring hop of
+    ``ops/flash.py:flash_attention``). At d ≤ 64 the dense, causal, local,
+    local_causal and block schedules go to :func:`~tpu_flash_torch.quant.
+    serving_attn.serving_flash_attention`, as in the reference
+    (``transposed``); the circulant and shifted ones stay here.
     """
-    refuse_unported(shift=shift, wrap_n=wrap_n, shifted_causal=shifted_causal)
     if q.ndim != 4:
         raise ValueError(f"expected (batch, heads, n, d), got {tuple(q.shape)}")
     hq, hkv = q.shape[1], k.shape[1]
@@ -440,7 +430,8 @@ def quantized_flash_attention(
     if scale is None:
         scale = 1.0 / math.sqrt(d)
     sched = build_schedule(schedule, n_q, n_kv, block_q, block_kv,
-                           radius=radius, section=section)
+                           radius=radius, section=section, shift=shift,
+                           wrap_n=wrap_n, shifted_causal=shifted_causal)
     if kv_scale not in ("token", "tensor"):
         raise ValueError(
             f"kv_scale must be 'token' or 'tensor', got {kv_scale!r}")
@@ -588,8 +579,8 @@ def quantized_flash_attention_prequant(
     per-channel V scales; GQA (kv heads divide q heads). Schedules as
     :func:`quantized_flash_attention`; the circulant takes the K/V it is
     given, with 2·radius zero rows after them (:func:`phantom_rows`), as
-    the reference does."""
-    refuse_unported(shift=shift, wrap_n=wrap_n, shifted_causal=shifted_causal)
+    the reference does. This is the quantized ring's hop: the shifted
+    schedule with the norm bound by default, as in the reference."""
     q_vals = q_pre.values if isinstance(q_pre, QArray) else q_pre
     b, h, n_q, d = q_vals.shape
     hkv, n_kv = kq.values.shape[1], kq.values.shape[2]
@@ -597,7 +588,8 @@ def quantized_flash_attention_prequant(
         raise ValueError(f"q heads {h} not a multiple of kv heads {hkv}")
     dv = vq.values.shape[-1]
     sched = build_schedule(schedule, n_q, n_kv, block_q, block_kv,
-                           radius=radius, section=section)
+                           radius=radius, section=section, shift=shift,
+                           wrap_n=wrap_n, shifted_causal=shifted_causal)
     if schedule == "circulant":
         kq, vq = phantom_rows(kq, vq, 2 * radius)
         n_kv += 2 * radius

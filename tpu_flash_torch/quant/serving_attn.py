@@ -1,7 +1,7 @@
 """Serving-mode quantized attention (B6, B8): port of
 ``tpu_flash/quant/serving_attn.py`` on the dense, causal, local,
-local_causal, circulant and block-diagonal schedules (the shifted one is
-ROADMAP A13). The circulant runs over the cache as given, with 2·radius
+local_causal, circulant, block-diagonal and shifted (ring-hop) schedules.
+The circulant runs over the cache as given, with 2·radius
 zero rows after it (``flash_q.phantom_rows``): the reference does not
 halo-extend a cache, so those padding keys stay visible to it (score 0,
 value 0; ROADMAP C), and the port reproduces that.
@@ -48,7 +48,6 @@ from tpu_flash_torch.quant.flash_q import (
     check_kernel_operands,
     f32,
     phantom_rows,
-    refuse_unported,
     scaled_k_norms,
 )
 from tpu_flash_torch.quant.qarray import QArray, as_dtype, quantize
@@ -217,16 +216,15 @@ def serving_flash_attention(
     d and dv up to 256 run on the card. ``schedule``: dense, causal, local,
     local_causal (``radius``), circulant (``radius``, over the cache with
     2·radius phantom zero keys after it, as the reference computes it:
-    :func:`~tpu_flash_torch.quant.flash_q.phantom_rows`) or block
-    (``section``). ``isolate`` (an A/B diagnostic that computes wrong
-    outputs by design) and the shifted schedule's options raise
-    ``NotImplementedError``.
+    :func:`~tpu_flash_torch.quant.flash_q.phantom_rows`), block
+    (``section``) or shifted (``shift``, ``radius``, ``wrap_n``,
+    ``shifted_causal``, the ring hop). ``isolate`` (an A/B diagnostic that
+    computes wrong outputs by design) raises ``NotImplementedError``.
     """
     if isolate:
         raise NotImplementedError(
             "isolate is the reference's A/B diagnostic (wrong outputs by "
             "design); the port does not carry it (ROADMAP north star)")
-    refuse_unported(shift=shift, wrap_n=wrap_n, shifted_causal=shifted_causal)
     if q.ndim != 4:
         raise ValueError(f"expected (batch, heads, n, d), got {tuple(q.shape)}")
     b, h, n_q, d = q.shape
@@ -266,7 +264,8 @@ def serving_flash_attention(
         bound_max = not pv_quant
 
     sched = build_schedule(schedule, n_q, n_kv, block_q, block_kv,
-                           radius=radius, section=section)
+                           radius=radius, section=section, shift=shift,
+                           wrap_n=wrap_n, shifted_causal=shifted_causal)
     g = h // hkv
     if bh_block is None:
         bh_block = 1
