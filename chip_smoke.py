@@ -9,7 +9,16 @@ each kernel against its plain PyTorch version at its path's shapes, serves
 canonical decode model (vocab 32000, dim 2048, 16 layers, 16 q / 8 kv heads,
 head_dim 128, bf16 weights from a seed, int8 paged cache) and checks the
 output against a teacher-forced forward, and serves them again from an fp8
-(e4m3) and from an int4 cache, each within its own drift bound, then takes
+(e4m3) and from an int4 cache, each within its own drift bound, then serves
+them with int8 weights (quantize_weights) for 96 new tokens in rounds of up
+to 8 decode steps, each round one CUDA graph replay, async (phase
+serve_multistep), held against the one-token engine (tokens equal,
+logprobs within 1e-6), the synchronous rounds and a teacher-forced forward,
+and holds decode_verify of 4 tokens on each of the 16 lanes against 4
+decode steps on the float32 model of the same weights (a planted fault,
+one key too many, rejected; the bf16 model's gap printed), each of its 16
+B2 calls over 64 lanes held against the plain version on its own inputs
+(the same fault rejected), then takes
 three SGD train steps of the same model on 4 × 1025 tokens and checks their
 gradient against the f32 oracle attention's, and three of the same model
 with a sliding window (1025) on 2 × 2049 tokens, its gradient held against
@@ -345,15 +354,17 @@ def _b2_args(q, c, slots, len_add, bound, out_dtype=torch.bfloat16, tables=None)
             out_dtype, True)
 
 
-def _card_plan(q, c, bound, shared=False):
-    """The split plan of the card's route for this call (None: one split)."""
+def _card_plan(q, c, shared=False, radius=None):
+    """The split plan of the card's route for this call (None: one
+    split): the engine's, sized for the cache's walk (plan_pages)."""
     from tpu_flash_torch.ops import paged
 
     b, kvh, _, d = q.shape
     page = c.k_pages.shape[2]
     if paged.paged_route(page, shared) != "split":
         return None
-    return paged.split_plan(b, kvh, d, page, c.config.page_type, bound)
+    return paged.split_plan(b, kvh, d, page, c.config.page_type,
+                            paged.plan_pages(c.config, radius))
 
 
 def _hidden_page(c, slot, logical, dev):
@@ -415,7 +426,8 @@ def paged_phase(dev):
         kc = _decode_cache(dtype, lens, dev, 3)
         pc, fc = (_cache_copy(kc) for _ in range(2))
         pt = kc.config.page_type
-        kern = functools.partial(paged._paged_attention_kernel, page_type=pt)
+        kern = functools.partial(paged._paged_attention_kernel, page_type=pt,
+                                 walk=paged.plan_pages(kc.config))
         plain = functools.partial(paged._paged_attention_plain, page_type=pt)
         slots = torch.arange(b, dtype=torch.int32, device=dev)
         kn = torch.randn(b, kvh, d, generator=gen, device=dev).bfloat16()
@@ -437,7 +449,7 @@ def paged_phase(dev):
         q = torch.randn(b, hq, d, generator=gen, device=dev).bfloat16()
         qr = q.reshape(b, kvh, g, d)
         qg = (q.float() * qscale).bfloat16().reshape(b, kvh, g, d)
-        split = _card_plan(qg, kc, bound)
+        split = _card_plan(qg, kc)
         ka = _b2_args(qg, kc, slots, 1, bound)
         got = _bitwise_repeat(f"B2 split {dtype}", lambda: kern(*ka))
         errs = _held_b2(f"B2 split {dtype}", got, plain(
@@ -528,6 +540,342 @@ def engine_phase(dev, model=MODEL, cache=CACHE, max_batch=MAX_BATCH,
     done = {f.rid: f for f in eng.finished[n_done0:]}
     return dict(params=params, mcfg=mcfg, done=done, step_ms=step_ms,
                 wall_s=wall, launches=launches, cache=cache["dtype"])
+
+
+# the multi-step serving path (the reference sweep's decode rows,
+# tpu_flash/bench/sweep.py:475-520): int8 weights (quantize_weights), the
+# int8 cache, rounds of up to MULTISTEP_K tokens with async rounds, 96 new
+# tokens a request; held against the one-token engine (tokens equal,
+# logprobs within tests/test_engine.py:543's 1e-6) and the synchronous
+# rounds; decode_verify of VERIFY_K tokens a lane against as many
+# decode_steps on the float32 model of the same int8 weights, at
+# tests/test_speculative.py:66-67's atol and rtol where the card meets
+# them, else at TOL_BF16 (the served bf16 model's gap printed beside);
+# each decode_verify's B2 calls against the plain version at TOL_BF16
+MULTISTEP_K = 8
+MULTISTEP_NEW_TOKENS = 96
+TOL_STEPS_LOGPROB = 1e-6
+VERIFY_K = 4
+TOL_VERIFY = 1e-4
+
+
+def multistep_serve(params, mcfg, prompts, dev, decode_steps, async_decode):
+    """Serve the 16 requests (the last one at temperature 0.7, top-k 50,
+    top-p 0.9) after one warm-up request through an engine with the given
+    decode mode; return the finished requests, each step's host ms, the
+    wall time, and the kernel launches that ran (a graph's launches count
+    once for each replay, not at its capture)."""
+    from tpu_flash_torch import kernels
+    from tpu_flash_torch.cache.paged_cache import CacheConfig
+    from tpu_flash_torch.serving.engine import Engine, EngineConfig, Request
+
+    eng = Engine(params, mcfg, CacheConfig(**CACHE), EngineConfig(
+        max_batch=MAX_BATCH, decode_steps=decode_steps,
+        async_decode=async_decode))
+    eng.submit(Request(rid=10_000, prompt=prompts[-1],
+                       max_new_tokens=MULTISTEP_NEW_TOKENS))
+    eng.run()
+    torch.cuda.synchronize()
+    stats = eng.graph_stats
+    before = dict(captures=stats["captures"], replays=stats["replays"],
+                  captured=dict(stats["captured"]),
+                  replayed=dict(stats["replayed"]))
+    for i in range(N_REQUESTS):
+        hot = i == N_REQUESTS - 1
+        eng.submit(Request(rid=i, prompt=prompts[i],
+                           max_new_tokens=MULTISTEP_NEW_TOKENS,
+                           temperature=0.7 if hot else 0.0,
+                           top_k=50 if hot else 0, top_p=0.9 if hot else 1.0))
+    n0 = len(eng.finished)
+    kernels.reset_launches()
+    step_ms = []
+    t0 = time.perf_counter()
+    while eng.waiting or eng.running or eng.prefilling:
+        ts = time.perf_counter()
+        eng.step()  # ends in a host fetch of the tokens committed
+        step_ms.append((time.perf_counter() - ts) * 1e3)
+    eng.flush()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+
+    def delta(key):
+        return {k: n - before[key].get(k, 0) for k, n in stats[key].items()}
+
+    captured, replayed = delta("captured"), delta("replayed")
+    ran = {k: n - captured.get(k, 0) + replayed.get(k, 0)
+           for k, n in kernels.LAUNCHES.items()}
+    eager = {k: n - captured.get(k, 0) for k, n in kernels.LAUNCHES.items()}
+    out = dict(done={f.rid: f for f in eng.finished[n0:]}, step_ms=step_ms,
+               wall_s=wall, launches=ran, eager_launches=eager,
+               captures=stats["captures"] - before["captures"],
+               replays=stats["replays"] - before["replays"],
+               captures_total=stats["captures"],
+               graphs=sorted(eng._graphs))
+    del eng
+    torch.cuda.empty_cache()
+    return out
+
+
+def held_streams(name, got, want, tol=TOL_STEPS_LOGPROB) -> float:
+    """Every request of ``got`` has ``want``'s tokens and finish reason,
+    logprobs within ``tol``; returns the largest logprob gap."""
+    if sorted(got) != sorted(want) or sorted(got) != list(range(N_REQUESTS)):
+        raise AssertionError(f"{name}: finished {sorted(got)}")
+    worst = 0.0
+    for rid, f in want.items():
+        g = got[rid]
+        if g.tokens != f.tokens or g.reason != f.reason:
+            raise AssertionError(f"{name}: request {rid} differs")
+        worst = max(worst, float(np.abs(np.subtract(g.logprobs,
+                                                    f.logprobs)).max()))
+    check(f"{name}: logprobs", worst, tol)
+    return worst
+
+
+def held_verify_b2(calls) -> dict:
+    """B2 on exactly the inputs decode_verify gave it, layer by layer:
+    16 × VERIFY_K lanes (each slot on VERIFY_K consecutive lanes), visible
+    lengths base + j + 1 (lengths_override, no append), each layer's cache
+    as its appends left it. The wrapper's o is the main path's bit for
+    bit; o and lse are within TOL_BF16 of the plain version under the
+    engine's split plan; the planted fault (visible lengths one too long:
+    token j sees j + 1's key) must fail that check over the 16 layers (one
+    key among ~530 moves o by about its attention weight, so a layer's
+    rows may all stay within the bound; the layers that reject it are
+    counted)."""
+    from tpu_flash_torch.ops import paged
+
+    worst, fault_errs = 0.0, []
+    for layer, call in enumerate(calls):
+        q, c, slots, kw = call["q"], call["cache"], call["slots"], call["kw"]
+        b, qh, d = q.shape
+        kvh = c.k_pages.shape[0]
+        qr = q.reshape(b, kvh, qh // kvh, d)
+        qscale = d ** -0.5 * paged.LOG2E
+        qg = (qr.float() * qscale).bfloat16()
+        radius = kw.get("radius")
+        walk = paged.plan_pages(c.config, radius)
+        bound = min(kw["pages_bound"] or walk, walk)
+        vis = kw["lengths_override"].to(torch.int32)
+        lane_kw = dict(radius=radius, positions=None if radius is None
+                       else kw["positions"].to(torch.int32),
+                       page_type=c.config.page_type)
+        args = (c.k_pages, c.v_pages, c.k_scales, c.v_scales, slots,
+                c.lengths, c.page_tables, 0, bound, q.dtype, True)
+        got = paged._paged_attention_kernel(qr, *args, lengths_override=vis,
+                                            q_scale=qscale, walk=walk,
+                                            **lane_kw)
+        torch.cuda.synchronize()
+        if not torch.equal(got[0].reshape(b, qh, d), call["o"]):
+            raise AssertionError(f"decode_verify B2 layer {layer}: the "
+                                 "wrapper's o is not the main path's")
+        split = _card_plan(qg, c, radius=radius)
+        errs = _held_b2(f"decode_verify B2 layer {layer}", got,
+                        paged._paged_attention_plain(
+                            qg, *args, lengths_override=vis,
+                            split_pages=split, **lane_kw))
+        fo, fl = paged._paged_attention_plain(
+            qg, *args, lengths_override=vis + 1, split_pages=split,
+            **lane_kw)
+        worst = max(worst, *errs.values())
+        fault_errs.append(max(max_err(got[0], fo), max_err(got[1], fl)))
+    out = dict(layers=len(calls), lanes=b, pages_bound=bound,
+               split_pages=split, tol=TOL_BF16, max_abs_err=worst,
+               main_path_o_bitwise=True, fault_max_err=max(fault_errs),
+               fault_least_err=min(fault_errs),
+               fault_rejected_layers=sum(e > TOL_BF16 for e in fault_errs))
+    if out["fault_max_err"] <= TOL_BF16:
+        raise AssertionError("decode_verify B2: the planted fault (one key "
+                             f"too many) passes the check: {out}")
+    return out
+
+
+def verify_phase(params, mcfg, prompts, dev, gate: bool) -> dict:
+    """decode_verify of VERIFY_K tokens on each of the 16 lanes (prompts
+    prefilled through the engine), against VERIFY_K sequential decode_steps
+    on a copy of the caches, with its B2 calls held against the plain
+    version on their own inputs (:func:`held_verify_b2`). With ``gate``:
+    logits within atol + rtol TOL_VERIFY where the card meets it, else
+    TOL_BF16, argmax equal, and a planted fault (visible lengths one too
+    long: token j sees j + 1's key) must fail the same check; without, the
+    model's gap is only reported."""
+    from tpu_flash_torch import kernels
+    from tpu_flash_torch.cache.paged_cache import CacheConfig
+    from tpu_flash_torch.models import transformer as tfm
+    from tpu_flash_torch.serving.engine import Engine, EngineConfig, Request
+
+    eng = Engine(params, mcfg, CacheConfig(**CACHE),
+                 EngineConfig(max_batch=MAX_BATCH))
+    for i in range(N_REQUESTS):
+        eng.submit(Request(rid=i, prompt=prompts[i], max_new_tokens=8))
+    eng._admit()  # prefill every prompt; the pages cover 8 more tokens
+    caches = eng.caches
+    seq_caches = [_cache_copy(c) for c in caches]
+    fault_caches = [_cache_copy(c) for c in caches]
+    del eng
+    rng = np.random.default_rng(3)
+    toks = torch.as_tensor(rng.integers(1, mcfg.vocab_size - 1,
+                                        (N_REQUESTS, VERIFY_K)), device=dev)
+    slots = torch.arange(N_REQUESTS, dtype=torch.int32, device=dev)
+    base = caches[0].lengths[:N_REQUESTS].clone()
+    paged = tfm.paged_attention
+    calls = []
+
+    def recorded(q, cache, slots, **kw):  # B2's inputs and o, a layer each
+        o = paged(q, cache, slots, **kw)
+        calls.append(dict(q=q.clone(), cache=cache, slots=slots, kw=kw, o=o))
+        return o
+
+    tfm.paged_attention = recorded
+    kernels.reset_launches()
+    try:
+        got, _ = tfm.decode_verify(params, toks, base, caches, slots, mcfg)
+        torch.cuda.synchronize()
+    finally:
+        tfm.paged_attention = paged
+    launches = {k: kernels.LAUNCHES[k] for k in (
+        "paged_append", "paged_attention_split", "paged_append_fused")}
+    if (launches["paged_append"] != VERIFY_K * mcfg.num_layers
+            or launches["paged_attention_split"] != mcfg.num_layers
+            or launches["paged_append_fused"]):
+        raise AssertionError(f"decode_verify launches {launches}")
+    b2 = held_verify_b2(calls)
+    del calls
+    want = torch.stack([tfm.decode_step(
+        params, toks[:, j], base + j, seq_caches, slots, mcfg)[0]
+        for j in range(VERIFY_K)], dim=1)
+    lengths_ok = all(torch.equal(a.lengths, b.lengths)
+                     for a, b in zip(caches, seq_caches))
+    if not lengths_ok or not torch.equal(caches[0].lengths[:N_REQUESTS],
+                                         base + VERIFY_K):
+        raise AssertionError("decode_verify: lengths not advanced by K")
+    def one_too_many(*a, lengths_override=None, **kw):
+        return paged(*a, lengths_override=lengths_override + 1, **kw)
+
+    tfm.paged_attention = one_too_many
+    try:
+        fault, _ = tfm.decode_verify(params, toks, base, fault_caches, slots,
+                                     mcfg)
+    finally:
+        tfm.paged_attention = paged
+    gap = (got - want).abs()
+    excess = float((gap - TOL_VERIFY * want.abs()).max())
+    tight = excess <= TOL_VERIFY
+
+    def within(x):  # atol + rtol·|want| where the card meets it, else TOL_BF16
+        d = (x - want).abs()
+        if tight:
+            return bool((d <= TOL_VERIFY + TOL_VERIFY * want.abs()).all())
+        return float(d.max()) <= TOL_BF16
+
+    argmax_agree = float((got.argmax(-1) == want.argmax(-1)).float().mean())
+    out = dict(dtype=mcfg.dtype, lanes=N_REQUESTS, K=VERIFY_K,
+               max_abs_gap=float(gap.max()), excess_over_atol_rtol=excess,
+               tight=tight, gated=gate,
+               tol="atol 1e-4 + rtol 1e-4" if tight else "TOL_BF16 2e-2",
+               fault_gap=float((fault - want).abs().max()),
+               fault_rejected=not within(fault), argmax_agreement=argmax_agree,
+               launches=launches, b2=b2)
+    if gate:
+        if not within(got):
+            raise AssertionError(f"decode_verify vs steps: {out}")
+        if within(fault):
+            raise AssertionError("decode_verify: the planted fault (one key "
+                                 f"too many) passes the check: {out}")
+        if argmax_agree != 1.0:
+            raise AssertionError(f"decode_verify: argmax differs: {out}")
+    del caches, seq_caches, fault_caches
+    torch.cuda.empty_cache()
+    return out
+
+
+def serve_multistep_phase(dev, smi: str, engine_decode_ms: float) -> dict:
+    """The canonical model with int8 weights from the int8 cache in
+    rounds of up to MULTISTEP_K tokens (async), against the one-token
+    engine, the synchronous rounds and a teacher-forced forward; then
+    decode_verify at full width, and the round's profile."""
+    from tpu_flash_torch.bench import paged_profile
+    from tpu_flash_torch.models import transformer as tfm
+
+    mcfg = tfm.ModelConfig(**MODEL)
+    params = tfm.quantize_weights(tfm.init_params(
+        mcfg, torch.Generator(device=dev).manual_seed(0), dev))
+    torch.cuda.empty_cache()
+    rng = np.random.default_rng(0)
+    prompts = rng.integers(1, mcfg.vocab_size - 1,
+                           (N_REQUESTS + 1, PROMPT_LEN)).tolist()
+    runs = {}
+    for name, steps, asy in (("multi", MULTISTEP_K, True),
+                             ("one_token", 1, True),
+                             ("sync", MULTISTEP_K, False)):
+        runs[name] = multistep_serve(params, mcfg, prompts, dev, steps, asy)
+    multi = runs["multi"]
+    done = multi["done"]
+    for f in done.values():
+        if (f.reason != "length" or len(f.new_tokens) != MULTISTEP_NEW_TOKENS
+                or not all(np.isfinite(f.logprobs))):
+            raise AssertionError(f"serve_multistep: request {f.rid}: "
+                                 f"{f.reason}, {len(f.new_tokens)} tokens")
+    vs_one = held_streams("multi-step vs one-token", done,
+                          runs["one_token"]["done"])
+    vs_sync = held_streams("async vs sync rounds", done, runs["sync"]["done"])
+    drift = teacher_forced_drift(params, mcfg, done[0])
+    check("serve_multistep: teacher-forced logprob drift", drift, TOL_LOGPROB)
+    for key in ("flash_fwd", "paged_attention_split", "paged_append_fused"):
+        if multi["launches"][key] <= 0:
+            raise AssertionError(f"serve_multistep: {key} never launched")
+    if multi["replays"] <= 0 or multi["eager_launches"]["paged_attention_split"]:
+        raise AssertionError(
+            f"serve_multistep: {multi['replays']} replays, "
+            f"{multi['eager_launches']['paged_attention_split']} eager decode "
+            "launches: every round must be a graph replay")
+    rounds_ms = multi["step_ms"][1:]  # step 1 admits and prefills
+    round_ms = float(np.median(rounds_ms))
+    one_ms = float(np.median(runs["one_token"]["step_ms"][1:]))
+    # decode_verify on the served model: its 16 B2 calls held against the
+    # plain version on their own inputs (the model's gap to the steps, bf16
+    # activations, is reported); the model gated on the float32 copy of
+    # the same weights, where rounding leaves the algorithm visible (the
+    # CPU tests' reason)
+    verify = dict(served=verify_phase(params, mcfg, prompts, dev, gate=False))
+    del params
+    torch.cuda.empty_cache()
+    mcfg32 = tfm.ModelConfig(**MODEL, dtype="float32")
+    params32 = tfm.quantize_weights(tfm.init_params(
+        mcfg32, torch.Generator(device=dev).manual_seed(0), dev))
+    verify["float32"] = verify_phase(params32, mcfg32, prompts, dev, gate=True)
+    del params32
+    torch.cuda.empty_cache()
+    params = tfm.quantize_weights(tfm.init_params(
+        mcfg, torch.Generator(device=dev).manual_seed(0), dev))
+    lens = [PROMPT_LEN + 24 + int(i) for i in range(N_REQUESTS)]
+    step_row, round_row = paged_profile.profile_round(params, mcfg,
+                                                      MULTISTEP_K, lens, dev)
+    out = dict(
+        phase="serve_multistep", nvidia_smi=smi, weights="int8",
+        cache=CACHE["dtype"], requests=N_REQUESTS, prompt_len=PROMPT_LEN,
+        new_tokens=MULTISTEP_NEW_TOKENS, decode_steps=MULTISTEP_K,
+        async_decode=True, steps_vs_one_token_max_logprob_gap=vs_one,
+        async_vs_sync_max_logprob_gap=vs_sync, teacher_forced_drift=drift,
+        drift_tol=TOL_LOGPROB,
+        warm_e2e_tok_s=N_REQUESTS * MULTISTEP_NEW_TOKENS / multi["wall_s"],
+        one_token_warm_e2e_tok_s=(N_REQUESTS * MULTISTEP_NEW_TOKENS
+                                  / runs["one_token"]["wall_s"]),
+        sync_warm_e2e_tok_s=(N_REQUESTS * MULTISTEP_NEW_TOKENS
+                             / runs["sync"]["wall_s"]),
+        host_ms_per_round=round_ms, host_ms_per_token=round_ms / MULTISTEP_K,
+        one_token_host_ms_per_step=one_ms,
+        engine_phase_decode_ms_per_step=engine_decode_ms,
+        rounds=len(rounds_ms), graph_captures=multi["captures"],
+        graph_captures_with_warmup=multi["captures_total"],
+        graph_replays=multi["replays"], graphs=multi["graphs"],
+        launches=multi["launches"], eager_launches=multi["eager_launches"],
+        decode_verify=verify, profile_step=step_row, profile_round=round_row,
+        peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    emit(out)
+    del params
+    torch.cuda.empty_cache()
+    return out
 
 
 # (name, batch, hq, hkv, n_q, n_kv, d, schedule, radius or section, dtype,
@@ -1517,9 +1865,11 @@ def headdims_phase(dev):
             args = (qg, kc.k_pages, kc.v_pages, kc.k_scales, kc.v_scales,
                     slots, kc.lengths, kc.page_tables, 1, 16, torch.bfloat16,
                     True)
-            ko, kl = paged._paged_attention_kernel(*args, page_type=pt)
+            walk = paged.plan_pages(kc.config)
+            ko, kl = paged._paged_attention_kernel(*args, page_type=pt,
+                                                   walk=walk)
             po, pl = paged._paged_attention_plain(
-                *args, split_pages=_card_plan(qg, kc, 16), page_type=pt)
+                *args, split_pages=_card_plan(qg, kc), page_type=pt)
             errs = dict(o_vs_plain=max_err(ko, po),
                         lse_vs_plain=max_err(kl, pl))
             # the shared-table route: the four lanes on slot 0
@@ -1529,7 +1879,7 @@ def headdims_phase(dev):
                      True)
             so, sl = paged._paged_attention_kernel(*sargs,
                                                    shared_page_table=True,
-                                                   page_type=pt)
+                                                   page_type=pt, walk=walk)
             po, pl = paged._paged_attention_plain(*sargs, page_type=pt)
             errs.update(shared_o_vs_plain=max_err(so, po),
                         shared_lse_vs_plain=max_err(sl, pl))
@@ -2275,6 +2625,8 @@ def sliding_kernels_phase(dev):
     kern, plain = paged._paged_attention_kernel, paged._paged_attention_plain
 
     def b2(fn, slots, len_add=0, q=qg, c=None, tables=None, **kw):
+        if fn is kern:  # the split plan's walk, as paged_attention's
+            kw["walk"] = paged.plan_pages(c.config, r)
         return fn(*_b2_args(q, c, slots, len_add, steps, tables=tables),
                   radius=r, page_type=c.config.page_type, **kw)
 
@@ -2286,7 +2638,7 @@ def sliding_kernels_phase(dev):
             (("empty_prefix", 1),) if dtype == "int8" else ())
         for name, slot in cases:
             slots = torch.full((lanes,), slot, dtype=torch.int32, device=dev)
-            plan = _card_plan(qg, cache, steps)
+            plan = _card_plan(qg, cache, radius=r)
             calls = dict(
                 shared=lambda: b2(kern, slots, c=cache, positions=pos,
                                   shared_page_table=True),
@@ -2364,7 +2716,7 @@ def sliding_kernels_phase(dev):
                                   pc.v_scales, slots, pc.lengths,
                                   pc.page_tables, page_type=pt)
         _same_cache(f"pipelined decode fused append{tag}", kc, pc)
-        plan = _card_plan(qd, kc, steps)
+        plan = _card_plan(qd, kc, radius=r)
         row = held("paged_attention_split",
                    f"pipelined_decode_16_lanes_fused{tag}", got,
                    b2(plain, slots, 1, qd, pc, split_pages=plan), TOL_BF16)
@@ -3226,6 +3578,7 @@ def main() -> int:
         b23 = paged_phase(dev)
         run = engine_phase(dev)
         engine_launches = held_engine_run("engine", run, TOL_LOGPROB)
+        engine_decode_ms = float(np.median(run["step_ms"][1:]))
         # the same serving run from an fp8 and from an int4 cache
         del run
         torch.cuda.empty_cache()
@@ -3234,6 +3587,8 @@ def main() -> int:
             held_engine_run(f"engine_{dtype}", run, tol)
             del run
             torch.cuda.empty_cache()
+        multistep = serve_multistep_phase(dev, smi, engine_decode_ms)
+        torch.cuda.empty_cache()
     b45 = flash_bwd_phase(dev)
     torch.cuda.empty_cache()
     train = train_phase(dev)
@@ -3275,13 +3630,22 @@ def main() -> int:
         # B2's split route at the int8 decode shape, as the engine's decode
         # calls it: one launch with B3's append fused (time: the fused
         # call; plain: B3's then B2's plain versions under the split plan);
-        # launches: the engine run's split launches
+        # launches: the engine run's split launches; beside them the
+        # served decode_verify's (64 lanes, held against the plain version
+        # on its own inputs, in max_abs_err)
         dict(name="paged_attention (split route, B3 fused)", route="cuda",
              source="tpu_flash_torch/csrc/paged_attention.cu",
              replaces="tpu_flash/ops/paged.py:74, tpu_flash/ops/paged.py:267",
              launches=launches["paged_attention_split"],
-             max_abs_err=max(max(r[k] for k in ("o_vs_plain", "lse_vs_plain"))
-                             for r in b23.values()),
+             launches_serve_multistep=multistep["launches"][
+                 "paged_attention_split"],
+             launches_decode_verify=multistep["decode_verify"]["served"][
+                 "launches"]["paged_attention_split"],
+             max_abs_err=max(
+                 *(max(r[k] for k in ("o_vs_plain", "lse_vs_plain"))
+                   for r in b23.values()),
+                 *(v["b2"]["max_abs_err"]
+                   for v in multistep["decode_verify"].values())),
              ms=int8["fused_ms"],
              plain_ms=int8["append_plain_ms"] + int8["attention_plain_ms"],
              **int8["fused_bound"], library_ms=None),
@@ -3293,6 +3657,10 @@ def main() -> int:
              source="tpu_flash_torch/csrc/paged_attention.cu",
              replaces="tpu_flash/ops/paged.py:267",
              launches=launches["paged_append_fused"],
+             launches_serve_multistep=multistep["launches"][
+                 "paged_append_fused"],
+             launches_decode_verify_standalone=multistep["decode_verify"][
+                 "served"]["launches"]["paged_append"],
              max_abs_err=max(r["append_err"] for r in b23.values()),
              ms=int8["fused_append_ms"], plain_ms=int8["append_plain_ms"],
              **int8["append_bound"], library_ms=None),

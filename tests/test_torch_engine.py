@@ -5,9 +5,10 @@ on the same float32 model (weights converted from the reference's
 Greedy streams must be identical token for token; per-token logprobs agree
 to 1e-3 (float32 summation order; the decode kernels' bf16 casts are the
 same on both sides). Temperature sampling is keyed, on both sides, by
-(engine seed, request id, position) — but torch cannot reproduce the
-reference's PRNG bits, so temperature streams are held by invariance
-instead: a request sampled alone and co-batched gives the same stream.
+(engine seed, request id, position) — but the port's counter-based hash
+does not reproduce the reference's PRNG bits, so temperature streams are
+held by invariance instead: a request sampled alone and co-batched gives
+the same stream.
 """
 
 import json
@@ -101,7 +102,7 @@ def test_truncated_scores_match_reference():
     got = teng._truncated_scores(torch.as_tensor(logits),
                                  torch.as_tensor(samp)).numpy()
     np.testing.assert_array_equal(got, want)
-    # a batch with no truncation skips the sort on both sides
+    # a batch with no truncation keeps the scaled logits on both sides
     plain = samp.copy()
     plain[:, 1:] = (0, 1.0)
     np.testing.assert_array_equal(
@@ -132,12 +133,20 @@ def test_temperature_streams_are_batching_invariant(params):
 
 
 def test_unported_engine_options_raise(params):
+    """Options still to port raise and name their ROADMAP item
+    (decode_steps and async_decode are ported)."""
     _, tp = params
     mcfg, ccfg = ttfm.ModelConfig(**_MCFG), CacheConfig(**_CCFG)
     for kw, item in ((dict(prefix_cache=True), "A7"),
-                     (dict(speculate_k=2), "A9"), (dict(decode_steps=4), "A7")):
+                     (dict(speculate_k=2), "A9")):
         with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
             teng.Engine(tp, mcfg, ccfg, teng.EngineConfig(**kw))
+    for kw, item in ((dict(mesh=object()), "A13"), (dict(draft=object()), "A9"),
+                     (dict(lora=object()), "A9")):
+        with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
+            teng.Engine(tp, mcfg, ccfg, **kw)
+    teng.Engine(tp, mcfg, ccfg, teng.EngineConfig(
+        max_batch=3, decode_steps=4, async_decode=False))
 
 
 def test_pool_pressure_preempts_and_every_request_completes(params, tmp_path):

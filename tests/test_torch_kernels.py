@@ -147,13 +147,22 @@ def _copy(c):
         c.lengths)), config=c.config)
 
 
-def _plan(q, cache, bound, shared=False):
-    """The split plan the card takes for this call (None: one split)."""
+def _plan(q, cache, shared=False, radius=None):
+    """The split plan the card takes for this call (None: one split): the
+    public call's, sized for the cache's walk (``plan_pages``)."""
     b, kvh, _, d = q.shape
     page = cache.k_pages.shape[2]
     if tpaged.paged_route(page, shared) != "split":
         return None
-    return tpaged.split_plan(b, kvh, d, page, cache.config.page_type, bound)
+    return tpaged.split_plan(b, kvh, d, page, cache.config.page_type,
+                             tpaged.plan_pages(cache.config, radius))
+
+
+def _kernel_kw(cache, radius=None):
+    """The page type and the split plan's walk of B2's wrapper, as
+    ``paged_attention`` passes them."""
+    return dict(page_type=cache.config.page_type,
+                walk=tpaged.plan_pages(cache.config, radius))
 
 
 def _route_count(route):
@@ -187,9 +196,8 @@ def test_paged_kernels_match_plain(gen, dtype):
     q = torch.randn(16, 8, 2, 128, generator=gen, device="cuda").bfloat16()
     args = (q, kc.k_pages, kc.v_pages, kc.k_scales, kc.v_scales, slots,
             kc.lengths, kc.page_tables, 1, 16, torch.bfloat16, True)
-    ko, kl = tpaged._paged_attention_kernel(*args, page_type=pt)
-    po, pl = tpaged._paged_attention_plain(*args,
-                                           split_pages=_plan(q, kc, 16),
+    ko, kl = tpaged._paged_attention_kernel(*args, **_kernel_kw(kc))
+    po, pl = tpaged._paged_attention_plain(*args, split_pages=_plan(q, kc),
                                            page_type=pt)
     torch.cuda.synchronize()
     assert kernels.LAUNCHES["paged_append"] == before["paged_append"] + 1
@@ -209,16 +217,19 @@ def _paged_pair(cache, q, slots, bound=64, **kw):
     shared = kw.get("shared_page_table", False)
     route = tpaged.paged_route(cache.k_pages.shape[2], shared)
     pt = cache.config.page_type
+    radius = kw.get("radius")
     before = _route_count(route)
-    got = tpaged._paged_attention_kernel(*args, **kw, page_type=pt)
-    again = tpaged._paged_attention_kernel(*args, **kw, page_type=pt)
+    got = tpaged._paged_attention_kernel(*args, **kw,
+                                         **_kernel_kw(cache, radius))
+    again = tpaged._paged_attention_kernel(*args, **kw,
+                                           **_kernel_kw(cache, radius))
     torch.cuda.synchronize()
     assert _route_count(route) == before + 2
     assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
     plain_kw = {k: v for k, v in kw.items()
                 if k in ("lengths_override", "positions", "radius")}
     return got, tpaged._paged_attention_plain(
-        *args, **plain_kw, split_pages=_plan(q, cache, bound, shared),
+        *args, **plain_kw, split_pages=_plan(q, cache, shared, radius),
         page_type=pt)
 
 
@@ -331,11 +342,11 @@ def test_paged_kernels_head_dims_and_groups_match_plain(gen, dtype, d, g):
     args = (q, kc.k_pages, kc.v_pages, kc.k_scales, kc.v_scales, slots,
             kc.lengths, kc.page_tables, 1, 16, torch.bfloat16, True)
     before = _route_count("split")
-    got = tpaged._paged_attention_kernel(*args, page_type=pt)
+    got = tpaged._paged_attention_kernel(*args, **_kernel_kw(kc))
     torch.cuda.synchronize()
     assert _route_count("split") == before + 1
     _assert_paged_close(got, tpaged._paged_attention_plain(
-        *args, split_pages=_plan(q, kc, 16), page_type=pt))
+        *args, split_pages=_plan(q, kc), page_type=pt))
 
 
 # (dtype, d, g, page, radius, out): the split route's groups (G 1, 2, 4,
@@ -386,13 +397,14 @@ def test_paged_routes_match_split_plain(gen, case):
     args = (q, c.k_pages, c.v_pages, c.k_scales, c.v_scales, slots,
             c.lengths, c.page_tables, 0, bound, getattr(torch, out), True)
     kw = dict(radius=radius, page_type=c.config.page_type)
+    kern_kw = dict(kw, walk=tpaged.plan_pages(c.config, radius))
     before = _route_count("split")
-    ko, kl = tpaged._paged_attention_kernel(*args, **kw)
-    ko2, kl2 = tpaged._paged_attention_kernel(*args, **kw)
+    ko, kl = tpaged._paged_attention_kernel(*args, **kern_kw)
+    ko2, kl2 = tpaged._paged_attention_kernel(*args, **kern_kw)
     torch.cuda.synchronize()
     assert _route_count("split") == before + 2
     assert torch.equal(ko, ko2) and torch.equal(kl, kl2)
-    split = _plan(q, c, bound)
+    split = _plan(q, c, radius=radius)
     qb = q.to(torch.bfloat16) if out == "float32" else q
     pargs = (qb, *args[1:])
     po, pl = tpaged._paged_attention_plain(*pargs, **kw, split_pages=split)
@@ -407,7 +419,8 @@ def test_paged_fused_append_matches_b3_then_b2(gen, dtype):
     """paged_attention(new_kv=...) on the card: one launch (the split
     route, no B3), pages and scales torch.equal to B3's plain append, o
     and lse within the bounds of the plain B3-then-B2 under the same
-    plan; with pages_bound below a lane's walk the tail row is still
+    plan (sized for the cache's walk, ``plan_pages``, whatever the
+    bound); with pages_bound below a lane's walk the tail row is still
     written. Lanes 6–8 sit on the trash slot (a table row of zeros):
     pages other than the trash page are equal, and the real lanes
     match."""
@@ -440,7 +453,8 @@ def test_paged_fused_append_matches_b3_then_b2(gen, dtype):
         po, pl = tpaged._paged_attention_plain(
             qg, pc.k_pages, pc.v_pages, pc.k_scales, pc.v_scales, slots,
             pc.lengths, pc.page_tables, 1, bound, torch.bfloat16, True,
-            split_pages=_plan(qg, pc, bound), page_type=pt)
+            split_pages=_plan(qg, pc),
+            page_type=pt)
         pc.lengths.index_add_(0, slots.long(), torch.ones_like(slots))
         assert torch.equal(kc.lengths, pc.lengths)
         for name in ("k_pages", "v_pages", "k_scales", "v_scales"):
@@ -465,8 +479,8 @@ def test_paged_split_calls_share_no_state(gen):
     q = torch.randn(16, 8, 2, 128, generator=gen, device="cuda").bfloat16()
     args = (q, c.k_pages, c.v_pages, c.k_scales, c.v_scales, slots,
             c.lengths, c.page_tables, 0, 16, torch.bfloat16, True)
-    assert _plan(q, c, 16) < 16  # several splits: the ticket combine runs
-    kw = dict(page_type="int8")
+    assert _plan(q, c) < 16  # several splits: the ticket combine runs
+    kw = _kernel_kw(c)
     want = tpaged._paged_attention_kernel(*args, **kw)
     torch.cuda.synchronize()
     streams = [torch.cuda.Stream() for _ in range(2)]
@@ -485,6 +499,84 @@ def test_paged_split_calls_share_no_state(gen):
     torch.cuda.synchronize()
     for o, lse in got + [captured]:
         assert torch.equal(o, want[0]) and torch.equal(lse, want[1])
+
+
+@pytest.mark.parametrize("dtype", ["int8", "bfloat16"])
+def test_paged_verify_lanes_match_plain(gen, dtype):
+    """decode_verify's B2 call: 4 slots × K 4 tokens on 16 lanes, each slot
+    repeated on K consecutive lanes, visible lengths base + j + 1
+    (``lengths_override``, no append), at the serving width; against the
+    plain version under the same plan, as the other B2 cases."""
+    lens = [530, 64, 301, 17]
+    c = _cache(dtype, lens, 12)
+    K = 4
+    slots = torch.arange(4, dtype=torch.int32, device="cuda").repeat_interleave(K)
+    base = torch.tensor(lens, dtype=torch.int32, device="cuda") - K
+    vis = (base.repeat_interleave(K)
+           + torch.arange(1, K + 1, dtype=torch.int32, device="cuda").repeat(4))
+    q = (torch.randn(16, 8, 2, 128, generator=gen, device="cuda")
+         * (128 ** -0.5 * tpaged.LOG2E)).bfloat16()
+    _assert_paged_close(*_paged_pair(c, q, slots, bound=16,
+                                     lengths_override=vis))
+
+
+def test_round_graph_replays_match_eager_steps(gen):
+    """A K-step round captured as one CUDA graph, replayed twice from the
+    same state, gives the packed tokens and logprobs of the same K steps
+    run eagerly, bitwise (a greedy and a temperature lane); the graph
+    carries K launches of B2's split route with B3's append fused a
+    layer."""
+    from tpu_flash_torch.models import transformer as ttfm
+    from tpu_flash_torch.serving import engine as teng
+
+    cfg = ttfm.ModelConfig(vocab_size=512, dim=256, num_layers=2,
+                           num_q_heads=4, num_kv_heads=2, head_dim=64)
+    params = ttfm.init_params(cfg, torch.Generator(device="cuda").manual_seed(1),
+                              "cuda")
+    eng = teng.Engine(params, cfg, CacheConfig(
+        num_kv_heads=2, head_dim=64, page_size=16, total_pages=128,
+        max_seqs=8, max_pages_per_seq=16, dtype="int8"),
+        teng.EngineConfig(max_batch=4, decode_steps=4))
+    for rid, n in enumerate((9, 30, 17)):
+        eng.submit(teng.Request(rid=rid, prompt=list(range(1, n + 1)),
+                                max_new_tokens=16, temperature=0.8 * (rid == 1),
+                                top_k=20 * (rid == 1)))
+    eng._admit()
+    K = 4
+    for slot in eng.running:
+        assert eng._ensure_capacity(slot, ahead=K) == "ok"
+    lanes, slots_np, toks_np, pos_np, samp_np, keys_np, _ = (
+        eng._decode_composition())
+    bound = eng._pages_bound(ahead=K)
+    state = [(c.k_pages.clone(), c.v_pages.clone(), c.k_scales.clone(),
+              c.v_scales.clone(), c.lengths.clone()) for c in eng.caches]
+
+    def restore():
+        for c, saved in zip(eng.caches, state):
+            for t, s in zip((c.k_pages, c.v_pages, c.k_scales, c.v_scales,
+                             c.lengths), saved):
+                t.copy_(s)
+
+    inputs = [torch.from_numpy(a).cuda() for a in (toks_np, pos_np, slots_np,
+                                                   samp_np, keys_np)]
+    want, ntok, npos = eng._round(K, bound, *inputs)
+    restore()
+    g = eng._round_graph(bound, K)
+    assert g["launches"]["paged_attention_split"] == K * cfg.num_layers
+    assert g["launches"]["paged_append_fused"] == K * cfg.num_layers
+    for name, t in zip(("tokens", "positions", "slots", "samp", "keys"),
+                       inputs):
+        eng._static[name].copy_(t)
+    got = []
+    for _ in range(2):
+        restore()
+        g["graph"].replay()
+        got.append(g["outs"][0].clone())
+    torch.cuda.synchronize()
+    for packed in got:
+        assert torch.equal(packed, want)
+    assert torch.equal(g["outs"][1], ntok) and torch.equal(g["outs"][2], npos)
+    assert torch.isfinite(want[:, :, 1]).all()
 
 
 def test_kernels_reject_what_they_do_not_take(gen):

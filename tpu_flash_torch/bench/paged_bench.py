@@ -83,10 +83,14 @@ def main() -> int:
         return (q, c.k_pages, c.v_pages, c.k_scales, c.v_scales, slots,
                 c.lengths, c.page_tables, len_add, bound, torch.bfloat16, True)
 
-    def page_kw(c):
-        # the page type, where the checkout's wrapper takes one
-        return ({"page_type": c.config.page_type} if "page_type" in params
-                else {})
+    def page_kw(c, radius=None):
+        # the page type and the split plan's walk (the public call's,
+        # plan_pages), where the checkout's wrapper takes them
+        kw = ({"page_type": c.config.page_type} if "page_type" in params
+              else {})
+        if "walk" in params:
+            kw["walk"] = paged.plan_pages(c.config, radius)
+        return kw
 
     def cache(dtype, lens, seed):
         try:
@@ -127,13 +131,13 @@ def main() -> int:
                 continue
             emit(f"band_kernel{tag}",
                  lambda: kern(*args(qg, c, slots, 1, 10), radius=512,
-                              **page_kw(c)))
+                              **page_kw(c, 512)))
             emit(f"band_call{tag}", lambda: paged.paged_attention_pipelined(
                 q, c, slots, new_kv=(kn, vn), radius=512, return_lse=True))
             c = cache(dtype, [1536], 9)
             emit(f"chunk_prefix_kernel{tag}",
                  lambda: kern(*args(qp, c, lanes, 0, 10), radius=512,
-                              positions=pos, **shared, **page_kw(c)))
+                              positions=pos, **shared, **page_kw(c, 512)))
     return 0
 
 

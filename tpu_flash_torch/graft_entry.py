@@ -1,10 +1,16 @@
-"""Training steps: the counterpart of ``__graft_entry__.py``'s
-``train_step``, and of its multi-chip dry run's sequence-parallel step
+"""Entry points: the counterparts of ``__graft_entry__.py``'s ``entry``
+and ``train_step``, and of its multi-chip dry run's sequence-parallel step
 without the tensor- and expert-parallel meshes (the dry run itself and
-those meshes are ROADMAP A13; ``entry()`` is A6).
+those meshes are ROADMAP A13).
 
+    fn, args = entry()            # the flagship forward on a small config
+    logits = fn(*args)
     params, loss = train_step(params, tokens, cfg, lr)
     params, loss = seq_parallel_train_step(params, tokens, cfg, lr, ranks=4)
+
+``entry`` builds the reference's small flagship config (vocab 512, dim 256,
+2 layers, 4/2 heads, head_dim 64) with random weights from seed 0 and
+tokens (2, 256); ``fn`` is ``models/transformer.py:forward``.
 
 take the gradient of ``models/transformer.py:loss_fn`` with respect to
 every parameter leaf (attention backward through B4/B5 on the card) and
@@ -19,6 +25,25 @@ import torch
 
 from tpu_flash_torch.models import transformer as tfm
 from tpu_flash_torch.parallel import ring
+
+
+ENTRY_CONFIG = dict(vocab_size=512, dim=256, num_layers=2, num_q_heads=4,
+                    num_kv_heads=2, head_dim=64, block_q=128, block_kv=128)
+
+
+def entry(device="cuda"):
+    """``(fn, example_args)``: the flagship forward, ``fn(params, tokens)
+    → logits (2, 256, 512)`` float32, on :data:`ENTRY_CONFIG` with bf16
+    weights from seed 0 and zero tokens, on ``device``."""
+    cfg = tfm.ModelConfig(**ENTRY_CONFIG)
+    params = tfm.init_params(
+        cfg, torch.Generator(device=device).manual_seed(0), device)
+    tokens = torch.zeros((2, 256), dtype=torch.int64, device=device)
+
+    def fn(params, tokens):
+        return tfm.forward(params, tokens, cfg)
+
+    return fn, (params, tokens)
 
 
 def named_leaves(params, prefix=""):

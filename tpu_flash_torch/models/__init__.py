@@ -1,8 +1,10 @@
 from tpu_flash_torch.models.transformer import (
     ModelConfig,
     decode_step,
+    decode_verify,
     forward,
     init_params,
     prefill,
     prefill_chunk,
+    quantize_weights,
 )

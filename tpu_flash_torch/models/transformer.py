@@ -11,9 +11,14 @@ Parameters are a plain dict with the reference's tree and layouts
 SiLU run in float32 and cast back to ``x``'s dtype; logits are
 ``(x @ embed.T)`` in float32.
 
-Not ported yet: MoE (ROADMAP A9), LoRA (A9), int8 weights (A6), tensor
-parallelism (A13), ``decode_verify`` (A6), the MoE balance loss in
-``loss_fn`` (A9).
+Projections take raw matrices or int8 weight-only ones
+(:func:`quantize_weights`: ``{"q": int8, "s": float32}``, per output
+channel), computed as the reference computes them, ``(x @ q) · s`` in
+``x``'s dtype. :func:`decode_verify` scores K tokens a lane in one pass
+over the paged caches.
+
+Not ported yet: MoE (ROADMAP A9), LoRA (A9), tensor parallelism (A13),
+the MoE balance loss in ``loss_fn`` (A9).
 """
 
 from __future__ import annotations
@@ -28,6 +33,7 @@ import torch.nn.functional as F
 from tpu_flash_torch.ops import flash
 from tpu_flash_torch.ops.paged import paged_attention, paged_attention_pipelined
 from tpu_flash_torch.parallel.ring import merge_partials
+from tpu_flash_torch.quant.qarray import quantize
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -135,11 +141,40 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device="cuda"):
     )
 
 
+_PROJECTIONS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
+
+
+def quantize_weights(params, dtype: str = "int8"):
+    """Per-output-channel symmetric int8 quantization of every 2-D
+    projection matrix (wq/wk/wv/wo/w_gate/w_up/w_down) →
+    ``{"q": int8 (in, out), "s": float32 (out,)}``; embeddings and norms
+    stay as they are. Bit-identical to the reference's (its eager
+    ``quantize`` along axis 0). Returns a new tree; ``params`` is not
+    changed."""
+    if dtype != "int8":
+        raise ValueError("only int8 weight quantization is supported")
+
+    def quant(w):
+        qa = quantize(w, torch.int8, axis=0)
+        return {"q": qa.values, "s": qa.scales[0].float()}
+
+    layers = []
+    for layer in params["layers"]:
+        out = dict(layer)
+        for name in _PROJECTIONS:
+            w = layer.get(name)
+            if isinstance(w, torch.Tensor) and w.dim() == 2:
+                out[name] = quant(w)
+        layers.append(out)
+    return {**params, "layers": layers}
+
+
 def _mm(x, w):
-    """x @ w for raw weight matrices (int8 weights: ROADMAP A6)."""
+    """x @ w for raw or weight-quantized (``{"q": int8, "s": f32}``)
+    matrices: the int8 matrix cast to x's dtype, the product, then the
+    per-column scale in x's dtype, rounding where the reference rounds."""
     if isinstance(w, dict):
-        raise NotImplementedError(
-            "weight-quantized matrices are not ported yet (ROADMAP A6)")
+        return (x @ w["q"].to(x.dtype)) * w["s"].to(x.dtype)
     return x @ w
 
 
@@ -315,6 +350,46 @@ def prefill_chunk(params, tokens, offset: int, true_len: int, caches,
     x = rmsnorm(x, params["ln_f"])
     logits = (x @ params["embed"].T).float()
     return logits, torch.argmax(logits[0, true_len - 1]), caches
+
+
+def decode_verify(params, tokens, positions, caches, slots,
+                  cfg: ModelConfig, pages_bound=None):
+    """Score K tokens a lane in one pass over the paged caches
+    (speculative verification).
+
+    tokens: ``(B, K)`` ints, lane b's pending token then K − 1 proposals;
+    positions: ``(B,)`` int32, the position of ``tokens[:, 0]`` (the slot's
+    stored length). Per layer the K tokens' K/V append first (K
+    ``PagedKVCache.append`` calls: B3 on the card), then one paged
+    attention call rides the B·K tokens on the lane axis with visible
+    lengths ``position + j + 1`` (B2's split route, ``lengths_override``;
+    under a band each lane's own position), so token j sees what K
+    sequential decode steps would show it. Returns ``(logits (B, K,
+    vocab) f32, caches)``, every slot advanced by K, in place.
+    """
+    _check_ported(cfg)
+    b, k_len = tokens.shape
+    dev = tokens.device
+    pos = (positions.to(torch.int32)[:, None]
+           + torch.arange(k_len, dtype=torch.int32, device=dev)[None])
+    x = params["embed"][tokens]  # (B, K, dim)
+    radius = _radius(cfg)
+    slots_flat = slots.repeat_interleave(k_len)
+    vis_flat = (pos + 1).reshape(-1)
+    pos_flat = pos.reshape(-1)
+    for layer, cache in zip(params["layers"], caches):
+        q, k, v = _qkv(layer, x, pos, cfg)
+        for j in range(k_len):
+            cache.append(slots, k[:, j], v[:, j])
+        o = paged_attention(
+            q.reshape(b * k_len, -1, cfg.head_dim), cache, slots_flat,
+            lengths_override=vis_flat,
+            positions=None if radius is None else pos_flat,
+            pages_bound=pages_bound, radius=radius)
+        x = x + _mm(o.reshape(b, k_len, -1), layer["wo"])
+        x = x + _mlp(layer, rmsnorm(x, layer["ln_mlp"]), cfg)
+    x = rmsnorm(x, params["ln_f"])
+    return (x @ params["embed"].T).float(), caches
 
 
 def decode_step(params, tokens, positions, caches, slots, cfg: ModelConfig,

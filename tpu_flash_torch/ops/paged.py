@@ -171,6 +171,20 @@ def split_plan(b: int, kvh: int, d: int, page: int, page_type: str,
     return max(1, min(want, _MAX_SPLIT_PAGES, _SPLIT_BYTES // page_bytes))
 
 
+def plan_pages(cfg, radius: Optional[int] = None) -> int:
+    """The walk :func:`paged_attention` sizes its split plan for: the
+    cache's ``max_pages_per_seq``, or the band's pages under ``radius``. A
+    static shape, never the caller's ``pages_bound``: two calls whose caps
+    both cover a lane's walk then split it alike and round alike (an
+    engine's one-token step and a K-step round issued at a larger bucket
+    give the same bits)."""
+    pages = cfg.max_pages_per_seq
+    if radius is not None:
+        # the band spans ≤ radius + 1 tokens → at most this many pages
+        pages = min(pages, cdiv(radius + 1, cfg.page_size) + 1)
+    return pages
+
+
 def _lane_view(slots, lengths, len_add: int, lengths_override, positions,
                radius):
     """Per-lane visible length and band start, as the kernel computes them:
@@ -289,7 +303,7 @@ def _paged_attention_kernel(q, k_pages, v_pages, k_scales, v_scales, slots,
                             radius: Optional[int] = None, *, new_kv=None,
                             q_scale: float = 1.0,
                             shared_page_table: bool = False,
-                            page_type: str):
+                            walk: int, page_type: str):
     """Launch ``csrc/paged_attention.cu`` (the plain version's contract;
     the kernel computes each lane's view itself).
 
@@ -298,8 +312,9 @@ def _paged_attention_kernel(q, k_pages, v_pages, k_scales, v_scales, slots,
     ``new_kv=(k, v)`` (``(B, kvh, d)`` each): the split route's fused
     append writes them into each slot's tail page before they are
     attended (pass ``len_add`` 1). The route is :func:`paged_route`'s and
-    the split plan :func:`split_plan`'s. Returns ``(o, lse | None)``; the
-    cache's lengths are not advanced."""
+    the split plan :func:`split_plan`'s for a walk of ``walk`` pages, the
+    cache's :func:`plan_pages`. Returns ``(o, lse | None)``; the cache's
+    lengths are not advanced."""
     from tpu_flash_torch.kernels import _build
 
     b, kvh, g, d = q.shape
@@ -327,7 +342,7 @@ def _paged_attention_kernel(q, k_pages, v_pages, k_scales, v_scales, slots,
         raise ValueError("paged kernel: the shared route takes no append")
     split_pages, n_splits, ws_ptrs = 1, 1, (None,) * 3
     if route == "split":
-        split_pages = split_plan(b, kvh, d, page, page_type, pages_bound)
+        split_pages = split_plan(b, kvh, d, page, page_type, walk)
         n_splits = -(-pages_bound // split_pages)
     if n_splits > 1:
         # the splits' partials (acc, then m and l) and the (lane, head)
@@ -445,7 +460,8 @@ def paged_attention(
     made ``slots`` itself, skips the check). ``lengths_override`` and
     ``shared_page_table`` need pre-appended K/V (no ``new_kv``).
     ``pages_bound`` caps the pages walked (default: the cache's
-    max_pages_per_seq).
+    max_pages_per_seq); the card's split plan does not follow it
+    (:func:`plan_pages`).
     """
     cfg = cache.config
     b, qh, d = q.shape
@@ -456,10 +472,8 @@ def paged_attention(
         raise ValueError(f"q_heads {qh} not a multiple of kv_heads {kvh}")
     if scale is None:
         scale = 1.0 / math.sqrt(d)
-    num_steps = pages_bound or cfg.max_pages_per_seq
-    if radius is not None:
-        # the band spans ≤ radius + 1 tokens → at most this many pages
-        num_steps = min(num_steps, cdiv(radius + 1, cfg.page_size) + 1)
+    walk = plan_pages(cfg, radius)
+    num_steps = min(pages_bound, walk) if pages_bound else walk
     append = new_kv is not None
     if append and lengths_override is not None:
         raise ValueError("lengths_override requires pre-appended K/V")
@@ -496,7 +510,7 @@ def paged_attention(
             cache.lengths, cache.page_tables, int(append), num_steps,
             q.dtype, return_lse, **lane_kw, new_kv=news,
             q_scale=scale * LOG2E, shared_page_table=shared_page_table,
-            page_type=page_type)
+            walk=walk, page_type=page_type)
     else:
         raise NotImplementedError(f"no paged attention path for {q.device}")
     o = o.reshape(b, qh, d)

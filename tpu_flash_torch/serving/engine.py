@@ -16,20 +16,28 @@ exhaustion preempts a sequence back to the queue.
 * Decode runs ``max_batch`` lanes; idle lanes sit on a trash slot
   (``max_seqs − 1``) whose page table points at physical page 0, which is
   never granted. The trash slot's length is reset after every step.
-* PyTorch runs eagerly, so there is nothing to compile per bucket; caches
-  are updated in place.
-* Sampling: each lane's noise comes from a generator on the device seeded
-  purely from ``(engine seed, rid, position)`` — the reference's keying
-  structure (``fold_in(fold_in(key(seed), rid), position)``), not its bits.
-  Streams are batching-invariant and reproducible; greedy streams match
-  the reference token for token.
+* ``decode_steps > 1``: a round of up to K steps a dispatch, tokens
+  sampled and appended on the device and fetched once a round; lanes that
+  finish mid-round are rolled back on the host. On the card a round is one
+  CUDA graph, captured once for each (pages_bound, K) and replayed (the
+  reference's jitted ``lax.scan``); the CPU runs the same step body
+  eagerly. ``async_decode`` keeps one round in flight, chained on the
+  previous round's device outputs. Caches are updated in place, so a
+  graph's replays see the engine's current state.
+* Sampling: each lane's noise is a counter-based hash on the device of
+  (request key, position), the request key a pure function of (engine
+  seed, rid) — the reference's keying structure (``fold_in(fold_in(
+  key(seed), rid), position)``), not its bits. Streams are
+  batching-invariant and reproducible, a K-step round equals K one-token
+  steps bit for bit, and greedy streams match the reference token for
+  token.
 * Decode pins the exact running max; ``prefill_bound_max`` lets prefill
   take the norm bound, which relaxes chunked == unchunked from identical
   to a tolerance, as in the reference.
 
 Not ported yet (ROADMAP A7 unless named): the prefix cache, speculative
-decoding (A9), ``decode_steps > 1``/async decode, LoRA (A9), tensor
-parallelism (A13). Each raises ``NotImplementedError``.
+decoding (A9), LoRA (A9), tensor parallelism (A13). Each raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -43,38 +51,85 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from tpu_flash_torch import kernels
 from tpu_flash_torch.cache.allocator import PageAllocator
 from tpu_flash_torch.cache.paged_cache import CacheConfig, PagedKVCache
 from tpu_flash_torch.models import transformer as tfm
 
 _MASK64 = (1 << 64) - 1
+# splitmix64's increment and finalizer multipliers
+_GAMMA = 0x9E3779B97F4A7C15
+_M1, _M2 = 0xBF58476D1CE4E5B9, 0x94D049BB133111EB
 
 
 def _mix64(x: int) -> int:
     """splitmix64 finalizer: a bijective 64-bit hash."""
-    x = (x + 0x9E3779B97F4A7C15) & _MASK64
-    x = ((x ^ (x >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
-    x = ((x ^ (x >> 27)) * 0x94D049BB133111EB) & _MASK64
+    x = (x + _GAMMA) & _MASK64
+    x = ((x ^ (x >> 30)) * _M1) & _MASK64
+    x = ((x ^ (x >> 27)) * _M2) & _MASK64
     return x ^ (x >> 31)
 
 
+def request_key(seed: int, rid: int) -> int:
+    """Request ``rid``'s sampling key, a pure function of (engine seed,
+    rid) like the reference's ``fold_in(key(seed), rid)``."""
+    return _mix64(_mix64(seed & _MASK64) ^ (rid & 0x7FFFFFFF))
+
+
 def noise_seed(seed: int, rid: int, position: int) -> int:
-    """Seed of the sampling noise for request ``rid``'s token at
-    ``position``: a pure function of the three, like the reference's
-    ``fold_in(fold_in(key(seed), rid), position)``. Fits torch's seed range."""
-    h = _mix64(_mix64(_mix64(seed & _MASK64) ^ (rid & 0x7FFFFFFF))
-               ^ (position & _MASK64))
-    return h & ((1 << 63) - 1)
+    """Key of the sampling noise for request ``rid``'s token at
+    ``position``, the reference's ``fold_in(fold_in(key(seed), rid),
+    position)`` in structure: the host form of the fold the device makes
+    (:func:`_fold`), as an unsigned 64-bit int."""
+    return _mix64(request_key(seed, rid) ^ (position & _MASK64))
 
 
-def _truncated_scores(logits: torch.Tensor, samp: torch.Tensor) -> torch.Tensor:
+def _i64(c: int) -> int:
+    """An unsigned 64-bit value as the signed one an int64 tensor holds."""
+    return c - (1 << 64) if c >= 1 << 63 else c
+
+
+def _shr(x: torch.Tensor, s: int) -> torch.Tensor:
+    """Logical right shift of int64 values (torch's ``>>`` is arithmetic)."""
+    return (x >> s) & ((1 << (64 - s)) - 1)
+
+
+def _mix64_t(x: torch.Tensor) -> torch.Tensor:
+    """:func:`_mix64` on int64 tensors: additions and products wrap."""
+    x = x + _i64(_GAMMA)
+    x = (x ^ _shr(x, 30)) * _i64(_M1)
+    x = (x ^ _shr(x, 27)) * _i64(_M2)
+    return x ^ _shr(x, 31)
+
+
+def _fold(keys: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+    """Per-lane noise keys on the device: :func:`noise_seed` of each lane's
+    request key (int64, :func:`request_key`) and position."""
+    return _mix64_t(keys ^ positions.to(torch.int64))
+
+
+def _uniforms(lane_keys: torch.Tensor, v: int) -> torch.Tensor:
+    """``(B,)`` noise keys → ``(B, v)`` float32 uniforms in (0, 1),
+    counter-based: element i takes the top 23 bits of splitmix64's i-th
+    output from the lane's key, centred, ``(k + 0.5)·2⁻²³`` (exact)."""
+    idx = torch.arange(v, dtype=torch.int64, device=lane_keys.device)
+    h = _mix64_t(lane_keys[:, None] + idx[None] * _i64(_GAMMA))
+    return (_shr(h, 41).float() + 0.5) * 2.0 ** -23
+
+
+def _truncated_scores(logits: torch.Tensor, samp: torch.Tensor,
+                      truncate: Optional[bool] = None) -> torch.Tensor:
     """Temperature-scaled logits with top-k / nucleus truncation applied
     (truncated entries at -1e30). ``samp``: (B, 3) f32 rows of
-    [temperature, top_k, top_p]. Untruncated batches skip the sort."""
+    [temperature, top_k, top_p]. A batch with no truncation keeps the
+    scaled logits: ``truncate``, where the host knows whether any lane
+    truncates (False skips the sort), else chosen on the device (no host
+    sync, so a CUDA graph captures it; the reference's ``lax.cond``). The
+    values are the same either way."""
     temps, top_k, top_p = samp[:, 0], samp[:, 1], samp[:, 2]
     t = torch.clamp_min(temps, 1e-6)[:, None]
     scaled = logits.float() / t
-    if not bool(((top_k > 0) | (top_p < 1.0)).any()):
+    if truncate is False:
         return scaled
     neg = -1e30
     v = scaled.shape[-1]
@@ -92,37 +147,47 @@ def _truncated_scores(logits: torch.Tensor, samp: torch.Tensor) -> torch.Tensor:
     csum = torch.cumsum(prob, dim=-1)
     keep = (csum - prob) < torch.clamp_min(top_p, 1e-9)[:, None]
     cutoff = torch.where(keep, srt, float("inf")).amin(dim=-1)
-    scaled = torch.where(kmask & (scaled < kth), neg, scaled)
-    return torch.where(scaled >= cutoff[:, None], scaled, neg)
+    cut = torch.where(kmask & (scaled < kth), neg, scaled)
+    cut = torch.where(cut >= cutoff[:, None], cut, neg)
+    if truncate:
+        return cut
+    return torch.where(((top_k > 0) | (top_p < 1.0)).any(), cut, scaled)
 
 
 def _device_sample(logits: torch.Tensor, samp: torch.Tensor,
-                   seeds: List[Optional[int]]) -> torch.Tensor:
+                   keys: torch.Tensor, positions: torch.Tensor,
+                   host_samp=None) -> torch.Tensor:
     """On-device next-token choice: greedy for temperature ≤ 0, Gumbel-max
     over the (optionally top-k / nucleus-truncated) scaled distribution
-    otherwise. ``seeds[i]`` (from :func:`noise_seed`) seeds lane i's
-    uniform noise; None marks a greedy lane, which draws none."""
+    otherwise. ``keys``: (B,) int64 request keys; ``positions``: (B,) the
+    position each sampled token lands at. Lane i's noise is keyed by
+    (request, position) alone (:func:`_fold`), so streams are
+    batching-invariant and a K-step round equals K single steps.
+    ``host_samp``: the host's copy of ``samp`` on an eager step, where an
+    all-greedy batch takes the argmax alone and an untruncated one skips
+    the sort, bit for bit as without it; None (a captured round) runs
+    every part and chooses on the device."""
     logits = logits.float()
     greedy = torch.argmax(logits, dim=-1)
-    if all(s is None for s in seeds):
-        return greedy
-    scaled = _truncated_scores(logits, samp)
-    v = logits.shape[-1]
-    u = torch.full_like(logits, 0.5)  # greedy lanes: unused, finite
-    for lane, s in enumerate(seeds):
-        if s is not None:
-            gen = torch.Generator(device=logits.device).manual_seed(s)
-            u[lane] = torch.rand(v, generator=gen, device=logits.device)
-    gumbel = -torch.log(-torch.log(torch.clamp_min(u, 1e-20)))
+    truncate = None
+    if host_samp is not None:
+        rows = np.asarray(host_samp, np.float32).reshape(-1, 3)
+        if (rows[:, 0] <= 0.0).all():
+            return greedy
+        truncate = bool(((rows[:, 1] > 0) | (rows[:, 2] < 1.0)).any())
+    scaled = _truncated_scores(logits, samp, truncate)
+    u = _uniforms(_fold(keys, positions), logits.shape[-1])
+    gumbel = -torch.log(-torch.log(u))
     sampled = torch.argmax(scaled + gumbel, dim=-1)
     return torch.where(samp[:, 0] <= 0.0, greedy, sampled)
 
 
-def _sample_packed(logits, samp, seeds) -> torch.Tensor:
+def _sample_packed(logits, samp, keys, positions,
+                   host_samp=None) -> torch.Tensor:
     """(token, logprob) packed into one (B, 2) f32 tensor — one host fetch
     per step. The logprob is the chosen token's raw log-softmax (the model
     distribution, untempered)."""
-    tok = _device_sample(logits, samp, seeds)
+    tok = _device_sample(logits, samp, keys, positions, host_samp)
     lp = torch.gather(torch.log_softmax(logits.float(), dim=-1), 1,
                       tok[:, None])[:, 0]
     return torch.stack([tok.float(), lp], dim=1)
@@ -189,8 +254,13 @@ class EngineConfig:
     prefill_bound_max: bool = False
     metrics_path: Optional[str] = None  # per-step JSONL metrics stream
     speculate_k: int = 0  # ROADMAP A9
-    async_decode: bool = True  # applies to decode_steps > 1 only
-    decode_steps: int = 1  # >1: ROADMAP A7
+    # decode_steps > 1 only: keep one round in flight, round N+1 issued on
+    # round N's device outputs before N's tokens are fetched; the committed
+    # streams are those of the synchronous loop
+    async_decode: bool = True
+    # > 1: up to this many decode steps a round (powers of two), one host
+    # fetch a round; on the card a round is one CUDA graph replay
+    decode_steps: int = 1
     seed: int = 0
 
 
@@ -198,12 +268,13 @@ def _check_engine_config(ecfg: EngineConfig) -> None:
     unported = dict(
         prefix_cache=(ecfg.prefix_cache, "A7"),
         speculate_k=(ecfg.speculate_k > 0, "A9"),
-        decode_steps=(ecfg.decode_steps > 1, "A7"),
     )
     for name, (used, item) in unported.items():
         if used:
             raise NotImplementedError(
                 f"EngineConfig.{name} is not ported yet (ROADMAP {item})")
+    if ecfg.decode_steps < 1:
+        raise ValueError(f"decode_steps must be >= 1, got {ecfg.decode_steps}")
 
 
 class Engine:
@@ -264,6 +335,15 @@ class Engine:
         self._preemptions = 0
         self._metrics_fh = (open(engine_cfg.metrics_path, "a")
                             if engine_cfg.metrics_path else None)
+        self._inflight = None  # async decode: the one issued round
+        # K-step rounds on the card: one CUDA graph per (pages_bound, K),
+        # all reading one set of static inputs (_round_graph)
+        self._graphs: dict = {}
+        self._static: Optional[dict] = None
+        # graph captures and replays, and the kernel launches they carry:
+        # kernels.LAUNCHES counts a graph's launches once, at its capture
+        self.graph_stats = dict(captures=0, replays=0, captured={},
+                                replayed={})
 
     # ---- public API -----------------------------------------------------
 
@@ -281,7 +361,8 @@ class Engine:
 
     def step(self) -> None:
         """Admit + prefill new requests, advance one chunked prefill, then
-        advance all running sequences by one decode token."""
+        advance all running sequences by one decode token, or by a round of
+        up to ``decode_steps`` tokens."""
         t0 = time.monotonic()
         tok0 = self._tokens_out
         self._admit()
@@ -322,6 +403,8 @@ class Engine:
             preemptions=self._preemptions,
             finished=len(self.finished),
             free_pages=self._alloc.num_free(),
+            graph_captures=self.graph_stats["captures"],
+            graph_replays=self.graph_stats["replays"],
         )
 
     def run(self, max_steps: int = 10_000) -> List[FinishedRequest]:
@@ -330,19 +413,76 @@ class Engine:
                and steps < max_steps):
             self.step()
             steps += 1
+        self.flush()  # commit any async round left in flight
         return self.finished
+
+    def stream(self, max_steps: int = 10_000):
+        """Generator form of :meth:`run`: yields ``(rid, token, logprob)``
+        for every generated token as soon as its engine step commits it (a
+        round yields several per rid at once), then the FinishedRequest when
+        a request completes. A preemption requeue absorbs generated tokens
+        into the prompt; each token is still yielded exactly once."""
+        # rid → [prompt_len last seen, tokens yielded in that basis]: a
+        # requeued request's indices restart at its grown prompt_len, which
+        # the prompt_len change itself reveals
+        state: dict[int, list] = {}
+        done_seen = 0
+        steps = 0
+
+        def drain():
+            nonlocal done_seen
+            out = []
+            for r in list(self.running.values()):
+                st = state.setdefault(r.rid, [r.prompt_len, 0])
+                if r.prompt_len > st[0]:
+                    st[1] = max(0, st[1] - (r.prompt_len - st[0]))
+                    st[0] = r.prompt_len
+                n = len(r.tokens) - r.prompt_len
+                for i in range(st[1], n):
+                    out.append((r.rid, r.tokens[r.prompt_len + i],
+                                r.logprobs[i] if i < len(r.logprobs)
+                                else None))
+                st[1] = n
+            while done_seen < len(self.finished):
+                f = self.finished[done_seen]
+                done_seen += 1
+                st = state.pop(f.rid, [0, 0])
+                for i in range(st[1], len(f.new_tokens)):
+                    out.append((f.rid, f.new_tokens[i],
+                                f.logprobs[i] if i < len(f.logprobs)
+                                else None))
+                out.append(f)
+            return out
+
+        while ((self.waiting or self.running or self.prefilling)
+               and steps < max_steps):
+            self.step()
+            steps += 1
+            yield from drain()
+        self.flush()  # commit any async round left in flight
+        yield from drain()
+
+    def flush(self) -> None:
+        """Commit the in-flight async round, if any, and roll the cache
+        lengths back to the committed tokens. The step loop flushes by
+        itself whenever the batch changes or capacity tightens."""
+        info, self._inflight = self._inflight, None
+        if info is None:
+            return
+        self._commit_round(info)
+        self._rollback_lengths(info)
 
     # ---- internals ------------------------------------------------------
 
-    def _seed_for(self, r, position: int) -> Optional[int]:
-        """Noise seed of a lane, or None for a greedy lane."""
-        if r.temperature <= 0.0:
-            return None
-        return noise_seed(self.ecfg.seed, r.rid, position)
+    def _key_for(self, rid: int) -> int:
+        """The request's sampling key as an int64 value."""
+        return _i64(request_key(self.ecfg.seed, rid))
+
+    def _dev(self, a) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(a), device=self.device)
 
     def _samp(self, rows) -> torch.Tensor:
-        return torch.as_tensor(np.asarray(rows, np.float32).reshape(-1, 3),
-                               device=self.device)
+        return self._dev(np.asarray(rows, np.float32).reshape(-1, 3))
 
     def _bucket(self, n: int) -> int:
         for b in self.ecfg.prefill_buckets:
@@ -448,9 +588,11 @@ class Engine:
         ``(1, vocab)`` logits (it lands at position ``len(prompt)``) and put
         the request on the decode batch."""
         n = len(req.prompt)
+        row = [req.temperature, req.top_k, req.top_p]
         tok_lp = _sample_packed(
-            logits, self._samp([req.temperature, req.top_k, req.top_p]),
-            [self._seed_for(req, n)]).cpu().numpy()[0]
+            logits, self._samp(row),
+            self._dev(np.array([self._key_for(req.rid)], np.int64)),
+            self._dev(np.array([n], np.int32)), host_samp=row).cpu().numpy()[0]
         self._tokens_out += 1
         tok = int(tok_lp[0])
         self.running[slot] = _Running(
@@ -472,7 +614,8 @@ class Engine:
         self._maybe_finish(slot)
 
     def _ensure_capacity(self, slot: int, ahead: int = 1) -> str:
-        """Make sure the slot can hold ``ahead`` more tokens.
+        """Make sure the slot can hold ``ahead`` more tokens (a K-step round
+        appends K before the host commits any).
 
         Returns ``"ok"``, ``"cap"`` (the slot already owns max_pages_per_seq:
         the request must finish, not preempt) or ``"pool"`` (transient pool
@@ -526,19 +669,36 @@ class Engine:
                              else r.prompt_len),
         ))
 
-    def _pages_bound(self) -> int:
+    def _pages_bound(self, ahead: int = 0) -> int:
+        """The decode walk's page cap for the running lanes, ``ahead``
+        tokens past their committed ones: powers of 4 (4, 16, 64, …) as in
+        the reference, whose every bucket is a compiled variant; here each
+        bucket bounds the walk and keys a round's CUDA graph. A pinned
+        ``EngineConfig.pages_bound`` stands, raised for a round that needs
+        more."""
         ps = self.ccfg.page_size
-        if self.ecfg.pages_bound is not None:
-            return self.ecfg.pages_bound
-        need = max(-(-len(r.tokens) // ps) for r in self.running.values())
-        # powers of 4 (4, 16, 64, …) as in the reference, whose every bucket
-        # is a compiled variant; here it only bounds the page walk
+        need = max(-(-(len(r.tokens) + ahead) // ps)
+                   for r in self.running.values())
         bound = 4
         while bound < need:
             bound *= 4
-        return min(bound, self.ccfg.max_pages_per_seq)
+        bound = min(bound, self.ccfg.max_pages_per_seq)
+        if self.ecfg.pages_bound is not None:
+            if ahead:
+                return min(max(self.ecfg.pages_bound, bound),
+                           self.ccfg.max_pages_per_seq)
+            return self.ecfg.pages_bound
+        return bound
 
     def _decode(self) -> None:
+        # With a round in flight the host lags the device by its K tokens:
+        # the capacity probe covers them too, and any shortfall flushes
+        # first, so finish/preempt below act on committed state.
+        if self._inflight is not None:
+            ka = self._inflight["K"]
+            if any(self._ensure_capacity(s, ahead=ka + 1) != "ok"
+                   for s in sorted(self.running)):
+                self.flush()
         # capacity check first (may finish at-cap sequences or preempt)
         for slot in sorted(self.running):
             status = self._ensure_capacity(slot)
@@ -547,38 +707,40 @@ class Engine:
             elif status == "pool":
                 self._preempt(slot)
         if not self.running:
+            self.flush()  # every in-flight lane is dead: drain it
             return
-        mb = self.ecfg.max_batch
-        slots_np = np.full(mb, self._trash_slot, np.int32)
-        toks_np = np.zeros(mb, np.int64)
-        pos_np = np.zeros(mb, np.int32)
-        samp_np = np.zeros((mb, 3), np.float32)
-        samp_np[:, 2] = 1.0  # idle lanes: top_p disabled
-        seeds: List[Optional[int]] = [None] * mb
-        lanes = []
-        for lane, slot in enumerate(sorted(self.running)[:mb]):
-            r = self.running[slot]
-            slots_np[lane] = slot
-            toks_np[lane] = r.next_token
-            pos_np[lane] = len(r.tokens) - 1  # position of the new token
-            samp_np[lane] = (r.temperature, r.top_k, r.top_p)
-            # the sampled token lands at position pos + 1
-            seeds[lane] = self._seed_for(r, len(r.tokens))
-            lanes.append(slot)
-        dev = self.device
-        logits, self.caches = tfm.decode_step(
-            self.params, torch.as_tensor(toks_np, device=dev),
-            torch.as_tensor(pos_np, device=dev), self.caches,
-            torch.as_tensor(slots_np, device=dev), self.mcfg,
-            pages_bound=self._pages_bound(),
-            pipelined=self.ecfg.pipelined_decode,
-        )
-        # idle lanes append to the trash slot every step; reset its length
-        # so it never walks off its (all-trash-page) table
-        for c in self.caches:
-            c.lengths[self._trash_slot].fill_(0)
-        packed = _sample_packed(logits, self._samp(samp_np), seeds)
-        packed = packed.cpu().numpy()
+        if self.ecfg.decode_steps > 1:
+            remaining = self._remaining()
+            if remaining <= 0:
+                # the round in flight finishes every lane: drain it rather
+                # than chain a round of discards
+                self.flush()
+                if not self.running:
+                    return
+                remaining = self._remaining()
+            # K in powers of two (one graph each), shrunk toward the tail so
+            # a batch one token from done does not run a round of discards
+            K = 1
+            while K < min(self.ecfg.decode_steps, remaining):
+                K *= 2
+            K = min(K, self.ecfg.decode_steps)
+            # a chained round stacks its K appends on the in-flight round's
+            ka = K + (self._inflight["K"] if self._inflight is not None
+                      else 0)
+            if K > 1 and all(
+                    self._ensure_capacity(s, ahead=ka) == "ok"
+                    for s in sorted(self.running)[:self.ecfg.max_batch]):
+                self._decode_multi(K)
+                return
+        self.flush()  # the one-token step fetches synchronously
+        if not self.running:
+            return
+        lanes, slots_np, toks_np, pos_np, samp_np, keys_np, _ = (
+            self._decode_composition())
+        packed = self._step(
+            *(self._dev(a) for a in (toks_np, pos_np, slots_np, samp_np,
+                                     keys_np)),
+            self._pages_bound(), host_samp=samp_np).cpu().numpy()
         for lane, slot in enumerate(lanes):
             r = self.running[slot]
             tok = int(packed[lane, 0])
@@ -587,6 +749,224 @@ class Engine:
             r.logprobs.append(float(packed[lane, 1]))
             self._tokens_out += 1
             self._maybe_finish(slot)
+
+    def _step(self, tokens, positions, slots, samp, keys, pages_bound: int,
+              host_samp=None):
+        """One decode step of every lane on the device: the model step, the
+        trash slot's length reset (idle lanes append to it every step, so
+        it never walks off its all-trash table) and the sampling of each
+        lane's next token (it lands at position + 1). Returns packed
+        ``(mb, 2)`` (token, logprob). The one-token step and every step of
+        a round, eager or captured, run this; the one-token step passes
+        ``host_samp`` (:func:`_device_sample`)."""
+        logits, _ = tfm.decode_step(
+            self.params, tokens, positions, self.caches, slots, self.mcfg,
+            pages_bound=pages_bound, pipelined=self.ecfg.pipelined_decode)
+        for c in self.caches:
+            c.lengths[self._trash_slot].fill_(0)
+        return _sample_packed(logits, samp, keys, positions + 1, host_samp)
+
+    def _remaining(self) -> int:
+        """The most tokens a running lane has still to make, less those
+        the round in flight makes for it (committed tokens lag the device
+        by that round)."""
+        info = self._inflight
+        ahead = (set() if info is None
+                 else set(zip(info["lanes"], info["rids"])))
+        return max(r.max_new_tokens - (len(r.tokens) - r.prompt_len)
+                   - (info["K"] if (slot, r.rid) in ahead else 0)
+                   for slot, r in self.running.items())
+
+    def _round(self, K: int, pages_bound: int, tokens, positions, slots,
+               samp, keys):
+        """K :meth:`_step` s, each on the tokens the last one sampled: the
+        reference's ``lax.scan``. Returns ``(packed (mb, K, 2), tokens,
+        positions)``, the last two feeding a chained round."""
+        packs = []
+        for _ in range(K):
+            packed = self._step(tokens, positions, slots, samp, keys,
+                                pages_bound)
+            packs.append(packed)
+            tokens = packed[:, 0].to(torch.int64)
+            positions = positions + 1
+        return torch.stack(packs, dim=1), tokens, positions
+
+    def _round_graph(self, pages_bound: int, K: int) -> dict:
+        """The CUDA graph of a K-step round at ``pages_bound``, captured at
+        its first use (the reference's jit cache key): it reads the
+        engine's static inputs and writes its own static outputs. The
+        caches and the weights are the same tensors at every replay (they
+        are updated in place). A capture that fails raises."""
+        key = (pages_bound, K)
+        if key in self._graphs:
+            return self._graphs[key]
+        from tpu_flash_torch.kernels import _build
+
+        if self._static is None:
+            mb, dev = self.ecfg.max_batch, self.device
+            self._static = dict(
+                tokens=torch.zeros(mb, dtype=torch.int64, device=dev),
+                positions=torch.zeros(mb, dtype=torch.int32, device=dev),
+                slots=torch.full((mb,), self._trash_slot, dtype=torch.int32,
+                                 device=dev),
+                samp=torch.zeros((mb, 3), dtype=torch.float32, device=dev),
+                keys=torch.zeros(mb, dtype=torch.int64, device=dev))
+        _build.library()  # load the kernels before the capture
+        st = self._static
+        before = dict(kernels.LAUNCHES)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            outs = self._round(K, pages_bound, st["tokens"], st["positions"],
+                               st["slots"], st["samp"], st["keys"])
+        launches = {k: n - before[k] for k, n in kernels.LAUNCHES.items()
+                    if n != before[k]}
+        self._graphs[key] = g = dict(graph=graph, outs=outs,
+                                     launches=launches)
+        self.graph_stats["captures"] += 1
+        _add(self.graph_stats["captured"], launches)
+        return g
+
+    def _decode_composition(self):
+        """Host arrays of the current decode batch, and the chain signature:
+        everything a round consumes but tokens and positions, which a
+        chained round takes from the previous round's device outputs."""
+        mb = self.ecfg.max_batch
+        slots_np = np.full(mb, self._trash_slot, np.int32)
+        toks_np = np.zeros(mb, np.int64)
+        pos_np = np.zeros(mb, np.int32)
+        samp_np = np.zeros((mb, 3), np.float32)
+        samp_np[:, 2] = 1.0  # idle lanes: top_p disabled
+        keys_np = np.zeros(mb, np.int64)
+        lanes = []
+        for lane, slot in enumerate(sorted(self.running)[:mb]):
+            r = self.running[slot]
+            slots_np[lane] = slot
+            toks_np[lane] = r.next_token
+            pos_np[lane] = len(r.tokens) - 1  # position of the new token
+            samp_np[lane] = (r.temperature, r.top_k, r.top_p)
+            keys_np[lane] = self._key_for(r.rid)
+            lanes.append(slot)
+        sig = (tuple(lanes), samp_np.tobytes(), keys_np.tobytes())
+        return lanes, slots_np, toks_np, pos_np, samp_np, keys_np, sig
+
+    def _decode_multi(self, K: int) -> None:
+        """Advance every running lane by a round of K tokens.
+
+        The K appends run on the device (capacity covered beforehand); the
+        host commits the tokens in order through the finish logic, and
+        tokens past a finish are discarded (their K/V stay as
+        length-masked garbage). With ``async_decode`` one round stays in
+        flight: round N+1 is issued on round N's device outputs before N's
+        tokens are fetched, so the fetch overlaps the next round. Any change
+        of the batch breaks the chain (a flush: fetch, commit, length
+        rollback). A chained round may take another K than the round in
+        flight (a chain's tail). Sampling is keyed by (request, position),
+        so the committed streams are those of the synchronous loop."""
+        comp = self._decode_composition()
+        use_async = self.ecfg.async_decode
+        inflight = self._inflight
+        if inflight is not None:
+            if use_async and inflight["sig"] == comp[-1]:
+                self._inflight = self._issue_round(
+                    K, comp, prev=inflight, pages_ahead=inflight["K"] + K)
+                self._commit_round(inflight)
+                # finishes here change the batch; the next call's sig
+                # mismatch flushes the round just issued
+                return
+            self.flush()
+            comp = self._decode_composition()  # the flush may free lanes
+            if not comp[0]:
+                return
+        info = self._issue_round(K, comp,
+                                 pages_ahead=2 * K if use_async else K)
+        if use_async:
+            self._inflight = info
+            return
+        self._commit_round(info)
+        self._rollback_lengths(info)
+
+    def _issue_round(self, K: int, comp, prev=None, *, pages_ahead: int):
+        """Start a round: on the card, copy its inputs into the static
+        buffers (a chained round: tokens and positions from ``prev``'s
+        device outputs, the rest already there) and replay its graph, then
+        queue the copy of its tokens to pinned host memory behind an event;
+        on the CPU, run the round eagerly."""
+        lanes, slots_np, toks_np, pos_np, samp_np, keys_np, sig = comp
+        bound = self._pages_bound(ahead=pages_ahead)
+        if self.device.type == "cuda":
+            g = self._round_graph(bound, K)
+            st = self._static
+            if prev is None:
+                for name, a in (("tokens", toks_np), ("positions", pos_np),
+                                ("slots", slots_np), ("samp", samp_np),
+                                ("keys", keys_np)):
+                    st[name].copy_(torch.from_numpy(a))
+            else:
+                st["tokens"].copy_(prev["ntok"])
+                st["positions"].copy_(prev["npos"])
+            g["graph"].replay()
+            self.graph_stats["replays"] += 1
+            _add(self.graph_stats["replayed"], g["launches"])
+            packed, ntok, npos = g["outs"]
+            host = torch.empty(packed.shape, dtype=packed.dtype,
+                               pin_memory=True)
+            host.copy_(packed, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record()
+            inputs = None
+        else:
+            if prev is None:
+                inputs = tuple(self._dev(a) for a in (slots_np, samp_np,
+                                                      keys_np))
+                toks, pos = self._dev(toks_np), self._dev(pos_np)
+            else:
+                inputs, toks, pos = prev["inputs"], prev["ntok"], prev["npos"]
+            host, ntok, npos = self._round(K, bound, toks, pos, *inputs)
+            done = None
+        return dict(packed=host, done=done, ntok=ntok, npos=npos, K=K,
+                    sig=sig, inputs=inputs, lanes=list(lanes),
+                    rids=[self.running[s].rid for s in lanes])
+
+    def _commit_round(self, info) -> None:
+        """Fetch an issued round and commit its tokens through the finish
+        logic. Lanes that finished at an earlier step (or in an earlier
+        round) and slots a newer request took are discarded."""
+        if info["done"] is not None:
+            info["done"].synchronize()
+        packed = info["packed"].numpy()  # (mb, K, 2)
+        for j in range(info["K"]):
+            for lane, slot in enumerate(info["lanes"]):
+                r = self.running.get(slot)
+                if r is None or r.rid != info["rids"][lane]:
+                    continue  # finished earlier, or recycled: discard
+                tok = int(packed[lane, j, 0])
+                r.tokens.append(tok)
+                r.next_token = tok
+                r.logprobs.append(float(packed[lane, j, 1]))
+                self._tokens_out += 1
+                self._maybe_finish(slot)
+
+    def _rollback_lengths(self, info) -> None:
+        """Set each lane's cache length back to its committed count (the
+        engine's invariant: length = len(tokens) − 1, the pending token's
+        K/V appended by the next step); a finished lane's slot goes to 0.
+        A slot that a newer request already took (running or in a chunked
+        prefill) keeps that request's length."""
+        slots, lens = [], []
+        for lane, slot in enumerate(info["lanes"]):
+            r = self.running.get(slot)
+            if r is not None and r.rid == info["rids"][lane]:
+                slots.append(slot)
+                lens.append(len(r.tokens) - 1)
+            elif r is None and slot not in self.prefilling:
+                slots.append(slot)
+                lens.append(0)
+        if not slots:
+            return
+        idx = self._dev(np.asarray(slots, np.int64))
+        vals = self._dev(np.asarray(lens, np.int32))
+        for c in self.caches:
+            c.lengths.index_copy_(0, idx, vals)
 
     def _maybe_finish(self, slot: int) -> None:
         r = self.running.get(slot)
@@ -615,6 +995,12 @@ class Engine:
             del self.running[slot]
             self._alloc.free_seq(slot)
             self._free_slots.append(slot)
+
+
+def _add(total: dict, counts: dict) -> None:
+    """Add launch counts into a running total, name by name."""
+    for name, n in counts.items():
+        total[name] = total.get(name, 0) + n
 
 
 def _prefill_all_logits(params, tokens, cfg: tfm.ModelConfig):

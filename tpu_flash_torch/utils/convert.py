@@ -44,7 +44,9 @@ def to_numpy(t: torch.Tensor) -> np.ndarray:
 
 def params_from_tree(tree, device="cuda"):
     """The reference's parameter tree (dicts/lists of arrays) → the port's
-    parameter dict, same keys and layouts."""
+    parameter dict, same keys and layouts; int8 weight-only matrices
+    (``quantize_weights``' ``{"q", "s"}`` leaves) come across as int8 and
+    float32."""
     if isinstance(tree, dict):
         return {k: params_from_tree(v, device) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
