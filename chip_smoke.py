@@ -51,7 +51,20 @@ rejected), the ring at the baseline's attention width (32 heads, d 128,
 N 32768, 8 ranks) in bf16 dense, causal, local and circulant and in three
 quantized local modes against the single-device kernels and the oracles,
 its gradient against the single-device one, and the sequence-parallel
-train step of the canonical model against the plain step. B4/B5 are held against their plain version on every
+train step of the canonical model against the plain step; then runs the
+parallel modules over virtual ranks on the card (phases seq_serve,
+seq_decode, tp_serve, ulysses): SeqShardedEngine over 4 sequence ranks of
+an int4 cache (BASELINE config #5 on the canonical model: 4 lanes of
+32,704 + 64 tokens) against the unsharded engine, the sharded decode at
+32 heads × d 128 over 4 × 32,768 tokens against one walk of the whole
+history (two planted faults rejected), each rank's B2 call and the tail
+rank's fused append in both held against the plain versions on their own
+inputs (a hidden page rejected), tensor-parallel serving with int8
+weights in rounds of 8 over 2 and 4 ranks against the unsharded engine
+and the float32 TP forward (a dropped partial rejected), and Ulysses over
+8 ranks at the ring's width (every schedule, the gradient, fp8, a
+reversed inverse rejected), timed beside the single-device kernels and
+the ring. B4/B5 are held against their plain version on every
 schedule kind (dense, causal, local, local_causal, circulant, block) in
 each kernel family and under the int8 dp product. B1, B4/B5 and B14 rows
 give two times: the kernel's device
@@ -87,6 +100,7 @@ import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
+from unittest import mock
 
 import numpy as np
 import torch
@@ -3530,6 +3544,795 @@ def ring_phase(dev):
                 timed=timed, worst=worst)
 
 
+# ---- the parallel modules (parallel/mesh.py, ring_decode.py, shardings.py,
+# ulysses.py; serving/seq_engine.py; Engine(mesh=)) over virtual ranks on
+# the one card: every rank on cuda:0, the rank sums and all-to-alls inside
+# the process, so no communication is measured
+
+# BASELINE config #5 on the canonical model: 4 sequence ranks, an int4
+# cache of page 64, 4 lanes of 32,704 prompt + 64 new tokens (32,768 a
+# lane), greedy; both engines get pages enough that no lane stops at the
+# cap (32,768 tokens = 512 pages a lane)
+SEQ_RANKS, SEQ_LANES, SEQ_PROMPT, SEQ_NEW = 4, 4, 32704, 64
+SEQ_CACHE = dict(CACHE, dtype="int4", max_seqs=SEQ_LANES + 1,
+                 max_pages_per_seq=520, total_pages=SEQ_LANES * 520 + 16)
+# the layer whose rank calls are held against the plain versions, at the
+# first decode step of all 4 lanes after this many of the layer's calls
+# (the warm request's 4 tokens take fewer)
+SEQ_HELD_LAYER, SEQ_HELD_AFTER = MODEL["num_layers"] - 1, 8
+# the seq_decode kernel row: the baseline's attention width (32 heads for
+# q and kv, d 128, RING_SHAPE's), int4 pages, 4 lanes × 32,768 tokens over
+# 4 ranks, the new token appended on the last
+SEQ_DECODE_HEADS, SEQ_DECODE_N = 32, 32768
+# tensor-parallel serving: the engine phase's cell with int8 weights in
+# rounds of 8, over 2 and 4 ranks; tests/test_tp.py's agreement ≥ 0.9,
+# the float32 model within TOL_F32 of max |logit|, and bf16 TP no further
+# than 5e-2 beyond the unsharded bf16 model's own distance from the
+# float32 logits
+TP_SIZES, TP_ROUNDS = (2, 4), 8
+TOL_TP_AGREE, TOL_TP_BF16 = 0.9, 5e-2
+TP_FORWARD_TOKENS = (2, 256)
+# Ulysses at the ring phase's width over 8 ranks
+ULYSSES_RANKS = 8
+
+
+def prof_device(fn) -> dict:
+    """torch.profiler over one ``fn()`` (ending in a synchronise): the
+    device time of its kernels and their count."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kern = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    return dict(device_ms=sum(e.self_device_time_total for e in kern) / 1e3,
+                device_activities=sum(e.count for e in kern))
+
+
+def tail_logprobs(params, mcfg, tokens, n_tail) -> torch.Tensor:
+    """log_softmax of a full forward's logits at the last ``n_tail``
+    positions only (the blocks over every position, the unembed over the
+    tail: a 32k prompt's every logit would take 4 GB)."""
+    from tpu_flash_torch.models import transformer as tfm
+
+    toks = torch.tensor([tokens], device=params["embed"].device)
+    b, n = toks.shape
+    x = params["embed"][toks]
+    pos = tfm._positions(b, n, toks.device)
+    for layer in params["layers"]:
+        x = tfm._block(layer, x, pos, mcfg)
+    x = tfm.rmsnorm(x[:, -n_tail:], params["ln_f"])
+    return torch.log_softmax((x @ params["embed"].T).float()[0], dim=-1)
+
+
+def stream_drift(params, mcfg, f) -> float:
+    """max |engine logprob − teacher-forced logprob| over a stream's new
+    tokens (tail_logprobs of its tokens but the last)."""
+    lp = tail_logprobs(params, mcfg, f.tokens[:-1], len(f.new_tokens))
+    ref = lp.gather(1, torch.tensor(f.new_tokens, device=lp.device)[:, None])
+    return float((ref[:, 0] - torch.tensor(f.logprobs, device=lp.device))
+                 .abs().max())
+
+
+def agreement(got, want) -> dict:
+    """Per request: the share of equal tokens and the first new-token
+    index where the streams part (None: never)."""
+    out = {}
+    for rid, f in want.items():
+        a, b = got[rid].tokens, f.tokens
+        part = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
+        out[rid] = dict(agree=sum(x == y for x, y in zip(a, b)) / len(b),
+                        parts_at=None if part is None else part - len(
+                            f.tokens) + len(f.new_tokens))
+    return out
+
+
+def run_engine(eng, reqs, warm=None, profile_at=None) -> dict:
+    """Serve ``warm`` to the end, then ``reqs`` with the launch counts
+    zeroed: finished requests by rid, each step's host ms (a step ends in
+    a host fetch), the wall time, the launches that ran (a graph's once a
+    replay) and the graph replays; step ``profile_at`` runs under
+    torch.profiler (``prof_device``) and is left out of the step times."""
+    from tpu_flash_torch import kernels
+
+    if warm is not None:
+        eng.submit(warm)
+        eng.run()
+    torch.cuda.synchronize()
+    stats = eng.graph_stats
+    cap0, rep0 = dict(stats["captured"]), dict(stats["replayed"])
+    replays0 = stats["replays"]
+    n0 = len(eng.finished)
+    for r in reqs:
+        eng.submit(r)
+    kernels.reset_launches()
+    step_ms, profiled = [], None
+    t0 = time.perf_counter()
+    while eng.waiting or eng.running or eng.prefilling:
+        if len(step_ms) == profile_at and profiled is None:
+            profiled = prof_device(eng.step)
+            continue
+        ts = time.perf_counter()
+        eng.step()
+        step_ms.append((time.perf_counter() - ts) * 1e3)
+    eng.flush()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    ran = {k: n - (stats["captured"].get(k, 0) - cap0.get(k, 0))
+           + (stats["replayed"].get(k, 0) - rep0.get(k, 0))
+           for k, n in kernels.LAUNCHES.items()}
+    return dict(done={f.rid: f for f in eng.finished[n0:]}, step_ms=step_ms,
+                wall_s=wall, launches={k: n for k, n in ran.items() if n},
+                replays=stats["replays"] - replays0, profiled=profiled)
+
+
+@contextlib.contextmanager
+def recorded_rank_calls(caches, after=0, trash=None):
+    """Record the B2 calls that sharded_paged_attention makes on
+    ``caches`` (one layer's cache a rank), at one call of the axis: the
+    first whose rank-0 call comes after ``after`` earlier ones and whose
+    lanes each have a slot of their own (none the engine's ``trash``
+    slot). A record holds the call's inputs, the cache as the call found
+    it and (with an append) as it left it, o and lse. Yields the list."""
+    from tpu_flash_torch.parallel import ring_decode
+
+    base = ring_decode.paged_attention
+    rank_of = {id(c): r for r, c in enumerate(caches)}
+    calls, state = [], dict(seen=0, armed=False)
+
+    def recorded(q, cache, slots, **kw):
+        r = rank_of.get(id(cache))
+        if r == 0 and not calls:
+            state["seen"] += 1
+            if state["seen"] > after:
+                s = slots.tolist()
+                state["armed"] = len(set(s)) == len(s) and trash not in s
+        if r is None or not state["armed"]:
+            return base(q, cache, slots, **kw)
+        new_kv = kw.get("new_kv")
+        rec = dict(rank=r, q=q.clone(), slots=slots.clone(),
+                   kw={k: v for k, v in kw.items() if k != "new_kv"},
+                   new_kv=None if new_kv is None else tuple(
+                       t.clone() for t in new_kv),
+                   before=_cache_copy(cache))
+        out = base(q, cache, slots, **kw)
+        rec.update(o=out[0].clone(), lse=out[1].clone(),
+                   after=rec["before"] if new_kv is None else _cache_copy(cache))
+        calls.append(rec)
+        if r == len(caches) - 1:
+            state["armed"] = False
+        return out
+
+    ring_decode.paged_attention = recorded
+    try:
+        yield calls
+    finally:
+        ring_decode.paged_attention = base
+
+
+def held_rank_b2(name, calls) -> dict:
+    """Each recorded rank call (:func:`recorded_rank_calls`) against the
+    plain versions on its own inputs, under the engine's split plan
+    (``plan_pages`` of the rank's cache): with an append, the pages the
+    fused call wrote bit for bit _paged_append_plain's; o within TOL_BF16
+    and lse within TOL_LSE of _paged_attention_plain. A planted fault (one
+    page of the first lane's walk on rank 0 taken from the second lane's)
+    must fail that check."""
+    from tpu_flash_torch.ops import paged
+
+    if len(calls) < 2:
+        raise AssertionError(f"{name}: {len(calls)} rank calls recorded")
+    worst, rows = 0.0, []
+    for call in calls:
+        c, q, slots, kw = call["before"], call["q"], call["slots"], call["kw"]
+        cfg = c.config
+        b, qh, d = q.shape
+        kvh = c.k_pages.shape[0]
+        scale = kw.get("scale") or d ** -0.5
+        qg = (q.float() * (scale * paged.LOG2E)).bfloat16().reshape(
+            b, kvh, qh // kvh, d)
+        radius = kw.get("radius")
+        walk = paged.plan_pages(cfg, radius)
+        bound = min(kw.get("pages_bound") or walk, walk)
+        append = call["new_kv"] is not None
+        label = f"{name} rank {call['rank']}"
+        if append:
+            paged._paged_append_plain(
+                *call["new_kv"], c.k_pages, c.v_pages, c.k_scales, c.v_scales,
+                slots, c.lengths, c.page_tables, page_type=cfg.page_type)
+            _same_cache(f"{label} fused append", call["after"], c)
+        split = _card_plan(qg, c, radius=radius)
+
+        def plain(tables=None):
+            o, lse = paged._paged_attention_plain(
+                *_b2_args(qg, c, slots, int(append), bound, q.dtype, tables),
+                radius=radius, split_pages=split, page_type=cfg.page_type)
+            return o.reshape(b, qh, d), lse.reshape(b, qh)
+
+        got = (call["o"], call["lse"])
+        errs = _held_b2(label, got, plain(), tol_lse=TOL_LSE)
+        worst = max(worst, *errs.values())
+        row = dict(rank=call["rank"], append=append, lanes=b,
+                   pages_bound=bound, split_pages=split, **errs)
+        if call["rank"] == 0:
+            tables = c.page_tables.clone()
+            s0, s1 = (int(x) for x in slots[:2])
+            tables[s0, 3] = c.page_tables[s1, 3]
+            fo, fl = plain(tables)
+            row["fault_o"], row["fault_lse"] = (max_err(got[0], fo),
+                                                max_err(got[1], fl))
+            if row["fault_o"] <= TOL_BF16 and row["fault_lse"] <= TOL_LSE:
+                raise AssertionError(f"{label}: the planted fault (a page "
+                                     f"of lane 0 hidden) passes: {row}")
+        rows.append(row)
+    return dict(ranks=rows, tol_o=TOL_BF16, tol_lse=TOL_LSE,
+                max_abs_err=worst,
+                appends_bit_exact=sum(r["append"] for r in rows))
+
+
+def seq_serve_phase(dev) -> dict:
+    """BASELINE config #5 on the canonical model: SeqShardedEngine over
+    SEQ_RANKS ranks of an int4 cache against the unsharded engine on an
+    int4 cache of the same page size; the reference's int4 gate (prompt
+    and first generated token equal), the agreement and where the streams
+    part, each stream's teacher-forced drift (logits at the decode
+    positions only) ≤ TOL_LOGPROB_INT4 with the unsharded engine's beside
+    it, per-rank pages before and after (only the last rank may change),
+    one layer's rank calls at one decode step held against the plain
+    versions on their own inputs (:func:`held_rank_b2`), ms a decode step,
+    prefill ms a request and one step's device ms."""
+    from tpu_flash_torch.cache.paged_cache import CacheConfig
+    from tpu_flash_torch.models import transformer as tfm
+    from tpu_flash_torch.parallel.mesh import make_mesh
+    from tpu_flash_torch.serving.engine import Engine, EngineConfig, Request
+    from tpu_flash_torch.serving.seq_engine import SeqShardedEngine
+
+    t_phase = time.perf_counter()
+    mcfg = tfm.ModelConfig(**MODEL)
+    params = tfm.init_params(mcfg, torch.Generator(device=dev).manual_seed(0),
+                             dev)
+    rng = np.random.default_rng(31)
+    prompts = rng.integers(1, mcfg.vocab_size - 1,
+                           (SEQ_LANES, SEQ_PROMPT)).tolist()
+    ecfg = EngineConfig(max_batch=SEQ_LANES)
+
+    def reqs():
+        return [Request(rid=i, prompt=p, max_new_tokens=SEQ_NEW)
+                for i, p in enumerate(prompts)]
+
+    warm = Request(rid=10_000, prompt=prompts[0][:1000], max_new_tokens=4)
+    runs, pages = {}, {}
+    for name in ("sharded", "unsharded"):
+        if name == "sharded":
+            eng = SeqShardedEngine(params, mcfg, CacheConfig(**SEQ_CACHE), ecfg,
+                                   mesh=make_mesh(seq=SEQ_RANKS, devices=dev))
+            start, ensure = eng._start_running, eng._ensure_capacity
+
+            def keep(req, slot, pages_n, logits, eng=eng, start=start):
+                pages[req.rid] = dict(before=eng.shard_pages(slot))
+                start(req, slot, pages_n, logits)
+
+            def tracked(slot, ahead=1, eng=eng, ensure=ensure):
+                status = ensure(slot, ahead)
+                pages[eng.running[slot].rid]["after"] = eng.shard_pages(slot)
+                return status
+
+            eng._start_running, eng._ensure_capacity = keep, tracked
+            # one layer's rank calls at one decode step of the run (after
+            # the warm request's steps), held against the plain versions
+            record = recorded_rank_calls(
+                [c[SEQ_HELD_LAYER] for c in eng.caches], after=SEQ_HELD_AFTER,
+                trash=eng._trash_slot)
+        else:
+            eng = Engine(params, mcfg, CacheConfig(**SEQ_CACHE), ecfg)
+            record = contextlib.nullcontext()
+        with record as calls:
+            runs[name] = run_engine(eng, reqs(), warm, profile_at=SEQ_NEW // 2)
+        if name == "sharded":
+            held = held_rank_b2(f"seq_serve layer {SEQ_HELD_LAYER}", calls)
+            del calls
+        pages.pop(10_000, None)
+        del eng
+        torch.cuda.empty_cache()
+    got, want = runs["sharded"]["done"], runs["unsharded"]["done"]
+    for rid in range(SEQ_LANES):
+        g, w = got[rid], want[rid]
+        if len(g.new_tokens) != SEQ_NEW or g.reason != "length":
+            raise AssertionError(f"seq_serve: request {rid}: {g.reason}, "
+                                 f"{len(g.new_tokens)} tokens")
+        if g.tokens[:SEQ_PROMPT + 1] != w.tokens[:SEQ_PROMPT + 1]:
+            raise AssertionError(f"seq_serve: request {rid}: prompt or first "
+                                 "token differs from the unsharded engine")
+        pg = pages[rid]
+        if pg.get("after", pg["before"])[:-1] != pg["before"][:-1]:
+            raise AssertionError(f"seq_serve: request {rid}: a rank other "
+                                 f"than the last grew: {pg}")
+    drift = {rid: stream_drift(params, mcfg, got[rid]) for rid in got}
+    drift_unsharded = {rid: stream_drift(params, mcfg, want[rid])
+                       for rid in want}
+    check("seq_serve: teacher-forced drift", max(drift.values()),
+          TOL_LOGPROB_INT4)
+    launches = runs["sharded"]["launches"]
+    for key in ("flash_fwd", "paged_attention_split", "paged_append_fused"):
+        if launches.get(key, 0) <= 0:
+            raise AssertionError(f"seq_serve: kernel {key} never launched")
+    row = {}
+    for name, run in runs.items():
+        decode = float(np.median(run["step_ms"][1:]))
+        row[name] = dict(decode_ms_per_step=decode,
+                         prefill_ms_per_request=(run["step_ms"][0] - decode)
+                         / SEQ_LANES, steps=len(run["step_ms"]),
+                         wall_s=run["wall_s"], launches=run["launches"],
+                         one_step_profiled=run["profiled"])
+    emit(dict(phase="seq_serve", ranks=SEQ_RANKS, lanes=SEQ_LANES,
+              prompt_len=SEQ_PROMPT, new_tokens=SEQ_NEW, cache="int4",
+              page=SEQ_CACHE["page_size"], agreement=agreement(got, want),
+              drift=drift, drift_unsharded=drift_unsharded,
+              drift_tol=TOL_LOGPROB_INT4, pages_per_rank=pages,
+              held_b2=dict(held, layer=SEQ_HELD_LAYER), **row,
+              phase_s=time.perf_counter() - t_phase))
+    del params
+    torch.cuda.empty_cache()
+    return dict(launches=launches, held_b2=held)
+
+
+def seq_decode_phase(dev) -> dict:
+    """The sharded decode kernel path at the baseline's attention width:
+    sharded_paged_attention over SEQ_RANKS int4 caches (the append on the
+    last rank); each rank's B2 call and the last rank's fused append held
+    against the plain versions on their own inputs (:func:`held_rank_b2`);
+    the merged call against one B2 walk over one cache of the whole history: o
+    within TOL_BF16, lse within TOL_LSE, the new token's pages bit for bit
+    the single cache's and only the last rank's length grown. Two planted
+    faults must fail: the append sent to rank 0, one shard's lse moved by
+    ln 2. The merged call is timed against the single walk (device ms, a
+    CUDA graph of calls)."""
+    from tpu_flash_torch import kernels
+    from tpu_flash_torch.bench.harness import device_ms
+    from tpu_flash_torch.cache.paged_cache import CacheConfig, PagedKVCache
+    from tpu_flash_torch.ops.paged import paged_attention
+    from tpu_flash_torch.parallel.mesh import make_mesh
+    from tpu_flash_torch.parallel.ring_decode import (
+        merge_shard_partials,
+        sharded_paged_attention,
+    )
+
+    h, d, n, b, p = SEQ_DECODE_HEADS, 128, SEQ_DECODE_N, SEQ_LANES, SEQ_RANKS
+    page, nl = 64, SEQ_DECODE_N // SEQ_RANKS
+    pp = nl // page  # pages a lane a rank
+    # one spare table entry a lane (the trash page): the rank-0 fault's
+    # append lands there instead of past the table
+    rank_cfg = CacheConfig(num_kv_heads=h, head_dim=d, page_size=page,
+                           total_pages=b * pp + 1, max_seqs=b,
+                           max_pages_per_seq=pp + 1, dtype="int4")
+    one_cfg = CacheConfig(num_kv_heads=h, head_dim=d, page_size=page,
+                          total_pages=b * pp * p + 1, max_seqs=b,
+                          max_pages_per_seq=pp * p, dtype="int4")
+    ranks = [PagedKVCache.create(rank_cfg, dev) for _ in range(p)]
+    one = PagedKVCache.create(one_cfg, dev)
+    gen = torch.Generator(device=dev).manual_seed(41)
+    for lane in range(b):
+        for c in ranks:
+            c.page_tables[lane, :pp] = torch.arange(
+                1 + lane * pp, 1 + (lane + 1) * pp, dtype=torch.int32)
+        one.page_tables[lane] = torch.arange(
+            1 + lane * pp * p, 1 + (lane + 1) * pp * p, dtype=torch.int32)
+        k, v = (torch.randn(h, n - 1, d, generator=gen, device=dev).bfloat16()
+                for _ in "kv")
+        one.write_prompt(lane, k, v)
+        for r, c in enumerate(ranks):
+            part = slice(r * nl, min((r + 1) * nl, n - 1))
+            c.write_prompt(lane, k[:, part], v[:, part])
+        del k, v
+    q, kn, vn = (torch.randn(b, h, d, generator=gen, device=dev).bfloat16()
+                 for _ in range(3))
+    slots = torch.arange(b, dtype=torch.int32, device=dev)
+    axis = make_mesh(seq=p, devices=dev).axis("seq")
+
+    def copies(cs):
+        return [dataclasses.replace(c, **{f: getattr(c, f).clone() for f in (
+            "k_pages", "v_pages", "k_scales", "v_scales", "page_tables",
+            "lengths")}) for c in cs]
+
+    spare = copies(ranks)
+    with recorded_rank_calls(ranks) as calls:
+        kernels.reset_launches()
+        o, lse, _ = sharded_paged_attention(q, ranks, slots, axis,
+                                            new_kv=(kn, vn), return_lse=True)
+        torch.cuda.synchronize()
+    launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    # each rank's B2 call, and the tail's fused append, against the plain
+    # versions on the same inputs
+    held = held_rank_b2("seq_decode", calls)
+    del calls
+    ro, rl, _ = paged_attention(q, one, slots, new_kv=(kn, vn),
+                                return_lse=True)
+
+    def errs(o_, lse_, cs):
+        """o and lse against the single walk, and the append's placement:
+        every rank's lengths and the last rank's new token's bytes."""
+        lens = [c.lengths[:b].tolist() for c in cs]
+        want_lens = [[nl] * b] * p
+        tail = cs[-1]
+        placed = lens == want_lens and all(
+            torch.equal(getattr(tail, f)[:, int(tail.page_tables[lane, pp - 1]),
+                                          page - 1],
+                        getattr(one, f)[:, int(one.page_tables[lane, p * pp - 1]),
+                                        page - 1])
+            for lane in range(b) for f in ("k_pages", "v_pages", "k_scales",
+                                            "v_scales"))
+        return dict(o=max_err(o_, ro), lse=max_err(lse_, rl), placed=placed)
+
+    def passes(e):
+        return e["o"] <= TOL_BF16 and e["lse"] <= TOL_LSE and e["placed"]
+
+    main = errs(o, lse, ranks)
+    if not passes(main):
+        raise AssertionError(f"seq_decode: {main}")
+    fo, fl, _ = sharded_paged_attention(q, spare, slots, axis, new_kv=(kn, vn),
+                                        return_lse=True, owns_append=0)
+    fault_rank0 = errs(fo, fl, spare)
+    del spare
+    parts = [paged_attention(q, c, slots, return_lse=True) for c in ranks]
+    ro0, rl0 = paged_attention(q, one, slots, return_lse=True)
+
+    def merged(shift):
+        lses = [x for _, x in parts]
+        lses[1] = lses[1] + shift
+        mo, ml = merge_shard_partials([x for x, _ in parts], lses, axis,
+                                      return_lse=True)
+        return dict(o=max_err(mo, ro0), lse=max_err(ml, rl0))
+
+    unshifted, fault_lse = merged(0.0), merged(math.log(2.0))
+    if not (unshifted["o"] <= TOL_BF16 and unshifted["lse"] <= TOL_LSE):
+        raise AssertionError(f"seq_decode merge: {unshifted}")
+    for name, e in (("append on rank 0", fault_rank0),
+                    ("lse moved by ln 2", fault_lse)):
+        if e["o"] <= TOL_BF16 and e["lse"] <= TOL_LSE and e.get("placed", True):
+            raise AssertionError(f"seq_decode: planted fault {name} passed")
+    ms = device_ms(lambda: sharded_paged_attention(q, ranks, slots, axis))
+    single_ms = device_ms(lambda: paged_attention(q, one, slots,
+                                                  return_lse=True))
+    # bytes: every page row the history holds (int4 values and f32
+    # scales of K and V), q read, o and lse written
+    nbytes = b * h * n * 2 * (d // 2 + 4) + b * h * d * 2 * 2 + b * h * 4
+    bound = roofline(0, nbytes, torch.bfloat16)
+    emit(dict(phase="seq_decode", lanes=b, heads=h, d=d, tokens=n, ranks=p,
+              page=page, cache="int4", per_rank_vs_plain=held,
+              vs_single_walk=main,
+              merge_without_append=unshifted,
+              faults=dict(append_on_rank0=fault_rank0,
+                          lse_moved_ln2=fault_lse),
+              launches=launches, merged_ms=ms, single_walk_ms=single_ms,
+              **bound))
+    del ranks, one
+    torch.cuda.empty_cache()
+    return dict(launches=launches, ms=ms, single_walk_ms=single_ms,
+                max_abs_err=max(main["o"], main["lse"]), held_b2=held,
+                **bound)
+
+
+class _RankCounts:
+    """Launch counts by tensor-parallel rank: wraps the engine's AxisGroup
+    map, so each rank's work is counted on its own, and its round graphs'
+    capture, so a graph's launches a rank are known and count once a
+    replay (``ran``)."""
+
+    def __init__(self, eng):
+        from tpu_flash_torch import kernels
+
+        tp = eng.tp
+        self.eager = [dict() for _ in range(tp.local)]
+        self.graphs, self.replays = {}, {}
+        self._into = self.eager
+        base_map, base_graph = tp.map, eng._round_graph
+
+        def counted_map(fn, *per_rank):
+            def one(i, *args):
+                before = dict(kernels.LAUNCHES)
+                out = fn(i, *args)
+                for k, n in kernels.LAUNCHES.items():
+                    if n != before[k]:
+                        self._into[i][k] = (self._into[i].get(k, 0)
+                                            + n - before[k])
+                return out
+            return base_map(one, *per_rank)
+
+        def counted_graph(pages_bound, K):
+            key = (pages_bound, K)
+            if key not in self.graphs:
+                self.graphs[key] = self._into = [dict() for _ in self.eager]
+            try:
+                g = base_graph(pages_bound, K)
+            finally:
+                self._into = self.eager
+            self.replays[key] = self.replays.get(key, 0) + 1
+            return g
+
+        tp.map, eng._round_graph = counted_map, counted_graph
+
+    def reset(self) -> None:
+        """Zero the eager counts and the replays (the captures stay)."""
+        self.eager = [dict() for _ in self.eager]
+        self._into, self.replays = self.eager, {}
+
+    def ran(self) -> list:
+        """Each rank's launches since ``reset``: eager, plus each graph's
+        a replay."""
+        out = []
+        for i, eager in enumerate(self.eager):
+            tot = dict(eager)
+            for key, n in self.replays.items():
+                for k, c in self.graphs[key][i].items():
+                    tot[k] = tot.get(k, 0) + c * n
+            out.append(tot)
+        return out
+
+
+def tp_serve_phase(dev) -> dict:
+    """Tensor-parallel serving at the engine phase's cell (16 × (512 + 32)
+    tokens, int8 cache) with int8 weights in rounds of TP_ROUNDS (CUDA
+    graphs), over 2 and 4 ranks on the card, against the unsharded engine
+    of the same weights: agreement ≥ TOL_TP_AGREE, drift ≤ TOL_LOGPROB; the
+    float32 model's forward within TOL_F32 of max |logit| of the unsharded
+    one, and one rank's row-parallel partial left out of the sum must fail
+    that; the bf16 TP forward no further from the float32 logits than the
+    unsharded bf16 forward is, plus TOL_TP_BF16. Prints ms a
+    round and a token, each rank's launches and the graph replays."""
+    from tpu_flash_torch.cache.paged_cache import CacheConfig
+    from tpu_flash_torch.models import transformer as tfm
+    from tpu_flash_torch.parallel import shardings
+    from tpu_flash_torch.parallel.mesh import AxisGroup, make_mesh
+    from tpu_flash_torch.serving.engine import Engine, EngineConfig, Request
+
+    t_phase = time.perf_counter()
+    mcfg = tfm.ModelConfig(**MODEL)
+    params = tfm.init_params(mcfg, torch.Generator(device=dev).manual_seed(0),
+                             dev)
+    rng = np.random.default_rng(0)
+    prompts = rng.integers(1, mcfg.vocab_size - 1,
+                           (N_REQUESTS + 1, PROMPT_LEN)).tolist()
+    reqs = [Request(rid=i, prompt=prompts[i], max_new_tokens=NEW_TOKENS)
+            for i in range(N_REQUESTS)]
+    # the warm-up request: the graphs of the run's buckets captured before
+    warm = Request(rid=10_000, prompt=prompts[-1], max_new_tokens=NEW_TOKENS)
+    qparams = tfm.quantize_weights(params)
+    ecfg = EngineConfig(max_batch=MAX_BATCH, decode_steps=TP_ROUNDS)
+    runs, ranks = {}, {}
+    for size in (1, *TP_SIZES):
+        mesh = make_mesh(model=size, devices=dev) if size > 1 else None
+        eng = Engine(qparams, mcfg, CacheConfig(**CACHE), ecfg, mesh=mesh)
+        counts = _RankCounts(eng) if size > 1 else None
+        eng.submit(dataclasses.replace(warm))
+        eng.run()
+        if counts is not None:
+            counts.reset()
+        run = run_engine(eng, [dataclasses.replace(r) for r in reqs])
+        run["graphs"] = sorted(eng._graphs)
+        if counts is not None:
+            ranks[size] = counts.ran()
+        runs[size] = run
+        del eng
+        torch.cuda.empty_cache()
+    want = runs[1]["done"]
+    rows = {}
+    for size, run in runs.items():
+        got = run["done"]
+        if sorted(got) != list(range(N_REQUESTS)):
+            raise AssertionError(f"tp_serve {size}: finished {sorted(got)}")
+        agree = agreement(got, want)
+        worst = min(a["agree"] for a in agree.values())
+        if size > 1 and worst < TOL_TP_AGREE:
+            raise AssertionError(f"tp_serve {size}: agreement {worst}")
+        drift = max(stream_drift(qparams, mcfg, got[rid]) for rid in range(4))
+        check(f"tp_serve {size}: drift", drift, TOL_LOGPROB)
+        step = float(np.median(run["step_ms"][1:]))
+        for key in ("flash_fwd", "paged_attention_split",
+                    "paged_append_fused"):
+            if run["launches"].get(key, 0) <= 0:
+                raise AssertionError(f"tp_serve {size}: {key} never launched")
+        rows[size] = dict(
+            min_agreement=worst, agreement_parts_at={
+                rid: a["parts_at"] for rid, a in agree.items()
+                if a["parts_at"] is not None},
+            drift_4_requests=drift, ms_a_round=step,
+            ms_a_token=step / TP_ROUNDS, steps=len(run["step_ms"]),
+            wall_s=run["wall_s"],
+            warm_tok_s=N_REQUESTS * NEW_TOKENS / run["wall_s"],
+            launches=run["launches"], graph_replays=run["replays"],
+            graphs=run["graphs"],
+            launches_by_rank=ranks.get(size))
+    del qparams
+    torch.cuda.empty_cache()
+    # the forwards: float32 TP against the unsharded float32 model (the
+    # gate), and with the last rank's partial left out of every sum (must
+    # fail it); bf16 TP against the unsharded bf16 forward (printed, the
+    # reference test's 5e-2 is a 2-layer model's) and against the float32
+    # logits, where TP may add at most TOL_TP_BF16 to the unsharded bf16
+    # model's own distance from them
+    toks = torch.as_tensor(np.random.default_rng(3).integers(
+        1, mcfg.vocab_size - 1, TP_FORWARD_TOKENS), device=dev)
+    fwd = {}
+    fcfg = dataclasses.replace(mcfg, dtype="float32")
+    fparams = {"embed": params["embed"].float(), "ln_f": params["ln_f"],
+               "layers": [{k: w.float() for k, w in lp.items()}
+                          for lp in params["layers"]]}
+    ref = tfm.forward(fparams, toks, fcfg)
+    scale = float(ref.abs().max())
+    bf16 = tfm.forward(params, toks, mcfg)
+    fwd["bf16_unsharded_vs_float32"] = max_err(bf16, ref)
+    for size in TP_SIZES:
+        tp = make_mesh(model=size, devices=dev).axis("model")
+        got = tfm.forward(shardings.shard_params(params, tp), toks, mcfg, tp=tp)
+        fwd[f"bf16_tp{size}_vs_bf16_unsharded"] = max_err(got, bf16)
+        fwd[f"bf16_tp{size}_vs_float32"] = max_err(got, ref)
+        check(f"tp forward bf16 {size} vs float32",
+              fwd[f"bf16_tp{size}_vs_float32"],
+              fwd["bf16_unsharded_vs_float32"] + TOL_TP_BF16)
+    del bf16, got, params
+    torch.cuda.empty_cache()
+
+    class DropLast(AxisGroup):
+        def sum(self, parts):
+            return super().sum(list(parts)[:-1])
+
+    for size in TP_SIZES:
+        tp = make_mesh(model=size, devices=dev).axis("model")
+        sliced = shardings.shard_params(fparams, tp)
+        fwd[f"float32_tp{size}_rel"] = max_err(
+            tfm.forward(sliced, toks, fcfg, tp=tp), ref) / scale
+        check(f"tp forward float32 {size}", fwd[f"float32_tp{size}_rel"],
+              TOL_F32)
+        bad = DropLast(**{f.name: getattr(tp, f.name)
+                          for f in dataclasses.fields(tp)})
+        fwd[f"fault_drop_last_partial_tp{size}_rel"] = max_err(
+            tfm.forward(sliced, toks, fcfg, tp=bad), ref) / scale
+        if fwd[f"fault_drop_last_partial_tp{size}_rel"] <= TOL_F32:
+            raise AssertionError("tp: the dropped partial passed")
+        del sliced
+    del fparams, ref
+    torch.cuda.empty_cache()
+    launches = {size: runs[size]["launches"] for size in TP_SIZES}
+    emit(dict(phase="tp_serve", requests=N_REQUESTS, prompt_len=PROMPT_LEN,
+              new_tokens=NEW_TOKENS, cache="int8", weights="int8",
+              decode_steps=TP_ROUNDS, ranks_on_one_card=list(TP_SIZES),
+              by_ranks={("unsharded" if k == 1 else f"tp{k}"): v
+                        for k, v in rows.items()},
+              forward=fwd, forward_tokens=list(TP_FORWARD_TOKENS),
+              tol=dict(agree=TOL_TP_AGREE, drift=TOL_LOGPROB,
+                       bf16=TOL_TP_BF16, float32_rel=TOL_F32),
+              phase_s=time.perf_counter() - t_phase))
+    return dict(launches={k: sum(launches[s].get(k, 0) for s in TP_SIZES)
+                          for k in set().union(*launches.values())})
+
+
+def ulysses_phase(dev) -> dict:
+    """Ulysses (parallel/ulysses.py) at the ring phase's width over
+    ULYSSES_RANKS ranks: dense, causal, local (r RING_RADIUS) and
+    circulant against the single-device kernels and the ring within
+    TOL_BF16; the causal gradient (RING_GRAD_SHAPE) within TOL_BWD_ORACLE
+    of the largest; the fp8 route against its matched oracle within
+    TOL_QUANT_GATE; the inverse all-to-all with its rank order reversed
+    must fail. Timed beside the single-device call and the ring."""
+    from tpu_flash_torch import kernels
+    from tpu_flash_torch.ops import flash
+    from tpu_flash_torch.parallel import ring, ulysses
+    from tpu_flash_torch.parallel.mesh import make_mesh
+    from tpu_flash_torch.parallel.ulysses import ulysses_attention
+
+    t_phase = time.perf_counter()
+    b, h, n, d = RING_SHAPE
+    p, r = ULYSSES_RANKS, RING_RADIUS
+    window = 2 * r + 1
+    axis = make_mesh(seq=p, devices=dev).axis("seq")
+    gen = torch.Generator(device=dev).manual_seed(51)
+    q, k, v = (torch.randn(b, h, n, d, generator=gen, device=dev).bfloat16()
+               for _ in range(3))
+    cases = {
+        "dense": (dict(schedule="dense"), lambda: flash.dense_fa(q, k, v)),
+        "causal": (dict(schedule="causal"),
+                   lambda: flash.dense_fa(q, k, v, causal=True)),
+        "local": (dict(schedule="local", radius=r),
+                  lambda: flash.sliding_fa(q, k, v, window)),
+        "circulant": (dict(schedule="circulant", radius=r),
+                      lambda: flash.circulant_fa(q, k, v, window)),
+    }
+    ring_pattern = dict(dense="dense", causal="causal", local="local",
+                        circulant="circulant")
+    path = {}
+
+    def counted(fn):
+        kernels.reset_launches()
+        out = fn()
+        torch.cuda.synchronize()
+        ran = {key: c for key, c in kernels.LAUNCHES.items() if c}
+        for key, c in ran.items():
+            path[key] = path.get(key, 0) + c
+        return out, ran
+
+    rows = {}
+    for name, (kw, single) in cases.items():
+        o, ran = counted(lambda: ulysses_attention(q, k, v, axis, **kw))
+        if ran.get("flash_fwd") != p or len(ran) != 1:
+            raise AssertionError(f"ulysses {name}: launches {ran}")
+        e_single = max_err(o, single())
+        e_ring = max_err(o, ring.ring_dense_fa(
+            q, k, v, p, pattern=ring_pattern[name], radius=r))
+        check(f"ulysses {name} vs single-device", e_single, TOL_BF16)
+        check(f"ulysses {name} vs ring", e_ring, TOL_BF16)
+        rows[name] = dict(vs_single_device=e_single, vs_ring=e_ring,
+                          launches=ran)
+        del o
+    inverse = ulysses._heads_to_seq
+    with mock.patch.object(ulysses, "_heads_to_seq",
+                           lambda parts, spec: inverse(parts[::-1], spec)):
+        bad = ulysses_attention(q, k, v, axis, schedule="causal")
+    fault = max_err(bad, cases["causal"][1]())
+    if fault <= TOL_BF16:
+        raise AssertionError("ulysses: the reversed inverse passed")
+    del bad
+    # the fp8 route on the local band against the matched oracle
+    o, ran = counted(lambda: ulysses_attention(
+        q, k, v, axis, schedule="local", radius=r, q_dtype=QB_FP8,
+        kv_dtype=QB_FP8))
+    matched = ring_oracle_inputs(q, k, v, 1, QB_FP8, QB_FP8)
+    bands = ring_band_errs(o, *matched, dict(window_size=window), 1.0)
+    del matched, o
+    check("ulysses fp8 vs matched oracle", max(bands), TOL_QUANT_GATE)
+    rows["local_fp8"] = dict(vs_matched_oracle_bands=bands, launches=ran)
+    # the causal gradient
+    gb, gh, gn, gd = RING_GRAD_SHAPE
+    gq, gk, gv = (torch.randn(gb, gh, gn, gd, generator=gen, device=dev)
+                  .bfloat16() for _ in range(3))
+    gw = torch.randn(gb, gh, gn, gd, generator=gen, device=dev)
+
+    def grads(fn):
+        xs = [x.clone().requires_grad_(True) for x in (gq, gk, gv)]
+        (fn(*xs).float() * gw).sum().backward()
+        return [x.grad for x in xs]
+
+    with torch.enable_grad():
+        got, ran = counted(lambda: grads(lambda a, b_, c: ulysses_attention(
+            a, b_, c, axis, schedule="causal")))
+        want = grads(lambda a, b_, c: flash.dense_fa(a, b_, c, causal=True))
+    gerr = {f"d{x}": rel_err(a, w_) for x, a, w_ in zip("qkv", got, want)}
+    for x, e in gerr.items():
+        check(f"ulysses grad {x}", e, TOL_BWD_ORACLE)
+    rows["causal_grad"] = dict(errs=gerr, launches=ran)
+    del got, want, gq, gk, gv, gw
+    torch.cuda.empty_cache()
+    for name, (kw, single) in cases.items():
+        rows[name]["ulysses_ms"] = cuda_ms(
+            lambda: ulysses_attention(q, k, v, axis, **kw), iters=3, warmup=1)
+        rows[name]["single_device_ms"] = cuda_ms(single, iters=3, warmup=1)
+        rows[name]["ring_ms"] = cuda_ms(lambda: ring.ring_dense_fa(
+            q, k, v, p, pattern=ring_pattern[name], radius=r), iters=3,
+            warmup=1)
+    emit(dict(phase="ulysses", shape=dict(zip("b h n d".split(), RING_SHAPE)),
+              ranks=p, radius=r, rows=rows, fault_reversed_inverse=fault,
+              grad_shape=dict(zip("b h n d".split(), RING_GRAD_SHAPE)),
+              path_launches=path,
+              note="one card: the all-to-all between virtual ranks is a "
+                   "concatenation on the card; no communication is measured",
+              phase_s=time.perf_counter() - t_phase))
+    del q, k, v
+    torch.cuda.empty_cache()
+    return dict(launches=path)
+
+
+def parallel_phases(dev) -> dict:
+    """The four phases of the parallel modules, in order."""
+    out = {}
+    with torch.no_grad():
+        out["seq_serve"] = seq_serve_phase(dev)
+        out["seq_decode"] = seq_decode_phase(dev)
+        out["tp_serve"] = tp_serve_phase(dev)
+    out["ulysses"] = ulysses_phase(dev)
+    return out
+
+
 def _timing(row) -> dict:
     return {key: row[key] for key in ("ms", "plain_ms", "bound_ms",
                                       "bound_by")}
@@ -3614,6 +4417,16 @@ def main() -> int:
         nd = ndim_phase(dev)
         torch.cuda.empty_cache()
     rg = ring_phase(dev)
+    torch.cuda.empty_cache()
+    par = parallel_phases(dev)
+    par_launches = {name: par[name]["launches"] for name in par}
+
+    def new_paths(*keys):
+        """The parallel phases' launches of these kernels, by phase."""
+        return {f"launches_{name}": sum(got.get(k, 0) for k in keys)
+                for name, got in par_launches.items()
+                if any(got.get(k, 0) for k in keys)}
+
     # launches: the engine run for the serving kernels, the train run for
     # the backward ones (the forward kernel runs in both; the train run's
     # count is reported)
@@ -3626,13 +4439,15 @@ def main() -> int:
              replaces="tpu_flash/ops/flash.py:204",
              launches=launches["flash_fwd"], max_abs_err=b1["max_abs_err"],
              ms=b1["ms"], plain_ms=b1["plain_ms"], bound_ms=b1["bound_ms"],
-             bound_by=b1["bound_by"], library_ms=b1["library_ms"]),
+             bound_by=b1["bound_by"], library_ms=b1["library_ms"],
+             **new_paths("flash_fwd")),
         # B2's split route at the int8 decode shape, as the engine's decode
         # calls it: one launch with B3's append fused (time: the fused
         # call; plain: B3's then B2's plain versions under the split plan);
         # launches: the engine run's split launches; beside them the
         # served decode_verify's (64 lanes, held against the plain version
-        # on its own inputs, in max_abs_err)
+        # on its own inputs, in max_abs_err), and the seq phases' per-rank
+        # calls (held the same way, in max_abs_err)
         dict(name="paged_attention (split route, B3 fused)", route="cuda",
              source="tpu_flash_torch/csrc/paged_attention.cu",
              replaces="tpu_flash/ops/paged.py:74, tpu_flash/ops/paged.py:267",
@@ -3641,11 +4456,21 @@ def main() -> int:
                  "paged_attention_split"],
              launches_decode_verify=multistep["decode_verify"]["served"][
                  "launches"]["paged_attention_split"],
+             **new_paths("paged_attention_split"),
+             # the seq_decode phase's merged call over 4 int4 ranks (32
+             # heads, 4 lanes × 32768 tokens) beside one walk of the whole
+             # history, device ms, and its byte bound
+             seq_decode=dict(merged_ms=par["seq_decode"]["ms"],
+                             single_walk_ms=par["seq_decode"]["single_walk_ms"],
+                             bound_ms=par["seq_decode"]["bound_ms"],
+                             max_abs_err=par["seq_decode"]["max_abs_err"]),
              max_abs_err=max(
                  *(max(r[k] for k in ("o_vs_plain", "lse_vs_plain"))
                    for r in b23.values()),
                  *(v["b2"]["max_abs_err"]
-                   for v in multistep["decode_verify"].values())),
+                   for v in multistep["decode_verify"].values()),
+                 *(par[k]["held_b2"]["max_abs_err"]
+                   for k in ("seq_serve", "seq_decode"))),
              ms=int8["fused_ms"],
              plain_ms=int8["append_plain_ms"] + int8["attention_plain_ms"],
              **int8["fused_bound"], library_ms=None),
@@ -3661,6 +4486,7 @@ def main() -> int:
                  "paged_append_fused"],
              launches_decode_verify_standalone=multistep["decode_verify"][
                  "served"]["launches"]["paged_append"],
+             **new_paths("paged_append_fused"),
              max_abs_err=max(r["append_err"] for r in b23.values()),
              ms=int8["fused_append_ms"], plain_ms=int8["append_plain_ms"],
              **int8["append_bound"], library_ms=None),
@@ -3682,6 +4508,7 @@ def main() -> int:
                source="tpu_flash_torch/csrc/flash_bwd.cu", replaces=line,
                launches=launches[f"flash_bwd_{part}"],
                launches_train_sliding=train_sliding[f"flash_bwd_{part}"],
+               **new_paths(f"flash_bwd_{part}"),
                max_abs_err=b45["max_abs_err"],
                **_timing(b45["train_4x1024"][part]),
                library_ms=b45["train_4x1024"]["library_ms"])
@@ -3714,6 +4541,7 @@ def main() -> int:
              source="tpu_flash_torch/csrc/quant_attention.cu",
              replaces="tpu_flash/quant/flash_q.py:136",
              launches=quant["launches"]["quant_attention"],
+             **new_paths("quant_attention", "serving_attention"),
              max_abs_err=quant["worst"]["quant"],
              **_timing(quant["timed"]["e2e_fp8"]),
              library_ms=quant["library_ms"]),

@@ -134,19 +134,26 @@ def test_temperature_streams_are_batching_invariant(params):
 
 def test_unported_engine_options_raise(params):
     """Options still to port raise and name their ROADMAP item
-    (decode_steps and async_decode are ported)."""
+    (decode_steps and async_decode are ported, and so is mesh=: tensor
+    parallelism, whose LoRA composition raises as in the reference)."""
+    from tpu_flash_torch.parallel.mesh import make_mesh
+
     _, tp = params
     mcfg, ccfg = ttfm.ModelConfig(**_MCFG), CacheConfig(**_CCFG)
     for kw, item in ((dict(prefix_cache=True), "A7"),
                      (dict(speculate_k=2), "A9")):
         with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
             teng.Engine(tp, mcfg, ccfg, teng.EngineConfig(**kw))
-    for kw, item in ((dict(mesh=object()), "A13"), (dict(draft=object()), "A9"),
-                     (dict(lora=object()), "A9")):
+    for kw, item in ((dict(draft=object()), "A9"), (dict(lora=object()), "A9")):
         with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
             teng.Engine(tp, mcfg, ccfg, **kw)
+    mesh = make_mesh(model=2, devices="cpu")
+    with pytest.raises(NotImplementedError, match="tensor parallelism"):
+        teng.Engine(tp, mcfg, ccfg, mesh=mesh, lora=object())
     teng.Engine(tp, mcfg, ccfg, teng.EngineConfig(
         max_batch=3, decode_steps=4, async_decode=False))
+    assert teng.Engine(tp, mcfg, ccfg, teng.EngineConfig(max_batch=3),
+                       mesh=mesh).tp.size == 2
 
 
 def test_pool_pressure_preempts_and_every_request_completes(params, tmp_path):

@@ -17,8 +17,18 @@ channel), computed as the reference computes them, ``(x @ q) · s`` in
 ``x``'s dtype. :func:`decode_verify` scores K tokens a lane in one pass
 over the paged caches.
 
-Not ported yet: MoE (ROADMAP A9), LoRA (A9), tensor parallelism (A13),
-the MoE balance loss in ``loss_fn`` (A9).
+Tensor parallelism (``tp=``, the reference's ``tp_axis``): ``tp`` is the
+mesh's ``model`` line (``parallel/mesh.py:AxisGroup``), ``params`` the list
+of this process's ranks' slices (``parallel/shardings.py:shard_params``)
+and ``caches`` one list of layer caches a rank. Activations are
+replicated; each rank runs its heads and its share of the MLP hidden dim
+on its device, one rank after another, and the row-parallel products'
+partials are summed over the axis (:func:`_psum`). :func:`decode_step_seq`
+shards the caches over the sequence instead
+(``parallel/ring_decode.py``).
+
+Not ported yet: MoE (ROADMAP A9), LoRA (A9), the MoE balance loss in
+``loss_fn`` (A9).
 """
 
 from __future__ import annotations
@@ -33,6 +43,7 @@ import torch.nn.functional as F
 from tpu_flash_torch.ops import flash
 from tpu_flash_torch.ops.paged import paged_attention, paged_attention_pipelined
 from tpu_flash_torch.parallel.ring import merge_partials
+from tpu_flash_torch.parallel.ring_decode import sharded_paged_attention
 from tpu_flash_torch.quant.qarray import quantize
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
@@ -235,8 +246,13 @@ def _mlp(params, h, cfg: ModelConfig):
 
 
 def _qkv(params, x, positions, cfg: ModelConfig):
-    b, n, _ = x.shape
-    h = rmsnorm(x, params["ln_attn"])
+    return _qkv_normed(params, rmsnorm(x, params["ln_attn"]), positions, cfg)
+
+
+def _qkv_normed(params, h, positions, cfg: ModelConfig):
+    """Rotated q, k, v of the normed input ``h`` (B, N, dim); the head
+    counts follow the (possibly sliced) projection widths."""
+    b, n, _ = h.shape
     q = _mm(h, params["wq"]).reshape(b, n, -1, cfg.head_dim)
     k = _mm(h, params["wk"]).reshape(b, n, -1, cfg.head_dim)
     v = _mm(h, params["wv"]).reshape(b, n, -1, cfg.head_dim)
@@ -245,65 +261,123 @@ def _qkv(params, x, positions, cfg: ModelConfig):
     return q, k, v
 
 
+def _ranks(x, tp):
+    """The per-rank list: ``x`` itself under ``tp`` (one entry a local
+    rank), else the one rank ``[x]``."""
+    return x if tp is not None else [x]
+
+
+def _bcast(tp, x):
+    """A replicated value on each rank's device."""
+    return [x] if tp is None else tp.broadcast(x)
+
+
+def _layer(params, i: int, tp):
+    """Layer ``i``'s weights: a tree, or one a rank under ``tp``."""
+    if tp is None:
+        return params["layers"][i]
+    return [p["layers"][i] for p in params]
+
+
+def _layer_caches(caches, i: int, tp):
+    """Layer ``i``'s cache, or one a rank (``caches[rank][layer]``)."""
+    return caches[i] if tp is None else [c[i] for c in caches]
+
+
+def _normed(tp, x, ranks, norm: str):
+    """rmsnorm of the replicated ``x`` by the replicated weight ``norm``,
+    once, on each rank's device: the column-parallel products' input (its
+    cotangent is summed over the axis, so the norm's gradient is whole on
+    every process)."""
+    return _bcast(tp, rmsnorm(x, ranks[0][norm]))
+
+
+def _psum(tp, fn, *per_rank):
+    """The row-parallel completion, the reference's ``psum`` over
+    ``tp_axis``: ``fn(i, *args_i)``, a partial product, on each of this
+    process's ranks, summed over the axis in rank order (then over its
+    processes). Without ``tp``: one rank, no sum."""
+    if tp is None:
+        return fn(0, *(a[0] for a in per_rank))
+    return tp.sum(tp.map(fn, *per_rank))
+
+
 def _block(params, x, positions, cfg: ModelConfig, collect_kv=None,
-           attn_fn=None):
+           attn_fn=None, tp=None):
+    """One layer. Under ``tp``, ``params`` holds a rank's slices each and
+    ``collect_kv`` takes the layer's per-rank ``(k, v)`` list."""
     b, n, _ = x.shape
-    q, k, v = _qkv(params, x, positions, cfg)
+    ranks = _ranks(params, tp)
+    kvs = []
+
+    def attn(i, lp, hr, pr):
+        q, k, v = _qkv_normed(lp, hr, pr, cfg)
+        kvs.append((k, v))
+        o = _attn_full(q, k, v, cfg, attn_fn=attn_fn).reshape(b, n, -1)
+        return _mm(o, lp["wo"])
+
+    x = x + _psum(tp, attn, ranks, _normed(tp, x, ranks, "ln_attn"),
+                  _bcast(tp, positions))
     if collect_kv is not None:
-        collect_kv.append((k, v))
-    o = _attn_full(q, k, v, cfg, attn_fn=attn_fn).reshape(b, n, -1)
-    x = x + _mm(o, params["wo"])
-    return x + _mlp(params, rmsnorm(x, params["ln_mlp"]), cfg)
+        collect_kv.append(kvs if tp is not None else kvs[0])
+    return x + _psum(tp, lambda i, lp, hr: _mlp(lp, hr, cfg), ranks,
+                     _normed(tp, x, ranks, "ln_mlp"))
 
 
 def _positions(b: int, n: int, device) -> torch.Tensor:
     return torch.arange(n, dtype=torch.int32, device=device).expand(b, n)
 
 
-def forward(params, tokens, cfg: ModelConfig, positions=None, attn_fn=None):
+def forward(params, tokens, cfg: ModelConfig, positions=None, attn_fn=None,
+            tp=None):
     """Full forward: tokens (B, N) int → logits (B, N, vocab) f32.
-    ``attn_fn``: see :func:`_attn_full`."""
+    ``attn_fn``: see :func:`_attn_full`; ``tp``: see the module note."""
     _check_ported(cfg)
+    top = _ranks(params, tp)[0]
     b, n = tokens.shape
     if positions is None:
         positions = _positions(b, n, tokens.device)
-    x = params["embed"][tokens]
-    for layer in params["layers"]:
-        x = _block(layer, x, positions, cfg, attn_fn=attn_fn)
-    x = rmsnorm(x, params["ln_f"])
-    return (x @ params["embed"].T).float()
+    x = top["embed"][tokens]
+    for i in range(len(top["layers"])):
+        x = _block(_layer(params, i, tp), x, positions, cfg, attn_fn=attn_fn,
+                   tp=tp)
+    x = rmsnorm(x, top["ln_f"])
+    return (x @ top["embed"].T).float()
 
 
 def loss_fn(params, tokens, cfg: ModelConfig, attn_fn=None,
-            moe_aux_coef: float = 0.01):
+            moe_aux_coef: float = 0.01, tp=None):
     """Next-token cross entropy over tokens (B, N + 1): log_softmax of the
     float32 logits, mean over the B·N targets. ``moe_aux_coef`` weights the
     MoE balance loss of the reference; MoE configs raise (ROADMAP A9)."""
-    logits = forward(params, tokens[:, :-1], cfg, attn_fn=attn_fn)
+    logits = forward(params, tokens[:, :-1], cfg, attn_fn=attn_fn, tp=tp)
     logp = torch.log_softmax(logits, dim=-1)
     nll = -logp.gather(-1, tokens[:, 1:, None].long())
     return nll.mean()
 
 
-def prefill(params, tokens, cfg: ModelConfig):
+def prefill(params, tokens, cfg: ModelConfig, tp=None):
     """Forward over the prompt, returning last-position logits and the
     per-layer rotated K/V to seed the paged cache.
 
-    Returns (logits (B, vocab), kv: list of (k, v) each (B, N, KVH, D)).
+    Returns (logits (B, vocab), kv: list of (k, v) each (B, N, KVH, D));
+    under ``tp`` each layer's entry is a list of the ranks' (k, v).
     """
     _check_ported(cfg)
+    top = _ranks(params, tp)[0]
     b, n = tokens.shape
     positions = _positions(b, n, tokens.device)
-    x = params["embed"][tokens]
+    x = top["embed"][tokens]
     kv = []
-    for layer in params["layers"]:
-        x = _block(layer, x, positions, cfg, collect_kv=kv)
-    x = rmsnorm(x, params["ln_f"])
-    return (x[:, -1] @ params["embed"].T).float(), kv
+    for i in range(len(top["layers"])):
+        x = _block(_layer(params, i, tp), x, positions, cfg, collect_kv=kv,
+                   tp=tp)
+    x = rmsnorm(x, top["ln_f"])
+    return (x[:, -1] @ top["embed"].T).float(), kv
 
 
 def prefill_chunk(params, tokens, offset: int, true_len: int, caches,
-                  slot: int, cfg: ModelConfig, pages_bound=None):
+                  slot: int, cfg: ModelConfig, pages_bound=None, tp=None):
     """Process ONE page-aligned chunk of a prompt against the paged cache.
 
     Per layer, the chunk attends the already-cached prefix through the
@@ -320,19 +394,21 @@ def prefill_chunk(params, tokens, offset: int, true_len: int, caches,
     is the argmax token after the last real position.
     """
     _check_ported(cfg)
+    top = _ranks(params, tp)[0]
     b, c = tokens.shape
     dev = tokens.device
     positions = offset + torch.arange(c, dtype=torch.int32, device=dev)[None]
-    x = params["embed"][tokens]
+    x = top["embed"][tokens]
     radius = _radius(cfg)
     slot_lanes = torch.full((c,), slot, dtype=torch.int32, device=dev)
-    for layer, cache in zip(params["layers"], caches):
-        q, k, v = _qkv(layer, x, positions, cfg)
+
+    def attn(i, lp, cache, hr, pr, lanes):
+        q, k, v = _qkv_normed(lp, hr, pr, cfg)
         # the prefix before the write: the slot's length is still
         # ``offset``, so the paged kernel sees exactly [start, offset)
         o1, lse1 = paged_attention(
-            q[0], cache, slot_lanes, radius=radius,
-            positions=None if radius is None else positions[0],
+            q[0], cache, lanes, radius=radius,
+            positions=None if radius is None else pr[0],
             pages_bound=pages_bound, return_lse=True, shared_page_table=True,
             _shared_slot=slot)
         o2, lse2 = flash.flash_attention(
@@ -342,18 +418,26 @@ def prefill_chunk(params, tokens, offset: int, true_len: int, caches,
             return_lse=True, bound_max=cfg.attn_bound_max)
         o, _ = merge_partials(o1.transpose(0, 1)[None].float(),
                               lse1.transpose(0, 1)[None], o2.float(), lse2)
-        o = o.transpose(1, 2).to(x.dtype)  # (1, C, QH, D)
+        o = o.transpose(1, 2).to(hr.dtype)  # (1, C, QH, D)
         cache.write_chunk(slot, k[0].transpose(0, 1), v[0].transpose(0, 1),
                           offset, valid_n=true_len)
-        x = x + _mm(o.reshape(b, c, -1), layer["wo"])
-        x = x + _mlp(layer, rmsnorm(x, layer["ln_mlp"]), cfg)
-    x = rmsnorm(x, params["ln_f"])
-    logits = (x @ params["embed"].T).float()
+        return _mm(o.reshape(b, c, -1), lp["wo"])
+
+    for li in range(len(top["layers"])):
+        ranks = _ranks(_layer(params, li, tp), tp)
+        x = x + _psum(tp, attn, ranks,
+                      _ranks(_layer_caches(caches, li, tp), tp),
+                      _normed(tp, x, ranks, "ln_attn"), _bcast(tp, positions),
+                      _bcast(tp, slot_lanes))
+        x = x + _psum(tp, lambda i, lp, hr: _mlp(lp, hr, cfg), ranks,
+                      _normed(tp, x, ranks, "ln_mlp"))
+    x = rmsnorm(x, top["ln_f"])
+    logits = (x @ top["embed"].T).float()
     return logits, torch.argmax(logits[0, true_len - 1]), caches
 
 
 def decode_verify(params, tokens, positions, caches, slots,
-                  cfg: ModelConfig, pages_bound=None):
+                  cfg: ModelConfig, pages_bound=None, tp=None):
     """Score K tokens a lane in one pass over the paged caches
     (speculative verification).
 
@@ -368,36 +452,46 @@ def decode_verify(params, tokens, positions, caches, slots,
     vocab) f32, caches)``, every slot advanced by K, in place.
     """
     _check_ported(cfg)
+    top = _ranks(params, tp)[0]
     b, k_len = tokens.shape
     dev = tokens.device
     pos = (positions.to(torch.int32)[:, None]
            + torch.arange(k_len, dtype=torch.int32, device=dev)[None])
-    x = params["embed"][tokens]  # (B, K, dim)
+    x = top["embed"][tokens]  # (B, K, dim)
     radius = _radius(cfg)
-    slots_flat = slots.repeat_interleave(k_len)
-    vis_flat = (pos + 1).reshape(-1)
-    pos_flat = pos.reshape(-1)
-    for layer, cache in zip(params["layers"], caches):
-        q, k, v = _qkv(layer, x, pos, cfg)
+    lane_args = [_bcast(tp, t) for t in (
+        pos, slots, slots.repeat_interleave(k_len), (pos + 1).reshape(-1),
+        pos.reshape(-1))]
+
+    def attn(i, lp, cache, hr, pr, sl, sl_flat, vis_flat, pos_flat):
+        q, k, v = _qkv_normed(lp, hr, pr, cfg)
         for j in range(k_len):
-            cache.append(slots, k[:, j], v[:, j])
+            cache.append(sl, k[:, j], v[:, j])
         o = paged_attention(
-            q.reshape(b * k_len, -1, cfg.head_dim), cache, slots_flat,
+            q.reshape(b * k_len, -1, cfg.head_dim), cache, sl_flat,
             lengths_override=vis_flat,
             positions=None if radius is None else pos_flat,
             pages_bound=pages_bound, radius=radius)
-        x = x + _mm(o.reshape(b, k_len, -1), layer["wo"])
-        x = x + _mlp(layer, rmsnorm(x, layer["ln_mlp"]), cfg)
-    x = rmsnorm(x, params["ln_f"])
-    return (x @ params["embed"].T).float(), caches
+        return _mm(o.reshape(b, k_len, -1), lp["wo"])
+
+    for li in range(len(top["layers"])):
+        ranks = _ranks(_layer(params, li, tp), tp)
+        x = x + _psum(tp, attn, ranks,
+                      _ranks(_layer_caches(caches, li, tp), tp),
+                      _normed(tp, x, ranks, "ln_attn"), *lane_args)
+        x = x + _psum(tp, lambda i, lp, hr: _mlp(lp, hr, cfg), ranks,
+                      _normed(tp, x, ranks, "ln_mlp"))
+    x = rmsnorm(x, top["ln_f"])
+    return (x @ top["embed"].T).float(), caches
 
 
 def decode_step(params, tokens, positions, caches, slots, cfg: ModelConfig,
-                pages_bound=None, pipelined=False):
+                pages_bound=None, pipelined=False, tp=None):
     """One decode step over the paged caches.
 
     tokens: (B,) new token ids; positions: (B,) their positions; caches:
-    one PagedKVCache per layer; slots: (B,) int32 slot ids. Each layer
+    one PagedKVCache per layer (under ``tp``: one such list a rank);
+    slots: (B,) int32 slot ids. Each layer
     appends the new token's K/V to its cache (in place; on the card inside
     the paged attention's launch, B2 with B3 fused), so the token attends
     to itself; a sliding model
@@ -408,19 +502,58 @@ def decode_step(params, tokens, positions, caches, slots, cfg: ModelConfig,
     Returns (logits (B, vocab) f32, caches).
     """
     _check_ported(cfg)
+    top = _ranks(params, tp)[0]
     b = tokens.shape[0]
-    x = params["embed"][tokens][:, None, :]  # (B, 1, dim)
-    pos = positions[:, None]
+    x = top["embed"][tokens][:, None, :]  # (B, 1, dim)
     radius = _radius(cfg)
-    for layer, cache in zip(params["layers"], caches):
-        q, k, v = _qkv(layer, x, pos, cfg)
+    pos_r, slots_r = _bcast(tp, positions[:, None]), _bcast(tp, slots)
+
+    def attn(i, lp, cache, hr, pr, sl):
+        q, k, v = _qkv_normed(lp, hr, pr, cfg)
         new_kv = (k[:, 0], v[:, 0])
         if pipelined:
-            o, _ = paged_attention_pipelined(q[:, 0], cache, slots,
+            o, _ = paged_attention_pipelined(q[:, 0], cache, sl,
                                              new_kv=new_kv, radius=radius)
         else:
-            o, _ = paged_attention(q[:, 0], cache, slots, new_kv=new_kv,
+            o, _ = paged_attention(q[:, 0], cache, sl, new_kv=new_kv,
                                    pages_bound=pages_bound, radius=radius)
+        return _mm(o.reshape(b, 1, -1), lp["wo"])
+
+    for li in range(len(top["layers"])):
+        ranks = _ranks(_layer(params, li, tp), tp)
+        x = x + _psum(tp, attn, ranks,
+                      _ranks(_layer_caches(caches, li, tp), tp),
+                      _normed(tp, x, ranks, "ln_attn"), pos_r, slots_r)
+        x = x + _psum(tp, lambda i, lp, hr: _mlp(lp, hr, cfg), ranks,
+                      _normed(tp, x, ranks, "ln_mlp"))
+    x = rmsnorm(x, top["ln_f"])
+    return (x[:, 0] @ top["embed"].T).float(), caches
+
+
+def decode_step_seq(params, tokens, positions, caches, slots,
+                    cfg: ModelConfig, seq, pages_bound=None):
+    """One decode step with each layer's paged cache SHARDED over the
+    sequence axis ``seq`` (``parallel/mesh.py:AxisGroup``).
+
+    The dense path is :func:`decode_step`'s, replicated (one token a lane,
+    not worth sharding); attention runs ``parallel/ring_decode.py:
+    sharded_paged_attention``: every rank attends its local slice of the
+    history, the partials merge over the axis, and the new token's K/V
+    land only on the last rank. ``caches``: one list of layer caches a
+    local rank, each with its own page tables and lengths (local tokens).
+    Sliding-window decode raises (band positions are global).
+    """
+    _check_ported(cfg)
+    if cfg.attention == "sliding":
+        raise NotImplementedError("seq-sharded decode is causal-only")
+    b = tokens.shape[0]
+    x = params["embed"][tokens][:, None, :]
+    pos = positions[:, None]
+    for li, layer in enumerate(params["layers"]):
+        q, k, v = _qkv(layer, x, pos, cfg)
+        o, _ = sharded_paged_attention(
+            q[:, 0], [c[li] for c in caches], slots, seq,
+            new_kv=(k[:, 0], v[:, 0]), pages_bound=pages_bound)
         x = x + _mm(o.reshape(b, 1, -1), layer["wo"])
         x = x + _mlp(layer, rmsnorm(x, layer["ln_mlp"]), cfg)
     x = rmsnorm(x, params["ln_f"])

@@ -7,8 +7,8 @@ arriving shard into its ``(o, lse)`` with :func:`merge_partials`, the
 cross-shard form of the online softmax: after ``P`` hops every rank holds
 its exact output, with O(N/P) memory a rank.
 
-Ranks live in processes: a process of the default ``torch.distributed`` group of
-``W`` processes holds ``L`` consecutive ranks (``P = W·L``) and steps them
+Ranks live in processes: a process of a ``torch.distributed`` group of
+``W`` processes (the default group, or a mesh axis's sub-group) holds ``L`` consecutive ranks (``P = W·L``) and steps them
 through a hop together. Between hops the list of K/V shards moves one rank
 along; the shard that leaves the process goes to the next process by P2P
 (``batch_isend_irecv``), issued before the hop's attention, as the
@@ -109,22 +109,36 @@ def hop_schedule(pattern: str, radius: int, p: int, nl: int, t: int,
 
 class RingTransport:
     """Moves the K/V shard that leaves this process to the next process of
-    the default ``torch.distributed`` group (when it is initialised) and
-    takes the previous process's. With one process the shard stays: it
-    moves to this process's first rank."""
+    a ``torch.distributed`` group (``group``, default the default group
+    when it is initialised) and takes the previous process's. With one
+    process nothing moves: the shard goes to this process's first rank.
+    :meth:`of` gives the transport of a mesh axis (its sub-group)."""
 
-    def __init__(self, *, single: bool = False):
+    def __init__(self, *, single: bool = False, group=None):
         on = not single and dist.is_available() and dist.is_initialized()
-        self.world = dist.get_world_size() if on else 1
-        self.rank = dist.get_rank() if on else 0
+        self.group = group if on else None
+        self.world = dist.get_world_size(group) if on else 1
+        self.rank = dist.get_rank(group) if on else 0
 
     @classmethod
     def local(cls) -> "RingTransport":
         """One process, whether or not ``torch.distributed`` is running."""
         return cls(single=True)
 
+    @classmethod
+    def of(cls, axis) -> "RingTransport":
+        """The ring over a mesh axis line (``parallel/mesh.py:AxisGroup``):
+        its processes' sub-group, or one process when the line lies in
+        this one."""
+        if axis.group is None:
+            return cls.local()
+        return cls(group=axis.group)
+
     def _peer(self, step: int) -> int:
-        return (self.rank + step) % self.world
+        peer = (self.rank + step) % self.world
+        if self.group is None:
+            return peer
+        return dist.get_global_rank(self.group, peer)
 
     def start(self, tensors, direction: int = 1):
         """Send ``tensors`` ``direction`` processes along the ring and
@@ -139,8 +153,10 @@ class RingTransport:
             byte_float = t.is_floating_point() and t.element_size() == 1
             send = t.view(torch.uint8) if byte_float else t
             buf = torch.empty_like(send)
-            ops.append(dist.P2POp(dist.isend, send, self._peer(direction)))
-            ops.append(dist.P2POp(dist.irecv, buf, self._peer(-direction)))
+            ops.append(dist.P2POp(dist.isend, send, self._peer(direction),
+                                  self.group))
+            ops.append(dist.P2POp(dist.irecv, buf, self._peer(-direction),
+                                  self.group))
             recv.append(buf.view(t.dtype) if byte_float else buf)
         reqs = dist.batch_isend_irecv(ops)
 
@@ -241,14 +257,15 @@ def ring_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     ``q``, ``k``, ``v``: ``(B, H, L·nl, D)``, this process's ``L =
     local_ranks`` consecutive rank shards of a global sequence of ``N =
-    W·L·nl`` positions, ``W`` the size of the default ``torch.distributed``
-    group (1 without it); process ``r`` holds positions ``[r·L·nl, (r +
+    W·L·nl`` positions, ``W`` the size of the transport's group (1
+    without one); process ``r`` holds positions ``[r·L·nl, (r +
     1)·L·nl)``. Returns this process's output, in q's dtype. ``pattern``:
     dense, causal, local (``|i − j| ≤ radius``) or circulant (the same band
     mod N). ``kv_dtype`` (int8, fp8 names or dtypes, or "int4") turns on the
     quantized ring, ``q_dtype`` (int8 or e4m3; int4 takes int8 or None)
     quantizes Q too; it has no gradient. ``transport`` moves the shards
-    between processes (default: :class:`RingTransport`).
+    between processes (default: :class:`RingTransport` over the default
+    group; a mesh's sequence line: ``RingTransport.of(mesh.axis("seq"))``).
     """
     if pattern in ("local", "circulant") and radius < 0:
         raise ValueError("radius must be ≥ 0")

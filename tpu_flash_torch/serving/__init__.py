@@ -4,3 +4,4 @@ from tpu_flash_torch.serving.engine import (
     FinishedRequest,
     Request,
 )
+from tpu_flash_torch.serving.seq_engine import SeqShardedEngine

@@ -34,10 +34,18 @@ exhaustion preempts a sequence back to the queue.
 * Decode pins the exact running max; ``prefill_bound_max`` lets prefill
   take the norm bound, which relaxes chunked == unchunked from identical
   to a tolerance, as in the reference.
+* Tensor parallelism (``mesh=``, ``tp_axis``): the weights and the cache
+  heads split over the mesh's ``tp_axis`` line through this process
+  (``parallel/shardings.py``), one process driving its ranks one after
+  another (the reference's single-controller loop); every entry point runs
+  the model under ``tp=`` (``models/transformer.py``). ``self.params`` is
+  then the ranks' slices and ``self.caches`` one list of layer caches a
+  rank. On one card a round stays one CUDA graph with the rank sums inside
+  it; when the ranks span several cards in one process, rounds run
+  eagerly (capture over several devices is later work).
 
 Not ported yet (ROADMAP A7 unless named): the prefix cache, speculative
-decoding (A9), LoRA (A9), tensor parallelism (A13). Each raises
-``NotImplementedError``.
+decoding (A9), LoRA (A9). Each raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -55,6 +63,7 @@ from tpu_flash_torch import kernels
 from tpu_flash_torch.cache.allocator import PageAllocator
 from tpu_flash_torch.cache.paged_cache import CacheConfig, PagedKVCache
 from tpu_flash_torch.models import transformer as tfm
+from tpu_flash_torch.parallel import shardings
 
 _MASK64 = (1 << 64) - 1
 # splitmix64's increment and finalizer multipliers
@@ -285,12 +294,16 @@ class Engine:
         cache_cfg: CacheConfig,
         engine_cfg: EngineConfig = EngineConfig(),
         mesh=None,
+        tp_axis: str = "model",
         draft=None,
         lora=None,
     ):
         _check_engine_config(engine_cfg)
-        for name, val, item in (("mesh", mesh, "A13"), ("draft", draft, "A9"),
-                                ("lora", lora, "A9")):
+        if lora is not None and mesh is not None:
+            raise NotImplementedError(
+                "multi-LoRA under tensor parallelism is not composed yet "
+                "(the adapter deltas would need the projections' shardings)")
+        for name, val, item in (("draft", draft, "A9"), ("lora", lora, "A9")):
             if val is not None:
                 raise NotImplementedError(
                     f"Engine({name}=...) is not ported yet (ROADMAP {item})")
@@ -300,6 +313,11 @@ class Engine:
             raise ValueError(
                 "attn_bound_max=True breaks the engine's bit-identical "
                 "chunked-vs-unchunked prefill contract; leave it None")
+        self.mesh = mesh
+        self.tp = mesh.axis(tp_axis) if mesh is not None else None
+        if self.tp is not None:
+            shardings.check_divisible(model_cfg, self.tp.size)
+            params = shardings.shard_params(params, self.tp)
         self.params = params
         self.mcfg = dataclasses.replace(model_cfg, attn_bound_max=False)
         # prefill may opt into the norm bound (a tolerance contract)
@@ -308,7 +326,8 @@ class Engine:
             if engine_cfg.prefill_bound_max else self.mcfg)
         self.ccfg = cache_cfg
         self.ecfg = engine_cfg
-        self.device = params["embed"].device
+        self.device = (params if self.tp is None else params[0])[
+            "embed"].device
         if engine_cfg.max_batch > cache_cfg.max_seqs - 1:
             raise ValueError("max_batch must leave one trash slot free")
         if (engine_cfg.chunk_size is not None
@@ -321,8 +340,7 @@ class Engine:
             max_pages_per_seq=cache_cfg.max_pages_per_seq,
             decode_reserve=engine_cfg.max_batch,
         )
-        self.caches = [PagedKVCache.create(cache_cfg, self.device)
-                       for _ in range(model_cfg.num_layers)]
+        self.caches = self._make_caches()
         self._trash_slot = cache_cfg.max_seqs - 1
         self._free_slots = deque(
             s for s in range(cache_cfg.max_seqs) if s != self._trash_slot)
@@ -344,6 +362,29 @@ class Engine:
         # kernels.LAUNCHES counts a graph's launches once, at its capture
         self.graph_stats = dict(captures=0, replays=0, captured={},
                                 replayed={})
+
+    def _make_caches(self):
+        """One paged cache a layer; under tensor parallelism one such list
+        a rank, each cache holding the rank's kv heads, on its device."""
+        if self.tp is None:
+            return [PagedKVCache.create(self.ccfg, self.device)
+                    for _ in range(self.mcfg.num_layers)]
+        rank_cfg = shardings.rank_cache_config(self.ccfg, self.tp.size)
+        return [[PagedKVCache.create(rank_cfg, dev)
+                 for _ in range(self.mcfg.num_layers)]
+                for dev in self.tp.devices]
+
+    def _all_caches(self):
+        """Every cache of every rank this engine drives."""
+        if isinstance(self.caches[0], PagedKVCache):
+            return list(self.caches)
+        return [c for rank in self.caches for c in rank]
+
+    def _graphs_ok(self) -> bool:
+        """Rounds run as CUDA graphs: on a card, every cache on it."""
+        return (self.device.type == "cuda"
+                and all(c.lengths.device == self.device
+                        for c in self._all_caches()))
 
     # ---- public API -----------------------------------------------------
 
@@ -507,8 +548,8 @@ class Engine:
         row = np.zeros(self.ccfg.max_pages_per_seq, np.int32)
         row[:npages] = self._alloc.table(slot)[:npages] + 1
         row_t = torch.as_tensor(row, device=self.device)
-        for c in self.caches:
-            c.page_tables[slot] = row_t
+        for c in self._all_caches():
+            c.page_tables[slot] = row_t.to(c.page_tables.device)
             if set_length is not None:
                 c.lengths[slot].fill_(set_length)
 
@@ -558,7 +599,7 @@ class Engine:
         logits, _, self.caches = tfm.prefill_chunk(
             self.params, torch.as_tensor(toks, device=self.device), done,
             true_n, self.caches, slot, self.mcfg_prefill,
-            pages_bound=min(pb, self.ccfg.max_pages_per_seq))
+            pages_bound=min(pb, self.ccfg.max_pages_per_seq), tp=self.tp)
         st["done"] = done + true_n
         if st["done"] < len(req.prompt):
             return  # intermediate chunks sample nothing
@@ -566,9 +607,16 @@ class Engine:
         self._start_running(req, slot, st["pages"], logits[:, true_n - 1])
 
     def _write_prompt_kv(self, kv, slot: int, n: int) -> None:
-        """Write a whole prompt's K/V into every layer's cache; the padded
+        """Write a whole prompt's K/V into every layer's cache (under
+        tensor parallelism each rank's heads into its caches); the padded
         bucket tail is page-covered and masked by length."""
-        for c, (k, v) in zip(self.caches, kv):
+        if self.tp is not None:
+            pairs = [(c, kvr) for li, layer_kv in enumerate(kv)
+                     for c, kvr in zip((r[li] for r in self.caches),
+                                       layer_kv)]
+        else:
+            pairs = zip(self.caches, kv)
+        for c, (k, v) in pairs:
             c.write_prompt(slot, k[0].transpose(0, 1), v[0].transpose(0, 1))
             c.lengths[slot].fill_(n)  # write_prompt set the padded bucket length
 
@@ -578,7 +626,7 @@ class Engine:
         toks[0, :n] = req.prompt
         logits_all, kv = _prefill_all_logits(
             self.params, torch.as_tensor(toks, device=self.device),
-            self.mcfg_prefill)
+            self.mcfg_prefill, tp=self.tp)
         self._write_prompt_kv(kv, slot, n)
         self._start_running(req, slot, pages, logits_all[:, n - 1])
 
@@ -761,8 +809,9 @@ class Engine:
         ``host_samp`` (:func:`_device_sample`)."""
         logits, _ = tfm.decode_step(
             self.params, tokens, positions, self.caches, slots, self.mcfg,
-            pages_bound=pages_bound, pipelined=self.ecfg.pipelined_decode)
-        for c in self.caches:
+            pages_bound=pages_bound, pipelined=self.ecfg.pipelined_decode,
+            tp=self.tp)
+        for c in self._all_caches():
             c.lengths[self._trash_slot].fill_(0)
         return _sample_packed(logits, samp, keys, positions + 1, host_samp)
 
@@ -890,10 +939,11 @@ class Engine:
         buffers (a chained round: tokens and positions from ``prev``'s
         device outputs, the rest already there) and replay its graph, then
         queue the copy of its tokens to pinned host memory behind an event;
-        on the CPU, run the round eagerly."""
+        on the CPU, or with ranks on several cards, run the round
+        eagerly."""
         lanes, slots_np, toks_np, pos_np, samp_np, keys_np, sig = comp
         bound = self._pages_bound(ahead=pages_ahead)
-        if self.device.type == "cuda":
+        if self._graphs_ok():
             g = self._round_graph(bound, K)
             st = self._static
             if prev is None:
@@ -933,7 +983,7 @@ class Engine:
         round) and slots a newer request took are discarded."""
         if info["done"] is not None:
             info["done"].synchronize()
-        packed = info["packed"].numpy()  # (mb, K, 2)
+        packed = info["packed"].cpu().numpy()  # (mb, K, 2)
         for j in range(info["K"]):
             for lane, slot in enumerate(info["lanes"]):
                 r = self.running.get(slot)
@@ -965,8 +1015,9 @@ class Engine:
             return
         idx = self._dev(np.asarray(slots, np.int64))
         vals = self._dev(np.asarray(lens, np.int32))
-        for c in self.caches:
-            c.lengths.index_copy_(0, idx, vals)
+        for c in self._all_caches():
+            dev = c.lengths.device
+            c.lengths.index_copy_(0, idx.to(dev), vals.to(dev))
 
     def _maybe_finish(self, slot: int) -> None:
         r = self.running.get(slot)
@@ -1003,14 +1054,17 @@ def _add(total: dict, counts: dict) -> None:
         total[name] = total.get(name, 0) + n
 
 
-def _prefill_all_logits(params, tokens, cfg: tfm.ModelConfig):
+def _prefill_all_logits(params, tokens, cfg: tfm.ModelConfig, tp=None):
     """Prefill returning logits for ALL positions (the engine picks
-    length − 1) and each layer's rotated K/V."""
+    length − 1) and each layer's rotated K/V (under ``tp``, each layer's
+    per-rank list)."""
+    top = params if tp is None else params[0]
     b, n = tokens.shape
     positions = tfm._positions(b, n, tokens.device)
-    x = params["embed"][tokens]
+    x = top["embed"][tokens]
     kv = []
-    for layer in params["layers"]:
-        x = tfm._block(layer, x, positions, cfg, collect_kv=kv)
-    x = tfm.rmsnorm(x, params["ln_f"])
-    return (x @ params["embed"].T).float(), kv
+    for i in range(len(top["layers"])):
+        x = tfm._block(tfm._layer(params, i, tp), x, positions, cfg,
+                       collect_kv=kv, tp=tp)
+    x = tfm.rmsnorm(x, top["ln_f"])
+    return (x @ top["embed"].T).float(), kv
