@@ -64,7 +64,22 @@ weights in rounds of 8 over 2 and 4 ranks against the unsharded engine
 and the float32 TP forward (a dropped partial rejected), and Ulysses over
 8 ranks at the ring's width (every schedule, the gradient, fp8, a
 reversed inverse rejected), timed beside the single-device kernels and
-the ring. B4/B5 are held against their plain version on every
+the ring; then the serving features (phases speculative, prefix_cache,
+resume), each on the canonical model at full width with the port's native
+page pool: speculative decoding with the 2-layer draft of
+scripts/r2_exp6.py at K 2 and 4 and a self-draft at K 4 (8 prompts of 128
+tokens, 64 new, int8 cache of 512 pages), speculative greedy held to plain
+greedy token for token on the float32 model (a parting allowed only at a
+near-tie, one proposal too many accepted rejected), the bf16 streams'
+drift, a round's verify B2 calls and a draft micro-step's fused B2 + B3
+against their plain versions; the prefix cache on 8 requests of a shared
+2048-token prompt (cold, then cached twice: every request after the first
+hits the 32-page prefix, each hit's last-prompt logits against the cold
+run's, a hit admitted with length 0 rejected, the shared pages' bytes
+unchanged, the hit tail's B2 shared-route call against its plain
+version); checkpoint and resume of the engine cell (bf16, and int8 weights
+in rounds of 8) against the uninterrupted run (a swapped page-table row
+rejected), and supervised runs with a crash, plain and speculative. B4/B5 are held against their plain version on every
 schedule kind (dense, causal, local, local_causal, circulant, block) in
 each kernel family and under the int8 dp product. B1, B4/B5 and B14 rows
 give two times: the kernel's device
@@ -95,6 +110,7 @@ import dataclasses
 import functools
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -4333,6 +4349,813 @@ def parallel_phases(dev) -> dict:
     return out
 
 
+# ---- the serving features: speculation, the prefix cache, resume --------
+
+# the speculative path (scripts/r2_exp6.py part B): the canonical model over
+# r2_exp6's int8 cache (512 pages of 64, 24 slots of up to 64 pages), 16
+# lanes, 8 prompts of 128 tokens, 64 new tokens each; r2_exp6's 2-layer
+# draft (:39-43: vocab 32000, dim 512, 4/4 heads, d 128, its own seed) at
+# speculate_k 2 and 4, then the target as its own draft at K 4 on 4
+# prompts. Exactness is held on the float32 model of the same weights over
+# a float32 cache; the served bf16 model against a teacher-forced forward
+SPEC_CACHE = dict(CACHE, total_pages=512, max_seqs=24)
+SPEC_DRAFT = dict(vocab_size=32000, dim=512, num_layers=2, num_q_heads=4,
+                  num_kv_heads=4, head_dim=128)
+SPEC_PROMPTS, SPEC_PROMPT_LEN, SPEC_NEW = 8, 128, 64
+SPEC_KS = (2, 4)
+SELF_DRAFT_K, SELF_DRAFT_PROMPTS = 4, 4
+# the prefix cache (r2_exp6 part A): 8 requests of a shared 2048-token
+# system prompt and 64 tokens of their own, 16 new tokens each, on the
+# same model and cache: cold, then with the cache twice (the second run is
+# the steady state); a hit's last-prompt logits against the cold run's at
+# the chunked-vs-unchunked rule (TOL_LOGPROB)
+PC_SYSTEM, PC_OWN, PC_REQUESTS, PC_NEW = 2048, 64, 8, 16
+# resume: the engine cell snapshotted after RESUME_AT steps (the first
+# admits and prefills) and run to the end in a fresh engine: tokens equal,
+# logprobs within TOL_STEPS_LOGPROB; the same with int8 weights in rounds
+# of MULTISTEP_K; supervised runs of the engine cell with a crash at
+# SUP_CRASH_AT, snapshots every SUP_EVERY steps, on a pool cut to
+# SUP_PAGES pages (the 16 requests hold 256; each snapshot writes the
+# weights and every page)
+RESUME_AT = 12
+RESUME_ROUNDS_AT = 2  # rounds of 8: 17 of 32 tokens committed
+SUP_EVERY, SUP_CRASH_AT, SUP_PAGES = 16, 20, 288
+
+
+def _features():
+    from tpu_flash_torch import kernels
+    from tpu_flash_torch.cache.paged_cache import CacheConfig
+    from tpu_flash_torch.models import transformer as tfm
+    from tpu_flash_torch.serving import engine as eng_mod
+
+    return kernels, CacheConfig, tfm, eng_mod
+
+
+def ran(kernels) -> dict:
+    """The kernels that launched since the counts were reset."""
+    return {k: n for k, n in kernels.LAUNCHES.items() if n}
+
+
+def launched(phase: str, launches: dict, keys) -> None:
+    """Each of these kernels launched in the phase's main path run."""
+    for key in keys:
+        if launches.get(key, 0) <= 0:
+            raise AssertionError(f"{phase}: {key} never launched")
+
+
+def native_pool(eng) -> None:
+    """The engine's page pool is the port's native one on the card."""
+    if not eng._alloc.native:
+        raise AssertionError("the engine's allocator is not the native pool")
+
+
+def spec_serve(params, mcfg, prompts, dev, cache, draft=None, k=0):
+    """Serve ``prompts`` greedily (after a warm-up request) through an
+    engine with the draft at ``speculate_k`` k (or plainly); return the
+    finished requests, the wall time, the launches, the acceptance and the
+    target's decode calls (one-token steps and verify calls)."""
+    kernels, CacheConfig, _, eng_mod = _features()
+    new = SPEC_NEW
+    eng = eng_mod.Engine(params, mcfg, CacheConfig(**cache),
+                         eng_mod.EngineConfig(max_batch=MAX_BATCH,
+                                              speculate_k=k),
+                         draft=draft)
+    native_pool(eng)
+    eng.submit(eng_mod.Request(rid=10_000, prompt=prompts[0][:64],
+                               max_new_tokens=8))
+    eng.run()
+    calls = dict(target=0, draft=0)
+
+    def counted(name, fn):
+        def run(*a, **kw):
+            calls[name] += 1
+            return fn(*a, **kw)
+        return run
+
+    eng._step = counted("target", eng._step)
+    eng._decode_speculative = counted("target", eng._decode_speculative)
+    if eng._draft is not None:
+        eng._draft_step = counted("draft", eng._draft_step)
+    st0 = eng.spec_stats()
+    n0 = len(eng.finished)
+    torch.cuda.synchronize()
+    for i, p in enumerate(prompts):
+        eng.submit(eng_mod.Request(rid=i, prompt=p, max_new_tokens=new))
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    done = {f.rid: f for f in eng.finished[n0:]}
+    st = eng.spec_stats()
+    proposed = st["proposed"] - st0["proposed"]
+    accepted = st["accepted"] - st0["accepted"]
+    tokens = sum(len(f.new_tokens) for f in done.values())
+    out = dict(done=done, wall_s=wall, launches=ran(kernels),
+               tok_s=tokens / wall, tokens=tokens, proposed=proposed,
+               accepted=accepted,
+               acceptance=accepted / proposed if proposed else None,
+               target_calls=calls["target"], draft_steps=calls["draft"],
+               # a decode call serves every lane: calls over the tokens a
+               # request made after its first (prefill's)
+               target_calls_per_token=calls["target"] / (new - 1))
+    del eng
+    torch.cuda.empty_cache()
+    return out
+
+
+def verify_step_distance(params, mcfg, prompts, dev, K, cache) -> float:
+    """max |decode_verify of K tokens − K decode_steps| over the logits of
+    the prompts' lanes (prefilled by an engine): how far the verify call's
+    logits may lie from the plain step's in this model."""
+    _, CacheConfig, tfm, eng_mod = _features()
+    eng = eng_mod.Engine(params, mcfg, CacheConfig(**cache),
+                         eng_mod.EngineConfig(max_batch=MAX_BATCH))
+    for i, p in enumerate(prompts):
+        eng.submit(eng_mod.Request(rid=i, prompt=p, max_new_tokens=8))
+    eng._admit()
+    n = len(prompts)
+    caches = eng.caches
+    steps = [_cache_copy(c) for c in caches]
+    del eng
+    rng = np.random.default_rng(4)
+    toks = torch.as_tensor(rng.integers(1, mcfg.vocab_size - 1, (n, K)),
+                           device=dev)
+    slots = torch.arange(n, dtype=torch.int32, device=dev)
+    base = caches[0].lengths[:n].clone()
+    got, _ = tfm.decode_verify(params, toks, base, caches, slots, mcfg)
+    want = torch.stack([tfm.decode_step(params, toks[:, j], base + j, steps,
+                                        slots, mcfg)[0] for j in range(K)],
+                       dim=1)
+    dist = float((got - want).abs().max())
+    del caches, steps
+    torch.cuda.empty_cache()
+    return dist
+
+
+def stream_partings(params, mcfg, plain, got, dist) -> list:
+    """Where each of ``got``'s streams parts from ``plain``'s: the new
+    token's index, and the plain stream's top-2 logit gap there (a
+    teacher-forced forward over the plain stream). A parting is allowed
+    only where that gap is below ``dist`` (a near-tie the verify call may
+    break the other way)."""
+    _, _, tfm, _ = _features()
+    out = []
+    for rid, g in sorted(got.items()):
+        f = plain[rid]
+        at = next((i for i, (a, b) in enumerate(zip(f.new_tokens,
+                                                    g.new_tokens))
+                   if a != b), None)
+        if at is None and len(g.new_tokens) == len(f.new_tokens):
+            continue
+        at = min(len(f.new_tokens), len(g.new_tokens)) if at is None else at
+        n0 = len(f.tokens) - len(f.new_tokens)
+        toks = torch.tensor([f.tokens[:n0 + at]],
+                            device=params["embed"].device)
+        logits = tfm.forward(params, toks, mcfg)[0, -1].float()
+        top = torch.topk(logits, 2).values
+        gap = float(top[0] - top[1])
+        out.append(dict(rid=rid, new_token=at, top2_gap=gap,
+                        allowed=gap < dist))
+    return out
+
+
+def spec_kernel_checks(params, mcfg, draft, prompts, dev) -> dict:
+    """One speculative round at K 4 on the served model, its B2 calls
+    recorded: every layer's verify call (64 lanes, visible lengths) held
+    against the plain version on its own inputs (:func:`held_verify_b2`),
+    and the first draft micro-step's last-layer call — B2 with B3's
+    append fused, on the draft's 4 kv heads (G 1) — re-run on a copy of
+    the cache as it found it: its o the main path's bit for bit, o and
+    lse against the plain B2 after the plain B3, the pages bit for bit."""
+    _, CacheConfig, tfm, eng_mod = _features()
+    from tpu_flash_torch.ops import paged
+
+    eng = eng_mod.Engine(params, mcfg, CacheConfig(**SPEC_CACHE),
+                         eng_mod.EngineConfig(max_batch=MAX_BATCH,
+                                              speculate_k=4), draft=draft)
+    native_pool(eng)
+    for i, p in enumerate(prompts):
+        eng.submit(eng_mod.Request(rid=i, prompt=p, max_new_tokens=8))
+    eng._admit()
+    real = tfm.paged_attention
+    dlast = eng._draft["caches"][-1]
+    calls = dict(verify=[], draft=None)
+
+    def recorded(q, cache, slots, **kw):
+        if kw.get("lengths_override") is not None:
+            o = real(q, cache, slots, **kw)
+            calls["verify"].append(dict(q=q.clone(), cache=cache,
+                                        slots=slots, kw=kw, o=o))
+            return o
+        if cache is dlast and calls["draft"] is None:
+            rec = dict(q=q.clone(), pre=_cache_copy(cache),
+                       slots=slots.clone(), kw=kw,
+                       new_kv=tuple(t.clone() for t in kw["new_kv"]))
+            out = real(q, cache, slots, **kw)
+            rec["o"] = out[0].clone()
+            calls["draft"] = rec
+            return out
+        return real(q, cache, slots, **kw)
+
+    tfm.paged_attention = recorded
+    try:
+        eng._decode()
+        torch.cuda.synchronize()
+    finally:
+        tfm.paged_attention = real
+    if len(calls["verify"]) != mcfg.num_layers or calls["draft"] is None:
+        raise AssertionError("speculative round: B2 calls not recorded")
+    verify = held_verify_b2(calls["verify"])
+    d = calls["draft"]
+    c, q, slots = d["pre"], d["q"], d["slots"]
+    pt = c.config.page_type
+    b, qh, hd = q.shape
+    kvh = c.k_pages.shape[0]
+    qscale = hd ** -0.5 * paged.LOG2E
+    qr = q.reshape(b, kvh, qh // kvh, hd)
+    qg = (qr.float() * qscale).bfloat16()
+    walk = paged.plan_pages(c.config)
+    bound = min(d["kw"]["pages_bound"] or walk, walk)
+    kn, vn = d["new_kv"]
+
+    def fused(cache, want_lse):
+        return paged._paged_attention_kernel(
+            qr, cache.k_pages, cache.v_pages, cache.k_scales, cache.v_scales,
+            slots, cache.lengths, cache.page_tables, 1, bound, q.dtype,
+            want_lse, new_kv=(kn, vn), q_scale=qscale, walk=walk,
+            page_type=pt)
+
+    main = fused(_cache_copy(c), False)
+    fc, pc = _cache_copy(c), _cache_copy(c)
+    got = fused(fc, True)
+    torch.cuda.synchronize()
+    if not torch.equal(main[0].reshape(b, qh, hd), d["o"]):
+        raise AssertionError("draft micro-step B2: the wrapper's o is not "
+                             "the main path's")
+    paged._paged_append_plain(kn, vn, pc.k_pages, pc.v_pages, pc.k_scales,
+                              pc.v_scales, slots, pc.lengths, pc.page_tables,
+                              page_type=pt)
+    _same_cache("draft micro-step fused B3", fc, pc)
+    split = _card_plan(qg, pc)
+    errs = _held_b2("draft micro-step B2", got, paged._paged_attention_plain(
+        qg, *_b2_args(qg, pc, slots, 1, bound)[1:], split_pages=split,
+        page_type=pt))
+    del eng, calls
+    torch.cuda.empty_cache()
+    return dict(verify=verify, draft_step=dict(
+        lanes=b, kv_heads=kvh, g=qh // kvh, d=hd, page_type=pt,
+        pages_bound=bound, split_pages=split, append_bit_exact=True,
+        main_path_o_bitwise=True, tol=TOL_BF16, **errs))
+
+
+def speculative_phase(dev, smi: str) -> dict:
+    """Speculative decoding at full width: plain, the 2-layer draft at K 2
+    and 4, a self-draft at K 4 (wall, tok/s, acceptance, target calls a
+    token); in float32 every speculative greedy stream equals the plain
+    one but at near-ties (a planted fault, one proposal too many accepted,
+    must fail that check); the bf16 streams' drift; B2 and B3 on the
+    round's calls against their plain versions."""
+    kernels, CacheConfig, tfm, eng_mod = _features()
+    mcfg = tfm.ModelConfig(**MODEL)
+    dcfg = tfm.ModelConfig(**SPEC_DRAFT)
+    rng = np.random.default_rng(0)
+    prompts = rng.integers(1, mcfg.vocab_size - 1,
+                           (SPEC_PROMPTS, SPEC_PROMPT_LEN)).tolist()
+    runs, exact = {}, {}
+    for dtype in ("float32", "bfloat16"):
+        m = tfm.ModelConfig(**MODEL, dtype=dtype)
+        d = tfm.ModelConfig(**SPEC_DRAFT, dtype=dtype)
+        params = tfm.init_params(m, torch.Generator(device=dev).manual_seed(0),
+                                 dev)
+        draft = (tfm.init_params(d, torch.Generator(device=dev).manual_seed(1),
+                                 dev), d)
+        cache = dict(SPEC_CACHE, dtype="float32" if dtype == "float32"
+                     else SPEC_CACHE["dtype"])
+        r = dict(plain=spec_serve(params, m, prompts, dev, cache))
+        for k in SPEC_KS:
+            r[f"draft_k{k}"] = spec_serve(params, m, prompts, dev, cache,
+                                          draft, k)
+        r["self_k4"] = spec_serve(params, m, prompts[:SELF_DRAFT_PROMPTS],
+                                  dev, cache, (params, m), SELF_DRAFT_K)
+        if dtype == "float32":
+            dist = verify_step_distance(params, m, prompts, dev, 4, cache)
+            plain = r["plain"]["done"]
+            parts = {name: stream_partings(params, m, plain, run["done"],
+                                           dist)
+                     for name, run in r.items() if name != "plain"}
+            # the planted fault: one proposal more than the coins accepted
+            real = eng_mod._spec_accept
+
+            def one_too_many(toks, p_all, q, keys):
+                acc, final = real(toks, p_all, q, keys)
+                return torch.clamp_max(acc + 1, toks.shape[1] - 1), final
+
+            eng_mod._spec_accept = one_too_many
+            try:
+                fault = spec_serve(params, m, prompts, dev, cache, draft, 2)
+            finally:
+                eng_mod._spec_accept = real
+            fault_parts = stream_partings(params, m, plain, fault["done"],
+                                          dist)
+            bad = {name: [p for p in ps if not p["allowed"]]
+                   for name, ps in parts.items()}
+            exact = dict(verify_vs_step_distance=dist,
+                         partings={n: ps for n, ps in parts.items() if ps},
+                         parted_requests=sum(len(ps) for ps in parts.values()),
+                         fault_partings=len(fault_parts),
+                         fault_rejected=sum(not p["allowed"]
+                                            for p in fault_parts))
+            if any(bad.values()):
+                raise AssertionError(f"speculative greedy (float32) parts "
+                                     f"from plain greedy beyond a near-tie: "
+                                     f"{bad}")
+            if not exact["fault_rejected"]:
+                raise AssertionError("the planted fault (one proposal too "
+                                     f"many) passes the stream check: "
+                                     f"{fault_parts}")
+            for name, run in r.items():
+                exact[f"{name}_acceptance"] = run["acceptance"]
+            del params, draft, r, fault
+            torch.cuda.empty_cache()
+            continue
+        runs = r
+        served = (params, draft)
+    params, draft = served
+    drift = max(teacher_forced_drift(params, mcfg, runs[name]["done"][0])
+                for name in runs)
+    check("speculative: teacher-forced logprob drift", drift, TOL_LOGPROB)
+    for name, run in runs.items():
+        n = SELF_DRAFT_PROMPTS if name == "self_k4" else SPEC_PROMPTS
+        if sorted(run["done"]) != list(range(n)) or any(
+                len(f.new_tokens) != SPEC_NEW or f.reason != "length"
+                or not all(np.isfinite(f.logprobs))
+                for f in run["done"].values()):
+            raise AssertionError(f"speculative {name}: unfinished streams")
+    plain = runs["plain"]["done"]
+    agree = {name: agreement(
+        {rid: plain[rid] for rid in run["done"]}, run["done"])
+        for name, run in runs.items() if name != "plain"}
+    main = runs[f"draft_k{SPEC_KS[-1]}"]
+    launched("speculative", main["launches"], (
+        "flash_fwd", "paged_attention_split", "paged_append",
+        "paged_append_fused"))
+    if runs["self_k4"]["accepted"] != runs["self_k4"]["proposed"]:
+        print(f"self-draft bf16 acceptance {runs['self_k4']['acceptance']}",
+              file=sys.stderr)
+    checks = spec_kernel_checks(params, mcfg, draft, prompts, dev)
+    row = dict(
+        phase="speculative", nvidia_smi=smi, cache=SPEC_CACHE["dtype"],
+        pages=SPEC_CACHE["total_pages"], lanes=MAX_BATCH,
+        requests=SPEC_PROMPTS, prompt_len=SPEC_PROMPT_LEN,
+        new_tokens=SPEC_NEW, draft=SPEC_DRAFT,
+        runs={name: {k: v for k, v in run.items() if k != "done"}
+              for name, run in runs.items()},
+        bf16_agreement_with_plain=agree, teacher_forced_drift=drift,
+        drift_tol=TOL_LOGPROB, float32=exact, kernels=checks)
+    emit(row)
+    del params, draft
+    torch.cuda.empty_cache()
+    return dict(launches=main["launches"], checks=checks)
+
+
+def pc_serve(params, mcfg, prompts, dev, prefix_cache, warm, record=None,
+             hit_length_zero=False):
+    """Serve the requests through :func:`serve` (whole-prompt prefills and
+    hit tails timed too, each ending in a synchronise) on an engine with
+    or without the prefix cache; ``record``: a function the engine's B2
+    calls go through; ``hit_length_zero``: the planted fault, a hit
+    admitted with length 0. Returns serve's result with the prefill ms,
+    the cache's statistics of the run, the engine."""
+    _, CacheConfig, tfm, eng_mod = _features()
+    eng = eng_mod.Engine(params, mcfg, CacheConfig(**SPEC_CACHE),
+                         eng_mod.EngineConfig(max_batch=MAX_BATCH,
+                                              prefix_cache=prefix_cache))
+    native_pool(eng)
+    prefill_ms = []
+    whole = eng._prefill
+
+    def timed_prefill(*a):
+        t0 = time.perf_counter()
+        whole(*a)
+        torch.cuda.synchronize()
+        prefill_ms.append((time.perf_counter() - t0) * 1e3)
+
+    eng._prefill = timed_prefill
+    if hit_length_zero:
+        sync = eng._sync_slot_tables
+        eng._sync_slot_tables = lambda slot, set_length=None: sync(
+            slot, 0 if set_length else set_length)
+    stats0 = {}
+    submit = eng.submit
+
+    def counted_from(req):  # the run's statistics start at its first request
+        if req.rid == 0 and eng._pcache is not None:
+            stats0.update(eng._pcache.stats())
+        submit(req)
+
+    eng.submit = counted_from
+    real = tfm.paged_attention
+    if record is not None:
+        tfm.paged_attention = functools.partial(record, real, eng)
+    try:
+        out = serve(eng, [eng_mod.Request(rid=i, prompt=p,
+                                          max_new_tokens=PC_NEW)
+                          for i, p in enumerate(prompts)], warm)
+    finally:
+        tfm.paged_attention = real
+    torch.cuda.synchronize()
+    n = len(prompts)
+    out["prefill_ms"] = sum(prefill_ms[-n:]) if not prefix_cache else None
+    out["engine"] = eng
+    # the run's own times: later calls on the engine (pc_profile) append
+    out["prefill_calls_ms"] = list(prefill_ms)
+    out["chunk"] = list(out["chunk"])
+    if eng._pcache is not None:
+        st = eng._pcache.stats()
+        out["stats"] = st
+        out["run_stats"] = {k: st[k] - stats0.get(k, 0)
+                            for k in ("hits", "misses", "hit_tokens")}
+    return out
+
+
+def held_shared_b2(q, cache, slots, kw, o, lse) -> dict:
+    """B2's shared-table route on the inputs a hit's tail chunk gave it
+    (the chunk's lanes over the cached prefix), before the chunk's write:
+    re-run, bitwise the main path's; o within TOL_BF16, lse within TOL_LSE
+    of the plain version (one walk); the prefix's first half of pages read
+    as its second half must fail that check."""
+    from tpu_flash_torch.ops import paged
+
+    pt = cache.config.page_type
+    b, qh, d = q.shape
+    kvh = cache.k_pages.shape[0]
+    qscale = d ** -0.5 * paged.LOG2E
+    qr = q.reshape(b, kvh, qh // kvh, d)
+    qg = (qr.float() * qscale).bfloat16()
+    walk = paged.plan_pages(cache.config)
+    bound = min(kw["pages_bound"] or walk, walk)
+    got = paged._paged_attention_kernel(
+        *_b2_args(qr, cache, slots, 0, bound, q.dtype), q_scale=qscale,
+        shared_page_table=True, walk=walk, page_type=pt)
+    torch.cuda.synchronize()
+    if not (torch.equal(got[0].reshape(b, qh, d), o)
+            and torch.equal(got[1].reshape(b, qh), lse)):
+        raise AssertionError("hit tail B2: the wrapper's o, lse are not the "
+                             "main path's")
+    want = paged._paged_attention_plain(
+        qg, *_b2_args(qg, cache, slots, 0, bound)[1:], page_type=pt)
+    errs = _held_b2("hit tail B2 (shared route)", got, want,
+                    tol_lse=TOL_LSE)
+    # the planted fault: the prefix's first half of pages read as its second
+    slot = int(slots[0])
+    prefix = int(cache.lengths[slot])
+    half = prefix // cache.config.page_size // 2
+    tables = cache.page_tables.clone()
+    tables[slot, :half] = cache.page_tables[slot, half:2 * half]
+    fault = _rejects("hit tail B2 (shared route)", got,
+                     paged._paged_attention_plain(
+                         qg, *_b2_args(qg, cache, slots, 0, bound,
+                                       tables=tables)[1:], page_type=pt))
+    return dict(lanes=b, prefix_tokens=prefix, pages_bound=bound,
+                tol=TOL_BF16, tol_lse=TOL_LSE, main_path_bitwise=True,
+                planted_fault_half_prefix_replaced=fault, **errs)
+
+
+def pc_profile(eng, system) -> dict:
+    """On an engine whose cache holds ``system``'s pages: one hit's tail
+    chunk (``_advance_prefill`` after the hit's admission) and one whole
+    cold prefill (``_admit`` of an unrelated prompt), each first timed on
+    the host clock (it ends in the sampled token's fetch), then, on
+    another such request, profiled (device ms and activities)."""
+    _, _, _, eng_mod = _features()
+    rng = np.random.default_rng(11)
+    vocab = eng.mcfg.vocab_size
+    out = {}
+    for rep in range(2):
+        for name in ("hit_tail_chunk", "cold_prefill"):
+            hit = name == "hit_tail_chunk"
+            prompt = (system if hit else rng.integers(
+                1, vocab - 1, PC_SYSTEM).tolist()) + rng.integers(
+                    1, vocab - 1, PC_OWN).tolist()
+            eng.submit(eng_mod.Request(rid=20_000 + 2 * rep + hit,
+                                       prompt=prompt, max_new_tokens=1))
+            if hit:
+                eng._admit()
+            fn = eng._advance_prefill if hit else eng._admit
+            if rep == 0:
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                out[name] = dict(host_ms=(time.perf_counter() - t0) * 1e3)
+            else:
+                out[name].update(prof_device(fn))
+            eng.run()
+    return out
+
+
+def prefix_cache_phase(dev, smi: str) -> dict:
+    """The prefix cache at full width: the 8 shared-prompt requests served
+    cold, then with the cache twice; every request after the first hits
+    the 32-page prefix; each hit's last-prompt logits against the cold
+    run's and a hit stream against a teacher-forced forward; B2's shared
+    route on a hit's tail chunk against its plain version; the shared
+    pages' bytes unchanged by the serve; a hit admitted with length 0 must
+    fail the logits gate."""
+    kernels, _, tfm, eng_mod = _features()
+    mcfg = tfm.ModelConfig(**MODEL)
+    params = tfm.init_params(mcfg, torch.Generator(device=dev).manual_seed(0),
+                             dev)
+    rng = np.random.default_rng(5)
+    system = rng.integers(1, mcfg.vocab_size - 1, PC_SYSTEM).tolist()
+    prompts = [system + rng.integers(1, mcfg.vocab_size - 1, PC_OWN).tolist()
+               for _ in range(PC_REQUESTS)]
+    other = rng.integers(1, mcfg.vocab_size - 1, PC_SYSTEM + PC_OWN).tolist()
+    # warm-up: an unrelated prompt twice (with the cache the second hits)
+    warm = [eng_mod.Request(rid=10_000 + i, prompt=other, max_new_tokens=4)
+            for i in range(2)]
+    cold = pc_serve(params, mcfg, prompts, dev, False, warm)
+    checked = {}
+
+    def record(real, eng, q, cache, slots, **kw):
+        out = real(q, cache, slots, **kw)
+        if (kw.get("shared_page_table") and cache is eng.caches[-1]
+                and not checked):
+            slot = kw["_shared_slot"]
+            req = eng.prefilling[slot]["req"]
+            if req.rid < 10_000 and int(cache.lengths[slot]) > 0:
+                checked.update(held_shared_b2(q, cache, slots, kw, *out),
+                               rid=req.rid)
+        return out
+
+    runs = [pc_serve(params, mcfg, prompts, dev, True, warm, record=record)]
+    # the steady state, the shared pages' bytes held over its serve
+    shared = {}
+
+    def snapshot(real, eng, q, cache, slots, **kw):
+        if not shared and eng._pcache is not None and 0 in {
+                r.rid for r in eng.running.values()}:
+            s0 = next(s for s, r in eng.running.items() if r.rid == 0)
+            n = PC_SYSTEM // SPEC_CACHE["page_size"]
+            ids = torch.as_tensor(eng._alloc.table(s0)[:n] + 1,
+                                  device=dev).long()
+            shared["ids"] = ids
+            shared["bytes"] = [tuple(t[:, ids].clone() for t in (
+                c.k_pages, c.v_pages, c.k_scales, c.v_scales))
+                for c in eng.caches]
+        return real(q, cache, slots, **kw)
+
+    runs.append(pc_serve(params, mcfg, prompts, dev, True, warm,
+                         record=snapshot))
+    steady = runs[-1]
+    eng = steady.pop("engine")
+    if not shared:
+        raise AssertionError("prefix_cache: the shared pages were never seen")
+    for c, saved in zip(eng.caches, shared["bytes"]):
+        now = tuple(t[:, shared["ids"]] for t in (
+            c.k_pages, c.v_pages, c.k_scales, c.v_scales))
+        if not all(torch.equal(a, b) for a, b in zip(now, saved)):
+            raise AssertionError("prefix_cache: a shared page was written")
+    profile = pc_profile(eng, system)
+    del eng, shared
+    runs[0].pop("engine")
+    cold.pop("engine")
+    fault = pc_serve(params, mcfg, prompts[:2], dev, True, [],
+                     hit_length_zero=True)
+    fault.pop("engine")
+    hits = list(range(1, PC_REQUESTS))
+    gaps = []
+    for run in runs:
+        st = run["run_stats"]
+        if (st["hits"] != PC_REQUESTS - 1 or st["misses"] != 1
+                or st["hit_tokens"] != (PC_REQUESTS - 1) * PC_SYSTEM):
+            raise AssertionError(f"prefix_cache: hits {st}: every request "
+                                 "after the first must hit the whole prefix")
+        if sorted(run["done"]) != list(range(PC_REQUESTS)):
+            raise AssertionError("prefix_cache: unfinished requests")
+        gaps.append(max(float((run["first"][i] - cold["first"][i]).abs()
+                              .max()) for i in hits))
+    gate = max(gaps)
+    check("prefix_cache: hit vs cold last-prompt logits", gate, TOL_LOGPROB)
+    fault_gap = float((fault["first"][1] - cold["first"][1]).abs().max())
+    if fault_gap <= TOL_LOGPROB:
+        raise AssertionError("prefix_cache: a hit admitted with length 0 "
+                             f"passes the gate ({fault_gap})")
+    drift = max(teacher_forced_drift(params, mcfg, steady["done"][i])
+                for i in (0, 1, PC_REQUESTS - 1))
+    check("prefix_cache: teacher-forced logprob drift", drift, TOL_LOGPROB)
+    launched("prefix_cache", steady["launches"], (
+        "flash_fwd", "paged_attention_shared", "paged_attention_split",
+        "paged_append_fused"))
+    if not checked:
+        raise AssertionError("prefix_cache: no hit tail B2 call checked")
+    tokens = PC_REQUESTS * PC_NEW
+    warm_prefill = [sum(run["prefill_calls_ms"][-1:]) + sum(run["chunk"])
+                    for run in runs]
+
+    def summary(run):
+        return dict(wall_s=run["wall_s"], tok_s=tokens / run["wall_s"],
+                    decode_ms_per_step=float(np.median(run["decode"])),
+                    launches={k: n for k, n in run["launches"].items() if n})
+
+    row = dict(
+        phase="prefix_cache", nvidia_smi=smi, cache=SPEC_CACHE["dtype"],
+        pages=SPEC_CACHE["total_pages"], requests=PC_REQUESTS,
+        system_prompt=PC_SYSTEM, own_tokens=PC_OWN, new_tokens=PC_NEW,
+        cold=summary(cold),
+        cold_prefill_ms=cold["prefill_ms"],
+        runs=[dict(summary(run), stats=run["stats"],
+                   run_stats=run["run_stats"],
+                   prefill_ms=warm_prefill[i],
+                   hit_tail_chunk_ms=run["chunk"],
+                   prefill_ms_saved=cold["prefill_ms"] - warm_prefill[i])
+              for i, run in enumerate(runs)],
+        hit_vs_cold_logits=gaps, gate_tol=TOL_LOGPROB,
+        fault_hit_length_zero_logits=fault_gap, teacher_forced_drift=drift,
+        shared_pages_unchanged=True, hit_tail_b2=checked, profile=profile)
+    emit(row)
+    del params
+    torch.cuda.empty_cache()
+    return dict(launches=steady["launches"], b2=checked)
+
+
+def resume_phase(dev, smi: str) -> dict:
+    """Checkpoint and resume at the engine cell: snapshotted after
+    RESUME_AT steps, loaded into a fresh engine and run to the end, against
+    the uninterrupted run (tokens equal, logprobs within 1e-6), with bf16
+    and with int8 weights in rounds of MULTISTEP_K; one page-table row
+    swapped in the snapshot must fail; supervised runs with a crash at
+    SUP_CRASH_AT, plain and speculative, against their uninterrupted runs."""
+    import shutil
+    import tempfile
+
+    kernels, CacheConfig, tfm, eng_mod = _features()
+    from tpu_flash_torch.serving.checkpoint import (load_checkpoint,
+                                                    save_checkpoint)
+    from tpu_flash_torch.serving.supervisor import Supervisor, SupervisorConfig
+
+    mcfg = tfm.ModelConfig(**MODEL)
+    params = tfm.init_params(mcfg, torch.Generator(device=dev).manual_seed(0),
+                             dev)
+    rng = np.random.default_rng(0)
+    prompts = rng.integers(1, mcfg.vocab_size - 1,
+                           (N_REQUESTS, PROMPT_LEN)).tolist()
+
+    def reqs(hot=True):
+        return [eng_mod.Request(
+            rid=i, prompt=prompts[i], max_new_tokens=NEW_TOKENS,
+            temperature=0.7 if hot and i == N_REQUESTS - 1 else 0.0,
+            top_k=50 if hot and i == N_REQUESTS - 1 else 0,
+            top_p=0.9 if hot and i == N_REQUESTS - 1 else 1.0)
+            for i in range(N_REQUESTS)]
+
+    def make(p, cache=CACHE, submit=True, hot=True, draft=None, **kw):
+        eng = eng_mod.Engine(p, mcfg, CacheConfig(**cache),
+                             eng_mod.EngineConfig(max_batch=MAX_BATCH, **kw),
+                             draft=draft)
+        native_pool(eng)
+        for r in reqs(hot) if submit else ():
+            eng.submit(r)
+        return eng
+
+    def finished(eng):
+        eng.run()
+        torch.cuda.synchronize()
+        return {f.rid: f for f in eng.finished}
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_resume_")
+    out = dict(phase="resume", nvidia_smi=smi, cache=CACHE["dtype"],
+               requests=N_REQUESTS, prompt_len=PROMPT_LEN,
+               new_tokens=NEW_TOKENS, snapshot_after_steps=RESUME_AT)
+    try:
+        cases = {}
+        for name, p, kw in (("bf16", params, {}),
+                            ("int8_weights_rounds", tfm.quantize_weights(
+                                params), dict(decode_steps=MULTISTEP_K))):
+            whole = finished(make(p, **kw))
+            eng = make(p, **kw)
+            for _ in range(RESUME_AT if not kw else RESUME_ROUNDS_AT):
+                eng.step()
+            path = f"{tmp}/{name}"
+            t0 = time.perf_counter()
+            save_checkpoint(path, eng)
+            save_ms = (time.perf_counter() - t0) * 1e3
+            running = len(eng.running)
+            del eng
+            torch.cuda.empty_cache()
+            t0 = time.perf_counter()
+            restored = load_checkpoint(path, device=dev)
+            torch.cuda.synchronize()
+            load_ms = (time.perf_counter() - t0) * 1e3
+            if not restored.running or restored._graphs:
+                raise AssertionError(f"resume {name}: restored state")
+            kernels.reset_launches()
+            got = finished(restored)
+            launches = ran(kernels)
+            launched(f"resume {name}", launches, (
+                "paged_attention_split", "paged_append_fused"))
+            gap = held_streams(f"resume {name}", got, whole)
+            size = sum(os.path.getsize(os.path.join(path, f))
+                       for f in os.listdir(path))
+            cases[name] = dict(save_ms=save_ms, load_ms=load_ms,
+                               snapshot_bytes=size, running_at_snapshot=running,
+                               max_logprob_gap=gap, launches=launches,
+                               graph_stats={k: restored.graph_stats[k] for k
+                                            in ("captures", "replays")})
+            if (kw and restored._graphs_ok()
+                    and not restored.graph_stats["replays"]):
+                raise AssertionError("resume: the restored engine replayed "
+                                     "no round graph")
+            del restored
+            torch.cuda.empty_cache()
+            if name == "bf16":
+                # the planted fault: two running slots' rows swapped
+                arrays = torch.load(f"{path}/arrays.pt", weights_only=True)
+                for c in arrays["caches"]:
+                    c["page_tables"][[0, 1]] = c["page_tables"][[1, 0]].clone()
+                torch.save(arrays, f"{path}/arrays.pt")
+                del arrays
+                swapped = finished(load_checkpoint(path, device=dev))
+                try:
+                    held_streams("resume with swapped rows", swapped, whole)
+                except AssertionError:
+                    cases[name]["fault_swapped_rows_rejected"] = True
+                else:
+                    raise AssertionError("resume: a swapped page-table row "
+                                         "passes the stream check")
+                base = whole
+            shutil.rmtree(path, ignore_errors=True)
+        out["cases"] = cases
+
+        # supervised runs: a crash after the first snapshot
+        sup_cache = dict(CACHE, total_pages=SUP_PAGES)
+        dcfg = tfm.ModelConfig(**SPEC_DRAFT)
+        draft = (tfm.init_params(dcfg, torch.Generator(device=dev)
+                                 .manual_seed(1), dev), dcfg)
+        sup_rows = {}
+        for name, kw, want in (
+                ("plain", {}, base),
+                ("speculative", dict(speculate_k=4, draft=draft, hot=False),
+                 None)):
+            if want is None:
+                want = finished(make(params, sup_cache, **kw))
+            fired = []
+
+            def crash(step, engine):
+                if step == SUP_CRASH_AT and not fired:
+                    fired.append(step)
+                    raise RuntimeError("injected failure")
+
+            sup = Supervisor(
+                lambda: make(params, sup_cache, submit=False, **kw),
+                SupervisorConfig(dir=f"{tmp}/sup_{name}",
+                                 checkpoint_every=SUP_EVERY,
+                                 fault_hook=crash),
+                draft=kw.get("draft"), device=dev)
+            for r in reqs(kw.get("hot", True)):
+                sup.submit(r)
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            got = {f.rid: f for f in sup.run()}
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            if not fired or sup.restarts != 1:
+                raise AssertionError(f"supervisor {name}: no recovery")
+            launched(f"supervisor {name}", ran(kernels), (
+                "flash_fwd", "paged_attention_split", "paged_append_fused"))
+            gap = held_streams(f"supervisor {name}", got, want)
+            sup_rows[name] = dict(wall_s=wall, restarts=sup.restarts,
+                                  max_logprob_gap=gap,
+                                  launches=ran(kernels))
+            if name == "speculative":
+                sup_rows[name]["spec_stats"] = sup.engine.spec_stats()
+                sup_rows[name]["agreement_with_plain"] = agreement(
+                    {rid: base[rid] for rid in range(N_REQUESTS - 1)},
+                    {rid: got[rid] for rid in range(N_REQUESTS - 1)})
+            del sup
+            torch.cuda.empty_cache()
+        out["supervisor"] = sup_rows
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit(out)
+    del params
+    torch.cuda.empty_cache()
+    return dict(launches=out["cases"]["bf16"]["launches"],
+                supervisor_launches=out["supervisor"]["plain"]["launches"])
+
+
+def feature_phases(dev, smi: str) -> dict:
+    """The serving features' phases: speculative, prefix_cache, resume."""
+    with torch.no_grad():
+        out = dict(speculative=speculative_phase(dev, smi))
+        torch.cuda.empty_cache()
+        out["prefix_cache"] = prefix_cache_phase(dev, smi)
+        torch.cuda.empty_cache()
+        out["resume"] = resume_phase(dev, smi)
+        torch.cuda.empty_cache()
+    return out
+
+
 def _timing(row) -> dict:
     return {key: row[key] for key in ("ms", "plain_ms", "bound_ms",
                                       "bound_by")}
@@ -4420,12 +5243,23 @@ def main() -> int:
     torch.cuda.empty_cache()
     par = parallel_phases(dev)
     par_launches = {name: par[name]["launches"] for name in par}
+    torch.cuda.empty_cache()
+    feat = feature_phases(dev, smi)
+    feat_launches = dict(
+        speculative=feat["speculative"]["launches"],
+        prefix_cache=feat["prefix_cache"]["launches"],
+        resume=feat["resume"]["launches"],
+        supervisor=feat["resume"]["supervisor_launches"])
 
-    def new_paths(*keys):
-        """The parallel phases' launches of these kernels, by phase."""
-        return {f"launches_{name}": sum(got.get(k, 0) for k in keys)
-                for name, got in par_launches.items()
+    def new_paths(*keys, suffix=""):
+        """The parallel and the serving-feature phases' launches of these
+        kernels, by phase (each phase's main path run)."""
+        return {f"launches_{name}{suffix}": sum(got.get(k, 0) for k in keys)
+                for name, got in {**par_launches, **feat_launches}.items()
                 if any(got.get(k, 0) for k in keys)}
+
+    spec_checks = feat["speculative"]["checks"]
+    hit_b2 = feat["prefix_cache"]["b2"]
 
     # launches: the engine run for the serving kernels, the train run for
     # the backward ones (the forward kernel runs in both; the train run's
@@ -4470,7 +5304,12 @@ def main() -> int:
                  *(v["b2"]["max_abs_err"]
                    for v in multistep["decode_verify"].values()),
                  *(par[k]["held_b2"]["max_abs_err"]
-                   for k in ("seq_serve", "seq_decode"))),
+                   for k in ("seq_serve", "seq_decode")),
+                 # the speculative round's verify calls (16 layers, 64
+                 # lanes) and a draft micro-step's fused call (G 1)
+                 spec_checks["verify"]["max_abs_err"],
+                 spec_checks["draft_step"]["o_vs_plain"],
+                 spec_checks["draft_step"]["lse_vs_plain"]),
              ms=int8["fused_ms"],
              plain_ms=int8["append_plain_ms"] + int8["attention_plain_ms"],
              **int8["fused_bound"], library_ms=None),
@@ -4487,6 +5326,7 @@ def main() -> int:
              launches_decode_verify_standalone=multistep["decode_verify"][
                  "served"]["launches"]["paged_append"],
              **new_paths("paged_append_fused"),
+             **new_paths("paged_append", suffix="_standalone"),
              max_abs_err=max(r["append_err"] for r in b23.values()),
              ms=int8["fused_append_ms"], plain_ms=int8["append_plain_ms"],
              **int8["append_bound"], library_ms=None),
@@ -4497,7 +5337,10 @@ def main() -> int:
              source="tpu_flash_torch/csrc/paged_attention.cu",
              replaces="tpu_flash/ops/paged.py:74",
              launches=sliding["launches"]["paged_attention_shared"],
-             max_abs_err=sk["worst"]["paged_attention_shared"],
+             **new_paths("paged_attention_shared"),
+             # and a prefix hit's tail chunk over the shared pages
+             max_abs_err=max(sk["worst"]["paged_attention_shared"],
+                             hit_b2["o_vs_plain"], hit_b2["lse_vs_plain"]),
              **_timing(sk["timed"]["chunk_prefix"]), library_ms=None),
         # the plain backward and the library's fused backward (K/V expanded
         # to 16 heads outside the call) each compute dq, dk and dv in one

@@ -133,20 +133,25 @@ def test_temperature_streams_are_batching_invariant(params):
 
 
 def test_unported_engine_options_raise(params):
-    """Options still to port raise and name their ROADMAP item
-    (decode_steps and async_decode are ported, and so is mesh=: tensor
-    parallelism, whose LoRA composition raises as in the reference)."""
+    """LoRA, still to port, raises and names its ROADMAP item (A9b); the
+    prefix cache, speculation with a draft model, decode_steps and
+    async_decode are ported and build, and so is mesh=: tensor
+    parallelism, whose LoRA composition raises as in the reference."""
     from tpu_flash_torch.parallel.mesh import make_mesh
 
     _, tp = params
     mcfg, ccfg = ttfm.ModelConfig(**_MCFG), CacheConfig(**_CCFG)
-    for kw, item in ((dict(prefix_cache=True), "A7"),
-                     (dict(speculate_k=2), "A9")):
-        with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-            teng.Engine(tp, mcfg, ccfg, teng.EngineConfig(**kw))
-    for kw, item in ((dict(draft=object()), "A9"), (dict(lora=object()), "A9")):
-        with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-            teng.Engine(tp, mcfg, ccfg, **kw)
+    eng = teng.Engine(tp, mcfg, ccfg, teng.EngineConfig(
+        max_batch=3, prefix_cache=True))
+    assert eng.metrics()["prefix_cache"]["entries"] == 0
+    # speculate_k without a draft decodes plain, as in the reference
+    assert teng.Engine(tp, mcfg, ccfg, teng.EngineConfig(
+        max_batch=3, speculate_k=2))._draft is None
+    eng = teng.Engine(tp, mcfg, ccfg, teng.EngineConfig(
+        max_batch=3, speculate_k=2), draft=(tp, mcfg))
+    assert eng.spec_stats() == dict(proposed=0, accepted=0)
+    with pytest.raises(NotImplementedError, match="ROADMAP A9b"):
+        teng.Engine(tp, mcfg, ccfg, lora=object())
     mesh = make_mesh(model=2, devices="cpu")
     with pytest.raises(NotImplementedError, match="tensor parallelism"):
         teng.Engine(tp, mcfg, ccfg, mesh=mesh, lora=object())

@@ -44,8 +44,25 @@ exhaustion preempts a sequence back to the queue.
   it; when the ranks span several cards in one process, rounds run
   eagerly (capture over several devices is later work).
 
-Not ported yet (ROADMAP A7 unless named): the prefix cache, speculative
-decoding (A9), LoRA (A9). Each raises ``NotImplementedError``.
+* Prefix cache (``prefix_cache``, ``serving/prefix_cache.py``): full
+  prompt pages are indexed by content in the page pool and shared by
+  reference; a hit admits with the cached pages in its table and prefills
+  only its tail through the chunked path from the cached offset, so no
+  kernel writes a shared page. Cached pages are evicted (LRU) before a
+  live sequence is preempted.
+* Speculative decoding (``Engine(draft=(params, cfg))``, ``speculate_k``
+  K ≥ 2): a small draft model with its own paged caches on the target's
+  page tables proposes K − 1 tokens a lane in micro-steps, one
+  ``decode_verify`` call of the target scores the pending token and the
+  proposals, and rejection sampling (:func:`_spec_accept`) emits tokens
+  distributed as plain decoding would: greedy streams equal plain greedy
+  ones, up to near-ties between the verify and step logits. Proposal and
+  acceptance noise come from streams of their own (request key, stream
+  tag, position). Every speculative round runs eagerly on committed state;
+  ``decode_steps`` is ignored while a draft is attached. Under tensor
+  parallelism the draft stays unsharded.
+
+Not ported yet: LoRA (ROADMAP A9b), which raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -64,6 +81,7 @@ from tpu_flash_torch.cache.allocator import PageAllocator
 from tpu_flash_torch.cache.paged_cache import CacheConfig, PagedKVCache
 from tpu_flash_torch.models import transformer as tfm
 from tpu_flash_torch.parallel import shardings
+from tpu_flash_torch.serving.prefix_cache import PrefixCache
 
 _MASK64 = (1 << 64) - 1
 # splitmix64's increment and finalizer multipliers
@@ -83,6 +101,18 @@ def request_key(seed: int, rid: int) -> int:
     """Request ``rid``'s sampling key, a pure function of (engine seed,
     rid) like the reference's ``fold_in(key(seed), rid)``."""
     return _mix64(_mix64(seed & _MASK64) ^ (rid & 0x7FFFFFFF))
+
+
+# Stream tags: a speculative round's draft proposals and its acceptance
+# draw noise keyed by (request, stream, position), never the target's
+# stream; the keys of a stream are mix64(request key ^ tag).
+DRAFT_STREAM = 0x64726166745F7370  # "draft_sp"
+ACCEPT_STREAM = 0x6163636570745F73  # "accept_s"
+
+
+def stream_key(seed: int, rid: int, tag: int) -> int:
+    """Request ``rid``'s key on the noise stream ``tag``."""
+    return _mix64(request_key(seed, rid) ^ tag)
 
 
 def noise_seed(seed: int, rid: int, position: int) -> int:
@@ -202,6 +232,69 @@ def _sample_packed(logits, samp, keys, positions,
     return torch.stack([tok.float(), lp], dim=1)
 
 
+def _trunc_dist(logits: torch.Tensor, samp: torch.Tensor,
+                host_samp=None) -> torch.Tensor:
+    """The distribution plain decoding samples from: the truncated
+    temperature softmax, a one-hot argmax at temperature ≤ 0. The p (and q)
+    of speculative rejection sampling; its greedy limit makes greedy
+    acceptance a case of accept-with-probability min(1, p/q).
+    ``host_samp``: the host's copy of ``samp`` (an all-greedy batch skips
+    the softmax, an untruncated one the sort), as in
+    :func:`_device_sample`."""
+    logits = logits.float()
+    onehot = torch.nn.functional.one_hot(
+        torch.argmax(logits, dim=-1), logits.shape[-1]).float()
+    truncate = None
+    if host_samp is not None:
+        rows = np.asarray(host_samp, np.float32).reshape(-1, 3)
+        if (rows[:, 0] <= 0.0).all():
+            return onehot
+        truncate = bool(((rows[:, 1] > 0) | (rows[:, 2] < 1.0)).any())
+    probs = torch.softmax(_truncated_scores(logits, samp, truncate), dim=-1)
+    return torch.where((samp[:, 0] <= 0.0)[:, None], onehot, probs)
+
+
+def _spec_accept(toks: torch.Tensor, p_all: torch.Tensor, q: torch.Tensor,
+                 lane_keys: torch.Tensor):
+    """Speculative rejection sampling (Leviathan et al.), greedy-inclusive.
+
+    toks: (B, K) the pending token and K − 1 draft proposals; p_all: (B, K,
+    V) target distributions (``p_all[:, j]`` is that of the token after
+    ``toks[:, j]``); q: (B, K − 1, V) the draft distributions the proposals
+    were drawn from; lane_keys: (B,) int64 noise keys (the acceptance
+    stream's, folded with the round's position). Proposal d_i is accepted
+    with probability min(1, p(d_i)/q(d_i)); the first rejection resamples
+    from norm(max(p − q, 0)); full acceptance draws the bonus from
+    ``p[:, K − 1]``. With one-hot p and q (temperature ≤ 0,
+    :func:`_trunc_dist`) this is greedy token matching. Emitted tokens are
+    distributed per p for any draft. Lane b's K − 1 coins and its final
+    Gumbel noise are elements 0 … K − 2 and K − 1 … of its counter-based
+    uniforms (:func:`_uniforms`).
+
+    Returns (m (B,) accepted-proposal counts, final (B,) int64 token).
+    """
+    b, K = toks.shape
+    v = p_all.shape[-1]
+    un = _uniforms(lane_keys, K - 1 + v)
+    u, uf = un[:, :K - 1], un[:, K - 1:]
+    d = toks[:, 1:].long()
+    p_d = p_all[:, :K - 1].gather(-1, d[..., None])[..., 0]
+    q_d = q.gather(-1, d[..., None])[..., 0]
+    accept = (u * q_d < p_d).to(torch.int64)  # u < p/q without the divide
+    m = torch.cumprod(accept, dim=1).sum(dim=1)
+    rows = torch.arange(b, device=toks.device)
+    p_cut = p_all[rows, m]
+    q_cut = q[rows, torch.clamp_max(m, K - 2)]
+    resid = torch.clamp_min(p_cut - q_cut, 0.0)
+    rs = resid.sum(dim=-1, keepdim=True)
+    resid = torch.where(rs > 1e-9, resid / torch.clamp_min(rs, 1e-30),
+                        p_cut)  # p == q: nothing rejects
+    dist = torch.where((m == K - 1)[:, None], p_cut, resid)
+    g = -torch.log(-torch.log(uf))
+    final = torch.argmax(torch.log(torch.clamp_min(dist, 1e-30)) + g, dim=-1)
+    return m, final
+
+
 @dataclasses.dataclass
 class Request:
     rid: int
@@ -213,7 +306,7 @@ class Request:
     eos_id: Optional[int] = None
     # finish when the GENERATED tail ends with any of these token sequences
     stop_sequences: tuple = ()
-    adapter_id: int = -1  # LoRA adapters: ROADMAP A9
+    adapter_id: int = -1  # LoRA adapters: ROADMAP A9b
     # internal: set on preemption requeue — the ORIGINAL user prompt length,
     # so a stop sequence straddling the preemption boundary still fires
     true_prompt_len: Optional[int] = None
@@ -256,32 +349,28 @@ class EngineConfig:
     # tokens per prefill chunk (a page multiple): longer prompts stream in
     # chunks, one per engine step, interleaved with decode
     chunk_size: Optional[int] = None
-    prefix_cache: bool = False  # ROADMAP A7
+    # copy-on-write sharing of full prompt pages (serving/prefix_cache.py)
+    prefix_cache: bool = False
     prefix_cache_entries: int = 4096
     # prefill (whole or chunked) with the norm-bound max: chunked ==
     # unchunked then holds to a tolerance, not exactly; decode stays exact
     prefill_bound_max: bool = False
     metrics_path: Optional[str] = None  # per-step JSONL metrics stream
-    speculate_k: int = 0  # ROADMAP A9
+    # speculative decoding: tokens a lane verifies a round (the pending one
+    # and K - 1 proposals); needs Engine(draft=...)
+    speculate_k: int = 0
     # decode_steps > 1 only: keep one round in flight, round N+1 issued on
     # round N's device outputs before N's tokens are fetched; the committed
     # streams are those of the synchronous loop
     async_decode: bool = True
     # > 1: up to this many decode steps a round (powers of two), one host
-    # fetch a round; on the card a round is one CUDA graph replay
+    # fetch a round; on the card a round is one CUDA graph replay; ignored
+    # while a draft model is attached
     decode_steps: int = 1
     seed: int = 0
 
 
 def _check_engine_config(ecfg: EngineConfig) -> None:
-    unported = dict(
-        prefix_cache=(ecfg.prefix_cache, "A7"),
-        speculate_k=(ecfg.speculate_k > 0, "A9"),
-    )
-    for name, (used, item) in unported.items():
-        if used:
-            raise NotImplementedError(
-                f"EngineConfig.{name} is not ported yet (ROADMAP {item})")
     if ecfg.decode_steps < 1:
         raise ValueError(f"decode_steps must be >= 1, got {ecfg.decode_steps}")
 
@@ -303,10 +392,9 @@ class Engine:
             raise NotImplementedError(
                 "multi-LoRA under tensor parallelism is not composed yet "
                 "(the adapter deltas would need the projections' shardings)")
-        for name, val, item in (("draft", draft, "A9"), ("lora", lora, "A9")):
-            if val is not None:
-                raise NotImplementedError(
-                    f"Engine({name}=...) is not ported yet (ROADMAP {item})")
+        if lora is not None:
+            raise NotImplementedError(
+                "Engine(lora=...) is not ported yet (ROADMAP A9b)")
         # The engine pins the exact running max (the reference's bit-identical
         # chunked-vs-unchunked contract forbids the span-dependent bound).
         if model_cfg.attn_bound_max:
@@ -317,7 +405,8 @@ class Engine:
         self.tp = mesh.axis(tp_axis) if mesh is not None else None
         if self.tp is not None:
             shardings.check_divisible(model_cfg, self.tp.size)
-            params = shardings.shard_params(params, self.tp)
+            if not isinstance(params, list):  # else: this process's slices
+                params = shardings.shard_params(params, self.tp)
         self.params = params
         self.mcfg = dataclasses.replace(model_cfg, attn_bound_max=False)
         # prefill may opt into the norm bound (a tolerance contract)
@@ -362,6 +451,32 @@ class Engine:
         # kernels.LAUNCHES counts a graph's launches once, at its capture
         self.graph_stats = dict(captures=0, replays=0, captured={},
                                 replayed={})
+        self._pcache = (PrefixCache(self._alloc,
+                                    engine_cfg.prefix_cache_entries)
+                        if engine_cfg.prefix_cache else None)
+        # speculative decoding: the draft model and its own paged caches,
+        # on the target's page geometry and tables (the draft pool mirrors
+        # the target's pages, so no second allocator); unsharded under TP
+        self._draft = None
+        if draft is not None and engine_cfg.speculate_k > 0:
+            if engine_cfg.speculate_k < 2:
+                raise ValueError(
+                    "speculate_k must be >= 2 (one pending + >=1 proposal); "
+                    "k=1 would pay the draft prefills for nothing")
+            dparams, dcfg = draft
+            if dcfg.vocab_size != model_cfg.vocab_size:
+                raise ValueError("draft vocab must match the target's")
+            dccfg = dataclasses.replace(cache_cfg,
+                                        num_kv_heads=dcfg.num_kv_heads,
+                                        head_dim=dcfg.head_dim)
+            self._draft = dict(
+                params=dparams, cfg=dataclasses.replace(
+                    dcfg, attn_bound_max=False),
+                caches=[PagedKVCache.create(dccfg, self.device)
+                        for _ in range(dcfg.num_layers)],
+                lens={})  # slot → tokens the draft cache stores (host)
+        self._spec_proposed = 0
+        self._spec_accepted = 0
 
     def _make_caches(self):
         """One paged cache a layer; under tensor parallelism one such list
@@ -421,6 +536,7 @@ class Engine:
                 waiting=len(self.waiting),
                 free_pages=self._alloc.num_free(),
                 preemptions=self._preemptions,
+                **self._feature_stats(),
             )
             self._metrics_fh.write(json.dumps(row) + "\n")
             self._metrics_fh.flush()
@@ -446,7 +562,22 @@ class Engine:
             free_pages=self._alloc.num_free(),
             graph_captures=self.graph_stats["captures"],
             graph_replays=self.graph_stats["replays"],
+            **self._feature_stats(),
         )
+
+    def _feature_stats(self) -> dict:
+        """The prefix cache's and the speculation's counters, where on."""
+        out = {}
+        if self._pcache is not None:
+            out["prefix_cache"] = self._pcache.stats()
+        if self._draft is not None:
+            out["speculative"] = self.spec_stats()
+        return out
+
+    def spec_stats(self) -> dict:
+        """Draft proposals verified and accepted so far."""
+        return dict(proposed=self._spec_proposed,
+                    accepted=self._spec_accepted)
 
     def run(self, max_steps: int = 10_000) -> List[FinishedRequest]:
         steps = 0
@@ -515,9 +646,12 @@ class Engine:
 
     # ---- internals ------------------------------------------------------
 
-    def _key_for(self, rid: int) -> int:
-        """The request's sampling key as an int64 value."""
-        return _i64(request_key(self.ecfg.seed, rid))
+    def _key_for(self, rid: int, stream: Optional[int] = None) -> int:
+        """The request's sampling key as an int64 value; ``stream``: the key
+        on that noise stream (:func:`stream_key`) instead."""
+        if stream is None:
+            return _i64(request_key(self.ecfg.seed, rid))
+        return _i64(stream_key(self.ecfg.seed, rid, stream))
 
     def _dev(self, a) -> torch.Tensor:
         return torch.as_tensor(np.asarray(a), device=self.device)
@@ -544,28 +678,93 @@ class Engine:
         # entries beyond the allocated count stay 0 → trash. At admission
         # the slot's length is reset (a recycled slot's stale length would
         # expose old pages); decode-time extends keep it.
+        # A prefix hit's length is its cached prefix. The draft caches
+        # mirror the target's tables and lengths.
         npages = self._alloc.num_pages(slot)
         row = np.zeros(self.ccfg.max_pages_per_seq, np.int32)
         row[:npages] = self._alloc.table(slot)[:npages] + 1
         row_t = torch.as_tensor(row, device=self.device)
-        for c in self._all_caches():
+        drafts = self._draft["caches"] if self._draft is not None else []
+        for c in self._all_caches() + drafts:
             c.page_tables[slot] = row_t.to(c.page_tables.device)
             if set_length is not None:
                 c.lengths[slot].fill_(set_length)
 
+    def _evict_for_pool(self) -> bool:
+        """Drop LRU prefix-cache entries until a page actually returns to
+        the pool (entries whose pages a table still holds free nothing).
+        False when the cache is drained, or off."""
+        if self._pcache is None:
+            return False
+        while len(self._pcache):
+            if self._pcache.evict(4):
+                return True
+        return False
+
+    def _chunk_bucket(self, n: int) -> int:
+        """The prefill chunk of an n-token tail: its bucket rounded up to a
+        page multiple (a chunk writes whole pages)."""
+        ps = self.ccfg.page_size
+        return -(-self._bucket(max(n, 1)) // ps) * ps
+
+    def _can_admit(self) -> bool:
+        return bool(self.waiting and self._free_slots
+                    and len(self.running) + len(self.prefilling)
+                    < self.ecfg.max_batch)
+
     def _admit(self) -> None:
         ps, cs = self.ccfg.page_size, self.ecfg.chunk_size
-        while (self.waiting and self._free_slots
-               and len(self.running) + len(self.prefilling)
-               < self.ecfg.max_batch):
+        if (self._pcache is not None and self._inflight is not None
+                and self._can_admit()):
+            # a hit's tail chunk reads pages an in-flight round's lanes
+            # share: commit the round first, as a change of batch does
+            self.flush()
+        while self._can_admit():
             req = self.waiting[0]
             slot = self._free_slots[0]
+            # Herd gate: a request whose first page a prefilling one shares
+            # waits a step, so the leader's insert turns it into a whole-
+            # chain hit rather than a one-page match.
+            if self._pcache is not None and self.prefilling:
+                head = tuple(req.prompt[:ps])
+                if any(tuple(st["req"].prompt[:ps]) == head
+                       for st in self.prefilling.values()):
+                    break
+            shared = (self._pcache.match(req.prompt, ps,
+                                         anchor=-2 - req.adapter_id)
+                      if self._pcache is not None else [])
+            # a sliver hit trades a whole-prompt prefill for a slower
+            # chunked one: require the cached prefix to be worth it
+            if shared and (len(shared) * ps
+                           < max(2 * ps, len(req.prompt) // 8)):
+                shared = []
+            if shared:
+                # the table: the shared pages, then fresh tail pages; the
+                # tail prefills through the chunked path from the cached
+                # offset, attending the shared prefix through B2
+                cached = len(shared) * ps
+                pages_needed = -(-(len(req.prompt) + 1) // ps)
+                if not self._alloc.admit_shared(slot, shared,
+                                                pages_needed - len(shared)):
+                    if self._evict_for_pool():
+                        continue  # pages came back; retry this request
+                    break
+                self.waiting.popleft()
+                self._free_slots.popleft()
+                self._sync_slot_tables(slot, set_length=cached)
+                tail = len(req.prompt) - cached
+                self.prefilling[slot] = dict(
+                    req=req, done=cached, pages=pages_needed,
+                    chunk=min(self._chunk_bucket(tail), cs or 10**9))
+                continue
             chunked = cs is not None and len(req.prompt) > cs
             bucket = cs if chunked else self._bucket(len(req.prompt) + 1)
             # a chunked prompt is page-covered whole, plus one decode token
             pages_needed = -(-(len(req.prompt) + 1 if chunked else bucket)
                              // ps)
             if not self._alloc.admit(slot, pages_needed):
+                if self._evict_for_pool():
+                    continue  # pages came back; retry this request
                 break  # pool exhausted; retry next step
             self.waiting.popleft()
             self._free_slots.popleft()
@@ -587,7 +786,9 @@ class Engine:
             return
         slot, st = next(iter(self.prefilling.items()))
         req, done = st["req"], st["done"]
-        cs, ps = self.ecfg.chunk_size, self.ccfg.page_size
+        # a prefix hit's tail runs in a chunk of its own size
+        cs = st.get("chunk") or self.ecfg.chunk_size
+        ps = self.ccfg.page_size
         chunk = req.prompt[done:done + cs]
         true_n = len(chunk)
         toks = np.zeros((1, cs), np.int64)
@@ -634,7 +835,14 @@ class Engine:
                        logits: torch.Tensor) -> None:
         """Sample a prefilled prompt's first token from its last position's
         ``(1, vocab)`` logits (it lands at position ``len(prompt)``) and put
-        the request on the decode batch."""
+        the request on the decode batch; first index its full prompt pages
+        in the prefix cache and seed the draft's caches, where on."""
+        if self._pcache is not None:
+            self._pcache.insert(req.prompt, self._alloc.table(slot),
+                                self.ccfg.page_size,
+                                anchor=-2 - req.adapter_id)
+        if self._draft is not None:
+            self._draft_prefill(req.prompt, slot)
         n = len(req.prompt)
         row = [req.temperature, req.top_k, req.top_p]
         tok_lp = _sample_packed(
@@ -674,7 +882,11 @@ class Engine:
         while need > r.alloc_tokens:
             if self._alloc.num_pages(slot) >= self.ccfg.max_pages_per_seq:
                 return "cap"
-            if self._alloc.extend(slot) is None:
+            page = self._alloc.extend(slot)
+            if page is None and self._evict_for_pool():
+                # cached but unused pages go before a live sequence
+                page = self._alloc.extend(slot)
+            if page is None:
                 if synced:
                     self._sync_slot_tables(slot)
                 return "pool"
@@ -757,7 +969,19 @@ class Engine:
         if not self.running:
             self.flush()  # every in-flight lane is dead: drain it
             return
-        if self.ecfg.decode_steps > 1:
+        K = self.ecfg.speculate_k
+        if self._draft is not None:
+            # a speculative round runs on committed state; a lane that
+            # cannot page-cover the K pre-acceptance writes makes the
+            # whole step a plain one
+            self.flush()
+            if not self.running:
+                return
+            if all(self._ensure_capacity(s, ahead=K) == "ok"
+                   for s in sorted(self.running)[:self.ecfg.max_batch]):
+                self._decode_speculative(K)
+                return
+        elif self.ecfg.decode_steps > 1:
             remaining = self._remaining()
             if remaining <= 0:
                 # the round in flight finishes every lane: drain it rather
@@ -814,6 +1038,150 @@ class Engine:
         for c in self._all_caches():
             c.lengths[self._trash_slot].fill_(0)
         return _sample_packed(logits, samp, keys, positions + 1, host_samp)
+
+    # ---- speculative decoding --------------------------------------------
+
+    def _draft_prefill(self, prompt, slot: int) -> None:
+        """Seed the draft caches with the prompt's K/V: one whole-prompt
+        draft forward (B1), padded to its bucket like the target's. A
+        prefix hit's shared draft pages are rewritten with the values the
+        same prefix gave them."""
+        dp = self._draft
+        n = len(prompt)
+        toks = np.zeros((1, self._bucket(n)), np.int64)
+        toks[0, :n] = prompt
+        _, kv = tfm.prefill(dp["params"],
+                            torch.as_tensor(toks, device=self.device),
+                            dp["cfg"])
+        for c, (k, v) in zip(dp["caches"], kv):
+            c.write_prompt(slot, k[0].transpose(0, 1), v[0].transpose(0, 1))
+            c.lengths[slot].fill_(n)
+        dp["lens"][slot] = n
+
+    def _draft_step(self, tokens, positions, slots, samp, keys,
+                    pages_bound: int, host_samp):
+        """One draft decode step of every lane (B2 with B3 fused on the
+        draft's caches): the sampled proposal (from the request's own
+        truncated distribution over the draft's logits, on the draft
+        stream) and that distribution, for the acceptance ratio."""
+        dp = self._draft
+        logits, _ = tfm.decode_step(dp["params"], tokens, positions,
+                                    dp["caches"], slots, dp["cfg"],
+                                    pages_bound=pages_bound)
+        for c in dp["caches"]:
+            c.lengths[self._trash_slot].fill_(0)
+        return (_device_sample(logits, samp, keys, positions + 1, host_samp),
+                _trunc_dist(logits, samp, host_samp))
+
+    def _decode_speculative(self, K: int) -> None:
+        """One speculative round: the draft proposes K − 1 tokens a lane in
+        micro-steps (first feeding the confirmed tokens its cache lacks,
+        ending with the pending one), one target ``decode_verify`` scores
+        the pending token and the proposals, and :func:`_spec_accept`
+        emits 1 + accepted tokens a lane, distributed as plain decoding's.
+        The micro-steps chain on the device (a lane's next input is its
+        next feed token, else its last proposal); the round fetches once.
+        Rejected tokens' K/V stay as length-masked garbage."""
+        dp = self._draft
+        mb = self.ecfg.max_batch
+        lanes = sorted(self.running)[:mb]
+        n = len(lanes)
+        bound = self._pages_bound(ahead=K)
+        feeds = [self.running[s].tokens[dp["lens"].get(s, 0):] for s in lanes]
+        steps = max(len(f) for f in feeds) + K - 2
+        samp_np = np.zeros((mb, 3), np.float32)
+        samp_np[:, 2] = 1.0
+        slots_np = np.full(mb, self._trash_slot, np.int32)
+        dkeys_np, akeys_np = np.zeros(mb, np.int64), np.zeros(mb, np.int64)
+        dpos_np, pos_np = np.zeros(mb, np.int32), np.zeros(mb, np.int32)
+        feed_np = np.zeros((steps, mb), np.int64)
+        use_np = np.zeros((steps, mb), bool)
+        pend_np = np.zeros(mb, np.int64)
+        for lane, (s, f) in enumerate(zip(lanes, feeds)):
+            r = self.running[s]
+            samp_np[lane] = (r.temperature, r.top_k, r.top_p)
+            slots_np[lane] = s
+            dkeys_np[lane] = self._key_for(r.rid, DRAFT_STREAM)
+            akeys_np[lane] = self._key_for(r.rid, ACCEPT_STREAM)
+            dpos_np[lane] = dp["lens"].get(s, 0)
+            pos_np[lane] = len(r.tokens) - 1  # the pending token's
+            pend_np[lane] = r.next_token
+            feed_np[:len(f), lane] = f
+            use_np[:len(f), lane] = True
+        samp, slots, dkeys, akeys, dpos, pos, feed, use = (
+            self._dev(a) for a in (samp_np, slots_np, dkeys_np, akeys_np,
+                                   dpos_np, pos_np, feed_np, use_np))
+        vocab = self.mcfg.vocab_size
+        qd = torch.zeros((mb, K - 1, vocab), dtype=torch.float32,
+                         device=self.device)
+        prop = torch.zeros((mb, K - 1), dtype=torch.int64, device=self.device)
+        idle = torch.arange(mb, device=self.device) >= n
+        out = None
+        for si in range(steps):
+            toks = feed[si] if out is None else torch.where(use[si], feed[si],
+                                                            out)
+            # idle lanes stay at position 0 of the trash slot
+            out, qrow = self._draft_step(
+                toks, torch.where(idle, 0, dpos + si).to(torch.int32), slots,
+                samp, dkeys, bound, samp_np)
+            # proposal i of a lane comes from its micro-step len(feed) − 1 + i
+            hits = [(lane, si - len(f) + 1) for lane, f in enumerate(feeds)
+                    if 0 <= si - len(f) + 1 < K - 1]
+            if hits:
+                li, ii = (self._dev(np.asarray(x, np.int64))
+                          for x in zip(*hits))
+                qd[li, ii] = qrow[li]
+                prop[li, ii] = out[li]
+        toks_v = torch.cat([self._dev(pend_np)[:, None], prop], dim=1)
+        logits, _ = tfm.decode_verify(self.params, toks_v, pos, self.caches,
+                                      slots, self.mcfg, pages_bound=bound,
+                                      tp=self.tp)
+        b, _, v = logits.shape
+        p_all = _trunc_dist(logits.reshape(b * K, v),
+                            samp.repeat_interleave(K, dim=0),
+                            np.repeat(samp_np, K, axis=0)).reshape(b, K, v)
+        m, final = _spec_accept(toks_v, p_all, qd, _fold(akeys, pos))
+        logp = torch.log_softmax(logits, dim=-1)
+        rows = torch.arange(b, device=logits.device)
+        lp_prop = logp[:, :K - 1].gather(-1, toks_v[:, 1:, None])[..., 0]
+        lp_final = logp[rows, m].gather(-1, final[:, None])
+        # every verified slot: length base + m + 1; the trash slot: 0
+        idx = slots[:n].long()
+        new_len = (pos + m + 1).to(torch.int32)[:n]
+        for c in self._all_caches():
+            dev = c.lengths.device
+            c.lengths.index_copy_(0, idx.to(dev), new_len.to(dev))
+            c.lengths[self._trash_slot].fill_(0)
+        host = torch.cat([prop.float(), m[:, None].float(),
+                          final[:, None].float(), lp_prop, lp_final],
+                         dim=1).cpu().numpy()
+        dlens = np.zeros(n, np.int32)
+        for lane, s in enumerate(lanes):
+            r = self.running[s]
+            base = len(r.tokens) - 1
+            acc = int(host[lane, K - 1])
+            self._spec_proposed += K - 1
+            self._spec_accepted += acc
+            # the draft stored every confirmed token through base, and of
+            # the proposals d_i (at base + i) only d_1 … d_{K−2} were fed
+            dlens[lane] = base + min(acc, K - 2) + 1
+            dp["lens"][s] = int(dlens[lane])
+            new = [int(x) for x in host[lane, :acc]] + [int(host[lane, K])]
+            lps = [float(x) for x in host[lane, K + 1:K + 1 + acc]]
+            lps.append(float(host[lane, 2 * K]))
+            for tok, lp in zip(new, lps):
+                r.tokens.append(tok)
+                r.next_token = tok
+                r.logprobs.append(lp)
+                self._tokens_out += 1
+                self._maybe_finish(s)
+                if s not in self.running:
+                    break
+        for c in dp["caches"]:
+            c.lengths.index_copy_(0, idx, self._dev(dlens))
+        for s in list(dp["lens"]):
+            if s not in self.running and s not in self.prefilling:
+                dp["lens"].pop(s)
 
     def _remaining(self) -> int:
         """The most tokens a running lane has still to make, less those
