@@ -79,7 +79,27 @@ run's, a hit admitted with length 0 rejected, the shared pages' bytes
 unchanged, the hit tail's B2 shared-route call against its plain
 version); checkpoint and resume of the engine cell (bf16, and int8 weights
 in rounds of 8) against the uninterrupted run (a swapped page-table row
-rejected), and supervised runs with a crash, plain and speculative. B4/B5 are held against their plain version on every
+rejected), and supervised runs with a crash, plain and speculative;
+then the MoE model and multi-LoRA (phases moe_serve, lora_serve,
+ep_dryrun): the canonical model with 8 experts a layer, top-2, at the
+drop-free capacity factor 4 (9.39 GB of weights) served from the int8
+cache in one-token steps and in async rounds of 8 as CUDA graphs (streams
+equal; against the teacher-forced forward routed as the decode was, drift
+≤ 0.15 and flipped tokens only at near-ties, at most one in 8; routing
+flips against the free forward at most one decision in 8; one step's and
+one prefill's device time by group beside the byte floor; a dropful
+capacity factor refused), its float32 2-layer cut decoding as that
+forward but at near-ties (un-renormalized gates must fail); the bf16
+canonical model with 4 rank-16 adapters on wq/wk/wv/wo
+serving 24 requests of mixed adapters in one-token steps and in rounds
+of 8 (streams equal while lanes change adapters, a graph whose id buffer
+is not refreshed must part), the prefix cache scoped by adapter, a zero
+bank bit for bit the base engine, beside the base engine's times, and in
+float32 at 2 layers each adapter's stream equal to its merged model's and
+a mixed batch to solo runs but at near-ties; one layer's decode call (B3
+fused) of each engine against the plain versions; and the dry run's
+expert-parallel step over 4 expert ranks against the unsharded step.
+B4/B5 are held against their plain version on every
 schedule kind (dense, causal, local, local_causal, circulant, block) in
 each kernel family and under the int8 dp product. B1, B4/B5 and B14 rows
 give two times: the kernel's device
@@ -187,7 +207,14 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12,
 PEAK_BYTES = 3.35e12
 
 
+# the run's start: each phase's line carries the seconds since it
+# (elapsed_s), so the phases' shares of the time limit can be read off
+START = time.perf_counter()
+
+
 def emit(obj) -> None:
+    if "phase" in obj:
+        obj = dict(obj, elapsed_s=time.perf_counter() - START)
     print(json.dumps(obj), flush=True)
 
 
@@ -646,10 +673,10 @@ def multistep_serve(params, mcfg, prompts, dev, decode_steps, async_decode):
     return out
 
 
-def held_streams(name, got, want, tol=TOL_STEPS_LOGPROB) -> float:
-    """Every request of ``got`` has ``want``'s tokens and finish reason,
-    logprobs within ``tol``; returns the largest logprob gap."""
-    if sorted(got) != sorted(want) or sorted(got) != list(range(N_REQUESTS)):
+def same_streams(name, got, want, tol=TOL_STEPS_LOGPROB) -> float:
+    """Every request of ``want`` finished in ``got`` with its tokens and
+    finish reason, logprobs within ``tol``; returns the largest gap."""
+    if sorted(got) != sorted(want):
         raise AssertionError(f"{name}: finished {sorted(got)}")
     worst = 0.0
     for rid, f in want.items():
@@ -660,6 +687,14 @@ def held_streams(name, got, want, tol=TOL_STEPS_LOGPROB) -> float:
                                                     f.logprobs)).max()))
     check(f"{name}: logprobs", worst, tol)
     return worst
+
+
+def held_streams(name, got, want, tol=TOL_STEPS_LOGPROB) -> float:
+    """The N_REQUESTS requests of ``want`` all finished, and ``got`` holds
+    them alike (:func:`same_streams`); returns the largest logprob gap."""
+    if sorted(want) != list(range(N_REQUESTS)):
+        raise AssertionError(f"{name}: finished {sorted(want)}")
+    return same_streams(name, got, want, tol)
 
 
 def held_verify_b2(calls) -> dict:
@@ -1023,16 +1058,23 @@ def library_backward(q, k, v, do, causal, window_left=None):
 
 
 def device_kernel_names(fn) -> list:
-    """Names of the device kernels one ``fn`` call launches (profiler)."""
+    """Names of the device kernels one ``fn`` call launches (profiler).
+    A trace that recorded no device activity at all is taken once more:
+    the card's tracing has been seen to come back empty once in a run."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return sorted({e.key for e in prof.key_averages()
-                   if e.device_type == torch.autograd.DeviceType.CUDA})
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = sorted({e.key for e in prof.key_averages()
+                        if e.device_type == torch.autograd.DeviceType.CUDA})
+        if names:
+            return names
+    return names
 
 
 @contextlib.contextmanager
@@ -4529,8 +4571,6 @@ def spec_kernel_checks(params, mcfg, draft, prompts, dev) -> dict:
     the cache as it found it: its o the main path's bit for bit, o and
     lse against the plain B2 after the plain B3, the pages bit for bit."""
     _, CacheConfig, tfm, eng_mod = _features()
-    from tpu_flash_torch.ops import paged
-
     eng = eng_mod.Engine(params, mcfg, CacheConfig(**SPEC_CACHE),
                          eng_mod.EngineConfig(max_batch=MAX_BATCH,
                                               speculate_k=4), draft=draft)
@@ -4567,7 +4607,39 @@ def spec_kernel_checks(params, mcfg, draft, prompts, dev) -> dict:
     if len(calls["verify"]) != mcfg.num_layers or calls["draft"] is None:
         raise AssertionError("speculative round: B2 calls not recorded")
     verify = held_verify_b2(calls["verify"])
-    d = calls["draft"]
+    draft_step = held_fused_b2(calls["draft"], "draft micro-step")
+    del eng, calls
+    torch.cuda.empty_cache()
+    return dict(verify=verify, draft_step=draft_step)
+
+
+def record_fused(cache, rec: dict):
+    """A recorder for ``tfm.paged_attention``: the first decode call on
+    ``cache`` (B2 with B3's append fused) goes into ``rec`` with a copy
+    of the cache as it found it, its inputs and its o."""
+    from tpu_flash_torch.models import transformer as tfm
+
+    real = tfm.paged_attention
+
+    def recorded(q, c, slots, **kw):
+        if c is cache and not rec and kw.get("new_kv") is not None:
+            rec.update(q=q.clone(), pre=_cache_copy(c), slots=slots.clone(),
+                       kw=kw, new_kv=tuple(t.clone() for t in kw["new_kv"]))
+            out = real(q, c, slots, **kw)
+            rec["o"] = out[0].clone()
+            return out
+        return real(q, c, slots, **kw)
+
+    return recorded
+
+
+def held_fused_b2(d: dict, name: str) -> dict:
+    """A recorded decode call (:func:`record_fused`) re-run on a copy of
+    the cache as it found it: its o the main path's bit for bit; the
+    pages bit for bit B3's plain append; o and lse against the plain B2
+    after it, under the card's split plan, within TOL_BF16."""
+    from tpu_flash_torch.ops import paged
+
     c, q, slots = d["pre"], d["q"], d["slots"]
     pt = c.config.page_type
     b, qh, hd = q.shape
@@ -4591,22 +4663,19 @@ def spec_kernel_checks(params, mcfg, draft, prompts, dev) -> dict:
     got = fused(fc, True)
     torch.cuda.synchronize()
     if not torch.equal(main[0].reshape(b, qh, hd), d["o"]):
-        raise AssertionError("draft micro-step B2: the wrapper's o is not "
-                             "the main path's")
+        raise AssertionError(f"{name} B2: the wrapper's o is not the main "
+                             "path's")
     paged._paged_append_plain(kn, vn, pc.k_pages, pc.v_pages, pc.k_scales,
                               pc.v_scales, slots, pc.lengths, pc.page_tables,
                               page_type=pt)
-    _same_cache("draft micro-step fused B3", fc, pc)
+    _same_cache(f"{name} fused B3", fc, pc)
     split = _card_plan(qg, pc)
-    errs = _held_b2("draft micro-step B2", got, paged._paged_attention_plain(
+    errs = _held_b2(f"{name} B2", got, paged._paged_attention_plain(
         qg, *_b2_args(qg, pc, slots, 1, bound)[1:], split_pages=split,
         page_type=pt))
-    del eng, calls
-    torch.cuda.empty_cache()
-    return dict(verify=verify, draft_step=dict(
-        lanes=b, kv_heads=kvh, g=qh // kvh, d=hd, page_type=pt,
-        pages_bound=bound, split_pages=split, append_bit_exact=True,
-        main_path_o_bitwise=True, tol=TOL_BF16, **errs))
+    return dict(lanes=b, kv_heads=kvh, g=qh // kvh, d=hd, page_type=pt,
+                pages_bound=bound, split_pages=split, append_bit_exact=True,
+                main_path_o_bitwise=True, tol=TOL_BF16, **errs)
 
 
 def speculative_phase(dev, smi: str) -> dict:
@@ -5156,6 +5225,918 @@ def feature_phases(dev, smi: str) -> dict:
     return out
 
 
+# ---- the last serving features: MoE models and multi-LoRA ---------------
+
+# MoE serving: the canonical model with 8 experts a layer, top-2, at the
+# drop-free capacity factor E / top_k that the serving guard demands (8.86
+# GB of experts, 9.39 GB of weights); the engine cell's int8 cache, 16
+# lanes, 16 greedy requests of 512 + 32 tokens, one-token steps, then
+# async rounds of MULTISTEP_K as CUDA graphs
+MOE = dict(MODEL, moe_experts=8, moe_top_k=2, moe_capacity_factor=4.0)
+# ROADMAP C: top-k flips at near-ties. A router near-tie resolved the other
+# way in bf16 (decode's hidden states differ from the forward's by the
+# int8 cache's error) swaps an expert, which moves that token's logits by
+# ~1: the drift against a free teacher-forced forward is no bound. So the
+# int8 rule (drift ≤ TOL_LOGPROB) is held against the teacher-forced
+# forward routed as the served decode was (its expert choices forced at
+# the generated positions; the prompt's routing is the engine's prefill's
+# bit for bit); routing flips (served experts ≠ the free forward's) are
+# counted, at most one decision in MOE_FLIP_SHARE; a flipped token
+# (served ≠ that forward's argmax) only where the forward's logit of the
+# argmax exceeds the served token's by at most twice the drift bound, at
+# most one token in MOE_FLIP_SHARE (a random model's top-2 logit gap is
+# ~0.2 on average at this width)
+MOE_FLIP_SHARE = 1 / 8
+MOE_FLIP_GAP = 2 * TOL_LOGPROB
+# the float32 checks: the same widths cut to 2 layers over a float32 cache
+EXACT_LAYERS = 2
+EXACT_STEPS = 8
+# multi-LoRA: the bf16 canonical model and 4 adapters of rank 16 on
+# wq/wk/wv/wo, b ~ N(0, σ²) from a seed, σ scaled from tests/test_lora.py:
+# 33-46's fill (0.3 at dim 64, rank 4) so that an adapter's delta is as
+# large beside the base projection as there (1.2 times its output's std:
+# Var(x·a·b) = dim · rank⁻² · rank · σ²); a zero b is a no-op; the engine
+# cell's 16 requests with adapters
+# −1, 0, 1, 2, 3 interleaved over the lanes and 16 + i new tokens (lanes
+# finish one a step), then LORA_EXTRA more admitted into the freed lanes,
+# the first three on one LORA_SHARED-token prompt under adapters 0, 1, 0
+# (the prefix cache is on: a hit within adapter 0, none across)
+LORA_ADAPTERS, LORA_RANK = 4, 16
+LORA_B_STD = 0.3 * math.sqrt((64 / 4) / (MODEL["dim"] / LORA_RANK))
+LORA_SHARED, LORA_EXTRA = 1024, 8
+
+
+def tree_bytes(tree) -> int:
+    from tpu_flash_torch.graft_entry import param_leaves
+
+    return sum(t.numel() * t.element_size() for t in param_leaves(tree))
+
+
+def served(eng, reqs, warm=None) -> dict:
+    """:func:`run_engine` with the run's tokens, tok/s and median step ms
+    (after the first step, which admits and prefills)."""
+    run = run_engine(eng, reqs, warm=warm)
+    tokens = sum(len(f.new_tokens) for f in run["done"].values())
+    run.update(tokens=tokens, tok_s=tokens / run["wall_s"],
+               step_ms_median=float(np.median(run["step_ms"][1:])))
+    return run
+
+
+def teacher_forced_flips(params, mcfg, done) -> dict:
+    """Each stream against a forward over it (its tokens but the last):
+    a flip is a new token that is not the forward's argmax, its gap the
+    forward's top logit less the served token's; the drift is the largest
+    |served logprob − forward logprob|. Streams of one length share a
+    forward."""
+    _, _, tfm, _ = _features()
+    dev = params["embed"].device
+    by_len = {}
+    for rid, f in sorted(done.items()):
+        by_len.setdefault((len(f.tokens), len(f.new_tokens)), []).append(f)
+    flips, drift, n = [], 0.0, 0
+    for (_, n_new), fs in by_len.items():
+        toks = torch.tensor([f.tokens[:-1] for f in fs], device=dev)
+        logits = tfm.forward(params, toks, mcfg)[:, -n_new:].float()
+        lp = torch.log_softmax(logits, dim=-1)
+        for f, lg, lpr in zip(fs, logits, lp):
+            new = torch.tensor(f.new_tokens, device=dev)
+            drift = max(drift, float((lpr.gather(1, new[:, None])[:, 0]
+                                      - torch.tensor(f.logprobs, device=dev))
+                                     .abs().max()))
+            top = lg.argmax(-1)
+            for j in torch.nonzero(top != new)[:, 0].tolist():
+                flips.append(dict(rid=f.rid, new_token=j, gap=float(
+                    lg[j, top[j]] - lg[j, new[j]])))
+            n += n_new
+        del logits, lp
+    return dict(tokens=n, flips=flips, max_gap=max(
+        (x["gap"] for x in flips), default=0.0), drift=drift)
+
+
+def step_forward_distance(params, mcfg, prompts, cache,
+                          steps=EXACT_STEPS) -> float:
+    """max |decode_step logits − forward logits| over ``steps`` greedy
+    steps of the prompts' lanes (prefilled by an engine), each lane's
+    forward routed as its decode steps were (:func:`routed_forward`): how
+    far a served step may lie from the teacher-forced forward in this
+    model once the experts agree."""
+    from tpu_flash_torch.models import moe
+    _, CacheConfig, tfm, eng_mod = _features()
+    eng = eng_mod.Engine(params, mcfg, CacheConfig(**cache),
+                         eng_mod.EngineConfig(max_batch=MAX_BATCH))
+    for i, p in enumerate(prompts):
+        eng.submit(eng_mod.Request(rid=i, prompt=p, max_new_tokens=steps + 4))
+    eng._admit()
+    lanes = sorted(eng.running)
+    seqs = [list(eng.running[s].tokens) for s in lanes]
+    bucket, start = eng._bucket(len(prompts[0]) + 1), len(prompts[0])
+    dev = params["embed"].device
+    slots = torch.tensor(lanes, dtype=torch.int32, device=dev)
+    real, recorded, dist = moe._route, [], 0.0
+    for _ in range(steps):
+        calls = []
+
+        def recording(logits, top_k, capacity):
+            r, aux = real(logits, top_k, capacity)
+            calls.append((logits[:, 0].float().clone(),
+                          r.experts[:, 0].clone()))
+            return r, aux
+
+        toks = torch.tensor([q[-1] for q in seqs], device=dev)
+        pos = torch.tensor([len(q) - 1 for q in seqs], dtype=torch.int32,
+                           device=dev)
+        moe._route = recording
+        try:
+            got, _ = tfm.decode_step(params, toks, pos, eng.caches, slots,
+                                     mcfg)
+        finally:
+            moe._route = real
+        recorded.append(calls)
+        for lane, q in enumerate(seqs):
+            want = routed_forward(params, mcfg, q, bucket, start, lane,
+                                  recorded)["logits"][-1]
+            dist = max(dist, float((got[lane] - want).abs().max()))
+        seqs = [q + [int(t)] for q, t in zip(seqs, got.argmax(-1).tolist())]
+    del eng
+    torch.cuda.empty_cache()
+    return dist
+
+
+def grouped_profile(fn, groups: dict) -> dict:
+    """torch.profiler over one ``fn()``: the device ms of its kernels, and
+    of those launched inside each group (``name → (module, attribute)``,
+    the function wrapped in a ``record_function`` range), nested groups
+    counted in each; the busy share of the host-clock window."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    saved = []
+    for name, (mod, attr) in groups.items():
+        real = getattr(mod, attr)
+
+        def wrapped(*a, _real=real, _name=name, **kw):
+            with record_function(f"group:{_name}"):
+                return _real(*a, **kw)
+
+        setattr(mod, attr, wrapped)
+        saved.append((mod, attr, real))
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        for mod, attr, real in saved:
+            setattr(mod, attr, real)
+    ev = prof.key_averages()
+    cuda, cpu = torch.autograd.DeviceType.CUDA, torch.autograd.DeviceType.CPU
+    # the ranges' own device-side spans are not kernels
+    kern = [e for e in ev if e.device_type == cuda
+            and not e.key.startswith("group:")]
+    total = sum(e.self_device_time_total for e in kern) / 1e3
+    out = dict(device_ms=total, host_ms=host_ms,
+               activities=sum(e.count for e in kern),
+               paged_kernels_ms=sum(e.self_device_time_total for e in kern
+                                    if "paged" in e.key) / 1e3)
+    for name in groups:
+        out[f"{name}_ms"] = sum(e.device_time_total for e in ev
+                                if e.key == f"group:{name}"
+                                and e.device_type == cpu) / 1e3
+    out["top_kernels"] = [
+        [e.key[:60], e.count, e.self_device_time_total / 1e3]
+        for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:10]]
+    return out
+
+
+def record_routes(eng, reqs) -> tuple:
+    """Serve ``reqs`` on ``eng`` with ``moe._route`` recording its decode
+    calls (one token a lane): the finished requests, and for each decode
+    step and layer the lanes' router logits ``(B, E)`` and choices ``(B,
+    k)``."""
+    from tpu_flash_torch.models import moe
+
+    real, calls = moe._route, []
+
+    def recording(logits, top_k, capacity):
+        r, aux = real(logits, top_k, capacity)
+        if logits.shape[1] == 1:
+            calls.append((logits[:, 0].float().clone(),
+                          r.experts[:, 0].clone()))
+        return r, aux
+
+    moe._route = recording
+    try:
+        for r in reqs:
+            eng.submit(r)
+        done = {f.rid: f for f in eng.run()}
+    finally:
+        moe._route = real
+    layers = len(eng.params["layers"])
+    return done, [calls[i:i + layers] for i in range(0, len(calls), layers)]
+
+
+def routed_forward(params, mcfg, tokens, bucket: int, start: int, lane: int,
+                   steps) -> dict:
+    """A teacher-forced forward over ``tokens`` padded to ``bucket`` (the
+    engine's prefill shape, so the prompt's routing and K/V are the
+    prefill's bit for bit), each layer's expert choices at positions
+    ``start …`` forced to lane ``lane``'s recorded decode choices
+    (:func:`record_routes`; the gates renormalized from the forward's own
+    router probabilities). Returns its logits at ``start − 1 …`` and, per
+    decode step and layer, whether the free forward chose other experts
+    and by what router-logit margin."""
+    from tpu_flash_torch.models import moe
+    _, _, tfm, _ = _features()
+
+    real = moe._route
+    n = len(steps)
+    flips, margins, dist = 0, [], 0.0
+    layer = [0]
+
+    def forced(logits, top_k, capacity):
+        nonlocal flips, dist
+        li = layer[0]
+        layer[0] += 1
+        dec = torch.stack([st[li][1][lane] for st in steps])  # (n, k)
+        dec_logits = torch.stack([st[li][0][lane] for st in steps])
+        free_r, _ = real(logits, top_k, capacity)
+        lg = logits.float()
+        window = lg[0, start:start + n]
+        dist = max(dist, float((window - dec_logits).abs().max()))
+        free = free_r.experts[0, start:start + n]
+        for s in range(n):
+            if set(free[s].tolist()) != set(dec[s].tolist()):
+                flips += 1
+                extra = [e for e in dec[s].tolist()
+                         if e not in free[s].tolist()]
+                kth = window[s, free[s]].min()
+                margins.append(float(kth - window[s, extra].max()))
+        # large enough to decide the argmax, small enough that the second
+        # choice's probability stays a normal float32 (its argmax too)
+        bonus = torch.tensor([60.0, 30.0][:top_k], device=lg.device)
+        lg2 = lg.clone()
+        lg2[0, start:start + n].scatter_add_(-1, dec, bonus.expand(n, -1))
+        r, aux = real(lg2, top_k, capacity)
+        probs = torch.softmax(lg, dim=-1)
+        g = probs.gather(-1, r.experts) * r.keep.float()
+        r.weights = g / g.sum(-1, keepdim=True).clamp_min(1e-30)
+        return r, aux
+
+    toks = torch.zeros((1, bucket), dtype=torch.int64,
+                       device=params["embed"].device)
+    toks[0, :len(tokens)] = torch.tensor(tokens, device=toks.device)
+    moe._route = forced
+    try:
+        logits = tfm.forward(params, toks, mcfg)[0, start - 1:start + n]
+    finally:
+        moe._route = real
+    return dict(logits=logits.float(), route_flips=flips, margins=margins,
+                router_distance=dist)
+
+
+def routed_stats(params, mcfg, reqs, done, steps, bucket: int) -> dict:
+    """The served streams ``done`` (of ``reqs``, lane i = request i, with
+    their recorded decode routes ``steps``) against the teacher-forced
+    forward routed as their decode was (:func:`routed_forward`): the
+    drift, the flipped tokens and their gaps; and the routing flips
+    against the free forward."""
+    start = len(reqs[0].prompt)  # the first generated token's position
+    drift, flips, route_flips, margins, dist, n_tok = 0.0, [], 0, [], 0.0, 0
+    for lane, r in enumerate(reqs):
+        f = done[r.rid]
+        out = routed_forward(params, mcfg, f.tokens[:-1], bucket, start,
+                             lane, steps)
+        lg = out["logits"]
+        lp = torch.log_softmax(lg, dim=-1)
+        new = torch.tensor(f.new_tokens, device=lg.device)
+        drift = max(drift, float((lp.gather(1, new[:, None])[:, 0]
+                                  - torch.tensor(f.logprobs,
+                                                 device=lg.device))
+                                 .abs().max()))
+        top = lg.argmax(-1)
+        for j in torch.nonzero(top != new)[:, 0].tolist():
+            flips.append(dict(rid=f.rid, new_token=j, gap=float(
+                lg[j, top[j]] - lg[j, new[j]])))
+        route_flips += out["route_flips"]
+        margins += out["margins"]
+        dist = max(dist, out["router_distance"])
+        n_tok += len(new)
+    decisions = len(steps) * mcfg.num_layers * len(reqs)
+    return dict(drift=drift, flips=flips, tokens=n_tok,
+                max_gap=max((x["gap"] for x in flips), default=0.0),
+                route_flips=route_flips, route_decisions=decisions,
+                route_flip_max_margin=max(margins, default=0.0),
+                router_logit_distance=dist)
+
+
+def moe_routed_check(params, mcfg, eng, reqs, want) -> dict:
+    """``eng`` serves ``reqs`` again with the routes recorded (its streams
+    ``want``'s bit for bit), held by :func:`routed_stats`."""
+    done, steps = record_routes(eng, reqs)
+    same_streams("moe_serve recorded vs one-token", done, want, tol=0.0)
+    return routed_stats(params, mcfg, reqs, done, steps,
+                        eng._bucket(len(reqs[0].prompt) + 1))
+
+
+def moe_step_profile(eng, prompts) -> dict:
+    """One decode step of the 16 lanes (after the step that admits them)
+    by group: the expert products (the slot copy, the three batched
+    products, the weighted gather), the routing (router product, softmax,
+    choices, positions: the MoE block less its experts), attention (B2
+    with B3 fused) and the rest (projections, norms, sampling); and one
+    whole-prompt prefill (a request of one token admitted alone: its
+    bucket's E·C expert slots, the reference's formulation)."""
+    from tpu_flash_torch.models import moe
+    _, _, tfm, eng_mod = _features()
+
+    groups = dict(moe=(tfm, "moe_mlp"), experts=(moe, "_experts"),
+                  attention=(tfm, "paged_attention"))
+
+    def split(prof):
+        prof["routing_ms"] = prof["moe_ms"] - prof["experts_ms"]
+        # B2's launches (ctypes) fall outside the profiler's ranges:
+        # attention is the paged kernels' own time plus the range's
+        prof["attention_ms"] += prof["paged_kernels_ms"]
+        prof["other_ms"] = (prof["device_ms"] - prof["moe_ms"]
+                            - prof["attention_ms"])
+        return prof
+
+    eng.submit(eng_mod.Request(rid=19_999, prompt=prompts[0],
+                               max_new_tokens=1))
+    prefill = split(grouped_profile(eng.step, groups))
+    for i, p in enumerate(prompts[:N_REQUESTS]):
+        eng.submit(eng_mod.Request(rid=20_000 + i, prompt=p,
+                                   max_new_tokens=4))
+    eng.step()
+    step = split(grouped_profile(eng.step, groups))
+    eng.run()
+    return dict(step=step, prefill=prefill)
+
+
+def fused_b2_at_step(eng, reqs, layer: int, name: str) -> dict:
+    """Admit ``reqs`` (one step), then record ``layer``'s B2 call (B3
+    fused) at the next decode step and hold it (:func:`held_fused_b2`)."""
+    _, _, tfm, _ = _features()
+    for r in reqs:
+        eng.submit(r)
+    eng.step()
+    rec = {}
+    real = tfm.paged_attention
+    tfm.paged_attention = record_fused(eng.caches[layer], rec)
+    try:
+        eng.step()
+        torch.cuda.synchronize()
+    finally:
+        tfm.paged_attention = real
+    eng.run()
+    if not rec:
+        raise AssertionError(f"{name}: layer {layer}'s B2 call not recorded")
+    return held_fused_b2(rec, name)
+
+
+def moe_exact(dev, prompts) -> dict:
+    """The MoE model cut to EXACT_LAYERS layers in float32 over a float32
+    cache: greedy decode against the teacher-forced forward routed as it
+    was (:func:`routed_stats`), a flip allowed only where that forward's
+    top-2 gap is below the measured step-vs-forward distance
+    (:func:`step_forward_distance`), the logprob drift within twice it
+    (lse moves by at most the largest logit move); the routing flips
+    against the free forward reported. Planted fault: un-renormalized
+    gates (each kept gate its raw probability) in the served model must
+    fail that check."""
+    from tpu_flash_torch.models import moe
+    _, CacheConfig, tfm, eng_mod = _features()
+
+    mcfg = tfm.ModelConfig(**dict(MOE, num_layers=EXACT_LAYERS,
+                                  dtype="float32"))
+    params = tfm.init_params(mcfg, torch.Generator(device=dev).manual_seed(0),
+                             dev)
+    cache = dict(CACHE, dtype="float32")
+    dist = step_forward_distance(params, mcfg, prompts[:N_REQUESTS], cache)
+    reqs = [eng_mod.Request(rid=i, prompt=p, max_new_tokens=NEW_TOKENS)
+            for i, p in enumerate(prompts[:N_REQUESTS])]
+
+    def served_stats(route=None):
+        eng = eng_mod.Engine(params, mcfg, CacheConfig(**cache),
+                             eng_mod.EngineConfig(max_batch=MAX_BATCH))
+        real = moe._route
+        moe._route = route or real
+        try:
+            done, steps = record_routes(eng, reqs)
+        finally:
+            moe._route = real
+        bucket = eng._bucket(len(reqs[0].prompt) + 1)
+        del eng
+        return routed_stats(params, mcfg, reqs, done, steps, bucket)
+
+    def held(chk):
+        return (all(x["gap"] < dist for x in chk["flips"])
+                and chk["drift"] <= 2 * dist)
+
+    def unrenormalized(logits, top_k, capacity):
+        r, aux = real(logits, top_k, capacity)
+        probs = torch.softmax(logits.float(), dim=-1)
+        r.weights = probs.gather(-1, r.experts) * r.keep.float()
+        return r, aux
+
+    real = moe._route
+    got = served_stats()
+    fault = served_stats(unrenormalized)
+    out = dict(layers=EXACT_LAYERS, step_vs_forward_distance=dist,
+               flips=got["flips"], drift=got["drift"], drift_tol=2 * dist,
+               route_flips=got["route_flips"],
+               route_decisions=got["route_decisions"],
+               route_flip_max_margin=got["route_flip_max_margin"],
+               fault_flips=len(fault["flips"]),
+               fault_max_gap=fault["max_gap"], fault_drift=fault["drift"],
+               fault_rejected=not held(fault))
+    if not held(got):
+        raise AssertionError(f"moe_serve float32: decode parts from the "
+                             f"forward beyond a near-tie: {out}")
+    if held(fault):
+        raise AssertionError("moe_serve float32: un-renormalized gates pass "
+                             f"the check: {out}")
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def moe_serve_phase(dev, smi: str) -> dict:
+    """The MoE serving path at full width (MOE): one-token steps, then the
+    same requests in async rounds of MULTISTEP_K as CUDA graphs, streams
+    equal; drift and flips against the teacher-forced forward; one step's
+    device time by group and its byte floor beside the dense model's; the
+    last layer's B2 call (B3 fused) at one step against its plain
+    versions; the float32 exactness check (:func:`moe_exact`); a dropful
+    capacity factor refused."""
+    kernels, CacheConfig, tfm, eng_mod = _features()
+    mcfg = tfm.ModelConfig(**MOE)
+    try:
+        tfm._check_serving_moe(dataclasses.replace(
+            mcfg, moe_capacity_factor=1.25))
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("moe_serve: capacity factor 1.25 was accepted")
+    rng = np.random.default_rng(0)
+    prompts = rng.integers(1, mcfg.vocab_size - 1,
+                           (N_REQUESTS + 1, PROMPT_LEN)).tolist()
+    exact = moe_exact(dev, prompts)
+    params = tfm.init_params(mcfg, torch.Generator(device=dev).manual_seed(0),
+                             dev)
+    weights = tree_bytes(params)
+    experts = sum(tree_bytes({k: lp[k] for k in ("w_gate", "w_up", "w_down")})
+                  for lp in params["layers"])
+    dense = (weights - experts - tree_bytes([lp["wr"] for lp in
+                                             params["layers"]])
+             + mcfg.num_layers * 3 * mcfg.dim * mcfg.hidden * 2)
+    reqs = [eng_mod.Request(rid=i, prompt=prompts[i],
+                            max_new_tokens=NEW_TOKENS)
+            for i in range(N_REQUESTS)]
+    warm = eng_mod.Request(rid=10_000, prompt=prompts[-1],
+                           max_new_tokens=NEW_TOKENS)
+    runs = {}
+    for name, steps in (("one_token", 1), ("rounds", MULTISTEP_K)):
+        eng = eng_mod.Engine(params, mcfg, CacheConfig(**CACHE),
+                             eng_mod.EngineConfig(max_batch=MAX_BATCH,
+                                                  decode_steps=steps))
+        runs[name] = served(eng, reqs, warm)
+        if name == "one_token":
+            profile = moe_step_profile(eng, prompts)
+            b2 = fused_b2_at_step(eng, [dataclasses.replace(
+                r, rid=30_000 + r.rid) for r in reqs],
+                mcfg.num_layers - 1, "moe_serve")
+        del eng
+        torch.cuda.empty_cache()
+    one, rounds = runs["one_token"], runs["rounds"]
+    for f in one["done"].values():
+        if (f.reason != "length" or len(f.new_tokens) != NEW_TOKENS
+                or not all(np.isfinite(f.logprobs))):
+            raise AssertionError(f"moe_serve: request {f.rid}: {f.reason}, "
+                                 f"{len(f.new_tokens)} tokens")
+    gap = same_streams("moe_serve rounds vs one-token", rounds["done"],
+                       one["done"])
+    if rounds["replays"] <= 0:
+        raise AssertionError("moe_serve: no round was a graph replay")
+    launched("moe_serve", rounds["launches"], (
+        "flash_fwd", "paged_attention_split", "paged_append_fused"))
+    free = teacher_forced_flips(params, mcfg, one["done"])
+    eng = eng_mod.Engine(params, mcfg, CacheConfig(**CACHE),
+                         eng_mod.EngineConfig(max_batch=MAX_BATCH))
+    tf = moe_routed_check(params, mcfg, eng, reqs, one["done"])
+    del eng
+    torch.cuda.empty_cache()
+    check("moe_serve: teacher-forced logprob drift (routed as served)",
+          tf["drift"], TOL_LOGPROB)
+    check("moe_serve: flipped tokens", len(tf["flips"]),
+          MOE_FLIP_SHARE * tf["tokens"])
+    check("moe_serve: flip gap", tf["max_gap"], MOE_FLIP_GAP)
+    check("moe_serve: routing flips", tf["route_flips"],
+          MOE_FLIP_SHARE * tf["route_decisions"])
+    row = dict(
+        phase="moe_serve", nvidia_smi=smi, model=MOE, cache=CACHE["dtype"],
+        requests=N_REQUESTS, prompt_len=PROMPT_LEN, new_tokens=NEW_TOKENS,
+        weights_gb=weights / 1e9, experts_gb=experts / 1e9,
+        dense_model_gb=dense / 1e9,
+        step_byte_floor_ms=weights / PEAK_BYTES * 1e3,
+        dense_step_byte_floor_ms=dense / PEAK_BYTES * 1e3,
+        ms_per_step=one["step_ms_median"],
+        ms_per_round=rounds["step_ms_median"], decode_steps=MULTISTEP_K,
+        tok_s=one["tok_s"], rounds_tok_s=rounds["tok_s"],
+        graph_replays=rounds["replays"],
+        rounds_vs_one_token_max_logprob_gap=gap,
+        teacher_forced_drift=tf["drift"], drift_tol=TOL_LOGPROB,
+        flips=len(tf["flips"]), flip_max_gap=tf["max_gap"],
+        flip_tokens=tf["tokens"], flip_share_tol=MOE_FLIP_SHARE,
+        flip_gap_tol=MOE_FLIP_GAP, route_flips=tf["route_flips"],
+        route_decisions=tf["route_decisions"],
+        route_flip_max_margin=tf["route_flip_max_margin"],
+        router_logit_distance=tf["router_logit_distance"],
+        free_forward=dict(drift=free["drift"], flips=len(free["flips"]),
+                          flip_max_gap=free["max_gap"]),
+        step_profile=profile, b2=b2,
+        float32=exact, launches=rounds["launches"],
+        one_token_launches=one["launches"],
+        peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    emit(row)
+    del params
+    torch.cuda.empty_cache()
+    return dict(launches=rounds["launches"], b2=b2)
+
+
+def lora_bank(mcfg, dev, seed: int, zero: bool = False):
+    """LORA_ADAPTERS adapters of rank LORA_RANK from ``seed``; ``b``
+    filled with N(0, LORA_B_STD²) unless ``zero``."""
+    from tpu_flash_torch.models.lora import init_lora_bank
+
+    bank = init_lora_bank(mcfg, LORA_ADAPTERS, LORA_RANK,
+                          torch.Generator(device=dev).manual_seed(seed), dev)
+    if zero:
+        return bank
+    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    for layer in bank:
+        for e in layer.values():
+            e["b"] = (torch.randn(e["b"].shape, generator=gen, device=dev)
+                      * LORA_B_STD).to(e["b"].dtype)
+    return bank
+
+
+def lora_requests(vocab: int):
+    """The engine cell's 16 prompts with adapters −1 … 3 interleaved and
+    16 + i new tokens, then LORA_EXTRA more: three on one LORA_SHARED-token
+    prompt (adapters 0, 1, 0), the rest on prompts of their own; and the
+    warm-up request (adapter 2)."""
+    _, _, _, eng_mod = _features()
+
+    def aid(i):
+        return i % (LORA_ADAPTERS + 1) - 1
+    rng = np.random.default_rng(0)
+    prompts = rng.integers(1, vocab - 1, (N_REQUESTS + 1, PROMPT_LEN)).tolist()
+    shared = rng.integers(1, vocab - 1, LORA_SHARED).tolist()
+    reqs = [eng_mod.Request(rid=i, prompt=prompts[i], max_new_tokens=16 + i,
+                            adapter_id=aid(i)) for i in range(N_REQUESTS)]
+    own = rng.integers(1, vocab - 1, (LORA_EXTRA - 3, PROMPT_LEN)).tolist()
+    for j in range(LORA_EXTRA):
+        rid = N_REQUESTS + j
+        reqs.append(eng_mod.Request(
+            rid=rid, prompt=shared if j < 3 else own[j - 3],
+            max_new_tokens=NEW_TOKENS,
+            adapter_id=(0, 1, 0)[j] if j < 3 else aid(rid)))
+    warm = eng_mod.Request(rid=10_000, prompt=prompts[-1], max_new_tokens=8,
+                           adapter_id=2)
+    return reqs, warm
+
+
+def lora_decode_distance(params, bank, merged, mcfg, reqs, cache) -> float:
+    """max |decode_step logits under the adapter − decode_step logits of
+    the merged model| over each request's NEW_TOKENS − 1 decode steps,
+    both fed the adapter path's greedy tokens, each from its own engine's
+    prefill: how far the two computations of one model lie apart."""
+    _, _, tfm, eng_mod = _features()
+
+    def admitted(p, lora, rs):
+        eng = eng_mod.Engine(p, mcfg, cache, eng_mod.EngineConfig(
+            max_batch=MAX_BATCH), lora=lora)
+        for r in rs:
+            eng.submit(r)
+        eng._admit()
+        return eng
+
+    eng = admitted(params, bank, reqs)
+    solo = [admitted(merged[r.adapter_id], None,
+                     [dataclasses.replace(r, adapter_id=-1)]) for r in reqs]
+    lanes = sorted(eng.running)
+    dev = params["embed"].device
+    seqs = [list(eng.running[s].tokens) for s in lanes]
+    aids = torch.tensor([eng.running[s].adapter_id for s in lanes],
+                        dtype=torch.int32, device=dev)
+    slots = torch.tensor(lanes, dtype=torch.int32, device=dev)
+    dist = 0.0
+    for _ in range(NEW_TOKENS - 1):
+        toks = torch.tensor([q[-1] for q in seqs], device=dev)
+        pos = torch.tensor([len(q) - 1 for q in seqs], dtype=torch.int32,
+                           device=dev)
+        got, _ = tfm.decode_step(params, toks, pos, eng.caches, slots, mcfg,
+                                 lora=bank, adapter_ids=aids)
+        for lane, (r, e) in enumerate(zip(reqs, solo)):
+            want, _ = tfm.decode_step(
+                merged[r.adapter_id], toks[lane:lane + 1],
+                pos[lane:lane + 1], e.caches,
+                torch.tensor(sorted(e.running), dtype=torch.int32,
+                             device=dev), mcfg)
+            dist = max(dist, float((got[lane] - want[0]).abs().max()))
+        seqs = [q + [int(t)] for q, t in zip(seqs, got.argmax(-1).tolist())]
+    del eng, solo
+    torch.cuda.empty_cache()
+    return dist
+
+
+def lora_exact(dev) -> dict:
+    """The canonical widths cut to EXACT_LAYERS layers in float32 over a
+    float32 cache, with a float32 bank: one request a adapter (0 … 3) and a
+    base one served together; adapter k's stream equals
+    ``merge_lora(params, bank, k)`` served as base, and each request's
+    stream equals it served solo, a parting allowed only where the
+    merged model's teacher-forced top-2 gap is below the measured
+    distance of the adapter path from the merged one
+    (:func:`lora_decode_distance`)."""
+    from tpu_flash_torch.models.lora import merge_lora
+    _, CacheConfig, tfm, eng_mod = _features()
+
+    mcfg = tfm.ModelConfig(**dict(MODEL, num_layers=EXACT_LAYERS,
+                                  dtype="float32"))
+    params = tfm.init_params(mcfg, torch.Generator(device=dev).manual_seed(0),
+                             dev)
+    bank = lora_bank(mcfg, dev, seed=5)
+    cache = CacheConfig(**dict(CACHE, dtype="float32"))
+    rng = np.random.default_rng(1)
+    prompts = rng.integers(1, mcfg.vocab_size - 1,
+                           (LORA_ADAPTERS + 1, PROMPT_LEN)).tolist()
+    aids = list(range(LORA_ADAPTERS)) + [-1]
+
+    def serve(p, lora, reqs):
+        eng = eng_mod.Engine(p, mcfg, cache, eng_mod.EngineConfig(
+            max_batch=MAX_BATCH), lora=lora)
+        for r in reqs:
+            eng.submit(r)
+        done = {f.rid: f for f in eng.run()}
+        del eng
+        return done
+
+    reqs = [eng_mod.Request(rid=i, prompt=p, max_new_tokens=NEW_TOKENS,
+                            adapter_id=a)
+            for i, (p, a) in enumerate(zip(prompts, aids))]
+    mixed = serve(params, bank, reqs)
+    merged = {a: merge_lora(params, bank, a) if a >= 0 else params
+              for a in aids}
+    dist = lora_decode_distance(params, bank, merged, mcfg, reqs, cache)
+    parts, rejected = {}, []
+    for r in reqs:
+        a = r.adapter_id
+        as_merged = serve(merged[a], None, [dataclasses.replace(
+            r, adapter_id=-1)])
+        solo = serve(params, bank, [r])
+        for name, want in (("merged", as_merged), ("solo", solo)):
+            ps = stream_partings(merged[a], mcfg, want, {r.rid: mixed[r.rid]},
+                                 dist)
+            if ps:
+                parts.setdefault(name, []).extend(ps)
+            rejected += [p for p in ps if not p["allowed"]]
+    base = serve(params, None, [dataclasses.replace(r, adapter_id=-1)
+                                for r in reqs[:LORA_ADAPTERS]])
+    differ = sum(base[r.rid].tokens != mixed[r.rid].tokens
+                 for r in reqs[:LORA_ADAPTERS])
+    out = dict(layers=EXACT_LAYERS, adapter_vs_merged_distance=dist,
+               partings=parts, adapters_differing_from_base=differ)
+    if rejected:
+        raise AssertionError(f"lora_serve float32: streams part beyond a "
+                             f"near-tie: {out}")
+    if differ != LORA_ADAPTERS:
+        raise AssertionError(f"lora_serve float32: an adapter's stream is "
+                             f"the base model's: {out}")
+    del params, bank, merged
+    torch.cuda.empty_cache()
+    return out
+
+
+def lora_run(params, mcfg, lora, steps, reqs, warm, load_once=False):
+    """:func:`served` on an engine with ``lora`` (or none), the prefix
+    cache on, rounds of ``steps``; with the run's prefix hits.
+    ``load_once``: the planted fault, a round graph whose adapter-id
+    buffer is loaded at the first round only (not refreshed)."""
+    _, CacheConfig, _, eng_mod = _features()
+    eng = eng_mod.Engine(params, mcfg, CacheConfig(**CACHE),
+                         eng_mod.EngineConfig(max_batch=MAX_BATCH,
+                                              decode_steps=steps,
+                                              prefix_cache=True), lora=lora)
+    native_pool(eng)
+    if load_once:
+        real, loads = eng._load_static, [0]
+
+        def stale(arrays):
+            loads[0] += 1
+            if loads[0] > 1:
+                arrays = {k: v for k, v in arrays.items() if k != "aids"}
+            real(arrays)
+
+        eng._load_static = stale
+    hits0 = eng._pcache.stats()["hits"]
+    out = served(eng, reqs, warm)
+    out["hits"] = eng._pcache.stats()["hits"] - hits0
+    del eng
+    torch.cuda.empty_cache()
+    return out
+
+
+def lora_drift(params, mcfg, bank, f) -> float:
+    """max |served logprob − teacher-forced logprob| over a stream's new
+    tokens, the forward carrying the stream's adapter deltas
+    (``serving/engine.py:_prefill_all_logits`` over its tokens but the
+    last)."""
+    from tpu_flash_torch.serving.engine import _prefill_all_logits
+
+    dev = params["embed"].device
+    toks = torch.tensor([f.tokens[:-1]], device=dev)
+    logits, _ = _prefill_all_logits(
+        params, toks, mcfg, lora=bank,
+        adapter_ids=torch.tensor([f.adapter_id], dtype=torch.int32,
+                                 device=dev))
+    lp = torch.log_softmax(logits[0, -len(f.new_tokens):].float(), dim=-1)
+    ref = lp.gather(1, torch.tensor(f.new_tokens, device=dev)[:, None])[:, 0]
+    return float((ref - torch.tensor(f.logprobs, device=dev)).abs().max())
+
+
+def stale_ids_fault(params, mcfg, bank, reqs, warm, want) -> int:
+    """The rounds with the adapter ids loaded at the first round only must
+    part from the one-token streams ``want``: returns how many part."""
+    fault = lora_run(params, mcfg, bank, MULTISTEP_K, reqs, warm,
+                     load_once=True)
+    parted = sum(fault["done"][rid].tokens != f.tokens
+                 for rid, f in want.items())
+    if not parted:
+        raise AssertionError("lora_serve: a round graph whose adapter ids "
+                             "are not refreshed gives the one-token streams")
+    return parted
+
+
+def lora_serve_phase(dev, smi: str) -> dict:
+    """Multi-LoRA at full width: the mixed-adapter requests (lora_requests)
+    served in one-token steps and in async rounds of MULTISTEP_K as CUDA
+    graphs (streams equal; lanes change adapters between rounds), beside
+    the base engine's times on the same requests; the prefix cache scoped
+    by adapter; a zero bank equal to the base engine bit for bit; a round
+    graph whose id buffer is loaded once (not refreshed) must part from
+    the one-token streams; the served B2 call of one layer against its
+    plain versions; the float32 exactness checks (:func:`lora_exact`)."""
+    _, CacheConfig, tfm, eng_mod = _features()
+    mcfg = tfm.ModelConfig(**MODEL)
+    exact = lora_exact(dev)
+    params = tfm.init_params(mcfg, torch.Generator(device=dev).manual_seed(0),
+                             dev)
+    bank = lora_bank(mcfg, dev, seed=5)
+    reqs, warm = lora_requests(mcfg.vocab_size)
+    base_reqs = [dataclasses.replace(r, adapter_id=-1) for r in reqs]
+    base_warm = dataclasses.replace(warm, adapter_id=-1)
+
+    def run(lora, steps, rs, wm):
+        return lora_run(params, mcfg, lora, steps, rs, wm)
+
+    runs = dict(one_token=run(bank, 1, reqs, warm),
+                rounds=run(bank, MULTISTEP_K, reqs, warm),
+                base_one_token=run(None, 1, base_reqs, base_warm),
+                base_rounds=run(None, MULTISTEP_K, base_reqs, base_warm),
+                zero_bank=run(lora_bank(mcfg, dev, 5, zero=True), 1, reqs,
+                              warm))
+    one, rounds = runs["one_token"], runs["rounds"]
+    n = N_REQUESTS + LORA_EXTRA
+    if sorted(one["done"]) != list(range(n)):
+        raise AssertionError(f"lora_serve: finished {sorted(one['done'])}")
+    for f in one["done"].values():
+        if f.reason != "length" or not all(np.isfinite(f.logprobs)):
+            raise AssertionError(f"lora_serve: request {f.rid}: {f.reason}")
+        if f.adapter_id != reqs[f.rid].adapter_id:
+            raise AssertionError(f"lora_serve: request {f.rid} finished "
+                                 f"under adapter {f.adapter_id}")
+    gap = same_streams("lora_serve rounds vs one-token", rounds["done"],
+                       one["done"])
+    # the zero bank bit for bit the base engine's, but for the request
+    # the base engine serves from a prefix hit (its adapter's namespace
+    # is another under the bank, so it prefills whole there)
+    cross = N_REQUESTS + 1
+    same_streams("lora_serve zero bank vs base",
+                 {r: f for r, f in runs["zero_bank"]["done"].items()
+                  if r != cross},
+                 {r: f for r, f in runs["base_one_token"]["done"].items()
+                  if r != cross}, tol=0.0)
+    if rounds["replays"] <= 0:
+        raise AssertionError("lora_serve: no round was a graph replay")
+    # adapter 0's repeat hits (and under the base engine, all three share
+    # one namespace: two hits); adapter 1 on the same prompt never does
+    for name, r in runs.items():
+        want = 2 if name.startswith("base") else 1
+        if r["hits"] != want:
+            raise AssertionError(f"lora_serve {name}: {r['hits']} prefix "
+                                 f"hits, want {want}")
+    differ = sum(one["done"][i].tokens != runs["base_one_token"]["done"][i]
+                 .tokens for i in range(n) if reqs[i].adapter_id >= 0)
+    if not differ:
+        raise AssertionError("lora_serve: the adapters change no stream")
+    fault_parted = stale_ids_fault(params, mcfg, bank, reqs, warm,
+                                   one["done"])
+    launched("lora_serve", rounds["launches"], (
+        "flash_fwd", "paged_attention_split", "paged_append_fused",
+        "paged_attention_shared"))
+    eng = eng_mod.Engine(params, mcfg, CacheConfig(**CACHE),
+                         eng_mod.EngineConfig(max_batch=MAX_BATCH), lora=bank)
+    b2 = fused_b2_at_step(eng, [dataclasses.replace(r, rid=30_000 + r.rid)
+                                for r in reqs[:N_REQUESTS]],
+                          mcfg.num_layers - 1, "lora_serve")
+    del eng
+    # drift against a teacher-forced forward with the request's adapter
+    # (the engine's whole-prompt prefill over the stream): the int8 rule
+    drift = {f"adapter{reqs[i].adapter_id}": lora_drift(
+        params, mcfg, bank, one["done"][i]) for i in range(LORA_ADAPTERS + 1)}
+    for name, d in drift.items():
+        check(f"lora_serve: teacher-forced drift ({name})", d, TOL_LOGPROB)
+    row = dict(
+        phase="lora_serve", nvidia_smi=smi, cache=CACHE["dtype"],
+        adapters=LORA_ADAPTERS, rank=LORA_RANK, b_std=LORA_B_STD,
+        requests=n, lanes=MAX_BATCH, shared_prompt=LORA_SHARED,
+        ms_per_step=one["step_ms_median"],
+        ms_per_round=rounds["step_ms_median"], decode_steps=MULTISTEP_K,
+        base_ms_per_step=runs["base_one_token"]["step_ms_median"],
+        base_ms_per_round=runs["base_rounds"]["step_ms_median"],
+        tok_s={name: r["tok_s"] for name, r in runs.items()},
+        wall_s={name: r["wall_s"] for name, r in runs.items()},
+        hits={name: r["hits"] for name, r in runs.items()},
+        graph_replays=rounds["replays"],
+        rounds_vs_one_token_max_logprob_gap=gap,
+        zero_bank_bitwise_base=True, adapted_streams_differing=differ,
+        stale_ids_fault_parted=fault_parted,
+        teacher_forced_drift=drift, drift_tol=TOL_LOGPROB, b2=b2,
+        float32=exact,
+        launches=rounds["launches"], one_token_launches=one["launches"],
+        peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    emit(row)
+    del params, bank
+    torch.cuda.empty_cache()
+    return dict(launches=rounds["launches"], b2=b2)
+
+
+def ep_dryrun_phase(dev, smi: str) -> dict:
+    """The dry run's expert-parallel phase on the card (4 virtual expert
+    ranks: B1 and B4/B5 at the dry run's d 32, float32), its loss and
+    updated experts against one unsharded train_step of the same
+    parameters (loss 1e-5 relative, Δw_gate 1e-5 of its largest entry
+    plus an ulp of the weight)."""
+    kernels, _, _, _ = _features()
+    from tpu_flash_torch import graft_entry as ge
+
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    out = ge.ep_dryrun(8)
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    launches = ran(kernels)
+    launched("ep_dryrun", launches, ("flash_fwd", "flash_bwd_dq",
+                                     "flash_bwd_dkv"))
+    params, cfg = out["params"], out["cfg"]
+    plain, loss = ge.train_step(ge._with_leaves(params, [
+        t.clone() for t in ge.param_leaves(params)]), out["tokens"], cfg,
+        1e-3)
+    errs = []
+    for li in range(cfg.num_layers):
+        w0 = params["layers"][li]["w_gate"]
+        d_ep = torch.cat(out["new"]["layers"][li]["w_gate"]) - w0
+        d_plain = plain["layers"][li]["w_gate"] - w0
+        tol = (1e-5 * float(d_plain.abs().max())
+               + torch.finfo(torch.float32).eps * float(w0.abs().max()))
+        errs.append(float((d_ep - d_plain).abs().max()))
+        check(f"ep_dryrun layer {li} Δw_gate vs unsharded", errs[-1], tol)
+    check("ep_dryrun loss vs unsharded", abs(out["loss"] - float(loss)),
+          1e-5 * float(loss))
+    row = dict(phase="ep_dryrun", nvidia_smi=smi, ep=out["ep"],
+               experts=cfg.moe_experts, loss=out["loss"],
+               unsharded_loss=float(loss), delta_w_gate_errs=errs,
+               step_s=step_s, launches=launches)
+    emit(row)
+    return dict(launches=launches)
+
+
+def slice_phases(dev, smi: str) -> dict:
+    """The MoE and multi-LoRA phases, then the EP dry run."""
+    with torch.no_grad():
+        out = dict(moe_serve=moe_serve_phase(dev, smi))
+        torch.cuda.empty_cache()
+        out["lora_serve"] = lora_serve_phase(dev, smi)
+        torch.cuda.empty_cache()
+    out["ep_dryrun"] = ep_dryrun_phase(dev, smi)
+    torch.cuda.empty_cache()
+    return out
+
+
 def _timing(row) -> dict:
     return {key: row[key] for key in ("ms", "plain_ms", "bound_ms",
                                       "bound_by")}
@@ -5250,12 +6231,17 @@ def main() -> int:
         prefix_cache=feat["prefix_cache"]["launches"],
         resume=feat["resume"]["launches"],
         supervisor=feat["resume"]["supervisor_launches"])
+    torch.cuda.empty_cache()
+    sl = slice_phases(dev, smi)
+    slice_launches = {name: sl[name]["launches"] for name in sl}
 
     def new_paths(*keys, suffix=""):
-        """The parallel and the serving-feature phases' launches of these
-        kernels, by phase (each phase's main path run)."""
+        """The parallel, serving-feature, MoE, multi-LoRA and EP dry-run
+        phases' launches of these kernels, by phase (each phase's main
+        path run)."""
         return {f"launches_{name}{suffix}": sum(got.get(k, 0) for k in keys)
-                for name, got in {**par_launches, **feat_launches}.items()
+                for name, got in {**par_launches, **feat_launches,
+                                  **slice_launches}.items()
                 if any(got.get(k, 0) for k in keys)}
 
     spec_checks = feat["speculative"]["checks"]
@@ -5309,7 +6295,11 @@ def main() -> int:
                  # lanes) and a draft micro-step's fused call (G 1)
                  spec_checks["verify"]["max_abs_err"],
                  spec_checks["draft_step"]["o_vs_plain"],
-                 spec_checks["draft_step"]["lse_vs_plain"]),
+                 spec_checks["draft_step"]["lse_vs_plain"],
+                 # one layer's decode call (B3 fused) at one step of the
+                 # MoE and the multi-LoRA engines
+                 *(sl[k]["b2"][e] for k in ("moe_serve", "lora_serve")
+                   for e in ("o_vs_plain", "lse_vs_plain"))),
              ms=int8["fused_ms"],
              plain_ms=int8["append_plain_ms"] + int8["attention_plain_ms"],
              **int8["fused_bound"], library_ms=None),

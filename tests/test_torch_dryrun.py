@@ -2,8 +2,9 @@
 and the parallel modules across ``torch.distributed`` processes.
 
 ``dryrun_multichip(8)`` on 8 virtual CPU ranks (data 2 × model 2 × seq 2)
-prints the reference's lines (the expert-parallel phase reported as
-skipped: MoE is ROADMAP A9) and decodes on the seq-sharded engine; its
+prints the reference's lines, decodes on the seq-sharded engine and runs
+the expert-parallel phase (8 experts over 4 expert ranks), whose loss and
+updated experts match an unsharded step of the same MoE model; its
 DP + TP + SP train step (``dryrun_train_step``) matches the unsharded
 ``train_step`` on the same float32 parameters: loss within 1e-5 relative,
 Δwq within 1e-5 of its largest entry plus the update's own float32
@@ -39,15 +40,38 @@ _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 def test_dryrun_multichip_on_virtual_ranks(capsys):
     """dryrun_multichip(8): the (2, 2, 2) mesh, a finite loss, an update,
-    the seq-sharded decode of 4 tokens, and EP reported as skipped."""
+    the seq-sharded decode of 4 tokens, and the EP phase (ep 4, 8 experts,
+    top-2): its loss within 1e-5 relative and its updated w_gate within
+    float32 rounding of one unsharded train_step of the same parameters;
+    every rank's slice moved."""
     out = graft_entry.dryrun_multichip(8, devices="cpu")
     text = capsys.readouterr().out
     assert "dryrun mesh: data=2 model=2 seq=2" in text
     assert "dryrun_multichip OK: n=8" in text
     assert "dryrun decode OK: seq=8 shards" in text
-    assert "dryrun EP skipped" in text and "EP OK" not in text
+    assert "dryrun EP OK: experts=8 over 4 devices, loss=" in text
+    assert "skipped" not in text
     assert np.isfinite(out["loss"]) and out["delta_wq"] > 0
     assert len(out["decode_tokens"]) == 4
+    ep = out["ep"]
+    cfg, params = ep["cfg"], ep["params"]
+    assert (ep["ep"], cfg.moe_experts, cfg.moe_top_k) == (4, 8, 2)
+    plain, loss = graft_entry.train_step(
+        graft_entry._with_leaves(params, [t.clone() for t in
+                                          graft_entry.param_leaves(params)]),
+        ep["tokens"], cfg, 1e-3)
+    assert abs(ep["loss"] - float(loss)) <= 1e-5 * float(loss)
+    for li in range(2):
+        slices = ep["new"]["layers"][li]["w_gate"]
+        assert len(slices) == 4 and slices[0].shape == (2, 128, 256)
+        w0 = params["layers"][li]["w_gate"]
+        d_ep = torch.cat(slices) - w0
+        d_plain = plain["layers"][li]["w_gate"] - w0
+        tol = (1e-5 * float(d_plain.abs().max())
+               + torch.finfo(torch.float32).eps * float(w0.abs().max()))
+        assert float((d_ep - d_plain).abs().max()) <= tol
+        assert all(float((s - w0[2 * r:2 * r + 2]).abs().max()) > 0
+                   for r, s in enumerate(slices))
 
 
 def test_dryrun_train_step_matches_plain_step():

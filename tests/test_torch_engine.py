@@ -150,11 +150,15 @@ def test_unported_engine_options_raise(params):
     eng = teng.Engine(tp, mcfg, ccfg, teng.EngineConfig(
         max_batch=3, speculate_k=2), draft=(tp, mcfg))
     assert eng.spec_stats() == dict(proposed=0, accepted=0)
-    with pytest.raises(NotImplementedError, match="ROADMAP A9b"):
-        teng.Engine(tp, mcfg, ccfg, lora=object())
+    # multi-LoRA is ported (it raised before): the engine takes a bank
+    from tpu_flash_torch.models.lora import init_lora_bank
+
+    bank = init_lora_bank(mcfg, 2, 4, torch.Generator().manual_seed(0), "cpu")
+    assert teng.Engine(tp, mcfg, ccfg, teng.EngineConfig(max_batch=3),
+                       lora=bank).lora is bank
     mesh = make_mesh(model=2, devices="cpu")
     with pytest.raises(NotImplementedError, match="tensor parallelism"):
-        teng.Engine(tp, mcfg, ccfg, mesh=mesh, lora=object())
+        teng.Engine(tp, mcfg, ccfg, mesh=mesh, lora=bank)
     teng.Engine(tp, mcfg, ccfg, teng.EngineConfig(
         max_batch=3, decode_steps=4, async_decode=False))
     assert teng.Engine(tp, mcfg, ccfg, teng.EngineConfig(max_batch=3),

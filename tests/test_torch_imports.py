@@ -136,6 +136,8 @@ def test_build_key_follows_the_headers(tmp_path):
 
 def _entry_points():
     from tpu_flash_torch.cache.paged_cache import PagedKVCache
+    from tpu_flash_torch.models.lora import init_lora_bank
+    from tpu_flash_torch.models.moe import init_moe_params
     from tpu_flash_torch.models.transformer import init_params
     from tpu_flash_torch.utils import convert
 
@@ -143,13 +145,16 @@ def _entry_points():
             PagedKVCache.create, "to_torch": convert.to_torch,
             "params_from_tree": convert.params_from_tree,
             "cache_from_reference": convert.cache_from_reference,
-            "qarray_from_reference": convert.qarray_from_reference}
+            "qarray_from_reference": convert.qarray_from_reference,
+            "init_lora_bank": init_lora_bank,
+            "init_moe_params": init_moe_params}
 
 
 @pytest.mark.parametrize("name", ["init_params", "PagedKVCache.create",
                                   "to_torch", "params_from_tree",
                                   "cache_from_reference",
-                                  "qarray_from_reference"])
+                                  "qarray_from_reference", "init_lora_bank",
+                                  "init_moe_params"])
 def test_entry_points_default_to_the_card(name):
     """Entry points put their tensors on the card unless the caller asks
     for the CPU (the CPU tests all pass device="cpu")."""

@@ -545,7 +545,7 @@ def test_round_graph_replays_match_eager_steps(gen):
     K = 4
     for slot in eng.running:
         assert eng._ensure_capacity(slot, ahead=K) == "ok"
-    lanes, slots_np, toks_np, pos_np, samp_np, keys_np, _ = (
+    lanes, slots_np, toks_np, pos_np, samp_np, keys_np, _, _ = (
         eng._decode_composition())
     bound = eng._pages_bound(ahead=K)
     state = [(c.k_pages.clone(), c.v_pages.clone(), c.k_scales.clone(),
@@ -559,7 +559,7 @@ def test_round_graph_replays_match_eager_steps(gen):
 
     inputs = [torch.from_numpy(a).cuda() for a in (toks_np, pos_np, slots_np,
                                                    samp_np, keys_np)]
-    want, ntok, npos = eng._round(K, bound, *inputs)
+    want, ntok, npos = eng._round(K, bound, *inputs, None)
     restore()
     g = eng._round_graph(bound, K)
     assert g["launches"]["paged_attention_split"] == K * cfg.num_layers
@@ -577,6 +577,63 @@ def test_round_graph_replays_match_eager_steps(gen):
         assert torch.equal(packed, want)
     assert torch.equal(g["outs"][1], ntok) and torch.equal(g["outs"][2], npos)
     assert torch.isfinite(want[:, :, 1]).all()
+
+
+@pytest.mark.parametrize("feature", ["moe", "lora", "lora_stale_ids"])
+def test_moe_and_lora_rounds_match_one_token_steps(gen, feature):
+    """A MoE model (8 experts, top-2, drop-free) and a LoRA bank over
+    mixed adapter and base lanes, served greedily in async rounds of 4 as
+    CUDA graphs, give the one-token engine's streams and logprobs bit for
+    bit while lanes finish and are refilled (staggered lengths, more
+    requests than lanes). Planted fault (``lora_stale_ids``): the rounds'
+    adapter-id buffer loaded at the first round only parts the streams."""
+    from tpu_flash_torch.models import lora as tlora
+    from tpu_flash_torch.models import transformer as ttfm
+    from tpu_flash_torch.serving import engine as teng
+
+    moe = feature == "moe"
+    cfg = ttfm.ModelConfig(vocab_size=512, dim=256, num_layers=2,
+                           num_q_heads=4, num_kv_heads=2, head_dim=64,
+                           moe_experts=8 if moe else 0, moe_top_k=2,
+                           moe_capacity_factor=4.0)
+    params = ttfm.init_params(cfg, gen, "cuda")
+    bank = None
+    if not moe:
+        bank = tlora.init_lora_bank(cfg, 3, 8, gen, "cuda")
+        for layer in bank:
+            for e in layer.values():
+                e["b"] = torch.randn(e["b"].shape, generator=gen,
+                                     device="cuda").to(e["b"].dtype) * 0.1
+    ccfg = CacheConfig(num_kv_heads=2, head_dim=64, page_size=16,
+                       total_pages=256, max_seqs=8, max_pages_per_seq=16,
+                       dtype="int8")
+    reqs = [teng.Request(rid=i, prompt=list(range(1 + i, 20 + 3 * i)),
+                         max_new_tokens=5 + 3 * i,
+                         adapter_id=-1 if moe else i % 4 - 1)
+            for i in range(9)]
+
+    def serve(steps, stale=False):
+        eng = teng.Engine(params, cfg, ccfg, teng.EngineConfig(
+            max_batch=4, decode_steps=steps), lora=bank)
+        if stale:
+            real, loads = eng._load_static, [0]
+
+            def load(arrays):
+                loads[0] += 1
+                real(arrays if loads[0] == 1 else
+                     {k: v for k, v in arrays.items() if k != "aids"})
+
+            eng._load_static = load
+        for r in reqs:
+            eng.submit(r)
+        done = {f.rid: (f.tokens, f.logprobs) for f in eng.run()}
+        return done, eng.graph_stats["replays"]
+
+    want, _ = serve(1)
+    got, replays = serve(4, stale=feature == "lora_stale_ids")
+    assert replays > 0 and sorted(got) == sorted(want)
+    same = all(got[r] == want[r] for r in want)
+    assert same != (feature == "lora_stale_ids")
 
 
 def test_kernels_reject_what_they_do_not_take(gen):

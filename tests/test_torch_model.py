@@ -191,6 +191,22 @@ def test_sliding_forward_and_prefill_match_reference(params):
 
 
 def test_unported_model_options_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-        ttfm.init_params(ttfm.ModelConfig(**{**_CFG, "moe_experts": 4}),
+    """MoE is ported (it raised before): init_params of a MoE config has
+    the reference's tree, shapes and dtypes (a float32 router, 3-D
+    expert-major SwiGLU weights, no dense MLP); an unknown attention kind
+    still raises."""
+    cfg = {**_CFG, "moe_experts": 4, "dtype": "bfloat16"}
+    jp = jtfm.init_params(jax.random.PRNGKey(0), jtfm.ModelConfig(**cfg))
+    tp = ttfm.init_params(ttfm.ModelConfig(**cfg),
+                          torch.Generator(device="cpu"), device="cpu")
+    jflat = dict(jax.tree_util.tree_flatten_with_path(jp)[0])
+    tflat = dict(jax.tree_util.tree_flatten_with_path(tp)[0])
+    assert jflat.keys() == tflat.keys()
+    for key, jv in jflat.items():
+        assert tuple(tflat[key].shape) == tuple(jv.shape), key
+        assert str(tflat[key].dtype).endswith(str(jv.dtype)), key
+    assert tp["layers"][0]["w_gate"].shape == (4, 128, 512)
+    assert tp["layers"][0]["wr"].dtype == torch.float32
+    with pytest.raises(ValueError, match="attention"):
+        ttfm.init_params(ttfm.ModelConfig(**{**_CFG, "attention": "ring"}),
                          torch.Generator(device="cpu"), device="cpu")

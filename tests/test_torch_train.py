@@ -125,6 +125,20 @@ def test_sliding_loss_and_grads_match_reference(ref):
 
 
 def test_moe_loss_raises():
-    cfg = ttfm.ModelConfig(**{**_CFG, "moe_experts": 4})
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-        ttfm.loss_fn({}, torch.zeros(1, 3, dtype=torch.long), cfg)
+    """MoE is ported (its loss raised before): loss_fn of a MoE model (4
+    experts, top-2) on the reference's weights equals the reference's,
+    the Switch balance term included (1e-5 relative), and the term
+    weights in by moe_aux_coef."""
+    cfg = {**_CFG, "moe_experts": 4}
+    jcfg, tcfg = jtfm.ModelConfig(**cfg), ttfm.ModelConfig(**cfg)
+    jp = jtfm.init_params(jax.random.PRNGKey(1), jcfg)
+    toks = np.random.default_rng(2).integers(0, 256, (2, 33)).astype(np.int32)
+    jloss = float(jax.jit(lambda p, t: jtfm.loss_fn(p, t, jcfg))(
+        jp, jnp.asarray(toks)))
+    tp = _port_params(jp)
+    with torch.no_grad():
+        loss = float(ttfm.loss_fn(tp, torch.as_tensor(toks).long(), tcfg))
+        plain = float(ttfm.loss_fn(tp, torch.as_tensor(toks).long(), tcfg,
+                                   moe_aux_coef=0.0))
+    assert abs(loss - jloss) <= 1e-5 * abs(jloss)
+    assert 1e-3 < loss - plain < 0.1  # 0.01 × the layers' mean aux (≥ 1)

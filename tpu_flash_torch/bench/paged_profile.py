@@ -147,7 +147,8 @@ def profile_round(params, mcfg, K: int, lens, dev, dtype="int8"):
     g = eng._round_graph(16, K)
     for name, t in inputs.items():
         eng._static[name].copy_(t)
-    rows = (_profile("causal_step", lambda: eng._step(*inputs.values(), 16),
+    rows = (_profile("causal_step",
+                     lambda: eng._step(*inputs.values(), None, 16),
                      reset, dtype),
             _profile("causal_round", g["graph"].replay, reset, dtype,
                      tokens=K))

@@ -6,6 +6,7 @@
     params, loss = train_step(params, tokens, cfg, lr)
     params, loss = seq_parallel_train_step(params, tokens, cfg, lr, ranks=4)
     dryrun_multichip(8)                   # 8 ranks in this process
+    ep_dryrun(8)                          # its expert-parallel phase alone
     dryrun_multichip(4, processes=4)      # 4 processes, one rank each
 
 ``entry`` builds the reference's small flagship config (vocab 512, dim 256,
@@ -25,13 +26,14 @@ every axis real: the batch over ``data`` (gradients summed over it, the
 loss a mean over the global batch), attention heads and the MLP hidden dim
 over ``model`` (column- and row-parallel slices whose autograd sums the
 partials), the sequence over ``seq`` (the causal ring); then a decode
-phase on ``SeqShardedEngine`` with an int8 cache over n sequence ranks.
-With ``processes > 1`` it starts that many worker processes (a file
-rendezvous; NCCL, one card a process, or gloo on the CPU when the caller
-asks for the CPU) that run
-the step across processes; the engine is single-process and its phase is
-skipped there, as in the reference. The reference's expert-parallel phase
-needs MoE (ROADMAP A9) and is reported as skipped.
+phase on ``SeqShardedEngine`` with an int8 cache over n sequence ranks,
+and the expert-parallel phase (:func:`ep_dryrun`): one SGD step of a
+2-layer float32 MoE model whose expert bank splits over an ``expert``
+axis of 4 ranks (2 when 4 does not divide n). With ``processes > 1`` it
+starts that many worker processes (a file rendezvous; NCCL, one card a
+process, or gloo on the CPU when the caller asks for the CPU) that run
+the step across processes; the engine and the expert phases are
+single-process and skipped there, as in the reference.
 """
 
 from __future__ import annotations
@@ -47,6 +49,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from tpu_flash_torch.models import moe
 from tpu_flash_torch.models import transformer as tfm
 from tpu_flash_torch.parallel import ring, shardings
 from tpu_flash_torch.parallel.mesh import make_mesh
@@ -103,28 +106,31 @@ def _with_leaves(params, leaves):
     return rebuild(params)
 
 
-def loss_and_grads(params, tokens, cfg: tfm.ModelConfig, attn_fn=None):
+def loss_and_grads(params, tokens, cfg: tfm.ModelConfig, attn_fn=None,
+                   ep=None):
     """``loss_fn`` and its gradient with respect to every leaf of
     ``params`` → (detached 0-d loss, grads in :func:`param_leaves` order).
-    The caller's tensors keep ``requires_grad`` as they were."""
+    The caller's tensors keep ``requires_grad`` as they were. ``ep``: the
+    expert axis whose ranks' slices ``params`` holds (``loss_fn``)."""
     with torch.enable_grad():
         tracked = [t.detach().requires_grad_(True)
                    for t in param_leaves(params)]
         loss = tfm.loss_fn(_with_leaves(params, tracked), tokens, cfg,
-                           attn_fn=attn_fn)
+                           attn_fn=attn_fn, ep=ep)
         grads = torch.autograd.grad(loss, tracked)
     return loss.detach(), list(grads)
 
 
 def train_step(params, tokens, cfg: tfm.ModelConfig, lr: float,
-               attn_fn=None):
+               attn_fn=None, ep=None):
     """One SGD step on ``loss_fn(params, tokens, cfg, attn_fn)``; returns
     ``(params, loss)``, the loss before the step as a 0-d float32 tensor.
 
     Updates the parameter tensors IN PLACE (and returns the same tree): the
     gradient of each leaf is cast to the leaf's dtype, scaled by ``lr`` and
     subtracted, the reference's rule ``p − lr·g.astype(p.dtype)``."""
-    loss, grads = loss_and_grads(params, tokens, cfg, attn_fn=attn_fn)
+    loss, grads = loss_and_grads(params, tokens, cfg, attn_fn=attn_fn,
+                                 ep=ep)
     with torch.no_grad():
         for p, g in zip(param_leaves(params), grads):
             p.sub_(g.to(p.dtype) * lr)
@@ -245,11 +251,63 @@ def dryrun_train_step(mesh, params, tokens, cfg: tfm.ModelConfig,
     return new, loss
 
 
-def _dryrun(n_devices: int, devices=None, decode: bool = True) -> dict:
+def ep_config(ep: int) -> tfm.ModelConfig:
+    """The expert-parallel phase's float32 model (the reference's): 2
+    layers, ``2·ep`` experts, top-2, capacity factor 1.25."""
+    return tfm.ModelConfig(vocab_size=256, dim=128, num_layers=2,
+                           num_q_heads=4, num_kv_heads=2, head_dim=32,
+                           mlp_hidden=256, block_q=128, block_kv=128,
+                           dtype="float32", moe_experts=2 * ep, moe_top_k=2)
+
+
+def ep_train_step(mesh, params, tokens, cfg: tfm.ModelConfig, lr: float):
+    """One SGD step of ``loss_fn`` (with the balance loss) with each MoE
+    layer's experts split over the mesh's ``expert`` line
+    (``models/moe.py:shard_experts``): each rank computes its experts'
+    slots and its share of the combine, the shares summed over the line
+    in rank order. Single-process (the reference's phase is). Returns
+    ``(the step's tree, its expert tensors one slice a rank; the loss)``."""
+    ep = mesh.axis("expert")
+    if ep.group is not None:
+        raise NotImplementedError("the expert-parallel step is "
+                                  "single-process, as in the reference")
+    own = _with_leaves(params, [t.clone() for t in param_leaves(params)])
+    return train_step(moe.shard_experts(own, ep), tokens, cfg, lr, ep=ep)
+
+
+def ep_dryrun(n_devices: int, devices=None) -> dict:
+    """The dry run's expert-parallel phase: ``ep = 4 if n % 4 == 0 else
+    2`` ranks of an ``expert`` mesh on ``devices`` (default the current
+    card), :func:`ep_config`'s model from seed 3, tokens (2, 129) from
+    seed 4, one :func:`ep_train_step` at lr 1e-3. Prints the reference's
+    line; returns the numbers."""
+    ep = 4 if n_devices % 4 == 0 else 2
+    mesh = make_mesh(expert=ep, devices=devices)
+    dev = mesh.axis("expert").device
+    cfg = ep_config(ep)
+    params = tfm.init_params(
+        cfg, torch.Generator(device=dev.type).manual_seed(3), dev)
+    tokens = torch.as_tensor(np.random.default_rng(4).integers(
+        0, cfg.vocab_size, (2, 129)), device=dev)
+    new, loss = ep_train_step(mesh, params, tokens, cfg, 1e-3)
+    loss_val = float(loss)
+    if not math.isfinite(loss_val):
+        raise AssertionError(f"non-finite MoE loss {loss_val}")
+    w_gate = torch.cat([w.to(dev) for w in new["layers"][0]["w_gate"]])
+    delta = float((w_gate - params["layers"][0]["w_gate"]).abs().max())
+    if not delta > 0:
+        raise AssertionError("MoE step produced no expert update")
+    print(f"dryrun EP OK: experts={cfg.moe_experts} over {ep} devices, "
+          f"loss={loss_val:.4f}", flush=True)
+    return dict(ep=ep, loss=loss_val, delta_w_gate=delta, params=params,
+                tokens=tokens, new=new, cfg=cfg)
+
+
+def _dryrun(n_devices: int, devices=None, single: bool = True) -> dict:
     """The dry run in this process (one of the workers, or the only
-    process): the train step on the (data, model, seq) mesh, then the
-    seq-sharded decode phase. Prints the reference's lines; returns the
-    numbers."""
+    process): the train step on the (data, model, seq) mesh, then, in a
+    single process, the seq-sharded decode phase and the expert-parallel
+    phase. Prints the reference's lines; returns the numbers."""
     data, model, seq = mesh_factors(n_devices)
     mesh = make_mesh(data=data, model=model, seq=seq, devices=devices)
     print(f"dryrun mesh: data={data} model={model} seq={seq}", flush=True)
@@ -276,7 +334,7 @@ def _dryrun(n_devices: int, devices=None, decode: bool = True) -> dict:
           f"max|Δwq|={delta:.2e}", flush=True)
     out = dict(mesh=(data, model, seq), loss=loss_val, delta_wq=delta,
                params=params, tokens=tokens, new=new)
-    if decode and n_devices >= 2:
+    if single and n_devices >= 2:
         from tpu_flash_torch.cache.paged_cache import CacheConfig
         from tpu_flash_torch.serving.engine import EngineConfig, Request
         from tpu_flash_torch.serving.seq_engine import SeqShardedEngine
@@ -299,7 +357,7 @@ def _dryrun(n_devices: int, devices=None, decode: bool = True) -> dict:
         print(f"dryrun decode OK: seq={n_devices} shards, "
               f"tokens={done[0].new_tokens}", flush=True)
         out["decode_tokens"] = done[0].new_tokens
-    print("dryrun EP skipped: MoE is not ported (ROADMAP A9)", flush=True)
+        out["ep"] = ep_dryrun(n_devices, devices=devices)
     return out
 
 
@@ -317,7 +375,7 @@ dist.init_process_group("nccl" if device.type == "cuda" else "gloo",
                         init_method=init, rank=rank, world_size=world,
                         timeout=datetime.timedelta(seconds=300))
 torch.backends.cuda.matmul.allow_tf32 = False
-graft_entry._dryrun(n, devices=device, decode=False)
+graft_entry._dryrun(n, devices=device, single=False)
 dist.barrier()
 dist.destroy_process_group()
 """

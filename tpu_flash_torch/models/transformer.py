@@ -27,8 +27,19 @@ partials are summed over the axis (:func:`_psum`). :func:`decode_step_seq`
 shards the caches over the sequence instead
 (``parallel/ring_decode.py``).
 
-Not ported yet: MoE (ROADMAP A9), LoRA (A9), the MoE balance loss in
-``loss_fn`` (A9).
+MoE layers (``moe_experts > 0``, ``models/moe.py``) carry a float32 router
+``wr`` and expert-major SwiGLU weights in place of the dense MLP; their
+balance losses weight into :func:`loss_fn`. Under ``tp`` the expert bank
+is replicated and the MoE output takes no sum (the reference's shardings);
+under ``ep`` (the mesh's ``expert`` line) the experts split over its ranks
+and the combine is summed over them. Serving a MoE model needs the
+drop-free capacity factor (:func:`_check_serving_moe`).
+
+Multi-LoRA (``models/lora.py``): ``prefill_chunk``, ``decode_step`` and
+``decode_verify`` take ``lora`` (an adapter bank, one dict a layer) and
+``adapter_ids`` (one id a lane, −1 the base model) and add each lane's
+adapter delta to the attention projections (:func:`_proj`); ``forward``
+takes no adapters, as in the reference.
 """
 
 from __future__ import annotations
@@ -40,6 +51,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from tpu_flash_torch.models.lora import lora_mm
+from tpu_flash_torch.models.moe import init_moe_params, moe_mlp
 from tpu_flash_torch.ops import flash
 from tpu_flash_torch.ops.paged import paged_attention, paged_attention_pipelined
 from tpu_flash_torch.parallel.ring import merge_partials
@@ -64,7 +77,7 @@ class ModelConfig:
     window: int = 1025  # odd; used when attention == "sliding"
     block_q: int = 256
     block_kv: int = 256
-    moe_experts: int = 0  # >0: ROADMAP A9
+    moe_experts: int = 0  # > 0: MoE MLPs of this many experts
     moe_top_k: int = 2
     moe_capacity_factor: float = 1.25
     # Attention max: None = the flash kernels' auto policy (causal and the
@@ -102,8 +115,24 @@ def _radius(cfg: ModelConfig) -> Optional[int]:
 def _check_ported(cfg: ModelConfig) -> None:
     if cfg.attention not in ("causal", "sliding"):
         raise ValueError(f"unknown attention {cfg.attention!r}")
+
+
+def _check_serving_moe(cfg: ModelConfig) -> None:
+    """Serving paths require the drop-free MoE capacity factor.
+
+    Capacity drops depend on the batch (``models/moe.py``): a token that
+    overflows in a batched prefill routes alone during decode, so a dropful
+    config would decode tokens inconsistent with the teacher-forced
+    forward. ``moe_capacity_factor >= E/top_k`` guarantees zero drops."""
+    _check_ported(cfg)
     if cfg.moe_experts > 0:
-        raise NotImplementedError("MoE MLPs are not ported yet (ROADMAP A9)")
+        need = cfg.moe_experts / cfg.moe_top_k
+        if cfg.moe_capacity_factor < need:
+            raise ValueError(
+                f"serving an MoE model needs the drop-free capacity factor "
+                f"moe_capacity_factor >= E/top_k = {need} (got "
+                f"{cfg.moe_capacity_factor}); dropful routing is not "
+                f"prefix-consistent between batched prefill and decode")
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator, device="cuda"):
@@ -134,17 +163,25 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device="cuda"):
 
     layers = []
     for _ in range(cfg.num_layers):
-        layers.append(dict(
+        layer = dict(
             wq=dense(cfg.dim, (cfg.dim, cfg.q_dim)),
             wk=dense(cfg.dim, (cfg.dim, cfg.kv_dim)),
             wv=dense(cfg.dim, (cfg.dim, cfg.kv_dim)),
             wo=dense(cfg.q_dim, (cfg.q_dim, cfg.dim)),
             ln_attn=ones(),
             ln_mlp=ones(),
-            w_gate=dense(cfg.dim, (cfg.dim, cfg.hidden)),
-            w_up=dense(cfg.dim, (cfg.dim, cfg.hidden)),
-            w_down=dense(cfg.hidden, (cfg.hidden, cfg.dim)),
-        ))
+        )
+        if cfg.moe_experts > 0:  # a router and experts, no dense MLP
+            layer.update(init_moe_params(cfg.dim, cfg.hidden,
+                                         cfg.moe_experts, dt, generator,
+                                         device))
+        else:
+            layer.update(
+                w_gate=dense(cfg.dim, (cfg.dim, cfg.hidden)),
+                w_up=dense(cfg.dim, (cfg.dim, cfg.hidden)),
+                w_down=dense(cfg.hidden, (cfg.hidden, cfg.dim)),
+            )
+        layers.append(layer)
     return dict(
         embed=normal((cfg.vocab_size, cfg.dim), 0.02),
         ln_f=ones(),
@@ -158,8 +195,9 @@ _PROJECTIONS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
 def quantize_weights(params, dtype: str = "int8"):
     """Per-output-channel symmetric int8 quantization of every 2-D
     projection matrix (wq/wk/wv/wo/w_gate/w_up/w_down) →
-    ``{"q": int8 (in, out), "s": float32 (out,)}``; embeddings and norms
-    stay as they are. Bit-identical to the reference's (its eager
+    ``{"q": int8 (in, out), "s": float32 (out,)}``; embeddings, norms, a
+    MoE layer's router and its 3-D expert tensors stay as they are.
+    Bit-identical to the reference's (its eager
     ``quantize`` along axis 0). Returns a new tree; ``params`` is not
     changed."""
     if dtype != "int8":
@@ -187,6 +225,15 @@ def _mm(x, w):
     if isinstance(w, dict):
         return (x @ w["q"].to(x.dtype)) * w["s"].to(x.dtype)
     return x @ w
+
+
+def _proj(x, w, lora_layer, name, adapter_ids):
+    """A projection with each lane's LoRA delta (``models/lora.py``) where
+    the layer's bank entry has this projection; else :func:`_mm`."""
+    entry = lora_layer.get(name) if lora_layer else None
+    if entry is None:
+        return _mm(x, w)
+    return lora_mm(x, w, entry, adapter_ids)
 
 
 def rmsnorm(x, w, eps=1e-6):
@@ -239,23 +286,49 @@ def _attn_full(q, k, v, cfg: ModelConfig, attn_fn=None):
     return o.transpose(1, 2)  # (B, N, H, D)
 
 
-def _mlp(params, h, cfg: ModelConfig):
-    """Dense SwiGLU residual branch."""
+def _mlp(params, h, cfg: ModelConfig, collect_aux=None, ep=None):
+    """MLP residual branch: dense SwiGLU, or the MoE expert bank when the
+    layer carries a router (``wr``); a MoE layer's balance loss appends to
+    ``collect_aux`` when given. ``ep``: see ``models/moe.py:moe_mlp``."""
+    if "wr" in params:
+        out, aux = moe_mlp(params, h, top_k=cfg.moe_top_k,
+                           capacity_factor=cfg.moe_capacity_factor, ep=ep)
+        if collect_aux is not None:
+            collect_aux.append(aux)
+        return out
     gate = F.silu(_mm(h, params["w_gate"]).float()).to(h.dtype)
     return _mm(gate * _mm(h, params["w_up"]), params["w_down"])
+
+
+def _mlp_out(tp, ranks, x, cfg: ModelConfig, collect_aux=None, ep=None):
+    """The MLP branch of the replicated ``x``: under ``tp`` the dense MLP's
+    row-parallel partials summed over the axis; a MoE layer's bank is
+    replicated, so its output is computed once, from the first rank's
+    replica, and takes no sum (the reference's shardings)."""
+    if "wr" in ranks[0]:
+        return _mlp(ranks[0], rmsnorm(x, ranks[0]["ln_mlp"]), cfg,
+                    collect_aux=collect_aux, ep=ep)
+    return _psum(tp, lambda i, lp, hr: _mlp(lp, hr, cfg), ranks,
+                 _normed(tp, x, ranks, "ln_mlp"))
 
 
 def _qkv(params, x, positions, cfg: ModelConfig):
     return _qkv_normed(params, rmsnorm(x, params["ln_attn"]), positions, cfg)
 
 
-def _qkv_normed(params, h, positions, cfg: ModelConfig):
+def _qkv_normed(params, h, positions, cfg: ModelConfig, lora_layer=None,
+                adapter_ids=None):
     """Rotated q, k, v of the normed input ``h`` (B, N, dim); the head
-    counts follow the (possibly sliced) projection widths."""
+    counts follow the (possibly sliced) projection widths. ``lora_layer``,
+    ``adapter_ids``: each lane's adapter delta (:func:`_proj`)."""
     b, n, _ = h.shape
-    q = _mm(h, params["wq"]).reshape(b, n, -1, cfg.head_dim)
-    k = _mm(h, params["wk"]).reshape(b, n, -1, cfg.head_dim)
-    v = _mm(h, params["wv"]).reshape(b, n, -1, cfg.head_dim)
+
+    def proj(name):
+        return _proj(h, params[name], lora_layer, name, adapter_ids)
+
+    q = proj("wq").reshape(b, n, -1, cfg.head_dim)
+    k = proj("wk").reshape(b, n, -1, cfg.head_dim)
+    v = proj("wv").reshape(b, n, -1, cfg.head_dim)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
@@ -303,25 +376,27 @@ def _psum(tp, fn, *per_rank):
 
 
 def _block(params, x, positions, cfg: ModelConfig, collect_kv=None,
-           attn_fn=None, tp=None):
+           attn_fn=None, tp=None, collect_aux=None, ep=None,
+           lora_layer=None, adapter_ids=None):
     """One layer. Under ``tp``, ``params`` holds a rank's slices each and
-    ``collect_kv`` takes the layer's per-rank ``(k, v)`` list."""
+    ``collect_kv`` takes the layer's per-rank ``(k, v)`` list;
+    ``collect_aux`` takes a MoE layer's balance loss; ``lora_layer`` and
+    ``adapter_ids``: each lane's adapter delta (no ``tp``)."""
     b, n, _ = x.shape
     ranks = _ranks(params, tp)
     kvs = []
 
     def attn(i, lp, hr, pr):
-        q, k, v = _qkv_normed(lp, hr, pr, cfg)
+        q, k, v = _qkv_normed(lp, hr, pr, cfg, lora_layer, adapter_ids)
         kvs.append((k, v))
         o = _attn_full(q, k, v, cfg, attn_fn=attn_fn).reshape(b, n, -1)
-        return _mm(o, lp["wo"])
+        return _proj(o, lp["wo"], lora_layer, "wo", adapter_ids)
 
     x = x + _psum(tp, attn, ranks, _normed(tp, x, ranks, "ln_attn"),
                   _bcast(tp, positions))
     if collect_kv is not None:
         collect_kv.append(kvs if tp is not None else kvs[0])
-    return x + _psum(tp, lambda i, lp, hr: _mlp(lp, hr, cfg), ranks,
-                     _normed(tp, x, ranks, "ln_mlp"))
+    return x + _mlp_out(tp, ranks, x, cfg, collect_aux=collect_aux, ep=ep)
 
 
 def _positions(b: int, n: int, device) -> torch.Tensor:
@@ -329,9 +404,11 @@ def _positions(b: int, n: int, device) -> torch.Tensor:
 
 
 def forward(params, tokens, cfg: ModelConfig, positions=None, attn_fn=None,
-            tp=None):
+            tp=None, collect_aux=None, ep=None):
     """Full forward: tokens (B, N) int → logits (B, N, vocab) f32.
-    ``attn_fn``: see :func:`_attn_full`; ``tp``: see the module note."""
+    ``attn_fn``: see :func:`_attn_full`; ``tp``, ``ep``: see the module
+    note; ``collect_aux``: a list that takes each MoE layer's balance
+    loss."""
     _check_ported(cfg)
     top = _ranks(params, tp)[0]
     b, n = tokens.shape
@@ -340,20 +417,25 @@ def forward(params, tokens, cfg: ModelConfig, positions=None, attn_fn=None,
     x = top["embed"][tokens]
     for i in range(len(top["layers"])):
         x = _block(_layer(params, i, tp), x, positions, cfg, attn_fn=attn_fn,
-                   tp=tp)
+                   tp=tp, collect_aux=collect_aux, ep=ep)
     x = rmsnorm(x, top["ln_f"])
     return (x @ top["embed"].T).float()
 
 
 def loss_fn(params, tokens, cfg: ModelConfig, attn_fn=None,
-            moe_aux_coef: float = 0.01, tp=None):
+            moe_aux_coef: float = 0.01, tp=None, ep=None):
     """Next-token cross entropy over tokens (B, N + 1): log_softmax of the
-    float32 logits, mean over the B·N targets. ``moe_aux_coef`` weights the
-    MoE balance loss of the reference; MoE configs raise (ROADMAP A9)."""
-    logits = forward(params, tokens[:, :-1], cfg, attn_fn=attn_fn, tp=tp)
+    float32 logits, mean over the B·N targets. A MoE model adds the Switch
+    balance loss, the mean over its layers weighted by ``moe_aux_coef``."""
+    aux = []
+    logits = forward(params, tokens[:, :-1], cfg, attn_fn=attn_fn, tp=tp,
+                     collect_aux=aux, ep=ep)
     logp = torch.log_softmax(logits, dim=-1)
     nll = -logp.gather(-1, tokens[:, 1:, None].long())
-    return nll.mean()
+    loss = nll.mean()
+    if aux:
+        loss = loss + moe_aux_coef * sum(aux) / len(aux)
+    return loss
 
 
 def prefill(params, tokens, cfg: ModelConfig, tp=None):
@@ -363,7 +445,7 @@ def prefill(params, tokens, cfg: ModelConfig, tp=None):
     Returns (logits (B, vocab), kv: list of (k, v) each (B, N, KVH, D));
     under ``tp`` each layer's entry is a list of the ranks' (k, v).
     """
-    _check_ported(cfg)
+    _check_serving_moe(cfg)
     top = _ranks(params, tp)[0]
     b, n = tokens.shape
     positions = _positions(b, n, tokens.device)
@@ -377,7 +459,8 @@ def prefill(params, tokens, cfg: ModelConfig, tp=None):
 
 
 def prefill_chunk(params, tokens, offset: int, true_len: int, caches,
-                  slot: int, cfg: ModelConfig, pages_bound=None, tp=None):
+                  slot: int, cfg: ModelConfig, pages_bound=None, tp=None,
+                  lora=None, adapter_ids=None):
     """Process ONE page-aligned chunk of a prompt against the paged cache.
 
     Per layer, the chunk attends the already-cached prefix through the
@@ -391,10 +474,12 @@ def prefill_chunk(params, tokens, offset: int, true_len: int, caches,
     tokens in it. Padded tail rows only attend earlier real keys, and
     nothing attends them. The caches are updated in place. Returns
     ``(logits (1, C, vocab) f32, greedy_last, caches)``: ``greedy_last``
-    is the argmax token after the last real position.
+    is the argmax token after the last real position. ``lora``,
+    ``adapter_ids`` (``(1,)``): the adapter bank and the request's id.
     """
-    _check_ported(cfg)
+    _check_serving_moe(cfg)
     top = _ranks(params, tp)[0]
+    loras = lora if lora is not None else [None] * len(top["layers"])
     b, c = tokens.shape
     dev = tokens.device
     positions = offset + torch.arange(c, dtype=torch.int32, device=dev)[None]
@@ -403,7 +488,8 @@ def prefill_chunk(params, tokens, offset: int, true_len: int, caches,
     slot_lanes = torch.full((c,), slot, dtype=torch.int32, device=dev)
 
     def attn(i, lp, cache, hr, pr, lanes):
-        q, k, v = _qkv_normed(lp, hr, pr, cfg)
+        le = loras[li]  # the layer the loop below is on
+        q, k, v = _qkv_normed(lp, hr, pr, cfg, le, adapter_ids)
         # the prefix before the write: the slot's length is still
         # ``offset``, so the paged kernel sees exactly [start, offset)
         o1, lse1 = paged_attention(
@@ -421,7 +507,7 @@ def prefill_chunk(params, tokens, offset: int, true_len: int, caches,
         o = o.transpose(1, 2).to(hr.dtype)  # (1, C, QH, D)
         cache.write_chunk(slot, k[0].transpose(0, 1), v[0].transpose(0, 1),
                           offset, valid_n=true_len)
-        return _mm(o.reshape(b, c, -1), lp["wo"])
+        return _proj(o.reshape(b, c, -1), lp["wo"], le, "wo", adapter_ids)
 
     for li in range(len(top["layers"])):
         ranks = _ranks(_layer(params, li, tp), tp)
@@ -429,15 +515,15 @@ def prefill_chunk(params, tokens, offset: int, true_len: int, caches,
                       _ranks(_layer_caches(caches, li, tp), tp),
                       _normed(tp, x, ranks, "ln_attn"), _bcast(tp, positions),
                       _bcast(tp, slot_lanes))
-        x = x + _psum(tp, lambda i, lp, hr: _mlp(lp, hr, cfg), ranks,
-                      _normed(tp, x, ranks, "ln_mlp"))
+        x = x + _mlp_out(tp, ranks, x, cfg)
     x = rmsnorm(x, top["ln_f"])
     logits = (x @ top["embed"].T).float()
     return logits, torch.argmax(logits[0, true_len - 1]), caches
 
 
 def decode_verify(params, tokens, positions, caches, slots,
-                  cfg: ModelConfig, pages_bound=None, tp=None):
+                  cfg: ModelConfig, pages_bound=None, tp=None, lora=None,
+                  adapter_ids=None):
     """Score K tokens a lane in one pass over the paged caches
     (speculative verification).
 
@@ -449,10 +535,12 @@ def decode_verify(params, tokens, positions, caches, slots,
     lengths ``position + j + 1`` (B2's split route, ``lengths_override``;
     under a band each lane's own position), so token j sees what K
     sequential decode steps would show it. Returns ``(logits (B, K,
-    vocab) f32, caches)``, every slot advanced by K, in place.
+    vocab) f32, caches)``, every slot advanced by K, in place. ``lora``,
+    ``adapter_ids`` (``(B,)``): the adapter bank and each lane's id.
     """
-    _check_ported(cfg)
+    _check_serving_moe(cfg)
     top = _ranks(params, tp)[0]
+    loras = lora if lora is not None else [None] * len(top["layers"])
     b, k_len = tokens.shape
     dev = tokens.device
     pos = (positions.to(torch.int32)[:, None]
@@ -464,7 +552,8 @@ def decode_verify(params, tokens, positions, caches, slots,
         pos.reshape(-1))]
 
     def attn(i, lp, cache, hr, pr, sl, sl_flat, vis_flat, pos_flat):
-        q, k, v = _qkv_normed(lp, hr, pr, cfg)
+        le = loras[li]  # the layer the loop below is on
+        q, k, v = _qkv_normed(lp, hr, pr, cfg, le, adapter_ids)
         for j in range(k_len):
             cache.append(sl, k[:, j], v[:, j])
         o = paged_attention(
@@ -472,21 +561,22 @@ def decode_verify(params, tokens, positions, caches, slots,
             lengths_override=vis_flat,
             positions=None if radius is None else pos_flat,
             pages_bound=pages_bound, radius=radius)
-        return _mm(o.reshape(b, k_len, -1), lp["wo"])
+        return _proj(o.reshape(b, k_len, -1), lp["wo"], le, "wo",
+                     adapter_ids)
 
     for li in range(len(top["layers"])):
         ranks = _ranks(_layer(params, li, tp), tp)
         x = x + _psum(tp, attn, ranks,
                       _ranks(_layer_caches(caches, li, tp), tp),
                       _normed(tp, x, ranks, "ln_attn"), *lane_args)
-        x = x + _psum(tp, lambda i, lp, hr: _mlp(lp, hr, cfg), ranks,
-                      _normed(tp, x, ranks, "ln_mlp"))
+        x = x + _mlp_out(tp, ranks, x, cfg)
     x = rmsnorm(x, top["ln_f"])
     return (x @ top["embed"].T).float(), caches
 
 
 def decode_step(params, tokens, positions, caches, slots, cfg: ModelConfig,
-                pages_bound=None, pipelined=False, tp=None):
+                pages_bound=None, pipelined=False, tp=None, lora=None,
+                adapter_ids=None):
     """One decode step over the paged caches.
 
     tokens: (B,) new token ids; positions: (B,) their positions; caches:
@@ -497,19 +587,22 @@ def decode_step(params, tokens, positions, caches, slots, cfg: ModelConfig,
     to itself; a sliding model
     attends only its band. ``pipelined=True`` takes the reference's
     pipelined decode (``paged_attention_pipelined``: each lane walks
-    exactly its own pages; ``pages_bound`` is then ignored).
+    exactly its own pages; ``pages_bound`` is then ignored). ``lora``,
+    ``adapter_ids`` (``(B,)``): the adapter bank and each lane's id.
 
     Returns (logits (B, vocab) f32, caches).
     """
-    _check_ported(cfg)
+    _check_serving_moe(cfg)
     top = _ranks(params, tp)[0]
+    loras = lora if lora is not None else [None] * len(top["layers"])
     b = tokens.shape[0]
     x = top["embed"][tokens][:, None, :]  # (B, 1, dim)
     radius = _radius(cfg)
     pos_r, slots_r = _bcast(tp, positions[:, None]), _bcast(tp, slots)
 
     def attn(i, lp, cache, hr, pr, sl):
-        q, k, v = _qkv_normed(lp, hr, pr, cfg)
+        le = loras[li]  # the layer the loop below is on
+        q, k, v = _qkv_normed(lp, hr, pr, cfg, le, adapter_ids)
         new_kv = (k[:, 0], v[:, 0])
         if pipelined:
             o, _ = paged_attention_pipelined(q[:, 0], cache, sl,
@@ -517,15 +610,14 @@ def decode_step(params, tokens, positions, caches, slots, cfg: ModelConfig,
         else:
             o, _ = paged_attention(q[:, 0], cache, sl, new_kv=new_kv,
                                    pages_bound=pages_bound, radius=radius)
-        return _mm(o.reshape(b, 1, -1), lp["wo"])
+        return _proj(o.reshape(b, 1, -1), lp["wo"], le, "wo", adapter_ids)
 
     for li in range(len(top["layers"])):
         ranks = _ranks(_layer(params, li, tp), tp)
         x = x + _psum(tp, attn, ranks,
                       _ranks(_layer_caches(caches, li, tp), tp),
                       _normed(tp, x, ranks, "ln_attn"), pos_r, slots_r)
-        x = x + _psum(tp, lambda i, lp, hr: _mlp(lp, hr, cfg), ranks,
-                      _normed(tp, x, ranks, "ln_mlp"))
+        x = x + _mlp_out(tp, ranks, x, cfg)
     x = rmsnorm(x, top["ln_f"])
     return (x[:, 0] @ top["embed"].T).float(), caches
 
@@ -543,7 +635,7 @@ def decode_step_seq(params, tokens, positions, caches, slots,
     local rank, each with its own page tables and lengths (local tokens).
     Sliding-window decode raises (band positions are global).
     """
-    _check_ported(cfg)
+    _check_serving_moe(cfg)
     if cfg.attention == "sliding":
         raise NotImplementedError("seq-sharded decode is causal-only")
     b = tokens.shape[0]

@@ -1,8 +1,10 @@
-"""Meshes of ``(data, model, seq)`` ranks: port of
-``tpu_flash/parallel/mesh.py``.
+"""Meshes of ``(data, model, seq, expert)`` ranks: port of
+``tpu_flash/parallel/mesh.py``, with the ``expert`` axis of the reference's
+expert-parallel dry run (``__graft_entry__.py``'s one-axis ``("expert",)``
+mesh) as a fourth axis, 1 unless asked for.
 
 A rank has a device and a process holds ranks. The mesh's ranks are
-numbered row-major over ``(data, model, seq)``; a ``torch.distributed``
+numbered row-major over ``(data, model, seq, expert)``; a ``torch.distributed``
 group of ``W`` processes (one process without it) splits them into ``W``
 consecutive blocks of ``L = data·model·seq / W``, and process ``p`` holds
 ranks ``[p·L, (p + 1)·L)``. Each rank has a ``torch.device``: all on the
@@ -26,12 +28,13 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import math
 from typing import List, Optional, Sequence
 
 import torch
 import torch.distributed as dist
 
-AXES = ("data", "model", "seq")
+AXES = ("data", "model", "seq", "expert")
 
 
 def _distributed() -> bool:
@@ -147,7 +150,8 @@ class AxisGroup:
 
 @dataclasses.dataclass
 class Mesh:
-    """Ranks over ``(data, model, seq)`` and the processes that hold them.
+    """Ranks over ``(data, model, seq, expert)`` and the processes that
+    hold them.
 
     ``shape``: axis sizes; ``devices``: the device of each rank this
     process holds, by global rank; ``world``/``process``: the
@@ -164,7 +168,7 @@ class Mesh:
 
     @property
     def size(self) -> int:
-        return self.shape["data"] * self.shape["model"] * self.shape["seq"]
+        return math.prod(self.shape[a] for a in AXES)
 
     @property
     def local_ranks(self) -> range:
@@ -172,12 +176,17 @@ class Mesh:
         return range(self.process * n, (self.process + 1) * n)
 
     def coords(self, rank: int) -> tuple:
-        m, s = self.shape["model"], self.shape["seq"]
-        return rank // (m * s), rank // s % m, rank % s
+        out = []
+        for a in reversed(AXES):
+            out.append(rank % self.shape[a])
+            rank //= self.shape[a]
+        return tuple(reversed(out))
 
     def rank_of(self, coords) -> int:
-        d, m, s = coords
-        return (d * self.shape["model"] + m) * self.shape["seq"] + s
+        rank = 0
+        for a, c in zip(AXES, coords):
+            rank = rank * self.shape[a] + c
+        return rank
 
     def _process_of(self, rank: int) -> int:
         return rank // (self.size // self.world)
@@ -210,16 +219,22 @@ class Mesh:
 
 def _box(shape, local: int) -> tuple:
     """The extents of a row-major block of ``local`` consecutive ranks
-    along (data, model, seq), which must be a box."""
-    d, m, s = (shape[a] for a in AXES)
-    if local <= s and s % local == 0:
-        return 1, 1, local
-    if local <= m * s and local % s == 0 and m % (local // s) == 0:
-        return 1, local // s, s
-    if local % (m * s) == 0 and d % (local // (m * s)) == 0:
-        return local // (m * s), m, s
-    raise ValueError(f"{local} consecutive ranks of a mesh {shape} do not "
-                     "form a box: choose sizes the process count divides")
+    along the axes, which must be a box: whole trailing axes, then a part
+    of one axis that divides it."""
+    box, rest = [1] * len(AXES), local
+    for ax in reversed(range(len(AXES))):
+        size = shape[AXES[ax]]
+        if rest % size == 0:
+            box[ax], rest = size, rest // size
+        elif size % rest == 0:
+            box[ax], rest = rest, 1
+        else:
+            break
+    if rest != 1:
+        raise ValueError(f"{local} consecutive ranks of a mesh {shape} do "
+                         "not form a box: choose sizes the process count "
+                         "divides")
+    return tuple(box)
 
 
 def _normalize(device) -> torch.device:
@@ -230,12 +245,13 @@ def _normalize(device) -> torch.device:
 
 
 def make_mesh(data: int = 1, model: int = 1, seq: int = 1,
-              devices=None) -> Mesh:
-    """A ``(data, model, seq)`` mesh of ``data·model·seq`` ranks.
+              devices=None, expert: int = 1) -> Mesh:
+    """A ``(data, model, seq, expert)`` mesh of ``data·model·seq·expert``
+    ranks.
 
     Axis roles as the reference's: ``data`` the batch, ``model`` tensor
     parallelism over heads and the MLP hidden dim, ``seq`` sequence
-    sharding. ``devices``: one device for all of this process's ranks, or
+    sharding, ``expert`` a MoE layer's experts (``models/moe.py``). ``devices``: one device for all of this process's ranks, or
     a list that takes the ranks in consecutive blocks (four cards and
     eight ranks: two ranks a card); default the current card. A list
     needs this process's ranks on one axis line (its block spans one axis):
@@ -245,12 +261,12 @@ def make_mesh(data: int = 1, model: int = 1, seq: int = 1,
     ``torch.distributed`` every process calls this with the same sizes;
     the ranks split evenly over the processes and each process gets the
     sub-groups of its axis lines."""
-    shape = dict(data=data, model=model, seq=seq)
+    shape = dict(data=data, model=model, seq=seq, expert=expert)
     if min(shape.values()) < 1:
         raise ValueError(f"mesh axes must be >= 1, got {shape}")
     world = dist.get_world_size() if _distributed() else 1
     process = dist.get_rank() if _distributed() else 0
-    n = data * model * seq
+    n = math.prod(shape.values())
     if n % world:
         raise ValueError(f"{n} ranks do not split over {world} processes")
     local = n // world

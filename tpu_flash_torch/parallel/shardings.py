@@ -11,7 +11,9 @@ functions that give rank ``r`` of ``R`` its slices: what its
 ``NamedSharding`` puts on device ``r``. int8 weight-only entries
 (``{"q", "s"}``) split their per-column scales with the columns; a
 row-parallel entry's scales index the unsplit output dim and are
-replicated.
+replicated. A MoE layer's router and expert bank are replicated under the
+axis: each rank holds them whole and the MoE output takes no sum (experts
+split over a mesh ``expert`` axis instead, ``models/moe.py``).
 """
 
 from __future__ import annotations
@@ -57,8 +59,11 @@ def param_slices(params, rank: int, size: int, device=None):
 
     def layer(lp):
         out = {}
+        moe = "wr" in lp  # the router and the expert bank replicate
         for name, w in lp.items():
-            if name in COLUMN:
+            if moe and name not in ("wq", "wk", "wv", "wo"):
+                out[name] = w.to(device)
+            elif name in COLUMN:
                 out[name] = _slice(w, rank, size, 1, name, device)
             elif name in ROW:
                 out[name] = _slice(w, rank, size, 0, name, device)
@@ -108,8 +113,10 @@ def rank_cache_config(cache_cfg, size: int):
 def check_divisible(model_cfg, size: int) -> None:
     """Tensor parallelism needs q heads, kv heads and the MLP hidden dim
     divisible by the axis size (the reference's ``shard_engine_state``
-    requirement)."""
-    for what, n in (("q heads", model_cfg.num_q_heads),
-                    ("kv heads", model_cfg.num_kv_heads),
-                    ("mlp hidden", model_cfg.hidden)):
+    requirement); a MoE model's hidden dim is not split."""
+    parts = [("q heads", model_cfg.num_q_heads),
+             ("kv heads", model_cfg.num_kv_heads)]
+    if model_cfg.moe_experts == 0:
+        parts.append(("mlp hidden", model_cfg.hidden))
+    for what, n in parts:
         _part(n, 0, size, what)

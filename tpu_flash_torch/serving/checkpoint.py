@@ -10,7 +10,10 @@ pool's tables) is JSON. Sampling needs no saved state: its noise is a pure
 function of (engine seed, request, position). The prefix-cache index is not
 saved (the restored pool holds only the running slots' pages), nor are the
 draft's caches: a restored speculative engine replays each history
-through the draft in its first round's catch-up feeds.
+through the draft in its first round's catch-up feeds. Nor is a LoRA bank:
+a snapshot whose waiting or running requests name an adapter is refused
+at load (the reference restores them onto an engine without a bank, where
+they would decode on the base model).
 """
 
 from __future__ import annotations
@@ -118,6 +121,14 @@ def load_checkpoint(path: str, mesh=None, tp_axis: str = "model",
     ccfg = CacheConfig(**state["cache_cfg"])
     ecfg = EngineConfig(**{**state["engine_cfg"], "prefill_buckets": tuple(
         state["engine_cfg"]["prefill_buckets"])})
+    adapted = sorted(r["rid"] for r in [*state["waiting"],
+                                         *state["running"].values()]
+                     if r.get("adapter_id", -1) >= 0)
+    if adapted:
+        raise ValueError(
+            f"checkpoint holds requests {adapted} that name LoRA adapters; "
+            "load_checkpoint takes no adapter bank, and resuming them would "
+            "decode them on the base model")
     if ecfg.speculate_k > 0 and draft is None:
         raise ValueError(
             f"checkpoint was saved with speculate_k={ecfg.speculate_k}; "

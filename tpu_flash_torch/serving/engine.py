@@ -61,8 +61,17 @@ exhaustion preempts a sequence back to the queue.
   tag, position). Every speculative round runs eagerly on committed state;
   ``decode_steps`` is ignored while a draft is attached. Under tensor
   parallelism the draft stays unsharded.
-
-Not ported yet: LoRA (ROADMAP A9b), which raises ``NotImplementedError``.
+* Multi-LoRA (``Engine(lora=bank)``, ``models/lora.py``): each request
+  names an adapter of the bank (``Request.adapter_id``, −1 the base
+  model) and every path adds its lanes' adapter deltas: the whole-prompt
+  and chunked prefills, the one-token step, the K-step rounds (the round
+  graph reads the lanes' ids from a static buffer, refreshed before every
+  replay) and the speculative verify (the draft stays base). The prefix
+  cache keeps one namespace an adapter. Refused under tensor parallelism,
+  as in the reference.
+* MoE models (``models/moe.py``) serve through every mode above; the
+  engine refuses a capacity factor that could drop a token
+  (``models/transformer.py:_check_serving_moe``).
 """
 
 from __future__ import annotations
@@ -306,7 +315,9 @@ class Request:
     eos_id: Optional[int] = None
     # finish when the GENERATED tail ends with any of these token sequences
     stop_sequences: tuple = ()
-    adapter_id: int = -1  # LoRA adapters: ROADMAP A9b
+    # multi-LoRA serving: the adapter's row in the engine's bank (−1: the
+    # base model); any mix of adapters and base rides one batched decode
+    adapter_id: int = -1
     # internal: set on preemption requeue — the ORIGINAL user prompt length,
     # so a stop sequence straddling the preemption boundary still fires
     true_prompt_len: Optional[int] = None
@@ -328,6 +339,7 @@ class _Running:
     logprobs: List[float] = dataclasses.field(default_factory=list)
     stop_sequences: tuple = ()
     true_prompt_len: Optional[int] = None
+    adapter_id: int = -1
 
 
 @dataclasses.dataclass
@@ -338,6 +350,7 @@ class FinishedRequest:
     reason: str  # "length" | "eos" | "stop" | "cap"
     # raw log-softmax of each generated token under the model distribution
     logprobs: List[float] = dataclasses.field(default_factory=list)
+    adapter_id: int = -1
 
 
 @dataclasses.dataclass(frozen=True)
@@ -392,9 +405,7 @@ class Engine:
             raise NotImplementedError(
                 "multi-LoRA under tensor parallelism is not composed yet "
                 "(the adapter deltas would need the projections' shardings)")
-        if lora is not None:
-            raise NotImplementedError(
-                "Engine(lora=...) is not ported yet (ROADMAP A9b)")
+        tfm._check_serving_moe(model_cfg)
         # The engine pins the exact running max (the reference's bit-identical
         # chunked-vs-unchunked contract forbids the span-dependent bound).
         if model_cfg.attn_bound_max:
@@ -408,6 +419,10 @@ class Engine:
             if not isinstance(params, list):  # else: this process's slices
                 params = shardings.shard_params(params, self.tp)
         self.params = params
+        # the adapter bank (models/lora.py: one dict a layer) or None
+        self.lora = lora
+        self._n_adapters = (0 if lora is None else
+                            next(iter(lora[0].values()))["a"].shape[0])
         self.mcfg = dataclasses.replace(model_cfg, attn_bound_max=False)
         # prefill may opt into the norm bound (a tolerance contract)
         self.mcfg_prefill = (
@@ -509,10 +524,17 @@ class Engine:
             raise ValueError(
                 f"prompt of {len(req.prompt)} tokens exceeds per-sequence "
                 f"cache capacity {cap}")
-        if req.adapter_id != -1:
+        if req.adapter_id != -1 and self.lora is None:
+            # decoding an adapter request on the base model would be silent
             raise ValueError(
                 f"request {req.rid} names adapter {req.adapter_id} but this "
                 "engine was built without a LoRA bank")
+        if req.adapter_id != -1 and not 0 <= req.adapter_id < self._n_adapters:
+            # the reference clamps the id into the bank: another adapter's
+            # deltas, silently
+            raise ValueError(
+                f"request {req.rid} names adapter {req.adapter_id}; the bank "
+                f"holds {self._n_adapters}")
         self.waiting.append(req)
 
     def step(self) -> None:
@@ -659,6 +681,13 @@ class Engine:
     def _samp(self, rows) -> torch.Tensor:
         return self._dev(np.asarray(rows, np.float32).reshape(-1, 3))
 
+    def _aids(self, ids) -> Optional[torch.Tensor]:
+        """Lanes' adapter ids on the device (int32), or None without a
+        bank."""
+        if self.lora is None:
+            return None
+        return self._dev(np.asarray(ids, np.int32).reshape(-1))
+
     def _bucket(self, n: int) -> int:
         for b in self.ecfg.prefill_buckets:
             if n <= b:
@@ -800,7 +829,8 @@ class Engine:
         logits, _, self.caches = tfm.prefill_chunk(
             self.params, torch.as_tensor(toks, device=self.device), done,
             true_n, self.caches, slot, self.mcfg_prefill,
-            pages_bound=min(pb, self.ccfg.max_pages_per_seq), tp=self.tp)
+            pages_bound=min(pb, self.ccfg.max_pages_per_seq), tp=self.tp,
+            lora=self.lora, adapter_ids=self._aids([req.adapter_id]))
         st["done"] = done + true_n
         if st["done"] < len(req.prompt):
             return  # intermediate chunks sample nothing
@@ -827,7 +857,8 @@ class Engine:
         toks[0, :n] = req.prompt
         logits_all, kv = _prefill_all_logits(
             self.params, torch.as_tensor(toks, device=self.device),
-            self.mcfg_prefill, tp=self.tp)
+            self.mcfg_prefill, tp=self.tp, lora=self.lora,
+            adapter_ids=self._aids([req.adapter_id]))
         self._write_prompt_kv(kv, slot, n)
         self._start_running(req, slot, pages, logits_all[:, n - 1])
 
@@ -863,6 +894,7 @@ class Engine:
             eos_id=req.eos_id,
             stop_sequences=tuple(tuple(x) for x in req.stop_sequences),
             true_prompt_len=req.true_prompt_len,
+            adapter_id=req.adapter_id,
             alloc_tokens=pages * self.ccfg.page_size,
             next_token=tok,
             logprobs=[float(tok_lp[1])],
@@ -902,7 +934,7 @@ class Engine:
         self.finished.append(FinishedRequest(
             rid=r.rid, tokens=list(r.tokens),
             new_tokens=r.tokens[r.prompt_len:], reason="cap",
-            logprobs=list(r.logprobs)))
+            logprobs=list(r.logprobs), adapter_id=r.adapter_id))
         self._alloc.free_seq(slot)
         self._free_slots.append(slot)
 
@@ -925,6 +957,7 @@ class Engine:
             top_p=r.top_p,
             eos_id=r.eos_id,
             stop_sequences=r.stop_sequences,
+            adapter_id=r.adapter_id,
             true_prompt_len=(r.true_prompt_len if r.true_prompt_len is not None
                              else r.prompt_len),
         ))
@@ -1007,11 +1040,11 @@ class Engine:
         self.flush()  # the one-token step fetches synchronously
         if not self.running:
             return
-        lanes, slots_np, toks_np, pos_np, samp_np, keys_np, _ = (
+        lanes, slots_np, toks_np, pos_np, samp_np, keys_np, aids_np, _ = (
             self._decode_composition())
         packed = self._step(
             *(self._dev(a) for a in (toks_np, pos_np, slots_np, samp_np,
-                                     keys_np)),
+                                     keys_np)), self._aids(aids_np),
             self._pages_bound(), host_samp=samp_np).cpu().numpy()
         for lane, slot in enumerate(lanes):
             r = self.running[slot]
@@ -1022,19 +1055,20 @@ class Engine:
             self._tokens_out += 1
             self._maybe_finish(slot)
 
-    def _step(self, tokens, positions, slots, samp, keys, pages_bound: int,
-              host_samp=None):
+    def _step(self, tokens, positions, slots, samp, keys, aids,
+              pages_bound: int, host_samp=None):
         """One decode step of every lane on the device: the model step, the
         trash slot's length reset (idle lanes append to it every step, so
         it never walks off its all-trash table) and the sampling of each
         lane's next token (it lands at position + 1). Returns packed
         ``(mb, 2)`` (token, logprob). The one-token step and every step of
         a round, eager or captured, run this; the one-token step passes
-        ``host_samp`` (:func:`_device_sample`)."""
+        ``host_samp`` (:func:`_device_sample`). ``aids``: the lanes' adapter
+        ids (None without a bank)."""
         logits, _ = tfm.decode_step(
             self.params, tokens, positions, self.caches, slots, self.mcfg,
             pages_bound=pages_bound, pipelined=self.ecfg.pipelined_decode,
-            tp=self.tp)
+            tp=self.tp, lora=self.lora, adapter_ids=aids)
         for c in self._all_caches():
             c.lengths[self._trash_slot].fill_(0)
         return _sample_packed(logits, samp, keys, positions + 1, host_samp)
@@ -1097,6 +1131,7 @@ class Engine:
         feed_np = np.zeros((steps, mb), np.int64)
         use_np = np.zeros((steps, mb), bool)
         pend_np = np.zeros(mb, np.int64)
+        aids_np = np.full(mb, -1, np.int32)
         for lane, (s, f) in enumerate(zip(lanes, feeds)):
             r = self.running[s]
             samp_np[lane] = (r.temperature, r.top_k, r.top_p)
@@ -1106,6 +1141,7 @@ class Engine:
             dpos_np[lane] = dp["lens"].get(s, 0)
             pos_np[lane] = len(r.tokens) - 1  # the pending token's
             pend_np[lane] = r.next_token
+            aids_np[lane] = r.adapter_id
             feed_np[:len(f), lane] = f
             use_np[:len(f), lane] = True
         samp, slots, dkeys, akeys, dpos, pos, feed, use = (
@@ -1133,9 +1169,11 @@ class Engine:
                 qd[li, ii] = qrow[li]
                 prop[li, ii] = out[li]
         toks_v = torch.cat([self._dev(pend_np)[:, None], prop], dim=1)
+        # the target verifies under each lane's adapter; the draft is base
         logits, _ = tfm.decode_verify(self.params, toks_v, pos, self.caches,
                                       slots, self.mcfg, pages_bound=bound,
-                                      tp=self.tp)
+                                      tp=self.tp, lora=self.lora,
+                                      adapter_ids=self._aids(aids_np))
         b, _, v = logits.shape
         p_all = _trunc_dist(logits.reshape(b * K, v),
                             samp.repeat_interleave(K, dim=0),
@@ -1195,13 +1233,13 @@ class Engine:
                    for slot, r in self.running.items())
 
     def _round(self, K: int, pages_bound: int, tokens, positions, slots,
-               samp, keys):
+               samp, keys, aids):
         """K :meth:`_step` s, each on the tokens the last one sampled: the
         reference's ``lax.scan``. Returns ``(packed (mb, K, 2), tokens,
         positions)``, the last two feeding a chained round."""
         packs = []
         for _ in range(K):
-            packed = self._step(tokens, positions, slots, samp, keys,
+            packed = self._step(tokens, positions, slots, samp, keys, aids,
                                 pages_bound)
             packs.append(packed)
             tokens = packed[:, 0].to(torch.int64)
@@ -1227,14 +1265,16 @@ class Engine:
                 slots=torch.full((mb,), self._trash_slot, dtype=torch.int32,
                                  device=dev),
                 samp=torch.zeros((mb, 3), dtype=torch.float32, device=dev),
-                keys=torch.zeros(mb, dtype=torch.int64, device=dev))
+                keys=torch.zeros(mb, dtype=torch.int64, device=dev),
+                aids=torch.full((mb,), -1, dtype=torch.int32, device=dev))
         _build.library()  # load the kernels before the capture
         st = self._static
         before = dict(kernels.LAUNCHES)
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph):
             outs = self._round(K, pages_bound, st["tokens"], st["positions"],
-                               st["slots"], st["samp"], st["keys"])
+                               st["slots"], st["samp"], st["keys"],
+                               st["aids"] if self.lora is not None else None)
         launches = {k: n - before[k] for k, n in kernels.LAUNCHES.items()
                     if n != before[k]}
         self._graphs[key] = g = dict(graph=graph, outs=outs,
@@ -1254,6 +1294,7 @@ class Engine:
         samp_np = np.zeros((mb, 3), np.float32)
         samp_np[:, 2] = 1.0  # idle lanes: top_p disabled
         keys_np = np.zeros(mb, np.int64)
+        aids_np = np.full(mb, -1, np.int32)  # idle lanes: the base model
         lanes = []
         for lane, slot in enumerate(sorted(self.running)[:mb]):
             r = self.running[slot]
@@ -1262,9 +1303,12 @@ class Engine:
             pos_np[lane] = len(r.tokens) - 1  # position of the new token
             samp_np[lane] = (r.temperature, r.top_k, r.top_p)
             keys_np[lane] = self._key_for(r.rid)
+            aids_np[lane] = r.adapter_id
             lanes.append(slot)
-        sig = (tuple(lanes), samp_np.tobytes(), keys_np.tobytes())
-        return lanes, slots_np, toks_np, pos_np, samp_np, keys_np, sig
+        sig = (tuple(lanes), samp_np.tobytes(), keys_np.tobytes(),
+               aids_np.tobytes())
+        return (lanes, slots_np, toks_np, pos_np, samp_np, keys_np, aids_np,
+                sig)
 
     def _decode_multi(self, K: int) -> None:
         """Advance every running lane by a round of K tokens.
@@ -1309,16 +1353,15 @@ class Engine:
         queue the copy of its tokens to pinned host memory behind an event;
         on the CPU, or with ranks on several cards, run the round
         eagerly."""
-        lanes, slots_np, toks_np, pos_np, samp_np, keys_np, sig = comp
+        lanes, slots_np, toks_np, pos_np, samp_np, keys_np, aids_np, sig = comp
         bound = self._pages_bound(ahead=pages_ahead)
         if self._graphs_ok():
             g = self._round_graph(bound, K)
             st = self._static
             if prev is None:
-                for name, a in (("tokens", toks_np), ("positions", pos_np),
-                                ("slots", slots_np), ("samp", samp_np),
-                                ("keys", keys_np)):
-                    st[name].copy_(torch.from_numpy(a))
+                self._load_static(dict(
+                    tokens=toks_np, positions=pos_np, slots=slots_np,
+                    samp=samp_np, keys=keys_np, aids=aids_np))
             else:
                 st["tokens"].copy_(prev["ntok"])
                 st["positions"].copy_(prev["npos"])
@@ -1334,8 +1377,9 @@ class Engine:
             inputs = None
         else:
             if prev is None:
-                inputs = tuple(self._dev(a) for a in (slots_np, samp_np,
-                                                      keys_np))
+                inputs = (*(self._dev(a) for a in (slots_np, samp_np,
+                                                   keys_np)),
+                          self._aids(aids_np))
                 toks, pos = self._dev(toks_np), self._dev(pos_np)
             else:
                 inputs, toks, pos = prev["inputs"], prev["ntok"], prev["npos"]
@@ -1344,6 +1388,14 @@ class Engine:
         return dict(packed=host, done=done, ntok=ntok, npos=npos, K=K,
                     sig=sig, inputs=inputs, lanes=list(lanes),
                     rids=[self.running[s].rid for s in lanes])
+
+    def _load_static(self, arrays: dict) -> None:
+        """Copy a round's host inputs into the graph's static buffers,
+        every one of them before every replay that is not chained: the
+        lanes' slots, sampling rows, keys and adapter ids change as
+        requests finish and are admitted."""
+        for name, a in arrays.items():
+            self._static[name].copy_(torch.from_numpy(a))
 
     def _commit_round(self, info) -> None:
         """Fetch an issued round and commit its tokens through the finish
@@ -1410,7 +1462,8 @@ class Engine:
             self.finished.append(FinishedRequest(
                 rid=r.rid, tokens=list(r.tokens),
                 new_tokens=r.tokens[r.prompt_len:], reason=reason,
-                logprobs=list(r.logprobs)[: len(r.tokens) - r.prompt_len]))
+                logprobs=list(r.logprobs)[: len(r.tokens) - r.prompt_len],
+                adapter_id=r.adapter_id))
             del self.running[slot]
             self._alloc.free_seq(slot)
             self._free_slots.append(slot)
@@ -1422,10 +1475,13 @@ def _add(total: dict, counts: dict) -> None:
         total[name] = total.get(name, 0) + n
 
 
-def _prefill_all_logits(params, tokens, cfg: tfm.ModelConfig, tp=None):
+def _prefill_all_logits(params, tokens, cfg: tfm.ModelConfig, tp=None,
+                        lora=None, adapter_ids=None):
     """Prefill returning logits for ALL positions (the engine picks
     length − 1) and each layer's rotated K/V (under ``tp``, each layer's
-    per-rank list)."""
+    per-rank list). ``lora``, ``adapter_ids``: the adapter bank and the
+    rows' ids."""
+    tfm._check_serving_moe(cfg)
     top = params if tp is None else params[0]
     b, n = tokens.shape
     positions = tfm._positions(b, n, tokens.device)
@@ -1433,6 +1489,8 @@ def _prefill_all_logits(params, tokens, cfg: tfm.ModelConfig, tp=None):
     kv = []
     for i in range(len(top["layers"])):
         x = tfm._block(tfm._layer(params, i, tp), x, positions, cfg,
-                       collect_kv=kv, tp=tp)
+                       collect_kv=kv, tp=tp,
+                       lora_layer=None if lora is None else lora[i],
+                       adapter_ids=adapter_ids)
     x = tfm.rmsnorm(x, top["ln_f"])
     return (x @ top["embed"].T).float(), kv

@@ -20,10 +20,12 @@ sharded over N hosts) on a mesh's sequence line:
 One process drives every rank (the reference's single controller: its
 host loop drives per-shard arrays and is single-process only). Chunked
 prefill, the prefix cache, speculative decoding and sliding-window models
-are refused, as in the reference; so are K-step rounds (``decode_steps >
-1``, and with them ``async_decode``), which the reference's engine never
-composed with sequence sharding (its ``_ensure_capacity`` takes no
-``ahead`` and the multi-step path was never overridden).
+are refused, as in the reference, and so is multi-LoRA (the engine takes
+no bank, so a request naming an adapter raises at ``submit``); so are
+K-step rounds (``decode_steps > 1``, and with them ``async_decode``),
+which the reference's engine never composed with sequence sharding (its
+``_ensure_capacity`` takes no ``ahead`` and the multi-step path was never
+overridden).
 """
 
 from __future__ import annotations
@@ -228,8 +230,11 @@ class SeqShardedEngine(Engine):
                                v[0, off:off + ls].transpose(0, 1).to(dev))
                 c.lengths[slot].fill_(int(np.clip(n - off, 0, ls)))
 
-    def _step(self, tokens, positions, slots, samp, keys, pages_bound: int,
-              host_samp=None):
+    def _step(self, tokens, positions, slots, samp, keys, aids,
+              pages_bound: int, host_samp=None):
+        # aids rides the base class's call; this engine holds no adapter
+        # bank (multi-LoRA is not composed with sequence sharding, as in
+        # the reference), so every lane is the base model
         logits, _ = tfm.decode_step_seq(
             self.params, tokens, positions, self.caches, slots, self.mcfg,
             self.seq, pages_bound=pages_bound)

@@ -46,7 +46,10 @@ def params_from_tree(tree, device="cuda"):
     """The reference's parameter tree (dicts/lists of arrays) → the port's
     parameter dict, same keys and layouts; int8 weight-only matrices
     (``quantize_weights``' ``{"q", "s"}`` leaves) come across as int8 and
-    float32."""
+    float32. Any such tree converts: a MoE layer's float32 router ``wr``
+    and 3-D expert-major ``w_gate``/``w_up``/``w_down`` keep their dtypes
+    and shapes, and a LoRA bank (``init_lora_bank``: a list of per-layer
+    dicts of ``{"a", "b"}``) comes across as the port's bank."""
     if isinstance(tree, dict):
         return {k: params_from_tree(v, device) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
