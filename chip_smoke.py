@@ -18,7 +18,13 @@ and holds decode_verify of 4 tokens on each of the 16 lanes against 4
 decode steps on the float32 model of the same weights (a planted fault,
 one key too many, rejected; the bf16 model's gap printed), each of its 16
 B2 calls over 64 lanes held against the plain version on its own inputs
-(the same fault rejected), then takes
+(the same fault rejected), then serves the canonical model with 4 q / 2 kv
+heads of head_dim 512 (phase wide_heads_serve: the same weight and cache
+bytes) one token a step, in async rounds of 8 as CUDA graphs (streams
+equal) and through chunked prefill (against whole-prompt prefill), holds
+the last layer's B1, B2 (B3 fused) and B2 shared-table calls against
+their plain versions (V's columns 256–511 hidden must fail each check)
+and times the kernels at d 512, then takes
 three SGD train steps of the same model on 4 × 1025 tokens and checks their
 gradient against the f32 oracle attention's, and three of the same model
 with a sliding window (1025) on 2 × 2049 tokens, its gradient held against
@@ -375,18 +381,20 @@ def flash_phase(dev):
                                                  "bound_ms", "bound_by")})
 
 
-def _decode_cache(dtype, lens, dev, seed, n_pages=CACHE["max_pages_per_seq"] // 4):
+def _decode_cache(dtype, lens, dev, seed, n_pages=CACHE["max_pages_per_seq"] // 4,
+                  cache=CACHE):
     from tpu_flash_torch.cache.paged_cache import CacheConfig, PagedKVCache
 
-    cfg = CacheConfig(**{**CACHE, "dtype": dtype})
+    cfg = CacheConfig(**{**cache, "dtype": dtype})
     gen = torch.Generator(device=dev).manual_seed(seed)
     c = PagedKVCache.create(cfg, dev)
     perm = torch.randperm(cfg.total_pages - 1, generator=gen, device=dev) + 1
     c.page_tables[: len(lens), :n_pages] = perm[: len(lens) * n_pages].reshape(
         len(lens), n_pages).int()
+    shape = (cfg.num_kv_heads, cfg.head_dim)
     for s, n in enumerate(lens):
-        c.write_prompt(s, torch.randn(8, n, 128, generator=gen, device=dev),
-                       torch.randn(8, n, 128, generator=gen, device=dev))
+        c.write_prompt(s, torch.randn(shape[0], n, shape[1], generator=gen, device=dev),
+                       torch.randn(shape[0], n, shape[1], generator=gen, device=dev))
     return c
 
 
@@ -459,9 +467,11 @@ def _bitwise_repeat(name, fn):
     return a
 
 
-def paged_phase(dev):
+def paged_phase(dev, caches=PAGED_CACHES, model=MODEL, cache=CACHE,
+                phase="paged"):
     """B3, and B2's split route, vs their plain versions at the decode
-    shape (16 lanes, ~540 tokens, bf16, int8, int4 and fp8 caches): B3's
+    shape (16 lanes, ~540 tokens, ``model``'s q heads over ``cache``'s kv
+    heads and head dim, bf16, int8, int4 and fp8 caches): B3's
     pages and scales bit-exact; B2 after B3 and the fused call (B2 with the
     append, one launch) against the plain B3 then B2 under the card's split
     plan, pages bit-exact, o and lse within TOL_BF16, two calls bitwise
@@ -474,13 +484,14 @@ def paged_phase(dev):
     from tpu_flash_torch.ops import paged
 
     gen = torch.Generator(device=dev).manual_seed(2)
-    b, hq, kvh, d, bound = 16, 16, 8, 128, 16
+    b, bound = 16, 16
+    hq, kvh, d = model["num_q_heads"], cache["num_kv_heads"], cache["head_dim"]
     g = hq // kvh
     lens = (530 + torch.randint(0, 20, (b,), generator=gen, device=dev)).tolist()
     out = {}
     qscale = d ** -0.5 * paged.LOG2E
-    for dtype in PAGED_CACHES:
-        kc = _decode_cache(dtype, lens, dev, 3)
+    for dtype in caches:
+        kc = _decode_cache(dtype, lens, dev, 3, cache=cache)
         pc, fc = (_cache_copy(kc) for _ in range(2))
         pt = kc.config.page_type
         kern = functools.partial(paged._paged_attention_kernel, page_type=pt,
@@ -553,7 +564,7 @@ def paged_phase(dev):
         row["fused_bound"] = roofline(4 * d * hq * toks, att_bytes + app_bytes,
                                       torch.bfloat16)
         out[dtype] = dict(row, append_err=0.0)
-    emit(dict(phase="paged", caches=[out[k] for k in out]))
+    emit(dict(phase=phase, hq=hq, kvh=kvh, d=d, caches=[out[k] for k in out]))
     return out
 
 
@@ -616,7 +627,8 @@ VERIFY_K = 4
 TOL_VERIFY = 1e-4
 
 
-def multistep_serve(params, mcfg, prompts, dev, decode_steps, async_decode):
+def multistep_serve(params, mcfg, prompts, dev, decode_steps, async_decode,
+                    cache=CACHE, new_tokens=MULTISTEP_NEW_TOKENS):
     """Serve the 16 requests (the last one at temperature 0.7, top-k 50,
     top-p 0.9) after one warm-up request through an engine with the given
     decode mode; return the finished requests, each step's host ms, the
@@ -626,11 +638,11 @@ def multistep_serve(params, mcfg, prompts, dev, decode_steps, async_decode):
     from tpu_flash_torch.cache.paged_cache import CacheConfig
     from tpu_flash_torch.serving.engine import Engine, EngineConfig, Request
 
-    eng = Engine(params, mcfg, CacheConfig(**CACHE), EngineConfig(
+    eng = Engine(params, mcfg, CacheConfig(**cache), EngineConfig(
         max_batch=MAX_BATCH, decode_steps=decode_steps,
         async_decode=async_decode))
     eng.submit(Request(rid=10_000, prompt=prompts[-1],
-                       max_new_tokens=MULTISTEP_NEW_TOKENS))
+                       max_new_tokens=new_tokens))
     eng.run()
     torch.cuda.synchronize()
     stats = eng.graph_stats
@@ -640,7 +652,7 @@ def multistep_serve(params, mcfg, prompts, dev, decode_steps, async_decode):
     for i in range(N_REQUESTS):
         hot = i == N_REQUESTS - 1
         eng.submit(Request(rid=i, prompt=prompts[i],
-                           max_new_tokens=MULTISTEP_NEW_TOKENS,
+                           max_new_tokens=new_tokens,
                            temperature=0.7 if hot else 0.0,
                            top_k=50 if hot else 0, top_p=0.9 if hot else 1.0))
     n0 = len(eng.finished)
@@ -1858,9 +1870,11 @@ def headdims_phase(dev):
     """Head and value dims other than 64 and 128, and a group of 16, on
     every attention kernel, each against its plain version: B1 then B4/B5
     (bf16 at d 96, 256, 96/64 and 40/200; float32 at 256, the smaller-tile
-    instantiations), B3 at d 40 (bytes equal) and B2 at d 40 and 96 with
-    G 16 on its split and shared-table routes (int8, bf16 and float32
-    pages), B6 and B7 through their
+    instantiations), B1 alone above 256 (bf16 at 320, 512, 512/256 and 260
+    under causal, local_causal and the norm bound; float32 at 512), B3
+    (bytes equal) and B2 on its split and shared-table routes at d 40 and
+    96 with G 16 (int8, bf16 and float32 pages) and at d 100, 260 and 512
+    with G 2 and 16 on every page type, B6 and B7 through their
     public entry points at d 96, 256 and 96/64 (the CPU tensors take the
     plain versions)."""
     from tpu_flash_torch import kernels
@@ -1901,43 +1915,67 @@ def headdims_phase(dev):
         rows.append(dict(kernels="flash_fwd, flash_bwd", d=d, dv=dv,
                          dtype=str(dt).replace("torch.", ""), **errs))
 
-    for d in (40, 96):
-        # float32 pages: the split route stages them by the threads' own
-        # loads (as bf16), not by bulk copy
-        for dtype in ("int8", "bfloat16", "float32"):
-            cfg = CacheConfig(num_kv_heads=2, head_dim=d, page_size=64,
-                              total_pages=64, max_seqs=8, max_pages_per_seq=16,
-                              dtype=dtype)
-            caches = [PagedKVCache.create(cfg, dev) for _ in range(2)]
-            table = (torch.randperm(63, generator=gen, device=dev)[:32] + 1
-                     ).reshape(4, 8).int()
-            lens = [300, 257, 64, 450]
-            prompts = [(randn(2, m, d), randn(2, m, d)) for m in lens]
-            for c in caches:
-                c.page_tables[:4, :8] = table
-                for slot, (kp, vp) in enumerate(prompts):
-                    c.write_prompt(slot, kp, vp)
-            slots = torch.arange(4, dtype=torch.int32, device=dev)
-            kn, vn = randn(4, 2, d).bfloat16(), randn(4, 2, d).bfloat16()
-            kc, pc = caches
-            pt = cfg.page_type
-            paged._paged_append_kernel(kn, vn, kc.k_pages, kc.v_pages,
-                                       kc.k_scales, kc.v_scales, slots,
-                                       kc.lengths, kc.page_tables,
-                                       page_type=pt)
-            paged._paged_append_plain(kn, vn, pc.k_pages, pc.v_pages,
-                                      pc.k_scales, pc.v_scales, slots,
-                                      pc.lengths, pc.page_tables, page_type=pt)
-            for name in ("k_pages", "v_pages", "k_scales", "v_scales"):
-                x, y = getattr(kc, name), getattr(pc, name)
-                if x is not None and not torch.equal(x, y):
-                    raise AssertionError(f"headdims B3 d {d} {dtype}: {name} "
-                                         "not bit-exact")
-            qg = randn(4, 2, 16, d).bfloat16()  # G 16: two chunks of 8
+    # B1 above 256 (its backward stops at 256: ROADMAP A15b): bf16 at d/dv
+    # 320, 512, 512/256 and 260 under causal, local_causal (radius 512) and
+    # the norm bound (dense), float32 at 512
+    b1_kinds = (("causal", 0, False), ("local_causal", 512, False),
+                ("dense", 0, True))
+    for d, dv, dt, kinds in ((320, 320, torch.bfloat16, b1_kinds),
+                             (512, 512, torch.bfloat16, b1_kinds),
+                             (512, 256, torch.bfloat16, b1_kinds),
+                             (260, 260, torch.bfloat16, b1_kinds),
+                             (512, 512, torch.float32, b1_kinds[:1])):
+        nw = 1000  # the band of radius 512 leaves keys out
+        q = (randn(hq, nw, d) * (d ** -0.5 * flash.LOG2E)).to(dt)
+        k, v = randn(hkv, nw, d).to(dt), randn(hkv, nw, dv).to(dt)
+        for schedule, radius, bound in kinds:
+            sched = flash.build_schedule(schedule, nw, nw, 512, 1024,
+                                         radius=radius)
+            ko, kl = flash._flash_fwd_kernel(q, k, v, sched, hq, hkv, True,
+                                             bound)
+            po, pl = flash._flash_fwd_plain(q, k, v, sched, hq, hkv, bound)
+            errs = dict(o_vs_plain=max_err(ko, po), lse_vs_plain=max_err(kl, pl))
+            check(f"headdims B1 d {d}/{dv} {schedule} o", errs["o_vs_plain"],
+                  TOL_BF16 if dt == torch.bfloat16 else TOL_F32)
+            check(f"headdims B1 d {d}/{dv} {schedule} lse",
+                  errs["lse_vs_plain"], TOL_LSE)
+            rows.append(dict(kernels="flash_fwd", d=d, dv=dv,
+                             dtype=str(dt).replace("torch.", ""),
+                             schedule=schedule, radius=radius, bound_max=bound,
+                             **errs))
+
+    def paged_case(d, dtype, groups, tol_lse):
+        """B3's bytes, then B2's split and shared-table routes at each
+        group size, against the plain versions (4 lanes, 2 kv heads)."""
+        cfg = CacheConfig(num_kv_heads=2, head_dim=d, page_size=64,
+                          total_pages=64, max_seqs=8, max_pages_per_seq=16,
+                          dtype=dtype)
+        caches = [PagedKVCache.create(cfg, dev) for _ in range(2)]
+        table = (torch.randperm(63, generator=gen, device=dev)[:32] + 1
+                 ).reshape(4, 8).int()
+        lens = [300, 257, 64, 450]
+        prompts = [(randn(2, m, d), randn(2, m, d)) for m in lens]
+        for c in caches:
+            c.page_tables[:4, :8] = table
+            for slot, (kp, vp) in enumerate(prompts):
+                c.write_prompt(slot, kp, vp)
+        slots = torch.arange(4, dtype=torch.int32, device=dev)
+        kn, vn = randn(4, 2, d).bfloat16(), randn(4, 2, d).bfloat16()
+        kc, pc = caches
+        pt = cfg.page_type
+        paged._paged_append_kernel(kn, vn, kc.k_pages, kc.v_pages,
+                                   kc.k_scales, kc.v_scales, slots,
+                                   kc.lengths, kc.page_tables, page_type=pt)
+        paged._paged_append_plain(kn, vn, pc.k_pages, pc.v_pages,
+                                  pc.k_scales, pc.v_scales, slots,
+                                  pc.lengths, pc.page_tables, page_type=pt)
+        _same_cache(f"headdims B3 d {d} {dtype}", kc, pc)
+        walk = paged.plan_pages(kc.config)
+        for g in groups:
+            qg = randn(4, 2, g, d).bfloat16()
             args = (qg, kc.k_pages, kc.v_pages, kc.k_scales, kc.v_scales,
                     slots, kc.lengths, kc.page_tables, 1, 16, torch.bfloat16,
                     True)
-            walk = paged.plan_pages(kc.config)
             ko, kl = paged._paged_attention_kernel(*args, page_type=pt,
                                                    walk=walk)
             po, pl = paged._paged_attention_plain(
@@ -1956,11 +1994,23 @@ def headdims_phase(dev):
             errs.update(shared_o_vs_plain=max_err(so, po),
                         shared_lse_vs_plain=max_err(sl, pl))
             for key, err in errs.items():
-                check(f"headdims B2 d {d} {dtype} {key}", err,
-                      TOL_LSE if "lse" in key else TOL_BF16)
+                check(f"headdims B2 d {d} {dtype} G {g} {key}", err,
+                      tol_lse if "lse" in key else TOL_BF16)
             rows.append(dict(kernels="paged_append, paged_attention split "
-                             "and shared", d=d, g=16, cache=dtype,
+                             "and shared", d=d, g=g, cache=dtype,
                              append_bit_exact=True, **errs))
+
+    for d in (40, 96):
+        # float32 pages: the split route stages them by the threads' own
+        # loads (as bf16), not by bulk copy
+        for dtype in ("int8", "bfloat16", "float32"):
+            paged_case(d, dtype, (16,), TOL_LSE)
+    # head dims above 256 (two 8-column chunks a lane on the split route,
+    # O's halves on the shared route's grid) and d 100, not a multiple of
+    # 8 (rows staged zero-padded), on every page type, G 2 and 16
+    for d in (100, 260, 512):
+        for dtype in ("float32", "bfloat16", "int8", "int4", "fp8"):
+            paged_case(d, dtype, (2, 16), TOL_LSE)
 
     hq, hkv = 16, 8
     for d, dv, q_dt, kv_scale in ((96, 96, "float8_e4m3fn", "tensor"),
@@ -2020,6 +2070,354 @@ def headdims_phase(dev):
             raise AssertionError(f"headdims: kernel {name} never launched")
     emit(dict(phase="headdims", launches=launches, cases=rows))
     return dict(launches=launches, rows=rows)
+
+
+# The wide-head serving path: the canonical model with 4 q / 2 kv heads of
+# head_dim 512 (the same q and kv widths, so the same weight bytes from
+# seed 0 and the same cache bytes a token), served as engine_phase serves
+# it, in async rounds of 8 as CUDA graphs and through chunked prefill; B1,
+# B2 (split with B3 fused, and shared) held against their plain versions on
+# the path's own inputs, each check shown to reject the upper half of the
+# head hidden (V's columns 256–511 zeroed in a copy of the plain version's
+# inputs); each kernel timed at d 512 beside its bound
+MODEL_WIDE = dict(MODEL, num_q_heads=4, num_kv_heads=2, head_dim=512)
+CACHE_WIDE = dict(CACHE, num_kv_heads=2, head_dim=512)
+WIDE_CHUNK = 512
+WIDE_LONG, N_WIDE_LONG = (1100, 2000), 4
+WIDE_UPPER = slice(256, 512)  # the columns the planted faults zero
+
+
+@contextlib.contextmanager
+def no_plain_on_cuda():
+    """Count the plain versions' calls on CUDA tensors while the block
+    runs (the wrappers take them only for CPU tensors); yields the
+    counts."""
+    from tpu_flash_torch.ops import flash, paged
+
+    counts, saved = {}, []
+    for mod, name in ((flash, "_flash_fwd_plain"),
+                      (paged, "_paged_attention_plain"),
+                      (paged, "_paged_append_plain")):
+        real = getattr(mod, name)
+        saved.append((mod, name, real))
+        counts[name] = 0
+
+        def counted(*a, _real=real, _name=name, **kw):
+            if any(isinstance(t, torch.Tensor) and t.is_cuda for t in a):
+                counts[_name] += 1
+            return _real(*a, **kw)
+
+        setattr(mod, name, counted)
+    try:
+        yield counts
+    finally:
+        for mod, name, real in saved:
+            setattr(mod, name, real)
+
+
+def held_b1_call(fn, name: str) -> dict:
+    """Run ``fn`` with B1's wrapper recording its last call (on the
+    model's path, the last layer's), re-run that call: o bitwise the main
+    path's, o within TOL_BF16 and lse within TOL_LSE of the plain version;
+    the plain version with V's columns 256–511 zeroed must fail that
+    check."""
+    from tpu_flash_torch.ops import flash
+
+    real, rec = flash._flash_fwd_kernel, {}
+
+    def recorded(q, k, v, sched, hq, hkv, need_lse, bound_max=False, kmax=None):
+        out = real(q, k, v, sched, hq, hkv, need_lse, bound_max, kmax)
+        rec.update(args=(q.clone(), k.clone(), v.clone(), sched, hq, hkv),
+                   bound=bound_max, o=out[0].clone())
+        return out
+
+    flash._flash_fwd_kernel = recorded
+    try:
+        fn()
+    finally:
+        flash._flash_fwd_kernel = real
+    q, k, v, sched, hq, hkv = rec["args"]
+    got = flash._flash_fwd_kernel(*rec["args"], True, rec["bound"])
+    torch.cuda.synchronize()
+    if not torch.equal(got[0], rec["o"]):
+        raise AssertionError(f"{name} B1: the wrapper's o is not the main path's")
+    errs = _held_b2(f"{name} B1", got, flash._flash_fwd_plain(
+        *rec["args"], rec["bound"]), tol_lse=TOL_LSE)
+    hidden = v.clone()
+    hidden[..., WIDE_UPPER] = 0
+    fault = _rejects(f"{name} B1", got, flash._flash_fwd_plain(
+        q, k, hidden, sched, hq, hkv, rec["bound"]))
+    return dict(bh=q.shape[0], hq=hq, hkv=hkv, n_q=q.shape[1], n_kv=k.shape[1],
+                d=q.shape[-1], dv=v.shape[-1], kind=type(sched).__name__,
+                bound_max=rec["bound"], main_path_o_bitwise=True, tol=TOL_BF16,
+                tol_lse=TOL_LSE, planted_fault_v_upper_half=fault, **errs)
+
+
+def _upper_half_hidden(c):
+    """A copy of cache ``c`` whose V pages hold 0 in columns 256–511 (a
+    page type of one storage unit a value)."""
+    hidden = _cache_copy(c)
+    hidden.v_pages[..., WIDE_UPPER] = 0
+    return hidden
+
+
+def record_shared(cache, rec: dict):
+    """A recorder for ``tfm.paged_attention``: the first shared-table call
+    on ``cache`` over a non-empty prefix (a chunk after the first) goes
+    into ``rec`` with a copy of the cache as it found it, its inputs and
+    its o and lse."""
+    from tpu_flash_torch.models import transformer as tfm
+
+    real = tfm.paged_attention
+
+    def recorded(q, c, slots, **kw):
+        if (c is cache and not rec and kw.get("shared_page_table")
+                and int(c.lengths[int(slots[0])]) > 0):
+            rec.update(q=q.clone(), pre=_cache_copy(c), slots=slots.clone(),
+                       kw=dict(kw))
+            out = real(q, c, slots, **kw)
+            rec.update(o=out[0].clone(), lse=out[1].clone())
+            return out
+        return real(q, c, slots, **kw)
+
+    return recorded
+
+
+def step_groups(fn) -> dict:
+    """torch.profiler over one ``fn()`` (ending in a synchronise): device
+    ms by kernel group — B2/B3 (``paged_``), B1 (``flash_fwd``), cuBLAS
+    products (``gemm``, ``xmma``, ``nvjet``), the rest — and the
+    activities."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    groups = dict(paged=0.0, flash_fwd=0.0, gemm=0.0, rest=0.0)
+    count = 0
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        name = e.key.lower()
+        group = next((g for g, keys in (("paged", ("paged_",)),
+                                        ("flash_fwd", ("flash_fwd",)),
+                                        ("gemm", ("gemm", "xmma", "nvjet")))
+                      if any(k in name for k in keys)), "rest")
+        groups[group] += e.self_device_time_total / 1e3
+        count += e.count
+    return dict(device_ms=sum(groups.values()), device_activities=count,
+                **{f"{g}_ms": t for g, t in groups.items()})
+
+
+def wide_kernel_timing(dev) -> dict:
+    """B1 at n 1024 causal, b 1, 4/2 heads, d 512 (and d 320, padded to
+    512), and B2's shared route at the chunk prefix (512 lanes of one slot
+    over a 1536-token int8 prefix, d 512), each against its plain version
+    and timed beside its bound; for B1 also the library's attention (its
+    kernels named by the profiler)."""
+    from tpu_flash_torch.bench.harness import device_ms
+    from tpu_flash_torch.ops import flash, paged
+
+    gen = torch.Generator(device=dev).manual_seed(18)
+    hq, hkv = MODEL_WIDE["num_q_heads"], MODEL_WIDE["num_kv_heads"]
+    n, out = 1024, {}
+    for d in (512, 320):
+        q = torch.randn(1, hq, n, d, generator=gen, device=dev).bfloat16()
+        k, v = (torch.randn(1, hkv, n, d, generator=gen, device=dev).bfloat16()
+                for _ in range(2))
+        sched = flash.build_schedule("causal", n, n, 1024, 1024)
+        qf = (q.float() * (d ** -0.5 * flash.LOG2E)).bfloat16()[0]
+        args = (qf, k[0], v[0], sched, hq, hkv)
+        errs = _held_b2(f"wide B1 d {d}", flash._flash_fwd_kernel(*args, True),
+                        flash._flash_fwd_plain(*args), tol_lse=TOL_LSE)
+        pairs = visible_pairs(n, n, True)
+        nbytes = 2 * (2 * hq * n * d + 2 * hkv * n * d) + 4 * hq * n
+        row = dict(n=n, hq=hq, hkv=hkv, d=d, schedule="causal", **errs,
+                   ms=device_ms(lambda: flash._flash_fwd_kernel(*args, True)),
+                   call_ms=cuda_ms(lambda: flash._flash_fwd_kernel(*args, True)),
+                   plain_ms=cuda_ms(lambda: flash._flash_fwd_plain(*args),
+                                    iters=5),
+                   pairs=pairs, **roofline(4 * d * hq * pairs, nbytes,
+                                           torch.bfloat16))
+        if d == 512:
+            # the backend PyTorch picks, named by the kernels it runs
+            lib = functools.partial(sdpa, q, k, v, True)
+            names = device_kernel_names(lib)
+            backend = next((tag for key, tag in (
+                ("flash", "flash"), ("fmha", "efficient"),
+                ("cudnn", "cudnn")) if any(key in n.lower() for n in names)),
+                "math")
+            row.update(library_ms=device_ms(lib), library_call_ms=cuda_ms(lib),
+                       library_backend=backend,
+                       library_kernels=[n[:80] for n in names])
+        out[f"flash_fwd_d{d}"] = row
+
+    d, lanes, prefix = 512, WIDE_CHUNK, 1536
+    cache = _decode_cache("int8", [prefix], dev, 9, n_pages=32,
+                          cache=CACHE_WIDE)
+    pt = cache.config.page_type
+    qg = (torch.randn(lanes, hkv, hq // hkv, d, generator=gen, device=dev)
+          * (d ** -0.5 * flash.LOG2E)).bfloat16()
+    slots = torch.zeros(lanes, dtype=torch.int32, device=dev)
+    bound = -(-prefix // CACHE_WIDE["page_size"])
+    walk = paged.plan_pages(cache.config)
+
+    def shared():
+        return paged._paged_attention_kernel(
+            *_b2_args(qg, cache, slots, 0, bound), shared_page_table=True,
+            walk=walk, page_type=pt)
+
+    def plain():
+        return paged._paged_attention_plain(
+            *_b2_args(qg, cache, slots, 0, bound), page_type=pt)
+
+    errs = _held_b2("wide B2 shared chunk prefix",
+                    _bitwise_repeat("wide B2 shared", shared), plain(),
+                    tol_lse=TOL_LSE)
+    nbytes = (prefix * hkv * 2 * paged.row_bytes(pt, d)
+              + lanes * hq * (4 * d + 4))
+    out["chunk_prefix"] = dict(
+        lanes=lanes, prefix=prefix, cache="int8", d=d, **errs,
+        ms=device_ms(shared), call_ms=cuda_ms(shared),
+        plain_ms=cuda_ms(plain, iters=5),
+        **roofline(4 * d * lanes * hq * prefix, nbytes, torch.bfloat16))
+    return out
+
+
+def wide_heads_serve_phase(dev, smi: str) -> dict:
+    """The wide-head model (MODEL_WIDE, int8 cache CACHE_WIDE) at full
+    width: the engine cell (16 × (512 + 32) tokens, the last request
+    sampled), its teacher-forced drift; the same requests in async rounds
+    of 8 as CUDA graphs, equal to the one-token streams; 4 prompts of
+    1100–2000 tokens in chunks of 512 against the unchunked engine's
+    last-prompt logits; no plain version on a CUDA tensor meanwhile. Then
+    the prefill's B1 call, a decode step's B2 call (B3 fused) and a chunk's
+    B2 shared call of the last layer held against their plain versions,
+    each with its upper-half fault rejected; B2/B3 at the decode shape
+    (:func:`paged_phase`) and the kernels' d-512 times."""
+    from tpu_flash_torch.cache.paged_cache import CacheConfig
+    from tpu_flash_torch.models import transformer as tfm
+    from tpu_flash_torch.serving.engine import Engine, EngineConfig, Request
+
+    with no_plain_on_cuda() as plain_calls:
+        run = engine_phase(dev, model=MODEL_WIDE, cache=CACHE_WIDE)
+        params, mcfg, done = run["params"], run["mcfg"], run["done"]
+        if sorted(done) != list(range(N_REQUESTS)) or any(
+                f.reason != "length" or len(f.new_tokens) != NEW_TOKENS
+                or not all(np.isfinite(f.logprobs)) for f in done.values()):
+            raise AssertionError("wide engine run: a request did not finish "
+                                 "with finite logprobs")
+        launches = {k: run["launches"][k] for k in (
+            "flash_fwd", "paged_attention_split", "paged_append_fused")}
+        rng = np.random.default_rng(0)
+        prompts = rng.integers(1, mcfg.vocab_size - 1,
+                               (N_REQUESTS + 1, PROMPT_LEN)).tolist()
+        rounds = multistep_serve(params, mcfg, prompts, dev, MULTISTEP_K, True,
+                                 cache=CACHE_WIDE, new_tokens=NEW_TOKENS)
+        if (rounds["replays"] <= 0
+                or rounds["eager_launches"]["paged_attention_split"]):
+            raise AssertionError("wide rounds: every round must be a graph "
+                                 "replay")
+        rng = np.random.default_rng(17)
+        long_prompts = []
+        for n in rng.integers(*WIDE_LONG, N_WIDE_LONG):
+            n = int(n) + (int(n) % CACHE_WIDE["page_size"] == 0)
+            long_prompts.append(rng.integers(1, mcfg.vocab_size - 1, n).tolist())
+
+        def reqs():
+            return [Request(rid=i, prompt=p, max_new_tokens=NEW_TOKENS)
+                    for i, p in enumerate(long_prompts)]
+
+        warm = [Request(rid=10_000, prompt=long_prompts[0][:1100],
+                        max_new_tokens=4)]
+        eng = Engine(params, mcfg, CacheConfig(**CACHE_WIDE), EngineConfig(
+            max_batch=MAX_BATCH, chunk_size=WIDE_CHUNK))
+        rec_shared = {}
+        real = tfm.paged_attention
+        tfm.paged_attention = record_shared(eng.caches[-1], rec_shared)
+        try:
+            chunked = serve(eng, reqs(), warm)
+        finally:
+            tfm.paged_attention = real
+        del eng
+        eng = Engine(params, mcfg, CacheConfig(**CACHE_WIDE),
+                     EngineConfig(max_batch=MAX_BATCH))
+        whole = serve(eng, reqs(), warm)
+        del eng
+        torch.cuda.empty_cache()
+    if any(plain_calls.values()):
+        raise AssertionError(f"wide serving: plain versions ran on CUDA "
+                             f"tensors: {plain_calls}")
+    launches["paged_attention_shared"] = chunked["launches"][
+        "paged_attention_shared"]
+    for name, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"wide serving: kernel {name} never launched")
+    drift = teacher_forced_drift(params, mcfg, done[0])
+    check("wide teacher-forced logprob drift", drift, TOL_LOGPROB)
+    vs_one = held_streams("wide rounds of 8 vs one-token", rounds["done"], done)
+    if sorted(chunked["done"]) != list(range(N_WIDE_LONG)):
+        raise AssertionError(f"wide chunked: finished {sorted(chunked['done'])}")
+    chunked_vs_whole = max(
+        float((chunked["first"][i] - whole["first"][i]).abs().max())
+        for i in range(N_WIDE_LONG))
+    check("wide chunked vs unchunked last-prompt logits", chunked_vs_whole,
+          TOL_LOGPROB)
+
+    # the kernels on the path's own inputs, the last layer's calls
+    b1 = held_b1_call(lambda: tfm.prefill(params, torch.tensor(
+        [prompts[0]], device=dev), mcfg), "wide prefill")
+    if not rec_shared:
+        raise AssertionError("wide chunked run: no shared-table call recorded")
+    shared = held_shared_b2(rec_shared["q"], rec_shared["pre"],
+                            rec_shared["slots"], rec_shared["kw"],
+                            rec_shared["o"], rec_shared["lse"],
+                            upper_half=True)
+    eng = Engine(params, mcfg, CacheConfig(**CACHE_WIDE),
+                 EngineConfig(max_batch=MAX_BATCH))
+    for i in range(N_REQUESTS):
+        eng.submit(Request(rid=i, prompt=prompts[i], max_new_tokens=8))
+    eng.step()
+    # one decode step of the 16 lanes, by kernel group
+    step = step_groups(eng.step)
+    rec = {}
+    tfm.paged_attention = record_fused(eng.caches[-1], rec)
+    try:
+        eng.step()
+        torch.cuda.synchronize()
+    finally:
+        tfm.paged_attention = real
+    eng.run()
+    del eng
+    if not rec:
+        raise AssertionError("wide decode: the last layer's B2 call not recorded")
+    fused = held_fused_b2(rec, "wide decode", tol_lse=TOL_LSE, upper_half=True)
+    del rec, rec_shared, params
+    torch.cuda.empty_cache()
+
+    decode = paged_phase(dev, ("int8",), MODEL_WIDE, CACHE_WIDE,
+                         phase="wide_paged")["int8"]
+    timed = wide_kernel_timing(dev)
+    out = dict(
+        phase="wide_heads_serve", nvidia_smi=smi, model=MODEL_WIDE,
+        cache=CACHE_WIDE["dtype"], requests=N_REQUESTS, prompt_len=PROMPT_LEN,
+        new_tokens=NEW_TOKENS, launches=launches,
+        plain_calls_on_cuda=plain_calls, teacher_forced_drift=drift,
+        drift_tol=TOL_LOGPROB, rounds_of=MULTISTEP_K,
+        rounds_vs_one_token_max_logprob_gap=vs_one,
+        rounds_graph_replays=rounds["replays"],
+        chunked_prompt_lens=[len(p) for p in long_prompts],
+        chunk=WIDE_CHUNK, chunks=len(chunked["chunk"]),
+        chunked_vs_unchunked_logits=chunked_vs_whole,
+        decode_ms_per_step=float(np.median(run["step_ms"][1:])),
+        warm_e2e_tok_s=N_REQUESTS * NEW_TOKENS / run["wall_s"],
+        rounds_warm_e2e_tok_s=N_REQUESTS * NEW_TOKENS / rounds["wall_s"],
+        decode_step_device=step, b1_prefill=b1, b2_decode_fused=fused,
+        b2_chunk_shared=shared, timed=timed)
+    emit(out)
+    return dict(launches=launches, b1=b1, fused=fused, shared=shared,
+                decode=decode, timed=timed)
 
 
 # The quant_bands phase: the quantized route on the band, circulant and
@@ -4633,11 +5031,14 @@ def record_fused(cache, rec: dict):
     return recorded
 
 
-def held_fused_b2(d: dict, name: str) -> dict:
+def held_fused_b2(d: dict, name: str, tol_lse=TOL_BF16,
+                  upper_half=False) -> dict:
     """A recorded decode call (:func:`record_fused`) re-run on a copy of
     the cache as it found it: its o the main path's bit for bit; the
-    pages bit for bit B3's plain append; o and lse against the plain B2
-    after it, under the card's split plan, within TOL_BF16."""
+    pages bit for bit B3's plain append; o within TOL_BF16 and lse within
+    ``tol_lse`` of the plain B2 after it, under the card's split plan;
+    with ``upper_half`` the plain B2 on pages whose V hides columns
+    256–511 must fail that check."""
     from tpu_flash_torch.ops import paged
 
     c, q, slots = d["pre"], d["q"], d["slots"]
@@ -4670,9 +5071,17 @@ def held_fused_b2(d: dict, name: str) -> dict:
                               page_type=pt)
     _same_cache(f"{name} fused B3", fc, pc)
     split = _card_plan(qg, pc)
-    errs = _held_b2(f"{name} B2", got, paged._paged_attention_plain(
-        qg, *_b2_args(qg, pc, slots, 1, bound)[1:], split_pages=split,
-        page_type=pt))
+
+    def plain(cache):
+        return paged._paged_attention_plain(
+            qg, *_b2_args(qg, cache, slots, 1, bound)[1:], split_pages=split,
+            page_type=pt)
+
+    errs = _held_b2(f"{name} B2", got, plain(pc), tol_lse=tol_lse)
+    if upper_half:
+        errs["planted_fault_v_upper_half"] = _rejects(
+            f"{name} B2 (V columns 256-511 hidden)", got,
+            plain(_upper_half_hidden(pc)))
     return dict(lanes=b, kv_heads=kvh, g=qh // kvh, d=hd, page_type=pt,
                 pages_bound=bound, split_pages=split, append_bit_exact=True,
                 main_path_o_bitwise=True, tol=TOL_BF16, **errs)
@@ -4848,12 +5257,13 @@ def pc_serve(params, mcfg, prompts, dev, prefix_cache, warm, record=None,
     return out
 
 
-def held_shared_b2(q, cache, slots, kw, o, lse) -> dict:
+def held_shared_b2(q, cache, slots, kw, o, lse, upper_half=False) -> dict:
     """B2's shared-table route on the inputs a hit's tail chunk gave it
     (the chunk's lanes over the cached prefix), before the chunk's write:
     re-run, bitwise the main path's; o within TOL_BF16, lse within TOL_LSE
     of the plain version (one walk); the prefix's first half of pages read
-    as its second half must fail that check."""
+    as its second half must fail that check, and with ``upper_half`` V's
+    columns 256–511 hidden."""
     from tpu_flash_torch.ops import paged
 
     pt = cache.config.page_type
@@ -4886,6 +5296,12 @@ def held_shared_b2(q, cache, slots, kw, o, lse) -> dict:
                      paged._paged_attention_plain(
                          qg, *_b2_args(qg, cache, slots, 0, bound,
                                        tables=tables)[1:], page_type=pt))
+    if upper_half:
+        errs["planted_fault_v_upper_half"] = _rejects(
+            "chunk-prefix B2 (V columns 256-511 hidden)", got,
+            paged._paged_attention_plain(
+                qg, *_b2_args(qg, _upper_half_hidden(cache), slots, 0,
+                              bound)[1:], page_type=pt))
     return dict(lanes=b, prefix_tokens=prefix, pages_bound=bound,
                 tol=TOL_BF16, tol_lse=TOL_LSE, main_path_bitwise=True,
                 planted_fault_half_prefix_replaced=fault, **errs)
@@ -6143,7 +6559,7 @@ def _timing(row) -> dict:
 
 
 PTXAS_SOURCES = ("flash_fwd.cu", "matmul.cu", "flash_bwd.cu",
-                 "paged_attention.cu")
+                 "paged_attention.cu", "paged_attention_wide.cu")
 
 
 def short_kernel_name(mangled: str) -> str:
@@ -6196,6 +6612,8 @@ def main() -> int:
             torch.cuda.empty_cache()
         multistep = serve_multistep_phase(dev, smi, engine_decode_ms)
         torch.cuda.empty_cache()
+        wide = wide_heads_serve_phase(dev, smi)
+        torch.cuda.empty_cache()
     b45 = flash_bwd_phase(dev)
     torch.cuda.empty_cache()
     train = train_phase(dev)
@@ -6246,6 +6664,7 @@ def main() -> int:
 
     spec_checks = feat["speculative"]["checks"]
     hit_b2 = feat["prefix_cache"]["b2"]
+    wl, wt, wd = wide["launches"], wide["timed"], wide["decode"]
 
     # launches: the engine run for the serving kernels, the train run for
     # the backward ones (the forward kernel runs in both; the train run's
@@ -6332,6 +6751,49 @@ def main() -> int:
              max_abs_err=max(sk["worst"]["paged_attention_shared"],
                              hit_b2["o_vs_plain"], hit_b2["lse_vs_plain"]),
              **_timing(sk["timed"]["chunk_prefix"]), library_ms=None),
+        # the kernels at head_dim 512 (wide_heads_serve): launches from the
+        # wide model's engine run (B2 shared: its chunked run); B1 timed at
+        # n 1024 causal, b 1, 4/2 heads (library: scaled_dot_product_
+        # attention, its kernels in the phase's line); B2 and B3 at the
+        # decode shape (16 lanes × ~540 tokens, int8, 2 kv heads, G 2) and
+        # B2 shared at the chunk prefix (512 lanes over 1536 tokens)
+        dict(name="flash_fwd (d 512)", route="cuda",
+             source="tpu_flash_torch/csrc/flash_fwd.cu",
+             replaces="tpu_flash/ops/flash.py:204",
+             launches=wl["flash_fwd"],
+             max_abs_err=max(wide["b1"]["o_vs_plain"], wide["b1"]["lse_vs_plain"],
+                             wt["flash_fwd_d512"]["o_vs_plain"],
+                             wt["flash_fwd_d512"]["lse_vs_plain"]),
+             **_timing(wt["flash_fwd_d512"]),
+             library_ms=wt["flash_fwd_d512"]["library_ms"]),
+        dict(name="paged_attention (split route, B3 fused, d 512)",
+             route="cuda", source="tpu_flash_torch/csrc/paged_attention.cu",
+             replaces="tpu_flash/ops/paged.py:74, tpu_flash/ops/paged.py:267",
+             launches=wl["paged_attention_split"],
+             max_abs_err=max(wd["o_vs_plain"], wd["lse_vs_plain"],
+                             wd["fused"]["o_vs_plain"],
+                             wd["fused"]["lse_vs_plain"],
+                             wide["fused"]["o_vs_plain"],
+                             wide["fused"]["lse_vs_plain"]),
+             ms=wd["fused_ms"],
+             plain_ms=wd["append_plain_ms"] + wd["attention_plain_ms"],
+             **wd["fused_bound"], library_ms=None),
+        dict(name="paged_append (d 512)", route="cuda",
+             source="tpu_flash_torch/csrc/paged_attention.cu",
+             replaces="tpu_flash/ops/paged.py:267",
+             launches=wl["paged_append_fused"], max_abs_err=wd["append_err"],
+             ms=wd["fused_append_ms"], plain_ms=wd["append_plain_ms"],
+             standalone_ms=wd["append_ms"], **wd["append_bound"],
+             library_ms=None),
+        dict(name="paged_attention (shared-table route, d 512)", route="cuda",
+             source="tpu_flash_torch/csrc/paged_attention.cu",
+             replaces="tpu_flash/ops/paged.py:74",
+             launches=wl["paged_attention_shared"],
+             max_abs_err=max(wide["shared"]["o_vs_plain"],
+                             wide["shared"]["lse_vs_plain"],
+                             wt["chunk_prefix"]["o_vs_plain"],
+                             wt["chunk_prefix"]["lse_vs_plain"]),
+             **_timing(wt["chunk_prefix"]), library_ms=None),
         # the plain backward and the library's fused backward (K/V expanded
         # to 16 heads outside the call) each compute dq, dk and dv in one
         # call: their times stand in both rows; device times at the

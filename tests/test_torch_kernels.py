@@ -349,6 +349,102 @@ def test_paged_kernels_head_dims_and_groups_match_plain(gen, dtype, d, g):
         *args, split_pages=_plan(q, kc), page_type=pt))
 
 
+# head dims above 256 and paged head dims that are not a multiple of 8:
+# B1 at width 512 (O's 256-column halves on the grid; 100 runs at 128)
+_B1_WIDE = [(True, 1000, 100, 100, torch.bfloat16),
+            (True, 1000, 260, 260, torch.bfloat16),
+            (False, 500, 320, 320, torch.bfloat16),
+            (True, 1000, 512, 512, torch.bfloat16),
+            (True, 1000, 512, 256, torch.bfloat16),
+            (False, 300, 512, 512, torch.float32)]
+
+
+@pytest.mark.parametrize("causal,n,d,dv,dtype", _B1_WIDE)
+def test_flash_kernel_wide_head_dims_match_plain(gen, causal, n, d, dv, dtype):
+    """B1 at d 100, 260, 320 and 512 (dv 512 and 256), bf16 and float32,
+    vs plain, as the d 128 cases."""
+    test_flash_kernel_matches_plain(gen, causal, n, n, dtype, d, dv)
+
+
+# every kind B1 takes (as _TC_KINDS below), at width 512
+_WIDE_KINDS = [("dense", 0), ("causal", 0), ("local", 129), ("local_causal", 512),
+               ("circulant", 100), ("block", 96)]
+
+
+@pytest.mark.parametrize("bound", [False, True], ids=["exact", "bound"])
+@pytest.mark.parametrize("kind", _WIDE_KINDS, ids=[k[0] for k in _WIDE_KINDS])
+def test_flash_kernel_wide_every_kind_matches_plain(gen, kind, bound):
+    """B1's bf16 kernel at width 512 on every kind and max mode (4/2 heads,
+    n 1000, b 1)."""
+    schedule, extra = kind
+    hq, hkv, n, d = 4, 2, 1000, 512
+    q = (torch.randn(hq, n, d, generator=gen, device="cuda")
+         * (d ** -0.5 * tflash.LOG2E)).bfloat16()
+    k, v = (torch.randn(hkv, n, d, generator=gen, device="cuda").bfloat16()
+            for _ in range(2))
+    if schedule == "circulant":
+        k, v = (torch.cat([x[:, -extra:], x, x[:, :extra]], dim=1) for x in (k, v))
+    sched = tflash.build_schedule(schedule, n, n, 512, 1024, radius=extra
+                                  if schedule != "block" else 0,
+                                  section=extra if schedule == "block" else 0)
+    ko, kl = tflash._flash_fwd_kernel(q, k, v, sched, hq, hkv, True, bound)
+    po, pl = tflash._flash_fwd_plain(q, k, v, sched, hq, hkv, bound)
+    _assert_b1_close(ko, kl, po, pl, torch.bfloat16)
+
+
+@pytest.mark.parametrize("g", [2, 16])
+@pytest.mark.parametrize("d", [100, 260, 512])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8", "int4",
+                                   "fp8"])
+def test_paged_kernels_wide_match_plain(gen, dtype, d, g):
+    """B3, B2's split route with and without B3 fused, and its shared
+    route at d 100 (rows staged zero-padded), 260 and 512, G 2 and 16 (2
+    kv heads, page 64): the appended pages and scales bit-exact, o and lse
+    as :func:`_assert_paged_close` against the plain versions."""
+    lens = [300, 257, 64, 450]
+    kc = _cache(dtype, lens, 5, kvh=2, d=d, total=64, maxp=16, tables=8)
+    pc, fc = _copy(kc), _copy(kc)
+    slots = torch.arange(4, dtype=torch.int32, device="cuda")
+    kn, vn = (torch.randn(4, 2, d, generator=gen, device="cuda").bfloat16()
+              for _ in range(2))
+    pt = kc.config.page_type
+    for c, fn in ((kc, tpaged._paged_append_kernel),
+                  (pc, tpaged._paged_append_plain)):
+        fn(kn, vn, c.k_pages, c.v_pages, c.k_scales, c.v_scales, slots,
+           c.lengths, c.page_tables, page_type=pt)
+    for name in ("k_pages", "v_pages", "k_scales", "v_scales"):
+        a, b = getattr(kc, name), getattr(pc, name)
+        assert (a is None and b is None) or torch.equal(a, b), name
+    qr = torch.randn(4, 2, g, d, generator=gen, device="cuda").bfloat16()
+    qscale = d ** -0.5 * tpaged.LOG2E
+    q = (qr.float() * qscale).bfloat16()
+
+    def args(q, c):
+        return (q, c.k_pages, c.v_pages, c.k_scales, c.v_scales, slots,
+                c.lengths, c.page_tables, 1, 16, torch.bfloat16, True)
+
+    want = tpaged._paged_attention_plain(*args(q, pc), split_pages=_plan(q, kc),
+                                         page_type=pt)
+    _assert_paged_close(tpaged._paged_attention_kernel(*args(q, kc),
+                                                       **_kernel_kw(kc)), want)
+    # the fused call on the unappended copy: one launch, the same pages
+    before = kernels.LAUNCHES["paged_append_fused"]
+    got = tpaged._paged_attention_kernel(*args(qr, fc), new_kv=(kn, vn),
+                                         q_scale=qscale, **_kernel_kw(fc))
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["paged_append_fused"] == before + 1
+    for name in ("k_pages", "v_pages", "k_scales", "v_scales"):
+        a, b = getattr(fc, name), getattr(pc, name)
+        assert (a is None and b is None) or torch.equal(a, b), name
+    _assert_paged_close(got, want)
+    # the shared route: the four lanes on slot 0, each at its own position
+    one = torch.zeros(4, dtype=torch.int32, device="cuda")
+    pos = torch.tensor([40, 120, 250, 300], dtype=torch.int32, device="cuda")
+    got, want = _paged_pair(kc, q, one, bound=16, positions=pos, radius=200,
+                            shared_page_table=True)
+    _assert_paged_close(got, want)
+
+
 # (dtype, d, g, page, radius, out): the split route's groups (G 1, 2, 4,
 # 16), widths (8, 64, 72, 96, 256), pages (16, 17, 18, 32, 64, 128), page
 # types and float32 out, with and without a band; pages the bulk copies do
@@ -638,20 +734,37 @@ def test_moe_and_lora_rounds_match_one_token_steps(gen, feature):
 
 def test_kernels_reject_what_they_do_not_take(gen):
     """Unsupported shapes and types raise instead of falling back to a
-    plain path: head dim 264 (above the widest compiled width) and f16."""
+    plain path: B1 runs head dim 264 (at width 512) and raises above 512
+    (ROADMAP A15c), and on f16; B1 with a gradient at 320 raises at the
+    forward and B4/B5 at 264 (A15b); B2 and B3 above 512 (A15c)."""
     q = torch.randn(2, 64, 264, device="cuda")  # head_dim 264
     sched = tflash.build_schedule("causal", 64, 64, 256, 256)
-    with pytest.raises(NotImplementedError, match="A15"):
-        tflash._flash_fwd_kernel(q, q, q, sched, 1, 1, True)
-    q = q[..., :96]
-    with pytest.raises(NotImplementedError):
-        tflash._flash_fwd_kernel(q.half(), q.half(), q.half(), sched, 1, 1, True)
+    before = kernels.LAUNCHES["flash_fwd"]
     o, lse = tflash._flash_fwd_kernel(q, q, q, sched, 1, 1, True)
-    with pytest.raises(NotImplementedError, match="A15"):
+    assert kernels.LAUNCHES["flash_fwd"] == before + 1 and o.shape == q.shape
+    wide = torch.randn(2, 64, 520, device="cuda")
+    with pytest.raises(NotImplementedError, match="A15c"):
+        tflash._flash_fwd_kernel(wide, wide, wide, sched, 1, 1, True)
+    with pytest.raises(NotImplementedError, match="A15b"):
         tflash_bwd._flash_bwd_kernel(*(torch.randn(2, 64, 264, device="cuda")
                                        for _ in range(4)), lse,
                                      torch.randn(2, 64, 264, device="cuda"),
                                      None, sched, 1, 1)
+    qg = torch.randn(1, 2, 64, 320, device="cuda", requires_grad=True)
+    before = kernels.LAUNCHES["flash_fwd"]
+    with pytest.raises(NotImplementedError, match="A15b"):
+        tflash.flash_attention(qg, qg, qg, schedule="causal")
+    assert kernels.LAUNCHES["flash_fwd"] == before  # raised before the launch
+    q = q[..., :96]
+    with pytest.raises(NotImplementedError):
+        tflash._flash_fwd_kernel(q.half(), q.half(), q.half(), sched, 1, 1, True)
+    c = _cache("int8", [100], 3, kvh=1, d=520, total=8, maxp=4, tables=4)
+    slots = torch.zeros(1, dtype=torch.int32, device="cuda")
+    new = torch.randn(1, 1, 520, device="cuda").bfloat16()
+    with pytest.raises(NotImplementedError, match="A15c"):
+        tpaged.paged_attention(torch.randn(1, 2, 520, device="cuda"), c, slots)
+    with pytest.raises(NotImplementedError, match="A15c"):
+        tpaged.fused_append(c, slots, new, new)
 
 
 def _rel(a, b):
@@ -934,17 +1047,18 @@ def test_quant_kernel_head_dims_match_plain(gen, q_dtype, kv_dtype, kv_scale,
 
 
 def test_quant_kernels_reject_what_they_do_not_take(gen):
-    """Head dim 264, an fp8 cache under int8 Q and f16 inputs raise,
-    never fall back."""
+    """Head dim 264 (ROADMAP A15b) and 520 (A15c), an fp8 cache under int8
+    Q and f16 inputs raise, never fall back."""
     from tpu_flash_torch.quant import flash_q as tfq
     from tpu_flash_torch.quant import serving_attn as tsa
 
-    q, k, v = _quant_inputs(gen, 2, 2, 64, 264)
-    kq, vq = tsa.quantize_kv_cache(k, v, "int8")
-    with pytest.raises(NotImplementedError, match="A15"):
-        tsa.serving_flash_attention(q, kq, vq, q_dtype="int8")
-    with pytest.raises(NotImplementedError, match="A15"):
-        tfq.quantized_flash_attention(q, k, v)
+    for d, item in ((264, "A15b"), (520, "A15c")):
+        q, k, v = _quant_inputs(gen, 2, 2, 64, d)
+        kq, vq = tsa.quantize_kv_cache(k, v, "int8")
+        with pytest.raises(NotImplementedError, match=item):
+            tsa.serving_flash_attention(q, kq, vq, q_dtype="int8")
+        with pytest.raises(NotImplementedError, match=item):
+            tfq.quantized_flash_attention(q, k, v)
     q, k, v = _quant_inputs(gen, 2, 2, 64, 128)
     kq, vq = tsa.quantize_kv_cache(k, v, "float8_e4m3fn")
     ops = tsa.serving_operands(q, kq, vq, True)

@@ -73,14 +73,18 @@
 //   wholly visible to the warpgroup's own rows.
 // - Tiles: at d <= 128 one consumer (BQ 64) and BKV 64, two CTAs an SM, so
 //   that one CTA's softmax overlaps the other's products; at d 256 two
-//   consumers (BQ 128; two CTAs would not fit) and BKV 64; as many ring
-//   stages as fit (TcCfg). BQ 64 measured faster than 128 (two consumers,
+//   consumers (BQ 128; two CTAs would not fit) and BKV 64; at d 512 one
+//   consumer, BKV 32 and O split over the grid in 256-column halves, each
+//   half recomputing S over the full width (O for 64 rows × 512 columns
+//   would take 256 float32 registers a thread): twice the QK products, one
+//   CTA an SM; as many ring stages as fit (TcCfg). BQ 64 measured faster than 128 (two consumers,
 //   BKV 128) at the serving and the training shape (PERF.md §6).
 // float32 inputs keep the FMA kernel below (no tensor core takes exact
 // float32: the reference's f32 dots are full precision): one block of 4
 // warps per (64-row q tile, bh row), Q/K/V tiles, scores, P and the float32
 // accumulator in shared memory, each warp owning 16 q rows; at d 256 a
-// 32-row q tile of 2 warps (217 KB), since 64-row tiles would need 301 KB.
+// 32-row q tile of 2 warps (217 KB), since 64-row tiles would need 301 KB;
+// at d 512 a 16-row q tile of one warp and 32 kv rows a step (198 KB).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -103,16 +107,26 @@ constexpr int SM_SMEM = 233472;         // shared memory of an SM (228 KB)
 // ------------------------------------------------------- bf16: TMA + wgmma
 
 // Tiles and the shared-memory plan of one head width: NC consumer
-// warpgroups of 64 q rows (one at d <= 128, two at d 256, where two CTAs
-// an SM would not fit) and 64-row K/V tiles.
+// warpgroups of 64 q rows (one at d <= 128 and at 512, two at d 256, where
+// two CTAs an SM would not fit) and BKV-row K/V tiles. A CTA owns HV of
+// O's columns: all of them, or at width 512 one 256-column half (the grid's
+// z axis), since 64 rows × 512 float32 columns would take 256 registers a
+// thread; each half recomputes S = Q·Kᵀ over the full 512 and loads only
+// its half of V. At 512 the 64 KB Q tile leaves room for three stages of
+// 32-row K (32 KB) and V-half (16 KB) tiles, one CTA an SM, whose 256
+// threads may hold 255 registers each: no setmaxnreg (ptxas needs more than
+// the 128 a thread of two CTAs an SM would start with for the 256-column
+// P·V).
 template <int HD> struct TcCfg {
   static constexpr int NC = HD == 256 ? 2 : 1;
   static constexpr int BQ = 64 * NC;
-  static constexpr int BKV = 64;
-  static constexpr int MINB = NC == 1 ? 2 : 1;  // CTAs an SM
+  static constexpr int HV = HD == 512 ? 256 : HD;
+  static constexpr int BKV = HD == 512 ? 32 : 64;
+  static constexpr int MINB = NC == 1 && HD != 512 ? 2 : 1;  // CTAs an SM
   static constexpr int QBYTES = BQ * HD * 2;
-  static constexpr int TILE = BKV * HD * 2;     // one K or V tile
-  static constexpr int STAGE = 2 * TILE;
+  static constexpr int KTILE = BKV * HD * 2;    // one K tile
+  static constexpr int VTILE = BKV * HV * 2;    // one V tile (this CTA's columns)
+  static constexpr int STAGE = KTILE + VTILE;
   static constexpr int BUDGET = MINB == 2 ? SM_SMEM / 2 - 1024 : SMEM_LIMIT;
   static constexpr int bytes(int st) {
     // 1024 of alignment slack, Q, the stages, the Q barrier and two a stage
@@ -121,7 +135,7 @@ template <int HD> struct TcCfg {
   static constexpr int ST = bytes(3) <= BUDGET ? 3 : 2;
   static constexpr int SMEM = bytes(ST);
   static_assert(SMEM <= BUDGET, "above the shared memory a block may use");
-  static_assert(QBYTES % 1024 == 0 && TILE % 1024 == 0,
+  static_assert(QBYTES % 1024 == 0 && KTILE % 1024 == 0 && VTILE % 1024 == 0,
                 "swizzled tiles need 1024-byte bases");
 };
 
@@ -153,6 +167,7 @@ __global__ void __launch_bounds__(128 * (TcCfg<HD>::NC + 1), TcCfg<HD>::MINB)
                  const __grid_constant__ CUtensorMap tmap_v, const TcParams p) {
   using C = TcCfg<HD>;
   constexpr int NC = C::NC, BQ = C::BQ, BKV = C::BKV, ST = C::ST, PANELS = HD / 64;
+  constexpr int HV = C::HV;
   extern __shared__ unsigned char smem_raw[];
   uint8_t* smem = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~(uintptr_t)1023);
@@ -166,7 +181,7 @@ __global__ void __launch_bounds__(128 * (TcCfg<HD>::NC + 1), TcCfg<HD>::MINB)
   const int n_tiles = (s.n_q + BQ - 1) / BQ;
   // the heaviest causal q tiles first
   const int qt = s.kind == CAUSAL ? n_tiles - 1 - (int)blockIdx.y : (int)blockIdx.y;
-  const int b = blockIdx.x;
+  const int b = blockIdx.x, half = blockIdx.z;  // half: O's columns [half·HV, +HV)
   const int q0 = qt * BQ, q_last = min(q0 + BQ - 1, s.n_q - 1);
   const int kv_row = (b / p.hq) * p.hkv + (b % p.hq) / (p.hq / p.hkv);
   int first, last;
@@ -187,7 +202,7 @@ __global__ void __launch_bounds__(128 * (TcCfg<HD>::NC + 1), TcCfg<HD>::MINB)
   const int warp = wtid / 32, lane = wtid % 32;
   if (wg == NC) {
     // ---------------- producer: one TMA thread ----------------
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;");
+    if constexpr (HD != 512) asm volatile("setmaxnreg.dec.sync.aligned.u32 40;");
     if (wtid == 0) {
       mbar_expect_tx(q_bar, C::QBYTES);
       for (int w = 0; w < NC; ++w)
@@ -200,17 +215,17 @@ __global__ void __launch_bounds__(128 * (TcCfg<HD>::NC + 1), TcCfg<HD>::MINB)
         uint8_t* st = stages + i * C::STAGE;
         const int k0 = (first + t) * BKV;
         mbar_expect_tx(&full_bar[i], C::STAGE);
-        for (int pn = 0; pn < PANELS; ++pn) {
+        for (int pn = 0; pn < PANELS; ++pn)
           tma_load_3d(st + pn * BKV * 128, &tmap_k, pn * 128, k0, kv_row, &full_bar[i]);
-          tma_load_3d(st + C::TILE + pn * BKV * 128, &tmap_v, pn * 128, k0, kv_row,
-                      &full_bar[i]);
-        }
+        for (int pn = 0; pn < HV / 64; ++pn)
+          tma_load_3d(st + C::KTILE + pn * BKV * 128, &tmap_v, (half * HV / 64 + pn) * 128,
+                      k0, kv_row, &full_bar[i]);
       }
     }
   } else {
     // ---------------- consumers: 64 q rows each ----------------
     if constexpr (NC == 2) asm volatile("setmaxnreg.inc.sync.aligned.u32 232;");
-    else asm volatile("setmaxnreg.inc.sync.aligned.u32 216;");
+    else if constexpr (HD != 512) asm volatile("setmaxnreg.inc.sync.aligned.u32 216;");
     const int qw0 = q0 + 64 * wg, qw_last = min(qw0 + 63, s.n_q - 1);
     // this thread's two accumulator rows
     const int ra = warp * 16 + lane / 4, rb = ra + 8, t4 = lane % 4;
@@ -234,9 +249,9 @@ __global__ void __launch_bounds__(128 * (TcCfg<HD>::NC + 1), TcCfg<HD>::MINB)
       mb = sqrtf(quad_sum(sb)) * kb;
     }
     float la = 0.0f, lb = 0.0f;
-    float o[HD / 2];
+    float o[HV / 2];
 #pragma unroll
-    for (int i = 0; i < HD / 2; ++i) o[i] = 0.0f;
+    for (int i = 0; i < HV / 2; ++i) o[i] = 0.0f;
     const uint32_t q_addr = smem_u32(qw);
 
     for (int t = 0; t < steps; ++t) {
@@ -284,7 +299,7 @@ __global__ void __launch_bounds__(128 * (TcCfg<HD>::NC + 1), TcCfg<HD>::MINB)
         ma = na;
         mb = nb;
 #pragma unroll
-        for (int j = 0; j < HD / 8; ++j) {
+        for (int j = 0; j < HV / 8; ++j) {
           o[4 * j] *= alpha_a;
           o[4 * j + 1] *= alpha_a;
           o[4 * j + 2] *= alpha_b;
@@ -309,12 +324,12 @@ __global__ void __launch_bounds__(128 * (TcCfg<HD>::NC + 1), TcCfg<HD>::MINB)
 #pragma unroll
         for (int e = 0; e < 4; ++e)
           pa[kk][e] = pack_bf16(sc[8 * kk + 2 * e], sc[8 * kk + 2 * e + 1]);
-      const uint32_t v_addr = smem_u32(st + C::TILE);
+      const uint32_t v_addr = smem_u32(st + C::KTILE);
       reg_fence(o);
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < BKV / 16; ++kk)
-        wgmma_rs_bf16<HD, 1>(o, pa[kk], desc_mn(v_addr + kk * 16 * 128, BKV * 128));
+        wgmma_rs_bf16<HV, 1>(o, pa[kk], desc_mn(v_addr + kk * 16 * 128, BKV * 128));
       wgmma_commit();
       wgmma_wait0();
       reg_fence(o);
@@ -326,18 +341,18 @@ __global__ void __launch_bounds__(128 * (TcCfg<HD>::NC + 1), TcCfg<HD>::MINB)
     const bool va = la > 0.0f && ma > MASK * 0.5f, vb = lb > 0.0f && mb > MASK * 0.5f;
     const float ia = va ? 1.0f / la : 0.0f, ib = vb ? 1.0f / lb : 0.0f;
 #pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int qpos = half ? qb : qa;
+    for (int hr = 0; hr < 2; ++hr) {  // the thread's rows ra, rb
+      const int qpos = hr ? qb : qa;
       if (qpos >= s.n_q) continue;
-      const float inv = half ? ib : ia;
+      const float inv = hr ? ib : ia;
       const size_t row = (size_t)b * s.n_q + qpos;
 #pragma unroll
-      for (int j = 0; j < HD / 8; ++j)
-        *reinterpret_cast<__nv_bfloat162*>(p.o + row * HD + 8 * j + 2 * t4) =
-            __floats2bfloat162_rn(o[4 * j + 2 * half] * inv, o[4 * j + 2 * half + 1] * inv);
-      if (p.lse != nullptr && t4 == 0) {
-        const float l = half ? lb : la, m = half ? mb : ma;
-        p.lse[row] = (half ? vb : va) ? m * LN2 + logf(l) : -__int_as_float(0x7f800000);
+      for (int j = 0; j < HV / 8; ++j)
+        *reinterpret_cast<__nv_bfloat162*>(p.o + row * HD + half * HV + 8 * j + 2 * t4) =
+            __floats2bfloat162_rn(o[4 * j + 2 * hr] * inv, o[4 * j + 2 * hr + 1] * inv);
+      if (p.lse != nullptr && t4 == 0 && half == 0) {
+        const float l = hr ? lb : la, m = hr ? mb : ma;
+        p.lse[row] = (hr ? vb : va) ? m * LN2 + logf(l) : -__int_as_float(0x7f800000);
       }
     }
   }
@@ -345,7 +360,7 @@ __global__ void __launch_bounds__(128 * (TcCfg<HD>::NC + 1), TcCfg<HD>::MINB)
 
 template <int HD>
 cudaError_t launch_tc(const void* q, const void* k, const void* v, const TcParams& p, int bh,
-                      cudaStream_t stream) {
+                      int dv, cudaStream_t stream) {
   using C = TcCfg<HD>;
   const int bh_kv = bh / p.hq * p.hkv;
   CUtensorMap mq, mk, mv;
@@ -363,18 +378,19 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v, const TcParam
   if (err != cudaSuccess) return err;
   const int n_tiles = (p.s.n_q + C::BQ - 1) / C::BQ;
   if (n_tiles > 65535) return cudaErrorInvalidValue;
-  kern<<<dim3(bh, n_tiles), 128 * (C::NC + 1), C::SMEM, stream>>>(mq, mk, mv, p);
+  const int halves = (dv + C::HV - 1) / C::HV;  // O's column blocks that hold the dv
+  kern<<<dim3(bh, n_tiles, halves), 128 * (C::NC + 1), C::SMEM, stream>>>(mq, mk, mv, p);
   return cudaGetLastError();
 }
 
 // ------------------------------------------------------ float32: FMA
 
-constexpr int BKV32 = 64;  // kv rows per step
-
-// q rows per block: 64 (4 warps, each owning 16 q rows), or 32 (2 warps)
-// at d 256, whose 64-row tiles would not fit in 227 KB.
+// q rows per block: 64 (4 warps, each owning 16 q rows), 32 (2 warps) at d
+// 256, whose 64-row tiles would not fit in 227 KB, or 16 (one warp) at 512,
+// with 32 kv rows a step (198 KB).
 template <int HD> struct Cfg32 {
-  static constexpr int BQ = HD == 256 ? 32 : 64;
+  static constexpr int BQ = HD == 512 ? 16 : HD == 256 ? 32 : 64;
+  static constexpr int BKV32 = HD == 512 ? 32 : 64;  // kv rows per step
   static constexpr int NTHREADS = BQ / 16 * 32;
   static constexpr int LDQ = HD + 4;      // Q, K, V rows
   static constexpr int LDS = BKV32 + 4;   // scores
@@ -419,7 +435,7 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
               const float* __restrict__ v, float* __restrict__ o, float* __restrict__ lse,
               const float* __restrict__ kmax, Sched sc, int hq, int hkv) {
   using S = Cfg32<HD>;
-  constexpr int BQ = S::BQ, NTHREADS = S::NTHREADS;
+  constexpr int BQ = S::BQ, NTHREADS = S::NTHREADS, BKV32 = S::BKV32;
   extern __shared__ __align__(128) unsigned char smem[];
   float* qs = reinterpret_cast<float*>(smem + S::q_off);
   float* ks = reinterpret_cast<float*>(smem + S::k_off);
@@ -560,26 +576,31 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o, flo
 // n + 2·radius), 5 block-diagonal (section), 6 shifted and 7
 // shifted_causal (offset the shift, radius -1 or the band, section the
 // wrap, 0 or at least n_q and n_kv). dtype: 0 = float32,
-// 1 = bfloat16. d ∈ {64, 128, 256} (the wrapper zero-pads other head and
-// value dims up to the next of these).
+// 1 = bfloat16. d ∈ {64, 128, 256, 512}, the width of q, k, v and o (the
+// wrapper zero-pads other head and value dims up to the next of these); dv
+// <= d, the value dim the caller reads: at 512 the bf16 kernel computes
+// only the 256-column halves of o that hold it.
 extern "C" cudaError_t tf_flash_fwd(const void* q, const void* k, const void* v,
                                     void* o, float* lse, const float* kmax,
                                     int bh, int n_q, int n_kv, int hq, int hkv,
-                                    int d, int kind, int offset, int radius,
+                                    int d, int dv, int kind, int offset, int radius,
                                     int section, int dtype, cudaStream_t stream) {
   if (bh <= 0 || n_q <= 0) return cudaSuccess;
   const Sched sc{n_q, n_kv, kind, offset, radius, section};
-  if (hkv <= 0 || hq % hkv != 0 || bh % hq != 0 || n_kv < 0 || !sched_ok(sc))
+  if (hkv <= 0 || hq % hkv != 0 || bh % hq != 0 || n_kv < 0 || dv < 1 || dv > d ||
+      !sched_ok(sc))
     return cudaErrorInvalidValue;
   if (dtype == 1) {
     const TcParams p{static_cast<bf16*>(o), lse, kmax, sc, hq, hkv};
-    if (d == 128) return launch_tc<128>(q, k, v, p, bh, stream);
-    if (d == 64) return launch_tc<64>(q, k, v, p, bh, stream);
-    if (d == 256) return launch_tc<256>(q, k, v, p, bh, stream);
+    if (d == 128) return launch_tc<128>(q, k, v, p, bh, dv, stream);
+    if (d == 64) return launch_tc<64>(q, k, v, p, bh, dv, stream);
+    if (d == 256) return launch_tc<256>(q, k, v, p, bh, dv, stream);
+    if (d == 512) return launch_tc<512>(q, k, v, p, bh, dv, stream);
   } else if (dtype == 0) {
     if (d == 128) return launch_f32<128>(q, k, v, o, lse, kmax, sc, bh, hq, hkv, stream);
     if (d == 64) return launch_f32<64>(q, k, v, o, lse, kmax, sc, bh, hq, hkv, stream);
     if (d == 256) return launch_f32<256>(q, k, v, o, lse, kmax, sc, bh, hq, hkv, stream);
+    if (d == 512) return launch_f32<512>(q, k, v, o, lse, kmax, sc, bh, hq, hkv, stream);
   }
   return cudaErrorInvalidValue;
 }

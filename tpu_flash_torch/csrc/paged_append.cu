@@ -16,7 +16,7 @@
 // What bounds it on an H100: HBM bytes and launch latency — it moves only
 // a few KB per call (16 lanes × 8 heads × 128 values), so one launch per
 // layer costs what the launch costs. Design: one block per lane, one warp
-// per (K or V, kv head) row; a warp holds its row in registers (d/32
+// per (K or V, kv head) row; a warp holds its row in registers (⌈d/32⌉
 // values per lane, or for int4 both elements of each byte it writes),
 // reduces amax by shuffles and writes the row with consecutive lanes on
 // consecutive storage units. Idle lanes all sit on the trash slot, whose
@@ -64,7 +64,7 @@ paged_append_kernel(const TI* __restrict__ k_new, const TI* __restrict__ v_new,
     const size_t row = ((size_t)h * total_pages + phys) * page + off;
     TC* dst = static_cast<TC*>(is_v ? v_pages : k_pages) + row * units;
     TC u[ROW_J];
-    const float sc = encode_row<PT>([&](int c) { return to_f32(src[c]); }, d, lane, u);
+    const float sc = encode_row<PT, ROW_J>([&](int c) { return to_f32(src[c]); }, d, lane, u);
 #pragma unroll
     for (int j = 0; j < ROW_J; ++j)
       if (lane + 32 * j < units) dst[lane + 32 * j] = u[j];
@@ -110,15 +110,15 @@ cudaError_t by_page(int page_type, const void* kn, const void* vn, void* kp, voi
 // 1 bf16, 2 int8, 3 int4 in halves of d/2 bytes, 4 e4m3); scales: (kvh,
 // total, page) float32 for the quantized types (2-4), else null; slots
 // (b,), lengths (max_seqs,), page_tables (max_seqs, max_pages) int32. d is
-// a multiple of 8, at most 256. All contiguous.
+// 1 to 512 (even for int4 pages). All contiguous.
 extern "C" cudaError_t tf_paged_append(
     const void* k_new, const void* v_new, void* k_pages, void* v_pages,
     float* k_scales, float* v_scales, const int* slots, const int* lengths,
     const int* page_tables, int b, int kvh, int d, int page, int total_pages,
     int max_pages, int in_dtype, int page_type, cudaStream_t stream) {
   if (b <= 0) return cudaSuccess;
-  if (d <= 0 || d % 8 != 0 || d > ROW_MAX_D || page < 1 || max_pages < 1 ||
-      !page_type_ok(page_type))
+  if (d <= 0 || d > ROW_MAX_D || (page_type == PT_I4 && d % 2 != 0) || page < 1 ||
+      max_pages < 1 || !page_type_ok(page_type))
     return cudaErrorInvalidValue;
   if (in_dtype == 0)
     return by_page<float>(page_type, k_new, v_new, k_pages, v_pages, k_scales, v_scales,

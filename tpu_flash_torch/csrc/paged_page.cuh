@@ -63,18 +63,19 @@ __host__ __device__ inline int row_bytes(int pt, int d) {
   return pt == PT_F32 ? 4 * d : pt == PT_BF16 ? 2 * d : row_units(pt, d);
 }
 
-constexpr int ROW_MAX_D = 256;
-constexpr int ROW_J = ROW_MAX_D / 32;  // storage units a lane holds
+constexpr int ROW_MAX_D = 512;
+constexpr int ROW_J = ROW_MAX_D / 32;  // storage units a lane holds at most
 
 __device__ __forceinline__ float warp_allmax(float x) {
   for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
   return x;
 }
 
-// One warp encodes one new row of d <= 256 values (x(c), c < d, reads
-// element c as a float): lane l ends holding storage units l + 32 j of the
-// row (j < ROW_J; units past row_units(PT, d) are 0 and are not to be
-// written) and returns the row's scale (1 for unscaled pages). Float32
+// One warp encodes one new row of d <= 32·J values (x(c), c < d, reads
+// element c as a float; J <= ROW_J, even): lane l ends holding storage
+// units l + 32 j of the row (j < J; units past row_units(PT, d) are 0 and
+// are not to be written) and returns the row's scale (1 for unscaled
+// pages). Any d (even for int4); the result does not depend on J. Float32
 // math as the host's: scale = max(amax, 1e-12) / qmax and x / scale as IEEE
 // divides (never --use_fast_math); int8 and int4 round half to even
 // (rintf) and clip to [-127, 127] and [-8, 7]; e4m3 rounds to nearest even
@@ -82,16 +83,16 @@ __device__ __forceinline__ float warp_allmax(float x) {
 // <= 448. An all-zero row gives the scale 1e-12 / qmax and codes 0. For
 // int4 a lane loads both elements of each byte it writes (j and j + d/2),
 // so the halves packing needs no exchange between lanes.
-template <int PT, typename X>
-__device__ __forceinline__ float encode_row(X x, int d, int lane,
-                                            typename Page<PT>::T (&u)[ROW_J]) {
+template <int PT, int J, typename X>
+__device__ __forceinline__ float encode_row(X x, int d, int lane, typename Page<PT>::T (&u)[J]) {
   using T = typename Page<PT>::T;
+  static_assert(J % 2 == 0 && J <= ROW_J, "units a lane holds");
   if constexpr (PT == PT_I4) {
     const int h = d / 2;
-    float lo[ROW_J / 2], hi[ROW_J / 2];
+    float lo[J / 2], hi[J / 2];
     float amax = 0.0f;
 #pragma unroll
-    for (int j = 0; j < ROW_J / 2; ++j) {
+    for (int j = 0; j < J / 2; ++j) {
       const int c = lane + 32 * j;
       lo[j] = c < h ? x(c) : 0.0f;
       hi[j] = c < h ? x(c + h) : 0.0f;
@@ -99,25 +100,25 @@ __device__ __forceinline__ float encode_row(X x, int d, int lane,
     }
     const float sc = __fdiv_rn(fmaxf(warp_allmax(amax), 1e-12f), Page<PT>::QMAX);
 #pragma unroll
-    for (int j = 0; j < ROW_J / 2; ++j) {
+    for (int j = 0; j < J / 2; ++j) {
       const int a = static_cast<int>(fminf(fmaxf(rintf(__fdiv_rn(lo[j], sc)), -8.0f), 7.0f));
       const int b = static_cast<int>(fminf(fmaxf(rintf(__fdiv_rn(hi[j], sc)), -8.0f), 7.0f));
       u[j] = static_cast<T>((a & 0xF) | ((b & 0xF) << 4));
-      u[j + ROW_J / 2] = 0;
+      u[j + J / 2] = 0;
     }
     return sc;
   } else {
-    float v[ROW_J];
+    float v[J];
     float amax = 0.0f;
 #pragma unroll
-    for (int j = 0; j < ROW_J; ++j) {
+    for (int j = 0; j < J; ++j) {
       const int c = lane + 32 * j;
       v[j] = c < d ? x(c) : 0.0f;
       amax = fmaxf(amax, fabsf(v[j]));
     }
     if constexpr (!Page<PT>::QUANT) {
 #pragma unroll
-      for (int j = 0; j < ROW_J; ++j) {
+      for (int j = 0; j < J; ++j) {
         if constexpr (PT == PT_BF16) u[j] = __float2bfloat16_rn(v[j]);
         else u[j] = v[j];
       }
@@ -125,7 +126,7 @@ __device__ __forceinline__ float encode_row(X x, int d, int lane,
     } else {
       const float sc = __fdiv_rn(fmaxf(warp_allmax(amax), 1e-12f), Page<PT>::QMAX);
 #pragma unroll
-      for (int j = 0; j < ROW_J; ++j) {
+      for (int j = 0; j < J; ++j) {
         const float y = __fdiv_rn(v[j], sc);
         if constexpr (PT == PT_I8)
           u[j] = static_cast<T>(static_cast<int>(fminf(fmaxf(rintf(y), -127.0f), 127.0f)));

@@ -6,8 +6,9 @@ source, all started together, then one link. No source includes PyTorch's
 headers; the TMA + wgmma and bulk-copy kernels (B1, B2, B4/B5, B6/B7, B14)
 share ``csrc/hopper.cuh``.
 A cold build takes about two minutes on an H100 machine, nearly all of it
-``paged_attention.cu`` (70 instantiations), the other sources finishing
-within it. The library lands in
+``paged_attention.cu`` (70 instantiations of ``paged_attention.cuh``'s
+kernels), the other sources finishing within it (``paged_attention_wide.cu``
+compiles the 30 above head dim 256 beside it). The library lands in
 ``build/tpu_flash_torch/<key>/`` at the repository root, keyed by a hash of
 the flags, the sources and the headers (:func:`build_key`), and is built on
 first use — never at import. A failed build raises with nvcc's output.
@@ -39,9 +40,9 @@ _lib = None
 _vp, _i32 = ctypes.c_void_p, ctypes.c_int
 # Each entry point returns cudaError_t (an int); 0 is success.
 _SIGNATURES = {
-    # q, k, v, o, lse, kmax, bh_q, n_q, n_kv, hq, hkv, d, kind, offset,
+    # q, k, v, o, lse, kmax, bh_q, n_q, n_kv, hq, hkv, d, dv, kind, offset,
     # radius, section, dtype, stream
-    "tf_flash_fwd": [_vp] * 6 + [_i32] * 11 + [_vp],
+    "tf_flash_fwd": [_vp] * 6 + [_i32] * 12 + [_vp],
     # q, new_k, new_v, k_pages, v_pages, k_scales, v_scales, slots,
     # lengths, lengths_override, positions, page_tables, out, lse, ws_acc,
     # ws_ml, tickets, b, kvh, g, d, page, total_pages, max_pages,

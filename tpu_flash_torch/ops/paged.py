@@ -83,7 +83,7 @@ def _paged_append_kernel(k_new, v_new, k_pages, v_pages, k_scales, v_scales,
     if k_new.dtype not in (torch.bfloat16, torch.float32) or (
             v_new.dtype != k_new.dtype):
         raise NotImplementedError(f"append kernel: new K/V dtype {k_new.dtype}")
-    _check_head_dim("append", d)
+    _check_head_dim("append", d, page_type)
     _check_pages("append", page_type, d, k_pages, v_pages, quantized)
     err = _build.library().tf_paged_append(
         k_new.data_ptr(), v_new.data_ptr(), k_pages.data_ptr(),
@@ -164,8 +164,9 @@ def split_plan(b: int, kvh: int, d: int, page: int, page_type: str,
     most 56 KB of K/V pages (and scale rows, :func:`row_bytes`) a CTA:
     at d 128, int8, int4 and fp8 pages take 3, bf16 1. The plain version
     takes the same plan to round where the kernel does; the launch refuses
-    a plan whose stages do not fit in shared memory (one page always
-    does)."""
+    a plan whose stages do not fit in shared memory (one page always does
+    but at d above 256 on bf16 and float32 pages of 128 rows: a K and V
+    page pair of 128 × 512 bf16 is 256 KB; at page 64 it is 128 KB)."""
     page_bytes = 2 * page * row_bytes(page_type, d)
     want = -(-b * kvh * pages_bound // (4 * _SMS))
     return max(1, min(want, _MAX_SPLIT_PAGES, _SPLIT_BYTES // page_bytes))
@@ -330,7 +331,7 @@ def _paged_attention_kernel(q, k_pages, v_pages, k_scales, v_scales, slots,
                          f"be int32 of shape ({b},)")
     if q.dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"paged kernel: q must be bf16 or float32, got {q.dtype}")
-    _check_head_dim("paged", d)
+    _check_head_dim("paged", d, page_type)
     _check_pages("paged", page_type, d, k_pages, v_pages, quantized)
     if news and (news[0].shape != (b, kvh, d) or news[1].shape != (b, kvh, d)
                  or news[0].dtype not in (torch.bfloat16, torch.float32)
@@ -380,14 +381,18 @@ def _paged_attention_kernel(q, k_pages, v_pages, k_scales, v_scales, slots,
     return o, lse
 
 
-def _check_head_dim(name: str, d: int) -> None:
-    """B2 and B3 take any head dim that is a multiple of 8 up to 256."""
-    if d > 256:
+def _check_head_dim(name: str, d: int, page_type: str) -> None:
+    """B2 and B3 take any head dim from 8 to 512, an even one on int4
+    pages (two codes a byte); wider heads raise (ROADMAP A15c)."""
+    if d > 512:
         raise NotImplementedError(
-            f"{name} kernel takes head dims up to 256, got {d} (ROADMAP A15)")
-    if d % 8:
+            f"{name} kernel takes head dims up to 512, got {d} (ROADMAP A15c)")
+    if d < 8:
         raise NotImplementedError(
-            f"{name} kernel takes head dims that are multiples of 8, got {d}")
+            f"{name} kernel takes head dims from 8, got {d}")
+    if page_type == "int4" and d % 2:
+        raise NotImplementedError(
+            f"{name} kernel takes even head dims on int4 pages, got {d}")
 
 
 def _check_pages(name: str, page_type: str, d: int, k_pages, v_pages,
