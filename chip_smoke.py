@@ -986,16 +986,28 @@ BWD_CASES = [
       for kind, width in (("dense", 0), ("causal", 0), ("local_causal", 100))],
     ("d256_causal_1024", 1, 16, 8, 1024, 1024, 256, "causal", 0, BF16, None),
     ("f32_causal_1024", 1, 16, 8, 1024, 1024, 128, "causal", 0, F32, None),
+    # width 512 (flash_bwd_wide.cu) at the wide model's heads (4/2): the
+    # wide training shape (b 4, n 1025 causal), then bf16 d 512, 512 with
+    # dv 256 (the last entry), 320 and 264 (zero-padded) and float32 512,
+    # each under causal and local_causal radius 512 at a ragged n, and dp
+    ("wide_train_4x1025", 4, 4, 2, 1025, 1025, 512, "causal", 0, BF16, None),
+    *[(f"wide_{quant or 'exact'}_{kind}_{d}{f'_dv{dv}' if dv != d else ''}"
+       f"_{str(dt)[6:]}", 1, 4,
+       2, 1000, 1000, d, kind, width, dt, quant, dv)
+      for d, dv, dt, quant in ((512, 512, BF16, None), (512, 256, BF16, None),
+                               (320, 320, BF16, None), (264, 264, BF16, None),
+                               (512, 512, F32, None), (512, 512, BF16, "dp"))
+      for kind, width in (("causal", 0), ("local_causal", 512))],
 ]
 # the cases whose B4/B5 are timed, beside the library's fused backward
 BWD_TIMED = ("train_4x1024", "d64_causal_1024", "sliding_train_2x2048",
-             "d256_causal_1024", "f32_causal_1024")
+             "d256_causal_1024", "f32_causal_1024", "wide_train_4x1025")
 # B4/B5's planted faults: the plain backward under the case's schedule minus
 # one middle slab of 64 keys (dq, dk and dv must move) or of 64 queries (dk
 # and dv must move) must fail the kernel-vs-plain check, at the training
 # shape and at the sliding training shape
 BWD_FAULT_SLAB = 64
-BWD_FAULT_CASES = ("train_4x1024", "sliding_train_2x2048")
+BWD_FAULT_CASES = ("train_4x1024", "sliding_train_2x2048", "wide_train_4x1025")
 
 
 def slab_fault(sched, axis: str, start: int, size: int = BWD_FAULT_SLAB):
@@ -1067,6 +1079,66 @@ def library_backward(q, k, v, do, causal, window_left=None):
     return (lambda: torch.autograd.grad(o, xs, do, retain_graph=True),
             "torch.autograd.grad of one saved scaled_dot_product_attention",
             False)
+
+
+def rel_to_max(a: torch.Tensor, b: torch.Tensor) -> float:
+    """max |a − b| / max |b|: :func:`rel_err` without its floor of 1, for
+    grads far below 1 (a model's), where that floor would make it an
+    absolute error."""
+    a, b = a.float(), b.float()
+    return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+
+
+def upper_half_faults(name: str, got, plain, tol: float, err=rel_err) -> dict:
+    """Each grad of ``got`` against the plain backward's with its columns
+    256–511 zeroed, where it has them, by ``err``: a kernel that dropped
+    the upper half of its output would pass that check, so each must fail
+    it."""
+    errs = {}
+    for x, a_, p_ in zip("qkv", got, plain):
+        if p_.shape[-1] <= WIDE_UPPER.start:
+            continue
+        hidden = p_.clone()
+        hidden[..., WIDE_UPPER] = 0
+        errs[f"d{x}"] = err(a_, hidden)
+        if errs[f"d{x}"] <= tol:
+            raise AssertionError(f"{name}: d{x} with columns 256-511 zeroed "
+                                 f"passes the kernel-vs-plain check: {errs}")
+    return errs
+
+
+def library_backward_wide(q, k, v, do, causal, window_left=None):
+    """As :func:`library_backward` above width 256, where the flash
+    backend stops: autograd of one saved scaled_dot_product_attention
+    under each backend that takes the head dim (the band under a boolean
+    mask), the fastest of them, named with the times of all that ran."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    n = q.shape[2]
+    mask = None
+    if window_left is not None:
+        i = torch.arange(n, device=q.device)
+        mask = (i[None, :] <= i[:, None]) & (i[:, None] - i[None, :]
+                                             <= window_left)
+    xs = [x.detach().requires_grad_(True) for x in (q, k, v)]
+    tried, best = {}, None
+    for backend in (SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
+                    SDPBackend.CUDNN_ATTENTION, SDPBackend.MATH):
+        try:
+            with sdpa_kernel([backend]):
+                o = sdpa(*xs, causal, mask)
+
+            def fn(o=o):
+                return torch.autograd.grad(o, xs, do, retain_graph=True)
+
+            tried[backend.name] = cuda_ms(fn, iters=5)
+        except RuntimeError as err:
+            tried[backend.name] = str(err)[:60]
+            continue
+        if best is None or tried[backend.name] < tried[best[1]]:
+            best = (fn, backend.name)
+    return (best[0], f"torch.autograd.grad of one saved scaled_dot_product_"
+            f"attention, backend {best[1]} (fastest of {tried})", False)
 
 
 def device_kernel_names(fn) -> list:
@@ -1220,11 +1292,12 @@ def flash_bwd_phase(dev):
 
     rows, worst, timing = [], 0.0, {}
     for (name, b, hq, hkv, n_q, n_kv, d, schedule, width, dt,
-         quant) in BWD_CASES:
+         quant, *dv) in BWD_CASES:
         g = hq // hkv
-        q, k, v = (rand(b, h, n, d).to(dt) for h, n in
-                   ((hq, n_q), (hkv, n_kv), (hkv, n_kv)))
-        w, wl = rand(b, hq, n_q, d), rand(b, hq, n_q)
+        dv = dv[0] if dv else d
+        q, k, v = (rand(b, h, n, dd).to(dt) for h, n, dd in
+                   ((hq, n_q, d), (hkv, n_kv, d), (hkv, n_kv, dv)))
+        w, wl = rand(b, hq, n_q, dv), rand(b, hq, n_q)
 
         def grads(attn):
             xs = [x.clone().requires_grad_(True) for x in (q, k, v)]
@@ -1237,7 +1310,7 @@ def flash_bwd_phase(dev):
         want = grads(lambda q_, k_, v_: oracle_fn(
             q_, k_.repeat_interleave(g, 1), v_.repeat_interleave(g, 1)))
         row = dict(case=name, batch=b, hq=hq, hkv=hkv, n_q=n_q, n_kv=n_kv,
-                   d=d, schedule=schedule, width=width, quant=quant,
+                   d=d, dv=dv, schedule=schedule, width=width, quant=quant,
                    dtype=str(dt).replace("torch.", ""))
         for x, a_, b_ in zip("qkv", got, want):
             if dt == torch.bfloat16 or quant == "dp":
@@ -1271,7 +1344,7 @@ def flash_bwd_phase(dev):
 
         qf = (q.float() * (d ** -0.5 * flash.LOG2E)).to(dt).reshape(
             b * hq, n_q, d)
-        kf, vf = k.reshape(b * hkv, n_kv, d), v.reshape(b * hkv, n_kv, d)
+        kf, vf = k.reshape(b * hkv, n_kv, d), v.reshape(b * hkv, n_kv, dv)
         sched = flash.build_schedule(schedule, n_q, n_kv, 256, 256,
                                      radius=0 if schedule == "block" else width,
                                      section=width if schedule == "block" else 0)
@@ -1279,7 +1352,7 @@ def flash_bwd_phase(dev):
             kf, vf = (torch.cat([x[:, -width:], x, x[:, :width]], 1)
                       for x in (kf, vf))
         o, lse = flash._flash_fwd_kernel(qf, kf, vf, sched, hq, hkv, True)
-        do = rand(b * hq, n_q, d).to(dt)
+        do = rand(b * hq, n_q, dv).to(dt)
         args = (qf, kf, vf, o, lse, do, rand(b * hq, n_q), sched, hq, hkv)
         tol = TOL_BWD_PLAIN[dt]
 
@@ -1296,6 +1369,9 @@ def flash_bwd_phase(dev):
                 check(f"B4/B5 {name}{tag} d{x} vs plain",
                       row[f"d{x}_vs_plain{tag}"], tol)
                 worst = max(worst, max_err(a_, p_))
+            if d > 256:  # each grad's upper half hidden must fail the check
+                row[f"planted_fault_upper_half{tag}"] = upper_half_faults(
+                    f"B4/B5 {name}{tag}", first, plain, tol)
             return first
 
         first = held(quant)
@@ -1322,10 +1398,12 @@ def flash_bwd_phase(dev):
             dq, dkv = bwd_timing(ops, sched, hq, hkv, dt, pairs, d, b, n_q,
                                  n_kv, None)
             # the library's backward alone, K/V expanded to hq heads
-            # outside the timed call (it then skips the group sum)
-            lib_bwd, lib_call, graphable = library_backward(
+            # outside the timed call (it then skips the group sum); above
+            # width 256 the fastest backend that takes the head dim
+            lib_bwd, lib_call, graphable = (library_backward_wide if d > 256
+                                            else library_backward)(
                 q, k.repeat_interleave(g, 1), v.repeat_interleave(g, 1),
-                do.reshape(b, hq, n_q, d), schedule != "dense",
+                do.reshape(b, hq, n_q, dv), schedule != "dense",
                 window_left=width if schedule == "local_causal" else None)
             names = device_kernel_names(lib_bwd)
             if lib_call.startswith("aten.") and not any(
@@ -2090,14 +2168,19 @@ WIDE_UPPER = slice(256, 512)  # the columns the planted faults zero
 @contextlib.contextmanager
 def no_plain_on_cuda():
     """Count the plain versions' calls on CUDA tensors while the block
-    runs (the wrappers take them only for CPU tensors); yields the
+    runs (the wrappers take them only for CPU tensors): B1's, B2's, B3's,
+    the backward's (B4/B5) and the quantized ones (B7, B6); yields the
     counts."""
-    from tpu_flash_torch.ops import flash, paged
+    from tpu_flash_torch.ops import flash, flash_bwd, paged
+    from tpu_flash_torch.quant import flash_q, serving_attn
 
     counts, saved = {}, []
     for mod, name in ((flash, "_flash_fwd_plain"),
                       (paged, "_paged_attention_plain"),
-                      (paged, "_paged_append_plain")):
+                      (paged, "_paged_append_plain"),
+                      (flash_bwd, "_flash_bwd_plain"),
+                      (flash_q, "_quant_plain"),
+                      (serving_attn, "_serving_plain")):
         real = getattr(mod, name)
         saved.append((mod, name, real))
         counts[name] = 0
@@ -2418,6 +2501,256 @@ def wide_heads_serve_phase(dev, smi: str) -> dict:
     emit(out)
     return dict(launches=launches, b1=b1, fused=fused, shared=shared,
                 decode=decode, timed=timed)
+
+
+def wide_heads_train_phase(dev) -> dict:
+    """The wide-head model's training: MODEL_WIDE at full width and depth
+    on 4 × 1025 tokens, three SGD steps through B1 at width 512 and B4/B5
+    at width 512 (train_phase: the gradient's per-parameter cosine and
+    Δloss against the oracle-attention path, step ms, tokens/s, peak
+    memory), with no plain version on a CUDA tensor meanwhile. Then the
+    backward's first B4/B5 call (the last layer's) re-run on its own
+    inputs: bitwise the main path's, within TOL_BWD_PLAIN of the plain
+    backward, and each grad with its columns 256–511 zeroed in the plain
+    version rejected. The grads are a model's (far below 1), so each is
+    held relative to its own largest entry (:func:`rel_to_max`)."""
+    from tpu_flash_torch.ops import flash_bwd
+
+    real, rec = flash_bwd._flash_bwd_kernel, {}
+
+    def recorded(q, k, v, o, lse, do, dlse, sched, hq, hkv, quant=None):
+        out = real(q, k, v, o, lse, do, dlse, sched, hq, hkv, quant)
+        if not rec:  # the backward's first call: the last layer's
+            rec.update(args=tuple(None if t is None else t.clone()
+                                  for t in (q, k, v, o, lse, do, dlse)),
+                       rest=(sched, hq, hkv, quant),
+                       out=[t.clone() for t in out])
+        return out
+
+    flash_bwd._flash_bwd_kernel = recorded
+    try:
+        with no_plain_on_cuda() as plain_calls:
+            launches = train_phase(dev, "wide_heads_train", MODEL_WIDE,
+                                   TRAIN_TOKENS)
+            torch.cuda.synchronize()
+    finally:
+        flash_bwd._flash_bwd_kernel = real
+    if any(plain_calls.values()):
+        raise AssertionError(f"wide training: plain versions ran on CUDA "
+                             f"tensors: {plain_calls}")
+    if not rec:
+        raise AssertionError("wide training: no B4/B5 call recorded")
+    args = (*rec["args"], *rec["rest"][:3])
+    quant = rec["rest"][3]
+    got = real(*args, quant)
+    torch.cuda.synchronize()
+    for x, a_, m_ in zip("qkv", got, rec["out"]):
+        if not torch.equal(a_, m_):
+            raise AssertionError(f"wide training B4/B5: d{x} is not the main "
+                                 "path's")
+    plain = flash_bwd._flash_bwd_plain(*args, quant)
+    q = args[0]
+    tol = TOL_BWD_PLAIN[q.dtype]
+    errs = {f"d{x}_vs_plain": rel_to_max(a_, p_)
+            for x, a_, p_ in zip("qkv", got, plain)}
+    for key, err in errs.items():
+        check(f"wide training B4/B5 {key}", err, tol)
+    faults = upper_half_faults("wide training B4/B5", got, plain, tol,
+                               rel_to_max)
+    held = dict(bh=q.shape[0], hq=args[8], hkv=args[9], n_q=q.shape[1],
+                n_kv=args[1].shape[1], d=q.shape[-1], dv=args[2].shape[-1],
+                dtype=str(q.dtype).replace("torch.", ""),
+                kind=type(args[7]).__name__, dlse=args[6] is not None,
+                main_path_bitwise=True, tol=tol, error="max |a - b| / max |b|",
+                **errs,
+                max_abs_err=max(max_err(a_, p_) for a_, p_ in zip(got, plain)),
+                planted_fault_upper_half=faults)
+    emit(dict(phase="wide_heads_train_checks", plain_calls_on_cuda=plain_calls,
+              last_layer_b4_b5=held))
+    del rec, got, plain
+    return dict(launches=launches, held=held)
+
+
+# The wide-head quantized path: B7 through flash_attention(q_dtype=…) and
+# B6 through serving_flash_attention at the wide model's heads (4 q / 2 kv
+# of 512), on e4m3, int8 and weight-only Q and int8 P·V (pv_quant), under
+# the causal and local_causal (radius 512) kinds at a ragged n, each call
+# held against its plain version on the call's own operands with V̂'s
+# columns 256–511 hidden rejected; then timed at b 2, n 8192, dense (b·hq·d
+# = 4096, the quantized headline's), gated against the matched-bit-width
+# oracle on three 1024-row bands (the fp8 plain version takes seconds
+# there), beside bf16 scaled_dot_product_attention at the same shape.
+WIDE_QUANT_N = 1000
+WIDE_QUANT_TIMED = (2, 8192)
+WIDE_QUANT_BANDS = (0, 3584, 7168)
+# (name, family, q_dtype, kv_dtype, kv_scale, pv_quant)
+WIDE_QUANT_MODES = [
+    ("serving_e4m3", "serving", "float8_e4m3fn", "float8_e4m3fn", "tensor",
+     False),
+    ("serving_int8", "serving", "int8", "int8", "token", False),
+    ("serving_weight_only", "serving", None, "int8", "token", False),
+    ("serving_pv_quant", "serving", "int8", "int8", "token", True),
+    ("quant_e4m3", "quant", "float8_e4m3fn", "float8_e4m3fn", "token", False),
+    ("quant_int8", "quant", "int8", "int8", "token", False),
+    ("quant_weight_only", "quant", None, "int8", "token", False),
+]
+
+
+def wide_quant_call(family, q, k, v, q_dt, kv_dt, kv_scale, pvq, schedule,
+                    radius):
+    """One wide quantized mode on q, k, v: ``call()`` the public entry
+    point → (o, lse); ``ops`` the kernel's operands as the entry point
+    builds them, ``vi`` v̂'s index among them; ``plain(ops)`` the plain
+    version and ``kernel(ops)`` the kernel's wrapper (no lse) on them."""
+    from tpu_flash_torch.ops import flash
+    from tpu_flash_torch.quant import flash_q as tfq
+    from tpu_flash_torch.quant import serving_attn as tsa
+
+    h, hkv, n, d = q.shape[1], k.shape[1], q.shape[2], q.shape[3]
+    if family == "serving":
+        kq, vq = tsa.quantize_kv_cache(k, v, kv_dt, kv_scale=kv_scale)
+        sched = flash.build_schedule(schedule, n, n, 4096, 2048, radius=radius)
+        ops = tsa.serving_operands(q, kq, vq, not pvq)
+        mode = {"int8": "int8", None: "raw"}.get(q_dt, "fp8")
+        c = tfq.f32(d ** -0.5 * flash.LOG2E)
+
+        def call():
+            return tsa.serving_flash_attention(
+                q, kq, vq, q_dtype=q_dt, schedule=schedule, radius=radius,
+                pv_quant=pvq, return_lse=True)
+
+        return dict(call=call, ops=ops, vi=2, plain=lambda ops: tsa._serving_plain(
+            *ops, sched, h, hkv, mode, c, pvq),
+            kernel=lambda ops: tsa._serving_attention_kernel(
+                *ops, sched, h, hkv, mode, c, pvq, False))
+    sched = flash.build_schedule(schedule, n, n, 1024, 2048, radius=radius)
+    prep = tfq.prepare_quantized(
+        q, k, v, None if q_dt is None else tfq.as_dtype(q_dt),
+        tfq.as_dtype(kv_dt), kv_scale == "token", d ** -0.5)
+    ops = tfq.quant_operands(*prep, kv_scale == "token", True)
+
+    def call():
+        return flash.flash_attention(q, k, v, q_dtype=q_dt, kv_dtype=kv_dt,
+                                     kv_scale=kv_scale, schedule=schedule,
+                                     radius=radius, return_lse=True)
+
+    return dict(call=call, ops=ops, vi=3,
+                plain=lambda ops: tfq._quant_plain(*ops, sched, h, hkv,
+                                                   q.dtype),
+                kernel=lambda ops: tfq._quant_attention_kernel(
+                    *ops, sched, h, hkv, q.dtype, False))
+
+
+def wide_quant_attention_phase(dev) -> dict:
+    """B6 and B7 at width 512 (see WIDE_QUANT_MODES): the public calls (the
+    path, counted, no plain version on a CUDA tensor), each against its
+    plain version (QUANT_TOL) with V̂'s upper half hidden rejected; the
+    timed shape's serving e4m3 (B6) and end-to-end e4m3 (B7) calls gated
+    against the matched oracle, timed beside their bound, plain version
+    and bf16 scaled_dot_product_attention."""
+    from tpu_flash_torch import kernels
+    from tpu_flash_torch.bench import harness
+    from tpu_flash_torch.ops.oracle import blockwise_dpa
+    from tpu_flash_torch.quant import serving_attn as tsa
+
+    hq, hkv, d = (MODEL_WIDE[k] for k in ("num_q_heads", "num_kv_heads",
+                                          "head_dim"))
+    gen = torch.Generator(device=dev).manual_seed(19)
+    n = WIDE_QUANT_N
+    q, k, v = (torch.randn(1, h, n, d, generator=gen, device=dev).bfloat16()
+               for h in (hq, hkv, hkv))
+    calls = {}
+    kernels.reset_launches()
+    with no_plain_on_cuda() as plain_calls:
+        for name, fam, q_dt, kv_dt, kv_scale, pvq in WIDE_QUANT_MODES:
+            for schedule, radius in (("causal", 0), ("local_causal", 512)):
+                mode = wide_quant_call(fam, q, k, v, q_dt, kv_dt, kv_scale,
+                                       pvq, schedule, radius)
+                o, lse = mode["call"]()
+                calls[f"{name}_{schedule}"] = (o.reshape(hq, n, d),
+                                               lse.reshape(hq, n), mode)
+        torch.cuda.synchronize()
+    launches = {name: kernels.LAUNCHES[name] for name in (
+        "serving_attention", "quant_attention")}
+    if any(plain_calls.values()):
+        raise AssertionError(f"wide quantized calls: plain versions ran on "
+                             f"CUDA tensors: {plain_calls}")
+    for name, count in launches.items():
+        if count <= 0:
+            raise AssertionError(f"wide quantized calls: kernel {name} never "
+                                 "launched")
+    rows, worst = [], {"serving": 0.0, "quant": 0.0}
+    for case, (ko, kl, mode) in calls.items():
+        plain, vi, ops = mode["plain"], mode["vi"], mode["ops"]
+        errs = quant_errs(ko, kl, *plain(ops))
+        for key, tol in QUANT_TOL.items():
+            check(f"wide {case} {key}", errs[key], tol)
+        fam = case.split("_")[0]
+        worst[fam] = max(worst[fam], errs["o_vs_plain"], errs["lse_vs_plain"])
+        hidden = ops[vi].clone()
+        hidden.view(torch.uint8)[..., WIDE_UPPER] = 0
+        fault = quant_errs(ko, kl, *plain((*ops[:vi], hidden, *ops[vi + 1:])))
+        if all(fault[key] <= tol for key, tol in QUANT_TOL.items()):
+            raise AssertionError(f"wide {case}: V̂'s upper half hidden passes "
+                                 f"the kernel-vs-plain check: {fault}")
+        rows.append(dict(case=case, n=n, hq=hq, hkv=hkv, d=d, tol=QUANT_TOL,
+                         **errs, planted_fault_v_upper_half=fault))
+    del calls
+
+    # the timed shape: serving e4m3 (tensor K scales) and end-to-end e4m3
+    b, nt = WIDE_QUANT_TIMED
+    q, k, v = (torch.randn(b, h, nt, d, generator=gen, device=dev).bfloat16()
+               for h in (hq, hkv, hkv))
+    peaks = harness.device_peaks(dev)
+    flops = harness.attention_flops(b, hq, nt, nt, d)
+    library = functools.partial(sdpa, q, k, v, False)
+    names = device_kernel_names(library)
+    backend = next((tag for key, tag in (
+        ("flash", "flash"), ("fmha", "efficient"), ("cudnn", "cudnn"))
+        if any(key in n_.lower() for n_ in names)), "math")
+    library_ms = cuda_ms(library)
+    timed = {}
+    for name, fam, kv_scale in (("serving_e4m3", "serving", "tensor"),
+                                ("quant_e4m3", "quant", "tensor")):
+        mode = wide_quant_call(fam, q, k, v, QB_FP8, QB_FP8, kv_scale, False,
+                               "dense", 0)
+        ops = mode["ops"]
+        o = mode["call"]()[0]
+        cache = (tsa.quantize_kv_cache(k, v, QB_FP8, kv_scale=kv_scale)
+                 if fam == "serving" else None)
+        qf, kf, vf = qb_matched(q, k, v, QB_FP8, QB_FP8, kv_scale, cache)
+        gate = 0.0
+        for s0 in WIDE_QUANT_BANDS:
+            want, _ = blockwise_dpa(qf[:, :, s0:s0 + 1024], kf, vf, scale=1.0,
+                                    chunk=2048)
+            gate = max(gate, max_err(o[:, :, s0:s0 + 1024], want))
+        del qf, kf, vf, want
+        check(f"wide timed {name} vs the matched oracle", gate,
+              TOL_QUANT_GATE)
+        # q and o in bf16, the cache at one byte, the fp32 scales
+        nbytes = (2 * 2 * b * hq * nt * d + 2 * b * hkv * nt * d
+                  + 4 * sum(t.numel() for t in ops if t is not None
+                            and t.dtype == torch.float32))
+        timed[name] = dict(
+            batch=b, n=nt, hq=hq, hkv=hkv, d=d, schedule="dense",
+            kv_scale=kv_scale, gate_rows=[[s, s + 1024] for s in
+                                          WIDE_QUANT_BANDS],
+            gate_max_abs_err=gate, gate_tol=TOL_QUANT_GATE,
+            ms=cuda_ms(lambda: mode["kernel"](ops), iters=10),
+            call_ms=cuda_ms(lambda: mode["call"](), iters=10),
+            plain_ms=cuda_ms(lambda: mode["plain"](ops), iters=1, warmup=0),
+            library_ms=library_ms, library_backend=backend,
+            library_kernels=[n_[:80] for n_ in names],
+            **harness.roofline(flops / 2, flops / 2, nbytes, peaks, "fp8",
+                               "bf16"))
+        timed[name]["share_of_bound"] = (timed[name]["bound_ms"]
+                                         / timed[name]["ms"])
+        del o, ops, mode
+        torch.cuda.empty_cache()
+    emit(dict(phase="wide_quant_attention", launches=launches,
+              plain_calls_on_cuda=plain_calls, kernels_vs_plain=rows,
+              timed=timed))
+    return dict(launches=launches, worst=worst, timed=timed)
 
 
 # The quant_bands phase: the quantized route on the band, circulant and
@@ -6559,7 +6892,8 @@ def _timing(row) -> dict:
 
 
 PTXAS_SOURCES = ("flash_fwd.cu", "matmul.cu", "flash_bwd.cu",
-                 "paged_attention.cu", "paged_attention_wide.cu")
+                 "flash_bwd_wide.cu", "paged_attention.cu",
+                 "paged_attention_wide.cu")
 
 
 def short_kernel_name(mangled: str) -> str:
@@ -6618,12 +6952,16 @@ def main() -> int:
     torch.cuda.empty_cache()
     train = train_phase(dev)
     torch.cuda.empty_cache()
+    wide_train = wide_heads_train_phase(dev)
+    torch.cuda.empty_cache()
     train_sliding = train_sliding_phase(dev)
     torch.cuda.empty_cache()
     backward_sweep_phase(dev)
     torch.cuda.empty_cache()
     with torch.no_grad():
         quant = quant_attention_phase(dev)
+        torch.cuda.empty_cache()
+        wide_quant = wide_quant_attention_phase(dev)
         torch.cuda.empty_cache()
     headdims_phase(dev)
     torch.cuda.empty_cache()
@@ -6665,6 +7003,7 @@ def main() -> int:
     spec_checks = feat["speculative"]["checks"]
     hit_b2 = feat["prefix_cache"]["b2"]
     wl, wt, wd = wide["launches"], wide["timed"], wide["decode"]
+    wtl, wqt = wide_train["launches"], wide_quant["timed"]
 
     # launches: the engine run for the serving kernels, the train run for
     # the backward ones (the forward kernel runs in both; the train run's
@@ -6761,6 +7100,7 @@ def main() -> int:
              source="tpu_flash_torch/csrc/flash_fwd.cu",
              replaces="tpu_flash/ops/flash.py:204",
              launches=wl["flash_fwd"],
+             launches_wide_heads_train=wtl["flash_fwd"],
              max_abs_err=max(wide["b1"]["o_vs_plain"], wide["b1"]["lse_vs_plain"],
                              wt["flash_fwd_d512"]["o_vs_plain"],
                              wt["flash_fwd_d512"]["lse_vs_plain"]),
@@ -6794,6 +7134,37 @@ def main() -> int:
                              wt["chunk_prefix"]["o_vs_plain"],
                              wt["chunk_prefix"]["lse_vs_plain"]),
              **_timing(wt["chunk_prefix"]), library_ms=None),
+        # B4/B5 at width 512: launches from the wide model's train run;
+        # times at the wide training shape (b 4, 4/2 heads, n 1025 causal,
+        # d 512); library: the fastest scaled_dot_product_attention
+        # backward that takes d 512, K/V expanded (its backend named in the
+        # flash_bwd phase's line); max_abs_err: every backward case and the
+        # train run's last-layer call
+        *[dict(name=f"flash_bwd_{part} (d 512)", route="cuda",
+               source="tpu_flash_torch/csrc/flash_bwd_wide.cu", replaces=line,
+               launches=wtl[f"flash_bwd_{part}"],
+               launches_wide_heads_train=wtl[f"flash_bwd_{part}"],
+               max_abs_err=max(b45["max_abs_err"],
+                               wide_train["held"]["max_abs_err"]),
+               **_timing(b45["wide_train_4x1025"][part]),
+               library_ms=b45["wide_train_4x1025"]["library_ms"])
+          for part, line in (("dq", "tpu_flash/ops/flash_bwd.py:137"),
+                             ("dkv", "tpu_flash/ops/flash_bwd.py:252"))],
+        # B6/B7 at width 512 (wide_quant_attention): launches from the
+        # phase's public calls; times at b 2, 4/2 heads, n 8192, d 512,
+        # dense, e4m3 (B6 serving with tensor K scales, B7 end to end);
+        # library: bf16 scaled_dot_product_attention there
+        *[dict(name=f"{kernel} (d 512)", route="cuda",
+               source="tpu_flash_torch/csrc/quant_attention.cu", replaces=line,
+               launches=wide_quant["launches"][kernel],
+               launches_wide_quant_attention=wide_quant["launches"][kernel],
+               max_abs_err=wide_quant["worst"][fam], **_timing(wqt[case]),
+               library_ms=wqt[case]["library_ms"])
+          for kernel, fam, case, line in (
+              ("serving_attention", "serving", "serving_e4m3",
+               "tpu_flash/quant/serving_attn.py:59"),
+              ("quant_attention", "quant", "quant_e4m3",
+               "tpu_flash/quant/flash_q.py:136"))],
         # the plain backward and the library's fused backward (K/V expanded
         # to 16 heads outside the call) each compute dq, dk and dv in one
         # call: their times stand in both rows; device times at the

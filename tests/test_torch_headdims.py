@@ -1,7 +1,7 @@
 """Head and value dims other than 64 and 128, and groups above 8.
 
-On the card the attention kernels run at compiled widths 64, 128 and 256
-(B1 also at 512): the wrappers zero-pad d and dv up to one (``ops/flash.py:pad_head_dims``,
+On the card the attention kernels run at compiled widths 64, 128, 256 and
+512: the wrappers zero-pad d and dv up to one (``ops/flash.py:pad_head_dims``,
 K̂/V̂ with byte 0 and σv with 1) and slice o back, B2 reads rows of any d
 under its width and walks a group in chunks of 8. Here, on the CPU:
 
@@ -51,21 +51,15 @@ def _rand(rng, *shape):
 @pytest.mark.parametrize("d,dv", _DIMS)
 def test_kernel_head_dim(d, dv):
     """The width a kernel runs at: the least compiled width that holds both
-    dims, of B1's (64, 128, 256, 512) and of the backward and quantized
-    kernels' (64, 128, 256). B1 runs a dim of 264 at 512 and raises above
-    512 (ROADMAP A15c); the others raise at 264 (A15b) and above 512
-    (A15c)."""
-    for widths, fn in ((tflash.FWD_HEAD_DIMS, tflash.fwd_head_dim),
-                       (tflash.KERNEL_HEAD_DIMS, tflash.kernel_head_dim)):
-        width = fn(d, dv)
-        assert width in widths and width >= max(d, dv)
-        assert width // 2 < max(d, dv) or width == 64
-    assert tflash.fwd_head_dim(d, 264) == 512
-    with pytest.raises(NotImplementedError, match="A15b"):
-        tflash.kernel_head_dim(d, 264)
-    for fn in (tflash.fwd_head_dim, tflash.kernel_head_dim):
-        with pytest.raises(NotImplementedError, match="A15c"):
-            fn(d, 520)
+    dims, of the attention kernels' (64, 128, 256, 512; B1, the backward
+    and the quantized kernels alike). A dim of 264 runs at 512, one above
+    512 raises (ROADMAP A15c)."""
+    width = tflash.kernel_head_dim(d, dv)
+    assert width in tflash.KERNEL_HEAD_DIMS and width >= max(d, dv)
+    assert width // 2 < max(d, dv) or width == 64
+    assert tflash.kernel_head_dim(d, 264) == 512
+    with pytest.raises(NotImplementedError, match="A15c"):
+        tflash.kernel_head_dim(d, 520)
 
 
 def test_pad_head_dims_bytes_and_fill():

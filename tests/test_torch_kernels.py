@@ -734,27 +734,36 @@ def test_moe_and_lora_rounds_match_one_token_steps(gen, feature):
 
 def test_kernels_reject_what_they_do_not_take(gen):
     """Unsupported shapes and types raise instead of falling back to a
-    plain path: B1 runs head dim 264 (at width 512) and raises above 512
-    (ROADMAP A15c), and on f16; B1 with a gradient at 320 raises at the
-    forward and B4/B5 at 264 (A15b); B2 and B3 above 512 (A15c)."""
+    plain path: B1 and B4/B5 run head dim 264 (at width 512), a gradient
+    at 320 flows through ``flash_attention``, and each raises above 512
+    (ROADMAP A15c) before any launch; B1 raises on f16; B2 and B3 above
+    512 (A15c)."""
     q = torch.randn(2, 64, 264, device="cuda")  # head_dim 264
     sched = tflash.build_schedule("causal", 64, 64, 256, 256)
     before = kernels.LAUNCHES["flash_fwd"]
     o, lse = tflash._flash_fwd_kernel(q, q, q, sched, 1, 1, True)
     assert kernels.LAUNCHES["flash_fwd"] == before + 1 and o.shape == q.shape
     wide = torch.randn(2, 64, 520, device="cuda")
+    counts = dict(kernels.LAUNCHES)
     with pytest.raises(NotImplementedError, match="A15c"):
         tflash._flash_fwd_kernel(wide, wide, wide, sched, 1, 1, True)
-    with pytest.raises(NotImplementedError, match="A15b"):
-        tflash_bwd._flash_bwd_kernel(*(torch.randn(2, 64, 264, device="cuda")
-                                       for _ in range(4)), lse,
-                                     torch.randn(2, 64, 264, device="cuda"),
-                                     None, sched, 1, 1)
+    with pytest.raises(NotImplementedError, match="A15c"):
+        tflash_bwd._flash_bwd_kernel(wide, wide, wide, wide, lse, wide, None,
+                                     sched, 1, 1)
+    wg = wide[None].clone().requires_grad_(True)
+    with pytest.raises(NotImplementedError, match="A15c"):
+        tflash.flash_attention(wg, wg, wg, schedule="causal")
+    assert kernels.LAUNCHES == counts  # each raised before a launch
+    grads = tflash_bwd._flash_bwd_kernel(
+        *(torch.randn(2, 64, 264, device="cuda") for _ in range(4)), lse,
+        torch.randn(2, 64, 264, device="cuda"), None, sched, 1, 1)
+    assert [tuple(g.shape) for g in grads] == [(2, 64, 264)] * 3
     qg = torch.randn(1, 2, 64, 320, device="cuda", requires_grad=True)
-    before = kernels.LAUNCHES["flash_fwd"]
-    with pytest.raises(NotImplementedError, match="A15b"):
-        tflash.flash_attention(qg, qg, qg, schedule="causal")
-    assert kernels.LAUNCHES["flash_fwd"] == before  # raised before the launch
+    counts = dict(kernels.LAUNCHES)
+    tflash.flash_attention(qg, qg, qg, schedule="causal").sum().backward()
+    assert qg.grad.shape == qg.shape and bool(torch.isfinite(qg.grad).all())
+    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        assert kernels.LAUNCHES[name] == counts[name] + 1, name
     q = q[..., :96]
     with pytest.raises(NotImplementedError):
         tflash._flash_fwd_kernel(q.half(), q.half(), q.half(), sched, 1, 1, True)
@@ -868,6 +877,35 @@ def test_flash_bwd_kernels_head_dims_match_plain(gen, case):
     test_flash_bwd_kernels_match_plain(gen, case)
 
 
+# width 512 (flash_bwd_wide.cu): bf16 d 512, 512 with dv 256 (B5's upper
+# half takes no dV), 320 and 264 (zero-padded), float32 512, GQA 4/2
+_BWD_WIDE = [(1, 4, 2, 1000, 1000, 512, True, torch.bfloat16),
+             (1, 4, 2, 1000, 1000, 512, True, torch.bfloat16, 256),
+             (1, 4, 2, 1000, 1000, 320, True, torch.bfloat16),
+             (1, 4, 2, 500, 500, 264, False, torch.bfloat16),
+             (1, 4, 2, 300, 300, 512, True, torch.float32)]
+
+
+@pytest.mark.parametrize("case", _BWD_WIDE, ids=[
+    "d512", "d512_dv256", "d320", "d264_dense", "d512_f32"])
+def test_flash_bwd_kernels_wide_match_plain(gen, case):
+    """B4/B5 at width 512 vs the plain backward, as
+    :func:`test_flash_bwd_kernels_match_plain` (bitwise repeat, the slab
+    faults); and the plain backward with a grad's columns 256–511 zeroed
+    fails the check on that grad: a kernel that dropped the upper half of
+    its output would."""
+    test_flash_bwd_kernels_match_plain(gen, case)
+    args = _bwd_args(gen, *case)
+    got = tflash_bwd._flash_bwd_kernel(*args)
+    tol = 1e-2 if case[7] == torch.bfloat16 else 1e-4
+    for name, a, w in zip("qkv", got, tflash_bwd._flash_bwd_plain(*args)):
+        assert _rel(a, w) <= tol, (name, _rel(a, w))
+        if w.shape[-1] > 256:
+            hidden = w.clone()
+            hidden[..., 256:] = 0
+            assert _rel(a, hidden) > tol, name
+
+
 @pytest.mark.parametrize("case", [_BWD_CASES[1], _BWD_CASES[4]],
                          ids=["ragged_bf16", "dense_f32"])
 def test_flash_grads_match_oracle(gen, case):
@@ -932,6 +970,26 @@ _SERVING_CASES = {
                                True, 128),
     "d40_dv200_pv_quant": ("int8", "int8", "token", True, 8, 8, 500, 40,
                            False, 200),
+    # width 512: O's halves on the grid, kv tiles of 32
+    "wide_d512_fp8_token_causal": ("float8_e4m3fn", "float8_e4m3fn", "token",
+                                   False, 4, 2, 1000, 512, True, 512),
+    "wide_d512_int8": ("int8", "int8", "token", False, 4, 2, 1000, 512, False,
+                       512),
+    "wide_d512_weight_only_int8": (None, "int8", "token", False, 4, 2, 1000,
+                                   512, True, 512),
+    "wide_d512_weight_only_fp8": (None, "float8_e4m3fn", "tensor", False, 4, 2,
+                                  1000, 512, False, 512),
+    "wide_d512_pv_quant": ("int8", "int8", "token", True, 4, 2, 1000, 512,
+                           False, 512),
+    "wide_d512_e5m2_cache": ("float8_e4m3fn", "float8_e5m2", "tensor", False,
+                             4, 2, 1000, 512, False, 512),
+    "wide_d320_fp8_tensor_causal": ("float8_e4m3fn", "float8_e4m3fn",
+                                    "tensor", False, 4, 2, 1000, 320, True,
+                                    320),
+    "wide_d512_dv256_int8_causal": ("int8", "int8", "token", False, 4, 2,
+                                    1000, 512, True, 256),
+    "wide_d264_weight_only_pv_quant": (None, "int8", "token", True, 4, 2, 500,
+                                       264, False, 264),
 }
 
 
@@ -1046,19 +1104,66 @@ def test_quant_kernel_head_dims_match_plain(gen, q_dtype, kv_dtype, kv_scale,
                                     d, dv)
 
 
+@pytest.mark.parametrize("q_dtype,kv_dtype,kv_scale,causal,d,dv", [
+    ("float8_e4m3fn", "float8_e4m3fn", "token", True, 512, 512),
+    ("int8", "int8", "token", False, 512, 512),
+    (None, "int8", "token", True, 512, 512),
+    ("float8_e4m3fn", "float8_e5m2", "tensor", False, 320, 320),
+    ("float8_e4m3fn", "float8_e4m3fn", "tensor", True, 512, 256)])
+def test_quant_kernel_wide_head_dims_match_plain(gen, q_dtype, kv_dtype,
+                                                 kv_scale, causal, d, dv):
+    """B7 at width 512 vs its plain version, as
+    :func:`test_quant_kernel_matches_plain`."""
+    test_quant_kernel_matches_plain(gen, q_dtype, kv_dtype, kv_scale, causal,
+                                    d, dv)
+
+
+def test_quant_kernels_wide_upper_half_fault_rejected(gen):
+    """B6 at width 512 against its plain version with V's columns 256–511
+    zeroed: the check must fail (a CTA that dropped O's upper half)."""
+    from tpu_flash_torch.quant import serving_attn as tsa
+    from tpu_flash_torch.quant.flash_q import f32
+
+    q, k, v = _quant_inputs(gen, 4, 2, 1000, 512)
+    kq, vq = tsa.quantize_kv_cache(k, v, "float8_e4m3fn")
+    ops = tsa.serving_operands(q, kq, vq, True)
+    sched = tflash.build_schedule("causal", 1000, 1000, 1024, 2048)
+    args = (*ops, sched, 4, 2, "fp8", f32(512 ** -0.5 * tflash.LOG2E), False)
+    ko, kl = tsa._serving_attention_kernel(*args, True)
+    _assert_quant_close(ko, kl, *tsa._serving_plain(*args))
+    hidden = ops[2].clone()
+    hidden.view(torch.uint8)[..., 256:] = 0
+    assert _quant_misses(ko, kl, *tsa._serving_plain(
+        *args[:2], hidden, *args[3:]))
+
+
 def test_quant_kernels_reject_what_they_do_not_take(gen):
-    """Head dim 264 (ROADMAP A15b) and 520 (A15c), an fp8 cache under int8
-    Q and f16 inputs raise, never fall back."""
+    """Head dim 520 raises (ROADMAP A15c) before any launch, where 264 runs
+    at width 512; an fp8 cache under int8 Q and f16 inputs raise, never
+    fall back."""
     from tpu_flash_torch.quant import flash_q as tfq
     from tpu_flash_torch.quant import serving_attn as tsa
 
-    for d, item in ((264, "A15b"), (520, "A15c")):
+    for d in (264, 520):
         q, k, v = _quant_inputs(gen, 2, 2, 64, d)
         kq, vq = tsa.quantize_kv_cache(k, v, "int8")
-        with pytest.raises(NotImplementedError, match=item):
-            tsa.serving_flash_attention(q, kq, vq, q_dtype="int8")
-        with pytest.raises(NotImplementedError, match=item):
-            tfq.quantized_flash_attention(q, k, v)
+        counts = dict(kernels.LAUNCHES)
+        calls = (lambda: tsa.serving_flash_attention(q, kq, vq, q_dtype="int8"),
+                 lambda: tfq.quantized_flash_attention(q, k, v),
+                 lambda: tflash.flash_attention(q, k, v, q_dtype="int8"))
+        for call in calls:
+            if d == 520:
+                with pytest.raises(NotImplementedError, match="A15c"):
+                    call()
+            else:
+                assert call().shape == q.shape
+        if d == 520:
+            assert kernels.LAUNCHES == counts  # each raised before a launch
+        else:
+            assert kernels.LAUNCHES["serving_attention"] == \
+                counts["serving_attention"] + 1
+            assert kernels.LAUNCHES["quant_attention"] == \
+                counts["quant_attention"] + 2
     q, k, v = _quant_inputs(gen, 2, 2, 64, 128)
     kq, vq = tsa.quantize_kv_cache(k, v, "float8_e4m3fn")
     ops = tsa.serving_operands(q, kq, vq, True)
@@ -1089,7 +1194,7 @@ _QUANT_BAND_MODES = [("int8", "int8", "token", True),
 @pytest.mark.parametrize("family", ["serving", "quant"])
 @pytest.mark.parametrize("band", _QUANT_BANDS, ids=[
     f"{b[0]}-{b[1] or b[2]}" for b in _QUANT_BANDS])
-def test_quant_band_kernels_match_plain(gen, band, family, mode):
+def test_quant_band_kernels_match_plain(gen, band, family, mode, d=128):
     """B6 (serving, the circulant over the cache and its phantom rows) and
     B7 (the circulant over halo-extended K/V) on the band, circulant and
     block-diagonal kinds vs their plain versions, at a ragged n (1000) with
@@ -1099,7 +1204,7 @@ def test_quant_band_kernels_match_plain(gen, band, family, mode):
 
     schedule, radius, section = band
     q_dtype, kv_dtype, kv_scale, bound = mode
-    q, k, v = _quant_inputs(gen, 16, 8, 1000, 128)
+    q, k, v = _quant_inputs(gen, 16, 8, 1000, d)
     kernel, plain, staged = band_case(
         family, schedule, q, k, v, q_dtype=q_dtype, kv_dtype=kv_dtype,
         kv_scale=kv_scale, bound_max=bound, radius=radius, section=section)
@@ -1111,6 +1216,18 @@ def test_quant_band_kernels_match_plain(gen, band, family, mode):
     if staged is not None:
         assert staged()
     _assert_quant_close(ko, kl, *plain())
+
+
+@pytest.mark.parametrize("mode", _QUANT_BAND_MODES, ids=[
+    f"{m[0] or 'weight_only'}-{m[2]}-{'bound' if m[3] else 'exact'}"
+    for m in _QUANT_BAND_MODES])
+@pytest.mark.parametrize("family", ["serving", "quant"])
+@pytest.mark.parametrize("band", [*_QUANT_BANDS[:4], _QUANT_BANDS[5]], ids=[
+    f"{b[0]}-{b[1] or b[2]}" for b in [*_QUANT_BANDS[:4], _QUANT_BANDS[5]]])
+def test_quant_band_kernels_wide_match_plain(gen, band, family, mode):
+    """B6 and B7 at width 512 on the band, circulant and block-diagonal
+    kinds, as :func:`test_quant_band_kernels_match_plain`."""
+    test_quant_band_kernels_match_plain(gen, band, family, mode, d=512)
 
 
 @pytest.mark.parametrize("case", [
@@ -1334,6 +1451,17 @@ def test_flash_bwd_kernels_every_kind_match_plain(gen, kind, family, dp):
             assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("dp", [False, True], ids=["exact", "dp"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("kind", [("causal", 0), *_BWD_KINDS], ids=[
+    "causal", *(f"{k}_{w}" for k, w in _BWD_KINDS)])
+def test_flash_bwd_kernels_wide_every_kind_match_plain(gen, kind, dtype, dp):
+    """B4/B5 at width 512 on the causal, band, circulant and block kinds,
+    with and without dp, as :func:`test_flash_bwd_kernels_every_kind_match_plain`."""
+    test_flash_bwd_kernels_every_kind_match_plain(gen, kind, (512, dtype), dp)
+
+
 @pytest.mark.parametrize("fa", ["sliding", "circulant", "block"])
 def test_band_grads_match_oracle(gen, fa):
     """Autograd through ``sliding_fa`` (causal), ``circulant_fa`` (the halo's
@@ -1479,6 +1607,26 @@ def test_quant_shifted_kernels_match_plain(gen, hop, mode):
         assert staged()
     _assert_quant_close(ko, kl, *plain())
     assert bool((ko[~torch.isfinite(kl)] == 0).all())
+
+
+@pytest.mark.parametrize("family", [(512, torch.bfloat16),
+                                    (512, torch.float32)],
+                         ids=["512_bf16", "512_f32"])
+@pytest.mark.parametrize("hop", _SHIFTED, ids=[h[0] for h in _SHIFTED])
+def test_flash_bwd_kernels_wide_shifted_match_plain(gen, hop, family):
+    """B4/B5 at width 512 on the shifted kinds, as
+    :func:`test_flash_bwd_kernels_shifted_match_plain`."""
+    test_flash_bwd_kernels_shifted_match_plain(gen, hop, family)
+
+
+@pytest.mark.parametrize("mode", [m[:3] + (512,) for m in _SHIFTED_QUANT[:5]],
+                         ids=[f"{m[0]}-{m[1] or 'weight_only'}"
+                              for m in _SHIFTED_QUANT[:5]])
+@pytest.mark.parametrize("hop", _SHIFTED, ids=[h[0] for h in _SHIFTED])
+def test_quant_shifted_kernels_wide_match_plain(gen, hop, mode):
+    """B6/B7 at width 512 on the shifted kinds, as
+    :func:`test_quant_shifted_kernels_match_plain`."""
+    test_quant_shifted_kernels_match_plain(gen, hop, mode)
 
 
 @pytest.mark.parametrize("family", ["b1", "serving", "quant"])

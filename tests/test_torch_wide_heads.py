@@ -81,15 +81,12 @@ def test_flash_attention_wide_matches_reference(d, dv, schedule, radius,
 
 
 def test_flash_wide_widths():
-    """B1's compiled widths reach 512 and the backward and quantized
-    kernels' stop at 256: 260 runs B1 at 512, and each raises above its
-    top width naming the ROADMAP item (A15b, then A15c above 512)."""
-    assert tflash.fwd_head_dim(260, 100) == 512
-    assert tflash.fwd_head_dim(512, 512) == 512
+    """The attention kernels' compiled widths reach 512: 260 runs at 512,
+    and a dim above 512 raises naming the ROADMAP item (A15c)."""
+    assert tflash.kernel_head_dim(260, 100) == 512
+    assert tflash.kernel_head_dim(512, 512) == 512
     with pytest.raises(NotImplementedError, match="A15c"):
-        tflash.fwd_head_dim(513, 64)
-    with pytest.raises(NotImplementedError, match="A15b"):
-        tflash.kernel_head_dim(260, 64)
+        tflash.kernel_head_dim(513, 64)
     with pytest.raises(NotImplementedError, match="A15c"):
         tflash.kernel_head_dim(64, 600)
 

@@ -84,458 +84,35 @@
 //   one stage fits beside the resident tiles in half an SM, so B5 under dp
 //   runs a one-stage ring and leans on its second CTA for overlap.
 //
-// bf16 at width 256 (dK + dV alone would need 256 registers a thread) and
-// float32 at every width (no tensor core takes exact float32; the
-// reference's f32 dots are full precision) keep the earlier kernels below
-// the TMA section: one block of warps per 64-row (32 at d 256) output tile,
-// looping in the same order, WMMA 16×16×16 (bf16) or FMA loops (float32)
-// with the float32 accumulators and score tiles in shared memory; float32
-// B5 steps 32 q rows. Under dp their int8 tiles sit in the V (and B4's dO)
-// slots in 16-byte column blocks, dP on the s8 WMMA (bf16) or __dp4a
-// (float32), and B5 loads qs over Q once Sᵀ is taken. Cfg below: 154–227
-// KB of shared memory.
+// bf16 at widths 256 and 512 (dK + dV alone would need 256 registers a
+// thread at 256) and float32 at every width (no tensor core takes exact
+// float32; the reference's f32 dots are full precision) keep the earlier
+// kernels of flash_bwd.cuh: one block of warps per 64-row (32 at d 256)
+// output tile, looping in the same order, WMMA 16×16×16 (bf16) or FMA loops
+// (float32) with the float32 accumulators and score tiles in shared
+// memory; float32 B5 steps 32 q rows. Under dp their int8 tiles sit in the
+// V (and B4's dO) slots in 16-byte column blocks, dP on the s8 WMMA (bf16)
+// or __dp4a (float32), and B5 loads qs over Q once Sᵀ is taken. Cfg there:
+// 154–227 KB of shared memory.
+//
+// Width 512 (flash_bwd_wide.cu, the reference tiles any d): a full-width
+// tile set does not fit in 227 KB (K and V tiles of 32 bf16 rows take 64
+// KB, B5's two float32 accumulators of 32 × 512 another 128 KB), so the
+// output's 256-column halves go on the grid (blockIdx.z), as B1's O halves
+// do: each block recomputes S and dP over the full width from full-width
+// operand tiles and accumulates only its half of dQ, or of dK and dV. B5's
+// upper half takes no dV where the caller's value dim ends at or below
+// 256. Tiles: 32 rows in bf16, 16 (one warp) in float32.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
+#include "flash_bwd.cuh"
 #include "hopper.cuh"
 #include "schedule.cuh"
 
 namespace {
-
-using namespace nvcuda;
-using bf16 = __nv_bfloat16;
-
-constexpr float LN2 = 0.693147180559945309f;
-
-// What both families take: operands, the dp operands (null without dp),
-// outputs, the schedule and the GQA heads.
-struct BwdParams {
-  const void* q;      // (bh, n_q, HD), prescaled
-  const void* k;      // (bh_kv, n_kv, HD)
-  const void* v;
-  const void* dout;   // (bh, n_q, HD)
-  const void* v8;     // dp: V̂ (bh_kv, n_kv, HD) int8
-  const void* do8;    // dp: dÔ (bh, n_q, HD) int8
-  const void* qs;     // dp: q·σdo (bh, n_q, HD)
-  const float* sdo;   // dp: σdo (bh, n_q)
-  const float* lse2;  // (bh, n_q)
-  const float* delta; // (bh, n_q), divided by σdo under dp
-  void* dq;
-  void* dk;
-  void* dv;
-  Sched s;
-  int hq, hkv;
-};
-
-// ------------------------------------ WMMA (bf16 d 256) and FMA (float32)
-
-template <typename T> struct Ty;
-template <> struct Ty<__nv_bfloat16> {
-  static constexpr int PAD = 8;   // keeps rows 16 B aligned, shifts banks
-  static __device__ __nv_bfloat16 t(float x) { return __float2bfloat16_rn(x); }
-};
-template <> struct Ty<float> {
-  static constexpr int PAD = 4;
-  static __device__ float t(float x) { return x; }
-};
-
-// Tiles. B4: BQ q rows per block, BKV kv rows per step; B5: BKV5 kv rows per
-// block, BQD q rows per step. A block has one warp per 16 rows of its own
-// tile (BQ or BKV5). At d 256 the own tile is 32 rows (2 warps), and
-// float32 also steps 32 rows, so that every variant fits in 227 KB.
-template <typename T, int HD> struct Cfg {
-  static constexpr bool F32 = sizeof(T) == 4;
-  static constexpr int BQ = HD == 256 ? 32 : 64;
-  static constexpr int BKV = (F32 && HD == 256) ? 32 : 64;
-  static constexpr int BKV5 = HD == 256 ? 32 : 64;
-  static constexpr int BQD = F32 ? 32 : 64;
-};
-
-// Shared memory of one block: two (RA × HD) and two (RB × HD) operand
-// tiles, two (RA × RB) float32 score tiles, NP (RA × RB) tiles in T for the
-// cast P/dS, NACC (RA × HD) float32 accumulators, RB floats each of lse2
-// and Δ, and X8 (RB × HD) int8 tiles (B5's dÔ under dp). An int8 tile is
-// stored in 16-byte column blocks (element (r, c) at (c / 16)·rows·16 +
-// r·16 + c % 16), so that every s8 WMMA fragment starts 32-byte aligned;
-// under dp B4's dÔ and V̂ and B5's V̂ take the dO and V slots.
-template <typename T, int HD, int RA, int RB, int NP, int NACC, int X8 = 0> struct Smem {
-  static constexpr int LD = HD + Ty<T>::PAD;  // operand rows
-  static constexpr int LDS = RB + 4;          // float score rows
-  static constexpr int LDP = RB + Ty<T>::PAD; // P / dS rows in T
-  static constexpr int LDO = HD + 4;          // accumulator rows
-  static constexpr size_t a0 = 0;
-  static constexpr size_t a1 = a0 + sizeof(T) * RA * LD;
-  static constexpr size_t b0 = a1 + sizeof(T) * RA * LD;
-  static constexpr size_t b1 = b0 + sizeof(T) * RB * LD;
-  static constexpr size_t s0 = b1 + sizeof(T) * RB * LD;
-  static constexpr size_t s1 = s0 + sizeof(float) * RA * LDS;
-  static constexpr size_t p0 = s1 + sizeof(float) * RA * LDS;
-  static constexpr size_t p1 = p0 + sizeof(T) * RA * LDP;
-  static constexpr size_t acc = p0 + sizeof(T) * NP * RA * LDP;
-  static constexpr size_t lse = acc + sizeof(float) * NACC * RA * LDO;
-  static constexpr size_t delta = lse + sizeof(float) * RB;
-  static constexpr size_t x8 = (delta + sizeof(float) * RB + 31) / 32 * 32;
-  static constexpr size_t bytes = x8 + (size_t)X8 * RB * HD;
-  static_assert(a1 % 32 == 0 && b0 % 32 == 0 && b1 % 32 == 0 && s0 % 32 == 0 &&
-                    s1 % 32 == 0 && p0 % 32 == 0 && p1 % 32 == 0 &&
-                    acc % 32 == 0 && (sizeof(float) * RA * LDO) % 32 == 0,
-                "WMMA tiles need 256-bit aligned bases");
-  static_assert(sizeof(T) * LD >= HD, "an int8 tile outgrows its slot");
-  static_assert(bytes <= 232448, "above the 227 KB a block may use");
-};
-
-// rows [row0, row0 + rows) of a (n, HD) matrix into shared memory (pitch
-// ld), zero past n; 16-byte vector copies.
-template <typename T, int HD, int NTHREADS>
-__device__ void load_tile(T* dst, int ld, const T* src, int row0, int n,
-                          int rows) {
-  constexpr int VEC = 16 / sizeof(T);
-  constexpr int CHUNKS = HD / VEC;
-  for (int idx = threadIdx.x; idx < rows * CHUNKS; idx += NTHREADS) {
-    int r = idx / CHUNKS, c = (idx % CHUNKS) * VEC;
-    uint4 val = make_uint4(0, 0, 0, 0);
-    if (row0 + r < n)
-      val = *reinterpret_cast<const uint4*>(src + (size_t)(row0 + r) * HD + c);
-    *reinterpret_cast<uint4*>(dst + r * ld + c) = val;
-  }
-}
-
-// the same for an int8 (n, HD) matrix into 16-byte column blocks
-template <int HD, int NTHREADS>
-__device__ void load_tile8(int8_t* dst, const int8_t* src, int row0, int n, int rows) {
-  constexpr int CHUNKS = HD / 16;
-  for (int idx = threadIdx.x; idx < rows * CHUNKS; idx += NTHREADS) {
-    int r = idx / CHUNKS, c = idx % CHUNKS;
-    uint4 val = make_uint4(0, 0, 0, 0);
-    if (row0 + r < n)
-      val = *reinterpret_cast<const uint4*>(src + (size_t)(row0 + r) * HD + 16 * c);
-    *reinterpret_cast<uint4*>(dst + (c * rows + r) * 16) = val;
-  }
-}
-
-// rows [row0, row0 + rows) of a per-row float vector, zero past n.
-template <int NTHREADS>
-__device__ void load_rows(float* dst, const float* src, int row0, int n,
-                          int rows) {
-  for (int i = threadIdx.x; i < rows; i += NTHREADS)
-    dst[i] = row0 + i < n ? src[row0 + i] : 0.0f;
-}
-
-// One warp: C (16 × N, float, pitch ldc) = A (16 × K) · Bᵀ with B (N × K).
-template <typename T, int N, int K>
-__device__ void warp_nt(const T* a, int lda, const T* b, int ldb, float* c,
-                        int ldc, int lane) {
-  if constexpr (sizeof(T) == 2) {
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[N / 16];
-    for (int j = 0; j < N / 16; ++j) wmma::fill_fragment(acc[j], 0.0f);
-    for (int kk = 0; kk < K; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> fa;
-      wmma::load_matrix_sync(fa, a + kk, lda);
-      for (int j = 0; j < N / 16; ++j) {
-        // Bᵀ as a column-major operand: element (k, n) at b[n·ldb + k]
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major> fb;
-        wmma::load_matrix_sync(fb, b + j * 16 * ldb + kk, ldb);
-        wmma::mma_sync(acc[j], fa, fb, acc[j]);
-      }
-    }
-    for (int j = 0; j < N / 16; ++j)
-      wmma::store_matrix_sync(c + j * 16, acc[j], ldc, wmma::mem_row_major);
-  } else {
-    for (int r = 0; r < 16; ++r) {
-      for (int col = lane; col < N; col += 32) {
-        float s = 0.0f;
-        for (int k = 0; k < K; ++k) s = fmaf(a[r * lda + k], b[col * ldb + k], s);
-        c[r * ldc + col] = s;
-      }
-    }
-  }
-}
-
-// One warp: C (16 × N, int32, pitch ldc) = A · Bᵀ on int8 tiles in 16-byte
-// column blocks: A is rows [a_row, a_row + 16) of an RA-row tile, B an
-// N-row tile, K int8 columns. TC: the s8 WMMA; else __dp4a.
-template <bool TC, int RA, int N, int K>
-__device__ void warp_nt_s8(const int8_t* a, int a_row, const int8_t* b, int* c, int ldc,
-                           int lane) {
-  if constexpr (TC) {
-    wmma::fragment<wmma::accumulator, 16, 16, 16, int> acc[N / 16];
-    for (int j = 0; j < N / 16; ++j) wmma::fill_fragment(acc[j], 0);
-    for (int kb = 0; kb < K / 16; ++kb) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, signed char, wmma::row_major> fa;
-      wmma::load_matrix_sync(fa, reinterpret_cast<const signed char*>(a) +
-                                     (kb * RA + a_row) * 16, 16);
-      for (int j = 0; j < N / 16; ++j) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, signed char, wmma::col_major> fb;
-        wmma::load_matrix_sync(fb, reinterpret_cast<const signed char*>(b) +
-                                       (kb * N + j * 16) * 16, 16);
-        wmma::mma_sync(acc[j], fa, fb, acc[j]);
-      }
-    }
-    for (int j = 0; j < N / 16; ++j)
-      wmma::store_matrix_sync(c + j * 16, acc[j], ldc, wmma::mem_row_major);
-  } else {
-    const int* aw = reinterpret_cast<const int*>(a);
-    const int* bw = reinterpret_cast<const int*>(b);
-    for (int r = 0; r < 16; ++r) {
-      for (int col = lane; col < N; col += 32) {
-        int s = 0;
-        for (int kb = 0; kb < K / 16; ++kb)
-#pragma unroll
-          for (int w = 0; w < 4; ++w)
-            s = __dp4a(aw[(kb * RA + a_row + r) * 4 + w], bw[(kb * N + col) * 4 + w], s);
-        c[r * ldc + col] = s;
-      }
-    }
-  }
-}
-
-// One warp: C (16 × N, float, pitch ldc) += A (16 × K) · B with B (K × N).
-template <typename T, int N, int K>
-__device__ void warp_nn_acc(const T* a, int lda, const T* b, int ldb, float* c,
-                            int ldc, int lane) {
-  if constexpr (sizeof(T) == 2) {
-    for (int j = 0; j < N / 16; ++j) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-      wmma::load_matrix_sync(acc, c + j * 16, ldc, wmma::mem_row_major);
-      for (int kk = 0; kk < K; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> fa;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> fb;
-        wmma::load_matrix_sync(fa, a + kk, lda);
-        wmma::load_matrix_sync(fb, b + kk * ldb + j * 16, ldb);
-        wmma::mma_sync(acc, fa, fb, acc);
-      }
-      wmma::store_matrix_sync(c + j * 16, acc, ldc, wmma::mem_row_major);
-    }
-  } else {
-    for (int r = 0; r < 16; ++r) {
-      for (int col = lane; col < N; col += 32) {
-        float s = c[r * ldc + col];
-        for (int k = 0; k < K; ++k) s = fmaf(a[r * lda + k], b[k * ldb + col], s);
-        c[r * ldc + col] = s;
-      }
-    }
-  }
-}
-
-// B4: dQ for one (BQ-row q tile, batch·q-head row).
-template <typename T, int HD, bool DP>
-__global__ void __launch_bounds__(Cfg<T, HD>::BQ * 2)
-flash_bwd_dq_kernel(const BwdParams p) {
-  constexpr int BQ = Cfg<T, HD>::BQ, BKV = Cfg<T, HD>::BKV, NTHREADS = BQ * 2;
-  constexpr bool TC = sizeof(T) == 2;
-  using S = Smem<T, HD, BQ, BKV, 1, 1>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  T* qs = reinterpret_cast<T*>(smem + S::a0);
-  T* dos = reinterpret_cast<T*>(smem + S::a1);  // dÔ (int8) under dp
-  T* ks = reinterpret_cast<T*>(smem + S::b0);
-  T* vs = reinterpret_cast<T*>(smem + S::b1);   // V̂ (int8) under dp
-  float* ss = reinterpret_cast<float*>(smem + S::s0);
-  float* dps = reinterpret_cast<float*>(smem + S::s1);
-  T* dss = reinterpret_cast<T*>(smem + S::p0);
-  float* acc = reinterpret_cast<float*>(smem + S::acc);
-  float* lses = reinterpret_cast<float*>(smem + S::lse);
-  float* deltas = reinterpret_cast<float*>(smem + S::delta);
-  int8_t* dos8 = reinterpret_cast<int8_t*>(dos);
-  int8_t* vs8 = reinterpret_cast<int8_t*>(vs);
-
-  const Sched s = p.s;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int q0 = blockIdx.x * BQ, q_last = min(q0 + BQ - 1, s.n_q - 1);
-  const int b = blockIdx.y;
-  const int kv_row = (b / p.hq) * p.hkv + (b % p.hq) / (p.hq / p.hkv);
-  const size_t qoff = (size_t)b * s.n_q * HD;
-  const size_t kvoff = (size_t)kv_row * s.n_kv * HD;
-  const T* kb = static_cast<const T*>(p.k) + kvoff;
-
-  load_tile<T, HD, NTHREADS>(qs, S::LD, static_cast<const T*>(p.q) + qoff, q0, s.n_q, BQ);
-  if constexpr (DP)
-    load_tile8<HD, NTHREADS>(dos8, static_cast<const int8_t*>(p.do8) + qoff, q0, s.n_q, BQ);
-  else
-    load_tile<T, HD, NTHREADS>(dos, S::LD, static_cast<const T*>(p.dout) + qoff, q0, s.n_q,
-                               BQ);
-  load_rows<NTHREADS>(lses, p.lse2 + (size_t)b * s.n_q, q0, s.n_q, BQ);
-  load_rows<NTHREADS>(deltas, p.delta + (size_t)b * s.n_q, q0, s.n_q, BQ);
-  for (int i = threadIdx.x; i < BQ * S::LDO; i += NTHREADS) acc[i] = 0.0f;
-
-  int first, last;
-  kv_range(s, q0, q_last, BKV, first, last);
-  const int r0 = warp * 16;
-  for (int st = first; st <= last; ++st) {
-    const int k0 = st * BKV;
-    const bool full = tile_full(s, k0, k0 + BKV - 1, q0, q_last);
-    __syncthreads();  // previous step done with ks/vs; init visible
-    load_tile<T, HD, NTHREADS>(ks, S::LD, kb, k0, s.n_kv, BKV);
-    if constexpr (DP)
-      load_tile8<HD, NTHREADS>(vs8, static_cast<const int8_t*>(p.v8) + kvoff, k0, s.n_kv, BKV);
-    else
-      load_tile<T, HD, NTHREADS>(vs, S::LD, static_cast<const T*>(p.v) + kvoff, k0, s.n_kv,
-                                 BKV);
-    __syncthreads();
-    warp_nt<T, BKV, HD>(qs + r0 * S::LD, S::LD, ks, S::LD, ss + r0 * S::LDS, S::LDS, lane);
-    if constexpr (DP)
-      warp_nt_s8<TC, BQ, BKV, HD>(dos8, r0, vs8, reinterpret_cast<int*>(dps + r0 * S::LDS),
-                                  S::LDS, lane);
-    else
-      warp_nt<T, BKV, HD>(dos + r0 * S::LD, S::LD, vs, S::LD, dps + r0 * S::LDS, S::LDS, lane);
-    __syncwarp();
-    for (int r = r0; r < r0 + 16; ++r) {
-      const int qpos = q0 + r;
-      for (int c = lane; c < BKV; c += 32) {
-        const bool seen = full || (qpos < s.n_q && visible(s, qpos, k0 + c));
-        const float p_ = seen ? exp2f(ss[r * S::LDS + c] - lses[r]) : 0.0f;
-        const float dp = DP ? (float)reinterpret_cast<const int*>(dps)[r * S::LDS + c]
-                            : dps[r * S::LDS + c];
-        dss[r * S::LDP + c] = Ty<T>::t(p_ * (dp - deltas[r]));
-      }
-    }
-    __syncwarp();
-    warp_nn_acc<T, HD, BKV>(dss + r0 * S::LDP, S::LDP, ks, S::LD, acc + r0 * S::LDO, S::LDO, lane);
-  }
-  __syncthreads();
-  for (int r = r0; r < r0 + 16; ++r) {
-    const int qpos = q0 + r;
-    if (qpos >= s.n_q) break;
-    // dp: the rows carry σdo (ds = σdo·ds_raw), one multiply here
-    const float scale = DP ? p.sdo[(size_t)b * s.n_q + qpos] * LN2 : LN2;
-    T* row = static_cast<T*>(p.dq) + qoff + (size_t)qpos * HD;
-    for (int c = lane; c < HD; c += 32) row[c] = Ty<T>::t(acc[r * S::LDO + c] * scale);
-  }
-}
-
-// B5: dK and dV for one (BKV5-row kv tile, batch·kv-head row), summed over
-// the g query heads of its group.
-template <typename T, int HD, bool DP>
-__global__ void __launch_bounds__(Cfg<T, HD>::BKV5 * 2)
-flash_bwd_dkv_kernel(const BwdParams p) {
-  constexpr int BQD = Cfg<T, HD>::BQD, BKV = Cfg<T, HD>::BKV5, NTHREADS = BKV * 2;
-  constexpr bool TC = sizeof(T) == 2;
-  using S = Smem<T, HD, BKV, BQD, 2, 2, DP ? 1 : 0>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  T* ks = reinterpret_cast<T*>(smem + S::a0);
-  T* vs = reinterpret_cast<T*>(smem + S::a1);   // V̂ (int8) under dp
-  T* qs = reinterpret_cast<T*>(smem + S::b0);   // then qs under dp
-  T* dos = reinterpret_cast<T*>(smem + S::b1);
-  float* sts = reinterpret_cast<float*>(smem + S::s0);
-  float* dpts = reinterpret_cast<float*>(smem + S::s1);
-  T* pts = reinterpret_cast<T*>(smem + S::p0);
-  T* dsts = reinterpret_cast<T*>(smem + S::p1);
-  float* dkacc = reinterpret_cast<float*>(smem + S::acc);
-  float* dvacc = dkacc + BKV * S::LDO;
-  float* lses = reinterpret_cast<float*>(smem + S::lse);
-  float* deltas = reinterpret_cast<float*>(smem + S::delta);
-  int8_t* vs8 = reinterpret_cast<int8_t*>(vs);
-  int8_t* dos8 = reinterpret_cast<int8_t*>(smem + S::x8);
-
-  const Sched s = p.s;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int k0 = blockIdx.x * BKV, k_hi = min(k0 + BKV - 1, s.n_kv - 1);
-  const int kv_row = blockIdx.y;
-  const int g = p.hq / p.hkv;
-  const int q_row0 = (kv_row / p.hkv) * p.hq + (kv_row % p.hkv) * g;
-  const size_t kvoff = (size_t)kv_row * s.n_kv * HD;
-
-  load_tile<T, HD, NTHREADS>(ks, S::LD, static_cast<const T*>(p.k) + kvoff, k0, s.n_kv, BKV);
-  if constexpr (DP)
-    load_tile8<HD, NTHREADS>(vs8, static_cast<const int8_t*>(p.v8) + kvoff, k0, s.n_kv, BKV);
-  else
-    load_tile<T, HD, NTHREADS>(vs, S::LD, static_cast<const T*>(p.v) + kvoff, k0, s.n_kv, BKV);
-  for (int i = threadIdx.x; i < 2 * BKV * S::LDO; i += NTHREADS) dkacc[i] = 0.0f;
-
-  // the q tiles that see a key of this tile (the transposed visit)
-  int first, last;
-  q_range(s, k0, k_hi, BQD, first, last);
-  const int r0 = warp * 16;
-  for (int h = 0; h < g; ++h) {
-    const int b = q_row0 + h;
-    const size_t qoff = (size_t)b * s.n_q * HD;
-    for (int t = first; t <= last; ++t) {
-      const int q0 = t * BQD;
-      const bool full = q0 + BQD - 1 < s.n_q && tile_full(s, k0, k0 + BKV - 1, q0, q0 + BQD - 1);
-      __syncthreads();  // previous step done with qs/dos; init visible
-      load_tile<T, HD, NTHREADS>(qs, S::LD, static_cast<const T*>(p.q) + qoff, q0, s.n_q, BQD);
-      load_tile<T, HD, NTHREADS>(dos, S::LD, static_cast<const T*>(p.dout) + qoff, q0, s.n_q,
-                                 BQD);
-      if constexpr (DP)
-        load_tile8<HD, NTHREADS>(dos8, static_cast<const int8_t*>(p.do8) + qoff, q0, s.n_q, BQD);
-      load_rows<NTHREADS>(lses, p.lse2 + (size_t)b * s.n_q, q0, s.n_q, BQD);
-      load_rows<NTHREADS>(deltas, p.delta + (size_t)b * s.n_q, q0, s.n_q, BQD);
-      __syncthreads();
-      warp_nt<T, BQD, HD>(ks + r0 * S::LD, S::LD, qs, S::LD, sts + r0 * S::LDS, S::LDS, lane);
-      if constexpr (DP)
-        warp_nt_s8<TC, BKV, BQD, HD>(vs8, r0, dos8, reinterpret_cast<int*>(dpts + r0 * S::LDS),
-                                     S::LDS, lane);
-      else
-        warp_nt<T, BQD, HD>(vs + r0 * S::LD, S::LD, dos, S::LD, dpts + r0 * S::LDS, S::LDS,
-                            lane);
-      __syncwarp();
-      for (int r = r0; r < r0 + 16; ++r) {
-        const int kpos = k0 + r;
-        for (int c = lane; c < BQD; c += 32) {
-          const int qpos = q0 + c;
-          const bool seen = full || (qpos < s.n_q && visible(s, qpos, kpos));
-          const float p_ = seen ? exp2f(sts[r * S::LDS + c] - lses[c]) : 0.0f;
-          const float dp = DP ? (float)reinterpret_cast<const int*>(dpts)[r * S::LDS + c]
-                              : dpts[r * S::LDS + c];
-          pts[r * S::LDP + c] = Ty<T>::t(p_);
-          dsts[r * S::LDP + c] = Ty<T>::t(p_ * (dp - deltas[c]));
-        }
-      }
-      __syncwarp();
-      warp_nn_acc<T, HD, BQD>(pts + r0 * S::LDP, S::LDP, dos, S::LD, dvacc + r0 * S::LDO, S::LDO, lane);
-      if constexpr (DP) {  // dK takes qs: it replaces Q, which Sᵀ is done with
-        __syncthreads();
-        load_tile<T, HD, NTHREADS>(qs, S::LD, static_cast<const T*>(p.qs) + qoff, q0, s.n_q,
-                                   BQD);
-        __syncthreads();
-      }
-      warp_nn_acc<T, HD, BQD>(dsts + r0 * S::LDP, S::LDP, qs, S::LD, dkacc + r0 * S::LDO, S::LDO, lane);
-    }
-  }
-  __syncthreads();
-  for (int r = r0; r < r0 + 16; ++r) {
-    const int kpos = k0 + r;
-    if (kpos >= s.n_kv) break;
-    T* dkrow = static_cast<T*>(p.dk) + kvoff + (size_t)kpos * HD;
-    T* dvrow = static_cast<T*>(p.dv) + kvoff + (size_t)kpos * HD;
-    for (int c = lane; c < HD; c += 32) {
-      dkrow[c] = Ty<T>::t(dkacc[r * S::LDO + c] * LN2);
-      dvrow[c] = Ty<T>::t(dvacc[r * S::LDO + c]);
-    }
-  }
-}
-
-template <typename Kern>
-cudaError_t set_smem(Kern kern, size_t bytes) {
-  return cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)bytes);
-}
-
-template <typename T, int HD, bool DP>
-cudaError_t launch_dq(const BwdParams& p, int bh, cudaStream_t stream) {
-  using C = Cfg<T, HD>;
-  auto kern = flash_bwd_dq_kernel<T, HD, DP>;
-  const size_t smem = Smem<T, HD, C::BQ, C::BKV, 1, 1>::bytes;
-  cudaError_t err = set_smem(kern, smem);
-  if (err != cudaSuccess) return err;
-  dim3 grid((p.s.n_q + C::BQ - 1) / C::BQ, bh);
-  kern<<<grid, C::BQ * 2, smem, stream>>>(p);
-  return cudaGetLastError();
-}
-
-template <typename T, int HD, bool DP>
-cudaError_t launch_dkv(const BwdParams& p, int bh_kv, cudaStream_t stream) {
-  using C = Cfg<T, HD>;
-  auto kern = flash_bwd_dkv_kernel<T, HD, DP>;
-  const size_t smem = Smem<T, HD, C::BKV5, C::BQD, 2, 2, DP ? 1 : 0>::bytes;
-  cudaError_t err = set_smem(kern, smem);
-  if (err != cudaSuccess) return err;
-  dim3 grid((p.s.n_kv + C::BKV5 - 1) / C::BKV5, bh_kv);
-  kern<<<grid, C::BKV5 * 2, smem, stream>>>(p);
-  return cudaGetLastError();
-}
 
 // ------------------------------------------------------- bf16: TMA + wgmma
 
@@ -745,7 +322,7 @@ __global__ void __launch_bounds__(128 * (NC + 1), DqCfg<HD, NC, DP>::P::MINB)
   uint64_t* full_bar = q_bar + 1;
   uint64_t* empty_bar = full_bar + ST;
 
-  const Sched s = p.s;
+  const Sched s = sched_of(p);
   const int n_tiles = (s.n_q + BQ - 1) / BQ;
   // the heaviest causal q tiles first
   const int qt = s.kind == CAUSAL ? n_tiles - 1 - (int)blockIdx.y : (int)blockIdx.y;
@@ -881,7 +458,7 @@ __global__ void __launch_bounds__(128 * (NC + 1), DkvCfg<HD, NC, DP>::P::MINB)
   uint64_t* full_bar = kv_bar + 1;
   uint64_t* empty_bar = full_bar + ST;
 
-  const Sched s = p.s;
+  const Sched s = sched_of(p);
   const int kv_row = blockIdx.x;
   const int k0 = blockIdx.y * BKV, k_hi = min(k0 + BKV - 1, s.n_kv - 1);
   const int g = p.hq / p.hkv;
@@ -1049,21 +626,21 @@ bool make_maps(Maps* m, const BwdParams& p, int bh) {
   const int bh_kv = bh / p.hq * p.hkv;
   const bool dp = p.v8 != nullptr;
   bool ok = true;
-  if (p.s.n_q > 0) {
-    ok = make_map<2 * HD, 64, 128>(&m->q, p.q, p.s.n_q, bh);
+  if (p.n_q > 0) {
+    ok = make_map<2 * HD, 64, 128>(&m->q, p.q, p.n_q, bh);
     m->dout = m->qs = m->do8 = m->q;
-    if (ok && p.dout != nullptr) ok = make_map<2 * HD, 64, 128>(&m->dout, p.dout, p.s.n_q, bh);
-    if (ok && p.qs != nullptr) ok = make_map<2 * HD, 64, 128>(&m->qs, p.qs, p.s.n_q, bh);
-    if (ok && dp) ok = make_map<HD, 64, 128>(&m->do8, p.do8, p.s.n_q, bh);
+    if (ok && p.dout != nullptr) ok = make_map<2 * HD, 64, 128>(&m->dout, p.dout, p.n_q, bh);
+    if (ok && p.qs != nullptr) ok = make_map<2 * HD, 64, 128>(&m->qs, p.qs, p.n_q, bh);
+    if (ok && dp) ok = make_map<HD, 64, 128>(&m->do8, p.do8, p.n_q, bh);
   }
-  if (ok && p.s.n_kv > 0) {
-    ok = make_map<2 * HD, 64, 128>(&m->k, p.k, p.s.n_kv, bh_kv);
+  if (ok && p.n_kv > 0) {
+    ok = make_map<2 * HD, 64, 128>(&m->k, p.k, p.n_kv, bh_kv);
     if (ok)
-      ok = dp ? make_map<HD, 64, 128>(&m->v, p.v8, p.s.n_kv, bh_kv)
-              : make_map<2 * HD, 64, 128>(&m->v, p.v, p.s.n_kv, bh_kv);
+      ok = dp ? make_map<HD, 64, 128>(&m->v, p.v8, p.n_kv, bh_kv)
+              : make_map<2 * HD, 64, 128>(&m->v, p.v, p.n_kv, bh_kv);
   }
-  if (p.s.n_q == 0) m->q = m->dout = m->qs = m->do8 = m->k;
-  if (p.s.n_kv == 0) m->k = m->v = m->q;
+  if (p.n_q == 0) m->q = m->dout = m->qs = m->do8 = m->k;
+  if (p.n_kv == 0) m->k = m->v = m->q;
   return ok;
 }
 
@@ -1073,7 +650,7 @@ cudaError_t launch_dq_tc(const BwdParams& p, int bh, cudaStream_t stream) {
   using C = DqCfg<HD, NC, DP>;
   Maps m;
   if (!make_maps<HD>(&m, p, bh)) return cudaErrorInvalidValue;
-  const dim3 grid(bh, (p.s.n_q + C::BQ - 1) / C::BQ);
+  const dim3 grid(bh, (p.n_q + C::BQ - 1) / C::BQ);
   return launch_tc(flash_bwd_dq_tc<HD, NC, DP>, grid, 128 * (NC + 1), C::P::SMEM, stream, m,
                    p);
 }
@@ -1084,7 +661,7 @@ cudaError_t launch_dkv_tc(const BwdParams& p, int bh_kv, cudaStream_t stream) {
   using C = DkvCfg<HD, NC, DP>;
   Maps m;
   if (!make_maps<HD>(&m, p, bh_kv / p.hkv * p.hq)) return cudaErrorInvalidValue;
-  const dim3 grid(bh_kv, (p.s.n_kv + C::BKV - 1) / C::BKV);
+  const dim3 grid(bh_kv, (p.n_kv + C::BKV - 1) / C::BKV);
   return launch_tc(flash_bwd_dkv_tc<HD, NC, DP>, grid, 128 * (NC + 1), C::P::SMEM, stream, m,
                    p);
 }
@@ -1141,14 +718,15 @@ template <int HD, bool DP> struct DkvTc {
 // q, dout: (bh, n_q, d), q prescaled; k, v: (bh / hq · hkv, n_kv, d);
 // lse2 = clamped lse · log2(e) and delta: (bh, n_q) float32; dq like q.
 // All contiguous, 16-byte aligned, one dtype (0 = float32, 1 = bfloat16).
-// d ∈ {64, 128, 256} (the wrapper zero-pads other head and value dims).
+// d ∈ {64, 128, 256, 512} (the wrapper zero-pads other head and value
+// dims).
 // kind, offset, radius, section: the schedule (schedule.cuh; offset is the
 // causal kind's n_kv − n_q or the shifted kinds' shift, section their wrap;
 // circulant k/v are the halo-extended ones).
 // dp: v8 (V̂, like v, int8), do8 (dÔ, like dout, int8) and sdo (σdo, like
 // lse2) non-null, delta divided by σdo; v and dout are then not read; not
 // at d 64. bf16 at 64 and 128 takes the TMA + wgmma kernel, the rest the
-// WMMA/FMA one.
+// WMMA/FMA one (width 512 in flash_bwd_wide.cu).
 extern "C" cudaError_t tf_flash_bwd_dq(const void* q, const void* k, const void* v,
                                        const void* dout, const float* lse2,
                                        const float* delta, void* dq, const void* v8,
@@ -1162,30 +740,33 @@ extern "C" cudaError_t tf_flash_bwd_dq(const void* q, const void* k, const void*
     return cudaErrorInvalidValue;
   const bool dp = v8 != nullptr;
   if (dp && (do8 == nullptr || sdo == nullptr)) return cudaErrorInvalidValue;
-  const BwdParams p{q,     k,     v,  dp ? nullptr : dout, v8,      do8,     nullptr,
-                    sdo,   lse2,  delta, dq, nullptr, nullptr,
-                    Sched{n_q, n_kv, kind, offset, radius, section}, hq, hkv};
+  const BwdParams p{q,    k,     v,  dp ? nullptr : dout, v8,     do8,     nullptr,
+                    sdo,  lse2,  delta, dq, nullptr, nullptr, n_q, n_kv, kind,
+                    offset, radius, section, hq, hkv, d};
+  if (d == 512) return tf_bwd::launch_wide_dq(p, bh, dtype, dp, stream);
   return dispatch<DqGen, DqTc>(p, bh, d, dtype, dp, stream);
 }
 
-// The same operands; dk, dv: like k, v; bh_kv = batch · hkv. dp: v8, do8
-// and qs (q·σdo, like q) non-null, delta divided by σdo; v is then not
-// read, dout still is (dV takes the exact dO).
+// The same operands; dk, dv: like k, v; bh_kv = batch · hkv; dv_cols: the
+// caller's value dim (1 to d), past which a 512 launch's upper half writes
+// no dv column. dp: v8, do8 and qs (q·σdo, like q) non-null, delta divided
+// by σdo; v is then not read, dout still is (dV takes the exact dO).
 extern "C" cudaError_t tf_flash_bwd_dkv(const void* q, const void* k, const void* v,
                                         const void* dout, const float* lse2,
                                         const float* delta, void* dk, void* dv, const void* v8,
                                         const void* do8, const void* qs, int bh_kv, int n_q,
-                                        int n_kv, int hq, int hkv, int d, int kind, int offset,
-                                        int radius, int section, int dtype,
+                                        int n_kv, int hq, int hkv, int d, int dv_cols, int kind,
+                                        int offset, int radius, int section, int dtype,
                                         cudaStream_t stream) {
   if (bh_kv <= 0 || n_kv <= 0) return cudaSuccess;
   if (bad_sched(hq, hkv, Sched{n_q, n_kv, kind, offset, radius, section}) ||
-      bh_kv % hkv != 0 || n_q < 0)
+      bh_kv % hkv != 0 || n_q < 0 || dv_cols < 1 || dv_cols > d)
     return cudaErrorInvalidValue;
   const bool dp = v8 != nullptr;
   if (dp && (do8 == nullptr || qs == nullptr)) return cudaErrorInvalidValue;
-  const BwdParams p{q,     k,       v,  dout,  v8, do8, qs,
-                    nullptr, lse2, delta, nullptr, dk, dv,
-                    Sched{n_q, n_kv, kind, offset, radius, section}, hq, hkv};
+  const BwdParams p{q,       k,    v,     dout,    v8, do8, qs,
+                    nullptr, lse2, delta, nullptr, dk, dv,  n_q, n_kv, kind,
+                    offset,  radius, section, hq, hkv, dv_cols};
+  if (d == 512) return tf_bwd::launch_wide_dkv(p, bh_kv, dtype, dp, stream);
   return dispatch<DkvGen, DkvTc>(p, bh_kv, d, dtype, dp, stream);
 }

@@ -141,6 +141,15 @@ __device__ __forceinline__ void reg_fence(T (&r)[N]) {
 // m64nNk16 for bf16). acc_in 0 overwrites d, else adds to it; the
 // register-A form always adds and reads B MN-major (TB 1, transposed).
 template <int N> __device__ void wgmma_e4m3_e4m3(float (&d)[N / 2], uint64_t a, uint64_t b, int acc_in);
+template <> __device__ __forceinline__ void wgmma_e4m3_e4m3<32>(float (&d)[16], uint64_t a, uint64_t b, int acc_in) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k32.f32.e4m3.e4m3 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, %16, %17, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(a), "l"(b), "r"(acc_in));
+}
 template <> __device__ __forceinline__ void wgmma_e4m3_e4m3<64>(float (&d)[32], uint64_t a, uint64_t b, int acc_in) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
@@ -172,6 +181,15 @@ template <> __device__ __forceinline__ void wgmma_e4m3_e4m3<128>(float (&d)[64],
       : "l"(a), "l"(b), "r"(acc_in));
 }
 template <int N> __device__ void wgmma_e4m3_e5m2(float (&d)[N / 2], uint64_t a, uint64_t b, int acc_in);
+template <> __device__ __forceinline__ void wgmma_e4m3_e5m2<32>(float (&d)[16], uint64_t a, uint64_t b, int acc_in) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k32.f32.e4m3.e5m2 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, %16, %17, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(a), "l"(b), "r"(acc_in));
+}
 template <> __device__ __forceinline__ void wgmma_e4m3_e5m2<64>(float (&d)[32], uint64_t a, uint64_t b, int acc_in) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
@@ -243,6 +261,15 @@ template <> __device__ __forceinline__ void wgmma_bf16_bf16<128>(float (&d)[64],
       : "l"(a), "l"(b), "r"(acc_in));
 }
 template <int N> __device__ void wgmma_s8_s8(int (&d)[N / 2], uint64_t a, uint64_t b, int acc_in);
+template <> __device__ __forceinline__ void wgmma_s8_s8<32>(int (&d)[16], uint64_t a, uint64_t b, int acc_in) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, %16, %17, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15])
+      : "l"(a), "l"(b), "r"(acc_in));
+}
 template <> __device__ __forceinline__ void wgmma_s8_s8<64>(int (&d)[32], uint64_t a, uint64_t b, int acc_in) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"

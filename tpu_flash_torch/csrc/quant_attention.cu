@@ -36,8 +36,8 @@
 // to bf16, or under pv_quant P → clip(rint(p·127), 0, 127) against int8 V̂
 // (s32 per tile, then × 1/127). l sums the float32 p. The finish mirrors
 // serving_attn.py:332-346: rows with l = 0 or m <= MASK/2 give o = 0 and
-// lse = -inf, then o × σv per channel. Head widths 64, 128 and 256 are
-// compiled; the wrappers zero-pad other d and dv (K̂/V̂ with byte 0, σv
+// lse = -inf, then o × σv per channel. Head widths 64, 128, 256 and 512
+// are compiled; the wrappers zero-pad other d and dv (K̂/V̂ with byte 0, σv
 // with 1).
 //
 // What bounds it on an H100: at the headline shape (b 4, h 8, n 8192,
@@ -71,8 +71,17 @@
 //   skips the rescale. pv_quant's int8 P·V runs on mma.sync m16n8k32 with
 //   the kv order permuted so that P's accumulator registers are its A
 //   fragment (V̂'s bytes are gathered to match).
-// - Tiles: BKV 128 kv rows at d <= 128, 64 at d 256; as many ring stages as
-//   fit in 227 KB (Cfg below). Registers (python -m
+// - Tiles: BKV 128 kv rows at d <= 128, 64 at d 256, 32 at d 512; as many
+//   ring stages as fit in 227 KB (Cfg below).
+// - Width 512 (the reference tiles any d): O alone would take 256 float32
+//   registers a thread of a 64-row warpgroup, and in the weight-only mode Q
+//   (128 KB) and one stage of 64 kv rows (192 KB) outgrow shared memory.
+//   So O's 256-column halves go on the grid (blockIdx.z), as in B1: each
+//   CTA runs Q·Kᵀ and the softmax over the full width, loads and decodes
+//   only its half of V̂, and accumulates only that half of O; the kv tile
+//   shrinks to 32 rows (flash_q.kernel_block_kv, which the plain version
+//   walks too). Half 0 writes lse and the staged Q.
+// - Registers (python -m
 //   tpu_flash_torch.kernels._build quant_attention.cu, CUDA 12.8): every
 //   instantiation reports 168; none of the score-product ones spills, d
 //   256 included; the pv_quant ones spill a little in their mma.sync V̂
@@ -140,18 +149,23 @@ struct Params {
   float c;  // staging: float32(scale·log2e); modes 4, 5: the factor's multiplier
 };
 
-// Tiles and the shared-memory plan of one instantiation.
+// Tiles and the shared-memory plan of one instantiation. A stage holds K̂
+// (raw), the CTA's columns of V̂ (raw), K̂ decoded to bf16 (weight-only) and
+// those columns of V̂ decoded (not under pv_quant), in that order.
 template <int HD, int SP, bool PVQ> struct Cfg {
   static constexpr int BQ = 128;                    // two consumer warpgroups
-  static constexpr int BKV = HD == 256 ? 64 : 128;  // kv rows a stage
+  static constexpr int BKV = HD == 512 ? 32 : HD == 256 ? 64 : 128;  // kv rows a stage
+  static constexpr int HO = HD > 256 ? 256 : HD;    // O's columns a CTA
   static constexpr bool Q8 = SP != S_BF16;          // 8-bit score operands
   static constexpr int RPB = HD >= 128 ? 128 : 64;  // panel bytes, 8-bit tiles
   static constexpr int QPB = Q8 ? RPB : 128;        // panel bytes, Q operand
   static constexpr int QBYTES = BQ * HD * (Q8 ? 1 : 2);
-  static constexpr int RAW = BKV * HD;              // one 8-bit K̂ or V̂ tile
+  static constexpr int RAW = BKV * HD;              // one 8-bit K̂ tile
+  static constexpr int RAWV = BKV * HO;             // the CTA's columns of V̂
   static constexpr int KB = Q8 ? 0 : BKV * HD * 2;  // decoded K̂ (bf16)
-  static constexpr int VT = PVQ ? 0 : BKV * HD * 2; // decoded V̂ᵀ (bf16)
-  static constexpr int STAGE = 2 * RAW + KB + VT;
+  static constexpr int VT = PVQ ? 0 : BKV * HO * 2; // decoded V̂ᵀ (bf16)
+  static constexpr int KB_OFF = RAW + RAWV, VT_OFF = KB_OFF + KB;
+  static constexpr int STAGE = VT_OFF + VT;
   static constexpr int bytes(int st) {
     // 1024 of alignment slack, Q, the stages, σk tiles, row factors and
     // bounds, three barriers a stage
@@ -161,7 +175,8 @@ template <int HD, int SP, bool PVQ> struct Cfg {
   static constexpr int SMEM = bytes(ST);
   static_assert(SMEM <= SMEM_LIMIT, "above the 227 KB a block may use");
   static_assert(QBYTES % 1024 == 0 && STAGE % 1024 == 0 && RAW % 1024 == 0 &&
-                    KB % 1024 == 0, "swizzled tiles need 1024-byte bases");
+                    RAWV % 1024 == 0 && KB % 1024 == 0,
+                "swizzled tiles need 1024-byte bases");
 };
 
 
@@ -290,7 +305,7 @@ __device__ void stage_q(const Params& p, uint8_t* qs, float* rowf, float* rowm, 
       rowf[r] = f;
       rowm[r] = p.gk != nullptr ? qn * gk1 : MASK;
     }
-    if (p.q_out != nullptr && real) {  // the staged operand, for checking
+    if (p.q_out != nullptr && real && blockIdx.z == 0) {  // the staged operand, for checking
       const size_t at = row * HD;
 #pragma unroll
       for (int i = 0; i < HD / 32; ++i) {
@@ -331,8 +346,9 @@ __device__ void decode_stage(const Params& p, const uint8_t* kraw, const uint8_t
     }
   }
   if constexpr (!PVQ) {
-    // V̂ → bf16 V̂, same rows: the P·V product reads it MN-major
-    for (int u = tid; u < BKV * HD / 16; u += NT) {
+    // V̂ → bf16 V̂ (the CTA's columns), same rows: the P·V product reads it
+    // MN-major
+    for (int u = tid; u < BKV * C::HO / 16; u += NT) {
       const int r = u % BKV, cb = (u / BKV) * 16;
       const uint4 raw = *reinterpret_cast<const uint4*>(vraw + tile_off<RPB, BKV>(r, cb));
       const uint32_t in[4] = {raw.x, raw.y, raw.z, raw.w};
@@ -356,7 +372,7 @@ __global__ void __launch_bounds__(384, 1)
     quant_attention_kernel(const __grid_constant__ CUtensorMap tmap_k,
                            const __grid_constant__ CUtensorMap tmap_v, const Params p) {
   using C = Cfg<HD, SP, PVQ>;
-  constexpr int BKV = C::BKV, ST = C::ST, RPB = C::RPB, QPB = C::QPB;
+  constexpr int BKV = C::BKV, ST = C::ST, RPB = C::RPB, QPB = C::QPB, HO = C::HO;
   using Acc = typename std::conditional<SP == S_INT8, int, float>::type;
   extern __shared__ unsigned char smem_raw[];
   uint8_t* smem = reinterpret_cast<uint8_t*>(
@@ -376,6 +392,7 @@ __global__ void __launch_bounds__(384, 1)
   const int qt = sd.kind == CAUSAL ? n_tiles - 1 - (int)blockIdx.x : (int)blockIdx.x;
   const int q0 = qt * C::BQ;
   const int b = blockIdx.y;
+  const int oc = blockIdx.z * HO;  // this CTA's columns of V̂ and O
   const int kv_row = (b / p.hq) * p.hkv + (b % p.hq) / (p.hq / p.hkv);
   // the kv tiles this CTA visits: the producer loads exactly these and the
   // consumers wait for exactly these
@@ -405,12 +422,12 @@ __global__ void __launch_bounds__(384, 1)
           mbar_wait(&empty_bar[s], ph ^ 1);
           uint8_t* st = stages + s * C::STAGE;
           const int k0 = (first + t) * BKV;
-          mbar_expect_tx(&tma_bar[s], 2 * C::RAW);
-          for (int pn = 0; pn < HD / RPB; ++pn) {
+          mbar_expect_tx(&tma_bar[s], C::RAW + C::RAWV);
+          for (int pn = 0; pn < HD / RPB; ++pn)
             tma_load_3d(st + pn * BKV * RPB, &tmap_k, pn * RPB, k0, kv_row, &tma_bar[s]);
-            tma_load_3d(st + C::RAW + pn * BKV * RPB, &tmap_v, pn * RPB, k0, kv_row,
+          for (int pn = 0; pn < HO / RPB; ++pn)
+            tma_load_3d(st + C::RAW + pn * BKV * RPB, &tmap_v, oc + pn * RPB, k0, kv_row,
                         &tma_bar[s]);
-          }
         }
       }
     } else {
@@ -419,7 +436,7 @@ __global__ void __launch_bounds__(384, 1)
         const int s = t % ST, ph = (t / ST) & 1;
         uint8_t* st = stages + s * C::STAGE;
         mbar_wait(&tma_bar[s], ph);
-        decode_stage<HD, SP, PVQ>(p, st, st + C::RAW, st + 2 * C::RAW, st + 2 * C::RAW + C::KB,
+        decode_stage<HD, SP, PVQ>(p, st, st + C::RAW, st + C::KB_OFF, st + C::VT_OFF,
                                   skt + s * BKV, (first + t) * BKV, kv_row, tid);
         fence_async_smem();
         mbar_arrive(&full_bar[s]);
@@ -444,9 +461,9 @@ __global__ void __launch_bounds__(384, 1)
     float ma = rowm[64 * wg + ra], mb = rowm[64 * wg + rb];
     float la = 0.0f, lb = 0.0f;
     const bool bound = p.gk != nullptr;
-    float o[HD / 2];
+    float o[HO / 2];
 #pragma unroll
-    for (int i = 0; i < HD / 2; ++i) o[i] = 0.0f;
+    for (int i = 0; i < HO / 2; ++i) o[i] = 0.0f;
     const uint32_t q_addr = smem_u32(qw);
 
     for (int t = 0; t < steps; ++t) {
@@ -459,7 +476,7 @@ __global__ void __launch_bounds__(384, 1)
       // S = Q·Kᵀ on the tensor cores, operands in shared memory
       Acc sacc[BKV / 2];
       {
-        const uint32_t k_addr = smem_u32(C::Q8 ? st : st + 2 * C::RAW);
+        const uint32_t k_addr = smem_u32(C::Q8 ? st : st + C::KB_OFF);
         constexpr int KSTEPS = C::Q8 ? HD / 32 : HD / 16;  // 32 bytes a step
         constexpr bool FP8 = SP == S_E4M3 || SP == S_E5M2;
         if constexpr (FP8) {
@@ -534,7 +551,7 @@ __global__ void __launch_bounds__(384, 1)
         ma = na;
         mb = nb;
 #pragma unroll
-        for (int j = 0; j < HD / 8; ++j) {
+        for (int j = 0; j < HO / 8; ++j) {
           o[4 * j] *= alpha_a;
           o[4 * j + 1] *= alpha_a;
           o[4 * j + 2] *= alpha_b;
@@ -560,12 +577,12 @@ __global__ void __launch_bounds__(384, 1)
 #pragma unroll
           for (int i = 0; i < 4; ++i)
             pa[kk][i] = pack_bf16(sc[8 * kk + 2 * i], sc[8 * kk + 2 * i + 1]);
-        const uint32_t v_addr = smem_u32(st + 2 * C::RAW + C::KB);
+        const uint32_t v_addr = smem_u32(st + C::VT_OFF);
         reg_fence(o);
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < BKV / 16; ++kk)
-          wgmma_rs_bf16<HD, 1>(o, pa[kk], desc_mn(v_addr + kk * 16 * 128, BKV * 128));
+          wgmma_rs_bf16<HO, 1>(o, pa[kk], desc_mn(v_addr + kk * 16 * 128, BKV * 128));
         wgmma_commit();
         wgmma_wait0();
         reg_fence(o);
@@ -599,7 +616,7 @@ __global__ void __launch_bounds__(384, 1)
         const uint8_t* vrow[2] = {vraw + (2 * t4) * RPB + g, vraw + (2 * t4 + 1) * RPB + g};
         const int vx[2] = {(RPB == 128 ? 2 * t4 : t4) << 4, (RPB == 128 ? 2 * t4 + 1 : t4) << 4};
 #pragma unroll
-        for (int nt = 0; nt < HD / 8; ++nt) {
+        for (int nt = 0; nt < HO / 8; ++nt) {
           int cacc[4] = {0, 0, 0, 0};
           constexpr int PANEL_ROWS = BKV * RPB;
           const int at = (8 * nt / RPB) * PANEL_ROWS + 8 * (nt & 1);
@@ -635,26 +652,26 @@ __global__ void __launch_bounds__(384, 1)
     // finish: o = acc / l × σv, lse = m·ln2 + log(l); dead rows give 0, -inf
     const bool va = la > 0.0f && ma > MASK * 0.5f, vb = lb > 0.0f && mb > MASK * 0.5f;
     const float ia = va ? 1.0f / la : 0.0f, ib = vb ? 1.0f / lb : 0.0f;
-    const float* sv = p.sv + (size_t)kv_row * HD;
+    const float* sv = p.sv + (size_t)kv_row * HD + oc;
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
       const int qpos = half ? qb : qa;
       if (qpos >= p.s.n_q) continue;
       const float inv = half ? ib : ia;
       const size_t row = (size_t)b * p.s.n_q + qpos;
+      const size_t at = row * HD + oc;
 #pragma unroll
-      for (int j = 0; j < HD / 8; ++j) {
+      for (int j = 0; j < HO / 8; ++j) {
         const int col = 8 * j + 2 * t4;
         const float x0 = (o[4 * j + 2 * half] * inv) * sv[col];
         const float x1 = (o[4 * j + 2 * half + 1] * inv) * sv[col + 1];
         if (p.o_f32)
-          *reinterpret_cast<float2*>(static_cast<float*>(p.o) + row * HD + col) =
-              make_float2(x0, x1);
+          *reinterpret_cast<float2*>(static_cast<float*>(p.o) + at + col) = make_float2(x0, x1);
         else
-          *reinterpret_cast<__nv_bfloat162*>(static_cast<bf16*>(p.o) + row * HD + col) =
+          *reinterpret_cast<__nv_bfloat162*>(static_cast<bf16*>(p.o) + at + col) =
               __floats2bfloat162_rn(x0, x1);
       }
-      if (p.lse != nullptr && t4 == 0) {
+      if (p.lse != nullptr && t4 == 0 && blockIdx.z == 0) {
         const float l = half ? lb : la, m = half ? mb : ma;
         p.lse[row] = (half ? vb : va) ? m * LN2 + logf(l) : -__int_as_float(0x7f800000);
       }
@@ -675,7 +692,7 @@ cudaError_t launch(const Params& p, int bh, cudaStream_t stream) {
   cudaError_t err =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
   if (err != cudaSuccess) return err;
-  dim3 grid((p.s.n_q + C::BQ - 1) / C::BQ, bh);
+  dim3 grid((p.s.n_q + C::BQ - 1) / C::BQ, bh, HD / C::HO);
   kern<<<grid, 384, C::SMEM, stream>>>(mk, mv, p);
   return cudaGetLastError();
 }
@@ -711,6 +728,7 @@ cudaError_t dispatch(const Params& p, int bh, int d, int pv_quant, cudaStream_t 
   if (d == 128) return dispatch_d<128>(p, bh, sp, pv_quant != 0, stream);
   if (d == 64) return dispatch_d<64>(p, bh, sp, pv_quant != 0, stream);
   if (d == 256) return dispatch_d<256>(p, bh, sp, pv_quant != 0, stream);
+  if (d == 512) return dispatch_d<512>(p, bh, sp, pv_quant != 0, stream);
   return cudaErrorInvalidValue;
 }
 
@@ -725,7 +743,7 @@ cudaError_t dispatch(const Params& p, int bh, int d, int pv_quant, cudaStream_t 
 // kind, offset, radius, section: the schedule (schedule.cuh; n_kv is the
 // halo-extended length for the circulant). q_mode 0 weight-only, 1 fp8
 // (e4m3 Q), 2 int8 Q. c is float32(scale·log2e). All contiguous, 16-byte
-// aligned; d ∈ {64, 128, 256}.
+// aligned; d ∈ {64, 128, 256, 512}.
 extern "C" cudaError_t tf_serving_attention(
     const void* q, const void* k, const void* v, const float* sk_token,
     const float* sk_tensor, const float* sv, const float* gk, void* o, float* lse,

@@ -8,7 +8,8 @@ share ``csrc/hopper.cuh``.
 A cold build takes about two minutes on an H100 machine, nearly all of it
 ``paged_attention.cu`` (70 instantiations of ``paged_attention.cuh``'s
 kernels), the other sources finishing within it (``paged_attention_wide.cu``
-compiles the 30 above head dim 256 beside it). The library lands in
+compiles the 30 above head dim 256 beside it, ``flash_bwd_wide.cu`` the
+width-512 instantiations of ``flash_bwd.cuh``'s kernels). The library lands in
 ``build/tpu_flash_torch/<key>/`` at the repository root, keyed by a hash of
 the flags, the sources and the headers (:func:`build_key`), and is built on
 first use — never at import. A failed build raises with nvcc's output.
@@ -57,8 +58,8 @@ _SIGNATURES = {
     # hkv, d, kind, offset, radius, section, dtype, stream
     "tf_flash_bwd_dq": [_vp] * 10 + [_i32] * 11 + [_vp],
     # q, k, v, dout, lse2, delta, dk, dv, v8, do8, qs, bh_kv, n_q, n_kv, hq,
-    # hkv, d, kind, offset, radius, section, dtype, stream
-    "tf_flash_bwd_dkv": [_vp] * 11 + [_i32] * 11 + [_vp],
+    # hkv, d, dv, kind, offset, radius, section, dtype, stream
+    "tf_flash_bwd_dkv": [_vp] * 11 + [_i32] * 12 + [_vp],
     # q, k, v, sk_token, sk_tensor, sv, gk, o, lse, q_out, qs_out, bh, n_q,
     # n_kv, hq, hkv, d, kind, offset, radius, section, q_mode, q_f32,
     # kv_dtype, pv_quant, c, stream

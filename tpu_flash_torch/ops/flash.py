@@ -215,39 +215,22 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
-# Head widths B1 is compiled for, and those of the backward (B4/B5) and
-# quantized (B6/B7) attention kernels.
-FWD_HEAD_DIMS = (64, 128, 256, 512)
-KERNEL_HEAD_DIMS = (64, 128, 256)
-
-
-def _least_width(d: int, dv: int, widths, name: str, item: str) -> int:
-    w = max(d, dv)
-    for width in widths:
-        if w <= width:
-            return width
-    if w > FWD_HEAD_DIMS[-1]:
-        item = "A15c"
-    raise NotImplementedError(
-        f"{name} take head and value dims up to {widths[-1]}, got d={d} "
-        f"dv={dv} (ROADMAP {item})")
-
-
-def fwd_head_dim(d: int, dv: int) -> int:
-    """B1's compiled width for head dim ``d`` and value dim ``dv``: the
-    least of :data:`FWD_HEAD_DIMS` ≥ max(d, dv). Wider heads raise
-    (ROADMAP A15c)."""
-    return _least_width(d, dv, FWD_HEAD_DIMS, "the flash forward kernel",
-                        "A15c")
+# Head widths the attention kernels are compiled for: B1, the backward
+# (B4/B5) and the quantized attention (B6/B7) alike.
+KERNEL_HEAD_DIMS = (64, 128, 256, 512)
 
 
 def kernel_head_dim(d: int, dv: int) -> int:
-    """The compiled width of the backward (B4/B5) and quantized (B6/B7)
-    attention kernels for head dim ``d`` and value dim ``dv``: the least
-    of :data:`KERNEL_HEAD_DIMS` ≥ max(d, dv). Wider heads raise: ROADMAP
-    A15b up to 512, A15c above."""
-    return _least_width(d, dv, KERNEL_HEAD_DIMS,
-                        "the backward and quantized attention kernels", "A15b")
+    """The compiled width of the attention kernels (B1, B4/B5, B6/B7) for
+    head dim ``d`` and value dim ``dv``: the least of
+    :data:`KERNEL_HEAD_DIMS` ≥ max(d, dv). Wider heads raise (ROADMAP
+    A15c); the plain versions on CPU tensors take any width."""
+    for width in KERNEL_HEAD_DIMS:
+        if max(d, dv) <= width:
+            return width
+    raise NotImplementedError(
+        f"the attention kernels take head and value dims up to "
+        f"{KERNEL_HEAD_DIMS[-1]}, got d={d} dv={dv} (ROADMAP A15c)")
 
 
 def pad_head_dims(width: int, *ts, fill: float = 0.0):
@@ -298,7 +281,7 @@ def _flash_fwd_kernel(q, k, v, sched: Schedule, hq: int, hkv: int,
     n_kv, dv = k.shape[1], v.shape[-1]
     if k.shape[-1] != d:
         raise ValueError(f"q and k head dims differ: {d} vs {k.shape[-1]}")
-    width = fwd_head_dim(d, dv)
+    width = kernel_head_dim(d, dv)
     if bh % hq or k.shape[0] != bh // hq * hkv or v.shape[:2] != k.shape[:2]:
         raise ValueError(f"bad GQA shapes {q.shape} {k.shape} {v.shape}")
     q, k, v = (_aligned(t) for t in pad_head_dims(width, q, k, v))
@@ -370,12 +353,8 @@ class _FlashAttention(torch.autograd.Function):
 def _fa(q, k, v, sched: Schedule, hq: int, hkv: int, need_lse: bool,
         bound_max: bool = False, bwd_split=None, bwd_quant=None):
     """(o, lse) through :class:`_FlashAttention`; lse is materialised when
-    asked for or when a gradient will need it. On the card a gradient of
-    heads wider than the backward kernels take raises here, at the
-    forward (ROADMAP A15b)."""
+    asked for or when a gradient will need it."""
     grad = torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v))
-    if grad and q.is_cuda:
-        kernel_head_dim(q.shape[-1], v.shape[-1])
     need_lse = need_lse or grad
     return _FlashAttention.apply(q, k, v, sched, hq, hkv, need_lse, bound_max,
                                  bwd_split, bwd_quant)
@@ -428,9 +407,9 @@ def flash_attention(
     ``block_q``/``block_kv`` set the schedule's blocks as in the reference
     (its padded lengths and its tile-visit math); the CUDA kernel runs its
     own tiles and masks ragged edges, so no sequence is padded. Any
-    head dim d and value dim dv up to 512 runs on the card (zero-padded to
-    64, 128, 256 or 512 there), its gradient up to 256 (wider raises at the
-    forward, ROADMAP A15b); heads above 512 raise (A15c).
+    head dim d and value dim dv up to 512 runs on the card, its gradient
+    too (zero-padded to 64, 128, 256 or 512 there); heads above 512 raise
+    (ROADMAP A15c).
     ``bound_max``: True takes the constant norm bound as the softmax max,
     False the exact running max, None the reference's auto policy
     (:func:`auto_bound_max`: the bound for mask-free dense and non-causal

@@ -199,17 +199,21 @@ def _dq_kernel(q, k, v, do, lse2, delta, dp, sched: Schedule, hq: int,
 
 
 def _dkv_kernel(q, k, v, do, lse2, delta, dp, sched: Schedule, hq: int,
-                hkv: int):
-    """Launch B5 on checked, aligned operands → (dk, dv)."""
+                hkv: int, dv_cols: Optional[int] = None):
+    """Launch B5 on checked, aligned operands → (dk, dv). ``dv_cols``: the
+    caller's value dim (default: all of v's columns); at width 512 a
+    256-column half past it computes no dV, and its dv columns are left
+    unwritten."""
     from tpu_flash_torch.kernels import _build
 
     v8, do8, qs, _ = (None,) * 4 if dp is None else dp
     dk, dv = torch.empty_like(k), torch.empty_like(v)
+    n_q, n_kv, hq_, hkv_, width, *rest = _kernel_args(q, k, sched, hq, hkv)
     err = _build.library().tf_flash_bwd_dkv(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse2.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        _ptr(v8), _ptr(do8), _ptr(qs), k.shape[0],
-        *_kernel_args(q, k, sched, hq, hkv))
+        _ptr(v8), _ptr(do8), _ptr(qs), k.shape[0], n_q, n_kv, hq_, hkv_,
+        width, v.shape[-1] if dv_cols is None else dv_cols, *rest)
     _build.check(err, "tf_flash_bwd_dkv")
     kernels.LAUNCHES["flash_bwd_dkv"] += 1
     return dk, dv
@@ -259,7 +263,7 @@ def _flash_bwd_kernel(q, k, v, o, lse, do, dlse, sched: Schedule, hq: int,
     d, dv_dim = q.shape[-1], v.shape[-1]
     ops = _kernel_operands(q, k, v, o, lse, do, dlse, sched, hq, hkv, quant)
     dq = _dq_kernel(*ops, sched, hq, hkv)
-    dk, dv = _dkv_kernel(*ops, sched, hq, hkv)
+    dk, dv = _dkv_kernel(*ops, sched, hq, hkv, dv_dim)
     return (slice_head_dims(dq, d), slice_head_dims(dk, d),
             slice_head_dims(dv, dv_dim))
 

@@ -68,10 +68,14 @@ KERNEL_BQ = 128
 
 
 def kernel_block_kv(d: int, dv: int) -> int:
-    """The kernel's kv tile at head dim d, value dim dv: 128 rows, 64 at
-    the 256 width. The plain version walks the same tiles, so its running
-    max (and with it every rounding of P) follows the kernel's."""
-    return 64 if kernel_head_dim(d, dv) == 256 else 128
+    """The kernel's kv tile at head dim d, value dim dv: 128 rows at widths
+    up to 128, 64 at 256, 32 at 512, where the weight-only mode's Q (128
+    KB) and one stage of K̂, half of V̂ and their bf16 decodes fill the
+    block's shared memory. The plain version walks the same tiles, so its
+    running max (and with it every rounding of P) follows the kernel's; on
+    CPU tensors it takes any width, tiles of 32 above 256."""
+    w = max(d, dv)
+    return 128 if w <= 128 else 64 if w <= 256 else 32
 
 
 def f32(x: float) -> float:
@@ -209,7 +213,7 @@ def check_kernel_operands(name: str, q, k_vals, v_vals, hq: int, hkv: int):
     if k_vals.shape[-1] != d:
         raise ValueError(f"{name}: q and k head dims differ: {d} vs "
                          f"{k_vals.shape[-1]}")
-    kernel_head_dim(d, v_vals.shape[-1])  # raises above 256
+    kernel_head_dim(d, v_vals.shape[-1])  # raises above 512 (A15c)
     if bh % hq or k_vals.shape[0] != bh // hq * hkv or \
             v_vals.shape[:2] != k_vals.shape[:2]:
         raise ValueError(f"bad GQA shapes {q.shape} {k_vals.shape} "
@@ -402,11 +406,13 @@ def quantized_flash_attention(
     folded into Q; fp8 only). ``bound_max=True`` takes the constant
     Cauchy–Schwarz bound as the softmax max (exact online softmax), False
     the exact running max. ``block_q``/``block_kv`` only shape the
-    reference's schedule; the kernel runs its own tiles (128 q rows by 128
-    kv rows, 64 at head widths above 128). Any d and dv up to 256 run on
-    the card. ``schedule``: dense, causal, local, local_causal (``radius``),
-    circulant (``radius``; K/V halo-extended before they are quantized, as
-    in the reference), block (``section``) or shifted (``shift``,
+    reference's schedule; the kernel runs its own tiles (128 q rows by
+    :func:`kernel_block_kv` kv rows). Any d and dv up to 512 run on the
+    card (above 256 with O's 256-column halves on the grid); wider heads
+    raise there (ROADMAP A15c) and run on CPU tensors. ``schedule``:
+    dense, causal, local, local_causal (``radius``), circulant
+    (``radius``; K/V halo-extended before they are quantized, as in the
+    reference), block (``section``) or shifted (``shift``,
     ``radius``, ``wrap_n``, ``shifted_causal``: the ring hop of
     ``ops/flash.py:flash_attention``). At d ≤ 64 the dense, causal, local,
     local_causal and block schedules go to :func:`~tpu_flash_torch.quant.

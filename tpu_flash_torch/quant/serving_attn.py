@@ -212,8 +212,9 @@ def serving_flash_attention(
     combinations raise the reference's ``ValueError``, but on the card
     they change nothing. ``block_q``/``block_kv`` only shape the
     reference's schedule (and ``kv_split``'s check); the kernel runs its
-    own tiles (128 q rows by 128 kv rows, 64 at head widths above 128). Any
-    d and dv up to 256 run on the card. ``schedule``: dense, causal, local,
+    own tiles (128 q rows by ``flash_q.kernel_block_kv`` kv rows). Any d
+    and dv up to 512 run on the card; wider heads raise there (ROADMAP
+    A15c) and run on CPU tensors. ``schedule``: dense, causal, local,
     local_causal (``radius``), circulant (``radius``, over the cache with
     2·radius phantom zero keys after it, as the reference computes it:
     :func:`~tpu_flash_torch.quant.flash_q.phantom_rows`), block
