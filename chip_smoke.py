@@ -960,9 +960,9 @@ def serve_multistep_phase(dev, smi: str, engine_decode_ms: float) -> dict:
 # (where the reference's transposed kernels B10a/B10b fold into B4/B5),
 # dense float32 and G 4 (B5 walks four q heads of a group through one CTA's
 # ring); the sliding training shape (local_causal, radius 512); the local,
-# local_causal, circulant and block-diagonal kinds in each family (bf16 64
-# and 128 on the TMA + wgmma kernels, bf16 256 on the WMMA one, float32 on
-# the FMA one) at a ragged n with GQA 16/8; the int8 dp product on dense,
+# local_causal, circulant and block-diagonal kinds in each family (bf16 64,
+# 128 and 256 on the TMA + wgmma kernels, float32 on the FMA one) at a
+# ragged n with GQA 16/8; the int8 dp product on dense,
 # causal and a band at bf16 128 and 256 and at float32; and the shapes that
 # time bf16 d 256 and float32
 BF16, F32 = torch.bfloat16, torch.float32
@@ -1008,6 +1008,27 @@ BWD_TIMED = ("train_4x1024", "d64_causal_1024", "sliding_train_2x2048",
 # shape and at the sliding training shape
 BWD_FAULT_SLAB = 64
 BWD_FAULT_CASES = ("train_4x1024", "sliding_train_2x2048", "wide_train_4x1025")
+# the bf16 rows at widths 256 and 512 whose device kernels are named: they
+# must be flash_bwd_tc.cuh's TMA + wgmma kernels, never flash_bwd.cuh's
+# block kernels (float32 alone now; they once held the bf16 WMMA route)
+BWD_NAMED = {"d256_causal_1024": ("flash_bwd_dq_wide<256", "flash_bwd_dkv_wide<256"),
+             "wide_train_4x1025": ("flash_bwd_dq_wide<512", "flash_bwd_dkv_wide<512")}
+
+
+def bwd_kernel_names(name: str, call) -> list:
+    """The device kernels of one B4/B5 call of BWD_NAMED's row ``name``
+    (profiler), printed; raises unless both of the row's TMA + wgmma
+    kernels ran and no block kernel (flash_bwd_dq_kernel,
+    flash_bwd_dkv_kernel) or WMMA one did."""
+    names = device_kernel_names(call)
+    print(f"B4/B5 {name} device kernels: {names}", flush=True)
+    missing = [k for k in BWD_NAMED[name] if not any(k in n for n in names)]
+    block = [n for n in names if "flash_bwd_dq_kernel" in n
+             or "flash_bwd_dkv_kernel" in n or "wmma" in n.lower()]
+    if missing or block:
+        raise AssertionError(f"B4/B5 {name}: the bf16 call ran {names}; "
+                             f"missing {missing}, block or WMMA kernels {block}")
+    return names
 
 
 def slab_fault(sched, axis: str, start: int, size: int = BWD_FAULT_SLAB):
@@ -1376,6 +1397,9 @@ def flash_bwd_phase(dev):
 
         first = held(quant)
         row.update(bitwise_repeat=True, tol_plain=tol)
+        if name in BWD_NAMED:
+            row["device_kernels"] = [k_[:100] for k_ in bwd_kernel_names(
+                name, lambda: flash_bwd._flash_bwd_kernel(*args, quant))]
 
         if name in BWD_FAULT_CASES:  # the planted faults
             for fault, axis, must in (("kv_slab_left_out", "kv", "qkv"),
@@ -3804,7 +3828,7 @@ def hop_mask(sched, n, dev):
 
 def ring_hop_checks(dev):
     """(a) B1 (bf16 d 64 and 128, float32; B9: d 64 under the norm bound),
-    B4/B5 (bf16 64 and 128 on wgmma, 256 on WMMA, float32 on FMA), B6 (fp8,
+    B4/B5 (bf16 64, 128 and 256 on wgmma, float32 on FMA), B6 (fp8,
     int8; B8: int8 at d 64) and B7 (fp8, int8, weight-only) against their
     plain versions on every hop of RING_HOPS, rows seeing no key o 0 and lse
     −inf; two planted faults in the plain versions (the shift one row off,
@@ -7134,14 +7158,15 @@ def main() -> int:
                              wt["chunk_prefix"]["o_vs_plain"],
                              wt["chunk_prefix"]["lse_vs_plain"]),
              **_timing(wt["chunk_prefix"]), library_ms=None),
-        # B4/B5 at width 512: launches from the wide model's train run;
+        # B4/B5 at width 512 (flash_bwd_tc.cuh's kernels, instantiated in
+        # flash_bwd_wide.cu): launches from the wide model's train run;
         # times at the wide training shape (b 4, 4/2 heads, n 1025 causal,
         # d 512); library: the fastest scaled_dot_product_attention
         # backward that takes d 512, K/V expanded (its backend named in the
         # flash_bwd phase's line); max_abs_err: every backward case and the
         # train run's last-layer call
         *[dict(name=f"flash_bwd_{part} (d 512)", route="cuda",
-               source="tpu_flash_torch/csrc/flash_bwd_wide.cu", replaces=line,
+               source="tpu_flash_torch/csrc/flash_bwd_tc.cuh", replaces=line,
                launches=wtl[f"flash_bwd_{part}"],
                launches_wide_heads_train=wtl[f"flash_bwd_{part}"],
                max_abs_err=max(b45["max_abs_err"],

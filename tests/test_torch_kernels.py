@@ -906,6 +906,64 @@ def test_flash_bwd_kernels_wide_match_plain(gen, case):
             assert _rel(a, hidden) > tol, name
 
 
+# bf16 at widths 256 and 512 (flash_bwd_tc.cuh's TMA + wgmma kernels): GQA 4
+# at d 256 (B5 sums four q heads in one CTA), and at 512 a ragged n off the
+# 32-row step grid with dv 256 under dp (B5's upper half takes no dV)
+_BWD_WIDE_TC = [((1, 32, 8, 1000, 1000, 256, True, torch.bfloat16), None),
+                ((1, 4, 2, 1001, 1001, 512, True, torch.bfloat16, 256), "dp")]
+
+
+@pytest.mark.parametrize("case,quant", _BWD_WIDE_TC,
+                         ids=["d256_gqa4", "d512_dv256_dp_ragged"])
+def test_flash_bwd_kernels_wide_tc_match_plain(gen, case, quant):
+    """B4/B5 on bf16 at widths 256 and 512 vs the plain backward under the
+    same quant, as :func:`test_flash_bwd_kernels_match_plain`: 1e-2 of the
+    largest grad, two calls bitwise equal, each counter moving by one a
+    call."""
+    args = _bwd_args(gen, *case)
+    before = dict(kernels.LAUNCHES)
+    got = tflash_bwd._flash_bwd_kernel(*args, quant)
+    again = tflash_bwd._flash_bwd_kernel(*args, quant)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["flash_bwd_dq"] == before["flash_bwd_dq"] + 2
+    assert kernels.LAUNCHES["flash_bwd_dkv"] == before["flash_bwd_dkv"] + 2
+    want = tflash_bwd._flash_bwd_plain(*args, quant)
+    for name, a, a2, w in zip("qkv", got, again, want):
+        assert torch.equal(a, a2), f"d{name} differs between two calls"
+        assert a.dtype == w.dtype and a.shape == w.shape
+        assert torch.isfinite(a).all()
+        assert _rel(a, w) <= 1e-2, (name, _rel(a, w))
+
+
+def _device_kernels(fn):
+    """Names of the device kernels one ``fn()`` launches (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {e.key for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA}
+
+
+@pytest.mark.parametrize("d", [256, 512])
+def test_flash_bwd_wide_bf16_runs_tma_kernels(gen, d):
+    """bf16 B4/B5 at widths 256 and 512 launch flash_bwd_tc.cuh's TMA +
+    wgmma kernels (flash_bwd_dq_wide, flash_bwd_dkv_wide), by their device
+    names under torch.profiler, and neither of flash_bwd.cuh's block kernels
+    (flash_bwd_dq_kernel, flash_bwd_dkv_kernel: float32 alone now, and
+    before them the bf16 WMMA route)."""
+    args = _bwd_args(gen, 1, 4, 2, 300, 300, d, True, torch.bfloat16)
+    names = _device_kernels(lambda: tflash_bwd._flash_bwd_kernel(*args))
+    assert any("flash_bwd_dq_wide" in n for n in names), names
+    assert any("flash_bwd_dkv_wide" in n for n in names), names
+    assert not any("flash_bwd_dq_kernel" in n or "flash_bwd_dkv_kernel" in n
+                   or "wmma" in n.lower() for n in names), names
+
+
 @pytest.mark.parametrize("case", [_BWD_CASES[1], _BWD_CASES[4]],
                          ids=["ragged_bf16", "dense_f32"])
 def test_flash_grads_match_oracle(gen, case):
@@ -1390,8 +1448,8 @@ def test_circulant_and_block_public_calls_match_oracle(gen):
 
 # B4/B5's band, circulant and block-diagonal kinds: (schedule, radius or
 # section) at a ragged n 300 (1000 for the wider band) with GQA 4/2, in each
-# family: (width, dtype) = bf16 64 and 128 (TMA + wgmma), bf16 256 (WMMA),
-# float32 (FMA); dp where it applies (widths 128 and 256)
+# family: (width, dtype) = bf16 64, 128 and 256 (TMA + wgmma), float32
+# (FMA); dp where it applies (widths 128 and 256)
 _BWD_KINDS = [("local", 40), ("local_causal", 40), ("circulant", 20),
               ("block", 64), ("local_causal", 512)]
 _BWD_FAMILIES = [(64, torch.bfloat16), (128, torch.bfloat16),
@@ -1550,8 +1608,8 @@ def test_flash_kernel_shifted_matches_plain(gen, hop, d, dtype, bound, n):
                          ids=[f"{w}_{str(t)[6:]}" for w, t in _BWD_FAMILIES])
 @pytest.mark.parametrize("hop", _SHIFTED, ids=[h[0] for h in _SHIFTED])
 def test_flash_bwd_kernels_shifted_match_plain(gen, hop, family):
-    """B4/B5 on the shifted kinds in each family (bf16 64/128 wgmma, 256
-    WMMA, float32 FMA) with an lse cotangent, GQA 4/2 at a ragged shard of
+    """B4/B5 on the shifted kinds in each family (bf16 64/128/256 wgmma,
+    float32 FMA) with an lse cotangent, GQA 4/2 at a ragged shard of
     1000, vs the plain backward: bf16 1e-2, float32 1e-4 of the largest
     grad; two calls bitwise equal."""
     d, dtype = family

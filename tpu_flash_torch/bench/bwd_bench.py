@@ -4,9 +4,10 @@ wrapper call (a CUDA graph of 20 calls, ``harness.device_ms``) of each.
     python -m tpu_flash_torch.bench.bwd_bench
 
 Shapes (``chip_smoke.py``'s): the training shape (b 4, 16 q / 8 kv heads,
-n 1024 causal, d 128), d 64 at b 1, and the sliding training shape (b 2,
-n 2048, local_causal radius 512, d 128), bf16, on prepared operands
-(``_kernel_operands``). It calls only what every checkout of the port has
+n 1024 causal, d 128), d 64 at b 1, the sliding training shape (b 2,
+n 2048, local_causal radius 512, d 128), d 256 at b 1 (16/8 heads, n 1024
+causal) and the wide training shape (b 4, 4 q / 2 kv heads, n 1025 causal,
+d 512), bf16, on prepared operands (``_kernel_operands``). It calls only what every checkout of the port has
 had since B4/B5 came in (a schedule the checkout's kernels refuse prints
 its error in place of the times), so the same script times an older
 checkout on ``PYTHONPATH`` beside this one: run it as a file path from
@@ -23,7 +24,9 @@ import torch
 # (name, batch, hq, hkv, n, d, schedule, radius)
 CASES = [("train_4x1024", 4, 16, 8, 1024, 128, "causal", 0),
          ("d64_causal_1024", 1, 16, 8, 1024, 64, "causal", 0),
-         ("sliding_train_2x2048", 2, 16, 8, 2048, 128, "local_causal", 512)]
+         ("sliding_train_2x2048", 2, 16, 8, 2048, 128, "local_causal", 512),
+         ("d256_causal_1024", 1, 16, 8, 1024, 256, "causal", 0),
+         ("wide_train_4x1025", 4, 4, 2, 1025, 512, "causal", 0)]
 
 
 def main() -> dict:

@@ -31,10 +31,10 @@
 // quantizes once outside the kernels: V̂ per (kv row, channel) with σv, dÔ
 // per q row from dO·σv with σdo, Δ divided by σdo, and qs = q·σdo in q's
 // dtype. Then dP_raw = dÔ·V̂ᵀ is an exact int8 product with int32 sums (the
-// s8 wgmma, the s8 WMMA, or __dp4a); ds_raw = p∘(dP_raw − Δ/σdo); B4 scales
+// s8 wgmma, or __dp4a in float32); ds_raw = p∘(dP_raw − Δ/σdo); B4 scales
 // its dq rows by σdo·ln2 in the epilogue, B5 takes dK += ds_rawᵀ·qs and
-// keeps the exact dO for dV = Pᵀ·dO. Only where it applies: widths 128 and
-// 256 (the reference ignores it at d, dv <= 64).
+// keeps the exact dO for dV = Pᵀ·dO. Only where it applies: widths 128, 256
+// and 512 (the reference ignores it at d, dv <= 64).
 //
 // What bounds them on an H100: tensor-core FLOPs. At the training shape
 // (b 4, 16 q / 8 kv heads, n 1024 causal, d 128) B4 runs 3 products and
@@ -84,40 +84,68 @@
 //   one stage fits beside the resident tiles in half an SM, so B5 under dp
 //   runs a one-stage ring and leans on its second CTA for overlap.
 //
-// bf16 at widths 256 and 512 (dK + dV alone would need 256 registers a
-// thread at 256) and float32 at every width (no tensor core takes exact
-// float32; the reference's f32 dots are full precision) keep the earlier
-// kernels of flash_bwd.cuh: one block of warps per 64-row (32 at d 256)
-// output tile, looping in the same order, WMMA 16×16×16 (bf16) or FMA loops
-// (float32) with the float32 accumulators and score tiles in shared
-// memory; float32 B5 steps 32 q rows. Under dp their int8 tiles sit in the
-// V (and B4's dO) slots in 16-byte column blocks, dP on the s8 WMMA (bf16)
-// or __dp4a (float32), and B5 loads qs over Q once Sᵀ is taken. Cfg there:
-// 154–227 KB of shared memory.
+// bf16 at widths 256 and 512 (flash_bwd_tc.cuh, flash_bwd_wide.cu for
+// 512), on the same blocks: 227 KB a CTA, one CTA an SM, two consumer
+// warpgroups and a producer warp (setmaxnreg). A consumer's float32 sums
+// cover at most 256 output columns (128 registers a thread). The ring holds
+// items, a 256-column half of an operand tile or a whole int8 tile, in the
+// order the consumers first read them, item j in slot j % NS; an item only
+// the score products read (early) goes back to the producer once they are
+// done, the rest (late) at the end of the step, so the next step's early
+// items load during this step's elementwise pass and gradient products.
+// Where the two consumers both take a step, one takes S (Sᵀ) and the other
+// dP (dPᵀ), each over the full width: the first hands its float32 p to the
+// second through shared memory under a named barrier, the second returns
+// ds as bf16 fragments under another, and each runs the gradient products
+// of its own columns (ds = p∘(dP − Δ) in float32, as the reference casts).
+// - B4: 64 q rows of Q and dO (dÔ) resident; a step's items V's halves or
+//   V̂ (early), then K's halves (late). At 256, kv steps of 64 rows (32 KB
+//   items); the consumers take the steps in turn, each summing all 256 dQ
+//   columns, the two sums added in the drained ring (consumer 1's to
+//   consumer 0's, a fixed order). At 512, kv steps of 32 rows (16 KB
+//   items), both consumers on every step, consumer c summing dQ's columns
+//   [256c, +256): S and dP are computed once, and K and V read once a q
+//   tile.
+// - B5: 64 kv rows of K and V (V̂) resident; q steps of 64 rows at 256
+//   (items Q, dO), 32 at 512. dK + dV of 64 rows × 256 columns would take
+//   256 registers a thread, so at 512 the output's 256-column halves go on
+//   the grid (folded into blockIdx.x beside the bh_kv row, so that the
+//   heaviest causal tiles still launch first), each half's CTA taking the
+//   score products over the full width (its items: the other halves of Q
+//   and dO, early, then its own); both consumers take every step, each
+//   owning 128 of the CTA's 256 dK and dV columns, consumer 0 Sᵀ and
+//   consumer 1 dPᵀ. The recomputation across the halves caps B5 at 512 at
+//   67% of the bound. lse2 and Δ of a step's rows ride with its first late
+//   item (the producer warp's lanes copy them, as at 64 and 128).
+// - dp: B4's resident dO becomes dÔ and V's items one V̂ item; B5's resident
+//   V becomes V̂ and a step's items become Q's halves and dÔ (early), then
+//   this CTA's half of dO (dV) and of qs (dK), late.
+// - Ordering the two consumers' products in turns under named barriers (so
+//   that one's elementwise pass runs under the other's products) measured
+//   no faster (PERF.md §6).
 //
-// Width 512 (flash_bwd_wide.cu, the reference tiles any d): a full-width
-// tile set does not fit in 227 KB (K and V tiles of 32 bf16 rows take 64
-// KB, B5's two float32 accumulators of 32 × 512 another 128 KB), so the
-// output's 256-column halves go on the grid (blockIdx.z), as B1's O halves
-// do: each block recomputes S and dP over the full width from full-width
-// operand tiles and accumulates only its half of dQ, or of dK and dV. B5's
-// upper half takes no dV where the caller's value dim ends at or below
-// 256. Tiles: 32 rows in bf16, 16 (one warp) in float32.
+// float32 at every width (no tensor core takes exact float32; the
+// reference's f32 dots are full precision) runs the FMA kernels of
+// flash_bwd.cuh: one block of warps per 64-row (32 at d 256, 16 at 512)
+// output tile, looping in the same order, with the accumulators and score
+// tiles in shared memory; B5 steps 32 q rows (16 at 512). Under dp their
+// int8 tiles sit in the V (and B4's dO) slots in 16-byte column blocks, dP
+// on __dp4a, and B5 loads qs over Q once Sᵀ is taken. At 512 the output's
+// halves go on the grid (blockIdx.z), each recomputing S and dP; B5's
+// upper half takes no dV where the caller's value dim ends at or below 256.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "flash_bwd.cuh"
+#include "flash_bwd_tc.cuh"
 #include "hopper.cuh"
 #include "schedule.cuh"
 
 namespace {
 
 // ------------------------------------------------------- bf16: TMA + wgmma
-
-constexpr int SMEM_LIMIT = 232448;  // the 227 KB a block may use
-constexpr int SM_SMEM = 233472;     // shared memory of an SM (228 KB)
 
 // Consumer warpgroups a CTA at compiled width HD. A CTA owns 64 output
 // rows (B4's q rows, B5's kv rows); its consumers share them and take the
@@ -134,7 +162,9 @@ template <int NC, int RESIDENT, int STAGE>
 struct Plan {
   static constexpr int MINB = NC == 1 ? 2 : 1;
   static constexpr int BUDGET = MINB == 2 ? SM_SMEM / 2 - 1024 : SMEM_LIMIT;
-  static constexpr int bytes(int st) { return 1024 + RESIDENT + st * STAGE + (2 * st + 1) * 8; }
+  static constexpr int bytes(int st) {
+    return 1024 + RESIDENT + st * STAGE + ((NC + 1) * st + 1) * 8;
+  }
   static constexpr int ST = bytes(3) <= BUDGET ? 3 : bytes(2) <= BUDGET ? 2 : 1;
   static constexpr int SMEM = bytes(ST);
   static_assert(SMEM <= BUDGET, "above the shared memory a block may use");
@@ -146,7 +176,7 @@ struct Plan {
 // a V (V̂) tile.
 template <int HD, int NC, bool DP> struct DqCfg {
   static_assert(NC == 1 || NC == 2, "partial sums meet pairwise");
-  static_assert(!DP || (NC == 1 && HD == 128), "dp runs at width 128");
+  static_assert(!DP || (NC == 1 && HD == 128), "dp at 64 is refused, at 256 and 512 wide");
   static constexpr int BQ = 64, BKV = 64;
   static constexpr int QBYTES = BQ * HD * 2;
   static constexpr int DOBYTES = BQ * HD * (DP ? 1 : 2);
@@ -165,7 +195,7 @@ template <int HD, int NC, bool DP> struct DqCfg {
 // rows (2·BQ floats in a 1024-byte slot).
 template <int HD, int NC, bool DP> struct DkvCfg {
   static_assert(NC == 1 || NC == 2, "partial sums meet pairwise");
-  static_assert(!DP || (NC == 1 && HD == 128), "dp runs at width 128");
+  static_assert(!DP || (NC == 1 && HD == 128), "dp at 64 is refused, at 256 and 512 wide");
   static constexpr int BKV = 64, BQ = 64;
   static constexpr int KBYTES = BKV * HD * 2;
   static constexpr int VBYTES = BKV * HD * (DP ? 1 : 2);
@@ -182,130 +212,6 @@ template <int HD, int NC, bool DP> struct DkvCfg {
   static constexpr int PRODUCER = 24, CONSUMER = NC == 1 ? 232 : 240;
 };
 
-template <int N> __device__ __forceinline__ void reg_alloc() {
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(N));
-}
-template <int N> __device__ __forceinline__ void reg_dealloc() {
-  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(N));
-}
-
-__device__ __forceinline__ uint8_t* align1024(unsigned char* p) {
-  return reinterpret_cast<uint8_t*>((reinterpret_cast<uintptr_t>(p) + 1023) & ~(uintptr_t)1023);
-}
-
-// acc (64 × N) = A · Bᵀ over HD: A a 64-row tile, B an N-row tile, both
-// K-major in 64-column swizzled panels (panel p of a ROWS-row tile at
-// p·ROWS·128 bytes)
-template <int N, int HD>
-__device__ __forceinline__ void ss_gemm(float (&acc)[N / 2], uint32_t a_addr, uint32_t b_addr) {
-#pragma unroll
-  for (int kk = 0; kk < HD / 16; ++kk) {
-    const int colb = 32 * kk;
-    wgmma_bf16_bf16<N>(acc, desc<128>(a_addr + (colb / 128) * 64 * 128 + colb % 128),
-                       desc<128>(b_addr + (colb / 128) * N * 128 + colb % 128), kk);
-  }
-}
-
-// the same on int8 tiles of HD columns (128-column panels), s32 sums
-template <int N, int HD>
-__device__ __forceinline__ void ss_gemm_s8(int (&acc)[N / 2], uint32_t a_addr, uint32_t b_addr) {
-#pragma unroll
-  for (int kk = 0; kk < HD / 32; ++kk) {
-    const int colb = 32 * kk;
-    wgmma_s8_s8<N>(acc, desc<128>(a_addr + (colb / 128) * 64 * 128 + colb % 128),
-                   desc<128>(b_addr + (colb / 128) * N * 128 + colb % 128), kk);
-  }
-}
-
-// acc (64 × HD) += A · B: A (64 × K) as bf16 register fragments, B the
-// K-row tile at b_addr read MN-major (its rows run along K)
-template <int K, int HD>
-__device__ __forceinline__ void rs_gemm(float (&acc)[HD / 2], const uint32_t (&a)[K / 16][4],
-                                        uint32_t b_addr) {
-#pragma unroll
-  for (int kk = 0; kk < K / 16; ++kk)
-    wgmma_rs_bf16<HD, 1>(acc, a[kk], desc_mn(b_addr + kk * 16 * 128, K * 128));
-}
-
-// a (64 × N) accumulator as the bf16 A fragments of a k16 step each: the
-// accumulator's column pairs are the fragment's, so packing is in place
-template <int N>
-__device__ __forceinline__ void to_frags(const float (&x)[N / 2], uint32_t (&a)[N / 16][4]) {
-#pragma unroll
-  for (int kk = 0; kk < N / 16; ++kk)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) a[kk][e] = pack_bf16(x[8 * kk + 2 * e], x[8 * kk + 2 * e + 1]);
-}
-
-// S and dP of one step: S = A·Bᵀ in bf16, dP = C·Dᵀ in bf16 or, under dp,
-// on the int8 tiles (s32 sums, converted); one commit group
-template <int N, int HD, bool DP>
-__device__ __forceinline__ void score_products(float (&sc)[N / 2], float (&dp)[N / 2],
-                                               uint32_t a, uint32_t b, uint32_t c,
-                                               uint32_t d) {
-  if constexpr (DP) {
-    int dpi[N / 2];
-    wgmma_fence();
-    ss_gemm<N, HD>(sc, a, b);
-    ss_gemm_s8<N, HD>(dpi, c, d);
-    wgmma_commit();
-    wgmma_wait0();
-    reg_fence(sc);
-    reg_fence(dpi);
-#pragma unroll
-    for (int e = 0; e < N / 2; ++e) dp[e] = (float)dpi[e];
-  } else {
-    wgmma_fence();
-    ss_gemm<N, HD>(sc, a, b);
-    ss_gemm<N, HD>(dp, c, d);
-    wgmma_commit();
-    wgmma_wait0();
-    reg_fence(sc);
-    reg_fence(dp);
-  }
-}
-
-// Two consumers' partial sums meet in the drained ring: consumer 1 puts
-// its accumulators into shared memory, consumer 0 adds them to its own.
-__device__ __forceinline__ void consumers_sync() {
-  asm volatile("bar.sync 1, 256;" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void put_part(const float (&a)[N], float* at) {
-#pragma unroll
-  for (int e = 0; e < N; ++e) at[e * 128] = a[e];
-}
-template <int N>
-__device__ __forceinline__ void add_part(float (&a)[N], const float* at) {
-#pragma unroll
-  for (int e = 0; e < N; ++e) a[e] += at[e * 128];
-}
-
-// rows ra, rb of a 64 × HD accumulator, times their scales, into bf16 rows
-// of out
-template <int HD>
-__device__ __forceinline__ void store_rows(bf16* out, const float (&acc)[HD / 2], int t4,
-                                           long row_a, long row_b, float scale_a,
-                                           float scale_b) {
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const long row = half ? row_b : row_a;
-    const float scale = half ? scale_b : scale_a;
-    if (row < 0) continue;
-#pragma unroll
-    for (int j = 0; j < HD / 8; ++j)
-      *reinterpret_cast<__nv_bfloat162*>(out + row * HD + 8 * j + 2 * t4) =
-          __floats2bfloat162_rn(acc[4 * j + 2 * half] * scale, acc[4 * j + 2 * half + 1] * scale);
-  }
-}
-
-// The tensor maps of both kernels: q, dO and qs over (bh, n_q, HD) bf16,
-// k and v over (bh_kv, n_kv, HD), and under dp dÔ over (bh, n_q) and v (V̂)
-// over (bh_kv, n_kv) rows of HD int8.
-struct Maps {
-  CUtensorMap q, dout, k, v, qs, do8;
-};
-
 // B4: dQ of one (64-row q tile, bh row).
 template <int HD, int NC, bool DP>
 __global__ void __launch_bounds__(128 * (NC + 1), DqCfg<HD, NC, DP>::P::MINB)
@@ -319,8 +225,8 @@ __global__ void __launch_bounds__(128 * (NC + 1), DqCfg<HD, NC, DP>::P::MINB)
   uint8_t* dos = smem + C::QBYTES;         // the same rows of dO (dÔ)
   uint8_t* stages = dos + C::DOBYTES;      // ST × (K, V)
   uint64_t* q_bar = reinterpret_cast<uint64_t*>(stages + ST * STAGE);
-  uint64_t* full_bar = q_bar + 1;
-  uint64_t* empty_bar = full_bar + ST;
+  uint64_t* full_bar = q_bar + 1;          // NC × ST: each consumer's own
+  uint64_t* empty_bar = full_bar + NC * ST;
 
   const Sched s = sched_of(p);
   const int n_tiles = (s.n_q + BQ - 1) / BQ;
@@ -335,10 +241,8 @@ __global__ void __launch_bounds__(128 * (NC + 1), DqCfg<HD, NC, DP>::P::MINB)
 
   if (threadIdx.x == 0) {
     mbar_init(q_bar, 1);
-    for (int i = 0; i < ST; ++i) {
-      mbar_init(&full_bar[i], 1);
-      mbar_init(&empty_bar[i], 4);  // lane 0 of the step's consumer's warps
-    }
+    for (int i = 0; i < NC * ST; ++i) mbar_init(&full_bar[i], 1);
+    for (int i = 0; i < ST; ++i) mbar_init(&empty_bar[i], 4);  // the step's consumer's warps
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   __syncthreads();
@@ -363,12 +267,12 @@ __global__ void __launch_bounds__(128 * (NC + 1), DqCfg<HD, NC, DP>::P::MINB)
         const int k0 = (first + t) * BKV;
         mbar_wait(&empty_bar[i], ph ^ 1);
         uint8_t* st = stages + i * STAGE;
-        mbar_expect_tx(&full_bar[i], STAGE);
+        uint64_t* full = &full_bar[(t % NC) * ST + i];
+        mbar_expect_tx(full, STAGE);
         for (int pn = 0; pn < PANELS; ++pn)
-          tma_load_3d(st + pn * BKV * 128, &m.k, pn * 128, k0, kv_row, &full_bar[i]);
+          tma_load_3d(st + pn * BKV * 128, &m.k, pn * 128, k0, kv_row, full);
         for (int pn = 0; pn < C::VTILE / (BKV * 128); ++pn)
-          tma_load_3d(st + C::KTILE + pn * BKV * 128, &m.v, pn * 128, k0, kv_row,
-                      &full_bar[i]);
+          tma_load_3d(st + C::KTILE + pn * BKV * 128, &m.v, pn * 128, k0, kv_row, full);
       }
     }
   } else {
@@ -390,12 +294,13 @@ __global__ void __launch_bounds__(128 * (NC + 1), DqCfg<HD, NC, DP>::P::MINB)
     const uint32_t q_addr = smem_u32(qs), do_addr = smem_u32(dos);
     mbar_wait(q_bar, 0);
 
+    uint32_t phases = 0;  // bit i: the parity of this consumer's next wait on stage i
     for (int t = wg; t < steps; t += NC) {
-      const int i = t % ST, ph = (t / ST) & 1;
+      const int i = t % ST;
       const int k0 = (first + t) * BKV;
       uint8_t* st = stages + i * STAGE;
       const uint32_t k_addr = smem_u32(st), v_addr = smem_u32(st + C::KTILE);
-      mbar_wait(&full_bar[i], ph);
+      wait_own(&full_bar[wg * ST + i], phases, i);
       // S = Q·Kᵀ and dP = dO·Vᵀ (dÔ·V̂ᵀ), operands in shared memory
       float sc[BKV / 2], dp[BKV / 2];
       score_products<BKV, HD, DP>(sc, dp, q_addr, k_addr, do_addr, v_addr);
@@ -437,7 +342,7 @@ __global__ void __launch_bounds__(128 * (NC + 1), DqCfg<HD, NC, DP>::P::MINB)
     // dp: the rows carry σdo (ds = σdo·ds_raw), one multiply here
     const float sc_a = DP && qa < s.n_q ? p.sdo[base + qa] * LN2 : LN2;
     const float sc_b = DP && qb < s.n_q ? p.sdo[base + qb] * LN2 : LN2;
-    store_rows<HD>(static_cast<bf16*>(p.dq), dq, t4, qa < s.n_q ? (long)(base + qa) : -1,
+    store_rows<HD>(static_cast<bf16*>(p.dq), HD, dq, t4, qa < s.n_q ? (long)(base + qa) : -1,
                    qb < s.n_q ? (long)(base + qb) : -1, sc_a, sc_b);
   }
 }
@@ -455,8 +360,8 @@ __global__ void __launch_bounds__(128 * (NC + 1), DkvCfg<HD, NC, DP>::P::MINB)
   uint8_t* vs = smem + C::KBYTES;          // the same rows of V (V̂)
   uint8_t* stages = vs + C::VBYTES;        // ST × (Q, dO[, qs, dÔ], lse2 and Δ)
   uint64_t* kv_bar = reinterpret_cast<uint64_t*>(stages + ST * C::STAGE);
-  uint64_t* full_bar = kv_bar + 1;
-  uint64_t* empty_bar = full_bar + ST;
+  uint64_t* full_bar = kv_bar + 1;         // NC × ST: each consumer's own
+  uint64_t* empty_bar = full_bar + NC * ST;
 
   const Sched s = sched_of(p);
   const int kv_row = blockIdx.x;
@@ -472,10 +377,10 @@ __global__ void __launch_bounds__(128 * (NC + 1), DkvCfg<HD, NC, DP>::P::MINB)
 
   if (threadIdx.x == 0) {
     mbar_init(kv_bar, 1);
-    for (int i = 0; i < ST; ++i) {
-      mbar_init(&full_bar[i], 1 + 32);   // TMA's bytes and the producer warp's lanes
-      mbar_init(&empty_bar[i], 4);       // lane 0 of the step's consumer's warps
-    }
+    // full: TMA's bytes and the producer warp's lanes; empty: lane 0 of the
+    // step's consumer's warps
+    for (int i = 0; i < NC * ST; ++i) mbar_init(&full_bar[i], 1 + 32);
+    for (int i = 0; i < ST; ++i) mbar_init(&empty_bar[i], 4);
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   __syncthreads();
@@ -497,20 +402,19 @@ __global__ void __launch_bounds__(128 * (NC + 1), DkvCfg<HD, NC, DP>::P::MINB)
         const int i = t % ST, ph = (t / ST) & 1;
         const int bq = q_row0 + t / per_head, q0 = (first + t % per_head) * BQ;
         uint8_t* st = stages + i * C::STAGE;
+        uint64_t* full = &full_bar[(t % NC) * ST + i];
         mbar_wait(&empty_bar[i], ph ^ 1);
         if (lane == 0) {
-          mbar_expect_tx(&full_bar[i], C::TX);
+          mbar_expect_tx(full, C::TX);
           for (int pn = 0; pn < PANELS; ++pn) {
-            tma_load_3d(st + pn * BQ * 128, &m.q, pn * 128, q0, bq, &full_bar[i]);
-            tma_load_3d(st + C::TILE + pn * BQ * 128, &m.dout, pn * 128, q0, bq, &full_bar[i]);
+            tma_load_3d(st + pn * BQ * 128, &m.q, pn * 128, q0, bq, full);
+            tma_load_3d(st + C::TILE + pn * BQ * 128, &m.dout, pn * 128, q0, bq, full);
             if constexpr (DP)
-              tma_load_3d(st + C::QS_OFF + pn * BQ * 128, &m.qs, pn * 128, q0, bq,
-                          &full_bar[i]);
+              tma_load_3d(st + C::QS_OFF + pn * BQ * 128, &m.qs, pn * 128, q0, bq, full);
           }
           if constexpr (DP)
             for (int pn = 0; pn < HD / 128; ++pn)
-              tma_load_3d(st + C::DO8_OFF + pn * BQ * 128, &m.do8, pn * 128, q0, bq,
-                          &full_bar[i]);
+              tma_load_3d(st + C::DO8_OFF + pn * BQ * 128, &m.do8, pn * 128, q0, bq, full);
         }
         float* rows = reinterpret_cast<float*>(st + C::TX);
         const size_t base = (size_t)bq * s.n_q + q0;
@@ -519,7 +423,7 @@ __global__ void __launch_bounds__(128 * (NC + 1), DkvCfg<HD, NC, DP>::P::MINB)
           rows[r] = in ? p.lse2[base + r] : 0.0f;
           rows[BQ + r] = in ? p.delta[base + r] : 0.0f;
         }
-        mbar_arrive(&full_bar[i]);
+        mbar_arrive(full);
       }
     }
   } else {
@@ -539,11 +443,12 @@ __global__ void __launch_bounds__(128 * (NC + 1), DkvCfg<HD, NC, DP>::P::MINB)
     const uint32_t k_addr = smem_u32(ks), v_addr = smem_u32(vs);
     mbar_wait(kv_bar, 0);
 
+    uint32_t phases = 0;  // bit i: the parity of this consumer's next wait on stage i
     for (int t = wg; t < steps; t += NC) {
-      const int i = t % ST, ph = (t / ST) & 1;
+      const int i = t % ST;
       const int q0 = (first + t % per_head) * BQ;
       uint8_t* st = stages + i * C::STAGE;
-      mbar_wait(&full_bar[i], ph);
+      wait_own(&full_bar[wg * ST + i], phases, i);
       const uint32_t q_addr = smem_u32(st), do_addr = smem_u32(st + C::TILE);
       const float* rows = reinterpret_cast<const float*>(st + C::TX);
       // Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ (V̂·dÔᵀ), operands in shared memory
@@ -603,45 +508,9 @@ __global__ void __launch_bounds__(128 * (NC + 1), DkvCfg<HD, NC, DP>::P::MINB)
     }
     const long base = (long)kv_row * s.n_kv;
     const long row_a = ka < s.n_kv ? base + ka : -1, row_b = kb < s.n_kv ? base + kb : -1;
-    store_rows<HD>(static_cast<bf16*>(p.dk), dk, t4, row_a, row_b, LN2, LN2);
-    store_rows<HD>(static_cast<bf16*>(p.dv), dv, t4, row_a, row_b, 1.0f, 1.0f);
+    store_rows<HD>(static_cast<bf16*>(p.dk), HD, dk, t4, row_a, row_b, LN2, LN2);
+    store_rows<HD>(static_cast<bf16*>(p.dv), HD, dv, t4, row_a, row_b, 1.0f, 1.0f);
   }
-}
-
-template <typename Kern>
-cudaError_t launch_tc(Kern kern, dim3 grid, int threads, int smem, cudaStream_t stream,
-                      const Maps& m, const BwdParams& p) {
-  if (grid.y > 65535) return cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  kern<<<grid, threads, smem, stream>>>(m, p);
-  return cudaGetLastError();
-}
-
-// the maps of p's operands with 64-row boxes (128-byte panels); a map over
-// an empty sequence or of an operand the variant does not read is never
-// read and takes another's place
-template <int HD>
-bool make_maps(Maps* m, const BwdParams& p, int bh) {
-  const int bh_kv = bh / p.hq * p.hkv;
-  const bool dp = p.v8 != nullptr;
-  bool ok = true;
-  if (p.n_q > 0) {
-    ok = make_map<2 * HD, 64, 128>(&m->q, p.q, p.n_q, bh);
-    m->dout = m->qs = m->do8 = m->q;
-    if (ok && p.dout != nullptr) ok = make_map<2 * HD, 64, 128>(&m->dout, p.dout, p.n_q, bh);
-    if (ok && p.qs != nullptr) ok = make_map<2 * HD, 64, 128>(&m->qs, p.qs, p.n_q, bh);
-    if (ok && dp) ok = make_map<HD, 64, 128>(&m->do8, p.do8, p.n_q, bh);
-  }
-  if (ok && p.n_kv > 0) {
-    ok = make_map<2 * HD, 64, 128>(&m->k, p.k, p.n_kv, bh_kv);
-    if (ok)
-      ok = dp ? make_map<HD, 64, 128>(&m->v, p.v8, p.n_kv, bh_kv)
-              : make_map<2 * HD, 64, 128>(&m->v, p.v, p.n_kv, bh_kv);
-  }
-  if (p.n_q == 0) m->q = m->dout = m->qs = m->do8 = m->k;
-  if (p.n_kv == 0) m->k = m->v = m->q;
-  return ok;
 }
 
 template <int HD, bool DP>
@@ -649,7 +518,7 @@ cudaError_t launch_dq_tc(const BwdParams& p, int bh, cudaStream_t stream) {
   constexpr int NC = CONSUMERS<HD>;
   using C = DqCfg<HD, NC, DP>;
   Maps m;
-  if (!make_maps<HD>(&m, p, bh)) return cudaErrorInvalidValue;
+  if (!make_maps<HD, 64, 64>(&m, p, bh)) return cudaErrorInvalidValue;
   const dim3 grid(bh, (p.n_q + C::BQ - 1) / C::BQ);
   return launch_tc(flash_bwd_dq_tc<HD, NC, DP>, grid, 128 * (NC + 1), C::P::SMEM, stream, m,
                    p);
@@ -660,7 +529,7 @@ cudaError_t launch_dkv_tc(const BwdParams& p, int bh_kv, cudaStream_t stream) {
   constexpr int NC = CONSUMERS<HD>;
   using C = DkvCfg<HD, NC, DP>;
   Maps m;
-  if (!make_maps<HD>(&m, p, bh_kv / p.hkv * p.hq)) return cudaErrorInvalidValue;
+  if (!make_maps<HD, 64, 64>(&m, p, bh_kv / p.hkv * p.hq)) return cudaErrorInvalidValue;
   const dim3 grid(bh_kv, (p.n_kv + C::BKV - 1) / C::BKV);
   return launch_tc(flash_bwd_dkv_tc<HD, NC, DP>, grid, 128 * (NC + 1), C::P::SMEM, stream, m,
                    p);
@@ -671,45 +540,59 @@ bool bad_sched(int hq, int hkv, const Sched& s) {
   return hkv <= 0 || hq % hkv != 0 || !sched_ok(s);
 }
 
-// one entry's dispatch over dtype (0 = float32, 1 = bfloat16), width and dp
-template <template <typename, int, bool> class Gen, template <int, bool> class Tc>
+// one entry's dispatch over dtype (0 = float32, 1 = bfloat16), width (64,
+// 128, 256) and dp: F's fma (float32), tc (bf16 at 64 and 128) and wide
+// (bf16 at 256) launchers
+template <class F>
 cudaError_t dispatch(const BwdParams& p, int rows, int d, int dtype, bool dp,
                      cudaStream_t stream) {
-  if (dtype == 1 && d == 128)
-    return dp ? Tc<128, true>::run(p, rows, stream) : Tc<128, false>::run(p, rows, stream);
   if (dp && d == 64) return cudaErrorInvalidValue;  // the reference ignores dp there
-  if (dtype == 1 && d == 64) return Tc<64, false>::run(p, rows, stream);
-  if (dtype == 1 && d == 256)
-    return dp ? Gen<bf16, 256, true>::run(p, rows, stream)
-              : Gen<bf16, 256, false>::run(p, rows, stream);
-  if (dtype == 0 && d == 256)
-    return dp ? Gen<float, 256, true>::run(p, rows, stream)
-              : Gen<float, 256, false>::run(p, rows, stream);
-  if (dtype == 0 && d == 128)
-    return dp ? Gen<float, 128, true>::run(p, rows, stream)
-              : Gen<float, 128, false>::run(p, rows, stream);
-  if (dtype == 0 && d == 64) return Gen<float, 64, false>::run(p, rows, stream);
+  if (dtype == 1) {
+    if (d == 64) return F::template tc<64, false>(p, rows, stream);
+    if (d == 128)
+      return dp ? F::template tc<128, true>(p, rows, stream)
+                : F::template tc<128, false>(p, rows, stream);
+    if (d == 256)
+      return dp ? F::template wide<256, true>(p, rows, stream)
+                : F::template wide<256, false>(p, rows, stream);
+  } else if (dtype == 0) {
+    if (d == 64) return F::template fma<64, false>(p, rows, stream);
+    if (d == 128)
+      return dp ? F::template fma<128, true>(p, rows, stream)
+                : F::template fma<128, false>(p, rows, stream);
+    if (d == 256)
+      return dp ? F::template fma<256, true>(p, rows, stream)
+                : F::template fma<256, false>(p, rows, stream);
+  }
   return cudaErrorInvalidValue;
 }
 
-template <typename T, int HD, bool DP> struct DqGen {
-  static cudaError_t run(const BwdParams& p, int bh, cudaStream_t s) {
-    return launch_dq<T, HD, DP>(p, bh, s);
+struct Dq {
+  template <int HD, bool DP>
+  static cudaError_t fma(const BwdParams& p, int bh, cudaStream_t s) {
+    return launch_dq<HD, DP>(p, bh, s);
   }
-};
-template <int HD, bool DP> struct DqTc {
-  static cudaError_t run(const BwdParams& p, int bh, cudaStream_t s) {
+  template <int HD, bool DP>
+  static cudaError_t tc(const BwdParams& p, int bh, cudaStream_t s) {
     return launch_dq_tc<HD, DP>(p, bh, s);
   }
-};
-template <typename T, int HD, bool DP> struct DkvGen {
-  static cudaError_t run(const BwdParams& p, int bh_kv, cudaStream_t s) {
-    return launch_dkv<T, HD, DP>(p, bh_kv, s);
+  template <int HD, bool DP>
+  static cudaError_t wide(const BwdParams& p, int bh, cudaStream_t s) {
+    return launch_dq_wide<HD, DP>(p, bh, s);
   }
 };
-template <int HD, bool DP> struct DkvTc {
-  static cudaError_t run(const BwdParams& p, int bh_kv, cudaStream_t s) {
+struct Dkv {
+  template <int HD, bool DP>
+  static cudaError_t fma(const BwdParams& p, int bh_kv, cudaStream_t s) {
+    return launch_dkv<HD, DP>(p, bh_kv, s);
+  }
+  template <int HD, bool DP>
+  static cudaError_t tc(const BwdParams& p, int bh_kv, cudaStream_t s) {
     return launch_dkv_tc<HD, DP>(p, bh_kv, s);
+  }
+  template <int HD, bool DP>
+  static cudaError_t wide(const BwdParams& p, int bh_kv, cudaStream_t s) {
+    return launch_dkv_wide<HD, DP>(p, bh_kv, s);
   }
 };
 
@@ -725,8 +608,8 @@ template <int HD, bool DP> struct DkvTc {
 // circulant k/v are the halo-extended ones).
 // dp: v8 (V̂, like v, int8), do8 (dÔ, like dout, int8) and sdo (σdo, like
 // lse2) non-null, delta divided by σdo; v and dout are then not read; not
-// at d 64. bf16 at 64 and 128 takes the TMA + wgmma kernel, the rest the
-// WMMA/FMA one (width 512 in flash_bwd_wide.cu).
+// at d 64. bf16 takes a TMA + wgmma kernel (widths 256 and 512 those of
+// flash_bwd_tc.cuh), float32 the FMA one (width 512 in flash_bwd_wide.cu).
 extern "C" cudaError_t tf_flash_bwd_dq(const void* q, const void* k, const void* v,
                                        const void* dout, const float* lse2,
                                        const float* delta, void* dq, const void* v8,
@@ -744,7 +627,7 @@ extern "C" cudaError_t tf_flash_bwd_dq(const void* q, const void* k, const void*
                     sdo,  lse2,  delta, dq, nullptr, nullptr, n_q, n_kv, kind,
                     offset, radius, section, hq, hkv, d};
   if (d == 512) return tf_bwd::launch_wide_dq(p, bh, dtype, dp, stream);
-  return dispatch<DqGen, DqTc>(p, bh, d, dtype, dp, stream);
+  return dispatch<Dq>(p, bh, d, dtype, dp, stream);
 }
 
 // The same operands; dk, dv: like k, v; bh_kv = batch · hkv; dv_cols: the
@@ -768,5 +651,5 @@ extern "C" cudaError_t tf_flash_bwd_dkv(const void* q, const void* k, const void
                     nullptr, lse2, delta, nullptr, dk, dv,  n_q, n_kv, kind,
                     offset,  radius, section, hq, hkv, dv_cols};
   if (d == 512) return tf_bwd::launch_wide_dkv(p, bh_kv, dtype, dp, stream);
-  return dispatch<DkvGen, DkvTc>(p, bh_kv, d, dtype, dp, stream);
+  return dispatch<Dkv>(p, bh_kv, d, dtype, dp, stream);
 }
