@@ -1787,6 +1787,57 @@ QUANT_VARIANTS = [
 ]
 
 
+# B6/B7's device kernel: csrc/quant_attention.cu's persistent kernel covers
+# every instantiation (pv_quant and width 512 included; B6 runs its Q
+# staging pass, quant_stage_q, before it); the one-CTA-a-tile kernel it
+# replaced was quant_attention_kernel
+QUANT_NAMED = "quant_attention_persistent"
+QUANT_REPLACED = "quant_attention_kernel"
+# quant_bands' timed rows → bench/quant_bench.py:NAME_ROWS
+QB_NAMED = {"sliding_causal_fp8": "a_local_causal_fp8",
+            "sliding_causal_int8": "a_local_causal_int8",
+            "sliding_w257_fp8": "b_local_r128_fp8",
+            "circulant_int8_weight_only": "c_circulant_weight_only",
+            "circulant_int8": "c_circulant_int8",
+            "block512_fp8": "d_block512_fp8",
+            "serving_local_causal_fp8_gqa": "e_serving_local_causal_fp8",
+            "serving_local_causal_int8_pv_quant":
+                "e_serving_local_causal_int8_pv_quant"}
+_QUANT_NAMES: dict = {}
+
+
+def quant_kernel_names() -> dict:
+    """The device kernels (profiler) of one call of each timed B6/B7 row's
+    instantiation (bench/quant_bench.py --names: the headline's three,
+    rows a–e, d 512 and B8's shape, at a small shape), taken in a process
+    of its own (in this one, after the phases before, the card's traces
+    have come back empty for them; a row with no trace is taken again),
+    printed; raises unless every row ran the persistent kernel and none
+    the replaced one. Taken once a run."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    for _ in range(3):  # a row whose traces all came back empty: again
+        if _QUANT_NAMES and all(_QUANT_NAMES.values()):
+            break
+        out = subprocess.run(
+            [sys.executable, "-m", "tpu_flash_torch.bench.quant_bench",
+             "--names"], cwd=root, capture_output=True, text=True,
+            timeout=600, env=dict(os.environ, PYTHONPATH=root))
+        if out.returncode != 0:
+            raise AssertionError(f"quant_bench --names failed: {out.stderr}")
+        got = json.loads(out.stdout.strip().splitlines()[-1])
+        _QUANT_NAMES.update({row: names for row, names in got.items()
+                             if names or not _QUANT_NAMES.get(row)})
+    for row, names in _QUANT_NAMES.items():
+        print(f"B6/B7 {row} device kernels: {names}", flush=True)
+        if not any(QUANT_NAMED in n for n in names) or any(
+                QUANT_REPLACED in n for n in names):
+            raise AssertionError(f"B6/B7 {row}: the call ran {names}, not "
+                                 f"{QUANT_NAMED} alone")
+    return {row: [short_kernel_name(n)[:80] for n in names
+                  if "quant_attention" in n or "quant_stage_q" in n]
+            for row, names in _QUANT_NAMES.items()}
+
+
 def staged_bytes(t: torch.Tensor) -> torch.Tensor:
     """A staged Q operand as raw integers (e4m3 and int8 bytes, bf16
     words), for an exact comparison."""
@@ -1806,6 +1857,7 @@ def quant_attention_phase(dev):
     from tpu_flash_torch.quant import flash_q as tfq
     from tpu_flash_torch.quant import serving_attn as tsa
 
+    named = quant_kernel_names()
     b, h, n, d = QUANT_SHAPE
     q, k, v = headline.make_inputs(b, h, n, d, dev)
     kernels.reset_launches()
@@ -1842,6 +1894,7 @@ def quant_attention_phase(dev):
         if faults is not None:
             row["planted_faults"] = faults(ko, kl)
         if time_it:
+            row["device_kernels"] = named["headline_" + name]
             bh, bh_kv = b * h, b * h
             # q and o in bf16, the cache at one byte, the fp32 scales
             nbytes = 2 * 2 * bh * n * d + 2 * bh_kv * n * d + 4 * scale_elems
@@ -1931,6 +1984,7 @@ def quant_attention_phase(dev):
                    lambda: tsa._serving_plain(*args), 0, "bf16", staged=staged,
                    exact_fn=exact_fn)
         if name == "d64_fp8_causal_gqa":  # B8's shape, folded into B6
+            row["device_kernels"] = named["b8_d64_causal_fp8"]
             flops_b8 = 4 * dv_ * hq * visible_pairs(nv, nv, True)
             # q and o in bf16, the cache at one byte, the fp32 scales
             nbytes = (2 * 2 * hq * nv * dv_ + 2 * hkv * nv * dv_ + 4 * sum(
@@ -3108,6 +3162,7 @@ def quant_bands_phase(dev):
                       + 2 * b * hq * n * d + 2 * b * hkv * n_kv * d
                       + 4 * b * hkv * (sk + d + 1))
             qk = "bf16" if q_dt is None else "int8" if q_dt == "int8" else "fp8"
+            row["device_kernels"] = quant_kernel_names()[QB_NAMED[name]]
             row.update(
                 kernel_vs_plain=errs, ms=device_ms(lambda: kernel(False)),
                 call_ms=cuda_ms(lambda: call(q, k, v)),
@@ -6917,7 +6972,7 @@ def _timing(row) -> dict:
 
 PTXAS_SOURCES = ("flash_fwd.cu", "matmul.cu", "flash_bwd.cu",
                  "flash_bwd_wide.cu", "paged_attention.cu",
-                 "paged_attention_wide.cu")
+                 "paged_attention_wide.cu", "quant_attention.cu")
 
 
 def short_kernel_name(mangled: str) -> str:

@@ -17,6 +17,7 @@ import pytest
 import torch
 
 from tpu_flash_torch import kernels
+from tpu_flash_torch.bench import quant_bench
 from tpu_flash_torch.cache.paged_cache import CacheConfig, PagedKVCache
 from tpu_flash_torch.ops import flash as tflash
 from tpu_flash_torch.ops import flash_bwd as tflash_bwd
@@ -1328,6 +1329,139 @@ def test_quant_band_faults_rejected(gen, band, family):
     _assert_quant_close(ko, kl, *plain())
     for fault in faults(family, schedule):
         assert _quant_misses(ko, kl, *plain(fault)), fault
+
+
+# B6/B7's persistent kernel on every kind it walks: (schedule, options),
+# bands wider and narrower than a kv tile, sections several to a tile, a
+# shifted hop inside the shard and a wrapped causal one
+_PERSISTENT_KINDS = [
+    ("dense", {}), ("causal", {}), ("local", dict(radius=200)),
+    ("local_causal", dict(radius=8)), ("circulant", dict(radius=150)),
+    ("block", dict(section=100)), ("shifted", dict(shift=700, radius=200)),
+    ("shifted", dict(shift=900, radius=150, wrap_n=1000,
+                     shifted_causal=True))]
+
+
+@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("mode", _QUANT_BAND_MODES, ids=[
+    f"{m[0] or 'weight_only'}-{m[2]}-{'bound' if m[3] else 'exact'}"
+    for m in _QUANT_BAND_MODES])
+@pytest.mark.parametrize("family", ["serving", "quant"])
+@pytest.mark.parametrize("kind", _PERSISTENT_KINDS, ids=[
+    f"{k[0]}-{i}" for i, k in enumerate(_PERSISTENT_KINDS)])
+def test_persistent_kernel_every_kind_mode_width(gen, kind, family, mode, d):
+    """B6 and B7 on every schedule kind × score mode (int8, e4m3 under the
+    norm bound and the exact max, weight-only) × width 64, 128, 256, at a
+    ragged n (1000) with GQA 4/2, vs their plain versions as
+    :func:`_assert_quant_close`; B6's staged Q bytes equal; two calls equal
+    bit for bit (the work list fixes each tile's sums)."""
+    from tpu_flash_torch.bench.quant_bands import band_case
+
+    schedule, options = kind
+    q_dtype, kv_dtype, kv_scale, bound = mode
+    q, k, v = _quant_inputs(gen, 4, 2, 1000, d)
+    kernel, plain, staged = band_case(
+        family, schedule, q, k, v, q_dtype=q_dtype, kv_dtype=kv_dtype,
+        kv_scale=kv_scale, bound_max=bound, **options)
+    ko, kl = kernel()
+    again = kernel()
+    torch.cuda.synchronize()
+    assert torch.equal(ko, again[0]) and torch.equal(kl, again[1])
+    if staged is not None:
+        assert staged()
+    _assert_quant_close(ko, kl, *plain())
+
+
+@pytest.mark.parametrize("family", ["serving", "quant"])
+@pytest.mark.parametrize("shape", [(17, 1, 1000, 1000), (3, 3, 100, 100),
+                                   (6, 2, 1000, 1300), (2, 1, 129, 129)],
+                         ids=["items_past_the_ctas", "n_q_below_a_tile",
+                              "ragged_cross", "one_row_tile"])
+def test_persistent_kernel_work_counts(gen, shape, family):
+    """The persistent kernel where the work items (b·h × q tiles) are no
+    multiple of the CTAs (17 × 8 = 136 on 132 SMs), n_q under one q tile,
+    a ragged last tile against a longer kv (causal, right-aligned) and a
+    last tile of one row: vs the plain version, e4m3 under the bound and
+    int8 under the exact max."""
+    from tpu_flash_torch.bench.quant_bands import band_case
+
+    hq, hkv, n_q, n_kv = shape
+    q = torch.randn(1, hq, n_q, 128, generator=gen, device="cuda").bfloat16()
+    k, v = (torch.randn(1, hkv, n_kv, 128, generator=gen, device="cuda")
+            .bfloat16() for _ in "kv")
+    for q_dtype, kv_scale, bound in (("float8_e4m3fn", "tensor", True),
+                                     ("int8", "token", False)):
+        kernel, plain, _ = band_case(
+            family, "causal", q, k, v, q_dtype=q_dtype, kv_dtype=q_dtype,
+            kv_scale=kv_scale, bound_max=bound)
+        _assert_quant_close(*kernel(), *plain())
+
+
+@pytest.mark.parametrize("family", ["serving", "quant"])
+def test_persistent_kernel_graph_replay_matches_eager(gen, family):
+    """A CUDA graph of the kernel's calls replays its work list from the
+    device: the replay's o and lse equal the eager calls' before and after
+    it, bit for bit."""
+    from tpu_flash_torch.bench.quant_bands import band_case
+
+    q, k, v = _quant_inputs(gen, 16, 8, 1000, 128)
+    kernel, _, _ = band_case(family, "local_causal", q, k, v,
+                             q_dtype="float8_e4m3fn",
+                             kv_dtype="float8_e4m3fn", radius=200)
+    want = kernel()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = [kernel() for _ in range(3)]
+    graph.replay()
+    graph.replay()
+    after = kernel()
+    torch.cuda.synchronize()
+    for o, lse in captured + [after]:
+        assert torch.equal(o, want[0]) and torch.equal(lse, want[1])
+
+
+@pytest.fixture(scope="module")
+def fresh_quant_names():
+    """bench/quant_bench.py --names in a process of its own: the device
+    kernels of one call of each timed B6/B7 row's instantiation (a long
+    process's traces have come back empty on the card)."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    names = {}
+    for _ in range(3):  # a row whose traces all came back empty: again
+        out = subprocess.run(
+            [sys.executable, "-m", "tpu_flash_torch.bench.quant_bench",
+             "--names"], cwd=root, capture_output=True, text=True,
+            timeout=600, env=dict(os.environ, PYTHONPATH=root))
+        assert out.returncode == 0, out.stderr
+        got = json.loads(out.stdout.strip().splitlines()[-1])
+        names.update({row: n for row, n in got.items()
+                      if n or not names.get(row)})
+        if all(names.values()):
+            break
+    return names
+
+
+@pytest.mark.parametrize("row", [r[0] for r in quant_bench.NAME_ROWS])
+def test_quant_kernels_run_the_persistent_kernel(fresh_quant_names, row):
+    """B6 and B7 launch csrc/quant_attention.cu's persistent kernel
+    (quant_attention_persistent), by its device name under torch.profiler,
+    and never the one-CTA-a-tile kernel it replaced
+    (quant_attention_kernel), on the instantiation of every timed row
+    (the headline's, rows a–e, pv_quant, width 512, B8's shape); B6 runs
+    its staging pass (quant_stage_q) before it."""
+    names = fresh_quant_names[row]
+    assert any("quant_attention_persistent" in n for n in names), names
+    assert not any("quant_attention_kernel" in n for n in names), names
+    family = next(r[1] for r in quant_bench.NAME_ROWS if r[0] == row)
+    assert any("quant_stage_q" in n for n in names) == (family == "serving")
 
 
 # (schedule, radius or section, n, d, bound_max, dtype): the circulant band

@@ -307,3 +307,59 @@ def test_d64_routing(schedule, monkeypatch):
                                   **_KINDS[schedule][0])
     assert ran == (["_quant_plain"] if schedule == "circulant"
                    else ["_serving_plain"])
+
+
+# the persistent kernel's work list (quant/flash_q.py:work_order) on every
+# kind the kernels walk: (schedule, options at n, taken as fractions of n so
+# that one entry serves n 1000 and n 100); the circulant over its halo, a
+# shifted hop inside the shard, a causal one and a wrapped band
+_ORDER_KINDS = [
+    ("dense", {}), ("causal", {}), ("local", dict(radius=0.2)),
+    ("local_causal", dict(radius=0.3)), ("circulant", dict(radius=0.15)),
+    ("block", dict(section=0.1)), ("shifted", dict(shift=0.7, radius=0.2)),
+    ("shifted", dict(shift=-0.3, radius=0.1, shifted_causal=True)),
+    ("shifted", dict(shift=0.9, radius=0.15, wrap_n=1.0))]
+
+
+@pytest.mark.parametrize("bkv", [128, 64, 32])
+@pytest.mark.parametrize("n", [1000, 100])
+@pytest.mark.parametrize("kind", _ORDER_KINDS, ids=[
+    f"{k[0]}-{i}" for i, k in enumerate(_ORDER_KINDS)])
+def test_work_order_covers_every_tile_heaviest_first(kind, n, bkv):
+    """Every (batch·head, 128-row q tile) appears once in the work list;
+    each carries the kv tiles its q tile visits (ops/schedule.py:
+    kv_tile_range, the kernels' kv_range, which the plain version walks
+    too), and those are the hull of the kv tiles that hold a key some row
+    of the tile sees (Schedule.visible), none where no row sees a key; the
+    list runs heaviest first by that count."""
+    from tpu_flash_torch.ops.schedule import kv_tile_range
+
+    schedule, fractions = kind
+    options = {key: int(round(x * n)) if key != "shifted_causal" else x
+               for key, x in fractions.items()}
+    sched = tflash.build_schedule(schedule, n, n, 1024, 2048, **options)
+    n_kv = n + 2 * options["radius"] if schedule == "circulant" else n
+    bh, n_tiles = 3, -(-n // 128)
+    order = tfq.work_order(sched, n, n_kv, bkv, bh)
+    assert order.dtype == torch.int32 and order.shape == (bh * n_tiles, 3)
+    assert sorted(order[:, 0].tolist()) == list(range(bh * n_tiles))
+    vis = sched.visible(torch.arange(n)[:, None], torch.arange(n_kv)[None])
+    vis = torch.ones(n, n_kv, dtype=torch.bool) if vis is None else \
+        torch.broadcast_to(vis, (n, n_kv))
+    steps = []
+    for t in range(n_tiles):
+        first, last = kv_tile_range(sched, n_kv, 128 * t,
+                                    min(128 * (t + 1), n) - 1, bkv)
+        seen = torch.nonzero(vis[128 * t:128 * (t + 1)].any(0))[:, 0] // bkv
+        if seen.numel():
+            assert (first, last) == (int(seen.min()), int(seen.max())), t
+        else:
+            assert last < first, t
+        steps.append(max(0, last - first + 1))
+        rows = order[order[:, 0] % n_tiles == t]
+        assert (rows[:, 2] == steps[-1]).all(), t
+        if steps[-1]:
+            assert (rows[:, 1] == first).all(), t
+    walked = order[:, 2].tolist()
+    assert walked == sorted(walked, reverse=True)
+    assert sum(walked) == bh * sum(steps)

@@ -5,13 +5,13 @@
 // - swizzled shared-memory tiles (swz, tile_off) in the layout TMA writes
 //   under CU_TENSOR_MAP_SWIZZLE_128B / _64B and wgmma reads as SW128 / SW64;
 // - wgmma shared-memory descriptors, K-major (desc) and MN-major (desc_mn);
-// - mbarriers, TMA tile loads, 1-D bulk copies, the async-proxy fence and
-//   warpgroup barriers;
+// - mbarriers, TMA tile loads, 1-D bulk copies and the async-proxy fence;
 // - the wgmma wrappers (one per operand type and tile width), their
 //   fences and waits;
 // - quad (accumulator-row) reductions and ex2.approx;
-// - tensor maps through cuTensorMapEncodeTiled, found through the runtime
-//   (no -lcuda).
+// - tensor maps through cuTensorMapEncodeTiled (K/V tiles, row-major byte
+//   matrices, boxes of a 3-D byte tensor), found through the runtime (no
+//   -lcuda).
 //
 // Everything sits in an anonymous namespace: each source that includes
 // this header gets its own copy. kernels/_build.py hashes csrc/*.cuh with
@@ -111,9 +111,6 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t b
 
 __device__ __forceinline__ void fence_async_smem() {
   asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-}
-__device__ __forceinline__ void wg_barrier(int id) {
-  asm volatile("bar.sync %0, 128;" ::"r"(id) : "memory");
 }
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
@@ -499,6 +496,26 @@ bool make_row_map(CUtensorMap* map, const void* base, uint64_t row_bytes, uint64
   const cuuint32_t estr[3] = {1, 1, 1};
   return fn(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 3, const_cast<void*>(base), dims, strides,
             box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// A (depth, rows, row_bytes) byte tensor as a 3-D tensor map with boxes of
+// box_bytes (64 or 128: the swizzle's span) × box_rows rows × 1, swizzled
+// as the wgmma descriptors read it (K-major); TMA zero-fills the rows past
+// `rows`
+bool make_box_map(CUtensorMap* map, const void* base, uint64_t row_bytes, uint64_t rows,
+                  uint64_t depth, uint32_t box_bytes, uint32_t box_rows) {
+  EncodeFn fn = encode_fn();
+  if (fn == nullptr || row_bytes == 0 || rows == 0 || depth == 0 || row_bytes % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(base) % 16 != 0 || (box_bytes != 64 && box_bytes != 128))
+    return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)row_bytes, (cuuint64_t)rows, (cuuint64_t)depth};
+  const cuuint64_t strides[2] = {(cuuint64_t)row_bytes, (cuuint64_t)(row_bytes * rows)};
+  const cuuint32_t box[3] = {box_bytes, box_rows, 1};
+  const cuuint32_t estr[3] = {1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 3, const_cast<void*>(base), dims, strides,
+            box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            box_bytes == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
             CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 

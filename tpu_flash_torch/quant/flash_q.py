@@ -285,6 +285,54 @@ def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
+def work_order(sched: Schedule, n_q: int, n_kv: int, bkv: int,
+               bh: int) -> torch.Tensor:
+    """The work list the persistent kernel's CTAs walk (item i, i + the
+    CTA count, ...): ``(bh · q tiles, 3)`` int32 rows ``(b · q tiles + q
+    tile, first kv tile, kv tiles)``, one for each (batch·head, 128-row q
+    tile), with the kv tiles the tile visits
+    (:func:`~tpu_flash_torch.ops.schedule.kv_tile_range`, the kernels'
+    ``kv_range``, which the plain version walks too); heaviest first by
+    that count (for the causal schedule the reversed tiles), then by
+    batch·head and tile, so that a head's equal tiles run side by side and
+    share its K̂/V̂ in L2. At width 512 the kernel takes each row's two O
+    halves as two items."""
+    n_tiles = cdiv(n_q, KERNEL_BQ)
+    visits = torch.tensor(
+        [kv_tile_range(sched, n_kv, t * KERNEL_BQ,
+                       min((t + 1) * KERNEL_BQ, n_q) - 1, bkv)
+         for t in range(n_tiles)], dtype=torch.int64).reshape(n_tiles, 2)
+    first = visits[:, 0]
+    steps = (visits[:, 1] - first + 1).clamp(min=0)
+    tile = torch.arange(bh * n_tiles) % max(n_tiles, 1)
+    # entries run b-major: a stable sort keeps that order among equal tiles
+    order = torch.sort(-steps[tile], stable=True).indices
+    return torch.stack([order, first[tile[order]], steps[tile[order]]],
+                       dim=1).to(torch.int32)
+
+
+# the work lists on the device, by schedule and shape: built once, then
+# reused, so that a CUDA graph of kernel calls replays with no host work
+# (a list is never freed: a captured graph may hold its address)
+_WORK_ORDERS: dict = {}
+
+
+def device_work_order(sched: Schedule, n_q: int, n_kv: int, bkv: int, bh: int,
+                      device) -> torch.Tensor:
+    """:func:`work_order` on ``device``, from the cache."""
+    key = (kernel_schedule(sched), n_q, n_kv, bkv, bh, str(device))
+    order = _WORK_ORDERS.get(key)
+    if order is None:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                "quantized attention: the kernel's work list for this "
+                "schedule and shape is built on the first call, which must "
+                "come before a CUDA graph capture")
+        order = work_order(sched, n_q, n_kv, bkv, bh).to(device)
+        _WORK_ORDERS[key] = order
+    return order
+
+
 def _quant_attention_kernel(q_op, sq, k_vals, v_vals, sk, sv, gk,
                             sched: Schedule, hq: int, hkv: int, out_dtype,
                             need_lse: bool):
@@ -318,13 +366,16 @@ def _quant_attention_kernel(q_op, sq, k_vals, v_vals, sk, sv, gk,
     sq = None if sq is None else _aligned(sq.float())
     sk = None if sk is None else _aligned(sk.float())
     gk = None if gk is None else _aligned(gk.float())
+    order = device_work_order(sched, n_q, n_kv, kernel_block_kv(width, width),
+                              bh, q_op.device)
     o = torch.empty(bh, n_q, width, device=q_op.device, dtype=out_dtype)
     lse = (torch.empty(bh, n_q, device=q_op.device, dtype=torch.float32)
            if need_lse else None)
     err = _build.library().tf_quant_attention(
         q_op.data_ptr(), _ptr(sq), k_vals.data_ptr(), v_vals.data_ptr(),
         _ptr(sk), sv.data_ptr(), _ptr(gk), o.data_ptr(), _ptr(lse),
-        bh, n_q, n_kv, hq, hkv, width, *kernel_schedule(sched),
+        order.data_ptr(), bh, n_q, n_kv, hq, hkv, width,
+        *kernel_schedule(sched),
         _Q_KINDS[q_op.dtype],
         kernels.KV_CODES[k_vals.dtype], int(out_dtype == torch.float32),
         q_factor_multiplier(q_op.dtype), kernels.stream_handle(q_op),

@@ -7,11 +7,11 @@ halo-extend a cache, so those padding keys stay visible to it (score 0,
 value 0; ROADMAP C), and the port reproduces that.
 
 K/V come pre-quantized (cache residents: int8, e4m3 or e5m2; K per token
-or per tensor, V per channel); only Q is fresh, and the kernel quantizes
-each q tile once, before its kv loop: int8 (native int8 products), e4m3
-(native fp8 products, the row factor applied to the float32 score) or not
-at all (weight-only). An e5m2 cache still takes e4m3 Q, as in the
-reference. ``kv_scale="tensor"`` folds the K scale
+or per tensor, V per channel); only Q is fresh, and the call quantizes
+each q row once, in a pass on the card before the attention kernel: int8
+(native int8 products), e4m3 (native fp8 products, the row factor applied
+to the float32 score) or not at all (weight-only). An e5m2 cache still
+takes e4m3 Q, as in the reference. ``kv_scale="tensor"`` folds the K scale
 into the Q staging. The reference's d ≤ 64 transposed kernel (B8) exists to
 fill the TPU's 128-lane matrix unit; on the card one kernel
 (``csrc/quant_attention.cu``, ``tf_serving_attention``) serves every head
@@ -46,7 +46,9 @@ from tpu_flash_torch.quant.flash_q import (
     _attend_plain,
     _ptr,
     check_kernel_operands,
+    device_work_order,
     f32,
+    kernel_block_kv,
     phantom_rows,
     scaled_k_norms,
 )
@@ -98,9 +100,10 @@ def _serving_attention_kernel(q, k_vals, v_vals, sk_token, sk_tensor, sv, gk,
                               staged: bool = False):
     """Launch ``tf_serving_attention`` on CUDA tensors → (o, lse), and with
     ``staged`` also the staged Q operand and its row factors (int8, e4m3),
-    which the kernel then writes out for checking against
-    :func:`_stage_q_plain`. Head and value dims are zero-padded to the
-    kernel's width (K̂/V̂ with byte 0, σv with 1) and sliced back.
+    for checking against :func:`_stage_q_plain`: the call stages Q in a
+    pass of its own into those buffers, then attends over them. Head and
+    value dims are zero-padded to the kernel's width (K̂/V̂ with byte 0, σv
+    with 1) and sliced back.
     """
     from tpu_flash_torch.kernels import _build
 
@@ -119,19 +122,20 @@ def _serving_attention_kernel(q, k_vals, v_vals, sk_token, sk_tensor, sv, gk,
     q, k_vals, v_vals, sv = (_aligned(t) for t in (q, k_vals, v_vals, sv))
     sk_token, sk_tensor, gk = (None if t is None else _aligned(t.float())
                                for t in (sk_token, sk_tensor, gk))
+    order = device_work_order(sched, n_q, n_kv, kernel_block_kv(width, width),
+                              bh, q.device)
     o = torch.empty_like(q)
     lse = (torch.empty(bh, n_q, device=q.device, dtype=torch.float32)
            if need_lse else None)
-    q_out = qs_out = None
-    if staged:
-        q_out = torch.empty(bh, n_q, width, device=q.device,
-                            dtype=_STAGED_DTYPES[q_mode])
-        if q_mode != "raw":
-            qs_out = torch.empty(bh, n_q, device=q.device)
+    q_out = torch.empty(bh, n_q, width, device=q.device,
+                        dtype=_STAGED_DTYPES[q_mode])
+    qs_out = (None if q_mode == "raw"
+              else torch.empty(bh, n_q, device=q.device))
     err = _build.library().tf_serving_attention(
         q.data_ptr(), k_vals.data_ptr(), v_vals.data_ptr(), _ptr(sk_token),
         _ptr(sk_tensor), sv.data_ptr(), _ptr(gk), o.data_ptr(), _ptr(lse),
-        _ptr(q_out), _ptr(qs_out), bh, n_q, n_kv, hq, hkv, width,
+        _ptr(q_out), _ptr(qs_out), order.data_ptr(), bh, n_q, n_kv, hq, hkv,
+        width,
         *kernel_schedule(sched), _Q_MODES[q_mode],
         int(q.dtype == torch.float32), kernels.KV_CODES[k_vals.dtype],
         int(pv_quant), c, kernels.stream_handle(q),
