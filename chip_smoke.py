@@ -26,8 +26,10 @@ the last layer's B1, B2 (B3 fused) and B2 shared-table calls against
 their plain versions (V's columns 256–511 hidden must fail each check)
 and times the kernels at d 512, then takes
 three SGD train steps of the same model on 4 × 1025 tokens and checks their
-gradient against the f32 oracle attention's, and three of the same model
-with a sliding window (1025) on 2 × 2049 tokens, its gradient held against
+gradient against the f32 oracle attention's, three of the model in
+float32 (phase train_f32: B4/B5 on their 3×TF32 kernels, 48 launches of
+each by device name, the projections in full float32), and three of the
+same model with a sliding window (1025) on 2 × 2049 tokens, its gradient held against
 the sliding oracle's and shown to miss the causal oracle's, then runs the
 backward sweep at its quick shapes (tpu_flash_torch/bench/sweep.py), then
 runs the quantized headline (bench.py's shape:
@@ -207,9 +209,10 @@ N_LONG, N_SHORT = 12, 4
 # lse of a kernel vs its plain version (float32 sums in another order)
 TOL_LSE = 1e-4
 # H100 SXM datasheet peaks (dense): bf16 and int8 tensor cores, float32
-# FMA, HBM
+# FMA, tf32 tensor cores (the float32 B4/B5 at widths 64 and 128: three
+# tf32 products a float32 one), HBM
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12,
-              torch.int8: 1979e12}
+              torch.int8: 1979e12, "tf32": 495e12}
 PEAK_BYTES = 3.35e12
 
 
@@ -986,6 +989,13 @@ BWD_CASES = [
       for kind, width in (("dense", 0), ("causal", 0), ("local_causal", 100))],
     ("d256_causal_1024", 1, 16, 8, 1024, 1024, 256, "causal", 0, BF16, None),
     ("f32_causal_1024", 1, 16, 8, 1024, 1024, 128, "causal", 0, F32, None),
+    # float32 on the 3×TF32 kernels: d 64, and GQA 4 at a ragged n; and on
+    # the FMA kernels at d 256
+    ("f32_d64_causal_1024", 1, 16, 8, 1024, 1024, 64, "causal", 0, F32, None),
+    ("f32_d256_causal_1024", 1, 16, 8, 1024, 1024, 256, "causal", 0, F32,
+     None),
+    ("f32_gqa4_causal_1000", 1, 32, 8, 1000, 1000, 128, "causal", 0, F32,
+     None),
     # width 512 (flash_bwd_wide.cu) at the wide model's heads (4/2): the
     # wide training shape (b 4, n 1025 causal), then bf16 d 512, 512 with
     # dv 256 (the last entry), 320 and 264 (zero-padded) and float32 512,
@@ -1001,32 +1011,42 @@ BWD_CASES = [
 ]
 # the cases whose B4/B5 are timed, beside the library's fused backward
 BWD_TIMED = ("train_4x1024", "d64_causal_1024", "sliding_train_2x2048",
-             "d256_causal_1024", "f32_causal_1024", "wide_train_4x1025")
+             "d256_causal_1024", "f32_causal_1024", "f32_d64_causal_1024",
+             "f32_d256_causal_1024", "wide_exact_causal_512_float32",
+             "wide_train_4x1025")
 # B4/B5's planted faults: the plain backward under the case's schedule minus
 # one middle slab of 64 keys (dq, dk and dv must move) or of 64 queries (dk
 # and dv must move) must fail the kernel-vs-plain check, at the training
 # shape and at the sliding training shape
 BWD_FAULT_SLAB = 64
 BWD_FAULT_CASES = ("train_4x1024", "sliding_train_2x2048", "wide_train_4x1025")
-# the bf16 rows at widths 256 and 512 whose device kernels are named: they
-# must be flash_bwd_tc.cuh's TMA + wgmma kernels, never flash_bwd.cuh's
-# block kernels (float32 alone now; they once held the bf16 WMMA route)
+# the rows whose device kernels are named: bf16 at widths 256 and 512 must
+# run flash_bwd_tc.cuh's TMA + wgmma kernels, float32 at 64 and 128
+# flash_bwd_f32.cu's 3×TF32 ones, never flash_bwd.cuh's block kernels
+# (float32 at 256 and 512 alone now; they once held the bf16 WMMA route and
+# float32 at every width)
 BWD_NAMED = {"d256_causal_1024": ("flash_bwd_dq_wide<256", "flash_bwd_dkv_wide<256"),
-             "wide_train_4x1025": ("flash_bwd_dq_wide<512", "flash_bwd_dkv_wide<512")}
+             "wide_train_4x1025": ("flash_bwd_dq_wide<512", "flash_bwd_dkv_wide<512"),
+             "f32_causal_1024": ("flash_bwd_dq_f32<128", "flash_bwd_dkv_f32<128"),
+             "f32_d64_causal_1024": ("flash_bwd_dq_f32<64", "flash_bwd_dkv_f32<64")}
+# the float32 kernels' names (3×TF32), and the FMA kernels' that they
+# replace at widths 64 and 128
+F32_KERNELS = ("flash_bwd_dq_f32<", "flash_bwd_dkv_f32<")
+BLOCK_KERNELS = ("flash_bwd_dq_kernel", "flash_bwd_dkv_kernel")
 
 
 def bwd_kernel_names(name: str, call) -> list:
     """The device kernels of one B4/B5 call of BWD_NAMED's row ``name``
-    (profiler), printed; raises unless both of the row's TMA + wgmma
-    kernels ran and no block kernel (flash_bwd_dq_kernel,
-    flash_bwd_dkv_kernel) or WMMA one did."""
-    names = device_kernel_names(call)
+    (profiler), printed; raises unless both of the row's kernels ran and no
+    block kernel (flash_bwd_dq_kernel, flash_bwd_dkv_kernel) or WMMA one
+    did."""
+    names = sorted(fresh_trace("port", name, trace(call)))
     print(f"B4/B5 {name} device kernels: {names}", flush=True)
     missing = [k for k in BWD_NAMED[name] if not any(k in n for n in names)]
-    block = [n for n in names if "flash_bwd_dq_kernel" in n
-             or "flash_bwd_dkv_kernel" in n or "wmma" in n.lower()]
+    block = [n for n in names if any(b in n for b in BLOCK_KERNELS)
+             or "wmma" in n.lower()]
     if missing or block:
-        raise AssertionError(f"B4/B5 {name}: the bf16 call ran {names}; "
+        raise AssertionError(f"B4/B5 {name}: the call ran {names}; "
                              f"missing {missing}, block or WMMA kernels {block}")
     return names
 
@@ -1162,24 +1182,141 @@ def library_backward_wide(q, k, v, do, causal, window_left=None):
             f"attention, backend {best[1]} (fastest of {tried})", False)
 
 
-def device_kernel_names(fn) -> list:
-    """Names of the device kernels one ``fn`` call launches (profiler).
-    A trace that recorded no device activity at all is taken once more:
-    the card's tracing has been seen to come back empty once in a run."""
+def trace(fn, iters: int = 1, tries: int = 5) -> dict:
+    """{device kernel: [launches, device ms] a call} over ``iters`` calls of
+    ``fn`` under torch.profiler, after one call outside it. A trace that
+    recorded no device activity at all is taken again, up to ``tries``
+    times: the card's traces have come back empty in a long run. {} if
+    every one did."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    for _ in range(2):
+    for _ in range(tries):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            fn()
+            for _ in range(iters):
+                fn()
             torch.cuda.synchronize()
-        names = sorted({e.key for e in prof.key_averages()
-                        if e.device_type == torch.autograd.DeviceType.CUDA})
-        if names:
-            return names
-    return names
+        got = {e.key: [e.count / iters, e.self_device_time_total / 1e3 / iters]
+               for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA}
+        if got:
+            return got
+    return {}
+
+
+def device_kernel_names(fn) -> list:
+    """Names of the device kernels one ``fn`` call launches (profiler)."""
+    return sorted(trace(fn))
+
+
+def fresh_process(argv: list, what: str) -> dict:
+    """The JSON object that ``python argv`` prints as its last line, run
+    from the checkout's root in a process of its own, merged over up to
+    three runs until no key's value is empty: late in a long run this
+    process's traces have come back empty where a fresh one's did not, and
+    now and then a fresh one's too. The one route by which the smoke takes
+    a trace again in a new process (:func:`fresh_trace`,
+    :func:`quant_kernel_names`)."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    got: dict = {}
+    for _ in range(3):
+        out = subprocess.run(
+            [sys.executable, *argv], cwd=root, capture_output=True, text=True,
+            timeout=900, env=dict(os.environ, PYTHONPATH=root))
+        if out.returncode != 0:
+            raise AssertionError(f"{what} in a process of its own failed: "
+                                 f"{out.stderr[-3000:]}")
+        new = json.loads(out.stdout.strip().splitlines()[-1])
+        got.update({k: v for k, v in new.items() if v or not got.get(k)})
+        if got and all(got.values()):
+            break
+    print(f"{what}: traced in a process of its own", flush=True)
+    return got
+
+
+def fresh_trace(kind: str, case: str, local: dict) -> dict:
+    """``local``, a trace taken in this process, or where it came back
+    empty the same trace taken by :func:`child_trace` in a fresh process
+    (:func:`fresh_process`)."""
+    if local:
+        return local
+    return fresh_process(
+        ["-c", f"import chip_smoke as cs; cs.child_trace({kind!r}, {case!r})"],
+        f"trace of {kind} {case}")
+
+
+def child_trace(kind: str, case: str) -> None:
+    """Print, as the last line, a :func:`trace` taken in this (fresh)
+    process: of one call of BWD_CASES row ``case``'s B4/B5 ("port") or of
+    10 of its library backward ("library"), on inputs drawn anew (which
+    kernels run, and their times, depend on shapes and dtypes alone); or
+    of the float32 model's TRAIN_STEPS train steps at lr 0 ("train_f32")."""
+    from tpu_flash_torch import graft_entry
+    from tpu_flash_torch.ops import flash_bwd
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    if kind == "train_f32":
+        params, tokens, mcfg = train_inputs(dict(MODEL, dtype="float32"),
+                                            TRAIN_TOKENS, dev)
+        got = trace(lambda: [graft_entry.train_step(params, tokens, mcfg, 0.0)
+                             for _ in range(TRAIN_STEPS)])
+    else:
+        gen = torch.Generator(device=dev).manual_seed(4)
+
+        def rand(*shape):
+            return torch.randn(*shape, generator=gen, device=dev)
+
+        (_, b, hq, hkv, n_q, n_kv, d, schedule, width, dt, quant,
+         *dv) = next(c for c in BWD_CASES if c[0] == case)
+        dv = dv[0] if dv else d
+        q, k, v = (rand(b, h, n, dd).to(dt) for h, n, dd in
+                   ((hq, n_q, d), (hkv, n_kv, d), (hkv, n_kv, dv)))
+        _, args = bwd_operands(q, k, v, hq, hkv, schedule, width, rand)
+        if kind == "port":
+            got = trace(lambda: flash_bwd._flash_bwd_kernel(*args, quant))
+        else:
+            got = trace(library_call(q, k, v, args[5], hq, hkv, schedule,
+                                     width)[0], iters=10)
+    print(json.dumps(got), flush=True)
+
+
+def bwd_operands(q, k, v, hq: int, hkv: int, schedule: str, width: int,
+                 rand) -> tuple:
+    """A BWD_CASES row's kernel operands from its (B, H, N, D) q, k, v →
+    (sched, (q, k, v, o, lse, dO, dlse, sched, hq, hkv)) as flash_backward
+    takes them: q prescaled, (B·H, N, D), circulant K/V halo-extended, o
+    and lse from B1, dO and dlse drawn by ``rand``."""
+    from tpu_flash_torch.ops import flash
+
+    (b, _, n_q, d), (_, _, n_kv, dv), dt = q.shape, v.shape, q.dtype
+    qf = (q.float() * (d ** -0.5 * flash.LOG2E)).to(dt).reshape(
+        b * hq, n_q, d)
+    kf, vf = k.reshape(b * hkv, n_kv, d), v.reshape(b * hkv, n_kv, dv)
+    sched = flash.build_schedule(schedule, n_q, n_kv, 256, 256,
+                                 radius=0 if schedule == "block" else width,
+                                 section=width if schedule == "block" else 0)
+    if schedule == "circulant":
+        kf, vf = (torch.cat([x[:, -width:], x, x[:, :width]], 1)
+                  for x in (kf, vf))
+    o, lse = flash._flash_fwd_kernel(qf, kf, vf, sched, hq, hkv, True)
+    do = rand(b * hq, n_q, dv).to(dt)
+    return sched, (qf, kf, vf, o, lse, do, rand(b * hq, n_q), sched, hq, hkv)
+
+
+def library_call(q, k, v, do, hq: int, hkv: int, schedule: str, width: int):
+    """The library's backward of a BWD_CASES row on its (B, H, N, D) q, k,
+    v and (B·H, N, dv) dO, K/V expanded to the q heads outside the timed
+    call (it then skips the group sum); above width 256 the fastest
+    backend that takes the head dim → (fn, call name, graphable)."""
+    g = hq // hkv
+    return (library_backward_wide if q.shape[-1] > 256 else library_backward)(
+        q, k.repeat_interleave(g, 1), v.repeat_interleave(g, 1),
+        do.reshape(*q.shape[:3], do.shape[-1]), schedule != "dense",
+        window_left=width if schedule == "local_causal" else None)
 
 
 @contextlib.contextmanager
@@ -1274,13 +1411,16 @@ def bwd_timing(ops, sched, hq, hkv, dt, pairs, d, b, n_q, n_kv, quant,
     q_out, kv_out = e * b * hq * n_q * d, e * b * hkv * n_kv * d
     rows = 4 * b * hq * n_q_in
     prod = 2 * d * pairs
+    # float32 at widths 64 and 128: each product three tf32 ones (3×TF32)
+    ft = "tf32" if dt == torch.float32 and d <= 128 else dt
+    nt = 3 if ft == "tf32" else 1
     if quant is None:
-        dq_ops, dkv_ops = {dt: 3 * prod}, {dt: 4 * prod}
+        dq_ops, dkv_ops = {ft: 3 * nt * prod}, {ft: 4 * nt * prod}
         dq_bytes = 2 * q_in + 2 * kv_in + 2 * rows + q_out
         dkv_bytes = 2 * q_in + 2 * kv_in + 2 * rows + 2 * kv_out
     else:
-        dq_ops, dkv_ops = ({dt: 2 * prod, torch.int8: prod},
-                           {dt: 3 * prod, torch.int8: prod})
+        dq_ops, dkv_ops = ({ft: 2 * nt * prod, torch.int8: prod},
+                           {ft: 3 * nt * prod, torch.int8: prod})
         q8, kv8 = q_in // e, kv_in // e
         dq_bytes = q_in + q8 + kv_in + kv8 + 3 * rows + q_out
         dkv_bytes = 3 * q_in + q8 + kv_in + kv8 + 2 * rows + 2 * kv_out
@@ -1290,6 +1430,9 @@ def bwd_timing(ops, sched, hq, hkv, dt, pairs, d, b, n_q, n_kv, quant,
                **roofline(dkv_ops, dkv_bytes, dt))
     dq["tflops"] = 3 * prod / dq["ms"] / 1e9
     dkv["tflops"] = 4 * prod / dkv["ms"] / 1e9
+    if ft == "tf32":  # beside it, the bound at the float32 FMA peak
+        dq["fma_bound_ms"] = roofline(3 * prod, dq_bytes, dt)["bound_ms"]
+        dkv["fma_bound_ms"] = roofline(4 * prod, dkv_bytes, dt)["bound_ms"]
     return dq, dkv
 
 
@@ -1311,7 +1454,7 @@ def flash_bwd_phase(dev):
     def rand(*shape):
         return torch.randn(*shape, generator=gen, device=dev)
 
-    rows, worst, timing = [], 0.0, {}
+    rows, worst, worst_f32, timing = [], 0.0, 0.0, {}
     for (name, b, hq, hkv, n_q, n_kv, d, schedule, width, dt,
          quant, *dv) in BWD_CASES:
         g = hq // hkv
@@ -1363,22 +1506,11 @@ def flash_bwd_phase(dev):
                     row["planted_fault_sv_channel_off"] = errs
         del got, want
 
-        qf = (q.float() * (d ** -0.5 * flash.LOG2E)).to(dt).reshape(
-            b * hq, n_q, d)
-        kf, vf = k.reshape(b * hkv, n_kv, d), v.reshape(b * hkv, n_kv, dv)
-        sched = flash.build_schedule(schedule, n_q, n_kv, 256, 256,
-                                     radius=0 if schedule == "block" else width,
-                                     section=width if schedule == "block" else 0)
-        if schedule == "circulant":
-            kf, vf = (torch.cat([x[:, -width:], x, x[:, :width]], 1)
-                      for x in (kf, vf))
-        o, lse = flash._flash_fwd_kernel(qf, kf, vf, sched, hq, hkv, True)
-        do = rand(b * hq, n_q, dv).to(dt)
-        args = (qf, kf, vf, o, lse, do, rand(b * hq, n_q), sched, hq, hkv)
+        sched, args = bwd_operands(q, k, v, hq, hkv, schedule, width, rand)
         tol = TOL_BWD_PLAIN[dt]
 
         def held(quant_, tag=""):
-            nonlocal worst
+            nonlocal worst, worst_f32
             first = flash_bwd._flash_bwd_kernel(*args, quant_)
             second = flash_bwd._flash_bwd_kernel(*args, quant_)
             plain = flash_bwd._flash_bwd_plain(*args, quant_)
@@ -1393,6 +1525,29 @@ def flash_bwd_phase(dev):
             if d > 256:  # each grad's upper half hidden must fail the check
                 row[f"planted_fault_upper_half{tag}"] = upper_half_faults(
                     f"B4/B5 {name}{tag}", first, plain, tol)
+            if dt == torch.float32 and d <= 128:
+                # the 3×TF32 kernels: beside the exact plain backward, the
+                # plain one through the model of their product
+                # (flash_bwd.tf32x3), reported; and the same kernels on one
+                # TF32 pass, a planted fault, must fail the check on each
+                # grad
+                model = flash_bwd._flash_bwd_plain(
+                    *args, quant_, products=flash_bwd.tf32x3)
+                row.update({f"d{x}_vs_tf32x3_model{tag}": rel_err(a_, m_)
+                            for x, a_, m_ in zip("qkv", first, model)})
+                del model
+                one = flash_bwd._flash_bwd_kernel(*args, quant_,
+                                                  tf32_passes=1)
+                errs = {f"d{x}": rel_err(a_, p_)
+                        for x, a_, p_ in zip("qkv", one, plain)}
+                passed = [x for x, e in errs.items() if e <= tol]
+                if passed:
+                    raise AssertionError(
+                        f"B4/B5 planted fault one_tf32_pass on {name}{tag} "
+                        f"passes the kernel-vs-plain check on {passed}: {errs}")
+                row[f"planted_fault_one_tf32_pass{tag}"] = errs
+                worst_f32 = max(worst_f32, *(max_err(a_, p_)
+                                             for a_, p_ in zip(first, plain)))
             return first
 
         first = held(quant)
@@ -1421,15 +1576,11 @@ def flash_bwd_phase(dev):
             ops = flash_bwd._kernel_operands(*args)
             dq, dkv = bwd_timing(ops, sched, hq, hkv, dt, pairs, d, b, n_q,
                                  n_kv, None)
-            # the library's backward alone, K/V expanded to hq heads
-            # outside the timed call (it then skips the group sum); above
-            # width 256 the fastest backend that takes the head dim
-            lib_bwd, lib_call, graphable = (library_backward_wide if d > 256
-                                            else library_backward)(
-                q, k.repeat_interleave(g, 1), v.repeat_interleave(g, 1),
-                do.reshape(b, hq, n_q, dv), schedule != "dense",
-                window_left=width if schedule == "local_causal" else None)
-            names = device_kernel_names(lib_bwd)
+            lib_bwd, lib_call, graphable = library_call(
+                q, k, v, args[5], hq, hkv, schedule, width)
+            # its kernels (and their device times) over 10 calls
+            lib_trace = fresh_trace("library", name, trace(lib_bwd, iters=10))
+            names = sorted(lib_trace)
             if lib_call.startswith("aten.") and not any(
                     "flash" in k_.lower() and "bwd" in k_.lower()
                     for k_ in names):
@@ -1437,19 +1588,33 @@ def flash_bwd_phase(dev):
                                      f"flash backward kernel: {names}")
             plain_ms = cuda_ms(lambda: flash_bwd._flash_bwd_plain(*args),
                                iters=3)
+            if graphable:  # device time from a CUDA graph of calls
+                lib_ms = device_ms(lib_bwd)
+            elif dt == torch.float32:
+                # the sum of the call's kernels' device times (profiler):
+                # the float32 backward is an autograd call; its kernels
+                # beside it
+                if not lib_trace:
+                    raise AssertionError(f"{name}: no trace of the library's "
+                                         "backward")
+                lib_ms = sum(ms for _, ms in lib_trace.values())
+                row["library_bwd_kernel_ms"] = {
+                    k_[:120]: ms for k_, (_, ms) in sorted(
+                        lib_trace.items(), key=lambda kv: -kv[1][1])[:6]}
+            else:  # events around calls
+                lib_ms = cuda_ms(lib_bwd)
             row.update(dq_ms=dq["ms"], dq_call_ms=dq["call_ms"],
                        dq_bound_ms=dq["bound_ms"], dkv_ms=dkv["ms"],
                        dkv_call_ms=dkv["call_ms"], dkv_bound_ms=dkv["bound_ms"],
-                       visible_pairs=pairs,
-                       # device time from a CUDA graph where the call can
-                       # be captured, else events around calls
-                       library_bwd_ms=(device_ms(lib_bwd) if graphable
-                                       else cuda_ms(lib_bwd)),
+                       visible_pairs=pairs, library_bwd_ms=lib_ms,
                        library_bwd_call_ms=cuda_ms(lib_bwd),
                        library_bwd_call=lib_call,
                        library_bwd_kernels=[k_[:100] for k_ in names],
                        dq_tflops=dq["tflops"], dkv_tflops=dkv["tflops"],
                        plain_bwd_ms=plain_ms)
+            if "fma_bound_ms" in dq:
+                row.update(dq_fma_bound_ms=dq["fma_bound_ms"],
+                           dkv_fma_bound_ms=dkv["fma_bound_ms"])
             timing[name] = dict(dq=dict(dq, plain_ms=plain_ms),
                                 dkv=dict(dkv, plain_ms=plain_ms),
                                 library_ms=row["library_bwd_ms"],
@@ -1480,7 +1645,7 @@ def flash_bwd_phase(dev):
         rows.append(row)
         del q, k, v, args, first
     emit(dict(phase="flash_bwd", cases=rows))
-    return dict(max_abs_err=worst, **timing)
+    return dict(max_abs_err=worst, max_abs_err_f32=worst_f32, **timing)
 
 
 def checkpointed(attn):
@@ -1503,24 +1668,22 @@ def grad_cosines(params, grads_a, grads_b) -> dict:
 
 
 def train_phase(dev, phase="train", model=MODEL, tokens_shape=TRAIN_TOKENS,
-                oracle=None, other=None):
+                oracle=None, other=None, named=()):
     """Three SGD steps at the canonical model's full width and depth (with
     ``model``'s attention), then one step's gradient against the
     oracle-attention path's (``oracle``: dense_dpa, causal). ``other``
     (name, attention) is an oracle of another attention that must miss the
     flash gradients by more than ``oracle`` does: it shows that the check
-    sees the difference."""
+    sees the difference. ``named``: device-kernel names whose launches over
+    the three steps' work (the steps again at lr 0 under the profiler) must
+    each equal B4's launch count, with no block kernel of
+    flash_bwd.cuh among them."""
     from tpu_flash_torch import graft_entry, kernels
-    from tpu_flash_torch.models import transformer as tfm
     from tpu_flash_torch.ops.oracle import dense_dpa
 
     if oracle is None:
         oracle = lambda q, k, v: dense_dpa(q, k, v, causal=True)  # noqa: E731
-    mcfg = tfm.ModelConfig(**model)
-    params = tfm.init_params(mcfg, torch.Generator(device=dev).manual_seed(0),
-                             dev)
-    tokens = torch.as_tensor(np.random.default_rng(1).integers(
-        0, mcfg.vocab_size, tokens_shape), device=dev)
+    params, tokens, mcfg = train_inputs(model, tokens_shape, dev)
     leaves = graft_entry.param_leaves(params)
     n_params = sum(t.numel() for t in leaves)
     wq0 = params["layers"][0]["wq"].clone()
@@ -1602,8 +1765,70 @@ def train_phase(dev, phase="train", model=MODEL, tokens_shape=TRAIN_TOKENS,
                 f"the right oracle's 1 - {cos[worst_cos]}")
     del grads_k
     row["profile"] = profile_train_step(params, tokens, mcfg, median_ms)
+    if named:
+        got = fresh_trace(phase, "", trace(
+            lambda: [graft_entry.train_step(params, tokens, mcfg, 0.0)
+                     for _ in range(TRAIN_STEPS)]))
+        counts = {n: sum(c for k_, (c, _) in got.items() if n in k_)
+                  for n in (*named, *BLOCK_KERNELS)}
+        row["launches_by_device_name"] = counts
+        bad = {k: v for k, v in counts.items()
+               if v != (launches["flash_bwd_dq"] if k in named else 0)}
+        if bad:
+            raise AssertionError(
+                f"{phase}: {launches['flash_bwd_dq']} launches of B4 and of "
+                f"B5, but by device name {counts}")
+    row["matmul_allow_tf32"] = torch.backends.cuda.matmul.allow_tf32
     emit(row)
     del params
+    return launches
+
+
+def train_inputs(model: dict, tokens_shape, dev) -> tuple:
+    """The train phases' model (weights from seed 0) and tokens (seed 1) →
+    (params, tokens, ModelConfig)."""
+    from tpu_flash_torch.models import transformer as tfm
+
+    mcfg = tfm.ModelConfig(**model)
+    params = tfm.init_params(mcfg, torch.Generator(device=dev).manual_seed(0),
+                             dev)
+    tokens = torch.as_tensor(np.random.default_rng(1).integers(
+        0, mcfg.vocab_size, tokens_shape), device=dev)
+    return params, tokens, mcfg
+
+
+def train_f32_phase(dev):
+    """The canonical model in float32 (``dtype="float32"``): three SGD steps
+    at full width and depth through B1 and the float32 B4/B5 (3×TF32 at
+    d 128), the gradient against the oracle-attention path's, and B4's and
+    B5's launches by device name (flash_bwd_f32.cu's kernels, 16 layers × 3
+    steps each). The projections stay full float32
+    (torch.backends.cuda.matmul.allow_tf32 False, in the phase's line).
+    Then the backward's first B4/B5 call (the last layer's: b 4, the
+    1024 input tokens of each 1025-token row, on the model's own
+    activations and lse) re-run on its own inputs (:func:`held_first_bwd`),
+    and the same call on one TF32 pass, a planted fault, rejected on every
+    grad."""
+    from tpu_flash_torch.ops import flash_bwd
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("train_f32: the projections would run in TF32")
+    with first_bwd_call() as rec:
+        launches = train_phase(dev, "train_f32", dict(MODEL, dtype="float32"),
+                               named=F32_KERNELS)
+        torch.cuda.synchronize()
+    held, got, plain = held_first_bwd("train_f32", rec)
+    one = flash_bwd._flash_bwd_kernel(*rec["args"], rec["quant"],
+                                      tf32_passes=1)
+    errs = {f"d{x}": rel_to_max(a_, p_) for x, a_, p_ in zip("qkv", one, plain)}
+    passed = [x for x, e in errs.items() if e <= held["tol"]]
+    if passed:
+        raise AssertionError(f"train_f32 B4/B5: planted fault one_tf32_pass "
+                             f"passes the kernel-vs-plain check on {passed}: "
+                             f"{errs}")
+    held["planted_fault_one_tf32_pass"] = errs
+    emit(dict(phase="train_f32_checks", last_layer_b4_b5=held))
+    del rec, got, plain, one
     return launches
 
 
@@ -1664,6 +1889,8 @@ def profile_train_step(params, tokens, mcfg, step_ms, top=15):
         total_us / 1e3 - sum(by_group.values()))
     return dict(device_ms=total_us / 1e3,
                 device_busy_share=total_us / 1e3 / step_ms,
+                b4_b5_device_share=(by_group["flash backward (B4, B5)"]
+                                    / (total_us / 1e3) if total_us else None),
                 device_kernels=sum(e.count for e in kern),
                 device_ms_by_group=by_group,
                 top=[dict(kernel=k[:80], ms=v / 1e3, share=v / total_us)
@@ -1810,23 +2037,14 @@ def quant_kernel_names() -> dict:
     """The device kernels (profiler) of one call of each timed B6/B7 row's
     instantiation (bench/quant_bench.py --names: the headline's three,
     rows a–e, d 512 and B8's shape, at a small shape), taken in a process
-    of its own (in this one, after the phases before, the card's traces
-    have come back empty for them; a row with no trace is taken again),
-    printed; raises unless every row ran the persistent kernel and none
-    the replaced one. Taken once a run."""
-    root = os.path.dirname(os.path.abspath(__file__))
-    for _ in range(3):  # a row whose traces all came back empty: again
-        if _QUANT_NAMES and all(_QUANT_NAMES.values()):
-            break
-        out = subprocess.run(
-            [sys.executable, "-m", "tpu_flash_torch.bench.quant_bench",
-             "--names"], cwd=root, capture_output=True, text=True,
-            timeout=600, env=dict(os.environ, PYTHONPATH=root))
-        if out.returncode != 0:
-            raise AssertionError(f"quant_bench --names failed: {out.stderr}")
-        got = json.loads(out.stdout.strip().splitlines()[-1])
-        _QUANT_NAMES.update({row: names for row, names in got.items()
-                             if names or not _QUANT_NAMES.get(row)})
+    of its own (:func:`fresh_process`: in this one, after the phases
+    before, the card's traces have come back empty for them; a row with no
+    trace is taken again), printed; raises unless every row ran the
+    persistent kernel and none the replaced one. Taken once a run."""
+    if not _QUANT_NAMES:
+        _QUANT_NAMES.update(fresh_process(
+            ["-m", "tpu_flash_torch.bench.quant_bench", "--names"],
+            "quant_bench --names"))
     for row, names in _QUANT_NAMES.items():
         print(f"B6/B7 {row} device kernels: {names}", flush=True)
         if not any(QUANT_NAMED in n for n in names) or any(
@@ -2581,50 +2799,47 @@ def wide_heads_serve_phase(dev, smi: str) -> dict:
                 decode=decode, timed=timed)
 
 
-def wide_heads_train_phase(dev) -> dict:
-    """The wide-head model's training: MODEL_WIDE at full width and depth
-    on 4 × 1025 tokens, three SGD steps through B1 at width 512 and B4/B5
-    at width 512 (train_phase: the gradient's per-parameter cosine and
-    Δloss against the oracle-attention path, step ms, tokens/s, peak
-    memory), with no plain version on a CUDA tensor meanwhile. Then the
-    backward's first B4/B5 call (the last layer's) re-run on its own
-    inputs: bitwise the main path's, within TOL_BWD_PLAIN of the plain
-    backward, and each grad with its columns 256–511 zeroed in the plain
-    version rejected. The grads are a model's (far below 1), so each is
-    held relative to its own largest entry (:func:`rel_to_max`)."""
+@contextlib.contextmanager
+def first_bwd_call():
+    """Inside the block, the first B4/B5 call (a training run's first
+    backward's first: the last layer's) recorded, its inputs and grads
+    cloned, into the dict the block gets."""
     from tpu_flash_torch.ops import flash_bwd
 
     real, rec = flash_bwd._flash_bwd_kernel, {}
 
     def recorded(q, k, v, o, lse, do, dlse, sched, hq, hkv, quant=None):
         out = real(q, k, v, o, lse, do, dlse, sched, hq, hkv, quant)
-        if not rec:  # the backward's first call: the last layer's
-            rec.update(args=tuple(None if t is None else t.clone()
-                                  for t in (q, k, v, o, lse, do, dlse)),
-                       rest=(sched, hq, hkv, quant),
-                       out=[t.clone() for t in out])
+        if not rec:
+            rec.update(args=(*(None if t is None else t.clone()
+                               for t in (q, k, v, o, lse, do, dlse)),
+                             sched, hq, hkv),
+                       quant=quant, out=[t.clone() for t in out])
         return out
 
     flash_bwd._flash_bwd_kernel = recorded
     try:
-        with no_plain_on_cuda() as plain_calls:
-            launches = train_phase(dev, "wide_heads_train", MODEL_WIDE,
-                                   TRAIN_TOKENS)
-            torch.cuda.synchronize()
+        yield rec
     finally:
         flash_bwd._flash_bwd_kernel = real
-    if any(plain_calls.values()):
-        raise AssertionError(f"wide training: plain versions ran on CUDA "
-                             f"tensors: {plain_calls}")
+
+
+def held_first_bwd(phase: str, rec: dict) -> tuple:
+    """The B4/B5 call :func:`first_bwd_call` recorded, re-run on its own
+    inputs: bitwise the main path's grads, and within TOL_BWD_PLAIN of the
+    plain backward on them. The grads are a model's (far below 1), so each
+    is held relative to its own largest entry (:func:`rel_to_max`) →
+    (the row, the grads, the plain grads)."""
+    from tpu_flash_torch.ops import flash_bwd
+
     if not rec:
-        raise AssertionError("wide training: no B4/B5 call recorded")
-    args = (*rec["args"], *rec["rest"][:3])
-    quant = rec["rest"][3]
-    got = real(*args, quant)
+        raise AssertionError(f"{phase}: no B4/B5 call recorded")
+    args, quant = rec["args"], rec["quant"]
+    got = flash_bwd._flash_bwd_kernel(*args, quant)
     torch.cuda.synchronize()
     for x, a_, m_ in zip("qkv", got, rec["out"]):
         if not torch.equal(a_, m_):
-            raise AssertionError(f"wide training B4/B5: d{x} is not the main "
+            raise AssertionError(f"{phase} B4/B5: d{x} is not the main "
                                  "path's")
     plain = flash_bwd._flash_bwd_plain(*args, quant)
     q = args[0]
@@ -2632,17 +2847,36 @@ def wide_heads_train_phase(dev) -> dict:
     errs = {f"d{x}_vs_plain": rel_to_max(a_, p_)
             for x, a_, p_ in zip("qkv", got, plain)}
     for key, err in errs.items():
-        check(f"wide training B4/B5 {key}", err, tol)
-    faults = upper_half_faults("wide training B4/B5", got, plain, tol,
-                               rel_to_max)
+        check(f"{phase} B4/B5 {key}", err, tol)
     held = dict(bh=q.shape[0], hq=args[8], hkv=args[9], n_q=q.shape[1],
                 n_kv=args[1].shape[1], d=q.shape[-1], dv=args[2].shape[-1],
                 dtype=str(q.dtype).replace("torch.", ""),
                 kind=type(args[7]).__name__, dlse=args[6] is not None,
                 main_path_bitwise=True, tol=tol, error="max |a - b| / max |b|",
                 **errs,
-                max_abs_err=max(max_err(a_, p_) for a_, p_ in zip(got, plain)),
-                planted_fault_upper_half=faults)
+                max_abs_err=max(max_err(a_, p_) for a_, p_ in zip(got, plain)))
+    return held, got, plain
+
+
+def wide_heads_train_phase(dev) -> dict:
+    """The wide-head model's training: MODEL_WIDE at full width and depth
+    on 4 × 1025 tokens, three SGD steps through B1 at width 512 and B4/B5
+    at width 512 (train_phase: the gradient's per-parameter cosine and
+    Δloss against the oracle-attention path, step ms, tokens/s, peak
+    memory), with no plain version on a CUDA tensor meanwhile. Then the
+    backward's first B4/B5 call (the last layer's) re-run on its own
+    inputs (:func:`held_first_bwd`), and each grad with its columns
+    256–511 zeroed in the plain version rejected."""
+    with first_bwd_call() as rec, no_plain_on_cuda() as plain_calls:
+        launches = train_phase(dev, "wide_heads_train", MODEL_WIDE,
+                               TRAIN_TOKENS)
+        torch.cuda.synchronize()
+    if any(plain_calls.values()):
+        raise AssertionError(f"wide training: plain versions ran on CUDA "
+                             f"tensors: {plain_calls}")
+    held, got, plain = held_first_bwd("wide training", rec)
+    held["planted_fault_upper_half"] = upper_half_faults(
+        "wide training B4/B5", got, plain, held["tol"], rel_to_max)
     emit(dict(phase="wide_heads_train_checks", plain_calls_on_cuda=plain_calls,
               last_layer_b4_b5=held))
     del rec, got, plain
@@ -7031,6 +7265,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     train = train_phase(dev)
     torch.cuda.empty_cache()
+    train_f32 = train_f32_phase(dev)
+    torch.cuda.empty_cache()
     wide_train = wide_heads_train_phase(dev)
     torch.cuda.empty_cache()
     train_sliding = train_sliding_phase(dev)
@@ -7245,6 +7481,24 @@ def main() -> int:
                "tpu_flash/quant/serving_attn.py:59"),
               ("quant_attention", "quant", "quant_e4m3",
                "tpu_flash/quant/flash_q.py:136"))],
+        # B4/B5 in float32 at widths 64 and 128 (flash_bwd_f32.cu, 3×TF32 on
+        # wgmma): launches from the float32 train run (and the EP dry run's
+        # float32 d 32 calls); times at b 1, 16/8 heads, n 1024 causal,
+        # d 128; bound: 3 tf32 products a float32 one at the tf32 peak;
+        # library: the float32 backward of scaled_dot_product_attention (K/V
+        # expanded), the sum of its kernels' device times (its kernels in
+        # the flash_bwd phase's line); max_abs_err: every float32 case at
+        # those widths
+        *[dict(name=f"flash_bwd_{part} (float32, 3xTF32)", route="cuda",
+               source="tpu_flash_torch/csrc/flash_bwd_f32.cu", replaces=line,
+               launches=train_f32[f"flash_bwd_{part}"],
+               launches_ep_dryrun=slice_launches["ep_dryrun"].get(
+                   f"flash_bwd_{part}", 0),
+               max_abs_err=b45["max_abs_err_f32"],
+               **_timing(b45["f32_causal_1024"][part]),
+               library_ms=b45["f32_causal_1024"]["library_ms"])
+          for part, line in (("dq", "tpu_flash/ops/flash_bwd.py:137"),
+                             ("dkv", "tpu_flash/ops/flash_bwd.py:252"))],
         # the plain backward and the library's fused backward (K/V expanded
         # to 16 heads outside the call) each compute dq, dk and dv in one
         # call: their times stand in both rows; device times at the
@@ -7254,7 +7508,9 @@ def main() -> int:
                source="tpu_flash_torch/csrc/flash_bwd.cu", replaces=line,
                launches=launches[f"flash_bwd_{part}"],
                launches_train_sliding=train_sliding[f"flash_bwd_{part}"],
-               **new_paths(f"flash_bwd_{part}"),
+               # the EP dry run's float32 launches stand in the float32 rows
+               **{k_: v_ for k_, v_ in new_paths(f"flash_bwd_{part}").items()
+                  if k_ != "launches_ep_dryrun"},
                max_abs_err=b45["max_abs_err"],
                **_timing(b45["train_4x1024"][part]),
                library_ms=b45["train_4x1024"]["library_ms"])

@@ -965,6 +965,65 @@ def test_flash_bwd_wide_bf16_runs_tma_kernels(gen, d):
                    or "wmma" in n.lower() for n in names), names
 
 
+@pytest.mark.parametrize("d", [32, 64, 128])
+def test_flash_bwd_f32_runs_tf32_kernels(gen, d):
+    """float32 B4/B5 at head dims 32 (zero-padded to 64), 64 and 128 launch
+    flash_bwd_f32.cu's 3×TF32 kernels (flash_bwd_dq_f32, flash_bwd_dkv_f32),
+    by their device names under torch.profiler, and neither of
+    flash_bwd.cuh's FMA kernels (flash_bwd_dq_kernel, flash_bwd_dkv_kernel:
+    float32 at 256 and 512 alone now)."""
+    args = _bwd_args(gen, 1, 4, 2, 300, 300, d, True, torch.float32)
+    names = _device_kernels(lambda: tflash_bwd._flash_bwd_kernel(*args))
+    assert any("flash_bwd_dq_f32" in n for n in names), names
+    assert any("flash_bwd_dkv_f32" in n for n in names), names
+    assert not any("flash_bwd_dq_kernel" in n or "flash_bwd_dkv_kernel" in n
+                   for n in names), names
+
+
+# float32 on the 3×TF32 kernels: d 64 and 128 causal, GQA 4 at a ragged n,
+# and the int8 dp product at 128
+_BWD_F32 = [((1, 16, 8, 1024, 1024, 64, True, torch.float32), None),
+            ((1, 16, 8, 1024, 1024, 128, True, torch.float32), None),
+            ((1, 32, 8, 1000, 1000, 128, True, torch.float32), None),
+            ((1, 16, 8, 500, 500, 128, False, torch.float32), "dp")]
+
+
+def _rms(a, b):
+    """root-mean-square of a − b relative to that of b"""
+    a, b = a.double(), b.double()
+    return float((a - b).pow(2).mean().sqrt() / b.pow(2).mean().sqrt())
+
+
+@pytest.mark.parametrize("case,quant", _BWD_F32,
+                         ids=["d64", "d128", "gqa4_ragged", "dp_dense"])
+def test_flash_bwd_f32_tracks_tf32x3_model(gen, case, quant):
+    """The float32 kernels against the plain backward through the model of
+    their product (flash_bwd.tf32x3) and against the exact plain backward:
+    within 1e-4 of the largest grad of each, and nearer the model than the
+    exact path over the three grads (root-mean-square; both measures
+    printed for each grad: at ~2e-6 the largest entry's error is as much
+    the float32 sums' order as the split). The same kernels on one TF32
+    pass (hi·hi alone) must fail the 1e-4 check against the exact path on
+    each grad: the gate tells 3×TF32 from TF32."""
+    args = _bwd_args(gen, *case)
+    got = tflash_bwd._flash_bwd_kernel(*args, quant)
+    exact = tflash_bwd._flash_bwd_plain(*args, quant)
+    model = tflash_bwd._flash_bwd_plain(*args, quant,
+                                        products=tflash_bwd.tf32x3)
+    one = tflash_bwd._flash_bwd_kernel(*args, quant, tf32_passes=1)
+    torch.cuda.synchronize()
+    for name, a, e, m, o in zip("qkv", got, exact, model, one):
+        to_model, to_exact = _rel(a, m), _rel(a, e)
+        print(f"d{name}: max vs tf32x3 model {to_model:.3e}, vs exact "
+              f"{to_exact:.3e}; rms vs model {_rms(a, m):.3e}, vs exact "
+              f"{_rms(a, e):.3e}; one pass vs exact {_rel(o, e):.3e}")
+        assert to_exact <= 1e-4 and to_model <= 1e-4, (name, to_exact, to_model)
+        assert _rel(o, e) > 1e-4, (name, _rel(o, e))
+    flat = [torch.cat([x.flatten() for x in xs]) for xs in (got, model, exact)]
+    assert _rms(flat[0], flat[1]) < _rms(flat[0], flat[2]), (
+        _rms(flat[0], flat[1]), _rms(flat[0], flat[2]))
+
+
 @pytest.mark.parametrize("case", [_BWD_CASES[1], _BWD_CASES[4]],
                          ids=["ragged_bf16", "dense_f32"])
 def test_flash_grads_match_oracle(gen, case):

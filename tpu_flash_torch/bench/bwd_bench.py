@@ -7,7 +7,10 @@ Shapes (``chip_smoke.py``'s): the training shape (b 4, 16 q / 8 kv heads,
 n 1024 causal, d 128), d 64 at b 1, the sliding training shape (b 2,
 n 2048, local_causal radius 512, d 128), d 256 at b 1 (16/8 heads, n 1024
 causal) and the wide training shape (b 4, 4 q / 2 kv heads, n 1025 causal,
-d 512), bf16, on prepared operands (``_kernel_operands``). It calls only what every checkout of the port has
+d 512), bf16; then float32 at b 1, 16/8 heads, n 1024 causal, d 128, 64
+and 256, and at the wide training shape. All on prepared operands
+(``_kernel_operands``); ``chip_smoke.py``'s flash_bwd phase times the
+library's backward beside these rows. It calls only what every checkout of the port has
 had since B4/B5 came in (a schedule the checkout's kernels refuse prints
 its error in place of the times), so the same script times an older
 checkout on ``PYTHONPATH`` beside this one: run it as a file path from
@@ -21,12 +24,18 @@ import subprocess
 
 import torch
 
-# (name, batch, hq, hkv, n, d, schedule, radius)
-CASES = [("train_4x1024", 4, 16, 8, 1024, 128, "causal", 0),
-         ("d64_causal_1024", 1, 16, 8, 1024, 64, "causal", 0),
-         ("sliding_train_2x2048", 2, 16, 8, 2048, 128, "local_causal", 512),
-         ("d256_causal_1024", 1, 16, 8, 1024, 256, "causal", 0),
-         ("wide_train_4x1025", 4, 4, 2, 1025, 512, "causal", 0)]
+BF16, F32 = torch.bfloat16, torch.float32
+# (name, batch, hq, hkv, n, d, schedule, radius, dtype)
+CASES = [("train_4x1024", 4, 16, 8, 1024, 128, "causal", 0, BF16),
+         ("d64_causal_1024", 1, 16, 8, 1024, 64, "causal", 0, BF16),
+         ("sliding_train_2x2048", 2, 16, 8, 2048, 128, "local_causal", 512,
+          BF16),
+         ("d256_causal_1024", 1, 16, 8, 1024, 256, "causal", 0, BF16),
+         ("wide_train_4x1025", 4, 4, 2, 1025, 512, "causal", 0, BF16),
+         ("f32_causal_1024", 1, 16, 8, 1024, 128, "causal", 0, F32),
+         ("f32_d64_causal_1024", 1, 16, 8, 1024, 64, "causal", 0, F32),
+         ("f32_d256_causal_1024", 1, 16, 8, 1024, 256, "causal", 0, F32),
+         ("f32_wide_train_4x1025", 4, 4, 2, 1025, 512, "causal", 0, F32)]
 
 
 def main() -> dict:
@@ -39,14 +48,14 @@ def main() -> dict:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip(), package=flash.__file__)
-    for name, b, hq, hkv, n, d, schedule, radius in CASES:
+    for name, b, hq, hkv, n, d, schedule, radius, dt in CASES:
         q = (torch.randn(b * hq, n, d, generator=gen, device="cuda")
-             * (d ** -0.5 * flash.LOG2E)).bfloat16()
+             * (d ** -0.5 * flash.LOG2E)).to(dt)
         k, v = (torch.randn(b * hkv, n, d, generator=gen, device="cuda")
-                .bfloat16() for _ in "kv")
+                .to(dt) for _ in "kv")
         sched = flash.build_schedule(schedule, n, n, 256, 256, radius=radius)
         o, lse = flash._flash_fwd_kernel(q, k, v, sched, hq, hkv, True)
-        do = torch.randn(b * hq, n, d, generator=gen, device="cuda").bfloat16()
+        do = torch.randn(b * hq, n, d, generator=gen, device="cuda").to(dt)
         dlse = torch.randn(b * hq, n, generator=gen, device="cuda")
         try:
             ops = fb._kernel_operands(q, k, v, o, lse, do, dlse, sched, hq,

@@ -1,9 +1,10 @@
 // B4/B5's parameters and their float32 FMA kernels, shared by flash_bwd.cu
-// (the entry points, the TMA + wgmma kernels of widths 64 and 128, and the
-// instantiations up to width 256) and flash_bwd_wide.cu (the width-512
-// instantiations), which compile side by side. The bf16 kernels of widths
-// 256 and 512 are in flash_bwd_tc.cuh. The design is described at the top of
-// flash_bwd.cu.
+// (the entry points, the bf16 TMA + wgmma kernels of widths 64 and 128, and
+// the FMA instantiation at width 256), flash_bwd_wide.cu (the width-512
+// instantiations) and flash_bwd_f32.cu (float32 at widths 64 and 128 on
+// 3×TF32 wgmma), which compile side by side. The bf16 kernels of widths 256
+// and 512 are in flash_bwd_tc.cuh. The design is described at the top of
+// flash_bwd.cu (float32 at 64 and 128: flash_bwd_f32.cu).
 
 #pragma once
 
@@ -35,6 +36,8 @@ struct BwdParams {
   int n_q, n_kv, kind, offset, radius, section;
   int hq, hkv;
   int dv_cols;  // B5: the caller's value dim; a half past it takes no dV
+  int tf32_passes;  // float32 at widths 64, 128: 3 (3×TF32), or 1 (one TF32
+                    // pass: the chip check's planted fault)
 };
 
 // B4 and B5 at width 512 (dtype 0 float32, 1 bf16), in flash_bwd_wide.cu
@@ -42,6 +45,11 @@ cudaError_t launch_wide_dq(const BwdParams& p, int bh, int dtype, bool dp,
                            cudaStream_t stream);
 cudaError_t launch_wide_dkv(const BwdParams& p, int bh_kv, int dtype, bool dp,
                             cudaStream_t stream);
+
+// B4 and B5 in float32 at widths 64 and 128 (3×TF32 on wgmma), in
+// flash_bwd_f32.cu
+cudaError_t launch_f32_dq(const BwdParams& p, int bh, int d, bool dp, cudaStream_t stream);
+cudaError_t launch_f32_dkv(const BwdParams& p, int bh_kv, int d, bool dp, cudaStream_t stream);
 
 }  // namespace tf_bwd
 
@@ -56,7 +64,7 @@ __host__ __device__ __forceinline__ Sched sched_of(const BwdParams& p) {
   return Sched{p.n_q, p.n_kv, p.kind, p.offset, p.radius, p.section};
 }
 
-// ------------------------------------------------------ float32: FMA
+// ------------------------------------- float32 at widths 256, 512: FMA
 
 constexpr int PAD = 4;  // float rows 16 B aligned, banks shifted
 
@@ -65,13 +73,15 @@ constexpr int PAD = 4;  // float rows 16 B aligned, banks shifted
 // over the full width, so each half recomputes S and dP.
 template <int HD> constexpr int OUT_COLS = HD > 256 ? 256 : HD;
 
-// Tiles. B4: BQ q rows per block, BKV kv rows per step; B5: BKV5 kv rows per
-// block, BQD q rows per step. A block has one warp per 16 rows of its own
-// tile (BQ or BKV5): 64 rows up to width 128, 32 at 256 (which also steps
-// 32 rows), 16 (one warp) at 512, so that every variant fits in 227 KB.
+// Tiles (widths 256 and 512). B4: BQ q rows per block, BKV kv rows per
+// step; B5: BKV5 kv rows per block, BQD q rows per step. A block has one
+// warp per 16 rows of its own tile (BQ or BKV5): 32 at 256 (which also
+// steps 32 rows), 16 (one warp) at 512, so that every variant fits in
+// 227 KB.
 template <int HD> struct Cfg {
-  static constexpr int BQ = HD == 512 ? 16 : HD == 256 ? 32 : 64;
-  static constexpr int BKV = HD == 512 ? 16 : HD == 256 ? 32 : 64;
+  static_assert(HD == 256 || HD == 512, "float32 at 64 and 128: flash_bwd_f32.cu");
+  static constexpr int BQ = HD == 512 ? 16 : 32;
+  static constexpr int BKV = BQ;
   static constexpr int BKV5 = BQ;
   static constexpr int BQD = HD == 512 ? 16 : 32;
 };

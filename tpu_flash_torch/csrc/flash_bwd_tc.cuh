@@ -127,8 +127,8 @@ __device__ __forceinline__ void wait_own(uint64_t* bar, uint32_t& phases, int i)
   phases ^= 1u << i;
 }
 
-// A hand-off between a wide kernel's two consumers through shared memory
-// (B4's p and ds at 512, B5's pᵀ and dsᵀ): the giver
+// A hand-off between a kernel's two consumers through shared memory (B4's
+// p and ds at 512, B5's pᵀ and dsᵀ; flash_bwd_f32.cu's P and dS): the giver
 // arrives on named barrier `id` once its writes are done, the taker waits
 // there before reading (256 threads: both consumer warpgroups).
 __device__ __forceinline__ void handoff_arrive(int id) {
@@ -172,9 +172,10 @@ __device__ __forceinline__ void store_rows(bf16* out, int ld, const float (&acc)
   }
 }
 
-// The tensor maps of both kernels: q, dO and qs over (bh, n_q, HD) bf16,
-// k and v over (bh_kv, n_kv, HD), and under dp dÔ over (bh, n_q) and v (V̂)
-// over (bh_kv, n_kv) rows of HD int8.
+// The tensor maps of both kernels: q, dO and qs over (bh, n_q, HD) of EB-byte
+// elements (bf16, or float32 in flash_bwd_f32.cu), k and v over
+// (bh_kv, n_kv, HD), and under dp dÔ over (bh, n_q) and v (V̂) over
+// (bh_kv, n_kv) rows of HD int8.
 struct Maps {
   CUtensorMap q, dout, k, v, qs, do8;
 };
@@ -193,23 +194,23 @@ cudaError_t launch_tc(Kern kern, dim3 grid, int threads, int smem, cudaStream_t 
 // on the q side and × KVROWS on the kv side; a map over an empty sequence
 // or of an operand the variant does not read is never read and takes
 // another's place
-template <int HD, int QROWS, int KVROWS>
+template <int HD, int QROWS, int KVROWS, int EB = 2>
 bool make_maps(Maps* m, const BwdParams& p, int bh) {
   const int bh_kv = bh / p.hq * p.hkv;
   const bool dp = p.v8 != nullptr;
   bool ok = true;
   if (p.n_q > 0) {
-    ok = make_map<2 * HD, QROWS, 128>(&m->q, p.q, p.n_q, bh);
+    ok = make_map<EB * HD, QROWS, 128>(&m->q, p.q, p.n_q, bh);
     m->dout = m->qs = m->do8 = m->q;
-    if (ok && p.dout != nullptr) ok = make_map<2 * HD, QROWS, 128>(&m->dout, p.dout, p.n_q, bh);
-    if (ok && p.qs != nullptr) ok = make_map<2 * HD, QROWS, 128>(&m->qs, p.qs, p.n_q, bh);
+    if (ok && p.dout != nullptr) ok = make_map<EB * HD, QROWS, 128>(&m->dout, p.dout, p.n_q, bh);
+    if (ok && p.qs != nullptr) ok = make_map<EB * HD, QROWS, 128>(&m->qs, p.qs, p.n_q, bh);
     if (ok && dp) ok = make_map<HD, QROWS, 128>(&m->do8, p.do8, p.n_q, bh);
   }
   if (ok && p.n_kv > 0) {
-    ok = make_map<2 * HD, KVROWS, 128>(&m->k, p.k, p.n_kv, bh_kv);
+    ok = make_map<EB * HD, KVROWS, 128>(&m->k, p.k, p.n_kv, bh_kv);
     if (ok)
       ok = dp ? make_map<HD, KVROWS, 128>(&m->v, p.v8, p.n_kv, bh_kv)
-              : make_map<2 * HD, KVROWS, 128>(&m->v, p.v, p.n_kv, bh_kv);
+              : make_map<EB * HD, KVROWS, 128>(&m->v, p.v, p.n_kv, bh_kv);
   }
   if (p.n_q == 0) m->q = m->dout = m->qs = m->do8 = m->k;
   if (p.n_kv == 0) m->k = m->v = m->q;

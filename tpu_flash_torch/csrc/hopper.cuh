@@ -1,13 +1,13 @@
 // Hopper (sm_90a) building blocks shared by the port's TMA + wgmma kernels:
-// B6/B7 (quant_attention.cu), B1 (flash_fwd.cu), B4/B5 (flash_bwd.cu), B14
-// (matmul.cu) and B2 (paged_attention.cu).
+// B6/B7 (quant_attention.cu), B1 (flash_fwd.cu), B4/B5 (flash_bwd.cu,
+// flash_bwd_f32.cu), B14 (matmul.cu) and B2 (paged_attention.cu).
 //
 // - swizzled shared-memory tiles (swz, tile_off) in the layout TMA writes
 //   under CU_TENSOR_MAP_SWIZZLE_128B / _64B and wgmma reads as SW128 / SW64;
 // - wgmma shared-memory descriptors, K-major (desc) and MN-major (desc_mn);
 // - mbarriers, TMA tile loads, 1-D bulk copies and the async-proxy fence;
-// - the wgmma wrappers (one per operand type and tile width), their
-//   fences and waits;
+// - the wgmma wrappers (one per operand type and tile width: bf16, e4m3,
+//   e5m2, s8 and tf32), their fences and waits;
 // - quad (accumulator-row) reductions and ex2.approx;
 // - tensor maps through cuTensorMapEncodeTiled (K/V tiles, row-major byte
 //   matrices, boxes of a 3-D byte tensor), found through the runtime (no
@@ -357,6 +357,30 @@ template <> __device__ __forceinline__ void wgmma_rs_bf16<256, 1>(float (&d)[128
         "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b));
+}
+
+// tf32 × tf32 (m64nNk8, float32 sums), RS: A as four 32-bit registers a
+// thread (rows lane/4 and lane/4 + 8 of the warp's 16, columns lane%4 and
+// lane%4 + 4), B K-major through a shared-memory descriptor (the tf32
+// shapes take no transpose bit). The tensor cores read the top 19 bits of
+// each float32 word (bench/tf32_probe.py). acc_in 0 overwrites d, else adds
+// to it.
+template <int N> __device__ void wgmma_rs_tf32(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t b, int acc_in);
+template <> __device__ __forceinline__ void wgmma_rs_tf32<32>(float (&d)[16], const uint32_t (&a)[4], uint64_t b, int acc_in) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc_in));
+}
+template <> __device__ __forceinline__ void wgmma_rs_tf32<64>(float (&d)[32], const uint32_t (&a)[4], uint64_t b, int acc_in) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc_in));
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {

@@ -28,13 +28,20 @@ so σv per kv row is the same. Only where the reference applies it (not
 when d ≤ 64 and dv ≤ 64, the caller's widths); elsewhere the flag is
 ignored.
 
+float32 on the card: B4/B5 take each product in three TF32 passes
+(3×TF32, ``csrc/flash_bwd_f32.cu``; widths 256 and 512 on FMA kernels).
+:func:`tf32x3` models that product; :func:`_flash_bwd_plain` takes it as
+``products=`` for the tests and the chip check, and stays exact float32
+otherwise.
+
 GQA: k/v hold ``B·HKV`` rows. The reference expands K/V and sums each
 group's per-head dK/dV after rounding them; here the group sums in float32
 and rounds once, so the two agree within bf16 rounding, not bit for bit.
 
 :func:`flash_backward` dispatches on the tensors' device: CPU tensors take
 the plain PyTorch version :func:`_flash_bwd_plain`; CUDA tensors launch B4
-then B5 (``csrc/flash_bwd.cu``) through :func:`_flash_bwd_kernel`, or raise.
+then B5 (``csrc/flash_bwd.cu``, float32 at widths 64 and 128
+``csrc/flash_bwd_f32.cu``) through :func:`_flash_bwd_kernel`, or raise.
 """
 
 from __future__ import annotations
@@ -126,12 +133,51 @@ def check_split(split: Optional[int], sched: Schedule) -> None:
             "into 128-aligned sub-tiles")
 
 
+# the bits of a float32 word that the tensor cores read as tf32: its top 19
+# (sign, exponent, 10 mantissa bits); they drop the other 13
+# (bench/tf32_probe.py)
+_TF32_MASK = -8192  # 0xffffe000 as an int32
+
+
+def tf32_split(x: torch.Tensor):
+    """float32 ``x`` → (hi, lo): hi as the tensor cores read x (its low 13
+    bits cleared), lo = x − hi (exact in float32) as they read it in turn."""
+    def trunc(t):
+        return (t.contiguous().view(torch.int32) & _TF32_MASK).view(
+            torch.float32)
+
+    x = x.float()
+    hi = trunc(x)
+    return hi, trunc(x - hi)
+
+
+def tf32x3(eq: str, a: torch.Tensor, b: torch.Tensor,
+           passes: int = 3) -> torch.Tensor:
+    """``torch.einsum(eq, a, b)`` as the float32 kernels compute it: each
+    operand split by :func:`tf32_split`, then hi·hi + hi·lo + lo·hi in
+    float32, the lo·lo products left out (3×TF32); ``passes=1``: hi·hi
+    alone, one TF32 pass. A model of the card's product for the tests and
+    the chip check; no main path calls it."""
+    (ah, al), (bh, bl) = tf32_split(a), tf32_split(b)
+    out = torch.einsum(eq, ah, bh)
+    if passes == 3:
+        out = out + torch.einsum(eq, ah, bl) + torch.einsum(eq, al, bh)
+    return out
+
+
+def _exact(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return torch.einsum(eq, a.float(), b.float())
+
+
 def _flash_bwd_plain(q, k, v, o, lse, do, dlse, sched: Schedule, hq: int,
-                     hkv: int, quant: Optional[str] = None):
+                     hkv: int, quant: Optional[str] = None, products=None):
     """Plain PyTorch backward with full score matrices → (dq, dk, dv) in
     q's, k's and v's dtypes. Same contract as :func:`_flash_bwd_kernel`.
     Under dp, dp_raw is a float32 product of int8-valued tensors: exact
-    (|sum| ≤ 256·127² < 2²⁴), as the kernels' integer sums are."""
+    (|sum| ≤ 256·127² < 2²⁴), as the kernels' integer sums are.
+    ``products``: the (eq, a, b) → float32 product of the float operands
+    (default exact float32; :func:`tf32x3` models the card's float32
+    kernels)."""
     bh, n_q, _ = q.shape
     b = bh // hq
     n_kv = k.shape[1]
@@ -140,7 +186,8 @@ def _flash_bwd_plain(q, k, v, o, lse, do, dlse, sched: Schedule, hq: int,
     kq = k[rows]
     delta, lse2 = _delta_lse2(o, lse, do, dlse)
     dp_quant = dp_applies(quant, q.shape[-1], v.shape[-1])
-    s = torch.einsum("bqd,bkd->bqk", q.float(), kq.float())
+    mm = _exact if products is None else products
+    s = mm("bqd,bkd->bqk", q.float(), kq.float())
     mask = sched.visible(torch.arange(n_q, device=q.device)[:, None],
                          torch.arange(n_kv, device=q.device)[None, :])
     if mask is not None:
@@ -151,14 +198,12 @@ def _flash_bwd_plain(q, k, v, o, lse, do, dlse, sched: Schedule, hq: int,
         dp = torch.einsum("bqd,bkd->bqk", do8.float(), v8[rows].float())
         dq_scale, dk_q = (sdo * LN2)[..., None], qs
     else:
-        dp = torch.einsum("bqd,bkd->bqk", do.to(v.dtype).float(),
-                          v[rows].float())
+        dp = mm("bqd,bkd->bqk", do.to(v.dtype).float(), v[rows].float())
         dq_scale, dk_q = LN2, q
     ds = p * (dp - delta[..., None])
-    dq = torch.einsum("bqk,bkd->bqd", ds.to(k.dtype).float(),
-                      kq.float()) * dq_scale
-    dv = torch.einsum("bqk,bqd->bkd", p.to(do.dtype).float(), do.float())
-    dk = torch.einsum("bqk,bqd->bkd", ds.to(q.dtype).float(), dk_q.float())
+    dq = mm("bqk,bkd->bqd", ds.to(k.dtype).float(), kq.float()) * dq_scale
+    dv = mm("bqk,bqd->bkd", p.to(do.dtype).float(), do.float())
+    dk = mm("bqk,bqd->bkd", ds.to(q.dtype).float(), dk_q.float())
 
     def group_sum(x):  # (B·HQ, n_kv, ·) → (B·HKV, n_kv, ·), float32
         return x.reshape(b, hkv, g, n_kv, -1).sum(dim=2).reshape(
@@ -168,13 +213,21 @@ def _flash_bwd_plain(q, k, v, o, lse, do, dlse, sched: Schedule, hq: int,
             group_sum(dv).to(v.dtype))
 
 
-def _kernel_args(q, k, sched: Schedule, hq: int, hkv: int):
+# dtype code of float32 on one TF32 pass (csrc/flash_bwd.cu:dispatch): the
+# chip check's planted fault, reached only through _flash_bwd_kernel's
+# tf32_passes
+_F32_ONE_PASS = 2
+
+
+def _kernel_args(q, k, sched: Schedule, hq: int, hkv: int,
+                 code: Optional[int] = None):
     """The scalar arguments both kernels share: sizes, the schedule
     (``ops/flash.py:kernel_schedule``; the kernels pick their own tiles),
-    dtype code and stream."""
+    dtype code (q's, unless ``code``) and stream."""
+    if code is None:
+        code = kernels.dtype_code(q.dtype)
     return (q.shape[1], k.shape[1], hq, hkv, q.shape[-1],
-            *kernel_schedule(sched), kernels.dtype_code(q.dtype),
-            kernels.stream_handle(q))
+            *kernel_schedule(sched), code, kernels.stream_handle(q))
 
 
 def _ptr(t):
@@ -182,9 +235,10 @@ def _ptr(t):
 
 
 def _dq_kernel(q, k, v, do, lse2, delta, dp, sched: Schedule, hq: int,
-               hkv: int):
+               hkv: int, *, _code: Optional[int] = None):
     """Launch B4 on checked, aligned operands (see
-    :func:`_kernel_operands`; ``dp`` is None or (v̂, dÔ, qs, σdo)) → dq."""
+    :func:`_kernel_operands`; ``dp`` is None or (v̂, dÔ, qs, σdo)) → dq.
+    ``_code``: set by :func:`_flash_bwd_kernel` alone."""
     from tpu_flash_torch.kernels import _build
 
     v8, do8, _, sdo = (None,) * 4 if dp is None else dp
@@ -192,23 +246,26 @@ def _dq_kernel(q, k, v, do, lse2, delta, dp, sched: Schedule, hq: int,
     err = _build.library().tf_flash_bwd_dq(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse2.data_ptr(), delta.data_ptr(), dq.data_ptr(), _ptr(v8),
-        _ptr(do8), _ptr(sdo), q.shape[0], *_kernel_args(q, k, sched, hq, hkv))
+        _ptr(do8), _ptr(sdo), q.shape[0],
+        *_kernel_args(q, k, sched, hq, hkv, _code))
     _build.check(err, "tf_flash_bwd_dq")
     kernels.LAUNCHES["flash_bwd_dq"] += 1
     return dq
 
 
 def _dkv_kernel(q, k, v, do, lse2, delta, dp, sched: Schedule, hq: int,
-                hkv: int, dv_cols: Optional[int] = None):
+                hkv: int, dv_cols: Optional[int] = None, *,
+                _code: Optional[int] = None):
     """Launch B5 on checked, aligned operands → (dk, dv). ``dv_cols``: the
     caller's value dim (default: all of v's columns); at width 512 a
     256-column half past it computes no dV, and its dv columns are left
-    unwritten."""
+    unwritten. ``_code``: set by :func:`_flash_bwd_kernel` alone."""
     from tpu_flash_torch.kernels import _build
 
     v8, do8, qs, _ = (None,) * 4 if dp is None else dp
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    n_q, n_kv, hq_, hkv_, width, *rest = _kernel_args(q, k, sched, hq, hkv)
+    n_q, n_kv, hq_, hkv_, width, *rest = _kernel_args(q, k, sched, hq, hkv,
+                                                      _code)
     err = _build.library().tf_flash_bwd_dkv(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse2.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
@@ -254,16 +311,24 @@ def _kernel_operands(q, k, v, o, lse, do, dlse, sched: Schedule, hq: int,
 
 
 def _flash_bwd_kernel(q, k, v, o, lse, do, dlse, sched: Schedule, hq: int,
-                      hkv: int, quant: Optional[str] = None):
+                      hkv: int, quant: Optional[str] = None,
+                      tf32_passes: int = 3):
     """Launch B4 then B5 (``csrc/flash_bwd.cu``) on CUDA tensors; same
     contract as :func:`_flash_bwd_plain`. Ragged edges are masked in the
     kernels; head and value dims are zero-padded to the compiled width
     (zero columns change no score, no Δ and no σ) and the grads sliced
-    back."""
+    back. ``tf32_passes=1`` (float32 at widths 64 and 128 only) runs the
+    float32 kernels on one TF32 pass, hi·hi alone: a planted fault for the
+    checks, which no user path takes."""
+    code = None
+    if tf32_passes != 3:
+        if tf32_passes != 1 or q.dtype != torch.float32:
+            raise ValueError(f"tf32_passes={tf32_passes} on {q.dtype}")
+        code = _F32_ONE_PASS
     d, dv_dim = q.shape[-1], v.shape[-1]
     ops = _kernel_operands(q, k, v, o, lse, do, dlse, sched, hq, hkv, quant)
-    dq = _dq_kernel(*ops, sched, hq, hkv)
-    dk, dv = _dkv_kernel(*ops, sched, hq, hkv, dv_dim)
+    dq = _dq_kernel(*ops, sched, hq, hkv, _code=code)
+    dk, dv = _dkv_kernel(*ops, sched, hq, hkv, dv_dim, _code=code)
     return (slice_head_dims(dq, d), slice_head_dims(dk, d),
             slice_head_dims(dv, dv_dim))
 
