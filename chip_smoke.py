@@ -28,7 +28,9 @@ and times the kernels at d 512, then takes
 three SGD train steps of the same model on 4 × 1025 tokens and checks their
 gradient against the f32 oracle attention's, three of the model in
 float32 (phase train_f32: B4/B5 on their 3×TF32 kernels, 48 launches of
-each by device name, the projections in full float32), and three of the
+each by device name, the projections in full float32), three of the wide
+model in float32 (phase train_wide_f32: B4/B5 at width 512 on the 3×TF32
+kernels that split the head dim across a 4-CTA cluster), and three of the
 same model with a sliding window (1025) on 2 × 2049 tokens, its gradient held against
 the sliding oracle's and shown to miss the causal oracle's, then runs the
 backward sweep at its quick shapes (tpu_flash_torch/bench/sweep.py), then
@@ -985,35 +987,41 @@ BWD_CASES = [
       for kind, width in (("local", 100), ("local_causal", 100),
                           ("circulant", 64), ("block", 250 if n == 1000 else 100))],
     *[(f"dp_{kind}_{w}_{str(dt)[6:]}", 1, 16, 8, n, n, w, kind, width, dt, "dp")
-      for w, dt, n in ((128, BF16, 1000), (256, BF16, 1000), (128, F32, 500))
+      for w, dt, n in ((128, BF16, 1000), (256, BF16, 1000), (128, F32, 500),
+                       (256, F32, 500))
       for kind, width in (("dense", 0), ("causal", 0), ("local_causal", 100))],
     ("d256_causal_1024", 1, 16, 8, 1024, 1024, 256, "causal", 0, BF16, None),
     ("f32_causal_1024", 1, 16, 8, 1024, 1024, 128, "causal", 0, F32, None),
-    # float32 on the 3×TF32 kernels: d 64, and GQA 4 at a ragged n; and on
-    # the FMA kernels at d 256
+    # float32 on the 3×TF32 kernels: d 64, d 256 (the head dim split across
+    # a 2-CTA cluster), and GQA 4 at a ragged n
     ("f32_d64_causal_1024", 1, 16, 8, 1024, 1024, 64, "causal", 0, F32, None),
     ("f32_d256_causal_1024", 1, 16, 8, 1024, 1024, 256, "causal", 0, F32,
      None),
     ("f32_gqa4_causal_1000", 1, 32, 8, 1000, 1000, 128, "causal", 0, F32,
      None),
-    # width 512 (flash_bwd_wide.cu) at the wide model's heads (4/2): the
-    # wide training shape (b 4, n 1025 causal), then bf16 d 512, 512 with
-    # dv 256 (the last entry), 320 and 264 (zero-padded) and float32 512,
-    # each under causal and local_causal radius 512 at a ragged n, and dp
+    # width 512 at the wide model's heads (4/2): the wide training shape
+    # (b 4, n 1025 causal) in bf16 (flash_bwd_wide.cu) and in float32 (a
+    # 4-CTA cluster a tile, flash_bwd_f32_wide.cu), then bf16 d 512, 512
+    # with dv 256 (the last entry), 320 and 264 (zero-padded) and float32
+    # 512, each under causal and local_causal radius 512 at a ragged n, and
+    # dp in bf16 and float32
     ("wide_train_4x1025", 4, 4, 2, 1025, 1025, 512, "causal", 0, BF16, None),
+    ("f32_wide_train_4x1025", 4, 4, 2, 1025, 1025, 512, "causal", 0, F32,
+     None),
     *[(f"wide_{quant or 'exact'}_{kind}_{d}{f'_dv{dv}' if dv != d else ''}"
        f"_{str(dt)[6:]}", 1, 4,
        2, 1000, 1000, d, kind, width, dt, quant, dv)
       for d, dv, dt, quant in ((512, 512, BF16, None), (512, 256, BF16, None),
                                (320, 320, BF16, None), (264, 264, BF16, None),
-                               (512, 512, F32, None), (512, 512, BF16, "dp"))
+                               (512, 512, F32, None), (512, 512, BF16, "dp"),
+                               (512, 512, F32, "dp"))
       for kind, width in (("causal", 0), ("local_causal", 512))],
 ]
 # the cases whose B4/B5 are timed, beside the library's fused backward
 BWD_TIMED = ("train_4x1024", "d64_causal_1024", "sliding_train_2x2048",
              "d256_causal_1024", "f32_causal_1024", "f32_d64_causal_1024",
              "f32_d256_causal_1024", "wide_exact_causal_512_float32",
-             "wide_train_4x1025")
+             "wide_train_4x1025", "f32_wide_train_4x1025")
 # B4/B5's planted faults: the plain backward under the case's schedule minus
 # one middle slab of 64 keys (dq, dk and dv must move) or of 64 queries (dk
 # and dv must move) must fail the kernel-vs-plain check, at the training
@@ -1021,17 +1029,25 @@ BWD_TIMED = ("train_4x1024", "d64_causal_1024", "sliding_train_2x2048",
 BWD_FAULT_SLAB = 64
 BWD_FAULT_CASES = ("train_4x1024", "sliding_train_2x2048", "wide_train_4x1025")
 # the rows whose device kernels are named: bf16 at widths 256 and 512 must
-# run flash_bwd_tc.cuh's TMA + wgmma kernels, float32 at 64 and 128
-# flash_bwd_f32.cu's 3×TF32 ones, never flash_bwd.cuh's block kernels
-# (float32 at 256 and 512 alone now; they once held the bf16 WMMA route and
-# float32 at every width)
+# run flash_bwd_tc.cuh's TMA + wgmma kernels, float32 flash_bwd_f32.cuh's
+# 3×TF32 ones (<columns a CTA, dp, CTAs a cluster>: the whole width at 64
+# and 128, a 128-column slice a CTA of a 2- or 4-CTA cluster at 256 and
+# 512), never the block kernels that once held the bf16 WMMA route and
+# float32 (the first port's FMA kernels, deleted)
 BWD_NAMED = {"d256_causal_1024": ("flash_bwd_dq_wide<256", "flash_bwd_dkv_wide<256"),
              "wide_train_4x1025": ("flash_bwd_dq_wide<512", "flash_bwd_dkv_wide<512"),
-             "f32_causal_1024": ("flash_bwd_dq_f32<128", "flash_bwd_dkv_f32<128"),
-             "f32_d64_causal_1024": ("flash_bwd_dq_f32<64", "flash_bwd_dkv_f32<64")}
-# the float32 kernels' names (3×TF32), and the FMA kernels' that they
-# replace at widths 64 and 128
-F32_KERNELS = ("flash_bwd_dq_f32<", "flash_bwd_dkv_f32<")
+             "f32_causal_1024": ("flash_bwd_dq_f32<128, false, 1>",
+                                 "flash_bwd_dkv_f32<128, false, 1>"),
+             "f32_d64_causal_1024": ("flash_bwd_dq_f32<64, false, 1>",
+                                     "flash_bwd_dkv_f32<64, false, 1>"),
+             "f32_d256_causal_1024": ("flash_bwd_dq_f32<128, false, 2>",
+                                      "flash_bwd_dkv_f32<128, false, 2>"),
+             "f32_wide_train_4x1025": ("flash_bwd_dq_f32<128, false, 4>",
+                                       "flash_bwd_dkv_f32<128, false, 4>")}
+# the float32 kernels' names (3×TF32) at width 128 and at width 512, and
+# the deleted FMA kernels' that they replace
+F32_KERNELS = BWD_NAMED["f32_causal_1024"]
+F32_WIDE_KERNELS = BWD_NAMED["f32_wide_train_4x1025"]
 BLOCK_KERNELS = ("flash_bwd_dq_kernel", "flash_bwd_dkv_kernel")
 
 
@@ -1120,6 +1136,90 @@ def library_backward(q, k, v, do, causal, window_left=None):
     return (lambda: torch.autograd.grad(o, xs, do, retain_graph=True),
             "torch.autograd.grad of one saved scaled_dot_product_attention",
             False)
+
+
+def fastest_sdpa(q, k, v, do, hq: int, hkv: int) -> dict:
+    """The fastest float32 backward of scaled_dot_product_attention (causal)
+    on ``(B·H, n, d)`` operands, K/V expanded to the q heads outside the
+    timed call: for each backend that takes the shape, autograd of one
+    saved forward, the sum of its kernels' device times a call over 10
+    (profiler) → {ms, backend, kernels (the three longest), tried}. With
+    ``do`` None, the forward alone (B1's library call): the yardstick
+    beside ``tpu_flash_torch/bench/bwd_bench.py``'s float32 rows, which
+    the port's package may not name."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    from torch.profiler import ProfilerActivity, profile
+
+    g = hq // hkv
+    xs = [x.detach().unsqueeze(0).requires_grad_(True)
+          for x in (q, k.repeat_interleave(g, 0), v.repeat_interleave(g, 0))]
+    dout = None if do is None else do.unsqueeze(0)
+    best, tried = None, {}
+    for backend in (SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
+                    SDPBackend.CUDNN_ATTENTION, SDPBackend.MATH):
+        try:
+            with sdpa_kernel([backend]):
+                o = torch.nn.functional.scaled_dot_product_attention(
+                    *xs, is_causal=True)
+
+            def call(o=o, backend=backend):
+                if do is None:
+                    with sdpa_kernel([backend]), torch.no_grad():
+                        return torch.nn.functional.scaled_dot_product_attention(
+                            *xs, is_causal=True)
+                return torch.autograd.grad(o, xs, dout, retain_graph=True)
+
+            call()
+            torch.cuda.synchronize()
+        except RuntimeError as err:
+            tried[backend.name] = str(err)[:60]
+            continue
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(10):
+                call()
+            torch.cuda.synchronize()
+        kern = {e.key: e.self_device_time_total / 1e3 / 10
+                for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA}
+        ms = sum(kern.values())
+        tried[backend.name] = ms
+        if ms > 0 and (best is None or ms < best["ms"]):
+            best = dict(ms=ms, backend=backend.name, kernels={
+                k_[:100]: v_ for k_, v_ in sorted(
+                    kern.items(), key=lambda kv: -kv[1])[:3]})
+        del o
+    return dict(best or {}, tried=tried)
+
+
+# bench/bwd_bench.py's float32 rows: (name, B·HQ, B·HKV, n, d, backward)
+SDPA_F32_ROWS = [("f32_causal_1024", 16, 8, 1024, 128, True),
+                 ("f32_d64_causal_1024", 16, 8, 1024, 64, True),
+                 ("f32_d256_causal_1024", 16, 8, 1024, 256, True),
+                 ("f32_d512_causal_1000", 4, 2, 1000, 512, True),
+                 ("f32_wide_train_4x1025", 16, 8, 1025, 512, True),
+                 ("b1_f32_causal_1024", 16, 8, 1024, 128, False),
+                 ("b1_f32_d512_causal_1000", 4, 2, 1000, 512, False)]
+
+
+def sdpa_f32_rows() -> dict:
+    """The library's fastest float32 causal attention (backward, or
+    forward for B1's rows) at each SDPA_F32_ROWS shape
+    (:func:`fastest_sdpa`), printed as one JSON line with the card's name
+    and power limit. Alone: ``PYTHONPATH=$PWD python -c "import
+    chip_smoke as cs; cs.sdpa_f32_rows()"``."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    row = dict(device=subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60).stdout.strip())
+    for name, bhq, bhkv, n, d, backward in SDPA_F32_ROWS:
+        q, k, v = (torch.randn(h, n, d, generator=gen, device="cuda")
+                   for h in (bhq, bhkv, bhkv))
+        do = torch.randn(bhq, n, d, generator=gen, device="cuda")
+        row[name] = fastest_sdpa(q, k, v, do if backward else None, bhq, bhkv)
+    print(json.dumps(row), flush=True)
+    return row
 
 
 def rel_to_max(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -1252,15 +1352,17 @@ def child_trace(kind: str, case: str) -> None:
     process: of one call of BWD_CASES row ``case``'s B4/B5 ("port") or of
     10 of its library backward ("library"), on inputs drawn anew (which
     kernels run, and their times, depend on shapes and dtypes alone); or
-    of the float32 model's TRAIN_STEPS train steps at lr 0 ("train_f32")."""
+    of the float32 model's TRAIN_STEPS train steps at lr 0 ("train_f32",
+    and the wide model's, "train_wide_f32")."""
     from tpu_flash_torch import graft_entry
     from tpu_flash_torch.ops import flash_bwd
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
-    if kind == "train_f32":
-        params, tokens, mcfg = train_inputs(dict(MODEL, dtype="float32"),
+    if kind in ("train_f32", "train_wide_f32"):
+        model = MODEL_WIDE if kind == "train_wide_f32" else MODEL
+        params, tokens, mcfg = train_inputs(dict(model, dtype="float32"),
                                             TRAIN_TOKENS, dev)
         got = trace(lambda: [graft_entry.train_step(params, tokens, mcfg, 0.0)
                              for _ in range(TRAIN_STEPS)])
@@ -1310,10 +1412,12 @@ def bwd_operands(q, k, v, hq: int, hkv: int, schedule: str, width: int,
 def library_call(q, k, v, do, hq: int, hkv: int, schedule: str, width: int):
     """The library's backward of a BWD_CASES row on its (B, H, N, D) q, k,
     v and (B·H, N, dv) dO, K/V expanded to the q heads outside the timed
-    call (it then skips the group sum); above width 256 the fastest
-    backend that takes the head dim → (fn, call name, graphable)."""
+    call (it then skips the group sum); above width 256, and in float32
+    (which the flash backend refuses), the fastest backend that takes the
+    shape → (fn, call name, graphable)."""
     g = hq // hkv
-    return (library_backward_wide if q.shape[-1] > 256 else library_backward)(
+    wide = q.shape[-1] > 256 or q.dtype == torch.float32
+    return (library_backward_wide if wide else library_backward)(
         q, k.repeat_interleave(g, 1), v.repeat_interleave(g, 1),
         do.reshape(*q.shape[:3], do.shape[-1]), schedule != "dense",
         window_left=width if schedule == "local_causal" else None)
@@ -1411,8 +1515,8 @@ def bwd_timing(ops, sched, hq, hkv, dt, pairs, d, b, n_q, n_kv, quant,
     q_out, kv_out = e * b * hq * n_q * d, e * b * hkv * n_kv * d
     rows = 4 * b * hq * n_q_in
     prod = 2 * d * pairs
-    # float32 at widths 64 and 128: each product three tf32 ones (3×TF32)
-    ft = "tf32" if dt == torch.float32 and d <= 128 else dt
+    # float32: each product three tf32 ones (3×TF32)
+    ft = "tf32" if dt == torch.float32 else dt
     nt = 3 if ft == "tf32" else 1
     if quant is None:
         dq_ops, dkv_ops = {ft: 3 * nt * prod}, {ft: 4 * nt * prod}
@@ -1525,7 +1629,7 @@ def flash_bwd_phase(dev):
             if d > 256:  # each grad's upper half hidden must fail the check
                 row[f"planted_fault_upper_half{tag}"] = upper_half_faults(
                     f"B4/B5 {name}{tag}", first, plain, tol)
-            if dt == torch.float32 and d <= 128:
+            if dt == torch.float32:
                 # the 3×TF32 kernels: beside the exact plain backward, the
                 # plain one through the model of their product
                 # (flash_bwd.tf32x3), reported; and the same kernels on one
@@ -2880,6 +2984,51 @@ def wide_heads_train_phase(dev) -> dict:
     emit(dict(phase="wide_heads_train_checks", plain_calls_on_cuda=plain_calls,
               last_layer_b4_b5=held))
     del rec, got, plain
+    return dict(launches=launches, held=held)
+
+
+def train_wide_f32_phase(dev) -> dict:
+    """The wide-head model in float32 (MODEL_WIDE, ``dtype="float32"``):
+    three SGD steps on 4 × 1025 tokens at full width and depth through B1
+    and B4/B5 at width 512 on flash_bwd_f32.cuh's 3×TF32 kernels, the head
+    dim split across a 4-CTA cluster (train_phase: the gradient's cosine
+    and Δloss against the oracle-attention path, step ms, tokens/s, peak
+    memory, and 48 launches of each kernel by device name, none of the
+    deleted FMA kernels), the projections in full float32 (allow_tf32
+    False), with no plain version on a CUDA tensor meanwhile. Then the
+    backward's first B4/B5 call (the last layer's) re-run on its own
+    inputs (:func:`held_first_bwd`: bitwise the main path's, within 1e-4
+    of each grad's largest entry from the exact plain backward), and two
+    planted faults rejected on every grad: the same call on one TF32 pass,
+    and the plain backward with each grad's columns 256–511 zeroed."""
+    from tpu_flash_torch.ops import flash_bwd
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("train_wide_f32: the projections would run in "
+                             "TF32")
+    with first_bwd_call() as rec, no_plain_on_cuda() as plain_calls:
+        launches = train_phase(dev, "train_wide_f32",
+                               dict(MODEL_WIDE, dtype="float32"),
+                               TRAIN_TOKENS, named=F32_WIDE_KERNELS)
+        torch.cuda.synchronize()
+    if any(plain_calls.values()):
+        raise AssertionError(f"train_wide_f32: plain versions ran on CUDA "
+                             f"tensors: {plain_calls}")
+    held, got, plain = held_first_bwd("train_wide_f32", rec)
+    one = flash_bwd._flash_bwd_kernel(*rec["args"], rec["quant"],
+                                      tf32_passes=1)
+    errs = {f"d{x}": rel_to_max(a_, p_) for x, a_, p_ in zip("qkv", one, plain)}
+    passed = [x for x, e in errs.items() if e <= held["tol"]]
+    if passed:
+        raise AssertionError(f"train_wide_f32 B4/B5: planted fault "
+                             f"one_tf32_pass passes the kernel-vs-plain check "
+                             f"on {passed}: {errs}")
+    held["planted_fault_one_tf32_pass"] = errs
+    held["planted_fault_upper_half"] = upper_half_faults(
+        "train_wide_f32 B4/B5", got, plain, held["tol"], rel_to_max)
+    emit(dict(phase="train_wide_f32_checks", plain_calls_on_cuda=plain_calls,
+              last_layer_b4_b5=held))
+    del rec, got, plain, one
     return dict(launches=launches, held=held)
 
 
@@ -7269,6 +7418,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     wide_train = wide_heads_train_phase(dev)
     torch.cuda.empty_cache()
+    wide_f32 = train_wide_f32_phase(dev)
+    torch.cuda.empty_cache()
     train_sliding = train_sliding_phase(dev)
     torch.cuda.empty_cache()
     backward_sweep_phase(dev)
@@ -7481,22 +7632,44 @@ def main() -> int:
                "tpu_flash/quant/serving_attn.py:59"),
               ("quant_attention", "quant", "quant_e4m3",
                "tpu_flash/quant/flash_q.py:136"))],
-        # B4/B5 in float32 at widths 64 and 128 (flash_bwd_f32.cu, 3×TF32 on
-        # wgmma): launches from the float32 train run (and the EP dry run's
-        # float32 d 32 calls); times at b 1, 16/8 heads, n 1024 causal,
-        # d 128; bound: 3 tf32 products a float32 one at the tf32 peak;
-        # library: the float32 backward of scaled_dot_product_attention (K/V
-        # expanded), the sum of its kernels' device times (its kernels in
-        # the flash_bwd phase's line); max_abs_err: every float32 case at
-        # those widths
+        # B4/B5 in float32 at widths 64 and 128 (flash_bwd_f32.cuh, 3×TF32
+        # on wgmma): launches from the float32 train run (and the EP dry
+        # run's float32 d 32 calls); times at b 1, 16/8 heads, n 1024
+        # causal, d 128; bound: 3 tf32 products a float32 one at the tf32
+        # peak; library: the float32 backward of scaled_dot_product_
+        # attention (K/V expanded), the sum of its kernels' device times
+        # (its kernels in the flash_bwd phase's line); max_abs_err: every
+        # float32 case
         *[dict(name=f"flash_bwd_{part} (float32, 3xTF32)", route="cuda",
-               source="tpu_flash_torch/csrc/flash_bwd_f32.cu", replaces=line,
+               source="tpu_flash_torch/csrc/flash_bwd_f32.cuh", replaces=line,
                launches=train_f32[f"flash_bwd_{part}"],
                launches_ep_dryrun=slice_launches["ep_dryrun"].get(
                    f"flash_bwd_{part}", 0),
                max_abs_err=b45["max_abs_err_f32"],
                **_timing(b45["f32_causal_1024"][part]),
                library_ms=b45["f32_causal_1024"]["library_ms"])
+          for part, line in (("dq", "tpu_flash/ops/flash_bwd.py:137"),
+                             ("dkv", "tpu_flash/ops/flash_bwd.py:252"))],
+        # B4/B5 in float32 at widths 256 and 512 (flash_bwd_f32.cuh, the
+        # head dim split across a 2- or 4-CTA cluster, instantiated in
+        # flash_bwd_f32_wide.cu): launches from the wide model's float32
+        # train run (width 512); times at the wide training shape (b 4, 4/2
+        # heads, n 1025 causal, d 512) and, beside them, at d 256 (b 1,
+        # 16/8 heads, n 1024 causal); library: the fastest float32
+        # scaled_dot_product_attention backward that takes the shape (K/V
+        # expanded; its backend and kernels in the flash_bwd phase's line);
+        # max_abs_err: every float32 case and the train run's last-layer
+        # call
+        *[dict(name=f"flash_bwd_{part} (float32, 3xTF32, d 256/512 cluster)",
+               route="cuda", source="tpu_flash_torch/csrc/flash_bwd_f32.cuh",
+               replaces=line, launches=wide_f32["launches"][f"flash_bwd_{part}"],
+               launches_train_wide_f32=wide_f32["launches"][f"flash_bwd_{part}"],
+               max_abs_err=max(b45["max_abs_err_f32"],
+                               wide_f32["held"]["max_abs_err"]),
+               **_timing(b45["f32_wide_train_4x1025"][part]),
+               library_ms=b45["f32_wide_train_4x1025"]["library_ms"],
+               d256=dict(**_timing(b45["f32_d256_causal_1024"][part]),
+                         library_ms=b45["f32_d256_causal_1024"]["library_ms"]))
           for part, line in (("dq", "tpu_flash/ops/flash_bwd.py:137"),
                              ("dkv", "tpu_flash/ops/flash_bwd.py:252"))],
         # the plain backward and the library's fused backward (K/V expanded

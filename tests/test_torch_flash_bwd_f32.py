@@ -2,7 +2,8 @@
 the CPU.
 
 On the card B4/B5 take float32 products in three TF32 passes
-(``csrc/flash_bwd_f32.cu``): each operand split into hi (its low 13 bits
+(``csrc/flash_bwd_f32.cuh``, at widths 256 and 512 the head dim split
+across a cluster): each operand split into hi (its low 13 bits
 cleared, as the tensor cores read a float32 word) and lo = x − hi, then
 hi·hi + hi·lo + lo·hi. Here the plain backward runs with its products
 through that model, on the same numpy inputs as the reference's
@@ -39,13 +40,20 @@ torch.set_num_threads(2)
 TOL_PLAIN = 1e-4
 BLK = 128
 
-# (name, schedule, hq, hkv, n, d, radius, quant): causal at d 64 and 128
-# (GQA 2, ragged n off the 128 grid), local_causal and the int8 dp product
+# (name, schedule, hq, hkv, n, d, radius, quant): causal at every compiled
+# width (GQA 2, ragged n off the 128 grid), local_causal and the int8 dp
+# product at 128 and at the widths whose head dim the card splits across a
+# cluster (256, 512)
 CASES = [
     ("causal_d64", "causal", 4, 2, 200, 64, 0, None),
     ("causal_d128", "causal", 2, 2, 256, 128, 0, None),
     ("local_causal_d128", "local_causal", 4, 2, 300, 128, 40, None),
     ("dp_causal_d128", "causal", 4, 2, 200, 128, 0, "dp"),
+    ("causal_d256", "causal", 4, 2, 200, 256, 0, None),
+    ("causal_d512", "causal", 4, 2, 150, 512, 0, None),
+    ("local_causal_d256", "local_causal", 4, 2, 300, 256, 40, None),
+    ("dp_causal_d256", "causal", 4, 2, 200, 256, 0, "dp"),
+    ("dp_causal_d512", "causal", 2, 1, 150, 512, 0, "dp"),
 ]
 
 

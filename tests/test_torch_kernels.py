@@ -954,9 +954,9 @@ def _device_kernels(fn):
 def test_flash_bwd_wide_bf16_runs_tma_kernels(gen, d):
     """bf16 B4/B5 at widths 256 and 512 launch flash_bwd_tc.cuh's TMA +
     wgmma kernels (flash_bwd_dq_wide, flash_bwd_dkv_wide), by their device
-    names under torch.profiler, and neither of flash_bwd.cuh's block kernels
-    (flash_bwd_dq_kernel, flash_bwd_dkv_kernel: float32 alone now, and
-    before them the bf16 WMMA route)."""
+    names under torch.profiler, and neither of the block kernels that once
+    held them (flash_bwd_dq_kernel, flash_bwd_dkv_kernel: the bf16 WMMA
+    route, then float32 alone, now deleted)."""
     args = _bwd_args(gen, 1, 4, 2, 300, 300, d, True, torch.bfloat16)
     names = _device_kernels(lambda: tflash_bwd._flash_bwd_kernel(*args))
     assert any("flash_bwd_dq_wide" in n for n in names), names
@@ -965,13 +965,14 @@ def test_flash_bwd_wide_bf16_runs_tma_kernels(gen, d):
                    or "wmma" in n.lower() for n in names), names
 
 
-@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("d", [32, 64, 128, 256, 320, 512])
 def test_flash_bwd_f32_runs_tf32_kernels(gen, d):
-    """float32 B4/B5 at head dims 32 (zero-padded to 64), 64 and 128 launch
-    flash_bwd_f32.cu's 3×TF32 kernels (flash_bwd_dq_f32, flash_bwd_dkv_f32),
-    by their device names under torch.profiler, and neither of
-    flash_bwd.cuh's FMA kernels (flash_bwd_dq_kernel, flash_bwd_dkv_kernel:
-    float32 at 256 and 512 alone now)."""
+    """float32 B4/B5 at head dims 32 (zero-padded to 64), 64, 128, 256, 320
+    (zero-padded to 512) and 512 launch flash_bwd_f32.cuh's 3×TF32 kernels
+    (flash_bwd_dq_f32, flash_bwd_dkv_f32; at 256 and 512 a cluster a tile),
+    by their device names under torch.profiler, and none of the first port's FMA
+    kernels (flash_bwd_dq_kernel, flash_bwd_dkv_kernel, deleted) that held
+    256 and 512 before."""
     args = _bwd_args(gen, 1, 4, 2, 300, 300, d, True, torch.float32)
     names = _device_kernels(lambda: tflash_bwd._flash_bwd_kernel(*args))
     assert any("flash_bwd_dq_f32" in n for n in names), names
@@ -981,11 +982,20 @@ def test_flash_bwd_f32_runs_tf32_kernels(gen, d):
 
 
 # float32 on the 3×TF32 kernels: d 64 and 128 causal, GQA 4 at a ragged n,
-# and the int8 dp product at 128
+# and the int8 dp product at 128; the head dim split across a cluster at
+# 256 and 512: causal, GQA 4 at a ragged n, a value dim below the head dim
+# (the slices past it take no dV) and dp
 _BWD_F32 = [((1, 16, 8, 1024, 1024, 64, True, torch.float32), None),
             ((1, 16, 8, 1024, 1024, 128, True, torch.float32), None),
             ((1, 32, 8, 1000, 1000, 128, True, torch.float32), None),
-            ((1, 16, 8, 500, 500, 128, False, torch.float32), "dp")]
+            ((1, 16, 8, 500, 500, 128, False, torch.float32), "dp"),
+            ((1, 16, 8, 1024, 1024, 256, True, torch.float32), None),
+            ((1, 32, 8, 1000, 1000, 256, True, torch.float32), None),
+            ((1, 16, 8, 500, 500, 256, True, torch.float32, 128), None),
+            ((1, 16, 8, 500, 500, 256, False, torch.float32), "dp"),
+            ((1, 4, 2, 1000, 1000, 512, True, torch.float32), None),
+            ((1, 8, 2, 777, 777, 512, True, torch.float32, 256), None),
+            ((1, 4, 2, 500, 500, 512, True, torch.float32), "dp")]
 
 
 def _rms(a, b):
@@ -995,7 +1005,10 @@ def _rms(a, b):
 
 
 @pytest.mark.parametrize("case,quant", _BWD_F32,
-                         ids=["d64", "d128", "gqa4_ragged", "dp_dense"])
+                         ids=["d64", "d128", "gqa4_ragged", "dp_dense",
+                              "d256", "d256_gqa4_ragged", "d256_dv128",
+                              "d256_dp_dense", "d512", "d512_gqa4_dv256",
+                              "d512_dp"])
 def test_flash_bwd_f32_tracks_tf32x3_model(gen, case, quant):
     """The float32 kernels against the plain backward through the model of
     their product (flash_bwd.tf32x3) and against the exact plain backward:
@@ -1004,9 +1017,14 @@ def test_flash_bwd_f32_tracks_tf32x3_model(gen, case, quant):
     printed for each grad: at ~2e-6 the largest entry's error is as much
     the float32 sums' order as the split). The same kernels on one TF32
     pass (hi·hi alone) must fail the 1e-4 check against the exact path on
-    each grad: the gate tells 3×TF32 from TF32."""
+    each grad: the gate tells 3×TF32 from TF32. Two calls are bitwise
+    equal (at 256 and 512 the cluster's partial sums are added in rank
+    order)."""
     args = _bwd_args(gen, *case)
     got = tflash_bwd._flash_bwd_kernel(*args, quant)
+    again = tflash_bwd._flash_bwd_kernel(*args, quant)
+    for name, a, a2 in zip("qkv", got, again):
+        assert torch.equal(a, a2), f"d{name} differs between two calls"
     exact = tflash_bwd._flash_bwd_plain(*args, quant)
     model = tflash_bwd._flash_bwd_plain(*args, quant,
                                         products=tflash_bwd.tf32x3)
@@ -1642,7 +1660,7 @@ def test_circulant_and_block_public_calls_match_oracle(gen):
 # B4/B5's band, circulant and block-diagonal kinds: (schedule, radius or
 # section) at a ragged n 300 (1000 for the wider band) with GQA 4/2, in each
 # family: (width, dtype) = bf16 64, 128 and 256 (TMA + wgmma), float32
-# (FMA); dp where it applies (widths 128 and 256)
+# (3×TF32; 256 a cluster a tile); dp where it applies (widths 128 and 256)
 _BWD_KINDS = [("local", 40), ("local_causal", 40), ("circulant", 20),
               ("block", 64), ("local_causal", 512)]
 _BWD_FAMILIES = [(64, torch.bfloat16), (128, torch.bfloat16),
@@ -1797,14 +1815,18 @@ def test_flash_kernel_shifted_matches_plain(gen, hop, d, dtype, bound, n):
     assert bool((ko[~torch.isfinite(kl)] == 0).all())
 
 
-@pytest.mark.parametrize("family", _BWD_FAMILIES,
-                         ids=[f"{w}_{str(t)[6:]}" for w, t in _BWD_FAMILIES])
+_BWD_SHIFTED_FAMILIES = [*_BWD_FAMILIES, (512, torch.float32)]
+
+
+@pytest.mark.parametrize("family", _BWD_SHIFTED_FAMILIES, ids=[
+    f"{w}_{str(t)[6:]}" for w, t in _BWD_SHIFTED_FAMILIES])
 @pytest.mark.parametrize("hop", _SHIFTED, ids=[h[0] for h in _SHIFTED])
 def test_flash_bwd_kernels_shifted_match_plain(gen, hop, family):
     """B4/B5 on the shifted kinds in each family (bf16 64/128/256 wgmma,
-    float32 FMA) with an lse cotangent, GQA 4/2 at a ragged shard of
-    1000, vs the plain backward: bf16 1e-2, float32 1e-4 of the largest
-    grad; two calls bitwise equal."""
+    float32 3×TF32 at 64/128 and, a cluster a tile, 256/512) with an lse
+    cotangent, GQA 4/2 at a ragged shard of 1000, vs the plain backward:
+    bf16 1e-2, float32 1e-4 of the largest grad; two calls bitwise
+    equal."""
     d, dtype = family
     n, hq, hkv = 1000, 4, 2
     sched = _shifted_sched(hop, n)

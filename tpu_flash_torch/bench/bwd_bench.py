@@ -8,9 +8,14 @@ n 1024 causal, d 128), d 64 at b 1, the sliding training shape (b 2,
 n 2048, local_causal radius 512, d 128), d 256 at b 1 (16/8 heads, n 1024
 causal) and the wide training shape (b 4, 4 q / 2 kv heads, n 1025 causal,
 d 512), bf16; then float32 at b 1, 16/8 heads, n 1024 causal, d 128, 64
-and 256, and at the wide training shape. All on prepared operands
-(``_kernel_operands``); ``chip_smoke.py``'s flash_bwd phase times the
-library's backward beside these rows. It calls only what every checkout of the port has
+and 256, at d 512 (b 1, 4/2 heads, n 1000 causal) and at the wide
+training shape. All on prepared operands (``_kernel_operands``). Last, B1
+in float32 (``b1_f32_*``: device ms of one wrapper call) at b 1, 16/8
+heads, n 1024 causal, d 128, and at d 512 (4/2 heads, n 1000).
+``chip_smoke.py``'s flash_bwd phase times the library's backward beside
+the timed rows, and ``chip_smoke.sdpa_f32_rows`` the library's fastest
+float32 forward and backward at the float32 rows' shapes. It calls only
+what every checkout of the port has
 had since B4/B5 came in (a schedule the checkout's kernels refuse prints
 its error in place of the times), so the same script times an older
 checkout on ``PYTHONPATH`` beside this one: run it as a file path from
@@ -35,6 +40,7 @@ CASES = [("train_4x1024", 4, 16, 8, 1024, 128, "causal", 0, BF16),
          ("f32_causal_1024", 1, 16, 8, 1024, 128, "causal", 0, F32),
          ("f32_d64_causal_1024", 1, 16, 8, 1024, 64, "causal", 0, F32),
          ("f32_d256_causal_1024", 1, 16, 8, 1024, 256, "causal", 0, F32),
+         ("f32_d512_causal_1000", 1, 4, 2, 1000, 512, "causal", 0, F32),
          ("f32_wide_train_4x1025", 4, 4, 2, 1025, 512, "causal", 0, F32)]
 
 
@@ -66,6 +72,16 @@ def main() -> dict:
         row[name] = dict(
             dq_ms=device_ms(lambda: fb._dq_kernel(*ops, sched, hq, hkv)),
             dkv_ms=device_ms(lambda: fb._dkv_kernel(*ops, sched, hq, hkv)))
+    # B1 in float32 (its FMA kernel) at d 128 and at d 512
+    for name, hq, hkv, n, d in (("b1_f32_causal_1024", 16, 8, 1024, 128),
+                                ("b1_f32_d512_causal_1000", 4, 2, 1000, 512)):
+        q = (torch.randn(hq, n, d, generator=gen, device="cuda")
+             * (d ** -0.5 * flash.LOG2E))
+        k, v = (torch.randn(hkv, n, d, generator=gen, device="cuda")
+                for _ in "kv")
+        sched = flash.build_schedule("causal", n, n, 256, 256)
+        row[name] = dict(ms=device_ms(lambda: flash._flash_fwd_kernel(
+            q, k, v, sched, hq, hkv, True)))
     print(json.dumps(row), flush=True)
     return row
 

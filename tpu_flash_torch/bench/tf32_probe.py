@@ -1,7 +1,7 @@
 """What the card's tf32 tensor cores make of a float32 word, asked through
 the float32 B4/B5 themselves.
 
-B4/B5 in float32 (``csrc/flash_bwd_f32.cu``) split each operand into a
+B4/B5 in float32 (``csrc/flash_bwd_f32.cuh``) split each operand into a
 tf32 hi and a lo part. They clear hi's low 13 bits themselves where an
 operand comes from registers (A), but hand the raw float32 tile to
 ``wgmma`` as B's hi part. That is right only if the tensor cores drop a

@@ -124,21 +124,17 @@
 //   that one's elementwise pass runs under the other's products) measured
 //   no faster (PERF.md §6).
 //
-// float32 at widths 64 and 128 runs flash_bwd_f32.cu's kernels: 3×TF32 on
-// wgmma (no tensor core takes float32; three tf32 products of split
-// operands hold the reference's full-precision f32 dots within 1e-4 of the
-// largest grad) behind a TMA ring, A's fragments from shared memory into
-// registers because tf32 wgmma takes no transposed operand; its design is
+// float32 at every width runs the 3×TF32 kernels of flash_bwd_f32.cuh
+// (widths 64 and 128 instantiated in flash_bwd_f32.cu, 256 and 512 in
+// flash_bwd_f32_wide.cu): no tensor core takes float32, and three tf32
+// products of split operands hold the reference's full-precision f32 dots
+// within 1e-4 of the largest grad, on wgmma behind a TMA ring, A's
+// fragments from shared memory into registers because tf32 wgmma takes no
+// transposed operand. At 256 and 512 the head dim is split across a
+// thread-block cluster, a 128-column slice a CTA, the CTAs adding the score
+// products' partial sums through distributed shared memory. The design is
 // described there. dtype code 2 runs the same kernels with one TF32 pass, a
 // fault the chip check plants.
-// float32 at widths 256 and 512 runs the FMA kernels of flash_bwd.cuh: one
-// block of warps per 32-row (16 at 512) output tile, looping in the same
-// order, with the accumulators and score tiles in shared memory; B5 steps
-// 32 q rows (16 at 512). Under dp their int8 tiles sit in the V (and B4's
-// dO) slots in 16-byte column blocks, dP on __dp4a, and B5 loads qs over Q
-// once Sᵀ is taken. At 512 the output's halves go on the grid (blockIdx.z),
-// each recomputing S and dP; B5's upper half takes no dV where the caller's
-// value dim ends at or below 256.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -547,14 +543,14 @@ bool bad_sched(int hq, int hkv, const Sched& s) {
 }
 
 // one entry's dispatch over dtype (0 = float32, 1 = bfloat16, 2 = float32
-// with one TF32 pass), width (64, 128, 256) and dp: F's f32 (float32 at 64
-// and 128), fma (float32 at 256), tc (bf16 at 64 and 128) and wide (bf16 at
-// 256) launchers
+// with one TF32 pass), width (64, 128, 256, 512) and dp: F's f32 (float32
+// at every width), tc (bf16 at 64 and 128), wide (bf16 at 256) and wide512
+// (bf16 at 512, flash_bwd_wide.cu) launchers
 template <class F>
 cudaError_t dispatch(const BwdParams& p, int rows, int d, int dtype, bool dp,
                      cudaStream_t stream) {
   if (dp && d == 64) return cudaErrorInvalidValue;  // the reference ignores dp there
-  if ((dtype == 0 || dtype == 2) && (d == 64 || d == 128)) {
+  if (dtype == 0 || dtype == 2) {
     BwdParams q = p;
     q.tf32_passes = dtype == 0 ? 3 : 1;
     return F::f32(q, rows, d, dp, stream);
@@ -567,10 +563,7 @@ cudaError_t dispatch(const BwdParams& p, int rows, int d, int dtype, bool dp,
     if (d == 256)
       return dp ? F::template wide<256, true>(p, rows, stream)
                 : F::template wide<256, false>(p, rows, stream);
-  } else if (dtype == 0) {
-    if (d == 256)
-      return dp ? F::template fma<256, true>(p, rows, stream)
-                : F::template fma<256, false>(p, rows, stream);
+    if (d == 512) return F::wide512(p, rows, dtype, dp, stream);
   }
   return cudaErrorInvalidValue;
 }
@@ -579,9 +572,8 @@ struct Dq {
   static cudaError_t f32(const BwdParams& p, int bh, int d, bool dp, cudaStream_t s) {
     return tf_bwd::launch_f32_dq(p, bh, d, dp, s);
   }
-  template <int HD, bool DP>
-  static cudaError_t fma(const BwdParams& p, int bh, cudaStream_t s) {
-    return launch_dq<HD, DP>(p, bh, s);
+  static cudaError_t wide512(const BwdParams& p, int bh, int dtype, bool dp, cudaStream_t s) {
+    return tf_bwd::launch_wide_dq(p, bh, dtype, dp, s);
   }
   template <int HD, bool DP>
   static cudaError_t tc(const BwdParams& p, int bh, cudaStream_t s) {
@@ -596,9 +588,9 @@ struct Dkv {
   static cudaError_t f32(const BwdParams& p, int bh_kv, int d, bool dp, cudaStream_t s) {
     return tf_bwd::launch_f32_dkv(p, bh_kv, d, dp, s);
   }
-  template <int HD, bool DP>
-  static cudaError_t fma(const BwdParams& p, int bh_kv, cudaStream_t s) {
-    return launch_dkv<HD, DP>(p, bh_kv, s);
+  static cudaError_t wide512(const BwdParams& p, int bh_kv, int dtype, bool dp,
+                             cudaStream_t s) {
+    return tf_bwd::launch_wide_dkv(p, bh_kv, dtype, dp, s);
   }
   template <int HD, bool DP>
   static cudaError_t tc(const BwdParams& p, int bh_kv, cudaStream_t s) {
@@ -615,8 +607,8 @@ struct Dkv {
 // q, dout: (bh, n_q, d), q prescaled; k, v: (bh / hq · hkv, n_kv, d);
 // lse2 = clamped lse · log2(e) and delta: (bh, n_q) float32; dq like q.
 // All contiguous, 16-byte aligned, one dtype (0 = float32, 1 = bfloat16; 2
-// = float32 on one TF32 pass, widths 64 and 128 only: a planted fault for
-// the checks, never a user path's).
+// = float32 on one TF32 pass: a planted fault for the checks, never a user
+// path's).
 // d ∈ {64, 128, 256, 512} (the wrapper zero-pads other head and value
 // dims).
 // kind, offset, radius, section: the schedule (schedule.cuh; offset is the
@@ -625,8 +617,8 @@ struct Dkv {
 // dp: v8 (V̂, like v, int8), do8 (dÔ, like dout, int8) and sdo (σdo, like
 // lse2) non-null, delta divided by σdo; v and dout are then not read; not
 // at d 64. bf16 takes a TMA + wgmma kernel (widths 256 and 512 those of
-// flash_bwd_tc.cuh), float32 at 64 and 128 flash_bwd_f32.cu's 3×TF32
-// kernels, at 256 and 512 the FMA ones (512 in flash_bwd_wide.cu).
+// flash_bwd_tc.cuh, 512 in flash_bwd_wide.cu), float32 flash_bwd_f32.cuh's
+// 3×TF32 kernels (256 and 512 a cluster a tile).
 extern "C" cudaError_t tf_flash_bwd_dq(const void* q, const void* k, const void* v,
                                        const void* dout, const float* lse2,
                                        const float* delta, void* dq, const void* v8,
@@ -643,14 +635,14 @@ extern "C" cudaError_t tf_flash_bwd_dq(const void* q, const void* k, const void*
   const BwdParams p{q,    k,     v,  dp ? nullptr : dout, v8,     do8,     nullptr,
                     sdo,  lse2,  delta, dq, nullptr, nullptr, n_q, n_kv, kind,
                     offset, radius, section, hq, hkv, d};
-  if (d == 512) return tf_bwd::launch_wide_dq(p, bh, dtype, dp, stream);
   return dispatch<Dq>(p, bh, d, dtype, dp, stream);
 }
 
 // The same operands; dk, dv: like k, v; bh_kv = batch · hkv; dv_cols: the
-// caller's value dim (1 to d), past which a 512 launch's upper half writes
-// no dv column. dp: v8, do8 and qs (q·σdo, like q) non-null, delta divided
-// by σdo; v is then not read, dout still is (dV takes the exact dO).
+// caller's value dim (1 to d), past which a bf16 512 launch's upper half, or
+// a float32 cluster's slice, writes no dv column. dp: v8, do8 and qs
+// (q·σdo, like q) non-null, delta divided by σdo; v is then not read, dout
+// still is (dV takes the exact dO).
 extern "C" cudaError_t tf_flash_bwd_dkv(const void* q, const void* k, const void* v,
                                         const void* dout, const float* lse2,
                                         const float* delta, void* dk, void* dv, const void* v8,
@@ -667,6 +659,5 @@ extern "C" cudaError_t tf_flash_bwd_dkv(const void* q, const void* k, const void
   const BwdParams p{q,       k,    v,     dout,    v8, do8, qs,
                     nullptr, lse2, delta, nullptr, dk, dv,  n_q, n_kv, kind,
                     offset,  radius, section, hq, hkv, dv_cols};
-  if (d == 512) return tf_bwd::launch_wide_dkv(p, bh_kv, dtype, dp, stream);
   return dispatch<Dkv>(p, bh_kv, d, dtype, dp, stream);
 }

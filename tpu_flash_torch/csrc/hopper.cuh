@@ -258,6 +258,14 @@ template <> __device__ __forceinline__ void wgmma_bf16_bf16<128>(float (&d)[64],
       : "l"(a), "l"(b), "r"(acc_in));
 }
 template <int N> __device__ void wgmma_s8_s8(int (&d)[N / 2], uint64_t a, uint64_t b, int acc_in);
+template <> __device__ __forceinline__ void wgmma_s8_s8<16>(int (&d)[8], uint64_t a, uint64_t b, int acc_in) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7])
+      : "l"(a), "l"(b), "r"(acc_in));
+}
 template <> __device__ __forceinline__ void wgmma_s8_s8<32>(int (&d)[16], uint64_t a, uint64_t b, int acc_in) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
@@ -366,6 +374,14 @@ template <> __device__ __forceinline__ void wgmma_rs_bf16<256, 1>(float (&d)[128
 // each float32 word (bench/tf32_probe.py). acc_in 0 overwrites d, else adds
 // to it.
 template <int N> __device__ void wgmma_rs_tf32(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t b, int acc_in);
+template <> __device__ __forceinline__ void wgmma_rs_tf32<16>(float (&d)[8], const uint32_t (&a)[4], uint64_t b, int acc_in) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc_in));
+}
 template <> __device__ __forceinline__ void wgmma_rs_tf32<32>(float (&d)[16], const uint32_t (&a)[4], uint64_t b, int acc_in) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"

@@ -9,7 +9,9 @@ A cold build takes about two minutes on an H100 machine, nearly all of it
 ``paged_attention.cu`` (70 instantiations of ``paged_attention.cuh``'s
 kernels), the other sources finishing within it (``paged_attention_wide.cu``
 compiles the 30 above head dim 256 beside it, ``flash_bwd_wide.cu`` the
-width-512 instantiations of ``flash_bwd.cuh``'s kernels). The library lands in
+bf16 width-512 instantiations of ``flash_bwd_tc.cuh``'s kernels,
+``flash_bwd_f32_wide.cu`` the float32 ones of widths 256 and 512 of
+``flash_bwd_f32.cuh``'s). The library lands in
 ``build/tpu_flash_torch/<key>/`` at the repository root, keyed by a hash of
 the flags, the sources and the headers (:func:`build_key`), and is built on
 first use — never at import. A failed build raises with nvcc's output.

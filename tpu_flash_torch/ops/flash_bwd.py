@@ -29,7 +29,8 @@ when d ≤ 64 and dv ≤ 64, the caller's widths); elsewhere the flag is
 ignored.
 
 float32 on the card: B4/B5 take each product in three TF32 passes
-(3×TF32, ``csrc/flash_bwd_f32.cu``; widths 256 and 512 on FMA kernels).
+(3×TF32, ``csrc/flash_bwd_f32.cuh``) at every width; at 256 and 512 the
+head dim is split across a thread-block cluster, a 128-column slice a CTA.
 :func:`tf32x3` models that product; :func:`_flash_bwd_plain` takes it as
 ``products=`` for the tests and the chip check, and stays exact float32
 otherwise.
@@ -40,8 +41,8 @@ and rounds once, so the two agree within bf16 rounding, not bit for bit.
 
 :func:`flash_backward` dispatches on the tensors' device: CPU tensors take
 the plain PyTorch version :func:`_flash_bwd_plain`; CUDA tensors launch B4
-then B5 (``csrc/flash_bwd.cu``, float32 at widths 64 and 128
-``csrc/flash_bwd_f32.cu``) through :func:`_flash_bwd_kernel`, or raise.
+then B5 (``csrc/flash_bwd.cu``, float32 ``csrc/flash_bwd_f32.cuh``)
+through :func:`_flash_bwd_kernel`, or raise.
 """
 
 from __future__ import annotations
@@ -317,9 +318,9 @@ def _flash_bwd_kernel(q, k, v, o, lse, do, dlse, sched: Schedule, hq: int,
     contract as :func:`_flash_bwd_plain`. Ragged edges are masked in the
     kernels; head and value dims are zero-padded to the compiled width
     (zero columns change no score, no Δ and no σ) and the grads sliced
-    back. ``tf32_passes=1`` (float32 at widths 64 and 128 only) runs the
-    float32 kernels on one TF32 pass, hi·hi alone: a planted fault for the
-    checks, which no user path takes."""
+    back. ``tf32_passes=1`` (float32, at every width) runs the float32
+    kernels on one TF32 pass, hi·hi alone: a planted fault for the checks,
+    which no user path takes."""
     code = None
     if tf32_passes != 3:
         if tf32_passes != 1 or q.dtype != torch.float32:
