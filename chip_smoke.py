@@ -27,9 +27,10 @@ their plain versions (V's columns 256–511 hidden must fail each check)
 and times the kernels at d 512, then takes
 three SGD train steps of the same model on 4 × 1025 tokens and checks their
 gradient against the f32 oracle attention's, three of the model in
-float32 (phase train_f32: B4/B5 on their 3×TF32 kernels, 48 launches of
-each by device name, the projections in full float32), three of the wide
-model in float32 (phase train_wide_f32: B4/B5 at width 512 on the 3×TF32
+float32 (phase train_f32: B1 and B4/B5 on their 3×TF32 kernels, 48 launches
+of each by device name, the last layer's B1 call held against the exact
+plain version, the projections in full float32), three of the wide model
+in float32 (phase train_wide_f32: B1 and B4/B5 at width 512 on the 3×TF32
 kernels that split the head dim across a 4-CTA cluster), and three of the
 same model with a sliding window (1025) on 2 × 2049 tokens, its gradient held against
 the sliding oracle's and shown to miss the causal oracle's, then runs the
@@ -313,7 +314,8 @@ def flash_phase(dev):
     kv tile left out of the plain version) must fail that check. Timed at
     the serving prefill (b 1) and at the training shape (b 4): the
     kernel's device time (a CUDA graph of wrapper calls) and the wrapper
-    call's time, beside the library's attention timed the same two ways."""
+    call's time, beside the library's attention timed the same two ways.
+    Then the float32 kernel at every width (:func:`flash_f32_rows`)."""
     from tpu_flash_torch.bench.harness import device_ms
     from tpu_flash_torch.ops import flash
     from tpu_flash_torch.ops.oracle import dense_dpa
@@ -381,9 +383,103 @@ def flash_phase(dev):
         rows.append(row)
     emit(dict(phase="flash_fwd", hq=hq, hkv=hkv, d=d, cases=rows))
     serving = timed["causal_1024"]
-    return dict(max_abs_err=worst,
+    return dict(max_abs_err=worst, f32=flash_f32_rows(dev),
                 **{key: serving[key] for key in ("ms", "plain_ms", "library_ms",
                                                  "bound_ms", "bound_by")})
+
+
+# B1 in float32 (csrc/flash_fwd_f32.cuh, 3×TF32 on wgmma): causal at each
+# compiled width at bench/bwd_bench.py's b1_f32 shapes (b 1: 16/8 heads, n
+# 1024 at d 64, 128, 256; 4/2 heads, n 1000 at 512) and at the two training
+# shapes (b 4 × n 1025: 16/8 heads at d 128, 4/2 at 512): (name, batch, hq,
+# hkv, n, d)
+B1_F32_ROWS = [("b1_f32_d64_causal_1024", 1, 16, 8, 1024, 64),
+               ("b1_f32_causal_1024", 1, 16, 8, 1024, 128),
+               ("b1_f32_d256_causal_1024", 1, 16, 8, 1024, 256),
+               ("b1_f32_d512_causal_1000", 1, 4, 2, 1000, 512),
+               ("b1_f32_train_4x1025", 4, 16, 8, 1025, 128),
+               ("b1_f32_wide_train_4x1025", 4, 4, 2, 1025, 512)]
+# the rows timed beside their bound and the library's fastest float32
+# forward (the kernels line's)
+B1_F32_TIMED = ("b1_f32_causal_1024", "b1_f32_d256_causal_1024",
+                "b1_f32_wide_train_4x1025")
+# the deleted float32 FMA kernel's device name, which B1's float32 kernel
+# (b1_f32_kernel) replaces
+B1_FMA_KERNEL = "flash_fwd_f32<"
+
+
+def b1_f32_kernel(d: int) -> str:
+    """B1's float32 kernel's device name at width ``d``: <columns a CTA,
+    CTAs a cluster> (the whole width at 64 and 128, a 128-column slice a
+    CTA of a 2- or 4-CTA cluster at 256 and 512)."""
+    return f"flash_fwd_tf32<{min(d, 128)}, {max(1, d // 128)}>"
+
+
+def flash_f32_rows(dev) -> dict:
+    """B1's float32 kernel at B1_F32_ROWS's shapes against the exact plain
+    version (o and lse within TOL_F32), bitwise repeatable, its device
+    kernel named (never the deleted FMA kernel); two planted faults must
+    fail that check: the kernel on one TF32 pass, and at 512 the plain
+    version with V's columns 256–511 zeroed. Each row's bound at 3×TF32
+    (two products of 2·d a visible pair, each three tf32 ones at the tf32
+    peak; bytes q, k, v, o once and lse), and beside it the float32 FMA
+    peak's; B1_F32_TIMED's rows timed: device and call ms, the plain
+    version's, and the library's fastest float32 forward
+    (:func:`fastest_sdpa`)."""
+    from tpu_flash_torch.bench.harness import device_ms
+    from tpu_flash_torch.ops import flash
+
+    gen = torch.Generator(device=dev).manual_seed(3)
+    rows, worst = {}, 0.0
+    for name, b, hq, hkv, n, d in B1_F32_ROWS:
+        q = (torch.randn(b * hq, n, d, generator=gen, device=dev)
+             * (d ** -0.5 * flash.LOG2E))
+        k, v = (torch.randn(b * hkv, n, d, generator=gen, device=dev)
+                for _ in "kv")
+        sched = flash.build_schedule("causal", n, n, 256, 256)
+        args = (q, k, v, sched, hq, hkv)
+
+        def call(args=args):
+            return flash._flash_fwd_kernel(*args, True)
+
+        got = _bitwise_repeat(f"B1 {name}", call)
+        plain = flash._flash_fwd_plain(*args)
+        row = dict(batch=b, hq=hq, hkv=hkv, n=n, d=d, tol=TOL_F32,
+                   **_held_b2(f"B1 {name}", got, plain, TOL_F32, TOL_F32))
+        worst = max(worst, row["o_vs_plain"], row["lse_vs_plain"])
+        row["planted_fault_one_tf32_pass"] = _rejects(
+            f"B1 {name} one TF32 pass", plain,
+            flash._flash_fwd_kernel(*args, True, tf32_passes=1), TOL_F32)
+        if d > WIDE_UPPER.start:
+            hidden = v.clone()
+            hidden[..., WIDE_UPPER] = 0
+            row["planted_fault_v_upper_half"] = _rejects(
+                f"B1 {name} V upper half", got, flash._flash_fwd_plain(
+                    q, k, hidden, sched, hq, hkv), TOL_F32)
+        names = sorted(fresh_trace("b1_f32", name, trace(call)))
+        want = b1_f32_kernel(d)
+        if (not any(want in k_ for k_ in names)
+                or any(B1_FMA_KERNEL in k_ for k_ in names)):
+            raise AssertionError(f"B1 {name}: the call ran {names}, not "
+                                 f"{want} alone")
+        row["device_kernels"] = names
+        pairs = b * hq * visible_pairs(n, n, True)
+        nbytes = 4 * (2 * b * hq * n * d + 2 * b * hkv * n * d + b * hq * n)
+        row.update(**roofline({"tf32": 3 * 4 * d * pairs}, nbytes,
+                              torch.float32),
+                   fma_bound_ms=roofline(4 * d * pairs, nbytes,
+                                         torch.float32)["bound_ms"])
+        if name in B1_F32_TIMED:
+            row.update(ms=device_ms(call), call_ms=cuda_ms(call),
+                       plain_ms=cuda_ms(lambda: flash._flash_fwd_plain(*args),
+                                        iters=3),
+                       library=fastest_sdpa(q, k, v, None, b * hq, b * hkv))
+            row["library_ms"] = row["library"].get("ms")
+            row["tflops"] = 4 * d * pairs / row["ms"] / 1e9
+        rows[name] = row
+    emit(dict(phase="flash_fwd_f32", kernel="csrc/flash_fwd_f32.cuh",
+              rows=rows))
+    return dict(rows, max_abs_err=worst)
 
 
 def _decode_cache(dtype, lens, dev, seed, n_pages=CACHE["max_pages_per_seq"] // 4,
@@ -1198,8 +1294,8 @@ SDPA_F32_ROWS = [("f32_causal_1024", 16, 8, 1024, 128, True),
                  ("f32_d256_causal_1024", 16, 8, 1024, 256, True),
                  ("f32_d512_causal_1000", 4, 2, 1000, 512, True),
                  ("f32_wide_train_4x1025", 16, 8, 1025, 512, True),
-                 ("b1_f32_causal_1024", 16, 8, 1024, 128, False),
-                 ("b1_f32_d512_causal_1000", 4, 2, 1000, 512, False)]
+                 *[(name, b * hq, b * hkv, n, d, False)
+                   for name, b, hq, hkv, n, d in B1_F32_ROWS]]
 
 
 def sdpa_f32_rows() -> dict:
@@ -1350,10 +1446,11 @@ def fresh_trace(kind: str, case: str, local: dict) -> dict:
 def child_trace(kind: str, case: str) -> None:
     """Print, as the last line, a :func:`trace` taken in this (fresh)
     process: of one call of BWD_CASES row ``case``'s B4/B5 ("port") or of
-    10 of its library backward ("library"), on inputs drawn anew (which
-    kernels run, and their times, depend on shapes and dtypes alone); or
-    of the float32 model's TRAIN_STEPS train steps at lr 0 ("train_f32",
-    and the wide model's, "train_wide_f32")."""
+    10 of its library backward ("library"), or of B1_F32_ROWS row
+    ``case``'s B1 ("b1_f32"), on inputs drawn anew (which kernels run, and
+    their times, depend on shapes and dtypes alone); or of the float32
+    model's TRAIN_STEPS train steps at lr 0 ("train_f32", and the wide
+    model's, "train_wide_f32")."""
     from tpu_flash_torch import graft_entry
     from tpu_flash_torch.ops import flash_bwd
 
@@ -1366,6 +1463,14 @@ def child_trace(kind: str, case: str) -> None:
                                             TRAIN_TOKENS, dev)
         got = trace(lambda: [graft_entry.train_step(params, tokens, mcfg, 0.0)
                              for _ in range(TRAIN_STEPS)])
+    elif kind == "b1_f32":
+        from tpu_flash_torch.ops import flash
+
+        _, b, hq, hkv, n, d = next(r for r in B1_F32_ROWS if r[0] == case)
+        q, k, v = (torch.randn(b * h, n, d, device=dev) for h in (hq, hkv, hkv))
+        sched = flash.build_schedule("causal", n, n, 256, 256)
+        got = trace(lambda: flash._flash_fwd_kernel(q, k, v, sched, hq, hkv,
+                                                    True))
     else:
         gen = torch.Generator(device=dev).manual_seed(4)
 
@@ -1772,7 +1877,7 @@ def grad_cosines(params, grads_a, grads_b) -> dict:
 
 
 def train_phase(dev, phase="train", model=MODEL, tokens_shape=TRAIN_TOKENS,
-                oracle=None, other=None, named=()):
+                oracle=None, other=None, named=(), named_b1=None):
     """Three SGD steps at the canonical model's full width and depth (with
     ``model``'s attention), then one step's gradient against the
     oracle-attention path's (``oracle``: dense_dpa, causal). ``other``
@@ -1781,7 +1886,9 @@ def train_phase(dev, phase="train", model=MODEL, tokens_shape=TRAIN_TOKENS,
     sees the difference. ``named``: device-kernel names whose launches over
     the three steps' work (the steps again at lr 0 under the profiler) must
     each equal B4's launch count, with no block kernel of
-    flash_bwd.cuh among them."""
+    flash_bwd.cuh among them; ``named_b1``: B1's device-kernel name, whose
+    launches there must equal B1's count, with none of the deleted float32
+    FMA kernel (B1_FMA_KERNEL)."""
     from tpu_flash_torch import graft_entry, kernels
     from tpu_flash_torch.ops.oracle import dense_dpa
 
@@ -1873,15 +1980,18 @@ def train_phase(dev, phase="train", model=MODEL, tokens_shape=TRAIN_TOKENS,
         got = fresh_trace(phase, "", trace(
             lambda: [graft_entry.train_step(params, tokens, mcfg, 0.0)
                      for _ in range(TRAIN_STEPS)]))
+        want = {**{n: 0 for n in BLOCK_KERNELS},
+                **{n: launches["flash_bwd_dq"] for n in named}}
+        if named_b1:
+            want.update({named_b1: launches["flash_fwd"], B1_FMA_KERNEL: 0})
         counts = {n: sum(c for k_, (c, _) in got.items() if n in k_)
-                  for n in (*named, *BLOCK_KERNELS)}
+                  for n in want}
         row["launches_by_device_name"] = counts
-        bad = {k: v for k, v in counts.items()
-               if v != (launches["flash_bwd_dq"] if k in named else 0)}
-        if bad:
+        if counts != want:
             raise AssertionError(
                 f"{phase}: {launches['flash_bwd_dq']} launches of B4 and of "
-                f"B5, but by device name {counts}")
+                f"B5 and {launches['flash_fwd']} of B1, but by device name "
+                f"{counts}")
     row["matmul_allow_tf32"] = torch.backends.cuda.matmul.allow_tf32
     emit(row)
     del params
@@ -1912,15 +2022,19 @@ def train_f32_phase(dev):
     1024 input tokens of each 1025-token row, on the model's own
     activations and lse) re-run on its own inputs (:func:`held_first_bwd`),
     and the same call on one TF32 pass, a planted fault, rejected on every
-    grad."""
+    grad. B1 runs flash_fwd_f32.cuh's 3×TF32 kernel: 48 launches by device
+    name (b1_f32_kernel(128), none of the deleted FMA kernel), and its last call
+    (the last layer's) held the same way (:func:`held_b1`: within TOL_F32
+    of the exact plain version, one TF32 pass rejected)."""
     from tpu_flash_torch.ops import flash_bwd
 
     if torch.backends.cuda.matmul.allow_tf32:
         raise AssertionError("train_f32: the projections would run in TF32")
-    with first_bwd_call() as rec:
+    with first_bwd_call() as rec, last_b1_call() as b1_rec:
         launches = train_phase(dev, "train_f32", dict(MODEL, dtype="float32"),
-                               named=F32_KERNELS)
+                               named=F32_KERNELS, named_b1=b1_f32_kernel(128))
         torch.cuda.synchronize()
+    b1 = held_b1(b1_rec, "train_f32")
     held, got, plain = held_first_bwd("train_f32", rec)
     one = flash_bwd._flash_bwd_kernel(*rec["args"], rec["quant"],
                                       tf32_passes=1)
@@ -1931,9 +2045,10 @@ def train_f32_phase(dev):
                              f"passes the kernel-vs-plain check on {passed}: "
                              f"{errs}")
     held["planted_fault_one_tf32_pass"] = errs
-    emit(dict(phase="train_f32_checks", last_layer_b4_b5=held))
-    del rec, got, plain, one
-    return launches
+    emit(dict(phase="train_f32_checks", last_layer_b4_b5=held,
+              last_layer_b1=b1))
+    del rec, b1_rec, got, plain, one
+    return dict(launches=launches, held=held, b1=b1)
 
 
 def train_sliding_phase(dev):
@@ -2598,12 +2713,11 @@ def no_plain_on_cuda():
             setattr(mod, name, real)
 
 
-def held_b1_call(fn, name: str) -> dict:
-    """Run ``fn`` with B1's wrapper recording its last call (on the
-    model's path, the last layer's), re-run that call: o bitwise the main
-    path's, o within TOL_BF16 and lse within TOL_LSE of the plain version;
-    the plain version with V's columns 256–511 zeroed must fail that
-    check."""
+@contextlib.contextmanager
+def last_b1_call():
+    """Inside the block, B1's wrapper records its calls, the last one (on a
+    model's path, the last layer's) kept in the dict the block gets: its
+    inputs cloned and its o."""
     from tpu_flash_torch.ops import flash
 
     real, rec = flash._flash_fwd_kernel, {}
@@ -2616,24 +2730,52 @@ def held_b1_call(fn, name: str) -> dict:
 
     flash._flash_fwd_kernel = recorded
     try:
-        fn()
+        yield rec
     finally:
         flash._flash_fwd_kernel = real
+
+
+def held_b1(rec: dict, name: str) -> dict:
+    """The B1 call :func:`last_b1_call` recorded, re-run: o bitwise the
+    main path's, o within TOL_BF16 (float32: TOL_F32) and lse within
+    TOL_LSE of the plain version; the plain version with V's columns
+    256–511 zeroed (where the call has them) and, on a float32 call, the
+    kernel on one TF32 pass must fail that check."""
+    from tpu_flash_torch.ops import flash
+
+    if not rec:
+        raise AssertionError(f"{name}: no B1 call recorded")
     q, k, v, sched, hq, hkv = rec["args"]
     got = flash._flash_fwd_kernel(*rec["args"], True, rec["bound"])
     torch.cuda.synchronize()
     if not torch.equal(got[0], rec["o"]):
         raise AssertionError(f"{name} B1: the wrapper's o is not the main path's")
-    errs = _held_b2(f"{name} B1", got, flash._flash_fwd_plain(
-        *rec["args"], rec["bound"]), tol_lse=TOL_LSE)
-    hidden = v.clone()
-    hidden[..., WIDE_UPPER] = 0
-    fault = _rejects(f"{name} B1", got, flash._flash_fwd_plain(
-        q, k, hidden, sched, hq, hkv, rec["bound"]))
+    plain = flash._flash_fwd_plain(*rec["args"], rec["bound"])
+    tol = TOL_F32 if q.dtype == torch.float32 else TOL_BF16
+    errs = _held_b2(f"{name} B1", got, plain, tol_o=tol, tol_lse=TOL_LSE)
+    if v.shape[-1] > WIDE_UPPER.start:
+        hidden = v.clone()
+        hidden[..., WIDE_UPPER] = 0
+        errs["planted_fault_v_upper_half"] = _rejects(
+            f"{name} B1", got, flash._flash_fwd_plain(
+                q, k, hidden, sched, hq, hkv, rec["bound"]), tol)
+    if q.dtype == torch.float32:
+        errs["planted_fault_one_tf32_pass"] = _rejects(
+            f"{name} B1 one TF32 pass", plain, flash._flash_fwd_kernel(
+                *rec["args"], True, rec["bound"], tf32_passes=1), tol)
     return dict(bh=q.shape[0], hq=hq, hkv=hkv, n_q=q.shape[1], n_kv=k.shape[1],
                 d=q.shape[-1], dv=v.shape[-1], kind=type(sched).__name__,
-                bound_max=rec["bound"], main_path_o_bitwise=True, tol=TOL_BF16,
-                tol_lse=TOL_LSE, planted_fault_v_upper_half=fault, **errs)
+                dtype=str(q.dtype).replace("torch.", ""),
+                bound_max=rec["bound"], main_path_o_bitwise=True, tol=tol,
+                tol_lse=TOL_LSE, **errs)
+
+
+def held_b1_call(fn, name: str) -> dict:
+    """Run ``fn`` with B1's last call recorded, then hold that call
+    (:func:`held_b1`)."""
+    with last_b1_call() as rec:
+        fn()
+    return held_b1(rec, name)
 
 
 def _upper_half_hidden(c):
@@ -3000,20 +3142,27 @@ def train_wide_f32_phase(dev) -> dict:
     inputs (:func:`held_first_bwd`: bitwise the main path's, within 1e-4
     of each grad's largest entry from the exact plain backward), and two
     planted faults rejected on every grad: the same call on one TF32 pass,
-    and the plain backward with each grad's columns 256–511 zeroed."""
+    and the plain backward with each grad's columns 256–511 zeroed. B1 runs
+    flash_fwd_f32.cuh's 3×TF32 kernel on a 4-CTA cluster: 48 launches by
+    device name (b1_f32_kernel(512), none of the deleted FMA kernel), its
+    last call held (:func:`held_b1`: within TOL_F32 of the exact plain
+    version; one TF32 pass and V's columns 256–511 zeroed rejected)."""
     from tpu_flash_torch.ops import flash_bwd
 
     if torch.backends.cuda.matmul.allow_tf32:
         raise AssertionError("train_wide_f32: the projections would run in "
                              "TF32")
-    with first_bwd_call() as rec, no_plain_on_cuda() as plain_calls:
+    with (first_bwd_call() as rec, last_b1_call() as b1_rec,
+          no_plain_on_cuda() as plain_calls):
         launches = train_phase(dev, "train_wide_f32",
                                dict(MODEL_WIDE, dtype="float32"),
-                               TRAIN_TOKENS, named=F32_WIDE_KERNELS)
+                               TRAIN_TOKENS, named=F32_WIDE_KERNELS,
+                               named_b1=b1_f32_kernel(512))
         torch.cuda.synchronize()
     if any(plain_calls.values()):
         raise AssertionError(f"train_wide_f32: plain versions ran on CUDA "
                              f"tensors: {plain_calls}")
+    b1 = held_b1(b1_rec, "train_wide_f32")
     held, got, plain = held_first_bwd("train_wide_f32", rec)
     one = flash_bwd._flash_bwd_kernel(*rec["args"], rec["quant"],
                                       tf32_passes=1)
@@ -3027,9 +3176,9 @@ def train_wide_f32_phase(dev) -> dict:
     held["planted_fault_upper_half"] = upper_half_faults(
         "train_wide_f32 B4/B5", got, plain, held["tol"], rel_to_max)
     emit(dict(phase="train_wide_f32_checks", plain_calls_on_cuda=plain_calls,
-              last_layer_b4_b5=held))
-    del rec, got, plain, one
-    return dict(launches=launches, held=held)
+              last_layer_b4_b5=held, last_layer_b1=b1))
+    del rec, b1_rec, got, plain, one
+    return dict(launches=launches, held=held, b1=b1)
 
 
 # The wide-head quantized path: B7 through flash_attention(q_dtype=…) and
@@ -7353,9 +7502,10 @@ def _timing(row) -> dict:
                                       "bound_by")}
 
 
-PTXAS_SOURCES = ("flash_fwd.cu", "matmul.cu", "flash_bwd.cu",
-                 "flash_bwd_wide.cu", "paged_attention.cu",
-                 "paged_attention_wide.cu", "quant_attention.cu")
+PTXAS_SOURCES = ("flash_fwd.cu", "flash_fwd_f32.cu", "flash_fwd_f32_wide.cu",
+                 "matmul.cu", "flash_bwd.cu", "flash_bwd_wide.cu",
+                 "paged_attention.cu", "paged_attention_wide.cu",
+                 "quant_attention.cu")
 
 
 def short_kernel_name(mangled: str) -> str:
@@ -7632,6 +7782,40 @@ def main() -> int:
                "tpu_flash/quant/serving_attn.py:59"),
               ("quant_attention", "quant", "quant_e4m3",
                "tpu_flash/quant/flash_q.py:136"))],
+        # B1 in float32 (flash_fwd_f32.cuh, 3×TF32 on wgmma): at width 128
+        # launches from the float32 train run, times at b 1, 16/8 heads, n
+        # 1024 causal; at 256 and 512 (the head dim split across a 2- or
+        # 4-CTA cluster) launches from the wide model's float32 train run,
+        # times at the wide training shape (b 4, 4/2 heads, n 1025 causal,
+        # d 512) and, beside them, at d 256 (b 1, 16/8 heads, n 1024
+        # causal); bound: two products of 2·d a visible pair, three tf32
+        # ones each at the tf32 peak; library: the fastest float32
+        # scaled_dot_product_attention forward (its backend and kernels in
+        # the flash_fwd_f32 phase's line); max_abs_err: every float32 row of
+        # the flash phase and the train run's last-layer call
+        dict(name="flash_fwd (float32, 3xTF32)", route="cuda",
+             source="tpu_flash_torch/csrc/flash_fwd_f32.cuh",
+             replaces="tpu_flash/ops/flash.py:204",
+             launches=train_f32["launches"]["flash_fwd"],
+             launches_ep_dryrun=slice_launches["ep_dryrun"].get("flash_fwd", 0),
+             max_abs_err=max(b1["f32"]["max_abs_err"],
+                             train_f32["b1"]["o_vs_plain"],
+                             train_f32["b1"]["lse_vs_plain"]),
+             **_timing(b1["f32"]["b1_f32_causal_1024"]),
+             library_ms=b1["f32"]["b1_f32_causal_1024"]["library_ms"]),
+        dict(name="flash_fwd (float32, 3xTF32, d 256/512 cluster)", route="cuda",
+             source="tpu_flash_torch/csrc/flash_fwd_f32.cuh",
+             replaces="tpu_flash/ops/flash.py:204",
+             launches=wide_f32["launches"]["flash_fwd"],
+             launches_train_wide_f32=wide_f32["launches"]["flash_fwd"],
+             max_abs_err=max(b1["f32"]["max_abs_err"],
+                             wide_f32["b1"]["o_vs_plain"],
+                             wide_f32["b1"]["lse_vs_plain"]),
+             **_timing(b1["f32"]["b1_f32_wide_train_4x1025"]),
+             library_ms=b1["f32"]["b1_f32_wide_train_4x1025"]["library_ms"],
+             d256=dict(**_timing(b1["f32"]["b1_f32_d256_causal_1024"]),
+                       library_ms=b1["f32"]["b1_f32_d256_causal_1024"][
+                           "library_ms"])),
         # B4/B5 in float32 at widths 64 and 128 (flash_bwd_f32.cuh, 3×TF32
         # on wgmma): launches from the float32 train run (and the EP dry
         # run's float32 d 32 calls); times at b 1, 16/8 heads, n 1024
@@ -7642,7 +7826,7 @@ def main() -> int:
         # float32 case
         *[dict(name=f"flash_bwd_{part} (float32, 3xTF32)", route="cuda",
                source="tpu_flash_torch/csrc/flash_bwd_f32.cuh", replaces=line,
-               launches=train_f32[f"flash_bwd_{part}"],
+               launches=train_f32["launches"][f"flash_bwd_{part}"],
                launches_ep_dryrun=slice_launches["ep_dryrun"].get(
                    f"flash_bwd_{part}", 0),
                max_abs_err=b45["max_abs_err_f32"],

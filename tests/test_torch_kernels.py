@@ -70,7 +70,8 @@ def _assert_b1_close(ko, kl, po, pl, dtype):
 
 
 # (causal, n, d, dv, dtype): head and value dims other than 64 and 128,
-# zero-padded to a compiled width (float32 at 256 takes B1's 32-row q tile)
+# zero-padded to a compiled width (float32 at 256 splits the head dim across
+# a 2-CTA cluster)
 _B1_HEAD_DIMS = [(True, 1000, 96, 96, torch.bfloat16),
                  (True, 1000, 256, 256, torch.bfloat16),
                  (False, 300, 256, 256, torch.float32),
@@ -1589,29 +1590,39 @@ def test_flash_kernel_circulant_and_block_match_plain(gen, case):
     _assert_b1_close(ko, kl, po, pl, dtype)
 
 
-# The bf16 TMA + wgmma kernel's edges: every schedule kind at d 64, 128 and
-# 256, both max modes, at (n, batch) = (129, 1) (one partial q tile), (1000,
-# 1) (ragged; 64-row q tiles, since 128-row ones would leave SMs idle) and
-# (1024, 3) (128-row q tiles at d <= 128); bands of radius 129, the
-# circulant's 100, sections of 96 (no multiple of a kv tile)
+# The TMA + wgmma kernels' edges: every schedule kind at d 64, 128 and 256
+# in bf16, and at d 64, 128, 256 and 512 in float32 (3×TF32; the head dim
+# split across a 2- or 4-CTA cluster at 256 and 512), both max modes, at
+# (n, batch) = (129, 1) (one partial q tile), (1000, 1) (ragged; bf16 takes
+# 64-row q tiles, since 128-row ones would leave SMs idle) and (1024, 3)
+# (128-row q tiles at d <= 128); bands of radius 129, the circulant's 100,
+# sections of 96 (no multiple of a kv tile)
 _TC_KINDS = [("dense", 0), ("causal", 0), ("local", 129), ("local_causal", 129),
              ("circulant", 100), ("block", 96)]
+_B1_WIDTHS = [(64, torch.bfloat16), (128, torch.bfloat16),
+              (256, torch.bfloat16), (64, torch.float32),
+              (128, torch.float32), (256, torch.float32),
+              (512, torch.float32)]
+_B1_WIDTH_IDS = ["64", "128", "256", "f32-64", "f32-128", "f32-256",
+                 "f32-512"]
 
 
 @pytest.mark.parametrize("n,batch", [(129, 1), (1000, 1), (1024, 3)],
                          ids=["n129", "n1000", "n1024-b3"])
 @pytest.mark.parametrize("bound", [False, True], ids=["exact", "bound"])
-@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("d,dtype", _B1_WIDTHS, ids=_B1_WIDTH_IDS)
 @pytest.mark.parametrize("kind", _TC_KINDS, ids=[k[0] for k in _TC_KINDS])
-def test_flash_kernel_every_kind_matches_plain(gen, kind, d, bound, n, batch):
-    """B1's bf16 kernel vs plain on every kind, width and max mode: o 2e-2,
-    lse 1e-4 where finite, the same rows fully masked."""
+def test_flash_kernel_every_kind_matches_plain(gen, kind, d, dtype, bound, n,
+                                               batch):
+    """B1's kernels vs the exact plain version on every kind, width and max
+    mode: o 2e-2 (bf16) or 1e-4 (float32), lse 1e-4 where finite, the same
+    rows fully masked."""
     schedule, extra = kind
     hq, hkv = 16, 8
     q = (torch.randn(batch * hq, n, d, generator=gen, device="cuda")
-         * (d ** -0.5 * tflash.LOG2E)).bfloat16()
+         * (d ** -0.5 * tflash.LOG2E)).to(dtype)
     k, v = (torch.randn(batch * hkv, n, d, generator=gen, device="cuda")
-            .bfloat16() for _ in range(2))
+            .to(dtype) for _ in range(2))
     if schedule == "circulant":
         extra = min(extra, (n - 1) // 2)  # the window fits the sequence
         k, v = (torch.cat([x[:, -extra:], x, x[:, :extra]], dim=1) for x in (k, v))
@@ -1620,23 +1631,135 @@ def test_flash_kernel_every_kind_matches_plain(gen, kind, d, bound, n, batch):
                                   section=extra if schedule == "block" else 0)
     ko, kl = tflash._flash_fwd_kernel(q, k, v, sched, hq, hkv, True, bound)
     po, pl = tflash._flash_fwd_plain(q, k, v, sched, hq, hkv, bound)
-    _assert_b1_close(ko, kl, po, pl, torch.bfloat16)
+    _assert_b1_close(ko, kl, po, pl, dtype)
 
 
 @pytest.mark.parametrize("bound", [False, True], ids=["exact", "bound"])
-@pytest.mark.parametrize("d", [64, 128, 256])
-def test_flash_kernel_right_aligned_matches_plain(gen, d, bound):
-    """Causal, right-aligned: the last 256 of 1024 queries, every width and
-    max mode."""
+@pytest.mark.parametrize("d,dtype", _B1_WIDTHS, ids=_B1_WIDTH_IDS)
+def test_flash_kernel_right_aligned_matches_plain(gen, d, dtype, bound):
+    """Causal, right-aligned: the last 256 of 1024 queries, every width,
+    dtype and max mode."""
     hq, hkv = 16, 8
     q = (torch.randn(hq, 256, d, generator=gen, device="cuda")
-         * (d ** -0.5 * tflash.LOG2E)).bfloat16()
-    k, v = (torch.randn(hkv, 1024, d, generator=gen, device="cuda").bfloat16()
+         * (d ** -0.5 * tflash.LOG2E)).to(dtype)
+    k, v = (torch.randn(hkv, 1024, d, generator=gen, device="cuda").to(dtype)
             for _ in range(2))
     sched = tflash.build_schedule("causal", 256, 1024, 256, 256)
     ko, kl = tflash._flash_fwd_kernel(q, k, v, sched, hq, hkv, True, bound)
     po, pl = tflash._flash_fwd_plain(q, k, v, sched, hq, hkv, bound)
-    _assert_b1_close(ko, kl, po, pl, torch.bfloat16)
+    _assert_b1_close(ko, kl, po, pl, dtype)
+
+
+def _b1_f32_args(gen, d, n=777, hq=8, hkv=2, dv=None):
+    """float32 B1 operands at head dim ``d`` (value dim ``dv``), causal,
+    GQA 4 at a ragged n."""
+    q = (torch.randn(hq, n, d, generator=gen, device="cuda")
+         * (d ** -0.5 * tflash.LOG2E))
+    k = torch.randn(hkv, n, d, generator=gen, device="cuda")
+    v = torch.randn(hkv, n, dv or d, generator=gen, device="cuda")
+    return q, k, v, tflash.build_schedule("causal", n, n, 256, 256), hq, hkv
+
+
+_B1_F32_DIMS = [32, 64, 128, 256, 320, 512]
+# one float32 B1 call at each of _B1_F32_DIMS traced by torch.profiler in a
+# process of its own (a long test process's traces can come back empty):
+# the device kernels' names of each, one JSON line
+_TRACE_B1_F32 = """
+import json, torch
+from torch.profiler import ProfilerActivity, profile
+from tpu_flash_torch.ops import flash
+names = {}
+for d in %r:
+    q, k, v = (torch.randn(h, 777, d, device="cuda") for h in (8, 2, 2))
+    sched = flash.build_schedule("causal", 777, 777, 256, 256)
+    flash._flash_fwd_kernel(q, k, v, sched, 8, 2, True)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        flash._flash_fwd_kernel(q, k, v, sched, 8, 2, True)
+        torch.cuda.synchronize()
+    names[d] = sorted(e.key for e in prof.key_averages()
+                      if e.device_type == torch.autograd.DeviceType.CUDA)
+print(json.dumps(names))
+""" % (_B1_F32_DIMS,)
+
+
+@pytest.fixture(scope="module")
+def b1_f32_kernel_names():
+    """{d: device kernels of one float32 B1 call} (_TRACE_B1_F32)."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = subprocess.run([sys.executable, "-c", _TRACE_B1_F32], cwd=root,
+                         capture_output=True, text=True, timeout=600,
+                         env=dict(os.environ, PYTHONPATH=root), check=True)
+    return {int(d): n for d, n in
+            json.loads(out.stdout.strip().splitlines()[-1]).items()}
+
+
+@pytest.mark.parametrize("d", _B1_F32_DIMS)
+def test_flash_f32_runs_tf32_kernel(gen, b1_f32_kernel_names, d):
+    """float32 B1 at head dims 32 (zero-padded to 64), 64, 128, 256, 320
+    (zero-padded to 512) and 512 launches flash_fwd_f32.cuh's 3×TF32 kernel
+    (flash_fwd_tf32<columns a CTA, CTAs a cluster>: the whole width at 64
+    and 128, a 128-column slice a CTA of a 2- or 4-CTA cluster at 256 and
+    512), by its device name under torch.profiler (traced in a process of
+    its own), counted once a call, and never the first port's FMA kernel
+    (flash_fwd_f32<, deleted) or the bf16 one."""
+    width = tflash.kernel_head_dim(d, d)
+    want = f"flash_fwd_tf32<{min(width, 128)}, {max(1, width // 128)}>"
+    names = b1_f32_kernel_names[d]
+    assert any(want in n for n in names), names
+    assert not any("flash_fwd_f32<" in n or "flash_fwd_tc" in n
+                   for n in names), names
+    args = _b1_f32_args(gen, d)
+    before = kernels.LAUNCHES["flash_fwd"]
+    tflash._flash_fwd_kernel(*args, True)
+    assert kernels.LAUNCHES["flash_fwd"] == before + 1
+
+
+@pytest.mark.parametrize("d,dv", [(64, 64), (128, 128), (256, 256),
+                                  (256, 100), (512, 512), (512, 256)])
+@pytest.mark.parametrize("bound", [False, True], ids=["exact", "bound"])
+def test_flash_f32_bitwise_repeatable(gen, d, dv, bound):
+    """Two float32 B1 calls are equal bit for bit, o and lse (no atomics; at
+    256 and 512 the cluster's partial scores are added in rank order), and
+    a value dim below the head dim (the slices past it write no o) gives
+    the exact plain version's o within 1e-4."""
+    args = _b1_f32_args(gen, d, dv=dv)
+    a = tflash._flash_fwd_kernel(*args, True, bound)
+    b = tflash._flash_fwd_kernel(*args, True, bound)
+    torch.cuda.synchronize()
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    assert a[0].shape[-1] == dv
+    _assert_b1_close(*a, *tflash._flash_fwd_plain(*args, bound),
+                     torch.float32)
+
+
+@pytest.mark.parametrize("d", [64, 128, 256, 512])
+@pytest.mark.parametrize("bound", [False, True], ids=["exact", "bound"])
+def test_flash_f32_one_tf32_pass_rejected(gen, d, bound):
+    """The float32 kernel on one TF32 pass (hi·hi alone, the checks'
+    planted fault) misses the 1e-4 kernel-vs-plain check on o or lse at
+    every width, so the check tells 3×TF32 from TF32; ``tf32_passes``
+    other than 3 and 1, or 1 on bf16, raises."""
+    args = _b1_f32_args(gen, d)
+    po, pl = tflash._flash_fwd_plain(*args, bound)
+    fo, fl = tflash._flash_fwd_kernel(*args, True, bound, tf32_passes=1)
+    fin = torch.isfinite(pl)
+    assert max(float((fo - po).abs().max()),
+               float((fl[fin] - pl[fin]).abs().max())) > 1e-4
+    with pytest.raises(ValueError, match="tf32_passes=2"):
+        tflash._flash_fwd_kernel(*args, True, bound, tf32_passes=2)
+    q, k, v, *rest = args
+    with pytest.raises(ValueError, match="tf32_passes=1"):
+        tflash._flash_fwd_kernel(q.bfloat16(), k.bfloat16(), v.bfloat16(),
+                                 *rest, True, bound, tf32_passes=1)
 
 
 def test_circulant_and_block_public_calls_match_oracle(gen):

@@ -9,9 +9,13 @@ n 2048, local_causal radius 512, d 128), d 256 at b 1 (16/8 heads, n 1024
 causal) and the wide training shape (b 4, 4 q / 2 kv heads, n 1025 causal,
 d 512), bf16; then float32 at b 1, 16/8 heads, n 1024 causal, d 128, 64
 and 256, at d 512 (b 1, 4/2 heads, n 1000 causal) and at the wide
-training shape. All on prepared operands (``_kernel_operands``). Last, B1
-in float32 (``b1_f32_*``: device ms of one wrapper call) at b 1, 16/8
-heads, n 1024 causal, d 128, and at d 512 (4/2 heads, n 1000).
+training shape. All on prepared operands (``_kernel_operands``), o and
+lse from the plain forward (the same in every checkout), with a hash of
+each row's dq, dk and dv (``sha``: two checkouts' kernels agree bit for bit
+where it is equal). Last, B1 in float32 (``b1_f32_*``: device ms of one
+wrapper call) at b 1, 16/8 heads, n 1024 causal, d 64, 128 and 256, at
+d 512 (4/2 heads, n 1000), and at the two training shapes (b 4, n 1025
+causal: 16/8 heads at d 128, 4/2 at d 512).
 ``chip_smoke.py``'s flash_bwd phase times the library's backward beside
 the timed rows, and ``chip_smoke.sdpa_f32_rows`` the library's fastest
 float32 forward and backward at the float32 rows' shapes. It calls only
@@ -24,6 +28,7 @@ that checkout's root with ``PYTHONPATH="$PWD"``. Needs a CUDA device.
 
 from __future__ import annotations
 
+import hashlib
 import json
 import subprocess
 
@@ -42,6 +47,21 @@ CASES = [("train_4x1024", 4, 16, 8, 1024, 128, "causal", 0, BF16),
          ("f32_d256_causal_1024", 1, 16, 8, 1024, 256, "causal", 0, F32),
          ("f32_d512_causal_1000", 1, 4, 2, 1000, 512, "causal", 0, F32),
          ("f32_wide_train_4x1025", 4, 4, 2, 1025, 512, "causal", 0, F32)]
+# B1 in float32: (name, batch, hq, hkv, n, d), causal
+B1_F32 = [("b1_f32_d64_causal_1024", 1, 16, 8, 1024, 64),
+          ("b1_f32_causal_1024", 1, 16, 8, 1024, 128),
+          ("b1_f32_d256_causal_1024", 1, 16, 8, 1024, 256),
+          ("b1_f32_d512_causal_1000", 1, 4, 2, 1000, 512),
+          ("b1_f32_train_4x1025", 4, 16, 8, 1025, 128),
+          ("b1_f32_wide_train_4x1025", 4, 4, 2, 1025, 512)]
+
+
+def digest(*ts) -> str:
+    """A hash of the tensors' bytes."""
+    h = hashlib.sha256()
+    for t in ts:
+        h.update(t.contiguous().view(torch.uint8).cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
 
 
 def main() -> dict:
@@ -60,7 +80,7 @@ def main() -> dict:
         k, v = (torch.randn(b * hkv, n, d, generator=gen, device="cuda")
                 .to(dt) for _ in "kv")
         sched = flash.build_schedule(schedule, n, n, 256, 256, radius=radius)
-        o, lse = flash._flash_fwd_kernel(q, k, v, sched, hq, hkv, True)
+        o, lse = flash._flash_fwd_plain(q, k, v, sched, hq, hkv)
         do = torch.randn(b * hq, n, d, generator=gen, device="cuda").to(dt)
         dlse = torch.randn(b * hq, n, generator=gen, device="cuda")
         try:
@@ -71,13 +91,14 @@ def main() -> dict:
             continue
         row[name] = dict(
             dq_ms=device_ms(lambda: fb._dq_kernel(*ops, sched, hq, hkv)),
-            dkv_ms=device_ms(lambda: fb._dkv_kernel(*ops, sched, hq, hkv)))
-    # B1 in float32 (its FMA kernel) at d 128 and at d 512
-    for name, hq, hkv, n, d in (("b1_f32_causal_1024", 16, 8, 1024, 128),
-                                ("b1_f32_d512_causal_1000", 4, 2, 1000, 512)):
-        q = (torch.randn(hq, n, d, generator=gen, device="cuda")
+            dkv_ms=device_ms(lambda: fb._dkv_kernel(*ops, sched, hq, hkv)),
+            sha=digest(fb._dq_kernel(*ops, sched, hq, hkv),
+                       *fb._dkv_kernel(*ops, sched, hq, hkv)))
+    # B1 in float32
+    for name, b, hq, hkv, n, d in B1_F32:
+        q = (torch.randn(b * hq, n, d, generator=gen, device="cuda")
              * (d ** -0.5 * flash.LOG2E))
-        k, v = (torch.randn(hkv, n, d, generator=gen, device="cuda")
+        k, v = (torch.randn(b * hkv, n, d, generator=gen, device="cuda")
                 for _ in "kv")
         sched = flash.build_schedule("causal", n, n, 256, 256)
         row[name] = dict(ms=device_ms(lambda: flash._flash_fwd_kernel(

@@ -20,17 +20,6 @@ namespace {
 constexpr int SMEM_LIMIT = 232448;  // the 227 KB a block may use
 constexpr int SM_SMEM = 233472;     // shared memory of an SM (228 KB)
 
-template <int N> __device__ __forceinline__ void reg_alloc() {
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(N));
-}
-template <int N> __device__ __forceinline__ void reg_dealloc() {
-  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(N));
-}
-
-__device__ __forceinline__ uint8_t* align1024(unsigned char* p) {
-  return reinterpret_cast<uint8_t*>((reinterpret_cast<uintptr_t>(p) + 1023) & ~(uintptr_t)1023);
-}
-
 // acc (64 × N) = A · Bᵀ over HD: A a 64-row tile, B an N-row tile, both
 // K-major in 64-column swizzled panels (panel p of a ROWS-row tile at
 // p·ROWS·128 bytes). B's columns 0–255 are at b_lo, its columns 256–511

@@ -79,17 +79,16 @@
 //   would take 256 float32 registers a thread): twice the QK products, one
 //   CTA an SM; as many ring stages as fit (TcCfg). BQ 64 measured faster than 128 (two consumers,
 //   BKV 128) at the serving and the training shape (PERF.md §6).
-// float32 inputs keep the FMA kernel below (no tensor core takes exact
-// float32: the reference's f32 dots are full precision): one block of 4
-// warps per (64-row q tile, bh row), Q/K/V tiles, scores, P and the float32
-// accumulator in shared memory, each warp owning 16 q rows; at d 256 a
-// 32-row q tile of 2 warps (217 KB), since 64-row tiles would need 301 KB;
-// at d 512 a 16-row q tile of one warp and 32 kv rows a step (198 KB).
+// float32 inputs run flash_fwd_f32.cuh's kernel (flash_fwd_f32.cu, widths
+// 64 and 128; flash_fwd_f32_wide.cu, 256 and 512): every product in three
+// TF32 passes on wgmma behind a TMA ring, at 256 and 512 the head dim split
+// across a 2- or 4-CTA cluster; p stays float32 and comes from exact exp2f.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "flash_fwd.cuh"
 #include "hopper.cuh"
 #include "schedule.cuh"
 
@@ -383,189 +382,6 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v, const TcParam
   return cudaGetLastError();
 }
 
-// ------------------------------------------------------ float32: FMA
-
-// q rows per block: 64 (4 warps, each owning 16 q rows), 32 (2 warps) at d
-// 256, whose 64-row tiles would not fit in 227 KB, or 16 (one warp) at 512,
-// with 32 kv rows a step (198 KB).
-template <int HD> struct Cfg32 {
-  static constexpr int BQ = HD == 512 ? 16 : HD == 256 ? 32 : 64;
-  static constexpr int BKV32 = HD == 512 ? 32 : 64;  // kv rows per step
-  static constexpr int NTHREADS = BQ / 16 * 32;
-  static constexpr int LDQ = HD + 4;      // Q, K, V rows
-  static constexpr int LDS = BKV32 + 4;   // scores
-  static constexpr int LDO = HD + 4;      // accumulator
-  static constexpr size_t q_off = 0;
-  static constexpr size_t k_off = q_off + sizeof(float) * BQ * LDQ;
-  static constexpr size_t v_off = k_off + sizeof(float) * BKV32 * LDQ;
-  static constexpr size_t s_off = v_off + sizeof(float) * BKV32 * LDQ;
-  static constexpr size_t p_off = s_off + sizeof(float) * BQ * LDS;
-  static constexpr size_t o_off = p_off + sizeof(float) * BQ * LDS;
-  static constexpr size_t m_off = o_off + sizeof(float) * BQ * LDO;
-  static constexpr size_t l_off = m_off + sizeof(float) * BQ;
-  static constexpr size_t bytes = l_off + sizeof(float) * BQ;
-  static_assert(bytes <= SMEM_LIMIT, "above the 227 KB a block may use");
-};
-
-// rows [row0, row0 + rows) of a (n, HD) matrix into shared memory (pitch
-// ld), zero past n; 16-byte vector copies.
-template <int HD>
-__device__ void load_tile(float* dst, int ld, const float* src, int row0, int n, int rows) {
-  constexpr int CHUNKS = HD / 4;
-  for (int idx = threadIdx.x; idx < rows * CHUNKS; idx += Cfg32<HD>::NTHREADS) {
-    int r = idx / CHUNKS, c = (idx % CHUNKS) * 4;
-    float4 val = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-    if (row0 + r < n) val = *reinterpret_cast<const float4*>(src + (size_t)(row0 + r) * HD + c);
-    *reinterpret_cast<float4*>(dst + r * ld + c) = val;
-  }
-}
-
-__device__ float warp_max(float x) {
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-__device__ float warp_sum(float x) {
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
-template <int HD>
-__global__ void __launch_bounds__(Cfg32<HD>::NTHREADS)
-flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
-              const float* __restrict__ v, float* __restrict__ o, float* __restrict__ lse,
-              const float* __restrict__ kmax, Sched sc, int hq, int hkv) {
-  using S = Cfg32<HD>;
-  constexpr int BQ = S::BQ, NTHREADS = S::NTHREADS, BKV32 = S::BKV32;
-  extern __shared__ __align__(128) unsigned char smem[];
-  float* qs = reinterpret_cast<float*>(smem + S::q_off);
-  float* ks = reinterpret_cast<float*>(smem + S::k_off);
-  float* vs = reinterpret_cast<float*>(smem + S::v_off);
-  float* ss = reinterpret_cast<float*>(smem + S::s_off);
-  float* ps = reinterpret_cast<float*>(smem + S::p_off);
-  float* os = reinterpret_cast<float*>(smem + S::o_off);
-  float* ms = reinterpret_cast<float*>(smem + S::m_off);
-  float* ls = reinterpret_cast<float*>(smem + S::l_off);
-
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int q0 = blockIdx.x * BQ;
-  const int q_last = min(q0 + BQ - 1, sc.n_q - 1);
-  const int b = blockIdx.y;
-  const int kv_row = (b / hq) * hkv + (b % hq) / (hq / hkv);
-  const float* qb = q + (size_t)b * sc.n_q * HD;
-  const float* kb = k + (size_t)kv_row * sc.n_kv * HD;
-  const float* vb = v + (size_t)kv_row * sc.n_kv * HD;
-  const bool bound = kmax != nullptr;
-
-  load_tile<HD>(qs, S::LDQ, qb, q0, sc.n_q, BQ);
-  for (int i = threadIdx.x; i < BQ * S::LDO; i += NTHREADS) os[i] = 0.0f;
-  for (int i = threadIdx.x; i < BQ; i += NTHREADS) {
-    ms[i] = MASK;
-    ls[i] = 0.0f;
-  }
-  if (bound) {
-    // each warp sets its own rows' constant max from the staged q tile
-    __syncthreads();
-    const float kbound = kmax[kv_row] * BOUND_SLACK;
-    for (int r = warp * 16; r < warp * 16 + 16; ++r) {
-      float sq = 0.0f;
-      for (int c = lane; c < HD; c += 32) sq = fmaf(qs[r * S::LDQ + c], qs[r * S::LDQ + c], sq);
-      sq = warp_sum(sq);
-      if (lane == 0) ms[r] = sqrtf(sq) * kbound;
-    }
-  }
-
-  int first, last;
-  kv_range(sc, q0, q_last, BKV32, first, last);
-  for (int st = first; st <= last; ++st) {
-    const int k0 = st * BKV32;
-    const bool full = tile_full(sc, k0, k0 + BKV32 - 1, q0, q_last);
-    __syncthreads();  // previous step done with ks/vs (and init visible)
-    load_tile<HD>(ks, S::LDQ, kb, k0, sc.n_kv, BKV32);
-    load_tile<HD>(vs, S::LDQ, vb, k0, sc.n_kv, BKV32);
-    __syncthreads();
-    // S[16 rows of this warp][BKV32] = Q·Kᵀ
-    for (int r = warp * 16; r < warp * 16 + 16; ++r) {
-      const float* qr = qs + r * S::LDQ;
-      for (int c = lane; c < BKV32; c += 32) {
-        const float* kr = ks + c * S::LDQ;
-        float acc = 0.0f;
-        for (int kk = 0; kk < HD; ++kk) acc = fmaf(qr[kk], kr[kk], acc);
-        ss[r * S::LDS + c] = acc;
-      }
-    }
-    __syncwarp();
-    for (int r = warp * 16; r < warp * 16 + 16; ++r) {
-      const int qpos = q0 + r;
-      float sv[BKV32 / 32];
-      float mx = MASK;
-      for (int j = 0; j < BKV32 / 32; ++j) {
-        const int c = lane + 32 * j;
-        sv[j] = (full || visible(sc, qpos, k0 + c)) ? ss[r * S::LDS + c] : MASK;
-        mx = fmaxf(mx, sv[j]);
-      }
-      const float m_prev = ms[r];
-      // the norm bound is constant: no max pass, alpha = 1, no rescale
-      const float m_next = bound ? m_prev : fmaxf(m_prev, warp_max(mx));
-      const float alpha = bound ? 1.0f : exp2f(m_prev - m_next);
-      float psum = 0.0f;
-      for (int j = 0; j < BKV32 / 32; ++j) {
-        const float pr = exp2f(sv[j] - m_next);
-        psum += pr;
-        ps[r * S::LDS + lane + 32 * j] = pr;
-      }
-      psum = warp_sum(psum);
-      if (!bound)
-        for (int c = lane; c < HD; c += 32) os[r * S::LDO + c] *= alpha;
-      __syncwarp();
-      if (lane == 0) {
-        ms[r] = m_next;
-        ls[r] = alpha * ls[r] + psum;
-      }
-    }
-    __syncwarp();
-    // O[16 rows of this warp][HD] += P·V (O already rescaled by alpha)
-    for (int r = warp * 16; r < warp * 16 + 16; ++r) {
-      const float* pr = ps + r * S::LDS;
-      float* orow = os + r * S::LDO;
-      for (int c = lane; c < HD; c += 32) {
-        float acc = orow[c];
-        for (int kk = 0; kk < BKV32; ++kk) acc = fmaf(pr[kk], vs[kk * S::LDQ + c], acc);
-        orow[c] = acc;
-      }
-    }
-    __syncwarp();
-  }
-
-  __syncthreads();  // init visible to every warp also when no tile ran
-  for (int r = warp * 16; r < warp * 16 + 16; ++r) {
-    const int qpos = q0 + r;
-    if (qpos >= sc.n_q) break;
-    const float l = ls[r], m = ms[r];
-    const bool valid = l > 0.0f && m > MASK * 0.5f;
-    const float l_inv = valid ? 1.0f / l : 0.0f;
-    float* orow = o + ((size_t)b * sc.n_q + qpos) * HD;
-    for (int c = lane; c < HD; c += 32) orow[c] = os[r * S::LDO + c] * l_inv;
-    if (lse != nullptr && lane == 0)
-      lse[(size_t)b * sc.n_q + qpos] = valid ? m * LN2 + logf(l) : -__int_as_float(0x7f800000);
-  }
-}
-
-template <int HD>
-cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o, float* lse,
-                       const float* kmax, const Sched& sc, int bh, int hq, int hkv,
-                       cudaStream_t stream) {
-  auto kern = flash_fwd_f32<HD>;
-  const size_t smem = Cfg32<HD>::bytes;
-  cudaError_t err =
-      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  dim3 grid((sc.n_q + Cfg32<HD>::BQ - 1) / Cfg32<HD>::BQ, bh);
-  kern<<<grid, Cfg32<HD>::NTHREADS, smem, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<float*>(o), lse, kmax, sc, hq, hkv);
-  return cudaGetLastError();
-}
-
 }  // namespace
 
 // q: (bh, n_q, d) prescaled; k, v: (bh / hq · hkv, n_kv, d); o like q;
@@ -575,11 +391,13 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o, flo
 // 3 local_causal (radius), 4 circulant (radius; k, v halo-extended, n_kv =
 // n + 2·radius), 5 block-diagonal (section), 6 shifted and 7
 // shifted_causal (offset the shift, radius -1 or the band, section the
-// wrap, 0 or at least n_q and n_kv). dtype: 0 = float32,
-// 1 = bfloat16. d ∈ {64, 128, 256, 512}, the width of q, k, v and o (the
-// wrapper zero-pads other head and value dims up to the next of these); dv
-// <= d, the value dim the caller reads: at 512 the bf16 kernel computes
-// only the 256-column halves of o that hold it.
+// wrap, 0 or at least n_q and n_kv). dtype: 0 = float32, 1 = bfloat16,
+// 2 = float32 on one TF32 pass (hi·hi alone: the checks' planted fault,
+// which no user path takes). d ∈ {64, 128, 256, 512}, the width of q, k, v
+// and o (the wrapper zero-pads other head and value dims up to the next of
+// these); dv <= d, the value dim the caller reads: at 512 the bf16 kernel
+// computes only the 256-column halves of o that hold it, and in float32 at
+// 256 and 512 a CTA whose 128 columns lie past it writes none of o.
 extern "C" cudaError_t tf_flash_fwd(const void* q, const void* k, const void* v,
                                     void* o, float* lse, const float* kmax,
                                     int bh, int n_q, int n_kv, int hq, int hkv,
@@ -596,11 +414,12 @@ extern "C" cudaError_t tf_flash_fwd(const void* q, const void* k, const void* v,
     if (d == 64) return launch_tc<64>(q, k, v, p, bh, dv, stream);
     if (d == 256) return launch_tc<256>(q, k, v, p, bh, dv, stream);
     if (d == 512) return launch_tc<512>(q, k, v, p, bh, dv, stream);
-  } else if (dtype == 0) {
-    if (d == 128) return launch_f32<128>(q, k, v, o, lse, kmax, sc, bh, hq, hkv, stream);
-    if (d == 64) return launch_f32<64>(q, k, v, o, lse, kmax, sc, bh, hq, hkv, stream);
-    if (d == 256) return launch_f32<256>(q, k, v, o, lse, kmax, sc, bh, hq, hkv, stream);
-    if (d == 512) return launch_f32<512>(q, k, v, o, lse, kmax, sc, bh, hq, hkv, stream);
+  } else if (dtype == 0 || dtype == 2) {
+    const tf_fwd::F32Params p{static_cast<const float*>(q), static_cast<const float*>(k),
+                              static_cast<const float*>(v), static_cast<float*>(o), lse, kmax,
+                              bh, n_q, n_kv, kind, offset, radius, section, hq, hkv, dv,
+                              dtype == 0 ? 3 : 1};
+    return tf_fwd::launch_f32(p, d, stream);
   }
   return cudaErrorInvalidValue;
 }

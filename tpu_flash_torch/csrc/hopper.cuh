@@ -1,7 +1,10 @@
 // Hopper (sm_90a) building blocks shared by the port's TMA + wgmma kernels:
-// B6/B7 (quant_attention.cu), B1 (flash_fwd.cu), B4/B5 (flash_bwd.cu,
-// flash_bwd_f32.cu), B14 (matmul.cu) and B2 (paged_attention.cu).
+// B6/B7 (quant_attention.cu), B1 (flash_fwd.cu, flash_fwd_f32.cuh), B4/B5
+// (flash_bwd.cu, flash_bwd_f32.cuh), B14 (matmul.cu) and B2
+// (paged_attention.cu).
 //
+// - setmaxnreg (a warpgroup's registers) and dynamic shared memory at a
+//   1024-byte boundary;
 // - swizzled shared-memory tiles (swz, tile_off) in the layout TMA writes
 //   under CU_TENSOR_MAP_SWIZZLE_128B / _64B and wgmma reads as SW128 / SW64;
 // - wgmma shared-memory descriptors, K-major (desc) and MN-major (desc_mn);
@@ -41,6 +44,20 @@ __device__ __forceinline__ int swz(int row, int col) {
 template <int PB, int ROWS>
 __device__ __forceinline__ int tile_off(int row, int col) {
   return (col / PB) * (ROWS * PB) + swz<PB>(row, col % PB);
+}
+
+// a warpgroup's registers a thread, raised or lowered to N (setmaxnreg)
+template <int N> __device__ __forceinline__ void reg_alloc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(N));
+}
+template <int N> __device__ __forceinline__ void reg_dealloc() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(N));
+}
+
+// dynamic shared memory at its first 1024-byte boundary (a swizzled
+// tile's base)
+__device__ __forceinline__ uint8_t* align1024(unsigned char* p) {
+  return reinterpret_cast<uint8_t*>((reinterpret_cast<uintptr_t>(p) + 1023) & ~(uintptr_t)1023);
 }
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {

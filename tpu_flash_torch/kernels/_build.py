@@ -11,7 +11,8 @@ kernels), the other sources finishing within it (``paged_attention_wide.cu``
 compiles the 30 above head dim 256 beside it, ``flash_bwd_wide.cu`` the
 bf16 width-512 instantiations of ``flash_bwd_tc.cuh``'s kernels,
 ``flash_bwd_f32_wide.cu`` the float32 ones of widths 256 and 512 of
-``flash_bwd_f32.cuh``'s). The library lands in
+``flash_bwd_f32.cuh``'s, ``flash_fwd_f32_wide.cu`` those of B1's
+``flash_fwd_f32.cuh``). The library lands in
 ``build/tpu_flash_torch/<key>/`` at the repository root, keyed by a hash of
 the flags, the sources and the headers (:func:`build_key`), and is built on
 first use — never at import. A failed build raises with nvcc's output.

@@ -24,7 +24,12 @@ plain PyTorch version :func:`_flash_fwd_plain`; CUDA tensors launch the
 hand-written kernel in ``csrc/flash_fwd.cu`` through
 :func:`_flash_fwd_kernel`, or raise: bf16 on its TMA + ``wgmma`` kernel
 (64 q rows a consumer warpgroup, S, P and O in registers; at width 512 O's
-256-column halves on the grid), float32 on its FMA kernel.
+256-column halves on the grid), float32 on ``csrc/flash_fwd_f32.cuh``'s:
+every product in three TF32 passes on ``wgmma`` (3×TF32) behind a TMA
+ring, O summed transposed, at 256 and 512 the head dim split across a 2-
+or 4-CTA cluster. ``ops/flash_bwd.py:tf32x3`` models that product;
+:func:`_flash_fwd_plain` takes it as ``products=`` for the tests and the
+chip check, and stays exact float32 otherwise.
 
 :class:`_FlashAttention` makes the core differentiable, the counterpart of
 the reference's ``_fa`` custom VJP: its backward is
@@ -175,21 +180,28 @@ def _kv_rows(bh: int, hq: int, hkv: int, device) -> torch.Tensor:
     return (rows // hq) * hkv + (rows % hq) // (hq // hkv)
 
 
+def _exact(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return torch.einsum(eq, a.float(), b.float())
+
+
 def _flash_fwd_plain(q, k, v, sched: Schedule, hq: int, hkv: int,
-                     bound_max: bool = False):
+                     bound_max: bool = False, products=None):
     """Plain PyTorch forward on prescaled ``(B·HQ, n_q, d)`` q and
     ``(B·HKV, n_kv, d)`` k/v → (o in q's dtype, lse f32 ``(B·HQ, n_q)``).
 
     One full score matrix with the schedule's visibility (``visible``)
     instead of the kernel's online softmax: the max is the row's exact max either way (or the same
     constant norm bound under ``bound_max``), so the two differ only by
-    rounding.
+    rounding. ``products``: the (eq, a, b) → float32 product of S = Q·Kᵀ
+    and of P·V (default exact float32; ``ops/flash_bwd.py:tf32x3`` models
+    the card's float32 kernel, which no main path passes).
     """
     bh, n_q, _ = q.shape
     n_kv = k.shape[1]
     rows = _kv_rows(bh, hq, hkv, q.device)
     kq, vq = k[rows], v[rows]
-    s = torch.einsum("bqd,bkd->bqk", q.float(), kq.float())
+    mm = _exact if products is None else products
+    s = mm("bqd,bkd->bqk", q.float(), kq.float())
     mask = sched.visible(torch.arange(n_q, device=q.device)[:, None],
                          torch.arange(n_kv, device=q.device)[None, :])
     if mask is not None:
@@ -201,7 +213,7 @@ def _flash_fwd_plain(q, k, v, sched: Schedule, hq: int, hkv: int,
         m = s.amax(dim=-1, keepdim=True)
     p = torch.exp2(s - m)
     l = p.sum(dim=-1, keepdim=True)
-    acc = torch.einsum("bqk,bkd->bqd", p.to(v.dtype).float(), vq.float())
+    acc = mm("bqk,bkd->bqd", p.to(v.dtype).float(), vq.float())
     valid = (l > 0.0) & (m > DEFAULT_MASK_VALUE * 0.5)
     l_safe = torch.where(l > 0.0, l, 1.0)
     o = (acc * torch.where(valid, 1.0 / l_safe, 0.0)).to(q.dtype)
@@ -257,8 +269,15 @@ def slice_head_dims(t: torch.Tensor, dim: int) -> torch.Tensor:
     return t if t.shape[-1] == dim else t[..., :dim].contiguous()
 
 
+# dtype code of float32 on one TF32 pass (csrc/flash_fwd.cu:tf_flash_fwd):
+# the checks' planted fault, reached only through _flash_fwd_kernel's
+# tf32_passes
+_F32_ONE_PASS = 2
+
+
 def _flash_fwd_kernel(q, k, v, sched: Schedule, hq: int, hkv: int,
-                      need_lse: bool, bound_max: bool = False, kmax=None):
+                      need_lse: bool, bound_max: bool = False, kmax=None,
+                      tf32_passes: int = 3):
     """Launch ``csrc/flash_fwd.cu`` on CUDA tensors (same contract as
     :func:`_flash_fwd_plain`). Ragged edges are masked in the kernel; head
     and value dims are zero-padded to the compiled width
@@ -266,9 +285,13 @@ def _flash_fwd_kernel(q, k, v, sched: Schedule, hq: int, hkv: int,
     schedule's kind, causal offset, band radius and section and walks its
     own tiles (k/v of a circulant schedule are the halo-extended ones).
     Under ``bound_max``, ``kmax`` may hold ``key_norm_max(k)`` computed
-    beforehand (so that the kernel can be timed alone)."""
+    beforehand (so that the kernel can be timed alone). ``tf32_passes=1``
+    (float32 only) runs the float32 kernel on one TF32 pass, hi·hi alone: a
+    planted fault for the checks, which no user path takes."""
     from tpu_flash_torch.kernels import _build
 
+    if tf32_passes != 3 and (tf32_passes != 1 or q.dtype != torch.float32):
+        raise ValueError(f"tf32_passes={tf32_passes} on {q.dtype}")
     sched_args = kernel_schedule(sched)
     if not (q.is_cuda and k.device == q.device and v.device == q.device):
         raise ValueError("flash kernel: q, k, v must be on one CUDA device")
@@ -297,7 +320,7 @@ def _flash_fwd_kernel(q, k, v, sched: Schedule, hq: int, hkv: int,
         None if lse is None else lse.data_ptr(),
         None if kmax is None else kmax.data_ptr(),
         bh, n_q, n_kv, hq, hkv, width, dv, *sched_args,
-        kernels.dtype_code(q.dtype),
+        _F32_ONE_PASS if tf32_passes == 1 else kernels.dtype_code(q.dtype),
         kernels.stream_handle(q),
     )
     _build.check(err, "tf_flash_fwd")

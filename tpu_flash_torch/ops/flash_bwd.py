@@ -59,6 +59,7 @@ from tpu_flash_torch.ops.flash import (
     LN2,
     LOG2E,
     _aligned,
+    _exact,
     _kv_rows,
     kernel_head_dim,
     kernel_schedule,
@@ -164,10 +165,6 @@ def tf32x3(eq: str, a: torch.Tensor, b: torch.Tensor,
     if passes == 3:
         out = out + torch.einsum(eq, ah, bl) + torch.einsum(eq, al, bh)
     return out
-
-
-def _exact(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    return torch.einsum(eq, a.float(), b.float())
 
 
 def _flash_bwd_plain(q, k, v, o, lse, do, dlse, sched: Schedule, hq: int,
